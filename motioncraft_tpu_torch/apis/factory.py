@@ -1,0 +1,94 @@
+"""Canonical model configs and batch factories (copies of the config functions
+of motioncraft_tpu/apis/factory.py).
+
+``flagship_t2m_cfg`` is the 0.125B STMoGen T2M config
+(configs/stmogen/t2m_motionx_0_125b.py): 4 layers, 12 heads x 128, MoE with
+16 experts top-2 cosine gate, CLIP ViT-B/32 text tower, DDIM-50
+('15,15,8,6,6') eval sampler, CFG scale 6.5.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..models.tokenizer import tokenize
+
+
+def flagship_t2m_cfg(*, num_layers: int = 4, latent_dim: int = 128, num_heads: int = 12,
+                     max_seq_len: int = 196, input_feats: int = 322,
+                     text_latent_dim: int = 256, ff_size: int = 512,
+                     time_embed_dim: int = 2048, num_experts: int = 16,
+                     clip_width: int = 512, clip_layers: int = 12,
+                     respace: str = "15,15,8,6,6", expert_axis: Optional[str] = None,
+                     dropout: float = 0.0) -> dict:
+    return dict(
+        type="MotionDiffusion",
+        model=dict(
+            type="STMoGenTransformer",
+            input_feats=input_feats,
+            max_seq_len=max_seq_len,
+            latent_dim=latent_dim * num_heads,
+            time_embed_dim=time_embed_dim,
+            num_layers=num_layers,
+            ca_block_cfg=dict(type="STMA", latent_dim=latent_dim,
+                              text_latent_dim=text_latent_dim, num_heads=num_heads,
+                              num_text_heads=1, num_experts=num_experts, topk=2,
+                              gate_type="cosine_top", gate_noise=1.0, ffn_dim=ff_size,
+                              time_embed_dim=time_embed_dim, max_seq_len=max_seq_len,
+                              max_text_seq_len=77, temporal_comb=False,
+                              dropout=dropout, dynamic_body=True,
+                              expert_axis=expert_axis),
+            ffn_cfg=dict(latent_dim=latent_dim, ffn_dim=ff_size, dropout=dropout,
+                         time_embed_dim=time_embed_dim, num_heads=num_heads),
+            text_encoder=dict(pretrained_model="clip", latent_dim=text_latent_dim,
+                              num_layers=2, ff_size=2048, dropout=dropout,
+                              use_text_proj=False, clip_width=clip_width,
+                              clip_layers=clip_layers),
+            pose_encoder_cfg=dict(dataset_name="motionx", latent_dim=latent_dim,
+                                  input_dim=input_feats),
+            pose_decoder_cfg=dict(dataset_name="motionx", latent_dim=latent_dim,
+                                  output_dim=input_feats),
+            scale_func_cfg=dict(scale=6.5),
+            moe_route_loss_weight=10.0,
+            template_kl_loss_weight=0.0001,
+            use_pos_embedding=True,
+        ),
+        loss_recon=dict(type="MSELoss", loss_weight=1, reduction="none"),
+        face_no_loss=True,
+        diffusion_train=dict(beta_scheduler="linear", diffusion_steps=1000,
+                             model_mean_type="start_x", model_var_type="fixed_large"),
+        diffusion_test=dict(beta_scheduler="linear", diffusion_steps=1000,
+                            model_mean_type="start_x", model_var_type="fixed_large",
+                            respace=respace),
+        inference_type="ddim",
+        loss_reduction="batch",
+    )
+
+
+def tiny_t2m_cfg(expert_axis: Optional[str] = None, max_seq_len: int = 16) -> dict:
+    """Scaled-down flagship for tests (same topology, tiny dims)."""
+    return flagship_t2m_cfg(num_layers=2, latent_dim=8, max_seq_len=max_seq_len,
+                            text_latent_dim=16, ff_size=16, time_embed_dim=32,
+                            clip_width=32, clip_layers=1, respace="4",
+                            expert_axis=expert_axis)
+
+
+def make_text_batch(texts, max_seq_len: int = 196, input_feats: int = 322,
+                    motion: Optional[np.ndarray] = None,
+                    lengths: Optional[np.ndarray] = None) -> dict:
+    """One request batch as numpy arrays: zero motion (only its shape is
+    read by sampling), the frame mask from ``lengths`` and CLIP token ids."""
+    B = len(texts)
+    if motion is None:
+        motion = np.zeros((B, max_seq_len, input_feats), np.float32)
+    if lengths is None:
+        lengths = np.full((B, 1), max_seq_len, np.int32)
+    mask = (np.arange(max_seq_len)[None, :] < lengths).astype(np.float32)
+    return {
+        "motion": np.asarray(motion, np.float32),
+        "motion_mask": mask,
+        "motion_length": np.asarray(lengths, np.int32),
+        "text_ids": tokenize(list(texts)),
+    }

@@ -1,0 +1,169 @@
+"""STMoGenTransformer, MotionCraft's flagship denoiser (PyTorch port of the
+sampling path of motioncraft_tpu/models/stmogen.py).
+
+  - PoseEncoder / PoseDecoder: per-body-part linear projections through
+    static index tables; the decoder scatters the part heads back through an
+    inverse permutation and averages them with the whole-body head, which is
+    added as it is.
+  - The decoder stack is STMoGenDecoderLayer (STMA + SFFN).
+  - forward_test: classifier-free guidance on the doubled batch (text, then
+    unconditional), mixed by w = (1 - (1000 - t) / 1000) * scale + 1;
+    layer 0 computes its motion branch once for both halves (cfg_dedup), and
+    the text MoE of every layer comes precomputed once per sampling call
+    (precompute_text_feats, on the doubled batch so MoE capacity matches).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..registry import ATTENTIONS, SUBMODULES
+from . import body_layout
+from .blocks import SFFN
+from .diffusion_transformer import DiffusionTransformerBase
+
+
+class PoseEncoder(nn.Module):
+    """Per-body-part linear embedding plus the whole-body embedding."""
+
+    def __init__(self, dataset_name: str = "human_ml3d", latent_dim: int = 64,
+                 input_dim: int = 263, patch_size: int = 1, joints: bool = False,
+                 body_graph: bool = False):
+        super().__init__()
+        if patch_size != 1 or joints or body_graph:
+            raise NotImplementedError("PoseEncoder with patch_size > 1, joints or body_graph")
+        parts = body_layout.part_slices(dataset_name)
+        body = body_layout.body_slice(dataset_name)
+        if len(set(body)) != input_dim:
+            raise ValueError(f"{dataset_name} body layout does not cover {input_dim} dims")
+        self.names = list(parts)
+        for name, sl in parts.items():
+            self.register_buffer(f"{name}_index", torch.as_tensor(sl), persistent=False)
+            self.add_module(f"{name}_embed", nn.Linear(len(sl), latent_dim))
+        self.register_buffer("body_index", torch.as_tensor(body), persistent=False)
+        self.body_embed = nn.Linear(len(body), latent_dim)
+
+    def forward(self, motion):
+        feats = [getattr(self, f"{n}_embed")(motion[..., getattr(self, f"{n}_index")])
+                 for n in self.names]
+        feats.append(self.body_embed(motion[..., self.body_index]))
+        return torch.cat(feats, dim=-1)
+
+
+class PoseDecoder(nn.Module):
+    """Per-part linear heads scattered back through an inverse permutation,
+    averaged with the whole-body head."""
+
+    def __init__(self, dataset_name: str = "human_ml3d", latent_dim: int = 64,
+                 output_dim: int = 263, patch_size: int = 1, joints: bool = False,
+                 zero_init: bool = True):
+        super().__init__()
+        if patch_size != 1 or joints:
+            raise NotImplementedError("PoseDecoder with patch_size > 1 or joints")
+        parts = body_layout.part_slices(dataset_name)
+        self.names = list(parts)
+        self.latent_dim = latent_dim
+        flat = sum(parts.values(), [])
+        self.register_buffer("inv", torch.as_tensor(
+            body_layout.inverse_permutation(flat, output_dim), dtype=torch.long),
+            persistent=False)
+        for name, sl in parts.items():
+            self.add_module(f"{name}_out", nn.Linear(latent_dim, len(sl)))
+        self.body_out = nn.Linear(latent_dim, output_dim)
+        if zero_init:
+            for p in self.parameters():
+                nn.init.zeros_(p)
+
+    def forward(self, motion):
+        D = self.latent_dim
+        outs = [getattr(self, f"{n}_out")(motion[:, :, i * D:(i + 1) * D])
+                for i, n in enumerate(self.names)]
+        scattered = torch.cat(outs, dim=-1)[..., self.inv]
+        body = self.body_out(motion[:, :, len(self.names) * D:])
+        return (scattered + body) / 2.0
+
+
+class STMoGenDecoderLayer(nn.Module):
+    """ca_block (STMA) + ffn (SFFN)."""
+
+    def __init__(self, ca_block_cfg: dict, ffn_cfg: dict):
+        super().__init__()
+        self.ca_block = ATTENTIONS.build(ca_block_cfg)
+        cfg = dict(ffn_cfg)
+        self.ffn = SFFN(latent_dim=cfg.pop("latent_dim"), ffn_dim=cfg.pop("ffn_dim"),
+                        num_heads=cfg.pop("num_heads"), dropout=cfg.pop("dropout", 0.0),
+                        time_embed_dim=cfg.pop("time_embed_dim", 2048))
+        if cfg:
+            raise TypeError(f"unknown ffn_cfg keys {sorted(cfg)}")
+
+    def forward(self, x, xf, emb, src_mask, cond_type, cfg_dedup=False, text_feat=None):
+        x = self.ca_block(x, xf=xf, emb=emb, src_mask=src_mask, cond_type=cond_type,
+                          cfg_dedup=cfg_dedup, text_feat=text_feat)
+        return self.ffn(x, emb)
+
+
+@SUBMODULES.register_module()
+class STMoGenTransformer(DiffusionTransformerBase):
+    """MotionCraft main model: body-part PoseEncoder/Decoder + STMA/SFFN
+    stack, CFG test forward only."""
+
+    def __init__(self, input_feats: int = 263, max_seq_len: int = 240,
+                 latent_dim: int = 512, time_embed_dim: int = 2048, num_layers: int = 8,
+                 ca_block_cfg: Optional[dict] = None, ffn_cfg: Optional[dict] = None,
+                 text_encoder: Optional[dict] = None, use_pos_embedding: bool = True,
+                 pose_encoder_cfg: Optional[dict] = None,
+                 pose_decoder_cfg: Optional[dict] = None, patch_size: int = 1,
+                 scale_func_cfg: Optional[dict] = None,
+                 moe_route_loss_weight: float = 1.0,
+                 template_kl_loss_weight: float = 0.0001,
+                 pipeline_axis: Optional[str] = None):
+        super().__init__(input_feats, max_seq_len, latent_dim, time_embed_dim,
+                         num_layers, text_encoder, use_pos_embedding)
+        if pipeline_axis is not None:
+            raise NotImplementedError("pipeline_axis (pipeline parallelism)")
+        if ca_block_cfg is None or ffn_cfg is None or isinstance(ffn_cfg, (list, tuple)):
+            raise NotImplementedError("STMoGenTransformer needs one ca_block_cfg and "
+                                      "one ffn_cfg for every layer")
+        # the loss weights serve training, which is not ported; kept for the record
+        self.moe_route_loss_weight = moe_route_loss_weight
+        self.template_kl_loss_weight = template_kl_loss_weight
+        self.scale = (scale_func_cfg or {}).get("scale", 6.5)
+        self.joint_embed = PoseEncoder(**(pose_encoder_cfg or {}), patch_size=patch_size)
+        self.out = PoseDecoder(**(pose_decoder_cfg or {}), patch_size=patch_size)
+        for i in range(num_layers):
+            self.add_module(f"block_{i}", STMoGenDecoderLayer(ca_block_cfg, ffn_cfg))
+
+    @property
+    def blocks(self):
+        return [getattr(self, f"block_{i}") for i in range(self.num_layers)]
+
+    def scale_func(self, timestep: torch.Tensor):
+        """Timestep-dependent CFG weights (text, unconditional)."""
+        w = (1 - (1000 - timestep.to(torch.float32)) / 1000) * self.scale + 1
+        return w, 1 - w
+
+    def precompute_text_feats(self, xf_out):
+        """Per-layer text features [2B, 77, 1, 2L], computed once per sampling
+        call on the CFG-doubled batch: MoE capacity and drops depend on the
+        token count, so an undoubled batch would route differently."""
+        xf2 = torch.cat([xf_out, xf_out], dim=0)
+        return tuple(block.ca_block.text_branch(xf2) for block in self.blocks)
+
+    def forward_test(self, h, src_mask, emb, xf_out, motion_length=None,
+                     timesteps=None, text_feats=None):
+        B, T = h.shape[:2]
+        all_cond = torch.cat([torch.ones(B, 1, 1), torch.zeros(B, 1, 1)]).to(h.device)
+        h2 = torch.cat([h, h])
+        xf2 = torch.cat([xf_out, xf_out])
+        emb2 = torch.cat([emb, emb])
+        mask2 = torch.cat([src_mask, src_mask])
+        for i, block in enumerate(self.blocks):
+            h2 = block(h2, xf2, emb2, mask2, all_cond, cfg_dedup=i == 0,
+                       text_feat=None if text_feats is None else text_feats[i])
+        out = self.out(h2).reshape(2 * B, T, -1)
+        text_coef, none_coef = self.scale_func(timesteps[0])
+        return out[:B] * text_coef + out[B:] * none_coef
+

@@ -1,0 +1,127 @@
+"""CLIP ViT-B/32 text tower + the finetuned post-LN transformer (PyTorch port
+of motioncraft_tpu/models/text_encoder.py).
+
+Token and positional embeddings, pre-LN blocks with QuickGELU under a causal
+mask, ln_final; then a pre-projection to the text latent width, two post-LN
+encoder layers (torch nn.TransformerEncoderLayer semantics, exact-erf GELU)
+and a LayerNorm.  The attention is written out (einsum + softmax) as in the
+JAX package, so both compute the same sums.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .blocks import LayerNorm
+
+
+def quick_gelu(x):
+    return x * torch.sigmoid(1.702 * x)
+
+
+class ClipAttention(nn.Module):
+    def __init__(self, width: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.in_proj = nn.Linear(width, 3 * width)
+        self.out_proj = nn.Linear(width, width)
+
+    def forward(self, x, mask=None):
+        B, T, C = x.shape
+        qkv = self.in_proj(x).reshape(B, T, 3, self.heads, C // self.heads)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        attn = torch.einsum("bqhd,bkhd->bhqk", q * (C // self.heads) ** -0.5, k)
+        if mask is not None:
+            attn = attn + mask
+        y = torch.einsum("bhqk,bkhd->bqhd", attn.softmax(dim=-1), v).reshape(B, T, C)
+        return self.out_proj(y)
+
+
+class ClipBlock(nn.Module):
+    def __init__(self, width: int, heads: int):
+        super().__init__()
+        self.attn = ClipAttention(width, heads)
+        self.ln_1 = LayerNorm(width)
+        self.ln_2 = LayerNorm(width)
+        self.mlp_fc = nn.Linear(width, 4 * width)
+        self.mlp_proj = nn.Linear(4 * width, width)
+
+    def forward(self, x, mask=None):
+        x = x + self.attn(self.ln_1(x), mask)
+        return x + self.mlp_proj(quick_gelu(self.mlp_fc(self.ln_2(x))))
+
+
+class ClipTextModel(nn.Module):
+    """OpenAI CLIP text transformer (ViT-B/32: 512 wide, 12 layers, 8 heads,
+    context 77, causal mask); returns the ln_final features [B, 77, width]."""
+
+    def __init__(self, vocab_size: int = 49408, context_length: int = 77,
+                 width: int = 512, layers: int = 12, heads: int = 8):
+        super().__init__()
+        self.layers = layers
+        self.token_embedding = nn.Embedding(vocab_size, width)
+        self.positional_embedding = nn.Parameter(torch.randn(context_length, width) * 0.01)
+        for i in range(layers):
+            self.add_module(f"resblock_{i}", ClipBlock(width, heads))
+        self.ln_final = LayerNorm(width)
+
+    def forward(self, text_ids):
+        T = text_ids.shape[1]
+        x = self.token_embedding(text_ids) + self.positional_embedding[None, :T]
+        causal = torch.full((T, T), float("-inf"), device=x.device).triu(1)[None, None]
+        for i in range(self.layers):
+            x = getattr(self, f"resblock_{i}")(x, causal)
+        return self.ln_final(x)
+
+
+class PostLNEncoderLayer(nn.Module):
+    """torch nn.TransformerEncoderLayer semantics (post-LN, full attention),
+    inference only."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 dropout: float = 0.0, activation: str = "gelu"):
+        super().__init__()
+        if activation not in ("gelu", "relu"):
+            raise NotImplementedError(f"activation {activation!r}")
+        self.act = F.gelu if activation == "gelu" else F.relu
+        self.self_attn = ClipAttention(d_model, nhead)
+        self.norm1 = LayerNorm(d_model)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm2 = LayerNorm(d_model)
+
+    def forward(self, x):
+        x = self.norm1(x + self.self_attn(x))
+        return self.norm2(x + self.linear2(self.act(self.linear1(x))))
+
+
+class TextEncoder(nn.Module):
+    """CLIP (frozen) -> pre-projection -> finetuned transformer -> LayerNorm;
+    returns xf_out [B, 77, latent_dim]."""
+
+    def __init__(self, latent_dim: int = 256, num_layers: int = 2, ff_size: int = 2048,
+                 num_heads: int = 4, dropout: float = 0.0, activation: str = "gelu",
+                 use_text_proj: bool = False, time_embed_dim: int = 2048,
+                 clip_width: int = 512, clip_layers: int = 12):
+        super().__init__()
+        if use_text_proj:
+            raise NotImplementedError("use_text_proj (pooled text projection)")
+        self.num_layers = num_layers
+        self.clip = ClipTextModel(width=clip_width, layers=clip_layers,
+                                  heads=max(1, clip_width // 64))
+        self.text_pre_proj = (nn.Linear(clip_width, latent_dim)
+                              if latent_dim != clip_width else None)
+        for i in range(num_layers):
+            self.add_module(f"textTransEncoder_{i}", PostLNEncoderLayer(
+                latent_dim, num_heads, ff_size, dropout, activation))
+        self.text_ln = LayerNorm(latent_dim)
+
+    def forward(self, text_ids):
+        x = self.clip(text_ids)
+        if self.text_pre_proj is not None:
+            x = self.text_pre_proj(x)
+        for i in range(self.num_layers):
+            x = getattr(self, f"textTransEncoder_{i}")(x)
+        return self.text_ln(x)

@@ -1,0 +1,41 @@
+"""The PyTorch port imports nothing of JAX, flax or the JAX package."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "motioncraft_tpu_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "tools" / "profile_torch_sample.py"]
+FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|motioncraft_tpu)(\.|\s|$)",
+                       re.MULTILINE)
+
+_BLOCKED = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "motioncraft_tpu"):
+    sys.modules[name] = None  # any import of these raises ImportError
+import motioncraft_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(motioncraft_tpu_torch.__path__,
+                                               "motioncraft_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+print(len(names))
+"""
+
+
+def test_port_imports_with_jax_flax_and_the_jax_package_blocked():
+    out = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20  # every module of the port was imported
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path} imports {hits}"
