@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship text-to-motion sampling on one NVIDIA
-GPU and hold each of its CUDA kernels against its plain PyTorch version.
+"""Drive the PyTorch port's flagship text-to-motion sampling and training on
+one NVIDIA GPU and hold each of its CUDA kernels against its plain PyTorch
+version.
 
 Run from the root of the repository, on a machine with one card and the CUDA
 toolkit:
@@ -11,8 +12,9 @@ Phases; any failure exits non-zero:
   1. the card's name and power limit; build the kernels from
      motioncraft_tpu_torch/csrc/ with nvcc for sm_90a
   2. each kernel against its plain version on the same inputs, at the
-     shapes of phase 4: max abs error against its tolerance; kernel and
-     plain times from CUDA events; the least time the card could take
+     shapes of phase 4 (K1-K4) and of phase 7 (K5, K6, at B = 32): max abs
+     error against its tolerance; kernel and plain times from CUDA events;
+     the least time the card could take
   3. the flagship MotionDiffusion (configs/stmogen/t2m_motionx_0_125b.py) on
      the card, with seeded fabricated weights
   4. two batches of 16 requests (T = 196, varied lengths) through
@@ -22,7 +24,15 @@ Phases; any failure exits non-zero:
   6. one flagship forward_test on the card against the same weights and
      inputs on the CPU (plain versions), B = 2, the CPU's MoE gates fed the
      card's gate logits so that a near-tie cannot route a token differently
-  7. one JSON line of the kernels' numbers, and last the device line
+  7. train_model on the same flagship (Adam lr 2e-4, the config's recipe):
+     1 warm-up + 3 steps of B = 32 seeded synthetic batches (T = 196,
+     lengths 40-196); finite losses, every trainable parameter moved, CLIP
+     unchanged bit for bit; per-step wall ms, max memory allocated, and the
+     launches per step (K5 = 4, K6 = K4 = 8, K1-K3 none)
+  8. one flagship training loss and every parameter's gradient on the card
+     against the CPU, B = 2, gate noise 0, the CPU's gate logits pinned to
+     the card's as in phase 6
+  9. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -42,19 +52,28 @@ F32_PEAK = 67e12      # H100 SXM CUDA-core f32, FLOP/s (exact f32: no TF32)
 HBM_PEAK = 3.35e12    # H100 SXM device memory, bytes/s
 KERNEL_REL_TOL = 1e-4   # kernel vs plain: max abs err <= tol * max |plain|
 MODEL_REL_TOL = 1e-4    # card vs CPU forward: <= tol * max(1, max |CPU|)
+# card vs CPU gradient, per tensor: <= tol * max(1, max |CPU|); a gradient
+# sums the whole batch, the card's MoE gathers add theirs back with atomics
+# in a varying order, and the f32 products sum in other orders
+GRAD_REL_TOL = 1e-3
 BATCH, BATCHES, SEED = 16, 2, 0
+TRAIN_BATCH, TRAIN_STEPS = 32, 4  # 1 warm-up + 3 timed
 
 PALLAS = {
     "moe_positions": "motioncraft_tpu/ops/pallas_moe.py:54",
     "grouped_ffn": "motioncraft_tpu/ops/pallas_moe_ffn.py:46",
     "head_ffn": "motioncraft_tpu/ops/pallas_sffn.py:41",
     "stma_linear_attention": "motioncraft_tpu/ops/pallas_stma_attention.py:74",
+    "fused_linear_attention": "motioncraft_tpu/ops/pallas_attention.py:111",
+    "fused_expert_ffn": "motioncraft_tpu/ops/pallas_ffn.py:86",
 }
 SOURCES = {
     "moe_positions": "motioncraft_tpu_torch/csrc/moe_positions.cu",
     "grouped_ffn": "motioncraft_tpu_torch/csrc/moe_ffn.cu",
     "head_ffn": "motioncraft_tpu_torch/csrc/sffn.cu",
     "stma_linear_attention": "motioncraft_tpu_torch/csrc/stma_attention.cu",
+    "fused_linear_attention": "motioncraft_tpu_torch/csrc/linear_attention.cu",
+    "fused_expert_ffn": "motioncraft_tpu_torch/csrc/expert_ffn.cu",
 }
 
 
@@ -87,7 +106,8 @@ def bound(flops, nbytes):
 
 
 def flagship_inputs(torch, cfg, dev):
-    """Inputs of every kernel at the shapes the phase-4 batches give them."""
+    """Inputs of every kernel at the shapes the phase-4 batches (K1-K4) and
+    the phase-7 training steps (K5, K6) give them."""
     from motioncraft_tpu_torch.ops.moe_ffn import BLOCK
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -117,7 +137,32 @@ def flagship_inputs(torch, cfg, dev):
     lengths = torch.randint(min(40, T), T + 1, (B2,), generator=g, device=dev)
     mask = (torch.arange(T, device=dev)[None] < lengths[:, None]).float()[..., None]
     tcond = torch.cat([torch.ones(B2 // 2), torch.zeros(B2 // 2)]).to(dev).reshape(B2, 1, 1)
+
+    # training at B = 32: STMA's global attention over 77 text + T motion
+    # keys (masked past each length, text off for 1 in 10), and the slot
+    # buffers of the motion and the text MoE (filled up to their loads)
+    Bt = TRAIN_BATCH
+    t_len = torch.randint(min(40, T), T + 1, (Bt,), generator=g, device=dev)
+    key_mask = torch.cat([(torch.rand(Bt, 1, generator=g, device=dev) > 0.1).float()
+                          .expand(Bt, TXT),
+                          (torch.arange(T, device=dev)[None] < t_len[:, None]).float()],
+                         dim=1)[:, :, None, None]
+    la = (r(Bt, T, H, L), r(Bt, TXT + T, H, L) + (1 - key_mask) * -1e6,
+          r(Bt, TXT + T, H, L) * key_mask)
+
+    def slots_case(n_tokens, d, hid):
+        cap = K * int(1.5 * ((n_tokens + E - 1) // E))
+        ids = torch.randint(0, E, (K * n_tokens,), generator=g, device=dev)
+        fill = torch.bincount(ids, minlength=E).clamp(max=cap)
+        xe = r(E, cap, d) * (torch.arange(cap, device=dev)[None] < fill[:, None])[..., None]
+        return (xe, r(E, d, hid) / math.sqrt(d), r(E, hid) * 0.1,
+                r(E, hid, d) / math.sqrt(hid), r(E, d) * 0.1)
+
     return {
+        "fused_linear_attention": [la],
+        "fused_expert_ffn": [slots_case(Bt * T * H, L, 4 * L),
+                             slots_case(Bt * TXT, ca["text_latent_dim"],
+                                        4 * ca["text_latent_dim"])],
         "moe_positions": [pos_motion, pos_text],
         "grouped_ffn": [ffn_motion, ffn_text],
         "head_ffn": [(r(B2 * T, H * L), r(H, L, f) / math.sqrt(L), r(H, f) * 0.1,
@@ -143,6 +188,16 @@ def kernel_bound(name, args):
         f = w1.shape[2]
         nbytes = 4 * (2 * x.numel() + w1.numel() + b1.numel() + w2.numel() + b2.numel())
         return bound(4 * n * hd * f, nbytes)
+    if name == "fused_linear_attention":
+        q, k, v = args
+        B, T, H, d = q.shape
+        N = k.shape[1]
+        return bound(2 * B * H * (N + T) * d * d, 4 * (2 * q.numel() + k.numel() + v.numel()))
+    if name == "fused_expert_ffn":
+        xe, w1, b1, w2, b2 = args
+        E, C, d = xe.shape
+        nbytes = 4 * (2 * xe.numel() + w1.numel() + b1.numel() + w2.numel() + b2.numel())
+        return bound(4 * E * C * d * w1.shape[2], nbytes)
     mot, txt, mask, tcond = args
     B, T, H, d4 = mot.shape
     d, TXT = d4 // 4, txt.shape[1]
@@ -225,7 +280,8 @@ def phase_e2e(torch, arch):
     want = {"moe_positions": BATCHES * layers * (steps + 1),
             "grouped_ffn": BATCHES * layers * (steps + 1),
             "head_ffn": BATCHES * layers * steps,
-            "stma_linear_attention": BATCHES * layers * steps}
+            "stma_linear_attention": BATCHES * layers * steps,
+            "fused_linear_attention": 0, "fused_expert_ffn": 0}
     check(counts == want, f"launch counts {counts} != expected {want}")
     spread = float(np.std([r["pred_motion"] for r in results], axis=0).mean())
     print(f"[e2e] steps {steps}, layers {layers}; mean spread across samples {spread:.4g}")
@@ -305,6 +361,130 @@ def phase_parity(torch, cfg, arch, sd):
         check(diff <= MODEL_REL_TOL * scale, f"{what} card vs CPU: {diff} > tol")
 
 
+def phase_train(torch, full_cfg, arch):
+    """Phase 7: train_model on the flagship, B = 32, with counts."""
+    import numpy as np
+    from motioncraft_tpu_torch.apis import make_train_batch, train_model
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    T = arch.model.max_seq_len
+    batches = [make_train_batch(TRAIN_BATCH, seed=SEED + i, max_seq_len=T)
+               for i in range(TRAIN_STEPS)]
+    before = {k: v.clone() for k, v in arch.model.state_dict().items()}
+    lines = []
+
+    def log(msg):
+        lines.append(msg)
+        print(f"[train] {msg}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = train_model(arch, batches, optimizer_cfg=full_cfg["optimizer"],
+                        lr_config=full_cfg["lr_config"], max_epochs=1,
+                        steps_per_epoch=TRAIN_STEPS, seed=SEED, log_interval=1, logger=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(state.step == TRAIN_STEPS and not arch.training, "train_model did not finish")
+    losses = [float(m.split(" loss=")[1].split()[0]) for m in lines if " loss=" in m]
+    step_ms = [float(m.split("step_ms=")[1]) for m in lines if "step_ms=" in m]
+    check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(), f"losses {losses}")
+    after = arch.model.state_dict()
+    trainable = {n for n, p in arch.model.named_parameters() if p.requires_grad}
+    frozen = [n for n in before if n.startswith("text_enc.clip.")]
+    moved = [n for n in trainable if not torch.equal(after[n], before[n])]
+    check(frozen and all(torch.equal(after[n], before[n]) for n in frozen),
+          "a frozen CLIP parameter changed")
+    # face_no_loss masks the face features out of the loss, so the face head
+    # gets an exactly zero gradient and Adam leaves it where it is
+    still = sorted(trainable - set(moved))
+    check(all(n.startswith("out.face_out.") for n in still),
+          f"trainable parameters that did not move: {still[:5]}")
+    layers = arch.model.num_layers
+    per_step = {"moe_positions": 2 * layers, "grouped_ffn": 0, "head_ffn": 0,
+                "stma_linear_attention": 0, "fused_linear_attention": layers,
+                "fused_expert_ffn": 2 * layers}
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    print(f"[train] {TRAIN_STEPS} steps of B={TRAIN_BATCH} in {wall:.3f} s; step wall ms "
+          f"{step_ms} (first = warm-up); max memory allocated {peak / 2**30:.3f} GiB; "
+          f"{len(moved)} of {len(trainable)} trainable tensors moved (not: {still}), "
+          f"{len(frozen)} CLIP tensors unchanged; launches {counts}")
+    check(counts == want, f"training launch counts {counts} != expected {want}")
+    return counts
+
+
+def phase_train_parity(torch, cfg, sd):
+    """Phase 8: one training loss and its gradients, card vs CPU, B = 2,
+    gate noise 0 on both; the CPU's gates take the card's gate logits (as
+    values; the gradient flows through its own gate), so a near-tie cannot
+    route a token differently."""
+    import copy
+    from motioncraft_tpu_torch.apis import make_train_batch
+    from motioncraft_tpu_torch.models.moe import CosineTopGate
+    from motioncraft_tpu_torch.registry import build_architecture
+
+    tcfg = copy.deepcopy(cfg)
+    tcfg["model"]["ca_block_cfg"]["gate_noise"] = 0.0
+    batch = make_train_batch(2, seed=SEED + 200, max_seq_len=cfg["model"]["max_seq_len"])
+    g = torch.Generator().manual_seed(SEED + 8)
+    draws = dict(t=torch.randint(0, 1000, (2,), generator=g),
+                 noise=torch.randn(batch["motion"].shape, generator=g),
+                 cond_type=torch.tensor([37, 4]).reshape(2, 1, 1))  # text on, text off
+    class Pin(torch.autograd.Function):
+        """The card's value, the identity's gradient."""
+
+        @staticmethod
+        def forward(ctx, out, value):
+            return value.clone()
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad, None
+
+    card_logits, replayed, results = [], [], {}
+
+    def record(mod, inp, out):
+        card_logits.append(out.detach().cpu())
+
+    def replay(mod, inp, out):
+        want = card_logits[len(replayed)]
+        replayed.append(out)
+        return Pin.apply(out, want)
+
+    for label, dev, hook in (("cuda", "cuda", record), ("cpu", "cpu", replay)):
+        a = build_architecture(tcfg, device=dev)
+        a.model.load_state_dict(sd, strict=True)
+        handles = [m.register_forward_hook(hook) for m in a.modules()
+                   if isinstance(m, CosineTopGate)]
+        a.train()
+        total, logs = a.loss(batch, **draws)
+        total.backward()
+        a.eval()
+        for h in handles:
+            h.remove()
+        results[label] = ({k: float(logs[k].detach())
+                           for k in ("loss", "recon_loss", "moe_route_loss")},
+                          {n: p.grad.cpu() for n, p in a.model.named_parameters()
+                           if p.grad is not None})
+        del a
+    check(len(replayed) == len(card_logits) > 0, "gate calls differ between devices")
+    (lc, gc), (lp, gp) = results["cuda"], results["cpu"]
+    for k in lc:
+        diff, scale = abs(lc[k] - lp[k]), max(1.0, abs(lp[k]))
+        print(f"[train-parity] {k}: card {lc[k]:.7f} CPU {lp[k]:.7f} diff {diff:.3e} "
+              f"(tol {MODEL_REL_TOL} x {scale:.4g})")
+        check(diff <= MODEL_REL_TOL * scale, f"training {k} card vs CPU: {diff}")
+    check(set(gc) == set(gp) and gc, "the gradients cover other parameters on the two devices")
+    worst = max(((float((gc[n] - gp[n]).abs().max()) / max(1.0, float(gp[n].abs().max())), n)
+                 for n in gp))
+    print(f"[train-parity] {len(gp)} gradient tensors; worst max|card - CPU| / max(1, "
+          f"max|CPU|) = {worst[0]:.3e} at {worst[1]} (tol {GRAD_REL_TOL})")
+    check(worst[0] <= GRAD_REL_TOL, f"gradient {worst[1]} card vs CPU: {worst[0]}")
+
+
 def main():
     try:
         import torch
@@ -335,7 +515,8 @@ def main():
     seconds = _build.build()
     print(f"[build] kernels built in {seconds:.1f} s into {_build.BUILD_DIR}")
 
-    cfg = Config.fromfile(CONFIG)["model"]
+    full_cfg = Config.fromfile(CONFIG)
+    cfg = full_cfg["model"]
     dev = torch.device("cuda")
     rows = phase_kernels(torch, cfg, dev)
 
@@ -348,9 +529,14 @@ def main():
 
     counts = phase_e2e(torch, arch)
     phase_parity(torch, cfg, arch, sd)
+    train_counts = phase_train(torch, full_cfg, arch)
+    del arch
+    phase_train_parity(torch, cfg, sd)
 
     for name, row in rows.items():
-        row["launches"] = counts[name]
+        # each kernel's count on the path it serves: sampling for K1-K4,
+        # training for K5 and K6
+        row["launches"] = counts[name] or train_counts[name]
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

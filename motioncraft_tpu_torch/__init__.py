@@ -7,13 +7,16 @@ JAX and nothing of ``motioncraft_tpu``.
 
 Layer map:
   config/registry  -> motioncraft_tpu_torch.config / .registry
-  diffusion        -> motioncraft_tpu_torch.diffusion (DDIM sampling loop)
+  diffusion        -> motioncraft_tpu_torch.diffusion (DDIM sampling loop,
+                      training targets, timestep samplers)
   denoiser         -> motioncraft_tpu_torch.models
   kernels          -> motioncraft_tpu_torch.ops (wrappers) + csrc/ (CUDA)
-  test API         -> motioncraft_tpu_torch.apis
+  optimizer state  -> motioncraft_tpu_torch.parallel
+  test/train API   -> motioncraft_tpu_torch.apis
 
-Slice ported so far: text-to-motion DDIM sampling with classifier-free
-guidance for STMoGen (``configs/stmogen/t2m_motionx_0_125b.py``).
+Slices ported so far, for STMoGen (``configs/stmogen/t2m_motionx_0_125b.py``):
+text-to-motion DDIM sampling with classifier-free guidance, and training on
+one device.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
 """Canonical model configs and batch factories (copies of the config functions
-of motioncraft_tpu/apis/factory.py).
+of motioncraft_tpu/apis/factory.py, plus a seeded synthetic training batch).
 
 ``flagship_t2m_cfg`` is the 0.125B STMoGen T2M config
 (configs/stmogen/t2m_motionx_0_125b.py): 4 layers, 12 heads x 128, MoE with
@@ -92,3 +92,25 @@ def make_text_batch(texts, max_seq_len: int = 196, input_feats: int = 322,
         "motion_length": np.asarray(lengths, np.int32),
         "text_ids": tokenize(list(texts)),
     }
+
+
+_VERBS = ("walks", "jumps", "waves", "dances", "kicks", "turns", "sits down",
+          "runs in a circle", "crouches", "claps")
+
+
+def make_train_batch(batch_size: int, *, seed: int = 0, max_seq_len: int = 196,
+                     input_feats: int = 322) -> dict:
+    """A seeded synthetic training batch (numpy): normalized motion (N(0, 1)
+    per feature, zero past each clip's length), lengths in [40, max_seq_len]
+    (MotionX clips are 40-196 frames), the frame mask and CLIP token ids of
+    short descriptions.  It stands in for a dataset until one is in the
+    repository; it teaches the model nothing about motion."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(min(40, max_seq_len), max_seq_len + 1,
+                          (batch_size, 1)).astype(np.int32)
+    mask = np.arange(max_seq_len)[None, :] < lengths
+    motion = rng.randn(batch_size, max_seq_len, input_feats).astype(np.float32)
+    motion *= mask[..., None]
+    texts = [f"a person {_VERBS[a]} then {_VERBS[b]}"
+             for a, b in rng.randint(0, len(_VERBS), (batch_size, 2))]
+    return make_text_batch(texts, max_seq_len, input_feats, motion=motion, lengths=lengths)

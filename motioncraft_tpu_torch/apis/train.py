@@ -1,0 +1,194 @@
+"""Training API: the train step and the training loop (PyTorch port of
+motioncraft_tpu/apis/train.py).
+
+One device, eager PyTorch: a feeder thread prepares and copies the next
+batches while the step runs, the step is ``MotionDiffusion.loss``, autograd
+and one optimizer update (``parallel/train_state.py``), and the loop runs
+epochs with the checkpoint / eval hooks and the loss-aware timestep sampler's
+feedback.  Multi-device training (``mesh``), half precision (``fp16``) and
+resuming (``resume_dir``) are not ported.
+"""
+
+from __future__ import annotations
+
+import itertools
+import queue
+import threading
+import time
+from typing import Any, Callable, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from ..parallel import TrainState, build_lr_schedule
+
+
+def set_random_seed(seed: int, device="cpu") -> torch.Generator:
+    """Seed numpy and torch's global generators (dropout draws from those)
+    and return a generator on ``device`` for the step's own draws
+    (timesteps, noise, cond_type, MoE gate noise)."""
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def device_prefetch(batch_iter: Iterable[Dict[str, Any]], device, depth: int = 2):
+    """Yield each batch's numeric arrays as tensors on ``device``, prepared
+    by a feeder thread up to ``depth`` batches ahead: host arrays are pinned
+    and copied with ``non_blocking``, on the consumer's stream, so the host
+    work overlaps the device's.  A feeder error is raised here."""
+    device = torch.device(device)
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+    sentinel = object()
+    stop = threading.Event()
+    errors = []
+
+    def to_device(batch):
+        out = {}
+        for k, v in batch.items():
+            if torch.is_tensor(v) or (isinstance(v, np.ndarray)
+                                      and np.issubdtype(v.dtype, np.number)):
+                t = torch.as_tensor(v)
+                if device.type == "cuda" and t.device.type == "cpu":
+                    t = t.pin_memory()
+                out[k] = t.to(device, non_blocking=True)
+        return out
+
+    def feeder():
+        try:
+            for batch in batch_iter:
+                if stop.is_set():
+                    break
+                q.put(to_device(batch))
+        except BaseException as e:  # raised on the consumer side
+            errors.append(e)
+        finally:
+            q.put(sentinel)
+
+    thread = threading.Thread(target=feeder, daemon=True)
+    thread.start()
+    try:
+        while (item := q.get()) is not sentinel:
+            yield item
+    finally:
+        stop.set()
+        while thread.is_alive():  # a feeder blocked on a full queue needs room
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                thread.join(0.01)
+    if errors:
+        raise errors[0]
+
+
+def make_train_step(arch, state: TrainState, fp16: Optional[dict] = None,
+                    grad_accum: int = 1) -> Callable:
+    """``step(batch, generator=None, **loss_kw) -> logs``: the loss, its
+    gradient and one optimizer update.  ``grad_accum`` > 1 splits the batch
+    (and any per-sample ``loss_kw`` override) into that many microbatches
+    and averages their gradients before the update, as the JAX package's
+    scan does.  The logs hold the scalars (means over microbatches) and, for
+    the loss-aware sampler, ``_timesteps`` and ``_loss_batch`` in input
+    order."""
+    if fp16 is not None:
+        raise NotImplementedError("fp16 / bf16 training")
+
+    def train_step(batch: Dict[str, Any], generator=None, **loss_kw):
+        B = batch["motion"].shape[0]
+        if B % grad_accum:
+            raise ValueError(f"grad_accum={grad_accum} must divide the batch size {B}")
+        m = B // grad_accum
+        scalars: Dict[str, torch.Tensor] = {}
+        timesteps, loss_batch = [], []
+        for i in range(grad_accum):
+            part = slice(i * m, (i + 1) * m)
+            micro = {k: v[part] if getattr(v, "ndim", 0) and v.shape[0] == B else v
+                     for k, v in batch.items()}
+            kw = {k: v[part] for k, v in loss_kw.items()}
+            with torch.enable_grad():  # whatever the caller's grad mode
+                loss, logs = arch.loss(micro, generator=generator, **kw)
+                (loss / grad_accum).backward()
+            for k, v in logs.items():
+                if v.ndim == 0:
+                    scalars[k] = scalars.get(k, 0.0) + v.detach().float() / grad_accum
+            timesteps.append(logs["timesteps"])
+            loss_batch.append(logs["recon_loss_batch"].detach())
+        state.apply_gradients()
+        scalars["_timesteps"] = torch.cat(timesteps)
+        scalars["_loss_batch"] = torch.cat(loss_batch)
+        return scalars
+
+    return train_step
+
+
+def train_model(arch, dataloader: Iterable[Dict[str, Any]], *,
+                optimizer_cfg: Optional[dict] = None,
+                lr_config: Optional[dict] = None,
+                grad_clip: Optional[dict] = None,
+                max_epochs: int = 1,
+                steps_per_epoch: Optional[int] = None,
+                seed: int = 0,
+                mesh=None,
+                log_interval: int = 50,
+                logger: Optional[Callable[[str], None]] = None,
+                checkpoint_fn: Optional[Callable] = None,
+                eval_fn: Optional[Callable] = None,
+                frozen_prefixes=("text_enc/clip",),
+                resume_dir: Optional[str] = None,
+                fp16: Optional[dict] = None,
+                grad_accum: int = 1) -> TrainState:
+    """Train ``arch`` (a MotionDiffusion, on its device) for ``max_epochs``
+    passes over ``dataloader`` (an iterable of batches of numpy arrays or
+    tensors, iterated anew each epoch; at most ``steps_per_epoch`` batches
+    an epoch when given, which also sets the epoch length of the lr
+    schedule).  Adam + step decay by default (the reference recipe).  The
+    model trains in ``train()`` mode and is left in ``eval()`` mode, which
+    ``checkpoint_fn(state, epoch)`` and ``eval_fn(state, epoch)`` also see.
+    Every ``log_interval`` steps ``logger`` gets the step's scalars and the
+    mean wall ms per step since the last line (the scalars' read waits for
+    the device)."""
+    if mesh is not None:
+        raise NotImplementedError("mesh: multi-device training")
+    if resume_dir is not None:
+        raise NotImplementedError("resume_dir: checkpoint resume")
+    optimizer_cfg = optimizer_cfg or {"type": "Adam"}
+    generator = set_random_seed(seed, arch.device)
+    schedule = build_lr_schedule(optimizer_cfg.get("lr", 2e-4), lr_config,
+                                 steps_per_epoch or 1)
+    state = TrainState(arch.model, optimizer_cfg, schedule, grad_clip, frozen_prefixes)
+    step_fn = make_train_step(arch, state, fp16=fp16, grad_accum=grad_accum)
+    log = logger or (lambda msg: print(msg, flush=True))
+    sampler = getattr(arch, "sampler", None)
+    global_step = 0
+    try:
+        for epoch in range(max_epochs):
+            arch.train()
+            t0 = t_line = time.perf_counter()
+            n_line = 0
+            batches = iter(dataloader)
+            if steps_per_epoch:
+                batches = itertools.islice(batches, steps_per_epoch)
+            for batch in device_prefetch(batches, arch.device):
+                logs = step_fn(batch, generator)
+                # loss-second-moment sampler feedback
+                if hasattr(sampler, "update_with_local_losses"):
+                    sampler.update_with_local_losses(logs["_timesteps"], logs["_loss_batch"])
+                global_step += 1
+                n_line += 1
+                if global_step % log_interval == 0:
+                    scal = {k: float(v) for k, v in logs.items() if not k.startswith("_")}
+                    now = time.perf_counter()
+                    ms = (now - t_line) / n_line * 1e3
+                    t_line, n_line = now, 0
+                    log(f"epoch {epoch} step {global_step}: "
+                        + " ".join(f"{k}={v:.5f}" for k, v in sorted(scal.items()))
+                        + f" step_ms={ms:.1f}")
+            log(f"epoch {epoch} done in {time.perf_counter() - t0:.1f}s")
+            arch.eval()
+            if checkpoint_fn is not None:
+                checkpoint_fn(state, epoch)
+            if eval_fn is not None:
+                eval_fn(state, epoch)
+    finally:
+        arch.eval()
+    return state

@@ -1,7 +1,7 @@
 """Gaussian diffusion schedule tables and the posterior algebra, in PyTorch.
 
-Port of motioncraft_tpu/diffusion/gaussian.py restricted to what sampling
-needs.  The tables are derived in float64 on the host (numpy), then cast once
+Port of motioncraft_tpu/diffusion/gaussian.py restricted to what DDIM
+sampling and training need.  The tables are derived in float64 on the host (numpy), then cast once
 to float32 tensors on the target device, as the JAX package does.  Timestep
 respacing (SpacedDiffusion) is folded into the tables: ``timestep_map``
 carries respaced -> original indices, and the denoiser always sees
@@ -11,7 +11,7 @@ original-scale timesteps (``model_timesteps``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -19,7 +19,7 @@ import torch
 from .schedules import get_named_beta_schedule, space_timesteps
 
 MEAN_TYPES = ("previous_x", "start_x", "epsilon")
-# learned variances only serve training and DDPM sampling, which are not ported
+# learned variances serve DDPM sampling and the VLB terms, which are not ported
 VAR_TYPES = ("fixed_small", "fixed_large")
 
 
@@ -147,6 +147,12 @@ def model_timesteps(d: GaussianDiffusion, t: torch.Tensor) -> torch.Tensor:
     return d.timestep_map[t]
 
 
+def q_sample(d: GaussianDiffusion, x_start, t, noise):
+    """Sample q(x_t | x_0)."""
+    return (_extract(d.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+            + _extract(d.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * noise)
+
+
 def q_posterior_mean_variance(d: GaussianDiffusion, x_start, x_t, t):
     mean = (_extract(d.posterior_mean_coef1, t, x_t.ndim) * x_start
             + _extract(d.posterior_mean_coef2, t, x_t.ndim) * x_t)
@@ -193,3 +199,22 @@ def p_mean_variance(d: GaussianDiffusion, model_output: torch.Tensor,
         model_mean, _, _ = q_posterior_mean_variance(d, pred_xstart, x, t)
     return {"mean": model_mean, "variance": model_variance,
             "log_variance": model_log_variance, "pred_xstart": pred_xstart}
+
+
+def training_losses(d: GaussianDiffusion,
+                    model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                    x_start: torch.Tensor, t: torch.Tensor,
+                    noise: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """MSE-type training targets: the model sees x_t at original-scale
+    timesteps; the architecture applies its masked, weighted reduction to
+    the returned pred/target."""
+    x_t = q_sample(d, x_start, t, noise)
+    model_output = model_fn(x_t, model_timesteps(d, t))
+    if d.model_mean_type == "previous_x":
+        target = q_posterior_mean_variance(d, x_start, x_t, t)[0]
+    elif d.model_mean_type == "start_x":
+        target = x_start
+    else:
+        target = noise
+    mse = ((target - model_output) ** 2).mean(dim=tuple(range(1, x_start.ndim)))
+    return {"mse": mse, "target": target, "pred": model_output, "x_t": x_t}

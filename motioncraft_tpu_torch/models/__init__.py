@@ -1,4 +1,5 @@
 from . import attentions  # noqa: F401  (registers STMA, EfficientSelfAttention)
+from . import losses  # noqa: F401  (registers MSELoss)
 from .architecture import MotionDiffusion  # noqa: F401
 from .stmogen import PoseDecoder, PoseEncoder, STMoGenTransformer  # noqa: F401
 from .text_encoder import ClipTextModel, TextEncoder  # noqa: F401

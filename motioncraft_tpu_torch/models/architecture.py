@@ -1,25 +1,29 @@
-"""MotionDiffusion: a denoiser coupled with its test diffusion (PyTorch port
-of the sampling side of motioncraft_tpu/models/architecture.py).
+"""MotionDiffusion: a denoiser coupled with its train and test diffusions
+(PyTorch port of motioncraft_tpu/models/architecture.py).
 
-Text encoding runs once per batch outside the sampling loop, and so does
-every layer's text MoE (``precompute_text_feats``); the loop calls the
-denoiser's CFG-doubled test forward once per DDIM step.
+``sample`` (in ``eval()`` mode): text encoding runs once per batch outside
+the sampling loop, and so does every layer's text MoE
+(``precompute_text_feats``); the loop calls the denoiser's CFG-doubled test
+forward once per DDIM step.
+
+``loss`` (in ``train()`` mode): timesteps from the schedule sampler, q_sample,
+the 90/10 text/unconditional ``cond_type``, one training forward, the masked
+reconstruction loss (face/hand masking, hand factor, frame or batch
+reduction) plus the weighted MoE aux loss.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..diffusion import build_diffusion, ddim_sample_loop
-from ..registry import ARCHITECTURES, build_submodule
-
-# settings of the training half of a config: sampling reads none of them
-TRAIN_KEYS = ("loss_recon", "loss_reduction", "diffusion_train", "sampler_type",
-              "hand_loss_factor", "face_no_loss", "hand_no_loss", "init_cfg")
+from ..diffusion import (build_diffusion, create_named_schedule_sampler,
+                         ddim_sample_loop, training_losses)
+from ..registry import ARCHITECTURES, build_loss, build_submodule
+from .body_layout import SMPLX_FACE_DIMS, SMPLX_HAND_DIMS
 
 
 def resolve_device(device=None) -> torch.device:
@@ -41,16 +45,22 @@ def exact_f32() -> None:
 
 @ARCHITECTURES.register_module()
 class MotionDiffusion(nn.Module):
-    """Text-to-motion sampling: ``sample`` turns noise into motion."""
+    """Text-to-motion: ``loss`` trains the denoiser, ``sample`` turns noise
+    into motion."""
 
     def __init__(self, model: Optional[dict] = None,
+                 loss_recon: Optional[dict] = None,
+                 loss_reduction: str = "frame",
+                 diffusion_train: Optional[dict] = None,
                  diffusion_test: Optional[dict] = None,
+                 sampler_type: str = "uniform",
+                 init_cfg: Optional[dict] = None,
                  inference_type: str = "ddpm", device=None,
-                 repaint: Optional[dict] = None, **train_cfg):
+                 hand_loss_factor: float = 1.0,
+                 face_no_loss: bool = False,
+                 hand_no_loss: bool = False,
+                 repaint: Optional[dict] = None):
         super().__init__()
-        unknown = sorted(set(train_cfg) - set(TRAIN_KEYS))
-        if unknown:
-            raise TypeError(f"MotionDiffusion: unknown config keys {unknown}")
         if inference_type not in ("ddim", "gt"):
             raise NotImplementedError(f"inference_type {inference_type!r}")
         if repaint is not None:
@@ -58,10 +68,18 @@ class MotionDiffusion(nn.Module):
         exact_f32()
         self.device = resolve_device(device)
         self.inference_type = inference_type
-        self.train_cfg = train_cfg
+        self.loss_reduction = loss_reduction
+        self.hand_loss_factor = hand_loss_factor
+        self.face_no_loss, self.hand_no_loss = face_no_loss, hand_no_loss
         self.model = build_submodule(model) if inference_type != "gt" else None
+        self.loss_recon = build_loss(loss_recon) if loss_recon else None
+        self.diffusion_train = (build_diffusion(diffusion_train, device=self.device)
+                                if diffusion_train else None)
         self.diffusion_test = (build_diffusion(diffusion_test, device=self.device)
                                if diffusion_test else None)
+        self.sampler = (create_named_schedule_sampler(sampler_type,
+                                                      self.diffusion_train.num_timesteps)
+                        if self.diffusion_train is not None else None)
         post = (model or {}).get("post_process_cfg") or {}
         self.post = None
         if post.get("unnormalized_infer", False):
@@ -79,6 +97,64 @@ class MotionDiffusion(nn.Module):
     def encode_text(self, text_ids) -> torch.Tensor:
         return self.model.encode_text(self._tensor(text_ids, torch.long))
 
+    def loss(self, batch: Dict[str, Any], *, generator: Optional[torch.Generator] = None,
+             t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+             cond_type: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Training loss of one batch (``motion`` [B, T, D], ``motion_mask``,
+        ``motion_length``, ``text_ids``) -> (total, logs).  The timesteps
+        ``t`` [B], the ``noise`` and the ``cond_type`` [B, 1, 1] (text on
+        where ``cond_type % 10 > 0``: 90 of 100 values) are drawn from
+        ``generator`` unless given, and so is the MoE gate noise.  Needs
+        ``train()`` mode: the JAX package's loss always runs the training
+        forward."""
+        if not self.training:
+            raise RuntimeError("MotionDiffusion.loss runs the training forward: call .train()")
+        motion = self._tensor(batch["motion"], torch.float32)
+        motion_mask = self._tensor(batch["motion_mask"], torch.float32)
+        B = motion.shape[0]
+        t = (self.sampler.sample(B, generator, self.device)[0] if t is None
+             else self._tensor(t, torch.long))
+        noise = (torch.randn(motion.shape, generator=generator, device=self.device)
+                 if noise is None else self._tensor(noise, torch.float32))
+        cond_type = (torch.randint(0, 100, (B, 1, 1), generator=generator, device=self.device)
+                     if cond_type is None else self._tensor(cond_type))
+        # the frozen CLIP runs under no_grad inside; the two text layers train
+        xf_out = self.model.encode_text(self._tensor(batch["text_ids"], torch.long))
+        aux_losses = []
+
+        def model_fn(x_t, t_model):
+            return self.model(x_t, t_model, motion_mask=motion_mask, xf_out=xf_out,
+                              mode="train", cond_type=cond_type, generator=generator,
+                              aux_losses=aux_losses)
+
+        out = training_losses(self.diffusion_train, model_fn, motion, t, noise)
+        pred, target = out["pred"], out["target"]
+        D = pred.shape[-1]
+        for drop, (lo, hi) in ((self.face_no_loss, SMPLX_FACE_DIMS),
+                               (self.hand_no_loss, SMPLX_HAND_DIMS)):
+            if drop and D == 322:
+                keep = torch.ones(D, device=pred.device)
+                keep[lo:hi] = 0
+                pred, target = pred * keep, target * keep
+        recon = self.loss_recon(pred, target, reduction_override="none")
+        if self.hand_loss_factor > 1.0 and D == 322:
+            scale = torch.ones(D, device=pred.device)
+            scale[SMPLX_HAND_DIMS[0]:SMPLX_HAND_DIMS[1]] = self.hand_loss_factor
+            recon = recon * scale
+        recon = recon.mean(dim=-1) * motion_mask
+        recon_batch = recon.sum(dim=1) / motion_mask.sum(dim=1).clamp(min=1e-8)
+        recon_frame = recon.sum() / motion_mask.sum().clamp(min=1e-8)
+        logs = {"recon_loss": recon_frame if self.loss_reduction == "frame"
+                else recon_batch.mean()}
+        if aux_losses:
+            weights = self.model.aux_loss_weights()
+            logs["moe_route_loss"] = sum(aux_losses) * weights.get("moe_route_loss", 1.0)
+        total = sum(v for k, v in logs.items() if "loss" in k)
+        logs["loss"] = total
+        return total, {**logs, "t_mean": t.float().mean(), "recon_loss_batch": recon_batch,
+                       "timesteps": t}
+
     @torch.no_grad()
     def sample(self, batch: Dict[str, Any], *, generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None,
@@ -87,7 +163,9 @@ class MotionDiffusion(nn.Module):
         ``motion`` (read for its shape, and returned as it is under
         ``inference_type='gt'``), ``motion_mask``, ``motion_length`` and
         ``text_ids``.  The initial noise is ``noise`` if given, else drawn
-        from ``generator``."""
+        from ``generator``.  Needs ``eval()`` mode, the inference path."""
+        if self.training:
+            raise RuntimeError("MotionDiffusion.sample runs the inference path: call .eval()")
         motion = self._tensor(batch["motion"], torch.float32)
         B, T, D = motion.shape
         inference_type = inference_type or self.inference_type

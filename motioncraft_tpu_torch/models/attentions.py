@@ -6,8 +6,12 @@ STMA: per-head body-part features -> MoE projections of text (2L lanes:
 key, value) and motion (4L lanes: body value, key, value, query); static
 body graph = learned softmax(H x H) mix of per-part values; dynamic body
 graph = linear self-attention across the H part tokens of each frame; global
-linear attention over the joint text + motion sequence, through kernel K3
-(ops/stma_attention.py).
+linear attention over the joint text + motion sequence.  At inference that
+attention is kernel K3 (ops/stma_attention.py), on the interleaved layout;
+in training (``train()``) it is the JAX package's training path: the text
+branch computed in the layer, masked keys and values joined along the
+sequence, and the generic linear attention, kernel K5
+(ops/linear_attention.py).  The MoEs' aux losses go to ``aux_losses``.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.linear_attention import fused_linear_attention
 from ..ops.stma_attention import NEG_INF, stma_linear_attention
 from ..registry import ATTENTIONS
 from .blocks import LayerNorm, StylizationBlock
@@ -56,7 +61,7 @@ class EfficientSelfAttention(nn.Module):
 
 @ATTENTIONS.register_module()
 class STMA(nn.Module):
-    """MotionCraft MC-Attn, inference only."""
+    """MotionCraft MC-Attn."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
                  num_text_heads: int, num_experts: int, topk: int,
@@ -88,25 +93,26 @@ class STMA(nn.Module):
                                                       merged_lanes=True)
         self.proj_out = StylizationBlock(H * L, time_embed_dim, dropout)
 
-    def text_branch(self, xf):
+    def text_branch(self, xf, generator=None, aux_losses=None):
         """LayerNorm + text MoE of the text features: depends only on ``xf``,
-        so the caller computes it once per sampling call
+        so at inference the caller computes it once per sampling call
         (STMoGenTransformer.precompute_text_feats)."""
         text_in = xf.reshape(xf.shape[0], xf.shape[1], self.num_text_heads, -1)
-        return self.text_moe(self.text_norm(text_in))
+        return self.text_moe(self.text_norm(text_in), generator, aux_losses)
 
     def forward(self, x, xf=None, emb=None, src_mask=None, cond_type=None,
-                cfg_dedup: bool = False, text_feat=None):
+                cfg_dedup: bool = False, text_feat=None, generator=None,
+                aux_losses=None):
         B, T, D = x.shape
         H, L = self.num_heads, self.latent_dim
         # CFG layer-0 dedup: the two batch halves are the same x/xf/emb, so the
         # motion MoE and the body graph run on the first half and are tiled
-        dedup = cfg_dedup and B % 2 == 0 and B > 1
+        dedup = cfg_dedup and not self.training and B % 2 == 0 and B > 1
         Bc = B // 2 if dedup else B
         xh = x.reshape(B, T, H, L)
         if text_feat is None:
-            text_feat = self.text_branch(xf)
-        motion_feat = self.motion_moe(self.norm(xh[:Bc]))
+            text_feat = self.text_branch(xf, generator, aux_losses)
+        motion_feat = self.motion_moe(self.norm(xh[:Bc]), generator, aux_losses)
 
         body_value = motion_feat[..., :L]
         body_feat = body_value
@@ -123,6 +129,16 @@ class STMA(nn.Module):
             body_feat = torch.cat([body_feat, body_feat], dim=0)
 
         text_cond = ((cond_type % 10) > 0).to(x.dtype).reshape(B, 1, 1)
-        y_t = stma_linear_attention(motion_feat, text_feat.reshape(B, -1, 2 * L),
-                                    src_mask.reshape(B, T, 1), text_cond)
+        if self.training:
+            tc, mask = text_cond[..., None], src_mask.reshape(B, T, 1, 1)
+            TXT = text_feat.shape[1]
+            key = torch.cat([
+                (text_feat[..., :L] + (1 - tc) * NEG_INF).expand(B, TXT, H, L),
+                motion_feat[..., L:2 * L] + (1 - mask) * NEG_INF], dim=1)
+            value = torch.cat([(text_feat[..., L:] * tc).expand(B, TXT, H, L),
+                               motion_feat[..., 2 * L:3 * L] * mask], dim=1)
+            y_t = fused_linear_attention(motion_feat[..., 3 * L:], key, value)
+        else:
+            y_t = stma_linear_attention(motion_feat, text_feat.reshape(B, -1, 2 * L),
+                                        src_mask.reshape(B, T, 1), text_cond)
         return x + self.proj_out(body_feat + y_t.reshape(B, T, D), emb)

@@ -3,7 +3,9 @@
   - LayerNorm: torch's, eps 1e-5 (the reference's nn.LayerNorm)
   - timestep_embedding: sinusoidal, cos first then sin
   - ZeroDense / StylizationBlock: AdaLN-style time conditioning
-  - SFFN: the per-head (body-part) FFN, through kernel K2 (ops/sffn.py)
+  - SFFN: the per-head (body-part) FFN, through kernel K2 (ops/sffn.py) at
+    inference; in training the plain einsum pair with dropout, as the JAX
+    package trains it
 
 Module and parameter names follow the flax modules, so a flax ``params``
 tree maps onto the ``state_dict`` by name (utils/convert.py).  GELU is the
@@ -55,6 +57,7 @@ class StylizationBlock(nn.Module):
 
     def __init__(self, latent_dim: int, time_embed_dim: int, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.emb_layers = nn.Linear(time_embed_dim, 2 * latent_dim)
         self.norm = LayerNorm(latent_dim)
         self.out_layers = ZeroDense(latent_dim, latent_dim)
@@ -63,7 +66,7 @@ class StylizationBlock(nn.Module):
         emb_out = self.emb_layers(F.silu(emb))[:, None, :]
         scale, shift = emb_out.chunk(2, dim=-1)
         h = self.norm(h) * (1 + scale) + shift
-        return self.out_layers(F.silu(h))
+        return self.out_layers(F.dropout(F.silu(h), self.dropout, self.training))
 
 
 class SFFN(nn.Module):
@@ -75,6 +78,7 @@ class SFFN(nn.Module):
                  dropout: float = 0.0, time_embed_dim: int = 2048):
         super().__init__()
         H, d, f = num_heads, latent_dim, ffn_dim
+        self.num_heads, self.dropout = H, dropout
         self.w1 = nn.Parameter(torch.randn(H, d, f) / math.sqrt(d))
         self.b1 = nn.Parameter(torch.zeros(H, f))
         self.w2 = nn.Parameter(torch.randn(H, f, d) / math.sqrt(f))
@@ -83,6 +87,12 @@ class SFFN(nn.Module):
 
     def forward(self, x, emb):
         B, T, D = x.shape
-        y = head_ffn(x.reshape(B * T, D), self.w1, self.b1, self.w2,
-                     self.b2).reshape(B, T, D)
+        if self.training:
+            y = torch.einsum("bthd,hdf->bthf", x.reshape(B, T, self.num_heads, -1),
+                             self.w1) + self.b1
+            y = F.dropout(F.gelu(y), self.dropout, self.training)
+            y = (torch.einsum("bthf,hfd->bthd", y, self.w2) + self.b2).reshape(B, T, D)
+        else:
+            y = head_ffn(x.reshape(B * T, D), self.w1, self.b1, self.w2,
+                         self.b2).reshape(B, T, D)
         return x + self.proj_out(y, emb)

@@ -1,10 +1,10 @@
-"""Shared denoiser skeleton (PyTorch port of the sampling side of
+"""Shared denoiser skeleton (PyTorch port of
 motioncraft_tpu/models/diffusion_transformer.py).
 
 Joint embedding, learned sequence position embedding, sinusoidal timestep
 embedding -> SiLU MLP, CLIP text conditioning, a stack of decoder blocks and
-a zero-init output.  Subclasses provide ``build_io``, ``build_blocks`` and
-``forward_test``.
+a zero-init output.  Subclasses provide the joint embedding and output
+(``joint_embed``, ``out``), ``forward_train`` and ``forward_test``.
 """
 
 from __future__ import annotations
@@ -53,11 +53,22 @@ class DiffusionTransformerBase(nn.Module):
         return h, emb
 
     def forward(self, motion, timesteps, motion_mask=None, motion_length=None,
-                xf_out=None, text_feats=None):
-        """The CFG test forward: ``motion`` [B, T, D] at original-scale
-        ``timesteps`` [B] -> guided model output [B, T, D]."""
+                xf_out=None, text_feats=None, *, mode: str = "test", cond_type=None,
+                generator=None, aux_losses=None):
+        """``motion`` [B, T, D] at original-scale ``timesteps`` [B] -> model
+        output [B, T, D].  ``mode="test"``: the CFG-guided test forward.
+        ``mode="train"``: one pass at ``cond_type`` [B, 1, 1] (text on where
+        ``cond_type % 10 > 0``), the MoE gate noise drawn from ``generator``
+        and their aux losses appended to ``aux_losses``."""
         src_mask = motion_mask[..., None] if motion_mask.dim() == 2 else motion_mask
         h, emb = self._embed(motion, timesteps)
-        return self.forward_test(h=h, src_mask=src_mask.to(h.dtype), emb=emb,
+        src_mask = src_mask.to(h.dtype)
+        if mode == "train":
+            return self.forward_train(h=h, src_mask=src_mask, emb=emb, xf_out=xf_out,
+                                      cond_type=cond_type, generator=generator,
+                                      aux_losses=aux_losses)
+        if mode != "test":
+            raise ValueError(f"mode {mode!r}")
+        return self.forward_test(h=h, src_mask=src_mask, emb=emb,
                                  xf_out=xf_out, motion_length=motion_length,
                                  timesteps=timesteps, text_feats=text_feats)

@@ -1,14 +1,22 @@
-"""Mixture-of-Experts layer with Tutel-compatible inference semantics
-(PyTorch port of motioncraft_tpu/models/moe.py).
+"""Mixture-of-Experts layer with Tutel-compatible semantics (PyTorch port
+of motioncraft_tpu/models/moe.py).
 
-Inference only, through the rank-compact fused dispatch: the kept
+Inference (``eval()``) takes the rank-compact fused dispatch: the kept
 (token, k) choices are sorted by expert into groups padded to 512 rows, the
 grouped expert FFN runs as kernel K1 (ops/moe_ffn.py) and the arrival ranks
-come from kernel K4 (ops/moe_positions.py).  Capacity is Tutel's
-``K * int(1.5 * ceil(N / E))``; at inference the ranks follow arrival order
-(k-major), so overflow drops the latest arrivals, as the JAX package does.
-The gate is applied at combine time and the expert bias b2 enters through a
-one-hot [N, E] @ [E, D] product.
+come from kernel K4 (ops/moe_positions.py).  The gate is applied at combine
+time and the expert bias b2 enters through a one-hot [N, E] @ [E, D]
+product.
+
+Training (``train()``) takes the slot-buffer dispatch of the JAX package's
+training path: gate noise on the logits, slots assigned in batch-prioritized
+order (descending top-1 score, a stable sort), each kept (token, k) written
+into an [E, capacity, D] buffer, the expert FFN run over the buffers as
+kernel K6 (ops/expert_ffn.py), and Tutel's load-importance aux loss.
+
+Capacity is Tutel's ``K * int(1.5 * ceil(N / E))``; a choice ranked at or
+past it is dropped (gate 0).  Experts are ranked by logit with a stable sort
+in both modes.
 """
 
 from __future__ import annotations
@@ -19,8 +27,29 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.expert_ffn import fused_expert_ffn
 from ..ops.moe_ffn import BLOCK, grouped_ffn
 from ..ops.moe_positions import moe_positions_counts
+
+
+def _normal_cdf(x, sigma):
+    return 0.5 * (1.0 + torch.erf(x / (sigma * math.sqrt(2.0))))
+
+
+def load_importance_loss(scores_wo_noise, topk_noisy_scores, num_experts: int,
+                         gate_noise: float):
+    """Tutel's is_gshard_loss=False aux loss: mean of the squared
+    coefficients of variation of the (soft) importance and the
+    (noise-smoothed) load of the experts."""
+    imp = scores_wo_noise.sum(dim=0)
+    l_imp = imp.var(correction=0) / (imp.mean() ** 2 + 1e-10)
+    if gate_noise > 0:
+        threshold = topk_noisy_scores[:, -1:]
+        prob = _normal_cdf(scores_wo_noise - threshold, gate_noise / num_experts)
+        load = prob.sum(dim=0)
+        l_load = load.var(correction=0) / (load.mean() ** 2 + 1e-10)
+        return (l_imp + l_load) / 2.0
+    return l_imp
 
 
 class CosineTopGate(nn.Module):
@@ -60,13 +89,23 @@ class MoELayer(nn.Module):
         self.num_experts, self.topk = E, topk
         self.capacity_factor = capacity_factor
         # gate_noise and batch_prioritized act in training only
+        self.gate_noise, self.batch_prioritized = gate_noise, batch_prioritized
         self.gate = CosineTopGate(D, E)
         self.expert_w1 = nn.Parameter(torch.randn(E, D, Fh) / math.sqrt(D))
         self.expert_b1 = nn.Parameter(torch.zeros(E, Fh))
         self.expert_w2 = nn.Parameter(torch.randn(E, Fh, D) / math.sqrt(Fh))
         self.expert_b2 = nn.Parameter(torch.zeros(E, D))
 
-    def forward(self, x):
+    def capacity(self, N: int) -> int:
+        E, K = self.num_experts, self.topk
+        return max(1, min(K * int(self.capacity_factor * ((N + E - 1) // E)), N))
+
+    def forward(self, x, generator=None, noise=None, aux_losses=None):
+        """x [N, D] -> [N, D].  In training, the gate noise is ``noise``
+        (a standard-normal [N, E] draw) if given, else drawn from
+        ``generator``, and the aux loss is appended to ``aux_losses``."""
+        if self.training:
+            return self._forward_slots(x, generator, noise, aux_losses)
         N, D = x.shape
         E, K = self.num_experts, self.topk
         logits = self.gate(x)                                      # f32 [N, E]
@@ -78,8 +117,7 @@ class MoELayer(nn.Module):
         topk_scores = logits.softmax(dim=1).gather(1, topk_idx)    # [N, K]
         gates = topk_scores / (topk_scores.sum(dim=1, keepdim=True) + 1e-9)
 
-        capacity = K * int(self.capacity_factor * ((N + E - 1) // E))
-        capacity = max(1, min(capacity, N))
+        capacity = self.capacity(N)
         flat_idx = topk_idx.t().reshape(-1).to(torch.int32)        # k-major [K*N]
         pos_flat, counts = moe_positions_counts(flat_idx, E)
         positions = pos_flat.reshape(K, N).t().long()              # [N, K]
@@ -111,6 +149,59 @@ class MoELayer(nn.Module):
         ge = torch.einsum("nk,nke->ne", gates, F.one_hot(topk_idx, E).to(gates.dtype))
         return y + ge @ self.expert_b2
 
+    def _forward_slots(self, x, generator, noise, aux_losses):
+        N, D = x.shape
+        E, K = self.num_experts, self.topk
+        logits = self.gate(x)                                      # f32 [N, E]
+        noisy = logits
+        if self.gate_noise > 0:
+            if noise is None:
+                noise = torch.randn(logits.shape, generator=generator,
+                                    device=logits.device, dtype=logits.dtype)
+            noisy = logits + self.gate_noise * noise / E
+        scores = noisy.softmax(dim=1)
+        topk_idx = torch.sort(noisy, dim=1, descending=True, stable=True).indices[:, :K]
+        topk_scores = scores.gather(1, topk_idx)                   # [N, K]
+        gates = topk_scores / (topk_scores.sum(dim=1, keepdim=True) + 1e-9)
+
+        # slot ranks in batch-prioritized order: tokens by descending top-1
+        # score, ties (padded frames give identical tokens) in token order
+        capacity = self.capacity(N)
+        order = None
+        idx_for_rank = topk_idx
+        if self.batch_prioritized:
+            order = torch.sort(-topk_scores[:, 0].detach(), stable=True).indices
+            idx_for_rank = topk_idx[order]
+        pos_flat, _ = moe_positions_counts(idx_for_rank.t().reshape(-1).to(torch.int32), E)
+        positions = pos_flat.reshape(K, N).t().long()              # [N, K]
+        if order is not None:
+            positions = torch.empty_like(positions).index_copy_(0, order, positions)
+        valid = positions < capacity
+        gates = gates * valid.to(gates.dtype)
+
+        # each kept (token, k) fills slot e * capacity + position of the flat
+        # [E * capacity] buffer; dropped ones go to a dump row past its end
+        dump = E * capacity
+        slots = torch.where(valid, topk_idx * capacity + positions,
+                            torch.full_like(positions, dump))
+        token_for_slot = torch.zeros(dump + 1, dtype=torch.long, device=x.device)
+        token_for_slot[slots.reshape(-1)] = torch.arange(N, device=x.device).repeat_interleave(K)
+        filled = torch.zeros(dump + 1, dtype=torch.bool, device=x.device)
+        filled[slots.reshape(-1)] = True
+        # index_select, not x[...]: its backward is an index_add with atomics,
+        # where advanced indexing's sorts the indices and serializes over the
+        # empty slots' duplicates of token 0
+        xe = torch.where(filled[:dump, None], x.index_select(0, token_for_slot[:dump]), 0.0)
+        ye = fused_expert_ffn(xe.reshape(E, capacity, D), self.expert_w1, self.expert_b1,
+                              self.expert_w2, self.expert_b2)
+        ye = torch.cat([ye.reshape(dump, D), ye.new_zeros(1, D)], dim=0)
+        picked = ye.index_select(0, slots.reshape(-1)).reshape(N, K, D)
+        y = torch.einsum("nk,nkd->nd", gates, picked)
+        if aux_losses is not None:
+            aux_losses.append(load_importance_loss(logits.softmax(dim=1), topk_scores, E,
+                                                   self.gate_noise))
+        return y
+
 
 class MOE(nn.Module):
     """The reference's MOE wrapper: learned positional embedding per
@@ -127,7 +218,8 @@ class MOE(nn.Module):
                               expert_axis=expert_axis)
         self.proj = nn.Linear(input_dim, output_dim)
 
-    def forward(self, x):
+    def forward(self, x, generator=None, aux_losses=None):
         B, T, H, D = x.shape
-        y = self.model((x + self.embedding[:, :T]).reshape(-1, D))
+        y = self.model((x + self.embedding[:, :T]).reshape(-1, D), generator=generator,
+                       aux_losses=aux_losses)
         return self.proj(F.gelu(y)).reshape(B, T, H, -1)

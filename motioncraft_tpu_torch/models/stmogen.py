@@ -1,5 +1,5 @@
-"""STMoGenTransformer, MotionCraft's flagship denoiser (PyTorch port of the
-sampling path of motioncraft_tpu/models/stmogen.py).
+"""STMoGenTransformer, MotionCraft's flagship denoiser (PyTorch port of
+motioncraft_tpu/models/stmogen.py).
 
   - PoseEncoder / PoseDecoder: per-body-part linear projections through
     static index tables; the decoder scatters the part heads back through an
@@ -11,6 +11,8 @@ sampling path of motioncraft_tpu/models/stmogen.py).
     layer 0 computes its motion branch once for both halves (cfg_dedup), and
     the text MoE of every layer comes precomputed once per sampling call
     (precompute_text_feats, on the doubled batch so MoE capacity matches).
+  - forward_train: one pass of the stack at the batch's ``cond_type``, the
+    text MoE computed in every layer, the MoE aux losses collected.
 """
 
 from __future__ import annotations
@@ -99,16 +101,18 @@ class STMoGenDecoderLayer(nn.Module):
         if cfg:
             raise TypeError(f"unknown ffn_cfg keys {sorted(cfg)}")
 
-    def forward(self, x, xf, emb, src_mask, cond_type, cfg_dedup=False, text_feat=None):
+    def forward(self, x, xf, emb, src_mask, cond_type, cfg_dedup=False, text_feat=None,
+                generator=None, aux_losses=None):
         x = self.ca_block(x, xf=xf, emb=emb, src_mask=src_mask, cond_type=cond_type,
-                          cfg_dedup=cfg_dedup, text_feat=text_feat)
+                          cfg_dedup=cfg_dedup, text_feat=text_feat, generator=generator,
+                          aux_losses=aux_losses)
         return self.ffn(x, emb)
 
 
 @SUBMODULES.register_module()
 class STMoGenTransformer(DiffusionTransformerBase):
     """MotionCraft main model: body-part PoseEncoder/Decoder + STMA/SFFN
-    stack, CFG test forward only."""
+    stack."""
 
     def __init__(self, input_feats: int = 263, max_seq_len: int = 240,
                  latent_dim: int = 512, time_embed_dim: int = 2048, num_layers: int = 8,
@@ -127,7 +131,6 @@ class STMoGenTransformer(DiffusionTransformerBase):
         if ca_block_cfg is None or ffn_cfg is None or isinstance(ffn_cfg, (list, tuple)):
             raise NotImplementedError("STMoGenTransformer needs one ca_block_cfg and "
                                       "one ffn_cfg for every layer")
-        # the loss weights serve training, which is not ported; kept for the record
         self.moe_route_loss_weight = moe_route_loss_weight
         self.template_kl_loss_weight = template_kl_loss_weight
         self.scale = (scale_func_cfg or {}).get("scale", 6.5)
@@ -144,6 +147,18 @@ class STMoGenTransformer(DiffusionTransformerBase):
         """Timestep-dependent CFG weights (text, unconditional)."""
         w = (1 - (1000 - timestep.to(torch.float32)) / 1000) * self.scale + 1
         return w, 1 - w
+
+    def aux_loss_weights(self):
+        return {"moe_route_loss": self.moe_route_loss_weight,
+                "template_kl_loss": self.template_kl_loss_weight}
+
+    def forward_train(self, h, src_mask, emb, xf_out, cond_type, generator=None,
+                      aux_losses=None):
+        B, T = h.shape[:2]
+        for block in self.blocks:
+            h = block(h, xf_out, emb, src_mask, cond_type, generator=generator,
+                      aux_losses=aux_losses)
+        return self.out(h).reshape(B, T, -1)
 
     def precompute_text_feats(self, xf_out):
         """Per-layer text features [2B, 77, 1, 2L], computed once per sampling

@@ -5,7 +5,10 @@ Token and positional embeddings, pre-LN blocks with QuickGELU under a causal
 mask, ln_final; then a pre-projection to the text latent width, two post-LN
 encoder layers (torch nn.TransformerEncoderLayer semantics, exact-erf GELU)
 and a LayerNorm.  The attention is written out (einsum + softmax) as in the
-JAX package, so both compute the same sums.
+JAX package, so both compute the same sums.  CLIP is frozen: it runs under
+``torch.no_grad()`` (the JAX package's ``stop_gradient``) and training leaves
+its parameters out of the optimizer (parallel/train_state.py); the two
+post-LN layers train, with dropout.
 """
 
 from __future__ import annotations
@@ -77,8 +80,7 @@ class ClipTextModel(nn.Module):
 
 
 class PostLNEncoderLayer(nn.Module):
-    """torch nn.TransformerEncoderLayer semantics (post-LN, full attention),
-    inference only."""
+    """torch nn.TransformerEncoderLayer semantics (post-LN, full attention)."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  dropout: float = 0.0, activation: str = "gelu"):
@@ -86,6 +88,7 @@ class PostLNEncoderLayer(nn.Module):
         if activation not in ("gelu", "relu"):
             raise NotImplementedError(f"activation {activation!r}")
         self.act = F.gelu if activation == "gelu" else F.relu
+        self.dropout = dropout
         self.self_attn = ClipAttention(d_model, nhead)
         self.norm1 = LayerNorm(d_model)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
@@ -93,8 +96,10 @@ class PostLNEncoderLayer(nn.Module):
         self.norm2 = LayerNorm(d_model)
 
     def forward(self, x):
-        x = self.norm1(x + self.self_attn(x))
-        return self.norm2(x + self.linear2(self.act(self.linear1(x))))
+        p, train = self.dropout, self.training
+        x = self.norm1(x + F.dropout(self.self_attn(x), p, train))
+        h = self.linear2(F.dropout(self.act(self.linear1(x)), p, train))
+        return self.norm2(x + F.dropout(h, p, train))
 
 
 class TextEncoder(nn.Module):
@@ -119,7 +124,8 @@ class TextEncoder(nn.Module):
         self.text_ln = LayerNorm(latent_dim)
 
     def forward(self, text_ids):
-        x = self.clip(text_ids)
+        with torch.no_grad():
+            x = self.clip(text_ids)
         if self.text_pre_proj is not None:
             x = self.text_pre_proj(x)
         for i in range(self.num_layers):

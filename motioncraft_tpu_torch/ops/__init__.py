@@ -5,6 +5,8 @@ A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches its kernel (built from ``csrc/`` at first use) or raises.
 """
 
+from .expert_ffn import expert_ffn_plain, fused_expert_ffn
+from .linear_attention import fused_linear_attention, fused_linear_attention_plain
 from .moe_ffn import grouped_ffn, grouped_ffn_plain
 from .moe_positions import moe_positions_counts, moe_positions_counts_plain
 from .sffn import head_ffn, head_ffn_plain
@@ -16,6 +18,8 @@ KERNELS = {
     "grouped_ffn": (grouped_ffn, grouped_ffn_plain),
     "head_ffn": (head_ffn, head_ffn_plain),
     "stma_linear_attention": (stma_linear_attention, stma_linear_attention_plain),
+    "fused_linear_attention": (fused_linear_attention, fused_linear_attention_plain),
+    "fused_expert_ffn": (fused_expert_ffn, expert_ffn_plain),
 }
 
 

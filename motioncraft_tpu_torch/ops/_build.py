@@ -22,7 +22,8 @@ from typing import Dict, Optional, Sequence
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "motioncraft_tpu_torch"
-SOURCES = ("moe_positions", "moe_ffn", "sffn", "stma_attention")
+SOURCES = ("moe_positions", "moe_ffn", "sffn", "stma_attention", "linear_attention",
+           "expert_ffn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

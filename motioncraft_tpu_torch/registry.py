@@ -72,6 +72,7 @@ class Registry:
 
 # One shared registry aliased per role, as in the JAX package.
 MODELS = Registry("models")
+LOSSES = MODELS
 ARCHITECTURES = MODELS
 SUBMODULES = MODELS
 ATTENTIONS = MODELS
@@ -84,3 +85,7 @@ def build_architecture(cfg, **default_kwargs):
 
 def build_submodule(cfg):
     return SUBMODULES.build(cfg)
+
+
+def build_loss(cfg):
+    return LOSSES.build(cfg)

@@ -6,9 +6,11 @@ repository's conftest files (which import JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-K4 must agree exactly; K1-K3 to 1e-5 x max |plain| (another summation
-order).  The end-to-end case runs a narrow model (widths the kernels take)
-on the card and on the CPU with the same weights and noise.
+K4 must agree exactly; K1-K3, K5 and K6 to 1e-5 x max |plain| (another
+summation order).  K5 and K6 are also held backward: their gradient
+recomputes the plain version, so it must equal plain autograd's to the same
+tolerance.  The end-to-end case runs a narrow model (widths the kernels
+take) on the card and on the CPU with the same weights and noise.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ from motioncraft_tpu_torch.ops import KERNELS, launch_counts, reset_launch_count
 from motioncraft_tpu_torch.ops.moe_ffn import BLOCK
 from motioncraft_tpu_torch.registry import build_architecture
 from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
+from torch_port_util import grad_mode_on  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 REL = 1e-5
@@ -52,6 +55,17 @@ def _case(name, variant, g):
         return (_randn(g, n, H * d), _randn(g, H, d, f, scale=d ** -0.5),
                 _randn(g, H, f, scale=0.1), _randn(g, H, f, d, scale=f ** -0.5),
                 _randn(g, H, d, scale=0.1))
+    if name == "fused_linear_attention":
+        B, T, N, H, d = variant
+        key = _randn(g, B, N, H, d)
+        key[0, N // 2:] += -1e6  # masked keys, as STMA's padding gives them
+        return _randn(g, B, T, H, d), key, _randn(g, B, N, H, d)
+    if name == "fused_expert_ffn":
+        E, C, D, F = variant
+        xe = _randn(g, E, C, D)
+        xe[:, C - C // 3:] = 0  # empty slots
+        return (xe, _randn(g, E, D, F, scale=D ** -0.5), _randn(g, E, F, scale=0.1),
+                _randn(g, E, F, D, scale=F ** -0.5), _randn(g, E, D, scale=0.1))
     B, T, H, d, TXT = variant
     mask = torch.ones(B, T, 1)
     mask[1, T // 2:] = 0
@@ -67,7 +81,16 @@ CASES = [
     ("head_ffn", (700, 3, 128, 512)), ("head_ffn", (65, 2, 64, 96)),
     ("stma_linear_attention", (4, 50, 3, 128, 77)),
     ("stma_linear_attention", (2, 33, 5, 32, 7)),
+    # the flagship training step at B = 32: STMA's global attention (77 text
+    # + 196 motion keys), the motion and the text MoE's slot buffers
+    ("fused_linear_attention", (32, 196, 273, 12, 128)),
+    ("fused_linear_attention", (4, 50, 77, 3, 16)),
+    ("fused_linear_attention", (2, 33, 40, 5, 64)),
+    ("fused_expert_ffn", (16, 14112, 128, 512)),
+    ("fused_expert_ffn", (16, 462, 256, 1024)),
+    ("fused_expert_ffn", (3, 37, 32, 128)),
 ]
+GRAD_CASES = [c for c in CASES if c[0] in ("fused_linear_attention", "fused_expert_ffn")]
 
 
 @pytest.mark.parametrize("name,variant", CASES, ids=lambda v: str(v))
@@ -84,6 +107,35 @@ def test_kernel_matches_plain(cuda, name, variant):
             assert torch.equal(a, b)
     else:
         torch.testing.assert_close(got, want, rtol=0, atol=REL * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("name,variant", GRAD_CASES, ids=lambda v: str(v))
+def test_kernel_gradient_matches_plain(cuda, name, variant):
+    wrapper, plain = KERNELS[name]
+    g = torch.Generator().manual_seed(1)
+    args = [a.to(cuda) for a in _case(name, variant, g)]
+    grads = []
+    for fn in (wrapper, plain):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        out = fn(*leaves)
+        if not grads:
+            weight = torch.randn(out.shape, generator=g).to(cuda)
+        grads.append(torch.autograd.grad((out * weight).sum(), leaves))
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=REL * float(want.abs().max()))
+
+
+def test_strided_query_is_read_in_place(cuda):
+    """STMA hands K5 its query as a column slice of the MoE projection."""
+    g = torch.Generator().manual_seed(2)
+    feat = _randn(g, 2, 30, 3, 4 * 32).to(cuda)
+    key, value = _randn(g, 2, 45, 3, 32).to(cuda), _randn(g, 2, 45, 3, 32).to(cuda)
+    wrapper, plain = KERNELS["fused_linear_attention"]
+    query = feat[..., 96:]
+    assert not query.is_contiguous()
+    got, want = wrapper(query, key, value), plain(query, key, value)
+    torch.testing.assert_close(got, want, rtol=0, atol=REL * float(want.abs().max()))
 
 
 def test_narrow_model_samples_alike_on_card_and_cpu(cuda):
@@ -107,7 +159,8 @@ def test_narrow_model_samples_alike_on_card_and_cpu(cuda):
     assert launch_counts() == {"moe_positions": layers * (steps + 1),
                                "grouped_ffn": layers * (steps + 1),
                                "head_ffn": layers * steps,
-                               "stma_linear_attention": layers * steps}
+                               "stma_linear_attention": layers * steps,
+                               "fused_linear_attention": 0, "fused_expert_ffn": 0}
     want = out["cpu"]
     scale = max(1.0, float(want.abs().max()))
     assert float((out["cuda"] - want).abs().max()) <= 1e-4 * scale

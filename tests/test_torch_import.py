@@ -10,7 +10,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "motioncraft_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "tools" / "profile_torch_sample.py"]
+                                        ROOT / "tools" / "profile_torch_sample.py",
+                                        ROOT / "tools" / "profile_torch_train.py"]
 FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|motioncraft_tpu)(\.|\s|$)",
                        re.MULTILINE)
 

@@ -1,21 +1,28 @@
-"""The port's kernels K1-K4 against the Pallas kernels they replace.
+"""The port's kernels K1-K6 against the Pallas kernels they replace.
 
 On the CPU the same numpy inputs go through the Pallas kernel in interpret
 mode, its jnp ``*_reference``, and the port's wrapper (which takes the plain
 PyTorch version for a CPU tensor).  K4 must be bit-exact, sentinel ids
-included, because the MoE capacity drops depend on the ranks.  K1-K3 agree to
-1e-5 x max |reference|: the Pallas kernels use an Abramowitz-Stegun erf
-(error <= 1.5e-7) and the sums run in another order.
+included, because the MoE capacity drops depend on the ranks.  K1-K3, K5 and
+K6 agree to 1e-5 x max |reference|: the Pallas kernels use an
+Abramowitz-Stegun erf (error <= 1.5e-7) and the sums run in another order.
+K5 and K6 are also held backward: ``jax.grad`` through their custom VJP
+against torch autograd, to the same tolerance; and the port's
+backward-by-recompute (ops/recompute.py) is driven here with the plain
+version as its forward.
 
 The CUDA kernels themselves are held against the plain versions on the card
 by tests/test_torch_cuda.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from motioncraft_tpu.ops import pallas_attention, pallas_ffn
+from motioncraft_tpu.ops.linear_attention import masked_linear_attention
 from motioncraft_tpu.ops.pallas_moe import _positions_pallas, _positions_xla
 from motioncraft_tpu.ops.pallas_moe_ffn import grouped_ffn as jax_grouped_ffn
 from motioncraft_tpu.ops.pallas_moe_ffn import grouped_ffn_reference
@@ -23,10 +30,14 @@ from motioncraft_tpu.ops.pallas_sffn import head_ffn as jax_head_ffn
 from motioncraft_tpu.ops.pallas_sffn import head_ffn_reference
 from motioncraft_tpu.ops.pallas_stma_attention import (
     stma_linear_attention as jax_stma, stma_linear_attention_reference)
-from motioncraft_tpu_torch.ops import (KERNELS, grouped_ffn, head_ffn,
-                                       launch_counts, moe_positions_counts,
+from motioncraft_tpu_torch.ops import (KERNELS, expert_ffn_plain, fused_expert_ffn,
+                                       fused_linear_attention,
+                                       fused_linear_attention_plain, grouped_ffn,
+                                       head_ffn, launch_counts, moe_positions_counts,
                                        reset_launch_counts, stma_linear_attention)
 from motioncraft_tpu_torch.ops.moe_ffn import BLOCK
+from motioncraft_tpu_torch.ops.recompute import with_recomputed_grad
+from torch_port_util import grad_mode_on  # noqa: F401
 
 REL = 1e-5
 
@@ -65,6 +76,34 @@ def stma_case(B, T, H, d, TXT, seed=0):
     tcond = (np.arange(B) < B // 2).astype(np.float32).reshape(B, 1, 1)
     return (rng.randn(B, T, H, 4 * d).astype(np.float32),
             rng.randn(B, TXT, 2 * d).astype(np.float32), mask, tcond)
+
+
+def linear_attention_case(B, T, N, H, d, seed=0):
+    rng = np.random.RandomState(seed)
+    key = rng.randn(B, N, H, d).astype(np.float32)
+    key[-1, N // 2:] -= 1e6  # masked keys, as callers mask them
+    return (rng.randn(B, T, H, d).astype(np.float32), key,
+            rng.randn(B, N, H, d).astype(np.float32))
+
+
+def expert_ffn_case(E, C, D, F, seed=0):
+    rng = np.random.RandomState(seed)
+    f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
+    xe = f(E, C, D)
+    xe[:, C - C // 3:] = 0  # empty slots
+    return xe, f(E, D, F) * D ** -0.5, f(E, F) * 0.1, f(E, F, D) * F ** -0.5, f(E, D) * 0.1
+
+
+def jax_and_torch_grads(jax_fn, torch_fn, args, seed=7):
+    """Gradients of sum(out * w) for one random w: jax.grad vs autograd."""
+    out_shape = np.shape(jax.eval_shape(jax_fn, *args))
+    w = np.random.RandomState(seed).randn(*out_shape).astype(np.float32)
+    argnums = tuple(range(len(args)))
+    want = jax.grad(lambda *a: (jax_fn(*a) * w).sum(), argnums=argnums)(
+        *(jnp.asarray(a) for a in args))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    got = torch.autograd.grad((torch_fn(*leaves) * torch.from_numpy(w)).sum(), leaves)
+    return got, want
 
 
 @pytest.mark.parametrize("M,E,R", [(10000, 16, 2048), (1000, 4, 256), (1, 16, 256)])
@@ -114,9 +153,62 @@ def test_k3_stma_attention(B, T, H, d, TXT):
     close(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("B,T,N,H,d", [(3, 21, 30, 3, 16), (2, 9, 86, 2, 64),
+                                       (2, 13, 20, 2, 128)])
+def test_k5_linear_attention(B, T, N, H, d):
+    args = linear_attention_case(B, T, N, H, d)
+    jargs = [jnp.asarray(a) for a in args]
+    pallas = pallas_attention.fused_linear_attention(*jargs, True)
+    ref = masked_linear_attention(*jargs)
+    got = fused_linear_attention(*(torch.from_numpy(a) for a in args))
+    close(pallas, ref)
+    close(got.numpy(), ref)
+    grads, want = jax_and_torch_grads(
+        lambda q, k, v: pallas_attention.fused_linear_attention(q, k, v, True),
+        fused_linear_attention, args)
+    for g, w in zip(grads, want):
+        close(g.numpy(), w)
+
+
+@pytest.mark.parametrize("E,C,D,F", [(3, 37, 128, 512), (2, 70, 256, 1024)])
+def test_k6_expert_ffn(E, C, D, F):
+    args = expert_ffn_case(E, C, D, F)
+    jargs = [jnp.asarray(a) for a in args]
+    pallas = pallas_ffn.fused_expert_ffn(*jargs, True)
+    ref = pallas_ffn._ffn_reference(*jargs)
+    got = fused_expert_ffn(*(torch.from_numpy(a) for a in args))
+    close(pallas, ref)
+    close(got.numpy(), ref)
+    grads, want = jax_and_torch_grads(
+        lambda *a: pallas_ffn.fused_expert_ffn(*a, True), fused_expert_ffn, args)
+    for g, w in zip(grads, want):
+        close(g.numpy(), w)
+
+
+@pytest.mark.parametrize("plain,case", [
+    (fused_linear_attention_plain, lambda: linear_attention_case(2, 7, 11, 3, 16)),
+    (expert_ffn_plain, lambda: expert_ffn_case(2, 9, 32, 64))])
+def test_backward_by_recompute(plain, case):
+    """The autograd.Function the CUDA wrappers use, with the plain version as
+    its forward too: the same gradients as native autograd, for the inputs
+    that need one (the last input here does not)."""
+    args = case()
+    leaves = [torch.from_numpy(a).requires_grad_(i < len(args) - 1)
+              for i, a in enumerate(args)]
+    w = torch.from_numpy(np.random.RandomState(3).randn(
+        *plain(*leaves).shape).astype(np.float32))
+    got = torch.autograd.grad((with_recomputed_grad(plain, plain, *leaves) * w).sum(),
+                              leaves[:-1])
+    want = torch.autograd.grad((plain(*leaves) * w).sum(), leaves[:-1])
+    for g, v in zip(got, want):
+        torch.testing.assert_close(g, v, rtol=0, atol=0)
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     reset_launch_counts()
     grouped_ffn(*(torch.from_numpy(a) for a in grouped_case(2, 32, 32, [0, 1])))
+    fused_linear_attention(*(torch.from_numpy(a) for a in linear_attention_case(1, 3, 4, 1, 16)))
+    fused_expert_ffn(*(torch.from_numpy(a) for a in expert_ffn_case(1, 3, 32, 32)))
     assert launch_counts() == {name: 0 for name in KERNELS}
 
 
@@ -130,6 +222,10 @@ def test_other_devices_raise(name):
             "head_ffn": (meta(4, 64), meta(2, 32, 32), meta(2, 32), meta(2, 32, 32),
                          meta(2, 32)),
             "stma_linear_attention": (meta(1, 2, 2, 128), meta(1, 3, 64),
-                                      meta(1, 2, 1), meta(1, 1, 1))}[name]
+                                      meta(1, 2, 1), meta(1, 1, 1)),
+            "fused_linear_attention": (meta(1, 2, 2, 16), meta(1, 3, 2, 16),
+                                       meta(1, 3, 2, 16)),
+            "fused_expert_ffn": (meta(2, 5, 32), meta(2, 32, 64), meta(2, 64),
+                                 meta(2, 64, 32), meta(2, 32))}[name]
     with pytest.raises(ValueError, match="unsupported device"):
         wrapper(*args)

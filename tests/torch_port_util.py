@@ -4,6 +4,7 @@ package: seeded flax parameter trees made with numpy, and numpy <-> torch."""
 import math
 
 import numpy as np
+import pytest
 import torch
 
 
@@ -50,3 +51,12 @@ def assert_close_scaled(got, want, rel, what=""):
     scale = max(1.0, float(np.abs(want).max()))
     diff = float(np.abs(got - want).max())
     assert diff <= rel * scale, f"{what}: max diff {diff} > {rel} * {scale}"
+
+
+@pytest.fixture(autouse=True)
+def grad_mode_on():
+    """Some test modules of the JAX package turn torch's grad mode off when
+    they are imported (and every xdist worker imports them all); the tests
+    that use this fixture take gradients."""
+    with torch.enable_grad():
+        yield
