@@ -14,7 +14,10 @@ Phases; any failure exits non-zero:
   2. each kernel against its plain version on the same inputs, at the
      shapes of phase 4 (K1-K4) and of phase 7 (K5, K6, at B = 32): max abs
      error against its tolerance; kernel and plain times from CUDA events;
-     the least time the card could take
+     the least time the card could take (bound_ms: f32 products in 3xTF32
+     on the tensor cores, which K1, K3 and K5 run; K4's integer work on the
+     CUDA cores), and the f32 bound on the CUDA cores as a second note
+     (bound_f32_ms); how many of K3's clusters fit on the card at once
   3. the flagship MotionDiffusion (configs/stmogen/t2m_motionx_0_125b.py) on
      the card, with seeded fabricated weights
   4. two batches of 16 requests (T = 196, varied lengths) through
@@ -48,7 +51,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "stmogen", "t2m_motionx_0_125b.py")
-F32_PEAK = 67e12      # H100 SXM CUDA-core f32, FLOP/s (exact f32: no TF32)
+F32_PEAK = 67e12      # H100 SXM CUDA-core f32, FLOP/s
+TF32_PEAK = 495e12    # H100 SXM dense TF32 tensor cores, FLOP/s; 3xTF32 takes 3 passes
 HBM_PEAK = 3.35e12    # H100 SXM device memory, bytes/s
 KERNEL_REL_TOL = 1e-4   # kernel vs plain: max abs err <= tol * max |plain|
 MODEL_REL_TOL = 1e-4    # card vs CPU forward: <= tol * max(1, max |CPU|)
@@ -100,8 +104,10 @@ def time_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_PEAK * 1e3
+def bound(flops, nbytes, peak):
+    """(ms, 'bytes' | 'operations'): the larger of bytes over the memory
+    rate and flops over ``peak``."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_PEAK * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -171,44 +177,51 @@ def flagship_inputs(torch, cfg, dev):
     }
 
 
-def kernel_bound(name, args):
-    """(ms, 'bytes' | 'operations'): each input read once, each output
-    written once, the operations the function needs, at the card's peaks."""
+def kernel_work(name, args):
+    """(flops, bytes) of one call: the operations the function needs, each
+    input read once, each output written once."""
     if name == "moe_positions":
         M = args[0].numel()
-        return bound(M, 8 * M + 4 * args[1])
+        return M, 8 * M + 4 * args[1]
     if name == "grouped_ffn":
         be, xs, w1, b1, w2 = args
         (m_pad, d), hid = xs.shape, w1.shape[2]
         nbytes = 4 * (2 * xs.numel() + be.numel() + w1.numel() + b1.numel() + w2.numel())
-        return bound(4 * m_pad * d * hid, nbytes)
+        return 4 * m_pad * d * hid, nbytes
     if name == "head_ffn":
         x, w1, b1, w2, b2 = args
         n, hd = x.shape
         f = w1.shape[2]
         nbytes = 4 * (2 * x.numel() + w1.numel() + b1.numel() + w2.numel() + b2.numel())
-        return bound(4 * n * hd * f, nbytes)
+        return 4 * n * hd * f, nbytes
     if name == "fused_linear_attention":
         q, k, v = args
         B, T, H, d = q.shape
         N = k.shape[1]
-        return bound(2 * B * H * (N + T) * d * d, 4 * (2 * q.numel() + k.numel() + v.numel()))
+        return 2 * B * H * (N + T) * d * d, 4 * (2 * q.numel() + k.numel() + v.numel())
     if name == "fused_expert_ffn":
         xe, w1, b1, w2, b2 = args
         E, C, d = xe.shape
         nbytes = 4 * (2 * xe.numel() + w1.numel() + b1.numel() + w2.numel() + b2.numel())
-        return bound(4 * E * C * d * w1.shape[2], nbytes)
+        return 4 * E * C * d * w1.shape[2], nbytes
     mot, txt, mask, tcond = args
     B, T, H, d4 = mot.shape
     d, TXT = d4 // 4, txt.shape[1]
     flops = B * H * (2 * (T + TXT) * d * d + 2 * T * d * d)
-    nbytes = 4 * (mot.numel() + txt.numel() + mask.numel() + tcond.numel() + B * T * H * d)
-    return bound(flops, nbytes)
+    # of mot's four lanes the function reads key, value and query, not the
+    # body value
+    nbytes = 4 * (3 * mot.numel() // 4 + txt.numel() + mask.numel() + tcond.numel()
+                  + B * T * H * d)
+    return flops, nbytes
 
 
 def phase_kernels(torch, cfg, dev):
     """Phase 2: every kernel against its plain version, with times."""
     from motioncraft_tpu_torch.ops import KERNELS
+    from motioncraft_tpu_torch.ops.stma_attention import max_active_clusters
+
+    print(f"[kernel] stma_linear_attention d=128: {max_active_clusters()} clusters of 4 "
+          f"CTAs resident at once (cudaOccupancyMaxActiveClusters)")
 
     rows = {}
     for name, cases in flagship_inputs(torch, cfg, dev).items():
@@ -230,13 +243,20 @@ def phase_kernels(torch, cfg, dev):
                 continue  # times are taken at the first (dominant) shape
             ms = time_ms(torch, lambda: wrapper(*args))
             plain_ms = time_ms(torch, lambda: plain(*args))
-            bound_ms, bound_by = kernel_bound(name, args)
+            flops, nbytes = kernel_work(name, args)
+            if name == "moe_positions":  # integer work, on the CUDA cores only
+                bound_ms, bound_by = f32_ms, f32_by = bound(flops, nbytes, F32_PEAK)
+            else:  # f32 products: 3xTF32 on the tensor cores is the fastest exact way
+                bound_ms, bound_by = bound(3 * flops, nbytes, TF32_PEAK)
+                f32_ms, f32_by = bound(flops, nbytes, F32_PEAK)
             print(f"[kernel] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by})")
+                  f"bound {bound_ms:.4f} ms ({bound_by}, share {bound_ms / ms:.3f}); "
+                  f"f32 CUDA-core bound {f32_ms:.4f} ms ({f32_by}, share {f32_ms / ms:.3f})")
             rows[name] = {"name": name, "route": "cuda", "source": SOURCES[name],
                           "replaces": PALLAS[name], "max_abs_err": err, "ms": ms,
                           "plain_ms": plain_ms, "bound_ms": bound_ms,
-                          "bound_by": bound_by, "library_ms": None}
+                          "bound_by": bound_by, "bound_f32_ms": f32_ms,
+                          "bound_f32_by": f32_by, "library_ms": None}
     return rows
 
 
@@ -496,7 +516,7 @@ def main():
         return 2
     try:
         from motioncraft_tpu_torch.config import Config
-        from motioncraft_tpu_torch.ops import _build, launch_counts  # noqa: F401
+        from motioncraft_tpu_torch.ops import _build
         from motioncraft_tpu_torch.registry import build_architecture
         from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
     except ImportError as e:

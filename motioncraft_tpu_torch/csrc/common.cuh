@@ -1,10 +1,19 @@
 // Shared pieces of the port's kernels: the C error hook every library
-// exports, exact-erf GELU, the FFN tile that the grouped expert FFN
-// (moe_ffn.cu), the per-head FFN (sffn.cu) and the slot expert FFN
-// (expert_ffn.cu) run, and the linear-attention cell of the STMA attention
-// (stma_attention.cu) and the generic linear attention (linear_attention.cu).
+// exports, exact-erf GELU, the SIMT FFN tile that the per-head FFN (sffn.cu)
+// and the slot expert FFN (expert_ffn.cu) run, the 3xTF32 tensor-core FFN
+// tile of the grouped expert FFN (moe_ffn.cu), and the split-sequence
+// linear-attention cell of the STMA attention (stma_attention.cu) and the
+// generic linear attention (linear_attention.cu).
+//
+// Exact f32 does not rule out the tensor cores.  3xTF32 splits each f32
+// operand v into hi = tf32(v) and lo = tf32(v - hi) (round to nearest, ties
+// away) and sums lo*hi + hi*lo + hi*hi in f32 on the TF32 tensor cores; the
+// dropped lo*lo term and the rounding of lo leave about 22 of f32's 24
+// mantissa bits, against 11 for one TF32 pass (tests/test_torch_precision.py
+// transcribes the split and holds it against an f64 product).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -136,156 +145,635 @@ __device__ __forceinline__ void ffn_tile(
   }
 }
 
-constexpr int LA_THREADS = 256;  // threads of a linear-attention cell
-constexpr int LA_ROWS = 32;      // sequence rows staged per chunk
+// ---------------------------------------------------------------------------
+// 3xTF32 on the tensor cores, and asynchronous copies
 
-template <int D>
-constexpr int la_smem_floats() {
-  // A [D][D] + two staging tiles [LA_ROWS][D] + kmax/den [D] + partials
-  return D * D + 2 * LA_ROWS * D + 2 * D + 2 * LA_THREADS;
+// an f32 value as the TF32 operand pair (hi, lo) of mma.sync: hi + lo equals
+// v to about 22 mantissa bits.  hi is cvt.rna.tf32.f32 written as integer
+// operations (add half a TF32 ulp to the magnitude, clear the 13 low bits:
+// round to nearest, ties away), which run on the integer pipes rather than
+// the conversion unit.  lo is v - hi with
+// the half ulp added and the low bits left for mma.sync, which ignores them:
+// the same rounding.
+struct Tf32x2 {
+  unsigned hi, lo;
+};
+
+__device__ __forceinline__ Tf32x2 split_tf32(float v) {
+  Tf32x2 s;
+  s.hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  s.lo = __float_as_uint(v - __uint_as_float(s.hi)) + 0x1000u;
+  return s;
 }
 
-// One (batch, head) cell of the linear attention, run by a whole CTA of
-// LA_THREADS threads:
-//   A[c, l]      = sum_n softmax_n(key(n, .))[c] * value(n, l)      (D x D)
-//   out[t, l]    = sum_c softmax_c(q[t, :])[c] * A[c, l]            (t < T)
-// key(n, c) and value(n, l) (n < N) are device functors: the callers apply
-// their masks and join their sequences there.  q and out point at the
-// cell's row 0, with row strides ldq and ldo floats.  The key softmax is per
-// channel over the whole sequence (max, then sum of exp); A accumulates in
-// registers over staged row chunks (thread (ty, tx) of a 16 x 16 grid owns
-// A[ty + 16 i][tx + 16 j]), then lives in shared memory for the Q A product.
-// smem holds la_smem_floats<D>() floats.  D in {16, 32, 64, 128}.
+// c += a b for one m16n8k8 TF32 tile: a holds the A fragment (rows g, g+8;
+// columns t, t+4 of the lane's group g = lane / 4 and t = lane % 4), b0/b1
+// the B fragment (rows t, t+4; column g), c the f32 C fragment (rows g, g+8;
+// columns 2t, 2t+1)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[c0 + n] += a b[n] in 3xTF32 for N tiles that share one A fragment: the
+// two cross terms first, then hi * hi, each pass over all N tiles so that
+// consecutive mma.sync instructions never wait on one another's accumulator
+template <int N, int M>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[M][4], int c0,
+                                           const unsigned (&ahi)[4],
+                                           const unsigned (&alo)[4],
+                                           const Tf32x2 (&b0)[N], const Tf32x2 (&b1)[N]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[c0 + n], alo, b0[n].hi, b1[n].hi);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[c0 + n], ahi, b0[n].lo, b1[n].lo);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[c0 + n], ahi, b0[n].hi, b1[n].hi);
+}
+
+__device__ __forceinline__ void split_fragment(const float (&v)[4], unsigned (&hi)[4],
+                                               unsigned (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const Tf32x2 s = split_tf32(v[i]);
+    hi[i] = s.hi;
+    lo[i] = s.lo;
+  }
+}
+
+// 16 bytes from device to shared memory without registers; zeros when !full
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(PENDING) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core FFN tile of the grouped expert FFN (K1).  A CTA of WARPS
+// warps owns BM = 16 WARPS rows; warp w owns rows 16w..16w+15 and all D
+// output columns, in registers (D / 2 f32 per thread).  w1/w2 stream through
+// shared memory HC hidden columns at a time, double-buffered with cp.async
+// so chunk j+1 loads while chunk j computes.  Row pitches are padded so the
+// fragment loads hit 32 distinct banks (A: pitch = 4 mod 32, B: 8 mod 32).
+template <int D>
+struct TcFfn {
+  static constexpr int WARPS = D <= 128 ? 8 : 4;  // D = 256: 128 accumulators
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BM = 16 * WARPS;
+  static constexpr int HC = D <= 128 ? 64 : 32;
+  static constexpr int LDX = D + 4, LDW1 = HC + 8, LDW2 = D + 8;
+  static constexpr int STAGE = D * LDW1 + HC * LDW2;  // one chunk of w1 and w2
+  static constexpr int SMEM_FLOATS = BM * LDX + 2 * STAGE;
+};
+
+// out[r, :] = gelu(x[r, :] @ w1 + b1) @ w2 for the BM rows of one tile, all
+// of them rows of x (no ragged edge).  x and out are [BM, D] row-major, w1
+// [D, F], w2 [F, D].  Both products run in 3xTF32 on mma.sync: operands are
+// split in registers as their fragments are read, so shared memory holds
+// plain f32 once.  The hidden chunk stays in registers: its C fragments are
+// bias-added and GELU'd in place, then permuted into A-fragment order with
+// shuffles for the second product.  A chunk past F (F % HC != 0) is zero-
+// filled, which adds gelu(0) * 0 = 0.
+//
+// Partial sums: the tensor cores add each m16n8k8 result into C with
+// truncation, an error of up to one ulp of C that leans toward zero, so
+// adding 3 F / 8 products straight into the output accumulator loses about
+// log2(3 F / 8) bits, past 1e-5 x max |out| at D = 256, F = 1024.  So each 64-column output slice (32 at D = 256) of
+// a hidden chunk, and each 64-deep K block of the first product, is summed
+// from zero in its own fragment and then added to the running sum with a
+// rounded f32 add.
+//
+// Requires D % 32 == 0, D <= 256, F % 4 == 0 and 16-byte aligned x, w1, w2.
+// smem holds TcFfn<D>::SMEM_FLOATS floats.
+template <int D>
+__device__ __forceinline__ void ffn_tile_tc(const float* __restrict__ x,
+                                            float* __restrict__ out,
+                                            const float* __restrict__ w1,
+                                            const float* __restrict__ b1,
+                                            const float* __restrict__ w2, int F,
+                                            float* smem) {
+  using C = TcFfn<D>;
+  static_assert(D % 32 == 0 && D <= 256, "D must be a multiple of 32, <= 256");
+  constexpr int HC = C::HC, NH = HC / 8, NO = D / 8;
+  // n-tiles of one output slice: 8, and 4 at D = 256, whose 128 output
+  // accumulators leave no room for a 32-register partial
+  constexpr int NS = NO < 8 ? NO : (D > 128 ? 4 : 8);
+  constexpr unsigned FULL = 0xffffffffu;
+  float* xs = smem;                         // [BM][LDX]
+  float* stages = xs + C::BM * C::LDX;      // 2 x ([D][LDW1] w1, [HC][LDW2] w2)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int chunks = (F + HC - 1) / HC;
+
+  auto load_weights = [&](int chunk) {
+    float* w1s = stages + (chunk & 1) * C::STAGE;
+    float* w2s = w1s + D * C::LDW1;
+    const int f0 = chunk * HC;
+    for (int i = tid; i < D * HC / 4; i += C::THREADS) {
+      const int k = i / (HC / 4), j = i % (HC / 4) * 4;
+      const bool in = f0 + j < F;
+      cp_async16(w1s + k * C::LDW1 + j, in ? w1 + (long)k * F + f0 + j : w1, in);
+    }
+    for (int i = tid; i < HC * D / 4; i += C::THREADS) {
+      const int j = i / (D / 4), c = i % (D / 4) * 4;
+      const bool in = f0 + j < F;
+      cp_async16(w2s + j * C::LDW2 + c, in ? w2 + (long)(f0 + j) * D + c : w2, in);
+    }
+  };
+
+  for (int i = tid; i < C::BM * D / 4; i += C::THREADS) {
+    const int r = i / (D / 4), c = i % (D / 4) * 4;
+    cp_async16(xs + r * C::LDX + c, x + (long)r * D + c, true);
+  }
+  load_weights(0);
+  cp_async_commit();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float* xw = xs + warp * 16 * C::LDX + g * C::LDX + t;  // A fragment base
+  // lanes that hold columns t and t + 4 of a hidden C fragment
+  const int src0 = (lane & ~3) | (t >> 1), src1 = src0 + 2;
+  const bool odd = t & 1;
+
+  for (int chunk = 0; chunk < chunks; ++chunk) {
+    if (chunk + 1 < chunks) {
+      load_weights(chunk + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* w1s = stages + (chunk & 1) * C::STAGE;
+    const float* w2s = w1s + D * C::LDW1;
+
+    // hidden chunk [16, HC] of the warp's rows: x @ w1[:, f0:f0+HC], summed
+    // in K blocks of 64 (see the note on partial sums above)
+    float h[NH][4];
+#pragma unroll
+    for (int n = 0; n < NH; ++n) h[n][0] = h[n][1] = h[n][2] = h[n][3] = 0.f;
+    for (int k0 = 0; k0 < D; k0 += 64) {
+      float hp[NH][4];
+#pragma unroll
+      for (int n = 0; n < NH; ++n) hp[n][0] = hp[n][1] = hp[n][2] = hp[n][3] = 0.f;
+#pragma unroll 2
+      for (int k = k0; k < k0 + 64 && k < D; k += 8) {
+        const float* xa = xw + k;
+        const float av[4] = {xa[0], xa[8 * C::LDX], xa[4], xa[8 * C::LDX + 4]};
+        unsigned ahi[4], alo[4];
+        split_fragment(av, ahi, alo);
+        const float* wb = w1s + (k + t) * C::LDW1 + g;
+        Tf32x2 b0[NH], b1[NH];
+#pragma unroll
+        for (int n = 0; n < NH; ++n) {
+          b0[n] = split_tf32(wb[8 * n]);
+          b1[n] = split_tf32(wb[4 * C::LDW1 + 8 * n]);
+        }
+        mma_3xtf32(hp, 0, ahi, alo, b0, b1);
+      }
+#pragma unroll
+      for (int n = 0; n < NH; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) h[n][i] += hp[n][i];
+    }
+
+    // bias and GELU on the C fragments (columns f0 + 8n + 2t, + 1)
+    const int f0 = chunk * HC;
+#pragma unroll
+    for (int n = 0; n < NH; ++n) {
+      const int f = f0 + 8 * n + 2 * t;
+      const float bb0 = f < F ? b1[f] : 0.f, bb1 = f + 1 < F ? b1[f + 1] : 0.f;
+      h[n][0] = gelu_erf(h[n][0] + bb0);
+      h[n][1] = gelu_erf(h[n][1] + bb1);
+      h[n][2] = gelu_erf(h[n][2] + bb0);
+      h[n][3] = gelu_erf(h[n][3] + bb1);
+    }
+
+    // out += hidden chunk @ w2[f0:f0+HC, :], 64 output columns at a time,
+    // each slice summed over the chunk apart and then added to acc; hidden
+    // k-step j is C fragment j, permuted into A-fragment order
+#pragma unroll
+    for (int s0 = 0; s0 < NO; s0 += NS) {
+      float part[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        const float c0 = __shfl_sync(FULL, h[j][0], src0), c1 = __shfl_sync(FULL, h[j][1], src0);
+        const float c2 = __shfl_sync(FULL, h[j][2], src0), c3 = __shfl_sync(FULL, h[j][3], src0);
+        const float d0 = __shfl_sync(FULL, h[j][0], src1), d1 = __shfl_sync(FULL, h[j][1], src1);
+        const float d2 = __shfl_sync(FULL, h[j][2], src1), d3 = __shfl_sync(FULL, h[j][3], src1);
+        const float av[4] = {odd ? c1 : c0, odd ? c3 : c2, odd ? d1 : d0, odd ? d3 : d2};
+        unsigned ahi[4], alo[4];
+        split_fragment(av, ahi, alo);
+        const float* wb = w2s + (8 * j + t) * C::LDW2 + 8 * s0 + g;
+        Tf32x2 b0[NS], b1[NS];
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          b0[n] = split_tf32(wb[8 * n]);
+          b1[n] = split_tf32(wb[4 * C::LDW2 + 8 * n]);
+        }
+        mma_3xtf32(part, 0, ahi, alo, b0, b1);
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[s0 + n][i] += part[n][i];
+    }
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+
+  float* o = out + (long)(warp * 16 + g) * D + 2 * t;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    *reinterpret_cast<float2*>(o + 8 * n) = make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(o + 8 * D + 8 * n) = make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The split-sequence linear-attention cell of K3 and K5.  One (batch, head)
+// cell is one thread-block cluster of G CTAs of LA_THREADS threads:
+//   A[c, l]   = sum_n softmax_n(key(n, .))[c] * value(n, l)      (D x D)
+//   out[t, l] = sum_c softmax_c(q[t, :])[c] * A[c, l]            (t < T)
+// The key softmax is per channel over the whole sequence, so it splits over
+// row chunks like an online softmax.  CTA r of the cluster takes rows
+// [rN/G, (r+1)N/G) and keeps, per channel c, m_r[c] = max key, den_r[c] =
+// sum exp(key - m_r) and A_r[c, :] = sum exp(key - m_r) value, staging
+// LA_RS key and value rows at a time in shared memory: each key is read
+// from device memory once and exponentiated once.  The CTAs then exchange
+// m_r and den_r through distributed shared memory and reduce-scatter A by
+// column block: CTA r sums the rescaled partials exp(m_j - m) A_j[:, cols_r]
+// / den of every CTA j.  Then every CTA gathers the other column blocks and
+// takes a quarter of the query rows, [rT/G, (r+1)T/G): channel softmax, then
+// out = q A.  Splitting the queries rather than the output columns reads
+// each query once and computes its softmax once.  An empty chunk has
+// m_j = -inf and weighs 0; masked keys (-1e6) are finite, so exp(m_j - m)
+// underflows to 0 and never meets inf - inf.
+//
+// A_r = E^T V and q A run in 3xTF32 on mma.sync: the fragments need far
+// fewer shared-memory loads per multiply-add than a SIMT micro-tile.
+constexpr int LA_THREADS = 256;
+constexpr int LA_RS = 32;  // key/value rows staged per step
+
+template <int D>
+struct LaCell {
+  static constexpr int G = D >= 32 ? 4 : 2;  // CTAs per cluster
+  static constexpr int DG = D / G;           // columns of A each CTA reduces
+  static constexpr int RQ = 64;              // query rows staged per step
+  // pitches: B-like fragment reads (row t, column g) want 8 mod 32, A-like
+  // reads (row g, column t) 4 mod 32
+  static constexpr int LDK = D + 8;   // staged keys / their exp, values
+  static constexpr int LDA = D + 8;   // A_r, then the gathered A
+  static constexpr int LDQ = D + 4;   // staged queries
+  static constexpr int LDR = DG + 8;  // the reduced A[:, cols_r]
+  static constexpr int SPAN = D * LDA > 2 * LA_RS * LDK ? D * LDA : 2 * LA_RS * LDK;
+  static constexpr int REDUCED = D * LDR > RQ * LDQ ? D * LDR : RQ * LDQ;
+  // span (keys+values, then A_r, then A), A[:, cols_r] then queries, m,
+  // den, rescale, G coefficients and one partial per thread
+  static constexpr int SMEM_FLOATS = SPAN + REDUCED + (3 + G) * D + LA_THREADS;
+  // phase 1 warp tiling of the D x D A_r: m-tile wm = warp % MT, NPW n-tiles
+  // from (warp / MT) NPW; warps past the last n-tile (D = 16) idle
+  static constexpr int MT = D / 16;
+  static constexpr int NPW = D * D / 128 / 8 > 0 ? D * D / 128 / 8 : 1;
+  static_assert(DG % 8 == 0 && LA_THREADS % D == 0 && MT <= 8 &&
+                LA_THREADS % RQ == 0 && RQ == 64, "unsupported D");
+};
+
+// key(n, c) / value(n, c) return channels c..c+3 (c % 4 == 0) of row n < N
+// as a float4: the callers apply their masks and join their sequences there.
+// q and out point at the cell's row 0, with row strides ldq and ldo floats
+// (multiples of 4, 16-byte aligned rows).  D in {16, 32, 64, 128}.  Both
+// products, A_r = E^T V over the chunk and q A over the CTA's query rows,
+// run in 3xTF32 on mma.sync like K1's tile, from f32 in shared memory.
 template <int D, class Key, class Value>
 __device__ __forceinline__ void linear_attention_cell(
     int N, const Key& key, const Value& value, int T,
     const float* __restrict__ q, long ldq, float* __restrict__ out, long ldo,
     float* smem) {
-  static_assert(D % 16 == 0 && D <= 128 && LA_THREADS % D == 0, "unsupported D");
-  constexpr int P = LA_THREADS / D;   // row partitions of the key reduction
-  constexpr int TI = D / 16;          // A micro-tile: rows ty + 16 i
-  constexpr int OI = LA_ROWS / 16;    // output micro-tile rows ty + 16 i
-  float* As = smem;                   // [D][D]
-  float* s0 = As + D * D;             // [LA_ROWS][D]  keys, then queries
-  float* s1 = s0 + LA_ROWS * D;       // [LA_ROWS][D]  values
-  float* kmax = s1 + LA_ROWS * D;     // [D]
-  float* den = kmax + D;              // [D]
-  float* part = den + D;              // [2 * LA_THREADS]
-  const int tid = threadIdx.x;
+  using L = LaCell<D>;
+  constexpr int G = L::G, DG = L::DG, P = LA_THREADS / D;
+  constexpr int LDK = L::LDK, LDA = L::LDA, LDQ = L::LDQ, LDR = L::LDR;
+  constexpr int MT = L::MT, NPW = L::NPW, NB = NPW < 8 ? NPW : 8;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  float* span = smem;
+  float* ar = span + L::SPAN;      // [D][LDR] the reduced A[:, cols_r]
+  float* mrun = ar + L::REDUCED;   // [D] running max of the chunk
+  float* den = mrun + D;           // [D] running sum of exp(key - mrun)
+  float* rescale = den + D;        // [D] exp(old max - new max)
+  float* coef = rescale + D;       // [G][D] exp(m_j - m) / den
+  float* part = coef + G * D;      // [LA_THREADS]
+  float* ks = span;                // [LA_RS][LDK] keys, then their exp
+  float* vs = span + LA_RS * LDK;  // [LA_RS][LDK] values
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int c_own = tid % D, p_own = tid / D;
 
-  // 1. per-channel max and sum of exp of the keys over the sequence
-  {
-    const int c = tid % D, p = tid / D;
+  // 1. this CTA's chunk: running max, sum of exp and A_r = E^T V, where the
+  // warp owns rows c0..c0+15 of A_r and NPW n-tiles from column l0
+  for (int c = tid; c < D; c += LA_THREADS) {
+    mrun[c] = -INFINITY;
+    den[c] = 0.f;
+  }
+  const int c0 = (warp % MT) * 16, l0 = (warp / MT) * NPW * 8;
+  const bool mma_warp = l0 < D;
+  float acc[NPW][4];
+#pragma unroll
+  for (int n = 0; n < NPW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  const int n_begin = static_cast<int>((long)N * rank / G);
+  const int n_end = static_cast<int>((long)N * (rank + 1) / G);
+  for (int n0 = n_begin; n0 < n_end; n0 += LA_RS) {
+    const int rows = min(LA_RS, n_end - n0);
+    {  // every load of the step starts before the first store
+      constexpr int IT = (LA_RS * D / 4 + LA_THREADS - 1) / LA_THREADS;
+      float4 k4[IT], v4[IT];
+#pragma unroll
+      for (int u = 0; u < IT; ++u) {
+        const int i = tid + u * LA_THREADS, r = i / (D / 4), c = i % (D / 4) * 4;
+        k4[u] = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+        v4[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < LA_RS * D / 4 && r < rows) {
+          k4[u] = key(n0 + r, c);
+          v4[u] = value(n0 + r, c);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < IT; ++u) {
+        const int i = tid + u * LA_THREADS, r = i / (D / 4), c = i % (D / 4) * 4;
+        if (i < LA_RS * D / 4) {
+          *reinterpret_cast<float4*>(ks + r * LDK + c) = k4[u];
+          *reinterpret_cast<float4*>(vs + r * LDK + c) = v4[u];
+        }
+      }
+    }
+    __syncthreads();
     float m = -INFINITY;
-    for (int n = p; n < N; n += P) m = fmaxf(m, key(n, c));
+    for (int r = p_own; r < rows; r += P) m = fmaxf(m, ks[r * LDK + c_own]);
     part[tid] = m;
     __syncthreads();
-    if (p == 0) {
-      for (int k = 1; k < P; ++k) m = fmaxf(m, part[k * D + c]);
-      kmax[c] = m;
+    if (tid < D) {
+      for (int k = 1; k < P; ++k) m = fmaxf(m, part[k * D + tid]);
+      const float old = mrun[tid], now = fmaxf(old, m);
+      rescale[tid] = old == -INFINITY ? 0.f : expf(old - now);
+      mrun[tid] = now;
     }
     __syncthreads();
-    const float mx = kmax[c];
+    const float mx = mrun[c_own];
     float s = 0.f;
-    for (int n = p; n < N; n += P) s += expf(key(n, c) - mx);
-    part[LA_THREADS + tid] = s;
-    __syncthreads();
-    if (p == 0) {
-      for (int k = 1; k < P; ++k) s += part[LA_THREADS + k * D + c];
-      den[c] = s;
+    for (int r = p_own; r < LA_RS; r += P) {
+      const float e = expf(ks[r * LDK + c_own] - mx);  // padded rows: exp(-inf) = 0
+      ks[r * LDK + c_own] = e;
+      s += e;
     }
+    part[tid] = s;
     __syncthreads();
+    if (tid < D) {
+      for (int k = 1; k < P; ++k) s += part[k * D + tid];
+      den[tid] = den[tid] * rescale[tid] + s;
+    }
+    if (mma_warp) {
+      const float sc0 = rescale[c0 + g], sc1 = rescale[c0 + g + 8];
+#pragma unroll
+      for (int n = 0; n < NPW; ++n) {
+        acc[n][0] *= sc0, acc[n][1] *= sc0;
+        acc[n][2] *= sc1, acc[n][3] *= sc1;
+      }
+      // A fragment (c, n) = E[n, c]; B fragment (n, l) = V[n, l]
+      for (int k = 0; k < rows; k += 8) {
+        const float* ea = ks + (k + t) * LDK + c0 + g;
+        const float av[4] = {ea[0], ea[8], ea[4 * LDK], ea[4 * LDK + 8]};
+        unsigned ahi[4], alo[4];
+        split_fragment(av, ahi, alo);
+        const float* vb = vs + (k + t) * LDK + l0 + g;
+#pragma unroll
+        for (int nb = 0; nb < NPW; nb += NB) {
+          Tf32x2 b0[NB], b1[NB];
+#pragma unroll
+          for (int n = 0; n < NB; ++n) {
+            b0[n] = split_tf32(vb[8 * (nb + n)]);
+            b1[n] = split_tf32(vb[4 * LDK + 8 * (nb + n)]);
+          }
+          mma_3xtf32(acc, nb, ahi, alo, b0, b1);
+        }
+      }
+    }
+    __syncthreads();  // the staging tiles are refilled next
+  }
+  float* as = span;  // [D][LDA] A_r, unnormalized, relative to mrun
+  if (mma_warp) {
+#pragma unroll
+    for (int n = 0; n < NPW; ++n) {
+      float* o = as + (c0 + g) * LDA + l0 + 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(o) = make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(o + 8 * LDA) = make_float2(acc[n][2], acc[n][3]);
+    }
   }
 
-  // 2. A = softmax(K)^T V over staged row chunks
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[TI][TI];
+  // 2. merge: m = max_j m_j, den = sum_j exp(m_j - m) den_j; CTA r sums the
+  // rescaled partials of its column block from every CTA of the cluster
+  // (reduce-scatter), then gathers the other blocks (all-gather)
+  cluster.sync();
+  if (tid < D) {
+    float mj[G], m = -INFINITY;
 #pragma unroll
-  for (int i = 0; i < TI; ++i)
-#pragma unroll
-    for (int j = 0; j < TI; ++j) acc[i][j] = 0.f;
-  for (int n0 = 0; n0 < N; n0 += LA_ROWS) {
-    for (int i = tid; i < LA_ROWS * D; i += LA_THREADS) {
-      const int r = i / D, c = i % D, n = n0 + r;
-      float e = 0.f, v = 0.f;
-      if (n < N) {
-        e = expf(key(n, c) - kmax[c]) / den[c];
-        v = value(n, c);
-      }
-      s0[i] = e;
-      s1[i] = v;
+    for (int j = 0; j < G; ++j) {
+      mj[j] = *cluster.map_shared_rank(mrun + tid, j);
+      m = fmaxf(m, mj[j]);
     }
-    __syncthreads();
-    for (int r = 0; r < LA_ROWS; ++r) {
-      float ev[TI], vv[TI];
+    float sum = 0.f;
 #pragma unroll
-      for (int i = 0; i < TI; ++i) ev[i] = s0[r * D + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TI; ++j) vv[j] = s1[r * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TI; ++i)
-#pragma unroll
-        for (int j = 0; j < TI; ++j) acc[i][j] = fmaf(ev[i], vv[j], acc[i][j]);
+    for (int j = 0; j < G; ++j) {
+      mj[j] = mj[j] == -INFINITY ? 0.f : expf(mj[j] - m);
+      sum += mj[j] * *cluster.map_shared_rank(den + tid, j);
     }
-    __syncthreads();
+    const float inv = sum > 0.f ? 1.f / sum : 0.f;
+#pragma unroll
+    for (int j = 0; j < G; ++j) coef[j * D + tid] = mj[j] * inv;
   }
-#pragma unroll
-  for (int i = 0; i < TI; ++i)
-#pragma unroll
-    for (int j = 0; j < TI; ++j) As[(ty + 16 * i) * D + tx + 16 * j] = acc[i][j];
   __syncthreads();
-
-  // 3. per query row: channel softmax, then Q A
-  const int warp = tid / 32, lane = tid % 32;
-  for (int t0 = 0; t0 < T; t0 += LA_ROWS) {
-    for (int i = tid; i < LA_ROWS * D; i += LA_THREADS) {
-      const int r = i / D, c = i % D, t = t0 + r;
-      s0[i] = t < T ? q[t * ldq + c] : 0.f;
-    }
-    __syncthreads();
-    for (int r = warp; r < LA_ROWS; r += LA_THREADS / 32) {
-      float m = -INFINITY;
-      for (int c = lane; c < D; c += 32) m = fmaxf(m, s0[r * D + c]);
+  {
+    constexpr int IT = (D * DG / 4 + LA_THREADS - 1) / LA_THREADS;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      float s = 0.f;
-      for (int c = lane; c < D; c += 32) {
-        const float e = expf(s0[r * D + c] - m);
-        s0[r * D + c] = e;
-        s += e;
+    for (int u = 0; u < IT; ++u) {
+      const int i = tid + u * LA_THREADS;
+      if (i >= D * DG / 4) break;
+      const int c = i / (DG / 4), l = i % (DG / 4) * 4;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(as, j) + c * LDA + rank * DG + l);
+        const float w = coef[j * D + c];
+        s.x = fmaf(w, a.x, s.x), s.y = fmaf(w, a.y, s.y);
+        s.z = fmaf(w, a.z, s.z), s.w = fmaf(w, a.w, s.w);
       }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      for (int c = lane; c < D; c += 32) s0[r * D + c] /= s;
+      *reinterpret_cast<float4*>(ar + c * LDR + l) = s;
     }
-    __syncthreads();
-    // thread (ty, tx) computes rows ty + 16 i, columns tx + 16 j
-    float o[OI][TI];
-#pragma unroll
-    for (int i = 0; i < OI; ++i)
-#pragma unroll
-      for (int j = 0; j < TI; ++j) o[i][j] = 0.f;
-    for (int c = 0; c < D; ++c) {
-      float av[TI];
-#pragma unroll
-      for (int j = 0; j < TI; ++j) av[j] = As[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < OI; ++i) {
-        const float qv = s0[(ty + 16 * i) * D + c];
-#pragma unroll
-        for (int j = 0; j < TI; ++j) o[i][j] = fmaf(qv, av[j], o[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < OI; ++i) {
-      const int t = t0 + ty + 16 * i;
-      if (t < T) {
-#pragma unroll
-        for (int j = 0; j < TI; ++j) out[t * ldo + tx + 16 * j] = o[i][j];
-      }
-    }
-    __syncthreads();
   }
+  cluster.sync();  // every block of A is reduced; no CTA reads A_r any more
+  float* af = span;  // [D][LDA] the whole A, gathered over the span
+  {
+    constexpr int IT = D * D / 4 / LA_THREADS > 0 ? D * D / 4 / LA_THREADS : 1;
+#pragma unroll 4
+    for (int u = 0; u < IT; ++u) {
+      const int i = tid + u * LA_THREADS;
+      if (i >= D * D / 4) break;
+      const int c = i / (D / 4), l = i % (D / 4) * 4, j = l / DG;
+      *reinterpret_cast<float4*>(af + c * LDA + l) = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(ar, j) + c * LDR + l - j * DG);
+    }
+  }
+  cluster.sync();  // past here no CTA reads another's shared memory
+
+  // 3. CTA r takes query rows [rT/G, (r+1)T/G), RQ at a time: channel
+  // softmax (TPR threads a row), then out = q A; warp w
+  // computes rows 16 (w % 4).. of the step and columns (w / 4) D/2.., summed
+  // in K blocks of 64 (see ffn_tile_tc on partial sums)
+  constexpr int RQ = L::RQ, TPR = LA_THREADS / RQ, CPT = D / TPR, NQ = D / 16;
+  constexpr int NQB = NQ < 4 ? NQ : 4;
+  float* qs = ar;  // [RQ][LDQ]
+  const int t_begin = static_cast<int>((long)T * rank / G);
+  const int t_end = static_cast<int>((long)T * (rank + 1) / G);
+  for (int t0 = t_begin; t0 < t_end; t0 += RQ) {
+    const int nrows = min(RQ, t_end - t0);
+    for (int i = tid; i < RQ * D / 4; i += LA_THREADS) {
+      const int r = i / (D / 4), c = i % (D / 4) * 4;
+      const bool in = r < nrows;
+      cp_async16(qs + r * LDQ + c, in ? q + (t0 + r) * ldq + c : q, in);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    {  // TPR threads a row, channels p, p + TPR, ... (conflict-free)
+      float* row = qs + (tid / TPR) * LDQ + tid % TPR;
+      float m = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) m = fmaxf(m, row[c * TPR]);
+#pragma unroll
+      for (int o = 1; o < TPR; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      float e[CPT], s = 0.f;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        e[c] = expf(row[c * TPR] - m);
+        s += e[c];
+      }
+#pragma unroll
+      for (int o = 1; o < TPR; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      const float inv = 1.f / s;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) row[c * TPR] = e[c] * inv;
+    }
+    __syncthreads();
+    const int r0 = 16 * (warp % 4), n0 = (warp / 4) * (D / 2);
+    if (r0 < nrows) {
+      float o[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+      for (int k0 = 0; k0 < D; k0 += 64) {
+        float op[NQ][4];
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) op[n][0] = op[n][1] = op[n][2] = op[n][3] = 0.f;
+#pragma unroll 2
+        for (int k = k0; k < k0 + 64 && k < D; k += 8) {
+          const float* qa = qs + (r0 + g) * LDQ + k + t;
+          const float av[4] = {qa[0], qa[8 * LDQ], qa[4], qa[8 * LDQ + 4]};
+          unsigned ahi[4], alo[4];
+          split_fragment(av, ahi, alo);
+          const float* rb = af + (k + t) * LDA + n0 + g;
+#pragma unroll
+          for (int nb = 0; nb < NQ; nb += NQB) {
+            Tf32x2 b0[NQB], b1[NQB];
+#pragma unroll
+            for (int n = 0; n < NQB; ++n) {
+              b0[n] = split_tf32(rb[8 * (nb + n)]);
+              b1[n] = split_tf32(rb[4 * LDA + 8 * (nb + n)]);
+            }
+            mma_3xtf32(op, nb, ahi, alo, b0, b1);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o[n][i] += op[n][i];
+      }
+      const int r_lo = r0 + g, r_hi = r_lo + 8;
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const int col = n0 + 8 * n + 2 * t;
+        if (r_lo < nrows)
+          *reinterpret_cast<float2*>(out + (t0 + r_lo) * ldo + col) =
+              make_float2(o[n][0], o[n][1]);
+        if (r_hi < nrows)
+          *reinterpret_cast<float2*>(out + (t0 + r_hi) * ldo + col) =
+              make_float2(o[n][2], o[n][3]);
+      }
+    }
+    __syncthreads();  // qs is refilled next
+  }
+}
+
+// The launch of a cell kernel over B x H cells: grid (G B, H), clusters of
+// G CTAs along x, the cell's dynamic shared memory.  *cluster is the
+// configuration's one attribute and must outlive it.
+template <int D, class... Params>
+cudaLaunchConfig_t cell_config(void (*kernel)(Params...), int B, int H,
+                               cudaStream_t stream, cudaLaunchAttribute* cluster) {
+  constexpr int smem = LaCell<D>::SMEM_FLOATS * sizeof(float);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = LaCell<D>::G;
+  cluster->val.clusterDim.y = 1;
+  cluster->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(LaCell<D>::G * B, H, 1);
+  cfg.blockDim = dim3(LA_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Launch a cell kernel over B x H cells.  Returns cudaGetLastError() after
+// the launch.
+template <int D, class... Params, class... Args>
+int launch_cells(void (*kernel)(Params...), int B, int H, cudaStream_t stream,
+                 Args... args) {
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = cell_config<D>(kernel, B, H, stream, &cluster);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The number of clusters of a cell kernel that can be resident at once on
+// the current device.  Returns the CUDA error code.
+template <int D, class... Params>
+int max_active_cells(void (*kernel)(Params...), int* clusters) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = cell_config<D>(kernel, sms, 1, nullptr, &cluster);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(clusters, reinterpret_cast<void*>(kernel), &cfg));
 }
 
 }  // namespace mc

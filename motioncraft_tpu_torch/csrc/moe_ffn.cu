@@ -8,11 +8,22 @@
 //
 // Bound: at the flagship (D=128, F=512) the two products are 4*D*F = 262k
 // flops per row against 2*D*4 = 1 KB moved per row, so the kernel is bound by
-// f32 operations; exact f32 rules out TF32 tensor cores, so the ceiling is the
-// CUDA cores' f32 rate.  Design: one CTA per 64-row tile (8 per block); the
-// CTA reads its own expert id, keeps its x tile in shared memory and streams
-// w1/w2 through it 32 hidden columns at a time, so the [M_pad, F] hidden
-// activation never reaches device memory (common.cuh ffn_tile).
+// operations.  On the CUDA cores' f32 rate (67 TFLOP/s) that bound is
+// 0.62 ms; in 3xTF32 on the tensor cores (three TF32 products at 495
+// TFLOP/s, exact to about 22 mantissa bits, see common.cuh) it is 0.25 ms.
+// Design (common.cuh ffn_tile_tc): one CTA per 128-row quarter of an expert
+// block (64 rows at D=256) reads its expert id and keeps its x tile in
+// shared memory; both products run as mma.sync m16n8k8 TF32 in 3xTF32, each
+// warp owning 16 rows x all D output columns in registers; w1/w2 stream in
+// 64-hidden-column chunks (32 at D=256), double-buffered with cp.async; the
+// hidden chunk stays in registers (bias and erf-GELU on the accumulator),
+// so the [M_pad, F] hidden activation never reaches device memory.
+//
+// What holds it from the 3xTF32 bound: mma.sync does not reach the tensor
+// cores' TF32 peak, and the fragment loads and splits are more than 8 warps
+// an SM can hide.  wgmma would, but it reads TF32 only K-major from shared
+// memory: w1 and w2 would have to be transposed and split into hi/lo copies
+// before they are staged.
 #include "common.cuh"
 
 namespace {
@@ -20,26 +31,27 @@ namespace {
 constexpr int GROUP_ROWS = 512;  // rows of one expert-aligned block
 
 template <int D>
-__global__ void __launch_bounds__(mc::FFN_THREADS)
+__global__ void __launch_bounds__(mc::TcFfn<D>::THREADS, 1)
 grouped_ffn_kernel(const int* __restrict__ block_expert,
                    const float* __restrict__ xs, const float* __restrict__ w1,
                    const float* __restrict__ b1, const float* __restrict__ w2,
                    float* __restrict__ out, int F) {
+  static_assert(GROUP_ROWS % mc::TcFfn<D>::BM == 0, "a tile spans one block");
   extern __shared__ __align__(16) float smem[];
-  const long row0 = (long)blockIdx.x * mc::FFN_BM;
+  const long row0 = (long)blockIdx.x * mc::TcFfn<D>::BM;
   const int e = block_expert[row0 / GROUP_ROWS];
-  mc::ffn_tile<D>(xs + row0 * D, D, out + row0 * D, D, mc::FFN_BM,
-                  w1 + (long)e * D * F, b1 + (long)e * F,
-                  w2 + (long)e * F * D, nullptr, F, smem);
+  mc::ffn_tile_tc<D>(xs + row0 * D, out + row0 * D, w1 + (long)e * D * F,
+                     b1 + (long)e * F, w2 + (long)e * F * D, F, smem);
 }
 
 template <int D>
 int launch(const int* be, const float* xs, const float* w1, const float* b1,
            const float* w2, float* out, int m_pad, int F, cudaStream_t stream) {
-  const int smem = mc::ffn_smem_floats<D>() * sizeof(float);
+  using C = mc::TcFfn<D>;
+  const int smem = C::SMEM_FLOATS * sizeof(float);
   cudaFuncSetAttribute(grouped_ffn_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  grouped_ffn_kernel<D><<<m_pad / mc::FFN_BM, mc::FFN_THREADS, smem, stream>>>(
+  grouped_ffn_kernel<D><<<m_pad / C::BM, C::THREADS, smem, stream>>>(
       be, xs, w1, b1, w2, out, F);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,21 +7,22 @@
 //           k_mot[t] = mot[b, t, h, d:2d] + (1 - mask[b, t]) * -1e6
 //   values  v_txt[j] = txt[b, j, d:]  * tcond[b]
 //           v_mot[t] = mot[b, t, h, 2d:3d] * mask[b, t]
-//   key softmax over the joint sequence, per channel c (two-part max/sum)
+//   key softmax over the joint sequence, per channel c
 //   A[c, l] = sum_n softmax(k)[n, c] * v[n, l]                 (d x d)
 //   out[b, t, h, :] = softmax_c(mot[b, t, h, 3d:]) @ A
 //
-// Bound: at the flagship (T=196, 77 text rows, d=128) one cell does
-// 2*(T+TXT)*d*d + 2*T*d*d = 15 Mflop against 0.6 MB moved, about 26 flops
-// per byte: just above the card's ridge for CUDA-core f32 (67 TFLOP/s over
-// 3.35 TB/s, 20 flops per byte), so f32 operations bound it, narrowly.
-// Design: one CTA per (b, h) reads its head's lanes of the interleaved
-// projection directly (no transposes, no concatenation: the key and value
-// functors below join text and motion rows).  The cell itself
-// (common.cuh linear_attention_cell, shared with linear_attention.cu) keeps A
-// in registers while it accumulates (8x8 per thread at d=128), then in
-// dynamic shared memory (64 KB) for the Q A product; nothing but the output
-// reaches device memory.
+// Bound: at the flagship (T=196, 77 text rows, d=128, 32 x 12 cells) the
+// products are 5.9 Gflop in 3xTF32 on the tensor cores against about 157 MB
+// moved (the key, value and query lanes of mot, txt, the output), so bytes
+// bound it: 0.047 ms.  Design: one thread-block cluster of 4 CTAs per
+// (b, h), 1536 CTAs that fill the card (common.cuh linear_attention_cell,
+// shared with linear_attention.cu): each CTA reads a quarter of the joint
+// sequence once, keeps an online per-channel softmax of its chunk, and the
+// cluster merges the chunks through distributed shared memory, each CTA then
+// producing a quarter of the query rows.  The products run in 3xTF32 on
+// mma.sync.  The functors below read the head's lanes of the interleaved
+// projection in place and join text and motion rows (no transposes, no
+// concatenation); nothing but the output reaches device memory.
 #include "common.cuh"
 
 namespace {
@@ -29,7 +30,7 @@ namespace {
 constexpr float NEG = -1000000.0f;
 
 template <int D>
-__global__ void __launch_bounds__(mc::LA_THREADS)
+__global__ void __launch_bounds__(mc::LA_THREADS, 2)
 stma_attention_kernel(const float* __restrict__ mot,   // [B, T, H, 4D]
                       const float* __restrict__ txt,   // [B, TXT, 2D]
                       const float* __restrict__ mask,  // [B, T]
@@ -37,7 +38,7 @@ stma_attention_kernel(const float* __restrict__ mot,   // [B, T, H, 4D]
                       float* __restrict__ out,         // [B, T, H, D]
                       int T, int TXT, int H) {
   extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
+  const int b = blockIdx.x / mc::LaCell<D>::G, h = blockIdx.y;
   const long mrow = (long)H * 4 * D;  // stride of a motion row
   const float* motb = mot + (long)b * T * mrow + (long)h * 4 * D;
   const float* txtb = txt + (long)b * TXT * 2 * D;
@@ -45,16 +46,32 @@ stma_attention_kernel(const float* __restrict__ mot,   // [B, T, H, 4D]
   const float tc = tcond[b];
   const float tneg = (1.0f - tc) * NEG;
 
-  // the joint sequence: text rows, then motion rows
-  auto key = [&](int n, int c) -> float {
-    if (n < TXT) return txtb[(long)n * 2 * D + c] + tneg;
-    const int t = n - TXT;
-    return motb[t * mrow + D + c] + (1.0f - maskb[t]) * NEG;
+  // the joint sequence: text rows, then motion rows; channels c..c+3
+  auto key = [&](int n, int c) -> float4 {
+    float4 k;
+    float add;
+    if (n < TXT) {
+      k = *reinterpret_cast<const float4*>(txtb + (long)n * 2 * D + c);
+      add = tneg;
+    } else {
+      const int t = n - TXT;
+      k = *reinterpret_cast<const float4*>(motb + t * mrow + D + c);
+      add = (1.0f - maskb[t]) * NEG;
+    }
+    return make_float4(k.x + add, k.y + add, k.z + add, k.w + add);
   };
-  auto value = [&](int n, int c) -> float {
-    if (n < TXT) return txtb[(long)n * 2 * D + D + c] * tc;
-    const int t = n - TXT;
-    return motb[t * mrow + 2 * D + c] * maskb[t];
+  auto value = [&](int n, int c) -> float4 {
+    float4 v;
+    float mul;
+    if (n < TXT) {
+      v = *reinterpret_cast<const float4*>(txtb + (long)n * 2 * D + D + c);
+      mul = tc;
+    } else {
+      const int t = n - TXT;
+      v = *reinterpret_cast<const float4*>(motb + t * mrow + 2 * D + c);
+      mul = maskb[t];
+    }
+    return make_float4(v.x * mul, v.y * mul, v.z * mul, v.w * mul);
   };
   mc::linear_attention_cell<D>(TXT + T, key, value, T, motb + 3 * D, mrow,
                                out + ((long)b * T * H + h) * D, (long)H * D, smem);
@@ -64,12 +81,8 @@ template <int D>
 int launch(const float* mot, const float* txt, const float* mask,
            const float* tcond, float* out, int B, int T, int TXT, int H,
            cudaStream_t stream) {
-  const int smem = mc::la_smem_floats<D>() * sizeof(float);
-  cudaFuncSetAttribute(stma_attention_kernel<D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  stma_attention_kernel<D><<<dim3(B, H), mc::LA_THREADS, smem, stream>>>(
-      mot, txt, mask, tcond, out, T, TXT, H);
-  return static_cast<int>(cudaGetLastError());
+  return mc::launch_cells<D>(stma_attention_kernel<D>, B, H, stream, mot, txt,
+                             mask, tcond, out, T, TXT, H);
 }
 
 }  // namespace
@@ -94,4 +107,10 @@ extern "C" int mc_stma_attention(const void* motion_feat, const void* text_feat,
     case 128: return launch<128>(m, t, k, c, o, B, T, TXT, H, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The clusters of the d = 128 kernel that fit on the card at once
+// (cudaOccupancyMaxActiveClusters).  Returns the CUDA error code.
+extern "C" int mc_stma_max_active_clusters(int* clusters) {
+  return mc::max_active_cells<128>(stma_attention_kernel<128>, clusters);
 }

@@ -6,12 +6,16 @@ of motioncraft_tpu/ops/linear_attention.py.  Per (batch, head), with the
 masks already applied by the caller: key softmax over the sequence,
 ``A = K^T V`` (d x d), query softmax over the channels, ``Y = Q A``.
 
-On a CUDA tensor the wrapper launches csrc/linear_attention.cu: one CTA per
-(b, h) reads the [B, N, H, d] tensors in place through their strides, keeps
-A in shared memory and writes only the output.  Bound by f32 operations
-(about 32 flops per byte at the flagship training step).  The gradient
-recomputes the plain version (ops/recompute.py), as the Pallas kernel's
-custom VJP does.
+On a CUDA tensor the wrapper launches csrc/linear_attention.cu, K3's
+split-sequence cell: one thread-block cluster of 4 CTAs per (b, h) reads the
+[B, N, H, d] tensors in place through their strides, each CTA a quarter of
+the keys and values, once; the CTAs merge their online key softmaxes and
+partial ``K^T V`` through distributed shared memory, and each writes the
+output of a quarter of the query rows.  At the flagship training step the
+bound is 0.055 ms, by bytes (both products in 3xTF32 on the tensor cores);
+the cluster fills the card with 1536 CTAs and reads each key once.  The
+gradient recomputes the plain version (ops/recompute.py), as the Pallas
+kernel's custom VJP does.
 """
 
 from __future__ import annotations
@@ -46,6 +50,15 @@ def masked_linear_attention(q_logits, k_logits, value, key_mask=None):
 def fused_linear_attention_plain(q_logits, k_logits, value):
     """Plain version of K5 (the Pallas kernel's jnp ``_reference``)."""
     return masked_linear_attention(q_logits, k_logits, value)
+
+
+def _aligned(t):
+    """``t`` itself if the kernel can read it in place (unit stride on d,
+    other strides multiples of 4, 16-byte aligned), else a contiguous copy."""
+    if (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _launch(q_logits, k_logits, value):
@@ -86,9 +99,9 @@ def fused_linear_attention(q_logits: torch.Tensor, k_logits: torch.Tensor,
         raise ValueError("fused_linear_attention: inconsistent shapes")
     if d not in (16, 32, 64, 128):
         raise ValueError(f"fused_linear_attention: kernel takes d in 16/32/64/128, got {d}")
-    if B > 2 ** 31 - 1 or H > 65535:
+    if 4 * B > 2 ** 31 - 1 or H > 65535:  # grid (4 B, H): a cluster of 4 per cell
         raise ValueError("fused_linear_attention: grid too large")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in tensors)
+    q, k, v = (_aligned(t) for t in tensors)
     if B == 0 or T == 0 or H == 0:
         return q.new_empty((B, T, H, d))
     return with_recomputed_grad(_launch, fused_linear_attention_plain, q, k, v)

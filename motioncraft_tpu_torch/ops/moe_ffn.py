@@ -7,11 +7,16 @@ so each block belongs to one expert, ``block_expert[block]``:
     out_block = gelu_erf(x_block @ w1[e] + b1[e]) @ w2[e]
 
 b2 and the gate are left to the caller (models/moe.py).  On a CUDA tensor the
-wrapper launches csrc/moe_ffn.cu: one CTA per 64-row tile reads its block's
-expert id and keeps the hidden activation in shared memory, 32 columns at a
-time, so it never reaches device memory.  Bound by f32 operations
-(4*D*F flops per row against 8*D bytes); exact f32 rules out TF32 tensor
-cores.
+wrapper launches csrc/moe_ffn.cu.  The kernel is bound by operations (4*D*F
+flops per row against 8*D bytes).  Exact f32 does not rule out the tensor
+cores: both products run on them in 3xTF32 (each f32 operand split into two
+TF32 parts, three TF32 products summed in f32, about 22 mantissa bits).  One
+CTA per 128-row quarter of an expert block reads its expert id, keeps its
+rows in shared memory, streams w1/w2 64 hidden columns at a time with
+double-buffered asynchronous copies, and keeps the hidden chunk in
+registers, so the hidden activation never reaches device memory.  Its
+bound is 3xTF32 on the tensor cores (three passes at 495 TFLOP/s);
+mma.sync does not reach that peak, wgmma would.
 """
 
 from __future__ import annotations

@@ -7,9 +7,10 @@ repository's conftest files (which import JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 K4 must agree exactly; K1-K3, K5 and K6 to 1e-5 x max |plain| (another
-summation order).  K5 and K6 are also held backward: their gradient
-recomputes the plain version, so it must equal plain autograd's to the same
-tolerance.  The end-to-end case runs a narrow model (widths the kernels
+summation order; K1's products run in 3xTF32 on the tensor cores, K3's and
+K5's key softmax is merged from per-CTA chunks).  K5 and K6 are also held
+backward: their gradient recomputes the plain version, so it must equal
+plain autograd's to the same tolerance.  The end-to-end case runs a narrow model (widths the kernels
 take) on the card and on the CPU with the same weights and noise.
 """
 
@@ -20,6 +21,7 @@ import torch
 from motioncraft_tpu_torch.apis.factory import make_text_batch, tiny_t2m_cfg
 from motioncraft_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
 from motioncraft_tpu_torch.ops.moe_ffn import BLOCK
+from motioncraft_tpu_torch.ops.stma_attention import max_active_clusters
 from motioncraft_tpu_torch.registry import build_architecture
 from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
 from torch_port_util import grad_mode_on  # noqa: F401
@@ -56,9 +58,11 @@ def _case(name, variant, g):
                 _randn(g, H, f, scale=0.1), _randn(g, H, f, d, scale=f ** -0.5),
                 _randn(g, H, d, scale=0.1))
     if name == "fused_linear_attention":
-        B, T, N, H, d = variant
+        B, T, N, H, d, *kind = variant
         key = _randn(g, B, N, H, d)
         key[0, N // 2:] += -1e6  # masked keys, as STMA's padding gives them
+        if kind == ["masked_chunk"]:  # the first CTA's whole chunk, every cell
+            key[:, :N // 4] += -1e6
         return _randn(g, B, T, H, d), key, _randn(g, B, N, H, d)
     if name == "fused_expert_ffn":
         E, C, D, F = variant
@@ -66,10 +70,14 @@ def _case(name, variant, g):
         xe[:, C - C // 3:] = 0  # empty slots
         return (xe, _randn(g, E, D, F, scale=D ** -0.5), _randn(g, E, F, scale=0.1),
                 _randn(g, E, F, D, scale=F ** -0.5), _randn(g, E, D, scale=0.1))
-    B, T, H, d, TXT = variant
+    B, T, H, d, TXT, *kind = variant
     mask = torch.ones(B, T, 1)
     mask[1, T // 2:] = 0
     tcond = (torch.arange(B) < B // 2).float().reshape(B, 1, 1)
+    if kind == ["length_1"]:
+        mask[:, 1:] = 0
+    if kind == ["text_off"]:
+        tcond.zero_()
     return _randn(g, B, T, H, 4 * d), _randn(g, B, TXT, 2 * d), mask, tcond
 
 
@@ -78,14 +86,31 @@ CASES = [
     ("moe_positions", (70000, 3)),
     ("grouped_ffn", (4, 128, 512, [0, 3, 3, 1])), ("grouped_ffn", (2, 256, 1024, [1, 1])),
     ("grouped_ffn", (3, 32, 64, [2, 0])),
+    # the four 128-row tiles of a block share its expert, the next block has
+    # another; D = 256 (64-row tiles, 32-column chunks); F not a multiple of
+    # the 64-column chunk
+    ("grouped_ffn", (4, 128, 512, [2, 0, 0, 3])), ("grouped_ffn", (3, 256, 1024, [2, 0, 1])),
+    ("grouped_ffn", (2, 64, 96, [1, 0, 1])),
     ("head_ffn", (700, 3, 128, 512)), ("head_ffn", (65, 2, 64, 96)),
     ("stma_linear_attention", (4, 50, 3, 128, 77)),
     ("stma_linear_attention", (2, 33, 5, 32, 7)),
+    # every motion row masked past length 1; text off for the whole batch;
+    # 37 rows over a cluster of 4; d = 16 (a cluster of 2, 27 rows)
+    ("stma_linear_attention", (3, 40, 2, 64, 9, "length_1")),
+    ("stma_linear_attention", (2, 50, 3, 128, 77, "text_off")),
+    ("stma_linear_attention", (2, 30, 2, 32, 7)), ("stma_linear_attention", (3, 21, 2, 16, 6)),
+    # more than one 64-row query step per CTA
+    ("stma_linear_attention", (2, 300, 2, 32, 77)),
     # the flagship training step at B = 32: STMA's global attention (77 text
     # + 196 motion keys), the motion and the text MoE's slot buffers
     ("fused_linear_attention", (32, 196, 273, 12, 128)),
     ("fused_linear_attention", (4, 50, 77, 3, 16)),
     ("fused_linear_attention", (2, 33, 40, 5, 64)),
+    # a CTA's chunk made only of -1e6 keys; fewer keys than CTAs in a cluster
+    ("fused_linear_attention", (3, 20, 40, 2, 128, "masked_chunk")),
+    ("fused_linear_attention", (2, 5, 3, 2, 32)),
+    # many 32-row key steps and 64-row query steps per CTA
+    ("fused_linear_attention", (2, 300, 700, 2, 64)),
     ("fused_expert_ffn", (16, 14112, 128, 512)),
     ("fused_expert_ffn", (16, 462, 256, 1024)),
     ("fused_expert_ffn", (3, 37, 32, 128)),
@@ -136,6 +161,11 @@ def test_strided_query_is_read_in_place(cuda):
     assert not query.is_contiguous()
     got, want = wrapper(query, key, value), plain(query, key, value)
     torch.testing.assert_close(got, want, rtol=0, atol=REL * float(want.abs().max()))
+
+
+def test_k3_clusters_fit_on_the_card(cuda):
+    """Every SM holds at least one CTA of a d = 128 cell's cluster at once."""
+    assert max_active_clusters() * 4 >= torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def test_narrow_model_samples_alike_on_card_and_cpu(cuda):
