@@ -11,12 +11,12 @@ toolkit:
 Phases; any failure exits non-zero:
   1. the card's name and power limit; build the kernels from
      motioncraft_tpu_torch/csrc/ with nvcc for sm_90a
-  2. each kernel against its plain version on the same inputs, at the
-     shapes of phase 4 (K1-K4) and of phase 7 (K5, K6, at B = 32): max abs
+  2. each kernel against its plain version on the same inputs, at every
+     shape of phase 4 (K1-K4) and of phase 7 (K5, K6, at B = 32): max abs
      error against its tolerance; kernel and plain times from CUDA events;
      the least time the card could take (bound_ms: f32 products in 3xTF32
-     on the tensor cores, which K1, K3 and K5 run; K4's integer work on the
-     CUDA cores), and the f32 bound on the CUDA cores as a second note
+     on the tensor cores, which K1-K3, K5 and K6 run; K4's integer work on
+     the CUDA cores), and the f32 bound on the CUDA cores as a second note
      (bound_f32_ms); how many of K3's clusters fit on the card at once
   3. the flagship MotionDiffusion (configs/stmogen/t2m_motionx_0_125b.py) on
      the card, with seeded fabricated weights
@@ -239,8 +239,6 @@ def phase_kernels(torch, cfg, dev):
             shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
             print(f"[kernel] {name} case {i} {shapes}: max_abs_err {err:.3e} (tol {tol})")
             check(ok, f"{name} disagrees with its plain version: {err} (tol {tol})")
-            if i:
-                continue  # times are taken at the first (dominant) shape
             ms = time_ms(torch, lambda: wrapper(*args))
             plain_ms = time_ms(torch, lambda: plain(*args))
             flops, nbytes = kernel_work(name, args)
@@ -249,14 +247,18 @@ def phase_kernels(torch, cfg, dev):
             else:  # f32 products: 3xTF32 on the tensor cores is the fastest exact way
                 bound_ms, bound_by = bound(3 * flops, nbytes, TF32_PEAK)
                 f32_ms, f32_by = bound(flops, nbytes, F32_PEAK)
-            print(f"[kernel] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            print(f"[kernel] {name} case {i}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {bound_ms:.4f} ms ({bound_by}, share {bound_ms / ms:.3f}); "
                   f"f32 CUDA-core bound {f32_ms:.4f} ms ({f32_by}, share {f32_ms / ms:.3f})")
+            case = {"shape": shapes, "ms": ms, "bound_ms": bound_ms}
+            if i:  # the row's own numbers are the first (dominant) case's
+                rows[name]["cases"].append(case)
+                continue
             rows[name] = {"name": name, "route": "cuda", "source": SOURCES[name],
                           "replaces": PALLAS[name], "max_abs_err": err, "ms": ms,
                           "plain_ms": plain_ms, "bound_ms": bound_ms,
                           "bound_by": bound_by, "bound_f32_ms": f32_ms,
-                          "bound_f32_by": f32_by, "library_ms": None}
+                          "bound_f32_by": f32_by, "library_ms": None, "cases": [case]}
     return rows
 
 

@@ -1,9 +1,9 @@
 // Shared pieces of the port's kernels: the C error hook every library
-// exports, exact-erf GELU, the SIMT FFN tile that the per-head FFN (sffn.cu)
-// and the slot expert FFN (expert_ffn.cu) run, the 3xTF32 tensor-core FFN
-// tile of the grouped expert FFN (moe_ffn.cu), and the split-sequence
-// linear-attention cell of the STMA attention (stma_attention.cu) and the
-// generic linear attention (linear_attention.cu).
+// exports, exact-erf GELU, the 3xTF32 tensor-core FFN tile that the grouped
+// expert FFN (moe_ffn.cu), the per-head FFN (sffn.cu) and the slot expert
+// FFN (expert_ffn.cu) run, and the split-sequence linear-attention cell of
+// the STMA attention (stma_attention.cu) and the generic linear attention
+// (linear_attention.cu) with its thread-block cluster launch.
 //
 // Exact f32 does not rule out the tensor cores.  3xTF32 splits each f32
 // operand v into hi = tf32(v) and lo = tf32(v - hi) (round to nearest, ties
@@ -27,122 +27,6 @@ namespace mc {
 // exact (erf) GELU, as torch's F.gelu and jax.nn.gelu(approximate=False)
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752440f));
-}
-
-constexpr int FFN_BM = 64;        // rows of one CTA tile
-constexpr int FFN_HC = 32;        // hidden columns per chunk (one per lane)
-constexpr int FFN_THREADS = 256;  // 8 warps; warp w owns tile rows 8w..8w+7
-constexpr int FFN_RPW = FFN_BM / (FFN_THREADS / 32);
-
-template <int D>
-constexpr int ffn_smem_floats() {
-  return FFN_BM * D + D * FFN_HC + FFN_HC * D + FFN_BM * FFN_HC;
-}
-
-// out[r, :] = gelu(x[r, :] @ w1 + b1) @ w2 (+ b2) for the rows r < rows of
-// one tile.  x and out are row-major with row strides ldx / ldo floats (the
-// per-head FFN reads one head's column slice of the interleaved [N, H*D]
-// layout in place).  w1 is [D, F], w2 is [F, D], both row-major.  The hidden
-// activation lives only in shared memory, FFN_HC columns at a time: each
-// chunk's product with w2 is added into per-thread registers at once.
-// Requires D % 32 == 0 (D <= 256), F % FFN_HC == 0, ldx, ldo % 4 == 0 and
-// 16-byte aligned x, out, w1, w2.
-template <int D>
-__device__ __forceinline__ void ffn_tile(
-    const float* __restrict__ x, long ldx, float* __restrict__ out, long ldo,
-    int rows, const float* __restrict__ w1, const float* __restrict__ b1,
-    const float* __restrict__ w2, const float* __restrict__ b2, int F,
-    float* smem) {
-  static_assert(D % 32 == 0 && D <= 256, "D must be a multiple of 32, <= 256");
-  constexpr int ND = D / 32;  // output columns per lane: lane + 32 j
-  float* xs = smem;                    // [FFN_BM][D]
-  float* w1s = xs + FFN_BM * D;        // [D][FFN_HC]
-  float* w2s = w1s + D * FFN_HC;       // [FFN_HC][D]
-  float* hs = w2s + FFN_HC * D;        // [FFN_BM][FFN_HC]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = warp * FFN_RPW;
-
-  for (int i = tid; i < FFN_BM * D / 4; i += FFN_THREADS) {
-    const int r = i / (D / 4), c4 = i % (D / 4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) v = *reinterpret_cast<const float4*>(x + r * ldx + c4 * 4);
-    reinterpret_cast<float4*>(xs)[i] = v;
-  }
-
-  float acc[FFN_RPW][ND];
-#pragma unroll
-  for (int r = 0; r < FFN_RPW; ++r)
-#pragma unroll
-    for (int j = 0; j < ND; ++j) acc[r][j] = 0.f;
-
-  for (int f0 = 0; f0 < F; f0 += FFN_HC) {
-    __syncthreads();  // the previous chunk's reads of w1s/w2s/hs are done
-    for (int i = tid; i < D * FFN_HC / 4; i += FFN_THREADS) {
-      const int k = i / (FFN_HC / 4), c4 = i % (FFN_HC / 4);
-      reinterpret_cast<float4*>(w1s)[i] =
-          *reinterpret_cast<const float4*>(w1 + (long)k * F + f0 + c4 * 4);
-    }
-    for (int i = tid; i < FFN_HC * D / 4; i += FFN_THREADS)
-      reinterpret_cast<float4*>(w2s)[i] =
-          *reinterpret_cast<const float4*>(w2 + (long)f0 * D + i * 4);
-    __syncthreads();
-
-    // hidden chunk: lane owns hidden column f0 + lane of the warp's rows
-    float h[FFN_RPW];
-#pragma unroll
-    for (int r = 0; r < FFN_RPW; ++r) h[r] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < D; k += 4) {
-      const float a0 = w1s[(k + 0) * FFN_HC + lane];
-      const float a1 = w1s[(k + 1) * FFN_HC + lane];
-      const float a2 = w1s[(k + 2) * FFN_HC + lane];
-      const float a3 = w1s[(k + 3) * FFN_HC + lane];
-#pragma unroll
-      for (int r = 0; r < FFN_RPW; ++r) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + (r0 + r) * D + k);
-        h[r] = fmaf(xv.x, a0, h[r]);
-        h[r] = fmaf(xv.y, a1, h[r]);
-        h[r] = fmaf(xv.z, a2, h[r]);
-        h[r] = fmaf(xv.w, a3, h[r]);
-      }
-    }
-    const float bias = b1[f0 + lane];
-#pragma unroll
-    for (int r = 0; r < FFN_RPW; ++r)
-      hs[(r0 + r) * FFN_HC + lane] = gelu_erf(h[r] + bias);
-    __syncwarp();  // a warp reads back only its own rows of hs
-
-    // out rows of this warp += hidden chunk @ w2 chunk
-#pragma unroll 2
-    for (int k = 0; k < FFN_HC; k += 4) {
-      float wv[4][ND];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int j = 0; j < ND; ++j) wv[q][j] = w2s[(k + q) * D + lane + 32 * j];
-#pragma unroll
-      for (int r = 0; r < FFN_RPW; ++r) {
-        const float4 hv = *reinterpret_cast<const float4*>(hs + (r0 + r) * FFN_HC + k);
-#pragma unroll
-        for (int j = 0; j < ND; ++j) {
-          acc[r][j] = fmaf(hv.x, wv[0][j], acc[r][j]);
-          acc[r][j] = fmaf(hv.y, wv[1][j], acc[r][j]);
-          acc[r][j] = fmaf(hv.z, wv[2][j], acc[r][j]);
-          acc[r][j] = fmaf(hv.w, wv[3][j], acc[r][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < FFN_RPW; ++r) {
-    if (r0 + r >= rows) break;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const int c = lane + 32 * j;
-      out[(r0 + r) * ldo + c] = acc[r][j] + (b2 ? b2[c] : 0.f);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -220,12 +104,12 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core FFN tile of the grouped expert FFN (K1).  A CTA of WARPS
-// warps owns BM = 16 WARPS rows; warp w owns rows 16w..16w+15 and all D
-// output columns, in registers (D / 2 f32 per thread).  w1/w2 stream through
-// shared memory HC hidden columns at a time, double-buffered with cp.async
-// so chunk j+1 loads while chunk j computes.  Row pitches are padded so the
-// fragment loads hit 32 distinct banks (A: pitch = 4 mod 32, B: 8 mod 32).
+// The tensor-core FFN tile of K1, K2 and K6.  A CTA of WARPS warps owns
+// BM = 16 WARPS rows; warp w owns rows 16w..16w+15 and all D output columns,
+// in registers (D / 2 f32 per thread).  w1/w2 stream through shared memory
+// HC hidden columns at a time, double-buffered with cp.async so chunk j+1
+// loads while chunk j computes.  Row pitches are padded so the fragment
+// loads hit 32 distinct banks (A: pitch = 4 mod 32, B: 8 mod 32).
 template <int D>
 struct TcFfn {
   static constexpr int WARPS = D <= 128 ? 8 : 4;  // D = 256: 128 accumulators
@@ -237,32 +121,35 @@ struct TcFfn {
   static constexpr int SMEM_FLOATS = BM * LDX + 2 * STAGE;
 };
 
-// out[r, :] = gelu(x[r, :] @ w1 + b1) @ w2 for the BM rows of one tile, all
-// of them rows of x (no ragged edge).  x and out are [BM, D] row-major, w1
-// [D, F], w2 [F, D].  Both products run in 3xTF32 on mma.sync: operands are
-// split in registers as their fragments are read, so shared memory holds
-// plain f32 once.  The hidden chunk stays in registers: its C fragments are
-// bias-added and GELU'd in place, then permuted into A-fragment order with
-// shuffles for the second product.  A chunk past F (F % HC != 0) is zero-
-// filled, which adds gelu(0) * 0 = 0.
+// out[r, :] = gelu(x[r, :] @ w1 + b1) @ w2 (+ b2) for the rows r < rows of
+// one tile.  x and out are row-major with row strides ldx and ldo floats (K2
+// reads and writes one head's D columns of the interleaved [N, H*D] matrix
+// in place); w1 is [D, F], w2 [F, D].  Both products run in 3xTF32 on
+// mma.sync: operands are split in registers as their fragments are read, so
+// shared memory holds plain f32 once.  The hidden chunk stays in registers:
+// its C fragments are bias-added and GELU'd in place, then permuted into
+// A-fragment order with shuffles for the second product.  A chunk past F
+// (F % HC != 0) is zero-filled, which adds gelu(0) * 0 = 0; b2 is added in
+// the epilogue.  Rows past `rows` load as zeros from row 0's address and are
+// never stored; a warp whose 16 rows all lie past it skips its products but
+// keeps to every barrier and copy group.
 //
 // Partial sums: the tensor cores add each m16n8k8 result into C with
 // truncation, an error of up to one ulp of C that leans toward zero, so
 // adding 3 F / 8 products straight into the output accumulator loses about
-// log2(3 F / 8) bits, past 1e-5 x max |out| at D = 256, F = 1024.  So each 64-column output slice (32 at D = 256) of
-// a hidden chunk, and each 64-deep K block of the first product, is summed
-// from zero in its own fragment and then added to the running sum with a
-// rounded f32 add.
+// log2(3 F / 8) bits, past 1e-5 x max |out| at D = 256, F = 1024.  So each
+// 64-column output slice (32 at D = 256) of a hidden chunk, and each 64-deep
+// K block of the first product, is summed from zero in its own fragment and
+// then added to the running sum with a rounded f32 add.
 //
-// Requires D % 32 == 0, D <= 256, F % 4 == 0 and 16-byte aligned x, w1, w2.
-// smem holds TcFfn<D>::SMEM_FLOATS floats.
+// Requires D % 32 == 0, D <= 256, 1 <= rows <= BM, F % 4 == 0,
+// ldx % 4 == ldo % 4 == 0 and 16-byte aligned x, out, w1, w2 (b2 may be
+// null).  smem holds TcFfn<D>::SMEM_FLOATS floats.
 template <int D>
-__device__ __forceinline__ void ffn_tile_tc(const float* __restrict__ x,
-                                            float* __restrict__ out,
-                                            const float* __restrict__ w1,
-                                            const float* __restrict__ b1,
-                                            const float* __restrict__ w2, int F,
-                                            float* smem) {
+__device__ __forceinline__ void ffn_tile_tc(
+    const float* __restrict__ x, long ldx, float* __restrict__ out, long ldo,
+    int rows, const float* __restrict__ w1, const float* __restrict__ b1,
+    const float* __restrict__ w2, const float* __restrict__ b2, int F, float* smem) {
   using C = TcFfn<D>;
   static_assert(D % 32 == 0 && D <= 256, "D must be a multiple of 32, <= 256");
   constexpr int HC = C::HC, NH = HC / 8, NO = D / 8;
@@ -275,6 +162,7 @@ __device__ __forceinline__ void ffn_tile_tc(const float* __restrict__ x,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int chunks = (F + HC - 1) / HC;
+  const bool active = warp * 16 < rows;
 
   auto load_weights = [&](int chunk) {
     float* w1s = stages + (chunk & 1) * C::STAGE;
@@ -294,7 +182,8 @@ __device__ __forceinline__ void ffn_tile_tc(const float* __restrict__ x,
 
   for (int i = tid; i < C::BM * D / 4; i += C::THREADS) {
     const int r = i / (D / 4), c = i % (D / 4) * 4;
-    cp_async16(xs + r * C::LDX + c, x + (long)r * D + c, true);
+    const bool in = r < rows;  // a row past the edge reads from row 0, a valid address
+    cp_async16(xs + r * C::LDX + c, in ? x + r * ldx + c : x, in);
   }
   load_weights(0);
   cp_async_commit();
@@ -319,87 +208,95 @@ __device__ __forceinline__ void ffn_tile_tc(const float* __restrict__ x,
     const float* w1s = stages + (chunk & 1) * C::STAGE;
     const float* w2s = w1s + D * C::LDW1;
 
-    // hidden chunk [16, HC] of the warp's rows: x @ w1[:, f0:f0+HC], summed
-    // in K blocks of 64 (see the note on partial sums above)
-    float h[NH][4];
+    if (active) {  // a warp of rows past the edge only keeps to the barriers
+      // hidden chunk [16, HC] of the warp's rows: x @ w1[:, f0:f0+HC], summed
+      // in K blocks of 64 (see the note on partial sums above)
+      float h[NH][4];
 #pragma unroll
-    for (int n = 0; n < NH; ++n) h[n][0] = h[n][1] = h[n][2] = h[n][3] = 0.f;
-    for (int k0 = 0; k0 < D; k0 += 64) {
-      float hp[NH][4];
+      for (int n = 0; n < NH; ++n) h[n][0] = h[n][1] = h[n][2] = h[n][3] = 0.f;
+      for (int k0 = 0; k0 < D; k0 += 64) {
+        float hp[NH][4];
 #pragma unroll
-      for (int n = 0; n < NH; ++n) hp[n][0] = hp[n][1] = hp[n][2] = hp[n][3] = 0.f;
+        for (int n = 0; n < NH; ++n) hp[n][0] = hp[n][1] = hp[n][2] = hp[n][3] = 0.f;
 #pragma unroll 2
-      for (int k = k0; k < k0 + 64 && k < D; k += 8) {
-        const float* xa = xw + k;
-        const float av[4] = {xa[0], xa[8 * C::LDX], xa[4], xa[8 * C::LDX + 4]};
-        unsigned ahi[4], alo[4];
-        split_fragment(av, ahi, alo);
-        const float* wb = w1s + (k + t) * C::LDW1 + g;
-        Tf32x2 b0[NH], b1[NH];
+        for (int k = k0; k < k0 + 64 && k < D; k += 8) {
+          const float* xa = xw + k;
+          const float av[4] = {xa[0], xa[8 * C::LDX], xa[4], xa[8 * C::LDX + 4]};
+          unsigned ahi[4], alo[4];
+          split_fragment(av, ahi, alo);
+          const float* wb = w1s + (k + t) * C::LDW1 + g;
+          Tf32x2 b0[NH], b1[NH];
 #pragma unroll
-        for (int n = 0; n < NH; ++n) {
-          b0[n] = split_tf32(wb[8 * n]);
-          b1[n] = split_tf32(wb[4 * C::LDW1 + 8 * n]);
+          for (int n = 0; n < NH; ++n) {
+            b0[n] = split_tf32(wb[8 * n]);
+            b1[n] = split_tf32(wb[4 * C::LDW1 + 8 * n]);
+          }
+          mma_3xtf32(hp, 0, ahi, alo, b0, b1);
         }
-        mma_3xtf32(hp, 0, ahi, alo, b0, b1);
+#pragma unroll
+        for (int n = 0; n < NH; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) h[n][i] += hp[n][i];
       }
-#pragma unroll
-      for (int n = 0; n < NH; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) h[n][i] += hp[n][i];
-    }
 
-    // bias and GELU on the C fragments (columns f0 + 8n + 2t, + 1)
-    const int f0 = chunk * HC;
+      // bias and GELU on the C fragments (columns f0 + 8n + 2t, + 1)
+      const int f0 = chunk * HC;
 #pragma unroll
-    for (int n = 0; n < NH; ++n) {
-      const int f = f0 + 8 * n + 2 * t;
-      const float bb0 = f < F ? b1[f] : 0.f, bb1 = f + 1 < F ? b1[f + 1] : 0.f;
-      h[n][0] = gelu_erf(h[n][0] + bb0);
-      h[n][1] = gelu_erf(h[n][1] + bb1);
-      h[n][2] = gelu_erf(h[n][2] + bb0);
-      h[n][3] = gelu_erf(h[n][3] + bb1);
-    }
+      for (int n = 0; n < NH; ++n) {
+        const int f = f0 + 8 * n + 2 * t;
+        const float bb0 = f < F ? b1[f] : 0.f, bb1 = f + 1 < F ? b1[f + 1] : 0.f;
+        h[n][0] = gelu_erf(h[n][0] + bb0);
+        h[n][1] = gelu_erf(h[n][1] + bb1);
+        h[n][2] = gelu_erf(h[n][2] + bb0);
+        h[n][3] = gelu_erf(h[n][3] + bb1);
+      }
 
-    // out += hidden chunk @ w2[f0:f0+HC, :], 64 output columns at a time,
-    // each slice summed over the chunk apart and then added to acc; hidden
-    // k-step j is C fragment j, permuted into A-fragment order
+      // out += hidden chunk @ w2[f0:f0+HC, :], 64 output columns at a time,
+      // each slice summed over the chunk apart and then added to acc; hidden
+      // k-step j is C fragment j, permuted into A-fragment order
 #pragma unroll
-    for (int s0 = 0; s0 < NO; s0 += NS) {
-      float part[NS][4];
+      for (int s0 = 0; s0 < NO; s0 += NS) {
+        float part[NS][4];
 #pragma unroll
-      for (int n = 0; n < NS; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+        for (int n = 0; n < NS; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < NH; ++j) {
-        const float c0 = __shfl_sync(FULL, h[j][0], src0), c1 = __shfl_sync(FULL, h[j][1], src0);
-        const float c2 = __shfl_sync(FULL, h[j][2], src0), c3 = __shfl_sync(FULL, h[j][3], src0);
-        const float d0 = __shfl_sync(FULL, h[j][0], src1), d1 = __shfl_sync(FULL, h[j][1], src1);
-        const float d2 = __shfl_sync(FULL, h[j][2], src1), d3 = __shfl_sync(FULL, h[j][3], src1);
-        const float av[4] = {odd ? c1 : c0, odd ? c3 : c2, odd ? d1 : d0, odd ? d3 : d2};
-        unsigned ahi[4], alo[4];
-        split_fragment(av, ahi, alo);
-        const float* wb = w2s + (8 * j + t) * C::LDW2 + 8 * s0 + g;
-        Tf32x2 b0[NS], b1[NS];
+        for (int j = 0; j < NH; ++j) {
+          const float c0 = __shfl_sync(FULL, h[j][0], src0), c1 = __shfl_sync(FULL, h[j][1], src0);
+          const float c2 = __shfl_sync(FULL, h[j][2], src0), c3 = __shfl_sync(FULL, h[j][3], src0);
+          const float d0 = __shfl_sync(FULL, h[j][0], src1), d1 = __shfl_sync(FULL, h[j][1], src1);
+          const float d2 = __shfl_sync(FULL, h[j][2], src1), d3 = __shfl_sync(FULL, h[j][3], src1);
+          const float av[4] = {odd ? c1 : c0, odd ? c3 : c2, odd ? d1 : d0, odd ? d3 : d2};
+          unsigned ahi[4], alo[4];
+          split_fragment(av, ahi, alo);
+          const float* wb = w2s + (8 * j + t) * C::LDW2 + 8 * s0 + g;
+          Tf32x2 b0[NS], b1[NS];
 #pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          b0[n] = split_tf32(wb[8 * n]);
-          b1[n] = split_tf32(wb[4 * C::LDW2 + 8 * n]);
+          for (int n = 0; n < NS; ++n) {
+            b0[n] = split_tf32(wb[8 * n]);
+            b1[n] = split_tf32(wb[4 * C::LDW2 + 8 * n]);
+          }
+          mma_3xtf32(part, 0, ahi, alo, b0, b1);
         }
-        mma_3xtf32(part, 0, ahi, alo, b0, b1);
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[s0 + n][i] += part[n][i];
       }
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[s0 + n][i] += part[n][i];
     }
     __syncthreads();  // every warp is done with this stage before its refill
   }
 
-  float* o = out + (long)(warp * 16 + g) * D + 2 * t;
+  const int r_lo = warp * 16 + g;
+  float* o = out + r_lo * ldo + 2 * t;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
-    *reinterpret_cast<float2*>(o + 8 * n) = make_float2(acc[n][0], acc[n][1]);
-    *reinterpret_cast<float2*>(o + 8 * D + 8 * n) = make_float2(acc[n][2], acc[n][3]);
+    float2 lo = make_float2(acc[n][0], acc[n][1]), hi = make_float2(acc[n][2], acc[n][3]);
+    if (b2) {
+      const float bb0 = b2[8 * n + 2 * t], bb1 = b2[8 * n + 2 * t + 1];
+      lo.x += bb0, lo.y += bb1, hi.x += bb0, hi.y += bb1;
+    }
+    if (r_lo < rows) *reinterpret_cast<float2*>(o + 8 * n) = lo;
+    if (r_lo + 8 < rows) *reinterpret_cast<float2*>(o + 8 * ldo + 8 * n) = hi;
   }
 }
 

@@ -6,41 +6,46 @@
 //     out[e, c, :] = gelu_erf(xe[e, c, :] @ w1[e] + b1[e]) @ w2[e] + b2[e]
 //
 // Bound: the two products are 4*D*F flops per slot row against 8*D bytes
-// moved per row (F = 4D: 2 Kflop per byte at D=128), so f32 operations bound
-// it; exact f32 rules out TF32 tensor cores, so the ceiling is the CUDA
-// cores' f32 rate.  Design: the TPU kernel's point, the [rows, F] hidden
-// activation never reaching device memory, with K1's tile (common.cuh
-// ffn_tile): one CTA per (64-row tile of an expert's slots, expert), the x
-// tile in shared memory, w1/w2 streamed through it 32 hidden columns at a
-// time, the output accumulated in registers.  Unlike K1 it adds b2 and masks
-// the ragged last tile (C need not be a multiple of 64).
+// moved per row (F = 4D: 2 Kflop per byte at D=128), so operations bound it;
+// in 3xTF32 on the tensor cores (f32 accuracy, see common.cuh) that is
+// 0.36 ms for the flagship's motion slots [16, 14112, 128].  Design: the
+// TPU kernel's point, the [rows, F] hidden activation never reaching device
+// memory, with K1's tile (common.cuh ffn_tile_tc) on a (slot tile, expert)
+// grid: the x tile in shared memory, both products in 3xTF32 on mma.sync,
+// w1/w2 streamed in double-buffered chunks, the hidden chunk and the output
+// in registers, b2 added in the epilogue and the ragged last tile of each
+// expert masked (C need not be a multiple of the tile).  What holds it from
+// the bound is K1's (moe_ffn.cu); at D=256 a CTA has only 4 warps (128
+// accumulators a thread) to hide it.
 #include "common.cuh"
 
 namespace {
 
 template <int D>
-__global__ void __launch_bounds__(mc::FFN_THREADS)
+__global__ void __launch_bounds__(mc::TcFfn<D>::THREADS, 1)
 expert_ffn_kernel(const float* __restrict__ xe, const float* __restrict__ w1,
                   const float* __restrict__ b1, const float* __restrict__ w2,
                   const float* __restrict__ b2, float* __restrict__ out, int C,
                   int F) {
   extern __shared__ __align__(16) float smem[];
+  constexpr int BM = mc::TcFfn<D>::BM;
   const int e = blockIdx.y;
-  const int row0 = blockIdx.x * mc::FFN_BM;
+  const int row0 = blockIdx.x * BM;
   const long base = ((long)e * C + row0) * D;
-  mc::ffn_tile<D>(xe + base, D, out + base, D, min(mc::FFN_BM, C - row0),
-                  w1 + (long)e * D * F, b1 + (long)e * F, w2 + (long)e * F * D,
-                  b2 + (long)e * D, F, smem);
+  mc::ffn_tile_tc<D>(xe + base, D, out + base, D, min(BM, C - row0),
+                     w1 + (long)e * D * F, b1 + (long)e * F, w2 + (long)e * F * D,
+                     b2 + (long)e * D, F, smem);
 }
 
 template <int D>
 int launch(const float* xe, const float* w1, const float* b1, const float* w2,
            const float* b2, float* out, int E, int C, int F, cudaStream_t stream) {
-  const int smem = mc::ffn_smem_floats<D>() * sizeof(float);
+  using T = mc::TcFfn<D>;
+  const int smem = T::SMEM_FLOATS * sizeof(float);
   cudaFuncSetAttribute(expert_ffn_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const dim3 grid((C + mc::FFN_BM - 1) / mc::FFN_BM, E);
-  expert_ffn_kernel<D><<<grid, mc::FFN_THREADS, smem, stream>>>(
+  const dim3 grid((C + T::BM - 1) / T::BM, E);
+  expert_ffn_kernel<D><<<grid, T::THREADS, smem, stream>>>(
       xe, w1, b1, w2, b2, out, C, F);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,8 +40,9 @@ grouped_ffn_kernel(const int* __restrict__ block_expert,
   extern __shared__ __align__(16) float smem[];
   const long row0 = (long)blockIdx.x * mc::TcFfn<D>::BM;
   const int e = block_expert[row0 / GROUP_ROWS];
-  mc::ffn_tile_tc<D>(xs + row0 * D, out + row0 * D, w1 + (long)e * D * F,
-                     b1 + (long)e * F, w2 + (long)e * F * D, F, smem);
+  mc::ffn_tile_tc<D>(xs + row0 * D, D, out + row0 * D, D, mc::TcFfn<D>::BM,
+                     w1 + (long)e * D * F, b1 + (long)e * F, w2 + (long)e * F * D,
+                     nullptr, F, smem);
 }
 
 template <int D>

@@ -5,41 +5,48 @@
 //     y[n, h*d:(h+1)*d] = gelu_erf(x_h @ w1[h] + b1[h]) @ w2[h] + b2[h]
 //
 // Bound: 4*d*f = 262k flops per (row, head) at the flagship (d=128, f=512)
-// against 1 KB moved, so f32 operations bound it (exact f32: no TF32 tensor
-// cores).  Design: the grid is (row tile, head); a CTA reads its head's d
-// columns of 64 rows straight out of the interleaved layout (row stride H*d,
-// no transpose), keeps them in shared memory, streams that head's weights 32
-// hidden columns at a time and writes the same column slice of the output.
-// The [N, H, f] hidden activation never reaches device memory.
+// against 1 KB moved, so operations bound it: 0.12 ms for x [6272, 12*128]
+// in 3xTF32 on the tensor cores (f32 accuracy, see common.cuh).  Design: K1's
+// tile (common.cuh ffn_tile_tc) on a (row tile, head) grid.  A CTA reads its
+// head's d columns of 128 rows (64 at d=256) straight out of the interleaved
+// layout (row stride H*d, no transpose), runs both products in 3xTF32 on
+// mma.sync with that head's w1/w2 streamed through shared memory in
+// double-buffered chunks, keeps the hidden chunk in registers, and writes
+// the same column slice of the output; the last row tile is ragged.  What
+// holds it from the bound is K1's (moe_ffn.cu): mma.sync short of the TF32
+// peak, and fragment loads and splits that one CTA of 8 warps an SM cannot
+// hide.
 #include "common.cuh"
 
 namespace {
 
 template <int D>
-__global__ void __launch_bounds__(mc::FFN_THREADS)
+__global__ void __launch_bounds__(mc::TcFfn<D>::THREADS, 1)
 head_ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                 const float* __restrict__ b1, const float* __restrict__ w2,
                 const float* __restrict__ b2, float* __restrict__ out, int n,
                 int heads, int F) {
   extern __shared__ __align__(16) float smem[];
+  constexpr int BM = mc::TcFfn<D>::BM;
   const int h = blockIdx.y;
-  const long row0 = (long)blockIdx.x * mc::FFN_BM;
+  const long row0 = (long)blockIdx.x * BM;
   const long ld = (long)heads * D;
-  const int rows = min(mc::FFN_BM, (int)(n - row0));
-  mc::ffn_tile<D>(x + row0 * ld + h * D, ld, out + row0 * ld + h * D, ld, rows,
-                  w1 + (long)h * D * F, b1 + (long)h * F, w2 + (long)h * F * D,
-                  b2 + (long)h * D, F, smem);
+  const int rows = n - row0 < BM ? static_cast<int>(n - row0) : BM;
+  mc::ffn_tile_tc<D>(x + row0 * ld + h * D, ld, out + row0 * ld + h * D, ld, rows,
+                     w1 + (long)h * D * F, b1 + (long)h * F, w2 + (long)h * F * D,
+                     b2 + (long)h * D, F, smem);
 }
 
 template <int D>
 int launch(const float* x, const float* w1, const float* b1, const float* w2,
            const float* b2, float* out, int n, int heads, int F,
            cudaStream_t stream) {
-  const int smem = mc::ffn_smem_floats<D>() * sizeof(float);
+  using T = mc::TcFfn<D>;
+  const int smem = T::SMEM_FLOATS * sizeof(float);
   cudaFuncSetAttribute(head_ffn_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const dim3 grid((n + mc::FFN_BM - 1) / mc::FFN_BM, heads);
-  head_ffn_kernel<D><<<grid, mc::FFN_THREADS, smem, stream>>>(
+  const dim3 grid((n + T::BM - 1) / T::BM, heads);
+  head_ffn_kernel<D><<<grid, T::THREADS, smem, stream>>>(
       x, w1, b1, w2, b2, out, n, heads, F);
   return static_cast<int>(cudaGetLastError());
 }
@@ -47,8 +54,8 @@ int launch(const float* x, const float* w1, const float* b1, const float* w2,
 }  // namespace
 
 // x [n, heads*d]; w1 [heads, d, f]; b1 [heads, f]; w2 [heads, f, d];
-// b2 [heads, d]; out [n, heads*d].  d in {32, 64, 128, 256}, f % 32 == 0.
-// Returns cudaGetLastError() after the launch.
+// b2 [heads, d]; out [n, heads*d].  d in {32, 64, 128, 256}, f % 32 == 0,
+// heads <= 65535.  Returns cudaGetLastError() after the launch.
 extern "C" int mc_head_ffn(const void* x, const void* w1, const void* b1,
                            const void* w2, const void* b2, void* out, int n,
                            int heads, int d, int f, void* stream) {

@@ -6,11 +6,12 @@ expert's C capacity slots:
 
     out[e, c] = gelu_erf(xe[e, c] @ w1[e] + b1[e]) @ w2[e] + b2[e]
 
-On a CUDA tensor the wrapper launches csrc/expert_ffn.cu: one CTA per
-(64-slot tile, expert) keeps its hidden activation in shared memory, 32
-columns at a time, so the [E, C, F] hidden never reaches device memory (K1's
-tile, plus b2 and a masked last tile).  Bound by f32 operations (4*D*F flops
-per row against 8*D bytes).  The gradient recomputes the plain version
+On a CUDA tensor the wrapper launches csrc/expert_ffn.cu: K1's tensor-core
+FFN tile on a (slot tile, expert) grid, both products in 3xTF32 (f32
+accuracy), the hidden activation in registers, so the [E, C, F] hidden never
+reaches device memory; b2 is added in the epilogue and each expert's last
+tile is ragged.  Bound by operations (4*D*F flops per row against 8*D
+bytes).  The gradient recomputes the plain version
 (ops/recompute.py), as the Pallas kernel's custom VJP does; that recompute
 does materialize the hidden activation.
 """

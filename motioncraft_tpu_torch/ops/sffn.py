@@ -5,10 +5,11 @@ Replaces ``head_ffn`` of motioncraft_tpu/ops/pallas_sffn.py.  Per head h:
     y_h = gelu_erf(x_h @ w1[h] + b1[h]) @ w2[h] + b2[h]
 
 over rows of the interleaved ``[N, H*d]`` matrix.  On a CUDA tensor the
-wrapper launches csrc/sffn.cu: a (row tile, head) grid whose CTAs read their
-head's columns in place (no transposes) and keep the hidden activation in
-shared memory.  Bound by f32 operations (4*d*f flops per row and head
-against 8*d bytes); exact f32 rules out TF32 tensor cores.
+wrapper launches csrc/sffn.cu: K1's tensor-core FFN tile on a (row tile,
+head) grid, whose CTAs read their head's columns in place (no transposes),
+keep the hidden activation in registers and run both products in 3xTF32
+(f32 accuracy).  Bound by operations (4*d*f flops per row and head against
+8*d bytes).
 """
 
 from __future__ import annotations

@@ -7,10 +7,10 @@ repository's conftest files (which import JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 K4 must agree exactly; K1-K3, K5 and K6 to 1e-5 x max |plain| (another
-summation order; K1's products run in 3xTF32 on the tensor cores, K3's and
-K5's key softmax is merged from per-CTA chunks).  K5 and K6 are also held
-backward: their gradient recomputes the plain version, so it must equal
-plain autograd's to the same tolerance.  The end-to-end case runs a narrow model (widths the kernels
+summation order; the FFN kernels K1, K2 and K6 run their products in 3xTF32
+on the tensor cores, K3's and K5's key softmax is merged from per-CTA
+chunks).  K5 and K6 are also held backward: their gradient recomputes the
+plain version, so it must equal plain autograd's to the same tolerance.  The end-to-end case runs a narrow model (widths the kernels
 take) on the card and on the CPU with the same weights and noise.
 """
 
@@ -92,6 +92,10 @@ CASES = [
     ("grouped_ffn", (4, 128, 512, [2, 0, 0, 3])), ("grouped_ffn", (3, 256, 1024, [2, 0, 1])),
     ("grouped_ffn", (2, 64, 96, [1, 0, 1])),
     ("head_ffn", (700, 3, 128, 512)), ("head_ffn", (65, 2, 64, 96)),
+    # the flagship's SFFN (x [6272, 12 x 128], F 512); D = 256 and D = 32;
+    # fewer rows than one tile
+    ("head_ffn", (6272, 12, 128, 512)), ("head_ffn", (300, 2, 256, 1024)),
+    ("head_ffn", (200, 4, 32, 128)), ("head_ffn", (50, 3, 64, 256)),
     ("stma_linear_attention", (4, 50, 3, 128, 77)),
     ("stma_linear_attention", (2, 33, 5, 32, 7)),
     # every motion row masked past length 1; text off for the whole batch;
@@ -114,6 +118,10 @@ CASES = [
     ("fused_expert_ffn", (16, 14112, 128, 512)),
     ("fused_expert_ffn", (16, 462, 256, 1024)),
     ("fused_expert_ffn", (3, 37, 32, 128)),
+    # fewer slots than one tile; ragged last tiles at D = 256; a part-filled
+    # last hidden chunk (F 96, chunks of 64)
+    ("fused_expert_ffn", (4, 50, 128, 512)), ("fused_expert_ffn", (3, 100, 256, 384)),
+    ("fused_expert_ffn", (2, 70, 256, 192)), ("fused_expert_ffn", (2, 130, 64, 96)),
 ]
 GRAD_CASES = [c for c in CASES if c[0] in ("fused_linear_attention", "fused_expert_ffn")]
 

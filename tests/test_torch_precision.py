@@ -1,5 +1,6 @@
-"""The arithmetic of the redesigned CUDA kernels K1 and K3/K5, transcribed
-into numpy and held, on the CPU, against the references they must meet.
+"""The arithmetic of the redesigned CUDA kernels, K1/K2/K6 (one FFN tile)
+and K3/K5 (one attention cell), transcribed into numpy and held, on the CPU,
+against the references they must meet.
 
 (a) K1 runs both of its products in 3xTF32 on the tensor cores: each f32
     operand v is split into hi = tf32(v) and lo = tf32(v - hi), TF32 being
@@ -14,6 +15,12 @@ into numpy and held, on the CPU, against the references they must meet.
     STMA reference and the port's plain version to 1e-5 x max |reference|,
     for every cluster size, with masked rows, text off and chunks made only
     of masked keys.
+(c) K1, K2 and K6 run one FFN tile (csrc/common.cuh ffn_tile_tc): the first
+    product in 3xTF32 summed in K blocks of 64, the hidden in chunks of HC
+    columns (a part-filled last chunk zero-filled), each chunk's product
+    with w2 summed apart and added to the output, then b2 (K2, K6; none for
+    K1); rows past a ragged edge are zeros.  It must hold 1e-5 x max |out|
+    against an f64 reference for each caller's tile.
 
 The CUDA kernels themselves are held against the plain versions on the card
 by tests/test_torch_cuda.py.
@@ -23,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from motioncraft_tpu.ops.pallas_stma_attention import stma_linear_attention_reference
 from motioncraft_tpu_torch.ops.stma_attention import stma_linear_attention_plain
@@ -158,3 +166,51 @@ def test_chunked_key_softmax_merge(G, kind):
     scale = float(np.abs(ref).max())
     np.testing.assert_allclose(got, ref, rtol=0, atol=REL * scale)
     np.testing.assert_allclose(plain, ref, rtol=0, atol=REL * scale)
+
+
+def ffn_tile(x, w1, b1, w2, b2, HC, BM):
+    """One FFN tile the way a CTA computes it: x [rows, D] (zero-filled to BM
+    rows), w1 [D, F], w2 [F, D], b2 [D] or None -> [rows, D]."""
+    rows, D = x.shape
+    Fh = w1.shape[1]
+    xt = np.zeros((BM, D), np.float32)
+    xt[:rows] = x
+    acc = np.zeros((BM, D), np.float32)
+    for f0 in range(0, Fh, HC):
+        n = min(HC, Fh - f0)  # a chunk past F is zero-filled
+        w1c, b1c, w2c = (np.zeros((D, HC), np.float32), np.zeros(HC, np.float32),
+                         np.zeros((HC, D), np.float32))
+        w1c[:, :n], b1c[:n], w2c[:n] = w1[:, f0:f0 + n], b1[f0:f0 + n], w2[f0:f0 + n]
+        h = np.zeros((BM, HC), np.float32)
+        for k0 in range(0, D, 64):
+            h = (h + tf32_matmul(xt[:, k0:k0 + 64], w1c[k0:k0 + 64], 3)).astype(np.float32)
+        h = F.gelu(torch.from_numpy((h + b1c).astype(np.float32))).numpy()
+        acc = (acc + tf32_matmul(h, w2c, 3)).astype(np.float32)
+    if b2 is not None:
+        acc = (acc + b2).astype(np.float32)
+    return acc[:rows]
+
+
+# each caller's tile: K1 full tiles without b2; K2 a ragged last tile with
+# b2; K6 an expert with fewer slots than one warp's 16 rows, with b2
+CALLERS = {"K1": (0, False), "K2": (5, True), "K6": (None, True)}
+
+
+@pytest.mark.parametrize("D,Fh", [(128, 512), (256, 1024), (64, 96)])
+@pytest.mark.parametrize("caller", list(CALLERS))
+def test_ffn_tile_holds_f32_tolerance(caller, D, Fh):
+    BM, HC = (128, 64) if D <= 128 else (64, 32)  # csrc/common.cuh TcFfn
+    short, with_b2 = CALLERS[caller]
+    rows = 9 if short is None else BM - short
+    rng = np.random.RandomState(D + Fh + rows)
+    x = rng.randn(rows, D).astype(np.float32)
+    w1 = (rng.randn(D, Fh) / np.sqrt(D)).astype(np.float32)
+    b1 = (rng.randn(Fh) * 0.1).astype(np.float32)
+    w2 = (rng.randn(Fh, D) / np.sqrt(Fh)).astype(np.float32)
+    b2 = (rng.randn(D) * 0.1).astype(np.float32) if with_b2 else None
+    hd = torch.from_numpy(x.astype(np.float64) @ w1 + b1)
+    want = F.gelu(hd).numpy() @ w2.astype(np.float64) + (0.0 if b2 is None else b2)
+    got = ffn_tile(x, w1, b1, w2, b2, HC, BM)
+    err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    assert got.shape == want.shape
+    assert err <= REL * scale, (err, scale)
