@@ -12,18 +12,25 @@ Phases; any failure exits non-zero:
   1. the card's name and power limit; build the kernels from
      motioncraft_tpu_torch/csrc/ with nvcc for sm_90a
   2. each kernel against its plain version on the same inputs, at every
-     shape of phase 4 (K1-K4) and of phase 7 (K5, K6, at B = 32): max abs
-     error against its tolerance; kernel and plain times from CUDA events;
+     shape of phase 4 (K1-K4's route) and of phase 7 (K4's positions, K5,
+     K6, at B = 32): max abs error against its tolerance (K4 exact in its
+     integers, its route's gates within 1e-6; a route case leaning to one
+     expert must drop choices); the kernel's device time from torch.profiler
+     (ms: its kernels' own durations, which a back-to-back timing of a
+     kernel of a few microseconds does not give, the host issuing the calls
+     slower than the card runs them), and from CUDA events the time of a
+     back-to-back call (call_ms) and of the plain version;
      the least time the card could take (bound_ms: f32 products in 3xTF32
-     on the tensor cores, which K1-K3, K5 and K6 run; K4's integer work on
-     the CUDA cores), and the f32 bound on the CUDA cores as a second note
+     on the tensor cores, which K1-K3, K5 and K6 run; K4's work on the CUDA
+     cores), and the f32 bound on the CUDA cores as a second note
      (bound_f32_ms); how many of K3's clusters fit on the card at once
   3. the flagship MotionDiffusion (configs/stmogen/t2m_motionx_0_125b.py) on
      the card, with seeded fabricated weights
   4. two batches of 16 requests (T = 196, varied lengths) through
      single_device_test: DDIM-50 with CFG 6.5; finite [16, 196, 322] outputs
   5. per-batch wall time, and each kernel's launches, which must equal the
-     count that 50 steps x 4 layers imply
+     count that 50 steps x 4 layers imply (each MoE routes in one
+     moe_route launch; no positions-only launch)
   6. one flagship forward_test on the card against the same weights and
      inputs on the CPU (plain versions), B = 2, the CPU's MoE gates fed the
      card's gate logits so that a near-tie cannot route a token differently
@@ -31,7 +38,8 @@ Phases; any failure exits non-zero:
      1 warm-up + 3 steps of B = 32 seeded synthetic batches (T = 196,
      lengths 40-196); finite losses, every trainable parameter moved, CLIP
      unchanged bit for bit; per-step wall ms, max memory allocated, and the
-     launches per step (K5 = 4, K6 = K4 = 8, K1-K3 none)
+     launches per step (K5 = 4, K6 = K4's positions = 8, K1-K3 and K4's
+     route none)
   8. one flagship training loss and every parameter's gradient on the card
      against the CPU, B = 2, gate noise 0, the CPU's gate logits pinned to
      the card's as in phase 6
@@ -55,6 +63,9 @@ F32_PEAK = 67e12      # H100 SXM CUDA-core f32, FLOP/s
 TF32_PEAK = 495e12    # H100 SXM dense TF32 tensor cores, FLOP/s; 3xTF32 takes 3 passes
 HBM_PEAK = 3.35e12    # H100 SXM device memory, bytes/s
 KERNEL_REL_TOL = 1e-4   # kernel vs plain: max abs err <= tol * max |plain|
+# moe_route's gates and ge against the plain version's: a softmax over 16
+# terms summed in another order moves a gate in [0, 1] by a few f32 ulps
+GATE_ATOL = 1e-6
 MODEL_REL_TOL = 1e-4    # card vs CPU forward: <= tol * max(1, max |CPU|)
 # card vs CPU gradient, per tensor: <= tol * max(1, max |CPU|); a gradient
 # sums the whole batch, the card's MoE gathers add theirs back with atomics
@@ -64,6 +75,7 @@ BATCH, BATCHES, SEED = 16, 2, 0
 TRAIN_BATCH, TRAIN_STEPS = 32, 4  # 1 warm-up + 3 timed
 
 PALLAS = {
+    "moe_route": "motioncraft_tpu/ops/pallas_moe.py:54",
     "moe_positions": "motioncraft_tpu/ops/pallas_moe.py:54",
     "grouped_ffn": "motioncraft_tpu/ops/pallas_moe_ffn.py:46",
     "head_ffn": "motioncraft_tpu/ops/pallas_sffn.py:41",
@@ -72,6 +84,7 @@ PALLAS = {
     "fused_expert_ffn": "motioncraft_tpu/ops/pallas_ffn.py:86",
 }
 SOURCES = {
+    "moe_route": "motioncraft_tpu_torch/csrc/moe_positions.cu",
     "moe_positions": "motioncraft_tpu_torch/csrc/moe_positions.cu",
     "grouped_ffn": "motioncraft_tpu_torch/csrc/moe_ffn.cu",
     "head_ffn": "motioncraft_tpu_torch/csrc/sffn.cu",
@@ -91,7 +104,9 @@ def check(cond, msg):
 
 
 def time_ms(torch, fn, reps=20):
-    """Mean device time of one call over ``reps`` back-to-back calls."""
+    """Mean time of one call over ``reps`` back-to-back calls, between two
+    CUDA events: the device's time, or the host's where issuing a call
+    takes longer than running it."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -104,6 +119,24 @@ def time_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps=20):
+    """Mean device time of one call over ``reps`` calls: the summed
+    durations of the kernels it ran, from torch.profiler, without the gaps
+    in which the card waited for the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(us > 0, "the profiler saw no device time")
+    return us / 1e3 / reps
+
+
 def bound(flops, nbytes, peak):
     """(ms, 'bytes' | 'operations'): the larger of bytes over the memory
     rate and flops over ``peak``."""
@@ -112,8 +145,9 @@ def bound(flops, nbytes, peak):
 
 
 def flagship_inputs(torch, cfg, dev):
-    """Inputs of every kernel at the shapes the phase-4 batches (K1-K4) and
-    the phase-7 training steps (K5, K6) give them."""
+    """Inputs of every kernel at the shapes the phase-4 batches (K1, K2, K3,
+    K4's route) and the phase-7 training steps (K4's positions, K5, K6) give
+    them."""
     from motioncraft_tpu_torch.ops.moe_ffn import BLOCK
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -138,8 +172,14 @@ def flagship_inputs(torch, cfg, dev):
                r(E, hid, d) / math.sqrt(hid))
         return (ids, E), ffn
 
+    def route_case(n_tokens, skew=0.0):
+        logits = r(n_tokens, E)
+        logits[:, 0] += skew  # every token leans to expert 0: it overflows
+        return logits, K, K * int(1.5 * ((n_tokens + E - 1) // E)), BLOCK
+
     pos_motion, ffn_motion = moe_case(B2 * T * H, L, 4 * L)
     pos_text, ffn_text = moe_case(B2 * TXT, ca["text_latent_dim"], 4 * ca["text_latent_dim"])
+    route = [route_case(B2 * T * H), route_case(B2 * T * H, skew=3.0), route_case(B2 * TXT)]
     lengths = torch.randint(min(40, T), T + 1, (B2,), generator=g, device=dev)
     mask = (torch.arange(T, device=dev)[None] < lengths[:, None]).float()[..., None]
     tcond = torch.cat([torch.ones(B2 // 2), torch.zeros(B2 // 2)]).to(dev).reshape(B2, 1, 1)
@@ -169,6 +209,7 @@ def flagship_inputs(torch, cfg, dev):
         "fused_expert_ffn": [slots_case(Bt * T * H, L, 4 * L),
                              slots_case(Bt * TXT, ca["text_latent_dim"],
                                         4 * ca["text_latent_dim"])],
+        "moe_route": route,
         "moe_positions": [pos_motion, pos_text],
         "grouped_ffn": [ffn_motion, ffn_text],
         "head_ffn": [(r(B2 * T, H * L), r(H, L, f) / math.sqrt(L), r(H, f) * 0.1,
@@ -183,6 +224,15 @@ def kernel_work(name, args):
     if name == "moe_positions":
         M = args[0].numel()
         return M, 8 * M + 4 * args[1]
+    if name == "moe_route":
+        from motioncraft_tpu_torch.ops.moe_positions import route_rows
+
+        logits, K, _, block = args
+        N, E = logits.shape
+        M = route_rows(N, K, E, block)
+        # per logit: max, subtract, exp, sum and a compare per pick; the
+        # logits in, gates, r, ge, token_for_rank, block_expert, counts out
+        return N * E * (4 + K), 4 * (2 * N * E + 2 * N * K + M + M // block + E)
     if name == "grouped_ffn":
         be, xs, w1, b1, w2 = args
         (m_pad, d), hid = xs.shape, w1.shape[2]
@@ -229,7 +279,17 @@ def phase_kernels(torch, cfg, dev):
         for i, args in enumerate(cases):
             got, want = wrapper(*args), plain(*args)
             torch.cuda.synchronize()
-            if name == "moe_positions":
+            if name == "moe_route":
+                err = max(float((a - b).abs().max()) for a, b in zip(got, want)
+                          if a.dtype == torch.float32)
+                ints = [f for f, a, b in zip(got._fields, got, want)
+                        if a.dtype != torch.float32 and not torch.equal(a, b)]
+                ok, tol = err <= GATE_ATOL and not ints, f"{GATE_ATOL}; integers exact"
+                dropped = int((got.r == got.token_for_rank.numel()).sum())
+                print(f"[kernel] {name} case {i}: {dropped} of {got.r.numel()} choices "
+                      f"dropped; integer outputs that differ: {ints}")
+                check(dropped > 0 or i != 1, "the skewed route case dropped nothing")
+            elif name == "moe_positions":
                 err = max(float((a - b).abs().max()) for a, b in zip(got, want))
                 ok, tol = err == 0, "exact"
             else:
@@ -239,24 +299,26 @@ def phase_kernels(torch, cfg, dev):
             shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
             print(f"[kernel] {name} case {i} {shapes}: max_abs_err {err:.3e} (tol {tol})")
             check(ok, f"{name} disagrees with its plain version: {err} (tol {tol})")
-            ms = time_ms(torch, lambda: wrapper(*args))
+            ms = device_ms(torch, lambda: wrapper(*args))
+            call_ms = time_ms(torch, lambda: wrapper(*args))
             plain_ms = time_ms(torch, lambda: plain(*args))
             flops, nbytes = kernel_work(name, args)
-            if name == "moe_positions":  # integer work, on the CUDA cores only
+            if name in ("moe_positions", "moe_route"):  # on the CUDA cores only
                 bound_ms, bound_by = f32_ms, f32_by = bound(flops, nbytes, F32_PEAK)
             else:  # f32 products: 3xTF32 on the tensor cores is the fastest exact way
                 bound_ms, bound_by = bound(3 * flops, nbytes, TF32_PEAK)
                 f32_ms, f32_by = bound(flops, nbytes, F32_PEAK)
-            print(f"[kernel] {name} case {i}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            print(f"[kernel] {name} case {i}: {ms:.4f} ms on the device ({call_ms:.4f} ms a "
+                  f"back-to-back call), plain {plain_ms:.4f} ms, "
                   f"bound {bound_ms:.4f} ms ({bound_by}, share {bound_ms / ms:.3f}); "
                   f"f32 CUDA-core bound {f32_ms:.4f} ms ({f32_by}, share {f32_ms / ms:.3f})")
-            case = {"shape": shapes, "ms": ms, "bound_ms": bound_ms}
+            case = {"shape": shapes, "ms": ms, "call_ms": call_ms, "bound_ms": bound_ms}
             if i:  # the row's own numbers are the first (dominant) case's
                 rows[name]["cases"].append(case)
                 continue
             rows[name] = {"name": name, "route": "cuda", "source": SOURCES[name],
                           "replaces": PALLAS[name], "max_abs_err": err, "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                           "bound_by": bound_by, "bound_f32_ms": f32_ms,
                           "bound_f32_by": f32_by, "library_ms": None, "cases": [case]}
     return rows
@@ -299,7 +361,7 @@ def phase_e2e(torch, arch):
     steps, layers = arch.diffusion_test.num_timesteps, arch.model.num_layers
     # per sampling call: the text MoE once per layer, then per step and layer
     # one motion MoE, one SFFN and one global attention
-    want = {"moe_positions": BATCHES * layers * (steps + 1),
+    want = {"moe_route": BATCHES * layers * (steps + 1), "moe_positions": 0,
             "grouped_ffn": BATCHES * layers * (steps + 1),
             "head_ffn": BATCHES * layers * steps,
             "stma_linear_attention": BATCHES * layers * steps,
@@ -426,8 +488,8 @@ def phase_train(torch, full_cfg, arch):
     check(all(n.startswith("out.face_out.") for n in still),
           f"trainable parameters that did not move: {still[:5]}")
     layers = arch.model.num_layers
-    per_step = {"moe_positions": 2 * layers, "grouped_ffn": 0, "head_ffn": 0,
-                "stma_linear_attention": 0, "fused_linear_attention": layers,
+    per_step = {"moe_route": 0, "moe_positions": 2 * layers, "grouped_ffn": 0,
+                "head_ffn": 0, "stma_linear_attention": 0, "fused_linear_attention": layers,
                 "fused_expert_ffn": 2 * layers}
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     print(f"[train] {TRAIN_STEPS} steps of B={TRAIN_BATCH} in {wall:.3f} s; step wall ms "
@@ -556,8 +618,8 @@ def main():
     phase_train_parity(torch, cfg, sd)
 
     for name, row in rows.items():
-        # each kernel's count on the path it serves: sampling for K1-K4,
-        # training for K5 and K6
+        # each kernel's count on the path it serves: sampling for K1-K3 and
+        # K4's route, training for K4's positions, K5 and K6
         row["launches"] = counts[name] or train_counts[name]
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,10 +3,11 @@ of motioncraft_tpu/models/moe.py).
 
 Inference (``eval()``) takes the rank-compact fused dispatch: the kept
 (token, k) choices are sorted by expert into groups padded to 512 rows, the
-grouped expert FFN runs as kernel K1 (ops/moe_ffn.py) and the arrival ranks
-come from kernel K4 (ops/moe_positions.py).  The gate is applied at combine
-time and the expert bias b2 enters through a one-hot [N, E] @ [E, D]
-product.
+grouped expert FFN runs as kernel K1 (ops/moe_ffn.py), and the whole routing
+from the gate logits (top-k, gates, arrival ranks, drops, dispatch tables)
+is one call of kernel K4's route mode (ops/moe_positions.py:moe_route).  The
+gate is applied at combine time and the expert bias b2 enters through the
+[N, E] masked gates @ [E, D].
 
 Training (``train()``) takes the slot-buffer dispatch of the JAX package's
 training path: gate noise on the logits, slots assigned in batch-prioritized
@@ -15,8 +16,9 @@ into an [E, capacity, D] buffer, the expert FFN run over the buffers as
 kernel K6 (ops/expert_ffn.py), and Tutel's load-importance aux loss.
 
 Capacity is Tutel's ``K * int(1.5 * ceil(N / E))``; a choice ranked at or
-past it is dropped (gate 0).  Experts are ranked by logit with a stable sort
-in both modes.
+past it is dropped (gate 0).  In both modes experts are ranked by logit, the
+lower index first on equal logits (a stable sort; on the card in inference,
+K4's route picks them in that order).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from torch import nn
 
 from ..ops.expert_ffn import fused_expert_ffn
 from ..ops.moe_ffn import BLOCK, grouped_ffn
-from ..ops.moe_positions import moe_positions_counts
+from ..ops.moe_positions import moe_positions_counts, moe_route
 
 
 def _normal_cdf(x, sigma):
@@ -106,48 +108,18 @@ class MoELayer(nn.Module):
         ``generator``, and the aux loss is appended to ``aux_losses``."""
         if self.training:
             return self._forward_slots(x, generator, noise, aux_losses)
-        N, D = x.shape
-        E, K = self.num_experts, self.topk
+        D = x.shape[1]
         logits = self.gate(x)                                      # f32 [N, E]
-        # experts ranked by logit (softmax keeps the order), lower index first
-        # on equal logits: the routing is a function of the logits alone, so
-        # devices that agree on the logits route alike (a topk over softmax
-        # scores can break a rounding tie one way on the CPU, another on the card)
-        topk_idx = torch.sort(logits, dim=1, descending=True, stable=True).indices[:, :K]
-        topk_scores = logits.softmax(dim=1).gather(1, topk_idx)    # [N, K]
-        gates = topk_scores / (topk_scores.sum(dim=1, keepdim=True) + 1e-9)
-
-        capacity = self.capacity(N)
-        flat_idx = topk_idx.t().reshape(-1).to(torch.int32)        # k-major [K*N]
-        pos_flat, counts = moe_positions_counts(flat_idx, E)
-        positions = pos_flat.reshape(K, N).t().long()              # [N, K]
-        valid = positions < capacity
-        gates = gates * valid.to(gates.dtype)
-
-        fill = counts.long().clamp(max=capacity)                   # [E]
-        fill_aligned = (fill + BLOCK - 1) // BLOCK * BLOCK
-        M = (N * K + BLOCK - 1) // BLOCK * BLOCK + E * BLOCK       # static bound
-        ends = torch.cumsum(fill_aligned, dim=0)
-        offset = ends - fill_aligned
-        rank = offset[topk_idx] + positions                        # [N, K]
-        r = torch.where(valid, rank, torch.full_like(rank, M))     # dropped -> dump row
-        token_ids = torch.arange(N, device=x.device).repeat_interleave(K)
-        token_for_rank = torch.zeros(M + 1, dtype=torch.long, device=x.device)
-        token_for_rank[r.reshape(-1)] = token_ids
-        xs = x[token_for_rank[:M]]                                 # [M, D] expert-sorted
-
-        nb = M // BLOCK
-        starts = torch.arange(nb, device=x.device) * BLOCK
-        block_expert = torch.searchsorted(ends, starts, right=True).clamp(
-            max=E - 1).to(torch.int32)
-        ye = grouped_ffn(block_expert, xs, self.expert_w1, self.expert_b1,
+        route = moe_route(logits, self.topk, self.capacity(x.shape[0]), BLOCK)
+        xs = x.index_select(0, route.token_for_rank)               # [M, D] expert-sorted
+        ye = grouped_ffn(route.block_expert, xs, self.expert_w1, self.expert_b1,
                          self.expert_w2)
-        ye = torch.cat([ye, ye.new_zeros(1, D)], dim=0)
-        y = gates[:, 0, None] * ye[r[:, 0]]
-        for k in range(1, K):
-            y = y + gates[:, k, None] * ye[r[:, k]]
-        ge = torch.einsum("nk,nke->ne", gates, F.one_hot(topk_idx, E).to(gates.dtype))
-        return y + ge @ self.expert_b2
+        ye = torch.cat([ye, ye.new_zeros(1, D)], dim=0)            # row M: dropped choices
+        gates, r = route.gates, route.r
+        y = gates[:, 0, None] * ye.index_select(0, r[:, 0])
+        for k in range(1, self.topk):
+            y = y + gates[:, k, None] * ye.index_select(0, r[:, k])
+        return y + route.ge @ self.expert_b2
 
     def _forward_slots(self, x, generator, noise, aux_losses):
         N, D = x.shape

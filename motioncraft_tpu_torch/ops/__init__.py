@@ -8,12 +8,15 @@ launches its kernel (built from ``csrc/`` at first use) or raises.
 from .expert_ffn import expert_ffn_plain, fused_expert_ffn
 from .linear_attention import fused_linear_attention, fused_linear_attention_plain
 from .moe_ffn import grouped_ffn, grouped_ffn_plain
-from .moe_positions import moe_positions_counts, moe_positions_counts_plain
+from .moe_positions import (moe_positions_counts, moe_positions_counts_plain, moe_route,
+                            moe_route_plain)
 from .sffn import head_ffn, head_ffn_plain
 from .stma_attention import stma_linear_attention, stma_linear_attention_plain
 
-# name -> (wrapper, plain version); the names follow the Pallas kernels
+# name -> (wrapper, plain version); the names follow the Pallas kernels, and
+# "moe_route" is K4's kernel with the MoE routing around it
 KERNELS = {
+    "moe_route": (moe_route, moe_route_plain),
     "moe_positions": (moe_positions_counts, moe_positions_counts_plain),
     "grouped_ffn": (grouped_ffn, grouped_ffn_plain),
     "head_ffn": (head_ffn, head_ffn_plain),

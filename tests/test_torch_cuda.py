@@ -6,7 +6,10 @@ repository's conftest files (which import JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-K4 must agree exactly; K1-K3, K5 and K6 to 1e-5 x max |plain| (another
+K4 must agree exactly in its integer outputs and, in route mode, within
+1e-6 in its gates (a softmax over E terms summed in another order); a
+route also keeps the dispatch invariants.  K1-K3, K5 and K6 agree to
+1e-5 x max |plain| (another
 summation order; the FFN kernels K1, K2 and K6 run their products in 3xTF32
 on the tensor cores, K3's and K5's key softmax is merged from per-CTA
 chunks).  K5 and K6 are also held backward: their gradient recomputes the
@@ -25,9 +28,11 @@ from motioncraft_tpu_torch.ops.stma_attention import max_active_clusters
 from motioncraft_tpu_torch.registry import build_architecture
 from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
 from torch_port_util import grad_mode_on  # noqa: F401
+from torch_port_util import check_route_invariants, route_logits, tutel_capacity
 
 pytestmark = pytest.mark.cuda
 REL = 1e-5
+GATE_ATOL = 1e-6  # moe_route's gates: a softmax over E terms summed in another order
 
 
 @pytest.fixture
@@ -42,6 +47,10 @@ def _randn(g, *shape, scale=1.0):
 
 
 def _case(name, variant, g):
+    if name == "moe_route":
+        N, E, K, kind = variant
+        return (torch.from_numpy(route_logits(N, E, kind, seed=N + E)), K,
+                tutel_capacity(N, E, K), BLOCK)
     if name == "moe_positions":
         M, E = variant
         idx = torch.randint(0, E, (M,), generator=g, dtype=torch.int32)
@@ -82,8 +91,18 @@ def _case(name, variant, g):
 
 
 CASES = [
+    # the flagship's motion MoE (N = 75264, E = 16, K = 2; capacity 14112),
+    # the same leaning to one expert (drops), its text MoE (N = 2464)
+    ("moe_route", (75264, 16, 2, "balanced")), ("moe_route", (75264, 16, 2, "skewed")),
+    ("moe_route", (2464, 16, 2, "balanced")),
+    # more tiles (1172) than the card holds blocks of 512 threads at once
+    # (an SM holds 2048 threads: 4 x 132 = 528), so blocks take several;
+    # E = 4, K = 1; equal logits; E = 64 (the wider kernel), K = 8; N < 32
+    ("moe_route", (600000, 16, 2, "skewed")), ("moe_route", (5000, 4, 1, "ties")),
+    ("moe_route", (3000, 64, 8, "ties")), ("moe_route", (7, 16, 2, "balanced")),
     ("moe_positions", (1, 16)), ("moe_positions", (5000, 16)),
-    ("moe_positions", (70000, 3)),
+    ("moe_positions", (70000, 3)), ("moe_positions", (600000, 16)),
+    ("moe_positions", (3000, 256)),
     ("grouped_ffn", (4, 128, 512, [0, 3, 3, 1])), ("grouped_ffn", (2, 256, 1024, [1, 1])),
     ("grouped_ffn", (3, 32, 64, [2, 0])),
     # the four 128-row tiles of a block share its expert, the next block has
@@ -135,7 +154,14 @@ def test_kernel_matches_plain(cuda, name, variant):
     got, want = wrapper(*args), plain(*args)
     torch.cuda.synchronize()
     assert launch_counts()[name] == 1
-    if name == "moe_positions":
+    if name == "moe_route":
+        for field, a, b in zip(got._fields, got, want):
+            if a.dtype == torch.float32:
+                torch.testing.assert_close(a, b, rtol=0, atol=GATE_ATOL, msg=field)
+            else:
+                assert a.dtype == torch.int32 and torch.equal(a, b), field
+        check_route_invariants(got, args[2])
+    elif name == "moe_positions":
         for a, b in zip(got, want):
             assert torch.equal(a, b)
     else:
@@ -194,7 +220,7 @@ def test_narrow_model_samples_alike_on_card_and_cpu(cuda):
         reset_launch_counts()
         out[str(dev)] = arch.sample(batch, noise=noise).cpu()
     steps, layers = arch.diffusion_test.num_timesteps, m["num_layers"]
-    assert launch_counts() == {"moe_positions": layers * (steps + 1),
+    assert launch_counts() == {"moe_route": layers * (steps + 1), "moe_positions": 0,
                                "grouped_ffn": layers * (steps + 1),
                                "head_ffn": layers * steps,
                                "stma_linear_attention": layers * steps,

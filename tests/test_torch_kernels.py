@@ -3,7 +3,10 @@
 On the CPU the same numpy inputs go through the Pallas kernel in interpret
 mode, its jnp ``*_reference``, and the port's wrapper (which takes the plain
 PyTorch version for a CPU tensor).  K4 must be bit-exact, sentinel ids
-included, because the MoE capacity drops depend on the ranks.  K1-K3, K5 and
+included, because the MoE capacity drops depend on the ranks; its route mode
+is held against the JAX package's routing composed from its own functions
+(integer outputs exact, gates within 1e-6: a 16-term softmax summed in
+another order).  K1-K3, K5 and
 K6 agree to 1e-5 x max |reference|: the Pallas kernels use an
 Abramowitz-Stegun erf (error <= 1.5e-7) and the sums run in another order.
 K5 and K6 are also held backward: ``jax.grad`` through their custom VJP
@@ -14,6 +17,8 @@ version as its forward.
 The CUDA kernels themselves are held against the plain versions on the card
 by tests/test_torch_cuda.py.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -34,12 +39,15 @@ from motioncraft_tpu_torch.ops import (KERNELS, expert_ffn_plain, fused_expert_f
                                        fused_linear_attention,
                                        fused_linear_attention_plain, grouped_ffn,
                                        head_ffn, launch_counts, moe_positions_counts,
-                                       reset_launch_counts, stma_linear_attention)
+                                       moe_route, reset_launch_counts,
+                                       stma_linear_attention)
 from motioncraft_tpu_torch.ops.moe_ffn import BLOCK
 from motioncraft_tpu_torch.ops.recompute import with_recomputed_grad
 from torch_port_util import grad_mode_on  # noqa: F401
+from torch_port_util import check_route_invariants, route_logits, tutel_capacity
 
 REL = 1e-5
+GATE_ATOL = 1e-6  # gates: a softmax over E terms summed in another order
 
 
 def close(got, want):
@@ -117,6 +125,67 @@ def test_k4_positions_bit_exact(M, E, R):
     np.testing.assert_array_equal(pos.numpy(), xla_pos)
     np.testing.assert_array_equal(counts.numpy(), xla_counts)
     np.testing.assert_array_equal(counts.numpy(), np.bincount(idx[idx < E], minlength=E))
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def jax_route(logits, K, capacity, block):
+    """The JAX package's rank-compact routing (motioncraft_tpu/models/moe.py,
+    eval, fused FFN), composed from its own functions, jitted as the package
+    runs it; with the k-major expert ids for K4's Pallas kernel."""
+    N, E = logits.shape
+    scores = jax.nn.softmax(logits, axis=1)
+    topk_scores, topk_idx = jax.lax.top_k(scores, K)
+    gates = topk_scores / (topk_scores.sum(axis=1, keepdims=True) + 1e-9)
+    flat_idx = topk_idx.T.reshape(-1)
+    pos_flat, counts = _positions_xla(flat_idx, E)
+    positions = pos_flat.reshape(K, N).T
+    valid = positions < capacity
+    gates = gates * valid.astype(gates.dtype)
+    fill_aligned = (jnp.minimum(counts, capacity) + block - 1) // block * block
+    M = (N * K + block - 1) // block * block + E * block
+    offset = jnp.concatenate([jnp.zeros((1,), jnp.int32), jnp.cumsum(fill_aligned)[:-1]])
+    rank = offset[topk_idx] + positions
+    oob = M + 1 + jnp.arange(N * K, dtype=jnp.int32)
+    token_ids = jnp.broadcast_to(jnp.arange(N, dtype=jnp.int32)[:, None], (N, K)).reshape(-1)
+    token_for_rank = jnp.zeros((M + 1,), jnp.int32).at[
+        jnp.where(valid.reshape(-1), rank.reshape(-1), oob)].set(
+            token_ids, unique_indices=True, mode="drop")
+    block_expert = jnp.clip(jnp.searchsorted(jnp.cumsum(fill_aligned),
+                                             jnp.arange(M // block, dtype=jnp.int32) * block,
+                                             side="right"), 0, E - 1)
+    ge = jnp.einsum("nk,nke->ne", gates, jax.nn.one_hot(topk_idx, E, dtype=gates.dtype))
+    return {"gates": gates, "r": jnp.where(valid, rank, M),
+            "token_for_rank": token_for_rank[:M], "block_expert": block_expert, "ge": ge,
+            "counts": counts, "flat_idx": flat_idx, "pos_flat": pos_flat}
+
+
+@pytest.mark.parametrize("kind", ["balanced", "skewed", "ties"])
+@pytest.mark.parametrize("N", [1, 7, 600, 5000])
+@pytest.mark.parametrize("E,K", [(4, 1), (4, 2), (16, 1), (16, 2)])
+def test_k4_route_matches_jax_routing(E, K, N, kind):
+    """moe_route on the CPU (its plain version) against the JAX package's
+    routing on the same logits: integer outputs exact, gates within
+    GATE_ATOL; skewed logits overflow an expert's capacity (drops), integer
+    logits tie (the lower expert index first, as lax.top_k takes it)."""
+    logits = route_logits(N, E, kind, seed=N + 10 * E + K)
+    capacity = tutel_capacity(N, E, K)
+    got = moe_route(torch.from_numpy(logits), K, capacity, BLOCK)
+    want = jax_route(jnp.asarray(logits), K, capacity, BLOCK)
+    np.testing.assert_array_equal(  # K4's ranks, as the Pallas kernel gives them
+        _positions_pallas(want["flat_idx"], E, block_rows=1024, interpret=True),
+        want["pos_flat"])
+    for name, value in got._asdict().items():
+        ref = np.asarray(want[name])
+        assert value.shape == ref.shape, name
+        if value.dtype == torch.float32:
+            np.testing.assert_allclose(value.numpy(), ref, rtol=0, atol=GATE_ATOL, err_msg=name)
+        else:
+            assert value.dtype == torch.int32, name
+            np.testing.assert_array_equal(value.numpy(), ref, err_msg=name)
+    check_route_invariants(got, capacity)
+    if kind == "skewed" and N >= 7:  # drops
+        assert int(got.counts.max()) > capacity
+        assert bool((got.r == got.token_for_rank.numel()).any())
 
 
 @pytest.mark.parametrize("E,D,HID,block_expert", [(4, 128, 256, [0, 1, 1, 3]),
@@ -216,7 +285,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 def test_other_devices_raise(name):
     wrapper, _ = KERNELS[name]
     meta = lambda *s: torch.empty(*s, device="meta")  # noqa: E731
-    args = {"moe_positions": (meta(8).int(), 4),
+    args = {"moe_positions": (meta(8).int(), 4), "moe_route": (meta(8, 4), 2, 4, BLOCK),
             "grouped_ffn": (meta(1).int(), meta(BLOCK, 32), meta(1, 32, 32),
                             meta(1, 32), meta(1, 32, 32)),
             "head_ffn": (meta(4, 64), meta(2, 32, 32), meta(2, 32), meta(2, 32, 32),

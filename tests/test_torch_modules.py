@@ -22,7 +22,8 @@ from motioncraft_tpu.models import text_encoder as jax_text
 from motioncraft_tpu_torch.models import attentions, blocks, moe, text_encoder
 from motioncraft_tpu_torch.models.architecture import MotionDiffusion, resolve_device
 from motioncraft_tpu_torch.apis.factory import tiny_t2m_cfg
-from motioncraft_tpu_torch.ops import moe_positions_counts_plain
+from motioncraft_tpu_torch.ops import moe_positions_counts_plain, moe_route_plain
+from motioncraft_tpu_torch.ops.moe_ffn import BLOCK
 from motioncraft_tpu_torch.utils.convert import from_jax_params
 from torch_port_util import assert_close_scaled, seeded_params, t
 
@@ -90,6 +91,53 @@ def test_moe_layer(drops):
     assert (int(counts.max()) > capacity) == drops
     want, _ = japply(flax_m, v, x)
     assert_close_scaled(got, want, REL, "MoELayer")
+
+
+@pytest.mark.parametrize("E,K", [(16, 2), (4, 1), (16, 1)])
+def test_moe_layer_widths(E, K):
+    """Other expert counts and top-k than test_moe_layer's, on a skewed
+    batch (drops) through the same routing call."""
+    N, D = 500, 16
+    rng = np.random.RandomState(E + K)
+    x = (rng.randn(N, D) + 2.0 * rng.randn(1, D)).astype(np.float32)
+    flax_m = jax_moe.MoELayer(E, K, D, 2 * D)
+    v, m = carry(flax_m, moe.MoELayer(E, K, D, 2 * D), x)
+    with torch.no_grad():
+        got = m(t(x)).numpy()
+        counts = moe_route_plain(m.gate(t(x)), K, m.capacity(N), BLOCK).counts
+    assert int(counts.max()) > m.capacity(N)
+    want, _ = japply(flax_m, v, x)
+    assert_close_scaled(got, want, REL, "MoELayer")
+
+
+def test_eval_moe_routes_in_one_call(monkeypatch):
+    """The inference MoE routes through one moe_route call and, outside it,
+    sorts, searches and one-hot encodes nothing."""
+    N, D, E, K = 300, 16, 4, 2
+    m = moe.MoELayer(E, K, D, 2 * D).eval()
+    x = torch.from_numpy(np.random.RandomState(7).randn(N, D).astype(np.float32))
+    calls, inside = [], [False]
+
+    def route(*args):
+        calls.append(args[1:])
+        inside[0] = True
+        try:
+            return moe_route_plain(*args)
+        finally:
+            inside[0] = False
+
+    def forbid(fn):
+        def wrapped(*a, **kw):
+            assert inside[0], f"{fn.__name__} outside moe_route"
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(moe, "moe_route", route)
+    for owner, name in ((torch, "sort"), (torch, "searchsorted"), (torch.nn.functional, "one_hot")):
+        monkeypatch.setattr(owner, name, forbid(getattr(owner, name)))
+    with torch.no_grad():
+        y = m(x)
+    assert calls == [(K, m.capacity(N), BLOCK)] and y.shape == (N, D)
 
 
 def test_moe_wrapper():

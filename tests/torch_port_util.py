@@ -60,3 +60,48 @@ def grad_mode_on():
     that use this fixture take gradients."""
     with torch.enable_grad():
         yield
+
+
+def check_route_invariants(route, capacity):
+    """What every MoE routing (ops/moe_positions.py:Route) must satisfy: each
+    kept (token, k) choice owns exactly one row and that row names its token;
+    every other row (padding) holds 0; dropped choices have r == M and gate
+    0; each expert keeps min(count, capacity) choices; block_expert is
+    non-decreasing within [0, E); a token's row of ge holds its K gates and
+    zeros."""
+    gates, r, tfr, be, ge, counts = (a.cpu().numpy() for a in route)
+    (N, K), E, M = r.shape, ge.shape[1], tfr.shape[0]
+    assert ((r >= 0) & (r <= M)).all()
+    kept = r < M
+    assert (gates[~kept] == 0).all()
+    rows = r[kept]
+    assert np.unique(rows).size == rows.size, "two choices share a row"
+    assert (tfr[rows] == np.broadcast_to(np.arange(N)[:, None], (N, K))[kept]).all()
+    pad = np.ones(M, bool)
+    pad[rows] = False
+    assert (tfr[pad] == 0).all(), "a padding row is not 0"
+    assert kept.sum() == np.minimum(counts, capacity).sum()
+    assert counts.sum() == N * K
+    assert (np.diff(be) >= 0).all() and be.min() >= 0 and be.max() < E
+    assert (np.count_nonzero(ge, axis=1) <= K).all()
+    # gates are >= 0, so a row's K largest entries are its gates
+    np.testing.assert_array_equal(np.sort(ge, axis=1)[:, E - K:], np.sort(gates, axis=1))
+
+
+def route_logits(N, E, kind, seed=0):
+    """Gate logits [N, E] (numpy f32) of one kind: "balanced" N(0, 1);
+    "skewed", every token leaning to expert 0, so that it overflows its
+    capacity; "ties", small integers, so that equal logits are common (the
+    lower index must win)."""
+    rng = np.random.RandomState(seed)
+    if kind == "ties":
+        return rng.randint(-2, 3, (N, E)).astype(np.float32)
+    lg = rng.randn(N, E).astype(np.float32)
+    if kind == "skewed":
+        lg[:, 0] += 3.0
+    return lg
+
+
+def tutel_capacity(N, E, K, factor=1.5):
+    """MoELayer.capacity: Tutel's K * int(factor * ceil(N / E)), within [1, N]."""
+    return max(1, min(K * int(factor * ((N + E - 1) // E)), N))

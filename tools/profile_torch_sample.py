@@ -22,7 +22,8 @@ sys.path.insert(0, ROOT)
 
 OWN = {"grouped_ffn_kernel": "K1 grouped_ffn", "head_ffn_kernel": "K2 head_ffn",
        "stma_attention_kernel": "K3 stma_linear_attention",
-       "count_kernel": "K4 moe_positions", "rank_kernel": "K4 moe_positions"}
+       "route_kernel<16>": "K4 moe_route", "route_kernel<64>": "K4 moe_route",
+       "route_kernel<0>": "K4 moe_positions"}
 
 
 def busy_us(intervals):
@@ -95,6 +96,9 @@ def main():
     print(f"{'device ms':>10} {'share':>6} {'calls':>6}  kernel")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"{us / 1e3:10.2f} {us / total:6.3f} {n:6d}  {name[:110]}")
+    sorts = [v for name, v in by_name.items() if "sort" in name.lower()]
+    print(f"sort kernels: {sum(us for us, _ in sorts) / 1e3:.2f} ms over "
+          f"{sum(n for _, n in sorts)} calls")
     print("the port's own kernels:")
     for label, (us, n) in sorted(own.items()):
         print(f"{us / 1e3:10.2f} {us / total:6.3f} {n:6d}  {label}")

@@ -24,7 +24,8 @@ sys.path.insert(0, ROOT)
 
 OWN = {"expert_ffn_kernel": "K6 fused_expert_ffn",
        "linear_attention_kernel": "K5 fused_linear_attention",
-       "count_kernel": "K4 moe_positions", "rank_kernel": "K4 moe_positions",
+       "route_kernel<0>": "K4 moe_positions", "route_kernel<16>": "K4 moe_route",
+       "route_kernel<64>": "K4 moe_route",
        "grouped_ffn_kernel": "K1 grouped_ffn", "head_ffn_kernel": "K2 head_ffn",
        "stma_attention_kernel": "K3 stma_linear_attention"}
 
