@@ -43,7 +43,19 @@ Phases; any failure exits non-zero:
   8. one flagship training loss and every parameter's gradient on the card
      against the CPU, B = 2, gate noise 0, the CPU's gate logits pinned to
      the card's as in phase 6
-  9. one JSON line of the kernels' numbers, and last the device line
+  9. the T2M protocol evaluation through tools/torch_test.py on the same
+     flagship config: a synthetic Motion-X tree of 320 clips (196 x 322,
+     written here in tools/make_tiny_data.py's layout), phase 3's weights
+     saved with save_params and loaded back by --checkpoint, a full-width
+     SMPL-X evaluator (DistilBERT 6 x 768, ActorAgnostic 4 x 256) saved as
+     its .npz; one replication at batch 16: DDIM-50 CFG through K1-K4, the
+     evaluator on the card, R-Precision / Matching / FID / Diversity.  The
+     loaded model's forward equals the in-memory one's bit for bit, every
+     metric is finite, K1-K4's launches are what 50 steps x 4 layers x 20
+     batches imply, GT mode on the same tree gives FID <= 1e-3, and the
+     evaluator's embeddings on the card agree with the CPU's; wall seconds of
+     sampling and of evaluation, samples per second
+ 10. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -73,6 +85,8 @@ MODEL_REL_TOL = 1e-4    # card vs CPU forward: <= tol * max(1, max |CPU|)
 GRAD_REL_TOL = 1e-3
 BATCH, BATCHES, SEED = 16, 2, 0
 TRAIN_BATCH, TRAIN_STEPS = 32, 4  # 1 warm-up + 3 timed
+EVAL_CLIPS = 320        # one replication; the Diversity metric draws 300 samples
+GT_FID_TOL = 1e-3
 
 PALLAS = {
     "moe_route": "motioncraft_tpu/ops/pallas_moe.py:54",
@@ -569,6 +583,153 @@ def phase_train_parity(torch, cfg, sd):
     check(worst[0] <= GRAD_REL_TOL, f"gradient {worst[1]} card vs CPU: {worst[0]}")
 
 
+def write_motionx_tree(root, n, T, seed):
+    """A synthetic Motion-X tree in tools/make_tiny_data.py's layout:
+    datasets/motionx/{motions/<name>.npy [T, 322], texts/<name>.txt, ann.txt,
+    mean.npy, std.npy}."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    d = os.path.join(root, "datasets", "motionx")
+    for sub in ("motions", "texts"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    np.save(os.path.join(d, "mean.npy"), np.zeros(322, np.float32))
+    np.save(os.path.join(d, "std.npy"), np.ones(322, np.float32))
+    verbs = ["walks", "jumps", "waves", "dances", "kicks", "turns", "sits down",
+             "runs in a circle", "crouches", "claps"]
+    names = [f"clip{i:04d}" for i in range(n)]
+    for i, name in enumerate(names):
+        np.save(os.path.join(d, "motions", name + ".npy"),
+                (rng.randn(T, 322) * 0.5).astype(np.float32))
+        with open(os.path.join(d, "texts", name + ".txt"), "w") as f:
+            f.write(f"a person {verbs[i % len(verbs)]} then {verbs[(7 * i + 3) % len(verbs)]}"
+                    f" {i // len(verbs)} times\n")
+    with open(os.path.join(d, "ann.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+
+
+def load_torch_test():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_test", os.path.join(ROOT, "tools", "torch_test.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_eval(torch, full_cfg, sd, dev="cuda", config=CONFIG, clips=EVAL_CLIPS):
+    """Phase 9: the protocol evaluation of tools/torch_test.py on ``config``
+    (whose model ``full_cfg`` is), with checks."""
+    import tempfile
+
+    import numpy as np
+    from motioncraft_tpu_torch.eval.models import T2MContrastiveModel_SMPLX
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.checkpoint import save_params
+    from motioncraft_tpu_torch.utils.convert import to_jax_params
+
+    torch_test = load_torch_test()
+    cfg = full_cfg["model"]
+    T = cfg["model"]["max_seq_len"]
+    ev_cfg = {k: v for k, v in full_cfg["data"]["test"]["eval_cfg"]["evaluator_model"].items()
+              if k not in ("type", "init_cfg")}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tree = os.path.join(tmp, "data")
+        write_motionx_tree(tree, clips, T, SEED)
+        mem = build_architecture(cfg, device=dev)
+        mem.model.load_state_dict(sd, strict=True)
+        params = os.path.join(tmp, "params.npz")
+        save_params(params, mem.model)
+        # a full-width evaluator, seeded, as the native .npz snapshot
+        ev = T2MContrastiveModel_SMPLX(**ev_cfg, seed=SEED, device="cpu")
+        evaluator = os.path.join(tmp, "evaluator.npz")
+        save_params(evaluator, {"motion": {"params": to_jax_params(ev.motion_module.state_dict())},
+                                "text": {"params": to_jax_params(ev.text_module.state_dict())}})
+        n_ev = sum(p.numel() for m in (ev.motion_module, ev.text_module) for p in m.parameters())
+        print(f"[eval] {clips} clips of {T} x 322, the flagship's weights "
+              f"({os.path.getsize(params) / 2**20:.0f} MiB) and a {n_ev / 1e6:.1f} M-parameter "
+              f"evaluator written in {time.perf_counter() - t0:.1f} s")
+        opts = [f"data.test.data_prefix={tree}", "data.test.ann_file=ann.txt",
+                "data.test.motion_dir=motions", "data.test.text_dir=texts",
+                "data.test.eval_cfg.replication_times=1",
+                "data.test.eval_cfg.evaluator_model.init_cfg="
+                + repr(dict(type="Pretrained", checkpoint=evaluator))]
+        argv = [config, os.path.join(tmp, "ddim"), "--device", dev, "--batch-size", str(BATCH),
+                "--checkpoint", params, "--seed", str(SEED), "--cfg-options", *opts]
+        reset_launch_counts()
+        run = torch_test.main(argv)
+        counts = launch_counts()
+        out, loaded = run["out"], run["arch"]
+        n = len(run["results"])
+        metric = {k: v for k, v in out.items() if k not in ("flags", "protocol")}
+        print(f"[eval] metrics {json.dumps(metric)}; flags {json.dumps(out['flags'])}")
+        print(f"[eval] {n} samples: sampling {run['sample_s']:.3f} s "
+              f"({n / run['sample_s']:.3f} samples/s), evaluation {run['eval_s']:.3f} s; "
+              f"sampling share {run['sample_s'] / (run['sample_s'] + run['eval_s']):.3f}; "
+              f"launches {counts}")
+        check(n == clips and len(metric) == 12, f"{n} results, metrics {sorted(metric)}")
+        check(all(np.isfinite(v) for v in metric.values()), f"non-finite metrics {metric}")
+        batches = -(-clips // BATCH)
+        steps, layers = loaded.diffusion_test.num_timesteps, loaded.model.num_layers
+        want = {"moe_route": batches * layers * (steps + 1), "moe_positions": 0,
+                "grouped_ffn": batches * layers * (steps + 1),
+                "head_ffn": batches * layers * steps,
+                "stma_linear_attention": batches * layers * steps,
+                "fused_linear_attention": 0, "fused_expert_ffn": 0}
+        check(counts == want, f"eval launch counts {counts} != expected {want}")
+
+        # the loaded model against the in-memory one: one forward, same noise
+        batch = requests(BATCH, SEED + 300, T)
+        g = torch.Generator(device=dev).manual_seed(SEED + 9)
+        x = torch.randn(batch["motion"].shape, generator=g, device=dev)
+        ts = torch.full((BATCH,), 499, dtype=torch.long, device=dev)
+        outs = []
+        for a in (loaded, mem):
+            with torch.no_grad():
+                xf = a.encode_text(batch["text_ids"])
+                outs.append(a.model(x, ts, motion_mask=a._tensor(batch["motion_mask"]),
+                                    motion_length=a._tensor(batch["motion_length"]),
+                                    xf_out=xf, text_feats=a.model.precompute_text_feats(xf)))
+        diff = float((outs[0] - outs[1]).abs().max())
+        print(f"[eval] loaded vs in-memory flagship forward, B={BATCH}: max abs diff {diff:.3e}"
+              f" (bit for bit: {torch.equal(outs[0], outs[1])})")
+        check(torch.equal(outs[0], outs[1]), "the loaded weights do not give the in-memory output")
+        del mem, loaded, outs
+
+        # the evaluator on the card against the CPU, one batch of results
+        card_ev = run["dataset"].evaluator_model
+        cpu_ev = T2MContrastiveModel_SMPLX(**ev_cfg, device="cpu",
+                                           init_cfg=dict(type="Pretrained", checkpoint=evaluator))
+        check(card_ev.device.type == dev and card_ev.pretrained_loaded, "evaluator not loaded")
+        res = run["results"][:BATCH]
+        motion = np.stack([r["pred_motion"] for r in res])
+        lengths = np.array([int(r["motion_length"].reshape(-1)[0]) for r in res])
+        texts = [r["text"] for r in res]
+        for what, a, b in (("encode_motion", card_ev.encode_motion(motion, lengths),
+                            cpu_ev.encode_motion(motion, lengths)),
+                           ("encode_text", card_ev.encode_text(texts), cpu_ev.encode_text(texts))):
+            scale = max(1.0, float(b.abs().max()))
+            diff = float((a.cpu() - b).abs().max())
+            print(f"[eval] evaluator {what} B={BATCH}: card vs CPU max abs diff {diff:.3e} "
+                  f"(tol {MODEL_REL_TOL} x {scale:.4g})")
+            check(diff <= MODEL_REL_TOL * scale, f"evaluator {what} card vs CPU: {diff}")
+        del run
+
+        gt_argv = [config, os.path.join(tmp, "gt"), "--device", dev, "--batch-size", str(BATCH),
+                   "--seed", str(SEED), "--cfg-options", "model.inference_type=gt", *opts]
+        gt = torch_test.main(gt_argv)
+        fid = gt["out"]["FID (mean)"]
+        print(f"[eval] GT mode: FID (mean) {fid:.3e} (tol {GT_FID_TOL}); evaluation "
+              f"{gt['eval_s']:.3f} s")
+        check(abs(fid) <= GT_FID_TOL, f"GT-mode FID {fid}")
+    print(f"[eval] phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main():
     try:
         import torch
@@ -616,11 +777,14 @@ def main():
     train_counts = phase_train(torch, full_cfg, arch)
     del arch
     phase_train_parity(torch, cfg, sd)
+    eval_counts = phase_eval(torch, full_cfg, sd)
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
-        # K4's route, training for K4's positions, K5 and K6
+        # K4's route, training for K4's positions, K5 and K6; and on the
+        # evaluation path of phase 9
         row["launches"] = counts[name] or train_counts[name]
+        row["eval_launches"] = eval_counts[name]
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

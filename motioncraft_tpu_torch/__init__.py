@@ -12,11 +12,15 @@ Layer map:
   denoiser         -> motioncraft_tpu_torch.models
   kernels          -> motioncraft_tpu_torch.ops (wrappers) + csrc/ (CUDA)
   optimizer state  -> motioncraft_tpu_torch.parallel
-  test/train API   -> motioncraft_tpu_torch.apis
+  test/train API   -> motioncraft_tpu_torch.apis (+ the eval hook)
+  data             -> motioncraft_tpu_torch.data (datasets, pipelines, loader)
+  evaluation       -> motioncraft_tpu_torch.eval (evaluator model, metrics)
+  checkpoints      -> motioncraft_tpu_torch.utils (convert, torch_convert,
+                      checkpoint)
 
 Slices ported so far, for STMoGen (``configs/stmogen/t2m_motionx_0_125b.py``):
-text-to-motion DDIM sampling with classifier-free guidance, and training on
-one device.
+text-to-motion DDIM sampling with classifier-free guidance, training on one
+device, checkpoint I/O and the T2M protocol evaluation (tools/torch_test.py).
 """
 
 __version__ = "0.1.0"

@@ -5,8 +5,9 @@ One device, eager PyTorch: a feeder thread prepares and copies the next
 batches while the step runs, the step is ``MotionDiffusion.loss``, autograd
 and one optimizer update (``parallel/train_state.py``), and the loop runs
 epochs with the checkpoint / eval hooks and the loss-aware timestep sampler's
-feedback.  Multi-device training (``mesh``), half precision (``fp16``) and
-resuming (``resume_dir``) are not ported.
+feedback.  ``resume_dir`` resumes from the last ``utils/checkpoint.py``
+checkpoint written there.  Multi-device training (``mesh``) and half
+precision (``fp16``) are not ported.
 """
 
 from __future__ import annotations
@@ -146,22 +147,36 @@ def train_model(arch, dataloader: Iterable[Dict[str, Any]], *,
     ``checkpoint_fn(state, epoch)`` and ``eval_fn(state, epoch)`` also see.
     Every ``log_interval`` steps ``logger`` gets the step's scalars and the
     mean wall ms per step since the last line (the scalars' read waits for
-    the device)."""
+    the device).
+
+    The state carries the step's ``generator`` and the timestep ``sampler``,
+    so ``checkpoint_fn = lambda state, epoch: save_checkpoint(dir, state,
+    epoch)`` saves all a resume needs; ``resume_dir`` restores the latest
+    such file and goes on at the epoch after it, the next step computing
+    what the uninterrupted run's would."""
     if mesh is not None:
         raise NotImplementedError("mesh: multi-device training")
-    if resume_dir is not None:
-        raise NotImplementedError("resume_dir: checkpoint resume")
     optimizer_cfg = optimizer_cfg or {"type": "Adam"}
     generator = set_random_seed(seed, arch.device)
     schedule = build_lr_schedule(optimizer_cfg.get("lr", 2e-4), lr_config,
                                  steps_per_epoch or 1)
     state = TrainState(arch.model, optimizer_cfg, schedule, grad_clip, frozen_prefixes)
+    sampler = getattr(arch, "sampler", None)
+    state.generator, state.sampler = generator, sampler
     step_fn = make_train_step(arch, state, fp16=fp16, grad_accum=grad_accum)
     log = logger or (lambda msg: print(msg, flush=True))
-    sampler = getattr(arch, "sampler", None)
-    global_step = 0
+    start_epoch = 0
+    if resume_dir is not None:
+        from ..utils.checkpoint import latest_checkpoint, load_checkpoint
+        path = latest_checkpoint(resume_dir)
+        if path is not None:
+            start_epoch = load_checkpoint(path, state) + 1
+            log(f"resumed from {path} at step {state.step}")
+    global_step = state.step
     try:
-        for epoch in range(max_epochs):
+        for epoch in range(start_epoch, max_epochs):
+            if hasattr(getattr(dataloader, "sampler", None), "set_epoch"):
+                dataloader.sampler.set_epoch(epoch)
             arch.train()
             t0 = t_line = time.perf_counter()
             n_line = 0

@@ -1,0 +1,12 @@
+"""Text-to-motion evaluation: the SMPL-X contrastive evaluator model, the
+evaluators of each metric and the metric math (PyTorch port of
+motioncraft_tpu/eval)."""
+
+from . import models  # noqa: F401  (registers T2MContrastiveModel_SMPLX)
+from .evaluators import (BaseEvaluator, DiversityEvaluator, FIDEvaluator,  # noqa: F401
+                         MatchingScoreEvaluator, MultiModalityEvaluator,
+                         PrecisionEvaluator, build_evaluator, build_evaluator_model)
+from .metrics import (calculate_activation_statistics, calculate_diversity,  # noqa: F401
+                      calculate_frechet_distance, calculate_multimodality,
+                      calculate_top_k, euclidean_distance_matrix,
+                      get_metric_statistics)

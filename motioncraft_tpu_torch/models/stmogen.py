@@ -11,6 +11,10 @@ motioncraft_tpu/models/stmogen.py).
     layer 0 computes its motion branch once for both halves (cfg_dedup), and
     the text MoE of every layer comes precomputed once per sampling call
     (precompute_text_feats, on the doubled batch so MoE capacity matches).
+    Each of the two is a switch, on by default as in the JAX package
+    (``cfg_layer0_dedup``, ``text_hoist``); with MoE capacity drops the
+    dedup routes B tokens where the plain path routes 2B, so "off" is the
+    reference's strict drop semantics.
   - forward_train: one pass of the stack at the batch's ``cond_type``, the
     text MoE computed in every layer, the MoE aux losses collected.
 """
@@ -123,7 +127,8 @@ class STMoGenTransformer(DiffusionTransformerBase):
                  scale_func_cfg: Optional[dict] = None,
                  moe_route_loss_weight: float = 1.0,
                  template_kl_loss_weight: float = 0.0001,
-                 pipeline_axis: Optional[str] = None):
+                 pipeline_axis: Optional[str] = None,
+                 cfg_layer0_dedup: bool = True, text_hoist: bool = True):
         super().__init__(input_feats, max_seq_len, latent_dim, time_embed_dim,
                          num_layers, text_encoder, use_pos_embedding)
         if pipeline_axis is not None:
@@ -132,6 +137,7 @@ class STMoGenTransformer(DiffusionTransformerBase):
             raise NotImplementedError("STMoGenTransformer needs one ca_block_cfg and "
                                       "one ffn_cfg for every layer")
         self.moe_route_loss_weight = moe_route_loss_weight
+        self.cfg_layer0_dedup, self.text_hoist = cfg_layer0_dedup, text_hoist
         self.template_kl_loss_weight = template_kl_loss_weight
         self.scale = (scale_func_cfg or {}).get("scale", 6.5)
         self.joint_embed = PoseEncoder(**(pose_encoder_cfg or {}), patch_size=patch_size)
@@ -163,7 +169,10 @@ class STMoGenTransformer(DiffusionTransformerBase):
     def precompute_text_feats(self, xf_out):
         """Per-layer text features [2B, 77, 1, 2L], computed once per sampling
         call on the CFG-doubled batch: MoE capacity and drops depend on the
-        token count, so an undoubled batch would route differently."""
+        token count, so an undoubled batch would route differently.  None
+        when ``text_hoist`` is off: every layer then computes its own."""
+        if not self.text_hoist:
+            return None
         xf2 = torch.cat([xf_out, xf_out], dim=0)
         return tuple(block.ca_block.text_branch(xf2) for block in self.blocks)
 
@@ -176,7 +185,8 @@ class STMoGenTransformer(DiffusionTransformerBase):
         emb2 = torch.cat([emb, emb])
         mask2 = torch.cat([src_mask, src_mask])
         for i, block in enumerate(self.blocks):
-            h2 = block(h2, xf2, emb2, mask2, all_cond, cfg_dedup=i == 0,
+            h2 = block(h2, xf2, emb2, mask2, all_cond,
+                       cfg_dedup=self.cfg_layer0_dedup and i == 0,
                        text_feat=None if text_feats is None else text_feats[i])
         out = self.out(h2).reshape(2 * B, T, -1)
         text_coef, none_coef = self.scale_func(timesteps[0])

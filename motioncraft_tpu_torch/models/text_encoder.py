@@ -31,13 +31,17 @@ class ClipAttention(nn.Module):
         self.in_proj = nn.Linear(width, 3 * width)
         self.out_proj = nn.Linear(width, width)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, key_mask=None):
+        """``mask``: an additive [.., T, T] mask; ``key_mask``: [B, T] bool,
+        True where a key may be attended to."""
         B, T, C = x.shape
         qkv = self.in_proj(x).reshape(B, T, 3, self.heads, C // self.heads)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         attn = torch.einsum("bqhd,bkhd->bhqk", q * (C // self.heads) ** -0.5, k)
         if mask is not None:
             attn = attn + mask
+        if key_mask is not None:
+            attn = attn.masked_fill(~key_mask[:, None, None, :], -1e9)
         y = torch.einsum("bhqk,bkhd->bqhd", attn.softmax(dim=-1), v).reshape(B, T, C)
         return self.out_proj(y)
 
@@ -95,9 +99,9 @@ class PostLNEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm2 = LayerNorm(d_model)
 
-    def forward(self, x):
+    def forward(self, x, key_mask=None):
         p, train = self.dropout, self.training
-        x = self.norm1(x + F.dropout(self.self_attn(x), p, train))
+        x = self.norm1(x + F.dropout(self.self_attn(x, key_mask=key_mask), p, train))
         h = self.linear2(F.dropout(self.act(self.linear1(x)), p, train))
         return self.norm2(x + F.dropout(h, p, train))
 

@@ -77,6 +77,10 @@ ARCHITECTURES = MODELS
 SUBMODULES = MODELS
 ATTENTIONS = MODELS
 
+DATASETS = Registry("datasets")
+PIPELINES = Registry("pipelines")
+EVALUATORS = Registry("evaluators")
+
 
 def build_architecture(cfg, **default_kwargs):
     import motioncraft_tpu_torch.models  # noqa: F401  (registers the classes)
@@ -89,3 +93,8 @@ def build_submodule(cfg):
 
 def build_loss(cfg):
     return LOSSES.build(cfg)
+
+
+def build_dataset(cfg):
+    import motioncraft_tpu_torch.data  # noqa: F401  (registers the datasets)
+    return DATASETS.build(cfg)

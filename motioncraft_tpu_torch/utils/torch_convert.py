@@ -1,0 +1,313 @@
+"""Reference PyTorch checkpoints into the port (a copy of the converters of
+motioncraft_tpu/utils/torch_convert.py that the flagship and its evaluator
+need).
+
+A reference checkpoint names its tensors after the reference's modules
+(mmcv / tutel / HuggingFace naming).  Each ``convert_*`` maps such a state
+dict onto the flax parameter tree of the JAX package, exactly as the JAX
+package does; ``utils/convert.py:from_jax_params`` then maps that tree onto
+the port's ``state_dict``, and ``load_into`` loads it with ``strict=True``.
+So a reference file takes one route into both packages.
+
+Conventions: torch Linear weight [out, in] -> flax Dense kernel [in, out]
+(transpose); LayerNorm weight/bias -> scale/bias.
+
+The other model families' converters (ControlNet, MCM, MDM, MotionDiffuse,
+FineMoGen, ReMoDiffuse, the BiGRU evaluator) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from .convert import from_jax_params
+
+
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict):
+        # "model_state" is the EMAGE trainer format
+        for key in ("state_dict", "model_state", "model", "module"):
+            if key in obj and isinstance(obj[key], dict):
+                obj = obj[key]
+                break
+    return {k: v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+            for k, v in obj.items()}
+
+
+def load_into(module: torch.nn.Module, tree: dict) -> Dict[str, torch.Tensor]:
+    """Carry a flax ``params`` tree into ``module``: every leaf must name one
+    of its tensors with the same shape (the JAX package's ``_tree_update``);
+    tensors the tree leaves out keep their values.  Loaded with
+    ``strict=True``; returns the state_dict loaded."""
+    sd = {k: v.detach().cpu() for k, v in module.state_dict().items()}
+    for name, value in from_jax_params(tree).items():
+        if name not in sd:
+            raise KeyError(f"{name} is not a tensor of {type(module).__name__}")
+        if tuple(sd[name].shape) != tuple(value.shape):
+            raise ValueError(f"shape mismatch for {name}: port {tuple(sd[name].shape)} "
+                             f"vs checkpoint {tuple(value.shape)}")
+        sd[name] = value
+    module.load_state_dict(sd, strict=True)
+    return sd
+
+
+def _k(prefix, name):
+    return f"{prefix}.{name}" if prefix else name
+
+
+def t_linear(sd, prefix):
+    out = {"kernel": sd[_k(prefix, "weight")].T}
+    if _k(prefix, "bias") in sd:
+        out["bias"] = sd[_k(prefix, "bias")]
+    return out
+
+
+def t_layernorm(sd, prefix):
+    return {"scale": sd[_k(prefix, "weight")], "bias": sd[_k(prefix, "bias")]}
+
+
+def t_embedding(sd, prefix):
+    return {"embedding": sd[_k(prefix, "weight")]}
+
+
+def t_mha(sd, prefix):
+    """torch nn.MultiheadAttention -> ClipAttention (fused in_proj)."""
+    return {
+        "in_proj": {"kernel": sd[_k(prefix, "in_proj_weight")].T,
+                    "bias": sd[_k(prefix, "in_proj_bias")]},
+        "out_proj": {"kernel": sd[_k(prefix, "out_proj.weight")].T,
+                     "bias": sd[_k(prefix, "out_proj.bias")]},
+    }
+
+
+def t_postln_layer(sd, prefix):
+    """torch nn.TransformerEncoderLayer -> PostLNEncoderLayer."""
+    return {
+        "self_attn": t_mha(sd, _k(prefix, "self_attn")),
+        "linear1": t_linear(sd, _k(prefix, "linear1")),
+        "linear2": t_linear(sd, _k(prefix, "linear2")),
+        "norm1": t_layernorm(sd, _k(prefix, "norm1")),
+        "norm2": t_layernorm(sd, _k(prefix, "norm2")),
+    }
+
+
+# -------------------------------------------------------------- evaluator
+def convert_actor_agnostic(sd: Dict[str, np.ndarray], num_layers: int = 4) -> dict:
+    out = {"skel_embedding": t_linear(sd, "skel_embedding"),
+           "mu_token": sd["mu_token"], "logvar_token": sd["logvar_token"]}
+    for i in range(num_layers):
+        out[f"layer_{i}"] = t_postln_layer(sd, f"seqTransEncoder.layers.{i}")
+    return out
+
+
+def convert_distilbert(sd: Dict[str, np.ndarray], prefix: str = "text_model.") -> dict:
+    g = lambda name: f"{prefix}{name}"  # noqa: E731
+    out = {
+        "word_embeddings": t_embedding(sd, g("embeddings.word_embeddings")),
+        "position_embeddings": t_embedding(sd, g("embeddings.position_embeddings")),
+        "emb_ln": t_layernorm(sd, g("embeddings.LayerNorm")),
+    }
+    for i in range(6):
+        lp = g(f"transformer.layer.{i}")
+        qw, kw, vw = (sd[f"{lp}.attention.{n}.weight"] for n in ("q_lin", "k_lin", "v_lin"))
+        qb, kb, vb = (sd[f"{lp}.attention.{n}.bias"] for n in ("q_lin", "k_lin", "v_lin"))
+        out[f"layer_{i}"] = {
+            "self_attn": {
+                "in_proj": {"kernel": np.concatenate([qw, kw, vw], axis=0).T,
+                            "bias": np.concatenate([qb, kb, vb])},
+                "out_proj": t_linear(sd, f"{lp}.attention.out_lin"),
+            },
+            "linear1": t_linear(sd, f"{lp}.ffn.lin1"),
+            "linear2": t_linear(sd, f"{lp}.ffn.lin2"),
+            "norm1": t_layernorm(sd, f"{lp}.sa_layer_norm"),
+            "norm2": t_layernorm(sd, f"{lp}.output_layer_norm"),
+        }
+    return out
+
+
+def convert_smplx_evaluator(sd: Dict[str, np.ndarray], num_layers: int = 4
+                            ) -> Tuple[dict, dict]:
+    """epoch=199.ckpt ('motionencoder.*' / 'textencoder.*' keys) -> the
+    motion and text encoders' flax ``params`` trees."""
+    msd = {k[len("motionencoder."):]: v for k, v in sd.items()
+           if k.startswith("motionencoder.")}
+    tsd = {k[len("textencoder."):]: v for k, v in sd.items()
+           if k.startswith("textencoder.")}
+    text = {"projection": t_linear(tsd, "projection.1"),
+            "mu_token": tsd["mu_token"], "logvar_token": tsd["logvar_token"],
+            "text_model": convert_distilbert(tsd)}
+    for i in range(num_layers):
+        text[f"layer_{i}"] = t_postln_layer(tsd, f"seqTransEncoder.layers.{i}")
+    return convert_actor_agnostic(msd, num_layers), text
+
+
+def load_smplx_evaluator_ckpt(path: str, motion_module: torch.nn.Module,
+                              text_module: torch.nn.Module, num_layers: int = 4):
+    """Load the SMPL-X evaluator's reference checkpoint into the port's
+    motion and text encoders; returns their two state_dicts."""
+    motion, text = convert_smplx_evaluator(load_torch_state_dict(path), num_layers)
+    return load_into(motion_module, motion), load_into(text_module, text)
+
+
+# ------------------------------------------------------------------ CLIP
+def convert_clip_text(sd: Dict[str, np.ndarray], layers: int = 12) -> dict:
+    """OpenAI CLIP state dict -> ClipTextModel params."""
+    out = {
+        "token_embedding": {"embedding": sd["token_embedding.weight"]},
+        "positional_embedding": sd["positional_embedding"],
+        "ln_final": t_layernorm(sd, "ln_final"),
+    }
+    for i in range(layers):
+        p = f"transformer.resblocks.{i}"
+        out[f"resblock_{i}"] = {
+            "attn": t_mha(sd, f"{p}.attn"),
+            "ln_1": t_layernorm(sd, f"{p}.ln_1"),
+            "ln_2": t_layernorm(sd, f"{p}.ln_2"),
+            "mlp_fc": t_linear(sd, f"{p}.mlp.c_fc"),
+            "mlp_proj": t_linear(sd, f"{p}.mlp.c_proj"),
+        }
+    return out
+
+
+def strip_base_block_keys(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """'temporal_decoder_blocks.N.base_block.xxx' -> 'temporal_decoder_blocks.N.xxx':
+    the base model of a merged ControlNet checkpoint in the layout of a
+    base-only one.  (The JAX package's loader maps the other way, every
+    block key under base_block, and so cannot read a base-only file.)"""
+    pat = re.compile(r"^((?:model\.)?temporal_decoder_blocks\.\d+\.)base_block\.")
+    return {pat.sub(r"\1", k): v for k, v in sd.items()}
+
+
+# ----------------------------------------------------------------- STMoGen
+def t_stylization(sd, prefix):
+    """StylizationBlock: emb_layers(Sequential[SiLU, Linear]), norm,
+    out_layers(Sequential[SiLU, Dropout, Linear])."""
+    return {
+        "emb_layers": t_linear(sd, _k(prefix, "emb_layers.1")),
+        "norm": t_layernorm(sd, _k(prefix, "norm")),
+        "out_layers": {"linear": t_linear(sd, _k(prefix, "out_layers.2"))},
+    }
+
+
+def t_moe(sd, prefix):
+    """Reference MOE wrapper + tutel moe_layer -> the MOE/MoELayer tree.
+
+    tutel stores batched_fc1_w as [E, F, D] (nn.Linear convention) and
+    batched_fc2_w as [E, F, D_out]; biases are [E, 1, *].  The tree's
+    expert_w1 is [E, D, F] and expert_w2 [E, F, D], so fc1 transposes and
+    fc2 passes through; F is read from fc1_bias so the mapping holds even
+    where D == F."""
+    g = lambda n: _k(prefix, n)  # noqa: E731
+    out = {"embedding": sd[g("embedding")], "proj": t_linear(sd, g("proj"))}
+    gate_prefix = g("model.gates.0")  # the cosine gate; the port has no linear one
+    gate = {"cosine_projector": t_linear(sd, f"{gate_prefix}.cosine_projector"),
+            "sim_matrix": sd[f"{gate_prefix}.sim_matrix"],
+            "temperature": sd[f"{gate_prefix}.temperature"].reshape(1)}
+    b1 = sd[g("model.experts.batched_fc1_bias")]
+    b2 = sd[g("model.experts.batched_fc2_bias")]
+    w1 = sd[g("model.experts.batched_fc1_w")]
+    hidden = b1.reshape(b1.shape[0], -1).shape[1]
+    if (w1.shape[1] == hidden and w1.shape[2] != hidden) or w1.shape[1] == w1.shape[2]:
+        w1 = w1.transpose(0, 2, 1)  # tutel [E, F, D] -> [E, D, F]
+    out["model"] = {
+        "gate": gate,
+        "expert_w1": w1,
+        "expert_b1": b1.reshape(b1.shape[0], -1),
+        "expert_w2": sd[g("model.experts.batched_fc2_w")],
+        "expert_b2": b2.reshape(b2.shape[0], -1),
+    }
+    return out
+
+
+def t_stma(sd, prefix):
+    """STMA attention params."""
+    g = lambda n: _k(prefix, n)  # noqa: E731
+    out = {
+        "norm": t_layernorm(sd, g("norm")),
+        "text_norm": t_layernorm(sd, g("text_norm")),
+        "text_moe": t_moe(sd, g("text_moe")),
+        "motion_moe": t_moe(sd, g("motion_moe")),
+        "body_weight": sd[g("body_weight")],
+        "proj_out": t_stylization(sd, g("proj_out")),
+    }
+    if f"{g('body_d_attn')}.query.weight" in sd:
+        out["body_d_attn"] = {
+            "norm": t_layernorm(sd, g("body_d_attn.norm")),
+            "query": t_linear(sd, g("body_d_attn.query")),
+            "key": t_linear(sd, g("body_d_attn.key")),
+            "value": t_linear(sd, g("body_d_attn.value")),
+        }
+    return out
+
+
+def t_sffn(sd, prefix, num_heads):
+    """SFFN per-head Linear lists -> stacked [H, d, f] weights."""
+    g = lambda n: _k(prefix, n)  # noqa: E731
+    w1 = np.stack([sd[g(f"linear1_list.{i}.weight")].T for i in range(num_heads)])
+    b1 = np.stack([sd[g(f"linear1_list.{i}.bias")] for i in range(num_heads)])
+    w2 = np.stack([sd[g(f"linear2_list.{i}.weight")].T for i in range(num_heads)])
+    b2 = np.stack([sd[g(f"linear2_list.{i}.bias")] for i in range(num_heads)])
+    return {"w1": w1, "b1": b1, "w2": w2, "b2": b2,
+            "proj_out": t_stylization(sd, g("proj_out"))}
+
+
+def t_pose_io(sd, prefix, suffix):
+    """PoseEncoder/Decoder: one Linear per body part (the port has no
+    PatchEmbed1D, patch_size > 1)."""
+    parts = {}
+    for name in ("head", "stem", "larm", "rarm", "lleg", "rleg", "root",
+                 "trans", "face", "lhand", "rhand", "body"):
+        key = _k(prefix, f"{name}_{suffix}")
+        if f"{key}.weight" in sd:
+            parts[f"{name}_{suffix}"] = t_linear(sd, key)
+    return parts
+
+
+def convert_stmogen(sd: Dict[str, np.ndarray], num_layers: int, num_heads: int,
+                    text_num_layers: int = 2, clip_layers: int = 12) -> dict:
+    """Full STMoGenTransformer checkpoint -> flax param tree.  Accepts the
+    released mmcv checkpoints ('model.' prefixed keys from
+    MotionDiffusion)."""
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+
+    out: dict = {
+        "sequence_embedding": sd["sequence_embedding"],
+        "time_embed": {"layers_0": t_linear(sd, "time_embed.0"),
+                       "layers_2": t_linear(sd, "time_embed.2")},
+        "joint_embed": t_pose_io(sd, "joint_embed", "embed"),
+        "out": t_pose_io(sd, "out", "out"),
+    }
+    text = {"text_ln": t_layernorm(sd, "text_ln")}
+    if "text_pre_proj.weight" in sd:
+        text["text_pre_proj"] = t_linear(sd, "text_pre_proj")
+    for i in range(text_num_layers):
+        text[f"textTransEncoder_{i}"] = t_postln_layer(sd, f"textTransEncoder.layers.{i}")
+    if "clip.token_embedding.weight" in sd:
+        clip_sd = {k[len("clip."):]: v for k, v in sd.items() if k.startswith("clip.")}
+        text["clip"] = convert_clip_text(clip_sd, clip_layers)
+    out["text_enc"] = text
+
+    for i in range(num_layers):
+        p = f"temporal_decoder_blocks.{i}"
+        out[f"block_{i}"] = {
+            "ca_block": t_stma(sd, f"{p}.ca_block"),
+            "ffn": t_sffn(sd, f"{p}.ffn", num_heads),
+        }
+    return out
+
+
+def load_stmogen_ckpt(path: str, model: torch.nn.Module, num_layers: int, num_heads: int,
+                      text_num_layers: int = 2, clip_layers: int = 12
+                      ) -> Dict[str, torch.Tensor]:
+    """Load a released STMoGen .pth (base-only, or the base of a merged
+    ControlNet one) into the port's STMoGenTransformer (shape-checked,
+    ``strict=True``); returns the state_dict loaded."""
+    sd = strip_base_block_keys(load_torch_state_dict(path))
+    tree = convert_stmogen(sd, num_layers, num_heads, text_num_layers, clip_layers)
+    return load_into(model, tree)

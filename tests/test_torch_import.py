@@ -11,12 +11,13 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "motioncraft_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "tools" / "profile_torch_sample.py",
-                                        ROOT / "tools" / "profile_torch_train.py"]
+                                        ROOT / "tools" / "profile_torch_train.py",
+                                        ROOT / "tools" / "torch_test.py"]
 FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|motioncraft_tpu)(\.|\s|$)",
                        re.MULTILINE)
 
 _BLOCKED = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "motioncraft_tpu"):
     sys.modules[name] = None  # any import of these raises ImportError
 import motioncraft_tpu_torch
@@ -25,6 +26,12 @@ names = [m.name for m in pkgutil.walk_packages(motioncraft_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+spec = importlib.util.spec_from_file_location("torch_test", "tools/torch_test.py")
+torch_test = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(torch_test)
+torch_test.parse_args(["configs/tests/tiny_t2m.py"])
+for name in ("data", "eval", "utils.checkpoint", "utils.torch_convert", "apis.eval_hook"):
+    assert "motioncraft_tpu_torch." + name in names, name
 print(len(names))
 """
 

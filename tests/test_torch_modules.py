@@ -225,3 +225,28 @@ def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
 def test_cut_branches_raise(build):
     with pytest.raises(NotImplementedError):
         build()
+
+
+@pytest.mark.parametrize("dataset,dim", [("motionx", 322), ("human_ml3d", 263),
+                                         ("kit_ml", 251)])
+@pytest.mark.parametrize("side", ["encoder", "decoder"])
+def test_pose_io(dataset, dim, side):
+    """PoseEncoder / PoseDecoder of each body layout the configs use."""
+    from motioncraft_tpu.models import stmogen as jax_stmogen
+    from motioncraft_tpu_torch.models import stmogen
+
+    rng = np.random.RandomState(8)
+    L, n_parts = 8, len(stmogen.body_layout.part_slices(dataset))
+    if side == "encoder":
+        x = rng.randn(2, 5, dim).astype(np.float32)
+        flax_m = jax_stmogen.PoseEncoder(dataset_name=dataset, latent_dim=L, input_dim=dim)
+        m = stmogen.PoseEncoder(dataset_name=dataset, latent_dim=L, input_dim=dim)
+    else:
+        x = rng.randn(2, 5, (n_parts + 1) * L).astype(np.float32)
+        flax_m = jax_stmogen.PoseDecoder(dataset_name=dataset, latent_dim=L, output_dim=dim)
+        m = stmogen.PoseDecoder(dataset_name=dataset, latent_dim=L, output_dim=dim)
+    v, m = carry(flax_m, m, x)
+    want = japply(flax_m, v, x)
+    assert want.shape[-1] == ((n_parts + 1) * L if side == "encoder" else dim)
+    with torch.no_grad():
+        assert_close_scaled(m(t(x)).numpy(), want, REL, f"{side} {dataset}")

@@ -131,3 +131,136 @@ def test_single_device_test(pair):
     assert not np.allclose(res[0]["pred_motion"], res[2]["pred_motion"])
     again = single_device_test(arch_t, [batch], seed=0, device="cpu", limit=1)
     np.testing.assert_array_equal(again[0]["pred_motion"], res[0]["pred_motion"])
+
+
+def _skew_gates(node):
+    """Every cosine gate of a params tree leans to expert 0: the projector's
+    bias dominates its input and points along expert 0's column, so every
+    token picks expert 0 first and that expert overflows its capacity."""
+    for key, val in node.items():
+        if key == "gate":
+            d = val["cosine_projector"]["bias"].shape[0]
+            direction = np.random.RandomState(9).randn(d).astype(np.float32)
+            val["cosine_projector"]["bias"] = 20.0 * direction
+            val["sim_matrix"][:, 0] = direction
+        elif isinstance(val, dict):
+            _skew_gates(val)
+
+
+def _overflows(logits, k):
+    """Whether the largest expert load of one gate call exceeds the MoE's
+    capacity (ranked by logit, the lower index first on equal logits)."""
+    logits = np.asarray(logits)
+    N, E = logits.shape
+    top = np.argsort(-logits, axis=1, kind="stable")[:, :k]
+    cap = max(1, min(k * int(1.5 * ((N + E - 1) // E)), N))
+    return np.bincount(top.reshape(-1), minlength=E).max() > cap
+
+
+@pytest.mark.parametrize("dedup,hoist", [(True, True), (True, False), (False, True),
+                                         (False, False)])
+def test_cfg_switches_with_capacity_drops(dedup, hoist):
+    """cfg_layer0_dedup / text_hoist: each combination of the port's
+    forward_test equals JAX's, with every MoE call overflowing its capacity
+    on both sides (drops make dedup on and off route differently)."""
+    from flax.core import unfreeze
+    from motioncraft_tpu.models.moe import CosineTopGate as JaxGate
+    from motioncraft_tpu_torch.models.moe import CosineTopGate
+
+    flags = dict(cfg_layer0_dedup=dedup, text_hoist=hoist)
+    cfg = tiny_t2m_cfg()
+    cfg["model"] = dict(cfg["model"], **flags)
+    arch_j = build_jax(cfg)
+    batch = make_text_batch(["a person walks forward", "someone waves hello"],
+                            max_seq_len=16, lengths=np.array([[16], [11]], np.int32))
+    variables = arch_j.init(jax.random.PRNGKey(0), batch)
+    params = seeded_params(jax.tree_util.tree_map(np.asarray, unfreeze(variables["params"])), 2)
+    _skew_gates(params)
+    variables = {"params": jax.tree_util.tree_map(jnp.asarray, params)}
+    tcfg = torch_tiny_cfg()
+    tcfg["model"] = dict(tcfg["model"], **flags)
+    arch_t = build_torch(tcfg, device="cpu")
+    arch_t.model.load_state_dict(from_jax_params(params), strict=True)
+
+    rng = np.random.RandomState(4)
+    x = rng.randn(*batch["motion"].shape).astype(np.float32)
+    ts = np.full((2,), 499, np.int32)
+    capture = dict(capture_intermediates=lambda m, _: isinstance(m, JaxGate),
+                   mutable=["intermediates"])
+    xf = arch_j.encode_text(variables, batch["text_ids"])
+    tf = arch_j.model.apply(variables, xf, method="precompute_text_feats")
+    run = jax.jit(lambda v, tf_: arch_j.model.apply(
+        v, x, ts, motion_mask=batch["motion_mask"], motion_length=batch["motion_length"],
+        xf_out=xf, text_feats=tf_, mode="test", **capture))
+    want, st = run(variables, tf)
+    if hoist:  # the hoisted text MoE ran outside; in the layers its gate sees the same input
+        _, st = run(variables, None)
+    jax_logits = [v for path, v in jax.tree_util.tree_leaves_with_path(st)
+                  if "__call__" in jax.tree_util.keystr(path)]
+    assert (tf is None) == (not hoist)
+
+    torch_logits = []
+    hooks = [m.register_forward_hook(lambda mod, i, o: torch_logits.append(o.numpy()))
+             for m in arch_t.modules() if isinstance(m, CosineTopGate)]
+    with torch.no_grad():
+        xf_t = arch_t.encode_text(batch["text_ids"])
+        tf_t = arch_t.model.precompute_text_feats(xf_t)
+        got = arch_t.model(t(x), t(ts, torch.long), motion_mask=t(batch["motion_mask"]),
+                           motion_length=t(batch["motion_length"]), xf_out=xf_t,
+                           text_feats=tf_t).numpy()
+    for h in hooks:
+        h.remove()
+    assert (tf_t is None) == (not hoist)
+    # per layer: one motion MoE call and one text MoE call
+    assert len(torch_logits) == len(jax_logits) == 2 * arch_t.model.num_layers
+    assert sorted(lg.shape[0] for lg in torch_logits) == sorted(
+        lg.shape[0] for lg in jax_logits)
+    assert all(_overflows(lg, 2) for lg in torch_logits + jax_logits)
+    assert_close_scaled(got, want, REL, "forward_test")
+
+
+def test_config_with_both_switches_builds():
+    cfg = torch_tiny_cfg()
+    cfg["model"] = dict(cfg["model"], cfg_layer0_dedup=False, text_hoist=False)
+    model = build_torch(cfg, device="cpu").model
+    assert not model.cfg_layer0_dedup and not model.text_hoist
+
+
+class _Loader(list):
+    """An iterable of batches with a loader's batch size."""
+    batch_size = 3
+
+
+def test_single_device_test_pads_the_short_batch(pair):
+    """The last short batch is sampled padded to the loader's batch size
+    (its last row repeated) and the extra predictions are dropped; GT mode
+    is not padded."""
+    _, _, arch_t, batch = pair
+    full = make_text_batch(["a", "b", "c"], max_seq_len=16,
+                           lengths=np.array([[16], [9], [12]], np.int32))
+    seen = []
+    sample = arch_t.sample
+
+    def spy(b, **kw):
+        seen.append({k: np.asarray(v) for k, v in b.items()})
+        return sample(b, **kw)
+
+    arch_t.sample = spy
+    try:
+        res = single_device_test(arch_t, _Loader([full, batch]), seed=0, device="cpu")
+    finally:
+        del arch_t.sample
+    assert [s["motion"].shape[0] for s in seen] == [3, 3] and len(res) == 5
+    short = seen[1]
+    for k, v in batch.items():
+        np.testing.assert_array_equal(short[k][:2], v)
+        np.testing.assert_array_equal(short[k][2], v[-1])
+    # the kept predictions are those of the padded batch's first rows
+    g = torch.Generator().manual_seed(0)
+    arch_t.sample(full, generator=g)
+    want = arch_t.sample(short, generator=g)[:2].numpy()
+    np.testing.assert_array_equal(np.stack([r["pred_motion"] for r in res[3:]]), want)
+    gt = build_torch(dict(torch_tiny_cfg(), inference_type="gt"), device="cpu")
+    res = single_device_test(gt, _Loader([full, batch]), device="cpu")
+    np.testing.assert_array_equal(np.stack([r["pred_motion"] for r in res[3:]]),
+                                  batch["motion"])

@@ -367,7 +367,7 @@ def test_train_model_loss_falls():
 
 def test_train_model_cut_options_raise():
     arch = build_torch(tiny_t2m_cfg(), device="cpu")
-    for kw in (dict(mesh=object()), dict(resume_dir="x"), dict(fp16={})):
+    for kw in (dict(mesh=object()), dict(fp16={})):
         with pytest.raises(NotImplementedError):
             train_model(arch, [make_train_batch(2, max_seq_len=16)], **kw)
     with pytest.raises(NotImplementedError):
