@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship text-to-motion sampling and training on
-one NVIDIA GPU and hold each of its CUDA kernels against its plain PyTorch
-version.
+"""Drive the PyTorch port's flagship text-to-motion sampling, training and
+evaluation and its music-to-dance long-form evaluation on one NVIDIA GPU, and
+hold each of its CUDA kernels against its plain PyTorch version.
 
 Run from the root of the repository, on a machine with one card and the CUDA
 toolkit:
@@ -12,17 +12,23 @@ Phases; any failure exits non-zero:
   1. the card's name and power limit; build the kernels from
      motioncraft_tpu_torch/csrc/ with nvcc for sm_90a
   2. each kernel against its plain version on the same inputs, at every
-     shape of phase 4 (K1-K4's route) and of phase 7 (K4's positions, K5,
-     K6, at B = 32): max abs error against its tolerance (K4 exact in its
-     integers, its route's gates within 1e-6; a route case leaning to one
-     expert must drop choices); the kernel's device time from torch.profiler
+     shape of phase 4 (K1-K4's route; K1 and K4 also at layer 0, whose
+     motion MoE routes one CFG half), of phase 7 (K4's positions, K5, K6,
+     at B = 32) and of phase 10 (K1-K4 at the M2D shapes: a CFG-doubled
+     batch of 2 x 120 frames for one recording and 8 x 120 for 4 in
+     lockstep, and layer 0's half of each): max abs error against its
+     tolerance (K4 exact in its
+     integers, its route's gates within 1e-6; on every path a route case
+     leaning to one expert must drop choices); the kernel's device time from
+     torch.profiler
      (ms: its kernels' own durations, which a back-to-back timing of a
      kernel of a few microseconds does not give, the host issuing the calls
      slower than the card runs them), and from CUDA events the time of a
      back-to-back call (call_ms) and of the plain version;
      the least time the card could take (bound_ms: f32 products in 3xTF32
      on the tensor cores, which K1-K3, K5 and K6 run; K4's work on the CUDA
-     cores), and the f32 bound on the CUDA cores as a second note
+     cores; K1's work is the rows that carry a choice, not the padding of
+     each expert's group), and the f32 bound on the CUDA cores as a second note
      (bound_f32_ms); how many of K3's clusters fit on the card at once
   3. the flagship MotionDiffusion (configs/stmogen/t2m_motionx_0_125b.py) on
      the card, with seeded fabricated weights
@@ -55,7 +61,24 @@ Phases; any failure exits non-zero:
      batches imply, GT mode on the same tree gives FID <= 1e-3, and the
      evaluator's embeddings on the card agree with the CPU's; wall seconds of
      sampling and of evaluation, samples per second
- 10. one JSON line of the kernels' numbers, and last the device line
+ 10. the M2D long-form evaluation through tools/torch_m2d_test.py on
+     configs/stmogen/m2d_finedance_0125b.py (the ControlNet over the
+     flagship base, 2 control blocks, 163-d music): seeded fabricated
+     weights saved and loaded back by --checkpoint, a synthetic FineDance
+     tree of 4 cross-genre test tracks of 360 + 300 frames (3 windows of
+     120 overlapping by 30 after the head trim), sampled at R = 1 and at
+     --recording-batch 4: window 0 DDIM-50, each later window RePaint's
+     harmonized DDIM (84 steps, 57 denoiser calls); per-window wall ms,
+     windows per minute, the sampling share; K1-K4's launches equal the
+     count the code implies; metrics.json carries tools/m2d_test.py's keys;
+     windowed_sample_batch at R = 1 equals windowed_sample bit for bit on
+     the card with the same draws, and neither waits for the device inside
+     its window loop (CUDA sync debug mode); one ControlNet CFG forward
+     (c on, 2 x 120) and one whole outpainted window at R = 1 and at R = 4
+     (the condition encoded once for the batch, as windowed_sample_batch
+     encodes a chunk's), card against CPU with the gate logits pinned as in
+     phase 6 and the same draws
+ 11. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -71,6 +94,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "stmogen", "t2m_motionx_0_125b.py")
+M2D_CONFIG = os.path.join(ROOT, "configs", "stmogen", "m2d_finedance_0125b.py")
 F32_PEAK = 67e12      # H100 SXM CUDA-core f32, FLOP/s
 TF32_PEAK = 495e12    # H100 SXM dense TF32 tensor cores, FLOP/s; 3xTF32 takes 3 passes
 HBM_PEAK = 3.35e12    # H100 SXM device memory, bytes/s
@@ -87,6 +111,11 @@ BATCH, BATCHES, SEED = 16, 2, 0
 TRAIN_BATCH, TRAIN_STEPS = 32, 4  # 1 warm-up + 3 timed
 EVAL_CLIPS = 320        # one replication; the Diversity metric draws 300 samples
 GT_FID_TOL = 1e-3
+# phase 10: 4 FineDance test tracks of the cross-genre split, 360 frames
+# trimmed + 300 kept: 3 windows of 120 overlapping by 30 (a window costs
+# the same at any track length; 1290 frames, 14 windows, keep phase 10
+# over two minutes)
+M2D_TRACKS, M2D_FRAMES, M2D_REC_BATCH = ["063", "132", "143", "036"], 300, 4
 
 PALLAS = {
     "moe_route": "motioncraft_tpu/ops/pallas_moe.py:54",
@@ -158,16 +187,29 @@ def bound(flops, nbytes, peak):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def flagship_inputs(torch, cfg, dev):
+class FfnArgs(tuple):
+    """grouped_ffn's arguments, and ``kept``: how many of xs's rows carry a
+    choice (the others pad each expert's group to BLOCK rows)."""
+
+    def __new__(cls, args, kept):
+        self = super().__new__(cls, args)
+        self.kept = kept
+        return self
+
+
+def flagship_inputs(torch, cfg, dev, B2=2 * BATCH, T=None, training=True, layer0=False):
     """Inputs of every kernel at the shapes the phase-4 batches (K1, K2, K3,
-    K4's route) and the phase-7 training steps (K4's positions, K5, K6) give
-    them."""
+    K4's route: B2 CFG-doubled rows of T frames) and, with ``training``, the
+    phase-7 training steps (K4's positions, K5, K6) give them.  With
+    ``layer0``, K1's and K4's route at layer 0, whose motion MoE routes
+    one CFG half (cfg_layer0_dedup)."""
     from motioncraft_tpu_torch.ops.moe_ffn import BLOCK
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     m = cfg["model"]
     ca = m["ca_block_cfg"]
-    B2, T, H, L = 2 * BATCH, m["max_seq_len"], ca["num_heads"], ca["latent_dim"]
+    T = T or m["max_seq_len"]
+    H, L = ca["num_heads"], ca["latent_dim"]
     E, K, TXT = ca["num_experts"], ca["topk"], ca["max_text_seq_len"]
     f = m["ffn_cfg"]["ffn_dim"]
     r = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
@@ -182,8 +224,8 @@ def flagship_inputs(torch, cfg, dev):
         starts = torch.arange(M // BLOCK, device=dev) * BLOCK
         be = torch.searchsorted(torch.cumsum(aligned, 0), starts, right=True)
         be = be.clamp(max=E - 1).to(torch.int32)
-        ffn = (be, r(M, d), r(E, d, hid) / math.sqrt(d), r(E, hid) * 0.1,
-               r(E, hid, d) / math.sqrt(hid))
+        ffn = FfnArgs((be, r(M, d), r(E, d, hid) / math.sqrt(d), r(E, hid) * 0.1,
+                       r(E, hid, d) / math.sqrt(hid)), kept=int(fill.sum()))
         return (ids, E), ffn
 
     def route_case(n_tokens, skew=0.0):
@@ -191,12 +233,25 @@ def flagship_inputs(torch, cfg, dev):
         logits[:, 0] += skew  # every token leans to expert 0: it overflows
         return logits, K, K * int(1.5 * ((n_tokens + E - 1) // E)), BLOCK
 
+    if layer0:
+        n = B2 // 2 * T * H
+        return {"moe_route": [route_case(n), route_case(n, skew=3.0)],
+                "grouped_ffn": [moe_case(n, L, 4 * L)[1]]}
     pos_motion, ffn_motion = moe_case(B2 * T * H, L, 4 * L)
     pos_text, ffn_text = moe_case(B2 * TXT, ca["text_latent_dim"], 4 * ca["text_latent_dim"])
     route = [route_case(B2 * T * H), route_case(B2 * T * H, skew=3.0), route_case(B2 * TXT)]
     lengths = torch.randint(min(40, T), T + 1, (B2,), generator=g, device=dev)
     mask = (torch.arange(T, device=dev)[None] < lengths[:, None]).float()[..., None]
     tcond = torch.cat([torch.ones(B2 // 2), torch.zeros(B2 // 2)]).to(dev).reshape(B2, 1, 1)
+    sampling = {
+        "moe_route": route,
+        "grouped_ffn": [ffn_motion, ffn_text],
+        "head_ffn": [(r(B2 * T, H * L), r(H, L, f) / math.sqrt(L), r(H, f) * 0.1,
+                      r(H, f, L) / math.sqrt(f), r(H, L) * 0.1)],
+        "stma_linear_attention": [(r(B2, T, H, 4 * L), r(B2, TXT, 2 * L), mask, tcond)],
+    }
+    if not training:
+        return sampling
 
     # training at B = 32: STMA's global attention over 77 text + T motion
     # keys (masked past each length, text off for 1 in 10), and the slot
@@ -223,13 +278,26 @@ def flagship_inputs(torch, cfg, dev):
         "fused_expert_ffn": [slots_case(Bt * T * H, L, 4 * L),
                              slots_case(Bt * TXT, ca["text_latent_dim"],
                                         4 * ca["text_latent_dim"])],
-        "moe_route": route,
         "moe_positions": [pos_motion, pos_text],
-        "grouped_ffn": [ffn_motion, ffn_text],
-        "head_ffn": [(r(B2 * T, H * L), r(H, L, f) / math.sqrt(L), r(H, f) * 0.1,
-                      r(H, f, L) / math.sqrt(f), r(H, L) * 0.1)],
-        "stma_linear_attention": [(r(B2, T, H, 4 * L), r(B2, TXT, 2 * L), mask, tcond)],
+        **sampling,
     }
+
+
+def kernel_paths(torch, cfg, m2d_cfg, dev):
+    """(path, inputs) for phase 2: the T2M shapes (with training's) and the
+    M2D ones; R recordings in lockstep are a CFG-doubled batch of 2R x 120
+    frames (the base blocks past layer 0 and the control blocks), and layer
+    0's motion MoE routes its first half."""
+    base = {"model": m2d_cfg["model"]["model"]["base_model"]}
+    win = m2d_cfg["windowed"]["window"]
+    paths = [("t2m", flagship_inputs(torch, cfg, dev)),
+             ("t2m layer 0", flagship_inputs(torch, cfg, dev, training=False, layer0=True))]
+    for R in (1, M2D_REC_BATCH):
+        paths += [(f"m2d R={R}", flagship_inputs(torch, base, dev, B2=2 * R, T=win,
+                                                 training=False)),
+                  (f"m2d R={R} layer 0", flagship_inputs(torch, base, dev, B2=2 * R, T=win,
+                                                         training=False, layer0=True))]
+    return paths
 
 
 def kernel_work(name, args):
@@ -248,10 +316,12 @@ def kernel_work(name, args):
         # logits in, gates, r, ge, token_for_rank, block_expert, counts out
         return N * E * (4 + K), 4 * (2 * N * E + 2 * N * K + M + M // block + E)
     if name == "grouped_ffn":
+        # the rows that carry a choice; the padding of each expert's group
+        # to BLOCK rows is the kernel's layout, not the function's work
         be, xs, w1, b1, w2 = args
-        (m_pad, d), hid = xs.shape, w1.shape[2]
-        nbytes = 4 * (2 * xs.numel() + be.numel() + w1.numel() + b1.numel() + w2.numel())
-        return 4 * m_pad * d * hid, nbytes
+        n, d, hid = args.kept, xs.shape[1], w1.shape[2]
+        nbytes = 4 * (2 * n * d + be.numel() + w1.numel() + b1.numel() + w2.numel())
+        return 4 * n * d * hid, nbytes
     if name == "head_ffn":
         x, w1, b1, w2, b2 = args
         n, hd = x.shape
@@ -279,8 +349,9 @@ def kernel_work(name, args):
     return flops, nbytes
 
 
-def phase_kernels(torch, cfg, dev):
-    """Phase 2: every kernel against its plain version, with times."""
+def phase_kernels(torch, cfg, m2d_cfg, dev):
+    """Phase 2: every kernel against its plain version, with times, at the
+    T2M shapes and at the M2D ones."""
     from motioncraft_tpu_torch.ops import KERNELS
     from motioncraft_tpu_torch.ops.stma_attention import max_active_clusters
 
@@ -288,54 +359,63 @@ def phase_kernels(torch, cfg, dev):
           f"CTAs resident at once (cudaOccupancyMaxActiveClusters)")
 
     rows = {}
-    for name, cases in flagship_inputs(torch, cfg, dev).items():
-        wrapper, plain = KERNELS[name]
-        for i, args in enumerate(cases):
-            got, want = wrapper(*args), plain(*args)
-            torch.cuda.synchronize()
-            if name == "moe_route":
-                err = max(float((a - b).abs().max()) for a, b in zip(got, want)
-                          if a.dtype == torch.float32)
-                ints = [f for f, a, b in zip(got._fields, got, want)
-                        if a.dtype != torch.float32 and not torch.equal(a, b)]
-                ok, tol = err <= GATE_ATOL and not ints, f"{GATE_ATOL}; integers exact"
-                dropped = int((got.r == got.token_for_rank.numel()).sum())
-                print(f"[kernel] {name} case {i}: {dropped} of {got.r.numel()} choices "
-                      f"dropped; integer outputs that differ: {ints}")
-                check(dropped > 0 or i != 1, "the skewed route case dropped nothing")
-            elif name == "moe_positions":
-                err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-                ok, tol = err == 0, "exact"
-            else:
-                err = float((got - want).abs().max())
-                scale = float(want.abs().max())
-                ok, tol = err <= KERNEL_REL_TOL * scale, f"{KERNEL_REL_TOL} x {scale:.4g}"
-            shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
-            print(f"[kernel] {name} case {i} {shapes}: max_abs_err {err:.3e} (tol {tol})")
-            check(ok, f"{name} disagrees with its plain version: {err} (tol {tol})")
-            ms = device_ms(torch, lambda: wrapper(*args))
-            call_ms = time_ms(torch, lambda: wrapper(*args))
-            plain_ms = time_ms(torch, lambda: plain(*args))
-            flops, nbytes = kernel_work(name, args)
-            if name in ("moe_positions", "moe_route"):  # on the CUDA cores only
-                bound_ms, bound_by = f32_ms, f32_by = bound(flops, nbytes, F32_PEAK)
-            else:  # f32 products: 3xTF32 on the tensor cores is the fastest exact way
-                bound_ms, bound_by = bound(3 * flops, nbytes, TF32_PEAK)
-                f32_ms, f32_by = bound(flops, nbytes, F32_PEAK)
-            print(f"[kernel] {name} case {i}: {ms:.4f} ms on the device ({call_ms:.4f} ms a "
-                  f"back-to-back call), plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by}, share {bound_ms / ms:.3f}); "
-                  f"f32 CUDA-core bound {f32_ms:.4f} ms ({f32_by}, share {f32_ms / ms:.3f})")
-            case = {"shape": shapes, "ms": ms, "call_ms": call_ms, "bound_ms": bound_ms}
-            if i:  # the row's own numbers are the first (dominant) case's
-                rows[name]["cases"].append(case)
-                continue
-            rows[name] = {"name": name, "route": "cuda", "source": SOURCES[name],
-                          "replaces": PALLAS[name], "max_abs_err": err, "ms": ms,
-                          "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                          "bound_by": bound_by, "bound_f32_ms": f32_ms,
-                          "bound_f32_by": f32_by, "library_ms": None, "cases": [case]}
+    for path, inputs in kernel_paths(torch, cfg, m2d_cfg, dev):
+        for name, cases in inputs.items():
+            for i, args in enumerate(cases):
+                kernel_case(torch, rows, path, name, i, args, KERNELS[name])
     return rows
+
+
+def kernel_case(torch, rows, path, name, i, args, fns):
+    """One phase-2 case: check it, time it and add it to its kernel's row."""
+    wrapper, plain = fns
+    got, want = wrapper(*args), plain(*args)
+    torch.cuda.synchronize()
+    label = f"{name} {path} case {i}"
+    if name == "moe_route":
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want)
+                  if a.dtype == torch.float32)
+        ints = [f for f, a, b in zip(got._fields, got, want)
+                if a.dtype != torch.float32 and not torch.equal(a, b)]
+        ok, tol = err <= GATE_ATOL and not ints, f"{GATE_ATOL}; integers exact"
+        dropped = int((got.r == got.token_for_rank.numel()).sum())
+        print(f"[kernel] {label}: {dropped} of {got.r.numel()} choices "
+              f"dropped; integer outputs that differ: {ints}")
+        check(dropped > 0 or i != 1, f"the skewed route case ({label}) dropped nothing")
+    elif name == "moe_positions":
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        ok, tol = err == 0, "exact"
+    else:
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        ok, tol = err <= KERNEL_REL_TOL * scale, f"{KERNEL_REL_TOL} x {scale:.4g}"
+    shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
+    kept = f"; {args.kept} of {shapes[1][0]} rows carry a choice" if name == "grouped_ffn" else ""
+    print(f"[kernel] {label} {shapes}: max_abs_err {err:.3e} (tol {tol}){kept}")
+    check(ok, f"{label} disagrees with its plain version: {err} (tol {tol})")
+    ms = device_ms(torch, lambda: wrapper(*args))
+    call_ms = time_ms(torch, lambda: wrapper(*args))
+    plain_ms = time_ms(torch, lambda: plain(*args))
+    flops, nbytes = kernel_work(name, args)
+    if name in ("moe_positions", "moe_route"):  # on the CUDA cores only
+        bound_ms, bound_by = f32_ms, f32_by = bound(flops, nbytes, F32_PEAK)
+    else:  # f32 products: 3xTF32 on the tensor cores is the fastest exact way
+        bound_ms, bound_by = bound(3 * flops, nbytes, TF32_PEAK)
+        f32_ms, f32_by = bound(flops, nbytes, F32_PEAK)
+    print(f"[kernel] {label}: {ms:.4f} ms on the device ({call_ms:.4f} ms a "
+          f"back-to-back call), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}, share {bound_ms / ms:.3f}); "
+          f"f32 CUDA-core bound {f32_ms:.4f} ms ({f32_by}, share {f32_ms / ms:.3f})")
+    case = {"path": path, "shape": shapes, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "max_abs_err": err}
+    if name in rows:  # the row's own numbers are the first (the T2M) case's
+        rows[name]["cases"].append(case)
+        return
+    rows[name] = {"name": name, "route": "cuda", "source": SOURCES[name],
+                  "replaces": PALLAS[name], "max_abs_err": err, "ms": ms,
+                  "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "bound_f32_ms": f32_ms,
+                  "bound_f32_by": f32_by, "library_ms": None, "cases": [case]}
 
 
 def requests(num, seed, T):
@@ -608,11 +688,12 @@ def write_motionx_tree(root, n, T, seed):
         f.write("\n".join(names) + "\n")
 
 
-def load_torch_test():
+def load_tool(name):
+    """tools/<name>.py as a module."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_test", os.path.join(ROOT, "tools", "torch_test.py"))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tools",
+                                                                     name + ".py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -630,7 +711,7 @@ def phase_eval(torch, full_cfg, sd, dev="cuda", config=CONFIG, clips=EVAL_CLIPS)
     from motioncraft_tpu_torch.utils.checkpoint import save_params
     from motioncraft_tpu_torch.utils.convert import to_jax_params
 
-    torch_test = load_torch_test()
+    torch_test = load_tool("torch_test")
     cfg = full_cfg["model"]
     T = cfg["model"]["max_seq_len"]
     ev_cfg = {k: v for k, v in full_cfg["data"]["test"]["eval_cfg"]["evaluator_model"].items()
@@ -730,6 +811,250 @@ def phase_eval(torch, full_cfg, sd, dev="cuda", config=CONFIG, clips=EVAL_CLIPS)
     return counts
 
 
+def write_finedance_tree(root, names, frames, seed):
+    """A synthetic FineDance tree in tools/make_tiny_data.py's layout:
+    datasets/finedance/{motion_fea163/<name>.npy [360 + frames, 319],
+    music_npy/<name>.npy [360 + frames, 163], label_json/<name>.json}."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    d = os.path.join(root, "datasets", "finedance")
+    for sub in ("motion_fea163", "music_npy", "label_json"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    styles = ["Jazz", "Hiphop", "Breaking", "Locking", "Popping", "Dai"]
+    for i, name in enumerate(names):
+        n = 360 + frames
+        np.save(os.path.join(d, "motion_fea163", name + ".npy"),
+                (rng.randn(n, 319) * 0.3).astype(np.float32))
+        np.save(os.path.join(d, "music_npy", name + ".npy"),
+                rng.randn(n, 163).astype(np.float32))
+        with open(os.path.join(d, "label_json", name + ".json"), "w") as f:
+            json.dump({"name": f"song{name}", "style1": styles[i % len(styles)],
+                       "style2": styles[(i + 2) % len(styles)]}, f)
+
+
+def count_syncs(torch, fn):
+    """(fn's result, the places where it waited for the device): CUDA sync
+    debug mode warns at every synchronising call."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{os.path.basename(w.filename)}:{w.lineno}" for w in seen
+                 if "synchroniz" in str(w.message)]
+
+
+def phase_m2d(torch, full_cfg, dev="cuda", config=M2D_CONFIG, tracks=M2D_TRACKS,
+              frames=M2D_FRAMES):
+    """Phase 10: the M2D long-form evaluation of tools/torch_m2d_test.py on
+    ``config`` (whose content ``full_cfg`` is), at R = 1 and at R =
+    M2D_REC_BATCH, with checks."""
+    import tempfile
+
+    import numpy as np
+    from motioncraft_tpu_torch.apis.windowed import (num_windows, windowed_sample,
+                                                     windowed_sample_batch)
+    from motioncraft_tpu_torch.diffusion import (RepaintConfig, generator_randn,
+                                                 harmonize_schedule)
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.checkpoint import save_params
+    from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
+
+    tool = load_tool("torch_m2d_test")
+    cfg = full_cfg["model"]
+    window, pre = full_cfg["windowed"]["window"], full_cfg["windowed"]["pre_frames"]
+    t_phase = time.perf_counter()
+    arch = build_architecture(cfg, device=dev)
+    sd = fabricate_state_dict(arch.model, seed=SEED)
+    arch.model.load_state_dict(sd, strict=True)
+    model = arch.model
+    print(f"[m2d] {type(model).__name__}: {model.num_layers} base layers + "
+          f"{model.copy_blocks_num} control blocks, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters")
+    # per sampling call: the text MoE of every base and control layer once,
+    # then per denoiser call each layer's motion MoE, SFFN and attention
+    layers = model.num_layers + model.copy_blocks_num
+    steps = arch.diffusion_test.num_timesteps
+    rp = RepaintConfig(overlap_len=pre)
+    outpaint_calls = sum(d for _, d in harmonize_schedule(steps, rp))
+    wins = num_windows(frames, window, pre)
+    calls = steps + (wins - 1) * outpaint_calls  # denoiser calls a track
+
+    def want_counts(groups):
+        per = {"moe_route": groups * layers * (calls + wins),
+               "grouped_ffn": groups * layers * (calls + wins),
+               "head_ffn": groups * layers * calls,
+               "stma_linear_attention": groups * layers * calls}
+        return {k: per.get(k, 0) for k in launch_counts()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tree = os.path.join(tmp, "data")
+        write_finedance_tree(tree, tracks, frames, SEED)
+        params = os.path.join(tmp, "params.npz")
+        save_params(params, model)
+        print(f"[m2d] {len(tracks)} tracks of 360 + {frames} frames and the weights "
+              f"({os.path.getsize(params) / 2**20:.0f} MiB) written in "
+              f"{time.perf_counter() - t0:.1f} s; {wins} windows a track, "
+              f"{calls} denoiser calls ({steps} + {wins - 1} x {outpaint_calls})")
+        runs = {}
+        for R in (1, M2D_REC_BATCH):
+            argv = [config, "--device", dev, "--checkpoint", params, "--seed", str(SEED),
+                    "--work-dir", os.path.join(tmp, f"R{R}"), "--recording-batch", str(R),
+                    "--cfg-options", f"data.test.data_prefix={tree}"]
+            reset_launch_counts()
+            run = tool.main(argv)
+            counts = launch_counts()
+            out = run["out"]
+            groups = -(-len(tracks) // R)
+            n_win = run["windows"] * R  # track windows sampled
+            print(f"[m2d] R={R}: {run['windows']} window batches ({n_win} track windows) in "
+                  f"{run['sample_s']:.3f} s: {run['sample_s'] / run['windows'] * 1e3:.1f} ms "
+                  f"a window batch, {n_win * 60 / run['sample_s']:.1f} windows per minute; "
+                  f"evaluation {run['eval_s']:.3f} s, sampling share "
+                  f"{run['sample_s'] / (run['sample_s'] + run['eval_s']):.3f}; launches {counts}")
+            metric = {k: v for k, v in out.items() if k not in ("flags", "protocol")}
+            print(f"[m2d] R={R} metrics {json.dumps(metric)}; flags {json.dumps(out['flags'])}")
+            check(set(out) == {"FID_whole", "FID_hands", "Diversity", "protocol", "flags"}
+                  and set(out["flags"]) == {"untrained_evaluator", "hash_tokenizer",
+                                            "int8_weights", "step_cache"},
+                  f"metrics.json keys {sorted(out)} / {sorted(out['flags'])}")
+            check(all(np.isfinite(v) for v in metric.values()), f"non-finite metrics {metric}")
+            check(len(run["preds"]) == len(tracks)
+                  and all(p.shape == (frames, 322) and np.isfinite(p).all()
+                          for p in run["preds"]), "predictions of the wrong shape or not finite")
+            want = want_counts(groups)
+            check(counts == want, f"R={R} launch counts {counts} != expected {want}")
+            runs[R] = {"counts": counts, "sample_s": run["sample_s"], "eval_s": run["eval_s"],
+                       "windows": run["windows"]}
+            infos = run["infos"]
+            del run
+
+    # windowed_sample_batch at R = 1 against windowed_sample, same draws,
+    # over the first windows of one track; neither waits for the device in
+    # its window loop (the one wait is the copy of the result)
+    arch.repaint_cfg = rp
+    music = infos[0]["c"]
+    short = window + 2 * (window - pre)
+    mwb = tool.make_window_batch_fn(music, infos[0]["text"][0], window)
+    kw = dict(window=window, pre_frames=pre, repaint=rp)
+    outs = {}
+    for label, fn in (("single", lambda r: windowed_sample(arch, mwb, total_frames=short,
+                                                           randn=r, **kw)),
+                      ("batch", lambda r: windowed_sample_batch(
+                          arch, [mwb], [short], randn=r, precompute_condition=False,
+                          **kw)[0])):
+        randn = generator_randn(torch.Generator(device=dev).manual_seed(SEED + 11), dev)
+        outs[label], syncs = count_syncs(torch, lambda: fn(randn))
+        print(f"[m2d] {label} sampler, {num_windows(short, window, pre)} windows: "
+              f"{len(syncs)} waits for the device {syncs}")
+        check(len(syncs) <= 1, f"the {label} window loop waits for the device: {syncs}")
+    check(np.array_equal(outs["single"], outs["batch"]),
+          "windowed_sample_batch (R = 1) differs from windowed_sample")
+    print("[m2d] windowed_sample_batch at R = 1 equals windowed_sample bit for bit")
+
+    phase_m2d_parity(torch, cfg, arch, sd, infos, window, pre, tool)
+    print(f"[m2d] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+def phase_m2d_parity(torch, cfg, arch, sd, infos, window, pre, tool):
+    """Phase 10's card vs CPU, the CPU's MoE gates fed the card's gate
+    logits (as phase 6), both devices on the same draws: one ControlNet CFG
+    forward (c on, one recording), then one whole outpainted window (window
+    1 of its track, outpainted from a seeded previous window) at R = 1 and
+    at R = M2D_REC_BATCH in lockstep, the latter's condition encoded once
+    for the batch as windowed_sample_batch encodes a chunk's (``c_enc``)."""
+    from motioncraft_tpu_torch.apis.windowed import _concat_parts
+    from motioncraft_tpu_torch.diffusion import Outpainting, Replay, harmonize_schedule
+    from motioncraft_tpu_torch.models.moe import CosineTopGate
+    from motioncraft_tpu_torch.registry import build_architecture
+
+    cpu = build_architecture(cfg, device="cpu")
+    cpu.model.load_state_dict(sd, strict=True)
+    cpu.repaint_cfg = arch.repaint_cfg
+    g = torch.Generator().manual_seed(SEED + 12)
+    card_logits, replayed = [], []
+
+    def record(mod, inp, out):
+        card_logits.append(out.cpu())
+
+    def replay(mod, inp, out):
+        want = card_logits[len(replayed)]
+        replayed.append(out)
+        return want
+
+    def compare(what, fn):
+        """fn(arch) on the card, then on the CPU; the results within tol."""
+        outs, pinned = {}, len(card_logits)
+        for label, a, hook in (("cuda", arch, record), ("cpu", cpu, replay)):
+            handles = [m.register_forward_hook(hook) for m in a.modules()
+                       if isinstance(m, CosineTopGate)]
+            try:
+                with torch.no_grad():
+                    outs[label] = fn(a).cpu()
+            finally:
+                for h in handles:
+                    h.remove()
+        check(len(replayed) == len(card_logits) > pinned, "gate calls differ between devices")
+        got, want = outs["cuda"], outs["cpu"]
+        check(got.shape == want.shape and torch.isfinite(got).all(), f"{what}: {got.shape}")
+        scale = max(1.0, float(want.abs().max()))
+        diff = float((got - want).abs().max())
+        print(f"[m2d-parity] {what}: card vs CPU max abs diff {diff:.3e} "
+              f"(tol {MODEL_REL_TOL} x {scale:.4g}; {len(card_logits) - pinned} gate "
+              f"calls pinned)")
+        check(diff <= MODEL_REL_TOL * scale, f"{what} card vs CPU: {diff} > tol")
+
+    def window_batch(R, w):
+        mwbs = [tool.make_window_batch_fn(i["c"], i["text"][0], window) for i in infos[:R]]
+        start = w * (window - pre)
+        return {k: torch.as_tensor(v) for k, v in
+                _concat_parts([m(start, start + window) for m in mwbs]).items()}
+
+    batch = window_batch(1, 0)
+    x = torch.randn(1, window, 322, generator=g)
+
+    def forward(a):
+        b = {k: v.to(a.device) for k, v in batch.items()}
+        xf = a.encode_text(b["text_ids"])
+        return a.model(x.to(a.device), torch.full((1,), 499, device=a.device),
+                       motion_mask=b["motion_mask"], xf_out=xf,
+                       text_feats=a.model.precompute_text_feats(xf), c=b["c"])
+
+    compare(f"ControlNet CFG forward, 2 x {window}, c on", forward)
+
+    # a window's draws: its noise, then one a step (57 outpainting and 27
+    # re-noising ones at DDIM-50)
+    steps = len(harmonize_schedule(arch.diffusion_test.num_timesteps, arch.repaint_cfg))
+    mask = (torch.arange(window) < pre).reshape(1, window, 1)
+    for R in (1, M2D_REC_BATCH):
+        batch_r = window_batch(R, 1)
+        last = torch.randn(R, window, 322, generator=g)
+        gt = torch.cat([last[:, -pre:], torch.zeros(R, window - pre, 322)], dim=1)
+        draws = [torch.randn(R, window, 322, generator=g) for _ in range(1 + steps)]
+
+        def outpaint(a):
+            b = {k: v.to(a.device) for k, v in batch_r.items()}
+            if R > 1:
+                b["c_enc"] = a.model.encode_condition(b.pop("c"), window)
+            source = Replay(draws, a.device)
+            out = a.sample(b, randn=source, outpainting=Outpainting(
+                mask=mask.to(a.device), gt=gt.to(a.device)))
+            check(source.done(), f"the window took {source.used} of {len(draws)} draws")
+            return out
+
+        compare(f"outpainted window, R = {R} ({2 * R} x {window}), {steps} RePaint steps"
+                + (", condition encoded for the batch" if R > 1 else ""), outpaint)
+
+
 def main():
     try:
         import torch
@@ -747,9 +1072,10 @@ def main():
     except ImportError as e:
         print(f"chip_smoke: the port is not next to this script ({e})", file=sys.stderr)
         return 2
-    if not os.path.isfile(CONFIG):
-        print(f"chip_smoke: missing {CONFIG}", file=sys.stderr)
-        return 2
+    for path in (CONFIG, M2D_CONFIG):
+        if not os.path.isfile(path):
+            print(f"chip_smoke: missing {path}", file=sys.stderr)
+            return 2
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -761,9 +1087,10 @@ def main():
     print(f"[build] kernels built in {seconds:.1f} s into {_build.BUILD_DIR}")
 
     full_cfg = Config.fromfile(CONFIG)
+    m2d_cfg = Config.fromfile(M2D_CONFIG)
     cfg = full_cfg["model"]
     dev = torch.device("cuda")
-    rows = phase_kernels(torch, cfg, dev)
+    rows = phase_kernels(torch, cfg, m2d_cfg, dev)
 
     t0 = time.perf_counter()
     arch = build_architecture(cfg, device="cuda")
@@ -778,13 +1105,15 @@ def main():
     del arch
     phase_train_parity(torch, cfg, sd)
     eval_counts = phase_eval(torch, full_cfg, sd)
+    m2d = phase_m2d(torch, m2d_cfg)
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
         # K4's route, training for K4's positions, K5 and K6; and on the
-        # evaluation path of phase 9
+        # evaluation paths of phase 9 and of phase 10 (R = 1, then R = 4)
         row["launches"] = counts[name] or train_counts[name]
         row["eval_launches"] = eval_counts[name]
+        row["m2d_launches"] = [m2d[R]["counts"][name] for R in sorted(m2d)]
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

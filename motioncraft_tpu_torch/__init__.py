@@ -7,12 +7,13 @@ JAX and nothing of ``motioncraft_tpu``.
 
 Layer map:
   config/registry  -> motioncraft_tpu_torch.config / .registry
-  diffusion        -> motioncraft_tpu_torch.diffusion (DDIM sampling loop,
-                      training targets, timestep samplers)
+  diffusion        -> motioncraft_tpu_torch.diffusion (DDIM and RePaint
+                      sampling loops, training targets, timestep samplers)
   denoiser         -> motioncraft_tpu_torch.models
   kernels          -> motioncraft_tpu_torch.ops (wrappers) + csrc/ (CUDA)
   optimizer state  -> motioncraft_tpu_torch.parallel
-  test/train API   -> motioncraft_tpu_torch.apis (+ the eval hook)
+  test/train API   -> motioncraft_tpu_torch.apis (+ the eval hook, the
+                      windowed long-form sampler)
   data             -> motioncraft_tpu_torch.data (datasets, pipelines, loader)
   evaluation       -> motioncraft_tpu_torch.eval (evaluator model, metrics)
   checkpoints      -> motioncraft_tpu_torch.utils (convert, torch_convert,
@@ -20,7 +21,10 @@ Layer map:
 
 Slices ported so far, for STMoGen (``configs/stmogen/t2m_motionx_0_125b.py``):
 text-to-motion DDIM sampling with classifier-free guidance, training on one
-device, checkpoint I/O and the T2M protocol evaluation (tools/torch_test.py).
+device, checkpoint I/O and the T2M protocol evaluation (tools/torch_test.py);
+and music-to-dance with the ControlNet branch (``ControlT2MHalf``,
+``configs/stmogen/m2d_finedance_0125b.py``): windowed RePaint sampling and
+its evaluation (tools/torch_m2d_test.py).
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,7 @@
-from .factory import (flagship_t2m_cfg, make_text_batch, make_train_batch,  # noqa: F401
-                      tiny_t2m_cfg)
+from .factory import (flagship_m2d_cfg, flagship_t2m_cfg, make_text_batch,  # noqa: F401
+                      make_train_batch, tiny_t2m_cfg)
 from .eval_hook import EvalHook  # noqa: F401
 from .test import multi_host_test, single_device_test  # noqa: F401
 from .train import make_train_step, set_random_seed, train_model  # noqa: F401
+from .windowed import (denormalize, num_windows, windowed_sample,  # noqa: F401
+                       windowed_sample_batch)

@@ -1,6 +1,8 @@
 """Canonical model configs and batch factories (copies of the config functions
 of motioncraft_tpu/apis/factory.py, plus a seeded synthetic training batch).
 
+``flagship_m2d_cfg`` is the music-to-dance ControlNet over that base.
+
 ``flagship_t2m_cfg`` is the 0.125B STMoGen T2M config
 (configs/stmogen/t2m_motionx_0_125b.py): 4 layers, 12 heads x 128, MoE with
 16 experts top-2 cosine gate, CLIP ViT-B/32 text tower, DDIM-50
@@ -73,6 +75,23 @@ def tiny_t2m_cfg(expert_axis: Optional[str] = None, max_seq_len: int = 16) -> di
                             text_latent_dim=16, ff_size=16, time_embed_dim=32,
                             clip_width=32, clip_layers=1, respace="4",
                             expert_axis=expert_axis)
+
+
+def flagship_m2d_cfg(window: int = 120, **kw) -> dict:
+    """Flagship M2D: the ControlNet branch (2 copied blocks) over the 0.125B
+    base at 120-frame windows, conditioned on raw 163-d music features with
+    no pre-encoder, RePaint over a 30-frame overlap
+    (configs/stmogen/m2d_finedance_0125b.py schema)."""
+    cfg = flagship_t2m_cfg(max_seq_len=window, **kw)
+    cfg["model"] = dict(
+        type="ControlT2MHalf", base_model=cfg["model"], copy_blocks_num=2,
+        control_cond_feats=163,
+        condition_encode_cfg=dict(dataset_name="nothing", condition_pre_encode=False,
+                                  condition_pre_encode_type="nothing",
+                                  control_cond_feats=163, condition_cfg=True))
+    cfg["repaint"] = dict(overlap_len=30, add_blend=True, same_overlap_noisy=False,
+                          jump_length=3, jump_n_sample=2)
+    return cfg
 
 
 def make_text_batch(texts, max_seq_len: int = 196, input_feats: int = 322,

@@ -1,18 +1,22 @@
-"""Datasets (host-side numpy; a copy of the text-to-motion part of
-motioncraft_tpu/data/datasets.py).
+"""Datasets (host-side numpy; a copy of the text-to-motion and
+music-to-dance parts of motioncraft_tpu/data/datasets.py).
 
 BaseMotionDataset (ann-file loading, pipeline, test-mode eval-index
 expansion with shuffled replications, GT face/shape alignment before the
-metrics), TextMotionDataset and the Repeat/Concat wrappers.  The shuffles of
+metrics), TextMotionDataset, FinedanceMotionDataset (the hardcoded
+cross_genre / cross_dancer splits, the 319-d -> SMPL-X 322 remap with the
++1.3 m height offset, 163-d music features, a style caption, the 360-frame
+head trim) and the Repeat/Concat wrappers.  The shuffles of
 ``prepare_evaluation`` draw from the global numpy generator, as the JAX
 package's do, so one ``np.random.seed`` gives both the same eval indexes.
-The FineDance, speech and mixed datasets are not ported yet (they come with
-speech-to-gesture and music-to-dance).
+The speech and mixed datasets are not ported yet (they come with
+speech-to-gesture).
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import os
 from typing import List, Optional
 
@@ -166,6 +170,85 @@ class TextMotionDataset(BaseMotionDataset):
         results["dataset_name"] = self.dataset_name
         results["sample_idx"] = idx
         return self.pipeline(results)
+
+
+def finedance_split(datasplit: str):
+    """The hardcoded FineDance splits: (train, test, ignore) track names."""
+    all_list = [str(i).zfill(3) for i in range(1, 212)]
+    if datasplit == "cross_genre":
+        test = ["063", "132", "143", "036", "098", "198", "130", "012", "211", "193",
+                "179", "065", "137", "161", "092", "120", "037", "109", "204", "144"]
+        ignore = ["116", "117", "118", "119", "120", "121", "122", "123", "202", "130"]
+    elif datasplit == "cross_dancer":
+        test = ["001", "002", "003", "004", "005", "006", "007", "008", "009", "010",
+                "011", "012", "013", "124", "126", "128", "130", "132"]
+        ignore = (["115", "117", "119", "121", "122", "135", "137", "139", "141", "143",
+                   "145", "147"] + ["116", "118", "120", "123", "202", "159", "130"])
+    else:
+        raise ValueError(f"unknown datasplit {datasplit}")
+    train = [x for x in all_list if x not in test and x not in ignore]
+    test = [x for x in test if x not in ignore]
+    return train, test, ignore
+
+
+def finedance_to_smplx322(motion_319: np.ndarray) -> np.ndarray:
+    """FineDance 319-d (4 foot contacts, 3 translation, 66 body and 90 hand
+    axis-angle, ...) -> SMPL-X 322, translation raised by 1.3 m in y."""
+    out = np.zeros((motion_319.shape[0], 322), np.float32)
+    out[:, :66] = motion_319[:, 7:73]
+    out[:, 66:156] = motion_319[:, 73:163]
+    out[:, 309:312] = motion_319[:, 4:7]
+    out[:, 310] += 1.3
+    return out
+
+
+@DATASETS.register_module()
+class FinedanceMotionDataset(BaseMotionDataset):
+    """FineDance music-to-dance data: the motion remap, 163-d music
+    features, a style caption from the label json and the 360-frame head
+    trim."""
+
+    def __init__(self, data_prefix, pipeline, dataset_name=None, fixed_length=None,
+                 ann_file=None, motion_dir=None, text_dir=None, clip_feat_dir=None,
+                 eval_cfg=None, test_mode=False, datasplit=None, music_dir=None,
+                 seed=None):
+        self.datasplit = datasplit
+        join = lambda d: os.path.join(data_prefix, "datasets", dataset_name, d) if d else None
+        self.music_dir = join(music_dir)
+        self.text_dir = join(text_dir)
+        self.clip_feat_dir = join(clip_feat_dir)
+        super().__init__(data_prefix, pipeline, dataset_name, fixed_length, ann_file,
+                         motion_dir, eval_cfg, test_mode, seed)
+
+    def load_annotations(self):
+        mode = os.path.basename(self.ann_file).split(".")[0]
+        train, test, _ = finedance_split(self.datasplit)
+        names = train if mode == "train" else test
+        self.data_infos = []
+        missing = 0
+        for n in names:
+            if not os.path.isfile(os.path.join(self.motion_dir, n + ".npy")):
+                missing += 1
+                continue
+            self.data_infos.append(self.load_anno(n))
+        if missing:
+            print(f"[FinedanceMotionDataset] skipped {missing}/{len(names)} "
+                  f"missing tracks under {self.motion_dir}")
+
+    def load_anno(self, name):
+        motion = finedance_to_smplx322(np.load(os.path.join(self.motion_dir, name + ".npy")))
+        music = np.load(os.path.join(self.music_dir, name + ".npy"))
+        # drop the first 360 frames of both (the synchronised head trim)
+        motion, music = motion[360:], music[360:]
+        n = min(len(motion), len(music))
+        with open(os.path.join(self.text_dir, name + ".json")) as f:
+            label = json.load(f)
+        text = (f"A dancer is performing a {label['style1']} dance in the "
+                f"{label['style2']} style to the rhythm of the {label['name']} song.")
+        return {"motion": motion[:n], "c": music[:n].astype(np.float32),
+                "text": [text], "dataset_name": self.dataset_name, "name": name}
+
+    prepare_data = TextMotionDataset.prepare_data
 
 
 @DATASETS.register_module()

@@ -1,7 +1,8 @@
 """Gaussian diffusion schedule tables and the posterior algebra, in PyTorch.
 
 Port of motioncraft_tpu/diffusion/gaussian.py restricted to what DDIM
-sampling and training need.  The tables are derived in float64 on the host (numpy), then cast once
+sampling (with RePaint's re-noising ``undo`` and the outpainting x0
+overwrite) and training need.  The tables are derived in float64 on the host (numpy), then cast once
 to float32 tensors on the target device, as the JAX package does.  Timestep
 respacing (SpacedDiffusion) is folded into the tables: ``timestep_map``
 carries respaced -> original indices, and the denoiser always sees
@@ -41,6 +42,9 @@ class GaussianDiffusion:
     fixed_large_variance: torch.Tensor
     fixed_large_log_variance: torch.Tensor
     timestep_map: torch.Tensor  # respaced index -> original timestep (int64)
+    # the float32 alphas_cumprod_prev on the host: the samplers read per-step
+    # constants from it without a device round trip
+    alphas_cumprod_prev_host: np.ndarray
     model_mean_type: str = "start_x"
     model_var_type: str = "fixed_large"
     num_timesteps: int = 1000
@@ -116,6 +120,7 @@ def create_diffusion(
         fixed_large_variance=as_dev(fixed_large_variance),
         fixed_large_log_variance=as_dev(np.log(fixed_large_variance)),
         timestep_map=torch.as_tensor(timestep_map, device=device),
+        alphas_cumprod_prev_host=np.asarray(alphas_cumprod_prev, np.float32),
         model_mean_type=model_mean_type,
         model_var_type=model_var_type,
         num_timesteps=len(betas),
@@ -153,6 +158,13 @@ def q_sample(d: GaussianDiffusion, x_start, t, noise):
             + _extract(d.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * noise)
 
 
+def undo(d: GaussianDiffusion, x, t, noise):
+    """One forward (re-noising) step x_{t-1} -> x_t, RePaint's time travel;
+    ``noise`` is the standard-normal draw."""
+    beta = _extract(d.betas, t, x.ndim)
+    return torch.sqrt(1 - beta) * x + torch.sqrt(beta) * noise
+
+
 def q_posterior_mean_variance(d: GaussianDiffusion, x_start, x_t, t):
     mean = (_extract(d.posterior_mean_coef1, t, x_t.ndim) * x_start
             + _extract(d.posterior_mean_coef2, t, x_t.ndim) * x_t)
@@ -176,9 +188,16 @@ def predict_eps_from_xstart(d: GaussianDiffusion, x_t, t, pred_xstart):
 
 
 def p_mean_variance(d: GaussianDiffusion, model_output: torch.Tensor,
-                    x: torch.Tensor, t: torch.Tensor) -> Dict[str, torch.Tensor]:
+                    x: torch.Tensor, t: torch.Tensor,
+                    outpainting_mask: Optional[torch.Tensor] = None,
+                    outpainting_gt: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
     """p(x_{t-1} | x_t) statistics and pred_xstart from a model output that
-    was computed outside (the CFG-doubled denoiser batch lives in the model)."""
+    was computed outside (the CFG-doubled denoiser batch lives in the model).
+    With an outpainting mask, the kept frames' x0 is the ground truth
+    (RePaint in DDIM; start_x prediction only, as the reference asserts)."""
+    if outpainting_mask is not None and d.model_mean_type == "start_x":
+        model_output = torch.where(outpainting_mask, outpainting_gt, model_output)
     if d.model_var_type == "fixed_large":
         variance = d.fixed_large_variance
         log_variance = d.fixed_large_log_variance

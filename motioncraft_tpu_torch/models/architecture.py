@@ -2,9 +2,12 @@
 (PyTorch port of motioncraft_tpu/models/architecture.py).
 
 ``sample`` (in ``eval()`` mode): text encoding runs once per batch outside
-the sampling loop, and so does every layer's text MoE
-(``precompute_text_feats``); the loop calls the denoiser's CFG-doubled test
-forward once per DDIM step.
+the sampling loop, and so do every layer's text MoE
+(``precompute_text_feats``) and a ControlNet's condition encoder
+(``encode_condition``, unless the batch brings ``c_enc``); the loop calls the
+denoiser's CFG-doubled test forward once per DDIM step.  With an
+``outpainting`` mask it is RePaint's harmonized DDIM (``repaint=``), with a
+``pre_seq`` the leading frames are seeded from it.
 
 ``loss`` (in ``train()`` mode): timesteps from the schedule sampler, q_sample,
 the 90/10 text/unconditional ``cond_type``, one training forward, the masked
@@ -20,8 +23,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..diffusion import (build_diffusion, create_named_schedule_sampler,
-                         ddim_sample_loop, training_losses)
+from ..diffusion import (Outpainting, RepaintConfig, build_diffusion,
+                         create_named_schedule_sampler, ddim_sample_loop, generator_randn,
+                         training_losses)
+from ..diffusion.sampling import Randn
 from ..registry import ARCHITECTURES, build_loss, build_submodule
 from .body_layout import SMPLX_FACE_DIMS, SMPLX_HAND_DIMS
 
@@ -63,14 +68,13 @@ class MotionDiffusion(nn.Module):
         super().__init__()
         if inference_type not in ("ddim", "gt"):
             raise NotImplementedError(f"inference_type {inference_type!r}")
-        if repaint is not None:
-            raise NotImplementedError("repaint (windowed outpainting)")
         exact_f32()
         self.device = resolve_device(device)
         self.inference_type = inference_type
         self.loss_reduction = loss_reduction
         self.hand_loss_factor = hand_loss_factor
         self.face_no_loss, self.hand_no_loss = face_no_loss, hand_no_loss
+        self.repaint_cfg = RepaintConfig(**repaint) if isinstance(repaint, dict) else repaint
         self.model = build_submodule(model) if inference_type != "gt" else None
         self.loss_recon = build_loss(loss_recon) if loss_recon else None
         self.diffusion_train = (build_diffusion(diffusion_train, device=self.device)
@@ -157,13 +161,20 @@ class MotionDiffusion(nn.Module):
 
     @torch.no_grad()
     def sample(self, batch: Dict[str, Any], *, generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None,
-               inference_type: Optional[str] = None) -> torch.Tensor:
+               noise: Optional[torch.Tensor] = None, randn: Optional[Randn] = None,
+               inference_type: Optional[str] = None,
+               outpainting: Optional[Outpainting] = None,
+               pre_seq: Optional[torch.Tensor] = None):
         """Motion [B, T, D] for one batch (numpy arrays or tensors):
         ``motion`` (read for its shape, and returned as it is under
-        ``inference_type='gt'``), ``motion_mask``, ``motion_length`` and
-        ``text_ids``.  The initial noise is ``noise`` if given, else drawn
-        from ``generator``.  Needs ``eval()`` mode, the inference path."""
+        ``inference_type='gt'``), ``motion_mask``, ``motion_length``,
+        ``text_ids`` and, for a ControlNet, the condition ``c`` or its
+        encoding ``c_enc``.  Every standard-normal draw (the initial noise
+        unless ``noise`` is given, then the loop's) comes from ``randn(shape)``
+        if given, else from ``generator``.  With ``outpainting`` and a
+        ``repaint`` config that keeps the noisy tails (same_overlap_noisy),
+        returns (motion, noisy_tail).  Needs ``eval()`` mode, the inference
+        path."""
         if self.training:
             raise RuntimeError("MotionDiffusion.sample runs the inference path: call .eval()")
         motion = self._tensor(batch["motion"], torch.float32)
@@ -177,20 +188,32 @@ class MotionDiffusion(nn.Module):
         motion_length = self._tensor(batch["motion_length"])
         xf_out = self.encode_text(batch["text_ids"])
         text_feats = self.model.precompute_text_feats(xf_out)
+        cond = {}
+        if hasattr(self.model, "encode_condition"):
+            if batch.get("c_enc") is not None:
+                cond["c_enc"] = self._tensor(batch["c_enc"], torch.float32)
+            elif batch.get("c") is not None:
+                cond["c_enc"] = self.model.encode_condition(
+                    self._tensor(batch["c"], torch.float32), T)
 
         def model_fn(x, t_model):
             return self.model(x, t_model, motion_mask=motion_mask,
                               motion_length=motion_length, xf_out=xf_out,
-                              text_feats=text_feats)
+                              text_feats=text_feats, **cond)
 
+        randn = randn or generator_randn(generator, self.device)
         if noise is None:
-            noise = torch.randn((B, T, D), generator=generator, device=self.device)
+            noise = randn((B, T, D))
         else:
             noise = self._tensor(noise, torch.float32)
             if noise.shape != (B, T, D):
                 raise ValueError(f"noise shape {tuple(noise.shape)} != {(B, T, D)}")
-        result = ddim_sample_loop(self.diffusion_test, model_fn, noise, eta=0.0)
-        return self.post_process(result.sample)
+        result = ddim_sample_loop(
+            self.diffusion_test, model_fn, noise, eta=0.0, randn=randn,
+            pre_seq=None if pre_seq is None else self._tensor(pre_seq, torch.float32),
+            outpainting=outpainting, repaint=self.repaint_cfg)
+        out = self.post_process(result.sample)
+        return out if result.noisy_tail is None else (out, result.noisy_tail)
 
     def post_process(self, motion: torch.Tensor) -> torch.Tensor:
         """De-normalize when the model config asks for unnormalized inference."""

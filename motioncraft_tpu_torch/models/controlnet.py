@@ -1,0 +1,172 @@
+"""The ControlNet branch for music-to-dance (PyTorch port of
+motioncraft_tpu/models/controlnet.py, STMoGen base).
+
+  - The base model (``base_model``, an STMoGenTransformer) runs as it is.
+  - The first ``copy_blocks_num`` decoder layers are copied as control
+    blocks (``controlnet_N.copied_block``) with zero-initialised projections
+    around them (``before_proj`` on block 0, ``after_proj`` on each), so that
+    at initialisation the branch changes nothing.
+  - The condition stream (163-d music features) enters through a
+    zero-initialised input projection (``control_cond_input``), is padded or
+    cut to the window, gets the base's sequence embedding over its own
+    length, and is injected as ``c_skip`` residuals into base blocks
+    1..copy_blocks_num.
+  - Condition-CFG zeroes ``c`` on the unconditional half of the CFG batch.
+
+The test forward is the base's CFG test forward with the control blocks
+between its block 0 and block copy_blocks_num + 1: block 0 still sees two
+identical halves, so its layer-0 dedup applies as in the base model.  The
+control blocks' text MoEs are hoisted with the base's
+(``precompute_text_feats``: ``{"base": ..., "ctrl": ...}``), on the
+CFG-doubled text batch so that MoE capacity is the in-layer one.
+
+Not ported, and refused: the wav / wav2vec condition pre-encoders, patched
+conditions (``patch_size > 1``), the MCM block type, the step cache and
+ControlNet training (ROADMAP queue 1; ``joint_embed_unfreeze`` and
+``unfreeze_mode``, training's freezing masks, are accepted and unused).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..registry import SUBMODULES
+from .blocks import ZeroDense
+from .stmogen import STMoGenDecoderLayer
+
+S2G = "ROADMAP queue 1: S2G (speech-to-gesture)"
+TRAINING = "ROADMAP queue 1: the rest of training"
+
+
+class ControlT2MBlock(nn.Module):
+    """A copied decoder layer with zero-initialised in/out projections."""
+
+    def __init__(self, ca_block_cfg: dict, ffn_cfg: dict, block_index: int, latent_dim: int):
+        super().__init__()
+        self.block_index = block_index
+        if block_index == 0:
+            self.before_proj = nn.Linear(latent_dim, latent_dim)
+            nn.init.zeros_(self.before_proj.weight)
+            nn.init.zeros_(self.before_proj.bias)
+        self.copied_block = STMoGenDecoderLayer(ca_block_cfg, ffn_cfg)
+        self.after_proj = ZeroDense(latent_dim, latent_dim)
+
+    def forward(self, x, c, xf, emb, src_mask, cond_type, text_feat=None):
+        """(c, c_skip): the block's new control state and its injection into
+        the next base block.  Block 0 reads the base stream plus the
+        projected condition; the later ones the previous control state."""
+        inp = x + self.before_proj(c) if self.block_index == 0 else c
+        c = self.copied_block(inp, xf, emb, src_mask, cond_type, text_feat=text_feat)
+        return c, self.after_proj(c)
+
+
+@SUBMODULES.register_module()
+class ControlT2MHalf(nn.Module):
+    """STMoGen base + control branch."""
+
+    def __init__(self, base_model: Optional[dict] = None, copy_blocks_num: int = 2,
+                 control_cond_feats: int = 438, condition_encode_cfg: Optional[dict] = None,
+                 joint_embed_unfreeze: bool = True, unfreeze_mode: str = "all",
+                 patch_size: int = 1, block_type: str = "stmogen",
+                 init_cfg: Optional[dict] = None):
+        super().__init__()
+        base_cfg = dict(base_model or {})
+        base_type = base_cfg.setdefault("type", "STMoGenTransformer")
+        if block_type != "stmogen" or base_type != "STMoGenTransformer":
+            raise NotImplementedError(
+                f"ControlNet over {base_type} blocks ({block_type!r}): the MCM base "
+                "(ROADMAP queue 1: DDPM and the baseline zoo)")
+        if patch_size > 1:
+            raise NotImplementedError(f"ControlNet with patch_size > 1 ({S2G})")
+        cc = dict(condition_encode_cfg or {})
+        if cc.get("condition_pre_encode", False):
+            kind = cc.get("condition_pre_encode_type", "wav")
+            raise NotImplementedError(f"condition_pre_encode ({kind!r} encoder): {S2G}")
+        self.base_model = SUBMODULES.build(base_cfg)
+        base = self.base_model
+        if copy_blocks_num >= base.num_layers:
+            raise ValueError(f"copy_blocks_num ({copy_blocks_num}) must be < the base "
+                             f"model's num_layers ({base.num_layers}): each control "
+                             "block injects into the NEXT base block")
+        self.copy_blocks_num = copy_blocks_num
+        self.condition_cfg_enabled = cc.get("condition_cfg", True)
+        for i in range(copy_blocks_num):
+            self.add_module(f"controlnet_{i}", ControlT2MBlock(
+                base_cfg["ca_block_cfg"], base_cfg["ffn_cfg"], i, base.latent_dim))
+        self.control_cond_input = ZeroDense(control_cond_feats, base.latent_dim)
+
+    @property
+    def num_layers(self):
+        return self.base_model.num_layers
+
+    @property
+    def controlnet(self):
+        return [getattr(self, f"controlnet_{i}") for i in range(self.copy_blocks_num)]
+
+    def encode_text(self, text_ids):
+        return self.base_model.encode_text(text_ids)
+
+    def encode_condition(self, c, seq_len: int):
+        """Condition features [B, Tc, F] -> [B, seq_len, latent]: the
+        zero-initialised input projection, then padded with zeros or cut to
+        ``seq_len``, with the base's sequence embedding added over the
+        original condition length.  It depends on no timestep, so sampling
+        encodes it once per call (or per chunk of windows)."""
+        c = self.control_cond_input(c)
+        n = min(c.shape[1], seq_len)
+        pad = seq_len - c.shape[1]
+        if pad > 0:
+            c = torch.cat([c, c.new_zeros(c.shape[0], pad, c.shape[2])], dim=1)
+        return torch.cat([c[:, :n] + self.base_model.sequence_embedding[None, :n],
+                          c[:, n:seq_len]], dim=1)
+
+    def precompute_text_feats(self, xf_out):
+        """The base's per-layer text features plus one per control block,
+        on the CFG-doubled batch; None when the base's hoist is off."""
+        base_feats = self.base_model.precompute_text_feats(xf_out)
+        if base_feats is None:
+            return None
+        xf2 = torch.cat([xf_out, xf_out], dim=0)
+        return {"base": base_feats,
+                "ctrl": tuple(blk.copied_block.text_branch(xf2) for blk in self.controlnet)}
+
+    def forward(self, motion, timesteps, motion_mask=None, motion_length=None, xf_out=None,
+                text_feats=None, *, c=None, c_enc=None, mode: str = "test", cond_type=None,
+                generator=None, aux_losses=None):
+        """The CFG-guided test forward of ``motion`` [B, T, D] at
+        original-scale ``timesteps`` [B], with the condition ``c`` [B, Tc, F]
+        or its encoding ``c_enc`` [B, T, latent] (none: the base alone)."""
+        if mode != "test":
+            raise NotImplementedError(f"ControlT2MHalf mode {mode!r}: ControlNet training "
+                                      f"({TRAINING})")
+        base = self.base_model
+        src_mask = motion_mask[..., None] if motion_mask.dim() == 2 else motion_mask
+        h, emb = base._embed(motion, timesteps)
+        src_mask = src_mask.to(h.dtype)
+        if c_enc is not None:
+            c = c_enc.to(h.dtype)
+        elif c is not None:
+            c = self.encode_condition(c.to(h.dtype), h.shape[1])
+        h2, xf2, emb2, mask2, all_cond = base.cfg_batch(h, xf_out, emb, src_mask)
+        c2 = None
+        if c is not None:
+            c2 = torch.cat([c, c])
+            if self.condition_cfg_enabled:
+                c2 = c2 * all_cond
+        tfb = (lambda i: None) if text_feats is None else (lambda i: text_feats["base"][i])
+        tfc = (lambda i: None) if text_feats is None else (lambda i: text_feats["ctrl"][i])
+        kw = dict(xf=xf2, emb=emb2, src_mask=mask2, cond_type=all_cond)
+        blocks = base.blocks
+        h2 = blocks[0](h2, **kw, cfg_dedup=base.cfg_layer0_dedup, text_feat=tfb(0))
+        first = 1
+        if c2 is not None:
+            for i in range(1, self.copy_blocks_num + 1):
+                c2, c_skip = self.controlnet[i - 1](h2, c2, **kw, text_feat=tfc(i - 1))
+                h2 = blocks[i](h2 + c_skip, **kw, text_feat=tfb(i))
+            first = self.copy_blocks_num + 1
+        for i in range(first, len(blocks)):
+            h2 = blocks[i](h2, **kw, text_feat=tfb(i))
+        return base.cfg_mix(h2, timesteps)

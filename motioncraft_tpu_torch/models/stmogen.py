@@ -7,7 +7,9 @@ motioncraft_tpu/models/stmogen.py).
     added as it is.
   - The decoder stack is STMoGenDecoderLayer (STMA + SFFN).
   - forward_test: classifier-free guidance on the doubled batch (text, then
-    unconditional), mixed by w = (1 - (1000 - t) / 1000) * scale + 1;
+    unconditional; ``cfg_batch``), the blocks, then ``cfg_mix``: decoded and
+    mixed by w = (1 - (1000 - t) / 1000) * scale + 1 (the ControlNet of
+    models/controlnet.py runs the same pieces around its control blocks);
     layer 0 computes its motion branch once for both halves (cfg_dedup), and
     the text MoE of every layer comes precomputed once per sampling call
     (precompute_text_feats, on the doubled batch so MoE capacity matches).
@@ -105,6 +107,10 @@ class STMoGenDecoderLayer(nn.Module):
         if cfg:
             raise TypeError(f"unknown ffn_cfg keys {sorted(cfg)}")
 
+    def text_branch(self, xf):
+        """The layer's step-invariant text features (STMA.text_branch)."""
+        return self.ca_block.text_branch(xf)
+
     def forward(self, x, xf, emb, src_mask, cond_type, cfg_dedup=False, text_feat=None,
                 generator=None, aux_losses=None):
         x = self.ca_block(x, xf=xf, emb=emb, src_mask=src_mask, cond_type=cond_type,
@@ -174,21 +180,28 @@ class STMoGenTransformer(DiffusionTransformerBase):
         if not self.text_hoist:
             return None
         xf2 = torch.cat([xf_out, xf_out], dim=0)
-        return tuple(block.ca_block.text_branch(xf2) for block in self.blocks)
+        return tuple(block.text_branch(xf2) for block in self.blocks)
+
+    def cfg_batch(self, h, xf_out, emb, src_mask):
+        """The CFG-doubled test batch (text half, then unconditional half)
+        and its cond_type [2B, 1, 1], made on the device of ``h``."""
+        B = h.shape[0]
+        all_cond = torch.cat([h.new_ones(B, 1, 1), h.new_zeros(B, 1, 1)])
+        return (torch.cat([h, h]), torch.cat([xf_out, xf_out]), torch.cat([emb, emb]),
+                torch.cat([src_mask, src_mask]), all_cond)
+
+    def cfg_mix(self, h2, timesteps):
+        """Decode the doubled batch and mix its halves by scale_func."""
+        B2, T = h2.shape[:2]
+        out = self.out(h2).reshape(B2, T, -1)
+        text_coef, none_coef = self.scale_func(timesteps[0])
+        return out[:B2 // 2] * text_coef + out[B2 // 2:] * none_coef
 
     def forward_test(self, h, src_mask, emb, xf_out, motion_length=None,
                      timesteps=None, text_feats=None):
-        B, T = h.shape[:2]
-        all_cond = torch.cat([torch.ones(B, 1, 1), torch.zeros(B, 1, 1)]).to(h.device)
-        h2 = torch.cat([h, h])
-        xf2 = torch.cat([xf_out, xf_out])
-        emb2 = torch.cat([emb, emb])
-        mask2 = torch.cat([src_mask, src_mask])
+        h2, xf2, emb2, mask2, all_cond = self.cfg_batch(h, xf_out, emb, src_mask)
         for i, block in enumerate(self.blocks):
             h2 = block(h2, xf2, emb2, mask2, all_cond,
                        cfg_dedup=self.cfg_layer0_dedup and i == 0,
                        text_feat=None if text_feats is None else text_feats[i])
-        out = self.out(h2).reshape(2 * B, T, -1)
-        text_coef, none_coef = self.scale_func(timesteps[0])
-        return out[:B] * text_coef + out[B:] * none_coef
-
+        return self.cfg_mix(h2, timesteps)

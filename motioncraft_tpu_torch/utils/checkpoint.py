@@ -7,7 +7,8 @@
   one the port writes (``to_jax_params`` of its state_dict) evaluates in the
   JAX package.
 - ``load_eval_variables``: the weights an evaluation runs with, from a
-  reference ``.pth`` (STMoGen) or a ``.npz`` snapshot.
+  reference ``.pth`` (STMoGen, or a merged base+control ControlT2MHalf) or
+  a ``.npz`` snapshot.
 - ``save_checkpoint`` / ``load_checkpoint``: a training state (model, the
   optimizer's moments, the update count, the step's ``torch.Generator``,
   the global torch and numpy generators and the timestep sampler's history)
@@ -77,10 +78,18 @@ def align_block_layout(model_cfg: dict, tree):
 def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None,
                         torch_checkpoint=None) -> Optional[Dict[str, torch.Tensor]]:
     """Load evaluation weights into ``model`` (the denoiser): a reference
-    ``.pth`` (``torch_checkpoint``, STMoGen) or the flat ``.npz`` of
-    ``save_params`` (``checkpoint``), ``strict=True``.  Returns the
-    state_dict loaded, or None when neither file is given."""
+    ``.pth`` (``torch_checkpoint``, STMoGen or ControlT2MHalf) or the flat
+    ``.npz`` of ``save_params`` (``checkpoint``), ``strict=True``.  Returns
+    the state_dict loaded, or None when neither file is given."""
     sub = model_cfg["model"]
+    if torch_checkpoint and sub["type"] == "ControlT2MHalf":
+        from .torch_convert import load_controlnet_ckpt
+        bm = sub["base_model"]
+        te = bm.get("text_encoder", {})
+        return load_controlnet_ckpt(torch_checkpoint, model, bm["num_layers"],
+                                    bm.get("ffn_cfg", {}).get("num_heads", 1),
+                                    sub.get("copy_blocks_num", 2), te.get("num_layers", 2),
+                                    te.get("clip_layers", 12))
     if torch_checkpoint:
         if sub["type"] != "STMoGenTransformer":
             raise NotImplementedError(

@@ -12,8 +12,9 @@ So a reference file takes one route into both packages.
 Conventions: torch Linear weight [out, in] -> flax Dense kernel [in, out]
 (transpose); LayerNorm weight/bias -> scale/bias.
 
-The other model families' converters (ControlNet, MCM, MDM, MotionDiffuse,
-FineMoGen, ReMoDiffuse, the BiGRU evaluator) are not ported yet.
+The other model families' converters (MCM, MDM, MotionDiffuse, FineMoGen,
+ReMoDiffuse, the BiGRU evaluator) and the ControlNet's WavEncoder are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -310,4 +311,50 @@ def load_stmogen_ckpt(path: str, model: torch.nn.Module, num_layers: int, num_he
     ``strict=True``); returns the state_dict loaded."""
     sd = strip_base_block_keys(load_torch_state_dict(path))
     tree = convert_stmogen(sd, num_layers, num_heads, text_num_layers, clip_layers)
+    return load_into(model, tree)
+
+
+# -------------------------------------------------------------- ControlNet
+def convert_controlnet(sd: Dict[str, np.ndarray], num_layers: int, num_heads: int,
+                       copy_blocks_num: int, text_num_layers: int = 2,
+                       clip_layers: int = 12) -> dict:
+    """Merged base+control checkpoint (the released M2D format: keys
+    base_model.* / controlnet.N.* / control_cond_input.*) -> the
+    ControlT2MHalf flax param tree.  A WavEncoder's condition_pre_encoder.*
+    keys raise: the speech pre-encoder is not ported."""
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+    if any(k.startswith("condition_pre_encoder.") for k in sd):
+        raise NotImplementedError("condition_pre_encoder (WavEncoder) weights: "
+                                  "ROADMAP queue 1: S2G (speech-to-gesture)")
+    base_sd = {k[len("base_model."):]: v for k, v in sd.items() if k.startswith("base_model.")}
+    params: dict = {"base_model": convert_stmogen(base_sd, num_layers, num_heads,
+                                                  text_num_layers, clip_layers)}
+    for i in range(copy_blocks_num):
+        p = f"controlnet.{i}"
+        blk = {"copied_block": {"ca_block": t_stma(sd, f"{p}.copied_block.ca_block"),
+                                "ffn": t_sffn(sd, f"{p}.copied_block.ffn", num_heads)},
+               "after_proj": {"linear": t_linear(sd, f"{p}.after_proj")}}
+        if i == 0:
+            blk["before_proj"] = t_linear(sd, f"{p}.before_proj")
+        params[f"controlnet_{i}"] = blk
+    params["control_cond_input"] = {"linear": t_linear(sd, "control_cond_input")}
+    return params
+
+
+def load_controlnet_ckpt(path: str, model: torch.nn.Module, num_layers: int, num_heads: int,
+                         copy_blocks_num: int, text_num_layers: int = 2,
+                         clip_layers: int = 12) -> Dict[str, torch.Tensor]:
+    """Load a released merged base+control .pth into the port's
+    ControlT2MHalf.  A base-only file (no base_model.* keys) fills the base
+    and leaves the control branch as it is.  Returns the state_dict
+    loaded."""
+    sd = load_torch_state_dict(path)
+    flat = {k[len("model."):] if k.startswith("model.") else k: v for k, v in sd.items()}
+    if any(k.startswith("base_model.") for k in flat):
+        tree = convert_controlnet(flat, num_layers, num_heads, copy_blocks_num,
+                                  text_num_layers, clip_layers)
+    else:
+        tree = {"base_model": convert_stmogen(strip_base_block_keys(flat), num_layers,
+                                              num_heads, text_num_layers, clip_layers)}
     return load_into(model, tree)

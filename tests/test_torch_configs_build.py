@@ -1,10 +1,14 @@
 """Which configs of configs/ the port builds: every non-``_base_`` file is
 built with the port's registry on the CPU.  The ones it runs build; each of
-the others raises for the reason ROADMAP.md gives (RePaint outpainting,
-DDPM sampling, or a model class not registered yet).  A config that moves
-from one list to the other is port progress, recorded here."""
+the others raises for the reason ROADMAP.md gives (the speech condition's
+WavEncoder, DDPM sampling, or a model class not registered yet).  A config
+that moves from one list to the other is port progress, recorded here.
+Also one CPU run of tools/torch_m2d_test.py over the committed FineDance
+fixture."""
 
 import glob
+import importlib.util
+import json
 import os
 
 import pytest
@@ -20,12 +24,11 @@ CONFIGS = sorted(os.path.relpath(p, os.path.join(REPO, "configs"))
 BUILDS = {"gt.py", "stmogen/t2m_humanml3d.py", "stmogen/t2m_motionx_0_125b.py",
           "stmogen/t2m_motionx_0_25b.py", "stmogen/t2m_motionx_align.py",
           "stmogen/t2m_motionx_mix.py", "tests/flagship_calib.py", "tests/protocol_gt.py",
-          "tests/protocol_learn.py", "tests/tiny_t2m.py"}
-REPAINT = {"mcm/mcm_m2d_finedance.py", "mcm/mcm_s2g_beats2.py", "stmogen/m2d_finedance.py",
-           "stmogen/m2d_finedance_0125b.py", "stmogen/m2d_finedance_0125b_local_unfreeze.py",
-           "stmogen/s2g_beats2_0125b.py", "stmogen/s2g_beats2_0125b_local_unfreeze.py",
-           "stmogen/s2g_beats2_025b.py", "tests/fixture_m2d.py", "tests/tiny_m2d.py",
-           "tests/tiny_s2g.py"}
+          "tests/protocol_learn.py", "tests/tiny_t2m.py", "stmogen/m2d_finedance.py",
+          "stmogen/m2d_finedance_0125b.py", "stmogen/m2d_finedance_0125b_local_unfreeze.py",
+          "tests/fixture_m2d.py", "tests/tiny_m2d.py"}
+WAV = {"stmogen/s2g_beats2_0125b.py", "stmogen/s2g_beats2_0125b_local_unfreeze.py",
+       "stmogen/s2g_beats2_025b.py", "tests/tiny_s2g.py"}
 DDPM = {"mcm/mcm_t2m_smplx.py", "mdm/mdm_kit.py", "mdm/mdm_t2m.py", "mdm/mdm_t2m_official.py",
         "mdm/mdm_t2m_smplx.py", "motiondiffuse/motiondiffuse_kit.py",
         "motiondiffuse/motiondiffuse_t2m.py", "motiondiffuse/motiondiffuse_t2m_smplx.py"}
@@ -33,14 +36,16 @@ UNREGISTERED = {"finemogen/finemogen_kit.py": "FineMoGenTransformer",
                 "finemogen/finemogen_t2m.py": "FineMoGenTransformer",
                 "finemogen/finemogen_t2m_smplx.py": "FineMoGenTransformer",
                 "mcm/mcm_t2m.py": "MCMTransformer",
+                "mcm/mcm_m2d_finedance.py": "ControlT2MHalfMCM",
+                "mcm/mcm_s2g_beats2.py": "ControlT2MHalfMCM",
                 "remodiffuse/remodiffuse_t2m.py": "ReMoDiffuseTransformer"}
 
 
 def test_every_config_is_listed_once():
-    lists = [BUILDS, REPAINT, DDPM, set(UNREGISTERED)]
+    lists = [BUILDS, WAV, DDPM, set(UNREGISTERED)]
     assert sorted(set().union(*lists)) == CONFIGS
     assert sum(map(len, lists)) == len(CONFIGS)
-    assert (len(BUILDS), len(REPAINT), len(DDPM), len(UNREGISTERED)) == (10, 11, 8, 5)
+    assert (len(BUILDS), len(WAV), len(DDPM), len(UNREGISTERED)) == (15, 4, 8, 7)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -50,12 +55,39 @@ def test_config_builds_or_raises_its_reason(name):
         arch = build_architecture(cfg.model, device="cpu")
         assert arch.inference_type in ("ddim", "gt")
         assert (arch.model is None) == (arch.inference_type == "gt")
+        assert (arch.repaint_cfg is not None) == ("m2d" in name)
         return
-    if name in REPAINT:
-        err, reason = NotImplementedError, "repaint"
+    if name in WAV:
+        err, reason = NotImplementedError, "condition_pre_encode \\('wav' encoder\\)"
     elif name in DDPM:
         err, reason = NotImplementedError, "inference_type 'ddpm'"
     else:
         err, reason = KeyError, f"{UNREGISTERED[name]} is not registered"
     with pytest.raises(err, match=reason):
         build_architecture(cfg.model, device="cpu")
+
+
+# tools/m2d_test.py's metrics.json: the metrics (Diversity only with more
+# than two 150-frame chunks; the fixture has one track of 64 frames), the
+# protocol verdict and the honesty flags
+M2D_KEYS = {"FID_whole", "FID_hands", "protocol", "flags"}
+M2D_FLAGS = {"untrained_evaluator", "hash_tokenizer", "int8_weights", "step_cache"}
+
+
+def test_torch_m2d_cli_on_the_fixture(tmp_path, monkeypatch):
+    spec = importlib.util.spec_from_file_location(
+        "torch_m2d_test", os.path.join(REPO, "tools", "torch_m2d_test.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    monkeypatch.chdir(REPO)  # the config's data paths are relative to the repository
+    run = tool.main(["configs/tests/fixture_m2d.py", "--device", "cpu",
+                     "--work-dir", str(tmp_path)])
+    with open(tmp_path / "metrics.json") as f:
+        out = json.load(f)
+    assert set(out) == M2D_KEYS and set(out["flags"]) == M2D_FLAGS
+    assert out["flags"]["untrained_evaluator"] and not out["protocol"]
+    assert out["flags"]["int8_weights"] is False and out["flags"]["step_cache"] == 0
+    assert run["windows"] == 5 and run["preds"][0].shape == (64, 322)
+    for bad in (["--bf16"], ["--int8"], ["--int8-mode", "w8"], ["--step-cache", "4"]):
+        with pytest.raises(SystemExit, match="ROADMAP queue 1: step cache"):
+            tool.parse_args(["configs/tests/fixture_m2d.py", *bad])

@@ -141,6 +141,24 @@ CASES = [
     # last hidden chunk (F 96, chunks of 64)
     ("fused_expert_ffn", (4, 50, 128, 512)), ("fused_expert_ffn", (3, 100, 256, 384)),
     ("fused_expert_ffn", (2, 70, 256, 192)), ("fused_expert_ffn", (2, 130, 64, 96)),
+    # the M2D shapes of one recording (a CFG-doubled 2 x 120 window): the
+    # motion MoE (N = 2880, and 1440 at layer 0's dedup, leaning to one
+    # expert), the text MoE (N = 154); K1's 28 and 17 blocks of 512 rows
+    # with empty experts; K2's 240 rows; K3's 2 x 120 frames
+    ("moe_route", (2880, 16, 2, "balanced")), ("moe_route", (1440, 16, 2, "skewed")),
+    ("moe_route", (154, 16, 2, "balanced")),
+    ("grouped_ffn", (16, 128, 512, [min(i // 2, 13) for i in range(28)])),
+    ("grouped_ffn", (16, 256, 1024, [min(i, 15) for i in range(17)])),
+    ("head_ffn", (240, 12, 128, 512)),
+    ("stma_linear_attention", (2, 120, 12, 128, 77)),
+    # 4 recordings in lockstep (8 x 120): the motion MoE (N = 11520, and 5760
+    # at layer 0, leaning to one expert), the text MoE (N = 616); K1's 61
+    # blocks; K2's 960 rows; K3's 8 x 120 frames
+    ("moe_route", (11520, 16, 2, "balanced")), ("moe_route", (5760, 16, 2, "skewed")),
+    ("moe_route", (616, 16, 2, "balanced")),
+    ("grouped_ffn", (16, 128, 512, [min(i // 4, 15) for i in range(61)])),
+    ("head_ffn", (960, 12, 128, 512)),
+    ("stma_linear_attention", (8, 120, 12, 128, 77)),
 ]
 GRAD_CASES = [c for c in CASES if c[0] in ("fused_linear_attention", "fused_expert_ffn")]
 
@@ -202,14 +220,59 @@ def test_k3_clusters_fit_on_the_card(cuda):
     assert max_active_clusters() * 4 >= torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def test_narrow_model_samples_alike_on_card_and_cpu(cuda):
-    cfg = tiny_t2m_cfg()
+def _narrow(cfg):
+    """A T2M model config at widths the kernels take (d = 32)."""
     m = cfg["model"]
     m["latent_dim"] = 12 * 32
     m["ca_block_cfg"].update(latent_dim=32, text_latent_dim=32, num_experts=4)
     m["ffn_cfg"].update(latent_dim=32, ffn_dim=64)
     m["text_encoder"]["latent_dim"] = 32
     m["pose_encoder_cfg"]["latent_dim"] = m["pose_decoder_cfg"]["latent_dim"] = 32
+    return cfg
+
+
+def test_narrow_controlnet_window_alike_on_card_and_cpu(cuda):
+    """One outpainted M2D window (RePaint over the jump schedule) of a
+    narrow ControlNet, card and CPU on the same weights and draws; every
+    base and control layer's kernels launch once a denoiser call."""
+    from motioncraft_tpu_torch.apis.factory import flagship_m2d_cfg
+    from motioncraft_tpu_torch.diffusion import Outpainting, harmonize_schedule
+
+    cfg = flagship_m2d_cfg(window=40, num_layers=3, latent_dim=32, text_latent_dim=32,
+                           ff_size=64, time_embed_dim=64, num_experts=4, clip_width=32,
+                           clip_layers=1, respace="10")
+    g = torch.Generator().manual_seed(3)
+    batch = {"motion": torch.zeros(2, 40, 322), "motion_mask": torch.ones(2, 40),
+             "motion_length": torch.full((2, 1), 40),
+             "text_ids": torch.as_tensor(make_text_batch(["a", "b"], max_seq_len=40)["text_ids"]),
+             "c": torch.randn(2, 40, 163, generator=g)}
+    gt = torch.cat([torch.randn(2, 10, 322, generator=g), torch.zeros(2, 30, 322)], dim=1)
+    mask = (torch.arange(40) < 10).reshape(1, 40, 1)
+    out = {}
+    for dev in ("cpu", cuda):
+        arch = build_architecture(cfg, device=dev)
+        arch.model.load_state_dict(fabricate_state_dict(arch.model, seed=0), strict=True)
+        pairs = harmonize_schedule(arch.diffusion_test.num_timesteps, arch.repaint_cfg)
+        draws = iter([torch.randn(2, 40, 322, generator=torch.Generator().manual_seed(i))
+                      for i in range(1 + len(pairs))])
+        reset_launch_counts()
+        out[str(dev)] = arch.sample({k: v.to(dev) for k, v in batch.items()},
+                                    randn=lambda shape: next(draws).to(dev),
+                                    outpainting=Outpainting(mask=mask.to(dev),
+                                                            gt=gt.to(dev))).cpu()
+    calls, layers = sum(d for _, d in pairs), 3 + 2
+    assert launch_counts() == {"moe_route": layers * (calls + 1), "moe_positions": 0,
+                               "grouped_ffn": layers * (calls + 1), "head_ffn": layers * calls,
+                               "stma_linear_attention": layers * calls,
+                               "fused_linear_attention": 0, "fused_expert_ffn": 0}
+    want = out["cpu"]
+    scale = max(1.0, float(want.abs().max()))
+    assert float((out["cuda"] - want).abs().max()) <= 1e-4 * scale
+
+
+def test_narrow_model_samples_alike_on_card_and_cpu(cuda):
+    cfg = _narrow(tiny_t2m_cfg())
+    m = cfg["model"]
     batch = make_text_batch(["a person walks", "someone waves"], max_seq_len=16,
                             lengths=np.array([[16], [9]], np.int32))
     noise = torch.randn(2, 16, 322, generator=torch.Generator().manual_seed(1))

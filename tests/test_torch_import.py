@@ -12,7 +12,9 @@ PORT = ROOT / "motioncraft_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "tools" / "profile_torch_sample.py",
                                         ROOT / "tools" / "profile_torch_train.py",
-                                        ROOT / "tools" / "torch_test.py"]
+                                        ROOT / "tools" / "torch_test.py",
+                                        ROOT / "tools" / "torch_m2d_test.py",
+                                        ROOT / "tools" / "profile_torch_m2d.py"]
 FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|motioncraft_tpu)(\.|\s|$)",
                        re.MULTILINE)
 
@@ -30,7 +32,12 @@ spec = importlib.util.spec_from_file_location("torch_test", "tools/torch_test.py
 torch_test = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(torch_test)
 torch_test.parse_args(["configs/tests/tiny_t2m.py"])
-for name in ("data", "eval", "utils.checkpoint", "utils.torch_convert", "apis.eval_hook"):
+spec = importlib.util.spec_from_file_location("torch_m2d_test", "tools/torch_m2d_test.py")
+torch_m2d_test = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(torch_m2d_test)
+torch_m2d_test.parse_args(["configs/tests/tiny_m2d.py"])
+for name in ("data", "data.datasets", "eval", "utils.checkpoint", "utils.torch_convert",
+             "apis.eval_hook", "models.controlnet", "apis.windowed"):
     assert "motioncraft_tpu_torch." + name in names, name
 print(len(names))
 """

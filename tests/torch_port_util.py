@@ -7,6 +7,9 @@ import numpy as np
 import pytest
 import torch
 
+# the port's draw source; the tests hand it the JAX package's draws
+from motioncraft_tpu_torch.diffusion import Replay  # noqa: F401
+
 
 def seeded_params(tree, seed=0):
     """A flax ``params`` tree of the same structure with seeded N(0, 1) /
@@ -105,3 +108,61 @@ def route_logits(N, E, kind, seed=0):
 def tutel_capacity(N, E, K, factor=1.5):
     """MoELayer.capacity: Tutel's K * int(factor * ceil(N / E)), within [1, N]."""
     return max(1, min(K * int(factor * ((N + E - 1) // E)), N))
+
+
+def jax_sample_draws(num_timesteps, repaint, rng, shape, *, outpainting=False,
+                     pre_len=None, clip_idx=0):
+    """The standard-normal draws of one ``MotionDiffusion.sample`` call of
+    the JAX package with key ``rng``, in the order the port consumes them:
+    the initial noise (``split(rng)[0]``), then per loop step (``key, sub =
+    split(key)`` from ``split(rng)[1]``): a DDIM step's pre-sequence noise
+    (``split(sub, 4)[0]``) and outpainting noise (``split(sub, 4)[3]``,
+    unless the tail bank replaces it), a re-noising step's noise (``sub``).
+    eta is 0, so the eta noise is never drawn."""
+    import jax
+    import jax.numpy as jnp
+    from motioncraft_tpu.diffusion.schedules import get_schedule_jump_cjm_ddim
+
+    B, T, D = shape
+    normal = lambda key, s: np.asarray(jax.random.normal(key, s, jnp.float32))  # noqa: E731
+    r_noise, key = jax.random.split(rng)
+    draws = [normal(r_noise, shape)]
+    gt_noise = outpainting and not (repaint.same_overlap_noisy and clip_idx > 0)
+    if outpainting and not repaint.no_repaint:
+        times = (get_schedule_jump_cjm_ddim(num_timesteps) if repaint.no_resample else
+                 get_schedule_jump_cjm_ddim(num_timesteps, jump_length=repaint.jump_length,
+                                            jump_n_sample=repaint.jump_n_sample))
+        for t_last, t_cur in zip(times[:-1], times[1:]):
+            key, sub = jax.random.split(key)
+            if t_cur > t_last:
+                draws.append(normal(sub, shape))
+            elif gt_noise:
+                draws.append(normal(jax.random.split(sub, 4)[3], shape))
+        return draws
+    for _ in range(num_timesteps):
+        key, sub = jax.random.split(key)
+        r_seed, _, _, r_gt = jax.random.split(sub, 4)
+        if pre_len:
+            draws.append(normal(r_seed, (B, pre_len, D)))
+        if gt_noise:
+            draws.append(normal(r_gt, shape))
+    return draws
+
+
+def jax_windowed_draws(num_timesteps, repaint, rng, shape, rounds, pre_frames,
+                       use_repaint=True):
+    """The draws of a JAX windowed sampler over ``rounds`` windows: window w
+    samples with ``fold_in(rng, w)``."""
+    import jax
+
+    draws = []
+    for w in range(rounds):
+        key = jax.random.fold_in(rng, w)
+        if w == 0:
+            draws += jax_sample_draws(num_timesteps, repaint, key, shape)
+        elif use_repaint:
+            draws += jax_sample_draws(num_timesteps, repaint, key, shape, outpainting=True,
+                                      clip_idx=1 if w >= 2 else 0)
+        else:
+            draws += jax_sample_draws(num_timesteps, repaint, key, shape, pre_len=pre_frames)
+    return draws
