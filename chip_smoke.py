@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flagship text-to-motion sampling, training and
-evaluation and its music-to-dance long-form evaluation on one NVIDIA GPU, and
-hold each of its CUDA kernels against its plain PyTorch version.
+evaluation and its music-to-dance and speech-to-gesture long-form
+evaluations on one NVIDIA GPU, and hold each of its CUDA kernels against its
+plain PyTorch version.
 
 Run from the root of the repository, on a machine with one card and the CUDA
 toolkit:
@@ -14,9 +15,10 @@ Phases; any failure exits non-zero:
   2. each kernel against its plain version on the same inputs, at every
      shape of phase 4 (K1-K4's route; K1 and K4 also at layer 0, whose
      motion MoE routes one CFG half), of phase 7 (K4's positions, K5, K6,
-     at B = 32) and of phase 10 (K1-K4 at the M2D shapes: a CFG-doubled
+     at B = 32), of phase 10 (K1-K4 at the M2D shapes: a CFG-doubled
      batch of 2 x 120 frames for one recording and 8 x 120 for 4 in
-     lockstep, and layer 0's half of each): max abs error against its
+     lockstep, and layer 0's half of each) and of phase 11 (the same at the
+     S2G shapes, 2 x 64 and 8 x 64): max abs error against its
      tolerance (K4 exact in its
      integers, its route's gates within 1e-6; on every path a route case
      leaning to one expert must drop choices); the kernel's device time from
@@ -78,7 +80,25 @@ Phases; any failure exits non-zero:
      (the condition encoded once for the batch, as windowed_sample_batch
      encodes a chunk's), card against CPU with the gate logits pinned as in
      phase 6 and the same draws
- 11. one JSON line of the kernels' numbers, and last the device line
+ 11. the S2G long-form evaluation through tools/torch_s2g_test.py on
+     configs/stmogen/s2g_beats2_0125b.py (the same ControlNet over the
+     flagship base, its condition raw onset + amplitude at 16 kHz through
+     the WavEncoder, out_dim 1536): seeded fabricated weights with sane
+     BatchNorm statistics saved and loaded back by --checkpoint, a
+     synthetic BEAT2 tree of 4 test recordings of 244 frames (4 windows of
+     64 overlapping by 4) with onsets that fire, TextGrid words and a
+     mean-velocity file, and an SMPL-X npz at the real sizes written here;
+     sampled at R = 1 and at --recording-batch 4: per-window wall ms,
+     windows per minute, the sampling share; K1-K4's launches equal the
+     count the code implies, and the WavEncoder runs once a window (R = 1)
+     or once a chunk (R = 4), never a denoiser step; metrics.json carries
+     tools/s2g_test.py's keys with LBS joints and face vertices; the
+     encoder's device time on one window against its f32 bound; the
+     samplers at R = 1 agree and wait for the device only for their result
+     (CUDA sync debug mode); the WavEncoder, one ControlNet CFG forward and
+     one whole outpainted window card against CPU with the gate logits
+     pinned
+ 12. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -95,6 +115,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "stmogen", "t2m_motionx_0_125b.py")
 M2D_CONFIG = os.path.join(ROOT, "configs", "stmogen", "m2d_finedance_0125b.py")
+S2G_CONFIG = os.path.join(ROOT, "configs", "stmogen", "s2g_beats2_0125b.py")
 F32_PEAK = 67e12      # H100 SXM CUDA-core f32, FLOP/s
 TF32_PEAK = 495e12    # H100 SXM dense TF32 tensor cores, FLOP/s; 3xTF32 takes 3 passes
 HBM_PEAK = 3.35e12    # H100 SXM device memory, bytes/s
@@ -116,6 +137,12 @@ GT_FID_TOL = 1e-3
 # the same at any track length; 1290 frames, 14 windows, keep phase 10
 # over two minutes)
 M2D_TRACKS, M2D_FRAMES, M2D_REC_BATCH = ["063", "132", "143", "036"], 300, 4
+# phase 11: 4 BEAT2 test recordings of 244 frames: 4 windows of 64
+# overlapping by 4 (a window costs the same at any recording length)
+S2G_RECORDINGS, S2G_FRAMES, S2G_REC_BATCH = 4, 244, 4
+# the SMPL-X neutral body model's sizes: vertices, faces, shape and
+# expression directions, pose-corrective directions
+SMPLX_SIZES = dict(vertices=10475, faces=20908, shapedirs=400, posedirs=486)
 
 PALLAS = {
     "moe_route": "motioncraft_tpu/ops/pallas_moe.py:54",
@@ -283,20 +310,25 @@ def flagship_inputs(torch, cfg, dev, B2=2 * BATCH, T=None, training=True, layer0
     }
 
 
-def kernel_paths(torch, cfg, m2d_cfg, dev):
-    """(path, inputs) for phase 2: the T2M shapes (with training's) and the
-    M2D ones; R recordings in lockstep are a CFG-doubled batch of 2R x 120
-    frames (the base blocks past layer 0 and the control blocks), and layer
-    0's motion MoE routes its first half."""
-    base = {"model": m2d_cfg["model"]["model"]["base_model"]}
-    win = m2d_cfg["windowed"]["window"]
+def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None):
+    """(path, inputs) for phase 2: the T2M shapes (with training's), the
+    M2D ones and the S2G ones; R recordings in lockstep are a CFG-doubled
+    batch of 2R x window frames (120 for M2D, 64 for S2G: the base blocks
+    past layer 0 and the control blocks), and layer 0's motion MoE routes
+    its first half."""
     paths = [("t2m", flagship_inputs(torch, cfg, dev)),
              ("t2m layer 0", flagship_inputs(torch, cfg, dev, training=False, layer0=True))]
-    for R in (1, M2D_REC_BATCH):
-        paths += [(f"m2d R={R}", flagship_inputs(torch, base, dev, B2=2 * R, T=win,
-                                                 training=False)),
-                  (f"m2d R={R} layer 0", flagship_inputs(torch, base, dev, B2=2 * R, T=win,
-                                                         training=False, layer0=True))]
+    for tag, lf_cfg, batch in (("m2d", m2d_cfg, M2D_REC_BATCH),
+                               ("s2g", s2g_cfg, S2G_REC_BATCH)):
+        if lf_cfg is None:
+            continue
+        base = {"model": lf_cfg["model"]["model"]["base_model"]}
+        win = lf_cfg["windowed"]["window"]
+        for R in (1, batch):
+            paths += [(f"{tag} R={R}", flagship_inputs(torch, base, dev, B2=2 * R, T=win,
+                                                       training=False)),
+                      (f"{tag} R={R} layer 0", flagship_inputs(
+                          torch, base, dev, B2=2 * R, T=win, training=False, layer0=True))]
     return paths
 
 
@@ -349,9 +381,9 @@ def kernel_work(name, args):
     return flops, nbytes
 
 
-def phase_kernels(torch, cfg, m2d_cfg, dev):
+def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None):
     """Phase 2: every kernel against its plain version, with times, at the
-    T2M shapes and at the M2D ones."""
+    T2M shapes and at the M2D and S2G ones."""
     from motioncraft_tpu_torch.ops import KERNELS
     from motioncraft_tpu_torch.ops.stma_attention import max_active_clusters
 
@@ -359,7 +391,7 @@ def phase_kernels(torch, cfg, m2d_cfg, dev):
           f"CTAs resident at once (cudaOccupancyMaxActiveClusters)")
 
     rows = {}
-    for path, inputs in kernel_paths(torch, cfg, m2d_cfg, dev):
+    for path, inputs in kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg):
         for name, cases in inputs.items():
             for i, args in enumerate(cases):
                 kernel_case(torch, rows, path, name, i, args, KERNELS[name])
@@ -858,8 +890,8 @@ def phase_m2d(torch, full_cfg, dev="cuda", config=M2D_CONFIG, tracks=M2D_TRACKS,
     import tempfile
 
     import numpy as np
-    from motioncraft_tpu_torch.apis.windowed import (num_windows, windowed_sample,
-                                                     windowed_sample_batch)
+    from motioncraft_tpu_torch.apis.windowed import (_concat_parts, num_windows,
+                                                     windowed_sample, windowed_sample_batch)
     from motioncraft_tpu_torch.diffusion import (RepaintConfig, generator_randn,
                                                  harmonize_schedule)
     from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -960,19 +992,28 @@ def phase_m2d(torch, full_cfg, dev="cuda", config=M2D_CONFIG, tracks=M2D_TRACKS,
           "windowed_sample_batch (R = 1) differs from windowed_sample")
     print("[m2d] windowed_sample_batch at R = 1 equals windowed_sample bit for bit")
 
-    phase_m2d_parity(torch, cfg, arch, sd, infos, window, pre, tool)
+    def window_batch(R, w):
+        mwbs = [tool.make_window_batch_fn(i["c"], i["text"][0], window) for i in infos[:R]]
+        start = w * (window - pre)
+        return {k: torch.as_tensor(v) for k, v in
+                _concat_parts([m(start, start + window) for m in mwbs]).items()}
+
+    window_parity(torch, cfg, arch, sd, window_batch, window, pre, "m2d", (1, M2D_REC_BATCH))
     print(f"[m2d] phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return runs
 
 
-def phase_m2d_parity(torch, cfg, arch, sd, infos, window, pre, tool):
-    """Phase 10's card vs CPU, the CPU's MoE gates fed the card's gate
-    logits (as phase 6), both devices on the same draws: one ControlNet CFG
-    forward (c on, one recording), then one whole outpainted window (window
-    1 of its track, outpainted from a seeded previous window) at R = 1 and
-    at R = M2D_REC_BATCH in lockstep, the latter's condition encoded once
-    for the batch as windowed_sample_batch encodes a chunk's (``c_enc``)."""
-    from motioncraft_tpu_torch.apis.windowed import _concat_parts
+def window_parity(torch, cfg, arch, sd, window_batch, window, pre, tag, rec_batches,
+                  extras=()):
+    """Card vs CPU on a long-form path, the CPU's MoE gates fed the card's
+    gate logits (as phase 6), both devices on the same draws: ``extras``
+    ((what, fn(arch)) without gate calls, such as a condition encoder), one
+    ControlNet CFG forward (c on, one recording), then one whole outpainted
+    window (window 1 of its recordings, outpainted from a seeded previous
+    window) for each R of ``rec_batches`` in lockstep, the condition of R > 1
+    encoded once for the batch as windowed_sample_batch encodes a chunk's
+    (``c_enc``).  ``window_batch(R, w)`` is window w of the first R
+    recordings as CPU tensors."""
     from motioncraft_tpu_torch.diffusion import Outpainting, Replay, harmonize_schedule
     from motioncraft_tpu_torch.models.moe import CosineTopGate
     from motioncraft_tpu_torch.registry import build_architecture
@@ -991,7 +1032,7 @@ def phase_m2d_parity(torch, cfg, arch, sd, infos, window, pre, tool):
         replayed.append(out)
         return want
 
-    def compare(what, fn):
+    def compare(what, fn, gates=True):
         """fn(arch) on the card, then on the CPU; the results within tol."""
         outs, pinned = {}, len(card_logits)
         for label, a, hook in (("cuda", arch, record), ("cpu", cpu, replay)):
@@ -1003,22 +1044,19 @@ def phase_m2d_parity(torch, cfg, arch, sd, infos, window, pre, tool):
             finally:
                 for h in handles:
                     h.remove()
-        check(len(replayed) == len(card_logits) > pinned, "gate calls differ between devices")
+        check(len(replayed) == len(card_logits) > pinned or not gates,
+              "gate calls differ between devices")
         got, want = outs["cuda"], outs["cpu"]
         check(got.shape == want.shape and torch.isfinite(got).all(), f"{what}: {got.shape}")
         scale = max(1.0, float(want.abs().max()))
         diff = float((got - want).abs().max())
-        print(f"[m2d-parity] {what}: card vs CPU max abs diff {diff:.3e} "
+        print(f"[{tag}-parity] {what}: card vs CPU max abs diff {diff:.3e} "
               f"(tol {MODEL_REL_TOL} x {scale:.4g}; {len(card_logits) - pinned} gate "
               f"calls pinned)")
         check(diff <= MODEL_REL_TOL * scale, f"{what} card vs CPU: {diff} > tol")
 
-    def window_batch(R, w):
-        mwbs = [tool.make_window_batch_fn(i["c"], i["text"][0], window) for i in infos[:R]]
-        start = w * (window - pre)
-        return {k: torch.as_tensor(v) for k, v in
-                _concat_parts([m(start, start + window) for m in mwbs]).items()}
-
+    for what, fn in extras:
+        compare(what, fn, gates=False)
     batch = window_batch(1, 0)
     x = torch.randn(1, window, 322, generator=g)
 
@@ -1035,7 +1073,7 @@ def phase_m2d_parity(torch, cfg, arch, sd, infos, window, pre, tool):
     # re-noising ones at DDIM-50)
     steps = len(harmonize_schedule(arch.diffusion_test.num_timesteps, arch.repaint_cfg))
     mask = (torch.arange(window) < pre).reshape(1, window, 1)
-    for R in (1, M2D_REC_BATCH):
+    for R in rec_batches:
         batch_r = window_batch(R, 1)
         last = torch.randn(R, window, 322, generator=g)
         gt = torch.cat([last[:, -pre:], torch.zeros(R, window - pre, 322)], dim=1)
@@ -1055,6 +1093,283 @@ def phase_m2d_parity(torch, cfg, arch, sd, infos, window, pre, tool):
                 + (", condition encoded for the batch" if R > 1 else ""), outpaint)
 
 
+def write_smplx_npz(path, seed):
+    """An SMPL-X body model npz at the neutral model's sizes (SMPLX_SIZES;
+    55 joints, the SMPL-X tree, hand means), seeded: the real asset is not
+    in the repository."""
+    import numpy as np
+    from motioncraft_tpu_torch.ops.fk import SMPLX_PARENTS
+
+    rng = np.random.RandomState(seed)
+    V, J = SMPLX_SIZES["vertices"], len(SMPLX_PARENTS)
+    regressor = rng.rand(J, V)
+    weights = rng.rand(V, J) ** 8  # each vertex led by a few joints
+    np.savez(path,
+             v_template=(rng.randn(V, 3) * 0.3).astype(np.float32),
+             shapedirs=(rng.randn(V, 3, SMPLX_SIZES["shapedirs"]) * 0.01).astype(np.float32),
+             posedirs=(rng.randn(V, 3, SMPLX_SIZES["posedirs"]) * 0.001).astype(np.float32),
+             J_regressor=regressor / regressor.sum(1, keepdims=True),
+             weights=weights / weights.sum(1, keepdims=True),
+             kintree_table=np.stack([np.where(SMPLX_PARENTS < 0, 2 ** 32 - 1, SMPLX_PARENTS),
+                                     np.arange(J)]).astype(np.int64),
+             hands_meanl=rng.randn(45) * 0.1, hands_meanr=rng.randn(45) * 0.1,
+             f=rng.randint(0, V, (SMPLX_SIZES["faces"], 3)).astype(np.int64))
+
+
+def write_beat2_tree(root, n, frames, seed):
+    """A synthetic BEAT2 tree in the layout data/beat2.py reads, n test
+    recordings of speaker 2: smplxflame_30/<name>.npz (poses [frames, 165],
+    expressions [frames, 100], trans, betas [300]), wave16k/<name>.wav (16
+    kHz speech-like noise with a syllable burst every 0.2-0.4 s, so that
+    onsets fire), textgrid/<name>.TextGrid (a word every 0.4 s),
+    weights/mean_vel_smplxflame_30.npy, the split csv, mean/std stats and an
+    SMPL-X npz; returns the path of its st_mogen_emage-schema yaml."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    rng = np.random.RandomState(seed)
+    d = os.path.join(root, "beat2")
+    for sub in ("smplxflame_30", "wave16k", "textgrid", "weights"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    names = [f"2_scott_0_{i + 1}_{i + 1}" for i in range(n)]
+    with open(os.path.join(d, "train_test_split.csv"), "w") as f:
+        f.write("id,type\n" + "".join(f"{name},test\n" for name in names))
+    vocab = ["so", "the", "point", "is", "that", "we", "really", "need", "to", "talk",
+             "about", "gestures", "and", "speech", "today"]
+    sr = 16000
+    for i, name in enumerate(names):
+        np.savez(os.path.join(d, "smplxflame_30", name + ".npz"),
+                 poses=(rng.randn(frames, 165) * 0.2).astype(np.float32),
+                 expressions=(rng.randn(frames, 100) * 0.3).astype(np.float32),
+                 trans=(rng.randn(frames, 3) * 0.05).astype(np.float32),
+                 betas=(rng.randn(300) * 0.5).astype(np.float32))
+        n_samples = int(frames / 30 * sr)
+        wav = rng.randn(n_samples) * 0.01
+        at = int(rng.randint(1000, 4000))
+        while at < n_samples:
+            span = min(2400, n_samples - at)
+            wav[at:at + span] += (rng.randn(span) * 0.4 * np.exp(-np.arange(span) / 600))
+            at += int(rng.randint(3200, 6400))
+        wavfile.write(os.path.join(d, "wave16k", name + ".wav"), sr,
+                      (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+        seconds = frames / 30
+        words = [(k * 0.4, min((k + 1) * 0.4, seconds), vocab[(i + k) % len(vocab)])
+                 for k in range(int(seconds / 0.4))]
+        with open(os.path.join(d, "textgrid", name + ".TextGrid"), "w") as f:
+            f.write('File type = "ooTextFile"\nObject class = "TextGrid"\n\nxmin = 0\n'
+                    f'xmax = {seconds}\ntiers? <exists>\nsize = 1\nitem []:\n'
+                    f'    item [1]:\n        class = "IntervalTier"\n        name = "words"\n'
+                    f'        xmin = 0\n        xmax = {seconds}\n'
+                    f'        intervals: size = {len(words)}\n')
+            for k, (a, b, w) in enumerate(words):
+                f.write(f"        intervals [{k + 1}]:\n            xmin = {a}\n"
+                        f'            xmax = {b}\n            text = "{w}"\n')
+    np.save(os.path.join(d, "weights", "mean_vel_smplxflame_30.npy"),
+            rng.uniform(0.3, 0.8, 55).astype(np.float32))
+    np.save(os.path.join(root, "mean.npy"), np.zeros(322, np.float32))
+    np.save(os.path.join(root, "std.npy"), np.ones(322, np.float32))
+    smplx = os.path.join(root, "SMPLX_NEUTRAL_2020.npz")
+    write_smplx_npz(smplx, seed)
+    path = os.path.join(root, "beat2.yaml")
+    with open(path, "w") as f:
+        f.write(f"data_path: {d}/\npose_length: 64\nstride: 20\npre_frames: 4\n"
+                "pose_fps: 30\naudio_sr: 16000\naudio_rep: onset+amplitude\n"
+                "pose_rep: smplxflame_30\ntraining_speakers: [2]\n"
+                f"smplx_model_path: {smplx}\nmean_pose_path: {root}/mean.npy\n"
+                f"std_pose_path: {root}/std.npy\n")
+    return path
+
+
+def wav_encoder_flops(torch, encoder, wav):
+    """The multiply-adds x 2 of ``encoder``'s convolutions on ``wav``,
+    counted from each Conv1d's output shape."""
+    flops = [0]
+
+    def count(mod, inp, out):
+        flops[0] += 2 * out.numel() * mod.in_channels * mod.kernel_size[0]
+
+    handles = [m.register_forward_hook(count) for m in encoder.modules()
+               if isinstance(m, torch.nn.Conv1d)]
+    with torch.no_grad():
+        encoder(wav)
+    for h in handles:
+        h.remove()
+    return flops[0]
+
+
+def phase_s2g(torch, full_cfg, dev="cuda", config=S2G_CONFIG, recordings=S2G_RECORDINGS,
+              frames=S2G_FRAMES):
+    """Phase 11: the S2G long-form evaluation of tools/torch_s2g_test.py on
+    ``config`` (whose content ``full_cfg`` is), at R = 1 and at R =
+    S2G_REC_BATCH, with checks."""
+    import tempfile
+
+    import numpy as np
+    from motioncraft_tpu_torch.apis.windowed import (_concat_parts, num_windows,
+                                                     windowed_sample, windowed_sample_batch)
+    from motioncraft_tpu_torch.diffusion import (RepaintConfig, generator_randn,
+                                                 harmonize_schedule)
+    from motioncraft_tpu_torch.models.blocks import WavEncoder
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.checkpoint import save_params
+    from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
+
+    tool = load_tool("torch_s2g_test")
+    cfg = full_cfg["model"]
+    win_cfg = full_cfg["windowed"]
+    window, pre = win_cfg["window"], win_cfg["pre_frames"]
+    fps, spf = win_cfg["pose_fps"], win_cfg["audio_sr"] // win_cfg["pose_fps"]
+    t_phase = time.perf_counter()
+    arch = build_architecture(cfg, device=dev)
+    sd = fabricate_state_dict(arch.model, seed=SEED)
+    arch.model.load_state_dict(sd, strict=True)
+    model = arch.model
+    enc = model.condition_pre_encoder
+    print(f"[s2g] {type(model).__name__}: {model.num_layers} base layers + "
+          f"{model.copy_blocks_num} control blocks, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters "
+          f"({sum(p.numel() for p in enc.parameters()) / 1e6:.1f} M in the WavEncoder, "
+          f"{sum(1 for k in sd if k.endswith('running_var'))} BatchNorm statistics)")
+    layers = model.num_layers + model.copy_blocks_num
+    steps = arch.diffusion_test.num_timesteps
+    rp = RepaintConfig(overlap_len=pre)
+    outpaint_calls = sum(d for _, d in harmonize_schedule(steps, rp))
+    wins = num_windows(frames, window, pre)
+    calls = steps + (wins - 1) * outpaint_calls  # denoiser calls a recording
+
+    def want_counts(groups):
+        per = {"moe_route": groups * layers * (calls + wins),
+               "grouped_ffn": groups * layers * (calls + wins),
+               "head_ffn": groups * layers * calls,
+               "stma_linear_attention": groups * layers * calls}
+        return {k: per.get(k, 0) for k in launch_counts()}
+
+    # the WavEncoder's calls: once a sampling call (R = 1: a window), or once
+    # a chunk of windows for a lockstep batch, never a denoiser step
+    enc_calls, encoder_forward = [0], WavEncoder.forward
+
+    def counted_forward(self, wav):
+        enc_calls[0] += 1
+        return encoder_forward(self, wav)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        yaml_path = write_beat2_tree(tmp, recordings, frames, SEED)
+        params = os.path.join(tmp, "params.npz")
+        save_params(params, model)
+        print(f"[s2g] {recordings} recordings of {frames} frames, an SMPL-X npz "
+              f"({SMPLX_SIZES['vertices']} vertices) and the weights "
+              f"({os.path.getsize(params) / 2**20:.0f} MiB) written in "
+              f"{time.perf_counter() - t0:.1f} s; {wins} windows a recording, "
+              f"{calls} denoiser calls ({steps} + {wins - 1} x {outpaint_calls})")
+        runs = {}
+        for R in (1, S2G_REC_BATCH):
+            argv = [config, "--device", dev, "--checkpoint", params, "--seed", str(SEED),
+                    "--beats2-args", yaml_path, "--work-dir", os.path.join(tmp, f"R{R}"),
+                    "--recording-batch", str(R)]
+            reset_launch_counts()
+            enc_calls[0] = 0
+            WavEncoder.forward = counted_forward
+            try:
+                run = tool.main(argv)
+            finally:
+                WavEncoder.forward = encoder_forward
+            counts = launch_counts()
+            out = run["out"]
+            groups = -(-recordings // R)
+            n_win = run["windows"] * R  # recording windows sampled
+            print(f"[s2g] R={R}: {run['windows']} window batches ({n_win} recording windows) "
+                  f"in {run['sample_s']:.3f} s: {run['sample_s'] / run['windows'] * 1e3:.1f} ms "
+                  f"a window batch, {n_win * 60 / run['sample_s']:.1f} windows per minute; "
+                  f"metric stage {run['eval_s']:.3f} s, sampling share "
+                  f"{run['sample_s'] / (run['sample_s'] + run['eval_s']):.3f}; WavEncoder "
+                  f"calls {enc_calls[0]}; launches {counts}")
+            metric = {k: v for k, v in out.items() if k not in ("flags", "protocol")}
+            print(f"[s2g] R={R} metrics {json.dumps(metric)}; flags {json.dumps(out['flags'])}")
+            check(set(out) == {"L1div", "BeatAlign", "facial_L2", "facial_LVD", "FID_whole",
+                               "FID_hands", "protocol", "flags"}
+                  and set(out["flags"]) == {"smplx_vertices", "mmae_asset",
+                                            "untrained_evaluator", "hash_tokenizer",
+                                            "int8_weights", "step_cache"},
+                  f"metrics.json keys {sorted(out)} / {sorted(out['flags'])}")
+            check(out["flags"]["smplx_vertices"] and out["flags"]["mmae_asset"]
+                  and run["body_model"] is not None, "the SMPL-X route did not run")
+            check(all(np.isfinite(v) for v in metric.values()), f"non-finite metrics {metric}")
+            check(len(run["preds"]) == recordings
+                  and all(p.shape == (frames, 322) and np.isfinite(p).all()
+                          for p in run["preds"]), "predictions of the wrong shape or not finite")
+            want = want_counts(groups)
+            check(counts == want, f"R={R} launch counts {counts} != expected {want}")
+            check(enc_calls[0] == (recordings * wins if R == 1 else groups),
+                  f"R={R}: the WavEncoder ran {enc_calls[0]} times")
+            runs[R] = {"counts": counts, "sample_s": run["sample_s"], "eval_s": run["eval_s"],
+                       "windows": run["windows"], "encoder_calls": enc_calls[0]}
+            recs = run["recordings"]
+            del run
+
+    def window_batch(R, w):
+        mwbs = [tool.make_window_batch_fn(r, window, spf, fps) for r in recs[:R]]
+        start = w * (window - pre)
+        return {k: torch.as_tensor(v) for k, v in
+                _concat_parts([m(start, start + window) for m in mwbs]).items()}
+
+    # the encoder on one window: its device time against the f32 bound of
+    # its convolutions (cuDNN, TF32 off)
+    c1 = window_batch(1, 0)["c"].to(dev)
+    with torch.no_grad():
+        flops = wav_encoder_flops(torch, enc, c1)
+        enc_ms = device_ms(torch, lambda: enc(c1), reps=5)
+        enc_call_ms = time_ms(torch, lambda: enc(c1), reps=5)
+    bound_ms, bound_by = bound(flops, 4 * (c1.numel() + window * enc.block5.conv1.out_channels
+                                           + sum(p.numel() for p in enc.parameters())),
+                               F32_PEAK)
+    print(f"[s2g] WavEncoder on one window {tuple(c1.shape)}: {flops / 1e9:.2f} GFLOP, "
+          f"{enc_ms:.3f} ms on the device ({enc_call_ms:.3f} ms a back-to-back call), "
+          f"f32 bound {bound_ms:.3f} ms ({bound_by}, share {bound_ms / enc_ms:.3f})")
+
+    # the samplers at R = 1 over the first windows of one recording, same
+    # draws: windowed_sample_batch with the condition per window equals
+    # windowed_sample bit for bit; encoded per chunk, within tolerance; none
+    # waits for the device in its window loop (the one wait is the copy of
+    # the result)
+    arch.repaint_cfg = rp
+    short = window + 2 * (window - pre)
+    mwb = tool.make_window_batch_fn(recs[0], window, spf, fps)
+    kw = dict(window=window, pre_frames=pre, repaint=rp)
+    outs = {}
+    for label, fn in (("single", lambda r: windowed_sample(arch, mwb, total_frames=short,
+                                                           randn=r, **kw)),
+                      ("batch", lambda r: windowed_sample_batch(
+                          arch, [mwb], [short], randn=r, precompute_condition=False,
+                          **kw)[0]),
+                      ("batch encoded", lambda r: windowed_sample_batch(
+                          arch, [mwb], [short], randn=r, **kw)[0])):
+        randn = generator_randn(torch.Generator(device=dev).manual_seed(SEED + 11), dev)
+        outs[label], syncs = count_syncs(torch, lambda: fn(randn))
+        print(f"[s2g] {label} sampler, {num_windows(short, window, pre)} windows: "
+              f"{len(syncs)} waits for the device {syncs}")
+        check(len(syncs) <= 1, f"the {label} window loop waits for the device: {syncs}")
+    check(np.array_equal(outs["single"], outs["batch"]),
+          "windowed_sample_batch (R = 1) differs from windowed_sample")
+    scale = max(1.0, float(np.abs(outs["single"]).max()))
+    diff = float(np.abs(outs["batch encoded"] - outs["single"]).max())
+    print(f"[s2g] windowed_sample_batch at R = 1 equals windowed_sample bit for bit; with "
+          f"the condition encoded per chunk: max abs diff {diff:.3e} "
+          f"(tol {MODEL_REL_TOL} x {scale:.4g})")
+    check(diff <= MODEL_REL_TOL * scale, f"condition encoded per chunk: {diff}")
+
+    def encode(a):
+        return a.model.condition_pre_encoder(window_batch(1, 0)["c"].to(a.device))
+
+    window_parity(torch, cfg, arch, sd, window_batch, window, pre, "s2g", (1,),
+                  extras=[(f"WavEncoder, one window of {window * spf} samples", encode)])
+    runs["encoder"] = {"flops": flops, "ms": enc_ms, "call_ms": enc_call_ms,
+                       "bound_ms": bound_ms}
+    print(f"[s2g] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def main():
     try:
         import torch
@@ -1072,7 +1387,7 @@ def main():
     except ImportError as e:
         print(f"chip_smoke: the port is not next to this script ({e})", file=sys.stderr)
         return 2
-    for path in (CONFIG, M2D_CONFIG):
+    for path in (CONFIG, M2D_CONFIG, S2G_CONFIG):
         if not os.path.isfile(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 2
@@ -1088,9 +1403,10 @@ def main():
 
     full_cfg = Config.fromfile(CONFIG)
     m2d_cfg = Config.fromfile(M2D_CONFIG)
+    s2g_cfg = Config.fromfile(S2G_CONFIG)
     cfg = full_cfg["model"]
     dev = torch.device("cuda")
-    rows = phase_kernels(torch, cfg, m2d_cfg, dev)
+    rows = phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg)
 
     t0 = time.perf_counter()
     arch = build_architecture(cfg, device="cuda")
@@ -1106,14 +1422,16 @@ def main():
     phase_train_parity(torch, cfg, sd)
     eval_counts = phase_eval(torch, full_cfg, sd)
     m2d = phase_m2d(torch, m2d_cfg)
+    s2g = phase_s2g(torch, s2g_cfg)
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
         # K4's route, training for K4's positions, K5 and K6; and on the
-        # evaluation paths of phase 9 and of phase 10 (R = 1, then R = 4)
+        # evaluation paths of phases 9, 10 and 11 (R = 1, then R = 4)
         row["launches"] = counts[name] or train_counts[name]
         row["eval_launches"] = eval_counts[name]
         row["m2d_launches"] = [m2d[R]["counts"][name] for R in sorted(m2d)]
+        row["s2g_launches"] = [s2g[R]["counts"][name] for R in (1, S2G_REC_BATCH)]
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

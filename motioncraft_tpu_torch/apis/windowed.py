@@ -2,9 +2,14 @@
 (PyTorch port of motioncraft_tpu/apis/windowed.py).
 
 A recording is generated window by window (for music-to-dance, 120-frame
-windows overlapping by 30): the first window is plain DDIM; each later one
-is outpainted from the previous window's tail by RePaint's harmonized DDIM
-(``use_repaint``) or seeded with it by q_sample (``pre_seq``).  The loop
+windows overlapping by 30, the condition 163-d music features a frame; for
+speech-to-gesture, 64-frame windows overlapping by 4, the condition the
+window's audio samples, onset and amplitude at 16 kHz, [1, 64 x 533, 2]):
+the condition slice goes through as it is, whatever its length, and the
+model encodes it once a sampling call.  The first window is plain DDIM;
+each later one is outpainted from the previous window's tail by RePaint's
+harmonized DDIM (``use_repaint``) or seeded with it by q_sample
+(``pre_seq``).  The loop
 over windows runs on the host, but nothing in it waits for the device: the
 window batches go up in pinned memory without a sync, the carry (the last
 window, the noisy-tail bank) stays on the device, every per-step decision

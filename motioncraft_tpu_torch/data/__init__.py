@@ -1,8 +1,9 @@
-"""Text-to-motion and music-to-dance data: datasets, pipelines and the
-batcher (PyTorch port of motioncraft_tpu/data; host-side numpy)."""
+"""Text-to-motion, music-to-dance and speech-to-gesture data: datasets,
+pipelines, the batcher and the BEAT2 recordings (PyTorch port of
+motioncraft_tpu/data; host-side numpy)."""
 
 from . import pipelines  # noqa: F401  (registers PIPELINES)
 from .datasets import (BaseMotionDataset, ConcatDataset,  # noqa: F401
                        FinedanceMotionDataset, RepeatDataset, TextMotionDataset,
-                       finedance_split, finedance_to_smplx322)
+                       beat2_pose_to_smplx322, finedance_split, finedance_to_smplx322)
 from .loader import DataLoader, RoundUpSampler, build_dataloader, collate  # noqa: F401

@@ -6,11 +6,12 @@ expansion with shuffled replications, GT face/shape alignment before the
 metrics), TextMotionDataset, FinedanceMotionDataset (the hardcoded
 cross_genre / cross_dancer splits, the 319-d -> SMPL-X 322 remap with the
 +1.3 m height offset, 163-d music features, a style caption, the 360-frame
-head trim) and the Repeat/Concat wrappers.  The shuffles of
+head trim), ``beat2_pose_to_smplx322`` (the BEAT2 smplxflame layout of the
+speech recordings -> SMPL-X 322) and the Repeat/Concat wrappers.  The shuffles of
 ``prepare_evaluation`` draw from the global numpy generator, as the JAX
 package's do, so one ``np.random.seed`` gives both the same eval indexes.
-The speech and mixed datasets are not ported yet (they come with
-speech-to-gesture).
+The speech and mixed training datasets are not ported yet (ROADMAP queue 1:
+the rest of training).
 """
 
 from __future__ import annotations
@@ -199,6 +200,21 @@ def finedance_to_smplx322(motion_319: np.ndarray) -> np.ndarray:
     out[:, 66:156] = motion_319[:, 73:163]
     out[:, 309:312] = motion_319[:, 4:7]
     out[:, 310] += 1.3
+    return out
+
+
+def beat2_pose_to_smplx322(pose165: np.ndarray, facial100: np.ndarray,
+                           trans3: np.ndarray) -> np.ndarray:
+    """BEAT2 smplxflame (165-d axis-angle: body 0:66, jaw 66:69, eyes,
+    hands 75:165; 100 expression coefficients; translation) -> SMPL-X 322:
+    body, hands at 66:156, jaw at 156:159, expression at 209:309,
+    translation at 309:312."""
+    out = np.zeros((pose165.shape[0], 322), np.float32)
+    out[:, :66] = pose165[:, :66]
+    out[:, 66:156] = pose165[:, 75:165]
+    out[:, 156:159] = pose165[:, 66:69]
+    out[:, 209:309] = facial100
+    out[:, 309:312] = trans3
     return out
 
 

@@ -1,6 +1,6 @@
-"""Text-to-motion evaluation: the SMPL-X contrastive evaluator model, the
-evaluators of each metric and the metric math (PyTorch port of
-motioncraft_tpu/eval)."""
+"""Evaluation: the SMPL-X contrastive evaluator model, the evaluators of
+each text-to-motion metric, the metric math and the gesture metrics
+(gesture_metrics.py) (PyTorch port of motioncraft_tpu/eval)."""
 
 from . import models  # noqa: F401  (registers T2MContrastiveModel_SMPLX)
 from .evaluators import (BaseEvaluator, DiversityEvaluator, FIDEvaluator,  # noqa: F401

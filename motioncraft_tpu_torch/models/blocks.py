@@ -6,6 +6,9 @@
   - SFFN: the per-head (body-part) FFN, through kernel K2 (ops/sffn.py) at
     inference; in training the plain einsum pair with dropout, as the JAX
     package trains it
+  - ConvBasicBlock1D / WavEncoder: the speech condition's raw-audio conv
+    encoder, with BatchNorm statistics (buffers ``running_mean`` /
+    ``running_var``, flax's ``batch_stats`` ``mean`` / ``var``)
 
 Module and parameter names follow the flax modules, so a flax ``params``
 tree maps onto the ``state_dict`` by name (utils/convert.py).  GELU is the
@@ -96,3 +99,53 @@ class SFFN(nn.Module):
             y = head_ffn(x.reshape(B * T, D), self.w1, self.b1, self.w2,
                          self.b2).reshape(B, T, D)
         return x + self.proj_out(y, emb)
+
+
+class ConvBasicBlock1D(nn.Module):
+    """The residual conv block of WavEncoder on [B, C, L]: conv1 (stride,
+    symmetric padding) -> bn1 -> leaky ReLU -> conv2 ('same') -> bn2, plus
+    the shortcut (down_conv -> down_bn where it downsamples), then leaky
+    ReLU.  BatchNorm as flax's: eps 1e-5, running statistics in eval mode,
+    momentum 0.01 (flax's 0.99)."""
+
+    def __init__(self, inplanes: int, planes: int, ker_size: int = 15, stride: int = 1,
+                 pad: int = 0, downsample: bool = False):
+        super().__init__()
+        self.conv1 = nn.Conv1d(inplanes, planes, ker_size, stride=stride, padding=pad)
+        self.bn1 = nn.BatchNorm1d(planes, eps=1e-5, momentum=0.01)
+        self.conv2 = nn.Conv1d(planes, planes, ker_size, padding=ker_size // 2)
+        self.bn2 = nn.BatchNorm1d(planes, eps=1e-5, momentum=0.01)
+        self.downsample = downsample
+        if downsample:
+            self.down_conv = nn.Conv1d(inplanes, planes, ker_size, stride=stride, padding=pad)
+            self.down_bn = nn.BatchNorm1d(planes, eps=1e-5, momentum=0.01)
+
+    def forward(self, x):
+        y = F.leaky_relu(self.bn1(self.conv1(x)), 0.01)
+        y = self.bn2(self.conv2(y))
+        shortcut = self.down_bn(self.down_conv(x)) if self.downsample else x
+        return F.leaky_relu(y + shortcut, 0.01)
+
+
+class WavEncoder(nn.Module):
+    """Raw-audio conv encoder, 16 kHz samples -> about 30 fps features:
+    [B, L] or [B, L, audio_in] -> [B, L', out_dim].  Six blocks, strides
+    5, 6, 1, 6, 1, 3 (540 samples a frame); block 0 pads 1600 samples on each
+    side, so a window of 64 x 533 samples gives exactly 64 frames.  The
+    convolutions run as cuDNN's (TF32 off)."""
+
+    def __init__(self, out_dim: int, audio_in: int = 1):
+        super().__init__()
+        d = out_dim
+        self.block0 = ConvBasicBlock1D(audio_in, d // 4, 15, 5, pad=1600, downsample=True)
+        self.block1 = ConvBasicBlock1D(d // 4, d // 4, 15, 6, pad=0, downsample=True)
+        self.block2 = ConvBasicBlock1D(d // 4, d // 4, 15, 1, pad=7)
+        self.block3 = ConvBasicBlock1D(d // 4, d // 2, 15, 6, pad=0, downsample=True)
+        self.block4 = ConvBasicBlock1D(d // 2, d // 2, 15, 1, pad=7)
+        self.block5 = ConvBasicBlock1D(d // 2, d, 15, 3, pad=0, downsample=True)
+
+    def forward(self, wav):
+        x = (wav[:, :, None] if wav.dim() == 2 else wav).transpose(1, 2)
+        for i in range(6):
+            x = getattr(self, f"block{i}")(x)
+        return x.transpose(1, 2)

@@ -1,15 +1,16 @@
-"""The ControlNet branch for music-to-dance (PyTorch port of
-motioncraft_tpu/models/controlnet.py, STMoGen base).
+"""The ControlNet branch for music-to-dance and speech-to-gesture (PyTorch
+port of motioncraft_tpu/models/controlnet.py, STMoGen base).
 
   - The base model (``base_model``, an STMoGenTransformer) runs as it is.
   - The first ``copy_blocks_num`` decoder layers are copied as control
     blocks (``controlnet_N.copied_block``) with zero-initialised projections
     around them (``before_proj`` on block 0, ``after_proj`` on each), so that
     at initialisation the branch changes nothing.
-  - The condition stream (163-d music features) enters through a
-    zero-initialised input projection (``control_cond_input``), is padded or
-    cut to the window, gets the base's sequence embedding over its own
-    length, and is injected as ``c_skip`` residuals into base blocks
+  - The condition stream (163-d music features, or raw 16 kHz onset and
+    amplitude through the ``condition_pre_encoder`` WavEncoder) enters
+    through a zero-initialised input projection (``control_cond_input``),
+    is padded or cut to the window, gets the base's sequence embedding over
+    its own length, and is injected as ``c_skip`` residuals into base blocks
     1..copy_blocks_num.
   - Condition-CFG zeroes ``c`` on the unconditional half of the CFG batch.
 
@@ -18,9 +19,12 @@ between its block 0 and block copy_blocks_num + 1: block 0 still sees two
 identical halves, so its layer-0 dedup applies as in the base model.  The
 control blocks' text MoEs are hoisted with the base's
 (``precompute_text_feats``: ``{"base": ..., "ctrl": ...}``), on the
-CFG-doubled text batch so that MoE capacity is the in-layer one.
+CFG-doubled text batch so that MoE capacity is the in-layer one.  The
+condition (the WavEncoder's 84 GFLOP a 64-frame window at full width)
+depends on no timestep: ``encode_condition`` runs once per sampling call,
+never per denoiser step.
 
-Not ported, and refused: the wav / wav2vec condition pre-encoders, patched
+Not ported, and refused: the wav2vec condition pre-encoder, patched
 conditions (``patch_size > 1``), the MCM block type, the step cache and
 ControlNet training (ROADMAP queue 1; ``joint_embed_unfreeze`` and
 ``unfreeze_mode``, training's freezing masks, are accepted and unused).
@@ -34,10 +38,11 @@ import torch
 from torch import nn
 
 from ..registry import SUBMODULES
-from .blocks import ZeroDense
+from .blocks import WavEncoder, ZeroDense
 from .stmogen import STMoGenDecoderLayer
 
-S2G = "ROADMAP queue 1: S2G (speech-to-gesture)"
+S2G_REST = "ROADMAP queue 1: the rest of S2G (wav2vec)"
+ZOO = "ROADMAP queue 1: DDPM and the baseline zoo"
 TRAINING = "ROADMAP queue 1: the rest of training"
 
 
@@ -77,14 +82,20 @@ class ControlT2MHalf(nn.Module):
         base_type = base_cfg.setdefault("type", "STMoGenTransformer")
         if block_type != "stmogen" or base_type != "STMoGenTransformer":
             raise NotImplementedError(
-                f"ControlNet over {base_type} blocks ({block_type!r}): the MCM base "
-                "(ROADMAP queue 1: DDPM and the baseline zoo)")
+                f"ControlNet over {base_type} blocks ({block_type!r}): the MCM base ({ZOO})")
         if patch_size > 1:
-            raise NotImplementedError(f"ControlNet with patch_size > 1 ({S2G})")
+            raise NotImplementedError(f"ControlNet with patch_size > 1: PatchEmbed1D ({ZOO})")
         cc = dict(condition_encode_cfg or {})
+        cond_width = control_cond_feats
         if cc.get("condition_pre_encode", False):
             kind = cc.get("condition_pre_encode_type", "wav")
-            raise NotImplementedError(f"condition_pre_encode ({kind!r} encoder): {S2G}")
+            if kind != "wav":
+                raise NotImplementedError(f"condition_pre_encode ({kind!r} encoder): {S2G_REST}")
+            cond_width = cc.get("condition_latent_dim", 512)
+            self.condition_pre_encoder = WavEncoder(
+                cond_width, audio_in=cc.get("control_cond_feats", control_cond_feats))
+        else:
+            self.condition_pre_encoder = None
         self.base_model = SUBMODULES.build(base_cfg)
         base = self.base_model
         if copy_blocks_num >= base.num_layers:
@@ -96,7 +107,9 @@ class ControlT2MHalf(nn.Module):
         for i in range(copy_blocks_num):
             self.add_module(f"controlnet_{i}", ControlT2MBlock(
                 base_cfg["ca_block_cfg"], base_cfg["ffn_cfg"], i, base.latent_dim))
-        self.control_cond_input = ZeroDense(control_cond_feats, base.latent_dim)
+        # after a pre-encoder the projection reads its features (flax infers
+        # the width)
+        self.control_cond_input = ZeroDense(cond_width, base.latent_dim)
 
     @property
     def num_layers(self):
@@ -110,11 +123,14 @@ class ControlT2MHalf(nn.Module):
         return self.base_model.encode_text(text_ids)
 
     def encode_condition(self, c, seq_len: int):
-        """Condition features [B, Tc, F] -> [B, seq_len, latent]: the
+        """The condition [B, Tc, F] (for the WavEncoder, audio samples
+        [B, L, 2]) -> [B, seq_len, latent]: the pre-encoder if any, the
         zero-initialised input projection, then padded with zeros or cut to
         ``seq_len``, with the base's sequence embedding added over the
-        original condition length.  It depends on no timestep, so sampling
+        encoded condition's length.  It depends on no timestep, so sampling
         encodes it once per call (or per chunk of windows)."""
+        if self.condition_pre_encoder is not None:
+            c = self.condition_pre_encoder(c)
         c = self.control_cond_input(c)
         n = min(c.shape[1], seq_len)
         pad = seq_len - c.shape[1]

@@ -2,10 +2,11 @@
 (PyTorch port of motioncraft_tpu/utils/checkpoint.py).
 
 - ``save_params`` / ``load_params``: the JAX package's flat ``.npz``
-  layout, one array per '/'-joined flax path (``params/block_0/...``).  A
-  snapshot written by the JAX package's training evaluates in the port, and
-  one the port writes (``to_jax_params`` of its state_dict) evaluates in the
-  JAX package.
+  layout, one array per '/'-joined flax path (``params/block_0/...``, and
+  ``batch_stats/...`` for a model with BatchNorm, the speech encoder).  A
+  snapshot written by the JAX package evaluates in the port, and one the
+  port writes (``to_jax_variables`` of its state_dict) evaluates in the JAX
+  package.
 - ``load_eval_variables``: the weights an evaluation runs with, from a
   reference ``.pth`` (STMoGen, or a merged base+control ControlT2MHalf) or
   a ``.npz`` snapshot.
@@ -26,14 +27,15 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .convert import from_jax_params, to_jax_params
+from .convert import from_jax_params, from_jax_variables, to_jax_variables
 
 
 def save_params(path: str, variables: Any) -> None:
     """Flat-file snapshot: a nested dict of arrays, or an ``nn.Module`` (then
-    ``{"params": to_jax_params(its state_dict)}``), as one ``.npz``."""
+    ``to_jax_variables`` of its state_dict: ``params`` and, with BatchNorm,
+    ``batch_stats``), as one ``.npz``."""
     if isinstance(variables, torch.nn.Module):
-        variables = {"params": to_jax_params(variables.state_dict())}
+        variables = to_jax_variables(variables.state_dict())
     flat = {}
 
     def walk(prefix, node):
@@ -79,8 +81,9 @@ def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None
                         torch_checkpoint=None) -> Optional[Dict[str, torch.Tensor]]:
     """Load evaluation weights into ``model`` (the denoiser): a reference
     ``.pth`` (``torch_checkpoint``, STMoGen or ControlT2MHalf) or the flat
-    ``.npz`` of ``save_params`` (``checkpoint``), ``strict=True``.  Returns
-    the state_dict loaded, or None when neither file is given."""
+    ``.npz`` of ``save_params`` (``checkpoint``: its ``params`` and
+    ``batch_stats``), ``strict=True``.  Returns the state_dict loaded, or
+    None when neither file is given."""
     sub = model_cfg["model"]
     if torch_checkpoint and sub["type"] == "ControlT2MHalf":
         from .torch_convert import load_controlnet_ckpt
@@ -103,7 +106,7 @@ def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None
                                  te.get("clip_layers", 12))
     if checkpoint:
         tree = align_block_layout(model_cfg, load_params(checkpoint))
-        sd = from_jax_params(tree.get("params", tree))
+        sd = from_jax_variables(tree) if "params" in tree else from_jax_params(tree)
         model.load_state_dict(sd, strict=True)
         return sd
     return None

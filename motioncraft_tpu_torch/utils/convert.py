@@ -1,18 +1,24 @@
 """Weights between the JAX package and the port, and seeded weights for runs
 without a checkpoint.
 
-The port's modules carry the flax module and parameter names, so a flax
-``params`` tree maps onto the port's ``state_dict`` by path:
+The port's modules carry the flax module and parameter names, so flax
+``variables`` map onto the port's ``state_dict`` by path:
 
   - ``Dense.kernel`` [in, out]      -> ``Linear.weight`` [out, in]
-  - ``LayerNorm.scale``             -> ``LayerNorm.weight``
+  - ``Conv.kernel`` [k, in, out]    -> ``Conv1d.weight`` [out, in, k]
+  - ``LayerNorm.scale`` / ``BatchNorm.scale`` -> ``weight``
   - ``Embed.embedding`` (token_embedding, and the evaluator's
     word_embeddings / position_embeddings) -> ``Embedding.weight``
+  - ``batch_stats`` ``mean`` / ``var`` -> the BatchNorm buffers
+    ``running_mean`` / ``running_var`` (``num_batches_tracked`` 0)
   - ``nn.Sequential`` ``layers_N``  -> index ``N``
   - everything else as it is (``expert_w1`` [E, D, F], ``w1`` [H, d, f], ...)
 
-``to_jax_params`` is its exact inverse: a 2-d ``weight`` is a Linear's (or,
-under one of the embedding names, an Embedding's), a 1-d one a LayerNorm's.
+``to_jax_variables`` is the exact inverse (``num_batches_tracked``, which
+flax does not keep, left out): a 3-d ``weight`` is a Conv1d's, a 2-d one a
+Linear's (or, under one of the embedding names, an Embedding's), a 1-d one
+a norm's scale.  ``from_jax_params`` / ``to_jax_params`` carry ``params``
+alone.
 """
 
 from __future__ import annotations
@@ -26,67 +32,120 @@ import torch
 
 
 EMBEDDINGS = ("token_embedding", "word_embeddings", "position_embeddings")
+# BatchNorm buffers: flax batch_stats leaf -> state_dict leaf
+STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _walk(tree: Mapping, visit, path=()):
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            _walk(val, visit, path + (re.sub(r"^layers_(\d+)$", r"\1", key),))
+        else:
+            visit(list(path), key, np.asarray(val, dtype=np.float32))
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
 
 
 def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax ``params`` (nested dict of numpy arrays) -> the port's state_dict."""
     out: Dict[str, torch.Tensor] = {}
 
-    def walk(node, path):
-        for key, val in node.items():
-            if isinstance(val, Mapping):
-                walk(val, path + [re.sub(r"^layers_(\d+)$", r"\1", key)])
-                continue
-            a = np.asarray(val, dtype=np.float32)
-            if key == "kernel":
-                key, a = "weight", a.T
-            elif key == "scale" or (key == "embedding" and path and path[-1] in EMBEDDINGS):
-                key = "weight"
-            out[".".join(path + [key])] = torch.from_numpy(np.ascontiguousarray(a))
+    def visit(path, key, a):
+        if key == "kernel":  # Dense [in, out] or Conv [k, in, out]: reverse the axes
+            key, a = "weight", np.transpose(a)
+        elif key == "scale" or (key == "embedding" and path and path[-1] in EMBEDDINGS):
+            key = "weight"
+        out[".".join(path + [key])] = _tensor(a)
 
-    walk(params, [])
+    _walk(params, visit)
     return out
 
 
-def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
-    """The port's state_dict -> a flax ``params`` tree of numpy arrays, the
-    inverse of ``from_jax_params``: ``from_jax_params(to_jax_params(sd))``
-    gives back every tensor bit for bit."""
-    tree: dict = {}
+def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``variables`` (``params`` and, for BatchNorm, ``batch_stats``)
+    -> the port's state_dict, each BatchNorm's ``num_batches_tracked`` 0."""
+    out = from_jax_params(variables["params"])
+
+    def visit(path, key, a):
+        out[".".join(path + [STATS[key]])] = _tensor(a)
+        out[".".join(path + ["num_batches_tracked"])] = torch.tensor(0)
+
+    _walk(variables.get("batch_stats", {}), visit)
+    return out
+
+
+def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The port's state_dict -> flax ``{"params": ..., "batch_stats": ...}``
+    (``batch_stats`` only where the model has BatchNorm buffers) of numpy
+    arrays, the inverse of ``from_jax_variables``: every tensor comes back
+    bit for bit."""
+    trees: dict = {"params": {}, "batch_stats": {}}
+    back = {v: k for k, v in STATS.items()}
     for name, value in state_dict.items():
         path = [f"layers_{p}" if p.isdigit() else p for p in name.split(".")]
         *parents, key = path
+        if key == "num_batches_tracked":
+            continue
         a = value.detach().cpu().numpy().astype(np.float32, copy=False)
-        if key == "weight":
+        col = "params"
+        if key in back:
+            col, key = "batch_stats", back[key]
+        elif key == "weight":
             if parents and parents[-1] in EMBEDDINGS:
                 key = "embedding"
-            elif a.ndim == 2:
-                key, a = "kernel", a.T
+            elif a.ndim in (2, 3):
+                key, a = "kernel", np.transpose(a)
             elif a.ndim == 1:
                 key = "scale"
             else:
                 raise ValueError(f"{name}: a {a.ndim}-d weight has no flax counterpart")
-        node = tree
+        node = trees[col]
         for p in parents:
             node = node.setdefault(p, {})
         node[key] = np.ascontiguousarray(a)
-    return tree
+    if not trees["batch_stats"]:
+        del trees["batch_stats"]
+    return trees
+
+
+def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The ``params`` of ``to_jax_variables``: ``from_jax_params`` of it
+    gives back every parameter bit for bit."""
+    return to_jax_variables(state_dict)["params"]
 
 
 def fabricate_state_dict(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """Seeded random weights for every parameter of ``model`` (on the CPU),
-    with magnitudes tamed so a deep stack of random layers stays in a sane
-    numeric range: each tensor is N(0, 1) / sqrt(fan-in); the gate
-    temperatures are 0 (logit scale 1) and the MoE position embeddings are
-    scaled up by 8, so routing spreads across the experts."""
+    """Seeded random weights for every parameter and BatchNorm statistic of
+    ``model`` (on the CPU), with magnitudes tamed so a deep stack of random
+    layers stays in a sane numeric range: each tensor is N(0, 1) /
+    sqrt(fan-in) (a Conv1d's fan-in is in x k); the gate temperatures are 0
+    (logit scale 1) and the MoE position embeddings are scaled up by 8, so
+    routing spreads across the experts.  A BatchNorm's scale is near 1, its
+    running mean near 0 and its running variance in [0.5, 1.5)."""
     g = torch.Generator().manual_seed(seed)
+    norms = {name for name, m in model.named_modules()
+             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)}
     sd = {}
     for name, p in model.state_dict().items():
         if not p.is_floating_point():
+            sd[name] = p.clone()
             continue
         shape = tuple(p.shape)
-        leaf = name.rsplit(".", 1)[-1]
-        fan_in = shape[-2] if leaf in ("expert_w1", "expert_w2", "w1", "w2") else shape[-1]
+        owner, _, leaf = name.rpartition(".")
+        if owner in norms:
+            if leaf == "running_var":
+                sd[name] = torch.rand(shape, generator=g) + 0.5
+            else:
+                sd[name] = torch.randn(shape, generator=g) * 0.1 + (leaf == "weight")
+            continue
+        if leaf in ("expert_w1", "expert_w2", "w1", "w2"):
+            fan_in = shape[-2]
+        elif leaf == "weight" and len(shape) == 3:  # Conv1d [out, in, k]
+            fan_in = shape[1] * shape[2]
+        else:
+            fan_in = shape[-1]
         v = torch.randn(shape, generator=g) / math.sqrt(max(fan_in, 4))
         if leaf == "temperature":
             v = torch.zeros(shape)

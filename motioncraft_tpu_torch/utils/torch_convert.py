@@ -4,28 +4,30 @@ need).
 
 A reference checkpoint names its tensors after the reference's modules
 (mmcv / tutel / HuggingFace naming).  Each ``convert_*`` maps such a state
-dict onto the flax parameter tree of the JAX package, exactly as the JAX
-package does; ``utils/convert.py:from_jax_params`` then maps that tree onto
-the port's ``state_dict``, and ``load_into`` loads it with ``strict=True``.
-So a reference file takes one route into both packages.
+dict onto the flax parameter tree of the JAX package (and, for BatchNorm,
+its ``batch_stats`` tree), exactly as the JAX package does;
+``utils/convert.py:from_jax_variables`` then maps those trees onto the
+port's ``state_dict``, and ``load_into`` loads it with ``strict=True``.  So
+a reference file takes one route into both packages.
 
 Conventions: torch Linear weight [out, in] -> flax Dense kernel [in, out]
-(transpose); LayerNorm weight/bias -> scale/bias.
+(transpose); Conv1d weight [out, in, k] -> Conv kernel [k, in, out];
+LayerNorm / BatchNorm weight, bias -> scale, bias; BatchNorm running_mean,
+running_var -> batch_stats mean, var.
 
 The other model families' converters (MCM, MDM, MotionDiffuse, FineMoGen,
-ReMoDiffuse, the BiGRU evaluator) and the ControlNet's WavEncoder are not
-ported yet.
+ReMoDiffuse, the BiGRU evaluator) are not ported yet.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .convert import from_jax_params
+from .convert import from_jax_variables
 
 
 def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
@@ -40,13 +42,16 @@ def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
             for k, v in obj.items()}
 
 
-def load_into(module: torch.nn.Module, tree: dict) -> Dict[str, torch.Tensor]:
-    """Carry a flax ``params`` tree into ``module``: every leaf must name one
-    of its tensors with the same shape (the JAX package's ``_tree_update``);
-    tensors the tree leaves out keep their values.  Loaded with
-    ``strict=True``; returns the state_dict loaded."""
+def load_into(module: torch.nn.Module, tree: dict,
+              stats: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """Carry a flax ``params`` tree (and a ``batch_stats`` tree) into
+    ``module``: every leaf must name one of its tensors with the same shape
+    (the JAX package's ``_tree_update``); tensors the trees leave out keep
+    their values.  Loaded with ``strict=True``; returns the state_dict
+    loaded."""
     sd = {k: v.detach().cpu() for k, v in module.state_dict().items()}
-    for name, value in from_jax_params(tree).items():
+    for name, value in from_jax_variables({"params": tree,
+                                           "batch_stats": stats or {}}).items():
         if name not in sd:
             raise KeyError(f"{name} is not a tensor of {type(module).__name__}")
         if tuple(sd[name].shape) != tuple(value.shape):
@@ -70,6 +75,38 @@ def t_linear(sd, prefix):
 
 def t_layernorm(sd, prefix):
     return {"scale": sd[_k(prefix, "weight")], "bias": sd[_k(prefix, "bias")]}
+
+
+def t_conv1d(sd, prefix):
+    # [out, in, k] -> [k, in, out]
+    out = {"kernel": np.transpose(sd[_k(prefix, "weight")], (2, 1, 0))}
+    if _k(prefix, "bias") in sd:
+        out["bias"] = sd[_k(prefix, "bias")]
+    return out
+
+
+def t_bn(sd, prefix):
+    """torch BatchNorm1d -> (flax params, flax batch_stats)."""
+    return ({"scale": sd[_k(prefix, "weight")], "bias": sd[_k(prefix, "bias")]},
+            {"mean": sd[_k(prefix, "running_mean")], "var": sd[_k(prefix, "running_var")]})
+
+
+def t_wav_encoder(sd, prefix):
+    """The reference WavEncoder (six BasicBlocks under feat_extractor.N; the
+    shortcut as downsample.0 / .1) -> (params, batch_stats) trees of the
+    port's WavEncoder (block0..block5)."""
+    params, stats = {}, {}
+    for i in range(6):
+        base = _k(prefix, f"feat_extractor.{i}")
+        bp, bs = {"conv1": t_conv1d(sd, f"{base}.conv1"),
+                  "conv2": t_conv1d(sd, f"{base}.conv2")}, {}
+        for bn in ("bn1", "bn2"):
+            bp[bn], bs[bn] = t_bn(sd, f"{base}.{bn}")
+        if f"{base}.downsample.0.weight" in sd:
+            bp["down_conv"] = t_conv1d(sd, f"{base}.downsample.0")
+            bp["down_bn"], bs["down_bn"] = t_bn(sd, f"{base}.downsample.1")
+        params[f"block{i}"], stats[f"block{i}"] = bp, bs
+    return params, stats
 
 
 def t_embedding(sd, prefix):
@@ -317,16 +354,14 @@ def load_stmogen_ckpt(path: str, model: torch.nn.Module, num_layers: int, num_he
 # -------------------------------------------------------------- ControlNet
 def convert_controlnet(sd: Dict[str, np.ndarray], num_layers: int, num_heads: int,
                        copy_blocks_num: int, text_num_layers: int = 2,
-                       clip_layers: int = 12) -> dict:
-    """Merged base+control checkpoint (the released M2D format: keys
-    base_model.* / controlnet.N.* / control_cond_input.*) -> the
-    ControlT2MHalf flax param tree.  A WavEncoder's condition_pre_encoder.*
-    keys raise: the speech pre-encoder is not ported."""
+                       clip_layers: int = 12) -> Tuple[dict, dict]:
+    """Merged base+control checkpoint (the released format: keys
+    base_model.* / controlnet.N.* / control_cond_input.*, and for speech the
+    WavEncoder's condition_pre_encoder.pre_encoder.feat_extractor.N.*) ->
+    the ControlT2MHalf flax (params, batch_stats) trees; batch_stats is
+    empty without a WavEncoder."""
     if any(k.startswith("model.") for k in sd):
         sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
-    if any(k.startswith("condition_pre_encoder.") for k in sd):
-        raise NotImplementedError("condition_pre_encoder (WavEncoder) weights: "
-                                  "ROADMAP queue 1: S2G (speech-to-gesture)")
     base_sd = {k[len("base_model."):]: v for k, v in sd.items() if k.startswith("base_model.")}
     params: dict = {"base_model": convert_stmogen(base_sd, num_layers, num_heads,
                                                   text_num_layers, clip_layers)}
@@ -338,8 +373,12 @@ def convert_controlnet(sd: Dict[str, np.ndarray], num_layers: int, num_heads: in
         if i == 0:
             blk["before_proj"] = t_linear(sd, f"{p}.before_proj")
         params[f"controlnet_{i}"] = blk
+    stats: dict = {}
+    if any(k.startswith("condition_pre_encoder.") for k in sd):
+        params["condition_pre_encoder"], stats["condition_pre_encoder"] = t_wav_encoder(
+            sd, "condition_pre_encoder.pre_encoder")
     params["control_cond_input"] = {"linear": t_linear(sd, "control_cond_input")}
-    return params
+    return params, stats
 
 
 def load_controlnet_ckpt(path: str, model: torch.nn.Module, num_layers: int, num_heads: int,
@@ -352,9 +391,9 @@ def load_controlnet_ckpt(path: str, model: torch.nn.Module, num_layers: int, num
     sd = load_torch_state_dict(path)
     flat = {k[len("model."):] if k.startswith("model.") else k: v for k, v in sd.items()}
     if any(k.startswith("base_model.") for k in flat):
-        tree = convert_controlnet(flat, num_layers, num_heads, copy_blocks_num,
-                                  text_num_layers, clip_layers)
-    else:
-        tree = {"base_model": convert_stmogen(strip_base_block_keys(flat), num_layers,
-                                              num_heads, text_num_layers, clip_layers)}
+        tree, stats = convert_controlnet(flat, num_layers, num_heads, copy_blocks_num,
+                                         text_num_layers, clip_layers)
+        return load_into(model, tree, stats)
+    tree = {"base_model": convert_stmogen(strip_base_block_keys(flat), num_layers,
+                                          num_heads, text_num_layers, clip_layers)}
     return load_into(model, tree)

@@ -176,8 +176,9 @@ def test_flagship_m2d_cfg_is_the_jax_one():
 
 def test_what_is_not_ported_raises():
     cfg = Config.fromfile(CONFIG).model
-    for change, reason in ((dict(condition_encode_cfg=dict(condition_pre_encode=True)),
-                            "condition_pre_encode"),
+    for change, reason in ((dict(condition_encode_cfg=dict(
+            condition_pre_encode=True, condition_pre_encode_type="wav2vec")),
+                            "condition_pre_encode \\('wav2vec' encoder\\)"),
                            (dict(patch_size=4), "patch_size"),
                            (dict(block_type="mcm"), "MCM")):
         bad = copy.deepcopy(cfg)

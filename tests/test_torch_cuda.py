@@ -159,6 +159,18 @@ CASES = [
     ("grouped_ffn", (16, 128, 512, [min(i // 4, 15) for i in range(61)])),
     ("head_ffn", (960, 12, 128, 512)),
     ("stma_linear_attention", (8, 120, 12, 128, 77)),
+    # the S2G shapes (a CFG-doubled 2 x 64 window, and 8 x 64 for 4
+    # recordings in lockstep): the motion MoE (N = 1536 / 6144, and 768 /
+    # 3072 at layer 0, leaning to one expert); K1's 22 and 40 blocks; K2's
+    # 128 and 512 rows; K3's 2 x 64 and 8 x 64 frames (the text MoE's 154 /
+    # 616 tokens are the M2D cases above)
+    ("moe_route", (1536, 16, 2, "balanced")), ("moe_route", (768, 16, 2, "skewed")),
+    ("moe_route", (6144, 16, 2, "balanced")), ("moe_route", (3072, 16, 2, "skewed")),
+    ("grouped_ffn", (16, 128, 512, [min(i // 2, 15) for i in range(22)])),
+    ("grouped_ffn", (16, 128, 512, [min(i // 3, 15) for i in range(40)])),
+    ("head_ffn", (128, 12, 128, 512)), ("head_ffn", (512, 12, 128, 512)),
+    ("stma_linear_attention", (2, 64, 12, 128, 77)),
+    ("stma_linear_attention", (8, 64, 12, 128, 77)),
 ]
 GRAD_CASES = [c for c in CASES if c[0] in ("fused_linear_attention", "fused_expert_ffn")]
 
@@ -268,6 +280,28 @@ def test_narrow_controlnet_window_alike_on_card_and_cpu(cuda):
     want = out["cpu"]
     scale = max(1.0, float(want.abs().max()))
     assert float((out["cuda"] - want).abs().max()) <= 1e-4 * scale
+
+
+def test_wav_encoder_alike_on_card_and_cpu(cuda):
+    """The full-width speech encoder (out_dim 1536) on one 64-frame window
+    of onset + amplitude audio (64 x 533 samples -> 64 frames): cuDNN's f32
+    convolutions with TF32 off against the CPU's, BatchNorm on seeded
+    running statistics."""
+    from motioncraft_tpu_torch.models.architecture import exact_f32
+    from motioncraft_tpu_torch.models.blocks import WavEncoder
+
+    exact_f32()
+    g = torch.Generator().manual_seed(4)
+    wav = torch.stack([torch.rand(2, 64 * 533, generator=g) * 0.5,
+                       (torch.rand(2, 64 * 533, generator=g) < 2e-4).float()], dim=-1)
+    enc = WavEncoder(1536, audio_in=2).eval()
+    enc.load_state_dict(fabricate_state_dict(enc, seed=0), strict=True)
+    with torch.no_grad():
+        want = enc(wav)
+        got = enc.to(cuda)(wav.to(cuda)).cpu()
+    assert got.shape == (2, 64, 1536) and torch.isfinite(got).all()
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-4 * scale
 
 
 def test_narrow_model_samples_alike_on_card_and_cpu(cuda):

@@ -14,6 +14,7 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "tools" / "profile_torch_train.py",
                                         ROOT / "tools" / "torch_test.py",
                                         ROOT / "tools" / "torch_m2d_test.py",
+                                        ROOT / "tools" / "torch_s2g_test.py",
                                         ROOT / "tools" / "profile_torch_m2d.py"]
 FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|motioncraft_tpu)(\.|\s|$)",
                        re.MULTILINE)
@@ -36,8 +37,14 @@ spec = importlib.util.spec_from_file_location("torch_m2d_test", "tools/torch_m2d
 torch_m2d_test = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(torch_m2d_test)
 torch_m2d_test.parse_args(["configs/tests/tiny_m2d.py"])
+spec = importlib.util.spec_from_file_location("torch_s2g_test", "tools/torch_s2g_test.py")
+torch_s2g_test = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(torch_s2g_test)
+torch_s2g_test.parse_args(["configs/tests/tiny_s2g.py"])
 for name in ("data", "data.datasets", "eval", "utils.checkpoint", "utils.torch_convert",
-             "apis.eval_hook", "models.controlnet", "apis.windowed"):
+             "apis.eval_hook", "models.controlnet", "apis.windowed", "data.beat2",
+             "data.native", "eval.gesture_metrics", "ops.fk", "ops.rotation",
+             "ops.smplx_lbs"):
     assert "motioncraft_tpu_torch." + name in names, name
 print(len(names))
 """

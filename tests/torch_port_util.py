@@ -13,8 +13,9 @@ from motioncraft_tpu_torch.diffusion import Replay  # noqa: F401
 
 def seeded_params(tree, seed=0):
     """A flax ``params`` tree of the same structure with seeded N(0, 1) /
-    sqrt(fan-in) values (numpy): gate temperatures 0 (logit scale 1), MoE
-    position embeddings scaled by 8 so routing spreads across experts."""
+    sqrt(fan-in) values (numpy; a Conv kernel [k, in, out] has fan-in
+    k x in): gate temperatures 0 (logit scale 1), MoE position embeddings
+    scaled by 8 so routing spreads across experts."""
     rng = np.random.RandomState(seed)
 
     def walk(node, path):
@@ -25,7 +26,7 @@ def seeded_params(tree, seed=0):
                 continue
             shape = np.shape(val)
             if key == "kernel":
-                fan_in = shape[0]
+                fan_in = int(np.prod(shape[:-1]))
             elif key in ("expert_w1", "expert_w2", "w1", "w2"):
                 fan_in = shape[-2]
             else:
@@ -39,6 +40,26 @@ def seeded_params(tree, seed=0):
         return out
 
     return walk(dict(tree), [])
+
+
+def seeded_batch_stats(tree, seed=0):
+    """A flax ``batch_stats`` tree of the same structure with seeded values
+    (numpy): each ``mean`` N(0, 0.1^2), each ``var`` in [0.5, 1.5), so that
+    BatchNorm divides by a positive variance."""
+    rng = np.random.RandomState(seed)
+
+    def walk(node):
+        out = {}
+        for key, val in sorted(node.items()):
+            if isinstance(val, dict) or hasattr(val, "items"):
+                out[key] = walk(dict(val))
+            elif key == "var":
+                out[key] = (rng.rand(*np.shape(val)) + 0.5).astype(np.float32)
+            else:
+                out[key] = (rng.randn(*np.shape(val)) * 0.1).astype(np.float32)
+        return out
+
+    return walk(dict(tree))
 
 
 def t(a, dtype=None):

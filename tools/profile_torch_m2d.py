@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Profile one outpainted music-to-dance window of the PyTorch port on the
-card (configs/stmogen/m2d_finedance_0125b.py at full width, seeded
-fabricated weights): RePaint-harmonized DDIM, 84 steps of which 57 call the
-ControlNet denoiser, for R recordings in lockstep.  Prints the window's wall
-time, the device's busy time and idle share, the kernel launches, device
-time by kernel and the port's own kernels.
+"""Profile one outpainted long-form window of the PyTorch port's ControlNet
+on the card, music-to-dance (configs/stmogen/m2d_finedance_0125b.py, the
+default) or speech-to-gesture (--config configs/stmogen/s2g_beats2_0125b.py),
+at full width with seeded fabricated weights: RePaint-harmonized DDIM, 84
+steps of which 57 call the ControlNet denoiser, for R recordings in
+lockstep.  Prints the window's wall time, the device's busy time and idle
+share, the kernel launches, device time by kernel and the port's own
+kernels; for S2G also the device time of the WavEncoder, which the window
+runs once (the condition encoded once a sampling call).
 
-    python3 tools/profile_torch_m2d.py [--recordings 1 4] [--trace out.json]
+    python3 tools/profile_torch_m2d.py [--config CONFIG] [--recordings 1 4] [--trace out]
 
 Per R: one plain and one outpainted window warm up; the same outpainted
 window then runs twice untraced (its wall time, the mean) and once traced
@@ -38,6 +41,8 @@ def _sample_profiler():
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default=CONFIG,
+                    help="an M2D or S2G ControlNet config (the condition's shape follows it)")
     ap.add_argument("--recordings", type=int, nargs="+", default=[1, 4])
     ap.add_argument("--trace", default=None, help="write a Chrome trace per R here (R.json)")
     args = ap.parse_args()
@@ -47,7 +52,8 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     from motioncraft_tpu_torch.config import Config
-    from motioncraft_tpu_torch.diffusion import Outpainting, RepaintConfig, generator_randn
+    from motioncraft_tpu_torch.diffusion import (Outpainting, RepaintConfig, generator_randn,
+                                                 harmonize_schedule)
     from motioncraft_tpu_torch.models.tokenizer import tokenize
     from motioncraft_tpu_torch.registry import build_architecture
     from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
@@ -58,21 +64,34 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
-    cfg = Config.fromfile(CONFIG)
-    window, pre = cfg["windowed"]["window"], cfg["windowed"]["pre_frames"]
+    cfg = Config.fromfile(args.config)
+    win = cfg["windowed"]
+    window, pre = win["window"], win["pre_frames"]
     arch = build_architecture(cfg["model"], device="cuda")
     arch.model.load_state_dict(fabricate_state_dict(arch.model, seed=0), strict=True)
     arch.repaint_cfg = RepaintConfig(overlap_len=pre)
+    calls = sum(d for _, d in harmonize_schedule(arch.diffusion_test.num_timesteps,
+                                                 arch.repaint_cfg))
+    speech = arch.model.condition_pre_encoder is not None
     randn = generator_randn(torch.Generator(device="cuda").manual_seed(0), "cuda")
     rng = np.random.RandomState(0)
+
+    def condition(R):
+        """R windows' condition: onset + amplitude at the audio rate for
+        speech, 163-d music features a frame for dance."""
+        if not speech:
+            return rng.randn(R, window, 163).astype(np.float32)
+        n = window * (win["audio_sr"] // win["pose_fps"])
+        return np.stack([np.abs(rng.randn(R, n)) * 0.3, rng.rand(R, n) < 2e-4],
+                        axis=-1).astype(np.float32)
 
     for R in args.recordings:
         batch = {k: torch.as_tensor(v, device="cuda") for k, v in {
             "motion": np.zeros((R, window, 322), np.float32),
             "motion_mask": np.ones((R, window), np.float32),
             "motion_length": np.full((R, 1), window, np.int32),
-            "text_ids": tokenize([f"A dancer is performing a dance {i}" for i in range(R)]),
-            "c": rng.randn(R, window, 163).astype(np.float32)}.items()}
+            "text_ids": tokenize([f"A person is moving {i}" for i in range(R)]),
+            "c": condition(R)}.items()}
         last = arch.sample(batch, randn=randn)
         mask = (torch.arange(window, device="cuda") < pre).reshape(1, window, 1)
         gt = torch.cat([last[:, -pre:], torch.zeros_like(last[:, pre:])], dim=1)
@@ -108,12 +127,25 @@ def main():
                     own.setdefault(label, [0.0, 0])
                     own[label][0] += us
                     own[label][1] += n
-        print(f"R={R}: one outpainted window ({window} frames, 84 RePaint steps, 57 denoiser "
-              f"calls): wall {wall_us / 1e3:.1f} ms untraced (runs "
-              f"{', '.join(f'{w / 1e3:.1f}' for w in walls)}), {traced_us / 1e3:.1f} ms "
+        print(f"R={R}: one outpainted window ({window} frames, "
+              f"{len(harmonize_schedule(arch.diffusion_test.num_timesteps, arch.repaint_cfg))} "
+              f"RePaint steps, {calls} denoiser calls): wall {wall_us / 1e3:.1f} ms untraced "
+              f"(runs {', '.join(f'{w / 1e3:.1f}' for w in walls)}), {traced_us / 1e3:.1f} ms "
               f"traced; device busy {busy / 1e3:.1f} ms; idle share {1 - busy / wall_us:.3f} "
               f"(busy / untraced wall); {len(kernels)} kernel launches "
-              f"({len(kernels) / 57:.0f} a denoiser call)")
+              f"({len(kernels) / calls:.0f} a denoiser call)")
+        if speech:
+            with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA]) as enc_prof:
+                arch.model.encode_condition(batch["c"], window)
+                torch.cuda.synchronize()
+            enc = [e for e in enc_prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            enc_busy = prof_sample.busy_us([(e.time_range.start, e.time_range.end)
+                                            for e in enc])
+            print(f"  WavEncoder (once in the window, {tuple(batch['c'].shape)}): device busy "
+                  f"{enc_busy / 1e3:.2f} ms in {len(enc)} kernels, "
+                  f"{enc_busy / busy:.3f} of the window's")
         total = sum(us for us, _ in by_name.values())
         print(f"{'device ms':>10} {'share':>6} {'calls':>6}  kernel")
         for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
