@@ -18,8 +18,11 @@ Phases; any failure exits non-zero:
      at B = 32), of phase 10 (K1-K4 at the M2D shapes: a CFG-doubled
      batch of 2 x 120 frames for one recording and 8 x 120 for 4 in
      lockstep, and layer 0's half of each) and of phase 11 (the same at the
-     S2G shapes, 2 x 64 and 8 x 64): max abs error against its
-     tolerance (K4 exact in its
+     S2G shapes, 2 x 64 and 8 x 64), K1-K3's bf16 instantiations at the
+     T2M shapes (K1 motion, text and layer 0), and K1-K4 in f32 and K1-K3
+     in bf16 at phase 12's smallest and largest buckets (2 x 64 and 16 x
+     196, with layer 0's half of each): max abs error against its
+     tolerance (1e-2 x max |plain| for bf16; K4 exact in its
      integers, its route's gates within 1e-6; on every path a route case
      leaning to one expert must drop choices); the kernel's device time from
      torch.profiler
@@ -28,10 +31,11 @@ Phases; any failure exits non-zero:
      slower than the card runs them), and from CUDA events the time of a
      back-to-back call (call_ms) and of the plain version;
      the least time the card could take (bound_ms: f32 products in 3xTF32
-     on the tensor cores, which K1-K3, K5 and K6 run; K4's work on the CUDA
+     on the tensor cores, which K1-K3, K5 and K6 run, bf16 products at the
+     dense bf16 rate; K4's work on the CUDA
      cores; K1's work is the rows that carry a choice, not the padding of
-     each expert's group), and the f32 bound on the CUDA cores as a second note
-     (bound_f32_ms); how many of K3's clusters fit on the card at once
+     each expert's group), and for f32 work the f32 bound on the CUDA cores
+     as a second note (bound_f32_ms); how many of K3's clusters fit on the card at once
   3. the flagship MotionDiffusion (configs/stmogen/t2m_motionx_0_125b.py) on
      the card, with seeded fabricated weights
   4. two batches of 16 requests (T = 196, varied lengths) through
@@ -98,7 +102,20 @@ Phases; any failure exits non-zero:
      (CUDA sync debug mode); the WavEncoder, one ControlNet CFG forward and
      one whole outpainted window card against CPU with the gate logits
      pinned
- 12. one JSON line of the kernels' numbers, and last the device line
+ 12. serving through MotionGenServer on the same flagship with phase 3's
+     weights: one server in f32 and one in bf16 (the weights cast, the
+     denoiser in bf16 through K1-K3's bf16 instantiations), each with batch
+     buckets 1, 2, 4, 8 and sequence buckets 64, 128, 196, warmed up on
+     every bucket pair; 4 client threads send 8 seeded requests each (one
+     at a time, lengths 40-196) beside 2 long-form requests of 400 frames:
+     every result finite and of its length, dispatches and occupancy
+     consistent with stats(), K1-K4's launches what the dispatches imply
+     (the bf16 server only the bf16 K1-K3, the f32 one only the f32 ones);
+     latency p50/p95, requests per second, mean occupancy and padding
+     fraction per dtype; one bf16 forward_test card vs CPU with the gate
+     logits pinned (within 5e-2 x scale), and bf16 vs f32 on the card with
+     the expert choices that differ (reported)
+ 13. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -118,8 +135,16 @@ M2D_CONFIG = os.path.join(ROOT, "configs", "stmogen", "m2d_finedance_0125b.py")
 S2G_CONFIG = os.path.join(ROOT, "configs", "stmogen", "s2g_beats2_0125b.py")
 F32_PEAK = 67e12      # H100 SXM CUDA-core f32, FLOP/s
 TF32_PEAK = 495e12    # H100 SXM dense TF32 tensor cores, FLOP/s; 3xTF32 takes 3 passes
+BF16_PEAK = 989e12    # H100 SXM dense bf16 tensor cores, FLOP/s
 HBM_PEAK = 3.35e12    # H100 SXM device memory, bytes/s
 KERNEL_REL_TOL = 1e-4   # kernel vs plain: max abs err <= tol * max |plain|
+# a bf16 kernel vs its plain version: both round the output (and K1's and
+# K2's hidden) to bf16, one ulp 3.9e-3 relative; a sum near a rounding
+# boundary may round the other way
+KERNEL_BF16_TOL = 1e-2
+# bf16 forward card vs CPU: the two round bf16 in other places (cuBLAS
+# against the CPU's products, the kernels' sums against the plain ones')
+MODEL_BF16_TOL = 5e-2
 # moe_route's gates and ge against the plain version's: a softmax over 16
 # terms summed in another order moves a gate in [0, 1] by a few f32 ulps
 GATE_ATOL = 1e-6
@@ -143,6 +168,15 @@ S2G_RECORDINGS, S2G_FRAMES, S2G_REC_BATCH = 4, 244, 4
 # the SMPL-X neutral body model's sizes: vertices, faces, shape and
 # expression directions, pose-corrective directions
 SMPLX_SIZES = dict(vertices=10475, faces=20908, shapedirs=400, posedirs=486)
+# phase 12: one server a dtype over the flagship, its buckets, 4 client
+# threads of 8 requests each (one at a time), 2 long-form requests
+SERVE_BUCKETS, SERVE_SEQ_BUCKETS = (1, 2, 4, 8), (64, 128, 196)
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_LONG, SERVE_LONG_FRAMES = 4, 8, 2, 400
+# the bucket pairs (batch, frames) whose kernel shapes phase 2 checks: the
+# smallest and the largest
+SERVE_CHECKED = ((1, 64), (8, 196))
+# the bf16 instantiations of K1-K3
+BF16_KERNELS = ("grouped_ffn", "head_ffn", "stma_linear_attention")
 
 PALLAS = {
     "moe_route": "motioncraft_tpu/ops/pallas_moe.py:54",
@@ -153,6 +187,7 @@ PALLAS = {
     "fused_linear_attention": "motioncraft_tpu/ops/pallas_attention.py:111",
     "fused_expert_ffn": "motioncraft_tpu/ops/pallas_ffn.py:86",
 }
+PALLAS.update({f"{k}_bf16": PALLAS[k] for k in BF16_KERNELS})
 SOURCES = {
     "moe_route": "motioncraft_tpu_torch/csrc/moe_positions.cu",
     "moe_positions": "motioncraft_tpu_torch/csrc/moe_positions.cu",
@@ -162,6 +197,7 @@ SOURCES = {
     "fused_linear_attention": "motioncraft_tpu_torch/csrc/linear_attention.cu",
     "fused_expert_ffn": "motioncraft_tpu_torch/csrc/expert_ffn.cu",
 }
+SOURCES.update({f"{k}_bf16": SOURCES[k] for k in BF16_KERNELS})
 
 
 class PhaseError(RuntimeError):
@@ -189,22 +225,28 @@ def time_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps=20):
+def device_ms(torch, fn, reps=20, attempts=3):
     """Mean device time of one call over ``reps`` calls: the summed
     durations of the kernels it ran, from torch.profiler, without the gaps
-    in which the card waited for the host."""
+    in which the card waited for the host.  A profiling session now and
+    then hands back no device events at all (seen once in about a hundred
+    sessions on an H100); such a session is run again, up to ``attempts``
+    times in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(us > 0, "the profiler saw no device time")
-    return us / 1e3 / reps
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+        print(f"[profile] session {attempt + 1} of {attempts} saw no device time")
+    raise PhaseError(f"the profiler saw no device time in {attempts} sessions")
 
 
 def bound(flops, nbytes, peak):
@@ -316,8 +358,19 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None):
     batch of 2R x window frames (120 for M2D, 64 for S2G: the base blocks
     past layer 0 and the control blocks), and layer 0's motion MoE routes
     its first half."""
-    paths = [("t2m", flagship_inputs(torch, cfg, dev)),
-             ("t2m layer 0", flagship_inputs(torch, cfg, dev, training=False, layer0=True))]
+    t2m = flagship_inputs(torch, cfg, dev)
+    layer0 = flagship_inputs(torch, cfg, dev, training=False, layer0=True)
+    paths = [("t2m", t2m), ("t2m layer 0", layer0),
+             ("t2m bf16", bf16_inputs(torch, t2m)), ("t2m layer 0 bf16", bf16_inputs(torch, layer0))]
+    # phase 12's smallest and largest buckets (b requests, T frames: 2b
+    # CFG rows), in f32 and in bf16, each with layer 0's half
+    for b, T in SERVE_CHECKED:
+        full = flagship_inputs(torch, cfg, dev, B2=2 * b, T=T, training=False)
+        half = flagship_inputs(torch, cfg, dev, B2=2 * b, T=T, training=False, layer0=True)
+        tag = f"serve b={b} T={T}"
+        paths += [(tag, full), (f"{tag} layer 0", half),
+                  (f"{tag} bf16", bf16_inputs(torch, full)),
+                  (f"{tag} layer 0 bf16", bf16_inputs(torch, half))]
     for tag, lf_cfg, batch in (("m2d", m2d_cfg, M2D_REC_BATCH),
                                ("s2g", s2g_cfg, S2G_REC_BATCH)):
         if lf_cfg is None:
@@ -332,9 +385,28 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None):
     return paths
 
 
+def bf16_inputs(torch, inputs):
+    """The bf16 kernels' cases of a path: K1-K3's inputs rounded to bf16
+    (but K3's 0/1 mask and text flag, which a bf16 model passes in f32)."""
+    out = {}
+    for name in BF16_KERNELS:
+        for args in inputs.get(name, []):
+            n = 2 if name == "stma_linear_attention" else len(args)
+            cast = tuple(a.to(torch.bfloat16) if a.is_floating_point() and i < n else a
+                         for i, a in enumerate(args))
+            out.setdefault(f"{name}_bf16", []).append(
+                FfnArgs(cast, args.kept) if isinstance(args, FfnArgs) else cast)
+    return out
+
+
 def kernel_work(name, args):
     """(flops, bytes) of one call: the operations the function needs, each
-    input read once, each output written once."""
+    input read once, each output written once (in its own dtype)."""
+    name = name.removesuffix("_bf16")
+
+    def nb(t):
+        return t.numel() * t.element_size()
+
     if name == "moe_positions":
         M = args[0].numel()
         return M, 8 * M + 4 * args[1]
@@ -352,13 +424,13 @@ def kernel_work(name, args):
         # to BLOCK rows is the kernel's layout, not the function's work
         be, xs, w1, b1, w2 = args
         n, d, hid = args.kept, xs.shape[1], w1.shape[2]
-        nbytes = 4 * (2 * n * d + be.numel() + w1.numel() + b1.numel() + w2.numel())
+        nbytes = 2 * n * d * xs.element_size() + nb(be) + nb(w1) + nb(b1) + nb(w2)
         return 4 * n * d * hid, nbytes
     if name == "head_ffn":
         x, w1, b1, w2, b2 = args
         n, hd = x.shape
         f = w1.shape[2]
-        nbytes = 4 * (2 * x.numel() + w1.numel() + b1.numel() + w2.numel() + b2.numel())
+        nbytes = 2 * nb(x) + nb(w1) + nb(b1) + nb(w2) + nb(b2)
         return 4 * n * hd * f, nbytes
     if name == "fused_linear_attention":
         q, k, v = args
@@ -376,8 +448,8 @@ def kernel_work(name, args):
     flops = B * H * (2 * (T + TXT) * d * d + 2 * T * d * d)
     # of mot's four lanes the function reads key, value and query, not the
     # body value
-    nbytes = 4 * (3 * mot.numel() // 4 + txt.numel() + mask.numel() + tcond.numel()
-                  + B * T * H * d)
+    nbytes = (3 * nb(mot) // 4 + nb(txt) + nb(mask) + nb(tcond)
+              + B * T * H * d * mot.element_size())
     return flops, nbytes
 
 
@@ -418,11 +490,15 @@ def kernel_case(torch, rows, path, name, i, args, fns):
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
         ok, tol = err == 0, "exact"
     else:
-        err = float((got - want).abs().max())
+        err = float((got.float() - want.float()).abs().max())
         scale = float(want.abs().max())
-        ok, tol = err <= KERNEL_REL_TOL * scale, f"{KERNEL_REL_TOL} x {scale:.4g}"
+        rel = KERNEL_BF16_TOL if name.endswith("_bf16") else KERNEL_REL_TOL
+        check(got.dtype == want.dtype == args[1 if name.startswith("grouped") else 0].dtype,
+              f"{name}: output dtype {got.dtype}")
+        ok, tol = err <= rel * scale, f"{rel} x {scale:.4g}"
     shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
-    kept = f"; {args.kept} of {shapes[1][0]} rows carry a choice" if name == "grouped_ffn" else ""
+    kept = (f"; {args.kept} of {shapes[1][0]} rows carry a choice"
+            if isinstance(args, FfnArgs) else "")
     print(f"[kernel] {label} {shapes}: max_abs_err {err:.3e} (tol {tol}){kept}")
     check(ok, f"{label} disagrees with its plain version: {err} (tol {tol})")
     ms = device_ms(torch, lambda: wrapper(*args))
@@ -431,13 +507,17 @@ def kernel_case(torch, rows, path, name, i, args, fns):
     flops, nbytes = kernel_work(name, args)
     if name in ("moe_positions", "moe_route"):  # on the CUDA cores only
         bound_ms, bound_by = f32_ms, f32_by = bound(flops, nbytes, F32_PEAK)
+    elif name.endswith("_bf16"):  # bf16 products at the dense bf16 tensor-core rate
+        bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+        f32_ms = f32_by = None  # no f32 work: the bf16 bound is the only one
     else:  # f32 products: 3xTF32 on the tensor cores is the fastest exact way
         bound_ms, bound_by = bound(3 * flops, nbytes, TF32_PEAK)
         f32_ms, f32_by = bound(flops, nbytes, F32_PEAK)
+    f32_note = ("" if f32_ms is None else
+                f"; f32 CUDA-core bound {f32_ms:.4f} ms ({f32_by}, share {f32_ms / ms:.3f})")
     print(f"[kernel] {label}: {ms:.4f} ms on the device ({call_ms:.4f} ms a "
           f"back-to-back call), plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}, share {bound_ms / ms:.3f}); "
-          f"f32 CUDA-core bound {f32_ms:.4f} ms ({f32_by}, share {f32_ms / ms:.3f})")
+          f"bound {bound_ms:.4f} ms ({bound_by}, share {bound_ms / ms:.3f}){f32_note}")
     case = {"path": path, "shape": shapes, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "max_abs_err": err}
     if name in rows:  # the row's own numbers are the first (the T2M) case's
@@ -465,6 +545,18 @@ def requests(num, seed, T):
     return batch
 
 
+def sampling_counts(calls, denoiser_calls, layers, suffix=""):
+    """K1-K4's launches over ``calls`` sampling calls that make
+    ``denoiser_calls`` denoiser calls in all: per sampling call the text MoE
+    once a layer, then per denoiser call and layer one motion MoE, one SFFN
+    and one global attention (``suffix`` "_bf16": K1-K3's bf16
+    instantiations; K4 routes f32 logits in both)."""
+    return {"moe_route": layers * (denoiser_calls + calls),
+            f"grouped_ffn{suffix}": layers * (denoiser_calls + calls),
+            f"head_ffn{suffix}": layers * denoiser_calls,
+            f"stma_linear_attention{suffix}": layers * denoiser_calls}
+
+
 def phase_e2e(torch, arch):
     """Phases 4-5: the batches through single_device_test, with counts."""
     import numpy as np
@@ -487,11 +579,7 @@ def phase_e2e(torch, arch):
     steps, layers = arch.diffusion_test.num_timesteps, arch.model.num_layers
     # per sampling call: the text MoE once per layer, then per step and layer
     # one motion MoE, one SFFN and one global attention
-    want = {"moe_route": BATCHES * layers * (steps + 1), "moe_positions": 0,
-            "grouped_ffn": BATCHES * layers * (steps + 1),
-            "head_ffn": BATCHES * layers * steps,
-            "stma_linear_attention": BATCHES * layers * steps,
-            "fused_linear_attention": 0, "fused_expert_ffn": 0}
+    want = dict.fromkeys(counts, 0) | sampling_counts(BATCHES, BATCHES * steps, layers)
     check(counts == want, f"launch counts {counts} != expected {want}")
     spread = float(np.std([r["pred_motion"] for r in results], axis=0).mean())
     print(f"[e2e] steps {steps}, layers {layers}; mean spread across samples {spread:.4g}")
@@ -614,10 +702,9 @@ def phase_train(torch, full_cfg, arch):
     check(all(n.startswith("out.face_out.") for n in still),
           f"trainable parameters that did not move: {still[:5]}")
     layers = arch.model.num_layers
-    per_step = {"moe_route": 0, "moe_positions": 2 * layers, "grouped_ffn": 0,
-                "head_ffn": 0, "stma_linear_attention": 0, "fused_linear_attention": layers,
+    per_step = {"moe_positions": 2 * layers, "fused_linear_attention": layers,
                 "fused_expert_ffn": 2 * layers}
-    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    want = dict.fromkeys(counts, 0) | {k: v * TRAIN_STEPS for k, v in per_step.items()}
     print(f"[train] {TRAIN_STEPS} steps of B={TRAIN_BATCH} in {wall:.3f} s; step wall ms "
           f"{step_ms} (first = warm-up); max memory allocated {peak / 2**30:.3f} GiB; "
           f"{len(moved)} of {len(trainable)} trainable tensors moved (not: {still}), "
@@ -788,11 +875,7 @@ def phase_eval(torch, full_cfg, sd, dev="cuda", config=CONFIG, clips=EVAL_CLIPS)
         check(all(np.isfinite(v) for v in metric.values()), f"non-finite metrics {metric}")
         batches = -(-clips // BATCH)
         steps, layers = loaded.diffusion_test.num_timesteps, loaded.model.num_layers
-        want = {"moe_route": batches * layers * (steps + 1), "moe_positions": 0,
-                "grouped_ffn": batches * layers * (steps + 1),
-                "head_ffn": batches * layers * steps,
-                "stma_linear_attention": batches * layers * steps,
-                "fused_linear_attention": 0, "fused_expert_ffn": 0}
+        want = dict.fromkeys(counts, 0) | sampling_counts(batches, batches * steps, layers)
         check(counts == want, f"eval launch counts {counts} != expected {want}")
 
         # the loaded model against the in-memory one: one forward, same noise
@@ -1370,6 +1453,198 @@ def phase_s2g(torch, full_cfg, dev="cuda", config=S2G_CONFIG, recordings=S2G_REC
     return runs
 
 
+def serve_traffic(torch, srv, T, seed):
+    """SERVE_CLIENTS threads, each sending SERVE_PER_CLIENT seeded requests
+    one after another (lengths 40-T, seeded prompts), and SERVE_LONG
+    long-form requests beside them.  Returns (results per request as
+    (length, motion), long results, wall seconds)."""
+    import threading
+
+    import numpy as np
+
+    verbs = ["walks", "jumps", "waves", "dances", "kicks", "turns", "sits down",
+             "runs in a circle", "crouches", "claps"]
+    rng = np.random.RandomState(seed)
+    plan = [[(f"a person {verbs[a]} then {verbs[b]}", int(n))
+             for a, b, n in zip(rng.randint(0, len(verbs), SERVE_PER_CLIENT),
+                                rng.randint(0, len(verbs), SERVE_PER_CLIENT),
+                                rng.randint(min(40, T), T + 1, SERVE_PER_CLIENT))]
+            for _ in range(SERVE_CLIENTS)]
+    results, errors = [], []
+
+    def client(reqs):
+        try:
+            for text, n in reqs:
+                results.append((n, srv.submit(text, n).result(timeout=300)))
+        except Exception as e:  # noqa: BLE001 -- reported by the phase
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    longs = [srv.submit_long(f"a person walks a long way, take {i}", SERVE_LONG_FRAMES)
+             for i in range(SERVE_LONG)]
+    threads = [threading.Thread(target=client, args=(reqs,)) for reqs in plan]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    long_out = [f.result(timeout=600) for f in longs]
+    wall = time.perf_counter() - t0
+    check(not errors and not any(th.is_alive() for th in threads), f"clients failed: {errors}")
+    return results, long_out, wall
+
+
+def phase_serve(torch, cfg, sd, dev="cuda"):
+    """Phase 12: MotionGenServer over the flagship on the card, one server in
+    f32 and one in bf16 (the weights cast, the denoiser in bf16 through
+    K1-K3's bf16 instantiations), each warmed up on every bucket, then the
+    same seeded traffic; results, stats and launches checked; one bf16
+    forward card vs CPU (gate logits pinned) and bf16 vs f32 on the card."""
+    import numpy as np
+    from motioncraft_tpu_torch.apis import bf16_cast_
+    from motioncraft_tpu_torch.apis.windowed import num_windows
+    from motioncraft_tpu_torch.diffusion import RepaintConfig, harmonize_schedule
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.serving import MotionGenServer
+    from motioncraft_tpu_torch.serving.server import covered_frames
+
+    t_phase = time.perf_counter()
+    T, D = cfg["model"]["max_seq_len"], cfg["model"]["input_feats"]
+    archs = {}
+    for dtype in ("f32", "bf16"):
+        arch = build_architecture(cfg, device=dev)
+        arch.model.load_state_dict(sd, strict=True)
+        archs[dtype] = bf16_cast_(arch) if dtype == "bf16" else arch
+    layers, steps = archs["f32"].model.num_layers, archs["f32"].diffusion_test.num_timesteps
+    # a long request: windows of T frames overlapping by the server's 4,
+    # window 0 DDIM, each later one outpainted over the RePaint schedule
+    pre = 4
+    wins = num_windows(covered_frames(SERVE_LONG_FRAMES, T, pre), T, pre)
+    rp = RepaintConfig(overlap_len=pre, add_blend=True)
+    long_calls = steps + (wins - 1) * sum(d for _, d in harmonize_schedule(steps, rp))
+    out = {}
+    for dtype, arch in archs.items():
+        srv = MotionGenServer(arch, max_seq_len=T, input_feats=D, batch_buckets=SERVE_BUCKETS,
+                              seq_buckets=SERVE_SEQ_BUCKETS, max_wait_ms=20.0, seed=SEED,
+                              compute_dtype=torch.bfloat16 if dtype == "bf16" else None)
+        t0 = time.perf_counter()
+        srv.warmup()
+        warm = time.perf_counter() - t0
+        # one sampling batch of 16 (phase 4's first), warm, in this dtype
+        batch16 = requests(BATCH, SEED, T)
+        g16 = torch.Generator(device=dev).manual_seed(SEED)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            pred16 = arch.sample(batch16, generator=g16,
+                                 compute_dtype=srv._compute_dtype).cpu()  # waits for the card
+        batch16_ms = (time.perf_counter() - t0) * 1e3
+        check(pred16.shape == (BATCH, T, D) and bool(torch.isfinite(pred16).all()),
+              f"[serve] {dtype} batch of {BATCH}")
+        reset_launch_counts()
+        with srv:
+            results, long_out, wall = serve_traffic(torch, srv, T, SEED + 40)
+            st = srv.stats()
+        counts = launch_counts()
+        n_req = SERVE_CLIENTS * SERVE_PER_CLIENT + SERVE_LONG
+        for n, m in results:
+            check(m.shape == (n, D) and np.isfinite(m).all(), f"[serve] {dtype}: {m.shape}")
+        for m in long_out:
+            check(m.shape == (SERVE_LONG_FRAMES, D) and np.isfinite(m).all(),
+                  f"[serve] {dtype} long: {m.shape}")
+        check(len(results) == n_req - SERVE_LONG and st["requests"] == n_req,
+              f"[serve] {dtype}: {len(results)} results, stats {st}")
+        check(abs(st["mean_occupancy"] * st["dispatches"] - n_req) < 1e-6
+              and 0 <= st["padding_fraction"] < 1 and st["long_dispatches"] >= 1,
+              f"[serve] {dtype}: stats {st}")
+        short, n_long = st["dispatches"] - st["long_dispatches"], st["long_dispatches"]
+        want = dict.fromkeys(counts, 0) | sampling_counts(
+            short + n_long * wins, short * steps + n_long * long_calls, layers,
+            "_bf16" if dtype == "bf16" else "")
+        print(f"[serve] {dtype}: warm-up of {len(SERVE_BUCKETS) * len(SERVE_SEQ_BUCKETS)} "
+              f"bucket pairs {warm:.1f} s; one sampling batch of {BATCH} {batch16_ms:.1f} ms "
+              f"wall; {n_req} requests ({SERVE_LONG} long of "
+              f"{SERVE_LONG_FRAMES} frames, {wins} windows) in {wall:.3f} s: "
+              f"{n_req / wall:.3f} requests/s; latency p50 {st['latency_p50_s']:.3f} s, p95 "
+              f"{st['latency_p95_s']:.3f} s; {st['dispatches']} dispatches "
+              f"({st['long_dispatches']} long), mean occupancy {st['mean_occupancy']:.3f}, "
+              f"padding fraction {st['padding_fraction']:.3f}; launches {counts}")
+        check(counts == want, f"[serve] {dtype} launch counts {counts} != expected {want}")
+        out[dtype] = {"stats": st, "wall_s": wall, "requests_per_s": n_req / wall,
+                      "counts": counts, "warmup_s": warm, "batch16_ms": batch16_ms}
+
+    bf16_parity(torch, cfg, sd, archs)
+    print(f"[serve] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def bf16_parity(torch, cfg, sd, archs):
+    """One flagship forward_test (B = 2) in bf16 on the card against the
+    CPU's plain bf16 versions, the CPU's gates fed the card's logits, within
+    MODEL_BF16_TOL x scale; and the card's bf16 forward against its f32 one
+    (reported: bf16 moves near-tied tokens to other experts)."""
+    from motioncraft_tpu_torch.apis import bf16_cast_
+    from motioncraft_tpu_torch.models.moe import CosineTopGate
+    from motioncraft_tpu_torch.registry import build_architecture
+
+    batch = requests(2, SEED + 500, cfg["model"]["max_seq_len"])
+    x = torch.randn(batch["motion"].shape, generator=torch.Generator().manual_seed(SEED + 13))
+    ts = torch.full((2,), 499, dtype=torch.long)
+    logits = {"cuda": [], "f32": []}
+    replayed, flips = [], [0, 0]
+
+    def recorder(key):
+        def hook(mod, inp, o):
+            logits[key].append(o.cpu())
+        return hook
+
+    def replay(mod, inp, o):
+        want = logits["cuda"][len(replayed)]
+        replayed.append(o)
+        return want
+
+    def forward(a, dtype):
+        with torch.no_grad():
+            xf = a.encode_text(batch["text_ids"]).to(dtype)
+            return a.model(x.to(a.device, dtype), ts.to(a.device),
+                           motion_mask=torch.as_tensor(batch["motion_mask"], device=a.device),
+                           motion_length=torch.as_tensor(batch["motion_length"],
+                                                         device=a.device),
+                           xf_out=xf, text_feats=a.model.precompute_text_feats(xf)).cpu()
+
+    cpu = build_architecture(cfg, device="cpu")
+    cpu.model.load_state_dict(sd, strict=True)
+    bf16_cast_(cpu)
+    outs = {}
+    for label, a, dtype, hook in (("f32", archs["f32"], torch.float32, recorder("f32")),
+                                  ("cuda", archs["bf16"], torch.bfloat16, recorder("cuda")),
+                                  ("cpu", cpu, torch.bfloat16, replay)):
+        handles = [m.register_forward_hook(hook) for m in a.modules()
+                   if isinstance(m, CosineTopGate)]
+        try:
+            outs[label] = forward(a, dtype)
+        finally:
+            for h in handles:
+                h.remove()
+    k = cfg["model"]["ca_block_cfg"]["topk"]
+    for a, b in zip(logits["cuda"], logits["f32"]):
+        pick = [torch.sort(v, dim=1, descending=True, stable=True).indices[:, :k]
+                .sort(dim=1).values for v in (a, b)]
+        flips[0] += int((pick[0] != pick[1]).sum())
+        flips[1] += pick[0].numel()
+    got, want, f32 = outs["cuda"], outs["cpu"], outs["f32"]
+    check(got.dtype == torch.float32 and torch.isfinite(got).all(), "bf16 forward")
+    check(len(replayed) == len(logits["cuda"]) > 0, "gate calls differ between devices")
+    diff_f32 = float((got - f32).abs().max())
+    print(f"[serve-parity] bf16 vs f32 forward on the card, B=2: max abs diff {diff_f32:.3e} "
+          f"(scale {float(f32.abs().max()):.4g}); expert choices that differ "
+          f"{flips[0]} of {flips[1]} (reported, not gated)")
+    scale = max(1.0, float(want.abs().max()))
+    diff = float((got - want).abs().max())
+    print(f"[serve-parity] bf16 forward_test B=2: card vs CPU max abs diff {diff:.3e} "
+          f"(tol {MODEL_BF16_TOL} x {scale:.4g}; {len(replayed)} gate calls pinned)")
+    check(diff <= MODEL_BF16_TOL * scale, f"bf16 forward card vs CPU: {diff} > tol")
+
+
 def main():
     try:
         import torch
@@ -1423,15 +1698,20 @@ def main():
     eval_counts = phase_eval(torch, full_cfg, sd)
     m2d = phase_m2d(torch, m2d_cfg)
     s2g = phase_s2g(torch, s2g_cfg)
+    serve = phase_serve(torch, cfg, sd)
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
-        # K4's route, training for K4's positions, K5 and K6; and on the
-        # evaluation paths of phases 9, 10 and 11 (R = 1, then R = 4)
-        row["launches"] = counts[name] or train_counts[name]
+        # K4's route, training for K4's positions, K5 and K6, bf16 serving
+        # for K1-K3's bf16 instantiations; and on the evaluation paths of
+        # phases 9, 10 and 11 (R = 1, then R = 4) and the two servers of
+        # phase 12 (f32, then bf16)
+        row["launches"] = counts[name] or train_counts[name] or serve["bf16"]["counts"][name]
         row["eval_launches"] = eval_counts[name]
         row["m2d_launches"] = [m2d[R]["counts"][name] for R in sorted(m2d)]
         row["s2g_launches"] = [s2g[R]["counts"][name] for R in (1, S2G_REC_BATCH)]
+        row["serve_launches"] = [serve[dt]["counts"][name] for dt in ("f32", "bf16")]
+        check(row["launches"] > 0, f"{name} was launched no time on its path")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

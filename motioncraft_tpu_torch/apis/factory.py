@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..models.tokenizer import tokenize
 
@@ -92,6 +93,29 @@ def flagship_m2d_cfg(window: int = 120, **kw) -> dict:
     cfg["repaint"] = dict(overlap_len=30, add_blend=True, same_overlap_noisy=False,
                           jump_length=3, jump_n_sample=2)
     return cfg
+
+
+# submodules that flax runs in f32 under bf16 weights: an f32 input meets
+# them and promotes the call (the time MLP, each MoE gate's projector, the
+# ControlNet's condition encoder)
+PROMOTED_MODULES = ("time_embed", "cosine_projector", "condition_pre_encoder",
+                    "control_cond_input")
+
+
+def bf16_cast_(arch):
+    """Round every floating parameter and buffer of ``arch``'s model to bf16,
+    in place (the JAX package's ``bf16_cast_variables`` casts every floating
+    leaf); returns ``arch``.  The ``PROMOTED_MODULES`` keep f32 tensors
+    holding the bf16-rounded values, the numbers flax computes with when it
+    promotes their calls; everything else is bf16.  Sample with
+    ``compute_dtype=torch.bfloat16``: the noise, the schedule and the DDIM
+    update stay f32."""
+    if arch.model is not None:
+        arch.model.to(torch.bfloat16)
+        for name, module in arch.model.named_modules():
+            if name.rpartition(".")[2] in PROMOTED_MODULES:
+                module.to(torch.float32)
+    return arch
 
 
 def make_text_batch(texts, max_seq_len: int = 196, input_feats: int = 322,

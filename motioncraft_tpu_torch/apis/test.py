@@ -35,7 +35,8 @@ def _pad_rows(v, pad: int):
 def single_device_test(arch, data_loader: Iterable[Dict[str, Any]], *, seed: int = 0,
                        limit: Optional[int] = None, device=None,
                        logger: Optional[Callable[[str], None]] = None,
-                       dispatch_batches: int = 1) -> List[Dict[str, Any]]:
+                       dispatch_batches: int = 1,
+                       compute_dtype: Optional[torch.dtype] = None) -> List[Dict[str, Any]]:
     """Sample every batch of ``data_loader`` (a ``data.DataLoader`` or any
     iterable of dicts of numpy arrays: ``motion``, ``motion_mask``,
     ``motion_length``, ``text_ids``, optionally ``motion_metas``, which the
@@ -43,7 +44,8 @@ def single_device_test(arch, data_loader: Iterable[Dict[str, Any]], *, seed: int
     CPU) and return one host dict per sample, ``pred_motion`` included.  The
     batch size padded to is the loader's ``batch_size``, or for a plain
     iterable that of its first batch.  ``logger`` gets one line per batch
-    with its wall time."""
+    with its wall time.  ``compute_dtype`` is the denoiser's dtype
+    (``MotionDiffusion.sample``; bf16 on a bf16-cast model)."""
     if dispatch_batches != 1:
         raise NotImplementedError("dispatch_batches > 1 (batches grouped into one device "
                                   "dispatch): ROADMAP queue 1: multi-GPU, serving and the "
@@ -62,7 +64,8 @@ def single_device_test(arch, data_loader: Iterable[Dict[str, Any]], *, seed: int
         bs = bs or n
         if not gt and n < bs:
             nbatch = {k: _pad_rows(v, bs - n) for k, v in nbatch.items()}
-        pred = arch.sample(nbatch, generator=generator)[:n].cpu()  # waits for the device
+        pred = arch.sample(nbatch, generator=generator,
+                           compute_dtype=compute_dtype)[:n].cpu()  # waits for the device
         res = dict(batch)
         res["pred_motion"] = pred
         results.extend(arch.split_results(res))

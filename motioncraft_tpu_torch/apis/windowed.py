@@ -17,6 +17,9 @@ comes from the host-side schedule (diffusion/sampling.py), and the outputs
 come back in one copy at the end.
 
 All carries stay in normalised space; ``denormalize`` runs once at the end.
+``compute_dtype`` is handed to every window's ``MotionDiffusion.sample``
+(bf16 on a bf16-cast model); a chunk's condition is encoded in f32 and cast
+to it, the carries stay f32.
 """
 
 from __future__ import annotations
@@ -48,13 +51,15 @@ def _upload(a, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _sample_window(arch, batch, w, last, tails, *, use_repaint, repaint, pre_frames, randn):
+def _sample_window(arch, batch, w, last, tails, *, use_repaint, repaint, pre_frames, randn,
+                   compute_dtype):
     """Window ``w`` of a recording: (sample [B, window, D], tail bank)."""
     if w == 0:
-        out = arch.sample(batch, randn=randn)
+        out = arch.sample(batch, randn=randn, compute_dtype=compute_dtype)
         return (out[0] if isinstance(out, tuple) else out), tails
     if not use_repaint:
-        out = arch.sample(batch, randn=randn, pre_seq=last[:, -pre_frames:])
+        out = arch.sample(batch, randn=randn, pre_seq=last[:, -pre_frames:],
+                          compute_dtype=compute_dtype)
         return (out[0] if isinstance(out, tuple) else out), tails
     if tails is None and repaint.same_overlap_noisy:
         tails = last.new_zeros((arch.diffusion_test.num_timesteps, last.shape[0],
@@ -66,14 +71,15 @@ def _sample_window(arch, batch, w, last, tails, *, use_repaint, repaint, pre_fra
     op = Outpainting(mask=mask, gt=gt,
                      clip_idx=1 if (repaint.same_overlap_noisy and w >= 2) else 0,
                      previous_noisy_tail=tails)
-    out = arch.sample(batch, randn=randn, outpainting=op)
+    out = arch.sample(batch, randn=randn, outpainting=op, compute_dtype=compute_dtype)
     return out if isinstance(out, tuple) else (out, tails)
 
 
 def windowed_sample(arch, make_window_batch: Callable[[int, int], Dict], *,
                     total_frames: int, window: int, pre_frames: int,
                     randn: Optional[Randn] = None, use_repaint: bool = True,
-                    repaint: Optional[RepaintConfig] = None) -> np.ndarray:
+                    repaint: Optional[RepaintConfig] = None,
+                    compute_dtype: Optional[torch.dtype] = None) -> np.ndarray:
     """Generate ``total_frames`` of one recording, window by window:
     ``make_window_batch(start, end)`` returns the batch of frames
     [start, end) as arrays (zeros motion [1, window, D], its mask and
@@ -82,7 +88,8 @@ def windowed_sample(arch, make_window_batch: Callable[[int, int], Dict], *,
     generator when None).  Returns [total_frames, D] (normalised)."""
     repaint = repaint or RepaintConfig(overlap_len=pre_frames)
     stride = window - pre_frames
-    kw = dict(use_repaint=use_repaint, repaint=repaint, pre_frames=pre_frames, randn=randn)
+    kw = dict(use_repaint=use_repaint, repaint=repaint, pre_frames=pre_frames, randn=randn,
+              compute_dtype=compute_dtype)
     samples, last, tails = [], None, None
     for w in range(num_windows(total_frames, window, pre_frames)):
         batch = {k: _upload(v, arch.device)
@@ -116,7 +123,8 @@ def windowed_sample_batch(arch, make_window_batches: List[Callable[[int, int], D
                           randn: Optional[Randn] = None, use_repaint: bool = True,
                           repaint: Optional[RepaintConfig] = None,
                           precompute_condition: bool = True,
-                          window_chunk: Optional[int] = None) -> List[np.ndarray]:
+                          window_chunk: Optional[int] = None,
+                          compute_dtype: Optional[torch.dtype] = None) -> List[np.ndarray]:
     """R recordings in lockstep: window w of all R runs as one [R, window, D]
     batch.  Recordings shorter than the longest keep sampling padded windows
     whose outputs are dropped.
@@ -135,7 +143,8 @@ def windowed_sample_batch(arch, make_window_batches: List[Callable[[int, int], D
     rounds = [num_windows(tf, window, pre_frames) for tf in total_frames_list]
     stride = window - pre_frames
     chunk = window_chunk or max(1, 256 // R)
-    kw = dict(use_repaint=use_repaint, repaint=repaint, pre_frames=pre_frames, randn=randn)
+    kw = dict(use_repaint=use_repaint, repaint=repaint, pre_frames=pre_frames, randn=randn,
+              compute_dtype=compute_dtype)
     encode = precompute_condition and hasattr(arch.model, "encode_condition")
 
     samples, last, tails = [], None, None

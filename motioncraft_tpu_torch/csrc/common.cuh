@@ -1,8 +1,9 @@
 // Shared pieces of the port's kernels: the C error hook every library
 // exports, exact-erf GELU, the 3xTF32 tensor-core FFN tile that the grouped
 // expert FFN (moe_ffn.cu), the per-head FFN (sffn.cu) and the slot expert
-// FFN (expert_ffn.cu) run, and the split-sequence linear-attention cell of
-// the STMA attention (stma_attention.cu) and the generic linear attention
+// FFN (expert_ffn.cu) run, its bf16 counterpart for bf16 inference (K1 and
+// K2), and the split-sequence linear-attention cell of the STMA attention
+// (stma_attention.cu, f32 or bf16 storage) and the generic linear attention
 // (linear_attention.cu) with its thread-block cluster launch.
 //
 // Exact f32 does not rule out the tensor cores.  3xTF32 splits each f32
@@ -14,9 +15,11 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <type_traits>
 
 extern "C" const char* mc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -89,7 +92,7 @@ __device__ __forceinline__ void split_fragment(const float (&v)[4], unsigned (&h
 }
 
 // 16 bytes from device to shared memory without registers; zeros when !full
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
                "r"(full ? 16 : 0)
@@ -301,6 +304,208 @@ __device__ __forceinline__ void ffn_tile_tc(
 }
 
 // ---------------------------------------------------------------------------
+// bf16 operands on the tensor cores (bf16 inference: K1 and K2 run on bf16
+// activations and weights, as the Pallas kernels do under a bf16 cast)
+
+using bf16 = __nv_bfloat16;
+
+// c += a b for one m16n8k16 bf16 tile with f32 accumulation: a holds the A
+// fragment (rows g, g+8; column pairs 2t and 2t+8 of the lane's group
+// g = lane / 4 and t = lane % 4, two bf16 a register, the lower column in
+// the low half), b0/b1 the B fragment (row pairs 2t and 2t+8; column g), c
+// the f32 C fragment (rows g, g+8; columns 2t, 2t+1).  bf16 operands are
+// exact inputs: no split as in 3xTF32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8.  Without .trans, lane (g, t) receives row g,
+// columns 2t and 2t+1 of each: with rows r0 + (l & 15) and columns
+// k0 + 8 (l >> 4), the A fragment of a row-major [M][K] tile.  With .trans
+// it receives rows 2t and 2t+1 of column g: with rows k0 + (l & 15) and
+// columns n0 + 8 (l >> 4), the B fragments of two n-tiles (n0, n0 + 8) of a
+// row-major [K][N] tile, r[0..1] and r[2..3].
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// two f32 values rounded to nearest-even bf16, the first in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// The bf16 FFN tile of K1 and K2: TcFfn's structure with bf16 operands.  A
+// CTA of WARPS warps owns BM = 16 WARPS rows; warp w owns rows 16w..16w+15
+// and all D output columns in f32 registers.  w1/w2 stream through shared
+// memory HC hidden columns at a time, double-buffered with cp.async.  Row
+// pitches (in bf16) are 16 bytes past a multiple of 128, so the eight rows
+// an ldmatrix reads fall in distinct banks.
+template <int D>
+struct TcFfnBf16 {
+  static constexpr int WARPS = D <= 128 ? 8 : 4;  // D = 256: 128 accumulators
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BM = 16 * WARPS;
+  static constexpr int HC = D <= 128 ? 64 : 32;
+  static constexpr int LDX = D + 8, LDW1 = HC + 8, LDW2 = D + 8;
+  static constexpr int STAGE = D * LDW1 + HC * LDW2;  // one chunk of w1 and w2
+  static constexpr int SMEM_BYTES = (BM * LDX + 2 * STAGE) * 2;
+};
+
+// out[r, :] = bf16(gelu(x[r, :] @ w1 + b1) @ w2 (+ b2)) for the rows r < rows
+// of one tile, all operands bf16, as the Pallas kernels compute it: both
+// products on mma.sync m16n8k16 with f32 accumulation, b1 and the erf GELU
+// in f32, the hidden rounded to bf16 before the second product (it is then
+// already the second product's A fragment: the C fragment of hidden columns
+// 16s..16s+15 is, lane for lane, the A fragment of k-step s), b2 added in
+// f32 and the output rounded to bf16.  x and out are row-major with row
+// strides ldx and ldo elements; w1 is [D, F], w2 [F, D].  A chunk past F is
+// zero-filled (gelu(0) * 0 = 0).  Rows past `rows` load as zeros from row
+// 0's address and are never stored; a warp whose rows all lie past it skips
+// its products but keeps to every barrier and copy group.  The tensor cores'
+// truncating accumulation costs a few f32 bits, far below the bf16 output's
+// rounding, so no partial sums are kept (TcFfn keeps them for f32).
+//
+// Requires D % 32 == 0, D <= 256, 1 <= rows <= BM, F % 8 == 0,
+// ldx % 8 == ldo % 8 == 0 and 16-byte aligned x, out, w1, w2 (b2 may be
+// null).  smem holds TcFfnBf16<D>::SMEM_BYTES bytes, 16-byte aligned.
+template <int D>
+__device__ __forceinline__ void ffn_tile_bf16(
+    const bf16* __restrict__ x, long ldx, bf16* __restrict__ out, long ldo, int rows,
+    const bf16* __restrict__ w1, const bf16* __restrict__ b1, const bf16* __restrict__ w2,
+    const bf16* __restrict__ b2, int F, bf16* smem) {
+  using C = TcFfnBf16<D>;
+  static_assert(D % 32 == 0 && D <= 256, "D must be a multiple of 32, <= 256");
+  constexpr int HC = C::HC, NH = HC / 8, NO = D / 8;
+  bf16* xs = smem;                          // [BM][LDX]
+  bf16* stages = xs + C::BM * C::LDX;       // 2 x ([D][LDW1] w1, [HC][LDW2] w2)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int chunks = (F + HC - 1) / HC;
+  const bool active = warp * 16 < rows;
+
+  auto load_weights = [&](int chunk) {
+    bf16* w1s = stages + (chunk & 1) * C::STAGE;
+    bf16* w2s = w1s + D * C::LDW1;
+    const int f0 = chunk * HC;
+    for (int i = tid; i < D * HC / 8; i += C::THREADS) {
+      const int k = i / (HC / 8), j = i % (HC / 8) * 8;
+      const bool in = f0 + j < F;
+      cp_async16(w1s + k * C::LDW1 + j, in ? w1 + (long)k * F + f0 + j : w1, in);
+    }
+    for (int i = tid; i < HC * D / 8; i += C::THREADS) {
+      const int j = i / (D / 8), c = i % (D / 8) * 8;
+      const bool in = f0 + j < F;
+      cp_async16(w2s + j * C::LDW2 + c, in ? w2 + (long)(f0 + j) * D + c : w2, in);
+    }
+  };
+
+  for (int i = tid; i < C::BM * D / 8; i += C::THREADS) {
+    const int r = i / (D / 8), c = i % (D / 8) * 8;
+    const bool in = r < rows;  // a row past the edge reads from row 0, a valid address
+    cp_async16(xs + r * C::LDX + c, in ? x + r * ldx + c : x, in);
+  }
+  load_weights(0);
+  cp_async_commit();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // the lane's ldmatrix row and column offsets (see ldmatrix_x4)
+  const int lr = lane & 15, lc = (lane >> 4) * 8;
+  const bf16* xa = xs + (warp * 16 + lr) * C::LDX + lc;
+
+  for (int chunk = 0; chunk < chunks; ++chunk) {
+    if (chunk + 1 < chunks) {
+      load_weights(chunk + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* w1s = stages + (chunk & 1) * C::STAGE;
+    const bf16* w2s = w1s + D * C::LDW1;
+
+    if (active) {  // a warp of rows past the edge only keeps to the barriers
+      // hidden chunk [16, HC] of the warp's rows: x @ w1[:, f0:f0+HC]
+      float h[NH][4];
+#pragma unroll
+      for (int n = 0; n < NH; ++n) h[n][0] = h[n][1] = h[n][2] = h[n][3] = 0.f;
+#pragma unroll 2
+      for (int k = 0; k < D; k += 16) {
+        unsigned a[4];
+        ldmatrix_x4(a, xa + k);
+        const bf16* wb = w1s + (k + lr) * C::LDW1 + lc;
+#pragma unroll
+        for (int n = 0; n < NH; n += 2) {
+          unsigned b[4];
+          ldmatrix_x4_trans(b, wb + 8 * n);
+          mma_bf16(h[n], a, b[0], b[1]);
+          mma_bf16(h[n + 1], a, b[2], b[3]);
+        }
+      }
+
+      // bias and GELU in f32 on the C fragments (columns f0 + 8n + 2t, + 1),
+      // rounded to bf16 into the A fragments of the second product
+      const int f0 = chunk * HC;
+      unsigned ha[NH / 2][4];
+#pragma unroll
+      for (int n = 0; n < NH; ++n) {
+        const int f = f0 + 8 * n + 2 * t;
+        const float bb0 = f < F ? __bfloat162float(b1[f]) : 0.f;
+        const float bb1 = f + 1 < F ? __bfloat162float(b1[f + 1]) : 0.f;
+        ha[n / 2][(n & 1) * 2] = pack_bf16(gelu_erf(h[n][0] + bb0), gelu_erf(h[n][1] + bb1));
+        ha[n / 2][(n & 1) * 2 + 1] =
+            pack_bf16(gelu_erf(h[n][2] + bb0), gelu_erf(h[n][3] + bb1));
+      }
+
+      // out += bf16(hidden chunk) @ w2[f0:f0+HC, :]
+#pragma unroll
+      for (int s = 0; s < NH / 2; ++s) {
+        const bf16* wb = w2s + (16 * s + lr) * C::LDW2 + lc;
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          unsigned b[4];
+          ldmatrix_x4_trans(b, wb + 8 * n);
+          mma_bf16(acc[n], ha[s], b[0], b[1]);
+          mma_bf16(acc[n + 1], ha[s], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+
+  const int r_lo = warp * 16 + g;
+  bf16* o = out + r_lo * ldo + 2 * t;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    float lo0 = acc[n][0], lo1 = acc[n][1], hi0 = acc[n][2], hi1 = acc[n][3];
+    if (b2) {
+      const float bb0 = __bfloat162float(b2[8 * n + 2 * t]);
+      const float bb1 = __bfloat162float(b2[8 * n + 2 * t + 1]);
+      lo0 += bb0, lo1 += bb1, hi0 += bb0, hi1 += bb1;
+    }
+    if (r_lo < rows) *reinterpret_cast<unsigned*>(o + 8 * n) = pack_bf16(lo0, lo1);
+    if (r_lo + 8 < rows) *reinterpret_cast<unsigned*>(o + 8 * ldo + 8 * n) = pack_bf16(hi0, hi1);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The split-sequence linear-attention cell of K3 and K5.  One (batch, head)
 // cell is one thread-block cluster of G CTAs of LA_THREADS threads:
 //   A[c, l]   = sum_n softmax_n(key(n, .))[c] * value(n, l)      (D x D)
@@ -349,16 +554,37 @@ struct LaCell {
                 LA_THREADS % RQ == 0 && RQ == 64, "unsupported D");
 };
 
+// Four consecutive values of a row as f32, and two stored from f32: the
+// cell's query and output are f32 (K5, K3 in f32) or bf16 (K3 under bf16
+// inference, which loads bf16 and computes in f32, as the Pallas kernel
+// upcasts its operands).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<unsigned*>(p) = pack_bf16(a, b);
+}
+
 // key(n, c) / value(n, c) return channels c..c+3 (c % 4 == 0) of row n < N
 // as a float4: the callers apply their masks and join their sequences there.
-// q and out point at the cell's row 0, with row strides ldq and ldo floats
-// (multiples of 4, 16-byte aligned rows).  D in {16, 32, 64, 128}.  Both
-// products, A_r = E^T V over the chunk and q A over the CTA's query rows,
-// run in 3xTF32 on mma.sync like K1's tile, from f32 in shared memory.
-template <int D, class Key, class Value>
+// q and out point at the cell's row 0, with row strides ldq and ldo elements
+// (multiples of 4, 16-byte aligned f32 rows or 8-byte aligned bf16 rows);
+// TQ and TO are float or bf16.  D in {16, 32, 64, 128}.  Both products,
+// A_r = E^T V over the chunk and q A over the CTA's query rows, run in
+// 3xTF32 on mma.sync like K1's tile, from f32 in shared memory.
+template <int D, class Key, class Value, class TQ, class TO>
 __device__ __forceinline__ void linear_attention_cell(
     int N, const Key& key, const Value& value, int T,
-    const float* __restrict__ q, long ldq, float* __restrict__ out, long ldo,
+    const TQ* __restrict__ q, long ldq, TO* __restrict__ out, long ldo,
     float* smem) {
   using L = LaCell<D>;
   constexpr int G = L::G, DG = L::DG, P = LA_THREADS / D;
@@ -551,7 +777,12 @@ __device__ __forceinline__ void linear_attention_cell(
     for (int i = tid; i < RQ * D / 4; i += LA_THREADS) {
       const int r = i / (D / 4), c = i % (D / 4) * 4;
       const bool in = r < nrows;
-      cp_async16(qs + r * LDQ + c, in ? q + (t0 + r) * ldq + c : q, in);
+      if constexpr (std::is_same<TQ, float>::value) {
+        cp_async16(qs + r * LDQ + c, in ? q + (t0 + r) * ldq + c : q, in);
+      } else {  // bf16 rows are widened to f32 on their way through registers
+        *reinterpret_cast<float4*>(qs + r * LDQ + c) =
+            in ? load4(q + (t0 + r) * ldq + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     }
     cp_async_commit();
     cp_async_wait<0>();
@@ -612,12 +843,8 @@ __device__ __forceinline__ void linear_attention_cell(
 #pragma unroll
       for (int n = 0; n < NQ; ++n) {
         const int col = n0 + 8 * n + 2 * t;
-        if (r_lo < nrows)
-          *reinterpret_cast<float2*>(out + (t0 + r_lo) * ldo + col) =
-              make_float2(o[n][0], o[n][1]);
-        if (r_hi < nrows)
-          *reinterpret_cast<float2*>(out + (t0 + r_hi) * ldo + col) =
-              make_float2(o[n][2], o[n][3]);
+        if (r_lo < nrows) store2(out + (t0 + r_lo) * ldo + col, o[n][0], o[n][1]);
+        if (r_hi < nrows) store2(out + (t0 + r_hi) * ldo + col, o[n][2], o[n][3]);
       }
     }
     __syncthreads();  // qs is refilled next

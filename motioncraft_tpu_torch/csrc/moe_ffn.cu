@@ -24,6 +24,12 @@
 // an SM can hide.  wgmma would, but it reads TF32 only K-major from shared
 // memory: w1 and w2 would have to be transposed and split into hi/lo copies
 // before they are staged.
+//
+// bf16 (bf16 inference, the Pallas kernel on bf16 operands): the same grid
+// on common.cuh ffn_tile_bf16, mma.sync m16n8k16 with f32 accumulation, the
+// hidden rounded to bf16 before the second product and the output stored in
+// bf16.  It moves half the bytes and its bound is the dense bf16 tensor-core
+// rate (989 TFLOP/s), a sixth of the 3xTF32 bound (three passes at 495).
 #include "common.cuh"
 
 namespace {
@@ -57,6 +63,32 @@ int launch(const int* be, const float* xs, const float* w1, const float* b1,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+__global__ void __launch_bounds__(mc::TcFfnBf16<D>::THREADS, 1)
+grouped_ffn_bf16_kernel(const int* __restrict__ block_expert,
+                        const mc::bf16* __restrict__ xs, const mc::bf16* __restrict__ w1,
+                        const mc::bf16* __restrict__ b1, const mc::bf16* __restrict__ w2,
+                        mc::bf16* __restrict__ out, int F) {
+  static_assert(GROUP_ROWS % mc::TcFfnBf16<D>::BM == 0, "a tile spans one block");
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  const long row0 = (long)blockIdx.x * mc::TcFfnBf16<D>::BM;
+  const int e = block_expert[row0 / GROUP_ROWS];
+  mc::ffn_tile_bf16<D>(xs + row0 * D, D, out + row0 * D, D, mc::TcFfnBf16<D>::BM,
+                       w1 + (long)e * D * F, b1 + (long)e * F, w2 + (long)e * F * D,
+                       nullptr, F, reinterpret_cast<mc::bf16*>(smem_bytes));
+}
+
+template <int D>
+int launch_bf16(const int* be, const mc::bf16* xs, const mc::bf16* w1, const mc::bf16* b1,
+                const mc::bf16* w2, mc::bf16* out, int m_pad, int F, cudaStream_t stream) {
+  using C = mc::TcFfnBf16<D>;
+  cudaFuncSetAttribute(grouped_ffn_bf16_kernel<D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  grouped_ffn_bf16_kernel<D><<<m_pad / C::BM, C::THREADS, C::SMEM_BYTES, stream>>>(
+      be, xs, w1, b1, w2, out, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // xs [m_pad, d] with m_pad % 512 == 0; w1 [E, d, f]; b1 [E, f]; w2 [E, f, d];
@@ -77,6 +109,27 @@ extern "C" int mc_grouped_ffn(const void* block_expert, const void* xs,
     case 64: return launch<64>(be, x, a, b, c, o, m_pad, f, s);
     case 128: return launch<128>(be, x, a, b, c, o, m_pad, f, s);
     case 256: return launch<256>(be, x, a, b, c, o, m_pad, f, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same on bf16 xs, w1, b1, w2 and out.  Returns cudaGetLastError() after
+// the launch.
+extern "C" int mc_grouped_ffn_bf16(const void* block_expert, const void* xs,
+                                   const void* w1, const void* b1, const void* w2,
+                                   void* out, int m_pad, int d, int f, void* stream) {
+  auto be = static_cast<const int*>(block_expert);
+  auto x = static_cast<const mc::bf16*>(xs);
+  auto a = static_cast<const mc::bf16*>(w1);
+  auto b = static_cast<const mc::bf16*>(b1);
+  auto c = static_cast<const mc::bf16*>(w2);
+  auto o = static_cast<mc::bf16*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32: return launch_bf16<32>(be, x, a, b, c, o, m_pad, f, s);
+    case 64: return launch_bf16<64>(be, x, a, b, c, o, m_pad, f, s);
+    case 128: return launch_bf16<128>(be, x, a, b, c, o, m_pad, f, s);
+    case 256: return launch_bf16<256>(be, x, a, b, c, o, m_pad, f, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -7,7 +7,11 @@ the sampling loop, and so do every layer's text MoE
 (``encode_condition``, unless the batch brings ``c_enc``); the loop calls the
 denoiser's CFG-doubled test forward once per DDIM step.  With an
 ``outpainting`` mask it is RePaint's harmonized DDIM (``repaint=``), with a
-``pre_seq`` the leading frames are seeded from it.
+``pre_seq`` the leading frames are seeded from it.  ``compute_dtype=
+torch.bfloat16`` runs the denoiser in bf16 on a bf16-cast model
+(apis/factory.py:bf16_cast_): its input, the text features and the
+condition's encoding are cast to bf16 and its output back to f32; the noise,
+the schedule and the DDIM update stay f32.
 
 ``loss`` (in ``train()`` mode): timesteps from the schedule sampler, q_sample,
 the 90/10 text/unconditional ``cond_type``, one training forward, the masked
@@ -43,9 +47,12 @@ def resolve_device(device=None) -> torch.device:
 
 
 def exact_f32() -> None:
-    """Match the reference's exact f32: no TF32 in matmuls or convolutions."""
+    """Match the reference's exact f32: no TF32 in matmuls or convolutions;
+    and bf16 products accumulate in f32 throughout, as XLA's do (cuBLAS may
+    otherwise reduce split-K partial sums in bf16)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 @ARCHITECTURES.register_module()
@@ -164,7 +171,8 @@ class MotionDiffusion(nn.Module):
                noise: Optional[torch.Tensor] = None, randn: Optional[Randn] = None,
                inference_type: Optional[str] = None,
                outpainting: Optional[Outpainting] = None,
-               pre_seq: Optional[torch.Tensor] = None):
+               pre_seq: Optional[torch.Tensor] = None,
+               compute_dtype: Optional[torch.dtype] = None):
         """Motion [B, T, D] for one batch (numpy arrays or tensors):
         ``motion`` (read for its shape, and returned as it is under
         ``inference_type='gt'``), ``motion_mask``, ``motion_length``,
@@ -173,8 +181,9 @@ class MotionDiffusion(nn.Module):
         unless ``noise`` is given, then the loop's) comes from ``randn(shape)``
         if given, else from ``generator``.  With ``outpainting`` and a
         ``repaint`` config that keeps the noisy tails (same_overlap_noisy),
-        returns (motion, noisy_tail).  Needs ``eval()`` mode, the inference
-        path."""
+        returns (motion, noisy_tail).  ``compute_dtype`` (default f32) is
+        the denoiser's dtype and must be the model's: bf16 needs
+        ``bf16_cast_`` first.  Needs ``eval()`` mode, the inference path."""
         if self.training:
             raise RuntimeError("MotionDiffusion.sample runs the inference path: call .eval()")
         motion = self._tensor(batch["motion"], torch.float32)
@@ -184,22 +193,30 @@ class MotionDiffusion(nn.Module):
             return motion
         if inference_type != "ddim":
             raise NotImplementedError(f"inference_type {inference_type!r}")
+        dtype = compute_dtype or torch.float32
+        # the stack's dtype: its joint embedding's (bf16_cast_ keeps the
+        # modules that flax promotes in f32)
+        base = getattr(self.model, "base_model", self.model)
+        wdtype = next(base.joint_embed.parameters()).dtype
+        if wdtype != dtype:
+            raise ValueError(f"sample(compute_dtype={dtype}) on a model in {wdtype}: "
+                             "cast the model first (apis.bf16_cast_ for bf16)")
         motion_mask = self._tensor(batch["motion_mask"], torch.float32)
         motion_length = self._tensor(batch["motion_length"])
-        xf_out = self.encode_text(batch["text_ids"])
+        xf_out = self.encode_text(batch["text_ids"]).to(dtype)
         text_feats = self.model.precompute_text_feats(xf_out)
         cond = {}
         if hasattr(self.model, "encode_condition"):
             if batch.get("c_enc") is not None:
-                cond["c_enc"] = self._tensor(batch["c_enc"], torch.float32)
+                cond["c_enc"] = self._tensor(batch["c_enc"], dtype)
             elif batch.get("c") is not None:
                 cond["c_enc"] = self.model.encode_condition(
-                    self._tensor(batch["c"], torch.float32), T)
+                    self._tensor(batch["c"], torch.float32), T).to(dtype)
 
         def model_fn(x, t_model):
-            return self.model(x, t_model, motion_mask=motion_mask,
+            return self.model(x.to(dtype), t_model, motion_mask=motion_mask,
                               motion_length=motion_length, xf_out=xf_out,
-                              text_feats=text_feats, **cond)
+                              text_feats=text_feats, **cond).float()
 
         randn = randn or generator_randn(generator, self.device)
         if noise is None:

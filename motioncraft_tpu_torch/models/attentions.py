@@ -128,7 +128,7 @@ class STMA(nn.Module):
             motion_feat = torch.cat([motion_feat, motion_feat], dim=0)
             body_feat = torch.cat([body_feat, body_feat], dim=0)
 
-        text_cond = ((cond_type % 10) > 0).to(x.dtype).reshape(B, 1, 1)
+        text_cond = ((cond_type % 10) > 0).to(torch.float32).reshape(B, 1, 1)
         if self.training:
             tc, mask = text_cond[..., None], src_mask.reshape(B, T, 1, 1)
             TXT = text_feat.shape[1]

@@ -13,6 +13,14 @@
 Module and parameter names follow the flax modules, so a flax ``params``
 tree maps onto the ``state_dict`` by name (utils/convert.py).  GELU is the
 exact erf form everywhere.
+
+bf16 inference rounds every floating parameter and buffer to bf16
+(apis/factory.py:bf16_cast_); the modules then compute in the activations'
+dtype, as flax does.  The calls that flax promotes to f32 (an f32 input
+meeting bf16 weights: the time embedding, the MoE gate's projector, the
+condition encoder) hold f32 tensors of the rounded values, so they run in
+f32 as they are.  LayerNorm on bf16 computes its statistics and affine in
+f32 and rounds its output, as flax's does.
 """
 
 from __future__ import annotations

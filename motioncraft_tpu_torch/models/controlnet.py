@@ -128,7 +128,10 @@ class ControlT2MHalf(nn.Module):
         zero-initialised input projection, then padded with zeros or cut to
         ``seq_len``, with the base's sequence embedding added over the
         encoded condition's length.  It depends on no timestep, so sampling
-        encodes it once per call (or per chunk of windows)."""
+        encodes it once per call (or per chunk of windows).  It runs in f32
+        in a bf16-cast model too (bf16_cast_ keeps the encoder's tensors
+        f32, holding the bf16-rounded values), as flax promotes an f32
+        condition; the caller casts the encoding to the compute dtype."""
         if self.condition_pre_encoder is not None:
             c = self.condition_pre_encoder(c)
         c = self.control_cond_input(c)
@@ -161,11 +164,13 @@ class ControlT2MHalf(nn.Module):
         base = self.base_model
         src_mask = motion_mask[..., None] if motion_mask.dim() == 2 else motion_mask
         h, emb = base._embed(motion, timesteps)
-        src_mask = src_mask.to(h.dtype)
+        emb = emb.to(h.dtype)
         if c_enc is not None:
             c = c_enc.to(h.dtype)
         elif c is not None:
-            c = self.encode_condition(c.to(h.dtype), h.shape[1])
+            # encoded in f32 as sampling encodes it (flax's forward would
+            # encode a raw condition in the compute dtype)
+            c = self.encode_condition(c.float(), h.shape[1]).to(h.dtype)
         h2, xf2, emb2, mask2, all_cond = base.cfg_batch(h, xf_out, emb, src_mask)
         c2 = None
         if c is not None:

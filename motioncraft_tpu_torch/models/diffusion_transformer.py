@@ -5,6 +5,12 @@ Joint embedding, learned sequence position embedding, sinusoidal timestep
 embedding -> SiLU MLP, CLIP text conditioning, a stack of decoder blocks and
 a zero-init output.  Subclasses provide the joint embedding and output
 (``joint_embed``, ``out``), ``forward_train`` and ``forward_test``.
+
+The stack runs in the dtype of the joint embedding's output (bf16 for a
+bf16-cast model on bf16 motion): the timestep embedding is f32, its MLP
+runs in f32 as flax promotes it (bf16_cast_ keeps its tensors f32), and the
+embedding is then cast to the stack's dtype.  The 0/1 frame mask stays f32:
+at inference only K3 reads it, and K3 takes it in f32.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ class DiffusionTransformerBase(nn.Module):
         and their aux losses appended to ``aux_losses``."""
         src_mask = motion_mask[..., None] if motion_mask.dim() == 2 else motion_mask
         h, emb = self._embed(motion, timesteps)
-        src_mask = src_mask.to(h.dtype)
+        emb = emb.to(h.dtype)
         if mode == "train":
             return self.forward_train(h=h, src_mask=src_mask, emb=emb, xf_out=xf_out,
                                       cond_type=cond_type, generator=generator,

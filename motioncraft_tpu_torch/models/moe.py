@@ -16,7 +16,10 @@ into an [E, capacity, D] buffer, the expert FFN run over the buffers as
 kernel K6 (ops/expert_ffn.py), and Tutel's load-importance aux loss.
 
 Capacity is Tutel's ``K * int(1.5 * ceil(N / E))``; a choice ranked at or
-past it is dropped (gate 0).  In both modes experts are ranked by logit, the
+past it is dropped (gate 0).  Under bf16 inference the gate still computes
+its logits in f32 (its projector promoted to f32), the expert FFN runs in
+bf16 (K1's bf16 instantiation) and the combine in bf16, the gates and b2
+cast to it, as the JAX package does.  In both modes experts are ranked by logit, the
 lower index first on equal logits (a stable sort; on the card in inference,
 K4's route picks them in that order).
 """
@@ -66,13 +69,16 @@ class CosineTopGate(nn.Module):
         self.cosine_projector = nn.Linear(model_dim, proj_dim)
 
     def forward(self, x):
+        """f32 logits [N, E] whatever the dtype of ``x`` and the weights:
+        the projection runs in f32; the expert similarity and the scale are
+        computed in the weights' dtype and then widened, as flax does."""
         proj = self.cosine_projector(x.float())
         # norm + 1e-12, not F.normalize (which clamps the norm instead)
         proj = proj / (torch.linalg.vector_norm(proj, dim=-1, keepdim=True) + 1e-12)
         sim = self.sim_matrix / (torch.linalg.vector_norm(
             self.sim_matrix, dim=0, keepdim=True) + 1e-12)
         logit_scale = torch.exp(self.temperature.clamp(max=math.log(100.0)))
-        return (proj @ sim) * logit_scale
+        return (proj @ sim.float()) * logit_scale.float()
 
 
 class MoELayer(nn.Module):
@@ -115,11 +121,11 @@ class MoELayer(nn.Module):
         ye = grouped_ffn(route.block_expert, xs, self.expert_w1, self.expert_b1,
                          self.expert_w2)
         ye = torch.cat([ye, ye.new_zeros(1, D)], dim=0)            # row M: dropped choices
-        gates, r = route.gates, route.r
+        gates, r = route.gates.to(x.dtype), route.r
         y = gates[:, 0, None] * ye.index_select(0, r[:, 0])
         for k in range(1, self.topk):
             y = y + gates[:, k, None] * ye.index_select(0, r[:, k])
-        return y + route.ge @ self.expert_b2
+        return y + route.ge.to(x.dtype) @ self.expert_b2.to(x.dtype)
 
     def _forward_slots(self, x, generator, noise, aux_losses):
         N, D = x.shape

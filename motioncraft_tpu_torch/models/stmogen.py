@@ -191,9 +191,10 @@ class STMoGenTransformer(DiffusionTransformerBase):
                 torch.cat([src_mask, src_mask]), all_cond)
 
     def cfg_mix(self, h2, timesteps):
-        """Decode the doubled batch and mix its halves by scale_func."""
+        """Decode the doubled batch and mix its halves by scale_func, in f32
+        (a bf16 stack's output meets f32 weights there, as in flax)."""
         B2, T = h2.shape[:2]
-        out = self.out(h2).reshape(B2, T, -1)
+        out = self.out(h2).reshape(B2, T, -1).float()
         text_coef, none_coef = self.scale_func(timesteps[0])
         return out[:B2 // 2] * text_coef + out[B2 // 2:] * none_coef
 

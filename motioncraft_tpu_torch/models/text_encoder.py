@@ -8,7 +8,9 @@ and a LayerNorm.  The attention is written out (einsum + softmax) as in the
 JAX package, so both compute the same sums.  CLIP is frozen: it runs under
 ``torch.no_grad()`` (the JAX package's ``stop_gradient``) and training leaves
 its parameters out of the optimizer (parallel/train_state.py); the two
-post-LN layers train, with dropout.
+post-LN layers train, with dropout.  Under bf16-cast weights the whole tower
+runs in bf16 (the causal mask in the activations' dtype), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -77,7 +79,8 @@ class ClipTextModel(nn.Module):
     def forward(self, text_ids):
         T = text_ids.shape[1]
         x = self.token_embedding(text_ids) + self.positional_embedding[None, :T]
-        causal = torch.full((T, T), float("-inf"), device=x.device).triu(1)[None, None]
+        causal = torch.full((T, T), float("-inf"), dtype=x.dtype,
+                            device=x.device).triu(1)[None, None]
         for i in range(self.layers):
             x = getattr(self, f"resblock_{i}")(x, causal)
         return self.ln_final(x)

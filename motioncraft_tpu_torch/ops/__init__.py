@@ -2,16 +2,19 @@
 version and a launch counter (``<wrapper>.launches``).
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
-launches its kernel (built from ``csrc/`` at first use) or raises.
+launches its kernel (built from ``csrc/`` at first use) or raises.  K1, K2
+and K3 have a bf16 instantiation each, with its own wrapper and count
+(``*_bf16``); the f32 wrapper hands bf16 operands on to it.
 """
 
 from .expert_ffn import expert_ffn_plain, fused_expert_ffn
 from .linear_attention import fused_linear_attention, fused_linear_attention_plain
-from .moe_ffn import grouped_ffn, grouped_ffn_plain
+from .moe_ffn import grouped_ffn, grouped_ffn_bf16, grouped_ffn_plain
 from .moe_positions import (moe_positions_counts, moe_positions_counts_plain, moe_route,
                             moe_route_plain)
-from .sffn import head_ffn, head_ffn_plain
-from .stma_attention import stma_linear_attention, stma_linear_attention_plain
+from .sffn import head_ffn, head_ffn_bf16, head_ffn_plain
+from .stma_attention import (stma_linear_attention, stma_linear_attention_bf16,
+                             stma_linear_attention_plain)
 
 # name -> (wrapper, plain version); the names follow the Pallas kernels, and
 # "moe_route" is K4's kernel with the MoE routing around it
@@ -23,6 +26,9 @@ KERNELS = {
     "stma_linear_attention": (stma_linear_attention, stma_linear_attention_plain),
     "fused_linear_attention": (fused_linear_attention, fused_linear_attention_plain),
     "fused_expert_ffn": (fused_expert_ffn, expert_ffn_plain),
+    "grouped_ffn_bf16": (grouped_ffn_bf16, grouped_ffn_plain),
+    "head_ffn_bf16": (head_ffn_bf16, head_ffn_plain),
+    "stma_linear_attention_bf16": (stma_linear_attention_bf16, stma_linear_attention_plain),
 }
 
 

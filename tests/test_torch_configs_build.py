@@ -11,10 +11,13 @@ import importlib.util
 import json
 import os
 
+import numpy as np
 import pytest
+import torch
 
 from motioncraft_tpu_torch.config import Config
 from motioncraft_tpu_torch.registry import build_architecture
+from torch_port_util import bf16_cast_dtypes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.relpath(p, os.path.join(REPO, "configs"))
@@ -89,6 +92,23 @@ def test_torch_m2d_cli_on_the_fixture(tmp_path, monkeypatch):
     assert out["flags"]["untrained_evaluator"] and not out["protocol"]
     assert out["flags"]["int8_weights"] is False and out["flags"]["step_cache"] == 0
     assert run["windows"] == 5 and run["preds"][0].shape == (64, 322)
-    for bad in (["--bf16"], ["--int8"], ["--int8-mode", "w8"], ["--step-cache", "4"]):
+    for bad in (["--bf16", "--int8"], ["--int8"], ["--int8-mode", "w8"], ["--step-cache", "4"]):
         with pytest.raises(SystemExit, match="ROADMAP queue 1: step cache"):
             tool.parse_args(["configs/tests/fixture_m2d.py", *bad])
+
+
+def test_torch_m2d_cli_bf16_on_the_fixture(tmp_path, monkeypatch):
+    """--bf16 through the windowed sampler: the weights in bf16, the music
+    encoded in f32 and cast, every window's denoiser in bf16; finite
+    predictions and metrics."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_m2d_test", os.path.join(REPO, "tools", "torch_m2d_test.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    monkeypatch.chdir(REPO)
+    run = tool.main(["configs/tests/fixture_m2d.py", "--device", "cpu", "--bf16",
+                     "--work-dir", str(tmp_path)])
+    assert bf16_cast_dtypes(run["arch"].model) == ({torch.bfloat16}, {torch.float32})
+    assert run["windows"] == 5 and run["preds"][0].shape == (64, 322)
+    assert np.isfinite(run["preds"][0]).all()
+    assert all(np.isfinite(run["out"][k]) for k in ("FID_whole", "FID_hands"))

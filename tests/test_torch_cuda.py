@@ -15,6 +15,11 @@ on the tensor cores, K3's and K5's key softmax is merged from per-CTA
 chunks).  K5 and K6 are also held backward: their gradient recomputes the
 plain version, so it must equal plain autograd's to the same tolerance.  The end-to-end case runs a narrow model (widths the kernels
 take) on the card and on the CPU with the same weights and noise.
+
+The bf16 instantiations of K1-K3 (``*_bf16``) agree with their plain
+versions to 1e-2 x max |plain|: both round the hidden (K1, K2) and the
+output to bf16, whose ulp is 3.9e-3 relative, and a sum that lands near a
+rounding boundary may round the other way.
 """
 
 import numpy as np
@@ -33,6 +38,7 @@ from torch_port_util import check_route_invariants, route_logits, tutel_capacity
 pytestmark = pytest.mark.cuda
 REL = 1e-5
 GATE_ATOL = 1e-6  # moe_route's gates: a softmax over E terms summed in another order
+REL_BF16 = 1e-2
 
 
 @pytest.fixture
@@ -47,6 +53,12 @@ def _randn(g, *shape, scale=1.0):
 
 
 def _case(name, variant, g):
+    if name.endswith("_bf16"):  # the f32 case's operands, rounded to bf16
+        # (K3's 0/1 mask and text flag stay f32, as the models pass them)
+        args = _case(name[:-5], variant, g)
+        n = 2 if name.startswith("stma") else len(args)
+        return [a.to(torch.bfloat16) if torch.is_tensor(a) and a.is_floating_point() and i < n
+                else a for i, a in enumerate(args)]
     if name == "moe_route":
         N, E, K, kind = variant
         return (torch.from_numpy(route_logits(N, E, kind, seed=N + E)), K,
@@ -173,6 +185,26 @@ CASES = [
     ("stma_linear_attention", (8, 64, 12, 128, 77)),
 ]
 GRAD_CASES = [c for c in CASES if c[0] in ("fused_linear_attention", "fused_expert_ffn")]
+BF16_CASES = [
+    # K1: four 128-row tiles of a block on one expert; D = 256; a part-filled
+    # hidden chunk (F 96); D = 32; the flagship's text MoE (26 blocks of 256)
+    ("grouped_ffn_bf16", (4, 128, 512, [2, 0, 0, 3])),
+    ("grouped_ffn_bf16", (3, 256, 1024, [2, 0, 1])),
+    ("grouped_ffn_bf16", (2, 64, 96, [1, 0, 1])), ("grouped_ffn_bf16", (3, 32, 64, [2, 0])),
+    ("grouped_ffn_bf16", (16, 256, 1024, [min(i, 15) for i in range(26)])),
+    # K2: the flagship's SFFN; D = 256, D = 32; a part-filled chunk; fewer
+    # rows than one tile
+    ("head_ffn_bf16", (6272, 12, 128, 512)), ("head_ffn_bf16", (300, 2, 256, 1024)),
+    ("head_ffn_bf16", (200, 4, 32, 128)), ("head_ffn_bf16", (65, 2, 64, 96)),
+    ("head_ffn_bf16", (50, 3, 64, 256)),
+    # K3: the flagship's (32 x 196 frames, 77 text rows); masked rows; text
+    # off; d = 16; more than one 64-row query step per CTA
+    ("stma_linear_attention_bf16", (32, 196, 12, 128, 77)),
+    ("stma_linear_attention_bf16", (3, 40, 2, 64, 9, "length_1")),
+    ("stma_linear_attention_bf16", (2, 50, 3, 128, 77, "text_off")),
+    ("stma_linear_attention_bf16", (3, 21, 2, 16, 6)),
+    ("stma_linear_attention_bf16", (2, 300, 2, 32, 77)),
+]
 
 
 @pytest.mark.parametrize("name,variant", CASES, ids=lambda v: str(v))
@@ -196,6 +228,23 @@ def test_kernel_matches_plain(cuda, name, variant):
             assert torch.equal(a, b)
     else:
         torch.testing.assert_close(got, want, rtol=0, atol=REL * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("name,variant", BF16_CASES, ids=lambda v: str(v))
+def test_bf16_kernel_matches_plain(cuda, name, variant):
+    """Each bf16 instantiation, reached through its f32 wrapper as the
+    models call it, against the plain version on the same bf16 operands."""
+    wrapper, plain = KERNELS[name[:-5]]
+    args = [a.to(cuda) if torch.is_tensor(a) else a
+            for a in _case(name, variant, torch.Generator().manual_seed(0))]
+    reset_launch_counts()
+    got, want = wrapper(*args), plain(*args)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts[name] == 1 and counts[name[:-5]] == 0
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=REL_BF16 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("name,variant", GRAD_CASES, ids=lambda v: str(v))
@@ -273,10 +322,9 @@ def test_narrow_controlnet_window_alike_on_card_and_cpu(cuda):
                                     outpainting=Outpainting(mask=mask.to(dev),
                                                             gt=gt.to(dev))).cpu()
     calls, layers = sum(d for _, d in pairs), 3 + 2
-    assert launch_counts() == {"moe_route": layers * (calls + 1), "moe_positions": 0,
-                               "grouped_ffn": layers * (calls + 1), "head_ffn": layers * calls,
-                               "stma_linear_attention": layers * calls,
-                               "fused_linear_attention": 0, "fused_expert_ffn": 0}
+    assert launch_counts() == dict.fromkeys(KERNELS, 0) | {
+        "moe_route": layers * (calls + 1), "grouped_ffn": layers * (calls + 1),
+        "head_ffn": layers * calls, "stma_linear_attention": layers * calls}
     want = out["cpu"]
     scale = max(1.0, float(want.abs().max()))
     assert float((out["cuda"] - want).abs().max()) <= 1e-4 * scale
@@ -317,11 +365,37 @@ def test_narrow_model_samples_alike_on_card_and_cpu(cuda):
         reset_launch_counts()
         out[str(dev)] = arch.sample(batch, noise=noise).cpu()
     steps, layers = arch.diffusion_test.num_timesteps, m["num_layers"]
-    assert launch_counts() == {"moe_route": layers * (steps + 1), "moe_positions": 0,
-                               "grouped_ffn": layers * (steps + 1),
-                               "head_ffn": layers * steps,
-                               "stma_linear_attention": layers * steps,
-                               "fused_linear_attention": 0, "fused_expert_ffn": 0}
+    assert launch_counts() == dict.fromkeys(KERNELS, 0) | {
+        "moe_route": layers * (steps + 1), "grouped_ffn": layers * (steps + 1),
+        "head_ffn": layers * steps, "stma_linear_attention": layers * steps}
     want = out["cpu"]
     scale = max(1.0, float(want.abs().max()))
     assert float((out["cuda"] - want).abs().max()) <= 1e-4 * scale
+
+
+def test_narrow_bf16_server_on_the_card(cuda):
+    """MotionGenServer over a bf16-cast narrow model on the card: requests
+    of two length buckets and one long-form request answer with finite
+    motions of their lengths, through the bf16 K1-K3 only (K4 routes the f32
+    gate logits)."""
+    from motioncraft_tpu_torch.apis import bf16_cast_
+    from motioncraft_tpu_torch.serving import MotionGenServer
+
+    arch = build_architecture(_narrow(tiny_t2m_cfg()), device=cuda)
+    arch.model.load_state_dict(fabricate_state_dict(arch.model, seed=0), strict=True)
+    bf16_cast_(arch)
+    srv = MotionGenServer(arch, max_seq_len=16, batch_buckets=(1, 2, 4), seq_buckets=(8, 16),
+                          max_wait_ms=200.0, compute_dtype=torch.bfloat16).warmup()
+    reset_launch_counts()
+    with srv:
+        long = srv.submit_long("a long walk", 40)
+        outs = srv.generate(["a person walks", "someone waves", "a jump"], [16, 5, 12],
+                            timeout=120)
+        outs.append(long.result(timeout=120))
+        st = srv.stats()
+    assert [o.shape for o in outs] == [(16, 322), (5, 322), (12, 322), (40, 322)]
+    assert all(np.isfinite(o).all() for o in outs) and st["requests"] == 4
+    counts = launch_counts()
+    assert all(counts[k] > 0 for k in ("moe_route", "grouped_ffn_bf16", "head_ffn_bf16",
+                                       "stma_linear_attention_bf16"))
+    assert counts["grouped_ffn"] == counts["head_ffn"] == counts["stma_linear_attention"] == 0

@@ -30,7 +30,7 @@ from motioncraft_tpu.eval.models import T2MContrastiveModel_SMPLX as JaxEvaluato
 from motioncraft_tpu.registry import build_architecture as build_jax
 from motioncraft_tpu.utils.checkpoint import load_params as jax_load_params
 from motioncraft_tpu.utils.checkpoint import save_params as jax_save_params
-from torch_port_util import seeded_params
+from torch_port_util import bf16_cast_dtypes, seeded_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "tests", "tiny_t2m.py")
@@ -127,7 +127,24 @@ def test_ddim_mode_from_a_jax_snapshot(workdir, monkeypatch):
     np.testing.assert_array_equal(w, params["time_embed"]["layers_0"]["kernel"].T)
 
 
-@pytest.mark.parametrize("argv", [["--bf16"], ["--int8"], ["--step-cache", "2"],
+def test_ddim_mode_bf16(workdir, monkeypatch):
+    """--bf16: the snapshot's weights cast to bf16 and sampled with the
+    denoiser in bf16 (the bf16 plain versions of K1-K3 on the CPU); the
+    metrics and the dumped motions come out finite and f32."""
+    monkeypatch.chdir(workdir)
+    run = torch_test.main([CONFIG, "port_bf16", "--device", "cpu", "--batch-size", "5",
+                           "--bf16", "--checkpoint", str(workdir / "params.npz"),
+                           "--cfg-options", _evaluator_option(workdir)])
+    out, results = run["out"], run["results"]
+    assert len(results) == 12
+    assert bf16_cast_dtypes(run["arch"].model) == ({torch.bfloat16}, {torch.float32})
+    metric = {k: v for k, v in out.items() if k not in ("flags", "protocol")}
+    assert len(metric) == 8 and all(np.isfinite(v) for v in metric.values())
+    pred = np.stack([np.asarray(r["pred_motion"]) for r in results])
+    assert pred.dtype == np.float32 and np.isfinite(pred).all()
+
+
+@pytest.mark.parametrize("argv", [["--bf16", "--int8"], ["--int8"], ["--step-cache", "2"],
                                   ["--step-cache-table", "t.json"],
                                   ["--dispatch-batches", "2"], ["--no_repaint"]])
 def test_options_not_ported_are_refused(argv):

@@ -295,6 +295,8 @@ def test_other_devices_raise(name):
             "fused_linear_attention": (meta(1, 2, 2, 16), meta(1, 3, 2, 16),
                                        meta(1, 3, 2, 16)),
             "fused_expert_ffn": (meta(2, 5, 32), meta(2, 32, 64), meta(2, 64),
-                                 meta(2, 64, 32), meta(2, 32))}[name]
+                                 meta(2, 64, 32), meta(2, 32))}[name.removesuffix("_bf16")]
+    if name.endswith("_bf16"):  # the bf16 instantiations, on bf16 operands
+        args = tuple(a.to(torch.bfloat16) if a.is_floating_point() else a for a in args)
     with pytest.raises(ValueError, match="unsupported device"):
         wrapper(*args)

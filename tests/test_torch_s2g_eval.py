@@ -40,7 +40,7 @@ from motioncraft_tpu_torch.data.datasets import beat2_pose_to_smplx322
 from motioncraft_tpu_torch.eval import gesture_metrics as gm
 from motioncraft_tpu_torch.ops import fk, rotation, smplx_lbs
 from test_smplx_lbs import fabricate_model
-from torch_port_util import assert_close_scaled, t
+from torch_port_util import assert_close_scaled, bf16_cast_dtypes, t
 
 REL = 1e-5
 METRIC_REL = 1e-6
@@ -277,7 +277,7 @@ def test_torch_s2g_cli_with_a_body_model(tmp_path, monkeypatch):
     assert all(np.isfinite(out[k]) for k in S2G_KEYS - {"protocol", "flags"})
     assert run["body_model"] is not None and run["windows"] == 7
     assert [p.shape for p in run["preds"]] == [(88, 322), (88, 322)]
-    for bad in (["--bf16"], ["--int8"], ["--int8-mode", "w8"], ["--step-cache", "4"]):
+    for bad in (["--bf16", "--int8"], ["--int8"], ["--int8-mode", "w8"], ["--step-cache", "4"]):
         with pytest.raises(SystemExit, match="ROADMAP queue 1: step cache"):
             tool.parse_args(["configs/tests/tiny_s2g.py", *bad])
 
@@ -295,3 +295,17 @@ def test_torch_s2g_cli_fk_route(tmp_path, monkeypatch):
     assert out["flags"]["smplx_vertices"] is False and out["protocol"] is False
     assert run["body_model"] is None and run["preds"][0].shape == (88, 322)
     assert torch.isfinite(torch.as_tensor(run["preds"][0])).all()
+
+
+def test_torch_s2g_cli_bf16(tmp_path, monkeypatch):
+    """--bf16 on the FK route: the WavEncoder in f32 on the widened bf16
+    weights (as flax promotes it), the denoiser in bf16; finite
+    predictions."""
+    monkeypatch.chdir(REPO)
+    monkeypatch.delenv("MOTIONCRAFT_SMPLX_MODEL", raising=False)
+    run = _tool().main(["configs/tests/tiny_s2g.py", "--device", "cpu", "--bf16",
+                        "--beats2-args", "configs/tests/fixture_beat2.yaml",
+                        "--work-dir", str(tmp_path), "--limit", "1"])
+    assert bf16_cast_dtypes(run["arch"].model) == ({torch.bfloat16}, {torch.float32})
+    assert run["preds"][0].shape == (88, 322)
+    assert np.isfinite(np.asarray(run["preds"][0])).all()

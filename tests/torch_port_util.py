@@ -62,6 +62,17 @@ def seeded_batch_stats(tree, seed=0):
     return walk(dict(tree))
 
 
+def bf16_cast_dtypes(model):
+    """(dtypes of the parameters outside bf16_cast_'s promoted modules,
+    dtypes of those inside): ({bf16}, {f32}) for a bf16-cast model."""
+    from motioncraft_tpu_torch.apis.factory import PROMOTED_MODULES
+
+    inside = {n: bool(set(n.split(".")) & set(PROMOTED_MODULES))
+              for n, _ in model.named_parameters()}
+    return ({p.dtype for n, p in model.named_parameters() if not inside[n]},
+            {p.dtype for n, p in model.named_parameters() if inside[n]})
+
+
 def t(a, dtype=None):
     """numpy -> CPU torch tensor."""
     x = torch.from_numpy(np.array(a))

@@ -15,9 +15,10 @@ Usage:
   python tools/torch_m2d_test.py configs/tests/tiny_m2d.py --device cpu   # after make_tiny_data.py
 
 ``--recording-batch R`` samples R tracks in lockstep (windowed_sample_batch).
-Not ported yet, and refused rather than ignored: --bf16, --int8 /
---int8-mode and --step-cache (ROADMAP queue 1: step cache and bf16/int8
-inference).  Diversity's picks draw from the global numpy generator, which
+``--bf16`` casts the weights to bf16 and runs the denoiser in bf16 (the
+metric math stays f32), as tools/m2d_test.py does.  Not ported yet, and
+refused rather than ignored: --int8 / --int8-mode and --step-cache (ROADMAP
+queue 1: step cache and int8 inference).  Diversity's picks draw from the global numpy generator, which
 this tool seeds with --seed.
 """
 
@@ -31,7 +32,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import numpy as np  # noqa: E402
 
-LOW_PRECISION = "ROADMAP queue 1: step cache and bf16/int8 inference"
+LOW_PRECISION = "ROADMAP queue 1: step cache and int8 inference"
 
 
 def parse_args(argv=None):
@@ -51,14 +52,16 @@ def parse_args(argv=None):
                    help="sample this many tracks in lockstep, one batch per window "
                         "(1 = the reference's sequential protocol)")
     p.add_argument("--cfg-options", nargs="*", default=None)
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 denoiser compute in the windowed sampler (weights cast, "
+                        "compute_dtype bf16; the metric math stays f32)")
     # tools/m2d_test.py's options that the port does not run yet
     p.add_argument("--step-cache", type=int, default=0, metavar="N")
     p.add_argument("--int8", nargs="?", const="w8a8", default=None, choices=["w8a8", "w8"])
     p.add_argument("--int8-mode", default=None, choices=["w8a8", "w8"])
-    p.add_argument("--bf16", action="store_true")
     args = p.parse_args(argv)
-    if args.bf16 or args.int8 or args.int8_mode:
-        raise SystemExit(f"--bf16 / --int8: low-precision inference is not ported ({LOW_PRECISION})")
+    if args.int8 or args.int8_mode:
+        raise SystemExit(f"--int8: int8 inference is not ported ({LOW_PRECISION})")
     if args.step_cache not in (0, 1):  # 0 and 1 are off, as in tools/m2d_test.py
         raise SystemExit(f"--step-cache: the step cache is not ported ({LOW_PRECISION})")
     return args
@@ -135,6 +138,7 @@ def run(args, logger=print) -> dict:
     evaluation."""
     import torch
 
+    from motioncraft_tpu_torch.apis import bf16_cast_
     from motioncraft_tpu_torch.apis.windowed import (denormalize, num_windows,
                                                      windowed_sample, windowed_sample_batch)
     from motioncraft_tpu_torch.config import Config, cfg_options_from_args
@@ -174,8 +178,12 @@ def run(args, logger=print) -> dict:
     def make_mwb(info):
         return make_window_batch_fn(info["c"], info["text"][0], window)
 
+    compute_dtype = None
+    if args.bf16:
+        bf16_cast_(arch)
+        compute_dtype = torch.bfloat16
     kw = dict(window=window, pre_frames=pre, use_repaint=not args.no_repaint,
-              repaint=arch.repaint_cfg, randn=randn)
+              repaint=arch.repaint_cfg, randn=randn, compute_dtype=compute_dtype)
     R = max(1, args.recording_batch)
     lengths = [len(info["motion"]) for info in infos]
     t0 = time.perf_counter()

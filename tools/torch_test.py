@@ -13,9 +13,10 @@ Usage:
   python tools/torch_test.py configs/tests/tiny_t2m.py out --device cpu \\
       --cfg-options model.inference_type=gt          # FID must be ~0
 
-Not ported yet, and refused rather than ignored: --bf16, --int8 and the step
-cache, --dispatch-batches > 1 and the RePaint knobs (each names its ROADMAP
-queue 1 item).
+``--bf16`` casts the weights to bf16 and samples with the denoiser in bf16
+(the metric math stays f32), as tools/test.py does.  Not ported yet, and
+refused rather than ignored: --int8 and the step cache, --dispatch-batches
+> 1 and the RePaint knobs (each names its ROADMAP queue 1 item).
 """
 
 import argparse
@@ -54,8 +55,10 @@ def parse_args(argv=None):
     p.add_argument("--dump-samples-limit", type=int, default=1024,
                    help="cap the number of dumped motions (file size)")
     p.add_argument("--cfg-options", nargs="*", default=None)
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 denoiser compute (weights cast, compute_dtype bf16; the "
+                        "metric math stays f32)")
     # tools/test.py's options that the port does not run yet
-    p.add_argument("--bf16", action="store_true")
     p.add_argument("--int8", nargs="?", const="w8a8", default=None, choices=["w8a8", "w8"])
     p.add_argument("--int8-mode", default=None, choices=["w8a8", "w8"])
     p.add_argument("--step-cache", type=int, default=0, metavar="N")
@@ -69,12 +72,12 @@ def parse_args(argv=None):
     p.add_argument("--jump_n_sample", type=int, default=2)
     p.add_argument("--jump_length", type=int, default=3)
     args = p.parse_args(argv)
-    if args.bf16 or args.int8 or args.int8_mode:
-        raise SystemExit("--bf16 / --int8: low-precision inference is not ported "
-                         "(ROADMAP queue 1: step cache and bf16/int8 inference)")
+    if args.int8 or args.int8_mode:
+        raise SystemExit("--int8: int8 inference is not ported "
+                         "(ROADMAP queue 1: step cache and int8 inference)")
     if args.step_cache or args.step_cache_table:
         raise SystemExit("--step-cache / --step-cache-table: the step cache is not "
-                         "ported (ROADMAP queue 1: step cache and bf16/int8 inference)")
+                         "ported (ROADMAP queue 1: step cache and int8 inference)")
     if args.dispatch_batches != 1:
         raise SystemExit("--dispatch-batches > 1: grouped dispatch is not ported "
                          "(ROADMAP queue 1: multi-GPU, serving and the host-side tools)")
@@ -90,6 +93,7 @@ def run(args, logger=print) -> dict:
     sampling and of evaluation."""
     import torch
 
+    from motioncraft_tpu_torch.apis import bf16_cast_
     from motioncraft_tpu_torch.config import Config, cfg_options_from_args
     from motioncraft_tpu_torch.data import build_dataloader
     from motioncraft_tpu_torch.models.tokenizer import find_bpe_asset
@@ -123,11 +127,16 @@ def run(args, logger=print) -> dict:
         next(iter(loader))
         load_eval_variables(cfg.model, arch.model, checkpoint=args.checkpoint,
                             torch_checkpoint=args.torch_checkpoint)
+    compute_dtype = None
+    if args.bf16 and arch.model is not None:
+        bf16_cast_(arch)
+        compute_dtype = torch.bfloat16
 
     from motioncraft_tpu_torch.apis.test import single_device_test
     t0 = time.perf_counter()
     results = single_device_test(arch, loader, seed=args.seed, limit=args.limit,
-                                 device=args.device, logger=lambda m: logger("  " + m))
+                                 device=args.device, logger=lambda m: logger("  " + m),
+                                 compute_dtype=compute_dtype)
     sample_s = time.perf_counter() - t0
     logger(f"sampled {len(results)} results in {sample_s:.1f}s")
     if args.dump_samples:
