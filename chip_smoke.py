@@ -115,7 +115,26 @@ Phases; any failure exits non-zero:
      fraction per dtype; one bf16 forward_test card vs CPU with the gate
      logits pinned (within 5e-2 x scale), and bf16 vs f32 on the card with
      the expert choices that differ (reported)
- 13. one JSON line of the kernels' numbers, and last the device line
+ 13. the step cache and int8 inference on phase 3's flagship: two batches of
+     16 through single_device_test uncached, with all-compute flags (equal
+     to uncached bit for bit), at reuse_every=2 and with the committed
+     table (artifacts/step_cache_flagship.json): K1-K4's launches what the
+     flags imply, wall ms a batch, no device wait in a cached sampling call
+     (CUDA sync debug mode); tools/torch_test.py with --bf16 --int8 (W8A8)
+     and --bf16 --int8 w8 on a synthetic tree of 32 clips: finite metrics
+     and the stamped flags, K1/K2 launched no time under W8A8, the int8
+     products (int_mm, torch._int_mm) that the model implies, int8 weight
+     bytes against f32, ms a batch; one W8A8 and one W8 forward_test card
+     vs CPU with the gate logits pinned (W8A8 held to limits read in the
+     same run from the card's own output with its input one ulp apart, the
+     activation codes that differ counted, the float forward shown to
+     break those limits); every int8 product shape of that run, and m = 1 and 2,
+     exactly equal to the int32 product, with its device ms and bound (one
+     JSON line); one M2D track of three windows at --step-cache 2 through
+     tools/torch_m2d_test.py (windows 1 and 2 are the harmonized loop: its
+     first step after each re-noising jump computes), launches checked; a W8A8
+     MotionGenServer on phase 12's traffic, latency p50/p95
+ 14. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -175,6 +194,27 @@ SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_LONG, SERVE_LONG_FRAMES = 4, 8, 2, 400
 # the bucket pairs (batch, frames) whose kernel shapes phase 2 checks: the
 # smallest and the largest
 SERVE_CHECKED = ((1, 64), (8, 196))
+# phase 13: the committed step-cache table (DDIM-50 x 4 layers, 83 of 200
+# (step, layer) pairs computed), the clips of each int8 evaluation through
+# tools/torch_test.py (two batches), the int8 tensor cores' dense peak, and
+# the W8A8 forward card vs CPU: an activation whose f32 value differs in the
+# last bit (sums in another order) can cross a rounding boundary of its
+# int8 code, which moves its row by 1/127 of its largest entry in the next
+# product, and later layers see those rows.  So no fixed tolerance holds
+# it: its limits are W8A8_SENS times what a one-ulp change of the input and
+# of every activation before its quantization does to the card's own W8A8
+# forward in the same run (max and mean abs difference, share of codes that
+# differ), and the first activation that differs holds the module-level
+# bound of tests/test_torch_quant.py (codes one apart, at most
+# W8A8_FIRST_SHARE of them).  At the flagship, card vs CPU reads 0.6-1.1
+# times that sensitivity and the float forward's mean distance 2.5-2.7
+# times it: W8A8_SENS sits between
+STEP_CACHE_TABLE = os.path.join(ROOT, "artifacts", "step_cache_flagship.json")
+LOWPREC_CLIPS = 2 * BATCH
+INT8_PEAK = 1979e12   # H100 SXM dense int8 tensor cores, OP/s
+W8A8_SENS = 1.5
+W8A8_FIRST_SHARE = 1e-3
+W8A8_DRAW2 = 1000  # the second W8A8 input draw's seed offset
 # the bf16 instantiations of K1-K3
 BF16_KERNELS = ("grouped_ffn", "head_ffn", "stma_linear_attention")
 
@@ -229,9 +269,10 @@ def device_ms(torch, fn, reps=20, attempts=3):
     """Mean device time of one call over ``reps`` calls: the summed
     durations of the kernels it ran, from torch.profiler, without the gaps
     in which the card waited for the host.  A profiling session now and
-    then hands back no device events at all (seen once in about a hundred
-    sessions on an H100); such a session is run again, up to ``attempts``
-    times in all."""
+    then hands back no device events at all (on an H100 once in about a
+    hundred sessions, and the first session of most int8 product shapes);
+    such a session is run again, up to ``attempts`` times in all, and then
+    the call is timed with CUDA events (``time_ms``: host gaps included)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -246,7 +287,8 @@ def device_ms(torch, fn, reps=20, attempts=3):
         if us > 0:
             return us / 1e3 / reps
         print(f"[profile] session {attempt + 1} of {attempts} saw no device time")
-    raise PhaseError(f"the profiler saw no device time in {attempts} sessions")
+    print("[profile] timed with CUDA events instead")
+    return time_ms(torch, fn, reps)
 
 
 def bound(flops, nbytes, peak):
@@ -1645,6 +1687,512 @@ def bf16_parity(torch, cfg, sd, archs):
     check(diff <= MODEL_BF16_TOL * scale, f"bf16 forward card vs CPU: {diff} > tol")
 
 
+# ---------------------------------------------------------------- phase 13
+
+def cached_counts(calls, tables, layers, copy=0, suffix=""):
+    """K1-K4's launches over ``calls`` sampling calls whose denoiser calls
+    ran the (step, layer) pairs that ``tables`` (one [denoise steps,
+    layers] reuse table a call) do not reuse: per call the text MoE of every
+    layer (and control block) once, then per computed pair one motion MoE,
+    one SFFN and one attention, a control-injected layer (1..copy) twice
+    (its control block and its base block)."""
+    weight = [1 + (1 <= i <= copy) for i in range(layers)]
+    computed = sum(int(((~t) * weight).sum()) for t in tables)
+    text = calls * (layers + copy)
+    return {"moe_route": text + computed, f"grouped_ffn{suffix}": text + computed,
+            f"head_ffn{suffix}": computed, f"stma_linear_attention{suffix}": computed}
+
+
+def int8_products(model):
+    """(per sampling call, per denoiser call): the int8 products (int_mm
+    calls) a W8A8 model runs: one a W8A8 QLinear, two a head of an int8
+    SFFN, two an expert of an int8 MoE layer; the text MoEs' once a
+    sampling call (hoisted), the rest once a denoiser call."""
+    from motioncraft_tpu_torch.models.blocks import SFFN, QLinear
+    from motioncraft_tpu_torch.models.moe import MoELayer
+
+    once, per_step = 0, 0
+    for name, m in model.named_modules():
+        n = 0
+        if isinstance(m, QLinear) and not m.weight_only:
+            n = 1
+        elif isinstance(m, SFFN) and hasattr(m, "w1_scale"):
+            n = 2 * m.num_heads
+        elif isinstance(m, MoELayer) and hasattr(m, "expert_w1_scale"):
+            n = 2 * m.num_experts
+        if "text_moe" in name:
+            once += n
+        else:
+            per_step += n
+    return once, per_step
+
+
+def model_bytes(model):
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+def record_codes(quant, store):
+    """Wrap ops.quant.quantize_rows to keep every int8 activation code array
+    (on the host), in call order; returns the original."""
+    real = quant.quantize_rows
+
+    def wrapped(x):
+        xq, ax = real(x)
+        store.append(xq.cpu())
+        return xq, ax
+
+    quant.quantize_rows = wrapped
+    return real
+
+
+def phase_lowprec(torch, full_cfg, m2d_cfg, arch, sd, dev="cuda", clips=LOWPREC_CLIPS,
+                  config=CONFIG, m2d_config=M2D_CONFIG):
+    """Phase 13: the step cache and int8 inference on phase 3's flagship
+    (``config`` and ``m2d_config`` the files of ``full_cfg`` and
+    ``m2d_cfg``)."""
+    t_phase = time.perf_counter()
+    out = {"cache": lowprec_step_cache(torch, arch)}
+    out["int8"] = lowprec_cli(torch, full_cfg, sd, dev, clips, config)
+    out["parity"] = lowprec_parity(torch, full_cfg["model"], sd, arch.device)
+    out["int_mm"] = int_mm_table(torch, out["int8"]["w8a8"]["shapes"], dev)
+    out["m2d"] = lowprec_m2d(torch, m2d_cfg, dev, m2d_config)
+    out["serve"] = lowprec_serve(torch, full_cfg["model"], sd, dev)
+    print(f"[lowprec] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def lowprec_step_cache(torch, arch):
+    """Two batches of 16 through single_device_test with the step cache:
+    all-compute flags equal the uncached sampler bit for bit; at
+    reuse_every=2 and with the committed table K1-K4 launch what the flags
+    imply, no device wait inside the step loop, wall ms per batch."""
+    import numpy as np
+    from motioncraft_tpu_torch.apis import single_device_test
+    from motioncraft_tpu_torch.diffusion import StepCacheConfig, load_flags, pattern_flags
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    T = arch.model.max_seq_len
+    steps, layers = arch.diffusion_test.num_timesteps, arch.model.num_layers
+    batches = [requests(BATCH, SEED + i, T) for i in range(BATCHES)]
+    table = load_flags(STEP_CACHE_TABLE)
+    configs = [("uncached", None),
+               ("all-compute", StepCacheConfig(reuse_every=1, warmup=1, tail=0)),
+               ("reuse_every=2", StepCacheConfig(reuse_every=2)),
+               ("table", StepCacheConfig(flags=table))]
+    single_device_test(arch, batches[:1], seed=SEED, device=arch.device)  # warm-up
+    runs = {}
+    for label, sc in configs:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = single_device_test(arch, batches, seed=SEED, device=arch.device, step_cache=sc)
+        ms = (time.perf_counter() - t0) / BATCHES * 1e3
+        counts = launch_counts()
+        preds = np.stack([r["pred_motion"] for r in res])
+        check(np.isfinite(preds).all(), f"[cache] {label}: non-finite motion")
+        flags = (np.zeros((steps, layers), bool) if sc is None
+                 else pattern_flags(steps, layers, sc))
+        want = dict.fromkeys(counts, 0) | cached_counts(BATCHES, [flags] * BATCHES, layers)
+        print(f"[cache] {label}: {ms:.1f} ms a batch of {BATCH} (wall); "
+              f"{int((~flags).sum())} of {flags.size} (step, layer) pairs computed; "
+              f"launches {counts}")
+        check(counts == want, f"[cache] {label} launch counts {counts} != expected {want}")
+        runs[label] = {"ms": ms, "counts": counts, "preds": preds,
+                       "computed": int((~flags).sum())}
+    check(np.array_equal(runs["all-compute"]["preds"], runs["uncached"]["preds"]),
+          "[cache] all-compute flags differ from the uncached sampler")
+    check(runs["table"]["computed"] == 83 and runs["reuse_every=2"]["computed"] == 27 * layers,
+          f"[cache] computed pairs {runs['table']['computed']} / "
+          f"{runs['reuse_every=2']['computed']}")
+    for label in ("reuse_every=2", "table"):
+        d = np.abs(runs[label]["preds"] - runs["uncached"]["preds"])
+        print(f"[cache] {label} against uncached: max abs diff {d.max():.3e}, mean {d.mean():.3e}"
+              f" (scale {np.abs(runs['uncached']['preds']).max():.3e})")
+    print("[cache] all-compute flags equal the uncached sampler bit for bit")
+    if arch.device.type == "cuda":
+        # the batch on the card first: its upload from pageable host memory
+        # waits, the step loop must not
+        batch = {k: torch.as_tensor(v, device=arch.device) for k, v in batches[0].items()
+                 if isinstance(v, np.ndarray)}
+        g = torch.Generator(device=arch.device).manual_seed(SEED)
+        _, syncs = count_syncs(torch, lambda: arch.sample(
+            batch, generator=g, step_cache=StepCacheConfig(flags=table)))
+        print(f"[cache] one cached sampling call waits for the device {len(syncs)} times {syncs}")
+        check(not syncs, f"[cache] the cached step loop waits for the device: {syncs}")
+    return {k: {"ms": v["ms"], "counts": v["counts"], "computed": v["computed"]}
+            for k, v in runs.items()}
+
+
+def lowprec_cli(torch, full_cfg, sd, dev, clips, config=CONFIG):
+    """tools/torch_test.py --bf16 --int8 (W8A8) and --bf16 --int8 w8 on a
+    synthetic tree of ``clips`` clips (an untrained full-width evaluator):
+    finite metrics and the stamped keys, K1/K2 launch no time under W8A8,
+    the int8 products the model implies, weight bytes, ms a batch."""
+    import tempfile
+
+    import numpy as np
+    from motioncraft_tpu_torch.ops import launch_counts, quant, reset_launch_counts
+    from motioncraft_tpu_torch.utils.checkpoint import save_params
+
+    torch_test = load_tool("torch_test")
+    cfg = full_cfg["model"]
+    T = cfg["model"]["max_seq_len"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = os.path.join(tmp, "data")
+        write_motionx_tree(tree, clips, T, SEED + 1)
+        from motioncraft_tpu_torch.registry import build_architecture
+        mem = build_architecture(cfg, device="cpu")
+        mem.model.load_state_dict(sd, strict=True)
+        f32_bytes = model_bytes(mem.model)
+        params = os.path.join(tmp, "params.npz")
+        save_params(params, mem.model)
+        del mem
+        # the Diversity metric draws fewer samples than the clips
+        small = os.path.join(tmp, "config.py")
+        with open(small, "w") as f:
+            f.write(f"_base_ = [{config!r}]\n"
+                    "data = dict(test=dict(eval_cfg=dict(replication_times=1, metrics=[\n"
+                    "    dict(type='R Precision', batch_size=8, top_k=3),\n"
+                    "    dict(type='Matching Score', batch_size=8),\n"
+                    "    dict(type='FID', emb_scale=1.0),\n"
+                    f"    dict(type='Diversity', num_samples={clips // 2})])))\n")
+        opts = [f"data.test.data_prefix={tree}", "data.test.ann_file=ann.txt",
+                "data.test.motion_dir=motions", "data.test.text_dir=texts"]
+        for mode in ("w8a8", "w8"):
+            shapes = {}
+
+            def record(a, b, shapes=shapes):
+                key = (a.shape[0], a.shape[1], b.shape[1], b.stride(0) == 1)
+                shapes[key] = shapes.get(key, 0) + 1
+
+            argv = [small, os.path.join(tmp, mode), "--device", str(dev), "--batch-size",
+                    str(BATCH), "--checkpoint", params, "--seed", str(SEED), "--bf16",
+                    "--int8", mode, "--cfg-options", *opts]
+            reset_launch_counts()
+            quant.int_mm.hooks.append(record)
+            try:
+                run = torch_test.main(argv)
+            finally:
+                quant.int_mm.hooks.remove(record)
+            counts = launch_counts()
+            # a CPU rehearsal launches nothing: it counts the calls
+            n_mm = counts["int_mm"] if torch.device(dev).type == "cuda" else sum(shapes.values())
+            res, model = run["out"], run["arch"].model
+            n_batches = -(-clips // BATCH)
+            steps = run["arch"].diffusion_test.num_timesteps
+            layers = model.num_layers
+            metric = {k: v for k, v in res.items() if k not in ("flags", "protocol")}
+            check(len(run["results"]) == clips and all(np.isfinite(v) for v in metric.values()),
+                  f"[int8] {mode}: {len(run['results'])} results, metrics {metric}")
+            check(res["flags"]["int8_weights"] == mode and set(res["flags"]) == {
+                "untrained_evaluator", "hash_tokenizer", "int8_weights", "step_cache",
+                "step_cache_table"}, f"[int8] {mode}: flags {res['flags']}")
+            want = dict.fromkeys(counts, 0) | sampling_counts(
+                n_batches, n_batches * steps, layers, "_bf16")
+            once, per_step = int8_products(model)
+            if mode == "w8a8":  # no grouped FFN (slot buffers), no head FFN kernel
+                want["grouped_ffn_bf16"] = want["head_ffn_bf16"] = 0
+            want_mm = n_batches * (once + steps * per_step)
+            if torch.device(dev).type == "cuda":
+                want["int_mm"] = want_mm
+            n_q, elems = quant.count_quantized(model)
+            ms = run["sample_s"] / n_batches * 1e3
+            print(f"[int8] bf16 + {mode}: {n_q} int8 weights, {elems / 1e6:.2f} M elements: "
+                  f"{elems / 2**20:.1f} MiB int8 against {4 * elems / 2**20:.1f} MiB f32 "
+                  f"({2 * elems / 2**20:.1f} MiB bf16); model {model_bytes(model) / 2**20:.1f} "
+                  f"MiB against {f32_bytes / 2**20:.1f} MiB f32; {ms:.1f} ms a batch of "
+                  f"{BATCH} (wall); launches {counts}; int8 products {n_mm} "
+                  f"({once} + {steps} x {per_step} a batch)")
+            print(f"[int8] {mode} metrics {json.dumps(metric)}")
+            check(counts == want, f"[int8] {mode} launch counts {counts} != expected {want}")
+            check(n_mm == want_mm and (n_mm > 0) == (mode == "w8a8"),
+                  f"[int8] {mode}: {n_mm} int8 products, expected {want_mm}")
+            out[mode] = {"ms": ms, "counts": counts, "int_mm": n_mm, "weights": n_q,
+                         "int8_bytes": elems, "model_bytes": model_bytes(model),
+                         "f32_bytes": f32_bytes, "shapes": shapes}
+            del run, model
+    return out
+
+
+def lowprec_parity(torch, cfg, sd, dev):
+    """Two W8A8 forward_tests (f32, B = 2, two input draws) and one W8 on the
+    card against the CPU, every gate fed the card's logits (as phase 6); both devices
+    quantize to the same int8 bytes and scales.  W8 holds within
+    MODEL_REL_TOL x scale.  W8A8 holds to readings of the same run (see
+    W8A8_SENS): card vs CPU within W8A8_SENS times the card's own W8A8
+    output moved by a one-ulp change of its input and of every activation
+    before its quantization, in max and mean abs difference and in the
+    share of activation codes that differ; the first
+    quantized activation that differs at all by one code at most, in at
+    most W8A8_FIRST_SHARE of its codes.  The card's float forward (the
+    same weights unquantized, the gates pinned alike) must break the mean
+    limit, or the check could not tell W8A8 from float."""
+    from motioncraft_tpu_torch.apis import int8_quantize_
+    from motioncraft_tpu_torch.models.moe import CosineTopGate
+    from motioncraft_tpu_torch.ops import quant
+    from motioncraft_tpu_torch.registry import build_architecture
+
+    ts = torch.full((2,), 499, dtype=torch.long)
+    inf = float("inf")
+
+    def forward(a, batch, inp, logits, codes=None, nudge=False):
+        """a's test forward of ``inp``; with no ``logits`` yet, its gate
+        logits are recorded into it, else each gate returns the recorded
+        ones; ``codes`` collects the int8 activation codes; ``nudge`` moves
+        every activation one ulp up before its quantization."""
+        record, calls = not logits, []
+
+        def gate(mod, args, o):
+            if record:
+                logits.append(o.cpu())
+                return None
+            calls.append(None)
+            return logits[len(calls) - 1].to(o.device)
+
+        handles = [m.register_forward_hook(gate) for m in a.modules()
+                   if isinstance(m, CosineTopGate)]
+        real = record_codes(quant, codes) if codes is not None else None
+        if nudge:
+            rec = quant.quantize_rows
+            quant.quantize_rows = lambda t: rec(torch.nextafter(t, torch.full_like(t, inf)))
+        try:
+            with torch.no_grad():
+                xf = a.encode_text(batch["text_ids"])
+                out = a.model(
+                    inp.to(a.device), ts.to(a.device),
+                    motion_mask=torch.as_tensor(batch["motion_mask"], device=a.device),
+                    motion_length=torch.as_tensor(batch["motion_length"], device=a.device),
+                    xf_out=xf, text_feats=a.model.precompute_text_feats(xf)).cpu()
+        finally:
+            if real is not None:
+                quant.quantize_rows = real
+            for h in handles:
+                h.remove()
+        check(record or len(calls) == len(logits) > 0, "[int8-parity] gate calls differ")
+        return out
+
+    def build(d, mode=None):
+        a = build_architecture(cfg, device=d)
+        a.model.load_state_dict(sd, strict=True)
+        return a if mode is None else int8_quantize_(a, weight_only=mode == "w8")
+
+    def compare(got, want, codes_got=(), codes_want=()):
+        check([c.shape for c in codes_got] == [c.shape for c in codes_want],
+              "[int8-parity] the quantized activations differ in order")
+        d = (got - want).abs()
+        diffs = [(a.int() - b.int()).abs() for a, b in zip(codes_got, codes_want)]
+        first = next((t for t in diffs if t.any()), None)
+        return {"max": float(d.max()), "mean": float(d.mean()),
+                "flips": sum(int(t.gt(0).sum()) for t in diffs)
+                / max(1, sum(t.numel() for t in diffs)),
+                "differing": sum(bool(t.any()) for t in diffs), "activations": len(diffs),
+                "first_max": 0 if first is None else int(first.max()),
+                "first_share": 0.0 if first is None else float(first.gt(0).float().mean()),
+                "worst": max((int(t.max()) for t in diffs), default=0)}
+
+    out = {}
+    # W8A8 on two input draws, W8 on the first
+    for mode, draw in (("w8a8", 0), ("w8a8", W8A8_DRAW2), ("w8", 0)):
+        batch = requests(2, SEED + draw + 600, cfg["model"]["max_seq_len"])
+        x = torch.randn(batch["motion"].shape,
+                        generator=torch.Generator().manual_seed(SEED + draw + 17))
+        archs = {"card": build(dev, mode), "cpu": build("cpu", mode)}
+        q_card = {k: v for k, v in archs["card"].model.state_dict().items()
+                  if v.dtype == torch.int8 or k.endswith("scale")}
+        q_cpu = archs["cpu"].model.state_dict()
+        check(all(torch.equal(v.cpu(), q_cpu[k]) for k, v in q_card.items()),
+              f"[int8-parity] {mode}: card and CPU quantize differently")
+        logits, codes = [], {"card": [], "cpu": [], "nudged": []}
+        got = forward(archs["card"], batch, x, logits, codes["card"])
+        want = forward(archs["cpu"], batch, x, logits, codes["cpu"])
+        del archs["cpu"]
+        scale = max(1.0, float(want.abs().max()))
+        r = compare(got, want, codes["card"], codes["cpu"])
+        if mode == "w8":
+            print(f"[int8-parity] w8 forward_test B=2: card vs CPU max abs diff {r['max']:.3e} "
+                  f"(tol {MODEL_REL_TOL} x {scale:.4g})")
+            check(r["max"] <= MODEL_REL_TOL * scale, f"[int8-parity] w8: {r['max']}")
+            out[mode] = {"card_cpu": r, "scale": scale}
+            continue
+        tag = f"w8a8, draw {draw}"
+        nudged = forward(archs["card"], batch, torch.nextafter(x, torch.full_like(x, inf)),
+                         logits, codes["nudged"], nudge=True)
+        sens = compare(nudged, got, codes["nudged"], codes["card"])
+        del codes, archs
+        fl = compare(forward(build(dev), batch, x, logits), got)
+        lim = {k: W8A8_SENS * sens[k] for k in ("max", "mean", "flips")}
+        for label, v in (("card vs CPU", r), ("card, nudged one ulp", sens)):
+            print(f"[int8-parity] {tag} forward_test B=2, {label}: max abs diff {v['max']:.4e}, "
+                  f"mean {v['mean']:.4e} (scale {scale:.4g}); codes that differ: a share "
+                  f"{v['flips']:.4e} in {v['differing']} of {v['activations']} activations, "
+                  f"the first of them {v['first_share']:.4e} of its codes by at most "
+                  f"{v['first_max']}, any by at most {v['worst']}")
+        print(f"[int8-parity] {tag} limits ({W8A8_SENS} x the one-ulp readings): max "
+              f"{lim['max']:.4e}, mean {lim['mean']:.4e}, share {lim['flips']:.4e}; the float "
+              f"forward against the card's W8A8: max {fl['max']:.4e}, mean {fl['mean']:.4e}")
+        check(all(r[k] <= lim[k] for k in lim),
+              f"[int8-parity] {tag} card vs CPU {r} beyond the limits {lim}")
+        check(r["first_max"] <= 1 and r["first_share"] <= W8A8_FIRST_SHARE,
+              f"[int8-parity] {tag}: the first differing activation: {r}")
+        check(fl["mean"] > lim["mean"],
+              f"[int8-parity] the float forward ({fl}) is within the W8A8 limits {lim}")
+        out[tag] = {"card_cpu": r, "sensitivity": sens, "float": fl, "limits": lim,
+                    "scale": scale}
+    return out
+
+
+def int_mm_table(torch, shapes, dev):
+    """Each int8 product shape of the W8A8 run, and m = 1 and 2 at the
+    time MLP's and the stylization products' widths: int_mm on the card
+    exactly equal to the plain int32 product (computed in f64 on the card,
+    which holds every partial sum of these sizes exactly, and for the first
+    rows on the CPU), its device ms and bound (int8 tensor cores)."""
+    from motioncraft_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 19)
+    cases = dict(shapes)
+    for (m, k, n, col), c in list(shapes.items()):
+        if m == BATCH or m == 2 * BATCH:  # a time-MLP or stylization width
+            for small in (1, 2):
+                cases.setdefault((small, k, n, col), 0)
+    rows = []
+    for (m, k, n, col), calls in sorted(cases.items(), key=lambda kv: kv[0][1:] + kv[0][:1]):
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).to(dev)
+        b = torch.randint(-127, 128, (n, k) if col else (k, n), generator=g,
+                          dtype=torch.int8).to(dev)
+        b = b.t() if col else b
+        got = quant.int_mm(a, b)
+        ref = (a.double() @ b.double()).to(torch.int32)
+        head = quant.int_mm_plain(a[:64].cpu(), b.cpu())
+        check(torch.equal(got, ref) and torch.equal(got[:64].cpu(), head),
+              f"[int_mm] {m}x{k}x{n}: not the int32 product")
+        # no device time on the CPU (a rehearsal)
+        ms = (device_ms(torch, lambda: quant.int_mm(a, b)) if torch.device(dev).type == "cuda"
+              else float("nan"))
+        t_ms, by = bound(2 * m * k * n, m * k + k * n + 4 * m * n, INT8_PEAK)
+        rows.append({"m": m, "k": k, "n": n, "mat2": "column-major" if col else "row-major",
+                     "calls_per_batch": calls, "ms": ms, "bound_ms": t_ms, "bound_by": by})
+        print(f"[int_mm] {m} x {k} x {n} ({rows[-1]['mat2']} mat2, {calls} calls in the W8A8 "
+              f"run): exact; {ms:.4f} ms, bound {t_ms:.4f} ms ({by})")
+    print(json.dumps({"int8_products": rows}))
+    return rows
+
+
+def lowprec_m2d(torch, m2d_cfg, dev, config=M2D_CONFIG):
+    """One M2D track of phase 10's length (three windows: window 0 plain,
+    windows 1 and 2 RePaint's harmonized loop; the FID needs two 150-frame
+    chunks) at R = 1 with --step-cache 2 through tools/torch_m2d_test.py:
+    finite predictions and metrics, the flags stamped, and K1-K4's
+    launches what the reuse tables imply (every first denoise step after a
+    re-noising jump computes)."""
+    import tempfile
+
+    import numpy as np
+    from motioncraft_tpu_torch.apis.windowed import num_windows
+    from motioncraft_tpu_torch.diffusion import (RepaintConfig, StepCacheConfig,
+                                                 harmonize_schedule, pattern_flags)
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.checkpoint import save_params
+    from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
+
+    tool = load_tool("torch_m2d_test")
+    cfg = m2d_cfg["model"]
+    window, pre = m2d_cfg["windowed"]["window"], m2d_cfg["windowed"]["pre_frames"]
+    frames = M2D_FRAMES
+    with tempfile.TemporaryDirectory() as tmp:
+        arch = build_architecture(cfg, device="cpu")
+        arch.model.load_state_dict(fabricate_state_dict(arch.model, seed=SEED), strict=True)
+        layers, copy = arch.model.num_layers, arch.model.copy_blocks_num
+        steps = arch.diffusion_test.num_timesteps
+        params = os.path.join(tmp, "params.npz")
+        save_params(params, arch.model)
+        del arch
+        tree = os.path.join(tmp, "data")
+        write_finedance_tree(tree, M2D_TRACKS[:1], frames, SEED + 3)
+        argv = [config, "--device", str(dev), "--checkpoint", params, "--seed", str(SEED),
+                "--work-dir", os.path.join(tmp, "out"), "--step-cache", "2",
+                "--cfg-options", f"data.test.data_prefix={tree}"]
+        reset_launch_counts()
+        run = tool.main(argv)
+        counts = launch_counts()
+    sc = StepCacheConfig(reuse_every=2)
+    schedule = harmonize_schedule(steps, RepaintConfig(overlap_len=pre))
+    mask = np.array([dn for _, dn in schedule])
+    tables = [pattern_flags(steps, layers, sc)] + [
+        pattern_flags(len(mask), layers, sc, denoise_mask=mask)[mask]] * (run["windows"] - 1)
+    want = dict.fromkeys(counts, 0) | cached_counts(run["windows"], tables, layers, copy)
+    out = run["out"]
+    print(f"[m2d-cache] {run['windows']} windows ({frames} frames) at --step-cache 2 in "
+          f"{run['sample_s']:.3f} s: {run['sample_s'] / run['windows'] * 1e3:.1f} ms a window; "
+          f"window 1 computes {int((~tables[-1]).sum())} of {tables[-1].size} (denoise step, "
+          f"layer) pairs; launches {counts}")
+    metric = {k: v for k, v in out.items() if k not in ("flags", "protocol")}
+    check(run["windows"] == num_windows(frames, window, pre) and out["flags"]["step_cache"] == 2
+          and all(p.shape == (frames, 322) and np.isfinite(p).all() for p in run["preds"])
+          and all(np.isfinite(v) for v in metric.values()),
+          f"[m2d-cache] windows {run['windows']}, flags {out['flags']}, metrics {metric}")
+    check(counts == want, f"[m2d-cache] launch counts {counts} != expected {want}")
+    return {"counts": counts, "ms": run["sample_s"] / run["windows"] * 1e3}
+
+
+def lowprec_serve(torch, cfg, sd, dev):
+    """A MotionGenServer holding a W8A8 (f32 activations) flagship: warmed
+    up on every bucket pair, then phase 12's traffic: finite results, K1 and
+    K2 launch no time, K3/K4 what the dispatches imply; latency p50/p95."""
+    import numpy as np
+    from motioncraft_tpu_torch.apis import int8_quantize_
+    from motioncraft_tpu_torch.apis.windowed import num_windows
+    from motioncraft_tpu_torch.diffusion import RepaintConfig, harmonize_schedule
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.serving import MotionGenServer
+    from motioncraft_tpu_torch.serving.server import covered_frames
+
+    T, D = cfg["model"]["max_seq_len"], cfg["model"]["input_feats"]
+    arch = build_architecture(cfg, device=dev)
+    arch.model.load_state_dict(sd, strict=True)
+    int8_quantize_(arch)
+    layers, steps = arch.model.num_layers, arch.diffusion_test.num_timesteps
+    pre = 4
+    wins = num_windows(covered_frames(SERVE_LONG_FRAMES, T, pre), T, pre)
+    rp = RepaintConfig(overlap_len=pre, add_blend=True)
+    long_calls = steps + (wins - 1) * sum(d for _, d in harmonize_schedule(steps, rp))
+    srv = MotionGenServer(arch, max_seq_len=T, input_feats=D, batch_buckets=SERVE_BUCKETS,
+                          seq_buckets=SERVE_SEQ_BUCKETS, max_wait_ms=20.0, seed=SEED)
+    t0 = time.perf_counter()
+    srv.warmup()
+    warm = time.perf_counter() - t0
+    reset_launch_counts()
+    with srv:
+        results, long_out, wall = serve_traffic(torch, srv, T, SEED + 40)
+        st = srv.stats()
+    counts = launch_counts()
+    n_req = SERVE_CLIENTS * SERVE_PER_CLIENT + SERVE_LONG
+    for n, m in results:
+        check(m.shape == (n, D) and np.isfinite(m).all(), f"[serve-int8] {m.shape}")
+    for m in long_out:
+        check(m.shape == (SERVE_LONG_FRAMES, D) and np.isfinite(m).all(),
+              f"[serve-int8] long: {m.shape}")
+    check(st["requests"] == n_req, f"[serve-int8] stats {st}")
+    short, n_long = st["dispatches"] - st["long_dispatches"], st["long_dispatches"]
+    want = dict.fromkeys(counts, 0) | sampling_counts(
+        short + n_long * wins, short * steps + n_long * long_calls, layers)
+    want["grouped_ffn"] = want["head_ffn"] = 0
+    if torch.device(dev).type == "cuda":  # the CPU counts no int8 launch
+        once, per_step = int8_products(arch.model)
+        want["int_mm"] = (once * (short + n_long * wins)
+                          + per_step * (short * steps + n_long * long_calls))
+    print(f"[serve-int8] W8A8 f32: warm-up {warm:.1f} s; {n_req} requests in {wall:.3f} s: "
+          f"{n_req / wall:.3f} requests/s; latency p50 {st['latency_p50_s']:.3f} s, p95 "
+          f"{st['latency_p95_s']:.3f} s; {st['dispatches']} dispatches "
+          f"({st['long_dispatches']} long), mean occupancy {st['mean_occupancy']:.3f}; "
+          f"launches {counts}")
+    check(counts == want, f"[serve-int8] launch counts {counts} != expected {want}")
+    return {"stats": st, "counts": counts, "requests_per_s": n_req / wall}
+
+
 def main():
     try:
         import torch
@@ -1699,6 +2247,10 @@ def main():
     m2d = phase_m2d(torch, m2d_cfg)
     s2g = phase_s2g(torch, s2g_cfg)
     serve = phase_serve(torch, cfg, sd)
+    arch = build_architecture(cfg, device="cuda")
+    arch.model.load_state_dict(sd, strict=True)
+    low = phase_lowprec(torch, full_cfg, m2d_cfg, arch, sd)
+    del arch
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
@@ -1711,6 +2263,14 @@ def main():
         row["m2d_launches"] = [m2d[R]["counts"][name] for R in sorted(m2d)]
         row["s2g_launches"] = [s2g[R]["counts"][name] for R in (1, S2G_REC_BATCH)]
         row["serve_launches"] = [serve[dt]["counts"][name] for dt in ("f32", "bf16")]
+        # phase 13: the step cache (reuse_every=2, the committed table), the
+        # int8 evaluations (bf16 + W8A8, bf16 + W8), the cached M2D track and
+        # the W8A8 server
+        row["cache_launches"] = [low["cache"][k]["counts"][name]
+                                 for k in ("reuse_every=2", "table")]
+        row["int8_launches"] = [low["int8"][m]["counts"][name] for m in ("w8a8", "w8")]
+        row["m2d_cache_launches"] = low["m2d"]["counts"][name]
+        row["serve_int8_launches"] = low["serve"]["counts"][name]
         check(row["launches"] > 0, f"{name} was launched no time on its path")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -118,6 +118,20 @@ def bf16_cast_(arch):
     return arch
 
 
+def int8_quantize_(arch, weight_only: bool = False, **kwargs):
+    """Rewrite the audited denoiser weights of ``arch``'s model to int8 in
+    place (ops/quant.py:quantize_; W8A8 dynamic, or W8 with
+    ``weight_only``); returns ``arch``.  Apply after loading the weights and
+    after ``bf16_cast_``, as the JAX package's int8_quantize_variables: the
+    scales stay f32, and the modules that ``bf16_cast_`` keeps in f32 (the
+    time MLP, ``PROMOTED_MODULES``) quantize their f32 activations.
+    Inference only."""
+    from ..ops.quant import quantize_
+    if arch.model is not None:
+        quantize_(arch.model, weight_only=weight_only, **kwargs)
+    return arch
+
+
 def make_text_batch(texts, max_seq_len: int = 196, input_feats: int = 322,
                     motion: Optional[np.ndarray] = None,
                     lengths: Optional[np.ndarray] = None) -> dict:

@@ -8,6 +8,9 @@ shorter than the loader's ``batch_size`` (the last of an epoch) is padded up
 to it by repeating its last row, and the extra predictions are dropped, as
 in the JAX package: MoE capacity depends on the token count, so the short
 batch would otherwise route differently.  GT mode is not padded.
+``step_cache`` (diffusion/stepcache.py) is handed to every batch's sampling
+call; its calibration mode, ``collect_errors``, is refused here
+(``MotionDiffusion.sample`` runs it).
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ def single_device_test(arch, data_loader: Iterable[Dict[str, Any]], *, seed: int
                        limit: Optional[int] = None, device=None,
                        logger: Optional[Callable[[str], None]] = None,
                        dispatch_batches: int = 1,
-                       compute_dtype: Optional[torch.dtype] = None) -> List[Dict[str, Any]]:
+                       compute_dtype: Optional[torch.dtype] = None,
+                       step_cache=None) -> List[Dict[str, Any]]:
     """Sample every batch of ``data_loader`` (a ``data.DataLoader`` or any
     iterable of dicts of numpy arrays: ``motion``, ``motion_mask``,
     ``motion_length``, ``text_ids``, optionally ``motion_metas``, which the
@@ -45,7 +49,11 @@ def single_device_test(arch, data_loader: Iterable[Dict[str, Any]], *, seed: int
     batch size padded to is the loader's ``batch_size``, or for a plain
     iterable that of its first batch.  ``logger`` gets one line per batch
     with its wall time.  ``compute_dtype`` is the denoiser's dtype
-    (``MotionDiffusion.sample``; bf16 on a bf16-cast model)."""
+    (``MotionDiffusion.sample``; bf16 on a bf16-cast model), ``step_cache``
+    its ``StepCacheConfig``."""
+    if step_cache is not None and step_cache.collect_errors:
+        raise ValueError("collect_errors is a calibration mode; use "
+                         "MotionDiffusion.sample directly")
     if dispatch_batches != 1:
         raise NotImplementedError("dispatch_batches > 1 (batches grouped into one device "
                                   "dispatch): ROADMAP queue 1: multi-GPU, serving and the "
@@ -64,8 +72,8 @@ def single_device_test(arch, data_loader: Iterable[Dict[str, Any]], *, seed: int
         bs = bs or n
         if not gt and n < bs:
             nbatch = {k: _pad_rows(v, bs - n) for k, v in nbatch.items()}
-        pred = arch.sample(nbatch, generator=generator,
-                           compute_dtype=compute_dtype)[:n].cpu()  # waits for the device
+        pred = arch.sample(nbatch, generator=generator, compute_dtype=compute_dtype,
+                           step_cache=step_cache)[:n].cpu()  # waits for the device
         res = dict(batch)
         res["pred_motion"] = pred
         results.extend(arch.split_results(res))

@@ -19,7 +19,10 @@ come back in one copy at the end.
 All carries stay in normalised space; ``denormalize`` runs once at the end.
 ``compute_dtype`` is handed to every window's ``MotionDiffusion.sample``
 (bf16 on a bf16-cast model); a chunk's condition is encoded in f32 and cast
-to it, the carries stay f32.
+to it, the carries stay f32.  ``step_cache`` (a ``StepCacheConfig``) is
+handed to every window's sampling call: each window starts its own cache,
+and in an outpainted window the reuse table makes every first denoise step
+after a re-noising jump compute.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from ..diffusion.sampling import Outpainting, Randn, RepaintConfig
+from ..diffusion.stepcache import StepCacheConfig
 
 
 def num_windows(total_frames: int, window: int, pre_frames: int) -> int:
@@ -52,14 +56,14 @@ def _upload(a, device: torch.device) -> torch.Tensor:
 
 
 def _sample_window(arch, batch, w, last, tails, *, use_repaint, repaint, pre_frames, randn,
-                   compute_dtype):
+                   compute_dtype, step_cache):
     """Window ``w`` of a recording: (sample [B, window, D], tail bank)."""
+    kw = dict(randn=randn, compute_dtype=compute_dtype, step_cache=step_cache)
     if w == 0:
-        out = arch.sample(batch, randn=randn, compute_dtype=compute_dtype)
+        out = arch.sample(batch, **kw)
         return (out[0] if isinstance(out, tuple) else out), tails
     if not use_repaint:
-        out = arch.sample(batch, randn=randn, pre_seq=last[:, -pre_frames:],
-                          compute_dtype=compute_dtype)
+        out = arch.sample(batch, pre_seq=last[:, -pre_frames:], **kw)
         return (out[0] if isinstance(out, tuple) else out), tails
     if tails is None and repaint.same_overlap_noisy:
         tails = last.new_zeros((arch.diffusion_test.num_timesteps, last.shape[0],
@@ -71,7 +75,7 @@ def _sample_window(arch, batch, w, last, tails, *, use_repaint, repaint, pre_fra
     op = Outpainting(mask=mask, gt=gt,
                      clip_idx=1 if (repaint.same_overlap_noisy and w >= 2) else 0,
                      previous_noisy_tail=tails)
-    out = arch.sample(batch, randn=randn, outpainting=op, compute_dtype=compute_dtype)
+    out = arch.sample(batch, outpainting=op, **kw)
     return out if isinstance(out, tuple) else (out, tails)
 
 
@@ -79,7 +83,8 @@ def windowed_sample(arch, make_window_batch: Callable[[int, int], Dict], *,
                     total_frames: int, window: int, pre_frames: int,
                     randn: Optional[Randn] = None, use_repaint: bool = True,
                     repaint: Optional[RepaintConfig] = None,
-                    compute_dtype: Optional[torch.dtype] = None) -> np.ndarray:
+                    compute_dtype: Optional[torch.dtype] = None,
+                    step_cache: Optional[StepCacheConfig] = None) -> np.ndarray:
     """Generate ``total_frames`` of one recording, window by window:
     ``make_window_batch(start, end)`` returns the batch of frames
     [start, end) as arrays (zeros motion [1, window, D], its mask and
@@ -89,7 +94,7 @@ def windowed_sample(arch, make_window_batch: Callable[[int, int], Dict], *,
     repaint = repaint or RepaintConfig(overlap_len=pre_frames)
     stride = window - pre_frames
     kw = dict(use_repaint=use_repaint, repaint=repaint, pre_frames=pre_frames, randn=randn,
-              compute_dtype=compute_dtype)
+              compute_dtype=compute_dtype, step_cache=step_cache)
     samples, last, tails = [], None, None
     for w in range(num_windows(total_frames, window, pre_frames)):
         batch = {k: _upload(v, arch.device)
@@ -124,7 +129,8 @@ def windowed_sample_batch(arch, make_window_batches: List[Callable[[int, int], D
                           repaint: Optional[RepaintConfig] = None,
                           precompute_condition: bool = True,
                           window_chunk: Optional[int] = None,
-                          compute_dtype: Optional[torch.dtype] = None) -> List[np.ndarray]:
+                          compute_dtype: Optional[torch.dtype] = None,
+                          step_cache: Optional[StepCacheConfig] = None) -> List[np.ndarray]:
     """R recordings in lockstep: window w of all R runs as one [R, window, D]
     batch.  Recordings shorter than the longest keep sampling padded windows
     whose outputs are dropped.
@@ -144,7 +150,7 @@ def windowed_sample_batch(arch, make_window_batches: List[Callable[[int, int], D
     stride = window - pre_frames
     chunk = window_chunk or max(1, 256 // R)
     kw = dict(use_repaint=use_repaint, repaint=repaint, pre_frames=pre_frames, randn=randn,
-              compute_dtype=compute_dtype)
+              compute_dtype=compute_dtype, step_cache=step_cache)
     encode = precompute_condition and hasattr(arch.model, "encode_condition")
 
     samples, last, tails = [], None, None

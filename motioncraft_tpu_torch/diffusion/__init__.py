@@ -8,3 +8,4 @@ from .sampling import (Outpainting, RepaintConfig, Replay, SampleResult, ddim_sa
                        ddim_sample_loop_harmonize, ddim_step, generator_randn,
                        harmonize_schedule)
 from .schedules import get_named_beta_schedule, get_schedule_jump_cjm_ddim, space_timesteps
+from .stepcache import StepCacheConfig, flags_from_errors, load_flags, pattern_flags

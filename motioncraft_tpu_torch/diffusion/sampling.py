@@ -2,13 +2,23 @@
 
 Port of ``ddim_step`` / ``ddim_sample_loop`` / ``ddim_sample_loop_harmonize``
 of motioncraft_tpu/diffusion/sampling.py, with the pre-sequence seeding, the
-outpainting x0 overwrite and blend, and the noisy-tail bank; the step cache
-is not ported.  Each loop is a Python ``for`` over a schedule known on the
-host, so every per-step decision (the timestep, whether a step denoises or
-re-noises, the late-stage blend where sqrt(1 - alpha_bar_prev) < 0.2, the
-tail bank's index) is a host value and nothing in a loop waits for the
-device.  The model call is one function handed in by the architecture,
+outpainting x0 overwrite and blend, the noisy-tail bank and the step cache
+(diffusion/stepcache.py).  Each loop is a Python ``for`` over a schedule
+known on the host, so every per-step decision (the timestep, whether a step
+denoises or re-noises, the late-stage blend where sqrt(1 - alpha_bar_prev) <
+0.2, the tail bank's index) is a host value and nothing in a loop waits for
+the device.  The model call is one function handed in by the architecture,
 which does the CFG batching itself.
+
+Step cache: with ``step_cache0`` (the per-layer residual cache, on the
+device) the model call is ``model_fn(x, t, cache, flags) -> (out,
+new_cache)``, where ``flags`` is the step's numpy bool row of the reuse table
+(``pattern_flags``): the layers branch on host bools.  The harmonized loop
+makes the table against its jump schedule, so the first denoise step after a
+re-noising jump computes every layer, and carries the cache through the
+re-noising steps untouched.  ``collect_errors`` (plain loop only) runs every
+layer and fills a device tensor [steps, layers] of each layer's relative L1
+residual change, which the caller copies to the host once.
 
 Randomness: every standard-normal draw goes through ``randn(shape)``, in a
 fixed order (per DDIM step: the pre-sequence's q_sample noise, the eta noise,
@@ -30,6 +40,7 @@ import torch
 from . import gaussian as G
 from .gaussian import GaussianDiffusion
 from .schedules import get_schedule_jump_cjm_ddim
+from .stepcache import StepCacheConfig, pattern_flags
 
 # model_fn(x[B,T,D], t_original[B]) -> model_output[B,T,D]
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -65,6 +76,8 @@ class SampleResult(NamedTuple):
     pred_xstart: torch.Tensor
     # [num_timesteps, B, overlap, D] when repaint.same_overlap_noisy else None
     noisy_tail: Optional[torch.Tensor] = None
+    # [num_timesteps, layers] f32 on the device under collect_errors else None
+    cache_errors: Optional[torch.Tensor] = None
 
 
 def generator_randn(generator: Optional[torch.Generator], device) -> Randn:
@@ -158,29 +171,77 @@ def ddim_step(d: GaussianDiffusion, model_fn: ModelFn, x: torch.Tensor, t: int, 
     return sample, out["pred_xstart"], saved_tail
 
 
+def _wrap_cached_model_fn(model_fn, cache, flags_row):
+    """The cached ``model_fn(x, t, cache, flags) -> (out, new_cache)`` as the
+    plain ``(x, t) -> out`` that ``ddim_step`` calls once, the new cache
+    kept in the returned holder."""
+    holder = {}
+
+    def mf(x, t):
+        out, holder["cache"] = model_fn(x, t, cache, flags_row)
+        return out
+
+    return mf, holder
+
+
+def cache_layers(step_cache0) -> int:
+    """The reuse table's width: the layers of the cache (a dict cache, the
+    ControlNet's, keeps its layer residuals under "h")."""
+    return (step_cache0["h"] if isinstance(step_cache0, dict) else step_cache0).shape[0]
+
+
+def cache_error(new_cache, old_cache) -> torch.Tensor:
+    """Per-layer relative L1 residual change [layers] in f32 (SmoothCache's
+    calibration signal); the cache's leading axis is the layers."""
+    if isinstance(new_cache, dict):
+        new_cache, old_cache = new_cache["h"], old_cache["h"]
+    new, old = new_cache.float().flatten(1), old_cache.float().flatten(1)
+    return (new - old).abs().sum(dim=1) / (old.abs().sum(dim=1) + 1e-8)
+
+
 def ddim_sample_loop(d: GaussianDiffusion, model_fn: ModelFn, noise: torch.Tensor, *,
                      eta: float = 0.0, randn: Optional[Randn] = None, pre_seq=None,
                      outpainting: Optional[Outpainting] = None,
-                     repaint: Optional[RepaintConfig] = None) -> SampleResult:
+                     repaint: Optional[RepaintConfig] = None, step_cache0=None,
+                     cache_cfg: Optional[StepCacheConfig] = None) -> SampleResult:
     """The DDIM chain from ``noise`` at the last respaced step down to 0;
-    with an outpainting mask and RePaint on, the harmonized loop."""
+    with an outpainting mask and RePaint on, the harmonized loop.  With
+    ``step_cache0``, ``model_fn`` takes the cache and the step's flags
+    (module docstring)."""
     rp = repaint or RepaintConfig()
     randn = randn or generator_randn(None, noise.device)
     if outpainting is not None and not rp.no_repaint:
         return ddim_sample_loop_harmonize(d, model_fn, noise, eta=eta, randn=randn,
-                                          outpainting=outpainting, repaint=rp)
+                                          outpainting=outpainting, repaint=rp,
+                                          step_cache0=step_cache0, cache_cfg=cache_cfg)
     tails = None
     if outpainting is not None and rp.same_overlap_noisy:
         B, _, D = noise.shape
         tails = noise.new_zeros((d.num_timesteps, B, rp.overlap_len, D))
-    x, pred_x0 = noise, noise
-    for t in range(d.num_timesteps - 1, -1, -1):
-        x, pred_x0, tail = ddim_step(d, model_fn, x, t, eta=eta, randn=randn,
+    cache, errors = step_cache0, None
+    if cache is not None:
+        cfg = cache_cfg or StepCacheConfig()
+        L = cache_layers(cache)
+        if cfg.collect_errors:
+            flags = np.zeros((d.num_timesteps, L), bool)
+            errors = torch.zeros((d.num_timesteps, L), device=noise.device)
+        else:
+            flags = pattern_flags(d.num_timesteps, L, cfg)
+    x, pred_x0, mf = noise, noise, model_fn
+    for s, t in enumerate(range(d.num_timesteps - 1, -1, -1)):
+        if cache is not None:
+            mf, holder = _wrap_cached_model_fn(model_fn, cache, flags[s])
+        x, pred_x0, tail = ddim_step(d, mf, x, t, eta=eta, randn=randn,
                                      pre_seq=pre_seq, outpainting=outpainting,
                                      repaint=repaint)
+        if cache is not None:
+            if errors is not None:
+                errors[s] = cache_error(holder["cache"], cache)
+            cache = holder["cache"]
         if tails is not None:
             tails[t] = tail
-    return SampleResult(sample=x, pred_xstart=pred_x0, noisy_tail=tails)
+    return SampleResult(sample=x, pred_xstart=pred_x0, noisy_tail=tails,
+                        cache_errors=errors)
 
 
 def harmonize_schedule(num_timesteps: int, repaint: RepaintConfig):
@@ -197,18 +258,33 @@ def harmonize_schedule(num_timesteps: int, repaint: RepaintConfig):
 def ddim_sample_loop_harmonize(d: GaussianDiffusion, model_fn: ModelFn,
                                noise: torch.Tensor, *, outpainting: Outpainting,
                                repaint: RepaintConfig, eta: float = 0.0,
-                               randn: Optional[Randn] = None) -> SampleResult:
+                               randn: Optional[Randn] = None, step_cache0=None,
+                               cache_cfg: Optional[StepCacheConfig] = None) -> SampleResult:
     """RePaint time-travel DDIM over the jump schedule: denoising steps run
-    ``ddim_step``, the others ``undo``'s re-noising."""
+    ``ddim_step``, the others ``undo``'s re-noising.  A step cache is
+    carried through the re-noising steps untouched, and its reuse table
+    makes every first denoise step after a jump compute."""
     randn = randn or generator_randn(None, noise.device)
     B, _, D = noise.shape
     tails = (noise.new_zeros((d.num_timesteps, B, repaint.overlap_len, D))
              if repaint.same_overlap_noisy else None)
-    x = noise
-    for t_last, denoises in harmonize_schedule(d.num_timesteps, repaint):
+    schedule = harmonize_schedule(d.num_timesteps, repaint)
+    cache = step_cache0
+    if cache is not None:
+        cfg = cache_cfg or StepCacheConfig()
+        if cfg.collect_errors:
+            raise NotImplementedError("collect_errors calibration runs on the plain DDIM loop")
+        flags = pattern_flags(len(schedule), cache_layers(cache), cfg,
+                              denoise_mask=np.array([dn for _, dn in schedule]))
+    x, mf = noise, model_fn
+    for s, (t_last, denoises) in enumerate(schedule):
         if denoises:
-            x, _, tail = ddim_step(d, model_fn, x, t_last, eta=eta, randn=randn,
+            if cache is not None:
+                mf, holder = _wrap_cached_model_fn(model_fn, cache, flags[s])
+            x, _, tail = ddim_step(d, mf, x, t_last, eta=eta, randn=randn,
                                    outpainting=outpainting, repaint=repaint)
+            if cache is not None:
+                cache = holder["cache"]
             if tails is not None:
                 tails[t_last] = tail
         else:

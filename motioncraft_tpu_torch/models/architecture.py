@@ -31,6 +31,7 @@ from ..diffusion import (Outpainting, RepaintConfig, build_diffusion,
                          create_named_schedule_sampler, ddim_sample_loop, generator_randn,
                          training_losses)
 from ..diffusion.sampling import Randn
+from ..diffusion.stepcache import StepCacheConfig
 from ..registry import ARCHITECTURES, build_loss, build_submodule
 from .body_layout import SMPLX_FACE_DIMS, SMPLX_HAND_DIMS
 
@@ -172,7 +173,8 @@ class MotionDiffusion(nn.Module):
                inference_type: Optional[str] = None,
                outpainting: Optional[Outpainting] = None,
                pre_seq: Optional[torch.Tensor] = None,
-               compute_dtype: Optional[torch.dtype] = None):
+               compute_dtype: Optional[torch.dtype] = None,
+               step_cache: Optional[StepCacheConfig] = None):
         """Motion [B, T, D] for one batch (numpy arrays or tensors):
         ``motion`` (read for its shape, and returned as it is under
         ``inference_type='gt'``), ``motion_mask``, ``motion_length``,
@@ -183,7 +185,10 @@ class MotionDiffusion(nn.Module):
         ``repaint`` config that keeps the noisy tails (same_overlap_noisy),
         returns (motion, noisy_tail).  ``compute_dtype`` (default f32) is
         the denoiser's dtype and must be the model's: bf16 needs
-        ``bf16_cast_`` first.  Needs ``eval()`` mode, the inference path."""
+        ``bf16_cast_`` first.  ``step_cache`` turns on layer-residual reuse;
+        with ``collect_errors`` it returns (motion, errors [steps, layers]
+        as a host numpy array).  Needs ``eval()`` mode, the inference
+        path."""
         if self.training:
             raise RuntimeError("MotionDiffusion.sample runs the inference path: call .eval()")
         motion = self._tensor(batch["motion"], torch.float32)
@@ -191,6 +196,8 @@ class MotionDiffusion(nn.Module):
         inference_type = inference_type or self.inference_type
         if inference_type == "gt":
             return motion
+        if step_cache is not None:
+            self._check_step_cache(step_cache, inference_type, outpainting)
         if inference_type != "ddim":
             raise NotImplementedError(f"inference_type {inference_type!r}")
         dtype = compute_dtype or torch.float32
@@ -213,10 +220,12 @@ class MotionDiffusion(nn.Module):
                 cond["c_enc"] = self.model.encode_condition(
                     self._tensor(batch["c"], torch.float32), T).to(dtype)
 
-        def model_fn(x, t_model):
-            return self.model(x.to(dtype), t_model, motion_mask=motion_mask,
-                              motion_length=motion_length, xf_out=xf_out,
-                              text_feats=text_feats, **cond).float()
+        def model_fn(x, t_model, cache=None, flags=None):
+            out = self.model(x.to(dtype), t_model, motion_mask=motion_mask,
+                             motion_length=motion_length, xf_out=xf_out,
+                             text_feats=text_feats, step_cache=cache, cache_flags=flags,
+                             **cond)
+            return out.float() if cache is None else (out[0].float(), out[1])
 
         randn = randn or generator_randn(generator, self.device)
         if noise is None:
@@ -228,9 +237,27 @@ class MotionDiffusion(nn.Module):
         result = ddim_sample_loop(
             self.diffusion_test, model_fn, noise, eta=0.0, randn=randn,
             pre_seq=None if pre_seq is None else self._tensor(pre_seq, torch.float32),
-            outpainting=outpainting, repaint=self.repaint_cfg)
+            outpainting=outpainting, repaint=self.repaint_cfg,
+            step_cache0=None if step_cache is None else self.model.make_step_cache(B, T, dtype),
+            cache_cfg=step_cache)
         out = self.post_process(result.sample)
+        if result.cache_errors is not None:
+            return out, result.cache_errors.cpu().numpy()  # the one copy of the errors
         return out if result.noisy_tail is None else (out, result.noisy_tail)
+
+    def _check_step_cache(self, step_cache, inference_type, outpainting):
+        """The step cache's guards, as the JAX package's sample has them."""
+        if inference_type != "ddim":
+            raise ValueError("step caching requires inference_type='ddim'")
+        if (step_cache.collect_errors and outpainting is not None
+                and self.repaint_cfg is not None and self.repaint_cfg.same_overlap_noisy):
+            # both results would take the second slot of the return value
+            raise ValueError(
+                "collect_errors cannot be combined with a tail-tracking repaint "
+                "config (same_overlap_noisy): the calibration errors would replace "
+                "the noisy_tail return; calibrate on a plain run instead")
+        if not getattr(self.model, "supports_step_cache", False):
+            raise ValueError(f"{type(self.model).__name__} does not support step caching")
 
     def post_process(self, motion: torch.Tensor) -> torch.Tensor:
         """De-normalize when the model config asks for unnormalized inference."""

@@ -1,11 +1,17 @@
 """Shared neural blocks (PyTorch port of motioncraft_tpu/models/blocks.py).
 
   - LayerNorm: torch's, eps 1e-5 (the reference's nn.LayerNorm)
+  - QLinear: the int8 counterpart of the JAX package's QDense, which
+    ops/quant.py:quantize_ puts in place of an eligible nn.Linear: W8A8
+    (``kernel_scale``: per-row int8 activations, int32 products) or W8
+    (``kernel_wscale``: the weight dequantized into the float product)
   - timestep_embedding: sinusoidal, cos first then sin
   - ZeroDense / StylizationBlock: AdaLN-style time conditioning
   - SFFN: the per-head (body-part) FFN, through kernel K2 (ops/sffn.py) at
     inference; in training the plain einsum pair with dropout, as the JAX
-    package trains it
+    package trains it.  Int8 weights (ops/quant.py): W8 dequantizes w1/w2
+    to the activations' dtype and runs K2; W8A8 runs the per-head int8
+    product pair with GELU between
   - ConvBasicBlock1D / WavEncoder: the speech condition's raw-audio conv
     encoder, with BatchNorm statistics (buffers ``running_mean`` /
     ``running_var``, flax's ``batch_stats`` ``mean`` / ``var``)
@@ -31,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quant import dequant, qdot, qeinsum, quantize_weight
 from ..ops.sffn import head_ffn
 
 LayerNorm = nn.LayerNorm  # eps defaults to 1e-5, as the reference
@@ -48,6 +55,39 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     if dim % 2:
         embedding = torch.cat([embedding, torch.zeros_like(embedding[:, :1])], dim=-1)
     return embedding
+
+
+class QLinear(nn.Module):
+    """An ``nn.Linear`` with int8 weights (the JAX package's QDense on an
+    int8 kernel).  ``weight`` [out, in] int8; the scale keeps the flax
+    layout [1, out] and names the mode: ``kernel_scale`` W8A8 (per-row
+    dynamic activation quantization, int32 products, out in the
+    activations' dtype), ``kernel_wscale`` W8 (the weight dequantized to
+    the activations' dtype into the float product).  The bias stays float
+    and is added in the output's dtype."""
+
+    def __init__(self, weight: torch.Tensor, scale: torch.Tensor, bias=None,
+                 weight_only: bool = False):
+        super().__init__()
+        self.out_features, self.in_features = weight.shape
+        self.weight_only = weight_only
+        self.register_buffer("weight", weight)
+        self.register_buffer("kernel_wscale" if weight_only else "kernel_scale", scale)
+        self.bias = None if bias is None else nn.Parameter(bias, requires_grad=False)
+
+    @classmethod
+    def from_linear(cls, linear: nn.Linear, weight_only: bool = False) -> "QLinear":
+        wq, scale = quantize_weight(linear.weight.detach(), 1)  # per output row
+        bias = None if linear.bias is None else linear.bias.detach()
+        return cls(wq, scale.t().contiguous(), bias, weight_only)
+
+    def forward(self, x):
+        if self.weight_only:
+            w = dequant(self.weight, self.kernel_wscale.reshape(-1, 1), x.dtype)
+            y = F.linear(x, w)
+        else:
+            y = qdot(x, self.weight.t(), self.kernel_scale)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 class ZeroDense(nn.Module):
@@ -98,7 +138,9 @@ class SFFN(nn.Module):
 
     def forward(self, x, emb):
         B, T, D = x.shape
-        if self.training:
+        if self.w1.dtype == torch.int8:
+            y = self._forward_int8(x).reshape(B, T, D)
+        elif self.training:
             y = torch.einsum("bthd,hdf->bthf", x.reshape(B, T, self.num_heads, -1),
                              self.w1) + self.b1
             y = F.dropout(F.gelu(y), self.dropout, self.training)
@@ -107,6 +149,17 @@ class SFFN(nn.Module):
             y = head_ffn(x.reshape(B * T, D), self.w1, self.b1, self.w2,
                          self.b2).reshape(B, T, D)
         return x + self.proj_out(y, emb)
+
+    def _forward_int8(self, x):
+        B, T, D = x.shape
+        if hasattr(self, "w1_wscale"):  # W8: dequantized weights through K2
+            return head_ffn(x.reshape(B * T, D), dequant(self.w1, self.w1_wscale, x.dtype),
+                            self.b1, dequant(self.w2, self.w2_wscale, x.dtype), self.b2)
+        # W8A8: the per-head int8 products, scales [H, 1, out] -> [H, out]
+        xh = x.reshape(B, T, self.num_heads, -1)
+        y = qeinsum("bthd,hdf->bthf", xh, self.w1, self.w1_scale.squeeze(1)) + self.b1.to(x.dtype)
+        y = F.gelu(y)
+        return qeinsum("bthf,hfd->bthd", y, self.w2, self.w2_scale.squeeze(1)) + self.b2.to(x.dtype)
 
 
 class ConvBasicBlock1D(nn.Module):

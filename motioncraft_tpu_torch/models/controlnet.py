@@ -24,10 +24,17 @@ condition (the WavEncoder's 84 GFLOP a 64-frame window at full width)
 depends on no timestep: ``encode_condition`` runs once per sampling call,
 never per denoiser step.
 
+The step cache (diffusion/stepcache.py) is a dict, ``{"h": [L, 2B, T, D],
+"c": [copy_blocks_num, 2B, T, D]}``: layer i's residual and, for a
+control-injected layer (1..copy_blocks_num), the control block's ``c``
+output.  Such a layer is cached as the compound of its control block and its
+base block: reusing it replays both its h-residual (the c_skip injection
+included) and its ``c``, so the control chain downstream stays consistent.
+
 Not ported, and refused: the wav2vec condition pre-encoder, patched
-conditions (``patch_size > 1``), the MCM block type, the step cache and
-ControlNet training (ROADMAP queue 1; ``joint_embed_unfreeze`` and
-``unfreeze_mode``, training's freezing masks, are accepted and unused).
+conditions (``patch_size > 1``), the MCM block type and ControlNet training
+(ROADMAP queue 1; ``joint_embed_unfreeze`` and ``unfreeze_mode``, training's
+freezing masks, are accepted and unused).
 """
 
 from __future__ import annotations
@@ -152,12 +159,26 @@ class ControlT2MHalf(nn.Module):
         return {"base": base_feats,
                 "ctrl": tuple(blk.copied_block.text_branch(xf2) for blk in self.controlnet)}
 
+    supports_step_cache = True
+
+    def make_step_cache(self, B: int, T: int, dtype=torch.float32) -> dict:
+        """The zero dict cache of the CFG-doubled test forward (module
+        docstring), on the model's device."""
+        base = self.base_model
+        dev = next(self.parameters()).device
+        return {"h": torch.zeros((base.num_layers, 2 * B, T, base.latent_dim), dtype=dtype,
+                                 device=dev),
+                "c": torch.zeros((self.copy_blocks_num, 2 * B, T, base.latent_dim), dtype=dtype,
+                                 device=dev)}
+
     def forward(self, motion, timesteps, motion_mask=None, motion_length=None, xf_out=None,
                 text_feats=None, *, c=None, c_enc=None, mode: str = "test", cond_type=None,
-                generator=None, aux_losses=None):
+                generator=None, aux_losses=None, step_cache=None, cache_flags=None):
         """The CFG-guided test forward of ``motion`` [B, T, D] at
         original-scale ``timesteps`` [B], with the condition ``c`` [B, Tc, F]
-        or its encoding ``c_enc`` [B, T, latent] (none: the base alone)."""
+        or its encoding ``c_enc`` [B, T, latent] (none: the base alone).
+        With a ``step_cache`` and the step's host ``cache_flags``, returns
+        (output, new cache)."""
         if mode != "test":
             raise NotImplementedError(f"ControlT2MHalf mode {mode!r}: ControlNet training "
                                       f"({TRAINING})")
@@ -180,14 +201,36 @@ class ControlT2MHalf(nn.Module):
         tfb = (lambda i: None) if text_feats is None else (lambda i: text_feats["base"][i])
         tfc = (lambda i: None) if text_feats is None else (lambda i: text_feats["ctrl"][i])
         kw = dict(xf=xf2, emb=emb2, src_mask=mask2, cond_type=all_cond)
-        blocks = base.blocks
-        h2 = blocks[0](h2, **kw, cfg_dedup=base.cfg_layer0_dedup, text_feat=tfb(0))
-        first = 1
-        if c2 is not None:
-            for i in range(1, self.copy_blocks_num + 1):
-                c2, c_skip = self.controlnet[i - 1](h2, c2, **kw, text_feat=tfc(i - 1))
-                h2 = blocks[i](h2 + c_skip, **kw, text_feat=tfb(i))
-            first = self.copy_blocks_num + 1
-        for i in range(first, len(blocks)):
-            h2 = blocks[i](h2, **kw, text_feat=tfb(i))
-        return base.cfg_mix(h2, timesteps)
+        # with a step cache, a layer computes (its output as it is, so
+        # all-compute flags give the uncached stack bit for bit) or replays
+        # its cached residual and, for a control-injected layer, its cached
+        # ``c``; every branch's output is pinned to h's dtype
+        caching, dt = step_cache is not None, h2.dtype
+        residuals, new_c = [], []
+        for i, block in enumerate(base.blocks):
+            ctrl = c2 is not None and 1 <= i <= self.copy_blocks_num
+            if caching and cache_flags[i]:  # reuse: nothing launches
+                r = step_cache["h"][i].to(dt)
+                h2 = h2 + r
+                if ctrl:
+                    c2 = step_cache["c"][i - 1].to(dt)
+            else:
+                inp = h2
+                if ctrl:
+                    c2, c_skip = self.controlnet[i - 1](h2, c2, **kw, text_feat=tfc(i - 1))
+                    c2 = c2.to(dt)
+                    inp = h2 + c_skip
+                out = block(inp, **kw, cfg_dedup=base.cfg_layer0_dedup and i == 0,
+                            text_feat=tfb(i)).to(dt)
+                if caching:
+                    r = out - h2
+                h2 = out
+            if caching:
+                residuals.append(r)
+                if ctrl:
+                    new_c.append(c2)
+        mixed = base.cfg_mix(h2, timesteps)
+        if not caching:
+            return mixed
+        return mixed, {"h": torch.stack(residuals),
+                       "c": torch.stack(new_c) if new_c else torch.zeros_like(step_cache["c"])}

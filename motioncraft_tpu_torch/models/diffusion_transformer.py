@@ -60,12 +60,14 @@ class DiffusionTransformerBase(nn.Module):
 
     def forward(self, motion, timesteps, motion_mask=None, motion_length=None,
                 xf_out=None, text_feats=None, *, mode: str = "test", cond_type=None,
-                generator=None, aux_losses=None):
+                generator=None, aux_losses=None, step_cache=None, cache_flags=None):
         """``motion`` [B, T, D] at original-scale ``timesteps`` [B] -> model
         output [B, T, D].  ``mode="test"``: the CFG-guided test forward.
         ``mode="train"``: one pass at ``cond_type`` [B, 1, 1] (text on where
         ``cond_type % 10 > 0``), the MoE gate noise drawn from ``generator``
-        and their aux losses appended to ``aux_losses``."""
+        and their aux losses appended to ``aux_losses``.  With a
+        ``step_cache`` and the step's host ``cache_flags`` (test mode),
+        returns (output, new cache)."""
         src_mask = motion_mask[..., None] if motion_mask.dim() == 2 else motion_mask
         h, emb = self._embed(motion, timesteps)
         emb = emb.to(h.dtype)
@@ -77,4 +79,5 @@ class DiffusionTransformerBase(nn.Module):
             raise ValueError(f"mode {mode!r}")
         return self.forward_test(h=h, src_mask=src_mask, emb=emb,
                                  xf_out=xf_out, motion_length=motion_length,
-                                 timesteps=timesteps, text_feats=text_feats)
+                                 timesteps=timesteps, text_feats=text_feats,
+                                 step_cache=step_cache, cache_flags=cache_flags)

@@ -22,6 +22,13 @@ bf16 (K1's bf16 instantiation) and the combine in bf16, the gates and b2
 cast to it, as the JAX package does.  In both modes experts are ranked by logit, the
 lower index first on equal logits (a stable sort; on the card in inference,
 K4's route picks them in that order).
+
+Int8 expert weights (ops/quant.py), inference only: W8 dequantizes them to
+the activations' dtype and keeps the path above (K4, then K1); W8A8 routes
+with K4 as ever, then fills a slot buffer [E, C, D] on the device from the
+route's tables (C, the capacity, is static: nothing is read back to the
+host) and runs the int8 expert pair ``expert_ffn_q`` over it, b2 inside, as
+the JAX package's W8A8 takes its slot path; K1 does not run.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from torch import nn
 from ..ops.expert_ffn import fused_expert_ffn
 from ..ops.moe_ffn import BLOCK, grouped_ffn
 from ..ops.moe_positions import moe_positions_counts, moe_route
+from ..ops.quant import dequant, expert_ffn_q
 
 
 def _normal_cdf(x, sigma):
@@ -117,15 +125,53 @@ class MoELayer(nn.Module):
         D = x.shape[1]
         logits = self.gate(x)                                      # f32 [N, E]
         route = moe_route(logits, self.topk, self.capacity(x.shape[0]), BLOCK)
+        w1, w2 = self.expert_w1, self.expert_w2
+        if w1.dtype == torch.int8:
+            if not hasattr(self, "expert_w1_wscale"):
+                return self._forward_slots_int8(x, route)
+            w1 = dequant(w1, self.expert_w1_wscale, x.dtype)
+            w2 = dequant(w2, self.expert_w2_wscale, x.dtype)
         xs = x.index_select(0, route.token_for_rank)               # [M, D] expert-sorted
-        ye = grouped_ffn(route.block_expert, xs, self.expert_w1, self.expert_b1,
-                         self.expert_w2)
+        ye = grouped_ffn(route.block_expert, xs, w1, self.expert_b1, w2)
         ye = torch.cat([ye, ye.new_zeros(1, D)], dim=0)            # row M: dropped choices
         gates, r = route.gates.to(x.dtype), route.r
         y = gates[:, 0, None] * ye.index_select(0, r[:, 0])
         for k in range(1, self.topk):
             y = y + gates[:, k, None] * ye.index_select(0, r[:, k])
         return y + route.ge.to(x.dtype) @ self.expert_b2.to(x.dtype)
+
+    def _forward_slots_int8(self, x, route):
+        """W8A8: the route's kept choices into an [E, C, D] slot buffer
+        (slot e * C + the choice's rank within its expert; dropped choices
+        to a dump row past the end), the int8 expert pair over it, and the
+        gate-weighted combine."""
+        N, D = x.shape
+        E, C = self.num_experts, self.capacity(N)
+        M = route.token_for_rank.shape[0]
+        r = route.r.long()                                          # [N, K], M where dropped
+        valid = r < M
+        fill = route.counts.long().clamp(max=C)
+        aligned = (fill + BLOCK - 1) // BLOCK * BLOCK
+        offset = torch.cumsum(aligned, dim=0) - aligned             # each expert's first row
+        rows = torch.where(valid, r, torch.zeros_like(r))
+        e = route.block_expert.long()[rows // BLOCK]
+        dump = E * C
+        slots = torch.where(valid, e * C + rows - offset[e], torch.full_like(r, dump))
+        token_for_slot = torch.zeros(dump + 1, dtype=torch.long, device=x.device)
+        token_for_slot[slots.reshape(-1)] = torch.arange(
+            N, device=x.device).repeat_interleave(self.topk)
+        filled = torch.zeros(dump + 1, dtype=torch.bool, device=x.device)
+        filled[slots.reshape(-1)] = True
+        xe = torch.where(filled[:dump, None], x.index_select(0, token_for_slot[:dump]),
+                         x.new_zeros(()))
+        ye = expert_ffn_q(xe.reshape(E, C, D), self.expert_w1, self.expert_w1_scale,
+                          self.expert_b1, self.expert_w2, self.expert_w2_scale, self.expert_b2)
+        ye = torch.cat([ye.reshape(dump, D), ye.new_zeros(1, D)], dim=0)
+        gates = route.gates.to(x.dtype)
+        y = gates[:, 0, None] * ye.index_select(0, slots[:, 0])
+        for k in range(1, self.topk):
+            y = y + gates[:, k, None] * ye.index_select(0, slots[:, k])
+        return y
 
     def _forward_slots(self, x, generator, noise, aux_losses):
         N, D = x.shape

@@ -17,6 +17,11 @@ motioncraft_tpu/models/stmogen.py).
     (``cfg_layer0_dedup``, ``text_hoist``); with MoE capacity drops the
     dedup routes B tokens where the plain path routes 2B, so "off" is the
     reference's strict drop semantics.
+  - The step cache (diffusion/stepcache.py): ``forward_test(step_cache=,
+    cache_flags=)`` runs the stack layer by layer on the host's flags, each
+    layer either computing (its output returned as it is, so all-compute
+    flags give the uncached stack bit for bit) or replaying its cached
+    residual without a launch, and returns ``(mixed, new_cache)``.
   - forward_train: one pass of the stack at the batch's ``cond_type``, the
     text MoE computed in every layer, the MoE aux losses collected.
 """
@@ -198,11 +203,32 @@ class STMoGenTransformer(DiffusionTransformerBase):
         text_coef, none_coef = self.scale_func(timesteps[0])
         return out[:B2 // 2] * text_coef + out[B2 // 2:] * none_coef
 
+    # ------------------------------------------------------- step caching
+    supports_step_cache = True
+
+    def make_step_cache(self, B: int, T: int, dtype=torch.float32) -> torch.Tensor:
+        """The zero per-layer residual cache of the CFG-doubled test forward,
+        [num_layers, 2B, T, latent_dim] on the model's device: step 0 of any
+        schedule computes every layer (the reuse tables enforce it)."""
+        return torch.zeros((self.num_layers, 2 * B, T, self.latent_dim), dtype=dtype,
+                           device=next(self.parameters()).device)
+
     def forward_test(self, h, src_mask, emb, xf_out, motion_length=None,
-                     timesteps=None, text_feats=None):
+                     timesteps=None, text_feats=None, step_cache=None, cache_flags=None):
         h2, xf2, emb2, mask2, all_cond = self.cfg_batch(h, xf_out, emb, src_mask)
+        residuals = []
         for i, block in enumerate(self.blocks):
-            h2 = block(h2, xf2, emb2, mask2, all_cond,
-                       cfg_dedup=self.cfg_layer0_dedup and i == 0,
-                       text_feat=None if text_feats is None else text_feats[i])
-        return self.cfg_mix(h2, timesteps)
+            if step_cache is not None and cache_flags[i]:
+                r = step_cache[i].to(h2.dtype)  # reuse: nothing launches
+                h2 = h2 + r
+            else:
+                out = block(h2, xf2, emb2, mask2, all_cond,
+                            cfg_dedup=self.cfg_layer0_dedup and i == 0,
+                            text_feat=None if text_feats is None else text_feats[i])
+                if step_cache is not None:
+                    r = out - h2
+                h2 = out
+            if step_cache is not None:
+                residuals.append(r)
+        mixed = self.cfg_mix(h2, timesteps)
+        return mixed if step_cache is None else (mixed, torch.stack(residuals))

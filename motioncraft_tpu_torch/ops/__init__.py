@@ -4,7 +4,9 @@ version and a launch counter (``<wrapper>.launches``).
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches its kernel (built from ``csrc/`` at first use) or raises.  K1, K2
 and K3 have a bf16 instantiation each, with its own wrapper and count
-(``*_bf16``); the f32 wrapper hands bf16 operands on to it.
+(``*_bf16``); the f32 wrapper hands bf16 operands on to it.  ``int_mm``,
+the W8A8 int8 product (``torch._int_mm`` on the card, not a kernel of the
+port), counts its launches beside them.
 """
 
 from .expert_ffn import expert_ffn_plain, fused_expert_ffn
@@ -12,6 +14,7 @@ from .linear_attention import fused_linear_attention, fused_linear_attention_pla
 from .moe_ffn import grouped_ffn, grouped_ffn_bf16, grouped_ffn_plain
 from .moe_positions import (moe_positions_counts, moe_positions_counts_plain, moe_route,
                             moe_route_plain)
+from .quant import int_mm
 from .sffn import head_ffn, head_ffn_bf16, head_ffn_plain
 from .stma_attention import (stma_linear_attention, stma_linear_attention_bf16,
                              stma_linear_attention_plain)
@@ -31,11 +34,14 @@ KERNELS = {
     "stma_linear_attention_bf16": (stma_linear_attention_bf16, stma_linear_attention_plain),
 }
 
+# name -> every wrapper with a launch count
+COUNTED = {**{name: wrapper for name, (wrapper, _) in KERNELS.items()}, "int_mm": int_mm}
+
 
 def reset_launch_counts() -> None:
-    for wrapper, _ in KERNELS.values():
+    for wrapper in COUNTED.values():
         wrapper.launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: wrapper.launches for name, (wrapper, _) in KERNELS.items()}
+    return {name: wrapper.launches for name, wrapper in COUNTED.items()}

@@ -99,7 +99,8 @@ class MotionGenServer:
     Parameters
     ----------
     arch: a built ``MotionDiffusion`` with its weights (bf16-cast by
-        ``apis.bf16_cast_`` for bf16 serving), in ``eval()`` mode.
+        ``apis.bf16_cast_`` for bf16 serving; int8-quantized by
+        ``apis.int8_quantize_`` for int8 serving), in ``eval()`` mode.
     batch_buckets: ascending batch sizes; a group of n requests is padded to
         the smallest bucket >= n.
     seq_buckets: ascending motion lengths ending at ``max_seq_len``; a
@@ -111,6 +112,8 @@ class MotionGenServer:
         model).
     window, pre_frames, repaint: long-form generation (window defaults to
         ``max_seq_len``; RePaint over ``pre_frames`` with the blend).
+    step_cache: a ``StepCacheConfig`` for every sampling call (layer-residual
+        reuse, diffusion/stepcache.py), or None (exact).
     mesh: not ported (raises).
     """
 
@@ -121,7 +124,7 @@ class MotionGenServer:
                  compute_dtype: Optional[torch.dtype] = None,
                  mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None,
                  mesh=None, window: Optional[int] = None, pre_frames: int = 4,
-                 repaint: Optional[RepaintConfig] = None):
+                 repaint: Optional[RepaintConfig] = None, step_cache=None):
         if mesh is not None:
             raise NotImplementedError(f"mesh serving (batch rows over several cards): "
                                       f"{MULTI_GPU}")
@@ -145,6 +148,7 @@ class MotionGenServer:
         self._pre_frames = int(pre_frames)
         self._repaint = repaint
         self._compute_dtype = compute_dtype
+        self._step_cache = step_cache
 
         self._q: "queue.Queue" = queue.Queue()
         self._lock = threading.Lock()
@@ -304,7 +308,8 @@ class MotionGenServer:
 
     def _sample(self, batch, generator):
         return self._arch.sample(batch, generator=generator,
-                                 compute_dtype=self._compute_dtype)
+                                 compute_dtype=self._compute_dtype,
+                                 step_cache=self._step_cache)
 
     def _dispatch(self, group):
         """Split a group by (long?, sequence bucket, condition signature),
@@ -398,7 +403,7 @@ class MotionGenServer:
             kw = dict(window=window, pre_frames=pre,
                       randn=generator_randn(generator, self._arch.device), use_repaint=True,
                       repaint=self._repaint or RepaintConfig(overlap_len=pre, add_blend=True),
-                      compute_dtype=self._compute_dtype)
+                      compute_dtype=self._compute_dtype, step_cache=self._step_cache)
             covered = [covered_frames(g.length, window, pre) for g in reqs]
             if len(makers) == 1:
                 outs = [windowed_sample(self._arch, makers[0], total_frames=covered[0], **kw)]

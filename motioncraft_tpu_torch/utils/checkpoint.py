@@ -81,8 +81,9 @@ def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None
                         torch_checkpoint=None) -> Optional[Dict[str, torch.Tensor]]:
     """Load evaluation weights into ``model`` (the denoiser): a reference
     ``.pth`` (``torch_checkpoint``, STMoGen or ControlT2MHalf) or the flat
-    ``.npz`` of ``save_params`` (``checkpoint``: its ``params`` and
-    ``batch_stats``), ``strict=True``.  Returns the state_dict loaded, or
+    ``.npz`` of ``save_params`` (``checkpoint``: its ``params``,
+    ``batch_stats`` and, for an int8 snapshot, ``quant``: the model is then
+    quantized alike first), ``strict=True``.  Returns the state_dict loaded, or
     None when neither file is given."""
     sub = model_cfg["model"]
     if torch_checkpoint and sub["type"] == "ControlT2MHalf":
@@ -106,6 +107,9 @@ def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None
                                  te.get("clip_layers", 12))
     if checkpoint:
         tree = align_block_layout(model_cfg, load_params(checkpoint))
+        if "quant" in tree:
+            from ..ops.quant import quantize_like
+            quantize_like(model, tree["quant"])
         sd = from_jax_variables(tree) if "params" in tree else from_jax_params(tree)
         model.load_state_dict(sd, strict=True)
         return sd

@@ -13,12 +13,17 @@ The port's modules carry the flax module and parameter names, so flax
     ``running_mean`` / ``running_var`` (``num_batches_tracked`` 0)
   - ``nn.Sequential`` ``layers_N``  -> index ``N``
   - everything else as it is (``expert_w1`` [E, D, F], ``w1`` [H, d, f], ...)
+  - int8 weights (ops/quant.py) stay int8, and the ``quant`` collection's
+    scales (``kernel_scale`` / ``kernel_wscale`` [1, out], ``w1_scale``
+    [H, 1, f], ...) become buffers of the same name beside their weight;
+    the model must be quantized first (``quantize_like``) for a strict load
 
 ``to_jax_variables`` is the exact inverse (``num_batches_tracked``, which
 flax does not keep, left out): a 3-d ``weight`` is a Conv1d's, a 2-d one a
 Linear's (or, under one of the embedding names, an Embedding's), a 1-d one
 a norm's scale.  ``from_jax_params`` / ``to_jax_params`` carry ``params``
-alone.
+alone.  A ``_scale`` / ``_wscale`` entry of a quantized model goes back to the
+``quant`` collection.
 """
 
 from __future__ import annotations
@@ -34,6 +39,13 @@ import torch
 EMBEDDINGS = ("token_embedding", "word_embeddings", "position_embeddings")
 # BatchNorm buffers: flax batch_stats leaf -> state_dict leaf
 STATS = {"mean": "running_mean", "var": "running_var"}
+SCALES = ("_scale", "_wscale")  # the quant collection's leaves
+
+
+def _array(a) -> np.ndarray:
+    """f32, or int8 as it is (an int8-quantized weight)."""
+    a = np.asarray(a)
+    return a.astype(np.int8 if a.dtype == np.int8 else np.float32, copy=False)
 
 
 def _walk(tree: Mapping, visit, path=()):
@@ -41,7 +53,7 @@ def _walk(tree: Mapping, visit, path=()):
         if isinstance(val, Mapping):
             _walk(val, visit, path + (re.sub(r"^layers_(\d+)$", r"\1", key),))
         else:
-            visit(list(path), key, np.asarray(val, dtype=np.float32))
+            visit(list(path), key, _array(val))
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -64,8 +76,9 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax ``variables`` (``params`` and, for BatchNorm, ``batch_stats``)
-    -> the port's state_dict, each BatchNorm's ``num_batches_tracked`` 0."""
+    """Flax ``variables`` (``params``; for BatchNorm, ``batch_stats``; for
+    int8 weights, ``quant``) -> the port's state_dict, each BatchNorm's
+    ``num_batches_tracked`` 0."""
     out = from_jax_params(variables["params"])
 
     def visit(path, key, a):
@@ -73,6 +86,8 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         out[".".join(path + ["num_batches_tracked"])] = torch.tensor(0)
 
     _walk(variables.get("batch_stats", {}), visit)
+    _walk(variables.get("quant", {}),
+          lambda path, key, a: out.__setitem__(".".join(path + [key]), _tensor(a)))
     return out
 
 
@@ -81,17 +96,19 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
     (``batch_stats`` only where the model has BatchNorm buffers) of numpy
     arrays, the inverse of ``from_jax_variables``: every tensor comes back
     bit for bit."""
-    trees: dict = {"params": {}, "batch_stats": {}}
+    trees: dict = {"params": {}, "batch_stats": {}, "quant": {}}
     back = {v: k for k, v in STATS.items()}
     for name, value in state_dict.items():
         path = [f"layers_{p}" if p.isdigit() else p for p in name.split(".")]
         *parents, key = path
         if key == "num_batches_tracked":
             continue
-        a = value.detach().cpu().numpy().astype(np.float32, copy=False)
+        a = _array(value.detach().cpu().numpy())
         col = "params"
         if key in back:
             col, key = "batch_stats", back[key]
+        elif key.endswith(SCALES):
+            col = "quant"
         elif key == "weight":
             if parents and parents[-1] in EMBEDDINGS:
                 key = "embedding"
@@ -105,9 +122,7 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
         for p in parents:
             node = node.setdefault(p, {})
         node[key] = np.ascontiguousarray(a)
-    if not trees["batch_stats"]:
-        del trees["batch_stats"]
-    return trees
+    return {k: v for k, v in trees.items() if v or k == "params"}
 
 
 def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:

@@ -92,9 +92,11 @@ def test_torch_m2d_cli_on_the_fixture(tmp_path, monkeypatch):
     assert out["flags"]["untrained_evaluator"] and not out["protocol"]
     assert out["flags"]["int8_weights"] is False and out["flags"]["step_cache"] == 0
     assert run["windows"] == 5 and run["preds"][0].shape == (64, 322)
-    for bad in (["--bf16", "--int8"], ["--int8"], ["--int8-mode", "w8"], ["--step-cache", "4"]):
-        with pytest.raises(SystemExit, match="ROADMAP queue 1: step cache"):
-            tool.parse_args(["configs/tests/fixture_m2d.py", *bad])
+    # int8 and the step cache are ported now (tests/test_torch_quant.py runs them)
+    for argv, want in ((["--bf16", "--int8"], ("w8a8", 0)), (["--int8"], ("w8a8", 0)),
+                       (["--int8-mode", "w8"], ("w8", 0)), (["--step-cache", "4"], (None, 4))):
+        args = tool.parse_args(["configs/tests/fixture_m2d.py", *argv])
+        assert (args.int8, args.step_cache) == want
 
 
 def test_torch_m2d_cli_bf16_on_the_fixture(tmp_path, monkeypatch):

@@ -27,8 +27,9 @@ import pytest
 import torch
 
 from motioncraft_tpu_torch.apis.factory import make_text_batch, tiny_t2m_cfg
-from motioncraft_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+from motioncraft_tpu_torch.ops import COUNTED, KERNELS, launch_counts, reset_launch_counts
 from motioncraft_tpu_torch.ops.moe_ffn import BLOCK
+from motioncraft_tpu_torch.ops.quant import int_mm, int_mm_plain
 from motioncraft_tpu_torch.ops.stma_attention import max_active_clusters
 from motioncraft_tpu_torch.registry import build_architecture
 from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
@@ -292,6 +293,27 @@ def _narrow(cfg):
     return cfg
 
 
+@pytest.mark.parametrize("m,k,n,col", [(1, 1536, 2048, True), (2, 20, 12, False),
+                                       (17, 128, 512, False), (40, 322, 128, True)])
+def test_int_mm_is_the_int32_product(cuda, m, k, n, col):
+    """int_mm on the card (torch._int_mm, padded to its shape rules) equals
+    the plain int32 product exactly, counts one launch, and its hooks see
+    the caller's shapes; ``col``: a column-major mat2, as nn.Linear's."""
+    g = torch.Generator().manual_seed(m)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k) if col else (k, n), generator=g, dtype=torch.int8)
+    b = b.t() if col else b
+    seen = []
+    int_mm.hooks.append(lambda x, y: seen.append((tuple(x.shape), tuple(y.shape))))
+    reset_launch_counts()
+    try:
+        got = int_mm(a.to(cuda), b.to(cuda)).cpu()
+    finally:
+        int_mm.hooks.pop()
+    assert launch_counts()["int_mm"] == 1 and seen == [((m, k), (k, n))]
+    assert torch.equal(got, int_mm_plain(a, b))
+
+
 def test_narrow_controlnet_window_alike_on_card_and_cpu(cuda):
     """One outpainted M2D window (RePaint over the jump schedule) of a
     narrow ControlNet, card and CPU on the same weights and draws; every
@@ -322,7 +344,7 @@ def test_narrow_controlnet_window_alike_on_card_and_cpu(cuda):
                                     outpainting=Outpainting(mask=mask.to(dev),
                                                             gt=gt.to(dev))).cpu()
     calls, layers = sum(d for _, d in pairs), 3 + 2
-    assert launch_counts() == dict.fromkeys(KERNELS, 0) | {
+    assert launch_counts() == dict.fromkeys(COUNTED, 0) | {
         "moe_route": layers * (calls + 1), "grouped_ffn": layers * (calls + 1),
         "head_ffn": layers * calls, "stma_linear_attention": layers * calls}
     want = out["cpu"]
@@ -365,7 +387,7 @@ def test_narrow_model_samples_alike_on_card_and_cpu(cuda):
         reset_launch_counts()
         out[str(dev)] = arch.sample(batch, noise=noise).cpu()
     steps, layers = arch.diffusion_test.num_timesteps, m["num_layers"]
-    assert launch_counts() == dict.fromkeys(KERNELS, 0) | {
+    assert launch_counts() == dict.fromkeys(COUNTED, 0) | {
         "moe_route": layers * (steps + 1), "grouped_ffn": layers * (steps + 1),
         "head_ffn": layers * steps, "stma_linear_attention": layers * steps}
     want = out["cpu"]

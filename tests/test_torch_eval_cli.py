@@ -148,8 +148,17 @@ def test_ddim_mode_bf16(workdir, monkeypatch):
                                   ["--step-cache-table", "t.json"],
                                   ["--dispatch-batches", "2"], ["--no_repaint"]])
 def test_options_not_ported_are_refused(argv):
-    with pytest.raises(SystemExit, match="ROADMAP queue 1: "):
-        torch_test.parse_args([CONFIG, "out"] + argv)
+    """Grouped dispatch and the RePaint knobs are refused; int8 and the step
+    cache are ported now and parse (tests/test_torch_quant.py runs them)."""
+    if argv[0] in ("--dispatch-batches", "--no_repaint"):
+        with pytest.raises(SystemExit, match="ROADMAP queue 1: "):
+            torch_test.parse_args([CONFIG, "out"] + argv)
+        return
+    args = torch_test.parse_args([CONFIG, "out"] + argv)
+    assert (args.int8, args.bf16, args.step_cache, args.step_cache_table) == {
+        "--bf16": ("w8a8", True, 0, None), "--int8": ("w8a8", False, 0, None),
+        "--step-cache": (None, False, 2, None),
+        "--step-cache-table": (None, False, 0, "t.json")}[argv[0]]
 
 
 def test_cuda_without_a_card_is_refused(monkeypatch):

@@ -16,6 +16,8 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "tools" / "torch_m2d_test.py",
                                         ROOT / "tools" / "torch_s2g_test.py",
                                         ROOT / "tools" / "torch_serve.py",
+                                        ROOT / "tools" / "torch_calibrate_step_cache.py",
+                                        ROOT / "tools" / "torch_lowprec.py",
                                         ROOT / "tools" / "profile_torch_m2d.py"]
 FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|motioncraft_tpu)(\.|\s|$)",
                        re.MULTILINE)
@@ -47,10 +49,16 @@ torch_serve = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(torch_serve)
 torch_serve.make_handler(None)
 torch_serve.parse_args(["configs/tests/tiny_t2m.py", "--device", "cpu"])
+spec = importlib.util.spec_from_file_location("torch_calibrate_step_cache",
+                                              "tools/torch_calibrate_step_cache.py")
+calibrate = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(calibrate)
+calibrate.parse_args(["configs/tests/tiny_t2m.py", "out.npz", "--device", "cpu"])
 for name in ("data", "data.datasets", "eval", "utils.checkpoint", "utils.torch_convert",
              "apis.eval_hook", "models.controlnet", "apis.windowed", "data.beat2",
              "data.native", "eval.gesture_metrics", "ops.fk", "ops.rotation",
-             "ops.smplx_lbs", "serving", "serving.server"):
+             "ops.smplx_lbs", "serving", "serving.server", "diffusion.stepcache",
+             "ops.quant"):
     assert "motioncraft_tpu_torch." + name in names, name
 print(len(names))
 """

@@ -35,11 +35,10 @@ from motioncraft_tpu.ops.pallas_sffn import head_ffn as jax_head_ffn
 from motioncraft_tpu.ops.pallas_sffn import head_ffn_reference
 from motioncraft_tpu.ops.pallas_stma_attention import (
     stma_linear_attention as jax_stma, stma_linear_attention_reference)
-from motioncraft_tpu_torch.ops import (KERNELS, expert_ffn_plain, fused_expert_ffn,
-                                       fused_linear_attention,
-                                       fused_linear_attention_plain, grouped_ffn,
-                                       head_ffn, launch_counts, moe_positions_counts,
-                                       moe_route, reset_launch_counts,
+from motioncraft_tpu_torch.ops import (COUNTED, KERNELS, expert_ffn_plain, fused_expert_ffn,
+                                       fused_linear_attention, fused_linear_attention_plain,
+                                       grouped_ffn, head_ffn, int_mm, launch_counts,
+                                       moe_positions_counts, moe_route, reset_launch_counts,
                                        stma_linear_attention)
 from motioncraft_tpu_torch.ops.moe_ffn import BLOCK
 from motioncraft_tpu_torch.ops.recompute import with_recomputed_grad
@@ -278,7 +277,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     grouped_ffn(*(torch.from_numpy(a) for a in grouped_case(2, 32, 32, [0, 1])))
     fused_linear_attention(*(torch.from_numpy(a) for a in linear_attention_case(1, 3, 4, 1, 16)))
     fused_expert_ffn(*(torch.from_numpy(a) for a in expert_ffn_case(1, 3, 32, 32)))
-    assert launch_counts() == {name: 0 for name in KERNELS}
+    int_mm(torch.ones(3, 5, dtype=torch.int8), torch.ones(5, 7, dtype=torch.int8))
+    assert launch_counts() == {name: 0 for name in COUNTED}
 
 
 @pytest.mark.parametrize("name", sorted(KERNELS))

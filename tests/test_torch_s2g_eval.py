@@ -277,9 +277,11 @@ def test_torch_s2g_cli_with_a_body_model(tmp_path, monkeypatch):
     assert all(np.isfinite(out[k]) for k in S2G_KEYS - {"protocol", "flags"})
     assert run["body_model"] is not None and run["windows"] == 7
     assert [p.shape for p in run["preds"]] == [(88, 322), (88, 322)]
-    for bad in (["--bf16", "--int8"], ["--int8"], ["--int8-mode", "w8"], ["--step-cache", "4"]):
-        with pytest.raises(SystemExit, match="ROADMAP queue 1: step cache"):
-            tool.parse_args(["configs/tests/tiny_s2g.py", *bad])
+    # int8 and the step cache are ported now (tests/test_torch_quant.py runs them)
+    for argv, want in ((["--bf16", "--int8"], ("w8a8", 0)), (["--int8"], ("w8a8", 0)),
+                       (["--int8-mode", "w8"], ("w8", 0)), (["--step-cache", "4"], (None, 4))):
+        args = tool.parse_args(["configs/tests/tiny_s2g.py", *argv])
+        assert (args.int8, args.step_cache) == want
 
 
 def test_torch_s2g_cli_fk_route(tmp_path, monkeypatch):

@@ -16,10 +16,13 @@ Usage:
 
 ``--recording-batch R`` samples R tracks in lockstep (windowed_sample_batch).
 ``--bf16`` casts the weights to bf16 and runs the denoiser in bf16 (the
-metric math stays f32), as tools/m2d_test.py does.  Not ported yet, and
-refused rather than ignored: --int8 / --int8-mode and --step-cache (ROADMAP
-queue 1: step cache and int8 inference).  Diversity's picks draw from the global numpy generator, which
-this tool seeds with --seed.
+metric math stays f32), as tools/m2d_test.py does.  ``--int8 [w8a8|w8]``
+(or ``--int8-mode``) quantizes the denoiser's audited weights after the cast
+(ops/quant.py); ``--step-cache N`` (N >= 2) reuses each layer's residual on
+all but every N-th DDIM step of every window (diffusion/stepcache.py; in an
+outpainted window the first step after each re-noising jump computes):
+approximate modes, stamped into metrics.json.  Diversity's picks draw from
+the global numpy generator, which this tool seeds with --seed.
 """
 
 import argparse
@@ -32,8 +35,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import numpy as np  # noqa: E402
 
-LOW_PRECISION = "ROADMAP queue 1: step cache and int8 inference"
-
+from tools.torch_lowprec import (add_lowprec_args, apply_lowprec_,  # noqa: E402
+                                 lowprec_from_args, step_cache_from_args)
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Evaluate music-to-dance with the PyTorch port")
@@ -55,16 +58,8 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true",
                    help="bf16 denoiser compute in the windowed sampler (weights cast, "
                         "compute_dtype bf16; the metric math stays f32)")
-    # tools/m2d_test.py's options that the port does not run yet
-    p.add_argument("--step-cache", type=int, default=0, metavar="N")
-    p.add_argument("--int8", nargs="?", const="w8a8", default=None, choices=["w8a8", "w8"])
-    p.add_argument("--int8-mode", default=None, choices=["w8a8", "w8"])
-    args = p.parse_args(argv)
-    if args.int8 or args.int8_mode:
-        raise SystemExit(f"--int8: int8 inference is not ported ({LOW_PRECISION})")
-    if args.step_cache not in (0, 1):  # 0 and 1 are off, as in tools/m2d_test.py
-        raise SystemExit(f"--step-cache: the step cache is not ported ({LOW_PRECISION})")
-    return args
+    add_lowprec_args(p)
+    return lowprec_from_args(p.parse_args(argv))
 
 
 def make_window_batch_fn(music, text, window):
@@ -138,7 +133,6 @@ def run(args, logger=print) -> dict:
     evaluation."""
     import torch
 
-    from motioncraft_tpu_torch.apis import bf16_cast_
     from motioncraft_tpu_torch.apis.windowed import (denormalize, num_windows,
                                                      windowed_sample, windowed_sample_batch)
     from motioncraft_tpu_torch.config import Config, cfg_options_from_args
@@ -178,12 +172,10 @@ def run(args, logger=print) -> dict:
     def make_mwb(info):
         return make_window_batch_fn(info["c"], info["text"][0], window)
 
-    compute_dtype = None
-    if args.bf16:
-        bf16_cast_(arch)
-        compute_dtype = torch.bfloat16
+    compute_dtype = apply_lowprec_(arch, args, logger)
     kw = dict(window=window, pre_frames=pre, use_repaint=not args.no_repaint,
-              repaint=arch.repaint_cfg, randn=randn, compute_dtype=compute_dtype)
+              repaint=arch.repaint_cfg, randn=randn, compute_dtype=compute_dtype,
+              step_cache=step_cache_from_args(args, logger))
     R = max(1, args.recording_batch)
     lengths = [len(info["motion"]) for info in infos]
     t0 = time.perf_counter()
@@ -216,13 +208,16 @@ def run(args, logger=print) -> dict:
     eval_s = time.perf_counter() - t1
     flags = {"untrained_evaluator": not getattr(ev, "pretrained_loaded", False),
              "hash_tokenizer": find_bpe_asset() is None,
-             "int8_weights": False,
-             "step_cache": 0}
+             "int8_weights": args.int8 or False,  # False | "w8a8" | "w8"
+             "step_cache": int(args.step_cache)}
     metrics["protocol"] = not any(v for k, v in flags.items()
                                   if k not in ("int8_weights", "step_cache"))
     metrics["flags"] = flags
     if not metrics["protocol"]:
         logger(f"WARNING: run is NOT protocol-comparable: {flags}")
+    if flags["int8_weights"] or flags["step_cache"]:
+        logger("NOTE: approximate sampling mode (int8/step-cache); compare against an "
+               "exact run before quoting metric numbers")
     logger(json.dumps(metrics, indent=2))
     with open(os.path.join(args.work_dir, "metrics.json"), "w") as f:
         json.dump(metrics, f, indent=2)

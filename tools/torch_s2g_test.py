@@ -32,9 +32,12 @@ Usage:
 ``--recording-batch R`` samples R recordings in lockstep
 (windowed_sample_batch).  ``--bf16`` casts the weights to bf16 and runs the
 denoiser in bf16 (the metric math stays f32), as tools/s2g_test.py does.
-Not ported yet, and refused rather than ignored: --int8 / --int8-mode and
---step-cache (ROADMAP queue 1: step cache and int8 inference).  Every draw of the sampler comes from one
-generator seeded with --seed.
+``--int8 [w8a8|w8]`` (or ``--int8-mode``) quantizes the denoiser's audited
+weights after the cast (ops/quant.py); ``--step-cache N`` (N >= 2) reuses
+each layer's residual on all but every N-th DDIM step of every window
+(diffusion/stepcache.py; in an outpainted window the first step after each
+re-noising jump computes): approximate modes, stamped into metrics.json.
+Every draw of the sampler comes from one generator seeded with --seed.
 """
 
 import argparse
@@ -47,7 +50,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import numpy as np  # noqa: E402
 
-LOW_PRECISION = "ROADMAP queue 1: step cache and int8 inference"
+from tools.torch_lowprec import (add_lowprec_args, apply_lowprec_,  # noqa: E402
+                                 lowprec_from_args, step_cache_from_args)
+
 CAPTION = "A person is doing a speech, and the speech content is "
 
 
@@ -76,16 +81,8 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true",
                    help="bf16 denoiser compute in the windowed sampler (weights cast, "
                         "compute_dtype bf16; the metric math stays f32)")
-    # tools/s2g_test.py's options that the port does not run yet
-    p.add_argument("--step-cache", type=int, default=0, metavar="N")
-    p.add_argument("--int8", nargs="?", const="w8a8", default=None, choices=["w8a8", "w8"])
-    p.add_argument("--int8-mode", default=None, choices=["w8a8", "w8"])
-    args = p.parse_args(argv)
-    if args.int8 or args.int8_mode:
-        raise SystemExit(f"--int8: int8 inference is not ported ({LOW_PRECISION})")
-    if args.step_cache not in (0, 1):  # 0 and 1 are off, as in tools/s2g_test.py
-        raise SystemExit(f"--step-cache: the step cache is not ported ({LOW_PRECISION})")
-    return args
+    add_lowprec_args(p)
+    return lowprec_from_args(p.parse_args(argv))
 
 
 def caption(spans, start, end, fps):
@@ -146,7 +143,6 @@ def run(args, logger=print) -> dict:
     stage and the body model (None on the FK route)."""
     import torch
 
-    from motioncraft_tpu_torch.apis import bf16_cast_
     from motioncraft_tpu_torch.apis.windowed import (denormalize, num_windows,
                                                      windowed_sample, windowed_sample_batch)
     from motioncraft_tpu_torch.config import Config, cfg_options_from_args
@@ -195,12 +191,10 @@ def run(args, logger=print) -> dict:
 
     # generation: the reference's sequential protocol (R = 1) or lockstep
     # batches of R recordings
-    compute_dtype = None
-    if args.bf16:
-        bf16_cast_(arch)
-        compute_dtype = torch.bfloat16
+    compute_dtype = apply_lowprec_(arch, args, logger)
     kw = dict(window=window, pre_frames=pre, use_repaint=not args.no_repaint,
-              repaint=arch.repaint_cfg, randn=randn, compute_dtype=compute_dtype)
+              repaint=arch.repaint_cfg, randn=randn, compute_dtype=compute_dtype,
+              step_cache=step_cache_from_args(args, logger))
     R = max(1, args.recording_batch)
     lengths = [len(r["pose"]) for r in recordings]
     t0 = time.perf_counter()
@@ -308,14 +302,17 @@ def run(args, logger=print) -> dict:
         "mmae_asset": not np.isscalar(mmae),
         "untrained_evaluator": not getattr(fid_model, "pretrained_loaded", False),
         "hash_tokenizer": find_bpe_asset() is None,
-        "int8_weights": False,
-        "step_cache": 0,
+        "int8_weights": args.int8 or False,  # False | "w8a8" | "w8"
+        "step_cache": int(args.step_cache),
     }
     metrics["protocol"] = (flags["smplx_vertices"] and flags["mmae_asset"]
                            and not flags["untrained_evaluator"] and not flags["hash_tokenizer"])
     metrics["flags"] = flags
     if not metrics["protocol"]:
         logger(f"WARNING: run is NOT protocol-comparable: {flags}")
+    if flags["int8_weights"] or flags["step_cache"]:
+        logger("NOTE: approximate sampling mode (int8/step-cache); compare against an "
+               "exact run before quoting metric numbers")
     logger(json.dumps(metrics, indent=2))
     with open(os.path.join(args.work_dir, "metrics.json"), "w") as f:
         json.dump(metrics, f, indent=2)

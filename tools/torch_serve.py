@@ -4,7 +4,10 @@ CFG-DDIM sampling on the card (motioncraft_tpu_torch/serving/server.py).
 
 Concurrent POSTs are grouped by the dispatcher into one sampling call per
 batch bucket; ``--bf16`` casts the weights to bf16 and runs the denoiser in
-bf16 (the bf16 kernels).  Weights come from ``--checkpoint`` (a
+bf16 (the bf16 kernels); ``--int8`` serves int8 denoiser weights (W8A8, as
+tools/serve.py's --int8; ``--int8 w8`` or ``--int8-mode w8`` weight-only),
+quantized after the cast; ``--step-cache N`` reuses each layer's residual on
+all but every N-th DDIM step.  Weights come from ``--checkpoint`` (a
 save_params ``.npz`` of either package) or ``--torch-checkpoint`` (a
 released ``.pth``); without either they are fabricated from ``--seed``.
 
@@ -12,14 +15,14 @@ Usage:
   python tools/torch_serve.py configs/stmogen/t2m_motionx_0_125b.py \\
       --checkpoint params.npz --port 8080 --bf16 --warmup
   python tools/torch_serve.py configs/tests/tiny_t2m.py --device cpu --port 8080
+  python tools/torch_serve.py CONFIG --checkpoint params.npz --bf16 --int8 --step-cache 2
 
   curl -s localhost:8080/generate -d '{"text": "a person waves", "length": 64}'
   curl -s localhost:8080/generate_long -d '{"text": "a long walk", "total_frames": 400}'
   curl -s localhost:8080/stats
 
-Not ported, and refused: --int8 (ROADMAP queue 1: step cache and int8
-inference) and --data-parallel (ROADMAP queue 1: multi-GPU, serving and the
-host-side tools).
+Not ported, and refused: --data-parallel (ROADMAP queue 1: multi-GPU,
+serving and the host-side tools).
 """
 
 import argparse
@@ -30,6 +33,9 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import numpy as np  # noqa: E402
+
+from tools.torch_lowprec import (add_lowprec_args, apply_lowprec_,  # noqa: E402
+                                 lowprec_from_args, step_cache_from_args)
 
 
 def parse_args(argv=None):
@@ -59,13 +65,10 @@ def parse_args(argv=None):
     p.add_argument("--warmup", action="store_true",
                    help="sample every bucket once before accepting traffic")
     p.add_argument("--cfg-options", nargs="*", default=None)
+    add_lowprec_args(p)
     # tools/serve.py's options that the port does not run yet
-    p.add_argument("--int8", action="store_true")
     p.add_argument("--data-parallel", action="store_true")
-    args = p.parse_args(argv)
-    if args.int8:
-        raise SystemExit("--int8: int8 inference is not ported "
-                         "(ROADMAP queue 1: step cache and int8 inference)")
+    args = lowprec_from_args(p.parse_args(argv))
     if args.data_parallel:
         raise SystemExit("--data-parallel: serving over several cards is not ported "
                          "(ROADMAP queue 1: multi-GPU, serving and the host-side tools)")
@@ -77,7 +80,6 @@ def build_server(args, logger=print):
     ``--warmup``)."""
     import torch
 
-    from motioncraft_tpu_torch.apis import bf16_cast_
     from motioncraft_tpu_torch.config import Config, cfg_options_from_args
     from motioncraft_tpu_torch.registry import build_architecture
     from motioncraft_tpu_torch.serving import MotionGenServer
@@ -100,10 +102,7 @@ def build_server(args, logger=print):
     else:
         arch.model.load_state_dict(fabricate_state_dict(arch.model, seed=args.seed),
                                    strict=True)
-    compute_dtype = None
-    if args.bf16:
-        bf16_cast_(arch)
-        compute_dtype = torch.bfloat16
+    compute_dtype = apply_lowprec_(arch, args, logger)
 
     mean = std = None
     for step in (cfg.get("data", {}).get("test", {}) or {}).get("pipeline", []):
@@ -114,7 +113,8 @@ def build_server(args, logger=print):
                           batch_buckets=sorted(set(args.buckets)),
                           seq_buckets=args.seq_buckets, max_wait_ms=args.max_wait_ms,
                           seed=args.seed, compute_dtype=compute_dtype, mean=mean, std=std,
-                          window=args.window, pre_frames=args.pre_frames)
+                          window=args.window, pre_frames=args.pre_frames,
+                          step_cache=step_cache_from_args(args, logger))
     if args.warmup:
         logger(f"warmup: sampling batch buckets {sorted(set(args.buckets))}")
         srv.warmup()
@@ -177,7 +177,9 @@ def main(argv=None):
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(srv))
     print(f"serving on http://{args.host}:{httpd.server_address[1]} "
           f"(buckets {args.buckets}, wait {args.max_wait_ms} ms, "
-          f"{'bf16' if args.bf16 else 'f32'} on {args.device})", flush=True)
+          f"{'bf16' if args.bf16 else 'f32'}{f', int8 {args.int8}' if args.int8 else ''}"
+          f"{f', step cache {args.step_cache}' if args.step_cache > 1 else ''} on "
+          f"{args.device})", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

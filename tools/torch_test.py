@@ -14,9 +14,18 @@ Usage:
       --cfg-options model.inference_type=gt          # FID must be ~0
 
 ``--bf16`` casts the weights to bf16 and samples with the denoiser in bf16
-(the metric math stays f32), as tools/test.py does.  Not ported yet, and
-refused rather than ignored: --int8 and the step cache, --dispatch-batches
-> 1 and the RePaint knobs (each names its ROADMAP queue 1 item).
+(the metric math stays f32), as tools/test.py does.  ``--int8 [w8a8|w8]``
+(or ``--int8-mode``) quantizes the denoiser's audited weights after the cast
+(ops/quant.py), ``--step-cache N`` reuses each layer's residual on all but
+every N-th DDIM step and ``--step-cache-table PATH`` on a calibrated table
+(e.g. artifacts/step_cache_flagship.json): approximate modes, stamped into
+metrics.json.  Not ported yet, and refused rather than ignored:
+--dispatch-batches > 1 and the RePaint knobs (each names its ROADMAP queue 1
+item).
+
+  python tools/torch_test.py CONFIG out --checkpoint params.npz --bf16 --int8
+  python tools/torch_test.py CONFIG out --step-cache-table \
+      artifacts/step_cache_flagship.json
 """
 
 import argparse
@@ -28,6 +37,10 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import numpy as np  # noqa: E402
+
+from tools.torch_lowprec import (add_lowprec_args, apply_lowprec_,  # noqa: E402
+                                 lowprec_from_args, step_cache_from_args)
+
 
 REPAINT_DEFAULTS = dict(no_repaint=False, no_resample=False, addBlend=True,
                         same_overlap_noisy=False, overlap_len=4, jump_n_sample=2,
@@ -58,11 +71,8 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true",
                    help="bf16 denoiser compute (weights cast, compute_dtype bf16; the "
                         "metric math stays f32)")
+    add_lowprec_args(p, table=True)
     # tools/test.py's options that the port does not run yet
-    p.add_argument("--int8", nargs="?", const="w8a8", default=None, choices=["w8a8", "w8"])
-    p.add_argument("--int8-mode", default=None, choices=["w8a8", "w8"])
-    p.add_argument("--step-cache", type=int, default=0, metavar="N")
-    p.add_argument("--step-cache-table", default=None, metavar="PATH")
     p.add_argument("--dispatch-batches", type=int, default=1, metavar="K")
     p.add_argument("--no_repaint", action="store_true")
     p.add_argument("--no_resample", action="store_true")
@@ -71,13 +81,7 @@ def parse_args(argv=None):
     p.add_argument("--overlap_len", type=int, default=4)
     p.add_argument("--jump_n_sample", type=int, default=2)
     p.add_argument("--jump_length", type=int, default=3)
-    args = p.parse_args(argv)
-    if args.int8 or args.int8_mode:
-        raise SystemExit("--int8: int8 inference is not ported "
-                         "(ROADMAP queue 1: step cache and int8 inference)")
-    if args.step_cache or args.step_cache_table:
-        raise SystemExit("--step-cache / --step-cache-table: the step cache is not "
-                         "ported (ROADMAP queue 1: step cache and int8 inference)")
+    args = lowprec_from_args(p.parse_args(argv))
     if args.dispatch_batches != 1:
         raise SystemExit("--dispatch-batches > 1: grouped dispatch is not ported "
                          "(ROADMAP queue 1: multi-GPU, serving and the host-side tools)")
@@ -93,7 +97,6 @@ def run(args, logger=print) -> dict:
     sampling and of evaluation."""
     import torch
 
-    from motioncraft_tpu_torch.apis import bf16_cast_
     from motioncraft_tpu_torch.config import Config, cfg_options_from_args
     from motioncraft_tpu_torch.data import build_dataloader
     from motioncraft_tpu_torch.models.tokenizer import find_bpe_asset
@@ -127,16 +130,14 @@ def run(args, logger=print) -> dict:
         next(iter(loader))
         load_eval_variables(cfg.model, arch.model, checkpoint=args.checkpoint,
                             torch_checkpoint=args.torch_checkpoint)
-    compute_dtype = None
-    if args.bf16 and arch.model is not None:
-        bf16_cast_(arch)
-        compute_dtype = torch.bfloat16
+    compute_dtype = apply_lowprec_(arch, args, logger)
+    step_cache = step_cache_from_args(args, logger)
 
     from motioncraft_tpu_torch.apis.test import single_device_test
     t0 = time.perf_counter()
     results = single_device_test(arch, loader, seed=args.seed, limit=args.limit,
                                  device=args.device, logger=lambda m: logger("  " + m),
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype, step_cache=step_cache)
     sample_s = time.perf_counter() - t0
     logger(f"sampled {len(results)} results in {sample_s:.1f}s")
     if args.dump_samples:
@@ -160,15 +161,19 @@ def run(args, logger=print) -> dict:
     flags = {
         "untrained_evaluator": not getattr(ev, "pretrained_loaded", False),
         "hash_tokenizer": find_bpe_asset() is None,
-        "int8_weights": False,
-        "step_cache": 0,
-        "step_cache_table": None,
+        "int8_weights": args.int8 or False,  # False | "w8a8" | "w8"
+        "step_cache": int(args.step_cache),
+        "step_cache_table": args.step_cache_table,
     }
     approx = ("int8_weights", "step_cache", "step_cache_table")
     out["protocol"] = not any(v for k, v in flags.items() if k not in approx)
     out["flags"] = flags
     if not out["protocol"]:
         logger(f"WARNING: run is NOT protocol-comparable: {flags}")
+    elif any(flags[k] for k in approx):
+        logger(f"NOTE: approximate sampling mode ({', '.join(f'{k}={flags[k]}' for k in approx)})"
+               "; metric deltas against the exact run are expected: compare against an "
+               "exact run before quoting numbers")
     with open(os.path.join(args.work_dir, "metrics.json"), "w") as f:
         json.dump(out, f, indent=2)
     return {"out": out, "arch": arch, "dataset": dataset, "results": results,
