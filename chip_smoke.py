@@ -21,7 +21,10 @@ Phases; any failure exits non-zero:
      S2G shapes, 2 x 64 and 8 x 64), K1-K3's bf16 instantiations at the
      T2M shapes (K1 motion, text and layer 0), and K1-K4 in f32 and K1-K3
      in bf16 at phase 12's smallest and largest buckets (2 x 64 and 16 x
-     196, with layer 0's half of each): max abs error against its
+     196, with layer 0's half of each) and at phase 14's drift batch (64 x
+     196, with its layer 0's half), K4's positions, K5 and K6 at phase 14's
+     training batches (16: --grad-accum 2 of 32; 8: the calibration
+     checkpoint's): max abs error against its
      tolerance (1e-2 x max |plain| for bf16; K4 exact in its
      integers, its route's gates within 1e-6; on every path a route case
      leaning to one expert must drop choices); the kernel's device time from
@@ -134,7 +137,21 @@ Phases; any failure exits non-zero:
      tools/torch_m2d_test.py (windows 1 and 2 are the harmonized loop: its
      first step after each re-noising jump computes), launches checked; a W8A8
      MotionGenServer on phase 12's traffic, latency p50/p95
- 14. one JSON line of the kernels' numbers, and last the device line
+ 14. the trained-weights quality harness over a learnable tree of 256
+     clips (tools/make_tiny_data.py --protocol-learnable, written here) with
+     configs/tests/protocol_learn.py's flagship: the evaluator trainer
+     (tools/torch_train_protocol_evaluator.py, 1500 steps, held-out top-1
+     >= 0.5); tools/torch_train.py at --grad-accum 2 for 2 epochs, then
+     --resume for a third (the resume line, finite losses, params.npz
+     loading strictly and equal to the trained weights, K4's positions, K5
+     and K6 launched as the steps imply and nothing else); the calibration
+     checkpoint (tools/torch_make_calib_ckpt.py, 8 steps); the drift of
+     every approximate mode on it (tools/torch_measure_approx_drift.py,
+     exact, step cache 2, the committed table, W8, W8A8, all bf16, 64
+     clips): finite metrics and deltas, a sample error above 0 in every
+     approximate mode, K1-K4 launched as the flags imply, and a second run
+     that reuses every mode; wall seconds of each step
+ 15. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -215,8 +232,21 @@ INT8_PEAK = 1979e12   # H100 SXM dense int8 tensor cores, OP/s
 W8A8_SENS = 1.5
 W8A8_FIRST_SHARE = 1e-3
 W8A8_DRAW2 = 1000  # the second W8A8 input draw's seed offset
+# phase 14: the quality harness over a learnable tree (tools/make_tiny_data.py
+# --protocol-learnable) of 256 clips, its first 64 the test set; the
+# evaluator's training steps and its held-out top-1 floor (chance 1/32; the
+# test batch's 32 clips hold 20 classes, so 0.625 at most)
+HARNESS_CONFIG = os.path.join(ROOT, "configs", "tests", "protocol_learn.py")
+HARNESS_CLIPS, HARNESS_TEST_CLIPS = 256, 64
+HARNESS_EVAL_STEPS, HARNESS_TOP1 = 1500, 0.5
+# the harness config's batch (the drift's requests a batch, the loader's
+# batch in training), the training CLI's --grad-accum and the calibration
+# checkpoint's batch: the shapes whose kernels phase 2 checks for phase 14
+HARNESS_BATCH, HARNESS_GRAD_ACCUM, HARNESS_CALIB_BATCH = 32, 2, 8
 # the bf16 instantiations of K1-K3
 BF16_KERNELS = ("grouped_ffn", "head_ffn", "stma_linear_attention")
+# training's kernels: K4's positions, K5, K6
+TRAINING_KERNELS = ("moe_positions", "fused_linear_attention", "fused_expert_ffn")
 
 PALLAS = {
     "moe_route": "motioncraft_tpu/ops/pallas_moe.py:54",
@@ -308,12 +338,13 @@ class FfnArgs(tuple):
         return self
 
 
-def flagship_inputs(torch, cfg, dev, B2=2 * BATCH, T=None, training=True, layer0=False):
+def flagship_inputs(torch, cfg, dev, B2=2 * BATCH, T=None, training=True, layer0=False,
+                    Bt=TRAIN_BATCH):
     """Inputs of every kernel at the shapes the phase-4 batches (K1, K2, K3,
     K4's route: B2 CFG-doubled rows of T frames) and, with ``training``, the
-    phase-7 training steps (K4's positions, K5, K6) give them.  With
-    ``layer0``, K1's and K4's route at layer 0, whose motion MoE routes
-    one CFG half (cfg_layer0_dedup)."""
+    phase-7 training steps (K4's positions over B2 rows, K5 and K6 over Bt)
+    give them.  With ``layer0``, K1's and K4's route at layer 0, whose
+    motion MoE routes one CFG half (cfg_layer0_dedup)."""
     from motioncraft_tpu_torch.ops.moe_ffn import BLOCK
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -364,10 +395,9 @@ def flagship_inputs(torch, cfg, dev, B2=2 * BATCH, T=None, training=True, layer0
     if not training:
         return sampling
 
-    # training at B = 32: STMA's global attention over 77 text + T motion
+    # training at B = Bt: STMA's global attention over 77 text + T motion
     # keys (masked past each length, text off for 1 in 10), and the slot
     # buffers of the motion and the text MoE (filled up to their loads)
-    Bt = TRAIN_BATCH
     t_len = torch.randint(min(40, T), T + 1, (Bt,), generator=g, device=dev)
     key_mask = torch.cat([(torch.rand(Bt, 1, generator=g, device=dev) > 0.1).float()
                           .expand(Bt, TXT),
@@ -395,8 +425,9 @@ def flagship_inputs(torch, cfg, dev, B2=2 * BATCH, T=None, training=True, layer0
 
 
 def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None):
-    """(path, inputs) for phase 2: the T2M shapes (with training's), the
-    M2D ones and the S2G ones; R recordings in lockstep are a CFG-doubled
+    """(path, inputs) for phase 2: the T2M shapes (with training's), those
+    of phase 12's buckets and of phase 14's drift and training, the M2D ones
+    and the S2G ones; R recordings in lockstep are a CFG-doubled
     batch of 2R x window frames (120 for M2D, 64 for S2G: the base blocks
     past layer 0 and the control blocks), and layer 0's motion MoE routes
     its first half."""
@@ -413,6 +444,18 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None):
         paths += [(tag, full), (f"{tag} layer 0", half),
                   (f"{tag} bf16", bf16_inputs(torch, full)),
                   (f"{tag} layer 0 bf16", bf16_inputs(torch, half))]
+    # phase 14: the drift's batches (HARNESS_BATCH requests: 2x CFG rows)
+    # in f32 and in bf16, each with layer 0's half; the training CLI's
+    # microbatches and the calibration checkpoint's batches (K4's
+    # positions, K5, K6)
+    full = flagship_inputs(torch, cfg, dev, B2=2 * HARNESS_BATCH, training=False)
+    half = flagship_inputs(torch, cfg, dev, B2=2 * HARNESS_BATCH, training=False, layer0=True)
+    tag = f"harness drift b={HARNESS_BATCH}"
+    paths += [(tag, full), (f"{tag} layer 0", half), (f"{tag} bf16", bf16_inputs(torch, full)),
+              (f"{tag} layer 0 bf16", bf16_inputs(torch, half))]
+    for Bt in (HARNESS_BATCH // HARNESS_GRAD_ACCUM, HARNESS_CALIB_BATCH):
+        train = flagship_inputs(torch, cfg, dev, B2=Bt, Bt=Bt)
+        paths.append((f"harness train B={Bt}", {k: train[k] for k in TRAINING_KERNELS}))
     for tag, lf_cfg, batch in (("m2d", m2d_cfg, M2D_REC_BATCH),
                                ("s2g", s2g_cfg, S2G_REC_BATCH)):
         if lf_cfg is None:
@@ -743,16 +786,23 @@ def phase_train(torch, full_cfg, arch):
     still = sorted(trainable - set(moved))
     check(all(n.startswith("out.face_out.") for n in still),
           f"trainable parameters that did not move: {still[:5]}")
-    layers = arch.model.num_layers
-    per_step = {"moe_positions": 2 * layers, "fused_linear_attention": layers,
-                "fused_expert_ffn": 2 * layers}
-    want = dict.fromkeys(counts, 0) | {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    want = dict.fromkeys(counts, 0) | training_counts(TRAIN_STEPS, arch.model.num_layers)
     print(f"[train] {TRAIN_STEPS} steps of B={TRAIN_BATCH} in {wall:.3f} s; step wall ms "
           f"{step_ms} (first = warm-up); max memory allocated {peak / 2**30:.3f} GiB; "
           f"{len(moved)} of {len(trainable)} trainable tensors moved (not: {still}), "
           f"{len(frozen)} CLIP tensors unchanged; launches {counts}")
     check(counts == want, f"training launch counts {counts} != expected {want}")
     return counts
+
+
+def training_counts(forwards, layers):
+    """K4's positions, K5 and K6 over ``forwards`` training forwards: per
+    layer one linear attention and two MoEs (motion, text), each one
+    positions launch and one expert FFN; the backward recomputes in plain
+    PyTorch."""
+    return {"moe_positions": 2 * layers * forwards,
+            "fused_linear_attention": layers * forwards,
+            "fused_expert_ffn": 2 * layers * forwards}
 
 
 def phase_train_parity(torch, cfg, sd):
@@ -2193,6 +2243,211 @@ def lowprec_serve(torch, cfg, sd, dev):
     return {"stats": st, "counts": counts, "requests_per_s": n_req / wall}
 
 
+# ---------------------------------------------------------------- phase 14
+
+def harness_config(path, base, tree, test_ann, evaluator, test_clips):
+    """A config file that ``_base_``s ``base`` (the learnable-tree harness
+    config), reads ``tree`` (training: every clip; test: ``test_ann``), loads
+    ``evaluator`` and keeps one checkpoint."""
+    stats = os.path.join(tree, "datasets", "motionx")
+    with open(path, "w") as f:
+        f.write(f"""_base_ = [{base!r}]
+pipeline = [
+    dict(type='Normalize', mean_path={os.path.join(stats, 'mean.npy')!r},
+         std_path={os.path.join(stats, 'std.npy')!r}),
+    dict(type='Crop', crop_size=196),
+    dict(type='ToTensor', keys=['motion', 'motion_mask']),
+    dict(type='Collect', keys=['motion', 'motion_mask', 'motion_length'],
+         meta_keys=['text']),
+]
+data = dict(
+    train=dict(data_prefix={tree!r}, pipeline=pipeline),
+    test=dict(data_prefix={tree!r}, pipeline=pipeline, ann_file={test_ann!r},
+              eval_cfg=dict(
+                  replication_times=1,
+                  evaluator_model=dict(init_cfg=dict(type='Pretrained',
+                                                     checkpoint={evaluator!r})),
+                  metrics=[dict(type='R Precision', batch_size=32, top_k=3),
+                           dict(type='Matching Score', batch_size=32),
+                           dict(type='FID', emb_scale=1.0),
+                           dict(type='Diversity', num_samples={test_clips // 2})])))
+checkpoint_config = dict(interval=1, max_keep_ckpts=1)
+log_config = dict(interval=4)
+""")
+
+
+def phase_harness(torch, full_cfg, dev="cuda", config=HARNESS_CONFIG, clips=HARNESS_CLIPS,
+                  test_clips=HARNESS_TEST_CLIPS, eval_steps=HARNESS_EVAL_STEPS,
+                  table=STEP_CACHE_TABLE):
+    """Phase 14: the trained-weights quality harness on ``config`` (whose
+    model ``full_cfg`` is) over a learnable tree of ``clips`` clips written
+    here: the evaluator trainer, the training CLI with a resume, the
+    calibration checkpoint and the drift of every approximate mode, each
+    through its tool, with checks and launch counts."""
+    import re
+    import tempfile
+
+    import numpy as np
+    from motioncraft_tpu_torch.apis import bf16_cast_, int8_quantize_
+    from motioncraft_tpu_torch.diffusion import (StepCacheConfig, build_diffusion, load_flags,
+                                                 pattern_flags)
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.checkpoint import load_eval_variables
+
+    t_phase = time.perf_counter()
+    wall = {}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tree = os.path.join(tmp, "data")
+        load_tool("make_tiny_data").make_protocol_learnable(tree, np.random.RandomState(SEED),
+                                                            n=clips)
+        d = os.path.join(tree, "datasets", "motionx")
+        with open(os.path.join(d, "ann.txt")) as f:
+            names = [ln.strip() for ln in f if ln.strip()]
+        with open(os.path.join(d, "test_ann.txt"), "w") as f:
+            f.write("\n".join(names[:test_clips]) + "\n")
+        evaluator = os.path.join(tmp, "evaluator.npz")
+        cfg_path = os.path.join(tmp, "config.py")
+        harness_config(cfg_path, config, tree, "test_ann.txt", evaluator, test_clips)
+        wall["data"] = time.perf_counter() - t0
+
+        # the evaluator: InfoNCE on the card, held-out top-1
+        t0 = time.perf_counter()
+        ev_tool = load_tool("torch_train_protocol_evaluator")
+        ev = ev_tool.run(ev_tool.parse_args(["--root", tree, "--out", evaluator, "--device",
+                                             str(dev), "--steps", str(eval_steps)]),
+                         logger=lambda m: None)
+        wall["evaluator"] = time.perf_counter() - t0
+        print(f"[harness] evaluator: {eval_steps} steps in {wall['evaluator']:.3f} s, loss "
+              f"{ev['losses'][0]:.4f} -> {ev['losses'][-1]:.4f}, held-out top-1 "
+              f"{ev['top1']:.3f} (floor {HARNESS_TOP1})")
+        check(np.isfinite(ev["losses"]).all(), "[harness] non-finite evaluator loss")
+        check(ev["top1"] >= HARNESS_TOP1, f"[harness] evaluator top-1 {ev['top1']}")
+        del ev
+
+        # training: 2 epochs, then --resume for a third
+        train_tool = load_tool("torch_train")
+        work = os.path.join(tmp, "train")
+        check(full_cfg["data"]["samples_per_gpu"] == HARNESS_BATCH,
+              f"[harness] the config's batch is not {HARNESS_BATCH}: phase 2 checks that")
+        argv = [cfg_path, "--work-dir", work, "--device", str(dev), "--grad-accum",
+                str(HARNESS_GRAD_ACCUM)]
+        counts = {}
+        for label, extra in (("first", ["--max-epochs", "2"]),
+                             ("resumed", ["--resume", "--max-epochs", "3"])):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            state = train_tool.main(argv + extra)
+            wall[f"train {label}"] = time.perf_counter() - t0
+            counts[label] = launch_counts()
+        with open(os.path.join(work, "train.log")) as f:
+            log = f.read()
+        losses = [float(x) for x in re.findall(r" loss=(\S+)", log)]
+        resumes = re.findall(r"resumed from \S+ at epoch (\d+)", log)
+        done = [int(e) for e in re.findall(r"epoch (\d+) done in", log)]
+        steps_per_epoch = int(re.search(r"dataset: \d+ samples, (\d+) steps/epoch",
+                                        log).group(1))
+        print(f"[harness] training: {wall['train first']:.3f} s for 2 epochs, "
+              f"{wall['train resumed']:.3f} s for the resumed third; {steps_per_epoch} "
+              f"steps an epoch; losses {losses}; resumed at epoch {resumes}; epochs done {done}")
+        check(resumes == ["1"] and done == [0, 1, 2], f"[harness] resume: {resumes}, {done}")
+        check(losses and np.isfinite(losses).all(), f"[harness] training losses {losses}")
+        check(state.step == 3 * steps_per_epoch, f"[harness] {state.step} optimizer steps")
+        layers = full_cfg["model"]["model"]["num_layers"]
+        for label, epochs in (("first", 2), ("resumed", 1)):
+            # --grad-accum: that many microbatch forwards an optimizer step
+            want = dict.fromkeys(counts[label], 0) | training_counts(
+                HARNESS_GRAD_ACCUM * epochs * steps_per_epoch, layers)
+            print(f"[harness] training {label}: launches {counts[label]}")
+            check(counts[label] == want,
+                  f"[harness] training {label} launches {counts[label]} != expected {want}")
+        loaded = build_architecture(full_cfg["model"], device=dev)
+        load_eval_variables(full_cfg["model"], loaded.model,
+                            checkpoint=os.path.join(work, "params.npz"))
+        trained = state.model.state_dict()
+        same = all(torch.equal(v, trained[k]) for k, v in loaded.model.state_dict().items())
+        print(f"[harness] params.npz loads strictly; equal to the trained weights: {same}")
+        check(same, "[harness] params.npz differs from the trained weights")
+        del state, loaded, trained
+        out["train"] = {k: counts["first"][k] + counts["resumed"][k] for k in counts["first"]}
+
+        # the calibration checkpoint
+        calib_tool = load_tool("torch_make_calib_ckpt")
+        calib = os.path.join(tmp, "calib.npz")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = calib_tool.run(calib_tool.parse_args([cfg_path, calib, "--device", str(dev),
+                                                    "--steps", "8", "--batch-size",
+                                                    str(HARNESS_CALIB_BATCH)]),
+                             logger=lambda m: None)
+        wall["calibration checkpoint"] = time.perf_counter() - t0
+        out["calib"] = launch_counts()
+        print(f"[harness] calibration checkpoint: {res['steps']} steps in "
+              f"{wall['calibration checkpoint']:.3f} s, losses {res['losses']}; "
+              f"launches {out['calib']}")
+        check(res["steps"] == 8 and res["losses"] and np.isfinite(res["losses"]).all(),
+              f"[harness] calibration checkpoint: {res['steps']} steps, {res['losses']}")
+        del res
+
+        # the drift of every approximate mode, then a second run that reuses them
+        drift_tool = load_tool("torch_measure_approx_drift")
+        argv = ["--config", cfg_path, "--checkpoint", calib, "--table", table, "--out",
+                os.path.join(tmp, "drift.json"), "--workroot", os.path.join(tmp, "drift"),
+                "--device", str(dev), "--replications", "1", "--limit", str(test_clips)]
+        t0 = time.perf_counter()
+        drift = drift_tool.run(drift_tool.parse_args(argv), logger=lambda m: None)
+        wall["drift"] = time.perf_counter() - t0
+        modes = drift["out"]["modes"]
+        check(list(modes) == list(drift_tool.MODE_NAMES), f"[harness] modes {list(modes)}")
+        steps = build_diffusion(full_cfg["model"]["diffusion_test"]).num_timesteps
+        batches = -(-test_clips // full_cfg["data"]["samples_per_gpu"])
+        # the W8A8 mode's int8 products: the model's, on a quantized copy
+        w8a8 = bf16_cast_(build_architecture(full_cfg["model"], device=dev))
+        once, per_step = int8_products(int8_quantize_(w8a8).model)
+        del w8a8
+        flags = {"exact": None, "int8w": None, "int8": None,
+                 "step_cache_2": pattern_flags(steps, layers, StepCacheConfig(reuse_every=2)),
+                 "step_cache_table": load_flags(table)}
+        out["drift"] = {}
+        for name, m in modes.items():
+            rec = drift["records"][name]
+            got = rec["launches"]
+            f = np.zeros((steps, layers), bool) if flags[name] is None else flags[name]
+            want = dict.fromkeys(got, 0) | cached_counts(batches, [f] * batches, layers,
+                                                         suffix="_bf16")
+            want["int_mm"] = 0
+            if name == "int8":  # W8A8: slot buffers, no K1/K2; the int8 products
+                want["grouped_ffn_bf16"] = want["head_ffn_bf16"] = 0
+                want["int_mm"] = batches * (once + steps * per_step)
+            values = list(m["metrics"].values()) + list(m.get("delta_vs_exact", {}).values())
+            err = m.get("sample_rel_err")
+            print(f"[harness] drift {name}: {rec['clips']} clips, {rec['wall_s']:.3f} s "
+                  f"(sampling {rec['sample_s']:.3f} s, evaluation {rec['eval_s']:.3f} s); "
+                  f"metrics {json.dumps(m['metrics'])}; delta {json.dumps(m.get('delta_vs_exact'))}"
+                  f"; sample_rel_err {json.dumps(err)}; launches {got}")
+            check(len(m["metrics"]) == 6 and np.isfinite(values).all(),
+                  f"[harness] drift {name}: metrics {m['metrics']}")
+            check(name == "exact" or err["mean"] > 0, f"[harness] drift {name}: no error")
+            check(got == want, f"[harness] drift {name} launches {got} != expected {want}")
+            check(name != "int8" or got["int_mm"] > 0, "[harness] W8A8 ran no int8 product")
+            out["drift"][name] = got
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        again = drift_tool.run(drift_tool.parse_args(argv), logger=lambda m: None)
+        wall["drift reused"] = time.perf_counter() - t0
+        relaunched = {k: v for k, v in launch_counts().items() if v}
+        reused = [k for k, r in again["records"].items() if r["reused"]]
+        print(f"[harness] second drift run: {wall['drift reused']:.3f} s, reused {reused}, "
+              f"launches {relaunched}")
+        check(reused == list(modes) and not relaunched and again["out"]["modes"] == modes,
+              "[harness] the second drift run did not reuse every mode")
+    print(f"[harness] wall s: {json.dumps(wall)}")
+    print(f"[harness] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -2210,7 +2465,7 @@ def main():
     except ImportError as e:
         print(f"chip_smoke: the port is not next to this script ({e})", file=sys.stderr)
         return 2
-    for path in (CONFIG, M2D_CONFIG, S2G_CONFIG):
+    for path in (CONFIG, M2D_CONFIG, S2G_CONFIG, HARNESS_CONFIG):
         if not os.path.isfile(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 2
@@ -2251,6 +2506,7 @@ def main():
     arch.model.load_state_dict(sd, strict=True)
     low = phase_lowprec(torch, full_cfg, m2d_cfg, arch, sd)
     del arch
+    harness = phase_harness(torch, Config.fromfile(HARNESS_CONFIG))
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
@@ -2271,6 +2527,12 @@ def main():
         row["int8_launches"] = [low["int8"][m]["counts"][name] for m in ("w8a8", "w8")]
         row["m2d_cache_launches"] = low["m2d"]["counts"][name]
         row["serve_int8_launches"] = low["serve"]["counts"][name]
+        # phase 14: the training CLI (both runs), the calibration checkpoint
+        # and each drift mode (exact, step_cache_2, step_cache_table, int8w,
+        # int8), all in bf16
+        row["harness_train_launches"] = harness["train"][name]
+        row["harness_calib_launches"] = harness["calib"][name]
+        row["harness_drift_launches"] = [c[name] for c in harness["drift"].values()]
         check(row["launches"] > 0, f"{name} was launched no time on its path")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -171,7 +171,8 @@ def train_model(arch, dataloader: Iterable[Dict[str, Any]], *,
         path = latest_checkpoint(resume_dir)
         if path is not None:
             start_epoch = load_checkpoint(path, state) + 1
-            log(f"resumed from {path} at step {state.step}")
+            # the JAX package's line: the epoch named is the one saved
+            log(f"resumed from {path} at epoch {start_epoch - 1} (step {state.step})")
     global_step = state.step
     try:
         for epoch in range(start_epoch, max_epochs):
@@ -198,7 +199,7 @@ def train_model(arch, dataloader: Iterable[Dict[str, Any]], *,
                     log(f"epoch {epoch} step {global_step}: "
                         + " ".join(f"{k}={v:.5f}" for k, v in sorted(scal.items()))
                         + f" step_ms={ms:.1f}")
-            log(f"epoch {epoch} done in {time.perf_counter() - t0:.1f}s")
+            log(f"epoch {epoch} done in {time.perf_counter() - t0:.3f}s")
             arch.eval()
             if checkpoint_fn is not None:
                 checkpoint_fn(state, epoch)

@@ -14,7 +14,10 @@
   optimizer's moments, the update count, the step's ``torch.Generator``,
   the global torch and numpy generators and the timestep sampler's history)
   with ``torch.save``, one file per epoch, so that a resumed run goes on as
-  the uninterrupted one would.
+  the uninterrupted one would.  A file is written under a temporary name
+  and renamed into place, so a run killed while it writes leaves no
+  partial ``epoch_N.pth``; ``max_to_keep`` prunes the oldest (the JAX
+  package's orbax manager does both).
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from __future__ import annotations
 import glob
 import os
 import re
+import tempfile
+import zipfile
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -117,10 +122,13 @@ def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None
 
 
 # ------------------------------------------------------------ training state
-def save_checkpoint(ckpt_dir: str, state, epoch: int) -> str:
+def save_checkpoint(ckpt_dir: str, state, epoch: int,
+                    max_to_keep: Optional[int] = None) -> str:
     """Write ``state`` (a ``parallel.TrainState`` that ``train_model`` gave
     its ``generator`` and ``sampler``) after ``epoch`` to
-    ``ckpt_dir/epoch_{epoch}.pth``; returns the path."""
+    ``ckpt_dir/epoch_{epoch}.pth``: into a temporary file of ``ckpt_dir``
+    first, renamed into place once whole.  With ``max_to_keep``, only that
+    many of the newest epochs' files stay.  Returns the path."""
     sampler = getattr(state, "sampler", None)
     generator = getattr(state, "generator", None)
     payload = {
@@ -137,18 +145,40 @@ def save_checkpoint(ckpt_dir: str, state, epoch: int) -> str:
     }
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"epoch_{epoch}.pth")
-    torch.save(payload, path)
+    fd, tmp = tempfile.mkstemp(prefix=f".epoch_{epoch}.", suffix=".tmp", dir=ckpt_dir)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    if max_to_keep:
+        for _, old in _epoch_files(ckpt_dir)[:-max_to_keep]:
+            os.remove(old)
     return path
 
 
-def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
-    """The ``epoch_{N}.pth`` of ``ckpt_dir`` with the largest N, or None."""
+def _epoch_files(ckpt_dir: str):
+    """(epoch, path) of every ``epoch_{N}.pth`` of ``ckpt_dir``, oldest first."""
     found = []
     for p in glob.glob(os.path.join(ckpt_dir, "epoch_*.pth")):
         m = re.fullmatch(r"epoch_(\d+)\.pth", os.path.basename(p))
         if m:
             found.append((int(m.group(1)), p))
-    return max(found)[1] if found else None
+    return sorted(found)
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The whole ``epoch_{N}.pth`` of ``ckpt_dir`` with the largest N, or
+    None.  A file that is not a whole ``torch.save`` archive (cut short by
+    a killed write outside ``save_checkpoint``) is passed over."""
+    for _, p in reversed(_epoch_files(ckpt_dir)):
+        if zipfile.is_zipfile(p):
+            return p
+    return None
 
 
 def load_checkpoint(path: str, state) -> int:

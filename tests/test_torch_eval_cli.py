@@ -13,6 +13,7 @@ synthetic Motion-X tree (tools/make_tiny_data.py's layout):
 """
 
 import copy
+import dataclasses
 import importlib.util
 import json
 import os
@@ -148,11 +149,23 @@ def test_ddim_mode_bf16(workdir, monkeypatch):
                                   ["--step-cache-table", "t.json"],
                                   ["--dispatch-batches", "2"], ["--no_repaint"]])
 def test_options_not_ported_are_refused(argv):
-    """Grouped dispatch and the RePaint knobs are refused; int8 and the step
-    cache are ported now and parse (tests/test_torch_quant.py runs them)."""
-    if argv[0] in ("--dispatch-batches", "--no_repaint"):
+    """Grouped dispatch is refused; int8 and the step cache are ported now and
+    parse (tests/test_torch_quant.py runs them), and the RePaint knobs give
+    the RepaintConfig that tools/test.py builds from them."""
+    if argv[0] == "--dispatch-batches":
         with pytest.raises(SystemExit, match="ROADMAP queue 1: "):
             torch_test.parse_args([CONFIG, "out"] + argv)
+        return
+    if argv[0] == "--no_repaint":
+        from motioncraft_tpu.diffusion.sampling import RepaintConfig as JaxRepaintConfig
+        from motioncraft_tpu_torch.diffusion.sampling import RepaintConfig
+
+        args = torch_test.parse_args([CONFIG, "out"] + argv)
+        got = torch_test.repaint_cfg(args)
+        assert got == RepaintConfig(no_repaint=True)
+        assert dataclasses.asdict(got) == dataclasses.asdict(JaxRepaintConfig(
+            overlap_len=4, add_blend=True, same_overlap_noisy=False, no_repaint=True,
+            no_resample=False, jump_length=3, jump_n_sample=2))
         return
     args = torch_test.parse_args([CONFIG, "out"] + argv)
     assert (args.int8, args.bf16, args.step_cache, args.step_cache_table) == {

@@ -18,7 +18,13 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "tools" / "torch_serve.py",
                                         ROOT / "tools" / "torch_calibrate_step_cache.py",
                                         ROOT / "tools" / "torch_lowprec.py",
-                                        ROOT / "tools" / "profile_torch_m2d.py"]
+                                        ROOT / "tools" / "profile_torch_m2d.py",
+                                        ROOT / "tools" / "torch_train.py",
+                                        ROOT / "tools" / "torch_train_protocol_evaluator.py",
+                                        ROOT / "tools" / "torch_make_calib_ckpt.py",
+                                        ROOT / "tools" / "torch_measure_approx_drift.py",
+                                        ROOT / "tools" / "torch_soak_report.py",
+                                        ROOT / "tools" / "torch_quality_run.py"]
 FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|motioncraft_tpu)(\.|\s|$)",
                        re.MULTILINE)
 
@@ -54,6 +60,19 @@ spec = importlib.util.spec_from_file_location("torch_calibrate_step_cache",
 calibrate = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(calibrate)
 calibrate.parse_args(["configs/tests/tiny_t2m.py", "out.npz", "--device", "cpu"])
+for name, argv in (("torch_train", ["configs/tests/tiny_t2m.py", "--device", "cpu"]),
+                   ("torch_train_protocol_evaluator", ["--device", "cpu"]),
+                   ("torch_make_calib_ckpt", ["configs/tests/tiny_t2m.py", "out.npz"]),
+                   ("torch_measure_approx_drift", ["--modes", "int8"]),
+                   ("torch_quality_run", [])):
+    spec = importlib.util.spec_from_file_location(name, f"tools/{name}.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    tool.parse_args(argv)
+spec = importlib.util.spec_from_file_location("torch_soak_report", "tools/torch_soak_report.py")
+soak_report = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(soak_report)
+soak_report.parse_log("", 32)
 for name in ("data", "data.datasets", "eval", "utils.checkpoint", "utils.torch_convert",
              "apis.eval_hook", "models.controlnet", "apis.windowed", "data.beat2",
              "data.native", "eval.gesture_metrics", "ops.fk", "ops.rotation",

@@ -61,8 +61,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def run(args, logger=print) -> dict:
-    """Probe and write the table; returns {"errors", "flags", "artifact"}."""
+def run(args, logger=print, command=None) -> dict:
+    """Probe and write the table (``command``: the command line, for the
+    record); returns {"errors", "flags", "artifact"}."""
     import torch
 
     from motioncraft_tpu_torch.apis import bf16_cast_
@@ -139,6 +140,7 @@ def run(args, logger=print) -> dict:
         "perturb": args.perturb,
         "checkpoint": args.checkpoint or args.torch_checkpoint,
         "note": args.note,
+        "command": command,
         "steps": int(errors.shape[0]),
         "layers": int(errors.shape[1]),
         "reuse_fraction": float(flags.mean()),
@@ -156,7 +158,8 @@ def run(args, logger=print) -> dict:
 
 
 def main(argv=None):
-    return run(parse_args(argv))
+    command = None if argv is not None else " ".join(["python"] + sys.argv)
+    return run(parse_args(argv), command=command)
 
 
 if __name__ == "__main__":

@@ -19,9 +19,10 @@ Usage:
 (ops/quant.py), ``--step-cache N`` reuses each layer's residual on all but
 every N-th DDIM step and ``--step-cache-table PATH`` on a calibrated table
 (e.g. artifacts/step_cache_flagship.json): approximate modes, stamped into
-metrics.json.  Not ported yet, and refused rather than ignored:
---dispatch-batches > 1 and the RePaint knobs (each names its ROADMAP queue 1
-item).
+metrics.json.  The RePaint knobs set ``arch.repaint_cfg`` as tools/test.py
+does (a T2M sample does not outpaint, so they leave it unchanged).  Not
+ported yet, and refused rather than ignored: --dispatch-batches > 1 (it names
+its ROADMAP queue 1 item).
 
   python tools/torch_test.py CONFIG out --checkpoint params.npz --bf16 --int8
   python tools/torch_test.py CONFIG out --step-cache-table \
@@ -40,11 +41,6 @@ import numpy as np  # noqa: E402
 
 from tools.torch_lowprec import (add_lowprec_args, apply_lowprec_,  # noqa: E402
                                  lowprec_from_args, step_cache_from_args)
-
-
-REPAINT_DEFAULTS = dict(no_repaint=False, no_resample=False, addBlend=True,
-                        same_overlap_noisy=False, overlap_len=4, jump_n_sample=2,
-                        jump_length=3)
 
 
 def parse_args(argv=None):
@@ -72,8 +68,9 @@ def parse_args(argv=None):
                    help="bf16 denoiser compute (weights cast, compute_dtype bf16; the "
                         "metric math stays f32)")
     add_lowprec_args(p, table=True)
-    # tools/test.py's options that the port does not run yet
+    # tools/test.py's option that the port does not run yet
     p.add_argument("--dispatch-batches", type=int, default=1, metavar="K")
+    # the RePaint knobs (repaint_cfg)
     p.add_argument("--no_repaint", action="store_true")
     p.add_argument("--no_resample", action="store_true")
     p.add_argument("--addBlend", action="store_true", default=True)
@@ -85,10 +82,18 @@ def parse_args(argv=None):
     if args.dispatch_batches != 1:
         raise SystemExit("--dispatch-batches > 1: grouped dispatch is not ported "
                          "(ROADMAP queue 1: multi-GPU, serving and the host-side tools)")
-    if any(getattr(args, k) != v for k, v in REPAINT_DEFAULTS.items()):
-        raise SystemExit("RePaint options: windowed outpainting is not ported "
-                         "(ROADMAP queue 1: S2G/M2D and ControlNet)")
     return args
+
+
+def repaint_cfg(args):
+    """The ``RepaintConfig`` of the parsed RePaint knobs, as tools/test.py
+    builds it."""
+    from motioncraft_tpu_torch.diffusion.sampling import RepaintConfig
+
+    return RepaintConfig(overlap_len=args.overlap_len, add_blend=args.addBlend,
+                         same_overlap_noisy=args.same_overlap_noisy,
+                         no_repaint=args.no_repaint, no_resample=args.no_resample,
+                         jump_length=args.jump_length, jump_n_sample=args.jump_n_sample)
 
 
 def run(args, logger=print) -> dict:
@@ -115,6 +120,7 @@ def run(args, logger=print) -> dict:
     torch.manual_seed(args.seed)
 
     arch = build_architecture(cfg.model, device=args.device)
+    arch.repaint_cfg = repaint_cfg(args)
     test_cfg = Config.fromdict(cfg.data["test"])
     ev_cfg = test_cfg.get("eval_cfg", {}).get("evaluator_model")
     if isinstance(ev_cfg, dict):
