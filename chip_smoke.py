@@ -24,7 +24,14 @@ Phases; any failure exits non-zero:
      196, with layer 0's half of each) and at phase 14's drift batch (64 x
      196, with its layer 0's half), K4's positions, K5 and K6 at phase 14's
      training batches (16: --grad-accum 2 of 32; 8: the calibration
-     checkpoint's): max abs error against its
+     checkpoint's), and K5 at phase 15's inference shapes (B = 16:
+     MotionDiffuse's self-attention over 196 frames masked past varied
+     lengths and its cross-attention over 77 text keys, 8 heads of 64; MCM's
+     channel self-attention, 512 tokens over 4 heads of 49, which the
+     wrapper pads to 64, and its cross-attention, 4 heads of 128; the pad's
+     bytes and device time stand beside that case as pad_bytes and pad_ms,
+     and its bound is the function's own bytes at d = 49): max abs
+     error against its
      tolerance (1e-2 x max |plain| for bf16; K4 exact in its
      integers, its route's gates within 1e-6; on every path a route case
      leaning to one expert must drop choices); the kernel's device time from
@@ -151,7 +158,25 @@ Phases; any failure exits non-zero:
      clips): finite metrics and deltas, a sample error above 0 in every
      approximate mode, K1-K4 launched as the flags imply, and a second run
      that reuses every mode; wall seconds of each step
- 15. one JSON line of the kernels' numbers, and last the device line
+ 15. the baselines on the card, with seeded fabricated weights:
+     configs/motiondiffuse/motiondiffuse_t2m_smplx.py,
+     configs/mcm/mcm_t2m_smplx.py and configs/mdm/mdm_t2m_smplx.py at full
+     width; K5 under torch.no_grad keeps no autograd graph; for each, one
+     batch of 16 requests (T = 196, lengths 40-196) through
+     single_device_test with its DDPM over all 1000 steps: finite
+     [16, 196, 322] outputs, K5's launches 1000 x 8 layers x 2 for
+     MotionDiffuse and MCM and 0 for MDM (nothing else launched), the
+     batch's wall ms; one denoiser call profiled (device kernels launched,
+     device ms, idle share); one forward_test card vs CPU at B = 2; the
+     weights saved with save_params and loaded back by --checkpoint's
+     loader, whose forward equals the in-memory one bit for bit; then
+     configs/mcm/mcm_t2m.py's DDIM-50 on one batch of 16 with the same
+     launch check; then tools/torch_test.py on MotionDiffuse over a
+     synthetic Motion-X tree of 64 clips at batch 16 (one replication, a
+     full-width SMPL-X evaluator, Diversity on 32): finite metrics, K5's
+     launches what 4 batches x 1000 steps x 16 imply, wall seconds of
+     sampling and of evaluation
+ 16. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -247,6 +272,16 @@ HARNESS_BATCH, HARNESS_GRAD_ACCUM, HARNESS_CALIB_BATCH = 32, 2, 8
 BF16_KERNELS = ("grouped_ffn", "head_ffn", "stma_linear_attention")
 # training's kernels: K4's positions, K5, K6
 TRAINING_KERNELS = ("moe_positions", "fused_linear_attention", "fused_expert_ffn")
+# phase 15: the baselines at full width on seeded fabricated weights, each
+# sampling one batch of BATCH requests with its config's DDPM (1000 steps);
+# mcm_t2m.py's DDIM-50; the protocol run's clips (one replication at
+# BATCH, Diversity on half of them) on MotionDiffuse
+MD_CONFIG = os.path.join(ROOT, "configs", "motiondiffuse", "motiondiffuse_t2m_smplx.py")
+MCM_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_t2m_smplx.py")
+MDM_CONFIG = os.path.join(ROOT, "configs", "mdm", "mdm_t2m_smplx.py")
+MCM_DDIM_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_t2m.py")
+BASELINE_CONFIGS = (MD_CONFIG, MCM_CONFIG, MDM_CONFIG)
+BASELINE_CLIPS, BASELINE_FRAMES = 64, 196
 
 PALLAS = {
     "moe_route": "motioncraft_tpu/ops/pallas_moe.py:54",
@@ -424,13 +459,42 @@ def flagship_inputs(torch, cfg, dev, B2=2 * BATCH, T=None, training=True, layer0
     }
 
 
-def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None):
+def baseline_attention_inputs(torch, model_cfg, dev, B=BATCH):
+    """K5's cases in one of phase 15's baselines (MotionDiffuse, MCM), at
+    the shapes its sampling gives them, B requests of T = max_seq_len
+    frames: the self-attention's (MotionDiffuse: T motion keys masked past
+    varied lengths; MCM: over the latent channels as tokens, T frames split
+    over the heads, no mask) and the cross-attention's over 77 text keys."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    m = model_cfg["model"]
+    T, D = m["max_seq_len"], m["latent_dim"]
+    sa, ca = m["sa_block_cfg"], m["ca_block_cfg"]
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+
+    def case(n_q, n_k, H, d, key_mask=None):
+        k, v = r(B, n_k, H, d), r(B, n_k, H, d)
+        if key_mask is not None:
+            k, v = k + (1 - key_mask) * -1e6, v * key_mask
+        return (r(B, n_q, H, d), k, v)
+
+    if m["type"] == "MCMTransformer":
+        self_case = case(D, D, sa["num_heads"], T // sa["num_heads"])
+    else:
+        lengths = torch.randint(min(40, T), T + 1, (B,), generator=g, device=dev)
+        mask = (torch.arange(T, device=dev)[None] < lengths[:, None]).float()[:, :, None, None]
+        self_case = case(T, T, sa["num_heads"], D // sa["num_heads"], mask)
+    cross_case = case(T, 77, ca["num_heads"], D // ca["num_heads"])
+    return {"fused_linear_attention": [self_case, cross_case]}
+
+
+def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=()):
     """(path, inputs) for phase 2: the T2M shapes (with training's), those
     of phase 12's buckets and of phase 14's drift and training, the M2D ones
     and the S2G ones; R recordings in lockstep are a CFG-doubled
     batch of 2R x window frames (120 for M2D, 64 for S2G: the base blocks
     past layer 0 and the control blocks), and layer 0's motion MoE routes
-    its first half."""
+    its first half; then K5's inference shapes of phase 15's baselines
+    (``baseline_cfgs``: their model configs, the ones with K5 attentions)."""
     t2m = flagship_inputs(torch, cfg, dev)
     layer0 = flagship_inputs(torch, cfg, dev, training=False, layer0=True)
     paths = [("t2m", t2m), ("t2m layer 0", layer0),
@@ -467,6 +531,9 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None):
                                                        training=False)),
                       (f"{tag} R={R} layer 0", flagship_inputs(
                           torch, base, dev, B2=2 * R, T=win, training=False, layer0=True))]
+    for model_cfg in baseline_cfgs:
+        paths.append((f"{model_cfg['model']['type']} B={BATCH}",
+                      baseline_attention_inputs(torch, model_cfg, dev)))
     return paths
 
 
@@ -538,9 +605,9 @@ def kernel_work(name, args):
     return flops, nbytes
 
 
-def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None):
+def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=()):
     """Phase 2: every kernel against its plain version, with times, at the
-    T2M shapes and at the M2D and S2G ones."""
+    T2M shapes, at the M2D and S2G ones and at the baselines'."""
     from motioncraft_tpu_torch.ops import KERNELS
     from motioncraft_tpu_torch.ops.stma_attention import max_active_clusters
 
@@ -548,11 +615,29 @@ def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None):
           f"CTAs resident at once (cudaOccupancyMaxActiveClusters)")
 
     rows = {}
-    for path, inputs in kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg):
+    for path, inputs in kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg, baseline_cfgs):
         for name, cases in inputs.items():
             for i, args in enumerate(cases):
                 kernel_case(torch, rows, path, name, i, args, KERNELS[name])
     return rows
+
+
+def pad_bytes(name, args):
+    """The bytes that K5's wrapper moves beyond the function's own at a head
+    width the kernel is not instantiated for: the operands written at the
+    padded width w and read back, and the output's w - d extra columns
+    written.  0 for every other case.  They are the wrapper's cost, not the
+    function's work, so the bound leaves them out; the measured times
+    include them."""
+    if name != "fused_linear_attention":
+        return 0
+    from motioncraft_tpu_torch.ops.linear_attention import padded_width
+
+    q, k, v = args
+    d = q.shape[-1]
+    w = padded_width(d)
+    padded = (q.numel() + k.numel() + v.numel()) * w // d
+    return 0 if w == d else 4 * (2 * padded + q.numel() * (w - d) // d)
 
 
 def kernel_case(torch, rows, path, name, i, args, fns):
@@ -605,6 +690,16 @@ def kernel_case(torch, rows, path, name, i, args, fns):
           f"bound {bound_ms:.4f} ms ({bound_by}, share {bound_ms / ms:.3f}){f32_note}")
     case = {"path": path, "shape": shapes, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "max_abs_err": err}
+    extra = pad_bytes(name, args)
+    if extra:
+        from motioncraft_tpu_torch.ops.linear_attention import pad_heads, padded_width
+
+        width = padded_width(args[0].shape[-1])
+        case["pad_bytes"] = extra
+        case["pad_ms"] = device_ms(torch, lambda: pad_heads(*args, width))
+        print(f"[kernel] {label}: the wrapper's pad to d = {width} moves {extra} bytes "
+              f"beyond the function's; its copies take {case['pad_ms']:.4f} ms of the "
+              f"{ms:.4f} ms")
     if name in rows:  # the row's own numbers are the first (the T2M) case's
         rows[name]["cases"].append(case)
         return
@@ -615,7 +710,7 @@ def kernel_case(torch, rows, path, name, i, args, fns):
                   "bound_f32_by": f32_by, "library_ms": None, "cases": [case]}
 
 
-def requests(num, seed, T):
+def requests(num, seed, T, feats=322):
     import numpy as np
     from motioncraft_tpu_torch.apis import make_text_batch
 
@@ -625,7 +720,7 @@ def requests(num, seed, T):
     texts = [f"a person {verbs[i % len(verbs)]} then {verbs[(3 * i + 1) % len(verbs)]}"
              for i in range(num)]
     lengths = rng.randint(min(40, T), T + 1, (num, 1)).astype(np.int32)
-    batch = make_text_batch(texts, max_seq_len=T, lengths=lengths)
+    batch = make_text_batch(texts, max_seq_len=T, input_feats=feats, lengths=lengths)
     batch["motion_metas"] = [{"text": s} for s in texts]
     return batch
 
@@ -2448,6 +2543,219 @@ def phase_harness(torch, full_cfg, dev="cuda", config=HARNESS_CONFIG, clips=HARN
     return out
 
 
+def baseline_condition(torch, arch, batch):
+    """A baseline's test-forward keywords for ``batch`` on its device: the
+    masks and the text condition as its encode_text gives it (xf_proj and
+    xf_out, or MDM's pooled text)."""
+    enc = arch.encode_text(batch["text_ids"])
+    xf_proj, xf = enc if isinstance(enc, tuple) else (None, enc)
+    kw = {"motion_mask": arch._tensor(batch["motion_mask"]),
+          "motion_length": arch._tensor(batch["motion_length"]), "xf_out": xf}
+    return kw if xf_proj is None else dict(kw, xf_proj=xf_proj)
+
+
+def baseline_forward(torch, arch, batch, x, ts):
+    """One test forward of a baseline at the given inputs on its device."""
+    with torch.no_grad():
+        return arch.model(x.to(arch.device), ts.to(arch.device),
+                          **baseline_condition(torch, arch, batch))
+
+
+def profile_call(torch, fn, reps=5):
+    """(device kernels launched, device ms, wall ms) of one call: the first
+    two from torch.profiler over ``reps`` calls, the wall time between CUDA
+    events over back-to-back calls without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wall = time_ms(torch, fn, reps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
+    return len(events) / reps, busy / reps, wall
+
+
+def k5_keeps_nothing(torch, dev):
+    """K5 at inference (torch.no_grad) on operands that require a gradient
+    returns a tensor with no autograd graph, so no input is kept for a
+    backward pass; under grad mode it is differentiable."""
+    from motioncraft_tpu_torch.ops import fused_linear_attention
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ops = [torch.randn(2, 77, 4, 64, generator=g, device=dev).requires_grad_()
+           for _ in range(3)]
+    with torch.no_grad():
+        out = fused_linear_attention(*ops)
+    check(out.grad_fn is None and not out.requires_grad,
+          "K5 under no_grad kept an autograd graph")
+    out = fused_linear_attention(*ops)
+    check(out.grad_fn is not None, "K5 under grad mode is not differentiable")
+    print("[baseline] K5 under no_grad: no autograd graph, no inputs kept; under grad "
+          "mode: differentiable")
+
+
+def phase_baselines(torch, dev="cuda", configs=BASELINE_CONFIGS, ddim_config=MCM_DDIM_CONFIG,
+                    protocol_config=MD_CONFIG, clips=BASELINE_CLIPS):
+    """Phase 15: MotionDiffuse, MCM and MDM at full width with their DDPM
+    sampling, MCM's DDIM-50 config, and tools/torch_test.py's protocol run
+    on MotionDiffuse; each with checks.  Returns per run the launches, the
+    wall ms and (the three DDPM families) one denoiser call's profile."""
+    import tempfile
+
+    import numpy as np
+    from motioncraft_tpu_torch.apis import single_device_test
+    from motioncraft_tpu_torch.config import Config
+    from motioncraft_tpu_torch.eval.models import T2MContrastiveModel_SMPLX
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.checkpoint import load_eval_variables, save_params
+    from motioncraft_tpu_torch.utils.convert import fabricate_state_dict, to_jax_params
+
+    t_phase = time.perf_counter()
+    k5_keeps_nothing(torch, dev)
+    out = {}
+
+    def k5_per_call(model):
+        """K5's launches a denoiser call: one per Efficient attention."""
+        return sum(type(m).__name__.startswith("Efficient") for m in model.modules())
+
+    def sample_batch(tag, arch, feats):
+        T = BASELINE_FRAMES
+        batch = requests(BATCH, SEED + 500, T, feats)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = single_device_test(arch, [batch], seed=SEED, device=arch.device)
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        steps = arch.diffusion_test.num_timesteps
+        per_call = k5_per_call(arch.model)
+        want = dict.fromkeys(counts, 0) | {"fused_linear_attention": steps * per_call}
+        print(f"[baseline] {tag}: {arch.inference_type} over {steps} steps, {len(res)} "
+              f"requests of {T} x {feats} in {wall:.1f} ms ({wall / steps:.3f} ms a step); "
+              f"K5 launches {counts['fused_linear_attention']} ({per_call} a denoiser call)")
+        check(len(res) == BATCH, f"{tag}: {len(res)} results")
+        pred = np.stack([r["pred_motion"] for r in res])
+        check(pred.shape == (BATCH, T, feats) and np.isfinite(pred).all(),
+              f"{tag}: output {pred.shape}, finite {np.isfinite(pred).all()}")
+        check(counts == want, f"{tag}: launch counts {counts} != expected {want}")
+        return batch, {"counts": counts, "wall_ms": wall, "steps": steps,
+                       "k5_per_call": per_call}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for path in configs:
+            tag = os.path.basename(path)[:-3]
+            cfg = Config.fromfile(path).model
+            t0 = time.perf_counter()
+            arch = build_architecture(cfg, device=dev)
+            sd = fabricate_state_dict(arch.model, seed=SEED)
+            arch.model.load_state_dict(sd, strict=True)
+            print(f"[baseline] {tag}: {type(arch.model).__name__} built in "
+                  f"{time.perf_counter() - t0:.1f} s, "
+                  f"{sum(p.numel() for p in arch.parameters()) / 1e6:.1f} M parameters")
+            feats = cfg["model"]["input_feats"]
+            batch, out[tag] = sample_batch(tag, arch, feats)
+
+            # one denoiser call at the batch's shape: launches, device time, idle
+            T = batch["motion"].shape[1]
+            g = torch.Generator(device=dev).manual_seed(SEED + 11)
+            x = torch.randn((BATCH, T, feats), generator=g, device=dev)
+            ts = torch.full((BATCH,), 499, dtype=torch.long, device=dev)
+            kw = baseline_condition(torch, arch, batch)
+
+            def call():
+                with torch.no_grad():
+                    arch.model(x, ts, **kw)
+
+            launches, busy, wall = profile_call(torch, call)
+            out[tag].update(call_launches=launches, call_device_ms=busy, call_wall_ms=wall)
+            print(f"[baseline] {tag}: one denoiser call B={BATCH}: {launches:.0f} device "
+                  f"kernels, {busy:.3f} ms on the device, {wall:.3f} ms a back-to-back call "
+                  f"(idle share {1 - busy / wall:.3f})")
+
+            # card vs CPU, B = 2
+            cpu = build_architecture(cfg, device="cpu")
+            cpu.model.load_state_dict(sd, strict=True)
+            small = requests(2, SEED + 100, T, feats)
+            x2, ts2 = x[:2].cpu(), torch.tensor([999, 321])
+            got = baseline_forward(torch, arch, small, x2, ts2).cpu()
+            want = baseline_forward(torch, cpu, small, x2, ts2)
+            scale = max(1.0, float(want.abs().max()))
+            diff = float((got - want).abs().max())
+            print(f"[baseline] {tag}: forward_test B=2 card vs CPU max abs diff {diff:.3e} "
+                  f"(tol {MODEL_REL_TOL} x {scale:.4g})")
+            check(diff <= MODEL_REL_TOL * scale, f"{tag} forward card vs CPU: {diff}")
+            del cpu
+
+            # saved and loaded back through --checkpoint's loader
+            params = os.path.join(tmp, tag + ".npz")
+            save_params(params, arch.model)
+            loaded = build_architecture(cfg, device=dev)
+            load_eval_variables(cfg, loaded.model, checkpoint=params)
+            a, b = (baseline_forward(torch, m, batch, x, ts) for m in (loaded, arch))
+            print(f"[baseline] {tag}: loaded vs in-memory forward B={BATCH}: bit for bit "
+                  f"{torch.equal(a, b)}")
+            check(torch.equal(a, b), f"{tag}: the loaded weights do not give the in-memory "
+                                     "output")
+            del loaded, arch, a, b
+
+        # MCM's DDIM-50 config (HumanML3D 263-d)
+        cfg = Config.fromfile(ddim_config).model
+        arch = build_architecture(cfg, device=dev)
+        arch.model.load_state_dict(fabricate_state_dict(arch.model, seed=SEED), strict=True)
+        _, out["mcm_t2m ddim50"] = sample_batch("mcm_t2m", arch, cfg["model"]["input_feats"])
+        del arch
+
+        # the protocol run: tools/torch_test.py on MotionDiffuse
+        torch_test = load_tool("torch_test")
+        md_cfg = Config.fromfile(protocol_config)
+        T = md_cfg["model"]["model"]["max_seq_len"]
+        tree = os.path.join(tmp, "data")
+        write_motionx_tree(tree, clips, T, SEED)
+        ev_cfg = {k: v for k, v in
+                  md_cfg["data"]["test"]["eval_cfg"]["evaluator_model"].items()
+                  if k not in ("type", "init_cfg")}
+        ev = T2MContrastiveModel_SMPLX(**ev_cfg, seed=SEED, device="cpu")
+        evaluator = os.path.join(tmp, "evaluator.npz")
+        save_params(evaluator, {"motion": {"params": to_jax_params(ev.motion_module.state_dict())},
+                                "text": {"params": to_jax_params(ev.text_module.state_dict())}})
+        metrics = [dict(type="R Precision", batch_size=32, top_k=3),
+                   dict(type="Matching Score", batch_size=32), dict(type="FID", emb_scale=1.0),
+                   dict(type="Diversity", num_samples=clips // 2)]
+        opts = [f"data.test.data_prefix={tree}", "data.test.ann_file=ann.txt",
+                "data.test.motion_dir=motions", "data.test.text_dir=texts",
+                "data.test.eval_cfg.replication_times=1",
+                f"data.test.eval_cfg.metrics={metrics!r}",
+                "data.test.eval_cfg.evaluator_model.init_cfg="
+                + repr(dict(type="Pretrained", checkpoint=evaluator))]
+        argv = [protocol_config, os.path.join(tmp, "md"), "--device", dev,
+                "--batch-size", str(BATCH), "--checkpoint",
+                os.path.join(tmp, os.path.basename(protocol_config)[:-3] + ".npz"),
+                "--seed", str(SEED), "--cfg-options", *opts]
+        reset_launch_counts()
+        run = torch_test.main(argv)
+        counts = launch_counts()
+        n = len(run["results"])
+        metric = {k: v for k, v in run["out"].items() if k not in ("flags", "protocol")}
+        loaded = run["arch"]
+        steps, per_call = loaded.diffusion_test.num_timesteps, k5_per_call(loaded.model)
+        want = dict.fromkeys(counts, 0) | {
+            "fused_linear_attention": -(-clips // BATCH) * steps * per_call}
+        print(f"[baseline] protocol run: metrics {json.dumps(metric)}")
+        print(f"[baseline] protocol run: {n} samples: sampling {run['sample_s']:.3f} s "
+              f"({n / run['sample_s']:.3f} samples/s), evaluation {run['eval_s']:.3f} s; "
+              f"launches {counts}")
+        check(n == clips and len(metric) == 12, f"{n} results, metrics {sorted(metric)}")
+        check(all(np.isfinite(v) for v in metric.values()), f"non-finite metrics {metric}")
+        check(counts == want, f"protocol launch counts {counts} != expected {want}")
+        out["protocol"] = {"counts": counts, "sample_s": run["sample_s"],
+                           "eval_s": run["eval_s"]}
+        del run, loaded
+    print(f"[baseline] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -2465,7 +2773,8 @@ def main():
     except ImportError as e:
         print(f"chip_smoke: the port is not next to this script ({e})", file=sys.stderr)
         return 2
-    for path in (CONFIG, M2D_CONFIG, S2G_CONFIG, HARNESS_CONFIG):
+    for path in (CONFIG, M2D_CONFIG, S2G_CONFIG, HARNESS_CONFIG, *BASELINE_CONFIGS,
+                 MCM_DDIM_CONFIG):
         if not os.path.isfile(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 2
@@ -2484,7 +2793,8 @@ def main():
     s2g_cfg = Config.fromfile(S2G_CONFIG)
     cfg = full_cfg["model"]
     dev = torch.device("cuda")
-    rows = phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg)
+    k5_cfgs = [Config.fromfile(p)["model"] for p in (MD_CONFIG, MCM_CONFIG)]
+    rows = phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg, k5_cfgs)
 
     t0 = time.perf_counter()
     arch = build_architecture(cfg, device="cuda")
@@ -2507,6 +2817,7 @@ def main():
     low = phase_lowprec(torch, full_cfg, m2d_cfg, arch, sd)
     del arch
     harness = phase_harness(torch, Config.fromfile(HARNESS_CONFIG))
+    baselines = phase_baselines(torch)
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
@@ -2533,6 +2844,9 @@ def main():
         row["harness_train_launches"] = harness["train"][name]
         row["harness_calib_launches"] = harness["calib"][name]
         row["harness_drift_launches"] = [c[name] for c in harness["drift"].values()]
+        # phase 15: each baseline's DDPM batch, MCM's DDIM-50 batch and the
+        # protocol run on MotionDiffuse
+        row["baseline_launches"] = {k: v["counts"][name] for k, v in baselines.items()}
         check(row["launches"] > 0, f"{name} was launched no time on its path")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,8 @@
 """Gaussian diffusion schedule tables and the posterior algebra, in PyTorch.
 
-Port of motioncraft_tpu/diffusion/gaussian.py restricted to what DDIM
-sampling (with RePaint's re-noising ``undo`` and the outpainting x0
-overwrite) and training need.  The tables are derived in float64 on the host (numpy), then cast once
+Port of motioncraft_tpu/diffusion/gaussian.py restricted to what DDIM and
+ancestral DDPM sampling (with RePaint's re-noising ``undo`` and the
+outpainting x0 overwrite) and training need.  The tables are derived in float64 on the host (numpy), then cast once
 to float32 tensors on the target device, as the JAX package does.  Timestep
 respacing (SpacedDiffusion) is folded into the tables: ``timestep_map``
 carries respaced -> original indices, and the denoiser always sees
@@ -20,7 +20,7 @@ import torch
 from .schedules import get_named_beta_schedule, space_timesteps
 
 MEAN_TYPES = ("previous_x", "start_x", "epsilon")
-# learned variances serve DDPM sampling and the VLB terms, which are not ported
+# learned variances and the VLB terms are not ported (ROADMAP queue 1)
 VAR_TYPES = ("fixed_small", "fixed_large")
 
 
@@ -189,11 +189,15 @@ def predict_eps_from_xstart(d: GaussianDiffusion, x_t, t, pred_xstart):
 
 def p_mean_variance(d: GaussianDiffusion, model_output: torch.Tensor,
                     x: torch.Tensor, t: torch.Tensor,
+                    clip_denoised: bool = False,
+                    denoised_fn: Optional[Callable] = None,
                     outpainting_mask: Optional[torch.Tensor] = None,
                     outpainting_gt: Optional[torch.Tensor] = None
                     ) -> Dict[str, torch.Tensor]:
     """p(x_{t-1} | x_t) statistics and pred_xstart from a model output that
     was computed outside (the CFG-doubled denoiser batch lives in the model).
+    The predicted x0 goes through ``denoised_fn`` and, with
+    ``clip_denoised``, is clipped to [-1, 1] before the posterior mean.
     With an outpainting mask, the kept frames' x0 is the ground truth
     (RePaint in DDIM; start_x prediction only, as the reference asserts)."""
     if outpainting_mask is not None and d.model_mean_type == "start_x":
@@ -207,14 +211,19 @@ def p_mean_variance(d: GaussianDiffusion, model_output: torch.Tensor,
     model_variance = _extract(variance, t, x.ndim) * torch.ones_like(x)
     model_log_variance = _extract(log_variance, t, x.ndim) * torch.ones_like(x)
 
+    def process_xstart(v):
+        if denoised_fn is not None:
+            v = denoised_fn(v)
+        return v.clamp(-1.0, 1.0) if clip_denoised else v
+
     if d.model_mean_type == "previous_x":
-        pred_xstart = predict_xstart_from_xprev(d, x, t, model_output)
+        pred_xstart = process_xstart(predict_xstart_from_xprev(d, x, t, model_output))
         model_mean = model_output
     else:
         if d.model_mean_type == "start_x":
-            pred_xstart = model_output
+            pred_xstart = process_xstart(model_output)
         else:
-            pred_xstart = predict_xstart_from_eps(d, x, t, model_output)
+            pred_xstart = process_xstart(predict_xstart_from_eps(d, x, t, model_output))
         model_mean, _, _ = q_posterior_mean_variance(d, pred_xstart, x, t)
     return {"mean": model_mean, "variance": model_variance,
             "log_variance": model_log_variance, "pred_xstart": pred_xstart}

@@ -1,7 +1,9 @@
-"""DDIM sampling loops, in PyTorch: plain DDIM and RePaint-harmonized DDIM.
+"""Sampling loops, in PyTorch: ancestral DDPM, plain DDIM and
+RePaint-harmonized DDIM.
 
-Port of ``ddim_step`` / ``ddim_sample_loop`` / ``ddim_sample_loop_harmonize``
-of motioncraft_tpu/diffusion/sampling.py, with the pre-sequence seeding, the
+Port of ``p_sample_step`` / ``p_sample_loop`` / ``ddim_step`` /
+``ddim_sample_loop`` / ``ddim_sample_loop_harmonize`` of
+motioncraft_tpu/diffusion/sampling.py, with the pre-sequence seeding, the
 outpainting x0 overwrite and blend, the noisy-tail bank and the step cache
 (diffusion/stepcache.py).  Each loop is a Python ``for`` over a schedule
 known on the host, so every per-step decision (the timestep, whether a step
@@ -21,8 +23,10 @@ layer and fills a device tensor [steps, layers] of each layer's relative L1
 residual change, which the caller copies to the host once.
 
 Randomness: every standard-normal draw goes through ``randn(shape)``, in a
-fixed order (per DDIM step: the pre-sequence's q_sample noise, the eta noise,
-the outpainting noise; per re-noising step: its noise).  The architecture
+fixed order (per DDPM step: the pre-sequence's q_sample noise, then the
+step's noise, drawn at t = 0 too, where it is multiplied by 0, as the JAX
+package draws it; per DDIM step: the pre-sequence's q_sample noise, the eta
+noise, the outpainting noise; per re-noising step: its noise).  The architecture
 draws from a ``torch.Generator`` (``generator_randn``); ``Replay`` hands
 in given draws (the JAX package's in the tests, the same ones to the card
 and the CPU).  With ``eta=0`` the eta noise is not drawn (it is
@@ -117,6 +121,39 @@ def _seed_pre_seq(d: GaussianDiffusion, x, t, pre_seq, randn: Randn):
         return x
     x_t = G.q_sample(d, pre_seq, t, randn(pre_seq.shape))
     return torch.cat([x_t, x[:, pre_seq.shape[1]:]], dim=1)
+
+
+def p_sample_step(d: GaussianDiffusion, model_fn: ModelFn, x: torch.Tensor, t: int, *,
+                  randn: Optional[Randn] = None, clip_denoised: bool = False,
+                  denoised_fn=None, pre_seq=None):
+    """One ancestral DDPM update at step ``t`` (a host int): the posterior
+    mean plus exp(log_variance / 2) times the step's noise, which is drawn
+    at every step and added where t > 0.  Returns (sample, pred_xstart)."""
+    randn = randn or generator_randn(None, x.device)
+    tt = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
+    x = _seed_pre_seq(d, x, tt, pre_seq, randn)
+    model_output = model_fn(x, G.model_timesteps(d, tt))
+    out = G.p_mean_variance(d, model_output, x, tt, clip_denoised=clip_denoised,
+                            denoised_fn=denoised_fn)
+    noise = randn(x.shape)
+    sample = out["mean"]
+    if t != 0:
+        sample = sample + torch.exp(0.5 * out["log_variance"]) * noise
+    return sample, out["pred_xstart"]
+
+
+def p_sample_loop(d: GaussianDiffusion, model_fn: ModelFn, noise: torch.Tensor, *,
+                  randn: Optional[Randn] = None, clip_denoised: bool = False,
+                  denoised_fn=None, pre_seq=None) -> SampleResult:
+    """The whole DDPM chain from ``noise`` at the last step down to 0: one
+    denoiser call a step."""
+    randn = randn or generator_randn(None, noise.device)
+    x, pred_x0 = noise, noise
+    for t in range(d.num_timesteps - 1, -1, -1):
+        x, pred_x0 = p_sample_step(d, model_fn, x, t, randn=randn,
+                                   clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                                   pre_seq=pre_seq)
+    return SampleResult(sample=x, pred_xstart=pred_x0)
 
 
 def ddim_step(d: GaussianDiffusion, model_fn: ModelFn, x: torch.Tensor, t: int, *,

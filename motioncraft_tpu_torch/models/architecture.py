@@ -5,7 +5,11 @@
 the sampling loop, and so do every layer's text MoE
 (``precompute_text_feats``) and a ControlNet's condition encoder
 (``encode_condition``, unless the batch brings ``c_enc``); the loop calls the
-denoiser's CFG-doubled test forward once per DDIM step.  With an
+denoiser's test forward (STMoGen's CFG-doubled one) once per step of the
+DDIM loop or, under ``inference_type='ddpm'``, of the ancestral DDPM chain
+(the baselines' configs).  The text condition is whatever the denoiser's
+``encode_text`` gives: xf_out, (xf_proj, xf_out) with ``use_text_proj``,
+or MDM's pooled text; the model's own ``post_process`` runs last.  With an
 ``outpainting`` mask it is RePaint's harmonized DDIM (``repaint=``), with a
 ``pre_seq`` the leading frames are seeded from it.  ``compute_dtype=
 torch.bfloat16`` runs the denoiser in bf16 on a bf16-cast model
@@ -29,7 +33,7 @@ from torch import nn
 
 from ..diffusion import (Outpainting, RepaintConfig, build_diffusion,
                          create_named_schedule_sampler, ddim_sample_loop, generator_randn,
-                         training_losses)
+                         p_sample_loop, training_losses)
 from ..diffusion.sampling import Randn
 from ..diffusion.stepcache import StepCacheConfig
 from ..registry import ARCHITECTURES, build_loss, build_submodule
@@ -74,7 +78,7 @@ class MotionDiffusion(nn.Module):
                  hand_no_loss: bool = False,
                  repaint: Optional[dict] = None):
         super().__init__()
-        if inference_type not in ("ddim", "gt"):
+        if inference_type not in ("ddpm", "ddim", "gt"):
             raise NotImplementedError(f"inference_type {inference_type!r}")
         exact_f32()
         self.device = resolve_device(device)
@@ -106,7 +110,10 @@ class MotionDiffusion(nn.Module):
         return t.to(device=self.device, dtype=dtype)
 
     @torch.no_grad()
-    def encode_text(self, text_ids) -> torch.Tensor:
+    def encode_text(self, text_ids):
+        """The denoiser's text condition: xf_out [B, 77, C], (xf_proj,
+        xf_out) for a model with ``use_text_proj``, or MDM's pooled text
+        [B, clip_dim]."""
         return self.model.encode_text(self._tensor(text_ids, torch.long))
 
     def loss(self, batch: Dict[str, Any], *, generator: Optional[torch.Generator] = None,
@@ -198,34 +205,38 @@ class MotionDiffusion(nn.Module):
             return motion
         if step_cache is not None:
             self._check_step_cache(step_cache, inference_type, outpainting)
-        if inference_type != "ddim":
-            raise NotImplementedError(f"inference_type {inference_type!r}")
+        if inference_type == "ddpm" and outpainting is not None:
+            raise ValueError("outpainting runs the DDIM loops: inference_type='ddim'")
         dtype = compute_dtype or torch.float32
-        # the stack's dtype: its joint embedding's (bf16_cast_ keeps the
-        # modules that flax promotes in f32)
-        base = getattr(self.model, "base_model", self.model)
-        wdtype = next(base.joint_embed.parameters()).dtype
+        # the stack's dtype (bf16_cast_ keeps the modules that flax promotes
+        # in f32)
+        wdtype = getattr(self.model, "base_model", self.model).stack_dtype()
         if wdtype != dtype:
             raise ValueError(f"sample(compute_dtype={dtype}) on a model in {wdtype}: "
                              "cast the model first (apis.bf16_cast_ for bf16)")
         motion_mask = self._tensor(batch["motion_mask"], torch.float32)
         motion_length = self._tensor(batch["motion_length"])
-        xf_out = self.encode_text(batch["text_ids"]).to(dtype)
-        text_feats = self.model.precompute_text_feats(xf_out)
-        cond = {}
+        enc = self.encode_text(batch["text_ids"])
+        xf_proj, xf_out = enc if isinstance(enc, tuple) else (None, enc)
+        kw = {"motion_mask": motion_mask, "motion_length": motion_length,
+              "xf_out": xf_out.to(dtype)}
+        if xf_proj is not None:
+            kw["xf_proj"] = xf_proj.to(dtype)
+        if hasattr(self.model, "precompute_text_feats"):
+            kw["text_feats"] = self.model.precompute_text_feats(kw["xf_out"])
         if hasattr(self.model, "encode_condition"):
             if batch.get("c_enc") is not None:
-                cond["c_enc"] = self._tensor(batch["c_enc"], dtype)
+                kw["c_enc"] = self._tensor(batch["c_enc"], dtype)
             elif batch.get("c") is not None:
-                cond["c_enc"] = self.model.encode_condition(
+                kw["c_enc"] = self.model.encode_condition(
                     self._tensor(batch["c"], torch.float32), T).to(dtype)
 
         def model_fn(x, t_model, cache=None, flags=None):
-            out = self.model(x.to(dtype), t_model, motion_mask=motion_mask,
-                             motion_length=motion_length, xf_out=xf_out,
-                             text_feats=text_feats, step_cache=cache, cache_flags=flags,
-                             **cond)
-            return out.float() if cache is None else (out[0].float(), out[1])
+            if cache is None:
+                return self.model(x.to(dtype), t_model, **kw).float()
+            out, new_cache = self.model(x.to(dtype), t_model, step_cache=cache,
+                                        cache_flags=flags, **kw)
+            return out.float(), new_cache
 
         randn = randn or generator_randn(generator, self.device)
         if noise is None:
@@ -234,12 +245,17 @@ class MotionDiffusion(nn.Module):
             noise = self._tensor(noise, torch.float32)
             if noise.shape != (B, T, D):
                 raise ValueError(f"noise shape {tuple(noise.shape)} != {(B, T, D)}")
-        result = ddim_sample_loop(
-            self.diffusion_test, model_fn, noise, eta=0.0, randn=randn,
-            pre_seq=None if pre_seq is None else self._tensor(pre_seq, torch.float32),
-            outpainting=outpainting, repaint=self.repaint_cfg,
-            step_cache0=None if step_cache is None else self.model.make_step_cache(B, T, dtype),
-            cache_cfg=step_cache)
+        pre_seq = None if pre_seq is None else self._tensor(pre_seq, torch.float32)
+        if inference_type == "ddpm":
+            result = p_sample_loop(self.diffusion_test, model_fn, noise, randn=randn,
+                                   pre_seq=pre_seq)
+        else:
+            result = ddim_sample_loop(
+                self.diffusion_test, model_fn, noise, eta=0.0, randn=randn, pre_seq=pre_seq,
+                outpainting=outpainting, repaint=self.repaint_cfg,
+                step_cache0=(None if step_cache is None
+                             else self.model.make_step_cache(B, T, dtype)),
+                cache_cfg=step_cache)
         out = self.post_process(result.sample)
         if result.cache_errors is not None:
             return out, result.cache_errors.cpu().numpy()  # the one copy of the errors
@@ -260,11 +276,14 @@ class MotionDiffusion(nn.Module):
             raise ValueError(f"{type(self.model).__name__} does not support step caching")
 
     def post_process(self, motion: torch.Tensor) -> torch.Tensor:
-        """De-normalize when the model config asks for unnormalized inference."""
+        """De-normalize when the model config asks for unnormalized inference;
+        then the model's own post-processing, where it has one (MDM's
+        official-checkpoint root rescale)."""
         if self.post is not None:
             mean, std = self.post
             motion = motion * std + mean
-        return motion
+        pp = getattr(self.model, "post_process", None)
+        return motion if pp is None else pp(motion)
 
     @staticmethod
     def split_results(results: Dict[str, Any]):

@@ -1,6 +1,12 @@
-"""STMA, MotionCraft's spatio-temporal MoE attention, and the linear
-self-attention of its dynamic body graph (PyTorch port of the ``STMA`` and
-``EfficientSelfAttention`` modules of motioncraft_tpu/models/attentions.py).
+"""STMA, MotionCraft's spatio-temporal MoE attention, and the baselines'
+linear attentions (PyTorch port of the ``STMA`` and ``Efficient{Self,Cross,
+Mixed}Attention`` modules of motioncraft_tpu/models/attentions.py).
+
+The Efficient attentions (MotionDiffuse, MCM): LayerNorm, query / key /
+value projections, masked keys and values, kernel K5
+(ops/linear_attention.py) over the [B, T, H, d] head views, and a stylized
+residual.  STMA's dynamic body graph runs EfficientSelfAttention's
+merged-lanes form, without K5.
 
 STMA: per-head body-part features -> MoE projections of text (2L lanes:
 key, value) and motion (4L lanes: body value, key, value, query); static
@@ -27,36 +33,122 @@ from .blocks import LayerNorm, StylizationBlock
 from .moe import MOE
 
 
+def _text_cond(cond_type, B):
+    """cond_type [B, 1, 1] ints -> [B, 1, 1] f32: text on where cond_type %
+    10 > 0."""
+    return ((cond_type % 10) > 0).to(torch.float32).reshape(B, 1, 1)
+
+
 @ATTENTIONS.register_module()
 class EfficientSelfAttention(nn.Module):
-    """MotionDiffuse linear self-attention.  The JAX package's
-    ``merged_lanes`` form (softmax in the [.., D] layout, one [D, D] product
-    masked to the block diagonal) is a TPU layout of the same function; here
-    the per-head products compute it directly."""
+    """MotionDiffuse linear self-attention: keys masked by ``src_mask`` [B, T,
+    1] (additively at -1e6) and values by it (multiplicatively), K5 over the
+    [B, T, H, d] head views, then ``x +`` the ``proj_out`` StylizationBlock
+    of the result (with ``time_embed_dim``) or the result itself.  The JAX
+    package's ``merged_lanes`` form (softmax in the [.., D] layout, one
+    [D, D] product masked to the block diagonal) is a TPU layout of the same
+    function; STMA's dynamic body graph runs it as the per-head products of
+    the plain einsums.  Conditions it does not use are accepted and ignored,
+    as in the JAX package."""
 
     def __init__(self, latent_dim: int, num_heads: int, dropout: float = 0.0,
                  time_embed_dim=None, merged_lanes: bool = False):
         super().__init__()
-        if not merged_lanes:
-            raise NotImplementedError("EfficientSelfAttention without merged_lanes "
-                                      "(the generic linear-attention kernel path)")
-        if time_embed_dim is not None:
-            raise NotImplementedError("EfficientSelfAttention with time conditioning")
-        self.num_heads = num_heads
+        self.num_heads, self.merged_lanes = num_heads, merged_lanes
         self.norm = LayerNorm(latent_dim)
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(latent_dim, latent_dim)
         self.value = nn.Linear(latent_dim, latent_dim)
+        self.proj_out = (None if time_embed_dim is None else
+                         StylizationBlock(latent_dim, time_embed_dim, dropout))
 
-    def forward(self, x, src_mask):
+    def forward(self, x, src_mask, emb=None, **kwargs):
         B, T, D = x.shape
         H = self.num_heads
         xn = self.norm(x)
-        q = self.query(xn).reshape(B, T, H, -1).softmax(dim=-1)
-        k = (self.key(xn) + (1 - src_mask) * NEG_INF).softmax(dim=1).reshape(B, T, H, -1)
-        v = (self.value(xn) * src_mask).reshape(B, T, H, -1)
-        att = torch.einsum("bnhd,bnhl->bhdl", k, v)
-        return x + torch.einsum("bthd,bhdl->bthl", q, att).reshape(B, T, D)
+        k_logits = self.key(xn) + (1 - src_mask) * NEG_INF
+        v = self.value(xn) * src_mask
+        if self.merged_lanes:
+            q = self.query(xn).reshape(B, T, H, -1).softmax(dim=-1)
+            k = k_logits.softmax(dim=1).reshape(B, T, H, -1)
+            att = torch.einsum("bnhd,bnhl->bhdl", k, v.reshape(B, T, H, -1))
+            y = torch.einsum("bthd,bhdl->bthl", q, att).reshape(B, T, D)
+        else:
+            y = fused_linear_attention(self.query(xn).reshape(B, T, H, -1),
+                                       k_logits.reshape(B, T, H, -1),
+                                       v.reshape(B, T, H, -1)).reshape(B, T, D)
+        return x + (y if self.proj_out is None else self.proj_out(y, emb))
+
+
+@ATTENTIONS.register_module()
+class EfficientCrossAttention(nn.Module):
+    """MotionDiffuse linear cross-attention: T motion queries against the N
+    text tokens ``xf`` through K5; with ``cond_type`` [B, 1, 1] the text of
+    an unconditional row is masked (keys at -1e6, values 0)."""
+
+    def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
+                 dropout: float = 0.0, time_embed_dim: int = 2048):
+        super().__init__()
+        self.num_heads = num_heads
+        self.norm = LayerNorm(latent_dim)
+        self.text_norm = LayerNorm(text_latent_dim)
+        self.query = nn.Linear(latent_dim, latent_dim)
+        self.key = nn.Linear(text_latent_dim, latent_dim)
+        self.value = nn.Linear(text_latent_dim, latent_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
+
+    def forward(self, x, xf=None, emb=None, cond_type=None, **kwargs):
+        B, T, D = x.shape
+        N, H = xf.shape[1], self.num_heads
+        xn, tn = self.norm(x), self.text_norm(xf)
+        key = self.key(tn)
+        if cond_type is None:
+            value = self.value(tn)
+        else:
+            tc = _text_cond(cond_type, B)
+            key, value = key + (1 - tc) * NEG_INF, self.value(tn * tc)
+        y = fused_linear_attention(self.query(xn).reshape(B, T, H, -1),
+                                   key.reshape(B, N, H, -1),
+                                   value.reshape(B, N, H, -1)).reshape(B, T, D)
+        return x + self.proj_out(y, emb)
+
+
+@ATTENTIONS.register_module()
+class EfficientMixedAttention(nn.Module):
+    """Linear attention of the motion queries over the text and the motion
+    tokens joined (text first), each with its own key and value projections
+    and masks, through K5.  Its training with dropout (the key softmax
+    dropped out before the contraction, in the JAX package) waits for
+    baseline training and raises."""
+
+    def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
+                 dropout: float = 0.0, time_embed_dim: int = 2048):
+        super().__init__()
+        self.num_heads, self.dropout = num_heads, dropout
+        self.norm = LayerNorm(latent_dim)
+        self.text_norm = LayerNorm(text_latent_dim)
+        self.query = nn.Linear(latent_dim, latent_dim)
+        self.key_text = nn.Linear(text_latent_dim, latent_dim)
+        self.value_text = nn.Linear(text_latent_dim, latent_dim)
+        self.key_motion = nn.Linear(latent_dim, latent_dim)
+        self.value_motion = nn.Linear(latent_dim, latent_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
+
+    def forward(self, x, xf=None, emb=None, src_mask=None, cond_type=None, **kwargs):
+        B, T, D = x.shape
+        N, H = xf.shape[1] + T, self.num_heads
+        xn, tn = self.norm(x), self.text_norm(xf)
+        tc, sm = _text_cond(cond_type, B), src_mask.reshape(B, T, 1)
+        key = torch.cat([self.key_text(tn) + (1 - tc) * NEG_INF,
+                         self.key_motion(xn) + (1 - sm) * NEG_INF], dim=1).reshape(B, N, H, -1)
+        value = torch.cat([self.value_text(tn) * tc, self.value_motion(xn) * sm],
+                          dim=1).reshape(B, N, H, -1)
+        query = self.query(xn).reshape(B, T, H, -1)
+        if self.training and self.dropout > 0:
+            raise NotImplementedError("EfficientMixedAttention with dropout in training: "
+                                      "ROADMAP queue 1: baseline training")
+        y = fused_linear_attention(query, key, value)
+        return x + self.proj_out(y.reshape(B, T, D), emb)
 
 
 @ATTENTIONS.register_module()

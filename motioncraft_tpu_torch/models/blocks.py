@@ -7,6 +7,7 @@
     (``kernel_wscale``: the weight dequantized into the float product)
   - timestep_embedding: sinusoidal, cos first then sin
   - ZeroDense / StylizationBlock: AdaLN-style time conditioning
+  - FFN: the baselines' GELU FFN with a stylized residual
   - SFFN: the per-head (body-part) FFN, through kernel K2 (ops/sffn.py) at
     inference; in training the plain einsum pair with dropout, as the JAX
     package trains it.  Int8 weights (ops/quant.py): W8 dequantizes w1/w2
@@ -118,6 +119,23 @@ class StylizationBlock(nn.Module):
         scale, shift = emb_out.chunk(2, dim=-1)
         h = self.norm(h) * (1 + scale) + shift
         return self.out_layers(F.dropout(F.silu(h), self.dropout, self.training))
+
+
+class FFN(nn.Module):
+    """The baselines' FFN: Linear -> exact GELU -> zero-init Linear, added to
+    its input through a StylizationBlock."""
+
+    def __init__(self, latent_dim: int, ffn_dim: int, dropout: float = 0.0,
+                 time_embed_dim: int = 2048):
+        super().__init__()
+        self.dropout = dropout
+        self.linear1 = nn.Linear(latent_dim, ffn_dim)
+        self.linear2 = ZeroDense(ffn_dim, latent_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
+
+    def forward(self, x, emb):
+        y = F.dropout(F.gelu(self.linear1(x)), self.dropout, self.training)
+        return x + self.proj_out(self.linear2(y), emb)
 
 
 class SFFN(nn.Module):

@@ -49,7 +49,7 @@ from .blocks import WavEncoder, ZeroDense
 from .stmogen import STMoGenDecoderLayer
 
 S2G_REST = "ROADMAP queue 1: the rest of S2G (wav2vec)"
-ZOO = "ROADMAP queue 1: DDPM and the baseline zoo"
+ZOO = "ROADMAP queue 1: the rest of the baseline zoo"
 TRAINING = "ROADMAP queue 1: the rest of training"
 
 

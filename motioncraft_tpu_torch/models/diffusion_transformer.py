@@ -2,9 +2,13 @@
 motioncraft_tpu/models/diffusion_transformer.py).
 
 Joint embedding, learned sequence position embedding, sinusoidal timestep
-embedding -> SiLU MLP, CLIP text conditioning, a stack of decoder blocks and
-a zero-init output.  Subclasses provide the joint embedding and output
-(``joint_embed``, ``out``), ``forward_train`` and ``forward_test``.
+embedding -> SiLU MLP, CLIP text conditioning (with ``use_text_proj`` the
+pooled text projection added to the time embedding), a stack of decoder
+blocks and a zero-init output.  ``setup_io`` (a Linear joint embedding and a
+zero-init Linear output) and ``build_temporal_blocks`` (``block_{i}``
+GenericDecoderLayers: sa -> ca -> FFN) build the generic families' stack
+(models/baselines.py), whose test forward is ``forward_test`` below;
+STMoGen builds its own (models/stmogen.py) and overrides the forwards.
 
 The stack runs in the dtype of the joint embedding's output (bf16 for a
 bf16-cast model on bf16 motion): the timestep embedding is f32, its MLP
@@ -20,8 +24,35 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .blocks import timestep_embedding
+from ..registry import ATTENTIONS
+from .blocks import FFN, ZeroDense, timestep_embedding
 from .text_encoder import TextEncoder
+
+
+def ffn_from_cfg(ffn_cfg: Optional[dict]) -> Optional[nn.Module]:
+    """The FFN of a layer config (its ``num_heads``, which the STMoGen
+    configs carry, is not the FFN's), or None."""
+    if ffn_cfg is None:
+        return None
+    return FFN(**{k: v for k, v in dict(ffn_cfg).items() if k != "num_heads"})
+
+
+class GenericDecoderLayer(nn.Module):
+    """sa_block -> ca_block -> ffn, each where its config is given; every
+    block gets every condition and uses what it needs."""
+
+    def __init__(self, sa_block_cfg: Optional[dict] = None,
+                 ca_block_cfg: Optional[dict] = None, ffn_cfg: Optional[dict] = None):
+        super().__init__()
+        self.sa_block = ATTENTIONS.build(sa_block_cfg)
+        self.ca_block = ATTENTIONS.build(ca_block_cfg)
+        self.ffn = ffn_from_cfg(ffn_cfg)
+
+    def forward(self, x, xf, emb, src_mask, cond_type=None):
+        for block in (self.sa_block, self.ca_block):
+            if block is not None:
+                x = block(x, xf=xf, emb=emb, src_mask=src_mask, cond_type=cond_type)
+        return x if self.ffn is None else self.ffn(x, emb)
 
 
 class DiffusionTransformerBase(nn.Module):
@@ -35,11 +66,12 @@ class DiffusionTransformerBase(nn.Module):
         self.num_layers = num_layers
         te = dict(text_encoder or {})
         te.pop("pretrained_model", None)
+        self.use_text_proj = te.get("use_text_proj", False)
         self.text_enc = TextEncoder(
             latent_dim=te.get("latent_dim", 256), num_layers=te.get("num_layers", 2),
             ff_size=te.get("ff_size", 2048), num_heads=te.get("num_heads", 4),
             dropout=te.get("dropout", 0.0), activation=te.get("activation", "gelu"),
-            use_text_proj=te.get("use_text_proj", False), time_embed_dim=time_embed_dim,
+            use_text_proj=self.use_text_proj, time_embed_dim=time_embed_dim,
             clip_width=te.get("clip_width", 512), clip_layers=te.get("clip_layers", 12))
         self.use_pos_embedding = use_pos_embedding
         if use_pos_embedding:
@@ -47,7 +79,31 @@ class DiffusionTransformerBase(nn.Module):
         self.time_embed = nn.Sequential(nn.Linear(latent_dim, time_embed_dim), nn.SiLU(),
                                         nn.Linear(time_embed_dim, time_embed_dim))
 
+    # the generic families' stack ------------------------------------
+    def setup_io(self):
+        """A Linear joint embedding and a zero-init Linear output."""
+        self.joint_embed = nn.Linear(self.input_feats, self.latent_dim)
+        self.out = ZeroDense(self.latent_dim, self.input_feats)
+
+    def make_layer(self, sa_block_cfg, ca_block_cfg, ffn_cfg) -> nn.Module:
+        return GenericDecoderLayer(sa_block_cfg, ca_block_cfg, ffn_cfg)
+
+    def build_temporal_blocks(self, sa_block_cfg, ca_block_cfg, ffn_cfg):
+        """``block_{i}`` = ``make_layer`` for every layer."""
+        for i in range(self.num_layers):
+            self.add_module(f"block_{i}", self.make_layer(sa_block_cfg, ca_block_cfg,
+                                                          ffn_cfg))
+
+    @property
+    def blocks(self):
+        return [getattr(self, f"block_{i}") for i in range(self.num_layers)]
+
+    def stack_dtype(self) -> torch.dtype:
+        """The dtype the stack computes in: its joint embedding's."""
+        return next(self.joint_embed.parameters()).dtype
+
     def encode_text(self, text_ids):
+        """xf_out, or (xf_proj, xf_out) with ``use_text_proj``."""
         return self.text_enc(text_ids)
 
     def _embed(self, motion, timesteps):
@@ -59,18 +115,22 @@ class DiffusionTransformerBase(nn.Module):
         return h, emb
 
     def forward(self, motion, timesteps, motion_mask=None, motion_length=None,
-                xf_out=None, text_feats=None, *, mode: str = "test", cond_type=None,
-                generator=None, aux_losses=None, step_cache=None, cache_flags=None):
+                xf_out=None, text_feats=None, *, xf_proj=None, mode: str = "test",
+                cond_type=None, generator=None, aux_losses=None, step_cache=None,
+                cache_flags=None):
         """``motion`` [B, T, D] at original-scale ``timesteps`` [B] -> model
-        output [B, T, D].  ``mode="test"``: the CFG-guided test forward.
-        ``mode="train"``: one pass at ``cond_type`` [B, 1, 1] (text on where
-        ``cond_type % 10 > 0``), the MoE gate noise drawn from ``generator``
-        and their aux losses appended to ``aux_losses``.  With a
-        ``step_cache`` and the step's host ``cache_flags`` (test mode),
-        returns (output, new cache)."""
+        output [B, T, D].  ``mode="test"``: the test forward (STMoGen's
+        CFG-guided).  ``mode="train"``: one pass at ``cond_type`` [B, 1, 1]
+        (text on where ``cond_type % 10 > 0``), the MoE gate noise drawn from
+        ``generator`` and their aux losses appended to ``aux_losses``.  With
+        ``use_text_proj``, ``xf_proj`` [B, time_embed_dim] is added to the
+        time embedding.  With a ``step_cache`` and the step's host
+        ``cache_flags`` (test mode), returns (output, new cache)."""
         src_mask = motion_mask[..., None] if motion_mask.dim() == 2 else motion_mask
         h, emb = self._embed(motion, timesteps)
         emb = emb.to(h.dtype)
+        if self.use_text_proj and xf_proj is not None:
+            emb = emb + xf_proj.to(h.dtype)
         if mode == "train":
             return self.forward_train(h=h, src_mask=src_mask, emb=emb, xf_out=xf_out,
                                       cond_type=cond_type, generator=generator,
@@ -81,3 +141,15 @@ class DiffusionTransformerBase(nn.Module):
                                  xf_out=xf_out, motion_length=motion_length,
                                  timesteps=timesteps, text_feats=text_feats,
                                  step_cache=step_cache, cache_flags=cache_flags)
+
+    def forward_test(self, h, src_mask, emb, xf_out, **kwargs):
+        """The generic families' test forward: one pass of the stack, no
+        classifier-free guidance."""
+        B, T = h.shape[:2]
+        for block in self.blocks:
+            h = block(h, xf_out, emb, src_mask)
+        return self.out(h).reshape(B, T, -1)
+
+    def forward_train(self, **kwargs):
+        raise NotImplementedError(f"training {type(self).__name__}: ROADMAP queue 1: "
+                                  "baseline training")

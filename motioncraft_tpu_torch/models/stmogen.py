@@ -156,10 +156,6 @@ class STMoGenTransformer(DiffusionTransformerBase):
         for i in range(num_layers):
             self.add_module(f"block_{i}", STMoGenDecoderLayer(ca_block_cfg, ffn_cfg))
 
-    @property
-    def blocks(self):
-        return [getattr(self, f"block_{i}") for i in range(self.num_layers)]
-
     def scale_func(self, timestep: torch.Tensor):
         """Timestep-dependent CFG weights (text, unconditional)."""
         w = (1 - (1000 - timestep.to(torch.float32)) / 1000) * self.scale + 1

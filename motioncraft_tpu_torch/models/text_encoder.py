@@ -15,6 +15,8 @@ package.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -62,12 +64,22 @@ class ClipBlock(nn.Module):
         return x + self.mlp_proj(quick_gelu(self.mlp_fc(self.ln_2(x))))
 
 
+def eot_rows(x, text_ids):
+    """The rows of ``x`` [B, T, C] at each sequence's end-of-text token
+    (the largest token id, its first occurrence, as CLIP pools)."""
+    return x[torch.arange(x.shape[0], device=x.device), text_ids.argmax(dim=-1)]
+
+
 class ClipTextModel(nn.Module):
     """OpenAI CLIP text transformer (ViT-B/32: 512 wide, 12 layers, 8 heads,
-    context 77, causal mask); returns the ln_final features [B, 77, width]."""
+    context 77, causal mask); returns the ln_final features [B, 77, width],
+    or with ``return_pooled`` CLIP's ``encode_text``: the end-of-text row
+    times ``text_projection`` [width, embed_dim] (a model that pools passes
+    ``embed_dim``, which makes that parameter)."""
 
     def __init__(self, vocab_size: int = 49408, context_length: int = 77,
-                 width: int = 512, layers: int = 12, heads: int = 8):
+                 width: int = 512, layers: int = 12, heads: int = 8,
+                 embed_dim: Optional[int] = None):
         super().__init__()
         self.layers = layers
         self.token_embedding = nn.Embedding(vocab_size, width)
@@ -75,15 +87,20 @@ class ClipTextModel(nn.Module):
         for i in range(layers):
             self.add_module(f"resblock_{i}", ClipBlock(width, heads))
         self.ln_final = LayerNorm(width)
+        self.text_projection = (None if embed_dim is None else
+                                nn.Parameter(torch.randn(width, embed_dim) * 0.02))
 
-    def forward(self, text_ids):
+    def forward(self, text_ids, return_pooled: bool = False):
         T = text_ids.shape[1]
         x = self.token_embedding(text_ids) + self.positional_embedding[None, :T]
         causal = torch.full((T, T), float("-inf"), dtype=x.dtype,
                             device=x.device).triu(1)[None, None]
         for i in range(self.layers):
             x = getattr(self, f"resblock_{i}")(x, causal)
-        return self.ln_final(x)
+        x = self.ln_final(x)
+        if return_pooled:
+            return eot_rows(x, text_ids) @ self.text_projection
+        return x
 
 
 class PostLNEncoderLayer(nn.Module):
@@ -111,15 +128,16 @@ class PostLNEncoderLayer(nn.Module):
 
 class TextEncoder(nn.Module):
     """CLIP (frozen) -> pre-projection -> finetuned transformer -> LayerNorm;
-    returns xf_out [B, 77, latent_dim]."""
+    returns xf_out [B, 77, latent_dim], and with ``use_text_proj``
+    (xf_proj, xf_out): xf_proj [B, time_embed_dim] the ``text_proj`` Linear
+    of xf_out's end-of-text row, which the denoiser adds to its time
+    embedding."""
 
     def __init__(self, latent_dim: int = 256, num_layers: int = 2, ff_size: int = 2048,
                  num_heads: int = 4, dropout: float = 0.0, activation: str = "gelu",
                  use_text_proj: bool = False, time_embed_dim: int = 2048,
                  clip_width: int = 512, clip_layers: int = 12):
         super().__init__()
-        if use_text_proj:
-            raise NotImplementedError("use_text_proj (pooled text projection)")
         self.num_layers = num_layers
         self.clip = ClipTextModel(width=clip_width, layers=clip_layers,
                                   heads=max(1, clip_width // 64))
@@ -129,6 +147,7 @@ class TextEncoder(nn.Module):
             self.add_module(f"textTransEncoder_{i}", PostLNEncoderLayer(
                 latent_dim, num_heads, ff_size, dropout, activation))
         self.text_ln = LayerNorm(latent_dim)
+        self.text_proj = nn.Linear(latent_dim, time_embed_dim) if use_text_proj else None
 
     def forward(self, text_ids):
         with torch.no_grad():
@@ -137,4 +156,7 @@ class TextEncoder(nn.Module):
             x = self.text_pre_proj(x)
         for i in range(self.num_layers):
             x = getattr(self, f"textTransEncoder_{i}")(x)
-        return self.text_ln(x)
+        xf_out = self.text_ln(x)
+        if self.text_proj is None:
+            return xf_out
+        return self.text_proj(eot_rows(xf_out, text_ids)), xf_out

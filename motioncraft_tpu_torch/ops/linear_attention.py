@@ -28,6 +28,7 @@ from . import _build
 from .recompute import with_recomputed_grad
 
 NEG_INF = -1000000.0
+WIDTHS = (16, 32, 64, 128)  # the head widths the kernel is instantiated for
 _fn = None
 
 
@@ -80,12 +81,36 @@ def _launch(q_logits, k_logits, value):
     return out
 
 
+def padded_width(d: int) -> int:
+    """The kernel's instantiated head width that a call at ``d`` runs at:
+    the smallest of 16, 32, 64 and 128 that holds it."""
+    for w in WIDTHS:
+        if d <= w:
+            return w
+    raise ValueError(f"fused_linear_attention: kernel takes d up to {WIDTHS[-1]}, got {d}")
+
+
+def pad_heads(q_logits, k_logits, value, width: int):
+    """The three operands widened from d to ``width`` channels: the query
+    logits with NEG_INF (their channel softmax is exactly 0 there), the key
+    logits and the values with 0 (the extra channels of K^T V meet a query
+    weight of 0, and the extra output channels are 0).  Cutting the output
+    back to d gives the function at d."""
+    d = q_logits.shape[-1]
+    pad = (0, width - d)
+    return (torch.nn.functional.pad(q_logits, pad, value=NEG_INF),
+            torch.nn.functional.pad(k_logits, pad), torch.nn.functional.pad(value, pad))
+
+
 def fused_linear_attention(q_logits: torch.Tensor, k_logits: torch.Tensor,
                            value: torch.Tensor) -> torch.Tensor:
     """q_logits [B,T,H,d], k_logits [B,N,H,d] (additively masked), value
     [B,N,H,d] (multiplicatively masked) -> [B,T,H,d].  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel (any strides, unit
-    stride on d), differentiable through the plain version's gradient."""
+    stride on d), differentiable through the plain version's gradient.  A
+    d the kernel is not instantiated for (MCM's channel attention, 196 / 4
+    = 49) runs padded to the next width (``pad_heads``), the output cut
+    back to d."""
     if q_logits.device.type == "cpu":
         return fused_linear_attention_plain(q_logits, k_logits, value)
     if q_logits.device.type != "cuda":
@@ -97,13 +122,14 @@ def fused_linear_attention(q_logits: torch.Tensor, k_logits: torch.Tensor,
         raise ValueError("fused_linear_attention: operands must be float32 on one device")
     if k_logits.shape != (B, N, H, d) or value.shape != (B, N, H, d):
         raise ValueError("fused_linear_attention: inconsistent shapes")
-    if d not in (16, 32, 64, 128):
-        raise ValueError(f"fused_linear_attention: kernel takes d in 16/32/64/128, got {d}")
+    width = padded_width(d)
     if 4 * B > 2 ** 31 - 1 or H > 65535:  # grid (4 B, H): a cluster of 4 per cell
         raise ValueError("fused_linear_attention: grid too large")
-    q, k, v = (_aligned(t) for t in tensors)
     if B == 0 or T == 0 or H == 0:
-        return q.new_empty((B, T, H, d))
+        return q_logits.new_empty((B, T, H, d))
+    if width != d:
+        return fused_linear_attention(*pad_heads(*tensors, width))[..., :d]
+    q, k, v = (_aligned(t) for t in tensors)
     return with_recomputed_grad(_launch, fused_linear_attention_plain, q, k, v)
 
 

@@ -8,8 +8,8 @@
   port writes (``to_jax_variables`` of its state_dict) evaluates in the JAX
   package.
 - ``load_eval_variables``: the weights an evaluation runs with, from a
-  reference ``.pth`` (STMoGen, or a merged base+control ControlT2MHalf) or
-  a ``.npz`` snapshot.
+  reference ``.pth`` (STMoGen, a merged base+control ControlT2MHalf, MCM,
+  MotionDiffuse or MDM) or a ``.npz`` snapshot.
 - ``save_checkpoint`` / ``load_checkpoint``: a training state (model, the
   optimizer's moments, the update count, the step's ``torch.Generator``,
   the global torch and numpy generators and the timestep sampler's history)
@@ -85,7 +85,8 @@ def align_block_layout(model_cfg: dict, tree):
 def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None,
                         torch_checkpoint=None) -> Optional[Dict[str, torch.Tensor]]:
     """Load evaluation weights into ``model`` (the denoiser): a reference
-    ``.pth`` (``torch_checkpoint``, STMoGen or ControlT2MHalf) or the flat
+    ``.pth`` (``torch_checkpoint``: STMoGen, ControlT2MHalf, MCM,
+    MotionDiffuse or MDM) or the flat
     ``.npz`` of ``save_params`` (``checkpoint``: its ``params``,
     ``batch_stats`` and, for an int8 snapshot, ``quant``: the model is then
     quantized alike first), ``strict=True``.  Returns the state_dict loaded, or
@@ -100,16 +101,26 @@ def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None
                                     sub.get("copy_blocks_num", 2), te.get("num_layers", 2),
                                     te.get("clip_layers", 12))
     if torch_checkpoint:
+        from . import torch_convert as tc
+        te = sub.get("text_encoder", {})
+        if sub["type"] == "MCMTransformer":
+            return tc.load_mcm_ckpt(torch_checkpoint, model, sub["num_layers"],
+                                    te.get("num_layers", 4), te.get("clip_layers", 12))
+        if sub["type"] == "MotionDiffuseTransformer":
+            return tc.load_motiondiffuse_ckpt(torch_checkpoint, model, sub["num_layers"],
+                                              te.get("num_layers", 4),
+                                              te.get("clip_layers", 12))
+        if sub["type"] == "MDMTransformer":
+            return tc.load_mdm_ckpt(torch_checkpoint, model, sub.get("num_layers", 8),
+                                    sub.get("clip_layers", 12))
         if sub["type"] != "STMoGenTransformer":
             raise NotImplementedError(
                 f"reference checkpoints of {sub['type']}: the other families' converters "
-                "(ROADMAP queue 1: what slice 6 left out of the evaluation path)")
-        from .torch_convert import load_stmogen_ckpt
+                "(ROADMAP queue 1: the rest of the baseline zoo)")
         ffn = sub.get("ffn_cfg", {})
-        te = sub.get("text_encoder", {})
-        return load_stmogen_ckpt(torch_checkpoint, model, sub["num_layers"],
-                                 ffn.get("num_heads", 1), te.get("num_layers", 2),
-                                 te.get("clip_layers", 12))
+        return tc.load_stmogen_ckpt(torch_checkpoint, model, sub["num_layers"],
+                                    ffn.get("num_heads", 1), te.get("num_layers", 2),
+                                    te.get("clip_layers", 12))
     if checkpoint:
         tree = align_block_layout(model_cfg, load_params(checkpoint))
         if "quant" in tree:

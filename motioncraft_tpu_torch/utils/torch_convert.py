@@ -15,8 +15,9 @@ Conventions: torch Linear weight [out, in] -> flax Dense kernel [in, out]
 LayerNorm / BatchNorm weight, bias -> scale, bias; BatchNorm running_mean,
 running_var -> batch_stats mean, var.
 
-The other model families' converters (MCM, MDM, MotionDiffuse, FineMoGen,
-ReMoDiffuse, the BiGRU evaluator) are not ported yet.
+The baselines' converters (MCM, MotionDiffuse, MDM in both its namings)
+are here too; FineMoGen's, ReMoDiffuse's and the BiGRU evaluator's are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -397,3 +398,162 @@ def load_controlnet_ckpt(path: str, model: torch.nn.Module, num_layers: int, num
     tree = {"base_model": convert_stmogen(strip_base_block_keys(flat), num_layers,
                                           num_heads, text_num_layers, clip_layers)}
     return load_into(model, tree)
+
+
+# ------------------------------------------------------ MCM / MotionDiffuse
+def t_eff_attention(sd, prefix):
+    """Efficient/Base self- or cross-attention: norm [+ text_norm],
+    query/key/value (or the mixed attention's text and motion pairs),
+    optional StylizationBlock."""
+    out = {"norm": t_layernorm(sd, _k(prefix, "norm"))}
+    if f"{_k(prefix, 'text_norm')}.weight" in sd:
+        out["text_norm"] = t_layernorm(sd, _k(prefix, "text_norm"))
+    for name in ("query", "key", "value", "key_text", "key_motion",
+                 "value_text", "value_motion"):
+        if f"{_k(prefix, name)}.weight" in sd:
+            out[name] = t_linear(sd, _k(prefix, name))
+    if f"{_k(prefix, 'proj_out')}.norm.weight" in sd:
+        out["proj_out"] = t_stylization(sd, _k(prefix, "proj_out"))
+    return out
+
+
+def t_ffn(sd, prefix):
+    """The baselines' FFN: linear1, the zero-init linear2, proj_out."""
+    return {"linear1": t_linear(sd, _k(prefix, "linear1")),
+            "linear2": {"linear": t_linear(sd, _k(prefix, "linear2"))},
+            "proj_out": t_stylization(sd, _k(prefix, "proj_out"))}
+
+
+def t_mcm_layer(sd, prefix):
+    """MCM's decoder layer: channel sa, two FFNs, text ca."""
+    return {"sa_block": t_eff_attention(sd, _k(prefix, "sa_block")),
+            "ca_block": t_eff_attention(sd, _k(prefix, "ca_block")),
+            "ffn_channel": t_ffn(sd, _k(prefix, "ffn_channel")),
+            "ffn_temporal": t_ffn(sd, _k(prefix, "ffn_temporal"))}
+
+
+def _convert_text_enc(sd, text_num_layers, clip_layers):
+    """The text encoder: text_ln, text_pre_proj, the pooled text_proj (mogen
+    wraps it in an nn.Sequential: text_proj.0), the post-LN layers and
+    CLIP where the file holds it."""
+    text = {"text_ln": t_layernorm(sd, "text_ln")}
+    if "text_pre_proj.weight" in sd:
+        text["text_pre_proj"] = t_linear(sd, "text_pre_proj")
+    if "text_proj.0.weight" in sd:
+        text["text_proj"] = t_linear(sd, "text_proj.0")
+    elif "text_proj.weight" in sd:
+        text["text_proj"] = t_linear(sd, "text_proj")
+    for i in range(text_num_layers):
+        text[f"textTransEncoder_{i}"] = t_postln_layer(sd, f"textTransEncoder.layers.{i}")
+    if "clip.token_embedding.weight" in sd:
+        clip_sd = {k[len("clip."):]: v for k, v in sd.items() if k.startswith("clip.")}
+        text["clip"] = convert_clip_text(clip_sd, clip_layers)
+    return text
+
+
+def _skeleton(sd, text_num_layers, clip_layers):
+    """The generic skeleton's tensors: time MLP, Linear joint embedding,
+    zero-init output, text encoder, sequence embedding."""
+    out = {"time_embed": {"layers_0": t_linear(sd, "time_embed.0"),
+                          "layers_2": t_linear(sd, "time_embed.2")},
+           "joint_embed": t_linear(sd, "joint_embed"),
+           "out": {"linear": t_linear(sd, "out")},
+           "text_enc": _convert_text_enc(sd, text_num_layers, clip_layers)}
+    if "sequence_embedding" in sd:
+        out["sequence_embedding"] = sd["sequence_embedding"]
+    return out
+
+
+def _strip_model(sd):
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+    return sd
+
+
+def convert_mcm(sd: Dict[str, np.ndarray], num_layers: int, text_num_layers: int = 4,
+                clip_layers: int = 12) -> dict:
+    """MCMTransformer checkpoint -> flax param tree."""
+    sd = _strip_model(sd)
+    out = _skeleton(sd, text_num_layers, clip_layers)
+    for i in range(num_layers):
+        out[f"block_{i}"] = t_mcm_layer(sd, f"temporal_decoder_blocks.{i}")
+    return out
+
+
+def load_mcm_ckpt(path: str, model: torch.nn.Module, num_layers: int,
+                  text_num_layers: int = 4, clip_layers: int = 12) -> Dict[str, torch.Tensor]:
+    """Load a reference MCM .pth into the port's MCMTransformer; returns the
+    state_dict loaded."""
+    tree = convert_mcm(load_torch_state_dict(path), num_layers, text_num_layers, clip_layers)
+    return load_into(model, tree)
+
+
+def convert_motiondiffuse(sd: Dict[str, np.ndarray], num_layers: int,
+                          text_num_layers: int = 4, clip_layers: int = 12) -> dict:
+    """MotionDiffuseTransformer checkpoint (Efficient self + cross attention
+    blocks + FFN) -> flax param tree."""
+    sd = _strip_model(sd)
+    out = _skeleton(sd, text_num_layers, clip_layers)
+    for i in range(num_layers):
+        p = f"temporal_decoder_blocks.{i}"
+        blk = {}
+        if f"{p}.sa_block.norm.weight" in sd:
+            blk["sa_block"] = t_eff_attention(sd, f"{p}.sa_block")
+        if f"{p}.ca_block.norm.weight" in sd:
+            blk["ca_block"] = t_eff_attention(sd, f"{p}.ca_block")
+        if f"{p}.ffn.linear1.weight" in sd:
+            blk["ffn"] = t_ffn(sd, f"{p}.ffn")
+        out[f"block_{i}"] = blk
+    return out
+
+
+def load_motiondiffuse_ckpt(path: str, model: torch.nn.Module, num_layers: int,
+                            text_num_layers: int = 4, clip_layers: int = 12
+                            ) -> Dict[str, torch.Tensor]:
+    """Load a reference MotionDiffuse .pth into the port's
+    MotionDiffuseTransformer; returns the state_dict loaded."""
+    tree = convert_motiondiffuse(load_torch_state_dict(path), num_layers, text_num_layers,
+                                 clip_layers)
+    return load_into(model, tree)
+
+
+# ----------------------------------------------------------------- MDM
+def convert_mdm(sd: Dict[str, np.ndarray], num_layers: int, clip_layers: int = 12) -> dict:
+    """MDMTransformer checkpoint -> flax param tree, in either naming: the
+    reference's (poseEmbedding / seqTransEncoder.layers.N /
+    embed_timestep.time_embed / embed_text / poseFinal, CLIP as clip_model.*)
+    or the official released one (input_process.poseEmbedding /
+    output_process.poseFinal, usually without CLIP, which then keeps the
+    weights it has)."""
+    alias = {}
+    for k, v in _strip_model(sd).items():
+        if k.startswith("input_process."):
+            k = k[len("input_process."):]
+        elif k.startswith("output_process."):
+            k = k[len("output_process."):]
+        elif k.startswith("clip_model."):
+            k = "clip." + k[len("clip_model."):]
+        alias[k] = v
+    sd = alias
+    out: dict = {
+        "poseEmbedding": t_linear(sd, "poseEmbedding"),
+        "poseFinal": t_linear(sd, "poseFinal"),
+        "embed_text": t_linear(sd, "embed_text"),
+        "time_embed": {"layers_0": t_linear(sd, "embed_timestep.time_embed.0"),
+                       "layers_2": t_linear(sd, "embed_timestep.time_embed.2")},
+    }
+    for i in range(num_layers):
+        out[f"layer_{i}"] = t_postln_layer(sd, f"seqTransEncoder.layers.{i}")
+    if "clip.token_embedding.weight" in sd:
+        clip_sd = {k[len("clip."):]: v for k, v in sd.items() if k.startswith("clip.")}
+        out["clip"] = convert_clip_text(clip_sd, clip_layers)
+        if "text_projection" in clip_sd:
+            out["clip"]["text_projection"] = clip_sd["text_projection"]
+    return out
+
+
+def load_mdm_ckpt(path: str, model: torch.nn.Module, num_layers: int,
+                  clip_layers: int = 12) -> Dict[str, torch.Tensor]:
+    """Load a reference or official MDM .pth into the port's MDMTransformer;
+    returns the state_dict loaded."""
+    return load_into(model, convert_mdm(load_torch_state_dict(path), num_layers, clip_layers))

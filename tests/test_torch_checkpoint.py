@@ -251,8 +251,8 @@ def test_pipelined_snapshots_are_refused(tiny):
     cfg, _, _, _ = tiny
     with pytest.raises(NotImplementedError, match="pipeline"):
         checkpoint.align_block_layout(cfg, {"params": {"stacked_blocks": {}}})
-    with pytest.raises(NotImplementedError, match="what slice 6 left out"):
-        checkpoint.load_eval_variables({"model": {"type": "MDMTransformer"}}, None,
+    with pytest.raises(NotImplementedError, match="the rest of the baseline zoo"):
+        checkpoint.load_eval_variables({"model": {"type": "FineMoGenTransformer"}}, None,
                                        torch_checkpoint="x.pth")
 
 

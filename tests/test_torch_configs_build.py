@@ -1,9 +1,12 @@
 """Which configs of configs/ the port builds: every non-``_base_`` file is
 built with the port's registry on the CPU.  The ones it runs build; each of
-the others raises for the reason ROADMAP.md gives (DDPM sampling, or a
-model class not registered yet).  A config that moves from one list to the
-other is port progress, recorded here (the four speech-to-gesture configs,
-which raised at the WavEncoder, build since the S2G slice).  Also one CPU
+the others raises for the reason ROADMAP.md gives (a model class not
+registered yet).  A config that moves from one list to the other is port
+progress, recorded here (the four speech-to-gesture configs, which raised
+at the WavEncoder, build since the S2G slice; the eight DDPM configs, which
+raised at ``inference_type 'ddpm'``, and ``mcm/mcm_t2m.py``, whose
+MCMTransformer was not registered, build since the baselines slice and
+carry their inference type and their K5-bearing attentions).  Also one CPU
 run of tools/torch_m2d_test.py over the committed FineDance fixture."""
 
 import glob
@@ -31,15 +34,27 @@ BUILDS = {"gt.py", "stmogen/t2m_humanml3d.py", "stmogen/t2m_motionx_0_125b.py",
           "stmogen/m2d_finedance_0125b.py", "stmogen/m2d_finedance_0125b_local_unfreeze.py",
           "tests/fixture_m2d.py", "tests/tiny_m2d.py", "stmogen/s2g_beats2_0125b.py",
           "stmogen/s2g_beats2_0125b_local_unfreeze.py", "stmogen/s2g_beats2_025b.py",
-          "tests/tiny_s2g.py"}
+          "tests/tiny_s2g.py", "mcm/mcm_t2m.py", "mcm/mcm_t2m_smplx.py", "mdm/mdm_kit.py",
+          "mdm/mdm_t2m.py", "mdm/mdm_t2m_official.py", "mdm/mdm_t2m_smplx.py",
+          "motiondiffuse/motiondiffuse_kit.py", "motiondiffuse/motiondiffuse_t2m.py",
+          "motiondiffuse/motiondiffuse_t2m_smplx.py"}
 WAV: set = set()  # the configs that raised at the WavEncoder: none since S2G is ported
-DDPM = {"mcm/mcm_t2m_smplx.py", "mdm/mdm_kit.py", "mdm/mdm_t2m.py", "mdm/mdm_t2m_official.py",
-        "mdm/mdm_t2m_smplx.py", "motiondiffuse/motiondiffuse_kit.py",
-        "motiondiffuse/motiondiffuse_t2m.py", "motiondiffuse/motiondiffuse_t2m_smplx.py"}
+DDPM: set = set()  # the configs that raised at 'ddpm': none since the baselines slice
+# the baselines: each config's inference type and the attention types of its
+# layers (the Efficient ones run K5; MDM's trunk is plain attention)
+BASELINES = {"mcm/mcm_t2m.py": ("ddim", "MCMTransformer"),
+             "mcm/mcm_t2m_smplx.py": ("ddpm", "MCMTransformer"),
+             "mdm/mdm_kit.py": ("ddpm", "MDMTransformer"),
+             "mdm/mdm_t2m.py": ("ddpm", "MDMTransformer"),
+             "mdm/mdm_t2m_official.py": ("ddpm", "MDMTransformer"),
+             "mdm/mdm_t2m_smplx.py": ("ddpm", "MDMTransformer"),
+             "motiondiffuse/motiondiffuse_kit.py": ("ddpm", "MotionDiffuseTransformer"),
+             "motiondiffuse/motiondiffuse_t2m.py": ("ddpm", "MotionDiffuseTransformer"),
+             "motiondiffuse/motiondiffuse_t2m_smplx.py": ("ddpm", "MotionDiffuseTransformer")}
+K5_ATTENTIONS = {"EfficientSelfAttention", "EfficientCrossAttention"}
 UNREGISTERED = {"finemogen/finemogen_kit.py": "FineMoGenTransformer",
                 "finemogen/finemogen_t2m.py": "FineMoGenTransformer",
                 "finemogen/finemogen_t2m_smplx.py": "FineMoGenTransformer",
-                "mcm/mcm_t2m.py": "MCMTransformer",
                 "mcm/mcm_m2d_finedance.py": "ControlT2MHalfMCM",
                 "mcm/mcm_s2g_beats2.py": "ControlT2MHalfMCM",
                 "remodiffuse/remodiffuse_t2m.py": "ReMoDiffuseTransformer"}
@@ -49,7 +64,8 @@ def test_every_config_is_listed_once():
     lists = [BUILDS, WAV, DDPM, set(UNREGISTERED)]
     assert sorted(set().union(*lists)) == CONFIGS
     assert sum(map(len, lists)) == len(CONFIGS)
-    assert (len(BUILDS), len(WAV), len(DDPM), len(UNREGISTERED)) == (19, 0, 8, 7)
+    assert (len(BUILDS), len(WAV), len(DDPM), len(UNREGISTERED)) == (28, 0, 0, 6)
+    assert set(BASELINES) <= BUILDS
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -57,17 +73,22 @@ def test_config_builds_or_raises_its_reason(name):
     cfg = Config.fromfile(os.path.join(REPO, "configs", name))
     if name in BUILDS:
         arch = build_architecture(cfg.model, device="cpu")
-        assert arch.inference_type in ("ddim", "gt")
+        assert arch.inference_type in ("ddim", "gt", "ddpm")
         assert (arch.model is None) == (arch.inference_type == "gt")
         assert (arch.repaint_cfg is not None) == ("m2d" in name or "s2g" in name)
         if "s2g" in name:  # the speech condition's encoder, with its statistics
             assert any(k.endswith("running_var") for k in arch.model.state_dict())
+        if name in BASELINES:
+            inference_type, model_type = BASELINES[name]
+            assert (arch.inference_type, type(arch.model).__name__) == (inference_type,
+                                                                       model_type)
+            attentions = {type(m).__name__ for m in arch.model.modules()
+                          if type(m).__name__.startswith("Efficient")}
+            assert attentions == (set() if model_type == "MDMTransformer" else K5_ATTENTIONS)
+        else:
+            assert arch.inference_type in ("ddim", "gt")
         return
-    if name in DDPM:
-        err, reason = NotImplementedError, "inference_type 'ddpm'"
-    else:
-        err, reason = KeyError, f"{UNREGISTERED[name]} is not registered"
-    with pytest.raises(err, match=reason):
+    with pytest.raises(KeyError, match=f"{UNREGISTERED[name]} is not registered"):
         build_architecture(cfg.model, device="cpu")
 
 

@@ -147,6 +147,14 @@ CASES = [
     ("fused_linear_attention", (2, 5, 3, 2, 32)),
     # many 32-row key steps and 64-row query steps per CTA
     ("fused_linear_attention", (2, 300, 700, 2, 64)),
+    # the baselines' inference shapes at B = 16: MotionDiffuse's self- and
+    # cross-attention, MCM's channel attention (d = 49, padded to 64) and
+    # cross-attention; other widths the wrapper pads (5 -> 16, 100 -> 128)
+    ("fused_linear_attention", (16, 196, 196, 8, 64)),
+    ("fused_linear_attention", (16, 196, 77, 8, 64)),
+    ("fused_linear_attention", (16, 512, 512, 4, 49)),
+    ("fused_linear_attention", (16, 196, 77, 4, 128)),
+    ("fused_linear_attention", (2, 20, 30, 3, 5)), ("fused_linear_attention", (2, 10, 9, 2, 100)),
     ("fused_expert_ffn", (16, 14112, 128, 512)),
     ("fused_expert_ffn", (16, 462, 256, 1024)),
     ("fused_expert_ffn", (3, 37, 32, 128)),
@@ -275,6 +283,19 @@ def test_strided_query_is_read_in_place(cuda):
     assert not query.is_contiguous()
     got, want = wrapper(query, key, value), plain(query, key, value)
     torch.testing.assert_close(got, want, rtol=0, atol=REL * float(want.abs().max()))
+
+
+def test_k5_keeps_no_graph_under_no_grad(cuda):
+    """At inference (torch.no_grad) K5's recompute Function records no
+    autograd graph, so none of its inputs is kept for a backward pass, even
+    where they require a gradient."""
+    g = torch.Generator().manual_seed(3)
+    ops = [_randn(g, 2, 77, 4, 49).to(cuda).requires_grad_() for _ in range(3)]
+    wrapper, _ = KERNELS["fused_linear_attention"]
+    with torch.no_grad():
+        out = wrapper(*ops)
+    assert out.grad_fn is None and not out.requires_grad
+    assert wrapper(*ops).grad_fn is not None
 
 
 def test_k3_clusters_fit_on_the_card(cuda):

@@ -38,6 +38,13 @@ names = [m.name for m in pkgutil.walk_packages(motioncraft_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from motioncraft_tpu_torch.diffusion import p_sample_loop, p_sample_step
+from motioncraft_tpu_torch.models import (MCMTransformer, MDMTransformer,
+                                          MotionDiffuseTransformer)
+from motioncraft_tpu_torch.models.attentions import (EfficientCrossAttention,
+                                                     EfficientMixedAttention)
+from motioncraft_tpu_torch.utils.torch_convert import (convert_mcm, convert_mdm,
+                                                       convert_motiondiffuse)
 spec = importlib.util.spec_from_file_location("torch_test", "tools/torch_test.py")
 torch_test = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(torch_test)
@@ -77,7 +84,7 @@ for name in ("data", "data.datasets", "eval", "utils.checkpoint", "utils.torch_c
              "apis.eval_hook", "models.controlnet", "apis.windowed", "data.beat2",
              "data.native", "eval.gesture_metrics", "ops.fk", "ops.rotation",
              "ops.smplx_lbs", "serving", "serving.server", "diffusion.stepcache",
-             "ops.quant"):
+             "ops.quant", "models.baselines", "models.diffusion_transformer"):
     assert "motioncraft_tpu_torch." + name in names, name
 print(len(names))
 """

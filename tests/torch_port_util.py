@@ -2,6 +2,7 @@
 package: seeded flax parameter trees made with numpy, and numpy <-> torch."""
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -9,6 +10,15 @@ import torch
 
 # the port's draw source; the tests hand it the JAX package's draws
 from motioncraft_tpu_torch.diffusion import Replay  # noqa: F401
+
+# Under pytest-xdist each worker process would run torch's intra-op thread
+# pool on every core: N workers x all cores oversubscribe the machine, and the
+# tiny models' small ops wait on one another (a 20-step training test took
+# 50 times its one-process time).  Every worker imports this module while it
+# collects, so each takes its share of the cores here.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 
 def seeded_params(tree, seed=0):
@@ -197,4 +207,30 @@ def jax_windowed_draws(num_timesteps, repaint, rng, shape, rounds, pre_frames,
                                       clip_idx=1 if w >= 2 else 0)
         else:
             draws += jax_sample_draws(num_timesteps, repaint, key, shape, pre_len=pre_frames)
+    return draws
+
+
+def jax_ddpm_draws(num_timesteps, rng, shape, *, pre_len=None, initial=True):
+    """The standard-normal draws of the JAX package's DDPM sampling with key
+    ``rng``, in the order the port consumes them: with ``initial``
+    (``MotionDiffusion.sample``) the initial noise (``split(rng)[0]``) and the
+    loop on ``split(rng)[1]``, else ``p_sample_loop`` on ``rng`` itself; per
+    step (``key, sub = split(key)``, ``r_seed, r_noise = split(sub)``) the
+    pre-sequence's noise (with ``pre_len``) and the step's noise, drawn at
+    t = 0 too."""
+    import jax
+    import jax.numpy as jnp
+
+    B, T, D = shape
+    normal = lambda key, s: np.asarray(jax.random.normal(key, s, jnp.float32))  # noqa: E731
+    draws, key = [], rng
+    if initial:
+        r_noise, key = jax.random.split(rng)
+        draws.append(normal(r_noise, shape))
+    for _ in range(num_timesteps):
+        key, sub = jax.random.split(key)
+        r_seed, r_step = jax.random.split(sub)
+        if pre_len:
+            draws.append(normal(r_seed, (B, pre_len, D)))
+        draws.append(normal(r_step, shape))
     return draws
