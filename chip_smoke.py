@@ -30,9 +30,12 @@ Phases; any failure exits non-zero:
      channel self-attention, 512 tokens over 4 heads of 49, which the
      wrapper pads to 64, and its cross-attention, 4 heads of 128; the pad's
      bytes and device time stand beside that case as pad_bytes and pad_ms,
-     and its bound is the function's own bytes at d = 49): max abs
-     error against its
-     tolerance (1e-2 x max |plain| for bf16; K4 exact in its
+     and its bound is the function's own bytes at d = 49), and K1, K2 and
+     K4's route at phase 16's FineMoGen shapes (B = 16, 64-wide heads, for
+     finemogen_t2m_smplx's 12 heads and finemogen_t2m's 8: K1 on the
+     motion MoE at D = 64, F = 256 and on the text MoE at D = 256, K2 at
+     d = 64, F = 512, K4's route over the motion, a skewed and the text
+     MoE's logits): max abs error against its tolerance (1e-2 x max |plain| for bf16; K4 exact in its
      integers, its route's gates within 1e-6; on every path a route case
      leaning to one expert must drop choices); the kernel's device time from
      torch.profiler
@@ -176,7 +179,25 @@ Phases; any failure exits non-zero:
      full-width SMPL-X evaluator, Diversity on 32): finite metrics, K5's
      launches what 4 batches x 1000 steps x 16 imply, wall seconds of
      sampling and of evaluation
- 16. one JSON line of the kernels' numbers, and last the device line
+ 16. FineMoGen (SAMI) on the card, with seeded fabricated weights:
+     configs/finemogen/finemogen_t2m_smplx.py at full width (4 layers, 12
+     heads x 64, 16 experts top-2, CLIP); one batch of 16 requests (T =
+     196, lengths 40-196) through single_device_test with DDIM-50 CFG:
+     finite [16, 196, 322] outputs, K1 and K4's route launched 2 x 4 a
+     denoiser call (each SAMI layer's text and motion MoE: nothing is
+     hoisted), K2 4, nothing else, the batch's wall ms; one denoiser call
+     profiled (device kernels, device ms, idle share); one forward_test
+     card vs CPU at B = 2 with the gate logits pinned as in phase 6; then
+     tools/torch_test.py on configs/finemogen/finemogen_t2m.py over a
+     synthetic HumanML3D tree of 64 clips (263-d, captions with their
+     tokens) at batch 16: the five T2M metrics through the full-width BiGRU
+     evaluator (seeded, hashed word vectors; MultiModality on 8 x 2 more
+     samples), finite, K1, K2 and K4's launches what 5 batches x 50 steps
+     imply; the evaluator's motion and text embeddings card vs CPU; GT mode
+     on the same tree, and on configs/finemogen/finemogen_kit.py over a
+     251-d KIT-ML tree of 64 clips (its evaluator reads 247 features),
+     gives FID <= 1e-3; wall seconds of sampling and of evaluation
+ 17. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -282,6 +303,13 @@ MDM_CONFIG = os.path.join(ROOT, "configs", "mdm", "mdm_t2m_smplx.py")
 MCM_DDIM_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_t2m.py")
 BASELINE_CONFIGS = (MD_CONFIG, MCM_CONFIG, MDM_CONFIG)
 BASELINE_CLIPS, BASELINE_FRAMES = 64, 196
+# phase 16: FineMoGen at full width (Motion-X 322-d, 12 heads) and its
+# HumanML3D config's protocol run on a synthetic tree of 64 clips;
+# MultiModality on 8 samples x 2 repeats
+FMG_CONFIG = os.path.join(ROOT, "configs", "finemogen", "finemogen_t2m_smplx.py")
+FMG_HML_CONFIG = os.path.join(ROOT, "configs", "finemogen", "finemogen_t2m.py")
+FMG_KIT_CONFIG = os.path.join(ROOT, "configs", "finemogen", "finemogen_kit.py")
+FMG_CLIPS, FMG_MM_SAMPLES, FMG_MM_REPEATS = 64, 8, 2
 
 PALLAS = {
     "moe_route": "motioncraft_tpu/ops/pallas_moe.py:54",
@@ -487,14 +515,18 @@ def baseline_attention_inputs(torch, model_cfg, dev, B=BATCH):
     return {"fused_linear_attention": [self_case, cross_case]}
 
 
-def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=()):
+def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finemogen_cfgs=None):
     """(path, inputs) for phase 2: the T2M shapes (with training's), those
     of phase 12's buckets and of phase 14's drift and training, the M2D ones
     and the S2G ones; R recordings in lockstep are a CFG-doubled
     batch of 2R x window frames (120 for M2D, 64 for S2G: the base blocks
     past layer 0 and the control blocks), and layer 0's motion MoE routes
     its first half; then K5's inference shapes of phase 15's baselines
-    (``baseline_cfgs``: their model configs, the ones with K5 attentions)."""
+    (``baseline_cfgs``: their model configs, the ones with K5 attentions),
+    and phase 16's FineMoGen sampling (``finemogen_cfgs``: {tag: model
+    config} of the configs it samples; K1-K2 and K4's route at the
+    flagship's batch with each one's SAMI widths; no K3, and no layer-0
+    half: SAMI routes both CFG halves)."""
     t2m = flagship_inputs(torch, cfg, dev)
     layer0 = flagship_inputs(torch, cfg, dev, training=False, layer0=True)
     paths = [("t2m", t2m), ("t2m layer 0", layer0),
@@ -534,6 +566,10 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=()):
     for model_cfg in baseline_cfgs:
         paths.append((f"{model_cfg['model']['type']} B={BATCH}",
                       baseline_attention_inputs(torch, model_cfg, dev)))
+    for tag, fmg_cfg in (finemogen_cfgs or {}).items():
+        fmg = flagship_inputs(torch, fmg_cfg, dev, training=False)
+        paths.append((f"{tag} B={BATCH}",
+                      {k: v for k, v in fmg.items() if k != "stma_linear_attention"}))
     return paths
 
 
@@ -605,9 +641,11 @@ def kernel_work(name, args):
     return flops, nbytes
 
 
-def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=()):
+def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(),
+                  finemogen_cfgs=None):
     """Phase 2: every kernel against its plain version, with times, at the
-    T2M shapes, at the M2D and S2G ones and at the baselines'."""
+    T2M shapes, at the M2D and S2G ones, at the baselines' and at
+    FineMoGen's."""
     from motioncraft_tpu_torch.ops import KERNELS
     from motioncraft_tpu_torch.ops.stma_attention import max_active_clusters
 
@@ -615,7 +653,8 @@ def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=()):
           f"CTAs resident at once (cudaOccupancyMaxActiveClusters)")
 
     rows = {}
-    for path, inputs in kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg, baseline_cfgs):
+    for path, inputs in kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg, baseline_cfgs,
+                                     finemogen_cfgs):
         for name, cases in inputs.items():
             for i, args in enumerate(cases):
                 kernel_case(torch, rows, path, name, i, args, KERNELS[name])
@@ -991,6 +1030,40 @@ def write_motionx_tree(root, n, T, seed):
             f.write(f"a person {verbs[i % len(verbs)]} then {verbs[(7 * i + 3) % len(verbs)]}"
                     f" {i // len(verbs)} times\n")
     with open(os.path.join(d, "ann.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+
+
+def write_humanml3d_tree(root, n, T, seed, feats=263, dataset="human_ml3d"):
+    """A synthetic HumanML3D (or KIT-ML: ``feats`` 251, ``dataset`` kit_ml)
+    tree in the released layout: datasets/<dataset>/{motions/<name>.npy
+    [length, feats] (lengths 40 to T), texts/<name>.txt (two captions),
+    tokens/<name>.txt ('word/POS' lines, one a caption), test.txt, mean.npy,
+    std.npy}."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    d = os.path.join(root, "datasets", dataset)
+    for sub in ("motions", "texts", "tokens"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    np.save(os.path.join(d, "mean.npy"), np.zeros(feats, np.float32))
+    np.save(os.path.join(d, "std.npy"), np.ones(feats, np.float32))
+    verbs = [("walks", "walk"), ("jumps", "jump"), ("waves", "wave"), ("kicks", "kick"),
+             ("turns", "turn"), ("runs", "run"), ("crouches", "crouch"), ("claps", "clap")]
+    names = [f"{i:06d}" for i in range(n)]
+    for i, name in enumerate(names):
+        length = int(rng.randint(min(40, T), T + 1))
+        np.save(os.path.join(d, "motions", name + ".npy"),
+                (rng.randn(length, feats) * 0.5).astype(np.float32))
+        caps, toks = [], []
+        for j in range(2):
+            (v1, l1), (v2, l2) = verbs[(i + j) % len(verbs)], verbs[(3 * i + j + 1) % len(verbs)]
+            caps.append(f"a person {v1} then {v2} {i // len(verbs)} times")
+            toks.append(f"a/DET person/NOUN {l1}/VERB then/ADV {l2}/VERB "
+                        f"{i // len(verbs)}/NUM time/NOUN")
+        for sub, lines in (("texts", caps), ("tokens", toks)):
+            with open(os.path.join(d, sub, name + ".txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+    with open(os.path.join(d, "test.txt"), "w") as f:
         f.write("\n".join(names) + "\n")
 
 
@@ -2756,6 +2829,195 @@ def phase_baselines(torch, dev="cuda", configs=BASELINE_CONFIGS, ddim_config=MCM
     return out
 
 
+def finemogen_counts(calls, layers):
+    """K1, K2 and K4's route over ``calls`` FineMoGen denoiser calls: each
+    SAMI layer routes and runs its text and its motion MoE (nothing is
+    hoisted out of the loop), each SFFN runs K2 once."""
+    return {"moe_route": 2 * layers * calls, "grouped_ffn": 2 * layers * calls,
+            "head_ffn": layers * calls}
+
+
+def finemogen_protocol_config(tmp, base, clips):
+    """A synthetic tree of ``clips`` clips under ``tmp`` in the layout of
+    ``base``'s test set (a HumanML3D or KIT-ML FineMoGen config: its
+    dataset and motion width), and a config file that takes ``base`` and
+    points its test set at the tree: the same pipeline on the tree's
+    statistics, one replication, Diversity on half the clips and
+    MultiModality on FMG_MM_SAMPLES x FMG_MM_REPEATS.  Returns the file."""
+    from motioncraft_tpu_torch.config import Config
+
+    cfg = Config.fromfile(base)
+    dataset = cfg["data"]["test"]["dataset_name"]
+    tree = os.path.join(tmp, dataset)
+    write_humanml3d_tree(tree, clips, cfg["model"]["model"]["max_seq_len"], SEED,
+                         feats=cfg["model"]["model"]["input_feats"], dataset=dataset)
+    d = os.path.join(tree, "datasets", dataset)
+    pipeline = [dict(type="Normalize", mean_path=os.path.join(d, "mean.npy"),
+                     std_path=os.path.join(d, "std.npy")),
+                dict(type="Crop", crop_size=196),
+                dict(type="ToTensor", keys=["motion", "motion_mask"]),
+                dict(type="Collect", keys=["motion", "motion_mask", "motion_length"],
+                     meta_keys=["text", "token"])]
+    metrics = [dict(type="R Precision", batch_size=32, top_k=3),
+               dict(type="Matching Score", batch_size=32), dict(type="FID"),
+               dict(type="Diversity", num_samples=clips // 2),
+               dict(type="MultiModality", num_samples=FMG_MM_SAMPLES,
+                    num_repeats=FMG_MM_REPEATS, num_picks=1)]
+    path = os.path.join(tmp, f"{os.path.basename(base)[:-3]}_tree.py")
+    with open(path, "w") as f:
+        f.write(f"_base_ = [{os.path.abspath(base)!r}]\n"
+                f"data = dict(test=dict(data_prefix={tree!r}, pipeline={pipeline!r},\n"
+                f"                      eval_cfg=dict(replication_times=1, "
+                f"metrics={metrics!r})))\n")
+    return path
+
+
+def phase_finemogen(torch, dev="cuda", config=FMG_CONFIG, protocol_config=FMG_HML_CONFIG,
+                    kit_config=FMG_KIT_CONFIG, clips=FMG_CLIPS):
+    """Phase 16: FineMoGen at full width with DDIM-50 CFG sampling, one
+    denoiser call profiled, card vs CPU, and tools/torch_test.py on its
+    HumanML3D config through the BiGRU evaluator; then GT mode on the
+    HumanML3D and on the KIT-ML (251-d) config; each with checks.  Returns
+    the launches, wall times and the call's profile."""
+    import tempfile
+
+    import numpy as np
+    from motioncraft_tpu_torch.apis import single_device_test
+    from motioncraft_tpu_torch.config import Config
+    from motioncraft_tpu_torch.eval.models import T2MContrastiveModel
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.checkpoint import save_params
+    from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
+
+    t_phase = time.perf_counter()
+    cfg = Config.fromfile(config).model
+    t0 = time.perf_counter()
+    arch = build_architecture(cfg, device=dev)
+    sd = fabricate_state_dict(arch.model, seed=SEED)
+    arch.model.load_state_dict(sd, strict=True)
+    print(f"[finemogen] {os.path.basename(config)}: {type(arch.model).__name__} built in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{sum(p.numel() for p in arch.parameters()) / 1e6:.1f} M parameters")
+    T, feats = arch.model.max_seq_len, arch.model.input_feats
+    steps, layers = arch.diffusion_test.num_timesteps, arch.model.num_layers
+
+    # one DDIM-50 CFG batch of 16
+    batch = requests(BATCH, SEED + 600, T, feats)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = single_device_test(arch, [batch], seed=SEED, device=arch.device)
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    want = dict.fromkeys(counts, 0) | finemogen_counts(steps, layers)
+    pred = np.stack([r["pred_motion"] for r in res])
+    print(f"[finemogen] DDIM-{steps} CFG batch of {BATCH} x {T} x {feats} in {wall:.1f} ms "
+          f"({wall / steps:.3f} ms a step); launches {counts}")
+    check(pred.shape == (BATCH, T, feats) and np.isfinite(pred).all(),
+          f"output {pred.shape}, finite {np.isfinite(pred).all()}")
+    check(counts == want, f"FineMoGen launch counts {counts} != expected {want}")
+    out = {"batch": {"counts": counts, "wall_ms": wall, "steps": steps}}
+
+    # one denoiser call at the batch's shape: launches, device time, idle
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    x = torch.randn((BATCH, T, feats), generator=g, device=dev)
+    ts = torch.full((BATCH,), 499, dtype=torch.long, device=dev)
+    kw = baseline_condition(torch, arch, batch)
+
+    def call():
+        with torch.no_grad():
+            arch.model(x, ts, **kw)
+
+    launches, busy, call_wall = profile_call(torch, call)
+    out["batch"].update(call_launches=launches, call_device_ms=busy, call_wall_ms=call_wall)
+    print(f"[finemogen] one denoiser call B={BATCH}: {launches:.0f} device kernels, "
+          f"{busy:.3f} ms on the device, {call_wall:.3f} ms a back-to-back call "
+          f"(idle share {1 - busy / call_wall:.3f})")
+    phase_parity(torch, cfg, arch, sd)
+    del arch
+
+    # the protocol run on the HumanML3D config through the BiGRU evaluator
+    torch_test = load_tool("torch_test")
+    hml = Config.fromfile(protocol_config)
+    with tempfile.TemporaryDirectory() as tmp:
+        config_file = finemogen_protocol_config(tmp, protocol_config, clips)
+        params = os.path.join(tmp, "params.npz")
+        model = build_architecture(hml.model, device="cpu")
+        model.model.load_state_dict(fabricate_state_dict(model.model, seed=SEED), strict=True)
+        save_params(params, model.model)
+        del model
+        argv = [config_file, os.path.join(tmp, "ddim"), "--device", dev, "--batch-size",
+                str(BATCH), "--checkpoint", params, "--seed", str(SEED)]
+        reset_launch_counts()
+        run = torch_test.main(argv)
+        counts = launch_counts()
+        n = len(run["results"])
+        metric = {k: v for k, v in run["out"].items() if k not in ("flags", "protocol")}
+        loaded = run["arch"]
+        batches = -(-n // BATCH)
+        want = dict.fromkeys(counts, 0) | finemogen_counts(
+            batches * loaded.diffusion_test.num_timesteps, loaded.model.num_layers)
+        print(f"[finemogen] protocol run: metrics {json.dumps(metric)}; "
+              f"flags {json.dumps(run['out']['flags'])}")
+        print(f"[finemogen] protocol run: {n} samples: sampling {run['sample_s']:.3f} s "
+              f"({n / run['sample_s']:.3f} samples/s), evaluation {run['eval_s']:.3f} s; "
+              f"launches {counts}")
+        check(n == clips + FMG_MM_SAMPLES * FMG_MM_REPEATS and len(metric) == 14,
+              f"{n} results, metrics {sorted(metric)}")
+        check(all(np.isfinite(v) for v in metric.values()), f"non-finite metrics {metric}")
+        check(counts == want, f"protocol launch counts {counts} != expected {want}")
+        out["protocol"] = {"counts": counts, "sample_s": run["sample_s"],
+                           "eval_s": run["eval_s"]}
+
+        # the BiGRU evaluator on the card against the CPU: the same seeded
+        # weights (the config's checkpoint is not in the repository)
+        card_ev = run["dataset"].evaluator_model
+        ev_cfg = {k: v for k, v in hml["data"]["test"]["eval_cfg"]["evaluator_model"].items()
+                  if k != "type"}
+        cpu_ev = T2MContrastiveModel(**ev_cfg, device="cpu")
+        check(type(card_ev) is T2MContrastiveModel and card_ev.device.type == dev,
+              f"evaluator {type(card_ev).__name__} on {card_ev.device}")
+        for a, b in ((card_ev.movement, cpu_ev.movement), (card_ev.motion_gru, cpu_ev.motion_gru),
+                     (card_ev.text_gru, cpu_ev.text_gru), (card_ev.pos_emb, cpu_ev.pos_emb)):
+            check(all(torch.equal(u.cpu(), v) for u, v in zip(a.state_dict().values(),
+                                                            b.state_dict().values())),
+                  "the card's evaluator weights are not the CPU's")
+        res = run["results"][:BATCH]
+        motion = np.stack([r["pred_motion"] for r in res])
+        lengths = np.array([int(r["motion_length"].reshape(-1)[0]) for r in res])
+        texts, tokens = [r["text"] for r in res], [r["token"] for r in res]
+        for what, a, b in (("encode_motion", card_ev.encode_motion(motion, lengths),
+                            cpu_ev.encode_motion(motion, lengths)),
+                           ("encode_text", card_ev.encode_text(texts, tokens),
+                            cpu_ev.encode_text(texts, tokens))):
+            scale = max(1.0, float(b.abs().max()))
+            diff = float((a.cpu() - b).abs().max())
+            print(f"[finemogen] BiGRU evaluator {what} B={BATCH}: card vs CPU max abs diff "
+                  f"{diff:.3e} (tol {MODEL_REL_TOL} x {scale:.4g})")
+            check(diff <= MODEL_REL_TOL * scale, f"evaluator {what} card vs CPU: {diff}")
+        del run, loaded
+
+        # GT mode: the test set against itself through each evaluator, the
+        # KIT-ML one reading 251-d motions
+        for base, cfg_file in ((protocol_config, config_file),
+                               (kit_config, finemogen_protocol_config(tmp, kit_config, clips))):
+            name = os.path.basename(base)
+            gt = torch_test.main([cfg_file, os.path.join(tmp, f"gt_{name[:-3]}"), "--device",
+                                  dev, "--batch-size", str(BATCH), "--seed", str(SEED),
+                                  "--cfg-options", "model.inference_type=gt"])
+            fid, ev = gt["out"]["FID (mean)"], gt["dataset"].evaluator_model
+            feats = Config.fromfile(base)["model"]["model"]["input_feats"]
+            print(f"[finemogen] GT mode on {name} ({feats}-d): FID (mean) {fid:.3e} "
+                  f"(tol {GT_FID_TOL}); evaluation {gt['eval_s']:.3f} s")
+            check(abs(fid) <= GT_FID_TOL, f"GT-mode FID {fid} on {name}")
+            check(type(ev) is T2MContrastiveModel and ev.device.type == dev
+                  and ev.movement.conv1.in_channels == feats - 4,
+                  f"{name}'s evaluator {type(ev).__name__} on {ev.device}")
+            del gt, ev
+    print(f"[finemogen] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -2774,7 +3036,7 @@ def main():
         print(f"chip_smoke: the port is not next to this script ({e})", file=sys.stderr)
         return 2
     for path in (CONFIG, M2D_CONFIG, S2G_CONFIG, HARNESS_CONFIG, *BASELINE_CONFIGS,
-                 MCM_DDIM_CONFIG):
+                 MCM_DDIM_CONFIG, FMG_CONFIG, FMG_HML_CONFIG, FMG_KIT_CONFIG):
         if not os.path.isfile(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 2
@@ -2794,7 +3056,9 @@ def main():
     cfg = full_cfg["model"]
     dev = torch.device("cuda")
     k5_cfgs = [Config.fromfile(p)["model"] for p in (MD_CONFIG, MCM_CONFIG)]
-    rows = phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg, k5_cfgs)
+    fmg_cfgs = {os.path.basename(p)[:-3]: Config.fromfile(p)["model"]
+                for p in (FMG_CONFIG, FMG_HML_CONFIG)}
+    rows = phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg, k5_cfgs, fmg_cfgs)
 
     t0 = time.perf_counter()
     arch = build_architecture(cfg, device="cuda")
@@ -2818,6 +3082,7 @@ def main():
     del arch
     harness = phase_harness(torch, Config.fromfile(HARNESS_CONFIG))
     baselines = phase_baselines(torch)
+    finemogen = phase_finemogen(torch)
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
@@ -2847,6 +3112,8 @@ def main():
         # phase 15: each baseline's DDPM batch, MCM's DDIM-50 batch and the
         # protocol run on MotionDiffuse
         row["baseline_launches"] = {k: v["counts"][name] for k, v in baselines.items()}
+        # phase 16: FineMoGen's DDIM-50 batch and its protocol run
+        row["finemogen_launches"] = [finemogen[k]["counts"][name] for k in ("batch", "protocol")]
         check(row["launches"] > 0, f"{name} was launched no time on its path")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,7 @@
 each text-to-motion metric, the metric math and the gesture metrics
 (gesture_metrics.py) (PyTorch port of motioncraft_tpu/eval)."""
 
-from . import models  # noqa: F401  (registers T2MContrastiveModel_SMPLX)
+from . import models  # noqa: F401  (registers the two T2MContrastiveModel evaluators)
 from .evaluators import (BaseEvaluator, DiversityEvaluator, FIDEvaluator,  # noqa: F401
                          MatchingScoreEvaluator, MultiModalityEvaluator,
                          PrecisionEvaluator, build_evaluator, build_evaluator_model)

@@ -1,5 +1,7 @@
-"""The SMPL-X contrastive evaluator of MC-Bench (PyTorch port of the
-``T2MContrastiveModel_SMPLX`` part of motioncraft_tpu/eval/models.py).
+"""The learned evaluators of the text-to-motion protocol (PyTorch port of
+motioncraft_tpu/eval/models.py): the SMPL-X contrastive evaluator of
+MC-Bench (``T2MContrastiveModel_SMPLX``) and the HumanML3D / KIT-ML one of
+Guo et al. (``T2MContrastiveModel``).
 
 - ActorAgnosticEncoderModule: a transformer over the 322-d motion with VAE
   mu/logvar tokens; ``encode_motion`` returns mu.
@@ -17,8 +19,20 @@ package's evaluator trainer writes it) or the reference ``.ckpt``
 (utils/torch_convert.py).  The encoders run on the model's device: the card
 unless the caller asks for the CPU.
 
-The HumanML3D BiGRU evaluator (``T2MContrastiveModel``) and its GloVe word
-vectorizer are not ported yet.
+T2MContrastiveModel: the motion side is MovementConvEncoderModule (two
+stride-2 Conv1d + LeakyReLU, a Linear; the last 4 features, the foot
+contacts, left out) and a BiGRUCoModule over the quarter-rate sequence at
+``length // 4``; the text side a BiGRUCoModule over GloVe word vectors
+plus a projection of their POS one-hots (utils/word_vectorizer.py; a
+hashed vector per word without ``./data/glove``).  BiGRUCoModule is one
+``nn.GRU(bidirectional=True)`` (cuDNN on the card, f32) over
+``pack_padded_sequence``, so each direction ends at the row's own last
+valid step, as flax's ``nn.RNN(seq_lengths=...)`` does; a row of length 0
+runs over its whole padded length, as flax's does.  Its GRU is the one
+module whose parameters do not follow flax's names (a flax tree maps onto
+it through utils/convert.py:bigru_from_jax_params); it keeps the
+reference's, so ``init_cfg``'s checkpoint (``finest.tar``) loads by key
+when the file exists.
 """
 
 from __future__ import annotations
@@ -247,3 +261,134 @@ class T2MContrastiveModel_SMPLX:
     def encode_text(self, text, token=None, **kwargs):
         ids, mask = self.tokenizer(list(text))
         return self.text_module(self._tensor(ids, torch.long), self._tensor(mask, torch.long))[0]
+
+
+class MovementConvEncoderModule(nn.Module):
+    """Two stride-2 Conv1d (kernel 4, padding 1) + LeakyReLU(0.2) blocks and
+    a Linear, over a motion [B, T, input_size] -> [B, T / 4, output_size]."""
+
+    def __init__(self, input_size: int, hidden_size: int, output_size: int):
+        super().__init__()
+        self.conv1 = nn.Conv1d(input_size, hidden_size, 4, stride=2, padding=1)
+        self.conv2 = nn.Conv1d(hidden_size, output_size, 4, stride=2, padding=1)
+        self.out_net = nn.Linear(output_size, output_size)
+
+    def forward(self, x):
+        x = F.leaky_relu(self.conv1(x.transpose(1, 2)), 0.2)
+        x = F.leaky_relu(self.conv2(x), 0.2)
+        return self.out_net(x.transpose(1, 2))
+
+
+class BiGRUCoModule(nn.Module):
+    """Linear embedding, a bidirectional GRU from the learned initial
+    states ``hidden`` over each row's ``lengths`` frames, the two final
+    states joined -> Linear, LayerNorm, LeakyReLU(0.2), Linear."""
+
+    def __init__(self, input_size: int, hidden_size: int, output_size: int):
+        super().__init__()
+        self.input_emb = nn.Linear(input_size, hidden_size)
+        self.hidden = nn.Parameter(torch.randn(2, hidden_size))
+        self.gru = nn.GRU(hidden_size, hidden_size, batch_first=True, bidirectional=True)
+        self.out1 = nn.Linear(2 * hidden_size, hidden_size)
+        self.out_ln = LayerNorm(hidden_size)
+        self.out2 = nn.Linear(hidden_size, output_size)
+
+    def forward(self, inputs, lengths):
+        B, T = inputs.shape[:2]
+        x = self.input_emb(inputs)
+        h0 = self.hidden[:, None, :].expand(2, B, -1).contiguous()
+        # flax reads a row's final state at index length - 1, so a row of
+        # length 0 gets the state after all T steps (its reverse pass flips
+        # all T): the whole padded row, which pack_padded_sequence (it
+        # refuses a 0) is given here
+        lengths = torch.where(lengths == 0, T, lengths)
+        packed = nn.utils.rnn.pack_padded_sequence(x, lengths.cpu(), batch_first=True,
+                                                   enforce_sorted=False)
+        # cuDNN takes the weights from one buffer, which a deep copy of the
+        # module (each metric's evaluator holds one) does not share; a no-op
+        # on the CPU
+        self.gru.flatten_parameters()
+        _, hn = self.gru(packed, h0)
+        h = torch.cat([hn[0], hn[1]], dim=-1)
+        return self.out2(F.leaky_relu(self.out_ln(self.out1(h)), 0.2))
+
+
+@SUBMODULES.register_module()
+class T2MContrastiveModel:
+    """The HumanML3D / KIT-ML contrastive evaluator.  ``encode_motion`` /
+    ``encode_text`` return [B, output size] on the model's device.  Without
+    ``init_cfg``'s checkpoint its weights are the modules' own
+    initialisation, seeded by ``seed``."""
+
+    def __init__(self, motion_encoder=None, text_encoder=None, init_cfg=None,
+                 seed: int = 0, device=None):
+        from ..utils.word_vectorizer import WordVectorizer
+
+        exact_f32()
+        self.device = resolve_device(device)
+        me, te = dict(motion_encoder or {}), dict(text_encoder or {})
+        self.max_text_len = te.get("max_text_len", 20)
+        word_size, pos_size = te.get("word_size", 300), te.get("pos_size", 15)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            self.movement = MovementConvEncoderModule(
+                me.get("input_size", 263) - 4, me.get("movement_hidden_size", 512),
+                me.get("movement_latent_size", 512))
+            self.motion_gru = BiGRUCoModule(me.get("movement_latent_size", 512),
+                                            me.get("motion_hidden_size", 1024),
+                                            me.get("motion_latent_size", 512))
+            self.text_gru = BiGRUCoModule(word_size, te.get("hidden_size", 512),
+                                          te.get("output_size", 512))
+            self.pos_emb = nn.Linear(pos_size, word_size)
+        self.w_vectorizer = WordVectorizer("./data/glove", "our_vab", word_size=word_size,
+                                           pos_size=pos_size)
+        self.pretrained_loaded = False
+        if init_cfg and init_cfg.get("type") == "Pretrained":
+            ckpt = init_cfg["checkpoint"]
+            if os.path.isfile(ckpt):
+                from ..utils.torch_convert import load_t2m_evaluator_ckpt
+                load_t2m_evaluator_ckpt(ckpt, self.movement, self.motion_gru, self.text_gru,
+                                        self.pos_emb)
+                self.pretrained_loaded = True
+            else:
+                print(f"[T2MContrastiveModel] checkpoint {ckpt} not found; "
+                      "using random weights (metrics will not be meaningful)")
+        for m in (self.movement, self.motion_gru, self.text_gru, self.pos_emb):
+            m.to(self.device).eval()
+
+    def _tensor(self, a, dtype):
+        t = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
+        return t.to(device=self.device, dtype=dtype)
+
+    @torch.no_grad()
+    def encode_motion(self, motion, motion_length=None, motion_mask=None, **kwargs):
+        """[B, T, input_size] motions of ``motion_length`` frames."""
+        motion = self._tensor(motion, torch.float32)
+        lengths = self._tensor(motion_length, torch.long).reshape(-1)
+        return self.motion_gru(self.movement(motion[..., :-4]), lengths // 4)
+
+    def tokens(self, text, token=None):
+        """Each caption's 'word/POS' tokens (its ``token`` line, else its
+        words as OTHER) between sos and eos, cut to ``max_text_len`` words
+        or padded with unk to ``max_text_len + 2``; and the unpadded
+        lengths."""
+        rows, lens = [], []
+        for i in range(len(text)):
+            toks = (token[i].split(" ") if token and token[i]
+                    else [f"{w}/OTHER" for w in str(text[i]).split(" ")])
+            toks = ["sos/OTHER"] + toks[:self.max_text_len] + ["eos/OTHER"]
+            lens.append(len(toks))
+            rows.append(toks + ["unk/OTHER"] * (self.max_text_len + 2 - len(toks)))
+        return rows, lens
+
+    @torch.no_grad()
+    def encode_text(self, text, token=None, **kwargs):
+        """Captions (with their 'word/POS' token lines where given) ->
+        [B, output size]: word vector plus projected POS one-hot a token."""
+        rows, lens = self.tokens(text, token)
+        vecs = [[self.w_vectorizer[t] for t in toks] for toks in rows]
+        word = np.stack([np.stack([w for w, _ in row]) for row in vecs])
+        pos = np.stack([np.stack([p for _, p in row]) for row in vecs])
+        inputs = (self._tensor(word, torch.float32)
+                  + self.pos_emb(self._tensor(pos, torch.float32)))
+        return self.text_gru(inputs, self._tensor(lens, torch.long))

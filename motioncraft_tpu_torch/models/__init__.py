@@ -1,7 +1,8 @@
-from . import attentions  # noqa: F401  (registers STMA and the Efficient attentions)
+from . import attentions  # noqa: F401  (registers STMA, SAMI and the Efficient attentions)
 from . import losses  # noqa: F401  (registers MSELoss)
 from .architecture import MotionDiffusion  # noqa: F401
-from .baselines import MCMTransformer, MDMTransformer, MotionDiffuseTransformer  # noqa: F401
+from .baselines import (FineMoGenTransformer, MCMTransformer, MDMTransformer,  # noqa: F401
+                        MotionDiffuseTransformer)
 from .controlnet import ControlT2MBlock, ControlT2MHalf  # noqa: F401
 from .stmogen import PoseDecoder, PoseEncoder, STMoGenTransformer  # noqa: F401
 from .text_encoder import ClipTextModel, TextEncoder  # noqa: F401

@@ -181,7 +181,7 @@ class MotionDiffusion(nn.Module):
                outpainting: Optional[Outpainting] = None,
                pre_seq: Optional[torch.Tensor] = None,
                compute_dtype: Optional[torch.dtype] = None,
-               step_cache: Optional[StepCacheConfig] = None):
+               step_cache: Optional[StepCacheConfig] = None, num_intervals: int = 1):
         """Motion [B, T, D] for one batch (numpy arrays or tensors):
         ``motion`` (read for its shape, and returned as it is under
         ``inference_type='gt'``), ``motion_mask``, ``motion_length``,
@@ -194,8 +194,10 @@ class MotionDiffusion(nn.Module):
         the denoiser's dtype and must be the model's: bf16 needs
         ``bf16_cast_`` first.  ``step_cache`` turns on layer-residual reuse;
         with ``collect_errors`` it returns (motion, errors [steps, layers]
-        as a host numpy array).  Needs ``eval()`` mode, the inference
-        path."""
+        as a host numpy array).  ``num_intervals`` reaches every denoiser
+        call: FineMoGen's SAMI reads each run of that many rows as one
+        sequence of intervals; the other families ignore it.  Needs
+        ``eval()`` mode, the inference path."""
         if self.training:
             raise RuntimeError("MotionDiffusion.sample runs the inference path: call .eval()")
         motion = self._tensor(batch["motion"], torch.float32)
@@ -219,7 +221,7 @@ class MotionDiffusion(nn.Module):
         enc = self.encode_text(batch["text_ids"])
         xf_proj, xf_out = enc if isinstance(enc, tuple) else (None, enc)
         kw = {"motion_mask": motion_mask, "motion_length": motion_length,
-              "xf_out": xf_out.to(dtype)}
+              "xf_out": xf_out.to(dtype), "num_intervals": num_intervals}
         if xf_proj is not None:
             kw["xf_proj"] = xf_proj.to(dtype)
         if hasattr(self.model, "precompute_text_feats"):

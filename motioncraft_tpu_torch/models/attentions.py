@@ -18,6 +18,16 @@ in training (``train()``) it is the JAX package's training path: the text
 branch computed in the layer, masked keys and values joined along the
 sequence, and the generic linear attention, kernel K5
 (ops/linear_attention.py).  The MoEs' aux losses go to ``aux_losses``.
+
+SAMI, FineMoGen's attention: the same text and motion MoEs (text 2L lanes:
+key, value; motion 3L: body value, key, value) and static body graph, a
+linear-attention template per (batch, head) from the joint text + motion
+keys and values, a Gaussian time kernel over each interval's template
+times, and a third-order Taylor basis (state, velocity, acceleration, jerk
+FFNs of the template) mixed at each frame's time.  Its template products
+are plain einsums, as in the JAX package (no Pallas kernel there); its MoEs
+run K4's route and K1.  Inference only: its training terms (the MoE aux
+losses and the template's KL) wait for baseline training.
 """
 
 from __future__ import annotations
@@ -194,7 +204,10 @@ class STMA(nn.Module):
 
     def forward(self, x, xf=None, emb=None, src_mask=None, cond_type=None,
                 cfg_dedup: bool = False, text_feat=None, generator=None,
-                aux_losses=None):
+                aux_losses=None, **kwargs):
+        """``kwargs`` takes the conditions STMA does not use (the motion
+        lengths and ``num_intervals``, which SAMI reads), as in the JAX
+        package."""
         B, T, D = x.shape
         H, L = self.num_heads, self.latent_dim
         # CFG layer-0 dedup: the two batch halves are the same x/xf/emb, so the
@@ -234,3 +247,100 @@ class STMA(nn.Module):
             y_t = stma_linear_attention(motion_feat, text_feat.reshape(B, -1, 2 * L),
                                         src_mask.reshape(B, T, 1), text_cond)
         return x + self.proj_out(body_feat + y_t.reshape(B, T, D), emb)
+
+
+def _interval_ffn(latent_dim: int, ffn_dim: int, out_dim: int) -> nn.Sequential:
+    """SAMI's template FFN: Linear -> exact-erf GELU -> Linear (flax
+    ``layers_0`` / ``layers_2``, the Sequential's 0 and 2)."""
+    return nn.Sequential(nn.Linear(latent_dim, ffn_dim), nn.GELU(),
+                         nn.Linear(ffn_dim, out_dim))
+
+
+@ATTENTIONS.register_module()
+class SAMI(nn.Module):
+    """FineMoGen's spatio-temporal MoE attention (inference).  With
+    ``num_intervals`` NI, each run of NI consecutive batch rows is one
+    sequence of intervals: row i's frame times and template times are offset
+    by the lengths of the rows before it in its run."""
+
+    def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
+                 num_text_heads: int, num_experts: int, topk: int,
+                 gate_type: str = "cosine_top", gate_noise: float = 1.0,
+                 ffn_dim: int = 512, time_embed_dim: int = 2048,
+                 max_seq_len: int = 196, max_text_seq_len: int = 77,
+                 temporal_comb: bool = False, dropout: float = 0.0, expert_axis=None):
+        super().__init__()
+        L, H = latent_dim, num_heads
+        self.latent_dim, self.num_heads = L, H
+        self.num_text_heads, self.max_seq_len = num_text_heads, max_seq_len
+        self.text_norm = LayerNorm(text_latent_dim)
+        self.text_moe = MOE(num_experts, topk, text_latent_dim, text_latent_dim * 4,
+                            2 * L, num_text_heads, max_text_seq_len, gate_type,
+                            gate_noise, expert_axis=expert_axis)
+        self.norm = LayerNorm(L)
+        self.motion_moe = MOE(num_experts, topk, L, L * 4, 3 * L, H, max_seq_len,
+                              gate_type, gate_noise, expert_axis=expert_axis)
+        self.body_weight = nn.Parameter(torch.randn(H, H))
+        self.sigma = nn.Parameter(torch.full((1,), 100.0))
+        self.t_sigma = nn.Parameter(torch.ones(1))
+        self.template_t = _interval_ffn(L, ffn_dim, 1)
+        for name in ("template_s", "template_v", "template_a", "template_j"):
+            self.add_module(name, _interval_ffn(L, ffn_dim, L))
+        self.proj_out = StylizationBlock(H * L, time_embed_dim, dropout)
+
+    def forward(self, x, xf=None, emb=None, src_mask=None, cond_type=None,
+                motion_length=None, num_intervals: int = 1, **kwargs):
+        """``kwargs`` takes what the stack hands every ca_block and SAMI does
+        not use (``cfg_dedup``: SAMI computes both CFG halves, so its MoEs
+        route 2B rows as the JAX package's do; ``text_feat``, which is
+        always None: SAMI has no text branch to hoist)."""
+        if self.training:
+            raise NotImplementedError("training SAMI (its aux and KL losses): "
+                                      "ROADMAP queue 1: baseline training")
+        B, T, D = x.shape
+        H, L, S, NI = self.num_heads, self.latent_dim, self.max_seq_len, num_intervals
+        xh = x.reshape(B, T, H, L)
+        text_feat = self.text_moe(self.text_norm(
+            xf.reshape(B, xf.shape[1], self.num_text_heads, -1)))
+        motion_feat = self.motion_moe(self.norm(xh))
+        body_feat = torch.einsum("hl,bnld->bnhd", self.body_weight.softmax(dim=1),
+                                 motion_feat[..., :L]).reshape(B, T, D)
+
+        tc = ((cond_type % 10) > 0).to(x.dtype).reshape(B, 1, 1, 1)
+        mask = src_mask.reshape(B, T, 1, 1)
+        TXT = text_feat.shape[1]
+        key = torch.cat([(text_feat[..., :L] + (1 - tc) * NEG_INF).expand(B, TXT, H, L),
+                         motion_feat[..., L:2 * L] + (1 - mask) * NEG_INF], dim=1)
+        value = torch.cat([(text_feat[..., L:] * tc).expand(B, TXT, H, L),
+                           motion_feat[..., 2 * L:] * mask], dim=1)
+        template = torch.einsum("bnhd,bnhl->bhdl", key.softmax(dim=1), value)  # [B, H, L, L]
+
+        template_t = torch.sigmoid(self.template_t(template) / self.t_sigma)  # [B, H, L, 1]
+        template_t = template_t * motion_length.reshape(B, 1, 1, 1).to(x.dtype) / S
+        org_t = torch.arange(T, dtype=x.dtype, device=x.device) / S
+        # each interval's frames start where the intervals before it in its
+        # run of NI rows end
+        ml = motion_length.reshape(B // NI, NI).to(x.dtype)
+        offsets = torch.cumsum(ml, dim=1) - ml
+        t = org_t[None, None, :] + offsets[:, :, None] / S              # [B/NI, NI, T]
+        tt = template_t.reshape(B // NI, NI, H, L) + offsets[:, :, None, None] / S
+        tt = tt.transpose(1, 2)[:, None].expand(B // NI, NI, H, NI, L).reshape(B, 1, H, NI * L)
+        time_delta = (t.reshape(B, T, 1, 1) - tt) * S                  # [B, T, H, NI*L]
+        time_coef = (-(time_delta * time_delta) / self.sigma).softmax(dim=-1)
+
+        tmpl = template.reshape(B // NI, NI, H, L, L).transpose(1, 2)[:, None]
+        tmpl = tmpl.expand(B // NI, NI, H, NI, L, L).reshape(B, H, NI * L, L)
+        ts_, tv_, ta_, tj_ = (getattr(self, f"template_{k}")(tmpl) for k in "svaj")
+        tt1 = tt.reshape(B, H, NI * L, 1)
+        tt2 = tt1 * tt1
+        a0 = ts_ - tv_ * tt1 + ta_ * tt2 - tj_ * (tt2 * tt1)
+        a1 = tv_ - 2 * ta_ * tt1 + 3 * tj_ * tt2
+        a2 = ta_ - 3 * tj_ * tt1
+
+        def mix(a):
+            return torch.einsum("bnhd,bhdl->bnhl", time_coef, a).reshape(B, T, D)
+
+        tb = t.reshape(B, T, 1)
+        tb2 = tb * tb
+        y_t = mix(a0) + mix(a1) * tb + mix(a2) * tb2 + mix(tj_) * (tb2 * tb)
+        return x + self.proj_out(body_feat + y_t, emb)

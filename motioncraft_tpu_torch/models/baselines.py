@@ -1,5 +1,5 @@
-"""The baseline denoisers MotionDiffuse, MCM and MDM (PyTorch port of those
-classes of motioncraft_tpu/models/baselines.py).
+"""The baseline denoisers MotionDiffuse, MCM, MDM and FineMoGen (PyTorch port
+of those classes of motioncraft_tpu/models/baselines.py).
 
   - MotionDiffuseTransformer: the generic stack of the shared skeleton
     (models/diffusion_transformer.py): a Linear joint embedding, ``block_{i}``
@@ -19,6 +19,14 @@ classes of motioncraft_tpu/models/baselines.py).
     ``guide_scale``.  Its attention is the plain einsum one, as in the JAX
     package (no Pallas kernel there).  ``post_process`` rescales the root
     channels of the official released checkpoint.
+  - FineMoGenTransformer: STMoGen's skeleton (body-part PoseEncoder /
+    PoseDecoder, CFG on the doubled batch) with SAMI as the ca_block
+    (models/attentions.py): two MoEs a layer (K4's route and K1 each) and
+    SFFN (K2).  SAMI has no text branch to hoist and computes both CFG
+    halves in layer 0, as the JAX package's does; with the JAX package's
+    default ``text_hoist`` its sampling fails (its hoist calls SAMI without
+    motion), so the port's default computes what JAX computes with the
+    hoist off.
 
 Training the baselines is not ported (ROADMAP queue 1: baseline training):
 their training forward raises.  Nor are bf16, int8 and the step cache: each
@@ -36,6 +44,7 @@ from torch import nn
 
 from ..registry import ATTENTIONS, SUBMODULES
 from .diffusion_transformer import DiffusionTransformerBase, ffn_from_cfg
+from .stmogen import STMoGenTransformer
 from .text_encoder import ClipTextModel, PostLNEncoderLayer
 
 EXACT_F32_ONLY = ("bf16, int8 and the step cache are not ported to the baselines "
@@ -178,3 +187,11 @@ class MDMTransformer(nn.Module):
             motion = torch.cat([motion[..., :4] * 25.0, motion[..., 4:]], dim=-1)
         return motion
 
+
+@SUBMODULES.register_module()
+class FineMoGenTransformer(STMoGenTransformer):
+    """FineMoGen: the STMoGen skeleton with SAMI attention (the configs set
+    ``ca_block_cfg.type='SAMI'``).  Its step cache is not ported either."""
+
+    exact_f32_only = EXACT_F32_ONLY
+    supports_step_cache = False

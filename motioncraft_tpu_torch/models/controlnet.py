@@ -173,12 +173,14 @@ class ControlT2MHalf(nn.Module):
 
     def forward(self, motion, timesteps, motion_mask=None, motion_length=None, xf_out=None,
                 text_feats=None, *, c=None, c_enc=None, mode: str = "test", cond_type=None,
-                generator=None, aux_losses=None, step_cache=None, cache_flags=None):
+                generator=None, aux_losses=None, step_cache=None, cache_flags=None,
+                num_intervals: int = 1):
         """The CFG-guided test forward of ``motion`` [B, T, D] at
         original-scale ``timesteps`` [B], with the condition ``c`` [B, Tc, F]
         or its encoding ``c_enc`` [B, T, latent] (none: the base alone).
         With a ``step_cache`` and the step's host ``cache_flags``, returns
-        (output, new cache)."""
+        (output, new cache).  ``num_intervals`` is ignored: the STMA blocks
+        do not read it, as in the JAX package."""
         if mode != "test":
             raise NotImplementedError(f"ControlT2MHalf mode {mode!r}: ControlNet training "
                                       f"({TRAINING})")

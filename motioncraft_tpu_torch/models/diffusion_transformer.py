@@ -117,7 +117,7 @@ class DiffusionTransformerBase(nn.Module):
     def forward(self, motion, timesteps, motion_mask=None, motion_length=None,
                 xf_out=None, text_feats=None, *, xf_proj=None, mode: str = "test",
                 cond_type=None, generator=None, aux_losses=None, step_cache=None,
-                cache_flags=None):
+                cache_flags=None, num_intervals: int = 1):
         """``motion`` [B, T, D] at original-scale ``timesteps`` [B] -> model
         output [B, T, D].  ``mode="test"``: the test forward (STMoGen's
         CFG-guided).  ``mode="train"``: one pass at ``cond_type`` [B, 1, 1]
@@ -125,7 +125,9 @@ class DiffusionTransformerBase(nn.Module):
         ``generator`` and their aux losses appended to ``aux_losses``.  With
         ``use_text_proj``, ``xf_proj`` [B, time_embed_dim] is added to the
         time embedding.  With a ``step_cache`` and the step's host
-        ``cache_flags`` (test mode), returns (output, new cache)."""
+        ``cache_flags`` (test mode), returns (output, new cache).
+        ``num_intervals`` goes to the test forward, whose SAMI layers
+        (FineMoGen) read it; every other family ignores it."""
         src_mask = motion_mask[..., None] if motion_mask.dim() == 2 else motion_mask
         h, emb = self._embed(motion, timesteps)
         emb = emb.to(h.dtype)
@@ -140,7 +142,8 @@ class DiffusionTransformerBase(nn.Module):
         return self.forward_test(h=h, src_mask=src_mask, emb=emb,
                                  xf_out=xf_out, motion_length=motion_length,
                                  timesteps=timesteps, text_feats=text_feats,
-                                 step_cache=step_cache, cache_flags=cache_flags)
+                                 step_cache=step_cache, cache_flags=cache_flags,
+                                 num_intervals=num_intervals)
 
     def forward_test(self, h, src_mask, emb, xf_out, **kwargs):
         """The generic families' test forward: one pass of the stack, no

@@ -5,14 +5,18 @@ motioncraft_tpu/models/stmogen.py).
     static index tables; the decoder scatters the part heads back through an
     inverse permutation and averages them with the whole-body head, which is
     added as it is.
-  - The decoder stack is STMoGenDecoderLayer (STMA + SFFN).
+  - The decoder stack is STMoGenDecoderLayer (a ca_block, STMA or
+    FineMoGen's SAMI, + SFFN); every layer gets the CFG-doubled motion
+    lengths and ``num_intervals``, which STMA ignores and SAMI reads.
   - forward_test: classifier-free guidance on the doubled batch (text, then
     unconditional; ``cfg_batch``), the blocks, then ``cfg_mix``: decoded and
     mixed by w = (1 - (1000 - t) / 1000) * scale + 1 (the ControlNet of
     models/controlnet.py runs the same pieces around its control blocks);
     layer 0 computes its motion branch once for both halves (cfg_dedup), and
     the text MoE of every layer comes precomputed once per sampling call
-    (precompute_text_feats, on the doubled batch so MoE capacity matches).
+    (precompute_text_feats, on the doubled batch so MoE capacity matches;
+    none for a ca_block without a text branch, SAMI, which computes its
+    text MoE in every layer and both CFG halves in layer 0).
     Each of the two is a switch, on by default as in the JAX package
     (``cfg_layer0_dedup``, ``text_hoist``); with MoE capacity drops the
     dedup routes B tokens where the plain path routes 2B, so "off" is the
@@ -100,7 +104,7 @@ class PoseDecoder(nn.Module):
 
 
 class STMoGenDecoderLayer(nn.Module):
-    """ca_block (STMA) + ffn (SFFN)."""
+    """ca_block (STMA or SAMI) + ffn (SFFN)."""
 
     def __init__(self, ca_block_cfg: dict, ffn_cfg: dict):
         super().__init__()
@@ -116,9 +120,11 @@ class STMoGenDecoderLayer(nn.Module):
         """The layer's step-invariant text features (STMA.text_branch)."""
         return self.ca_block.text_branch(xf)
 
-    def forward(self, x, xf, emb, src_mask, cond_type, cfg_dedup=False, text_feat=None,
-                generator=None, aux_losses=None):
+    def forward(self, x, xf, emb, src_mask, cond_type, motion_length=None,
+                num_intervals: int = 1, cfg_dedup=False, text_feat=None, generator=None,
+                aux_losses=None):
         x = self.ca_block(x, xf=xf, emb=emb, src_mask=src_mask, cond_type=cond_type,
+                          motion_length=motion_length, num_intervals=num_intervals,
                           cfg_dedup=cfg_dedup, text_feat=text_feat, generator=generator,
                           aux_losses=aux_losses)
         return self.ffn(x, emb)
@@ -177,8 +183,9 @@ class STMoGenTransformer(DiffusionTransformerBase):
         """Per-layer text features [2B, 77, 1, 2L], computed once per sampling
         call on the CFG-doubled batch: MoE capacity and drops depend on the
         token count, so an undoubled batch would route differently.  None
-        when ``text_hoist`` is off: every layer then computes its own."""
-        if not self.text_hoist:
+        when ``text_hoist`` is off or the ca_block has no text branch
+        (SAMI): every layer then computes its own."""
+        if not self.text_hoist or not hasattr(self.block_0.ca_block, "text_branch"):
             return None
         xf2 = torch.cat([xf_out, xf_out], dim=0)
         return tuple(block.text_branch(xf2) for block in self.blocks)
@@ -210,15 +217,17 @@ class STMoGenTransformer(DiffusionTransformerBase):
                            device=next(self.parameters()).device)
 
     def forward_test(self, h, src_mask, emb, xf_out, motion_length=None,
-                     timesteps=None, text_feats=None, step_cache=None, cache_flags=None):
+                     timesteps=None, text_feats=None, step_cache=None, cache_flags=None,
+                     num_intervals: int = 1):
         h2, xf2, emb2, mask2, all_cond = self.cfg_batch(h, xf_out, emb, src_mask)
+        ml2 = None if motion_length is None else torch.cat([motion_length, motion_length])
         residuals = []
         for i, block in enumerate(self.blocks):
             if step_cache is not None and cache_flags[i]:
                 r = step_cache[i].to(h2.dtype)  # reuse: nothing launches
                 h2 = h2 + r
             else:
-                out = block(h2, xf2, emb2, mask2, all_cond,
+                out = block(h2, xf2, emb2, mask2, all_cond, ml2, num_intervals,
                             cfg_dedup=self.cfg_layer0_dedup and i == 0,
                             text_feat=None if text_feats is None else text_feats[i])
                 if step_cache is not None:

@@ -86,7 +86,7 @@ def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None
                         torch_checkpoint=None) -> Optional[Dict[str, torch.Tensor]]:
     """Load evaluation weights into ``model`` (the denoiser): a reference
     ``.pth`` (``torch_checkpoint``: STMoGen, ControlT2MHalf, MCM,
-    MotionDiffuse or MDM) or the flat
+    MotionDiffuse, MDM or FineMoGen) or the flat
     ``.npz`` of ``save_params`` (``checkpoint``: its ``params``,
     ``batch_stats`` and, for an int8 snapshot, ``quant``: the model is then
     quantized alike first), ``strict=True``.  Returns the state_dict loaded, or
@@ -113,6 +113,10 @@ def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None
         if sub["type"] == "MDMTransformer":
             return tc.load_mdm_ckpt(torch_checkpoint, model, sub.get("num_layers", 8),
                                     sub.get("clip_layers", 12))
+        if sub["type"] == "FineMoGenTransformer":
+            return tc.load_finemogen_ckpt(torch_checkpoint, model, sub["num_layers"],
+                                          sub.get("ffn_cfg", {}).get("num_heads", 1),
+                                          te.get("num_layers", 2), te.get("clip_layers", 12))
         if sub["type"] != "STMoGenTransformer":
             raise NotImplementedError(
                 f"reference checkpoints of {sub['type']}: the other families' converters "

@@ -18,6 +18,12 @@ The port's modules carry the flax module and parameter names, so flax
     [H, 1, f], ...) become buffers of the same name beside their weight;
     the model must be quantized first (``quantize_like``) for a strict load
 
+A bidirectional GRU is the one module whose layout differs: flax keeps a
+GRUCell per direction (``gru_fwd`` / ``gru_bwd``: Dense ``ir iz in`` on the
+input, ``hr hz hn`` on the hidden, the hidden r / z biases folded into
+``ir`` / ``iz``), torch one ``nn.GRU`` with the three gates stacked (r, z,
+n); ``bigru_from_jax_params`` maps such a tree.
+
 ``to_jax_variables`` is the exact inverse (``num_batches_tracked``, which
 flax does not keep, left out): a 3-d ``weight`` is a Conv1d's, a 2-d one a
 Linear's (or, under one of the embedding names, an Embedding's), a 1-d one
@@ -131,14 +137,40 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
     return to_jax_variables(state_dict)["params"]
 
 
+def bigru_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax tree holding a bidirectional GRU (``gru_fwd`` / ``gru_bwd``
+    GRUCells beside ordinary modules) -> the port's state_dict, the GRU
+    under ``gru`` (``nn.GRU(bidirectional=True)``): each direction's
+    ``weight_ih`` / ``weight_hh`` the r, z, n kernels transposed and
+    stacked, ``bias_ih`` the input biases (the folded r / z ones included)
+    and ``bias_hh`` zeros in its r / z thirds and ``hn``'s bias in its n
+    third, so torch computes the cell flax does."""
+    out = from_jax_params({k: v for k, v in params.items()
+                           if k not in ("gru_fwd", "gru_bwd")})
+    for name, suffix in (("gru_fwd", ""), ("gru_bwd", "_reverse")):
+        cell = params[name]
+        w = lambda gates: _tensor(np.concatenate(  # noqa: E731
+            [np.transpose(_array(cell[g]["kernel"])) for g in gates]))
+        hn = _array(cell["hn"]["bias"])
+        out[f"gru.weight_ih_l0{suffix}"] = w(("ir", "iz", "in"))
+        out[f"gru.weight_hh_l0{suffix}"] = w(("hr", "hz", "hn"))
+        out[f"gru.bias_ih_l0{suffix}"] = _tensor(np.concatenate(
+            [_array(cell[g]["bias"]) for g in ("ir", "iz", "in")]))
+        out[f"gru.bias_hh_l0{suffix}"] = _tensor(np.concatenate(
+            [np.zeros(2 * hn.size, np.float32), hn]))
+    return out
+
+
 def fabricate_state_dict(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Seeded random weights for every parameter and BatchNorm statistic of
     ``model`` (on the CPU), with magnitudes tamed so a deep stack of random
     layers stays in a sane numeric range: each tensor is N(0, 1) /
     sqrt(fan-in) (a Conv1d's fan-in is in x k); the gate temperatures are 0
     (logit scale 1) and the MoE position embeddings are scaled up by 8, so
-    routing spreads across the experts.  A BatchNorm's scale is near 1, its
-    running mean near 0 and its running variance in [0.5, 1.5)."""
+    routing spreads across the experts; SAMI's kernel widths ``sigma`` and
+    ``t_sigma`` keep the model's values (100 and 1 as built: a random width
+    near 0 would make its time kernel one-hot).  A BatchNorm's scale is near
+    1, its running mean near 0 and its running variance in [0.5, 1.5)."""
     g = torch.Generator().manual_seed(seed)
     norms = {name for name, m in model.named_modules()
              if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)}
@@ -164,6 +196,8 @@ def fabricate_state_dict(model: torch.nn.Module, seed: int = 0) -> Dict[str, tor
         v = torch.randn(shape, generator=g) / math.sqrt(max(fan_in, 4))
         if leaf == "temperature":
             v = torch.zeros(shape)
+        elif leaf in ("sigma", "t_sigma"):
+            v = p.detach().cpu().clone()
         elif name.endswith("moe.embedding"):
             v = v * 8.0
         sd[name] = v

@@ -15,9 +15,10 @@ Conventions: torch Linear weight [out, in] -> flax Dense kernel [in, out]
 LayerNorm / BatchNorm weight, bias -> scale, bias; BatchNorm running_mean,
 running_var -> batch_stats mean, var.
 
-The baselines' converters (MCM, MotionDiffuse, MDM in both its namings)
-are here too; FineMoGen's, ReMoDiffuse's and the BiGRU evaluator's are not
-ported yet.
+The baselines' converters (MCM, MotionDiffuse, MDM in both its namings,
+FineMoGen) and the HumanML3D / KIT-ML BiGRU evaluator's are here too;
+ReMoDiffuse's is not ported yet.  The evaluator's modules are torch ones
+laid out as the reference's, so its checkpoint loads by renaming keys.
 """
 
 from __future__ import annotations
@@ -191,6 +192,41 @@ def load_smplx_evaluator_ckpt(path: str, motion_module: torch.nn.Module,
     motion and text encoders; returns their two state_dicts."""
     motion, text = convert_smplx_evaluator(load_torch_state_dict(path), num_layers)
     return load_into(motion_module, motion), load_into(text_module, text)
+
+
+def _renamed(sd, names):
+    """The tensors of ``sd`` under each (reference prefix, port prefix) of
+    ``names``, moved under the port's prefix ('' for none)."""
+    return {_k(port, k[len(ref) + 1:]): v.detach().cpu() for ref, port in names
+            for k, v in sd.items() if k.startswith(ref + ".")}
+
+
+def load_t2m_evaluator_ckpt(path: str, movement: torch.nn.Module, motion_gru: torch.nn.Module,
+                            text_gru: torch.nn.Module, pos_emb: torch.nn.Module):
+    """Load the HumanML3D / KIT-ML evaluator's reference checkpoint
+    (``finest.tar``: the ``movement_encoder``, ``motion_encoder`` and
+    ``text_encoder`` state dicts) into the port's four modules
+    (``strict=True``): ``main.0`` / ``main.3`` -> ``conv1`` / ``conv2``,
+    ``output_net.{0,1,3}`` -> ``out1`` / ``out_ln`` / ``out2``, ``hidden``
+    [2, 1, H] -> [2, H], the GRU's and the rest's keys as they are.  Returns
+    their state_dicts."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    mov, mot, txt = (obj[k] for k in ("movement_encoder", "motion_encoder", "text_encoder"))
+
+    def bigru(sd):
+        out = _renamed(sd, (("input_emb", "input_emb"), ("gru", "gru"), ("output_net.0", "out1"),
+                            ("output_net.1", "out_ln"), ("output_net.3", "out2")))
+        out["hidden"] = sd["hidden"].detach().cpu().reshape(2, -1)
+        return out
+
+    loaded = []
+    for module, sd in ((movement, _renamed(mov, (("main.0", "conv1"), ("main.3", "conv2"),
+                                                 ("out_net", "out_net")))),
+                       (motion_gru, bigru(mot)), (text_gru, bigru(txt)),
+                       (pos_emb, _renamed(txt, (("pos_emb", ""),)))):
+        module.load_state_dict(sd, strict=True)
+        loaded.append(sd)
+    return tuple(loaded)
 
 
 # ------------------------------------------------------------------ CLIP
@@ -557,3 +593,58 @@ def load_mdm_ckpt(path: str, model: torch.nn.Module, num_layers: int,
     """Load a reference or official MDM .pth into the port's MDMTransformer;
     returns the state_dict loaded."""
     return load_into(model, convert_mdm(load_torch_state_dict(path), num_layers, clip_layers))
+
+
+# ------------------------------------------------------------- FineMoGen
+def t_interval_ffn(sd, prefix):
+    """SAMI's template FFN, an nn.Sequential(Linear, GELU, Linear) ->
+    ``layers_0`` / ``layers_2``."""
+    return {"layers_0": t_linear(sd, _k(prefix, "0")),
+            "layers_2": t_linear(sd, _k(prefix, "2"))}
+
+
+def t_sami(sd, prefix):
+    """SAMI attention params.  The reference's ``key_motion`` parameter is
+    declared but unused in its forward; skipped."""
+    g = lambda n: _k(prefix, n)  # noqa: E731
+    out = {"norm": t_layernorm(sd, g("norm")),
+           "text_norm": t_layernorm(sd, g("text_norm")),
+           "text_moe": t_moe(sd, g("text_moe")),
+           "motion_moe": t_moe(sd, g("motion_moe")),
+           "body_weight": sd[g("body_weight")],
+           "sigma": sd[g("sigma")].reshape(1),
+           "t_sigma": sd[g("t_sigma")].reshape(1),
+           "proj_out": t_stylization(sd, g("proj_out"))}
+    for name in ("template_s", "template_v", "template_a", "template_j", "template_t"):
+        out[name] = t_interval_ffn(sd, g(name))
+    return out
+
+
+def convert_finemogen(sd: Dict[str, np.ndarray], num_layers: int, num_heads: int,
+                      text_num_layers: int = 2, clip_layers: int = 12) -> dict:
+    """FineMoGenTransformer checkpoint (PoseEncoder / PoseDecoder + SAMI /
+    SFFN stack, STMoGen's skeleton) -> flax param tree."""
+    sd = _strip_model(sd)
+    out: dict = {
+        "sequence_embedding": sd["sequence_embedding"],
+        "time_embed": {"layers_0": t_linear(sd, "time_embed.0"),
+                       "layers_2": t_linear(sd, "time_embed.2")},
+        "joint_embed": t_pose_io(sd, "joint_embed", "embed"),
+        "out": t_pose_io(sd, "out", "out"),
+        "text_enc": _convert_text_enc(sd, text_num_layers, clip_layers),
+    }
+    for i in range(num_layers):
+        p = f"temporal_decoder_blocks.{i}"
+        out[f"block_{i}"] = {"ca_block": t_sami(sd, f"{p}.ca_block"),
+                             "ffn": t_sffn(sd, f"{p}.ffn", num_heads)}
+    return out
+
+
+def load_finemogen_ckpt(path: str, model: torch.nn.Module, num_layers: int, num_heads: int,
+                        text_num_layers: int = 2, clip_layers: int = 12
+                        ) -> Dict[str, torch.Tensor]:
+    """Load a reference FineMoGen .pth into the port's FineMoGenTransformer;
+    returns the state_dict loaded."""
+    tree = convert_finemogen(load_torch_state_dict(path), num_layers, num_heads,
+                             text_num_layers, clip_layers)
+    return load_into(model, tree)

@@ -192,6 +192,13 @@ CASES = [
     ("head_ffn", (128, 12, 128, 512)), ("head_ffn", (512, 12, 128, 512)),
     ("stma_linear_attention", (2, 64, 12, 128, 77)),
     ("stma_linear_attention", (8, 64, 12, 128, 77)),
+    # FineMoGen at B = 16 (32 CFG rows of 196 frames, 64-wide heads): SAMI's
+    # motion MoE at D = 64, F = 256 (N = 75264 tokens x 2 over 311 blocks of
+    # 512 rows; its text MoE is the flagship's D = 256 case above) and SFFN
+    # at d = 64, F = 512 over 12 heads (finemogen_t2m_smplx) and 8 (the
+    # HumanML3D / KIT-ML configs)
+    ("grouped_ffn", (16, 64, 256, [min(i // 19, 15) for i in range(311)])),
+    ("head_ffn", (6272, 12, 64, 512)), ("head_ffn", (6272, 8, 64, 512)),
 ]
 GRAD_CASES = [c for c in CASES if c[0] in ("fused_linear_attention", "fused_expert_ffn")]
 BF16_CASES = [

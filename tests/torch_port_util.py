@@ -25,7 +25,9 @@ def seeded_params(tree, seed=0):
     """A flax ``params`` tree of the same structure with seeded N(0, 1) /
     sqrt(fan-in) values (numpy; a Conv kernel [k, in, out] has fan-in
     k x in): gate temperatures 0 (logit scale 1), MoE position embeddings
-    scaled by 8 so routing spreads across experts."""
+    scaled by 8 so routing spreads across experts, SAMI's kernel widths
+    ``sigma`` / ``t_sigma`` at their initial 100 / 1 (a random width near 0
+    makes its time kernel one-hot)."""
     rng = np.random.RandomState(seed)
 
     def walk(node, path):
@@ -44,6 +46,8 @@ def seeded_params(tree, seed=0):
             v = rng.randn(*shape) / math.sqrt(max(fan_in, 4))
             if key == "temperature":
                 v = np.zeros(shape)
+            elif key in ("sigma", "t_sigma"):
+                v = np.full(shape, 100.0 if key == "sigma" else 1.0)
             elif key == "embedding" and path[-1:] != ["token_embedding"]:
                 v = v * 8.0
             out[key] = v.astype(np.float32)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Profile one flagship text-to-motion sampling batch of the PyTorch port on
-the card: device time by kernel, the port's own kernels summed, and the
-device's idle share over the batch.
+"""Profile one text-to-motion sampling batch of the PyTorch port on the card
+(the flagship, or another T2M config's model): device time by kernel, the
+port's own kernels summed, and the device's idle share over the batch.
 
     python3 tools/profile_torch_sample.py [--batch 16] [--bf16] [--trace out.json]
+    python3 tools/profile_torch_sample.py --config configs/finemogen/finemogen_t2m_smplx.py
 
 The weights are seeded and fabricated (no checkpoint is needed); ``--bf16``
 casts them to bf16 and samples with the denoiser in bf16.  One batch warms
@@ -44,6 +45,8 @@ def main():
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 weights and denoiser compute (apis.bf16_cast_)")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
+    ap.add_argument("--config", default="configs/stmogen/t2m_motionx_0_125b.py",
+                    help="the config whose model samples (relative to the repository)")
     args = ap.parse_args()
 
     import numpy as np
@@ -60,7 +63,7 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
-    cfg = Config.fromfile(os.path.join(ROOT, "configs/stmogen/t2m_motionx_0_125b.py"))
+    cfg = Config.fromfile(os.path.join(ROOT, args.config))
     arch = build_architecture(cfg["model"], device="cuda")
     arch.model.load_state_dict(fabricate_state_dict(arch.model, seed=0), strict=True)
     dtype = None
@@ -69,7 +72,9 @@ def main():
         dtype = torch.bfloat16
     rng = np.random.RandomState(0)
     texts = [f"a person walks and turns {i}" for i in range(args.batch)]
-    batch = make_text_batch(texts, lengths=rng.randint(40, 197, (args.batch, 1)))
+    m = cfg["model"]["model"]
+    batch = make_text_batch(texts, max_seq_len=m["max_seq_len"], input_feats=m["input_feats"],
+                            lengths=rng.randint(40, m["max_seq_len"] + 1, (args.batch, 1)))
     g = torch.Generator(device="cuda").manual_seed(0)
 
     arch.sample(batch, generator=g, compute_dtype=dtype)

@@ -12,6 +12,17 @@ Usage:
   python tools/torch_test.py CONFIG work_dir --torch-checkpoint released.pth
   python tools/torch_test.py configs/tests/tiny_t2m.py out --device cpu \\
       --cfg-options model.inference_type=gt          # FID must be ~0
+  python tools/torch_test.py configs/finemogen/finemogen_t2m.py out \\
+      --torch-checkpoint finemogen_t2m.pth     # FineMoGen (SAMI), exact f32 only
+
+The HumanML3D and KIT-ML configs (stmogen/t2m_humanml3d.py, the
+MotionDiffuse, MDM, MCM and FineMoGen ones) evaluate through the BiGRU
+evaluator (eval/models.py:T2MContrastiveModel): its ./data/evaluators
+checkpoint and ./data/glove word vectors where they exist, else seeded
+weights (flagged untrained_evaluator) and md5-hashed word vectors (not
+flagged, as in tools/test.py).  The JAX
+package's tools/test.py samples FineMoGen only with --cfg-options
+model.model.text_hoist=False; this tool computes the same at the default.
 
 ``--bf16`` casts the weights to bf16 and samples with the denoiser in bf16
 (the metric math stays f32), as tools/test.py does.  ``--int8 [w8a8|w8]``
@@ -53,7 +64,9 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", default=None,
                    help=".npz params snapshot (utils/checkpoint.py:save_params of "
                         "either package)")
-    p.add_argument("--torch-checkpoint", default=None, help="released STMoGen .pth")
+    p.add_argument("--torch-checkpoint", default=None,
+                   help="a reference .pth (STMoGen, ControlNet, MotionDiffuse, MCM, MDM, "
+                        "FineMoGen)")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--limit", type=int, default=None,
