@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flagship text-to-motion sampling, training and
-evaluation and its music-to-dance and speech-to-gesture long-form
-evaluations on one NVIDIA GPU, and hold each of its CUDA kernels against its
-plain PyTorch version.
+evaluation, its music-to-dance and speech-to-gesture long-form
+evaluations and its baselines on one NVIDIA GPU, and hold each of its CUDA
+kernels against its plain PyTorch version.
 
 Run from the root of the repository, on a machine with one card and the CUDA
 toolkit:
@@ -35,7 +35,16 @@ Phases; any failure exits non-zero:
      finemogen_t2m_smplx's 12 heads and finemogen_t2m's 8: K1 on the
      motion MoE at D = 64, F = 256 and on the text MoE at D = 256, K2 at
      d = 64, F = 512, K4's route over the motion, a skewed and the text
-     MoE's logits): max abs error against its tolerance (1e-2 x max |plain| for bf16; K4 exact in its
+     MoE's logits), and K5 at phase 17's shapes (the MCM ControlNet at R =
+     1 and 2 rows, no CFG: the channel self-attention [R, 512, 4, 49],
+     padded to 64 as phase 15's, and the cross-attention [R, 196, 8, 64]
+     over 77 keys; ReMoDiffuse at B = 16: its retrieval encoder's
+     self-attention [32, 196, 8, 64] masked past the retrieved lengths, the
+     semantics-modulated attention of the 64 CFG rows [64, 196, 8, 64] over
+     77 + 98 + 196 = 371 keys masked by cond_type 99 / 1 / 10 / 0, -2e6
+     where a retrieved frame is padded and the retrieval off, and
+     MoMatMoGen's dual one over 567 keys): max abs error against its
+     tolerance (1e-2 x max |plain| for bf16; K4 exact in its
      integers, its route's gates within 1e-6; on every path a route case
      leaning to one expert must drop choices); the kernel's device time from
      torch.profiler
@@ -93,7 +102,7 @@ Phases; any failure exits non-zero:
      windowed_sample_batch at R = 1 equals windowed_sample bit for bit on
      the card with the same draws, and neither waits for the device inside
      its window loop (CUDA sync debug mode); one ControlNet CFG forward
-     (c on, 2 x 120) and one whole outpainted window at R = 1 and at R = 4
+     (c on, 2 x 120) and one whole outpainted window at R = 1 and at R = 2
      (the condition encoded once for the batch, as windowed_sample_batch
      encodes a chunk's), card against CPU with the gate logits pinned as in
      phase 6 and the same draws
@@ -175,9 +184,9 @@ Phases; any failure exits non-zero:
      loader, whose forward equals the in-memory one bit for bit; then
      configs/mcm/mcm_t2m.py's DDIM-50 on one batch of 16 with the same
      launch check; then tools/torch_test.py on MotionDiffuse over a
-     synthetic Motion-X tree of 64 clips at batch 16 (one replication, a
-     full-width SMPL-X evaluator, Diversity on 32): finite metrics, K5's
-     launches what 4 batches x 1000 steps x 16 imply, wall seconds of
+     synthetic Motion-X tree of 32 clips at batch 16 (one replication, a
+     full-width SMPL-X evaluator, Diversity on 16): finite metrics, K5's
+     launches what 2 batches x 1000 steps x 16 imply, wall seconds of
      sampling and of evaluation
  16. FineMoGen (SAMI) on the card, with seeded fabricated weights:
      configs/finemogen/finemogen_t2m_smplx.py at full width (4 layers, 12
@@ -197,7 +206,28 @@ Phases; any failure exits non-zero:
      on the same tree, and on configs/finemogen/finemogen_kit.py over a
      251-d KIT-ML tree of 64 clips (its evaluator reads 247 features),
      gives FID <= 1e-3; wall seconds of sampling and of evaluation
- 17. one JSON line of the kernels' numbers, and last the device line
+ 17. the MCM ControlNet and ReMoDiffuse on the card, with seeded
+     fabricated weights: tools/torch_m2d_test.py on
+     configs/mcm/mcm_m2d_finedance.py and tools/torch_s2g_test.py on
+     configs/mcm/mcm_s2g_beats2.py (8 MCM layers + 2 control blocks, 512
+     wide; 196-frame windows overlapping by 30 / 4; 2 recordings of two
+     windows each, R = 1 and R = 2 in lockstep, R rows a denoiser call):
+     finite predictions and metrics, K5 20 a denoiser call and nothing
+     else; one denoiser call profiled (device kernels, device ms, idle
+     share); card vs CPU on one denoiser call, one outpainted window on the
+     same draws and (S2G) the WavEncoder on one window; R = 2 against
+     R = 1 on the same draws (each recording's rows of the lockstep draws).
+     Then configs/remodiffuse/remodiffuse_t2m.py: a fabricated retrieval
+     bank of 23,384 entries (the size of HumanML3D's train split, which
+     the config's t2m_text_train.npz indexes), the picks of 16 requests
+     (RetrievalDatabase) timed on the host,
+     encode_retrieval once, one DDIM-50 four-way CFG batch of 16 through
+     MotionDiffusion.sample(extra_model_kwargs={"re_dict": ...}): finite
+     [16, 196, 263] motions, K5 4 (the encoder) + 50 x 4 launches; one
+     denoiser call profiled; card vs CPU on encode_retrieval and one
+     denoiser call (B = 2); one MoMatMoGen forward at the same width (K5
+     twice a layer), card vs CPU
+ 18. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -244,6 +274,10 @@ GT_FID_TOL = 1e-3
 # the same at any track length; 1290 frames, 14 windows, keep phase 10
 # over two minutes)
 M2D_TRACKS, M2D_FRAMES, M2D_REC_BATCH = ["063", "132", "143", "036"], 300, 4
+# the lockstep window held against the CPU: 2 recordings (its 84 RePaint
+# steps run at full width on the host's CPU; R = 4 left the script near its
+# 1200 s limit on a slow host)
+M2D_PARITY_R = 2
 # phase 11: 4 BEAT2 test recordings of 244 frames: 4 windows of 64
 # overlapping by 4 (a window costs the same at any recording length)
 S2G_RECORDINGS, S2G_FRAMES, S2G_REC_BATCH = 4, 244, 4
@@ -302,7 +336,7 @@ MCM_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_t2m_smplx.py")
 MDM_CONFIG = os.path.join(ROOT, "configs", "mdm", "mdm_t2m_smplx.py")
 MCM_DDIM_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_t2m.py")
 BASELINE_CONFIGS = (MD_CONFIG, MCM_CONFIG, MDM_CONFIG)
-BASELINE_CLIPS, BASELINE_FRAMES = 64, 196
+BASELINE_CLIPS, BASELINE_FRAMES = 32, 196
 # phase 16: FineMoGen at full width (Motion-X 322-d, 12 heads) and its
 # HumanML3D config's protocol run on a synthetic tree of 64 clips;
 # MultiModality on 8 samples x 2 repeats
@@ -310,6 +344,16 @@ FMG_CONFIG = os.path.join(ROOT, "configs", "finemogen", "finemogen_t2m_smplx.py"
 FMG_HML_CONFIG = os.path.join(ROOT, "configs", "finemogen", "finemogen_t2m.py")
 FMG_KIT_CONFIG = os.path.join(ROOT, "configs", "finemogen", "finemogen_kit.py")
 FMG_CLIPS, FMG_MM_SAMPLES, FMG_MM_REPEATS = 64, 8, 2
+# phase 17: the MCM ControlNet's M2D and S2G configs through the long-form
+# CLIs (2 recordings of two 196-frame windows each, at R = 1 and R = 2 in
+# lockstep), ReMoDiffuse's DDIM-50 batch of BATCH over a fabricated
+# retrieval bank of REMO_BANK entries (HumanML3D's train split: 23,384
+# motions, each [196, 263] f32, 77 CLIP tokens of 512), and one MoMatMoGen
+# forward
+MCM_M2D_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_m2d_finedance.py")
+MCM_S2G_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_s2g_beats2.py")
+REMO_CONFIG = os.path.join(ROOT, "configs", "remodiffuse", "remodiffuse_t2m.py")
+MCM_RECORDINGS, MCM_REC_BATCH, REMO_BANK = 2, 2, 23384
 
 PALLAS = {
     "moe_route": "motioncraft_tpu/ops/pallas_moe.py:54",
@@ -515,7 +559,51 @@ def baseline_attention_inputs(torch, model_cfg, dev, B=BATCH):
     return {"fused_linear_attention": [self_case, cross_case]}
 
 
-def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finemogen_cfgs=None):
+def retrieval_attention_inputs(torch, model_cfg, dev, B=BATCH):
+    """K5's cases in phase 17's ReMoDiffuse (MoMatMoGen: ``model_cfg``'s
+    type) sampling at B requests of T = max_seq_len frames: the retrieval
+    encoder's self-attention over the B x R retrieved motions (masked past
+    their lengths), and the semantics-modulated attention of the 4B CFG
+    rows (cond_type 99 / 1 / 10 / 0) over 77 text keys, the R x T / stride
+    retrieved frames and the T motion frames (the dual version: twice, its
+    own and the other person's), masked as the model masks them: the text
+    off in rows 10 and 0, the retrieval off in rows 1 and 0 and on its
+    padded frames (-2e6 where both), the motion past varied lengths."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    m = model_cfg["model"]
+    rc = m["retrieval_cfg"]
+    T, D, H = m["max_seq_len"], m["latent_dim"], m["ca_block_cfg"]["num_heads"]
+    R, stride, Tb = rc["num_retrieval"], rc["stride"], rc["max_seq_len"]
+    rH = rc["sa_block_cfg"]["num_heads"]
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    neg = -1e6
+
+    def lengths_mask(n, frames):
+        lengths = torch.randint(min(40, frames), frames + 1, (n,), generator=g, device=dev)
+        return (torch.arange(frames, device=dev)[None] < lengths[:, None]).float()
+
+    retr_mask = lengths_mask(B * R, Tb)
+    km = retr_mask[:, :, None, None]
+    encoder = (r(B * R, Tb, rH, D // rH), r(B * R, Tb, rH, D // rH) + (1 - km) * neg,
+               r(B * R, Tb, rH, D // rH) * km)
+    cond = torch.tensor([99, 1, 10, 0], device=dev).repeat_interleave(B)
+    text_on = ((cond % 10) > 0).float()[:, None]
+    retr_on = ((cond // 10) > 0).float()[:, None]
+    re_mask = retr_mask[:, ::stride].reshape(B, -1).repeat(4, 1)
+    motion = lengths_mask(B, T).repeat(4, 1)
+    persons = 2 if m["type"] == "MoMatMoGenTransformer" else 1
+    add = torch.cat([(1 - text_on).expand(4 * B, 77) * neg,
+                     (1 - retr_on) * neg + (1 - re_mask) * neg,
+                     *[(1 - motion) * neg] * persons], dim=1)[:, :, None, None]
+    mul = torch.cat([text_on.expand(4 * B, 77), retr_on * re_mask,
+                     *[motion] * persons], dim=1)[:, :, None, None]
+    N, d = add.shape[1], D // H
+    sma = (r(4 * B, T, H, d), r(4 * B, N, H, d) + add, r(4 * B, N, H, d) * mul)
+    return {"fused_linear_attention": [encoder, sma]}
+
+
+def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finemogen_cfgs=None,
+                 mcm_cfgs=None, retrieval_cfgs=()):
     """(path, inputs) for phase 2: the T2M shapes (with training's), those
     of phase 12's buckets and of phase 14's drift and training, the M2D ones
     and the S2G ones; R recordings in lockstep are a CFG-doubled
@@ -526,7 +614,11 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
     and phase 16's FineMoGen sampling (``finemogen_cfgs``: {tag: model
     config} of the configs it samples; K1-K2 and K4's route at the
     flagship's batch with each one's SAMI widths; no K3, and no layer-0
-    half: SAMI routes both CFG halves)."""
+    half: SAMI routes both CFG halves); then phase 17's: the MCM
+    ControlNet's K5 cases at R recordings in lockstep (``mcm_cfgs``: {tag:
+    model config}; R rows, as it runs no CFG: its base's channel and cross
+    attention) and ReMoDiffuse's and MoMatMoGen's (``retrieval_cfgs``:
+    their model configs)."""
     t2m = flagship_inputs(torch, cfg, dev)
     layer0 = flagship_inputs(torch, cfg, dev, training=False, layer0=True)
     paths = [("t2m", t2m), ("t2m layer 0", layer0),
@@ -570,6 +662,13 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
         fmg = flagship_inputs(torch, fmg_cfg, dev, training=False)
         paths.append((f"{tag} B={BATCH}",
                       {k: v for k, v in fmg.items() if k != "stma_linear_attention"}))
+    for tag, mcm_cfg in (mcm_cfgs or {}).items():
+        base = {"model": mcm_cfg["model"]["base_model"]}
+        for R in (1, MCM_REC_BATCH):
+            paths.append((f"{tag} R={R}", baseline_attention_inputs(torch, base, dev, B=R)))
+    for model_cfg in retrieval_cfgs:
+        paths.append((f"{model_cfg['model']['type']} B={BATCH}",
+                      retrieval_attention_inputs(torch, model_cfg, dev)))
     return paths
 
 
@@ -642,10 +741,10 @@ def kernel_work(name, args):
 
 
 def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(),
-                  finemogen_cfgs=None):
+                  finemogen_cfgs=None, mcm_cfgs=None, retrieval_cfgs=()):
     """Phase 2: every kernel against its plain version, with times, at the
-    T2M shapes, at the M2D and S2G ones, at the baselines' and at
-    FineMoGen's."""
+    T2M shapes, at the M2D and S2G ones, at the baselines', at FineMoGen's,
+    and at the MCM ControlNet's, ReMoDiffuse's and MoMatMoGen's."""
     from motioncraft_tpu_torch.ops import KERNELS
     from motioncraft_tpu_torch.ops.stma_attention import max_active_clusters
 
@@ -654,7 +753,7 @@ def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(),
 
     rows = {}
     for path, inputs in kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg, baseline_cfgs,
-                                     finemogen_cfgs):
+                                     finemogen_cfgs, mcm_cfgs, retrieval_cfgs):
         for name, cases in inputs.items():
             for i, args in enumerate(cases):
                 kernel_case(torch, rows, path, name, i, args, KERNELS[name])
@@ -1341,7 +1440,7 @@ def phase_m2d(torch, full_cfg, dev="cuda", config=M2D_CONFIG, tracks=M2D_TRACKS,
         return {k: torch.as_tensor(v) for k, v in
                 _concat_parts([m(start, start + window) for m in mwbs]).items()}
 
-    window_parity(torch, cfg, arch, sd, window_batch, window, pre, "m2d", (1, M2D_REC_BATCH))
+    window_parity(torch, cfg, arch, sd, window_batch, window, pre, "m2d", (1, M2D_PARITY_R))
     print(f"[m2d] phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return runs
 
@@ -2669,6 +2768,13 @@ def k5_keeps_nothing(torch, dev):
           "mode: differentiable")
 
 
+def k5_per_call(model):
+    """K5's launches a denoiser call of a baseline: one per Efficient
+    attention (an MCM ControlNet's with its condition on, whose control
+    blocks run too)."""
+    return sum(type(m).__name__.startswith("Efficient") for m in model.modules())
+
+
 def phase_baselines(torch, dev="cuda", configs=BASELINE_CONFIGS, ddim_config=MCM_DDIM_CONFIG,
                     protocol_config=MD_CONFIG, clips=BASELINE_CLIPS):
     """Phase 15: MotionDiffuse, MCM and MDM at full width with their DDPM
@@ -2689,10 +2795,6 @@ def phase_baselines(torch, dev="cuda", configs=BASELINE_CONFIGS, ddim_config=MCM
     t_phase = time.perf_counter()
     k5_keeps_nothing(torch, dev)
     out = {}
-
-    def k5_per_call(model):
-        """K5's launches a denoiser call: one per Efficient attention."""
-        return sum(type(m).__name__.startswith("Efficient") for m in model.modules())
 
     def sample_batch(tag, arch, feats):
         T = BASELINE_FRAMES
@@ -3017,6 +3119,383 @@ def phase_finemogen(torch, dev="cuda", config=FMG_CONFIG, protocol_config=FMG_HM
     print(f"[finemogen] phase 16 took {time.perf_counter() - t_phase:.1f} s")
     return out
 
+# ---------------------------------------------------------------- phase 17
+def compare_devices(torch, tag, what, fn, card, cpu):
+    """fn(arch) on the card's architecture and on the CPU's (no MoE to pin):
+    the results within MODEL_REL_TOL x max(1, max |CPU|)."""
+    with torch.no_grad():
+        got, want = fn(card).cpu(), fn(cpu).cpu()
+    check(got.shape == want.shape and torch.isfinite(got).all(), f"{what}: {got.shape}")
+    scale = max(1.0, float(want.abs().max()))
+    diff = float((got - want).abs().max())
+    print(f"[{tag}-parity] {what}: card vs CPU max abs diff {diff:.3e} "
+          f"(tol {MODEL_REL_TOL} x {scale:.4g})")
+    check(diff <= MODEL_REL_TOL * scale, f"{tag} {what} card vs CPU: {diff} > tol")
+    return diff
+
+
+def mcm_long_form(torch, kind, config, tmp, dev="cuda", recordings=MCM_RECORDINGS):
+    """Phase 17's MCM ControlNet on ``config``: tools/torch_m2d_test.py
+    (``kind`` "m2d") or tools/torch_s2g_test.py ("s2g") at R = 1 and R =
+    MCM_REC_BATCH over recordings of two windows, K5's launches what the
+    calls imply (nothing else launched); one denoiser call profiled; card
+    vs CPU on one denoiser call and one outpainted window with the same
+    draws (and, for S2G, the WavEncoder on one window); R = MCM_REC_BATCH
+    in lockstep against each recording alone on the same draws."""
+    import numpy as np
+    from motioncraft_tpu_torch.apis.windowed import (_concat_parts, num_windows,
+                                                      windowed_sample, windowed_sample_batch)
+    from motioncraft_tpu_torch.config import Config
+    from motioncraft_tpu_torch.diffusion import Outpainting, Replay, RepaintConfig
+    from motioncraft_tpu_torch.diffusion import harmonize_schedule
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.checkpoint import save_params
+    from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
+
+    full = Config.fromfile(config)
+    cfg, win_cfg = full["model"], full["windowed"]
+    window, pre = win_cfg["window"], win_cfg["pre_frames"]
+    tag = f"mcm-{kind}"
+    arch = build_architecture(cfg, device=dev)
+    sd = fabricate_state_dict(arch.model, seed=SEED)
+    arch.model.load_state_dict(sd, strict=True)
+    model = arch.model
+    steps = arch.diffusion_test.num_timesteps
+    rp = RepaintConfig(overlap_len=pre)
+    outpaint_calls = sum(d for _, d in harmonize_schedule(steps, rp))
+    frames = 2 * window - pre
+    wins = num_windows(frames, window, pre)
+    calls = steps + (wins - 1) * outpaint_calls  # denoiser calls a recording
+    per_call = k5_per_call(model)
+    print(f"[{tag}] {type(model).__name__}: {model.num_layers} MCM layers + "
+          f"{model.copy_blocks_num} control blocks, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters; "
+          f"{recordings} recordings of {frames} frames: {wins} windows of {window} "
+          f"overlapping by {pre}, {calls} denoiser calls ({steps} + {wins - 1} x "
+          f"{outpaint_calls}), K5 {per_call} a call")
+    root = os.path.join(tmp, tag)
+    os.makedirs(root)
+    params = os.path.join(root, "params.npz")
+    save_params(params, model)
+    if kind == "m2d":
+        tool = load_tool("torch_m2d_test")
+        tree = os.path.join(root, "data")
+        write_finedance_tree(tree, M2D_TRACKS[:recordings], frames, SEED)
+        extra = ["--cfg-options", f"data.test.data_prefix={tree}"]
+    else:
+        tool = load_tool("torch_s2g_test")
+        extra = ["--beats2-args", write_beat2_tree(root, recordings, frames, SEED)]
+    out = {}
+    for R in (1, MCM_REC_BATCH):
+        argv = [config, "--device", dev, "--checkpoint", params, "--seed", str(SEED),
+                "--work-dir", os.path.join(root, f"R{R}"), "--recording-batch", str(R), *extra]
+        reset_launch_counts()
+        run = tool.main(argv)
+        counts = launch_counts()
+        groups = -(-recordings // R)
+        want = dict.fromkeys(counts, 0) | {"fused_linear_attention": groups * calls * per_call}
+        metric = {k: v for k, v in run["out"].items() if k not in ("flags", "protocol")}
+        n_win = run["windows"] * R
+        print(f"[{tag}] R={R}: {run['windows']} window batches ({n_win} recording windows, "
+              f"{R} rows a denoiser call) in {run['sample_s']:.3f} s: "
+              f"{run['sample_s'] / run['windows'] * 1e3:.1f} ms a window batch, "
+              f"{n_win * 60 / run['sample_s']:.1f} windows per minute; metric stage "
+              f"{run['eval_s']:.3f} s; launches {counts}")
+        print(f"[{tag}] R={R} metrics {json.dumps(metric)}")
+        check(len(run["preds"]) == recordings
+              and all(p.shape == (frames, 322) and np.isfinite(p).all() for p in run["preds"]),
+              f"{tag} R={R}: predictions of the wrong shape or not finite")
+        check(metric and all(np.isfinite(v) for v in metric.values()),
+              f"{tag} R={R}: metrics {metric}")
+        check(counts == want, f"{tag} R={R}: launch counts {counts} != expected {want}")
+        out[R] = {"counts": counts, "sample_s": run["sample_s"], "eval_s": run["eval_s"],
+                  "windows": run["windows"]}
+        recs = run["infos"] if kind == "m2d" else run["recordings"]
+        del run
+
+    def make_mwbs(R):
+        if kind == "m2d":
+            return [tool.make_window_batch_fn(i["c"], i["text"][0], window) for i in recs[:R]]
+        spf = win_cfg["audio_sr"] // win_cfg["pose_fps"]
+        return [tool.make_window_batch_fn(r, window, spf, win_cfg["pose_fps"])
+                for r in recs[:R]]
+
+    def window_batch(R, w):
+        start = w * (window - pre)
+        return {k: torch.as_tensor(v) for k, v in
+                _concat_parts([m(start, start + window) for m in make_mwbs(R)]).items()}
+
+    # the CLI's two paths on the card: R = MCM_REC_BATCH recordings in
+    # lockstep against each one alone (windowed_sample) on its rows of the
+    # lockstep run's draws
+    R, lock_draws = MCM_REC_BATCH, []
+    g_lock = torch.Generator(device=dev).manual_seed(SEED + 15)
+
+    def keep(shape):
+        lock_draws.append(torch.randn(tuple(shape), generator=g_lock, device=dev))
+        return lock_draws[-1].clone()
+
+    kw = dict(window=window, pre_frames=pre, repaint=rp)
+    lock = windowed_sample_batch(arch, make_mwbs(R), [frames] * R, randn=keep, **kw)
+    for r, mwb in enumerate(make_mwbs(R)):
+        rows = Replay([a[r:r + 1] for a in lock_draws], dev)
+        alone = windowed_sample(arch, mwb, total_frames=frames, randn=rows, **kw)
+        check(rows.done(), f"{tag}: recording {r} alone took {rows.used} of "
+              f"{len(lock_draws)} draws")
+        scale = max(1.0, float(np.abs(alone).max()))
+        diff = float(np.abs(lock[r] - alone).max())
+        print(f"[{tag}-parity] recording {r} of {R} in lockstep vs alone, {frames} frames, "
+              f"same draws: max abs diff {diff:.3e} (tol {MODEL_REL_TOL} x {scale:.4g})")
+        check(lock[r].shape == alone.shape and diff <= MODEL_REL_TOL * scale,
+              f"{tag} recording {r}: lockstep vs alone {diff} > tol")
+
+    # one denoiser call at R = 1, the condition encoded as sampling does
+    batch = {k: v.to(dev) for k, v in window_batch(1, 0).items()}
+    g = torch.Generator().manual_seed(SEED + 13)
+    x = torch.randn(1, window, 322, generator=g)
+    ts = torch.full((1,), 499)
+    with torch.no_grad():
+        xp, xf = arch.encode_text(batch["text_ids"])
+        c_enc = model.encode_condition(batch["c"], window)
+
+    def call():
+        with torch.no_grad():
+            model(x.to(dev), ts.to(dev), motion_mask=batch["motion_mask"], xf_out=xf,
+                  xf_proj=xp, c_enc=c_enc)
+
+    reset_launch_counts()
+    call()
+    check(launch_counts()["fused_linear_attention"] == per_call, f"{tag}: K5 a call")
+    launches, busy, wall = profile_call(torch, call)
+    out["call"] = {"launches": launches, "device_ms": busy, "wall_ms": wall,
+                   "k5": per_call}
+    print(f"[{tag}] one denoiser call, 1 x {window}: {launches:.0f} device kernels "
+          f"({per_call} of them K5), {busy:.3f} ms on the device, {wall:.3f} ms a "
+          f"back-to-back call (idle share {1 - busy / wall:.3f})")
+
+    # card vs CPU: one denoiser call (the raw condition), the encoder, and
+    # window 1 outpainted from a seeded previous window on the same draws
+    cpu = build_architecture(cfg, device="cpu")
+    cpu.model.load_state_dict(sd, strict=True)
+    arch.repaint_cfg = cpu.repaint_cfg = rp
+    host = window_batch(1, 0)
+
+    def forward(a):
+        b = {k: v.to(a.device) for k, v in host.items()}
+        proj, text = a.encode_text(b["text_ids"])
+        return a.model(x.to(a.device), ts.to(a.device), motion_mask=b["motion_mask"],
+                       xf_out=text, xf_proj=proj, c=b["c"])
+
+    compare_devices(torch, tag, f"denoiser call, 1 x {window}, c on", forward, arch, cpu)
+    if kind == "s2g":
+        compare_devices(torch, tag, f"WavEncoder, one window of {host['c'].shape[1]} samples",
+                        lambda a: a.model.condition_pre_encoder(host["c"].to(a.device)),
+                        arch, cpu)
+    batch1 = window_batch(1, 1)
+    last = torch.randn(1, window, 322, generator=g)
+    gt = torch.cat([last[:, -pre:], torch.zeros(1, window - pre, 322)], dim=1)
+    mask = (torch.arange(window) < pre).reshape(1, window, 1)
+    n_steps = len(harmonize_schedule(steps, rp))
+    draws = [torch.randn(1, window, 322, generator=g) for _ in range(1 + n_steps)]
+
+    def outpaint(a):
+        source = Replay(draws, a.device)
+        res = a.sample({k: v.to(a.device) for k, v in batch1.items()}, randn=source,
+                       outpainting=Outpainting(mask=mask.to(a.device), gt=gt.to(a.device)))
+        check(source.done(), f"the window took {source.used} of {len(draws)} draws")
+        return res
+
+    compare_devices(torch, tag, f"outpainted window, 1 x {window}, {n_steps} RePaint steps",
+                    outpaint, arch, cpu)
+    del cpu, arch
+    return out
+
+
+def write_retrieval_bank(torch, path, n, T, feats, width, seed, dev="cuda"):
+    """A retrieval bank .npz with RetrievalDatabase's keys, written to
+    ``path`` (a file name or a binary file object): n entries of
+    text_features [width], a caption, motions [T, feats] with their
+    m_lengths (40..T), clip_seq_features [77, width], all f32, drawn on
+    ``dev`` (2.1e9 normals at full size)."""
+    import numpy as np
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).cpu().numpy()
+
+    np.savez(path, text_features=normal(n, width),
+             captions=np.array([f"a person does move {i}" for i in range(n)]),
+             motions=normal(n, T, feats, scale=0.5),
+             m_lengths=torch.randint(min(40, T), T + 1, (n,), generator=g,
+                                     device=dev).cpu().numpy(),
+             clip_seq_features=normal(n, 77, width))
+
+
+def momat_config(remo):
+    """MoMatMoGen at the width of the ReMoDiffuse model config ``remo`` (no
+    config of the repo builds it): the dual transformer, its cross-attention
+    the dual semantics-modulated one."""
+    m = remo["model"]
+    return dict(remo, model=dict(m, type="MoMatMoGenTransformer", ca_block_cfg=dict(
+        m["ca_block_cfg"], type="DualSemanticsModulatedAttention")))
+
+
+def retrieval_runs(torch, dev="cuda", config=REMO_CONFIG, bank=REMO_BANK):
+    """Phase 17's ReMoDiffuse: the picks of a fabricated bank for BATCH
+    requests, encode_retrieval once, one DDIM-50 batch through
+    ``sample(extra_model_kwargs={"re_dict": ...})`` with K5's launches (the
+    encoder's layers once, the semantics-modulated attention of every layer
+    a step) and finite [BATCH, T, feats] motions; one denoiser call
+    profiled; card vs CPU on encode_retrieval and one denoiser call (B = 2);
+    then one MoMatMoGen forward at the same width (K5 twice a layer) and
+    card vs CPU on it."""
+    import io
+
+    import numpy as np
+    from motioncraft_tpu_torch.config import Config
+    from motioncraft_tpu_torch.models.baselines import RetrievalDatabase
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
+
+    cfg = Config.fromfile(config).model
+    m, rc = cfg["model"], cfg["model"]["retrieval_cfg"]
+    T, feats, R = m["max_seq_len"], m["input_feats"], rc["num_retrieval"]
+    arch = build_architecture(cfg, device=dev)
+    sd = fabricate_state_dict(arch.model, seed=SEED)
+    arch.model.load_state_dict(sd, strict=True)
+    model = arch.model
+    steps, layers = arch.diffusion_test.num_timesteps, model.num_layers
+    print(f"[remo] {type(model).__name__}: {layers} layers, {R} retrievals, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters")
+    # the bank .npz in memory (about 8.5 GB at full size), loaded as a file
+    t0 = time.perf_counter()
+    with io.BytesIO() as f:
+        write_retrieval_bank(torch, f, bank, rc["max_seq_len"], feats, rc["latent_dim"], SEED,
+                             dev)
+        f.seek(0)
+        db = RetrievalDatabase(**dict(rc, retrieval_file=f))
+    print(f"[remo] retrieval bank of {len(db.m_lengths)} entries (motions "
+          f"{db.motions.nbytes / 1e9:.2f} GB, CLIP tokens {db.clip_seq_features.nbytes / 1e9:.2f}"
+          f" GB) made and loaded in {time.perf_counter() - t0:.1f} s")
+    batch = requests(BATCH, SEED + 700, T, feats)
+    queries = np.random.RandomState(SEED + 701).randn(BATCH, rc["latent_dim"])
+    asked = list(zip(queries, batch["motion_length"].reshape(-1), batch["motion_metas"]))
+    t0 = time.perf_counter()
+    picks = [i for q, n, meta in asked for i in db.retrieve(q, int(n), meta["text"])]
+    t1 = time.perf_counter()
+    gathered = [torch.as_tensor(a) for a in db.gather(picks, BATCH)]
+    t2 = time.perf_counter()
+    again = [i for q, n, meta in asked for i in db.retrieve(q, int(n), meta["text"])]
+    pick_ms, gather_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    cached_ms = (time.perf_counter() - t2) * 1e3
+    check(len(picks) == BATCH * R and again == picks, f"{len(picks)} picks")
+    print(f"[remo] host retrieval of {BATCH} requests over {len(db.m_lengths)} entries: "
+          f"picks {pick_ms:.1f} ms ({pick_ms / BATCH:.2f} ms a request), gather of "
+          f"{BATCH * R} rows {gather_ms:.1f} ms, the same requests again from the cache "
+          f"{cached_ms:.3f} ms")
+
+    def encode(a, rows=BATCH):
+        return a.model.encode_retrieval(*(t[:rows * R].to(a.device) for t in gathered), R)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        re_dict = encode(arch)
+    pred = arch.sample(batch, generator=torch.Generator(device=dev).manual_seed(SEED),
+                       extra_model_kwargs={"re_dict": re_dict})
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    n_enc = rc["num_motion_layers"]
+    want = dict.fromkeys(counts, 0) | {"fused_linear_attention": n_enc + steps * layers}
+    print(f"[remo] DDIM-{steps} 4-way CFG batch of {BATCH} x {T} x {feats} ({4 * BATCH} rows a "
+          f"call) in {wall:.1f} ms ({wall / steps:.3f} ms a step), encode_retrieval "
+          f"included; launches {counts}")
+    check(pred.shape == (BATCH, T, feats) and bool(torch.isfinite(pred).all()),
+          f"ReMoDiffuse output {tuple(pred.shape)}")
+    check(counts == want, f"ReMoDiffuse launch counts {counts} != expected {want}")
+    out = {"remodiffuse": {"counts": counts, "wall_ms": wall, "steps": steps,
+                           "pick_ms": pick_ms, "gather_ms": gather_ms}}
+
+    g = torch.Generator().manual_seed(SEED + 14)
+    x = torch.randn(BATCH, T, feats, generator=g)
+    ts = torch.full((BATCH,), 640)
+    kw = baseline_condition(torch, arch, batch)
+
+    def call():
+        with torch.no_grad():
+            model(x.to(dev), ts.to(dev), re_dict=re_dict, **kw)
+
+    launches, busy, call_wall = profile_call(torch, call)
+    out["remodiffuse"].update(call_launches=launches, call_device_ms=busy,
+                              call_wall_ms=call_wall)
+    print(f"[remo] one denoiser call B={BATCH} ({4 * BATCH} rows): {launches:.0f} device "
+          f"kernels, {busy:.3f} ms on the device, {call_wall:.3f} ms a back-to-back call "
+          f"(idle share {1 - busy / call_wall:.3f})")
+
+    small = {k: v[:2] for k, v in batch.items()}
+    cpu = build_architecture(cfg, device="cpu")
+    cpu.model.load_state_dict(sd, strict=True)
+    for what, key in (("re_motion", "re_motion"), ("re_text", "re_text")):
+        compare_devices(torch, "remo", f"encode_retrieval {what}, 2 x {R} rows",
+                        lambda a, k=key: encode(a, 2)[k], arch, cpu)
+
+    def forward(a):
+        return a.model(x[:2].to(a.device), ts[:2].to(a.device), re_dict=encode(a, 2),
+                       **baseline_condition(torch, a, small))
+
+    compare_devices(torch, "remo", "denoiser call, B = 2 (8 rows)", forward, arch, cpu)
+    del arch, cpu
+
+    # MoMatMoGen at the same width: two persons through one joint embedding
+    dual = momat_config(cfg)
+    arch = build_architecture(dual, device=dev)
+    sd = fabricate_state_dict(arch.model, seed=SEED)
+    arch.model.load_state_dict(sd, strict=True)
+    x2 = torch.randn(BATCH, T, 2 * feats, generator=g)
+    kw = baseline_condition(torch, arch, batch)
+    with torch.no_grad():
+        re_dual = encode(arch)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y = arch.model(x2.to(dev), ts.to(dev), re_dict=re_dual, **kw)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    want = dict.fromkeys(counts, 0) | {"fused_linear_attention": 2 * layers}
+    print(f"[momat] one forward, B={BATCH} ({4 * BATCH} rows) x {T} x {2 * feats}: "
+          f"{wall:.1f} ms; launches {counts}")
+    check(y.shape == (BATCH, T, 2 * feats) and bool(torch.isfinite(y).all()),
+          f"MoMatMoGen output {tuple(y.shape)}")
+    check(counts == want, f"MoMatMoGen launch counts {counts} != expected {want}")
+    out["momatmogen"] = {"counts": counts, "wall_ms": wall}
+    cpu = build_architecture(dual, device="cpu")
+    cpu.model.load_state_dict(sd, strict=True)
+    compare_devices(torch, "momat", "forward, B = 2 (8 rows)", lambda a: a.model(
+        x2[:2].to(a.device), ts[:2].to(a.device), re_dict=encode(a, 2),
+        **baseline_condition(torch, a, small)), arch, cpu)
+    return out
+
+
+def phase_mcm_retrieval(torch, dev="cuda", m2d_config=MCM_M2D_CONFIG,
+                        s2g_config=MCM_S2G_CONFIG, remo_config=REMO_CONFIG):
+    """Phase 17: the MCM ControlNet through both long-form CLIs, then
+    ReMoDiffuse and MoMatMoGen.  Returns each run's launches and times."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, config in (("m2d", m2d_config), ("s2g", s2g_config)):
+            out[f"mcm_{kind}"] = mcm_long_form(torch, kind, config, tmp, dev)
+    out.update(retrieval_runs(torch, dev, remo_config))
+    print(f"[mcm/remo] phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
 
 def main():
     try:
@@ -3036,7 +3515,8 @@ def main():
         print(f"chip_smoke: the port is not next to this script ({e})", file=sys.stderr)
         return 2
     for path in (CONFIG, M2D_CONFIG, S2G_CONFIG, HARNESS_CONFIG, *BASELINE_CONFIGS,
-                 MCM_DDIM_CONFIG, FMG_CONFIG, FMG_HML_CONFIG, FMG_KIT_CONFIG):
+                 MCM_DDIM_CONFIG, FMG_CONFIG, FMG_HML_CONFIG, FMG_KIT_CONFIG, MCM_M2D_CONFIG,
+                 MCM_S2G_CONFIG, REMO_CONFIG):
         if not os.path.isfile(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 2
@@ -3058,7 +3538,13 @@ def main():
     k5_cfgs = [Config.fromfile(p)["model"] for p in (MD_CONFIG, MCM_CONFIG)]
     fmg_cfgs = {os.path.basename(p)[:-3]: Config.fromfile(p)["model"]
                 for p in (FMG_CONFIG, FMG_HML_CONFIG)}
-    rows = phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg, k5_cfgs, fmg_cfgs)
+    # phase 17's: the MCM ControlNet (M2D and S2G share their base's
+    # shapes at a 196-frame window), ReMoDiffuse and MoMatMoGen
+    mcm_cfgs = {"mcm_m2d_finedance": Config.fromfile(MCM_M2D_CONFIG)["model"]}
+    remo = Config.fromfile(REMO_CONFIG)["model"]
+    retrieval_cfgs = [remo, momat_config(remo)]
+    rows = phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg, k5_cfgs, fmg_cfgs, mcm_cfgs,
+                         retrieval_cfgs)
 
     t0 = time.perf_counter()
     arch = build_architecture(cfg, device="cuda")
@@ -3083,6 +3569,7 @@ def main():
     harness = phase_harness(torch, Config.fromfile(HARNESS_CONFIG))
     baselines = phase_baselines(torch)
     finemogen = phase_finemogen(torch)
+    mcm_remo = phase_mcm_retrieval(torch)
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
@@ -3114,6 +3601,12 @@ def main():
         row["baseline_launches"] = {k: v["counts"][name] for k, v in baselines.items()}
         # phase 16: FineMoGen's DDIM-50 batch and its protocol run
         row["finemogen_launches"] = [finemogen[k]["counts"][name] for k in ("batch", "protocol")]
+        # phase 17: the MCM ControlNet's M2D and S2G CLI runs (R = 1, then
+        # R = 2), ReMoDiffuse's DDIM-50 batch and the MoMatMoGen forward
+        row["mcm_launches"] = {k: [mcm_remo[k][R]["counts"][name] for R in (1, MCM_REC_BATCH)]
+                               for k in ("mcm_m2d", "mcm_s2g")}
+        row["retrieval_launches"] = {k: mcm_remo[k]["counts"][name]
+                                     for k in ("remodiffuse", "momatmogen")}
         check(row["launches"] > 0, f"{name} was launched no time on its path")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

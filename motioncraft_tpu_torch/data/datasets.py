@@ -222,12 +222,14 @@ def beat2_pose_to_smplx322(pose165: np.ndarray, facial100: np.ndarray,
 class FinedanceMotionDataset(BaseMotionDataset):
     """FineDance music-to-dance data: the motion remap, 163-d music
     features, a style caption from the label json and the 360-frame head
-    trim."""
+    trim.  ``ann_config`` (the BEAT2 yaml that configs/mcm/mcm_m2d_finedance.py
+    inherits from its speech base) is accepted and unused; the JAX
+    package's dataset refuses it."""
 
     def __init__(self, data_prefix, pipeline, dataset_name=None, fixed_length=None,
                  ann_file=None, motion_dir=None, text_dir=None, clip_feat_dir=None,
                  eval_cfg=None, test_mode=False, datasplit=None, music_dir=None,
-                 seed=None):
+                 seed=None, ann_config=None):
         self.datasplit = datasplit
         join = lambda d: os.path.join(data_prefix, "datasets", dataset_name, d) if d else None
         self.music_dir = join(music_dir)

@@ -181,7 +181,8 @@ class MotionDiffusion(nn.Module):
                outpainting: Optional[Outpainting] = None,
                pre_seq: Optional[torch.Tensor] = None,
                compute_dtype: Optional[torch.dtype] = None,
-               step_cache: Optional[StepCacheConfig] = None, num_intervals: int = 1):
+               step_cache: Optional[StepCacheConfig] = None, num_intervals: int = 1,
+               extra_model_kwargs: Optional[Dict[str, Any]] = None):
         """Motion [B, T, D] for one batch (numpy arrays or tensors):
         ``motion`` (read for its shape, and returned as it is under
         ``inference_type='gt'``), ``motion_mask``, ``motion_length``,
@@ -196,8 +197,11 @@ class MotionDiffusion(nn.Module):
         with ``collect_errors`` it returns (motion, errors [steps, layers]
         as a host numpy array).  ``num_intervals`` reaches every denoiser
         call: FineMoGen's SAMI reads each run of that many rows as one
-        sequence of intervals; the other families ignore it.  Needs
-        ``eval()`` mode, the inference path."""
+        sequence of intervals; the other families ignore it.
+        ``extra_model_kwargs`` reach every denoiser call as they are, their
+        arrays on the model's device (ReMoDiffuse's ``re_dict``, from
+        ``model.encode_retrieval``).  Needs ``eval()`` mode, the inference
+        path."""
         if self.training:
             raise RuntimeError("MotionDiffusion.sample runs the inference path: call .eval()")
         motion = self._tensor(batch["motion"], torch.float32)
@@ -226,6 +230,9 @@ class MotionDiffusion(nn.Module):
             kw["xf_proj"] = xf_proj.to(dtype)
         if hasattr(self.model, "precompute_text_feats"):
             kw["text_feats"] = self.model.precompute_text_feats(kw["xf_out"])
+        for name, value in (extra_model_kwargs or {}).items():
+            kw[name] = ({k: self._tensor(v) for k, v in value.items()}
+                        if isinstance(value, dict) else value)
         if hasattr(self.model, "encode_condition"):
             if batch.get("c_enc") is not None:
                 kw["c_enc"] = self._tensor(batch["c_enc"], dtype)

@@ -28,6 +28,17 @@ FFNs of the template) mixed at each frame's time.  Its template products
 are plain einsums, as in the JAX package (no Pallas kernel there); its MoEs
 run K4's route and K1.  Inference only: its training terms (the MoE aux
 losses and the template's KL) wait for baseline training.
+
+SemanticsModulatedAttention, ReMoDiffuse's: the motion queries against one
+key set of the text tokens, the retrieved motions (each retrieved frame's
+feature joined with its caption's feature) and the motion itself; the dual
+version (MoMatMoGen) adds the other person's motion and runs each person
+with the same weights.  The keys carry additive -1e6 masks: the text off
+where ``cond_type % 10 == 0``, the retrieval off where ``cond_type // 10 ==
+0`` and on its padded frames (``re_mask``; a key masked both ways carries
+-2e6), the motion off on padded frames.  The values are masked alike,
+multiplicatively, and ``value_retr`` is zero-initialised.  The function
+after the projections is K5's (ops/linear_attention.py).
 """
 
 from __future__ import annotations
@@ -39,7 +50,7 @@ from torch import nn
 from ..ops.linear_attention import fused_linear_attention
 from ..ops.stma_attention import NEG_INF, stma_linear_attention
 from ..registry import ATTENTIONS
-from .blocks import LayerNorm, StylizationBlock
+from .blocks import LayerNorm, StylizationBlock, ZeroDense
 from .moe import MOE
 
 
@@ -344,3 +355,103 @@ class SAMI(nn.Module):
         tb2 = tb * tb
         y_t = mix(a0) + mix(a1) * tb + mix(a2) * tb2 + mix(tj_) * (tb2 * tb)
         return x + self.proj_out(body_feat + y_t, emb)
+
+
+class _SemanticsModulatedBase(nn.Module):
+    """The projections ReMoDiffuse's attentions share, and their text and
+    retrieval keys and values."""
+
+    def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
+                 dropout: float = 0.0, time_embed_dim: int = 2048):
+        super().__init__()
+        D = latent_dim
+        self.latent_dim, self.num_heads = D, num_heads
+        self.norm = LayerNorm(D)
+        self.text_norm = LayerNorm(text_latent_dim)
+        self.query = nn.Linear(D, D)
+        self.key_text = nn.Linear(text_latent_dim, D)
+        self.value_text = nn.Linear(text_latent_dim, D)
+        self.key_motion = nn.Linear(D, D)
+        self.value_motion = nn.Linear(D, D)
+        self.retr_norm1 = LayerNorm(2 * D)
+        self.retr_norm2 = LayerNorm(D)
+        self.key_retr = nn.Linear(2 * D, D)
+        self.value_retr = ZeroDense(D, D)
+        self.proj_out = StylizationBlock(D, time_embed_dim, dropout)
+
+    def text_and_retrieval(self, xf, cond_type, re_dict):
+        """(keys, values) of the text tokens and the retrieved frames,
+        masked: [B, N_text + R x Tr, D] each."""
+        re_motion, re_text = re_dict["re_motion"], re_dict["re_text"]  # [B, R, Tr|1, D]
+        B, R, Tr, D = re_motion.shape
+        re_mask = re_dict["re_mask"].reshape(B, R * Tr, 1)
+        tn = self.text_norm(xf)
+        cond_type = cond_type.reshape(B, 1, 1)
+        text_cond = ((cond_type % 10) > 0).to(xf.dtype)
+        retr_cond = ((cond_type // 10) > 0).to(xf.dtype)
+        re_feat_key = torch.cat([re_motion, re_text.expand(B, R, Tr, D)],
+                                dim=-1).reshape(B, R * Tr, 2 * D)
+        keys = torch.cat([
+            self.key_text(tn) + (1 - text_cond) * NEG_INF,
+            self.key_retr(self.retr_norm1(re_feat_key)) + (1 - retr_cond) * NEG_INF
+            + (1 - re_mask) * NEG_INF], dim=1)
+        values = torch.cat([
+            self.value_text(tn) * text_cond,
+            self.value_retr(self.retr_norm2(re_motion.reshape(B, R * Tr, D)))
+            * retr_cond * re_mask], dim=1)
+        return keys, values
+
+    def attend(self, xn, key, value):
+        """K5 of the normalised motion's queries over ``key`` / ``value``
+        [B, N, D] -> [B, T, D]."""
+        B, T, D = xn.shape
+        N, H = key.shape[1], self.num_heads
+        return fused_linear_attention(self.query(xn).reshape(B, T, H, -1),
+                                      key.reshape(B, N, H, -1),
+                                      value.reshape(B, N, H, -1)).reshape(B, T, D)
+
+
+@ATTENTIONS.register_module()
+class SemanticsModulatedAttention(_SemanticsModulatedBase):
+    """ReMoDiffuse's retrieval-conditioned linear attention over text,
+    retrieval and motion keys (N = N_text + R x Tr + T)."""
+
+    def forward(self, x, xf=None, emb=None, src_mask=None, cond_type=None, re_dict=None,
+                **kwargs):
+        xn = self.norm(x)
+        kv_key, kv_value = self.text_and_retrieval(xf, cond_type, re_dict)
+        key = torch.cat([kv_key, self.key_motion(xn) + (1 - src_mask) * NEG_INF], dim=1)
+        value = torch.cat([kv_value, self.value_motion(xn) * src_mask], dim=1)
+        return x + self.proj_out(self.attend(xn, key, value), emb)
+
+
+@ATTENTIONS.register_module()
+class DualSemanticsModulatedAttention(_SemanticsModulatedBase):
+    """MoMatMoGen's two-person version: x [B, T, 2 x latent], each person's
+    queries over the text, the retrieval, its own motion and the other
+    person's (``key_inter`` / ``value_inter``), with one set of weights
+    (N = N_text + R x Tr + 2 T)."""
+
+    def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
+                 dropout: float = 0.0, time_embed_dim: int = 2048):
+        super().__init__(latent_dim, text_latent_dim, num_heads, dropout, time_embed_dim)
+        self.key_inter = nn.Linear(latent_dim, latent_dim)
+        self.value_inter = nn.Linear(latent_dim, latent_dim)
+
+    def forward(self, x, xf=None, emb=None, src_mask=None, cond_type=None, re_dict=None,
+                **kwargs):
+        L = self.latent_dim
+        x1, x2 = x[:, :, :L], x[:, :, L:]
+        kt, vt = self.text_and_retrieval(xf, cond_type, re_dict)
+        n1, n2 = self.norm(x1), self.norm(x2)
+
+        def person(nx, nother):
+            key = torch.cat([kt, self.key_motion(nx) + (1 - src_mask) * NEG_INF,
+                             self.key_inter(nother) + (1 - src_mask) * NEG_INF], dim=1)
+            value = torch.cat([vt, self.value_motion(nx) * src_mask,
+                               self.value_inter(nother) * src_mask], dim=1)
+            return self.attend(nx, key, value)
+
+        y1 = x1 + self.proj_out(person(n1, n2), emb)
+        y2 = x2 + self.proj_out(person(n2, n1), emb)
+        return torch.cat([y1, y2], dim=-1)

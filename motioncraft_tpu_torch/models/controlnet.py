@@ -1,7 +1,9 @@
 """The ControlNet branch for music-to-dance and speech-to-gesture (PyTorch
-port of motioncraft_tpu/models/controlnet.py, STMoGen base).
+port of motioncraft_tpu/models/controlnet.py, over an STMoGen or an MCM
+base).
 
-  - The base model (``base_model``, an STMoGenTransformer) runs as it is.
+  - The base model (``base_model``: an STMoGenTransformer, or for
+    ``ControlT2MHalfMCM`` an MCMTransformer) runs as it is.
   - The first ``copy_blocks_num`` decoder layers are copied as control
     blocks (``controlnet_N.copied_block``) with zero-initialised projections
     around them (``before_proj`` on block 0, ``after_proj`` on each), so that
@@ -14,7 +16,7 @@ port of motioncraft_tpu/models/controlnet.py, STMoGen base).
     1..copy_blocks_num.
   - Condition-CFG zeroes ``c`` on the unconditional half of the CFG batch.
 
-The test forward is the base's CFG test forward with the control blocks
+The STMoGen test forward is the base's CFG test forward with the control blocks
 between its block 0 and block copy_blocks_num + 1: block 0 still sees two
 identical halves, so its layer-0 dedup applies as in the base model.  The
 control blocks' text MoEs are hoisted with the base's
@@ -31,10 +33,19 @@ output.  Such a layer is cached as the compound of its control block and its
 base block: reusing it replays both its h-residual (the c_skip injection
 included) and its ``c``, so the control chain downstream stays consistent.
 
+The MCM test forward (``block_type="mcm"``, the JAX package's
+controlnet_mcm.py) runs no classifier-free guidance: one pass of the base's
+MCMDecoderLayers at ``cond_type=None`` (the cross-attention unmasked), the
+copied blocks MCMDecoderLayers too, the pooled text projection ``xf_proj``
+added to the time embedding, and the base's zero-init output.  It has no
+text MoE to hoist (``precompute_text_feats`` is None), no layer-0 dedup and
+no step cache, and, as the MCM base, runs in exact f32 only
+(``exact_f32_only``).  Its attentions are K5 (ops/linear_attention.py).
+
 Not ported, and refused: the wav2vec condition pre-encoder, patched
-conditions (``patch_size > 1``), the MCM block type and ControlNet training
-(ROADMAP queue 1; ``joint_embed_unfreeze`` and ``unfreeze_mode``, training's
-freezing masks, are accepted and unused).
+conditions (``patch_size > 1``) and ControlNet training (ROADMAP queue 1;
+``joint_embed_unfreeze`` and ``unfreeze_mode``, training's freezing masks,
+are accepted and unused).
 """
 
 from __future__ import annotations
@@ -45,25 +56,31 @@ import torch
 from torch import nn
 
 from ..registry import SUBMODULES
+from .baselines import MCMDecoderLayer
 from .blocks import WavEncoder, ZeroDense
 from .stmogen import STMoGenDecoderLayer
 
 S2G_REST = "ROADMAP queue 1: the rest of S2G (wav2vec)"
 ZOO = "ROADMAP queue 1: the rest of the baseline zoo"
 TRAINING = "ROADMAP queue 1: the rest of training"
+BASE_TYPES = {"stmogen": "STMoGenTransformer", "mcm": "MCMTransformer"}  # block type -> base
 
 
 class ControlT2MBlock(nn.Module):
-    """A copied decoder layer with zero-initialised in/out projections."""
+    """A copied decoder layer (an STMoGenDecoderLayer, or for
+    ``block_type="mcm"`` an MCMDecoderLayer) with zero-initialised in/out
+    projections."""
 
-    def __init__(self, ca_block_cfg: dict, ffn_cfg: dict, block_index: int, latent_dim: int):
+    def __init__(self, ca_block_cfg: dict, ffn_cfg: dict, block_index: int, latent_dim: int,
+                 block_type: str = "stmogen", sa_block_cfg: Optional[dict] = None):
         super().__init__()
         self.block_index = block_index
         if block_index == 0:
             self.before_proj = nn.Linear(latent_dim, latent_dim)
             nn.init.zeros_(self.before_proj.weight)
             nn.init.zeros_(self.before_proj.bias)
-        self.copied_block = STMoGenDecoderLayer(ca_block_cfg, ffn_cfg)
+        self.copied_block = (MCMDecoderLayer(sa_block_cfg, ca_block_cfg, ffn_cfg)
+                             if block_type == "mcm" else STMoGenDecoderLayer(ca_block_cfg, ffn_cfg))
         self.after_proj = ZeroDense(latent_dim, latent_dim)
 
     def forward(self, x, c, xf, emb, src_mask, cond_type, text_feat=None):
@@ -77,7 +94,7 @@ class ControlT2MBlock(nn.Module):
 
 @SUBMODULES.register_module()
 class ControlT2MHalf(nn.Module):
-    """STMoGen base + control branch."""
+    """Base model + control branch."""
 
     def __init__(self, base_model: Optional[dict] = None, copy_blocks_num: int = 2,
                  control_cond_feats: int = 438, condition_encode_cfg: Optional[dict] = None,
@@ -87,9 +104,11 @@ class ControlT2MHalf(nn.Module):
         super().__init__()
         base_cfg = dict(base_model or {})
         base_type = base_cfg.setdefault("type", "STMoGenTransformer")
-        if block_type != "stmogen" or base_type != "STMoGenTransformer":
+        if BASE_TYPES.get(block_type) != base_type:
             raise NotImplementedError(
-                f"ControlNet over {base_type} blocks ({block_type!r}): the MCM base ({ZOO})")
+                f"ControlNet of block type {block_type!r} over {base_type}: only "
+                f"{BASE_TYPES} ({ZOO})")
+        self.block_type = block_type
         if patch_size > 1:
             raise NotImplementedError(f"ControlNet with patch_size > 1: PatchEmbed1D ({ZOO})")
         cc = dict(condition_encode_cfg or {})
@@ -113,7 +132,8 @@ class ControlT2MHalf(nn.Module):
         self.condition_cfg_enabled = cc.get("condition_cfg", True)
         for i in range(copy_blocks_num):
             self.add_module(f"controlnet_{i}", ControlT2MBlock(
-                base_cfg["ca_block_cfg"], base_cfg["ffn_cfg"], i, base.latent_dim))
+                base_cfg["ca_block_cfg"], base_cfg["ffn_cfg"], i, base.latent_dim,
+                block_type, base_cfg.get("sa_block_cfg")))
         # after a pre-encoder the projection reads its features (flax infers
         # the width)
         self.control_cond_input = ZeroDense(cond_width, base.latent_dim)
@@ -151,7 +171,10 @@ class ControlT2MHalf(nn.Module):
 
     def precompute_text_feats(self, xf_out):
         """The base's per-layer text features plus one per control block,
-        on the CFG-doubled batch; None when the base's hoist is off."""
+        on the CFG-doubled batch; None when the base's hoist is off, and
+        for the MCM block type, which has no text MoE."""
+        if self.block_type != "stmogen":
+            return None
         base_feats = self.base_model.precompute_text_feats(xf_out)
         if base_feats is None:
             return None
@@ -159,7 +182,16 @@ class ControlT2MHalf(nn.Module):
         return {"base": base_feats,
                 "ctrl": tuple(blk.copied_block.text_branch(xf2) for blk in self.controlnet)}
 
-    supports_step_cache = True
+    @property
+    def supports_step_cache(self) -> bool:
+        """The STMoGen block type only, as in the JAX package."""
+        return self.block_type == "stmogen"
+
+    @property
+    def exact_f32_only(self) -> Optional[str]:
+        """The base's reason to run in exact f32 only (the MCM base's), or
+        None."""
+        return getattr(self.base_model, "exact_f32_only", None)
 
     def make_step_cache(self, B: int, T: int, dtype=torch.float32) -> dict:
         """The zero dict cache of the CFG-doubled test forward (module
@@ -172,15 +204,17 @@ class ControlT2MHalf(nn.Module):
                                  device=dev)}
 
     def forward(self, motion, timesteps, motion_mask=None, motion_length=None, xf_out=None,
-                text_feats=None, *, c=None, c_enc=None, mode: str = "test", cond_type=None,
-                generator=None, aux_losses=None, step_cache=None, cache_flags=None,
-                num_intervals: int = 1):
-        """The CFG-guided test forward of ``motion`` [B, T, D] at
-        original-scale ``timesteps`` [B], with the condition ``c`` [B, Tc, F]
-        or its encoding ``c_enc`` [B, T, latent] (none: the base alone).
-        With a ``step_cache`` and the step's host ``cache_flags``, returns
-        (output, new cache).  ``num_intervals`` is ignored: the STMA blocks
-        do not read it, as in the JAX package."""
+                text_feats=None, *, xf_proj=None, c=None, c_enc=None, mode: str = "test",
+                cond_type=None, generator=None, aux_losses=None, step_cache=None,
+                cache_flags=None, num_intervals: int = 1):
+        """The test forward of ``motion`` [B, T, D] at original-scale
+        ``timesteps`` [B], with the condition ``c`` [B, Tc, F] or its
+        encoding ``c_enc`` [B, T, latent] (none: the base alone): STMoGen's
+        CFG-guided one, or MCM's single pass (``xf_proj`` [B,
+        time_embed_dim], the pooled text, added to the time embedding).
+        With a ``step_cache`` and the step's host ``cache_flags`` (STMoGen),
+        returns (output, new cache).  ``num_intervals`` is ignored: neither
+        block type reads it, as in the JAX package."""
         if mode != "test":
             raise NotImplementedError(f"ControlT2MHalf mode {mode!r}: ControlNet training "
                                       f"({TRAINING})")
@@ -194,6 +228,10 @@ class ControlT2MHalf(nn.Module):
             # encoded in f32 as sampling encodes it (flax's forward would
             # encode a raw condition in the compute dtype)
             c = self.encode_condition(c.float(), h.shape[1]).to(h.dtype)
+        if self.block_type == "mcm":
+            if base.use_text_proj and xf_proj is not None:
+                emb = emb + xf_proj.to(h.dtype)
+            return self._forward_mcm(h, emb, xf_out, src_mask, c)
         h2, xf2, emb2, mask2, all_cond = base.cfg_batch(h, xf_out, emb, src_mask)
         c2 = None
         if c is not None:
@@ -236,3 +274,25 @@ class ControlT2MHalf(nn.Module):
             return mixed
         return mixed, {"h": torch.stack(residuals),
                        "c": torch.stack(new_c) if new_c else torch.zeros_like(step_cache["c"])}
+
+    def _forward_mcm(self, h, emb, xf_out, src_mask, c):
+        """MCM's test forward: block 0, the control blocks injecting into
+        blocks 1..copy_blocks_num, the rest, then the base's output; no
+        CFG, the text unmasked (``cond_type=None``)."""
+        base = self.base_model
+        B, T = h.shape[:2]
+        kw = dict(xf=xf_out, emb=emb, src_mask=src_mask, cond_type=None)
+        for i, block in enumerate(base.blocks):
+            if c is not None and 1 <= i <= self.copy_blocks_num:
+                c, c_skip = self.controlnet[i - 1](h, c, **kw)
+                h = h + c_skip
+            h = block(h, **kw)
+        return base.out(h).reshape(B, T, -1)
+
+
+@SUBMODULES.register_module()
+class ControlT2MHalfMCM(ControlT2MHalf):
+    """The MCM ControlNet: the same scheme over MCMTransformer blocks."""
+
+    def __init__(self, *args, block_type: str = "mcm", **kwargs):
+        super().__init__(*args, block_type=block_type, **kwargs)

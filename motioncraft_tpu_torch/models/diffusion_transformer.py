@@ -39,7 +39,8 @@ def ffn_from_cfg(ffn_cfg: Optional[dict]) -> Optional[nn.Module]:
 
 class GenericDecoderLayer(nn.Module):
     """sa_block -> ca_block -> ffn, each where its config is given; every
-    block gets every condition and uses what it needs."""
+    attention gets every condition (ReMoDiffuse's ``re_dict`` too) and uses
+    what it needs."""
 
     def __init__(self, sa_block_cfg: Optional[dict] = None,
                  ca_block_cfg: Optional[dict] = None, ffn_cfg: Optional[dict] = None):
@@ -48,10 +49,10 @@ class GenericDecoderLayer(nn.Module):
         self.ca_block = ATTENTIONS.build(ca_block_cfg)
         self.ffn = ffn_from_cfg(ffn_cfg)
 
-    def forward(self, x, xf, emb, src_mask, cond_type=None):
+    def forward(self, x, xf, emb, src_mask, cond_type=None, **kwargs):
         for block in (self.sa_block, self.ca_block):
             if block is not None:
-                x = block(x, xf=xf, emb=emb, src_mask=src_mask, cond_type=cond_type)
+                x = block(x, xf=xf, emb=emb, src_mask=src_mask, cond_type=cond_type, **kwargs)
         return x if self.ffn is None else self.ffn(x, emb)
 
 
@@ -117,7 +118,7 @@ class DiffusionTransformerBase(nn.Module):
     def forward(self, motion, timesteps, motion_mask=None, motion_length=None,
                 xf_out=None, text_feats=None, *, xf_proj=None, mode: str = "test",
                 cond_type=None, generator=None, aux_losses=None, step_cache=None,
-                cache_flags=None, num_intervals: int = 1):
+                cache_flags=None, num_intervals: int = 1, re_dict=None):
         """``motion`` [B, T, D] at original-scale ``timesteps`` [B] -> model
         output [B, T, D].  ``mode="test"``: the test forward (STMoGen's
         CFG-guided).  ``mode="train"``: one pass at ``cond_type`` [B, 1, 1]
@@ -127,7 +128,9 @@ class DiffusionTransformerBase(nn.Module):
         time embedding.  With a ``step_cache`` and the step's host
         ``cache_flags`` (test mode), returns (output, new cache).
         ``num_intervals`` goes to the test forward, whose SAMI layers
-        (FineMoGen) read it; every other family ignores it."""
+        (FineMoGen) read it; every other family ignores it.  ``re_dict``
+        (ReMoDiffuse's encoded retrieval, ``encode_retrieval``) goes to the
+        test forward of the families that read it."""
         src_mask = motion_mask[..., None] if motion_mask.dim() == 2 else motion_mask
         h, emb = self._embed(motion, timesteps)
         emb = emb.to(h.dtype)
@@ -143,7 +146,7 @@ class DiffusionTransformerBase(nn.Module):
                                  xf_out=xf_out, motion_length=motion_length,
                                  timesteps=timesteps, text_feats=text_feats,
                                  step_cache=step_cache, cache_flags=cache_flags,
-                                 num_intervals=num_intervals)
+                                 num_intervals=num_intervals, re_dict=re_dict)
 
     def forward_test(self, h, src_mask, emb, xf_out, **kwargs):
         """The generic families' test forward: one pass of the stack, no

@@ -218,7 +218,7 @@ class STMoGenTransformer(DiffusionTransformerBase):
 
     def forward_test(self, h, src_mask, emb, xf_out, motion_length=None,
                      timesteps=None, text_feats=None, step_cache=None, cache_flags=None,
-                     num_intervals: int = 1):
+                     num_intervals: int = 1, **kwargs):
         h2, xf2, emb2, mask2, all_cond = self.cfg_batch(h, xf_out, emb, src_mask)
         ml2 = None if motion_length is None else torch.cat([motion_length, motion_length])
         residuals = []

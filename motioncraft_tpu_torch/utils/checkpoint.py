@@ -85,21 +85,22 @@ def align_block_layout(model_cfg: dict, tree):
 def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None,
                         torch_checkpoint=None) -> Optional[Dict[str, torch.Tensor]]:
     """Load evaluation weights into ``model`` (the denoiser): a reference
-    ``.pth`` (``torch_checkpoint``: STMoGen, ControlT2MHalf, MCM,
-    MotionDiffuse, MDM or FineMoGen) or the flat
+    ``.pth`` (``torch_checkpoint``: STMoGen, either ControlNet, MCM,
+    MotionDiffuse, MDM, FineMoGen, ReMoDiffuse or MoMatMoGen) or the flat
     ``.npz`` of ``save_params`` (``checkpoint``: its ``params``,
     ``batch_stats`` and, for an int8 snapshot, ``quant``: the model is then
     quantized alike first), ``strict=True``.  Returns the state_dict loaded, or
     None when neither file is given."""
     sub = model_cfg["model"]
-    if torch_checkpoint and sub["type"] == "ControlT2MHalf":
+    if torch_checkpoint and sub["type"] in ("ControlT2MHalf", "ControlT2MHalfMCM"):
         from .torch_convert import load_controlnet_ckpt
         bm = sub["base_model"]
         te = bm.get("text_encoder", {})
         return load_controlnet_ckpt(torch_checkpoint, model, bm["num_layers"],
                                     bm.get("ffn_cfg", {}).get("num_heads", 1),
                                     sub.get("copy_blocks_num", 2), te.get("num_layers", 2),
-                                    te.get("clip_layers", 12))
+                                    te.get("clip_layers", 12),
+                                    block_type="mcm" if "MCM" in sub["type"] else "stmogen")
     if torch_checkpoint:
         from . import torch_convert as tc
         te = sub.get("text_encoder", {})
@@ -117,6 +118,12 @@ def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None
             return tc.load_finemogen_ckpt(torch_checkpoint, model, sub["num_layers"],
                                           sub.get("ffn_cfg", {}).get("num_heads", 1),
                                           te.get("num_layers", 2), te.get("clip_layers", 12))
+        if sub["type"] in ("ReMoDiffuseTransformer", "MoMatMoGenTransformer"):
+            rc = sub.get("retrieval_cfg", {})
+            return tc.load_remodiffuse_ckpt(torch_checkpoint, model, sub["num_layers"],
+                                            rc.get("num_motion_layers", 4),
+                                            rc.get("num_layers", 2), te.get("num_layers", 2),
+                                            te.get("clip_layers", 12))
         if sub["type"] != "STMoGenTransformer":
             raise NotImplementedError(
                 f"reference checkpoints of {sub['type']}: the other families' converters "

@@ -15,10 +15,11 @@ Conventions: torch Linear weight [out, in] -> flax Dense kernel [in, out]
 LayerNorm / BatchNorm weight, bias -> scale, bias; BatchNorm running_mean,
 running_var -> batch_stats mean, var.
 
-The baselines' converters (MCM, MotionDiffuse, MDM in both its namings,
-FineMoGen) and the HumanML3D / KIT-ML BiGRU evaluator's are here too;
-ReMoDiffuse's is not ported yet.  The evaluator's modules are torch ones
-laid out as the reference's, so its checkpoint loads by renaming keys.
+The baselines' converters (MCM and its ControlNet, MotionDiffuse, MDM in
+both its namings, FineMoGen, ReMoDiffuse / MoMatMoGen with the retrieval
+encoder) and the HumanML3D / KIT-ML BiGRU evaluator's are here too.  The
+evaluator's modules are torch ones laid out as the reference's, so its
+checkpoint loads by renaming keys.
 """
 
 from __future__ import annotations
@@ -391,22 +392,26 @@ def load_stmogen_ckpt(path: str, model: torch.nn.Module, num_layers: int, num_he
 # -------------------------------------------------------------- ControlNet
 def convert_controlnet(sd: Dict[str, np.ndarray], num_layers: int, num_heads: int,
                        copy_blocks_num: int, text_num_layers: int = 2,
-                       clip_layers: int = 12) -> Tuple[dict, dict]:
+                       clip_layers: int = 12, block_type: str = "stmogen") -> Tuple[dict, dict]:
     """Merged base+control checkpoint (the released format: keys
     base_model.* / controlnet.N.* / control_cond_input.*, and for speech the
     WavEncoder's condition_pre_encoder.pre_encoder.feat_extractor.N.*) ->
     the ControlT2MHalf flax (params, batch_stats) trees; batch_stats is
-    empty without a WavEncoder."""
+    empty without a WavEncoder.  ``block_type="mcm"``: the base is an MCM
+    (``convert_mcm``) and so is each copied block (``t_mcm_layer``)."""
     if any(k.startswith("model.") for k in sd):
         sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
     base_sd = {k[len("base_model."):]: v for k, v in sd.items() if k.startswith("base_model.")}
-    params: dict = {"base_model": convert_stmogen(base_sd, num_layers, num_heads,
-                                                  text_num_layers, clip_layers)}
+    params: dict = {"base_model": _convert_base(base_sd, num_layers, num_heads,
+                                                text_num_layers, clip_layers, block_type)}
     for i in range(copy_blocks_num):
         p = f"controlnet.{i}"
-        blk = {"copied_block": {"ca_block": t_stma(sd, f"{p}.copied_block.ca_block"),
-                                "ffn": t_sffn(sd, f"{p}.copied_block.ffn", num_heads)},
-               "after_proj": {"linear": t_linear(sd, f"{p}.after_proj")}}
+        if block_type == "mcm":
+            copied = t_mcm_layer(sd, f"{p}.copied_block")
+        else:
+            copied = {"ca_block": t_stma(sd, f"{p}.copied_block.ca_block"),
+                      "ffn": t_sffn(sd, f"{p}.copied_block.ffn", num_heads)}
+        blk = {"copied_block": copied, "after_proj": {"linear": t_linear(sd, f"{p}.after_proj")}}
         if i == 0:
             blk["before_proj"] = t_linear(sd, f"{p}.before_proj")
         params[f"controlnet_{i}"] = blk
@@ -418,21 +423,29 @@ def convert_controlnet(sd: Dict[str, np.ndarray], num_layers: int, num_heads: in
     return params, stats
 
 
+def _convert_base(sd, num_layers, num_heads, text_num_layers, clip_layers, block_type):
+    """A ControlNet's base: MCM's tree or STMoGen's."""
+    if block_type == "mcm":
+        return convert_mcm(sd, num_layers, text_num_layers, clip_layers)
+    return convert_stmogen(sd, num_layers, num_heads, text_num_layers, clip_layers)
+
+
 def load_controlnet_ckpt(path: str, model: torch.nn.Module, num_layers: int, num_heads: int,
                          copy_blocks_num: int, text_num_layers: int = 2,
-                         clip_layers: int = 12) -> Dict[str, torch.Tensor]:
+                         clip_layers: int = 12, block_type: str = "stmogen"
+                         ) -> Dict[str, torch.Tensor]:
     """Load a released merged base+control .pth into the port's
-    ControlT2MHalf.  A base-only file (no base_model.* keys) fills the base
-    and leaves the control branch as it is.  Returns the state_dict
-    loaded."""
+    ControlT2MHalf (``block_type`` "stmogen" or "mcm").  A base-only file
+    (no base_model.* keys) fills the base and leaves the control branch as
+    it is.  Returns the state_dict loaded."""
     sd = load_torch_state_dict(path)
     flat = {k[len("model."):] if k.startswith("model.") else k: v for k, v in sd.items()}
     if any(k.startswith("base_model.") for k in flat):
         tree, stats = convert_controlnet(flat, num_layers, num_heads, copy_blocks_num,
-                                         text_num_layers, clip_layers)
+                                         text_num_layers, clip_layers, block_type)
         return load_into(model, tree, stats)
-    tree = {"base_model": convert_stmogen(strip_base_block_keys(flat), num_layers,
-                                          num_heads, text_num_layers, clip_layers)}
+    tree = {"base_model": _convert_base(strip_base_block_keys(flat), num_layers, num_heads,
+                                        text_num_layers, clip_layers, block_type)}
     return load_into(model, tree)
 
 
@@ -647,4 +660,68 @@ def load_finemogen_ckpt(path: str, model: torch.nn.Module, num_layers: int, num_
     returns the state_dict loaded."""
     tree = convert_finemogen(load_torch_state_dict(path), num_layers, num_heads,
                              text_num_layers, clip_layers)
+    return load_into(model, tree)
+
+
+# ----------------------------------------------------- ReMoDiffuse family
+def t_semantics_modulated(sd, prefix):
+    """(Dual)SemanticsModulatedAttention: the norms, the text / retrieval /
+    motion projections, the zero-init ``value_retr`` (a flax ZeroDense),
+    proj_out; ``key_inter`` / ``value_inter`` where the file has them (the
+    two-person version)."""
+    g = lambda n: _k(prefix, n)  # noqa: E731
+    out = {name: t_layernorm(sd, g(name))
+           for name in ("norm", "text_norm", "retr_norm1", "retr_norm2")}
+    for name in ("query", "key_text", "value_text", "key_motion", "value_motion", "key_retr"):
+        out[name] = t_linear(sd, g(name))
+    out["value_retr"] = {"linear": t_linear(sd, g("value_retr"))}
+    out["proj_out"] = t_stylization(sd, g("proj_out"))
+    for name in ("key_inter", "value_inter"):
+        if f"{g(name)}.weight" in sd:
+            out[name] = t_linear(sd, g(name))
+    return out
+
+
+def t_retrieval_encoder(sd, num_motion_layers: int, num_text_layers: int):
+    """The retrieval database's learned re-encoders (``database.*``) ->
+    RetrievalEncoder's tree; the bank itself stays the host-side .npz."""
+    out = {"motion_proj": t_linear(sd, "database.motion_proj"),
+           "motion_pos_embedding": sd["database.motion_pos_embedding"]}
+    for i in range(num_motion_layers):
+        p = f"database.motion_encoder_blocks.{i}"
+        out[f"motion_sa_{i}"] = t_eff_attention(sd, f"{p}.sa_block")
+        out[f"motion_ffn1_{i}"] = t_linear(sd, f"{p}.ffn.linear1")
+        out[f"motion_ffn2_{i}"] = {"linear": t_linear(sd, f"{p}.ffn.linear2")}
+    for i in range(num_text_layers):
+        out[f"text_layer_{i}"] = t_postln_layer(sd, f"database.text_encoder.layers.{i}")
+    return out
+
+
+def convert_remodiffuse(sd: Dict[str, np.ndarray], num_layers: int,
+                        num_motion_layers: int = 4, retr_text_layers: int = 2,
+                        text_num_layers: int = 2, clip_layers: int = 12) -> dict:
+    """ReMoDiffuseTransformer / MoMatMoGenTransformer checkpoint -> flax
+    param tree: the skeleton, the retrieval encoder and per layer the
+    semantics-modulated ca_block and the FFN (MoMatMoGen's, shared by both
+    persons, nests as ``ffn/ffn``)."""
+    sd = _strip_model(sd)
+    out = _skeleton(sd, text_num_layers, clip_layers)
+    out["retrieval_encoder"] = t_retrieval_encoder(sd, num_motion_layers, retr_text_layers)
+    dual = any(".ca_block.key_inter.weight" in k for k in sd)
+    for i in range(num_layers):
+        p = f"temporal_decoder_blocks.{i}"
+        ffn = t_ffn(sd, f"{p}.ffn")
+        out[f"block_{i}"] = {"ca_block": t_semantics_modulated(sd, f"{p}.ca_block"),
+                             "ffn": {"ffn": ffn} if dual else ffn}
+    return out
+
+
+def load_remodiffuse_ckpt(path: str, model: torch.nn.Module, num_layers: int,
+                          num_motion_layers: int = 4, retr_text_layers: int = 2,
+                          text_num_layers: int = 2, clip_layers: int = 12
+                          ) -> Dict[str, torch.Tensor]:
+    """Load a reference ReMoDiffuse / MoMatMoGen .pth into the port's
+    transformer; returns the state_dict loaded."""
+    tree = convert_remodiffuse(load_torch_state_dict(path), num_layers, num_motion_layers,
+                               retr_text_layers, text_num_layers, clip_layers)
     return load_into(model, tree)

@@ -252,7 +252,7 @@ def test_pipelined_snapshots_are_refused(tiny):
     with pytest.raises(NotImplementedError, match="pipeline"):
         checkpoint.align_block_layout(cfg, {"params": {"stacked_blocks": {}}})
     with pytest.raises(NotImplementedError, match="the rest of the baseline zoo"):
-        checkpoint.load_eval_variables({"model": {"type": "ReMoDiffuseTransformer"}}, None,
+        checkpoint.load_eval_variables({"model": {"type": "MotionVAE"}}, None,
                                        torch_checkpoint="x.pth")
 
 

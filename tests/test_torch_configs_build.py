@@ -7,8 +7,11 @@ at the WavEncoder, build since the S2G slice; the eight DDPM configs, which
 raised at ``inference_type 'ddpm'``, and ``mcm/mcm_t2m.py``, whose
 MCMTransformer was not registered, build since the baselines slice and
 carry their inference type and their K5-bearing attentions; the three
-FineMoGen configs build since the FineMoGen slice, SAMI in every layer).  Also one CPU
-run of tools/torch_m2d_test.py over the committed FineDance fixture."""
+FineMoGen configs build since the FineMoGen slice, SAMI in every layer; the
+two MCM ControlNet configs and ReMoDiffuse, whose classes were not
+registered, build since the slice that ported them, so every config
+builds).  Also one CPU run of tools/torch_m2d_test.py over the committed
+FineDance fixture."""
 
 import glob
 import importlib.util
@@ -39,12 +42,15 @@ BUILDS = {"gt.py", "stmogen/t2m_humanml3d.py", "stmogen/t2m_motionx_0_125b.py",
           "mdm/mdm_t2m.py", "mdm/mdm_t2m_official.py", "mdm/mdm_t2m_smplx.py",
           "motiondiffuse/motiondiffuse_kit.py", "motiondiffuse/motiondiffuse_t2m.py",
           "motiondiffuse/motiondiffuse_t2m_smplx.py", "finemogen/finemogen_kit.py",
-          "finemogen/finemogen_t2m.py", "finemogen/finemogen_t2m_smplx.py"}
+          "finemogen/finemogen_t2m.py", "finemogen/finemogen_t2m_smplx.py",
+          "mcm/mcm_m2d_finedance.py", "mcm/mcm_s2g_beats2.py", "remodiffuse/remodiffuse_t2m.py"}
 WAV: set = set()  # the configs that raised at the WavEncoder: none since S2G is ported
 DDPM: set = set()  # the configs that raised at 'ddpm': none since the baselines slice
 # the baselines: each config's inference type and the attention types of its
 # layers (the Efficient ones run K5; MDM's trunk is plain attention;
-# FineMoGen's SAMI runs K4's route and K1 in its MoEs)
+# FineMoGen's SAMI runs K4's route and K1 in its MoEs; ReMoDiffuse's
+# semantics-modulated attention and its retrieval encoder's self-attention
+# run K5)
 BASELINES = {"mcm/mcm_t2m.py": ("ddim", "MCMTransformer"),
              "mcm/mcm_t2m_smplx.py": ("ddpm", "MCMTransformer"),
              "mdm/mdm_kit.py": ("ddpm", "MDMTransformer"),
@@ -56,18 +62,19 @@ BASELINES = {"mcm/mcm_t2m.py": ("ddim", "MCMTransformer"),
              "motiondiffuse/motiondiffuse_t2m_smplx.py": ("ddpm", "MotionDiffuseTransformer"),
              "finemogen/finemogen_kit.py": ("ddim", "FineMoGenTransformer"),
              "finemogen/finemogen_t2m.py": ("ddim", "FineMoGenTransformer"),
-             "finemogen/finemogen_t2m_smplx.py": ("ddim", "FineMoGenTransformer")}
+             "finemogen/finemogen_t2m_smplx.py": ("ddim", "FineMoGenTransformer"),
+             "mcm/mcm_m2d_finedance.py": ("ddim", "ControlT2MHalfMCM"),
+             "mcm/mcm_s2g_beats2.py": ("ddim", "ControlT2MHalfMCM"),
+             "remodiffuse/remodiffuse_t2m.py": ("ddim", "ReMoDiffuseTransformer")}
 K5_ATTENTIONS = {"EfficientSelfAttention", "EfficientCrossAttention"}
-UNREGISTERED = {"mcm/mcm_m2d_finedance.py": "ControlT2MHalfMCM",
-                "mcm/mcm_s2g_beats2.py": "ControlT2MHalfMCM",
-                "remodiffuse/remodiffuse_t2m.py": "ReMoDiffuseTransformer"}
+UNREGISTERED: dict = {}  # the configs whose model class is not registered: none since then
 
 
 def test_every_config_is_listed_once():
     lists = [BUILDS, WAV, DDPM, set(UNREGISTERED)]
     assert sorted(set().union(*lists)) == CONFIGS
     assert sum(map(len, lists)) == len(CONFIGS)
-    assert (len(BUILDS), len(WAV), len(DDPM), len(UNREGISTERED)) == (31, 0, 0, 3)
+    assert (len(BUILDS), len(WAV), len(DDPM), len(UNREGISTERED)) == (34, 0, 0, 0)
     assert set(BASELINES) <= BUILDS
 
 
@@ -86,9 +93,12 @@ def test_config_builds_or_raises_its_reason(name):
             assert (arch.inference_type, type(arch.model).__name__) == (inference_type,
                                                                        model_type)
             attentions = {type(m).__name__ for m in arch.model.modules()
-                          if type(m).__name__.startswith(("Efficient", "SAMI", "STMA"))}
-            assert attentions == {"MDMTransformer": set(), "FineMoGenTransformer": {"SAMI"}}.get(
-                model_type, K5_ATTENTIONS)
+                          if type(m).__name__.startswith(("Efficient", "SAMI", "STMA",
+                                                          "Semantics"))}
+            assert attentions == {"MDMTransformer": set(), "FineMoGenTransformer": {"SAMI"},
+                                  "ReMoDiffuseTransformer": {"EfficientSelfAttention",
+                                                             "SemanticsModulatedAttention"}
+                                  }.get(model_type, K5_ATTENTIONS)
         else:
             assert arch.inference_type in ("ddim", "gt")
         return

@@ -179,8 +179,7 @@ def test_what_is_not_ported_raises():
     for change, reason in ((dict(condition_encode_cfg=dict(
             condition_pre_encode=True, condition_pre_encode_type="wav2vec")),
                             "condition_pre_encode \\('wav2vec' encoder\\)"),
-                           (dict(patch_size=4), "patch_size"),
-                           (dict(block_type="mcm"), "MCM")):
+                           (dict(patch_size=4), "patch_size")):
         bad = copy.deepcopy(cfg)
         bad["model"].update(change)
         with pytest.raises(NotImplementedError, match=reason):

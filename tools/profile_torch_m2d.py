@@ -2,7 +2,8 @@
 """Profile one outpainted long-form window of the PyTorch port's ControlNet
 on the card, music-to-dance (configs/stmogen/m2d_finedance_0125b.py, the
 default) or speech-to-gesture (--config configs/stmogen/s2g_beats2_0125b.py),
-at full width with seeded fabricated weights: RePaint-harmonized DDIM, 84
+or the MCM ControlNet's (--config configs/mcm/mcm_{m2d_finedance,s2g_beats2}.py:
+no CFG, R rows a denoiser call), at full width with seeded fabricated weights: RePaint-harmonized DDIM, 84
 steps of which 57 call the ControlNet denoiser, for R recordings in
 lockstep.  Prints the window's wall time, the device's busy time and idle
 share, the kernel launches, device time by kernel and the port's own

@@ -33,7 +33,9 @@ every N-th DDIM step and ``--step-cache-table PATH`` on a calibrated table
 metrics.json.  The RePaint knobs set ``arch.repaint_cfg`` as tools/test.py
 does (a T2M sample does not outpaint, so they leave it unchanged).  Not
 ported yet, and refused rather than ignored: --dispatch-batches > 1 (it names
-its ROADMAP queue 1 item).
+its ROADMAP queue 1 item).  ReMoDiffuse (remodiffuse/remodiffuse_t2m.py)
+samples only with a retrieval, which neither this tool nor tools/test.py
+builds: it exits saying so (GT mode runs).
 
   python tools/torch_test.py CONFIG out --checkpoint params.npz --bf16 --int8
   python tools/torch_test.py CONFIG out --step-cache-table \
@@ -109,6 +111,20 @@ def repaint_cfg(args):
                          jump_length=args.jump_length, jump_n_sample=args.jump_n_sample)
 
 
+def refuse_retrieval(cfg) -> None:
+    """Exit on a retrieval-augmented denoiser that would sample: its every
+    call needs the ``re_dict`` of a retrieval bank, and this tool, like
+    tools/test.py, builds none."""
+    kind = cfg.model.get("model", {}).get("type")
+    if kind in ("ReMoDiffuseTransformer", "MoMatMoGenTransformer") and \
+            cfg.model.get("inference_type") != "gt":
+        raise SystemExit(
+            f"{kind} samples with a retrieval, which this tool does not build (nor does "
+            "tools/test.py): make one with models.baselines.RetrievalDatabase and "
+            "model.encode_retrieval, and pass it to MotionDiffusion.sample("
+            "extra_model_kwargs={'re_dict': ...})")
+
+
 def run(args, logger=print) -> dict:
     """Evaluate as ``args`` say; returns the metrics.json content (``out``)
     with the model, the dataset, the results and the wall seconds of
@@ -125,6 +141,7 @@ def run(args, logger=print) -> dict:
         raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
     cfg = Config.fromfile(args.config)
     cfg.merge_from_dict(cfg_options_from_args(args.cfg_options))
+    refuse_retrieval(cfg)
     os.makedirs(args.work_dir, exist_ok=True)
     # the protocol's replication shuffles, each sample's caption and crop,
     # and the Diversity evaluator draw from the global numpy generator, as in
