@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flagship text-to-motion sampling, training and
 evaluation, its music-to-dance and speech-to-gesture long-form
-evaluations and its baselines on one NVIDIA GPU, and hold each of its CUDA
-kernels against its plain PyTorch version.
+evaluations, its baselines and ControlNet training on one NVIDIA GPU, and
+hold each of its CUDA kernels against its plain PyTorch version.
 
 Run from the root of the repository, on a machine with one card and the CUDA
 toolkit:
@@ -43,7 +43,10 @@ Phases; any failure exits non-zero:
      semantics-modulated attention of the 64 CFG rows [64, 196, 8, 64] over
      77 + 98 + 196 = 371 keys masked by cond_type 99 / 1 / 10 / 0, -2e6
      where a retrieved frame is padded and the retrieval off, and
-     MoMatMoGen's dual one over 567 keys): max abs error against its
+     MoMatMoGen's dual one over 567 keys), and K4's positions, K5 and K6 at
+     phase 18's training microbatches (the flagship's 128, the S2G
+     ControlNet's 96 and the M2D one's 84, T = 196; a control block has its
+     base's shapes): max abs error against its
      tolerance (1e-2 x max |plain| for bf16; K4 exact in its
      integers, its route's gates within 1e-6; on every path a route case
      leaning to one expert must drop choices); the kernel's device time from
@@ -102,10 +105,10 @@ Phases; any failure exits non-zero:
      windowed_sample_batch at R = 1 equals windowed_sample bit for bit on
      the card with the same draws, and neither waits for the device inside
      its window loop (CUDA sync debug mode); one ControlNet CFG forward
-     (c on, 2 x 120) and one whole outpainted window at R = 1 and at R = 2
-     (the condition encoded once for the batch, as windowed_sample_batch
-     encodes a chunk's), card against CPU with the gate logits pinned as in
-     phase 6 and the same draws
+     (c on, 2 x 120) and one whole outpainted window at R = 2 (two
+     recordings in lockstep, the condition encoded once for the batch, as
+     windowed_sample_batch encodes a chunk's), card against CPU with the
+     gate logits pinned as in phase 6 and the same draws
  11. the S2G long-form evaluation through tools/torch_s2g_test.py on
      configs/stmogen/s2g_beats2_0125b.py (the same ControlNet over the
      flagship base, its condition raw onset + amplitude at 16 kHz through
@@ -128,7 +131,7 @@ Phases; any failure exits non-zero:
      weights: one server in f32 and one in bf16 (the weights cast, the
      denoiser in bf16 through K1-K3's bf16 instantiations), each with batch
      buckets 1, 2, 4, 8 and sequence buckets 64, 128, 196, warmed up on
-     every bucket pair; 4 client threads send 8 seeded requests each (one
+     every bucket pair; 4 client threads send 4 seeded requests each (one
      at a time, lengths 40-196) beside 2 long-form requests of 400 frames:
      every result finite and of its length, dispatches and occupancy
      consistent with stats(), K1-K4's launches what the dispatches imply
@@ -143,7 +146,7 @@ Phases; any failure exits non-zero:
      table (artifacts/step_cache_flagship.json): K1-K4's launches what the
      flags imply, wall ms a batch, no device wait in a cached sampling call
      (CUDA sync debug mode); tools/torch_test.py with --bf16 --int8 (W8A8)
-     and --bf16 --int8 w8 on a synthetic tree of 32 clips: finite metrics
+     and --bf16 --int8 w8 on a synthetic tree of 16 clips: finite metrics
      and the stamped flags, K1/K2 launched no time under W8A8, the int8
      products (int_mm, torch._int_mm) that the model implies, int8 weight
      bytes against f32, ms a batch; one W8A8 and one W8 forward_test card
@@ -184,9 +187,10 @@ Phases; any failure exits non-zero:
      loader, whose forward equals the in-memory one bit for bit; then
      configs/mcm/mcm_t2m.py's DDIM-50 on one batch of 16 with the same
      launch check; then tools/torch_test.py on MotionDiffuse over a
-     synthetic Motion-X tree of 32 clips at batch 16 (one replication, a
-     full-width SMPL-X evaluator, Diversity on 16): finite metrics, K5's
-     launches what 2 batches x 1000 steps x 16 imply, wall seconds of
+     synthetic Motion-X tree of 16 clips at batch 16 (one replication, a
+     full-width SMPL-X evaluator, R-Precision and Matching over the 16,
+     Diversity on 8): finite metrics, K5's launches what 1000 steps x 16
+     imply, wall seconds of
      sampling and of evaluation
  16. FineMoGen (SAMI) on the card, with seeded fabricated weights:
      configs/finemogen/finemogen_t2m_smplx.py at full width (4 layers, 12
@@ -227,7 +231,27 @@ Phases; any failure exits non-zero:
      denoiser call profiled; card vs CPU on encode_retrieval and one
      denoiser call (B = 2); one MoMatMoGen forward at the same width (K5
      twice a layer), card vs CPU
- 18. one JSON line of the kernels' numbers, and last the device line
+ 18. ControlNet training from a T2M base through tools/torch_train.py, at
+     full width on synthetic trees written in the shipped configs' paths:
+     stage 1, configs/stmogen/t2m_motionx_0_125b.py as shipped on its mixed
+     train set (Motion-X, FineDance and BEAT2 through build_mixed_dataset,
+     the RepeatDataset times cut to 1), 3 steps of 128, params.npz; stage
+     2, s2g_beats2_0125b_local_unfreeze.py (batch 96, the WavEncoder,
+     unfreeze_mode root_face_hand) and m2d_finedance_0125b.py (batch 84,
+     163-d music) from it with --base-checkpoint, 3 steps each: before the
+     first step each copied block equals its base block bit for bit and the
+     test forward with the condition on equals the base's alone; after,
+     every frozen leaf of params.npz is stage 1's bit for bit, every other
+     one moved (but the face head under face_no_loss), the WavEncoder's
+     statistics moved; every stage's losses finite and K4's positions, K5
+     and K6 launched as CN_STEPS steps imply; one S2G training step card vs
+     CPU (B = 2 windows of its train set, gate logits pinned as in phase 8);
+     stage 3, tools/torch_s2g_test.py on stage 2's S2G params.npz over one
+     recording of two windows (K1-K4 as the windows imply).  Per stage: the
+     median step ms of steps 2-3, samples/s, max memory, launches a step and
+     one more step's idle share from torch.profiler, with the card's name
+     and power limit
+ 19. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -237,6 +261,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -276,7 +301,8 @@ GT_FID_TOL = 1e-3
 M2D_TRACKS, M2D_FRAMES, M2D_REC_BATCH = ["063", "132", "143", "036"], 300, 4
 # the lockstep window held against the CPU: 2 recordings (its 84 RePaint
 # steps run at full width on the host's CPU; R = 4 left the script near its
-# 1200 s limit on a slow host)
+# 1200 s limit on a slow host, and R = 1's window beside it, which R = 2's
+# path covers, went with phase 18)
 M2D_PARITY_R = 2
 # phase 11: 4 BEAT2 test recordings of 244 frames: 4 windows of 64
 # overlapping by 4 (a window costs the same at any recording length)
@@ -285,9 +311,10 @@ S2G_RECORDINGS, S2G_FRAMES, S2G_REC_BATCH = 4, 244, 4
 # expression directions, pose-corrective directions
 SMPLX_SIZES = dict(vertices=10475, faces=20908, shapedirs=400, posedirs=486)
 # phase 12: one server a dtype over the flagship, its buckets, 4 client
-# threads of 8 requests each (one at a time), 2 long-form requests
+# threads of 4 requests each (one at a time; 8 before phase 18 came, which
+# put the script over 900 s), 2 long-form requests
 SERVE_BUCKETS, SERVE_SEQ_BUCKETS = (1, 2, 4, 8), (64, 128, 196)
-SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_LONG, SERVE_LONG_FRAMES = 4, 8, 2, 400
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_LONG, SERVE_LONG_FRAMES = 4, 4, 2, 400
 # the bucket pairs (batch, frames) whose kernel shapes phase 2 checks: the
 # smallest and the largest
 SERVE_CHECKED = ((1, 64), (8, 196))
@@ -307,7 +334,7 @@ SERVE_CHECKED = ((1, 64), (8, 196))
 # times that sensitivity and the float forward's mean distance 2.5-2.7
 # times it: W8A8_SENS sits between
 STEP_CACHE_TABLE = os.path.join(ROOT, "artifacts", "step_cache_flagship.json")
-LOWPREC_CLIPS = 2 * BATCH
+LOWPREC_CLIPS = BATCH  # one batch (two before phase 18)
 INT8_PEAK = 1979e12   # H100 SXM dense int8 tensor cores, OP/s
 W8A8_SENS = 1.5
 W8A8_FIRST_SHARE = 1e-3
@@ -336,7 +363,8 @@ MCM_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_t2m_smplx.py")
 MDM_CONFIG = os.path.join(ROOT, "configs", "mdm", "mdm_t2m_smplx.py")
 MCM_DDIM_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_t2m.py")
 BASELINE_CONFIGS = (MD_CONFIG, MCM_CONFIG, MDM_CONFIG)
-BASELINE_CLIPS, BASELINE_FRAMES = 32, 196
+# the protocol run: one batch (two before phase 18, 4 in PR 12)
+BASELINE_CLIPS, BASELINE_FRAMES = BATCH, 196
 # phase 16: FineMoGen at full width (Motion-X 322-d, 12 heads) and its
 # HumanML3D config's protocol run on a synthetic tree of 64 clips;
 # MultiModality on 8 samples x 2 repeats
@@ -354,6 +382,25 @@ MCM_M2D_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_m2d_finedance.py")
 MCM_S2G_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_s2g_beats2.py")
 REMO_CONFIG = os.path.join(ROOT, "configs", "remodiffuse", "remodiffuse_t2m.py")
 MCM_RECORDINGS, MCM_REC_BATCH, REMO_BANK = 2, 2, 23384
+# phase 18: ControlNet training from a T2M base, CN_STEPS optimizer steps a
+# stage.  Stage 1's mixed set (the flagship's shipped train set, its
+# RepeatDataset times cut to 1): MIX_CLIPS Motion-X clips of MIX_CLIP_FRAMES,
+# MIX_TRACKS FineDance train tracks and MIX_RECORDINGS BEAT2 train
+# recordings of MIX_REC_FRAMES (10 windows of 64 every 20 each): 388
+# samples, 3 steps of 128.  Stage 2: CN_S2G_RECORDINGS BEAT2 train
+# recordings of CN_S2G_FRAMES (27 windows each, 324: 3 steps of 96) and
+# CN_M2D_TRACKS FineDance train tracks (one crop a track: one step of 84 an
+# epoch, CN_M2D_EPOCHS epochs); FineDance tracks are 360 + CN_FRAMES
+# frames.  Stage 3: one BEAT2 test recording of CN_TEST_FRAMES (2 windows)
+CN_S2G_CONFIG = os.path.join(ROOT, "configs", "stmogen", "s2g_beats2_0125b_local_unfreeze.py")
+CN_STEPS, CN_FRAMES, CN_TEST_FRAMES = 3, 256, 124
+MIX_CLIPS, MIX_CLIP_FRAMES, MIX_TRACKS, MIX_RECORDINGS, MIX_REC_FRAMES = 360, 196, 8, 2, 244
+CN_S2G_RECORDINGS, CN_S2G_FRAMES, CN_M2D_TRACKS, CN_M2D_EPOCHS = 12, 600, 100, 3
+# the shipped configs' data paths under <dir>/data
+MIX_MOTIONX = dict(motions="motion_data/smplx_322", texts="texts/semantic_labels",
+                   ann="humanml3d_align_train_val.txt", mean="humanml3d_align_mean.npy",
+                   std="humanml3d_align_std.npy")
+BEAT2_DIR = os.path.join("datasets", "beats2", "PantoMatrix", "BEAT2", "beat_english_v2.0.0")
 
 PALLAS = {
     "moe_route": "motioncraft_tpu/ops/pallas_moe.py:54",
@@ -603,7 +650,7 @@ def retrieval_attention_inputs(torch, model_cfg, dev, B=BATCH):
 
 
 def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finemogen_cfgs=None,
-                 mcm_cfgs=None, retrieval_cfgs=()):
+                 mcm_cfgs=None, retrieval_cfgs=(), train_cfgs=()):
     """(path, inputs) for phase 2: the T2M shapes (with training's), those
     of phase 12's buckets and of phase 14's drift and training, the M2D ones
     and the S2G ones; R recordings in lockstep are a CFG-doubled
@@ -618,7 +665,10 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
     ControlNet's K5 cases at R recordings in lockstep (``mcm_cfgs``: {tag:
     model config}; R rows, as it runs no CFG: its base's channel and cross
     attention) and ReMoDiffuse's and MoMatMoGen's (``retrieval_cfgs``:
-    their model configs)."""
+    their model configs); then phase 18's training microbatches
+    (``train_cfgs``: (tag, model config of the denoiser or a ControlNet's
+    base, batch); K4's positions, K5 and K6: a ControlNet's copied blocks
+    have its base's shapes)."""
     t2m = flagship_inputs(torch, cfg, dev)
     layer0 = flagship_inputs(torch, cfg, dev, training=False, layer0=True)
     paths = [("t2m", t2m), ("t2m layer 0", layer0),
@@ -669,6 +719,9 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
     for model_cfg in retrieval_cfgs:
         paths.append((f"{model_cfg['model']['type']} B={BATCH}",
                       retrieval_attention_inputs(torch, model_cfg, dev)))
+    for tag, model_cfg, Bt in train_cfgs:
+        train = flagship_inputs(torch, model_cfg, dev, B2=Bt, Bt=Bt)
+        paths.append((f"{tag} train B={Bt}", {k: train[k] for k in TRAINING_KERNELS}))
     return paths
 
 
@@ -741,10 +794,11 @@ def kernel_work(name, args):
 
 
 def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(),
-                  finemogen_cfgs=None, mcm_cfgs=None, retrieval_cfgs=()):
+                  finemogen_cfgs=None, mcm_cfgs=None, retrieval_cfgs=(), train_cfgs=()):
     """Phase 2: every kernel against its plain version, with times, at the
     T2M shapes, at the M2D and S2G ones, at the baselines', at FineMoGen's,
-    and at the MCM ControlNet's, ReMoDiffuse's and MoMatMoGen's."""
+    at the MCM ControlNet's, ReMoDiffuse's and MoMatMoGen's, and at phase
+    18's training microbatches."""
     from motioncraft_tpu_torch.ops import KERNELS
     from motioncraft_tpu_torch.ops.stma_attention import max_active_clusters
 
@@ -753,7 +807,7 @@ def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(),
 
     rows = {}
     for path, inputs in kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg, baseline_cfgs,
-                                     finemogen_cfgs, mcm_cfgs, retrieval_cfgs):
+                                     finemogen_cfgs, mcm_cfgs, retrieval_cfgs, train_cfgs):
         for name, cases in inputs.items():
             for i, args in enumerate(cases):
                 kernel_case(torch, rows, path, name, i, args, KERNELS[name])
@@ -1038,19 +1092,25 @@ def training_counts(forwards, layers):
             "fused_expert_ffn": 2 * layers * forwards}
 
 
-def phase_train_parity(torch, cfg, sd):
+def phase_train_parity(torch, cfg, sd, batch=None, frozen=("text_enc/clip",),
+                       tag="train-parity", card="cuda"):
     """Phase 8: one training loss and its gradients, card vs CPU, B = 2,
     gate noise 0 on both; the CPU's gates take the card's gate logits (as
     values; the gradient flows through its own gate), so a near-tie cannot
-    route a token differently."""
+    route a token differently.  Phase 18 hands it a ControlNet's config,
+    a batch with its condition ``c`` and the prefixes training freezes:
+    the gradients of the trainable parameters are compared.  ``card``: the
+    device held against the CPU (the CPU itself in a rehearsal)."""
     import copy
     from motioncraft_tpu_torch.apis import make_train_batch
     from motioncraft_tpu_torch.models.moe import CosineTopGate
+    from motioncraft_tpu_torch.parallel import freeze
     from motioncraft_tpu_torch.registry import build_architecture
 
     tcfg = copy.deepcopy(cfg)
-    tcfg["model"]["ca_block_cfg"]["gate_noise"] = 0.0
-    batch = make_train_batch(2, seed=SEED + 200, max_seq_len=cfg["model"]["max_seq_len"])
+    tcfg["model"].get("base_model", tcfg["model"])["ca_block_cfg"]["gate_noise"] = 0.0
+    if batch is None:
+        batch = make_train_batch(2, seed=SEED + 200, max_seq_len=cfg["model"]["max_seq_len"])
     g = torch.Generator().manual_seed(SEED + 8)
     draws = dict(t=torch.randint(0, 1000, (2,), generator=g),
                  noise=torch.randn(batch["motion"].shape, generator=g),
@@ -1076,9 +1136,10 @@ def phase_train_parity(torch, cfg, sd):
         replayed.append(out)
         return Pin.apply(out, want)
 
-    for label, dev, hook in (("cuda", "cuda", record), ("cpu", "cpu", replay)):
+    for label, dev, hook in (("cuda", card, record), ("cpu", "cpu", replay)):
         a = build_architecture(tcfg, device=dev)
         a.model.load_state_dict(sd, strict=True)
+        freeze(a.model, frozen)
         handles = [m.register_forward_hook(hook) for m in a.modules()
                    if isinstance(m, CosineTopGate)]
         a.train()
@@ -1096,40 +1157,44 @@ def phase_train_parity(torch, cfg, sd):
     (lc, gc), (lp, gp) = results["cuda"], results["cpu"]
     for k in lc:
         diff, scale = abs(lc[k] - lp[k]), max(1.0, abs(lp[k]))
-        print(f"[train-parity] {k}: card {lc[k]:.7f} CPU {lp[k]:.7f} diff {diff:.3e} "
+        print(f"[{tag}] {k}: card {lc[k]:.7f} CPU {lp[k]:.7f} diff {diff:.3e} "
               f"(tol {MODEL_REL_TOL} x {scale:.4g})")
         check(diff <= MODEL_REL_TOL * scale, f"training {k} card vs CPU: {diff}")
     check(set(gc) == set(gp) and gc, "the gradients cover other parameters on the two devices")
     worst = max(((float((gc[n] - gp[n]).abs().max()) / max(1.0, float(gp[n].abs().max())), n)
                  for n in gp))
-    print(f"[train-parity] {len(gp)} gradient tensors; worst max|card - CPU| / max(1, "
+    print(f"[{tag}] {len(gp)} gradient tensors; worst max|card - CPU| / max(1, "
           f"max|CPU|) = {worst[0]:.3e} at {worst[1]} (tol {GRAD_REL_TOL})")
     check(worst[0] <= GRAD_REL_TOL, f"gradient {worst[1]} card vs CPU: {worst[0]}")
+    return lc, len(gp)
 
 
-def write_motionx_tree(root, n, T, seed):
+def write_motionx_tree(root, n, T, seed, layout=None):
     """A synthetic Motion-X tree in tools/make_tiny_data.py's layout:
     datasets/motionx/{motions/<name>.npy [T, 322], texts/<name>.txt, ann.txt,
-    mean.npy, std.npy}."""
+    mean.npy, std.npy}; ``layout`` (MIX_MOTIONX) renames those five for a
+    config's own paths (the flagship's mixed train set)."""
     import numpy as np
 
+    names = dict(motions="motions", texts="texts", ann="ann.txt", mean="mean.npy",
+                 std="std.npy") | (layout or {})
     rng = np.random.RandomState(seed)
     d = os.path.join(root, "datasets", "motionx")
     for sub in ("motions", "texts"):
-        os.makedirs(os.path.join(d, sub), exist_ok=True)
-    np.save(os.path.join(d, "mean.npy"), np.zeros(322, np.float32))
-    np.save(os.path.join(d, "std.npy"), np.ones(322, np.float32))
+        os.makedirs(os.path.join(d, names[sub]), exist_ok=True)
+    np.save(os.path.join(d, names["mean"]), np.zeros(322, np.float32))
+    np.save(os.path.join(d, names["std"]), np.ones(322, np.float32))
     verbs = ["walks", "jumps", "waves", "dances", "kicks", "turns", "sits down",
              "runs in a circle", "crouches", "claps"]
-    names = [f"clip{i:04d}" for i in range(n)]
-    for i, name in enumerate(names):
-        np.save(os.path.join(d, "motions", name + ".npy"),
+    clips = [f"clip{i:04d}" for i in range(n)]
+    for i, name in enumerate(clips):
+        np.save(os.path.join(d, names["motions"], name + ".npy"),
                 (rng.randn(T, 322) * 0.5).astype(np.float32))
-        with open(os.path.join(d, "texts", name + ".txt"), "w") as f:
+        with open(os.path.join(d, names["texts"], name + ".txt"), "w") as f:
             f.write(f"a person {verbs[i % len(verbs)]} then {verbs[(7 * i + 3) % len(verbs)]}"
                     f" {i // len(verbs)} times\n")
-    with open(os.path.join(d, "ann.txt"), "w") as f:
-        f.write("\n".join(names) + "\n")
+    with open(os.path.join(d, names["ann"]), "w") as f:
+        f.write("\n".join(clips) + "\n")
 
 
 def write_humanml3d_tree(root, n, T, seed, feats=263, dataset="human_ml3d"):
@@ -1288,13 +1353,17 @@ def phase_eval(torch, full_cfg, sd, dev="cuda", config=CONFIG, clips=EVAL_CLIPS)
 def write_finedance_tree(root, names, frames, seed):
     """A synthetic FineDance tree in tools/make_tiny_data.py's layout:
     datasets/finedance/{motion_fea163/<name>.npy [360 + frames, 319],
-    music_npy/<name>.npy [360 + frames, 163], label_json/<name>.json}."""
+    music_npy/<name>.npy [360 + frames, 163], label_json/<name>.json,
+    mean.npy, std.npy}; ``names`` of the cross-genre test split (phases 10,
+    13, 17) or its train split (phase 18)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
     d = os.path.join(root, "datasets", "finedance")
     for sub in ("motion_fea163", "music_npy", "label_json"):
         os.makedirs(os.path.join(d, sub), exist_ok=True)
+    np.save(os.path.join(d, "mean.npy"), np.zeros(322, np.float32))
+    np.save(os.path.join(d, "std.npy"), np.ones(322, np.float32))
     styles = ["Jazz", "Hiphop", "Breaking", "Locking", "Popping", "Dai"]
     for i, name in enumerate(names):
         n = 360 + frames
@@ -1440,7 +1509,7 @@ def phase_m2d(torch, full_cfg, dev="cuda", config=M2D_CONFIG, tracks=M2D_TRACKS,
         return {k: torch.as_tensor(v) for k, v in
                 _concat_parts([m(start, start + window) for m in mwbs]).items()}
 
-    window_parity(torch, cfg, arch, sd, window_batch, window, pre, "m2d", (1, M2D_PARITY_R))
+    window_parity(torch, cfg, arch, sd, window_batch, window, pre, "m2d", (M2D_PARITY_R,))
     print(f"[m2d] phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return runs
 
@@ -1558,28 +1627,31 @@ def write_smplx_npz(path, seed):
              f=rng.randint(0, V, (SMPLX_SIZES["faces"], 3)).astype(np.int64))
 
 
-def write_beat2_tree(root, n, frames, seed):
-    """A synthetic BEAT2 tree in the layout data/beat2.py reads, n test
-    recordings of speaker 2: smplxflame_30/<name>.npz (poses [frames, 165],
-    expressions [frames, 100], trans, betas [300]), wave16k/<name>.wav (16
-    kHz speech-like noise with a syllable burst every 0.2-0.4 s, so that
-    onsets fire), textgrid/<name>.TextGrid (a word every 0.4 s),
+def write_beat2_tree(root, n, frames, seed, train=0, train_frames=0, data_dir=None):
+    """A synthetic BEAT2 tree in the layout data/beat2.py reads (under
+    ``data_dir``, default root/beat2), n test recordings of speaker 2 of
+    ``frames`` frames and ``train`` train recordings of ``train_frames``:
+    smplxflame_30/<name>.npz (poses [frames, 165], expressions [frames,
+    100], trans, betas [300]), wave16k/<name>.wav (16 kHz speech-like noise
+    with a syllable burst every 0.2-0.4 s, so that onsets fire),
+    textgrid/<name>.TextGrid (a word every 0.4 s),
     weights/mean_vel_smplxflame_30.npy, the split csv, mean/std stats and an
     SMPL-X npz; returns the path of its st_mogen_emage-schema yaml."""
     import numpy as np
     from scipy.io import wavfile
 
     rng = np.random.RandomState(seed)
-    d = os.path.join(root, "beat2")
+    d = data_dir or os.path.join(root, "beat2")
     for sub in ("smplxflame_30", "wave16k", "textgrid", "weights"):
         os.makedirs(os.path.join(d, sub), exist_ok=True)
-    names = [f"2_scott_0_{i + 1}_{i + 1}" for i in range(n)]
+    recs = ([(f"2_scott_0_{i + 1}_{i + 1}", "test", frames) for i in range(n)]
+            + [(f"2_scott_1_{i + 1}_{i + 1}", "train", train_frames) for i in range(train)])
     with open(os.path.join(d, "train_test_split.csv"), "w") as f:
-        f.write("id,type\n" + "".join(f"{name},test\n" for name in names))
+        f.write("id,type\n" + "".join(f"{name},{split}\n" for name, split, _ in recs))
     vocab = ["so", "the", "point", "is", "that", "we", "really", "need", "to", "talk",
              "about", "gestures", "and", "speech", "today"]
     sr = 16000
-    for i, name in enumerate(names):
+    for i, (name, _, frames) in enumerate(recs):
         np.savez(os.path.join(d, "smplxflame_30", name + ".npz"),
                  poses=(rng.randn(frames, 165) * 0.2).astype(np.float32),
                  expressions=(rng.randn(frames, 100) * 0.3).astype(np.float32),
@@ -2895,8 +2967,9 @@ def phase_baselines(torch, dev="cuda", configs=BASELINE_CONFIGS, ddim_config=MCM
         evaluator = os.path.join(tmp, "evaluator.npz")
         save_params(evaluator, {"motion": {"params": to_jax_params(ev.motion_module.state_dict())},
                                 "text": {"params": to_jax_params(ev.text_module.state_dict())}})
-        metrics = [dict(type="R Precision", batch_size=32, top_k=3),
-                   dict(type="Matching Score", batch_size=32), dict(type="FID", emb_scale=1.0),
+        metrics = [dict(type="R Precision", batch_size=min(32, clips), top_k=3),
+                   dict(type="Matching Score", batch_size=min(32, clips)),
+                   dict(type="FID", emb_scale=1.0),
                    dict(type="Diversity", num_samples=clips // 2)]
         opts = [f"data.test.data_prefix={tree}", "data.test.ann_file=ann.txt",
                 "data.test.motion_dir=motions", "data.test.text_dir=texts",
@@ -3497,6 +3570,314 @@ def phase_mcm_retrieval(torch, dev="cuda", m2d_config=MCM_M2D_CONFIG,
     return out
 
 
+def stage_trees(root, seed):
+    """Phase 18's two synthetic trees, each under <dir>/data in the paths
+    its configs name (the flagship's mixed set, the S2G and M2D ControlNet
+    configs), with configs/beat2/st_mogen_emage.yaml copied beside it (its
+    data and cache paths are relative): ``mix`` for stage 1 (Motion-X
+    clips, FineDance train tracks, BEAT2 train recordings) and ``cn`` for
+    stages 2 and 3 (BEAT2 train recordings and one test recording,
+    FineDance train tracks).  Returns (mix dir, cn dir, stage 3's yaml)."""
+    import shutil
+
+    import numpy as np
+    from motioncraft_tpu_torch.data.datasets import finedance_split
+
+    train_tracks = finedance_split("cross_genre")[0]
+    dirs = {}
+    for tag in ("mix", "cn"):
+        d = os.path.join(root, tag)
+        os.makedirs(os.path.join(d, "configs", "beat2"))
+        shutil.copy(os.path.join(ROOT, "configs", "beat2", "st_mogen_emage.yaml"),
+                    os.path.join(d, "configs", "beat2"))
+        pm = os.path.join(d, "data", "datasets", "beats2", "PantoMatrix")
+        os.makedirs(pm)
+        np.save(os.path.join(pm, "mean.npy"), np.zeros(322, np.float32))
+        np.save(os.path.join(pm, "std.npy"), np.ones(322, np.float32))
+        dirs[tag] = d
+    mix, cn = dirs["mix"], dirs["cn"]
+    write_motionx_tree(os.path.join(mix, "data"), MIX_CLIPS, MIX_CLIP_FRAMES, seed,
+                       MIX_MOTIONX)
+    write_finedance_tree(os.path.join(mix, "data"), train_tracks[:MIX_TRACKS], CN_FRAMES,
+                         seed + 1)
+    write_beat2_tree(mix, 0, 0, seed + 2, train=MIX_RECORDINGS, train_frames=MIX_REC_FRAMES,
+                     data_dir=os.path.join(mix, "data", BEAT2_DIR))
+    write_finedance_tree(os.path.join(cn, "data"), train_tracks[:CN_M2D_TRACKS], CN_FRAMES,
+                         seed + 3)
+    yaml_path = write_beat2_tree(cn, 1, CN_TEST_FRAMES, seed + 4, train=CN_S2G_RECORDINGS,
+                                 train_frames=CN_S2G_FRAMES,
+                                 data_dir=os.path.join(cn, "data", BEAT2_DIR))
+    return mix, cn, yaml_path
+
+
+def train_stage(torch, tag, argv, cwd, layers, on_start=None):
+    """One tools/torch_train.py run in ``cwd`` with the launch counts and
+    the peak memory of the run; ``on_start(arch)`` runs on the CLI's own
+    model once its base checkpoint is grafted, before the optimizer is made
+    (what it launches is not counted).  Then one more step on the final
+    state under torch.profiler, for the idle share.  Returns {"state",
+    "arch", "counts", "steps_ms", "step_ms", "samples_s", "peak", "idle",
+    "work"}."""
+    import numpy as np
+    import motioncraft_tpu_torch.apis as apis
+    from motioncraft_tpu_torch.apis.train import device_prefetch, make_train_step
+    from motioncraft_tpu_torch.ops import COUNTED, launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.utils.card import card_line
+    from torch.profiler import ProfilerActivity, profile
+
+    tool = load_tool("torch_train")
+    seen, real = {}, apis.train_model
+
+    def recording(arch, loader, model_transform=None, **kw):
+        seen.update(arch=arch, loader=loader)  # the CLI's model and loader
+
+        def transform(model):
+            model_transform(model)
+            saved = launch_counts()
+            on_start(arch)
+            for name, wrapper in COUNTED.items():
+                wrapper.launches = saved[name]
+
+        return real(arch, loader, **kw,
+                    model_transform=transform if on_start else model_transform)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    here = os.getcwd()
+    os.chdir(cwd)
+    apis.train_model = recording
+    t0 = time.perf_counter()
+    try:
+        state = tool.main(argv)
+    finally:
+        apis.train_model = real
+        os.chdir(here)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, peak = launch_counts(), torch.cuda.max_memory_allocated()
+    work = os.path.join(cwd, argv[argv.index("--work-dir") + 1])
+    with open(os.path.join(work, "train.log")) as f:
+        lines = [ln for ln in f if " loss=" in ln]
+    losses = [float(ln.split(" loss=")[1].split()[0]) for ln in lines]
+    steps_ms = [float(ln.split("step_ms=")[1]) for ln in lines]
+    check(state.step == CN_STEPS and len(losses) == CN_STEPS and np.isfinite(losses).all(),
+          f"{tag}: {state.step} steps, losses {losses}")
+    want = dict.fromkeys(counts, 0) | training_counts(CN_STEPS, layers)
+    check(counts == want, f"{tag}: launch counts {counts} != expected {want}")
+
+    # one more step (a fourth update of the in-memory model, after
+    # params.npz is written), profiled: its busy device time over its wall
+    arch, batch_size = seen["arch"], seen["loader"].batch_size
+    feed = device_prefetch(iter(seen["loader"]), arch.device)
+    batch = next(feed)
+    feed.close()
+    step = make_train_step(arch, state)
+    arch.train()
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            step(batch, state.generator)
+            torch.cuda.synchronize()
+            step_wall = (time.perf_counter() - t1) * 1e3
+    finally:
+        arch.eval()
+    busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    med = float(np.median(steps_ms[1:]))
+    per_step = {k: counts[k] // CN_STEPS for k in TRAINING_KERNELS}
+    print(f"[cn-train] {tag}: {CN_STEPS} steps of B={batch_size} in {wall:.1f} s (the CLI "
+          f"run, checkpoints included); step wall ms {steps_ms} (first = warm-up), median of "
+          f"steps 2-{CN_STEPS} {med:.1f} ms, {batch_size / med * 1e3:.1f} samples/s; max "
+          f"memory allocated {peak / 2**30:.3f} GiB; launches a step {per_step}; one more step "
+          f"under torch.profiler {step_wall:.1f} ms wall, {busy:.1f} ms busy on the device, "
+          f"idle share {1 - busy / step_wall:.3f}; losses {losses}; card {card_line()}")
+    return {"state": state, "arch": arch, "counts": counts, "steps_ms": steps_ms,
+            "step_ms": med, "samples_s": batch_size / med * 1e3, "peak": peak,
+            "idle": 1 - busy / step_wall, "work": work}
+
+
+def controlnet_start(torch, c, start):
+    """``on_start`` of a ControlNet's stage: on the CLI's model with its base
+    grafted, each control block's copied block is its base block bit for
+    bit, and the zero-initialised projections leave the test forward with
+    the condition ``c`` on equal to the base's alone.  Keeps the starting
+    state_dict (on the host) in ``start``."""
+
+    def on_start(arch):
+        m = arch.model
+        sd = {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+        for i in range(m.copy_blocks_num):
+            block = {k: v for k, v in sd.items() if k.startswith(f"base_model.block_{i}.")}
+            copied = {k.replace(f"base_model.block_{i}.", f"controlnet_{i}.copied_block."): v
+                      for k, v in block.items()}
+            check(block and all(torch.equal(sd[k], v) for k, v in copied.items())
+                  and len(copied) == sum(k.startswith(f"controlnet_{i}.copied_block.")
+                                         for k in sd),
+                  f"controlnet_{i}.copied_block is not base_model.block_{i}")
+        batch = requests(2, SEED + 18, m.base_model.max_seq_len)
+        g = torch.Generator(device=arch.device).manual_seed(SEED + 18)
+        x = torch.randn(batch["motion"].shape, generator=g, device=arch.device)
+        ts = torch.tensor([999, 420], device=arch.device)
+        kw = dict(motion_mask=arch._tensor(batch["motion_mask"]),
+                  motion_length=arch._tensor(batch["motion_length"]),
+                  xf_out=arch.encode_text(batch["text_ids"]))
+        with_c = m(x, ts, c=arch._tensor(c), **kw)
+        base = m.base_model(x, ts, **kw)
+        diff = float((with_c - base).abs().max())
+        print(f"[cn-train] {type(m).__name__} from the base: {m.copy_blocks_num} copied blocks "
+              f"equal their base blocks bit for bit; test forward with c on vs the base alone "
+              f"(B=2): max abs diff {diff:.3e} (bit for bit: {torch.equal(with_c, base)})")
+        check(torch.equal(with_c, base), "the zero-initialised control branch changed the output")
+        start.update(sd)
+
+    return on_start
+
+
+def check_controlnet_result(torch, tag, npz, base_npz, start, frozen):
+    """Stage 2's params.npz against the base it started from and its
+    starting state: every frozen leaf the base's bit for bit, every other
+    leaf moved, the WavEncoder's running statistics moved.  Three kinds of
+    leaf have a gradient of exactly 0 and may stay: the face head under
+    face_no_loss, a convolution bias that a BatchNorm in training follows
+    (the batch mean takes it out; what it gets is rounding), and the key
+    bias of STMA's body self-attention (its key softmax over the sequence
+    does not see a shift of a channel)."""
+    from motioncraft_tpu_torch.utils.checkpoint import load_params
+    from motioncraft_tpu_torch.utils.convert import from_jax_params, from_jax_variables
+
+    got = from_jax_variables(load_params(npz))
+    base = from_jax_params(load_params(base_npz)["params"])
+    check(set(got) == set(start), f"{tag}: params.npz holds other names than the model")
+    bad = [n for n in frozen if not torch.equal(got[n], base[n[len("base_model."):]])]
+    check(frozen and not bad, f"{tag}: frozen leaves that are not the base's: {bad[:5]}")
+    trainable = [n for n in got if n not in frozen and not n.endswith(
+        ("running_mean", "running_var", "num_batches_tracked"))]
+    still = [n for n in trainable if torch.equal(got[n], start[n])]
+    zero_grad = re.compile(r"base_model\.out\.face_out\..*|condition_pre_encoder\.block\d\."
+                           r"(conv1|conv2|down_conv)\.bias|.*\.body_d_attn\.key\.bias")
+    stuck = [n for n in still if not zero_grad.fullmatch(n)]
+    check(not stuck, f"{tag}: trainable leaves that did not move: {stuck[:5]}")
+    stats = [n for n in got if n.endswith(("running_mean", "running_var"))]
+    check(all(not torch.equal(got[n], start[n]) for n in stats),
+          f"{tag}: WavEncoder statistics that did not move")
+    print(f"[cn-train] {tag}: {len(frozen)} frozen tensors the base's bit for bit, "
+          f"{len(trainable) - len(still)} of {len(trainable)} trainable tensors moved (not: "
+          f"{still}), {len(stats)} BatchNorm statistics moved")
+
+
+def phase_controlnet_train(torch, dev="cuda", t2m_config=CONFIG, s2g_config=CN_S2G_CONFIG,
+                           m2d_config=M2D_CONFIG):
+    """Phase 18: ControlNet training from a T2M base through
+    tools/torch_train.py, at full width on synthetic trees: stage 1 the
+    flagship config as shipped on its mixed train set (3 steps of its batch
+    of 128), stage 2 the S2G (WavEncoder, root_face_hand) and M2D
+    ControlNets from stage 1's params.npz with --base-checkpoint (3 steps
+    each at their own batch), card vs CPU on one S2G training step, stage 3
+    tools/torch_s2g_test.py on stage 2's S2G params.npz."""
+    import tempfile
+
+    import numpy as np
+    from motioncraft_tpu_torch.apis.windowed import num_windows
+    from motioncraft_tpu_torch.config import Config
+    from motioncraft_tpu_torch.data import collate
+    from motioncraft_tpu_torch.diffusion import RepaintConfig, harmonize_schedule
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.registry import build_architecture, build_dataset
+    from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mix, cn, yaml_path = stage_trees(tmp, SEED)
+        print(f"[cn-train] trees written in {time.perf_counter() - t0:.1f} s: stage 1 "
+              f"{MIX_CLIPS} Motion-X clips, {MIX_TRACKS} FineDance train tracks and "
+              f"{MIX_RECORDINGS} BEAT2 train recordings of {MIX_REC_FRAMES} frames (the "
+              f"RepeatDataset times 100 / 2000 / 100 cut to 1); stage 2 {CN_S2G_RECORDINGS} "
+              f"BEAT2 train recordings of {CN_S2G_FRAMES} frames and {CN_M2D_TRACKS} FineDance "
+              f"train tracks; stage 3 one test recording of {CN_TEST_FRAMES} frames")
+        t2m = train_stage(torch, "stage 1 t2m_motionx_0_125b (mixed)",
+                          [t2m_config, "--device", str(dev), "--work-dir", "t2m",
+                           "--max-epochs", "1", "--cfg-options", "data.train.text.times=1",
+                           "data.train.music.times=1", "data.train.speech.times=1",
+                           "evaluation=None", "log_config.interval=1"],
+                          mix, Config.fromfile(t2m_config)["model"]["model"]["num_layers"])
+        out["t2m_mixed"] = t2m
+        base_npz = os.path.join(t2m["work"], "params.npz")
+        del t2m["state"], t2m["arch"]
+        torch.cuda.empty_cache()
+
+        rng = np.random.RandomState(SEED + 5)
+        for tag, path, c, epochs in (
+                ("s2g", s2g_config, rng.rand(2, 64 * 533, 2).astype(np.float32), 1),
+                ("m2d", m2d_config, rng.randn(2, 196, 163).astype(np.float32),
+                 CN_M2D_EPOCHS)):
+            m = Config.fromfile(path)["model"]["model"]
+            layers = m["base_model"]["num_layers"] + m["copy_blocks_num"]
+            start = {}
+            run = train_stage(torch, f"stage 2 {os.path.basename(path)[:-3]}",
+                              [path, "--device", str(dev), "--work-dir", tag, "--base-checkpoint",
+                               base_npz, "--max-epochs", str(epochs), "--cfg-options",
+                               "log_config.interval=1", f"checkpoint_config.interval={epochs}"],
+                              cn, layers, controlnet_start(torch, c, start))
+            frozen = {n for n, p in run["arch"].model.named_parameters() if not p.requires_grad}
+            check_controlnet_result(torch, tag, os.path.join(run["work"], "params.npz"),
+                                    base_npz, start, frozen)
+            del run["state"], run["arch"], start
+            torch.cuda.empty_cache()
+            out[tag] = run
+
+        # card vs CPU: one S2G training step on two windows of its train set
+        cfg = Config.fromfile(s2g_config)
+        here = os.getcwd()
+        os.chdir(cn)
+        try:
+            dataset = build_dataset(cfg.data["train"])
+            np.random.seed(SEED)
+            batch = collate([dataset[0], dataset[1]])
+        finally:
+            os.chdir(here)
+        sd = fabricate_state_dict(build_architecture(cfg["model"], device="cpu").model,
+                                  seed=SEED + 18)
+        frozen = load_tool("torch_train").frozen_prefixes(cfg["model"]["model"])
+        phase_train_parity(torch, cfg["model"], sd, batch=batch, frozen=frozen,
+                           tag="cn-train parity", card=dev)
+
+        # stage 3: sample the trained S2G ControlNet
+        tool = load_tool("torch_s2g_test")
+        reset_launch_counts()
+        run = tool.main([s2g_config, "--device", str(dev), "--checkpoint",
+                         os.path.join(out["s2g"]["work"], "params.npz"), "--seed", str(SEED),
+                         "--beats2-args", yaml_path, "--work-dir", os.path.join(tmp, "s2g_test")])
+        counts = launch_counts()
+        metric = {k: v for k, v in run["out"].items() if k not in ("flags", "protocol")}
+        print(f"[cn-train] stage 3 tools/torch_s2g_test.py on the trained S2G ControlNet: "
+              f"{run['windows']} windows in {run['sample_s']:.3f} s, metrics "
+              f"{json.dumps(metric)}; launches {counts}")
+        check(len(run["preds"]) == 1 and run["preds"][0].shape == (CN_TEST_FRAMES, 322)
+              and np.isfinite(run["preds"][0]).all(), "stage 3's prediction")
+        # the denoiser calls of one recording: DDIM over the first window,
+        # RePaint's harmonized loop over each later one (phase 11's count)
+        m = cfg["model"]["model"]
+        layers = m["base_model"]["num_layers"] + m["copy_blocks_num"]
+        steps = run["arch"].diffusion_test.num_timesteps
+        win = cfg["windowed"]
+        wins = num_windows(CN_TEST_FRAMES, win["window"], win["pre_frames"])
+        calls = steps + (wins - 1) * sum(
+            d for _, d in harmonize_schedule(steps, RepaintConfig(overlap_len=win["pre_frames"])))
+        want = dict.fromkeys(counts, 0) | {
+            "moe_route": layers * (calls + wins), "grouped_ffn": layers * (calls + wins),
+            "head_ffn": layers * calls, "stma_linear_attention": layers * calls}
+        check(run["windows"] == wins and counts == want,
+              f"stage 3: {run['windows']} windows, launch counts {counts} != expected {want}")
+        out["s2g_test"] = {"counts": counts}
+        del run
+    print(f"[cn-train] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -3516,7 +3897,7 @@ def main():
         return 2
     for path in (CONFIG, M2D_CONFIG, S2G_CONFIG, HARNESS_CONFIG, *BASELINE_CONFIGS,
                  MCM_DDIM_CONFIG, FMG_CONFIG, FMG_HML_CONFIG, FMG_KIT_CONFIG, MCM_M2D_CONFIG,
-                 MCM_S2G_CONFIG, REMO_CONFIG):
+                 MCM_S2G_CONFIG, REMO_CONFIG, CN_S2G_CONFIG):
         if not os.path.isfile(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 2
@@ -3543,8 +3924,13 @@ def main():
     mcm_cfgs = {"mcm_m2d_finedance": Config.fromfile(MCM_M2D_CONFIG)["model"]}
     remo = Config.fromfile(REMO_CONFIG)["model"]
     retrieval_cfgs = [remo, momat_config(remo)]
+    # phase 18's: the flagship's training batch and the ControlNets' (their
+    # base and copied blocks share the base's shapes)
+    train_cfgs = [("t2m", cfg, full_cfg["data"]["samples_per_gpu"])] + [
+        (tag, {"model": c["model"]["model"]["base_model"]}, c["data"]["samples_per_gpu"])
+        for tag, c in (("s2g", Config.fromfile(CN_S2G_CONFIG)), ("m2d", m2d_cfg))]
     rows = phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg, k5_cfgs, fmg_cfgs, mcm_cfgs,
-                         retrieval_cfgs)
+                         retrieval_cfgs, train_cfgs)
 
     t0 = time.perf_counter()
     arch = build_architecture(cfg, device="cuda")
@@ -3570,6 +3956,7 @@ def main():
     baselines = phase_baselines(torch)
     finemogen = phase_finemogen(torch)
     mcm_remo = phase_mcm_retrieval(torch)
+    controlnet = phase_controlnet_train(torch)
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
@@ -3607,6 +3994,11 @@ def main():
                                for k in ("mcm_m2d", "mcm_s2g")}
         row["retrieval_launches"] = {k: mcm_remo[k]["counts"][name]
                                      for k in ("remodiffuse", "momatmogen")}
+        # phase 18: stage 1 (the flagship on its mixed set), stage 2 (the S2G
+        # and M2D ControlNets from it), each CN_STEPS steps, and stage 3 (the
+        # trained S2G ControlNet through tools/torch_s2g_test.py)
+        row["controlnet_train_launches"] = {k: controlnet[k]["counts"][name]
+                                            for k in ("t2m_mixed", "s2g", "m2d", "s2g_test")}
         check(row["launches"] > 0, f"{name} was launched no time on its path")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -136,6 +136,7 @@ def train_model(arch, dataloader: Iterable[Dict[str, Any]], *,
                 eval_fn: Optional[Callable] = None,
                 frozen_prefixes=("text_enc/clip",),
                 resume_dir: Optional[str] = None,
+                model_transform: Optional[Callable] = None,
                 fp16: Optional[dict] = None,
                 grad_accum: int = 1) -> TrainState:
     """Train ``arch`` (a MotionDiffusion, on its device) for ``max_epochs``
@@ -153,11 +154,20 @@ def train_model(arch, dataloader: Iterable[Dict[str, Any]], *,
     so ``checkpoint_fn = lambda state, epoch: save_checkpoint(dir, state,
     epoch)`` saves all a resume needs; ``resume_dir`` restores the latest
     such file and goes on at the epoch after it, the next step computing
-    what the uninterrupted run's would."""
+    what the uninterrupted run's would.
+
+    ``model_transform(arch.model)`` (the JAX package's
+    ``variables_transform``) edits the denoiser's weights in place before
+    the optimizer is made: ControlNet training grafts a pretrained base
+    into it there.  ``frozen_prefixes`` are matched against the
+    '/'-joined parameter names (``parallel/train_state.py:freeze``)."""
     if mesh is not None:
         raise NotImplementedError("mesh: multi-device training")
     optimizer_cfg = optimizer_cfg or {"type": "Adam"}
     generator = set_random_seed(seed, arch.device)
+    if model_transform is not None:
+        with torch.no_grad():
+            model_transform(arch.model)
     schedule = build_lr_schedule(optimizer_cfg.get("lr", 2e-4), lr_config,
                                  steps_per_epoch or 1)
     state = TrainState(arch.model, optimizer_cfg, schedule, grad_clip, frozen_prefixes)

@@ -4,6 +4,7 @@ motioncraft_tpu/data; host-side numpy)."""
 
 from . import pipelines  # noqa: F401  (registers PIPELINES)
 from .datasets import (BaseMotionDataset, ConcatDataset,  # noqa: F401
-                       FinedanceMotionDataset, RepeatDataset, TextMotionDataset,
-                       beat2_pose_to_smplx322, finedance_split, finedance_to_smplx322)
+                       FinedanceMotionDataset, RepeatDataset, SpeechMotionDataset,
+                       TextMixMotionDataset, TextMotionDataset, beat2_pose_to_smplx322,
+                       build_mixed_dataset, finedance_split, finedance_to_smplx322)
 from .loader import DataLoader, RoundUpSampler, build_dataloader, collate  # noqa: F401

@@ -1,5 +1,5 @@
 """BEAT2 (PantoMatrix) speech-gesture recordings for the long-form gesture
-evaluation (PyTorch port of the test-time half of
+evaluation and the training windows (PyTorch port of
 motioncraft_tpu/data/beat2.py; host-side numpy).
 
   - ``load_beat2_args``: the flat YAML schema of
@@ -11,22 +11,31 @@ motioncraft_tpu/data/beat2.py; host-side numpy).
     [T, 100], trans [T, 3], betas), the 16 kHz wav, the TextGrid words
   - the ``onset+amplitude`` audio condition: |wav| and an onset impulse
     train at the sample rate, from the native extractor (data/native.py)
+  - ``Beat2WindowDataset``: ``pose_length``-frame windows every ``stride``
+    frames over a split's recordings, in the JAX package's order, cached as
+    one compressed ``.npz`` under ``cache_path`` named by the JAX package's
+    key, so either package reads the other's cache
 
-The stride-window training datasets wait for ControlNet training (ROADMAP
-queue 1: the rest of training).
+Not ported, and refused: reading a reference LMDB window cache
+(``Beat2LmdbDataset``: the ``lmdb`` package; ROADMAP queue 1, the rest of
+training).  ``find_lmdb_cache`` finds one, and ``Beat2WindowDataset``
+raises where it would read it.
 """
 
 from __future__ import annotations
 
 import csv
+import hashlib
 import os
 import re
 from types import SimpleNamespace
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from .native import onset_amplitude_native
+
+TRAINING = "ROADMAP queue 1: the rest of training"
 
 DEFAULTS = dict(
     data_path="./data/datasets/beats2/PantoMatrix/BEAT2/beat_english_v2.0.0/",
@@ -209,3 +218,94 @@ def load_recordings(args: SimpleNamespace, split: str = "test") -> List[dict]:
             os.path.join(args.data_path, "textgrid", name + ".TextGrid"))
         out.append(rec)
     return out
+
+
+class Beat2WindowDataset:
+    """Stride windows over the recordings of ``split``: dicts with ``pose``
+    [n, 165], ``facial`` [n, 100], ``trans`` [n, 3], ``audio`` [n spf, 2]
+    (zero-padded past the wav's end; silence without a wav), the
+    ``words`` whose TextGrid span overlaps the window, ``name`` and
+    ``start``, n = ``pose_length``.  With ``cache_path`` the windows are
+    read from, or else written to, ``beat2_<split>_<key>.npz`` there
+    (``new_cache`` rebuilds them).  A reference LMDB cache under
+    ``cache_path`` raises unless ``new_cache`` is set."""
+
+    def __init__(self, args: SimpleNamespace, split: str = "train"):
+        self.args, self.split = args, split
+        lmdb_dir = find_lmdb_cache(args, split)
+        if lmdb_dir and not args.new_cache:
+            raise NotImplementedError(
+                f"a reference BEAT2 LMDB cache at {lmdb_dir}: Beat2LmdbDataset needs the "
+                f"'lmdb' package ({TRAINING}); set new_cache to build the windows instead")
+        cache = self.cache_file()
+        if cache and os.path.isfile(cache) and not args.new_cache:
+            with np.load(cache, allow_pickle=True) as data:
+                self._windows = list(data["windows"])
+        else:
+            self._windows = self._build_windows()
+            if cache:
+                os.makedirs(os.path.dirname(cache), exist_ok=True)
+                np.savez_compressed(cache, windows=np.asarray(self._windows, dtype=object))
+
+    def cache_file(self) -> Optional[str]:
+        """The window cache's path (the JAX package's name), or None."""
+        a = self.args
+        if not a.cache_path:
+            return None
+        key = hashlib.md5(repr((self.split, a.training_speakers, a.pose_length, a.stride,
+                                a.audio_rep)).encode()).hexdigest()[:10]
+        return os.path.join(a.cache_path, f"beat2_{self.split}_{key}.npz")
+
+    def _build_windows(self) -> List[Dict]:
+        a = self.args
+        spf = a.audio_sr // a.pose_fps  # audio samples a frame
+        n = a.pose_length
+        windows = []
+        for name in split_recordings(a, self.split):
+            pose_file = os.path.join(a.data_path, a.pose_rep, name + ".npz")
+            if not os.path.isfile(pose_file):
+                continue
+            with np.load(pose_file, allow_pickle=True) as data:
+                poses = np.asarray(data["poses"], np.float32)
+                facial = np.asarray(data["expressions"], np.float32)
+                trans = np.asarray(data["trans"], np.float32)
+            wav_file = os.path.join(a.data_path, "wave16k", name + ".wav")
+            audio = None
+            if os.path.isfile(wav_file):
+                sr, wav = read_wav(wav_file)
+                audio = onset_amplitude(wav, sr)
+            spans = parse_textgrid_words(os.path.join(a.data_path, "textgrid",
+                                                      name + ".TextGrid"))
+            for start in range(0, len(poses) - n + 1, a.stride):
+                end = start + n
+                win = {"pose": poses[start:end], "facial": facial[start:end],
+                       "trans": trans[start:end], "name": name, "start": start}
+                if audio is None:
+                    win["audio"] = np.zeros((n * spf, 2), np.float32)
+                else:
+                    seg = audio[start * spf:end * spf]
+                    win["audio"] = np.pad(seg, ((0, n * spf - len(seg)), (0, 0)))
+                t0, t1 = start / a.pose_fps, end / a.pose_fps
+                win["words"] = [w for (s, e, w) in spans if w and s < t1 and e > t0]
+                windows.append(win)
+        return windows
+
+    def __len__(self):
+        return len(self._windows)
+
+    def __getitem__(self, idx):
+        return self._windows[idx]
+
+
+def find_lmdb_cache(args: SimpleNamespace, split: str) -> Optional[str]:
+    """A reference LMDB cache directory for ``split`` under ``cache_path``
+    (the reference writes ``{cache_path}{split}/{pose_rep}_cache``), or
+    None."""
+    cp = getattr(args, "cache_path", None)
+    if not cp:
+        return None
+    for cand in (os.path.join(cp, split, f"{args.pose_rep}_cache"),
+                 os.path.join(cp, f"{args.pose_rep}_cache"), cp):
+        if os.path.isfile(os.path.join(cand, "data.mdb")):
+            return cand
+    return None

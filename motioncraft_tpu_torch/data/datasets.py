@@ -1,5 +1,4 @@
-"""Datasets (host-side numpy; a copy of the text-to-motion and
-music-to-dance parts of motioncraft_tpu/data/datasets.py).
+"""Datasets (host-side numpy; a copy of motioncraft_tpu/data/datasets.py).
 
 BaseMotionDataset (ann-file loading, pipeline, test-mode eval-index
 expansion with shuffled replications, GT face/shape alignment before the
@@ -7,11 +6,14 @@ metrics), TextMotionDataset, FinedanceMotionDataset (the hardcoded
 cross_genre / cross_dancer splits, the 319-d -> SMPL-X 322 remap with the
 +1.3 m height offset, 163-d music features, a style caption, the 360-frame
 head trim), ``beat2_pose_to_smplx322`` (the BEAT2 smplxflame layout of the
-speech recordings -> SMPL-X 322) and the Repeat/Concat wrappers.  The shuffles of
-``prepare_evaluation`` draw from the global numpy generator, as the JAX
-package's do, so one ``np.random.seed`` gives both the same eval indexes.
-The speech and mixed training datasets are not ported yet (ROADMAP queue 1:
-the rest of training).
+speech recordings -> SMPL-X 322), SpeechMotionDataset (BEAT2's stride
+windows as training samples: the 322-d motion, the onset + amplitude audio
+as ``c``, a pseudo-caption of the window's words), TextMixMotionDataset
+with ``build_mixed_dataset`` (the mixed pretraining set: the datasets'
+samples merged, each through its own pipeline) and the Repeat/Concat
+wrappers.  The shuffles of ``prepare_evaluation`` and the caption picks
+of a dataset without a ``seed`` draw from the global numpy generator, as
+the JAX package's do, so one ``np.random.seed`` gives both the same.
 """
 
 from __future__ import annotations
@@ -270,6 +272,86 @@ class FinedanceMotionDataset(BaseMotionDataset):
 
 
 @DATASETS.register_module()
+class SpeechMotionDataset(BaseMotionDataset):
+    """BEAT2 speech-to-gesture training data: each sample is one window of
+    ``data/beat2.py:Beat2WindowDataset`` (the split is the ``ann_file``'s
+    stem, the BEAT2 arguments the ``ann_config`` yaml), with the 322-d
+    motion, the onset + amplitude audio as ``c`` and the caption "A person
+    is doing a speech, and the speech content is" + the window's words,
+    each once, in order of first use."""
+
+    def __init__(self, data_prefix, pipeline, dataset_name=None, fixed_length=None,
+                 ann_file=None, motion_dir=None, text_dir=None, token_dir=None,
+                 clip_feat_dir=None, eval_cfg=None, test_mode=False,
+                 siamese_mode=False, tcomb_mode=False, ann_config=None, seed=None):
+        self.ann_config = ann_config
+        super().__init__(data_prefix, pipeline, dataset_name, fixed_length, ann_file,
+                         motion_dir, eval_cfg, test_mode, seed)
+
+    def load_annotations(self):
+        from .beat2 import Beat2WindowDataset, load_beat2_args
+
+        mode = os.path.basename(self.ann_file).split(".")[0]
+        windows = Beat2WindowDataset(load_beat2_args(self.ann_config), mode)
+        self.data_infos = []
+        for i in range(len(windows)):
+            s = windows[i]
+            words = list(dict.fromkeys(w for w in s.get("words", []) if w))
+            self.data_infos.append({
+                "motion": beat2_pose_to_smplx322(s["pose"], s["facial"], s["trans"]),
+                "c": np.asarray(s["audio"], np.float32),
+                "text": ["A person is doing a speech, and the speech content is "
+                         + " ".join(words)],
+                "dataset_name": self.dataset_name,
+            })
+
+    prepare_data = TextMotionDataset.prepare_data
+
+
+@DATASETS.register_module()
+class TextMixMotionDataset(BaseMotionDataset):
+    """The mixed pretraining set: ``merge_datasets`` appends each dataset's
+    samples (a RepeatDataset's ``times`` over) and keeps its pipeline by
+    ``dataset_name``; a sample goes through its own dataset's pipeline with
+    one of its captions, picked by this dataset's generator."""
+
+    def __init__(self, data_prefix="mix", eval_cfg=None, test_mode=False, seed=None):
+        self.data_infos = []
+        self.pipelines = {}
+        self.dataset_name = "mix"
+        self.eval_cfg = copy.deepcopy(eval_cfg)
+        self.test_mode = test_mode
+        self.fixed_length = None
+        self.rng = np.random.default_rng(seed) if seed is not None else np.random
+        if self.test_mode:
+            self.prepare_evaluation()
+
+    def load_annotations(self):
+        pass
+
+    def merge_datasets(self, datasets: list):
+        for item in datasets:
+            if isinstance(item, RepeatDataset):
+                self.pipelines[item.dataset.dataset_name] = item.dataset.pipeline
+                self.data_infos += item.dataset.data_infos * item.times
+            else:
+                self.pipelines[item.dataset_name] = item.pipeline
+                self.data_infos += item.data_infos
+
+    def prepare_data(self, idx: int):
+        info = self.data_infos[idx]
+        results = {"text": copy.deepcopy(info["text"]),
+                   "motion": copy.deepcopy(info["motion"]),
+                   "dataset_name": info["dataset_name"]}
+        if "c" in info:
+            results["c"] = copy.deepcopy(info["c"])
+        pick = int(self.rng.randint(0, len(results["text"])) if hasattr(self.rng, "randint")
+                   else self.rng.integers(0, len(results["text"])))
+        results["text"] = results["text"][pick]
+        return self.pipelines[results["dataset_name"]](results)
+
+
+@DATASETS.register_module()
 class RepeatDataset:
     """Oversampling wrapper."""
 
@@ -298,3 +380,13 @@ class ConcatDataset:
         ds = int(np.searchsorted(self._lens, idx, side="right"))
         prev = 0 if ds == 0 else int(self._lens[ds - 1])
         return self.datasets[ds][idx - prev]
+
+
+def build_mixed_dataset(cfg: dict):
+    """The mixed train set of a ``train=dict(base=..., text=..., music=...,
+    speech=...)`` config: ``base`` built (a TextMixMotionDataset), then the
+    others, merged in the config's order."""
+    cfg = dict(cfg)
+    mix = DATASETS.build(cfg.pop("base"))
+    mix.merge_datasets([DATASETS.build(sub) for sub in cfg.values()])
+    return mix

@@ -56,11 +56,15 @@ class RoundUpSampler:
 
 def collate(samples: List[dict], tokenize_text: bool = True) -> Dict:
     """Stack per-sample dicts into a batch dict of numpy arrays (and lists
-    of the non-numeric values), with the CLIP token ids of the texts."""
+    of the non-numeric values), with the CLIP token ids of the texts.  The
+    first sample's keys decide, and a numeric value is stacked, as in the
+    JAX package; a key that a later sample lacks (a mixed train set's
+    condition ``c``, which its text samples have not) is left out, where
+    the JAX package raises KeyError."""
     batch: Dict = {}
     first = samples[0]
     for key in first:
-        if key == "motion_metas":
+        if key == "motion_metas" or any(key not in s for s in samples):
             continue
         vals = [s[key] for s in samples]
         is_numeric = ((isinstance(first[key], np.ndarray)

@@ -18,7 +18,8 @@ condition's encoding are cast to bf16 and its output back to f32; the noise,
 the schedule and the DDIM update stay f32.
 
 ``loss`` (in ``train()`` mode): timesteps from the schedule sampler, q_sample,
-the 90/10 text/unconditional ``cond_type``, one training forward, the masked
+the 90/10 text/unconditional ``cond_type``, one training forward (a
+ControlNet's with the batch's condition ``c``), the masked
 reconstruction loss (face/hand masking, hand factor, frame or batch
 reduction) plus the weighted MoE aux loss.
 """
@@ -121,7 +122,8 @@ class MotionDiffusion(nn.Module):
              cond_type: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Training loss of one batch (``motion`` [B, T, D], ``motion_mask``,
-        ``motion_length``, ``text_ids``) -> (total, logs).  The timesteps
+        ``motion_length``, ``text_ids`` and, for a ControlNet, the condition
+        ``c``) -> (total, logs).  The timesteps
         ``t`` [B], the ``noise`` and the ``cond_type`` [B, 1, 1] (text on
         where ``cond_type % 10 > 0``: 90 of 100 values) are drawn from
         ``generator`` unless given, and so is the MoE gate noise.  Needs
@@ -141,11 +143,16 @@ class MotionDiffusion(nn.Module):
         # the frozen CLIP runs under no_grad inside; the two text layers train
         xf_out = self.model.encode_text(self._tensor(batch["text_ids"], torch.long))
         aux_losses = []
+        # a denoiser with a condition branch (a ControlNet) gets the batch's
+        # condition; the others take none, and ignore it in the JAX package
+        cond = {}
+        if hasattr(self.model, "encode_condition") and batch.get("c") is not None:
+            cond["c"] = self._tensor(batch["c"], torch.float32)
 
         def model_fn(x_t, t_model):
             return self.model(x_t, t_model, motion_mask=motion_mask, xf_out=xf_out,
                               mode="train", cond_type=cond_type, generator=generator,
-                              aux_losses=aux_losses)
+                              aux_losses=aux_losses, **cond)
 
         out = training_losses(self.diffusion_train, model_fn, motion, t, noise)
         pred, target = out["pred"], out["target"]

@@ -15,7 +15,8 @@
     product pair with GELU between
   - ConvBasicBlock1D / WavEncoder: the speech condition's raw-audio conv
     encoder, with BatchNorm statistics (buffers ``running_mean`` /
-    ``running_var``, flax's ``batch_stats`` ``mean`` / ``var``)
+    ``running_var``, flax's ``batch_stats`` ``mean`` / ``var``); in
+    training its BatchNorm is flax's (``FlaxBatchNorm1d``)
 
 Module and parameter names follow the flax modules, so a flax ``params``
 tree maps onto the ``state_dict`` by name (utils/convert.py).  GELU is the
@@ -180,24 +181,45 @@ class SFFN(nn.Module):
         return qeinsum("bthf,hfd->bthd", y, self.w2, self.w2_scale.squeeze(1)) + self.b2.to(x.dtype)
 
 
+class FlaxBatchNorm1d(nn.BatchNorm1d):
+    """flax's BatchNorm on [B, C, L] (eps 1e-5, momentum 0.99): in eval mode
+    the running statistics; in training the batch's, its variance the
+    biased E[x^2] - E[x]^2 clipped at 0, and the running statistics moved
+    by 1 - momentum towards them, the variance the biased one too (torch's
+    own update takes the unbiased variance)."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.01)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2))
+        var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp(min=0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
+
+
 class ConvBasicBlock1D(nn.Module):
     """The residual conv block of WavEncoder on [B, C, L]: conv1 (stride,
     symmetric padding) -> bn1 -> leaky ReLU -> conv2 ('same') -> bn2, plus
     the shortcut (down_conv -> down_bn where it downsamples), then leaky
-    ReLU.  BatchNorm as flax's: eps 1e-5, running statistics in eval mode,
-    momentum 0.01 (flax's 0.99)."""
+    ReLU.  BatchNorm as flax's (``FlaxBatchNorm1d``)."""
 
     def __init__(self, inplanes: int, planes: int, ker_size: int = 15, stride: int = 1,
                  pad: int = 0, downsample: bool = False):
         super().__init__()
         self.conv1 = nn.Conv1d(inplanes, planes, ker_size, stride=stride, padding=pad)
-        self.bn1 = nn.BatchNorm1d(planes, eps=1e-5, momentum=0.01)
+        self.bn1 = FlaxBatchNorm1d(planes)
         self.conv2 = nn.Conv1d(planes, planes, ker_size, padding=ker_size // 2)
-        self.bn2 = nn.BatchNorm1d(planes, eps=1e-5, momentum=0.01)
+        self.bn2 = FlaxBatchNorm1d(planes)
         self.downsample = downsample
         if downsample:
             self.down_conv = nn.Conv1d(inplanes, planes, ker_size, stride=stride, padding=pad)
-            self.down_bn = nn.BatchNorm1d(planes, eps=1e-5, momentum=0.01)
+            self.down_bn = FlaxBatchNorm1d(planes)
 
     def forward(self, x):
         y = F.leaky_relu(self.bn1(self.conv1(x)), 0.01)

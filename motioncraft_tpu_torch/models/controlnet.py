@@ -42,10 +42,22 @@ text MoE to hoist (``precompute_text_feats`` is None), no layer-0 dedup and
 no step cache, and, as the MCM base, runs in exact f32 only
 (``exact_f32_only``).  Its attentions are K5 (ops/linear_attention.py).
 
+The training forward (``mode="train"``, the STMoGen block type) is one pass
+at the batch's ``cond_type``: the condition zeroed where the text is off
+(``cond_type % 10 == 0``, condition-CFG), block 0, the control blocks
+injecting into blocks 1..copy_blocks_num, the rest, the base's output;
+every block's MoEs draw their gate noise from ``generator`` and append
+their aux losses, and the WavEncoder normalises with the batch's
+statistics.  Training freezes the base (``controlnet_frozen_prefixes``:
+flax paths, which the port's '/'-joined parameter names match) apart from
+the body-part heads that ``joint_embed_unfreeze`` / ``unfreeze_mode``
+leave trainable; ``init_control_blocks_from_base`` copies base blocks
+0..copy_blocks_num - 1 into the control blocks.
+
 Not ported, and refused: the wav2vec condition pre-encoder, patched
-conditions (``patch_size > 1``) and ControlNet training (ROADMAP queue 1;
-``joint_embed_unfreeze`` and ``unfreeze_mode``, training's freezing masks,
-are accepted and unused).
+conditions (``patch_size > 1``) and the MCM ControlNet's training (its
+copied blocks train through MCM's forward: ROADMAP queue 1, baseline
+training).
 """
 
 from __future__ import annotations
@@ -62,7 +74,7 @@ from .stmogen import STMoGenDecoderLayer
 
 S2G_REST = "ROADMAP queue 1: the rest of S2G (wav2vec)"
 ZOO = "ROADMAP queue 1: the rest of the baseline zoo"
-TRAINING = "ROADMAP queue 1: the rest of training"
+BASELINE_TRAINING = "ROADMAP queue 1: baseline training"
 BASE_TYPES = {"stmogen": "STMoGenTransformer", "mcm": "MCMTransformer"}  # block type -> base
 
 
@@ -83,12 +95,15 @@ class ControlT2MBlock(nn.Module):
                              if block_type == "mcm" else STMoGenDecoderLayer(ca_block_cfg, ffn_cfg))
         self.after_proj = ZeroDense(latent_dim, latent_dim)
 
-    def forward(self, x, c, xf, emb, src_mask, cond_type, text_feat=None):
+    def forward(self, x, c, xf, emb, src_mask, cond_type, text_feat=None, **train_kw):
         """(c, c_skip): the block's new control state and its injection into
         the next base block.  Block 0 reads the base stream plus the
-        projected condition; the later ones the previous control state."""
+        projected condition; the later ones the previous control state.
+        ``train_kw`` (``generator``, ``aux_losses``) go to the copied
+        block."""
         inp = x + self.before_proj(c) if self.block_index == 0 else c
-        c = self.copied_block(inp, xf, emb, src_mask, cond_type, text_feat=text_feat)
+        c = self.copied_block(inp, xf, emb, src_mask, cond_type, text_feat=text_feat,
+                              **train_kw)
         return c, self.after_proj(c)
 
 
@@ -109,6 +124,11 @@ class ControlT2MHalf(nn.Module):
                 f"ControlNet of block type {block_type!r} over {base_type}: only "
                 f"{BASE_TYPES} ({ZOO})")
         self.block_type = block_type
+        # training's freezing (controlnet_frozen_prefixes) reads these two
+        # from the config; a mode it does not know is refused here
+        if unfreeze_mode != "all" and unfreeze_mode not in UNFREEZE_MODE_PARTS:
+            raise ValueError(f"unfreeze_mode {unfreeze_mode!r}: 'all' or one of "
+                             f"{sorted(UNFREEZE_MODE_PARTS)}")
         if patch_size > 1:
             raise NotImplementedError(f"ControlNet with patch_size > 1: PatchEmbed1D ({ZOO})")
         cc = dict(condition_encode_cfg or {})
@@ -148,6 +168,10 @@ class ControlT2MHalf(nn.Module):
 
     def encode_text(self, text_ids):
         return self.base_model.encode_text(text_ids)
+
+    def aux_loss_weights(self):
+        """The base's weights of the aux losses."""
+        return self.base_model.aux_loss_weights()
 
     def encode_condition(self, c, seq_len: int):
         """The condition [B, Tc, F] (for the WavEncoder, audio samples
@@ -207,17 +231,22 @@ class ControlT2MHalf(nn.Module):
                 text_feats=None, *, xf_proj=None, c=None, c_enc=None, mode: str = "test",
                 cond_type=None, generator=None, aux_losses=None, step_cache=None,
                 cache_flags=None, num_intervals: int = 1):
-        """The test forward of ``motion`` [B, T, D] at original-scale
+        """The forward of ``motion`` [B, T, D] at original-scale
         ``timesteps`` [B], with the condition ``c`` [B, Tc, F] or its
-        encoding ``c_enc`` [B, T, latent] (none: the base alone): STMoGen's
-        CFG-guided one, or MCM's single pass (``xf_proj`` [B,
-        time_embed_dim], the pooled text, added to the time embedding).
-        With a ``step_cache`` and the step's host ``cache_flags`` (STMoGen),
-        returns (output, new cache).  ``num_intervals`` is ignored: neither
-        block type reads it, as in the JAX package."""
-        if mode != "test":
-            raise NotImplementedError(f"ControlT2MHalf mode {mode!r}: ControlNet training "
-                                      f"({TRAINING})")
+        encoding ``c_enc`` [B, T, latent] (none: the base alone).
+        ``mode="test"``: STMoGen's CFG-guided one, or MCM's single pass
+        (``xf_proj`` [B, time_embed_dim], the pooled text, added to the time
+        embedding); with a ``step_cache`` and the step's host
+        ``cache_flags`` (STMoGen), returns (output, new cache).
+        ``mode="train"`` (STMoGen): one pass at ``cond_type`` [B, 1, 1]
+        (module docstring), the gate noise from ``generator``, the aux
+        losses appended to ``aux_losses``.  ``num_intervals`` is ignored:
+        neither block type reads it, as in the JAX package."""
+        if mode not in ("test", "train"):
+            raise ValueError(f"mode {mode!r}")
+        if mode == "train" and self.block_type == "mcm":
+            raise NotImplementedError("training the MCM ControlNet: its copied blocks train "
+                                      f"through MCM's forward ({BASELINE_TRAINING})")
         base = self.base_model
         src_mask = motion_mask[..., None] if motion_mask.dim() == 2 else motion_mask
         h, emb = base._embed(motion, timesteps)
@@ -228,9 +257,12 @@ class ControlT2MHalf(nn.Module):
             # encoded in f32 as sampling encodes it (flax's forward would
             # encode a raw condition in the compute dtype)
             c = self.encode_condition(c.float(), h.shape[1]).to(h.dtype)
+        if base.use_text_proj and xf_proj is not None:
+            emb = emb + xf_proj.to(h.dtype)
+        if mode == "train":
+            return self._forward_train(h, emb, xf_out, src_mask, cond_type, c, generator,
+                                       aux_losses)
         if self.block_type == "mcm":
-            if base.use_text_proj and xf_proj is not None:
-                emb = emb + xf_proj.to(h.dtype)
             return self._forward_mcm(h, emb, xf_out, src_mask, c)
         h2, xf2, emb2, mask2, all_cond = base.cfg_batch(h, xf_out, emb, src_mask)
         c2 = None
@@ -275,6 +307,21 @@ class ControlT2MHalf(nn.Module):
         return mixed, {"h": torch.stack(residuals),
                        "c": torch.stack(new_c) if new_c else torch.zeros_like(step_cache["c"])}
 
+    def _forward_train(self, h, emb, xf_out, src_mask, cond_type, c, generator, aux_losses):
+        """The training forward (module docstring) of the embedded ``h``."""
+        base = self.base_model
+        B, T = h.shape[:2]
+        if c is not None and self.condition_cfg_enabled:
+            c = c * ((cond_type % 10) > 0).to(c.dtype)
+        kw = dict(xf=xf_out, emb=emb, src_mask=src_mask, cond_type=cond_type,
+                  generator=generator, aux_losses=aux_losses)
+        for i, block in enumerate(base.blocks):
+            if c is not None and 1 <= i <= self.copy_blocks_num:
+                c, c_skip = self.controlnet[i - 1](h, c, **kw)
+                h = h + c_skip
+            h = block(h, **kw)
+        return base.out(h).reshape(B, T, -1)
+
     def _forward_mcm(self, h, emb, xf_out, src_mask, c):
         """MCM's test forward: block 0, the control blocks injecting into
         blocks 1..copy_blocks_num, the rest, then the base's output; no
@@ -288,6 +335,53 @@ class ControlT2MHalf(nn.Module):
                 h = h + c_skip
             h = block(h, **kw)
         return base.out(h).reshape(B, T, -1)
+
+
+def init_control_blocks_from_base(state_dict: dict, copy_blocks_num: int) -> dict:
+    """A copy of a ControlT2MHalf ``state_dict`` whose
+    ``controlnet_{i}.copied_block`` entries are clones of
+    ``base_model.block_{i}``'s, i < copy_blocks_num (the JAX package's
+    function on the flax params tree)."""
+    out = dict(state_dict)
+    for i in range(copy_blocks_num):
+        src, dst = f"base_model.block_{i}.", f"controlnet_{i}.copied_block."
+        copied = {dst + k[len(src):]: v.clone() for k, v in state_dict.items()
+                  if k.startswith(src)}
+        if not copied or set(copied) != {k for k in state_dict if k.startswith(dst)}:
+            raise KeyError(f"controlnet_{i}.copied_block does not match base_model.block_{i}")
+        out.update(copied)
+    return out
+
+
+# the reference's selective-unfreeze modes: the body-part embed / out heads
+# that stay trainable under each
+UNFREEZE_MODE_PARTS = {
+    "root": {"trans", "root", "body"},
+    "root_face": {"trans", "root", "body", "face"},
+    "root_hand": {"trans", "root", "body", "lhand", "rhand"},
+    "root_face_hand": {"trans", "root", "body", "face", "lhand", "rhand"},
+}
+
+_ALL_PARTS = ("head", "stem", "larm", "rarm", "lleg", "rleg",
+              "root", "trans", "face", "lhand", "rhand", "body")
+
+
+def controlnet_frozen_prefixes(joint_embed_unfreeze: bool = True,
+                               unfreeze_mode: str = "all") -> list:
+    """The prefixes (flax paths, as the JAX package's) of the parameters
+    that ControlNet training freezes: the base's text towers, time
+    embedding, sequence embedding and decoder blocks, and unless
+    ``joint_embed_unfreeze`` its joint embedding and output; with a partial
+    ``unfreeze_mode``, the embed / out heads of the other body parts."""
+    frozen = ["base_model/text_enc", "base_model/time_embed",
+              "base_model/sequence_embedding", "base_model/block_"]
+    if not joint_embed_unfreeze:
+        frozen += ["base_model/joint_embed", "base_model/out"]
+    elif unfreeze_mode != "all":
+        keep = UNFREEZE_MODE_PARTS[unfreeze_mode]
+        frozen += [f"base_model/joint_embed/{p}_embed" for p in _ALL_PARTS if p not in keep]
+        frozen += [f"base_model/out/{p}_out" for p in _ALL_PARTS if p not in keep]
+    return frozen
 
 
 @SUBMODULES.register_module()

@@ -3,8 +3,13 @@ motioncraft_tpu/parallel/train_state.py).
 
 The reference recipe: Adam lr 2e-4, step decay at epoch boundaries, an
 optional clip of the gradients' global norm.  Frozen subtrees (the CLIP text
-tower) get ``requires_grad_(False)`` and stay out of the optimizer, the
-PyTorch form of the JAX package's ``optax.masked``.  The learning rate
+tower; for a ControlNet, its base as ``controlnet_frozen_prefixes`` says)
+get ``requires_grad_(False)`` and stay out of the optimizer: they take no
+gradient, no update and no optimizer state, and the clip's global norm
+runs over the trainable parameters only, as ``optax.masked(chain(clip,
+opt))`` computes it.  The JAX package's ``optax.masked`` passes a frozen
+leaf's raw gradient through as its update, and ``apply_gradients`` adds it
+(ROADMAP queue 3: "frozen means frozen").  The learning rate
 follows a schedule of the optimizer's update count, evaluated before each
 update as optax's ``count`` is.
 """

@@ -96,5 +96,8 @@ def build_loss(cfg):
 
 
 def build_dataset(cfg):
-    import motioncraft_tpu_torch.data  # noqa: F401  (registers the datasets)
-    return DATASETS.build(cfg)
+    """A dataset from its config; a mixed train set (``base`` and its
+    parts) through ``data.build_mixed_dataset``."""
+    from motioncraft_tpu_torch.data import build_mixed_dataset  # registers the datasets
+
+    return build_mixed_dataset(cfg) if "base" in cfg else DATASETS.build(cfg)

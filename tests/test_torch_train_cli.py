@@ -8,13 +8,24 @@ learnable tree (tools/make_tiny_data.py --protocol-learnable's layout):
 - a partial checkpoint left by a killed write is never what
   latest_checkpoint returns, and max_keep_ckpts prunes;
 - a config with ``evaluation`` runs the EvalHook after each epoch;
-- each option the port does not train yet is refused.
+- each option the port does not train yet is refused;
+- ControlNet training from a base: the JAX package's tools/train.py trains
+  a tiny T2M base (configs/tests/tiny_s2g.py's) and writes params.npz; the
+  port's CLI trains configs/tests/tiny_s2g.py on BEAT2 speech windows
+  (SpeechMotionDataset over tools/make_tiny_data.py's tree) from it with
+  --base-checkpoint; its params.npz keeps every frozen base leaf bit for
+  bit, moved the trainable ones and the WavEncoder's statistics, and both
+  tools/torch_s2g_test.py and the JAX package's tools/s2g_test.py sample
+  from it with --checkpoint.
 """
 
 import importlib.util
+import json
 import os
 import re
 import shutil
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -28,8 +39,10 @@ from motioncraft_tpu.utils.checkpoint import load_params as jax_load_params
 from motioncraft_tpu_torch.apis import train_model
 from motioncraft_tpu_torch.config import Config
 from motioncraft_tpu_torch.data import build_dataloader
+from motioncraft_tpu_torch.parallel import freeze
 from motioncraft_tpu_torch.registry import build_architecture, build_dataset
 from motioncraft_tpu_torch.utils import checkpoint
+from motioncraft_tpu_torch.utils.convert import from_jax_params, from_jax_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "tests", "tiny_t2m.py")
@@ -181,17 +194,141 @@ def test_evaluation_config_runs_the_eval_hook(tree, monkeypatch):
     assert "new best FID (mean)=" in log and (work / "best_params.npz").is_file()
 
 
+def lmdb_speech_set(tmp_path):
+    """A speech train set whose BEAT2 cache_path holds a reference LMDB
+    cache."""
+    cache = tmp_path / "cache"
+    (cache / "train" / "smplxflame_30_cache").mkdir(parents=True)
+    (cache / "train" / "smplxflame_30_cache" / "data.mdb").write_bytes(b"")
+    yaml = tmp_path / "beat2.yaml"
+    yaml.write_text(f"data_path: {REPO}/tests/fixtures/mini/beat2/\npose_length: 16\n"
+                    f"cache_path: {cache}\ntraining_speakers: [2]\n")
+    return repr(dict(type="SpeechMotionDataset", dataset_name="beats2",
+                     data_prefix="./data", ann_file="train.txt", pipeline=[],
+                     ann_config=str(yaml)))
+
+
 @pytest.mark.parametrize("argv, item", [
     (["--devices", "2"], "multi-GPU"), (["--tensor-parallel", "2"], "multi-GPU"),
     (["--pipeline-parallel", "2"], "multi-GPU"), (["--multihost"], "multi-GPU"),
     (["--coordinator", "localhost:1234"], "multi-GPU"),
-    (["--base-checkpoint", "base.npz"], "the rest of training"),
-    (["--cfg-options", "model.model.type=ControlT2MHalf"], "the rest of training"),
-    (["--cfg-options", "data.train.base={'type': 'TextMotionDataset'}"],
-     "the rest of training"),
+    ([os.path.join(REPO, "configs", "mcm", "mcm_s2g_beats2.py")], "baseline training"),
+    (["--cfg-options", "data.train=LMDB"], "the rest of training"),
     (["--cfg-options", "fp16={'loss_scale': 512.0}"], "the rest of training")],
     ids=["devices", "tensor-parallel", "pipeline-parallel", "multihost", "coordinator",
-         "base-checkpoint", "controlnet", "mixed", "fp16"])
+         "mcm-controlnet", "lmdb-cache", "fp16"])
 def test_options_not_ported_are_refused(argv, item, tmp_path):
-    with pytest.raises(SystemExit, match=f"ROADMAP queue 1: {item}"):
-        torch_train.main([CONFIG, "--device", "cpu", "--work-dir", str(tmp_path), *argv])
+    config = CONFIG
+    if argv[0].endswith(".py"):
+        config, argv = argv[0], argv[1:]
+    argv = ["data.train=" + lmdb_speech_set(tmp_path) if a == "data.train=LMDB" else a
+            for a in argv]
+    # the LMDB cache is refused where the dataset would read it
+    with pytest.raises((SystemExit, NotImplementedError), match=f"ROADMAP queue 1: {item}"):
+        torch_train.main([config, "--device", "cpu", "--work-dir", str(tmp_path), *argv])
+
+
+# ------------------------------------------------------- ControlNet from a base
+S2G_CONFIG = os.path.join(REPO, "configs", "tests", "tiny_s2g.py")
+JAX_ENV = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+
+
+def _jax_cli(root, tool, *argv):
+    """The JAX package's tools/<tool>.py in a process of its own, run in
+    ``root`` (HOME there too), as a Popen."""
+    return subprocess.Popen([sys.executable, os.path.join(REPO, "tools", tool), *argv],
+                            env=dict(JAX_ENV, HOME=str(root)), cwd=str(root),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(proc):
+    log, _ = proc.communicate(timeout=600)
+    assert proc.returncode == 0, log[-5000:]
+
+
+@pytest.fixture(scope="module")
+def controlnet_run(tmp_path_factory):
+    """(root, the JAX base's params.npz, the port's ControlNet work dir)."""
+    root = tmp_path_factory.mktemp("controlnet_cli")
+    make = _load("make_tiny_data", os.path.join(REPO, "tools", "make_tiny_data.py"))
+    rng = np.random.RandomState(0)
+    make.make_motionx(str(root / "data_tiny"), rng)
+    make.make_beat2(str(root / "data_tiny"), rng, t=48)  # 5 windows of 16 frames
+    base = Config.fromfile(S2G_CONFIG).model["model"]["base_model"]
+    (root / "t2m_base.py").write_text(
+        f"_base_ = [{S2G_CONFIG!r}]\nmodel = dict(model=dict(_delete_=True, **{base!r}))\n")
+    pipeline = [dict(type="Normalize", mean_path="./data_tiny/stats/mean.npy",
+                     std_path="./data_tiny/stats/std.npy"),
+                dict(type="ContrlCrop", crop_size=16),
+                dict(type="ToTensor", keys=["motion", "motion_mask"]),
+                dict(type="Collect", keys=["motion", "motion_mask", "motion_length"],
+                     meta_keys=["text"])]
+    speech = dict(_delete_=True, type="SpeechMotionDataset", dataset_name="beats2",
+                  data_prefix="./data_tiny", ann_file="train.txt", pipeline=pipeline,
+                  ann_config=os.path.join(REPO, "configs", "tests", "tiny_beat2.yaml"))
+    (root / "s2g_train.py").write_text(
+        f"_base_ = [{S2G_CONFIG!r}]\ndata = dict(samples_per_gpu=4, workers_per_gpu=0, "
+        f"train={speech!r})\nmodel = dict(model=dict(unfreeze_mode='root_face_hand'))\n")
+    _finish(_jax_cli(root, "train.py", "t2m_base.py", "--work-dir", "jax_base",
+                     "--max-epochs", "1"))
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        torch_train.main(["s2g_train.py", "--device", "cpu", "--work-dir", "port_s2g",
+                          "--base-checkpoint", "jax_base/params.npz", "--max-epochs", "2"])
+    finally:
+        os.chdir(cwd)
+    return root, root / "jax_base" / "params.npz", root / "port_s2g"
+
+
+def test_controlnet_trains_from_a_jax_base(controlnet_run):
+    root, base_npz, work = controlnet_run
+    base = checkpoint.load_params(str(base_npz))
+    assert set(base) == {"params"}
+    got = checkpoint.load_params(str(work / "params.npz"))
+    assert set(got) == {"params", "batch_stats"}
+    with open(work / "train.log") as f:
+        log = f.read()
+    assert "loaded base checkpoint jax_base/params.npz" in log
+    assert "dataset: 5 samples, 1 steps/epoch" in log  # (48 - 16) / 8 + 1 windows
+    cfg = Config.fromfile(str(root / "s2g_train.py"))
+    arch = build_architecture(cfg.model, device="cpu")
+    trainable = {n for n, _ in freeze(arch.model, torch_train.frozen_prefixes(cfg.model["model"]))}
+    sd_base = {"base_model." + k: v for k, v in from_jax_params(base["params"]).items()}
+    sd_got = from_jax_variables(got)
+    n_frozen = 0
+    for name, value in sd_base.items():
+        if name in trainable:
+            continue
+        n_frozen += 1
+        assert torch.equal(sd_got[name], value), f"frozen {name} moved"
+    assert n_frozen > 100
+    heads = [n for n in trainable if n.startswith("base_model.")]
+    assert heads and all(not torch.equal(sd_got[n], sd_base[n]) for n in heads
+                         if not n.startswith("base_model.out.face_out."))
+    # the control block started as base block 0 and trained from there
+    ctrl = [n for n in sd_got if n.startswith("controlnet_0.copied_block.")]
+    assert ctrl and sum(not torch.equal(
+        sd_got[n], sd_base[n.replace("controlnet_0.copied_block.", "base_model.block_0.")])
+        for n in ctrl) > len(ctrl) // 2
+    stats = [n for n in sd_got if n.endswith("running_var")]
+    assert len(stats) == 16 and all(not torch.equal(sd_got[n], torch.ones_like(sd_got[n]))
+                                    for n in stats)
+
+
+def test_both_s2g_clis_read_the_port_trained_controlnet(controlnet_run, monkeypatch):
+    root, _, work = controlnet_run
+    argv = [S2G_CONFIG, "--checkpoint", str(work / "params.npz"), "--beats2-args",
+            os.path.join(REPO, "configs", "tests", "tiny_beat2.yaml")]
+    proc = _jax_cli(root, "s2g_test.py", *argv, "--work-dir", "jax_eval")
+    monkeypatch.chdir(root)
+    tool = _load("torch_s2g_test", os.path.join(REPO, "tools", "torch_s2g_test.py"))
+    tool.main([*argv, "--device", "cpu", "--work-dir", "port_eval"])
+    _finish(proc)
+    metrics = {}
+    for side in ("jax_eval", "port_eval"):
+        with open(root / side / "metrics.json") as f:
+            metrics[side] = json.load(f)
+    assert set(metrics["port_eval"]) == set(metrics["jax_eval"])
+    assert all(np.isfinite(v) for v in metrics["port_eval"].values()
+               if isinstance(v, float))

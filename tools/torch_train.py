@@ -1,29 +1,41 @@
 """Training entry point of the PyTorch port (the counterpart of
 tools/train.py, which runs the JAX package), on one card.
 
-config -> train dataset -> shuffled, seeded loader -> train_model (the
+config -> train dataset (a mixed ``data.train.base`` set through
+``build_mixed_dataset``) -> shuffled, seeded loader -> train_model (the
 config's optimizer, lr schedule, gradient clip and cumulative_iters; CLIP
-frozen) -> per-epoch checkpoints (``checkpoint_config.interval`` /
+frozen; a ControlNet's base frozen as ``controlnet_frozen_prefixes`` says,
+its ``joint_embed_unfreeze`` / ``unfreeze_mode`` heads trainable) ->
+per-epoch checkpoints (``checkpoint_config.interval`` /
 ``max_keep_ckpts``, written whole or not at all) with ``params.npz`` in the
 JAX package's layout, which tools/test.py and tools/torch_test.py
 --checkpoint both read -> ``EvalHook`` when the config has ``evaluation``.
 ``train.log`` in the work dir holds tools/train.py's lines (``dataset: N
 samples, M steps/epoch``, ``epoch E step S: loss=...``, ``epoch E done in
-Xs``, ``saved checkpoint at epoch E``, ``resumed from ... at epoch E``) and
-grows across ``--resume``.  Runs on the card unless ``--device cpu``.
+Xs``, ``saved checkpoint at epoch E``, ``resumed from ... at epoch E``,
+``loaded base checkpoint ...``) and grows across ``--resume``.  Runs on
+the card unless ``--device cpu``.
+
+``--base-checkpoint`` takes a ``params.npz`` of either package's training
+CLI (its ``params``): for a ControlNet config it becomes ``base_model`` and
+its first ``copy_blocks_num`` blocks are copied into the control blocks
+(tools/train.py's ``variables_transform``); for any other model it is the
+starting weights.
 
 Usage:
   python tools/torch_train.py configs/tests/protocol_learn.py \\
       --work-dir outputs/soak_torch --grad-accum 2 [--resume] [--max-epochs N]
   python tools/torch_train.py configs/tests/tiny_t2m.py --device cpu \\
       --work-dir out --max-epochs 1         # after tools/make_tiny_data.py
+  python tools/torch_train.py configs/stmogen/s2g_beats2_0125b.py \\
+      --work-dir outputs/s2g --base-checkpoint outputs/t2m_0_125b/params.npz
 
 A resumed epoch draws the batches the uninterrupted run draws when the
 loader has no worker threads (``data.workers_per_gpu=0``): threads take
 the samples' random crops and captions in the order they run.
 Not ported yet, and refused rather than ignored: several devices, tensor
-and pipeline parallelism and several hosts; a base checkpoint, ControlNet
-configs, a mixed train set and fp16 (each names its ROADMAP queue 1 item).
+and pipeline parallelism and several hosts; the MCM ControlNet's training
+and fp16 (each names its ROADMAP queue 1 item).
 """
 
 import argparse
@@ -35,6 +47,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 MULTI = "ROADMAP queue 1: multi-GPU, serving and the host-side tools"
 TRAINING = "ROADMAP queue 1: the rest of training"
+BASELINE_TRAINING = "ROADMAP queue 1: baseline training"
 CONTROLNETS = ("ControlT2MHalf", "ControlT2MHalfMCM")
 
 
@@ -53,8 +66,9 @@ def parse_args(argv=None):
                         "gradients before one optimizer step; default: the config's "
                         "optimizer_config.cumulative_iters, else 1")
     p.add_argument("--cfg-options", nargs="*", default=None)
+    p.add_argument("--base-checkpoint", default=None,
+                   help="pretrained base params (.npz) for ControlNet training")
     # tools/train.py's options that the port does not run yet
-    p.add_argument("--base-checkpoint", default=None)
     p.add_argument("--devices", type=int, default=None)
     p.add_argument("--tensor-parallel", type=int, default=1)
     p.add_argument("--pipeline-parallel", type=int, default=1)
@@ -65,19 +79,51 @@ def parse_args(argv=None):
             or args.multihost or args.coordinator):
         raise SystemExit("--devices > 1, --tensor-parallel, --pipeline-parallel, "
                          f"--multihost and --coordinator: one card only ({MULTI})")
-    if args.base_checkpoint:
-        raise SystemExit(f"--base-checkpoint: ControlNet training ({TRAINING})")
     return args
 
 
 def check_config(cfg) -> None:
     """Refuse what the config asks for and the port does not train yet."""
-    if cfg.model["model"].get("type") in CONTROLNETS:
-        raise SystemExit(f"{cfg.model['model']['type']}: ControlNet training ({TRAINING})")
-    if "base" in cfg.data["train"]:
-        raise SystemExit(f"a mixed train set (data.train.base) ({TRAINING})")
+    if cfg.model["model"].get("type") == "ControlT2MHalfMCM":
+        raise SystemExit("ControlT2MHalfMCM: the MCM ControlNet's copied blocks train through "
+                         f"MCM's forward ({BASELINE_TRAINING})")
     if cfg.get("fp16"):
         raise SystemExit(f"fp16: half-precision training ({TRAINING})")
+
+
+def frozen_prefixes(model_cfg: dict) -> tuple:
+    """What training freezes: CLIP; for a ControlNet, its base as
+    controlnet_frozen_prefixes says (tools/train.py's choice)."""
+    if model_cfg.get("type") not in CONTROLNETS:
+        return ("text_enc/clip",)
+    from motioncraft_tpu_torch.models.controlnet import controlnet_frozen_prefixes
+
+    return tuple(controlnet_frozen_prefixes(model_cfg.get("joint_embed_unfreeze", True),
+                                            model_cfg.get("unfreeze_mode", "all"))
+                 ) + ("base_model/text_enc/clip",)
+
+
+def base_graft(path: str, copy_blocks_num: int, log=print):
+    """``train_model``'s ``model_transform`` for ``--base-checkpoint``: the
+    ``params`` of ``path`` (either package's params.npz) loaded, strictly,
+    into ``base_model`` with the first ``copy_blocks_num`` blocks copied
+    into the control blocks; into the whole model when it has no
+    ``base_model``.  Logs the load to ``log``."""
+    from motioncraft_tpu_torch.models.controlnet import init_control_blocks_from_base
+    from motioncraft_tpu_torch.utils.checkpoint import load_params
+    from motioncraft_tpu_torch.utils.convert import from_jax_params
+
+    def transform(model):
+        base = from_jax_params(load_params(path)["params"])
+        if hasattr(model, "base_model"):
+            model.base_model.load_state_dict(base, strict=True)
+            model.load_state_dict(init_control_blocks_from_base(model.state_dict(),
+                                                                copy_blocks_num), strict=True)
+        else:
+            model.load_state_dict(base, strict=True)
+        log(f"loaded base checkpoint {path}")
+
+    return transform
 
 
 def file_logger(path: str) -> logging.Logger:
@@ -122,7 +168,7 @@ def run(args):
         logger.info(f"config: {args.config}\nwork_dir: {work_dir}")
         torch.manual_seed(args.seed)  # the model's initial weights
         arch = build_architecture(cfg.model, device=args.device)
-        dataset = build_dataset(cfg.data["train"])
+        dataset = build_dataset(cfg.data["train"])  # a mixed set too
         loader = build_dataloader(dataset, samples_per_gpu=cfg.data["samples_per_gpu"],
                                   shuffle=True, seed=args.seed,
                                   workers_per_gpu=cfg.data.get("workers_per_gpu", 2))
@@ -156,6 +202,10 @@ def run(args):
                                save_best=ev.get("save_best"), work_dir=work_dir,
                                logger=logger.info)
 
+        transform = None
+        if args.base_checkpoint:
+            transform = base_graft(args.base_checkpoint,
+                                   cfg.model["model"].get("copy_blocks_num", 2), logger.info)
         optimizer_config = cfg.get("optimizer_config", {}) or {}
         state = train_model(
             arch, loader,
@@ -166,7 +216,8 @@ def run(args):
             steps_per_epoch=len(loader), seed=args.seed,
             log_interval=cfg.get("log_config", {}).get("interval", 50),
             logger=logger.info, checkpoint_fn=checkpoint_fn, eval_fn=eval_fn,
-            resume_dir=ckpt_dir if args.resume else None,
+            frozen_prefixes=frozen_prefixes(cfg.model["model"]),
+            resume_dir=ckpt_dir if args.resume else None, model_transform=transform,
             grad_accum=args.grad_accum or optimizer_config.get("cumulative_iters", 1))
         logger.info(f"training done at step {int(state.step)}")
         if args.device == "cuda":
