@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flagship text-to-motion sampling, training and
 evaluation, its music-to-dance and speech-to-gesture long-form
-evaluations, its baselines and ControlNet training on one NVIDIA GPU, and
-hold each of its CUDA kernels against its plain PyTorch version.
+evaluations, its baselines, ControlNet training and baseline training on
+one NVIDIA GPU, and hold each of its CUDA kernels against its plain PyTorch
+version.
 
 Run from the root of the repository, on a machine with one card and the CUDA
 toolkit:
@@ -46,7 +47,13 @@ Phases; any failure exits non-zero:
      MoMatMoGen's dual one over 567 keys), and K4's positions, K5 and K6 at
      phase 18's training microbatches (the flagship's 128, the S2G
      ControlNet's 96 and the M2D one's 84, T = 196; a control block has its
-     base's shapes): max abs error against its
+     base's shapes), and phase 19's training batches (K5 at MotionDiffuse's
+     64 [64, 196, 8, 64] over 196 masked and 77 text keys, at MCM's 256 its
+     channel self-attention [256, 512, 4, 49], padded to 64 as phase 15's,
+     and its cross-attention [256, 196, 4, 128], at the MCM ControlNet's 128
+     [128, 512, 4, 49] and [128, 196, 8, 64]; K6 on FineMoGen's motion
+     slots at its 128, D = 64, F = 256: its K4 positions and text slots
+     are phase 18's flagship cases at 128): max abs error against its
      tolerance (1e-2 x max |plain| for bf16; K4 exact in its
      integers, its route's gates within 1e-6; on every path a route case
      leaning to one expert must drop choices); the kernel's device time from
@@ -251,13 +258,32 @@ Phases; any failure exits non-zero:
      median step ms of steps 2-3, samples/s, max memory, launches a step and
      one more step's idle share from torch.profiler, with the card's name
      and power limit
- 19. one JSON line of the kernels' numbers, and last the device line
+ 19. baseline training through tools/torch_train.py, at full width on
+     synthetic trees written in the shipped configs' paths: stage 1,
+     configs/{motiondiffuse,mcm,mdm,finemogen}/*_t2m_smplx.py as shipped
+     (batches 64 / 256 / 768 / 128), each on its batch's first clips of one
+     Motion-X tree (the RepeatDataset times cut to 1) for 4 steps, one an
+     epoch, the first a warm-up; MCM's params.npz; stage 2,
+     configs/mcm/mcm_m2d_finedance.py from it with --base-checkpoint (batch
+     128, FineDance train tracks), its copied blocks the base's and its
+     test forward with c on the base's alone before the first step: every
+     run's losses finite, its launches a step K5 16 (MotionDiffuse, MCM),
+     20 (the ControlNet: 8 base + 2 copied layers x 2), K4's positions and
+     K6 8 (FineMoGen) and nothing for MDM (the backward launches none), its
+     frozen parameters (each CLIP, MDM's at clip, the ControlNet's base,
+     the base checkpoint's) bit for bit where they started; one training
+     step of each card vs CPU at B = 2 of its train set (MDM at dropout 0,
+     gate logits pinned as in phase 8).  Per run: the median step ms of
+     steps 2-4, samples/s, max memory, launches a step and one more step's
+     idle share from torch.profiler
+ 20. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -275,6 +301,7 @@ TF32_PEAK = 495e12    # H100 SXM dense TF32 tensor cores, FLOP/s; 3xTF32 takes 3
 BF16_PEAK = 989e12    # H100 SXM dense bf16 tensor cores, FLOP/s
 HBM_PEAK = 3.35e12    # H100 SXM device memory, bytes/s
 KERNEL_REL_TOL = 1e-4   # kernel vs plain: max abs err <= tol * max |plain|
+PLAIN_ONE_CALL_MS = 20.0
 # a bf16 kernel vs its plain version: both round the output (and K1's and
 # K2's hidden) to bf16, one ulp 3.9e-3 relative; a sum near a rounding
 # boundary may round the other way
@@ -335,6 +362,9 @@ SERVE_CHECKED = ((1, 64), (8, 196))
 # times it: W8A8_SENS sits between
 STEP_CACHE_TABLE = os.path.join(ROOT, "artifacts", "step_cache_flagship.json")
 LOWPREC_CLIPS = BATCH  # one batch (two before phase 18)
+# the W8A8 server's requests a client (phase 12's 4 before phase 19 came,
+# which put the script over 1000 s on one host)
+LOWPREC_SERVE_PER_CLIENT = 2
 INT8_PEAK = 1979e12   # H100 SXM dense int8 tensor cores, OP/s
 W8A8_SENS = 1.5
 W8A8_FIRST_SHARE = 1e-3
@@ -396,6 +426,13 @@ CN_S2G_CONFIG = os.path.join(ROOT, "configs", "stmogen", "s2g_beats2_0125b_local
 CN_STEPS, CN_FRAMES, CN_TEST_FRAMES = 3, 256, 124
 MIX_CLIPS, MIX_CLIP_FRAMES, MIX_TRACKS, MIX_RECORDINGS, MIX_REC_FRAMES = 360, 196, 8, 2, 244
 CN_S2G_RECORDINGS, CN_S2G_FRAMES, CN_M2D_TRACKS, CN_M2D_EPOCHS = 12, 600, 100, 3
+# phase 19: baseline training through tools/torch_train.py, BL_STEPS
+# optimizer steps a run (one an epoch over a set of one batch, the first a
+# warm-up): the four Motion-X configs on one tree of clips of BL_FRAMES
+# frames (as many as the largest batch, MDM's 768), then the MCM ControlNet
+# from stage 1's MCM on its batch of FineDance train tracks
+BL_CONFIGS = (MD_CONFIG, MCM_CONFIG, MDM_CONFIG, FMG_CONFIG)
+BL_STEPS, BL_FRAMES = 4, 196
 # the shipped configs' data paths under <dir>/data
 MIX_MOTIONX = dict(motions="motion_data/smplx_322", texts="texts/semantic_labels",
                    ann="humanml3d_align_train_val.txt", mean="humanml3d_align_mean.npy",
@@ -431,6 +468,26 @@ class PhaseError(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise PhaseError(msg)
+
+
+SKIPPED_INITS = ("kaiming_uniform_", "uniform_", "normal_", "trunc_normal_",
+                 "xavier_uniform_", "zeros_", "ones_")
+
+
+@contextlib.contextmanager
+def skip_init(torch):
+    """Build modules without their default initialisation, for a model whose
+    whole state dict is loaded (or fabricated and loaded) strictly right
+    after: torch.nn.init's fills become no-ops inside (a 160 M-parameter
+    baseline builds in 0.2 s on the host instead of 2.6)."""
+    saved = {name: getattr(torch.nn.init, name) for name in SKIPPED_INITS}
+    for name in SKIPPED_INITS:
+        setattr(torch.nn.init, name, lambda tensor, *args, **kwargs: tensor)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.nn.init, name, fn)
 
 
 def time_ms(torch, fn, reps=20):
@@ -650,7 +707,7 @@ def retrieval_attention_inputs(torch, model_cfg, dev, B=BATCH):
 
 
 def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finemogen_cfgs=None,
-                 mcm_cfgs=None, retrieval_cfgs=(), train_cfgs=()):
+                 mcm_cfgs=None, retrieval_cfgs=(), train_cfgs=(), baseline_train_cfgs=()):
     """(path, inputs) for phase 2: the T2M shapes (with training's), those
     of phase 12's buckets and of phase 14's drift and training, the M2D ones
     and the S2G ones; R recordings in lockstep are a CFG-doubled
@@ -668,7 +725,10 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
     their model configs); then phase 18's training microbatches
     (``train_cfgs``: (tag, model config of the denoiser or a ControlNet's
     base, batch); K4's positions, K5 and K6: a ControlNet's copied blocks
-    have its base's shapes)."""
+    have its base's shapes); then phase 19's training batches
+    (``baseline_train_cfgs``: (tag, model config, batch); K5 for
+    MotionDiffuse, MCM and the MCM ControlNet, whose copied blocks have its
+    base's shapes; K6 on FineMoGen's motion MoE)."""
     t2m = flagship_inputs(torch, cfg, dev)
     layer0 = flagship_inputs(torch, cfg, dev, training=False, layer0=True)
     paths = [("t2m", t2m), ("t2m layer 0", layer0),
@@ -722,6 +782,18 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
     for tag, model_cfg, Bt in train_cfgs:
         train = flagship_inputs(torch, model_cfg, dev, B2=Bt, Bt=Bt)
         paths.append((f"{tag} train B={Bt}", {k: train[k] for k in TRAINING_KERNELS}))
+    for tag, model_cfg, Bt in baseline_train_cfgs:
+        m = model_cfg["model"]
+        if m["type"] == "FineMoGenTransformer":
+            # its motion MoE's slots at D = 64; K4's positions over B x 196 x
+            # 12 and B x 77 tokens and the text slots at D = 256 are phase
+            # 18's flagship cases at the same B
+            train = flagship_inputs(torch, model_cfg, dev, B2=Bt, Bt=Bt)
+            cases = {"fused_expert_ffn": train["fused_expert_ffn"][:1]}
+        else:
+            cases = baseline_attention_inputs(torch, {"model": m.get("base_model", m)}, dev,
+                                              B=Bt)
+        paths.append((f"{tag} train B={Bt}", cases))
     return paths
 
 
@@ -794,11 +866,12 @@ def kernel_work(name, args):
 
 
 def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(),
-                  finemogen_cfgs=None, mcm_cfgs=None, retrieval_cfgs=(), train_cfgs=()):
+                  finemogen_cfgs=None, mcm_cfgs=None, retrieval_cfgs=(), train_cfgs=(),
+                  baseline_train_cfgs=()):
     """Phase 2: every kernel against its plain version, with times, at the
     T2M shapes, at the M2D and S2G ones, at the baselines', at FineMoGen's,
-    at the MCM ControlNet's, ReMoDiffuse's and MoMatMoGen's, and at phase
-    18's training microbatches."""
+    at the MCM ControlNet's, ReMoDiffuse's and MoMatMoGen's, at phase 18's
+    training microbatches and at phase 19's training batches."""
     from motioncraft_tpu_torch.ops import KERNELS
     from motioncraft_tpu_torch.ops.stma_attention import max_active_clusters
 
@@ -807,7 +880,8 @@ def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(),
 
     rows = {}
     for path, inputs in kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg, baseline_cfgs,
-                                     finemogen_cfgs, mcm_cfgs, retrieval_cfgs, train_cfgs):
+                                     finemogen_cfgs, mcm_cfgs, retrieval_cfgs, train_cfgs,
+                                     baseline_train_cfgs):
         for name, cases in inputs.items():
             for i, args in enumerate(cases):
                 kernel_case(torch, rows, path, name, i, args, KERNELS[name])
@@ -865,7 +939,11 @@ def kernel_case(torch, rows, path, name, i, args, fns):
     check(ok, f"{label} disagrees with its plain version: {err} (tol {tol})")
     ms = device_ms(torch, lambda: wrapper(*args))
     call_ms = time_ms(torch, lambda: wrapper(*args))
-    plain_ms = time_ms(torch, lambda: plain(*args))
+    # a plain version of 20 ms or more (K4's, a host-side loop) is timed
+    # over one call: twenty would take seconds a case
+    plain_ms = time_ms(torch, lambda: plain(*args), reps=1)
+    if plain_ms < PLAIN_ONE_CALL_MS:
+        plain_ms = time_ms(torch, lambda: plain(*args))
     flops, nbytes = kernel_work(name, args)
     if name in ("moe_positions", "moe_route"):  # on the CUDA cores only
         bound_ms, bound_by = f32_ms, f32_by = bound(flops, nbytes, F32_PEAK)
@@ -971,7 +1049,8 @@ def phase_parity(torch, cfg, arch, sd):
     from motioncraft_tpu_torch.models.moe import CosineTopGate
     from motioncraft_tpu_torch.registry import build_architecture
 
-    cpu = build_architecture(cfg, device="cpu")
+    with skip_init(torch):
+        cpu = build_architecture(cfg, device="cpu")
     cpu.model.load_state_dict(sd, strict=True)
     batch = requests(2, SEED + 100, arch.model.max_seq_len)
     g = torch.Generator().manual_seed(SEED + 7)
@@ -1099,8 +1178,10 @@ def phase_train_parity(torch, cfg, sd, batch=None, frozen=("text_enc/clip",),
     values; the gradient flows through its own gate), so a near-tie cannot
     route a token differently.  Phase 18 hands it a ControlNet's config,
     a batch with its condition ``c`` and the prefixes training freezes:
-    the gradients of the trainable parameters are compared.  ``card``: the
-    device held against the CPU (the CPU itself in a rehearsal)."""
+    the gradients of the trainable parameters are compared; phase 19 a
+    baseline's (a model without MoE gates: nothing to pin).  Every scalar
+    loss term is compared.  ``card``: the device held against the CPU (the
+    CPU itself in a rehearsal)."""
     import copy
     from motioncraft_tpu_torch.apis import make_train_batch
     from motioncraft_tpu_torch.models.moe import CosineTopGate
@@ -1108,7 +1189,9 @@ def phase_train_parity(torch, cfg, sd, batch=None, frozen=("text_enc/clip",),
     from motioncraft_tpu_torch.registry import build_architecture
 
     tcfg = copy.deepcopy(cfg)
-    tcfg["model"].get("base_model", tcfg["model"])["ca_block_cfg"]["gate_noise"] = 0.0
+    ca = tcfg["model"].get("base_model", tcfg["model"]).get("ca_block_cfg") or {}
+    if "gate_noise" in ca:
+        ca["gate_noise"] = 0.0
     if batch is None:
         batch = make_train_batch(2, seed=SEED + 200, max_seq_len=cfg["model"]["max_seq_len"])
     g = torch.Generator().manual_seed(SEED + 8)
@@ -1137,7 +1220,8 @@ def phase_train_parity(torch, cfg, sd, batch=None, frozen=("text_enc/clip",),
         return Pin.apply(out, want)
 
     for label, dev, hook in (("cuda", card, record), ("cpu", "cpu", replay)):
-        a = build_architecture(tcfg, device=dev)
+        with skip_init(torch):
+            a = build_architecture(tcfg, device=dev)
         a.model.load_state_dict(sd, strict=True)
         freeze(a.model, frozen)
         handles = [m.register_forward_hook(hook) for m in a.modules()
@@ -1148,13 +1232,16 @@ def phase_train_parity(torch, cfg, sd, batch=None, frozen=("text_enc/clip",),
         a.eval()
         for h in handles:
             h.remove()
-        results[label] = ({k: float(logs[k].detach())
-                           for k in ("loss", "recon_loss", "moe_route_loss")},
+        gated = any(isinstance(m, CosineTopGate) for m in a.modules())
+        results[label] = ({k: float(v.detach()) for k, v in logs.items()
+                           if "loss" in k and v.ndim == 0},
                           {n: p.grad.cpu() for n, p in a.model.named_parameters()
                            if p.grad is not None})
         del a
-    check(len(replayed) == len(card_logits) > 0, "gate calls differ between devices")
+    check(len(replayed) == len(card_logits) and (len(replayed) > 0) == gated,
+          "gate calls differ between devices")
     (lc, gc), (lp, gp) = results["cuda"], results["cpu"]
+    check(set(lc) == set(lp), f"loss terms {sorted(lc)} on the card, {sorted(lp)} on the CPU")
     for k in lc:
         diff, scale = abs(lc[k] - lp[k]), max(1.0, abs(lp[k]))
         print(f"[{tag}] {k}: card {lc[k]:.7f} CPU {lp[k]:.7f} diff {diff:.3e} "
@@ -1264,7 +1351,8 @@ def phase_eval(torch, full_cfg, sd, dev="cuda", config=CONFIG, clips=EVAL_CLIPS)
         t0 = time.perf_counter()
         tree = os.path.join(tmp, "data")
         write_motionx_tree(tree, clips, T, SEED)
-        mem = build_architecture(cfg, device=dev)
+        with skip_init(torch):
+            mem = build_architecture(cfg, device=dev)
         mem.model.load_state_dict(sd, strict=True)
         params = os.path.join(tmp, "params.npz")
         save_params(params, mem.model)
@@ -1414,7 +1502,8 @@ def phase_m2d(torch, full_cfg, dev="cuda", config=M2D_CONFIG, tracks=M2D_TRACKS,
     cfg = full_cfg["model"]
     window, pre = full_cfg["windowed"]["window"], full_cfg["windowed"]["pre_frames"]
     t_phase = time.perf_counter()
-    arch = build_architecture(cfg, device=dev)
+    with skip_init(torch):
+        arch = build_architecture(cfg, device=dev)
     sd = fabricate_state_dict(arch.model, seed=SEED)
     arch.model.load_state_dict(sd, strict=True)
     model = arch.model
@@ -1529,7 +1618,8 @@ def window_parity(torch, cfg, arch, sd, window_batch, window, pre, tag, rec_batc
     from motioncraft_tpu_torch.models.moe import CosineTopGate
     from motioncraft_tpu_torch.registry import build_architecture
 
-    cpu = build_architecture(cfg, device="cpu")
+    with skip_init(torch):
+        cpu = build_architecture(cfg, device="cpu")
     cpu.model.load_state_dict(sd, strict=True)
     cpu.repaint_cfg = arch.repaint_cfg
     g = torch.Generator().manual_seed(SEED + 12)
@@ -1735,7 +1825,8 @@ def phase_s2g(torch, full_cfg, dev="cuda", config=S2G_CONFIG, recordings=S2G_REC
     window, pre = win_cfg["window"], win_cfg["pre_frames"]
     fps, spf = win_cfg["pose_fps"], win_cfg["audio_sr"] // win_cfg["pose_fps"]
     t_phase = time.perf_counter()
-    arch = build_architecture(cfg, device=dev)
+    with skip_init(torch):
+        arch = build_architecture(cfg, device=dev)
     sd = fabricate_state_dict(arch.model, seed=SEED)
     arch.model.load_state_dict(sd, strict=True)
     model = arch.model
@@ -1884,8 +1975,8 @@ def phase_s2g(torch, full_cfg, dev="cuda", config=S2G_CONFIG, recordings=S2G_REC
     return runs
 
 
-def serve_traffic(torch, srv, T, seed):
-    """SERVE_CLIENTS threads, each sending SERVE_PER_CLIENT seeded requests
+def serve_traffic(torch, srv, T, seed, per_client=SERVE_PER_CLIENT):
+    """SERVE_CLIENTS threads, each sending ``per_client`` seeded requests
     one after another (lengths 40-T, seeded prompts), and SERVE_LONG
     long-form requests beside them.  Returns (results per request as
     (length, motion), long results, wall seconds)."""
@@ -1897,9 +1988,9 @@ def serve_traffic(torch, srv, T, seed):
              "runs in a circle", "crouches", "claps"]
     rng = np.random.RandomState(seed)
     plan = [[(f"a person {verbs[a]} then {verbs[b]}", int(n))
-             for a, b, n in zip(rng.randint(0, len(verbs), SERVE_PER_CLIENT),
-                                rng.randint(0, len(verbs), SERVE_PER_CLIENT),
-                                rng.randint(min(40, T), T + 1, SERVE_PER_CLIENT))]
+             for a, b, n in zip(rng.randint(0, len(verbs), per_client),
+                                rng.randint(0, len(verbs), per_client),
+                                rng.randint(min(40, T), T + 1, per_client))]
             for _ in range(SERVE_CLIENTS)]
     results, errors = [], []
 
@@ -1943,7 +2034,8 @@ def phase_serve(torch, cfg, sd, dev="cuda"):
     T, D = cfg["model"]["max_seq_len"], cfg["model"]["input_feats"]
     archs = {}
     for dtype in ("f32", "bf16"):
-        arch = build_architecture(cfg, device=dev)
+        with skip_init(torch):
+            arch = build_architecture(cfg, device=dev)
         arch.model.load_state_dict(sd, strict=True)
         archs[dtype] = bf16_cast_(arch) if dtype == "bf16" else arch
     layers, steps = archs["f32"].model.num_layers, archs["f32"].diffusion_test.num_timesteps
@@ -2042,7 +2134,8 @@ def bf16_parity(torch, cfg, sd, archs):
                                                          device=a.device),
                            xf_out=xf, text_feats=a.model.precompute_text_feats(xf)).cpu()
 
-    cpu = build_architecture(cfg, device="cpu")
+    with skip_init(torch):
+        cpu = build_architecture(cfg, device="cpu")
     cpu.model.load_state_dict(sd, strict=True)
     bf16_cast_(cpu)
     outs = {}
@@ -2231,7 +2324,8 @@ def lowprec_cli(torch, full_cfg, sd, dev, clips, config=CONFIG):
         tree = os.path.join(tmp, "data")
         write_motionx_tree(tree, clips, T, SEED + 1)
         from motioncraft_tpu_torch.registry import build_architecture
-        mem = build_architecture(cfg, device="cpu")
+        with skip_init(torch):
+            mem = build_architecture(cfg, device="cpu")
         mem.model.load_state_dict(sd, strict=True)
         f32_bytes = model_bytes(mem.model)
         params = os.path.join(tmp, "params.npz")
@@ -2362,7 +2456,8 @@ def lowprec_parity(torch, cfg, sd, dev):
         return out
 
     def build(d, mode=None):
-        a = build_architecture(cfg, device=d)
+        with skip_init(torch):
+            a = build_architecture(cfg, device=d)
         a.model.load_state_dict(sd, strict=True)
         return a if mode is None else int8_quantize_(a, weight_only=mode == "w8")
 
@@ -2491,7 +2586,8 @@ def lowprec_m2d(torch, m2d_cfg, dev, config=M2D_CONFIG):
     window, pre = m2d_cfg["windowed"]["window"], m2d_cfg["windowed"]["pre_frames"]
     frames = M2D_FRAMES
     with tempfile.TemporaryDirectory() as tmp:
-        arch = build_architecture(cfg, device="cpu")
+        with skip_init(torch):
+            arch = build_architecture(cfg, device="cpu")
         arch.model.load_state_dict(fabricate_state_dict(arch.model, seed=SEED), strict=True)
         layers, copy = arch.model.num_layers, arch.model.copy_blocks_num
         steps = arch.diffusion_test.num_timesteps
@@ -2540,7 +2636,8 @@ def lowprec_serve(torch, cfg, sd, dev):
     from motioncraft_tpu_torch.serving.server import covered_frames
 
     T, D = cfg["model"]["max_seq_len"], cfg["model"]["input_feats"]
-    arch = build_architecture(cfg, device=dev)
+    with skip_init(torch):
+        arch = build_architecture(cfg, device=dev)
     arch.model.load_state_dict(sd, strict=True)
     int8_quantize_(arch)
     layers, steps = arch.model.num_layers, arch.diffusion_test.num_timesteps
@@ -2555,10 +2652,11 @@ def lowprec_serve(torch, cfg, sd, dev):
     warm = time.perf_counter() - t0
     reset_launch_counts()
     with srv:
-        results, long_out, wall = serve_traffic(torch, srv, T, SEED + 40)
+        results, long_out, wall = serve_traffic(torch, srv, T, SEED + 40,
+                                                LOWPREC_SERVE_PER_CLIENT)
         st = srv.stats()
     counts = launch_counts()
-    n_req = SERVE_CLIENTS * SERVE_PER_CLIENT + SERVE_LONG
+    n_req = SERVE_CLIENTS * LOWPREC_SERVE_PER_CLIENT + SERVE_LONG
     for n, m in results:
         check(m.shape == (n, D) and np.isfinite(m).all(), f"[serve-int8] {m.shape}")
     for m in long_out:
@@ -2895,7 +2993,8 @@ def phase_baselines(torch, dev="cuda", configs=BASELINE_CONFIGS, ddim_config=MCM
             tag = os.path.basename(path)[:-3]
             cfg = Config.fromfile(path).model
             t0 = time.perf_counter()
-            arch = build_architecture(cfg, device=dev)
+            with skip_init(torch):
+                arch = build_architecture(cfg, device=dev)
             sd = fabricate_state_dict(arch.model, seed=SEED)
             arch.model.load_state_dict(sd, strict=True)
             print(f"[baseline] {tag}: {type(arch.model).__name__} built in "
@@ -2922,7 +3021,8 @@ def phase_baselines(torch, dev="cuda", configs=BASELINE_CONFIGS, ddim_config=MCM
                   f"(idle share {1 - busy / wall:.3f})")
 
             # card vs CPU, B = 2
-            cpu = build_architecture(cfg, device="cpu")
+            with skip_init(torch):
+                cpu = build_architecture(cfg, device="cpu")
             cpu.model.load_state_dict(sd, strict=True)
             small = requests(2, SEED + 100, T, feats)
             x2, ts2 = x[:2].cpu(), torch.tensor([999, 321])
@@ -2949,7 +3049,8 @@ def phase_baselines(torch, dev="cuda", configs=BASELINE_CONFIGS, ddim_config=MCM
 
         # MCM's DDIM-50 config (HumanML3D 263-d)
         cfg = Config.fromfile(ddim_config).model
-        arch = build_architecture(cfg, device=dev)
+        with skip_init(torch):
+            arch = build_architecture(cfg, device=dev)
         arch.model.load_state_dict(fabricate_state_dict(arch.model, seed=SEED), strict=True)
         _, out["mcm_t2m ddim50"] = sample_batch("mcm_t2m", arch, cfg["model"]["input_feats"])
         del arch
@@ -3068,7 +3169,8 @@ def phase_finemogen(torch, dev="cuda", config=FMG_CONFIG, protocol_config=FMG_HM
     t_phase = time.perf_counter()
     cfg = Config.fromfile(config).model
     t0 = time.perf_counter()
-    arch = build_architecture(cfg, device=dev)
+    with skip_init(torch):
+        arch = build_architecture(cfg, device=dev)
     sd = fabricate_state_dict(arch.model, seed=SEED)
     arch.model.load_state_dict(sd, strict=True)
     print(f"[finemogen] {os.path.basename(config)}: {type(arch.model).__name__} built in "
@@ -3117,7 +3219,8 @@ def phase_finemogen(torch, dev="cuda", config=FMG_CONFIG, protocol_config=FMG_HM
     with tempfile.TemporaryDirectory() as tmp:
         config_file = finemogen_protocol_config(tmp, protocol_config, clips)
         params = os.path.join(tmp, "params.npz")
-        model = build_architecture(hml.model, device="cpu")
+        with skip_init(torch):
+            model = build_architecture(hml.model, device="cpu")
         model.model.load_state_dict(fabricate_state_dict(model.model, seed=SEED), strict=True)
         save_params(params, model.model)
         del model
@@ -3230,7 +3333,8 @@ def mcm_long_form(torch, kind, config, tmp, dev="cuda", recordings=MCM_RECORDING
     cfg, win_cfg = full["model"], full["windowed"]
     window, pre = win_cfg["window"], win_cfg["pre_frames"]
     tag = f"mcm-{kind}"
-    arch = build_architecture(cfg, device=dev)
+    with skip_init(torch):
+        arch = build_architecture(cfg, device=dev)
     sd = fabricate_state_dict(arch.model, seed=SEED)
     arch.model.load_state_dict(sd, strict=True)
     model = arch.model
@@ -3349,7 +3453,8 @@ def mcm_long_form(torch, kind, config, tmp, dev="cuda", recordings=MCM_RECORDING
 
     # card vs CPU: one denoiser call (the raw condition), the encoder, and
     # window 1 outpainted from a seeded previous window on the same draws
-    cpu = build_architecture(cfg, device="cpu")
+    with skip_init(torch):
+        cpu = build_architecture(cfg, device="cpu")
     cpu.model.load_state_dict(sd, strict=True)
     arch.repaint_cfg = cpu.repaint_cfg = rp
     host = window_batch(1, 0)
@@ -3436,7 +3541,8 @@ def retrieval_runs(torch, dev="cuda", config=REMO_CONFIG, bank=REMO_BANK):
     cfg = Config.fromfile(config).model
     m, rc = cfg["model"], cfg["model"]["retrieval_cfg"]
     T, feats, R = m["max_seq_len"], m["input_feats"], rc["num_retrieval"]
-    arch = build_architecture(cfg, device=dev)
+    with skip_init(torch):
+        arch = build_architecture(cfg, device=dev)
     sd = fabricate_state_dict(arch.model, seed=SEED)
     arch.model.load_state_dict(sd, strict=True)
     model = arch.model
@@ -3510,7 +3616,8 @@ def retrieval_runs(torch, dev="cuda", config=REMO_CONFIG, bank=REMO_BANK):
           f"(idle share {1 - busy / call_wall:.3f})")
 
     small = {k: v[:2] for k, v in batch.items()}
-    cpu = build_architecture(cfg, device="cpu")
+    with skip_init(torch):
+        cpu = build_architecture(cfg, device="cpu")
     cpu.model.load_state_dict(sd, strict=True)
     for what, key in (("re_motion", "re_motion"), ("re_text", "re_text")):
         compare_devices(torch, "remo", f"encode_retrieval {what}, 2 x {R} rows",
@@ -3525,7 +3632,8 @@ def retrieval_runs(torch, dev="cuda", config=REMO_CONFIG, bank=REMO_BANK):
 
     # MoMatMoGen at the same width: two persons through one joint embedding
     dual = momat_config(cfg)
-    arch = build_architecture(dual, device=dev)
+    with skip_init(torch):
+        arch = build_architecture(dual, device=dev)
     sd = fabricate_state_dict(arch.model, seed=SEED)
     arch.model.load_state_dict(sd, strict=True)
     x2 = torch.randn(BATCH, T, 2 * feats, generator=g)
@@ -3546,7 +3654,8 @@ def retrieval_runs(torch, dev="cuda", config=REMO_CONFIG, bank=REMO_BANK):
           f"MoMatMoGen output {tuple(y.shape)}")
     check(counts == want, f"MoMatMoGen launch counts {counts} != expected {want}")
     out["momatmogen"] = {"counts": counts, "wall_ms": wall}
-    cpu = build_architecture(dual, device="cpu")
+    with skip_init(torch):
+        cpu = build_architecture(dual, device="cpu")
     cpu.model.load_state_dict(sd, strict=True)
     compare_devices(torch, "momat", "forward, B = 2 (8 rows)", lambda a: a.model(
         x2[:2].to(a.device), ts[:2].to(a.device), re_dict=encode(a, 2),
@@ -3610,13 +3719,16 @@ def stage_trees(root, seed):
     return mix, cn, yaml_path
 
 
-def train_stage(torch, tag, argv, cwd, layers, on_start=None):
-    """One tools/torch_train.py run in ``cwd`` with the launch counts and
-    the peak memory of the run; ``on_start(arch)`` runs on the CLI's own
-    model once its base checkpoint is grafted, before the optimizer is made
-    (what it launches is not counted).  Then one more step on the final
-    state under torch.profiler, for the idle share.  Returns {"state",
-    "arch", "counts", "steps_ms", "step_ms", "samples_s", "peak", "idle",
+def train_stage(torch, tag, argv, cwd, per_step, on_start=None, steps=CN_STEPS,
+                label="cn-train"):
+    """One tools/torch_train.py run of ``steps`` optimizer steps in ``cwd``
+    with the launch counts and the peak memory of the run, the counts held
+    to ``per_step`` (kernel -> launches a step; every other kernel 0);
+    ``on_start(arch)`` runs on the CLI's own model once its base checkpoint
+    (if any) is grafted, before the optimizer is made (what it launches is
+    not counted).  Then one more step on the final state under
+    torch.profiler, for the idle share.  Returns {"state", "arch",
+    "counts", "steps_ms", "step_ms", "samples_s", "peak", "idle",
     "work"}."""
     import numpy as np
     import motioncraft_tpu_torch.apis as apis
@@ -3632,7 +3744,8 @@ def train_stage(torch, tag, argv, cwd, layers, on_start=None):
         seen.update(arch=arch, loader=loader)  # the CLI's model and loader
 
         def transform(model):
-            model_transform(model)
+            if model_transform is not None:
+                model_transform(model)
             saved = launch_counts()
             on_start(arch)
             for name, wrapper in COUNTED.items():
@@ -3661,9 +3774,9 @@ def train_stage(torch, tag, argv, cwd, layers, on_start=None):
         lines = [ln for ln in f if " loss=" in ln]
     losses = [float(ln.split(" loss=")[1].split()[0]) for ln in lines]
     steps_ms = [float(ln.split("step_ms=")[1]) for ln in lines]
-    check(state.step == CN_STEPS and len(losses) == CN_STEPS and np.isfinite(losses).all(),
+    check(state.step == steps and len(losses) == steps and np.isfinite(losses).all(),
           f"{tag}: {state.step} steps, losses {losses}")
-    want = dict.fromkeys(counts, 0) | training_counts(CN_STEPS, layers)
+    want = dict.fromkeys(counts, 0) | {k: n * steps for k, n in per_step.items()}
     check(counts == want, f"{tag}: launch counts {counts} != expected {want}")
 
     # one more step (a fourth update of the in-memory model, after
@@ -3686,10 +3799,10 @@ def train_stage(torch, tag, argv, cwd, layers, on_start=None):
     busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     med = float(np.median(steps_ms[1:]))
-    per_step = {k: counts[k] // CN_STEPS for k in TRAINING_KERNELS}
-    print(f"[cn-train] {tag}: {CN_STEPS} steps of B={batch_size} in {wall:.1f} s (the CLI "
+    per_step = {k: counts[k] // steps for k in TRAINING_KERNELS}
+    print(f"[{label}] {tag}: {steps} steps of B={batch_size} in {wall:.1f} s (the CLI "
           f"run, checkpoints included); step wall ms {steps_ms} (first = warm-up), median of "
-          f"steps 2-{CN_STEPS} {med:.1f} ms, {batch_size / med * 1e3:.1f} samples/s; max "
+          f"steps 2-{steps} {med:.1f} ms, {batch_size / med * 1e3:.1f} samples/s; max "
           f"memory allocated {peak / 2**30:.3f} GiB; launches a step {per_step}; one more step "
           f"under torch.profiler {step_wall:.1f} ms wall, {busy:.1f} ms busy on the device, "
           f"idle share {1 - busy / step_wall:.3f}; losses {losses}; card {card_line()}")
@@ -3699,11 +3812,11 @@ def train_stage(torch, tag, argv, cwd, layers, on_start=None):
 
 
 def controlnet_start(torch, c, start):
-    """``on_start`` of a ControlNet's stage: on the CLI's model with its base
-    grafted, each control block's copied block is its base block bit for
-    bit, and the zero-initialised projections leave the test forward with
-    the condition ``c`` on equal to the base's alone.  Keeps the starting
-    state_dict (on the host) in ``start``."""
+    """``on_start`` of a ControlNet's stage (phases 18 and 19): on the CLI's
+    model with its base grafted, each control block's copied block is its
+    base block bit for bit, and the zero-initialised projections leave the
+    test forward with the condition ``c`` on equal to the base's alone.
+    Keeps the starting state_dict (on the host) in ``start``."""
 
     def on_start(arch):
         m = arch.model
@@ -3720,9 +3833,11 @@ def controlnet_start(torch, c, start):
         g = torch.Generator(device=arch.device).manual_seed(SEED + 18)
         x = torch.randn(batch["motion"].shape, generator=g, device=arch.device)
         ts = torch.tensor([999, 420], device=arch.device)
+        enc = arch.encode_text(batch["text_ids"])
+        xf_proj, xf_out = enc if isinstance(enc, tuple) else (None, enc)  # MCM: the pair
         kw = dict(motion_mask=arch._tensor(batch["motion_mask"]),
-                  motion_length=arch._tensor(batch["motion_length"]),
-                  xf_out=arch.encode_text(batch["text_ids"]))
+                  motion_length=arch._tensor(batch["motion_length"]), xf_out=xf_out,
+                  **({} if xf_proj is None else {"xf_proj": xf_proj}))
         with_c = m(x, ts, c=arch._tensor(c), **kw)
         base = m.base_model(x, ts, **kw)
         diff = float((with_c - base).abs().max())
@@ -3803,7 +3918,8 @@ def phase_controlnet_train(torch, dev="cuda", t2m_config=CONFIG, s2g_config=CN_S
                            "--max-epochs", "1", "--cfg-options", "data.train.text.times=1",
                            "data.train.music.times=1", "data.train.speech.times=1",
                            "evaluation=None", "log_config.interval=1"],
-                          mix, Config.fromfile(t2m_config)["model"]["model"]["num_layers"])
+                          mix, training_counts(
+                              1, Config.fromfile(t2m_config)["model"]["model"]["num_layers"]))
         out["t2m_mixed"] = t2m
         base_npz = os.path.join(t2m["work"], "params.npz")
         del t2m["state"], t2m["arch"]
@@ -3821,7 +3937,7 @@ def phase_controlnet_train(torch, dev="cuda", t2m_config=CONFIG, s2g_config=CN_S
                               [path, "--device", str(dev), "--work-dir", tag, "--base-checkpoint",
                                base_npz, "--max-epochs", str(epochs), "--cfg-options",
                                "log_config.interval=1", f"checkpoint_config.interval={epochs}"],
-                              cn, layers, controlnet_start(torch, c, start))
+                              cn, training_counts(1, layers), controlnet_start(torch, c, start))
             frozen = {n for n, p in run["arch"].model.named_parameters() if not p.requires_grad}
             check_controlnet_result(torch, tag, os.path.join(run["work"], "params.npz"),
                                     base_npz, start, frozen)
@@ -3839,8 +3955,9 @@ def phase_controlnet_train(torch, dev="cuda", t2m_config=CONFIG, s2g_config=CN_S
             batch = collate([dataset[0], dataset[1]])
         finally:
             os.chdir(here)
-        sd = fabricate_state_dict(build_architecture(cfg["model"], device="cpu").model,
-                                  seed=SEED + 18)
+        with skip_init(torch):
+            shapes = build_architecture(cfg["model"], device="cpu").model
+        sd = fabricate_state_dict(shapes, seed=SEED + 18)
         frozen = load_tool("torch_train").frozen_prefixes(cfg["model"]["model"])
         phase_train_parity(torch, cfg["model"], sd, batch=batch, frozen=frozen,
                            tag="cn-train parity", card=dev)
@@ -3875,6 +3992,156 @@ def phase_controlnet_train(torch, dev="cuda", t2m_config=CONFIG, s2g_config=CN_S
         out["s2g_test"] = {"counts": counts}
         del run
     print(f"[cn-train] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+
+# ---------------------------------------------------------------- phase 19
+def baseline_counts(model_cfg):
+    """K4's positions, K5 and K6 launched a training step by a baseline (its
+    forward; the backward recomputes their plain versions): two K5 a layer
+    (MotionDiffuse's and MCM's self- or channel attention and their
+    cross-attention; an MCM ControlNet's base and copied blocks alike), two
+    MoEs a layer (FineMoGen's SAMI: K4's positions and K6 each), none for
+    MDM, whose attention is the plain softmax one."""
+    m = model_cfg["model"]
+    if m["type"] == "ControlT2MHalfMCM":
+        return {"fused_linear_attention": 2 * (m["base_model"]["num_layers"]
+                                               + m["copy_blocks_num"])}
+    if m["type"] in ("MotionDiffuseTransformer", "MCMTransformer"):
+        return {"fused_linear_attention": 2 * m["num_layers"]}
+    if m["type"] == "FineMoGenTransformer":
+        return {"moe_positions": 2 * m["num_layers"], "fused_expert_ffn": 2 * m["num_layers"]}
+    return {}
+
+
+def keep_start(start):
+    """``on_start`` that keeps the CLI's starting state_dict (on the host)
+    in ``start``."""
+
+    def on_start(arch):
+        start.update({k: v.detach().cpu().clone() for k, v in arch.model.state_dict().items()})
+
+    return on_start
+
+
+def check_frozen(torch, tag, model, start, base=None):
+    """After a run: every frozen parameter of ``model`` is where it started,
+    bit for bit (and, with ``base``, a grafted base's flax-named params,
+    the base checkpoint's); how many trainable ones moved."""
+    from motioncraft_tpu_torch.utils.convert import from_jax_params
+
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+    moved = [n for n in frozen if not torch.equal(sd[n], start[n])]
+    check(frozen and not moved, f"{tag}: frozen parameters that moved: {moved[:5]}")
+    if base is not None:
+        want = from_jax_params(base)
+        off = [n for n in frozen if not torch.equal(sd[n], want[n[len("base_model."):]])]
+        check(not off, f"{tag}: frozen parameters that are not the base's: {off[:5]}")
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    still = sum(torch.equal(sd[n], start[n]) for n in trainable)
+    where = "" if base is None else " (the base checkpoint's)"
+    print(f"[bl-train] {tag}: {len(frozen)} frozen tensors bit for bit where they started"
+          f"{where}; "
+          f"{len(trainable) - still} of {len(trainable)} trainable tensors moved (a "
+          f"zero-initialised output or residual projection holds the gradient back from the "
+          f"layers behind it in the first steps)")
+
+
+def phase_baseline_train(torch, dev="cuda", configs=BL_CONFIGS, m2d_config=MCM_M2D_CONFIG):
+    """Phase 19: baseline training through tools/torch_train.py at full
+    width on synthetic trees in the shipped configs' paths: stage 1, the
+    Motion-X configs of MotionDiffuse, MCM, MDM and FineMoGen as shipped, a
+    run each of BL_STEPS steps of its batch; stage 2, the MCM ControlNet
+    (mcm_m2d_finedance.py) from stage 1's MCM params.npz; then card vs CPU
+    on one training step of each (MDM at dropout 0)."""
+    import tempfile
+
+    import numpy as np
+    from motioncraft_tpu_torch.config import Config, cfg_options_from_args
+    from motioncraft_tpu_torch.data import collate
+    from motioncraft_tpu_torch.data.datasets import finedance_split
+    from motioncraft_tpu_torch.registry import build_architecture, build_dataset
+    from motioncraft_tpu_torch.utils.checkpoint import load_params
+    from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
+
+    t_phase = time.perf_counter()
+    tool = load_tool("torch_train")
+    cfgs = {os.path.basename(p)[:-3]: (p, Config.fromfile(p)) for p in configs}
+    m2d = Config.fromfile(m2d_config)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "data")
+        batches = {tag: c.data["samples_per_gpu"] for tag, (_, c) in cfgs.items()}
+        write_motionx_tree(data, max(batches.values()), BL_FRAMES, SEED + 19, MIX_MOTIONX)
+        ann = os.path.join(data, "datasets", "motionx")
+        with open(os.path.join(ann, MIX_MOTIONX["ann"])) as f:
+            names = f.read().split()
+        for B in set(batches.values()):  # each run's set: its batch's first clips
+            with open(os.path.join(ann, f"train_{B}.txt"), "w") as f:
+                f.write("\n".join(names[:B]) + "\n")
+        m2d_batch = m2d.data["samples_per_gpu"]
+        write_finedance_tree(data, finedance_split("cross_genre")[0][:m2d_batch], CN_FRAMES,
+                             SEED + 20)
+        print(f"[bl-train] trees written in {time.perf_counter() - t0:.1f} s: "
+              f"{len(names)} Motion-X clips of {BL_FRAMES} frames (each run's set its batch's "
+              f"first clips: {batches}; the RepeatDataset times 100 cut to 1), {m2d_batch} "
+              f"FineDance train tracks of 360 + {CN_FRAMES} frames")
+        mcm_tag = os.path.basename(MCM_CONFIG)[:-3]
+        for tag, (path, cfg) in cfgs.items():
+            B, start = batches[tag], {}
+            keep = BL_STEPS if tag == mcm_tag else BL_STEPS + 1  # stage 2's base only
+            run = train_stage(torch, f"stage 1 {tag}",
+                              [path, "--device", str(dev), "--work-dir", tag, "--max-epochs",
+                               str(BL_STEPS), "--cfg-options", "data.train.times=1",
+                               f"data.train.dataset.ann_file=train_{B}.txt",
+                               "log_config.interval=1", f"checkpoint_config.interval={keep}"],
+                              tmp, baseline_counts(cfg["model"]), keep_start(start),
+                              steps=BL_STEPS, label="bl-train")
+            check_frozen(torch, tag, run["arch"].model, start)
+            del run["state"], run["arch"], start
+            torch.cuda.empty_cache()
+            out[tag] = run
+
+        base_npz = os.path.join(out[mcm_tag]["work"], "params.npz")
+        start = {}
+        c = np.random.RandomState(SEED + 21).randn(2, BL_FRAMES, 163).astype(np.float32)
+        run = train_stage(torch, "stage 2 mcm_m2d_finedance",
+                          [m2d_config, "--device", str(dev), "--work-dir", "mcm_m2d",
+                           "--base-checkpoint", base_npz, "--max-epochs", str(BL_STEPS),
+                           "--cfg-options", "log_config.interval=1",
+                           f"checkpoint_config.interval={BL_STEPS + 1}"],
+                          tmp, baseline_counts(m2d["model"]), controlnet_start(torch, c, start),
+                          steps=BL_STEPS, label="bl-train")
+        check_frozen(torch, "mcm_m2d", run["arch"].model, start,
+                     base=load_params(base_npz)["params"])
+        del run["state"], run["arch"], start
+        torch.cuda.empty_cache()
+        out["mcm_m2d"] = run
+
+        # card vs CPU: one training step of each, at full width on two
+        # samples of its train set
+        here = os.getcwd()
+        for tag, path in [(t, p) for t, (p, _) in cfgs.items()] + [("mcm_m2d", m2d_config)]:
+            cfg = Config.fromfile(path)
+            if cfg.model["model"]["type"] == "MDMTransformer":
+                cfg.merge_from_dict(cfg_options_from_args(["model.model.dropout=0"]))
+            os.chdir(tmp)
+            try:
+                dataset = build_dataset(cfg.data["train"])
+                np.random.seed(SEED)
+                batch = collate([dataset[0], dataset[1]])
+            finally:
+                os.chdir(here)
+            with skip_init(torch):
+                shapes = build_architecture(cfg["model"], device="cpu").model
+            sd = fabricate_state_dict(shapes, seed=SEED + 19)
+            phase_train_parity(torch, cfg["model"], sd, batch=batch,
+                               frozen=tool.frozen_prefixes(cfg["model"]["model"]),
+                               tag=f"bl-train parity {tag}", card=dev)
+    print(f"[bl-train] phase 19 took {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -3929,11 +4196,16 @@ def main():
     train_cfgs = [("t2m", cfg, full_cfg["data"]["samples_per_gpu"])] + [
         (tag, {"model": c["model"]["model"]["base_model"]}, c["data"]["samples_per_gpu"])
         for tag, c in (("s2g", Config.fromfile(CN_S2G_CONFIG)), ("m2d", m2d_cfg))]
+    # phase 19's: each baseline's training batch, the MCM ControlNet's
+    bl_train_cfgs = [(os.path.basename(p)[:-3], c["model"], c["data"]["samples_per_gpu"])
+                     for p, c in ((p, Config.fromfile(p))
+                                  for p in (MD_CONFIG, MCM_CONFIG, FMG_CONFIG, MCM_M2D_CONFIG))]
     rows = phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg, k5_cfgs, fmg_cfgs, mcm_cfgs,
-                         retrieval_cfgs, train_cfgs)
+                         retrieval_cfgs, train_cfgs, bl_train_cfgs)
 
     t0 = time.perf_counter()
-    arch = build_architecture(cfg, device="cuda")
+    with skip_init(torch):
+        arch = build_architecture(cfg, device="cuda")
     sd = fabricate_state_dict(arch.model, seed=SEED)
     arch.model.load_state_dict(sd, strict=True)
     print(f"[model] flagship built in {time.perf_counter() - t0:.1f} s, "
@@ -3948,7 +4220,8 @@ def main():
     m2d = phase_m2d(torch, m2d_cfg)
     s2g = phase_s2g(torch, s2g_cfg)
     serve = phase_serve(torch, cfg, sd)
-    arch = build_architecture(cfg, device="cuda")
+    with skip_init(torch):
+        arch = build_architecture(cfg, device="cuda")
     arch.model.load_state_dict(sd, strict=True)
     low = phase_lowprec(torch, full_cfg, m2d_cfg, arch, sd)
     del arch
@@ -3957,6 +4230,7 @@ def main():
     finemogen = phase_finemogen(torch)
     mcm_remo = phase_mcm_retrieval(torch)
     controlnet = phase_controlnet_train(torch)
+    baseline_train = phase_baseline_train(torch)
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
@@ -3999,6 +4273,10 @@ def main():
         # trained S2G ControlNet through tools/torch_s2g_test.py)
         row["controlnet_train_launches"] = {k: controlnet[k]["counts"][name]
                                             for k in ("t2m_mixed", "s2g", "m2d", "s2g_test")}
+        # phase 19: stage 1 (MotionDiffuse, MCM, MDM, FineMoGen) and stage 2
+        # (the MCM ControlNet from stage 1's MCM), each BL_STEPS steps
+        row["baseline_train_launches"] = {k: v["counts"][name]
+                                          for k, v in baseline_train.items()}
         check(row["launches"] > 0, f"{name} was launched no time on its path")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -25,9 +25,10 @@ from ..parallel import TrainState, build_lr_schedule
 
 
 def set_random_seed(seed: int, device="cpu") -> torch.Generator:
-    """Seed numpy and torch's global generators (dropout draws from those)
-    and return a generator on ``device`` for the step's own draws
-    (timesteps, noise, cond_type, MoE gate noise)."""
+    """Seed numpy and torch's global generators (the blocks' ``F.dropout``
+    draws from those) and return a generator on ``device`` for the step's
+    own draws (timesteps, noise, cond_type, MoE gate noise, the post-LN
+    encoder layers' dropout masks)."""
     np.random.seed(seed)
     torch.manual_seed(seed)
     return torch.Generator(device=device).manual_seed(seed)

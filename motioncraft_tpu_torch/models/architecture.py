@@ -18,10 +18,14 @@ condition's encoding are cast to bf16 and its output back to f32; the noise,
 the schedule and the DDIM update stay f32.
 
 ``loss`` (in ``train()`` mode): timesteps from the schedule sampler, q_sample,
-the 90/10 text/unconditional ``cond_type``, one training forward (a
-ControlNet's with the batch's condition ``c``), the masked
-reconstruction loss (face/hand masking, hand factor, frame or batch
-reduction) plus the weighted MoE aux loss.
+the 90/10 text/unconditional ``cond_type``, the text condition as sampling
+takes it (xf_out, the pair (xf_proj, xf_out) split, or MDM's pooled text),
+one training forward (with the motion lengths and ``num_intervals`` = 1,
+which SAMI reads; a ControlNet's with the batch's condition ``c``), the
+masked reconstruction loss (face/hand masking, hand factor, frame or batch
+reduction) plus the weighted MoE aux loss (``moe_route_loss``) and the
+weighted KL of SAMI's template times (``template_kl_loss``), each summed
+over the layers that add to it.
 """
 
 from __future__ import annotations
@@ -126,7 +130,8 @@ class MotionDiffusion(nn.Module):
         ``c``) -> (total, logs).  The timesteps
         ``t`` [B], the ``noise`` and the ``cond_type`` [B, 1, 1] (text on
         where ``cond_type % 10 > 0``: 90 of 100 values) are drawn from
-        ``generator`` unless given, and so is the MoE gate noise.  Needs
+        ``generator`` unless given, and so are the MoE gate noise and the
+        dropout masks.  Needs
         ``train()`` mode: the JAX package's loss always runs the training
         forward."""
         if not self.training:
@@ -140,9 +145,12 @@ class MotionDiffusion(nn.Module):
                  if noise is None else self._tensor(noise, torch.float32))
         cond_type = (torch.randint(0, 100, (B, 1, 1), generator=generator, device=self.device)
                      if cond_type is None else self._tensor(cond_type))
-        # the frozen CLIP runs under no_grad inside; the two text layers train
-        xf_out = self.model.encode_text(self._tensor(batch["text_ids"], torch.long))
-        aux_losses = []
+        # the frozen CLIP runs under no_grad inside; the text layers train
+        enc = self.model.encode_text(self._tensor(batch["text_ids"], torch.long),
+                                     generator=generator)
+        xf_proj, xf_out = enc if isinstance(enc, tuple) else (None, enc)
+        motion_length = self._tensor(batch["motion_length"])
+        aux_losses, kl_losses = [], []
         # a denoiser with a condition branch (a ControlNet) gets the batch's
         # condition; the others take none, and ignore it in the JAX package
         cond = {}
@@ -150,9 +158,11 @@ class MotionDiffusion(nn.Module):
             cond["c"] = self._tensor(batch["c"], torch.float32)
 
         def model_fn(x_t, t_model):
-            return self.model(x_t, t_model, motion_mask=motion_mask, xf_out=xf_out,
-                              mode="train", cond_type=cond_type, generator=generator,
-                              aux_losses=aux_losses, **cond)
+            return self.model(x_t, t_model, motion_mask=motion_mask,
+                              motion_length=motion_length, xf_out=xf_out, xf_proj=xf_proj,
+                              num_intervals=1, mode="train", cond_type=cond_type,
+                              generator=generator, aux_losses=aux_losses,
+                              kl_losses=kl_losses, **cond)
 
         out = training_losses(self.diffusion_train, model_fn, motion, t, noise)
         pred, target = out["pred"], out["target"]
@@ -173,9 +183,9 @@ class MotionDiffusion(nn.Module):
         recon_frame = recon.sum() / motion_mask.sum().clamp(min=1e-8)
         logs = {"recon_loss": recon_frame if self.loss_reduction == "frame"
                 else recon_batch.mean()}
-        if aux_losses:
-            weights = self.model.aux_loss_weights()
-            logs["moe_route_loss"] = sum(aux_losses) * weights.get("moe_route_loss", 1.0)
+        for key, terms in (("moe_route_loss", aux_losses), ("template_kl_loss", kl_losses)):
+            if terms:
+                logs[key] = sum(terms) * self.model.aux_loss_weights().get(key, 1.0)
         total = sum(v for k, v in logs.items() if "loss" in k)
         logs["loss"] = total
         return total, {**logs, "t_mean": t.float().mean(), "recon_loss_batch": recon_batch,

@@ -26,8 +26,11 @@ keys and values, a Gaussian time kernel over each interval's template
 times, and a third-order Taylor basis (state, velocity, acceleration, jerk
 FFNs of the template) mixed at each frame's time.  Its template products
 are plain einsums, as in the JAX package (no Pallas kernel there); its MoEs
-run K4's route and K1.  Inference only: its training terms (the MoE aux
-losses and the template's KL) wait for baseline training.
+run K4's route and K1 at inference, and in training the slot path (gate
+noise from the step's generator, K4's positions, the slot buffer through
+K6), their aux losses going to ``aux_losses`` and the KL of the template
+times' logits (over the L template rows of each (batch, head): the
+population standard deviation, as ``jnp.std``) to ``kl_losses``.
 
 SemanticsModulatedAttention, ReMoDiffuse's: the motion queries against one
 key set of the text tokens, the retrieved motions (each retrieved frame's
@@ -139,8 +142,9 @@ class EfficientMixedAttention(nn.Module):
     """Linear attention of the motion queries over the text and the motion
     tokens joined (text first), each with its own key and value projections
     and masks, through K5.  Its training with dropout (the key softmax
-    dropped out before the contraction, in the JAX package) waits for
-    baseline training and raises."""
+    dropped out before the contraction, in the JAX package: inside K5)
+    raises; no config builds this attention (ROADMAP queue 1: the rest of
+    the baseline zoo)."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
                  dropout: float = 0.0, time_embed_dim: int = 2048):
@@ -167,7 +171,7 @@ class EfficientMixedAttention(nn.Module):
         query = self.query(xn).reshape(B, T, H, -1)
         if self.training and self.dropout > 0:
             raise NotImplementedError("EfficientMixedAttention with dropout in training: "
-                                      "ROADMAP queue 1: baseline training")
+                                      "ROADMAP queue 1: the rest of the baseline zoo")
         y = fused_linear_attention(query, key, value)
         return x + self.proj_out(y.reshape(B, T, D), emb)
 
@@ -269,7 +273,7 @@ def _interval_ffn(latent_dim: int, ffn_dim: int, out_dim: int) -> nn.Sequential:
 
 @ATTENTIONS.register_module()
 class SAMI(nn.Module):
-    """FineMoGen's spatio-temporal MoE attention (inference).  With
+    """FineMoGen's spatio-temporal MoE attention.  With
     ``num_intervals`` NI, each run of NI consecutive batch rows is one
     sequence of intervals: row i's frame times and template times are offset
     by the lengths of the rows before it in its run."""
@@ -300,20 +304,21 @@ class SAMI(nn.Module):
         self.proj_out = StylizationBlock(H * L, time_embed_dim, dropout)
 
     def forward(self, x, xf=None, emb=None, src_mask=None, cond_type=None,
-                motion_length=None, num_intervals: int = 1, **kwargs):
+                motion_length=None, num_intervals: int = 1, generator=None,
+                aux_losses=None, kl_losses=None, **kwargs):
         """``kwargs`` takes what the stack hands every ca_block and SAMI does
         not use (``cfg_dedup``: SAMI computes both CFG halves, so its MoEs
         route 2B rows as the JAX package's do; ``text_feat``, which is
-        always None: SAMI has no text branch to hoist)."""
-        if self.training:
-            raise NotImplementedError("training SAMI (its aux and KL losses): "
-                                      "ROADMAP queue 1: baseline training")
+        always None: SAMI has no text branch to hoist).  In ``train()``
+        mode the MoEs draw their gate noise from ``generator`` and append
+        their aux losses to ``aux_losses``, and the template times' KL is
+        appended to ``kl_losses``."""
         B, T, D = x.shape
         H, L, S, NI = self.num_heads, self.latent_dim, self.max_seq_len, num_intervals
         xh = x.reshape(B, T, H, L)
         text_feat = self.text_moe(self.text_norm(
-            xf.reshape(B, xf.shape[1], self.num_text_heads, -1)))
-        motion_feat = self.motion_moe(self.norm(xh))
+            xf.reshape(B, xf.shape[1], self.num_text_heads, -1)), generator, aux_losses)
+        motion_feat = self.motion_moe(self.norm(xh), generator, aux_losses)
         body_feat = torch.einsum("hl,bnld->bnhd", self.body_weight.softmax(dim=1),
                                  motion_feat[..., :L]).reshape(B, T, D)
 
@@ -326,7 +331,13 @@ class SAMI(nn.Module):
                            motion_feat[..., 2 * L:] * mask], dim=1)
         template = torch.einsum("bnhd,bnhl->bhdl", key.softmax(dim=1), value)  # [B, H, L, L]
 
-        template_t = torch.sigmoid(self.template_t(template) / self.t_sigma)  # [B, H, L, 1]
+        template_t_feat = self.template_t(template)                     # [B, H, L, 1]
+        template_t = torch.sigmoid(template_t_feat / self.t_sigma)
+        if self.training and kl_losses is not None:
+            feat = template_t_feat.squeeze(-1)
+            mu = feat.mean(dim=-1)
+            logvar = torch.log(feat.std(dim=-1, correction=0) + 1e-12)
+            kl_losses.append(-0.5 * torch.sum(1 + logvar - mu * mu - torch.exp(logvar)))
         template_t = template_t * motion_length.reshape(B, 1, 1, 1).to(x.dtype) / S
         org_t = torch.arange(T, dtype=x.dtype, device=x.device) / S
         # each interval's frames start where the intervals before it in its

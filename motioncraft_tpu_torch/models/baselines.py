@@ -5,7 +5,9 @@ MoMatMoGen (PyTorch port of motioncraft_tpu/models/baselines.py).
     (models/diffusion_transformer.py): a Linear joint embedding, ``block_{i}``
     = EfficientSelfAttention -> EfficientCrossAttention -> FFN, a zero-init
     output, the pooled text projection added to the time embedding.  Both
-    attentions run kernel K5.  No classifier-free guidance.
+    attentions run kernel K5, in training too (the cross-attention masks
+    the text where ``cond_type % 10 == 0``).  No classifier-free
+    guidance.
   - MCMTransformer: the same skeleton with MCMDecoderLayer: self-attention
     across the channels (the [B, D, T] transpose, D tokens of T features,
     an all-ones mask, so the config's ``sa_block_cfg.latent_dim`` is the
@@ -17,8 +19,12 @@ MoMatMoGen (PyTorch port of motioncraft_tpu/models/baselines.py).
     tokens, the sinusoidal position table added, a post-LN transformer
     encoder, and classifier-free guidance as two trunk passes mixed at
     ``guide_scale``.  Its attention is the plain einsum one, as in the JAX
-    package (no Pallas kernel there).  ``post_process`` rescales the root
-    channels of the official released checkpoint.
+    package (no Pallas kernel there).  Its training forward drops the text
+    of a row where ``cond_type % 10 == 0`` and runs one trunk pass with
+    the encoder's dropout, its masks from the step's generator; the
+    config's ``cond_mask_prob`` is stored and never read, as in the JAX
+    package.  ``post_process`` rescales the root channels of the official
+    released checkpoint.
   - FineMoGenTransformer: STMoGen's skeleton (body-part PoseEncoder /
     PoseDecoder, CFG on the doubled batch) with SAMI as the ca_block
     (models/attentions.py): two MoEs a layer (K4's route and K1 each) and
@@ -26,12 +32,15 @@ MoMatMoGen (PyTorch port of motioncraft_tpu/models/baselines.py).
     halves in layer 0, as the JAX package's does; with the JAX package's
     default ``text_hoist`` its sampling fails (its hoist calls SAMI without
     motion), so the port's default computes what JAX computes with the
-    hoist off.
+    hoist off.  In training SAMI's MoEs run the slot path (K4's
+    positions, K6) and add their aux losses, and its template times add
+    their KL terms.
 
-Training the baselines is not ported (ROADMAP queue 1: baseline training):
-their training forward raises.  Nor are bf16, int8 and the step cache: each
-family's ``exact_f32_only`` says so, and ``bf16_cast_``, ``int8_quantize_``
-and the CLIs refuse them on it.
+The training of ReMoDiffuse and MoMatMoGen raises: the JAX package's loss
+applies them without a retrieval (``RETRIEVAL_TRAINING``).  bf16, int8 and
+the step cache are not ported to the baselines: each family's
+``exact_f32_only`` says so, and ``bf16_cast_``, ``int8_quantize_`` and the
+CLIs refuse them on it.
 """
 
 from __future__ import annotations
@@ -52,6 +61,9 @@ from .text_encoder import ClipTextModel, PostLNEncoderLayer
 EXACT_F32_ONLY = ("bf16, int8 and the step cache are not ported to the baselines "
                   "(ROADMAP queue 2: K5's bf16 instantiation, with bf16, int8 and the "
                   "step cache on the baselines)")
+RETRIEVAL_TRAINING = ("the JAX package's MotionDiffusion.loss applies the model without a "
+                      "re_dict, so its training of ReMoDiffuse and MoMatMoGen stops with a "
+                      "TypeError (ROADMAP queue 3: ReMoDiffuse / MoMatMoGen training)")
 
 
 @SUBMODULES.register_module()
@@ -158,11 +170,12 @@ class MDMTransformer(nn.Module):
         return self.poseEmbedding.weight.dtype
 
     @torch.no_grad()
-    def encode_text(self, text_ids):
-        """The pooled CLIP text feature [B, clip_dim] (frozen)."""
+    def encode_text(self, text_ids, generator=None):
+        """The pooled CLIP text feature [B, clip_dim] (frozen: no gradient,
+        no dropout)."""
         return self.clip(text_ids, return_pooled=True)
 
-    def _trunk(self, motion, timesteps, text_emb):
+    def _trunk(self, motion, timesteps, text_emb, generator=None):
         T = motion.shape[1]
         if T + 1 > self.TABLE_ROWS:
             raise ValueError(f"MDMTransformer: {T} frames exceed its position table")
@@ -170,16 +183,22 @@ class MDMTransformer(nn.Module):
         cond = self.time_embed(self.table[timesteps]) + self.embed_text(text_emb)
         xseq = torch.cat([cond[:, None], h], dim=1) + self.table[None, :T + 1]
         for i in range(self.num_layers):
-            xseq = getattr(self, f"layer_{i}")(xseq)
+            xseq = getattr(self, f"layer_{i}")(xseq, generator=generator)
         return self.poseFinal(xseq[:, 1:])
 
     def forward(self, motion, timesteps, motion_mask=None, motion_length=None,
-                xf_out=None, *, mode: str = "test", **kwargs):
+                xf_out=None, *, mode: str = "test", cond_type=None, generator=None,
+                **kwargs):
         """``xf_out`` is the pooled text [B, clip_dim].  The test forward
-        mixes an unconditional and a text pass at ``guide_scale``."""
+        mixes an unconditional and a text pass at ``guide_scale``; the
+        training forward (``mode="train"``) is one pass with the text
+        zeroed where ``cond_type % 10 == 0`` and, in ``train()`` mode, the
+        encoder's dropout drawn from ``generator``."""
         if mode == "train":
-            raise NotImplementedError("training MDMTransformer: ROADMAP queue 1: "
-                                      "baseline training")
+            if cond_type is not None:
+                keep = ((cond_type.reshape(-1, 1) % 10) > 0).to(xf_out.dtype)
+                xf_out = xf_out * keep
+            return self._trunk(motion, timesteps, xf_out, generator)
         if mode != "test":
             raise ValueError(f"mode {mode!r}")
         out_uncond = self._trunk(motion, timesteps, torch.zeros_like(xf_out))
@@ -340,6 +359,9 @@ class ReMoDiffuseTransformer(DiffusionTransformerBase):
             sa_block_cfg=rc.get("sa_block_cfg"), ffn_cfg=rc.get("ffn_cfg"))
         self.scale_func_cfg = dict(scale_func_cfg or {})
         self.register_buffer("coin", torch.from_numpy(coin_table()), persistent=False)
+
+    def forward_train(self, **kwargs):
+        raise NotImplementedError(f"training {type(self).__name__}: {RETRIEVAL_TRAINING}")
 
     def encode_retrieval(self, motions, mask, clip_seq_features, num_retrieval: int) -> dict:
         """The ``re_dict`` of B x ``num_retrieval`` gathered rows

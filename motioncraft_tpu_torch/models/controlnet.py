@@ -42,22 +42,23 @@ text MoE to hoist (``precompute_text_feats`` is None), no layer-0 dedup and
 no step cache, and, as the MCM base, runs in exact f32 only
 (``exact_f32_only``).  Its attentions are K5 (ops/linear_attention.py).
 
-The training forward (``mode="train"``, the STMoGen block type) is one pass
-at the batch's ``cond_type``: the condition zeroed where the text is off
+The training forward (``mode="train"``, either block type) is one pass at
+the batch's ``cond_type``: the condition zeroed where the text is off
 (``cond_type % 10 == 0``, condition-CFG), block 0, the control blocks
 injecting into blocks 1..copy_blocks_num, the rest, the base's output;
-every block's MoEs draw their gate noise from ``generator`` and append
-their aux losses, and the WavEncoder normalises with the batch's
-statistics.  Training freezes the base (``controlnet_frozen_prefixes``:
-flax paths, which the port's '/'-joined parameter names match) apart from
-the body-part heads that ``joint_embed_unfreeze`` / ``unfreeze_mode``
-leave trainable; ``init_control_blocks_from_base`` copies base blocks
-0..copy_blocks_num - 1 into the control blocks.
+the MCM type adds ``xf_proj`` to the time embedding and its blocks mask
+the text by ``cond_type`` (their attentions through K5); every STMoGen
+block's MoEs draw their gate noise from ``generator`` and append their aux
+losses, and the WavEncoder normalises with the batch's statistics.
+Training freezes the base (``controlnet_frozen_prefixes``: flax paths,
+which the port's '/'-joined parameter names match) apart from the
+body-part heads that ``joint_embed_unfreeze`` / ``unfreeze_mode`` leave
+trainable (an MCM base has a Linear joint embedding and output, which
+train whole or stay frozen whole); ``init_control_blocks_from_base``
+copies base blocks 0..copy_blocks_num - 1 into the control blocks.
 
-Not ported, and refused: the wav2vec condition pre-encoder, patched
-conditions (``patch_size > 1``) and the MCM ControlNet's training (its
-copied blocks train through MCM's forward: ROADMAP queue 1, baseline
-training).
+Not ported, and refused: the wav2vec condition pre-encoder and patched
+conditions (``patch_size > 1``).
 """
 
 from __future__ import annotations
@@ -74,7 +75,6 @@ from .stmogen import STMoGenDecoderLayer
 
 S2G_REST = "ROADMAP queue 1: the rest of S2G (wav2vec)"
 ZOO = "ROADMAP queue 1: the rest of the baseline zoo"
-BASELINE_TRAINING = "ROADMAP queue 1: baseline training"
 BASE_TYPES = {"stmogen": "STMoGenTransformer", "mcm": "MCMTransformer"}  # block type -> base
 
 
@@ -166,8 +166,8 @@ class ControlT2MHalf(nn.Module):
     def controlnet(self):
         return [getattr(self, f"controlnet_{i}") for i in range(self.copy_blocks_num)]
 
-    def encode_text(self, text_ids):
-        return self.base_model.encode_text(text_ids)
+    def encode_text(self, text_ids, generator=None):
+        return self.base_model.encode_text(text_ids, generator=generator)
 
     def aux_loss_weights(self):
         """The base's weights of the aux losses."""
@@ -229,8 +229,8 @@ class ControlT2MHalf(nn.Module):
 
     def forward(self, motion, timesteps, motion_mask=None, motion_length=None, xf_out=None,
                 text_feats=None, *, xf_proj=None, c=None, c_enc=None, mode: str = "test",
-                cond_type=None, generator=None, aux_losses=None, step_cache=None,
-                cache_flags=None, num_intervals: int = 1):
+                cond_type=None, generator=None, aux_losses=None, kl_losses=None,
+                step_cache=None, cache_flags=None, num_intervals: int = 1):
         """The forward of ``motion`` [B, T, D] at original-scale
         ``timesteps`` [B], with the condition ``c`` [B, Tc, F] or its
         encoding ``c_enc`` [B, T, latent] (none: the base alone).
@@ -238,15 +238,13 @@ class ControlT2MHalf(nn.Module):
         (``xf_proj`` [B, time_embed_dim], the pooled text, added to the time
         embedding); with a ``step_cache`` and the step's host
         ``cache_flags`` (STMoGen), returns (output, new cache).
-        ``mode="train"`` (STMoGen): one pass at ``cond_type`` [B, 1, 1]
-        (module docstring), the gate noise from ``generator``, the aux
-        losses appended to ``aux_losses``.  ``num_intervals`` is ignored:
-        neither block type reads it, as in the JAX package."""
+        ``mode="train"``: one pass at ``cond_type`` [B, 1, 1] (module
+        docstring), the gate noise from ``generator``, the aux losses
+        appended to ``aux_losses``.  ``motion_length``, ``num_intervals``
+        and ``kl_losses`` are ignored: no block of either type reads or adds
+        to them, as in the JAX package."""
         if mode not in ("test", "train"):
             raise ValueError(f"mode {mode!r}")
-        if mode == "train" and self.block_type == "mcm":
-            raise NotImplementedError("training the MCM ControlNet: its copied blocks train "
-                                      f"through MCM's forward ({BASELINE_TRAINING})")
         base = self.base_model
         src_mask = motion_mask[..., None] if motion_mask.dim() == 2 else motion_mask
         h, emb = base._embed(motion, timesteps)

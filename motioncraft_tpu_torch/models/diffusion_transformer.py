@@ -7,8 +7,10 @@ pooled text projection added to the time embedding), a stack of decoder
 blocks and a zero-init output.  ``setup_io`` (a Linear joint embedding and a
 zero-init Linear output) and ``build_temporal_blocks`` (``block_{i}``
 GenericDecoderLayers: sa -> ca -> FFN) build the generic families' stack
-(models/baselines.py), whose test forward is ``forward_test`` below;
-STMoGen builds its own (models/stmogen.py) and overrides the forwards.
+(models/baselines.py), whose test forward is ``forward_test`` below and
+whose training forward, ``forward_train``, is one pass of the same stack at
+the batch's ``cond_type``; STMoGen builds its own (models/stmogen.py) and
+overrides the forwards.
 
 The stack runs in the dtype of the joint embedding's output (bf16 for a
 bf16-cast model on bf16 motion): the timestep embedding is f32, its MLP
@@ -103,9 +105,10 @@ class DiffusionTransformerBase(nn.Module):
         """The dtype the stack computes in: its joint embedding's."""
         return next(self.joint_embed.parameters()).dtype
 
-    def encode_text(self, text_ids):
-        """xf_out, or (xf_proj, xf_out) with ``use_text_proj``."""
-        return self.text_enc(text_ids)
+    def encode_text(self, text_ids, generator=None):
+        """xf_out, or (xf_proj, xf_out) with ``use_text_proj``; in training
+        the text layers' dropout draws from ``generator``."""
+        return self.text_enc(text_ids, generator=generator)
 
     def _embed(self, motion, timesteps):
         T = motion.shape[1]
@@ -117,18 +120,19 @@ class DiffusionTransformerBase(nn.Module):
 
     def forward(self, motion, timesteps, motion_mask=None, motion_length=None,
                 xf_out=None, text_feats=None, *, xf_proj=None, mode: str = "test",
-                cond_type=None, generator=None, aux_losses=None, step_cache=None,
-                cache_flags=None, num_intervals: int = 1, re_dict=None):
+                cond_type=None, generator=None, aux_losses=None, kl_losses=None,
+                step_cache=None, cache_flags=None, num_intervals: int = 1, re_dict=None):
         """``motion`` [B, T, D] at original-scale ``timesteps`` [B] -> model
         output [B, T, D].  ``mode="test"``: the test forward (STMoGen's
         CFG-guided).  ``mode="train"``: one pass at ``cond_type`` [B, 1, 1]
         (text on where ``cond_type % 10 > 0``), the MoE gate noise drawn from
-        ``generator`` and their aux losses appended to ``aux_losses``.  With
-        ``use_text_proj``, ``xf_proj`` [B, time_embed_dim] is added to the
-        time embedding.  With a ``step_cache`` and the step's host
-        ``cache_flags`` (test mode), returns (output, new cache).
-        ``num_intervals`` goes to the test forward, whose SAMI layers
-        (FineMoGen) read it; every other family ignores it.  ``re_dict``
+        ``generator``, their aux losses appended to ``aux_losses`` and SAMI's
+        template KL terms to ``kl_losses``.  With ``use_text_proj``,
+        ``xf_proj`` [B, time_embed_dim] is added to the time embedding.
+        With a ``step_cache`` and the step's host ``cache_flags`` (test
+        mode), returns (output, new cache).  ``motion_length`` and
+        ``num_intervals`` go to both forwards, whose SAMI layers (FineMoGen)
+        read them; every other family ignores them.  ``re_dict``
         (ReMoDiffuse's encoded retrieval, ``encode_retrieval``) goes to the
         test forward of the families that read it."""
         src_mask = motion_mask[..., None] if motion_mask.dim() == 2 else motion_mask
@@ -138,8 +142,9 @@ class DiffusionTransformerBase(nn.Module):
             emb = emb + xf_proj.to(h.dtype)
         if mode == "train":
             return self.forward_train(h=h, src_mask=src_mask, emb=emb, xf_out=xf_out,
-                                      cond_type=cond_type, generator=generator,
-                                      aux_losses=aux_losses)
+                                      cond_type=cond_type, motion_length=motion_length,
+                                      num_intervals=num_intervals, generator=generator,
+                                      aux_losses=aux_losses, kl_losses=kl_losses)
         if mode != "test":
             raise ValueError(f"mode {mode!r}")
         return self.forward_test(h=h, src_mask=src_mask, emb=emb,
@@ -156,6 +161,12 @@ class DiffusionTransformerBase(nn.Module):
             h = block(h, xf_out, emb, src_mask)
         return self.out(h).reshape(B, T, -1)
 
-    def forward_train(self, **kwargs):
-        raise NotImplementedError(f"training {type(self).__name__}: ROADMAP queue 1: "
-                                  "baseline training")
+    def forward_train(self, h, src_mask, emb, xf_out, cond_type, **kwargs):
+        """The generic families' training forward: one pass of the stack at
+        ``cond_type`` [B, 1, 1] (each cross-attention masks the text of a
+        row where ``cond_type % 10 == 0``); the layers take what else they
+        read of ``kwargs`` and ignore the rest, as in the JAX package."""
+        B, T = h.shape[:2]
+        for block in self.blocks:
+            h = block(h, xf_out, emb, src_mask, cond_type, **kwargs)
+        return self.out(h).reshape(B, T, -1)

@@ -26,8 +26,10 @@ motioncraft_tpu/models/stmogen.py).
     layer either computing (its output returned as it is, so all-compute
     flags give the uncached stack bit for bit) or replaying its cached
     residual without a launch, and returns ``(mixed, new_cache)``.
-  - forward_train: one pass of the stack at the batch's ``cond_type``, the
-    text MoE computed in every layer, the MoE aux losses collected.
+  - forward_train: one pass of the stack at the batch's ``cond_type`` with
+    the motion lengths and ``num_intervals`` (SAMI reads them), the text
+    MoE computed in every layer, the MoE aux losses and SAMI's template KL
+    terms collected.
 """
 
 from __future__ import annotations
@@ -122,11 +124,11 @@ class STMoGenDecoderLayer(nn.Module):
 
     def forward(self, x, xf, emb, src_mask, cond_type, motion_length=None,
                 num_intervals: int = 1, cfg_dedup=False, text_feat=None, generator=None,
-                aux_losses=None):
+                aux_losses=None, kl_losses=None):
         x = self.ca_block(x, xf=xf, emb=emb, src_mask=src_mask, cond_type=cond_type,
                           motion_length=motion_length, num_intervals=num_intervals,
                           cfg_dedup=cfg_dedup, text_feat=text_feat, generator=generator,
-                          aux_losses=aux_losses)
+                          aux_losses=aux_losses, kl_losses=kl_losses)
         return self.ffn(x, emb)
 
 
@@ -171,12 +173,13 @@ class STMoGenTransformer(DiffusionTransformerBase):
         return {"moe_route_loss": self.moe_route_loss_weight,
                 "template_kl_loss": self.template_kl_loss_weight}
 
-    def forward_train(self, h, src_mask, emb, xf_out, cond_type, generator=None,
-                      aux_losses=None):
+    def forward_train(self, h, src_mask, emb, xf_out, cond_type, motion_length=None,
+                      num_intervals: int = 1, generator=None, aux_losses=None,
+                      kl_losses=None):
         B, T = h.shape[:2]
         for block in self.blocks:
-            h = block(h, xf_out, emb, src_mask, cond_type, generator=generator,
-                      aux_losses=aux_losses)
+            h = block(h, xf_out, emb, src_mask, cond_type, motion_length, num_intervals,
+                      generator=generator, aux_losses=aux_losses, kl_losses=kl_losses)
         return self.out(h).reshape(B, T, -1)
 
     def precompute_text_feats(self, xf_out):

@@ -8,9 +8,10 @@ and a LayerNorm.  The attention is written out (einsum + softmax) as in the
 JAX package, so both compute the same sums.  CLIP is frozen: it runs under
 ``torch.no_grad()`` (the JAX package's ``stop_gradient``) and training leaves
 its parameters out of the optimizer (parallel/train_state.py); the two
-post-LN layers train, with dropout.  Under bf16-cast weights the whole tower
-runs in bf16 (the causal mask in the activations' dtype), as in the JAX
-package.
+post-LN layers train, with dropout (``dropout``: its masks drawn from the
+training step's generator, so a seed fixes a run).  Under bf16-cast
+weights the whole tower runs in bf16 (the causal mask in the activations'
+dtype), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,6 +27,16 @@ from .blocks import LayerNorm
 
 def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
+
+
+def dropout(x, p: float, training: bool, generator=None):
+    """flax's ``nn.Dropout``: in training, each element kept with
+    probability 1 - p (a Bernoulli draw from ``generator``) and scaled by
+    1 / (1 - p), else 0; ``x`` itself otherwise."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return x * keep / (1.0 - p)
 
 
 class ClipAttention(nn.Module):
@@ -119,11 +130,13 @@ class PostLNEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm2 = LayerNorm(d_model)
 
-    def forward(self, x, key_mask=None):
-        p, train = self.dropout, self.training
-        x = self.norm1(x + F.dropout(self.self_attn(x, key_mask=key_mask), p, train))
-        h = self.linear2(F.dropout(self.act(self.linear1(x)), p, train))
-        return self.norm2(x + F.dropout(h, p, train))
+    def forward(self, x, key_mask=None, generator=None):
+        """In training, the three dropouts draw their masks from
+        ``generator``."""
+        p, train, g = self.dropout, self.training, generator
+        x = self.norm1(x + dropout(self.self_attn(x, key_mask=key_mask), p, train, g))
+        h = self.linear2(dropout(self.act(self.linear1(x)), p, train, g))
+        return self.norm2(x + dropout(h, p, train, g))
 
 
 class TextEncoder(nn.Module):
@@ -149,13 +162,13 @@ class TextEncoder(nn.Module):
         self.text_ln = LayerNorm(latent_dim)
         self.text_proj = nn.Linear(latent_dim, time_embed_dim) if use_text_proj else None
 
-    def forward(self, text_ids):
+    def forward(self, text_ids, generator=None):
         with torch.no_grad():
             x = self.clip(text_ids)
         if self.text_pre_proj is not None:
             x = self.text_pre_proj(x)
         for i in range(self.num_layers):
-            x = getattr(self, f"textTransEncoder_{i}")(x)
+            x = getattr(self, f"textTransEncoder_{i}")(x, generator=generator)
         xf_out = self.text_ln(x)
         if self.text_proj is None:
             return xf_out

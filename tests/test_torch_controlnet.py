@@ -184,18 +184,18 @@ def test_what_is_not_ported_raises():
         bad["model"].update(change)
         with pytest.raises(NotImplementedError, match=reason):
             build_torch(bad, device="cpu")
-    # the STMoGen ControlNet trains (tests/test_torch_controlnet_train.py);
-    # the MCM one's copied blocks would train through MCM's forward
+    # both block types train (tests/test_torch_controlnet_train.py, the
+    # STMoGen one; tests/test_torch_baseline_train.py, the MCM one)
     arch = build_torch(cfg, device="cpu")
     arch.train()
     total, _ = arch.loss(dict(_batch(), motion=np.zeros((2, T, 322), np.float32)))
     assert np.isfinite(float(total))
     from test_torch_mcm_controlnet import _batch as mcm_batch
     from test_torch_mcm_controlnet import arch_cfg as mcm_arch_cfg
-    mcm = build_torch(mcm_arch_cfg("m2d"), device="cpu")
+    mcm = build_torch(mcm_arch_cfg("music"), device="cpu")
     mcm.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: baseline training"):
-        mcm.loss(mcm_batch("m2d"))
+    total, _ = mcm.loss(mcm_batch("music"))
+    assert np.isfinite(float(total))
 
 
 def test_merged_pth_loads_like_the_jax_route(seeded, tmp_path):

@@ -8,8 +8,10 @@ package samples FineMoGen only with ``text_hoist=False``: its hoist calls
 SAMI without motion and raises, which a test here pins; the port's default
 computes what JAX computes with the hoist off.  Also the reference
 checkpoint converter (bit for bit the JAX one's on a fabricated state
-dict) and what this slice leaves out (bf16, int8, the step cache,
-training), each refused with its ROADMAP item.
+dict) and what this slice leaves out (bf16, int8, the step cache), each
+refused with its ROADMAP item; SAMI in training and the training loss
+against JAX at gate noise 0 (tests/test_torch_baseline_train.py holds the
+gradients).
 
 Tolerances: SAMI 1e-5 x max(1, max |JAX|) (sums in another order, erf
 from another library; the gate logits well apart, the MoE position
@@ -115,12 +117,33 @@ def test_sami(NI, B):
 
 
 def test_sami_refuses_training():
-    port = port_att.SAMI(**SAMI_KW).train()
-    x = torch.zeros(2, T, H * LAT)
-    with pytest.raises(NotImplementedError, match="baseline training"):
-        port(x, xf=torch.zeros(2, 77, 16), emb=torch.zeros(2, TE),
-             src_mask=torch.ones(2, T, 1), cond_type=torch.ones(2, 1, 1),
-             motion_length=torch.full((2, 1), T))
+    """SAMI in training (it raised before baseline training was ported),
+    at gate noise 0, against flax's ``train=True``: the output, its MoEs'
+    aux losses and its template KL, the population std's."""
+    rng = np.random.RandomState(6)
+    B = 3
+    x = rng.randn(B, T, H * LAT).astype(np.float32)
+    lengths = np.array([[T], [9], [12]], np.int32)
+    kw = dict(xf=rng.randn(B, 77, 16).astype(np.float32),
+              emb=rng.randn(B, TE).astype(np.float32),
+              src_mask=(np.arange(T)[None] < lengths).astype(np.float32)[..., None],
+              cond_type=np.array([0, 7, 42], np.int32).reshape(B, 1, 1), motion_length=lengths)
+    cfg = dict(SAMI_KW, gate_noise=0.0)
+    flax_m = jax_att.SAMI(**cfg)
+    variables = jax.jit(lambda: flax_m.init(jax.random.PRNGKey(0), x, **kw))()
+    params = seeded_params(jax.tree_util.tree_map(np.asarray, variables["params"]), 2)
+    want, state = jax.jit(lambda v: flax_m.apply(v, x, train=True, mutable=["losses"], **kw))(
+        {"params": params})
+    port = port_att.SAMI(**cfg).train()
+    port.load_state_dict(from_jax_params(params), strict=True)
+    aux, kl = [], []
+    with torch.no_grad():
+        got = port(t(x), **{k: t(v) for k, v in kw.items()}, aux_losses=aux, kl_losses=kl)
+    assert len(aux) == 2 and len(kl) == 1  # the text and the motion MoE; the template
+    assert_close_scaled(got.numpy(), want, REL_MODULE, "SAMI in training")
+    losses = state["losses"]
+    assert_close_scaled(float(sum(aux)), sum(losses["aux_loss"]), REL_MODULE, "aux")
+    assert_close_scaled(float(kl[0]), sum(losses["kl_loss"]), REL_MODULE, "kl")
 
 
 @pytest.mark.parametrize("NI", [1, 2])
@@ -214,10 +237,24 @@ def test_lowprec_options_are_refused(pair, argv):
 
 
 def test_training_is_refused(pair):
-    _, _, arch_t, batch = pair
+    """Training, which raised before baseline training was ported:
+    ``MotionDiffusion.loss`` on the fixture's weights at gate noise 0
+    against the JAX package's loss on its draws, every term, each weighted
+    by the model's ``aux_loss_weights``."""
+    from test_torch_train import jax_draws
+
+    _, variables, _, batch = pair
+    cfg = finemogen_cfg(moe_route_loss_weight=10.0, template_kl_loss_weight=1e-2)
+    cfg["model"]["ca_block_cfg"]["gate_noise"] = 0.0
+    arch_j = build_jax(cfg)
+    key = jax.random.PRNGKey(9)
+    _, want = jax.jit(lambda v: arch_j.loss(v, batch, key))(variables)
+    arch_t = build_torch(cfg, device="cpu")
+    arch_t.model.load_state_dict(from_jax_params(jax.device_get(variables["params"])),
+                                 strict=True)
     arch_t.train()
-    try:
-        with pytest.raises(NotImplementedError, match="baseline training"):
-            arch_t.loss(batch, generator=torch.Generator().manual_seed(0))
-    finally:
-        arch_t.eval()
+    with torch.no_grad():
+        _, got = arch_t.loss(batch, **jax_draws(arch_j, batch, key))
+    for k in ("loss", "recon_loss", "moe_route_loss", "template_kl_loss"):
+        assert_close_scaled(float(got[k]), float(want[k]), REL_MODULE, k)
+    assert float(want["template_kl_loss"]) > 0

@@ -22,7 +22,7 @@ from motioncraft_tpu.models import text_encoder as jax_text
 from motioncraft_tpu_torch.models import attentions, blocks, moe, text_encoder
 from motioncraft_tpu_torch.diffusion import create_diffusion
 from motioncraft_tpu_torch.models.architecture import MotionDiffusion, resolve_device
-from motioncraft_tpu_torch.models.diffusion_transformer import DiffusionTransformerBase
+from motioncraft_tpu_torch.models.baselines import ReMoDiffuseTransformer
 from motioncraft_tpu_torch.apis.factory import tiny_t2m_cfg
 from motioncraft_tpu_torch.ops import moe_positions_counts_plain, moe_route_plain
 from motioncraft_tpu_torch.ops.moe_ffn import BLOCK
@@ -219,12 +219,14 @@ def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
 @pytest.mark.parametrize("build", [
     lambda: attentions.STMA(**STMA_KW, patch_size=2),
     lambda: attentions.STMA(**STMA_KW, expert_axis="expert"),
-    # the non-merged EfficientSelfAttention, use_text_proj and DDPM are
-    # ported (tests/test_torch_baselines.py); these three branches are not
+    # the non-merged EfficientSelfAttention, use_text_proj, DDPM and the
+    # generic stack's training are ported (tests/test_torch_baselines.py,
+    # tests/test_torch_baseline_train.py); these three branches are not
+    # (ReMoDiffuse's training: the JAX package's loss passes no retrieval)
     lambda: attentions.STMA(**dict(STMA_KW, num_text_heads=2)),
     lambda: create_diffusion(model_var_type="learned_range"),
-    lambda: DiffusionTransformerBase(text_encoder=dict(clip_width=32,
-                                                       clip_layers=1)).forward_train(),
+    lambda: ReMoDiffuseTransformer(text_encoder=dict(clip_width=32,
+                                                     clip_layers=1)).forward_train(),
 ])
 def test_cut_branches_raise(build):
     with pytest.raises(NotImplementedError):

@@ -20,7 +20,8 @@ as ``init_all`` never calls it):
 - ``convert_remodiffuse`` against the JAX converter on fabricated reference
   state dicts (both families), exactly, and the ``.pth`` through
   ``load_eval_variables``;
-- exact f32 only, no training, and tools/torch_test.py's refusal.
+- exact f32 only, no training (the JAX package's loss passes no
+  retrieval: pinned), and tools/torch_test.py's refusal.
 
 Tolerance: 1e-5 x max(1, max |JAX|) (sums in another order).
 """
@@ -338,10 +339,21 @@ def test_exact_f32_only_and_no_training(remo):
         arch_t.sample(batch, step_cache=StepCacheConfig(reuse_every=2))
     arch_t.train()
     try:
-        with pytest.raises(NotImplementedError, match="baseline training"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 3: ReMoDiffuse / MoMatMoGen training"):
             arch_t.loss(batch, generator=torch.Generator().manual_seed(0))
     finally:
         arch_t.eval()
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["remodiffuse", "momatmogen"])
+def test_jax_loss_passes_no_retrieval(dual):
+    """The JAX package's MotionDiffusion.loss applies the model without a
+    re_dict, which its semantics-modulated attention indexes: its training
+    stops with a TypeError, so the port refuses the two families."""
+    arch_j, params, _ = _seeded(dual)
+    with pytest.raises(TypeError, match="'NoneType' object is not subscriptable"):
+        arch_j.loss({"params": params}, _batch(dual), jax.random.PRNGKey(0))
 
 
 def test_torch_test_cli_refuses_remodiffuse(monkeypatch):

@@ -8,7 +8,8 @@ learnable tree (tools/make_tiny_data.py --protocol-learnable's layout):
 - a partial checkpoint left by a killed write is never what
   latest_checkpoint returns, and max_keep_ckpts prunes;
 - a config with ``evaluation`` runs the EvalHook after each epoch;
-- each option the port does not train yet is refused;
+- each option the port does not train yet is refused, and so are
+  ReMoDiffuse and MoMatMoGen, which the JAX package's loss cannot train;
 - ControlNet training from a base: the JAX package's tools/train.py trains
   a tiny T2M base (configs/tests/tiny_s2g.py's) and writes params.npz; the
   port's CLI trains configs/tests/tiny_s2g.py on BEAT2 speech windows
@@ -209,14 +210,15 @@ def lmdb_speech_set(tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--devices", "2"], "multi-GPU"), (["--tensor-parallel", "2"], "multi-GPU"),
-    (["--pipeline-parallel", "2"], "multi-GPU"), (["--multihost"], "multi-GPU"),
-    (["--coordinator", "localhost:1234"], "multi-GPU"),
-    ([os.path.join(REPO, "configs", "mcm", "mcm_s2g_beats2.py")], "baseline training"),
-    (["--cfg-options", "data.train=LMDB"], "the rest of training"),
-    (["--cfg-options", "fp16={'loss_scale': 512.0}"], "the rest of training")],
+    (["--devices", "2"], "1: multi-GPU"), (["--tensor-parallel", "2"], "1: multi-GPU"),
+    (["--pipeline-parallel", "2"], "1: multi-GPU"), (["--multihost"], "1: multi-GPU"),
+    (["--coordinator", "localhost:1234"], "1: multi-GPU"),
+    ([os.path.join(REPO, "configs", "remodiffuse", "remodiffuse_t2m.py")],
+     "3: ReMoDiffuse / MoMatMoGen training"),
+    (["--cfg-options", "data.train=LMDB"], "1: the rest of training"),
+    (["--cfg-options", "fp16={'loss_scale': 512.0}"], "1: the rest of training")],
     ids=["devices", "tensor-parallel", "pipeline-parallel", "multihost", "coordinator",
-         "mcm-controlnet", "lmdb-cache", "fp16"])
+         "remodiffuse", "lmdb-cache", "fp16"])
 def test_options_not_ported_are_refused(argv, item, tmp_path):
     config = CONFIG
     if argv[0].endswith(".py"):
@@ -224,7 +226,7 @@ def test_options_not_ported_are_refused(argv, item, tmp_path):
     argv = ["data.train=" + lmdb_speech_set(tmp_path) if a == "data.train=LMDB" else a
             for a in argv]
     # the LMDB cache is refused where the dataset would read it
-    with pytest.raises((SystemExit, NotImplementedError), match=f"ROADMAP queue 1: {item}"):
+    with pytest.raises((SystemExit, NotImplementedError), match=f"ROADMAP queue {item}"):
         torch_train.main([config, "--device", "cpu", "--work-dir", str(tmp_path), *argv])
 
 

@@ -4,8 +4,9 @@ tools/train.py, which runs the JAX package), on one card.
 config -> train dataset (a mixed ``data.train.base`` set through
 ``build_mixed_dataset``) -> shuffled, seeded loader -> train_model (the
 config's optimizer, lr schedule, gradient clip and cumulative_iters; CLIP
-frozen; a ControlNet's base frozen as ``controlnet_frozen_prefixes`` says,
-its ``joint_embed_unfreeze`` / ``unfreeze_mode`` heads trainable) ->
+frozen, MDM's at ``clip`` as the others' at ``text_enc/clip``; a
+ControlNet's base frozen as ``controlnet_frozen_prefixes`` says, its
+``joint_embed_unfreeze`` / ``unfreeze_mode`` heads trainable) ->
 per-epoch checkpoints (``checkpoint_config.interval`` /
 ``max_keep_ckpts``, written whole or not at all) with ``params.npz`` in the
 JAX package's layout, which tools/test.py and tools/torch_test.py
@@ -16,11 +17,13 @@ Xs``, ``saved checkpoint at epoch E``, ``resumed from ... at epoch E``,
 ``loaded base checkpoint ...``) and grows across ``--resume``.  Runs on
 the card unless ``--device cpu``.
 
-``--base-checkpoint`` takes a ``params.npz`` of either package's training
-CLI (its ``params``): for a ControlNet config it becomes ``base_model`` and
-its first ``copy_blocks_num`` blocks are copied into the control blocks
-(tools/train.py's ``variables_transform``); for any other model it is the
-starting weights.
+It trains the flagship and every STMoGen config, the baselines
+MotionDiffuse, MCM, MDM and FineMoGen, and both ControlNet block types
+(STMoGen and MCM).  ``--base-checkpoint`` takes a ``params.npz`` of either
+package's training CLI (its ``params``): for a ControlNet config it
+becomes ``base_model`` and its first ``copy_blocks_num`` blocks are copied
+into the control blocks (tools/train.py's ``variables_transform``); for
+any other model it is the starting weights.
 
 Usage:
   python tools/torch_train.py configs/tests/protocol_learn.py \\
@@ -29,13 +32,17 @@ Usage:
       --work-dir out --max-epochs 1         # after tools/make_tiny_data.py
   python tools/torch_train.py configs/stmogen/s2g_beats2_0125b.py \\
       --work-dir outputs/s2g --base-checkpoint outputs/t2m_0_125b/params.npz
+  python tools/torch_train.py configs/mcm/mcm_t2m_smplx.py --work-dir outputs/mcm
+  python tools/torch_train.py configs/mcm/mcm_m2d_finedance.py \\
+      --work-dir outputs/mcm_m2d --base-checkpoint outputs/mcm/params.npz
 
 A resumed epoch draws the batches the uninterrupted run draws when the
 loader has no worker threads (``data.workers_per_gpu=0``): threads take
 the samples' random crops and captions in the order they run.
-Not ported yet, and refused rather than ignored: several devices, tensor
-and pipeline parallelism and several hosts; the MCM ControlNet's training
-and fp16 (each names its ROADMAP queue 1 item).
+Refused rather than ignored: several devices, tensor and pipeline
+parallelism and several hosts, and fp16 (each names its ROADMAP queue 1
+item); ReMoDiffuse and MoMatMoGen, which the JAX package's loss cannot
+train (it passes them no retrieval; ROADMAP queue 3).
 """
 
 import argparse
@@ -47,8 +54,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 MULTI = "ROADMAP queue 1: multi-GPU, serving and the host-side tools"
 TRAINING = "ROADMAP queue 1: the rest of training"
-BASELINE_TRAINING = "ROADMAP queue 1: baseline training"
 CONTROLNETS = ("ControlT2MHalf", "ControlT2MHalfMCM")
+RETRIEVAL_MODELS = ("ReMoDiffuseTransformer", "MoMatMoGenTransformer")
 
 
 def parse_args(argv=None):
@@ -83,17 +90,24 @@ def parse_args(argv=None):
 
 
 def check_config(cfg) -> None:
-    """Refuse what the config asks for and the port does not train yet."""
-    if cfg.model["model"].get("type") == "ControlT2MHalfMCM":
-        raise SystemExit("ControlT2MHalfMCM: the MCM ControlNet's copied blocks train through "
-                         f"MCM's forward ({BASELINE_TRAINING})")
+    """Refuse what the config asks for and the port does not train, before
+    anything is built."""
+    model_type = cfg.model["model"].get("type")
+    if model_type in RETRIEVAL_MODELS:
+        from motioncraft_tpu_torch.models.baselines import RETRIEVAL_TRAINING
+
+        raise SystemExit(f"{model_type}: {RETRIEVAL_TRAINING}")
     if cfg.get("fp16"):
         raise SystemExit(f"fp16: half-precision training ({TRAINING})")
 
 
 def frozen_prefixes(model_cfg: dict) -> tuple:
-    """What training freezes: CLIP; for a ControlNet, its base as
+    """What training freezes: CLIP (MDM's at ``clip``, which the JAX
+    package's ``stop_gradient`` keeps where it is: a zero gradient moves
+    no Adam parameter); for a ControlNet, its base as
     controlnet_frozen_prefixes says (tools/train.py's choice)."""
+    if model_cfg.get("type") == "MDMTransformer":
+        return ("clip/",)
     if model_cfg.get("type") not in CONTROLNETS:
         return ("text_enc/clip",)
     from motioncraft_tpu_torch.models.controlnet import controlnet_frozen_prefixes
