@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flagship text-to-motion sampling, training and
 evaluation, its music-to-dance and speech-to-gesture long-form
-evaluations, its baselines, ControlNet training and baseline training on
-one NVIDIA GPU, and hold each of its CUDA kernels against its plain PyTorch
-version.
+evaluations, its baselines, ControlNet training, baseline training and
+bf16 / remat / optax-default-optimizer training on one NVIDIA GPU, and hold
+each of its CUDA kernels against its plain PyTorch version.
 
 Run from the root of the repository, on a machine with one card and the CUDA
 toolkit:
@@ -53,7 +53,9 @@ Phases; any failure exits non-zero:
      and its cross-attention [256, 196, 4, 128], at the MCM ControlNet's 128
      [128, 512, 4, 49] and [128, 196, 8, 64]; K6 on FineMoGen's motion
      slots at its 128, D = 64, F = 256: its K4 positions and text slots
-     are phase 18's flagship cases at 128): max abs error against its
+     are phase 18's flagship cases at 128), and K6's bf16 instantiation
+     (phase 20's bf16 training) on the flagship's text slots at B = 32 and
+     128 and on FineMoGen's D = 64 motion slots at 128: max abs error against its
      tolerance (1e-2 x max |plain| for bf16; K4 exact in its
      integers, its route's gates within 1e-6; on every path a route case
      leaning to one expert must drop choices); the kernel's device time from
@@ -138,7 +140,7 @@ Phases; any failure exits non-zero:
      weights: one server in f32 and one in bf16 (the weights cast, the
      denoiser in bf16 through K1-K3's bf16 instantiations), each with batch
      buckets 1, 2, 4, 8 and sequence buckets 64, 128, 196, warmed up on
-     every bucket pair; 4 client threads send 4 seeded requests each (one
+     every bucket pair; 4 client threads send 3 seeded requests each (one
      at a time, lengths 40-196) beside 2 long-form requests of 400 frames:
      every result finite and of its length, dispatches and occupancy
      consistent with stats(), K1-K4's launches what the dispatches imply
@@ -276,7 +278,22 @@ Phases; any failure exits non-zero:
      gate logits pinned as in phase 8).  Per run: the median step ms of
      steps 2-4, samples/s, max memory, launches a step and one more step's
      idle share from torch.profiler
- 20. one JSON line of the kernels' numbers, and last the device line
+ 20. the rest of training on the flagship with phase 3's weights: 4
+     train_model steps of B = 32 in bf16 (the config's fp16 option: bf16
+     copies of the f32 master parameters, the text path and its MoEs in
+     bf16 through K6's bf16 instantiation, the motion path in f32 on the
+     rounded weights through the f32 K6): finite losses, every master
+     parameter f32 and moved (but the face head), CLIP unchanged, launches
+     exactly K4's positions 8, K5 4, K6 4 and K6 bf16 4 a step, and the
+     step ms beside phase 7's f32 ones; one bf16 training step card vs CPU
+     (B = 2, gate logits pinned as in phase 8, within MODEL_BF16_TOL); one
+     bf16 step of B = 128 with remat off and on on the same weights: the
+     same loss, less max memory allocated with it on, both step times;
+     one update of each of Adafactor, AdaBelief and LAMB (optax's defaults)
+     on the flagship's trainable parameters from the same seeded gradients,
+     card vs CPU within OPT_REL_TOL of each tensor's update (plus two f32
+     ulps of its largest parameter)
+ 21. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -338,10 +355,10 @@ S2G_RECORDINGS, S2G_FRAMES, S2G_REC_BATCH = 4, 244, 4
 # expression directions, pose-corrective directions
 SMPLX_SIZES = dict(vertices=10475, faces=20908, shapedirs=400, posedirs=486)
 # phase 12: one server a dtype over the flagship, its buckets, 4 client
-# threads of 4 requests each (one at a time; 8 before phase 18 came, which
-# put the script over 900 s), 2 long-form requests
+# threads of 3 requests each (one at a time; 8 before phase 18 came, which
+# put the script over 900 s, 4 before phase 20 came), 2 long-form requests
 SERVE_BUCKETS, SERVE_SEQ_BUCKETS = (1, 2, 4, 8), (64, 128, 196)
-SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_LONG, SERVE_LONG_FRAMES = 4, 4, 2, 400
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_LONG, SERVE_LONG_FRAMES = 4, 3, 2, 400
 # the bucket pairs (batch, frames) whose kernel shapes phase 2 checks: the
 # smallest and the largest
 SERVE_CHECKED = ((1, 64), (8, 196))
@@ -363,8 +380,8 @@ SERVE_CHECKED = ((1, 64), (8, 196))
 STEP_CACHE_TABLE = os.path.join(ROOT, "artifacts", "step_cache_flagship.json")
 LOWPREC_CLIPS = BATCH  # one batch (two before phase 18)
 # the W8A8 server's requests a client (phase 12's 4 before phase 19 came,
-# which put the script over 1000 s on one host)
-LOWPREC_SERVE_PER_CLIENT = 2
+# which put the script over 1000 s on one host; 2 before phase 20 came)
+LOWPREC_SERVE_PER_CLIENT = 1
 INT8_PEAK = 1979e12   # H100 SXM dense int8 tensor cores, OP/s
 W8A8_SENS = 1.5
 W8A8_FIRST_SHARE = 1e-3
@@ -380,7 +397,16 @@ HARNESS_EVAL_STEPS, HARNESS_TOP1 = 1500, 0.5
 # batch in training), the training CLI's --grad-accum and the calibration
 # checkpoint's batch: the shapes whose kernels phase 2 checks for phase 14
 HARNESS_BATCH, HARNESS_GRAD_ACCUM, HARNESS_CALIB_BATCH = 32, 2, 8
-# the bf16 instantiations of K1-K3
+# phase 20: bf16 training (the config's fp16 option with its compute
+# dtype), the batch of its remat pair (phase 18's flagship batch), and the
+# optimizers' card-vs-CPU limit on each tensor's update: its f32 reductions
+# (Adafactor's factored means and RMS, LAMB's norms) over up to millions of
+# elements sum in another order on the card (and each device rounds the
+# updated parameter to its f32 ulp: the check adds two of those)
+BF16_TRAIN = dict(dtype="bfloat16")
+REMAT_BATCH = 128
+OPT_REL_TOL = 1e-4
+# the bf16 instantiations of K1-K3 (bf16 inference)
 BF16_KERNELS = ("grouped_ffn", "head_ffn", "stma_linear_attention")
 # training's kernels: K4's positions, K5, K6
 TRAINING_KERNELS = ("moe_positions", "fused_linear_attention", "fused_expert_ffn")
@@ -448,7 +474,7 @@ PALLAS = {
     "fused_linear_attention": "motioncraft_tpu/ops/pallas_attention.py:111",
     "fused_expert_ffn": "motioncraft_tpu/ops/pallas_ffn.py:86",
 }
-PALLAS.update({f"{k}_bf16": PALLAS[k] for k in BF16_KERNELS})
+PALLAS.update({f"{k}_bf16": PALLAS[k] for k in (*BF16_KERNELS, "fused_expert_ffn")})
 SOURCES = {
     "moe_route": "motioncraft_tpu_torch/csrc/moe_positions.cu",
     "moe_positions": "motioncraft_tpu_torch/csrc/moe_positions.cu",
@@ -458,7 +484,7 @@ SOURCES = {
     "fused_linear_attention": "motioncraft_tpu_torch/csrc/linear_attention.cu",
     "fused_expert_ffn": "motioncraft_tpu_torch/csrc/expert_ffn.cu",
 }
-SOURCES.update({f"{k}_bf16": SOURCES[k] for k in BF16_KERNELS})
+SOURCES.update({f"{k}_bf16": SOURCES[k] for k in (*BF16_KERNELS, "fused_expert_ffn")})
 
 
 class PhaseError(RuntimeError):
@@ -732,7 +758,9 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
     t2m = flagship_inputs(torch, cfg, dev)
     layer0 = flagship_inputs(torch, cfg, dev, training=False, layer0=True)
     paths = [("t2m", t2m), ("t2m layer 0", layer0),
-             ("t2m bf16", bf16_inputs(torch, t2m)), ("t2m layer 0 bf16", bf16_inputs(torch, layer0))]
+             ("t2m bf16", bf16_inputs(torch, t2m)), ("t2m layer 0 bf16", bf16_inputs(torch, layer0)),
+             # phase 20's bf16 training: K6's bf16 instantiation on the text slots
+             (f"t2m train bf16 B={TRAIN_BATCH}", bf16_slots(torch, t2m["fused_expert_ffn"][1:]))]
     # phase 12's smallest and largest buckets (b requests, T frames: 2b
     # CFG rows), in f32 and in bf16, each with layer 0's half
     for b, T in SERVE_CHECKED:
@@ -782,6 +810,9 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
     for tag, model_cfg, Bt in train_cfgs:
         train = flagship_inputs(torch, model_cfg, dev, B2=Bt, Bt=Bt)
         paths.append((f"{tag} train B={Bt}", {k: train[k] for k in TRAINING_KERNELS}))
+        if tag == "t2m":  # and K6's bf16 text slots at that batch (phase 20 at B = 128)
+            paths.append((f"{tag} train bf16 B={Bt}",
+                          bf16_slots(torch, train["fused_expert_ffn"][1:])))
     for tag, model_cfg, Bt in baseline_train_cfgs:
         m = model_cfg["model"]
         if m["type"] == "FineMoGenTransformer":
@@ -789,7 +820,8 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
             # 12 and B x 77 tokens and the text slots at D = 256 are phase
             # 18's flagship cases at the same B
             train = flagship_inputs(torch, model_cfg, dev, B2=Bt, Bt=Bt)
-            cases = {"fused_expert_ffn": train["fused_expert_ffn"][:1]}
+            cases = {"fused_expert_ffn": train["fused_expert_ffn"][:1],
+                     **bf16_slots(torch, train["fused_expert_ffn"][:1])}
         else:
             cases = baseline_attention_inputs(torch, {"model": m.get("base_model", m)}, dev,
                                               B=Bt)
@@ -809,6 +841,14 @@ def bf16_inputs(torch, inputs):
             out.setdefault(f"{name}_bf16", []).append(
                 FfnArgs(cast, args.kept) if isinstance(args, FfnArgs) else cast)
     return out
+
+
+def bf16_slots(torch, cases):
+    """K6's bf16 instantiation on the slot-buffer cases ``cases`` (K6's
+    five operands, all rounded to bf16, as the bf16 training step hands its
+    text MoEs' slots and bf16 weights to it)."""
+    return {"fused_expert_ffn_bf16": [tuple(a.to(torch.bfloat16) for a in args)
+                                      for args in cases]}
 
 
 def kernel_work(name, args):
@@ -852,7 +892,7 @@ def kernel_work(name, args):
     if name == "fused_expert_ffn":
         xe, w1, b1, w2, b2 = args
         E, C, d = xe.shape
-        nbytes = 4 * (2 * xe.numel() + w1.numel() + b1.numel() + w2.numel() + b2.numel())
+        nbytes = 2 * nb(xe) + nb(w1) + nb(b1) + nb(w2) + nb(b2)
         return 4 * E * C * d * w1.shape[2], nbytes
     mot, txt, mask, tcond = args
     B, T, H, d4 = mot.shape
@@ -1158,7 +1198,7 @@ def phase_train(torch, full_cfg, arch):
           f"{len(moved)} of {len(trainable)} trainable tensors moved (not: {still}), "
           f"{len(frozen)} CLIP tensors unchanged; launches {counts}")
     check(counts == want, f"training launch counts {counts} != expected {want}")
-    return counts
+    return counts, step_ms
 
 
 def training_counts(forwards, layers):
@@ -1172,7 +1212,7 @@ def training_counts(forwards, layers):
 
 
 def phase_train_parity(torch, cfg, sd, batch=None, frozen=("text_enc/clip",),
-                       tag="train-parity", card="cuda"):
+                       tag="train-parity", card="cuda", fp16=False):
     """Phase 8: one training loss and its gradients, card vs CPU, B = 2,
     gate noise 0 on both; the CPU's gates take the card's gate logits (as
     values; the gradient flows through its own gate), so a near-tie cannot
@@ -1181,9 +1221,12 @@ def phase_train_parity(torch, cfg, sd, batch=None, frozen=("text_enc/clip",),
     the gradients of the trainable parameters are compared; phase 19 a
     baseline's (a model without MoE gates: nothing to pin).  Every scalar
     loss term is compared.  ``card``: the device held against the CPU (the
-    CPU itself in a rehearsal)."""
+    CPU itself in a rehearsal).  With ``fp16`` (phase 20) both run the bf16
+    step (bf16 copies of the parameters, ``apis/train.py:cast_parameters``)
+    and are held to MODEL_BF16_TOL: the two round bf16 in other places."""
     import copy
     from motioncraft_tpu_torch.apis import make_train_batch
+    from motioncraft_tpu_torch.apis.train import cast_parameters
     from motioncraft_tpu_torch.models.moe import CosineTopGate
     from motioncraft_tpu_torch.parallel import freeze
     from motioncraft_tpu_torch.registry import build_architecture
@@ -1227,8 +1270,9 @@ def phase_train_parity(torch, cfg, sd, batch=None, frozen=("text_enc/clip",),
         handles = [m.register_forward_hook(hook) for m in a.modules()
                    if isinstance(m, CosineTopGate)]
         a.train()
-        total, logs = a.loss(batch, **draws)
-        total.backward()
+        with cast_parameters(a.model, torch.bfloat16) if fp16 else contextlib.nullcontext():
+            total, logs = a.loss(batch, **draws)
+            total.backward()
         a.eval()
         for h in handles:
             h.remove()
@@ -1242,17 +1286,19 @@ def phase_train_parity(torch, cfg, sd, batch=None, frozen=("text_enc/clip",),
           "gate calls differ between devices")
     (lc, gc), (lp, gp) = results["cuda"], results["cpu"]
     check(set(lc) == set(lp), f"loss terms {sorted(lc)} on the card, {sorted(lp)} on the CPU")
+    loss_tol, grad_tol = (MODEL_BF16_TOL, MODEL_BF16_TOL) if fp16 else (MODEL_REL_TOL,
+                                                                        GRAD_REL_TOL)
     for k in lc:
         diff, scale = abs(lc[k] - lp[k]), max(1.0, abs(lp[k]))
         print(f"[{tag}] {k}: card {lc[k]:.7f} CPU {lp[k]:.7f} diff {diff:.3e} "
-              f"(tol {MODEL_REL_TOL} x {scale:.4g})")
-        check(diff <= MODEL_REL_TOL * scale, f"training {k} card vs CPU: {diff}")
+              f"(tol {loss_tol} x {scale:.4g})")
+        check(diff <= loss_tol * scale, f"training {k} card vs CPU: {diff}")
     check(set(gc) == set(gp) and gc, "the gradients cover other parameters on the two devices")
     worst = max(((float((gc[n] - gp[n]).abs().max()) / max(1.0, float(gp[n].abs().max())), n)
                  for n in gp))
     print(f"[{tag}] {len(gp)} gradient tensors; worst max|card - CPU| / max(1, "
-          f"max|CPU|) = {worst[0]:.3e} at {worst[1]} (tol {GRAD_REL_TOL})")
-    check(worst[0] <= GRAD_REL_TOL, f"gradient {worst[1]} card vs CPU: {worst[0]}")
+          f"max|CPU|) = {worst[0]:.3e} at {worst[1]} (tol {grad_tol})")
+    check(worst[0] <= grad_tol, f"gradient {worst[1]} card vs CPU: {worst[0]}")
     return lc, len(gp)
 
 
@@ -4145,6 +4191,154 @@ def phase_baseline_train(torch, dev="cuda", configs=BL_CONFIGS, m2d_config=MCM_M
     return out
 
 
+def bf16_training_counts(steps, layers):
+    """K4's positions, K5, the f32 K6 and the bf16 K6 over ``steps`` bf16
+    training steps of the flagship: per layer the text MoE's slots (bf16
+    features, bf16 weights) through the bf16 K6, the motion MoE's (f32
+    slots, the weights widened) through the f32 one."""
+    return {"moe_positions": 2 * layers * steps, "fused_linear_attention": layers * steps,
+            "fused_expert_ffn": layers * steps, "fused_expert_ffn_bf16": layers * steps}
+
+
+def phase_bf16_train(torch, full_cfg, sd, f32_step_ms=None, dev="cuda"):
+    """Phase 20: the rest of training on the flagship with phase 3's
+    weights: TRAIN_STEPS train_model steps of B = TRAIN_BATCH in bf16
+    (``fp16=BF16_TRAIN``) with exact launch counts, beside phase 7's f32
+    step times; one bf16 training step card vs CPU (phase 8's, in bf16);
+    one bf16 step of B = REMAT_BATCH with ``remat`` off and on (SGD at lr 0,
+    so both see the same weights): the same loss, less memory with it on;
+    one update of each of Adafactor, AdaBelief and LAMB on the flagship's
+    trainable parameters from the same seeded gradients, card vs CPU."""
+    import numpy as np
+    from motioncraft_tpu_torch.apis import (make_train_batch, make_train_step,
+                                            set_random_seed, train_model)
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.parallel import TrainState
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.card import card_line
+
+    t_phase = time.perf_counter()
+    cfg = full_cfg["model"]
+    with skip_init(torch):
+        arch = build_architecture(cfg, device=dev)
+    arch.model.load_state_dict(sd, strict=True)
+    T = arch.model.max_seq_len
+    batches = [make_train_batch(TRAIN_BATCH, seed=SEED + i, max_seq_len=T)
+               for i in range(TRAIN_STEPS)]
+    before = {k: v.clone() for k, v in arch.model.state_dict().items()}
+    lines = []
+
+    def log(msg):
+        lines.append(msg)
+        print(f"[bf16-train] {msg}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    state = train_model(arch, batches, optimizer_cfg=full_cfg["optimizer"],
+                        lr_config=full_cfg["lr_config"], max_epochs=1,
+                        steps_per_epoch=TRAIN_STEPS, seed=SEED, log_interval=1, logger=log,
+                        fp16=BF16_TRAIN)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m.split(" loss=")[1].split()[0]) for m in lines if " loss=" in m]
+    step_ms = [float(m.split("step_ms=")[1]) for m in lines if "step_ms=" in m]
+    check(state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS
+          and np.isfinite(losses).all(), f"bf16 losses {losses}")
+    after = arch.model.state_dict()
+    check(all(v.dtype == before[k].dtype for k, v in after.items()),
+          "a master parameter changed its dtype")
+    trainable = {n for n, p in arch.model.named_parameters() if p.requires_grad}
+    frozen = [n for n in before if n.startswith("text_enc.clip.")]
+    still = sorted(n for n in trainable if torch.equal(after[n], before[n]))
+    check(frozen and all(torch.equal(after[n], before[n]) for n in frozen),
+          "a frozen CLIP parameter changed")
+    check(all(n.startswith("out.face_out.") for n in still),
+          f"trainable parameters that did not move: {still[:5]}")
+    want = dict.fromkeys(counts, 0) | bf16_training_counts(TRAIN_STEPS, arch.model.num_layers)
+    print(f"[bf16-train] {TRAIN_STEPS} steps of B={TRAIN_BATCH} in bf16: step wall ms "
+          f"{step_ms} (first = warm-up; f32, phase 7: {f32_step_ms}); max memory allocated "
+          f"{peak / 2**30:.3f} GiB; losses {losses}; launches {counts}")
+    check(counts == want, f"bf16 training launch counts {counts} != expected {want}")
+    check(all(counts[k] > 0 for k in bf16_training_counts(1, 1)),
+          "a kernel of the bf16 training path was launched no time")
+    del arch, state
+
+    # one bf16 training step card vs CPU, B = 2, gate logits pinned
+    phase_train_parity(torch, cfg, sd, tag="bf16-train-parity", card=dev, fp16=True)
+
+    # remat off and on at B = REMAT_BATCH, one bf16 step each on the same weights
+    with skip_init(torch):
+        arch = build_architecture(cfg, device=dev)
+    arch.model.load_state_dict(sd, strict=True)
+    batch = make_train_batch(REMAT_BATCH, seed=SEED + 20, max_seq_len=T)
+    state = TrainState(arch.model, {"type": "SGD", "lr": 0.0})
+    step = make_train_step(arch, state, fp16=BF16_TRAIN)
+    remat = {}
+    arch.train()
+    try:
+        for on in (False, False, True):  # the first a warm-up
+            arch.model.remat = on
+            g = set_random_seed(SEED + 20, dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = float(step(batch, g)["loss"])  # waits for the device
+            remat[on] = {"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    finally:
+        arch.model.remat = False
+        arch.eval()
+    print(f"[bf16-train] B={REMAT_BATCH} bf16 step, remat off / on: loss "
+          f"{remat[False]['loss']:.7f} / {remat[True]['loss']:.7f}, wall ms "
+          f"{remat[False]['ms']:.1f} / {remat[True]['ms']:.1f}, max memory allocated "
+          f"{remat[False]['peak_gib']:.3f} / {remat[True]['peak_gib']:.3f} GiB; "
+          f"card {card_line()}")
+    check(remat[True]["loss"] == remat[False]["loss"], "remat changed the loss")
+    check(remat[True]["peak_gib"] < remat[False]["peak_gib"], "remat did not lower memory")
+    del arch, state, step
+
+    # one update of each optax-default optimizer, card vs CPU, the same gradients
+    with skip_init(torch):
+        models = {d: build_architecture(cfg, device=d).model for d in (dev, "cpu")}
+    gen = torch.Generator().manual_seed(SEED + 21)
+    grads = {n: torch.randn(p.shape, generator=gen) * 1e-3
+             for n, p in models["cpu"].named_parameters() if not n.startswith("text_enc.clip.")}
+    opts = {}
+    for typ in ("Adafactor", "AdaBelief", "Lamb"):
+        moved = {}
+        for d, model in models.items():
+            model.load_state_dict(sd, strict=True)
+            st = TrainState(model, {"type": typ, "lr": full_cfg["optimizer"]["lr"]})
+            for n, p in model.named_parameters():
+                if p.requires_grad:
+                    p.grad = grads[n].to(d)
+            t0 = time.perf_counter()
+            st.apply_gradients()
+            if d != "cpu":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            moved[d] = ({n: p.detach().cpu() for n, p in model.named_parameters()
+                         if n in grads}, ms)
+        (card, card_ms), (cpu, cpu_ms) = moved[dev], moved["cpu"]
+        # each device rounds the updated parameter to its own f32 ulp: two
+        # ulps of the largest parameter beside OPT_REL_TOL of the update
+        worst = max((float((card[n] - cpu[n]).abs().max())
+                     / (OPT_REL_TOL * float((cpu[n] - sd[n].cpu()).abs().max())
+                        + 2.0 ** -22 * float(cpu[n].abs().max())), n) for n in cpu)
+        check(any(not torch.equal(cpu[n], sd[n].cpu()) for n in cpu), f"{typ} moved nothing")
+        print(f"[bf16-train] {typ} update of {len(cpu)} tensors: worst max|card - CPU| / "
+              f"(OPT_REL_TOL x max|CPU update| + 2 ulp of max|CPU|) = {worst[0]:.3e} at "
+              f"{worst[1]} (tol 1); card {card_ms:.1f} ms, CPU {cpu_ms:.1f} ms wall")
+        check(worst[0] <= 1.0, f"{typ} update card vs CPU: {worst}")
+        opts[typ] = {"worst": worst[0], "card_ms": card_ms}
+    del models
+    torch.cuda.empty_cache()
+    print(f"[bf16-train] phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts, "step_ms": step_ms, "remat": remat, "optimizers": opts}
+
+
 def main():
     try:
         import torch
@@ -4213,7 +4407,7 @@ def main():
 
     counts = phase_e2e(torch, arch)
     phase_parity(torch, cfg, arch, sd)
-    train_counts = phase_train(torch, full_cfg, arch)
+    train_counts, f32_step_ms = phase_train(torch, full_cfg, arch)
     del arch
     phase_train_parity(torch, cfg, sd)
     eval_counts = phase_eval(torch, full_cfg, sd)
@@ -4231,6 +4425,7 @@ def main():
     mcm_remo = phase_mcm_retrieval(torch)
     controlnet = phase_controlnet_train(torch)
     baseline_train = phase_baseline_train(torch)
+    bf16_train = phase_bf16_train(torch, full_cfg, sd, f32_step_ms)
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
@@ -4238,7 +4433,8 @@ def main():
         # for K1-K3's bf16 instantiations; and on the evaluation paths of
         # phases 9, 10 and 11 (R = 1, then R = 4) and the two servers of
         # phase 12 (f32, then bf16)
-        row["launches"] = counts[name] or train_counts[name] or serve["bf16"]["counts"][name]
+        row["launches"] = (counts[name] or train_counts[name] or serve["bf16"]["counts"][name]
+                           or bf16_train["counts"][name])
         row["eval_launches"] = eval_counts[name]
         row["m2d_launches"] = [m2d[R]["counts"][name] for R in sorted(m2d)]
         row["s2g_launches"] = [s2g[R]["counts"][name] for R in (1, S2G_REC_BATCH)]
@@ -4277,6 +4473,8 @@ def main():
         # (the MCM ControlNet from stage 1's MCM), each BL_STEPS steps
         row["baseline_train_launches"] = {k: v["counts"][name]
                                           for k, v in baseline_train.items()}
+        # phase 20: the bf16 train_model steps (TRAIN_STEPS of B = TRAIN_BATCH)
+        row["bf16_train_launches"] = bf16_train["counts"][name]
         check(row["launches"] > 0, f"{name} was launched no time on its path")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,12 +6,14 @@ batches while the step runs, the step is ``MotionDiffusion.loss``, autograd
 and one optimizer update (``parallel/train_state.py``), and the loop runs
 epochs with the checkpoint / eval hooks and the loss-aware timestep sampler's
 feedback.  ``resume_dir`` resumes from the last ``utils/checkpoint.py``
-checkpoint written there.  Multi-device training (``mesh``) and half
-precision (``fp16``) are not ported.
+checkpoint written there.  ``fp16`` trains in bf16 against the f32
+master parameters (``make_train_step``).  Multi-device training
+(``mesh``) is not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import queue
 import threading
@@ -83,6 +85,41 @@ def device_prefetch(batch_iter: Iterable[Dict[str, Any]], device, depth: int = 2
         raise errors[0]
 
 
+@contextlib.contextmanager
+def cast_parameters(module: torch.nn.Module, dtype: torch.dtype):
+    """Within the block every floating parameter of ``module`` reads as a
+    ``dtype`` copy made by a differentiable cast, so the backward hands the
+    f32 parameter the gradient of its copy widened to f32 (the JAX
+    package's ``astype`` inside the differentiated function).  Buffers
+    (BatchNorm statistics) stay as they are, as flax's extra variables do.
+    The parameters are put back on exit."""
+    swapped = []
+    try:
+        for m in module.modules():
+            for name, p in list(m._parameters.items()):
+                if p is not None and p.is_floating_point() and p.dtype != dtype:
+                    # the copy stands in the module's parameter dict, so
+                    # that parameters() and attribute reads both see it
+                    m._parameters[name] = p.to(dtype)
+                    swapped.append((m, name, p))
+        yield module
+    finally:
+        for m, name, p in swapped:
+            m._parameters[name] = p
+
+
+def half_dtype(fp16: dict) -> torch.dtype:
+    """The compute dtype that an ``fp16`` option names: bfloat16 (its
+    default).  float16 needs an f16 instantiation of K6 (queued)."""
+    name = str(fp16.get("dtype", "bfloat16")).removeprefix("torch.")
+    if name == "float16":
+        raise NotImplementedError("fp16 training in float16 (an f16 K6): "
+                                  "ROADMAP queue 1: the rest of training")
+    if name != "bfloat16":
+        raise ValueError(f"fp16 dtype {name!r}: bfloat16")
+    return torch.bfloat16
+
+
 def make_train_step(arch, state: TrainState, fp16: Optional[dict] = None,
                     grad_accum: int = 1) -> Callable:
     """``step(batch, generator=None, **loss_kw) -> logs``: the loss, its
@@ -91,9 +128,26 @@ def make_train_step(arch, state: TrainState, fp16: Optional[dict] = None,
     and averages their gradients before the update, as the JAX package's
     scan does.  The logs hold the scalars (means over microbatches) and, for
     the loss-aware sampler, ``_timesteps`` and ``_loss_batch`` in input
-    order."""
+    order.
+
+    ``fp16`` (the JAX package's option, mmcv's Fp16OptimizerHook): the
+    forward and backward run on bf16 copies of every floating parameter
+    (``fp16["dtype"]``, default and only 'bfloat16'; the frozen CLIP's
+    too); the f32 parameters stay the master copy and take the gradients
+    widened to f32.  Each
+    module computes in the promoted dtype of its input and its weights, as
+    flax does (models/blocks.py:promote_dtype): the text tower and the text
+    MoEs run in bf16, the motion path in f32 on the rounded weights.  The
+    loss is taken in f32 and multiplied by a numeric ``loss_scale``, the
+    gradients divided by it; a string ``loss_scale`` (mmcv's 'dynamic')
+    counts as 1.0, as in the JAX package."""
+    half, loss_scale = None, 1.0
     if fp16 is not None:
-        raise NotImplementedError("fp16 / bf16 training")
+        half = half_dtype(fp16)
+        ls = fp16.get("loss_scale", 1.0)
+        loss_scale = 1.0 if isinstance(ls, str) else float(ls)
+    cast = ((lambda: cast_parameters(arch.model, half)) if half is not None
+            else contextlib.nullcontext)
 
     def train_step(batch: Dict[str, Any], generator=None, **loss_kw):
         B = batch["motion"].shape[0]
@@ -107,14 +161,18 @@ def make_train_step(arch, state: TrainState, fp16: Optional[dict] = None,
             micro = {k: v[part] if getattr(v, "ndim", 0) and v.shape[0] == B else v
                      for k, v in batch.items()}
             kw = {k: v[part] for k, v in loss_kw.items()}
-            with torch.enable_grad():  # whatever the caller's grad mode
+            with torch.enable_grad(), cast():  # whatever the caller's grad mode
                 loss, logs = arch.loss(micro, generator=generator, **kw)
-                (loss / grad_accum).backward()
+                (loss.float() * (loss_scale / grad_accum)).backward()
             for k, v in logs.items():
                 if v.ndim == 0:
                     scalars[k] = scalars.get(k, 0.0) + v.detach().float() / grad_accum
             timesteps.append(logs["timesteps"])
             loss_batch.append(logs["recon_loss_batch"].detach())
+        if loss_scale != 1.0:
+            for p in state.params:
+                if p.grad is not None:
+                    p.grad.div_(loss_scale)
         state.apply_gradients()
         scalars["_timesteps"] = torch.cat(timesteps)
         scalars["_loss_batch"] = torch.cat(loss_batch)

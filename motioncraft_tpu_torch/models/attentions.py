@@ -53,7 +53,7 @@ from torch import nn
 from ..ops.linear_attention import fused_linear_attention
 from ..ops.stma_attention import NEG_INF, stma_linear_attention
 from ..registry import ATTENTIONS
-from .blocks import LayerNorm, StylizationBlock, ZeroDense
+from .blocks import LayerNorm, Linear, StylizationBlock, ZeroDense, promote_dtype
 from .moe import MOE
 
 
@@ -80,9 +80,9 @@ class EfficientSelfAttention(nn.Module):
         super().__init__()
         self.num_heads, self.merged_lanes = num_heads, merged_lanes
         self.norm = LayerNorm(latent_dim)
-        self.query = nn.Linear(latent_dim, latent_dim)
-        self.key = nn.Linear(latent_dim, latent_dim)
-        self.value = nn.Linear(latent_dim, latent_dim)
+        self.query = Linear(latent_dim, latent_dim)
+        self.key = Linear(latent_dim, latent_dim)
+        self.value = Linear(latent_dim, latent_dim)
         self.proj_out = (None if time_embed_dim is None else
                          StylizationBlock(latent_dim, time_embed_dim, dropout))
 
@@ -116,9 +116,9 @@ class EfficientCrossAttention(nn.Module):
         self.num_heads = num_heads
         self.norm = LayerNorm(latent_dim)
         self.text_norm = LayerNorm(text_latent_dim)
-        self.query = nn.Linear(latent_dim, latent_dim)
-        self.key = nn.Linear(text_latent_dim, latent_dim)
-        self.value = nn.Linear(text_latent_dim, latent_dim)
+        self.query = Linear(latent_dim, latent_dim)
+        self.key = Linear(text_latent_dim, latent_dim)
+        self.value = Linear(text_latent_dim, latent_dim)
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
     def forward(self, x, xf=None, emb=None, cond_type=None, **kwargs):
@@ -152,11 +152,11 @@ class EfficientMixedAttention(nn.Module):
         self.num_heads, self.dropout = num_heads, dropout
         self.norm = LayerNorm(latent_dim)
         self.text_norm = LayerNorm(text_latent_dim)
-        self.query = nn.Linear(latent_dim, latent_dim)
-        self.key_text = nn.Linear(text_latent_dim, latent_dim)
-        self.value_text = nn.Linear(text_latent_dim, latent_dim)
-        self.key_motion = nn.Linear(latent_dim, latent_dim)
-        self.value_motion = nn.Linear(latent_dim, latent_dim)
+        self.query = Linear(latent_dim, latent_dim)
+        self.key_text = Linear(text_latent_dim, latent_dim)
+        self.value_text = Linear(text_latent_dim, latent_dim)
+        self.key_motion = Linear(latent_dim, latent_dim)
+        self.value_motion = Linear(latent_dim, latent_dim)
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
     def forward(self, x, xf=None, emb=None, src_mask=None, cond_type=None, **kwargs):
@@ -237,8 +237,8 @@ class STMA(nn.Module):
         body_value = motion_feat[..., :L]
         body_feat = body_value
         if self.static_body:
-            body_feat = torch.einsum("hl,bnld->bnhd", self.body_weight.softmax(dim=1),
-                                     body_value)
+            body_feat = torch.einsum("hl,bnld->bnhd", *promote_dtype(
+                self.body_weight.softmax(dim=1), body_value))
         body_feat = body_feat.reshape(Bc, T, D)
         if self.dynamic_body:
             d_in = body_value.reshape(Bc * T, H, L)
@@ -267,8 +267,8 @@ class STMA(nn.Module):
 def _interval_ffn(latent_dim: int, ffn_dim: int, out_dim: int) -> nn.Sequential:
     """SAMI's template FFN: Linear -> exact-erf GELU -> Linear (flax
     ``layers_0`` / ``layers_2``, the Sequential's 0 and 2)."""
-    return nn.Sequential(nn.Linear(latent_dim, ffn_dim), nn.GELU(),
-                         nn.Linear(ffn_dim, out_dim))
+    return nn.Sequential(Linear(latent_dim, ffn_dim), nn.GELU(),
+                         Linear(ffn_dim, out_dim))
 
 
 @ATTENTIONS.register_module()
@@ -319,8 +319,8 @@ class SAMI(nn.Module):
         text_feat = self.text_moe(self.text_norm(
             xf.reshape(B, xf.shape[1], self.num_text_heads, -1)), generator, aux_losses)
         motion_feat = self.motion_moe(self.norm(xh), generator, aux_losses)
-        body_feat = torch.einsum("hl,bnld->bnhd", self.body_weight.softmax(dim=1),
-                                 motion_feat[..., :L]).reshape(B, T, D)
+        body_feat = torch.einsum("hl,bnld->bnhd", *promote_dtype(
+            self.body_weight.softmax(dim=1), motion_feat[..., :L])).reshape(B, T, D)
 
         tc = ((cond_type % 10) > 0).to(x.dtype).reshape(B, 1, 1, 1)
         mask = src_mask.reshape(B, T, 1, 1)
@@ -379,14 +379,14 @@ class _SemanticsModulatedBase(nn.Module):
         self.latent_dim, self.num_heads = D, num_heads
         self.norm = LayerNorm(D)
         self.text_norm = LayerNorm(text_latent_dim)
-        self.query = nn.Linear(D, D)
-        self.key_text = nn.Linear(text_latent_dim, D)
-        self.value_text = nn.Linear(text_latent_dim, D)
-        self.key_motion = nn.Linear(D, D)
-        self.value_motion = nn.Linear(D, D)
+        self.query = Linear(D, D)
+        self.key_text = Linear(text_latent_dim, D)
+        self.value_text = Linear(text_latent_dim, D)
+        self.key_motion = Linear(D, D)
+        self.value_motion = Linear(D, D)
         self.retr_norm1 = LayerNorm(2 * D)
         self.retr_norm2 = LayerNorm(D)
-        self.key_retr = nn.Linear(2 * D, D)
+        self.key_retr = Linear(2 * D, D)
         self.value_retr = ZeroDense(D, D)
         self.proj_out = StylizationBlock(D, time_embed_dim, dropout)
 
@@ -446,8 +446,8 @@ class DualSemanticsModulatedAttention(_SemanticsModulatedBase):
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
                  dropout: float = 0.0, time_embed_dim: int = 2048):
         super().__init__(latent_dim, text_latent_dim, num_heads, dropout, time_embed_dim)
-        self.key_inter = nn.Linear(latent_dim, latent_dim)
-        self.value_inter = nn.Linear(latent_dim, latent_dim)
+        self.key_inter = Linear(latent_dim, latent_dim)
+        self.value_inter = Linear(latent_dim, latent_dim)
 
     def forward(self, x, xf=None, emb=None, src_mask=None, cond_type=None, re_dict=None,
                 **kwargs):

@@ -53,7 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..registry import ATTENTIONS, SUBMODULES
-from .blocks import FFN, ZeroDense, timestep_embedding
+from .blocks import FFN, Linear, ZeroDense, timestep_embedding
 from .diffusion_transformer import DiffusionTransformerBase, ffn_from_cfg
 from .stmogen import STMoGenTransformer
 from .text_encoder import ClipTextModel, PostLNEncoderLayer
@@ -77,9 +77,9 @@ class MotionDiffuseTransformer(DiffusionTransformerBase):
                  sa_block_cfg: Optional[dict] = None, ca_block_cfg: Optional[dict] = None,
                  ffn_cfg: Optional[dict] = None, text_encoder: Optional[dict] = None,
                  use_pos_embedding: bool = True, post_process_cfg: Optional[dict] = None,
-                 init_cfg: Optional[dict] = None):
+                 init_cfg: Optional[dict] = None, remat: bool = False):
         super().__init__(input_feats, max_seq_len, latent_dim, time_embed_dim, num_layers,
-                         text_encoder, use_pos_embedding)
+                         text_encoder, use_pos_embedding, remat)
         self.setup_io()
         self.build_temporal_blocks(sa_block_cfg, ca_block_cfg, ffn_cfg)
 
@@ -153,14 +153,14 @@ class MDMTransformer(nn.Module):
         super().__init__()
         self.input_feats, self.latent_dim, self.num_layers = input_feats, latent_dim, num_layers
         self.guide_scale, self.use_official_ckpt = guide_scale, use_official_ckpt
-        self.poseEmbedding = nn.Linear(input_feats, latent_dim)
+        self.poseEmbedding = Linear(input_feats, latent_dim)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", PostLNEncoderLayer(latent_dim, num_heads, ff_size,
                                                              dropout, activation))
-        self.time_embed = nn.Sequential(nn.Linear(latent_dim, latent_dim), nn.SiLU(),
-                                        nn.Linear(latent_dim, latent_dim))
-        self.embed_text = nn.Linear(clip_dim, latent_dim)
-        self.poseFinal = nn.Linear(latent_dim, input_feats)
+        self.time_embed = nn.Sequential(Linear(latent_dim, latent_dim), nn.SiLU(),
+                                        Linear(latent_dim, latent_dim))
+        self.embed_text = Linear(clip_dim, latent_dim)
+        self.poseFinal = Linear(latent_dim, input_feats)
         self.clip = ClipTextModel(width=clip_dim, layers=clip_layers,
                                   heads=max(1, clip_dim // 64), embed_dim=clip_dim)
         self.register_buffer("table", torch.from_numpy(
@@ -289,11 +289,11 @@ class RetrievalEncoder(nn.Module):
         self.num_motion_layers, self.num_text_layers = num_motion_layers, num_text_layers
         self.stride = stride
         self.motion_pos_embedding = nn.Parameter(torch.randn(max_seq_len, latent_dim))
-        self.motion_proj = nn.Linear(motion_feats, latent_dim)
+        self.motion_proj = Linear(motion_feats, latent_dim)
         ffn_dim = dict(ffn_cfg or {}).get("ffn_dim", 1024)
         for i in range(num_motion_layers):
             self.add_module(f"motion_sa_{i}", ATTENTIONS.build(sa_block_cfg))
-            self.add_module(f"motion_ffn1_{i}", nn.Linear(latent_dim, ffn_dim))
+            self.add_module(f"motion_ffn1_{i}", Linear(latent_dim, ffn_dim))
             self.add_module(f"motion_ffn2_{i}", ZeroDense(ffn_dim, latent_dim))
         for i in range(num_text_layers):
             self.add_module(f"text_layer_{i}", PostLNEncoderLayer(latent_dim, num_heads,
@@ -345,9 +345,9 @@ class ReMoDiffuseTransformer(DiffusionTransformerBase):
                  ffn_cfg: Optional[dict] = None, text_encoder: Optional[dict] = None,
                  use_pos_embedding: bool = True, retrieval_cfg: Optional[dict] = None,
                  scale_func_cfg: Optional[dict] = None, post_process_cfg: Optional[dict] = None,
-                 init_cfg: Optional[dict] = None):
+                 init_cfg: Optional[dict] = None, remat: bool = False):
         super().__init__(input_feats, max_seq_len, latent_dim, time_embed_dim, num_layers,
-                         text_encoder, use_pos_embedding)
+                         text_encoder, use_pos_embedding, remat)
         self.setup_io()
         self.build_temporal_blocks(sa_block_cfg, ca_block_cfg, ffn_cfg)
         rc = dict(retrieval_cfg or {})

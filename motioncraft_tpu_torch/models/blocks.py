@@ -1,6 +1,7 @@
 """Shared neural blocks (PyTorch port of motioncraft_tpu/models/blocks.py).
 
-  - LayerNorm: torch's, eps 1e-5 (the reference's nn.LayerNorm)
+  - LayerNorm: torch's, eps 1e-5 (the reference's nn.LayerNorm), and
+    Linear / Conv1d: torch's, each promoting as flax does (below)
   - QLinear: the int8 counterpart of the JAX package's QDense, which
     ops/quant.py:quantize_ puts in place of an eligible nn.Linear: W8A8
     (``kernel_scale``: per-row int8 activations, int32 products) or W8
@@ -22,17 +23,26 @@ Module and parameter names follow the flax modules, so a flax ``params``
 tree maps onto the ``state_dict`` by name (utils/convert.py).  GELU is the
 exact erf form everywhere.
 
-bf16 inference rounds every floating parameter and buffer to bf16
-(apis/factory.py:bf16_cast_); the modules then compute in the activations'
-dtype, as flax does.  The calls that flax promotes to f32 (an f32 input
+Mixed precision: ``promote_dtype`` is flax's ``promote_dtype`` (every
+floating operand cast to their common type, bf16 with f32 -> f32), and
+``Linear``, ``LayerNorm`` and ``Conv1d`` apply it to their input and
+weights as flax's Dense, LayerNorm and Conv do; a product of an activation
+with a parameter elsewhere (the per-head einsums, the MoE's expert FFN and
+combine) calls it itself.  So under bf16 parameters a bf16 activation
+computes in bf16 and an f32 one in f32 on the rounded weights.  bf16 training
+(apis/train.py:make_train_step(fp16=)) relies on that: its motion path
+stays f32, its text path bf16.  bf16 inference rounds every floating
+parameter and buffer to bf16 (apis/factory.py:bf16_cast_) and casts the
+motion to bf16; the modules that flax promotes to f32 there (an f32 input
 meeting bf16 weights: the time embedding, the MoE gate's projector, the
-condition encoder) hold f32 tensors of the rounded values, so they run in
-f32 as they are.  LayerNorm on bf16 computes its statistics and affine in
-f32 and rounds its output, as flax's does.
+condition encoder) hold f32 tensors of the rounded values.  LayerNorm on
+bf16 computes its statistics and affine in f32 and rounds its output, as
+flax's does.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -42,7 +52,40 @@ from torch import nn
 from ..ops.quant import dequant, qdot, qeinsum, quantize_weight
 from ..ops.sffn import head_ffn
 
-LayerNorm = nn.LayerNorm  # eps defaults to 1e-5, as the reference
+
+def promote_dtype(*tensors):
+    """flax's ``promote_dtype``: the tensors (None passes through) cast to
+    their common floating type, so bf16 meeting f32 computes in f32."""
+    dtype = functools.reduce(torch.promote_types,
+                             [t.dtype for t in tensors if t is not None])
+    return tuple(t if t is None or t.dtype == dtype else t.to(dtype) for t in tensors)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that promotes its input, weight and bias to one dtype,
+    as flax's Dense does (torch's raises on mixed dtypes)."""
+
+    def forward(self, x):
+        x, w, b = promote_dtype(x, self.weight, self.bias)
+        return F.linear(x, w, b)
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` that promotes its input, weight and bias to one dtype,
+    as flax's Conv does."""
+
+    def forward(self, x):
+        x, w, b = promote_dtype(x, self.weight, self.bias)
+        return self._conv_forward(x, w, b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` (eps 1e-5 by default, as the reference) that
+    promotes its input and affine parameters to one dtype, as flax's does."""
+
+    def forward(self, x):
+        x, w, b = promote_dtype(x, self.weight, self.bias)
+        return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -97,7 +140,7 @@ class ZeroDense(nn.Module):
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
-        self.linear = nn.Linear(in_features, features)
+        self.linear = Linear(in_features, features)
         nn.init.zeros_(self.linear.weight)
         nn.init.zeros_(self.linear.bias)
 
@@ -111,7 +154,7 @@ class StylizationBlock(nn.Module):
     def __init__(self, latent_dim: int, time_embed_dim: int, dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
-        self.emb_layers = nn.Linear(time_embed_dim, 2 * latent_dim)
+        self.emb_layers = Linear(time_embed_dim, 2 * latent_dim)
         self.norm = LayerNorm(latent_dim)
         self.out_layers = ZeroDense(latent_dim, latent_dim)
 
@@ -130,7 +173,7 @@ class FFN(nn.Module):
                  time_embed_dim: int = 2048):
         super().__init__()
         self.dropout = dropout
-        self.linear1 = nn.Linear(latent_dim, ffn_dim)
+        self.linear1 = Linear(latent_dim, ffn_dim)
         self.linear2 = ZeroDense(ffn_dim, latent_dim)
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
@@ -160,10 +203,11 @@ class SFFN(nn.Module):
         if self.w1.dtype == torch.int8:
             y = self._forward_int8(x).reshape(B, T, D)
         elif self.training:
-            y = torch.einsum("bthd,hdf->bthf", x.reshape(B, T, self.num_heads, -1),
-                             self.w1) + self.b1
+            xh, w1, b1, w2, b2 = promote_dtype(x.reshape(B, T, self.num_heads, -1),
+                                               self.w1, self.b1, self.w2, self.b2)
+            y = torch.einsum("bthd,hdf->bthf", xh, w1) + b1
             y = F.dropout(F.gelu(y), self.dropout, self.training)
-            y = (torch.einsum("bthf,hfd->bthd", y, self.w2) + self.b2).reshape(B, T, D)
+            y = (torch.einsum("bthf,hfd->bthd", y, w2) + b2).reshape(B, T, D)
         else:
             y = head_ffn(x.reshape(B * T, D), self.w1, self.b1, self.w2,
                          self.b2).reshape(B, T, D)
@@ -212,13 +256,13 @@ class ConvBasicBlock1D(nn.Module):
     def __init__(self, inplanes: int, planes: int, ker_size: int = 15, stride: int = 1,
                  pad: int = 0, downsample: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv1d(inplanes, planes, ker_size, stride=stride, padding=pad)
+        self.conv1 = Conv1d(inplanes, planes, ker_size, stride=stride, padding=pad)
         self.bn1 = FlaxBatchNorm1d(planes)
-        self.conv2 = nn.Conv1d(planes, planes, ker_size, padding=ker_size // 2)
+        self.conv2 = Conv1d(planes, planes, ker_size, padding=ker_size // 2)
         self.bn2 = FlaxBatchNorm1d(planes)
         self.downsample = downsample
         if downsample:
-            self.down_conv = nn.Conv1d(inplanes, planes, ker_size, stride=stride, padding=pad)
+            self.down_conv = Conv1d(inplanes, planes, ker_size, stride=stride, padding=pad)
             self.down_bn = FlaxBatchNorm1d(planes)
 
     def forward(self, x):

@@ -70,7 +70,7 @@ from torch import nn
 
 from ..registry import SUBMODULES
 from .baselines import MCMDecoderLayer
-from .blocks import WavEncoder, ZeroDense
+from .blocks import Linear, WavEncoder, ZeroDense
 from .stmogen import STMoGenDecoderLayer
 
 S2G_REST = "ROADMAP queue 1: the rest of S2G (wav2vec)"
@@ -88,7 +88,7 @@ class ControlT2MBlock(nn.Module):
         super().__init__()
         self.block_index = block_index
         if block_index == 0:
-            self.before_proj = nn.Linear(latent_dim, latent_dim)
+            self.before_proj = Linear(latent_dim, latent_dim)
             nn.init.zeros_(self.before_proj.weight)
             nn.init.zeros_(self.before_proj.bias)
         self.copied_block = (MCMDecoderLayer(sa_block_cfg, ca_block_cfg, ffn_cfg)
@@ -317,7 +317,7 @@ class ControlT2MHalf(nn.Module):
             if c is not None and 1 <= i <= self.copy_blocks_num:
                 c, c_skip = self.controlnet[i - 1](h, c, **kw)
                 h = h + c_skip
-            h = block(h, **kw)
+            h = base.call_layer(block, h, **kw)  # rematerialized with the base's remat
         return base.out(h).reshape(B, T, -1)
 
     def _forward_mcm(self, h, emb, xf_out, src_mask, c):

@@ -12,6 +12,16 @@ whose training forward, ``forward_train``, is one pass of the same stack at
 the batch's ``cond_type``; STMoGen builds its own (models/stmogen.py) and
 overrides the forwards.
 
+``remat`` (the JAX package's field) rematerializes each decoder layer of
+the training forward in the backward pass (``call_layer``:
+``torch.utils.checkpoint``), as ``nn.remat`` wraps STMoGen's layers: the
+STMoGen stacks and a ControlNet's base blocks read it, the generic stack
+ignores it, as in the JAX package.  The recompute replays the layer's draws
+from the step's generator (MoE gate noise) by restoring that generator's
+state, and the layer's aux and KL losses come out of the checkpointed
+function, so the recompute adds none: the loss and every gradient equal
+those without remat.
+
 The stack runs in the dtype of the joint embedding's output (bf16 for a
 bf16-cast model on bf16 motion): the timestep embedding is f32, its MLP
 runs in f32 as flax promotes it (bf16_cast_ keeps its tensors f32), and the
@@ -24,10 +34,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..registry import ATTENTIONS
-from .blocks import FFN, ZeroDense, timestep_embedding
+from .blocks import FFN, Linear, ZeroDense, timestep_embedding
 from .text_encoder import TextEncoder
 
 
@@ -62,8 +73,9 @@ class DiffusionTransformerBase(nn.Module):
     def __init__(self, input_feats: int = 263, max_seq_len: int = 240,
                  latent_dim: int = 512, time_embed_dim: int = 2048,
                  num_layers: int = 8, text_encoder: Optional[dict] = None,
-                 use_pos_embedding: bool = True):
+                 use_pos_embedding: bool = True, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.input_feats, self.max_seq_len = input_feats, max_seq_len
         self.latent_dim, self.time_embed_dim = latent_dim, time_embed_dim
         self.num_layers = num_layers
@@ -79,13 +91,13 @@ class DiffusionTransformerBase(nn.Module):
         self.use_pos_embedding = use_pos_embedding
         if use_pos_embedding:
             self.sequence_embedding = nn.Parameter(torch.randn(max_seq_len, latent_dim))
-        self.time_embed = nn.Sequential(nn.Linear(latent_dim, time_embed_dim), nn.SiLU(),
-                                        nn.Linear(time_embed_dim, time_embed_dim))
+        self.time_embed = nn.Sequential(Linear(latent_dim, time_embed_dim), nn.SiLU(),
+                                        Linear(time_embed_dim, time_embed_dim))
 
     # the generic families' stack ------------------------------------
     def setup_io(self):
         """A Linear joint embedding and a zero-init Linear output."""
-        self.joint_embed = nn.Linear(self.input_feats, self.latent_dim)
+        self.joint_embed = Linear(self.input_feats, self.latent_dim)
         self.out = ZeroDense(self.latent_dim, self.input_feats)
 
     def make_layer(self, sa_block_cfg, ca_block_cfg, ffn_cfg) -> nn.Module:
@@ -96,6 +108,40 @@ class DiffusionTransformerBase(nn.Module):
         for i in range(self.num_layers):
             self.add_module(f"block_{i}", self.make_layer(sa_block_cfg, ca_block_cfg,
                                                           ffn_cfg))
+
+    def call_layer(self, layer, *args, generator=None, aux_losses=None, kl_losses=None,
+                   **kwargs):
+        """``layer(*args, generator=, aux_losses=, kl_losses=, **kwargs)``;
+        with ``remat`` in training, its activations are recomputed in the
+        backward pass instead of kept.  The recompute sets ``generator`` back
+        to its state before the layer (so it draws the gate noise it drew)
+        and then forward again, and appends no loss term: the layer's terms
+        are outputs of the checkpointed function, appended here once."""
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return layer(*args, generator=generator, aux_losses=aux_losses,
+                         kl_losses=kl_losses, **kwargs)
+        start = None if generator is None else generator.get_state()
+        runs = []
+
+        def run(*a):
+            replay = bool(runs) and generator is not None
+            runs.append(None)
+            if replay:
+                after = generator.get_state()
+                generator.set_state(start)
+            aux, kl = [], []
+            try:
+                out = layer(*a, generator=generator, aux_losses=aux, kl_losses=kl, **kwargs)
+            finally:
+                if replay:
+                    generator.set_state(after)
+            return out, aux, kl
+
+        out, aux, kl = torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+        for terms, into in ((aux, aux_losses), (kl, kl_losses)):
+            if into is not None:
+                into.extend(terms)
+        return out
 
     @property
     def blocks(self):

@@ -15,6 +15,14 @@ order (descending top-1 score, a stable sort), each kept (token, k) written
 into an [E, capacity, D] buffer, the expert FFN run over the buffers as
 kernel K6 (ops/expert_ffn.py), and Tutel's load-importance aux loss.
 
+Under bf16 training (apis/train.py:make_train_step(fp16=)) the gate still
+computes f32 logits (its projector promotes the input), so the noise, the
+scores and the expert ranking are f32 as in f32 training; the slot buffer
+is in the MoE input's dtype: the text MoEs' bf16 slots meet the bf16
+expert weights in K6's bf16 instantiation, the motion MoEs' f32 slots meet
+the weights widened to f32 (exact) in the f32 K6, and the combine runs in
+that dtype, the gates cast to it, as the JAX package's einsums promote.
+
 Capacity is Tutel's ``K * int(1.5 * ceil(N / E))``; a choice ranked at or
 past it is dropped (gate 0).  Under bf16 inference the gate still computes
 its logits in f32 (its projector promoted to f32), the expert FFN runs in
@@ -43,6 +51,15 @@ from ..ops.expert_ffn import fused_expert_ffn
 from ..ops.moe_ffn import BLOCK, grouped_ffn
 from ..ops.moe_positions import moe_positions_counts, moe_route
 from ..ops.quant import dequant, expert_ffn_q
+from .blocks import Linear, promote_dtype
+
+
+def draw_gate_noise(logits, generator):
+    """The training gate noise: a standard-normal draw of the logits' shape
+    and dtype from ``generator``, as the JAX package draws it in the
+    logits' dtype."""
+    return torch.randn(logits.shape, generator=generator, device=logits.device,
+                       dtype=logits.dtype)
 
 
 def _normal_cdf(x, sigma):
@@ -74,7 +91,7 @@ class CosineTopGate(nn.Module):
         super().__init__()
         self.temperature = nn.Parameter(torch.full((1,), math.log(1.0 / init_t)))
         self.sim_matrix = nn.Parameter(torch.randn(proj_dim, num_experts) * 0.005)
-        self.cosine_projector = nn.Linear(model_dim, proj_dim)
+        self.cosine_projector = Linear(model_dim, proj_dim)
 
     def forward(self, x):
         """f32 logits [N, E] whatever the dtype of ``x`` and the weights:
@@ -180,8 +197,7 @@ class MoELayer(nn.Module):
         noisy = logits
         if self.gate_noise > 0:
             if noise is None:
-                noise = torch.randn(logits.shape, generator=generator,
-                                    device=logits.device, dtype=logits.dtype)
+                noise = draw_gate_noise(logits, generator)
             noisy = logits + self.gate_noise * noise / E
         scores = noisy.softmax(dim=1)
         topk_idx = torch.sort(noisy, dim=1, descending=True, stable=True).indices[:, :K]
@@ -216,11 +232,13 @@ class MoELayer(nn.Module):
         # where advanced indexing's sorts the indices and serializes over the
         # empty slots' duplicates of token 0
         xe = torch.where(filled[:dump, None], x.index_select(0, token_for_slot[:dump]), 0.0)
-        ye = fused_expert_ffn(xe.reshape(E, capacity, D), self.expert_w1, self.expert_b1,
-                              self.expert_w2, self.expert_b2)
+        # bf16 slots meet bf16 weights in K6's bf16 instantiation; f32 slots
+        # meet them widened (exact), as the reference's einsums promote
+        ye = fused_expert_ffn(*promote_dtype(xe.reshape(E, capacity, D), self.expert_w1,
+                                             self.expert_b1, self.expert_w2, self.expert_b2))
         ye = torch.cat([ye.reshape(dump, D), ye.new_zeros(1, D)], dim=0)
         picked = ye.index_select(0, slots.reshape(-1)).reshape(N, K, D)
-        y = torch.einsum("nk,nkd->nd", gates, picked)
+        y = torch.einsum("nk,nkd->nd", gates.to(picked.dtype), picked)
         if aux_losses is not None:
             aux_losses.append(load_importance_loss(logits.softmax(dim=1), topk_scores, E,
                                                    self.gate_noise))
@@ -240,7 +258,7 @@ class MOE(nn.Module):
         self.model = MoELayer(num_experts, topk, input_dim, ffn_dim,
                               gate_type=gate_type, gate_noise=gate_noise,
                               expert_axis=expert_axis)
-        self.proj = nn.Linear(input_dim, output_dim)
+        self.proj = Linear(input_dim, output_dim)
 
     def forward(self, x, generator=None, aux_losses=None):
         B, T, H, D = x.shape

@@ -29,7 +29,8 @@ motioncraft_tpu/models/stmogen.py).
   - forward_train: one pass of the stack at the batch's ``cond_type`` with
     the motion lengths and ``num_intervals`` (SAMI reads them), the text
     MoE computed in every layer, the MoE aux losses and SAMI's template KL
-    terms collected.
+    terms collected; with ``remat`` each layer is rematerialized in the
+    backward pass (``DiffusionTransformerBase.call_layer``).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from torch import nn
 
 from ..registry import ATTENTIONS, SUBMODULES
 from . import body_layout
-from .blocks import SFFN
+from .blocks import SFFN, Linear
 from .diffusion_transformer import DiffusionTransformerBase
 
 
@@ -61,9 +62,9 @@ class PoseEncoder(nn.Module):
         self.names = list(parts)
         for name, sl in parts.items():
             self.register_buffer(f"{name}_index", torch.as_tensor(sl), persistent=False)
-            self.add_module(f"{name}_embed", nn.Linear(len(sl), latent_dim))
+            self.add_module(f"{name}_embed", Linear(len(sl), latent_dim))
         self.register_buffer("body_index", torch.as_tensor(body), persistent=False)
-        self.body_embed = nn.Linear(len(body), latent_dim)
+        self.body_embed = Linear(len(body), latent_dim)
 
     def forward(self, motion):
         feats = [getattr(self, f"{n}_embed")(motion[..., getattr(self, f"{n}_index")])
@@ -90,8 +91,8 @@ class PoseDecoder(nn.Module):
             body_layout.inverse_permutation(flat, output_dim), dtype=torch.long),
             persistent=False)
         for name, sl in parts.items():
-            self.add_module(f"{name}_out", nn.Linear(latent_dim, len(sl)))
-        self.body_out = nn.Linear(latent_dim, output_dim)
+            self.add_module(f"{name}_out", Linear(latent_dim, len(sl)))
+        self.body_out = Linear(latent_dim, output_dim)
         if zero_init:
             for p in self.parameters():
                 nn.init.zeros_(p)
@@ -147,9 +148,10 @@ class STMoGenTransformer(DiffusionTransformerBase):
                  moe_route_loss_weight: float = 1.0,
                  template_kl_loss_weight: float = 0.0001,
                  pipeline_axis: Optional[str] = None,
-                 cfg_layer0_dedup: bool = True, text_hoist: bool = True):
+                 cfg_layer0_dedup: bool = True, text_hoist: bool = True,
+                 remat: bool = False):
         super().__init__(input_feats, max_seq_len, latent_dim, time_embed_dim,
-                         num_layers, text_encoder, use_pos_embedding)
+                         num_layers, text_encoder, use_pos_embedding, remat)
         if pipeline_axis is not None:
             raise NotImplementedError("pipeline_axis (pipeline parallelism)")
         if ca_block_cfg is None or ffn_cfg is None or isinstance(ffn_cfg, (list, tuple)):
@@ -178,8 +180,9 @@ class STMoGenTransformer(DiffusionTransformerBase):
                       kl_losses=None):
         B, T = h.shape[:2]
         for block in self.blocks:
-            h = block(h, xf_out, emb, src_mask, cond_type, motion_length, num_intervals,
-                      generator=generator, aux_losses=aux_losses, kl_losses=kl_losses)
+            h = self.call_layer(block, h, xf_out, emb, src_mask, cond_type, motion_length,
+                                num_intervals, generator=generator, aux_losses=aux_losses,
+                                kl_losses=kl_losses)
         return self.out(h).reshape(B, T, -1)
 
     def precompute_text_feats(self, xf_out):

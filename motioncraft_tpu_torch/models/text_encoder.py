@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import LayerNorm
+from .blocks import LayerNorm, Linear
 
 
 def quick_gelu(x):
@@ -43,8 +43,8 @@ class ClipAttention(nn.Module):
     def __init__(self, width: int, heads: int):
         super().__init__()
         self.heads = heads
-        self.in_proj = nn.Linear(width, 3 * width)
-        self.out_proj = nn.Linear(width, width)
+        self.in_proj = Linear(width, 3 * width)
+        self.out_proj = Linear(width, width)
 
     def forward(self, x, mask=None, key_mask=None):
         """``mask``: an additive [.., T, T] mask; ``key_mask``: [B, T] bool,
@@ -67,8 +67,8 @@ class ClipBlock(nn.Module):
         self.attn = ClipAttention(width, heads)
         self.ln_1 = LayerNorm(width)
         self.ln_2 = LayerNorm(width)
-        self.mlp_fc = nn.Linear(width, 4 * width)
-        self.mlp_proj = nn.Linear(4 * width, width)
+        self.mlp_fc = Linear(width, 4 * width)
+        self.mlp_proj = Linear(4 * width, width)
 
     def forward(self, x, mask=None):
         x = x + self.attn(self.ln_1(x), mask)
@@ -126,8 +126,8 @@ class PostLNEncoderLayer(nn.Module):
         self.dropout = dropout
         self.self_attn = ClipAttention(d_model, nhead)
         self.norm1 = LayerNorm(d_model)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
         self.norm2 = LayerNorm(d_model)
 
     def forward(self, x, key_mask=None, generator=None):
@@ -154,13 +154,13 @@ class TextEncoder(nn.Module):
         self.num_layers = num_layers
         self.clip = ClipTextModel(width=clip_width, layers=clip_layers,
                                   heads=max(1, clip_width // 64))
-        self.text_pre_proj = (nn.Linear(clip_width, latent_dim)
+        self.text_pre_proj = (Linear(clip_width, latent_dim)
                               if latent_dim != clip_width else None)
         for i in range(num_layers):
             self.add_module(f"textTransEncoder_{i}", PostLNEncoderLayer(
                 latent_dim, num_heads, ff_size, dropout, activation))
         self.text_ln = LayerNorm(latent_dim)
-        self.text_proj = nn.Linear(latent_dim, time_embed_dim) if use_text_proj else None
+        self.text_proj = Linear(latent_dim, time_embed_dim) if use_text_proj else None
 
     def forward(self, text_ids, generator=None):
         with torch.no_grad():

@@ -49,7 +49,8 @@ def _lib_path(name: str) -> Path:
 def build(names: Sequence[str] = SOURCES) -> float:
     """Compile every stale library among ``names`` in parallel; returns the
     seconds spent.  The compiler's resource report (registers, shared
-    memory, spills) lands next to each library as ``<lib>.log``."""
+    memory, spills) lands next to each library as ``<lib>.log``; a failed
+    compile raises with the first lines of its log."""
     t0 = time.perf_counter()
     todo = [(n, _lib_path(n)) for n in names if not _lib_path(n).exists()]
     if not todo:
@@ -69,8 +70,9 @@ def build(names: Sequence[str] = SOURCES) -> float:
         log.close()
         if rc == 0:
             os.replace(tmp, out)
-        else:
-            failed.append(f"{name} (rc {rc}, see {out.with_suffix('.log')})")
+        else:  # the first errors, for a run whose files are gone after it
+            head = out.with_suffix(".log").read_text().splitlines()[:24]
+            failed.append(f"{name} (rc {rc}, {out.with_suffix('.log')}):\n" + "\n".join(head))
     if failed:
         raise RuntimeError("nvcc failed: " + ", ".join(failed))
     return time.perf_counter() - t0

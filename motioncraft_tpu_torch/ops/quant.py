@@ -208,7 +208,7 @@ def quantize_(model: nn.Module, *, include: Optional[re.Pattern] = None,
 
     n = 0
     for name, module in list(model.named_modules()):
-        if type(module) is nn.Linear:
+        if isinstance(module, nn.Linear):
             if want(flax_path(name) + "/kernel", module.weight):
                 parent, _, child = name.rpartition(".")
                 setattr(model.get_submodule(parent), child,

@@ -5,7 +5,9 @@ runs the forward kernel and, for the gradient, recomputes the jnp reference
 and takes its VJP.  ``with_recomputed_grad`` restates that with a
 ``torch.autograd.Function``: the forward calls ``kernel`` and saves its
 inputs; the backward recomputes ``plain`` on them under grad mode and
-returns ``torch.autograd.grad`` of it.
+returns ``torch.autograd.grad`` of it.  The recompute runs in the saved
+operands' own dtype (bf16 for K6's bf16 instantiation), as the custom VJP
+takes the reference's VJP on the residuals it saved.
 """
 
 from __future__ import annotations

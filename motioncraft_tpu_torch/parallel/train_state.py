@@ -2,10 +2,12 @@
 motioncraft_tpu/parallel/train_state.py).
 
 The reference recipe: Adam lr 2e-4, step decay at epoch boundaries, an
-optional clip of the gradients' global norm.  Frozen subtrees (the CLIP text
-tower; for a ControlNet, its base as ``controlnet_frozen_prefixes`` says)
-get ``requires_grad_(False)`` and stay out of the optimizer: they take no
-gradient, no update and no optimizer state, and the clip's global norm
+optional clip of the gradients' global norm; Adafactor, AdaBelief and LAMB
+as optax makes them (parallel/optim.py), under the same schedule and clip.
+Frozen subtrees (the CLIP text tower; for a ControlNet, its base as
+``controlnet_frozen_prefixes`` says) get ``requires_grad_(False)`` and stay
+out of the optimizer: they take no gradient, no update and no optimizer
+state, and the clip's global norm
 runs over the trainable parameters only, as ``optax.masked(chain(clip,
 opt))`` computes it.  The JAX package's ``optax.masked`` passes a frozen
 leaf's raw gradient through as its update, and ``apply_gradients`` adds it
@@ -21,6 +23,11 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from .optim import AdaBelief, Adafactor, Lamb
+
+# the optimizers the JAX package builds with optax's defaults alone
+OPTAX_DEFAULTS = {"adafactor": Adafactor, "adabelief": AdaBelief, "lamb": Lamb}
 
 
 def freeze(module: nn.Module, frozen_prefixes: Sequence[str]
@@ -65,7 +72,10 @@ def build_lr_schedule(base_lr: float, policy: Optional[dict] = None,
 
 def build_optimizer(optimizer_cfg: dict, params) -> torch.optim.Optimizer:
     """cfg like dict(type='Adam', lr=2e-4); Adam, AdamW and SGD with optax's
-    defaults.  The lr is set per update from the schedule."""
+    defaults, Adafactor, AdaBelief and LAMB as optax's with their defaults
+    (parallel/optim.py; the config's other keys are not read, as the JAX
+    package's build_optimizer reads none).  The lr is set per update from the
+    schedule."""
     cfg = dict(optimizer_cfg)
     opt_type = cfg.pop("type", "Adam").lower()
     lr = cfg.pop("lr", 2e-4)
@@ -76,6 +86,8 @@ def build_optimizer(optimizer_cfg: dict, params) -> torch.optim.Optimizer:
         return torch.optim.AdamW(params, lr=lr, weight_decay=cfg.get("weight_decay", 1e-2))
     if opt_type == "sgd":
         return torch.optim.SGD(params, lr=lr, momentum=cfg.get("momentum", 0.9))
+    if opt_type in OPTAX_DEFAULTS:
+        return OPTAX_DEFAULTS[opt_type](params, lr=lr)
     raise NotImplementedError(f"optimizer {opt_type!r}")
 
 

@@ -16,10 +16,12 @@ chunks).  K5 and K6 are also held backward: their gradient recomputes the
 plain version, so it must equal plain autograd's to the same tolerance.  The end-to-end case runs a narrow model (widths the kernels
 take) on the card and on the CPU with the same weights and noise.
 
-The bf16 instantiations of K1-K3 (``*_bf16``) agree with their plain
-versions to 1e-2 x max |plain|: both round the hidden (K1, K2) and the
-output to bf16, whose ulp is 3.9e-3 relative, and a sum that lands near a
-rounding boundary may round the other way.
+The bf16 instantiations of K1-K3 and K6 (``*_bf16``) agree with their
+plain versions to 1e-2 x max |plain|: both round the hidden (K1, K2, K6)
+and the output to bf16, whose ulp is 3.9e-3 relative, and a sum that lands
+near a rounding boundary may round the other way.  K6's bf16 gradient
+recomputes the plain version in bf16, so it equals plain autograd's to that
+tolerance too.
 """
 
 import numpy as np
@@ -220,6 +222,13 @@ BF16_CASES = [
     ("stma_linear_attention_bf16", (2, 50, 3, 128, 77, "text_off")),
     ("stma_linear_attention_bf16", (3, 21, 2, 16, 6)),
     ("stma_linear_attention_bf16", (2, 300, 2, 32, 77)),
+    # K6: the flagship's text slots at B = 32 (bf16 training's text MoE);
+    # a ragged last slot tile of each expert (C = 37, 130); D = 64
+    # (FineMoGen's motion slots) with a part-filled hidden chunk
+    ("fused_expert_ffn_bf16", (16, 462, 256, 1024)),
+    ("fused_expert_ffn_bf16", (3, 37, 256, 1024)),
+    ("fused_expert_ffn_bf16", (4, 130, 128, 512)),
+    ("fused_expert_ffn_bf16", (2, 130, 64, 96)),
 ]
 
 
@@ -263,11 +272,14 @@ def test_bf16_kernel_matches_plain(cuda, name, variant):
                                atol=REL_BF16 * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("name,variant", GRAD_CASES, ids=lambda v: str(v))
+@pytest.mark.parametrize("name,variant",
+                         GRAD_CASES + [c for c in BF16_CASES if c[0] == "fused_expert_ffn_bf16"],
+                         ids=lambda v: str(v))
 def test_kernel_gradient_matches_plain(cuda, name, variant):
     wrapper, plain = KERNELS[name]
     g = torch.Generator().manual_seed(1)
     args = [a.to(cuda) for a in _case(name, variant, g)]
+    rel = REL_BF16 if name.endswith("_bf16") else REL
     grads = []
     for fn in (wrapper, plain):
         leaves = [a.clone().requires_grad_(True) for a in args]
@@ -277,7 +289,9 @@ def test_kernel_gradient_matches_plain(cuda, name, variant):
         grads.append(torch.autograd.grad((out * weight).sum(), leaves))
     torch.cuda.synchronize()
     for got, want in zip(*grads):
-        torch.testing.assert_close(got, want, rtol=0, atol=REL * float(want.abs().max()))
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=rel * float(want.abs().max()))
 
 
 def test_strided_query_is_read_in_place(cuda):

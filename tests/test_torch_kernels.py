@@ -9,6 +9,11 @@ is held against the JAX package's routing composed from its own functions
 another order).  K1-K3, K5 and
 K6 agree to 1e-5 x max |reference|: the Pallas kernels use an
 Abramowitz-Stegun erf (error <= 1.5e-7) and the sums run in another order.
+K6's bf16 instantiation (bf16 training): the Pallas kernel in interpret mode
+on bf16 operands, ``_ffn_reference`` on them (what the JAX package's CPU
+step computes) and the port's plain version on the same bf16 tensors agree
+to 1e-2 x max |reference|: each rounds the hidden and the output to bf16
+(ulp 3.9e-3 relative), the reference also after each product and bias.
 K5 and K6 are also held backward: ``jax.grad`` through their custom VJP
 against torch autograd, to the same tolerance; and the port's
 backward-by-recompute (ops/recompute.py) is driven here with the plain
@@ -36,7 +41,8 @@ from motioncraft_tpu.ops.pallas_sffn import head_ffn_reference
 from motioncraft_tpu.ops.pallas_stma_attention import (
     stma_linear_attention as jax_stma, stma_linear_attention_reference)
 from motioncraft_tpu_torch.ops import (COUNTED, KERNELS, expert_ffn_plain, fused_expert_ffn,
-                                       fused_linear_attention, fused_linear_attention_plain,
+                                       fused_expert_ffn_bf16, fused_linear_attention,
+                                       fused_linear_attention_plain,
                                        grouped_ffn, head_ffn, int_mm, launch_counts,
                                        moe_positions_counts, moe_route, reset_launch_counts,
                                        stma_linear_attention)
@@ -46,6 +52,7 @@ from torch_port_util import grad_mode_on  # noqa: F401
 from torch_port_util import check_route_invariants, route_logits, tutel_capacity
 
 REL = 1e-5
+BF16_REL = 1e-2  # two bf16 roundings of the hidden and the output, in other places
 GATE_ATOL = 1e-6  # gates: a softmax over E terms summed in another order
 
 
@@ -253,6 +260,25 @@ def test_k6_expert_ffn(E, C, D, F):
         close(g.numpy(), w)
 
 
+@pytest.mark.parametrize("E,C,D,F", [(3, 37, 128, 512), (2, 70, 256, 1024)])
+def test_k6_bf16_expert_ffn(E, C, D, F):
+    """bf16 operands: Pallas (interpret) == _ffn_reference == the port's
+    plain version, each in bf16; the port's gradient is the plain one's."""
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in expert_ffn_case(E, C, D, F)]
+    targs = [torch.from_numpy(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+             for a in jargs]
+    pallas = pallas_ffn.fused_expert_ffn(*jargs, True)
+    ref = pallas_ffn._ffn_reference(*jargs)
+    got = fused_expert_ffn_bf16(*targs)
+    assert pallas.dtype == ref.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    assert torch.equal(got, fused_expert_ffn(*targs))  # the f32 wrapper hands it on
+    scale = BF16_REL * float(np.abs(np.asarray(ref, np.float32)).max())
+    np.testing.assert_allclose(np.asarray(pallas, np.float32), np.asarray(ref, np.float32),
+                               rtol=0, atol=scale)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), rtol=0,
+                               atol=scale)
+
+
 @pytest.mark.parametrize("plain,case", [
     (fused_linear_attention_plain, lambda: linear_attention_case(2, 7, 11, 3, 16)),
     (expert_ffn_plain, lambda: expert_ffn_case(2, 9, 32, 64))])
@@ -277,6 +303,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     grouped_ffn(*(torch.from_numpy(a) for a in grouped_case(2, 32, 32, [0, 1])))
     fused_linear_attention(*(torch.from_numpy(a) for a in linear_attention_case(1, 3, 4, 1, 16)))
     fused_expert_ffn(*(torch.from_numpy(a) for a in expert_ffn_case(1, 3, 32, 32)))
+    fused_expert_ffn_bf16(*(torch.from_numpy(a).to(torch.bfloat16)
+                            for a in expert_ffn_case(1, 3, 32, 32)))
     int_mm(torch.ones(3, 5, dtype=torch.int8), torch.ones(5, 7, dtype=torch.int8))
     assert launch_counts() == {name: 0 for name in COUNTED}
 

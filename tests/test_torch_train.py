@@ -310,12 +310,19 @@ def test_two_adam_steps(pair):
 @pytest.mark.parametrize("clip", [None, dict(max_norm=0.5)])
 @pytest.mark.parametrize("opt", [dict(type="Adam", lr=1e-2),
                                  dict(type="AdamW", lr=1e-2, weight_decay=0.1),
-                                 dict(type="SGD", lr=1e-2, momentum=0.9)])
+                                 dict(type="SGD", lr=1e-2, momentum=0.9),
+                                 dict(type="Adafactor", lr=1e-2),
+                                 dict(type="AdaBelief", lr=1e-2),
+                                 dict(type="Lamb", lr=1e-2)])
 def test_optimizers_match_optax(opt, clip):
     """Three updates with a step decay after the second, against the JAX
-    package's optax chain (clip by global norm inside it when set)."""
+    package's optax chain (clip by global norm inside it when set).  "c" and
+    "d" are large enough for Adafactor to factor their second moments (two
+    dims of at least 128), "a" and "b" are not."""
     rng = np.random.RandomState(9)
-    p0 = {"a": rng.randn(3, 4).astype(np.float32), "b": rng.randn(5).astype(np.float32)}
+    p0 = {"a": rng.randn(3, 4).astype(np.float32), "b": rng.randn(5).astype(np.float32),
+          "c": rng.randn(130, 200).astype(np.float32),
+          "d": rng.randn(2, 128, 140).astype(np.float32)}
     grads = [{k: rng.randn(*v.shape).astype(np.float32) for k, v in p0.items()}
              for _ in range(3)]
     policy = dict(policy="step", step=[2], gamma=0.1)
@@ -366,12 +373,21 @@ def test_train_model_loss_falls():
 
 
 def test_train_model_cut_options_raise():
+    """mesh (multi-device training) and float16 raise; fp16={} trains in
+    bf16 (the JAX package's default compute dtype) against f32 masters; an
+    optimizer neither package builds raises."""
     arch = build_torch(tiny_t2m_cfg(), device="cpu")
-    for kw in (dict(mesh=object()), dict(fp16={})):
+    for kw in (dict(mesh=object()), dict(fp16={"dtype": "float16"})):
         with pytest.raises(NotImplementedError):
             train_model(arch, [make_train_batch(2, max_seq_len=16)], **kw)
+    before = {k: v.clone() for k, v in arch.model.state_dict().items()}
+    state = train_model(arch, [make_train_batch(2, max_seq_len=16)], fp16={},
+                        logger=lambda m: None)
+    after = arch.model.state_dict()
+    assert state.step == 1 and all(v.dtype == torch.float32 for v in after.values())
+    assert any(not torch.equal(after[k], before[k]) for k in after)
     with pytest.raises(NotImplementedError):
-        TrainState(arch.model, {"type": "Lamb"})
+        TrainState(arch.model, {"type": "Lion"})
 
 
 def test_grad_accum_keeps_input_order():

@@ -8,8 +8,12 @@ learnable tree (tools/make_tiny_data.py --protocol-learnable's layout):
 - a partial checkpoint left by a killed write is never what
   latest_checkpoint returns, and max_keep_ckpts prunes;
 - a config with ``evaluation`` runs the EvalHook after each epoch;
-- each option the port does not train yet is refused, and so are
-  ReMoDiffuse and MoMatMoGen, which the JAX package's loss cannot train;
+- the config's fp16 (bf16 compute), model.remat and an optax-default
+  optimizer (Adafactor) through --cfg-options: one CLI epoch equals
+  train_model called with the same options, its masters f32;
+- each option the port does not train yet is refused (fp16 in float16
+  among them), and so are ReMoDiffuse and MoMatMoGen, which the JAX
+  package's loss cannot train;
 - ControlNet training from a base: the JAX package's tools/train.py trains
   a tiny T2M base (configs/tests/tiny_s2g.py's) and writes params.npz; the
   port's CLI trains configs/tests/tiny_s2g.py on BEAT2 speech windows
@@ -125,6 +129,32 @@ def test_one_cli_epoch_equals_train_model_with_the_recipe(tree, monkeypatch):
     _assert_same(arch.model.state_dict(), cli.model.state_dict())
 
 
+def test_fp16_remat_and_adafactor_through_the_cli(tree, monkeypatch):
+    monkeypatch.chdir(tree)
+    options = ["data.workers_per_gpu=0", "fp16={'loss_scale': 8.0}", "model.model.remat=True",
+               "optimizer.type=Adafactor"]
+    cli = _train(tree / "bf16", "--max-epochs", "1", "--seed", "4", "--cfg-options", *options)
+    cfg = Config.fromfile(CONFIG)
+    torch.manual_seed(4)
+    model_cfg = dict(cfg.model)
+    model_cfg["model"] = dict(cfg.model["model"], remat=True)
+    arch = build_architecture(model_cfg, device="cpu")
+    assert arch.model.remat
+    loader = build_dataloader(build_dataset(cfg.data["train"]),
+                              samples_per_gpu=cfg.data["samples_per_gpu"], shuffle=True,
+                              seed=4, workers_per_gpu=0)
+    state = train_model(arch, loader, optimizer_cfg=dict(cfg.optimizer, type="Adafactor"),
+                        lr_config=dict(cfg.lr_config), max_epochs=1,
+                        steps_per_epoch=len(loader), seed=4, fp16={"loss_scale": 8.0},
+                        logger=lambda m: None)
+    assert state.step == cli.step == 8
+    assert type(cli.optimizer).__name__ == "Adafactor" and cli.model.remat
+    assert all(v.dtype == torch.float32 for v in cli.model.state_dict().values())
+    _assert_same(arch.model.state_dict(), cli.model.state_dict())
+    losses = [float(ln.split(" loss=")[1].split()[0]) for ln in _loss_lines(tree / "bf16")]
+    assert losses and np.isfinite(losses).all()
+
+
 def test_params_npz_is_the_flax_tree_and_loads_in_jax(tree, monkeypatch):
     monkeypatch.chdir(tree)
     state = _train(tree / "npz", "--max-epochs", "1", *ONE_THREAD)
@@ -216,7 +246,8 @@ def lmdb_speech_set(tmp_path):
     ([os.path.join(REPO, "configs", "remodiffuse", "remodiffuse_t2m.py")],
      "3: ReMoDiffuse / MoMatMoGen training"),
     (["--cfg-options", "data.train=LMDB"], "1: the rest of training"),
-    (["--cfg-options", "fp16={'loss_scale': 512.0}"], "1: the rest of training")],
+    (["--cfg-options", "fp16={'dtype': 'float16', 'loss_scale': 512.0}"],
+     "1: the rest of training")],
     ids=["devices", "tensor-parallel", "pipeline-parallel", "multihost", "coordinator",
          "remodiffuse", "lmdb-cache", "fp16"])
 def test_options_not_ported_are_refused(argv, item, tmp_path):

@@ -111,6 +111,30 @@ def grad_mode_on():
         yield
 
 
+def train_step_grads(arch, batch, generator=None, fp16=None, **draws):
+    """One ``make_train_step`` step of ``arch`` on ``batch`` (SGD at lr 0,
+    so the weights stay), the given draws (t, noise, cond_type) handed to
+    the loss: (the step's logs, {name: the gradient the update saw})."""
+    from motioncraft_tpu_torch.apis import make_train_step
+    from motioncraft_tpu_torch.parallel import TrainState
+
+    state = TrainState(arch.model, {"type": "SGD", "lr": 0.0})
+    grads, update = {}, state.apply_gradients
+
+    def capture():
+        grads.update({n: p.grad.clone() for n, p in arch.model.named_parameters()
+                      if p.grad is not None})
+        update()
+
+    state.apply_gradients = capture
+    arch.train()
+    try:
+        logs = make_train_step(arch, state, fp16=fp16)(batch, generator, **draws)
+    finally:
+        arch.eval()
+    return logs, grads
+
+
 def check_route_invariants(route, capacity):
     """What every MoE routing (ops/moe_positions.py:Route) must satisfy: each
     kept (token, k) choice owns exactly one row and that row names its token;

@@ -5,6 +5,12 @@ idle share over the step, the step's wall time and the max memory
 allocated; then whether one step at a larger batch fits the card.
 
     python3 tools/profile_torch_train.py [--batch 32] [--fit 128] [--trace out.json]
+                                         [--fp16] [--remat]
+
+``--fp16`` trains in bf16 against the f32 master parameters (the config's
+``fp16``, ``dict(dtype='bfloat16')``); ``--remat`` rematerializes the
+decoder layers in the backward pass (``model.remat``): the counterparts of
+tools/profile_train.py's flags.
 
 The weights are seeded and fabricated, the batches seeded and synthetic
 (apis/factory.py make_train_batch).  One step warms up, the next is traced
@@ -23,6 +29,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 OWN = {"expert_ffn_kernel": "K6 fused_expert_ffn",
+       "expert_ffn_bf16_kernel": "K6 fused_expert_ffn_bf16",
        "linear_attention_kernel": "K5 fused_linear_attention",
        "route_kernel<0>": "K4 moe_positions", "route_kernel<16>": "K4 moe_route",
        "route_kernel<64>": "K4 moe_route",
@@ -45,6 +52,9 @@ def main():
     ap.add_argument("--fit", type=int, default=128,
                     help="also run one step at this batch and report whether it fits (0: skip)")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
+    ap.add_argument("--fp16", action="store_true", help="bf16 forward and backward")
+    ap.add_argument("--remat", action="store_true",
+                    help="rematerialize the decoder layers (torch.utils.checkpoint)")
     args = ap.parse_args()
 
     import torch
@@ -62,10 +72,12 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
     cfg = Config.fromfile(os.path.join(ROOT, "configs/stmogen/t2m_motionx_0_125b.py"))
+    if args.remat:
+        cfg["model"]["model"]["remat"] = True
     arch = build_architecture(cfg["model"], device="cuda")
     arch.model.load_state_dict(fabricate_state_dict(arch.model, seed=0), strict=True)
     state = TrainState(arch.model, cfg["optimizer"])
-    step = make_train_step(arch, state)
+    step = make_train_step(arch, state, fp16=dict(dtype="bfloat16") if args.fp16 else None)
     g = set_random_seed(0, "cuda")
     T = arch.model.max_seq_len
     arch.train()
@@ -104,6 +116,7 @@ def main():
                 own.setdefault(label, [0.0, 0])
                 own[label][0] += us
                 own[label][1] += n
+    print(f"fp16={args.fp16} remat={args.remat}")
     print(f"batch {args.batch}: traced step wall {wall_ms:.1f} ms (untraced {untraced_ms:.1f} ms), "
           f"device busy {busy / 1e3:.1f} ms, idle share {1 - busy / (wall_ms * 1e3):.3f}, "
           f"{len(kernels)} kernel launches, loss {loss:.5f}, "

@@ -39,10 +39,17 @@ Usage:
 A resumed epoch draws the batches the uninterrupted run draws when the
 loader has no worker threads (``data.workers_per_gpu=0``): threads take
 the samples' random crops and captions in the order they run.
+The config's ``fp16`` (e.g. ``fp16 = dict(loss_scale=512.)``; the
+compute dtype bfloat16) trains in bf16 against the f32 master parameters,
+``model.remat`` rematerializes the decoder layers in the backward pass, and
+``optimizer.type`` may be Adam, AdamW, SGD, Adafactor, AdaBelief or Lamb;
+each also through ``--cfg-options`` (``fp16.loss_scale=8.0
+model.model.remat=True optimizer.type=Adafactor``), as tools/train.py
+passes them.
 Refused rather than ignored: several devices, tensor and pipeline
-parallelism and several hosts, and fp16 (each names its ROADMAP queue 1
-item); ReMoDiffuse and MoMatMoGen, which the JAX package's loss cannot
-train (it passes them no retrieval; ROADMAP queue 3).
+parallelism and several hosts (ROADMAP queue 1), fp16 in float16 (an f16
+K6, queued there); ReMoDiffuse and MoMatMoGen, which the JAX package's
+loss cannot train (it passes them no retrieval; ROADMAP queue 3).
 """
 
 import argparse
@@ -53,7 +60,6 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 MULTI = "ROADMAP queue 1: multi-GPU, serving and the host-side tools"
-TRAINING = "ROADMAP queue 1: the rest of training"
 CONTROLNETS = ("ControlT2MHalf", "ControlT2MHalfMCM")
 RETRIEVAL_MODELS = ("ReMoDiffuseTransformer", "MoMatMoGenTransformer")
 
@@ -97,8 +103,13 @@ def check_config(cfg) -> None:
         from motioncraft_tpu_torch.models.baselines import RETRIEVAL_TRAINING
 
         raise SystemExit(f"{model_type}: {RETRIEVAL_TRAINING}")
-    if cfg.get("fp16"):
-        raise SystemExit(f"fp16: half-precision training ({TRAINING})")
+    if cfg.get("fp16") is not None:
+        from motioncraft_tpu_torch.apis.train import half_dtype
+
+        try:
+            half_dtype(cfg.fp16)
+        except NotImplementedError as e:
+            raise SystemExit(f"fp16: {e}")
 
 
 def frozen_prefixes(model_cfg: dict) -> tuple:
@@ -232,6 +243,7 @@ def run(args):
             logger=logger.info, checkpoint_fn=checkpoint_fn, eval_fn=eval_fn,
             frozen_prefixes=frozen_prefixes(cfg.model["model"]),
             resume_dir=ckpt_dir if args.resume else None, model_transform=transform,
+            fp16=cfg.get("fp16"),
             grad_accum=args.grad_accum or optimizer_config.get("cumulative_iters", 1))
         logger.info(f"training done at step {int(state.step)}")
         if args.device == "cuda":
