@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flagship text-to-motion sampling, training and
 evaluation, its music-to-dance and speech-to-gesture long-form
-evaluations, its baselines, ControlNet training, baseline training and
-bf16 / remat / optax-default-optimizer training on one NVIDIA GPU, and hold
-each of its CUDA kernels against its plain PyTorch version.
+evaluations, its baselines, ControlNet training, baseline training,
+bf16 / remat / optax-default-optimizer training and data-parallel training
+and evaluation (2 processes) on one NVIDIA GPU, and hold each of its CUDA
+kernels against its plain PyTorch version.
 
 Run from the root of the repository, on a machine with one card and the CUDA
 toolkit:
@@ -55,7 +56,11 @@ Phases; any failure exits non-zero:
      slots at its 128, D = 64, F = 256: its K4 positions and text slots
      are phase 18's flagship cases at 128), and K6's bf16 instantiation
      (phase 20's bf16 training) on the flagship's text slots at B = 32 and
-     128 and on FineMoGen's D = 64 motion slots at 128: max abs error against its
+     128 and on FineMoGen's D = 64 motion slots at 128, and phase 21's
+     ranks (K5 over a rank's 64 rows of the flagship, whose K4 positions
+     and K6 slots are those of the global 128; the S2G ControlNet's base at
+     2 x 8 windows of 64 frames: K4's positions over the 16, K5 over a
+     rank's 8, K6 on the slots of the 16): max abs error against its
      tolerance (1e-2 x max |plain| for bf16; K4 exact in its
      integers, its route's gates within 1e-6; on every path a route case
      leaning to one expert must drop choices); the kernel's device time from
@@ -90,15 +95,15 @@ Phases; any failure exits non-zero:
      against the CPU, B = 2, gate noise 0, the CPU's gate logits pinned to
      the card's as in phase 6
   9. the T2M protocol evaluation through tools/torch_test.py on the same
-     flagship config: a synthetic Motion-X tree of 320 clips (196 x 322,
+     flagship config: a synthetic Motion-X tree of 160 clips (196 x 322,
      written here in tools/make_tiny_data.py's layout), phase 3's weights
      saved with save_params and loaded back by --checkpoint, a full-width
      SMPL-X evaluator (DistilBERT 6 x 768, ActorAgnostic 4 x 256) saved as
      its .npz; one replication at batch 16: DDIM-50 CFG through K1-K4, the
-     evaluator on the card, R-Precision / Matching / FID / Diversity.  The
-     loaded model's forward equals the in-memory one's bit for bit, every
-     metric is finite, K1-K4's launches are what 50 steps x 4 layers x 20
-     batches imply, GT mode on the same tree gives FID <= 1e-3, and the
+     evaluator on the card, R-Precision / Matching / FID / Diversity (on
+     half the clips).  The loaded model's forward equals the in-memory one's
+     bit for bit, every metric is finite, K1-K4's launches are what 50 steps
+     x 4 layers x 10 batches imply, GT mode on the same tree gives FID <= 1e-3, and the
      evaluator's embeddings on the card agree with the CPU's; wall seconds of
      sampling and of evaluation, samples per second
  10. the M2D long-form evaluation through tools/torch_m2d_test.py on
@@ -140,7 +145,7 @@ Phases; any failure exits non-zero:
      weights: one server in f32 and one in bf16 (the weights cast, the
      denoiser in bf16 through K1-K3's bf16 instantiations), each with batch
      buckets 1, 2, 4, 8 and sequence buckets 64, 128, 196, warmed up on
-     every bucket pair; 4 client threads send 3 seeded requests each (one
+     every bucket pair; 4 client threads send 2 seeded requests each (one
      at a time, lengths 40-196) beside 2 long-form requests of 400 frames:
      every result finite and of its length, dispatches and occupancy
      consistent with stats(), K1-K4's launches what the dispatches imply
@@ -293,7 +298,27 @@ Phases; any failure exits non-zero:
      on the flagship's trainable parameters from the same seeded gradients,
      card vs CPU within OPT_REL_TOL of each tensor's update (plus two f32
      ulps of its largest parameter)
- 21. one JSON line of the kernels' numbers, and last the device line
+ 21. data parallelism on torch.distributed (phase 3's weights): the
+     flagship through train_model at its config's global batch of 128,
+     DP_STEPS steps (the first a warm-up), first in one process, then on 2
+     ranks of 64 rows on the one card over gloo with CUDA tensors (NCCL
+     refuses two ranks on one card), each rank's gate logits pinned to its
+     rows of the one-process run's: the losses, the parameters after the
+     Adam steps (DP_PARAM_TOL), the ranks' parameters equal bit for bit, K4's
+     positions, K5 and K6 launched as the steps imply on each rank, per-rank
+     step ms, samples/s, max memory and the gradient all-reduce's ms; the
+     S2G ControlNet (configs/stmogen/s2g_beats2_0125b.py) one SGD step at
+     2 x 8 windows of 64 frames the same way, its gradients (GRAD_REL_TOL)
+     and its WavEncoder's BatchNorm running statistics (global batch
+     statistics) against one process's; one step
+     in a one-rank NCCL group through the same code path (and the flagship
+     over NCCL one card a rank where the host has two cards; else a line
+     says it was not run); tools/torch_test.py over 2 processes on the card
+     (gloo) on DP_EVAL_CLIPS synthetic Motion-X clips: every clip once, in
+     dataset order, on both ranks, metrics on rank 0 alone, K1-K4 launched
+     as each rank's batches imply, each rank's predictions bit for bit those
+     of one process over its slice (seed + rank) at --dispatch-batches 2
+ 22. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -336,7 +361,9 @@ MODEL_REL_TOL = 1e-4    # card vs CPU forward: <= tol * max(1, max |CPU|)
 GRAD_REL_TOL = 1e-3
 BATCH, BATCHES, SEED = 16, 2, 0
 TRAIN_BATCH, TRAIN_STEPS = 32, 4  # 1 warm-up + 3 timed
-EVAL_CLIPS = 320        # one replication; the Diversity metric draws 300 samples
+# one replication (320 before phase 21 came, which put the script over 1000 s
+# on one host); the Diversity metric draws half of them (300 of 320 before)
+EVAL_CLIPS = 160
 GT_FID_TOL = 1e-3
 # phase 10: 4 FineDance test tracks of the cross-genre split, 360 frames
 # trimmed + 300 kept: 3 windows of 120 overlapping by 30 (a window costs
@@ -355,10 +382,11 @@ S2G_RECORDINGS, S2G_FRAMES, S2G_REC_BATCH = 4, 244, 4
 # expression directions, pose-corrective directions
 SMPLX_SIZES = dict(vertices=10475, faces=20908, shapedirs=400, posedirs=486)
 # phase 12: one server a dtype over the flagship, its buckets, 4 client
-# threads of 3 requests each (one at a time; 8 before phase 18 came, which
-# put the script over 900 s, 4 before phase 20 came), 2 long-form requests
+# threads of 2 requests each (one at a time; 8 before phase 18 came, which
+# put the script over 900 s, 4 before phase 20 came, 3 before phase 21
+# came), 2 long-form requests
 SERVE_BUCKETS, SERVE_SEQ_BUCKETS = (1, 2, 4, 8), (64, 128, 196)
-SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_LONG, SERVE_LONG_FRAMES = 4, 3, 2, 400
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_LONG, SERVE_LONG_FRAMES = 4, 2, 2, 400
 # the bucket pairs (batch, frames) whose kernel shapes phase 2 checks: the
 # smallest and the largest
 SERVE_CHECKED = ((1, 64), (8, 196))
@@ -406,6 +434,25 @@ HARNESS_BATCH, HARNESS_GRAD_ACCUM, HARNESS_CALIB_BATCH = 32, 2, 8
 BF16_TRAIN = dict(dtype="bfloat16")
 REMAT_BATCH = 128
 OPT_REL_TOL = 1e-4
+# phase 21: data parallelism, DP_WORLD ranks on the one card over gloo
+# (NCCL refuses two ranks on one card): the flagship at its config's global
+# batch, DP_STEPS train_model steps (the first a warm-up); the S2G
+# ControlNet's global BatchNorm, one step at a global batch of
+# DP_S2G_BATCH windows of DP_S2G_FRAMES (a cut in depth: phase 18 trains
+# it at 96, beside which the card would not hold the ranks); then
+# tools/torch_test.py over DP_WORLD processes on DP_EVAL_CLIPS synthetic
+# clips (phase 9's kind; a cut from its 160).  The flagship's parameters on
+# 2 ranks after its Adam steps against one process's on the same card: each
+# element within DP_PARAM_TOL x lr but for DP_PARAM_FRAC of a tensor (those
+# within two lr a step): the ranks' gradient sums run in another order and
+# the MoE's backward adds with atomics, and Adam moves an element whose
+# gradient sits at that rounding level by up to lr either way (as
+# tests/test_torch_train.py holds two Adam steps against JAX).  The S2G step
+# takes SGD at the config's lr, so its update is the gradient, held as
+# phase 8 holds one (GRAD_REL_TOL)
+DP_WORLD, DP_STEPS, DP_S2G_BATCH, DP_S2G_FRAMES, DP_EVAL_CLIPS = 2, 4, 16, 64, 64
+DP_PARAM_TOL, DP_PARAM_FRAC = 2e-2, 1e-3
+DP_TIMEOUT_S = 600
 # the bf16 instantiations of K1-K3 (bf16 inference)
 BF16_KERNELS = ("grouped_ffn", "head_ffn", "stma_linear_attention")
 # training's kernels: K4's positions, K5, K6
@@ -733,7 +780,8 @@ def retrieval_attention_inputs(torch, model_cfg, dev, B=BATCH):
 
 
 def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finemogen_cfgs=None,
-                 mcm_cfgs=None, retrieval_cfgs=(), train_cfgs=(), baseline_train_cfgs=()):
+                 mcm_cfgs=None, retrieval_cfgs=(), train_cfgs=(), baseline_train_cfgs=(),
+                 dp_cfgs=()):
     """(path, inputs) for phase 2: the T2M shapes (with training's), those
     of phase 12's buckets and of phase 14's drift and training, the M2D ones
     and the S2G ones; R recordings in lockstep are a CFG-doubled
@@ -754,7 +802,11 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
     have its base's shapes); then phase 19's training batches
     (``baseline_train_cfgs``: (tag, model config, batch); K5 for
     MotionDiffuse, MCM and the MCM ControlNet, whose copied blocks have its
-    base's shapes; K6 on FineMoGen's motion MoE)."""
+    base's shapes; K6 on FineMoGen's motion MoE); then phase 21's ranks
+    (``dp_cfgs``: (tag, model config, global batch, frames, kernels): each
+    rank's K5 over its rows, K4's positions over the global token list and
+    K6 on a slot buffer of the global capacity; ``kernels`` those not
+    already checked at the same shapes)."""
     t2m = flagship_inputs(torch, cfg, dev)
     layer0 = flagship_inputs(torch, cfg, dev, training=False, layer0=True)
     paths = [("t2m", t2m), ("t2m layer 0", layer0),
@@ -826,6 +878,15 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
             cases = baseline_attention_inputs(torch, {"model": m.get("base_model", m)}, dev,
                                               B=Bt)
         paths.append((f"{tag} train B={Bt}", cases))
+    for tag, model_cfg, Bg, T, kernels in dp_cfgs:
+        local = flagship_inputs(torch, model_cfg, dev, B2=Bg // DP_WORLD, T=T,
+                                Bt=Bg // DP_WORLD)
+        cases = {"fused_linear_attention": local["fused_linear_attention"]}
+        if len(kernels) > 1:
+            whole = flagship_inputs(torch, model_cfg, dev, B2=Bg, T=T, Bt=Bg)
+            cases |= {k: whole[k] for k in ("moe_positions", "fused_expert_ffn")}
+        paths.append((f"{tag} {DP_WORLD} ranks x {Bg // DP_WORLD}",
+                      {k: cases[k] for k in kernels}))
     return paths
 
 
@@ -907,11 +968,12 @@ def kernel_work(name, args):
 
 def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(),
                   finemogen_cfgs=None, mcm_cfgs=None, retrieval_cfgs=(), train_cfgs=(),
-                  baseline_train_cfgs=()):
+                  baseline_train_cfgs=(), dp_cfgs=()):
     """Phase 2: every kernel against its plain version, with times, at the
     T2M shapes, at the M2D and S2G ones, at the baselines', at FineMoGen's,
     at the MCM ControlNet's, ReMoDiffuse's and MoMatMoGen's, at phase 18's
-    training microbatches and at phase 19's training batches."""
+    training microbatches, at phase 19's training batches and at phase 21's
+    ranks."""
     from motioncraft_tpu_torch.ops import KERNELS
     from motioncraft_tpu_torch.ops.stma_attention import max_active_clusters
 
@@ -921,7 +983,7 @@ def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(),
     rows = {}
     for path, inputs in kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg, baseline_cfgs,
                                      finemogen_cfgs, mcm_cfgs, retrieval_cfgs, train_cfgs,
-                                     baseline_train_cfgs):
+                                     baseline_train_cfgs, dp_cfgs):
         for name, cases in inputs.items():
             for i, args in enumerate(cases):
                 kernel_case(torch, rows, path, name, i, args, KERNELS[name])
@@ -1411,9 +1473,13 @@ def phase_eval(torch, full_cfg, sd, dev="cuda", config=CONFIG, clips=EVAL_CLIPS)
         print(f"[eval] {clips} clips of {T} x 322, the flagship's weights "
               f"({os.path.getsize(params) / 2**20:.0f} MiB) and a {n_ev / 1e6:.1f} M-parameter "
               f"evaluator written in {time.perf_counter() - t0:.1f} s")
+        metrics = [dict(type="R Precision", batch_size=32, top_k=3),
+                   dict(type="Matching Score", batch_size=32), dict(type="FID", emb_scale=1.0),
+                   dict(type="Diversity", num_samples=clips // 2)]
         opts = [f"data.test.data_prefix={tree}", "data.test.ann_file=ann.txt",
                 "data.test.motion_dir=motions", "data.test.text_dir=texts",
                 "data.test.eval_cfg.replication_times=1",
+                f"data.test.eval_cfg.metrics={metrics!r}",
                 "data.test.eval_cfg.evaluator_model.init_cfg="
                 + repr(dict(type="Pretrained", checkpoint=evaluator))]
         argv = [config, os.path.join(tmp, "ddim"), "--device", dev, "--batch-size", str(BATCH),
@@ -4339,6 +4405,437 @@ def phase_bf16_train(torch, full_cfg, sd, f32_step_ms=None, dev="cuda"):
     return {"counts": counts, "step_ms": step_ms, "remat": remat, "optimizers": opts}
 
 
+# ---------------------------------------------------------------- phase 21
+def cpu_launch_counting():
+    """A rehearsal on the CPU: the wrappers count no launches there (they
+    run their plain versions), so stand-ins that the models call bump each
+    wrapper's count as its launch would."""
+    from motioncraft_tpu_torch import ops
+    from motioncraft_tpu_torch.models import attentions, blocks, moe
+
+    def counted(wrapper):
+        def call(*args, **kwargs):
+            wrapper.launches += 1
+            return wrapper(*args, **kwargs)
+        return call
+
+    for mod, names in ((moe, ("moe_positions_counts", "fused_expert_ffn", "moe_route",
+                              "grouped_ffn")),
+                       (attentions, ("fused_linear_attention", "stma_linear_attention")),
+                       (blocks, ("head_ffn",))):
+        for name in names:
+            setattr(mod, name, counted(getattr(ops, name)))
+
+
+def dp_device(torch, kind, rank):
+    """A rank's device: the CPU in a rehearsal, else the card rank modulo
+    the cards (every rank on the one card where there is one)."""
+    if kind == "cpu":
+        torch.set_num_threads(2)  # the ranks share the host's cores
+        return torch.device("cpu")
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def dp_train_part(torch, part, mesh, dev):
+    """One of phase 21's training runs, through train_model on ``dev``:
+    the model ``part["cfg"]`` from the weights in ``part["sd"]`` over the
+    batches in ``part["batches"]`` (this rank's rows on a mesh), Adam as
+    the config's recipe.  Without a mesh (the one-process reference) every
+    MoE gate's logits are recorded into ``part["pins"]``; on a mesh each
+    gate call takes its rows of them (as values; the gradient flows through
+    its own gate), so a near-tie between logits computed at 64 rows and at
+    128 cannot route a token differently.  Returns the losses, step ms,
+    launches, max memory, the trainable parameters and BatchNorm
+    statistics after the steps (rank 0 writes its parameters to
+    ``part["rank0"]``), and on a mesh the ranks' largest parameter
+    difference and the gradient all-reduce's ms."""
+    import numpy as np
+    import torch.distributed as tdist
+    from motioncraft_tpu_torch.apis import train_model
+    from motioncraft_tpu_torch.models.moe import CosineTopGate
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.parallel.mesh import shard_batch
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.dist_utils import allreduce_grads
+
+    class Pin(torch.autograd.Function):
+        """The given value, the identity's gradient."""
+
+        @staticmethod
+        def forward(ctx, out, value):
+            return value.clone()
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad, None
+
+    with skip_init(torch):
+        arch = build_architecture(part["cfg"], device=dev)
+    arch.model.load_state_dict(torch.load(part["sd"], map_location=dev), strict=True)
+    batches = [shard_batch(dict(np.load(f)), mesh) for f in part["batches"]]
+    pins = {} if mesh is None else torch.load(part["pins"])
+    calls = dict.fromkeys(pins, 0)
+
+    def hook(name):
+        def fn(mod, inp, out):
+            if mesh is None:
+                pins.setdefault(name, []).append(out.detach().cpu())
+                return None
+            i, n = calls[name], out.shape[0]
+            calls[name] = i + 1
+            want = pins[name][i][mesh.rank * n:(mesh.rank + 1) * n].to(out.device)
+            return Pin.apply(out, want)
+        return fn
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in arch.model.named_modules()
+               if isinstance(m, CosineTopGate)]
+    lines = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    state = train_model(arch, batches, optimizer_cfg=part["optimizer"],
+                        lr_config=part["lr_config"], max_epochs=1,
+                        steps_per_epoch=len(batches), seed=SEED, log_interval=1,
+                        logger=lines.append, frozen_prefixes=part["frozen"], mesh=mesh)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    counts = launch_counts()
+    for h in handles:
+        h.remove()
+    out = {"losses": [float(m.split(" loss=")[1].split()[0]) for m in lines if " loss=" in m],
+           "step_ms": [float(m.split("step_ms=")[1]) for m in lines if "step_ms=" in m],
+           "counts": counts, "steps": state.step,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
+           else None,
+           "stats": {k: v.cpu().clone() for k, v in arch.model.state_dict().items()
+                     if "running_" in k}}
+    params = [(n, p) for n, p in arch.model.named_parameters() if p.requires_grad]
+    if mesh is None:
+        torch.save(pins, part["pins"])
+        out["params"] = {n: p.detach().cpu().clone() for n, p in params}
+    else:
+        worst = 0.0
+        for _, p in params:  # every rank's parameters against rank 0's
+            ref = p.detach().clone()
+            tdist.broadcast(ref, src=0)
+            worst = max(worst, float((p.detach() - ref).abs().max()))
+        out["rank_diff"] = worst
+        out["pinned"] = all(calls[n] == len(pins[n]) for n in pins) and bool(pins)
+        if mesh.rank == 0:
+            torch.save({n: p.detach().cpu() for n, p in params}, part["rank0"])
+        # the gradient all-reduce alone: one flat buffer of every trainable
+        # gradient, as a step sends it
+        for _, p in params:
+            p.grad = torch.zeros_like(p)
+        grads = [p for _, p in params]
+        allreduce_grads(grads, mesh)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            allreduce_grads(grads, mesh)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out["allreduce_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        out["allreduce_mib"] = sum(p.numel() for p in grads) * 4 / 2**20
+    del arch, state, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(rank, kind, parts, eval_argv=None):
+    """A rank of phase 21: its device, the data mesh of the joined group,
+    each training part of ``parts`` in turn, then (``eval_argv``) the
+    evaluation."""
+    import torch
+    from motioncraft_tpu_torch.parallel.mesh import create_mesh
+
+    dev = dp_device(torch, kind, rank)
+    if dev.type == "cpu":
+        cpu_launch_counting()
+    mesh = create_mesh(device=dev)
+    out = {part["tag"]: dp_train_part(torch, part, mesh, dev) for part in parts}
+    if eval_argv is not None:
+        out["eval"] = dp_eval(eval_argv, mesh, dev)
+    return out
+
+
+def dp_eval(argv, mesh, dev):
+    """tools/torch_test.py (``argv``) in the joined group: its launches and
+    merged results (rank 0's predictions from its dump, written before its
+    evaluation rewrites the results); then this process alone over its
+    slice of the same dataset (seed + rank, two batches a dispatch), whose
+    predictions must be its part of the merged ones bit for bit."""
+    import numpy as np
+    from motioncraft_tpu_torch.apis import single_device_test
+    from motioncraft_tpu_torch.data import build_dataloader
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    torch_test = load_tool("torch_test")
+    args = torch_test.parse_args(argv)
+    reset_launch_counts()
+    run = torch_test.run(args, logger=lambda m: None)
+    counts = launch_counts()
+    merged = (np.load(args.dump_samples + ".npz")["pred_motion"] if run["out"] else
+              np.stack([r["pred_motion"] for r in run["results"]]))
+    dataset = run["dataset"]
+    loader = build_dataloader(dataset, samples_per_gpu=args.batch_size, shuffle=False,
+                              round_up=True, dist=True)
+    loader.drop_last = False
+    alone = single_device_test(run["arch"], loader, seed=args.seed + mesh.rank, device=dev,
+                               dispatch_batches=2)
+    n = len(range(mesh.rank, len(merged), mesh.world))
+    mine = np.stack([r["pred_motion"] for r in alone])[:n]
+    return {"counts": counts, "texts": [r["text"] for r in run["results"]],
+            "order": [dataset[i]["motion_metas"]["text"] for i in range(len(dataset))],
+            "merged": merged, "alone": bool(np.array_equal(mine, merged[mesh.rank::mesh.world])),
+            "alone_texts": [r["text"] for r in alone][:n] == [
+                r["text"] for r in run["results"]][mesh.rank::mesh.world],
+            "sample_s": run["sample_s"], "out": run["out"]}
+
+
+def phase_data_parallel(torch, full_cfg, sd, dev="cuda", config=CONFIG, s2g_config=S2G_CONFIG,
+                        batch=None, s2g_batch=DP_S2G_BATCH, eval_clips=DP_EVAL_CLIPS):
+    """Phase 21: data-parallel training and multi-process evaluation (see
+    the module docstring).  ``dev`` "cpu" rehearses it on the CPU with gloo
+    everywhere and counting stand-ins in every process."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as tdist
+    from motioncraft_tpu_torch.apis import make_train_batch, train_model
+    from motioncraft_tpu_torch.config import Config
+    from motioncraft_tpu_torch.diffusion import build_diffusion
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.parallel.mesh import create_mesh, launch
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.card import card_line
+    from motioncraft_tpu_torch.utils.checkpoint import save_params
+    from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
+
+    t_phase = time.perf_counter()
+    kind = torch.device(dev).type
+    main_dev = dp_device(torch, kind, 0)
+    if kind == "cpu":
+        cpu_launch_counting()
+    card = card_line() if kind == "cuda" else "CPU rehearsal"
+    cfg = full_cfg["model"]
+    T = cfg["model"]["max_seq_len"]
+    batch = batch or full_cfg["data"]["samples_per_gpu"]
+    s2g_cfg = Config.fromfile(s2g_config)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the flagship at its config's global batch, and the S2G ControlNet
+        # (its WavEncoder's BatchNorm) at a global batch of s2g_batch
+        rng = np.random.RandomState(SEED + 21)
+        t2m = dict(tag="t2m", cfg=cfg, sd=os.path.join(tmp, "t2m.pt"), frozen=("text_enc/clip",),
+                   optimizer=full_cfg["optimizer"], lr_config=full_cfg["lr_config"],
+                   pins=os.path.join(tmp, "t2m_pins.pt"), rank0=os.path.join(tmp, "t2m_r0.pt"),
+                   batches=[])
+        torch.save({k: v.cpu() for k, v in sd.items()}, t2m["sd"])
+        for i in range(DP_STEPS):
+            path = os.path.join(tmp, f"t2m_{i}.npz")
+            np.savez(path, **make_train_batch(batch, seed=SEED + 210 + i, max_seq_len=T))
+            t2m["batches"].append(path)
+        with skip_init(torch):
+            shapes = build_architecture(s2g_cfg["model"], device="cpu").model
+        # the S2G step with SGD at the config's lr: its update is the
+        # gradient, held as phase 8 holds one (Adam's first step is lr times
+        # each gradient's sign, which rounding flips where the BatchNorms'
+        # backward cancels a gradient to near 0)
+        s2g = dict(tag="s2g", cfg=s2g_cfg["model"], sd=os.path.join(tmp, "s2g.pt"),
+                   frozen=load_tool("torch_train").frozen_prefixes(s2g_cfg["model"]["model"]),
+                   optimizer=dict(type="SGD", lr=s2g_cfg["optimizer"]["lr"], momentum=0.0),
+                   lr_config=s2g_cfg["lr_config"],
+                   pins=os.path.join(tmp, "s2g_pins.pt"), rank0=os.path.join(tmp, "s2g_r0.pt"),
+                   batches=[os.path.join(tmp, "s2g_0.npz")])
+        torch.save(fabricate_state_dict(shapes, seed=SEED + 21), s2g["sd"])
+        del shapes
+        sb = make_train_batch(s2g_batch, seed=SEED + 219, max_seq_len=DP_S2G_FRAMES)
+        spf = s2g_cfg["windowed"]["audio_sr"] // s2g_cfg["windowed"]["pose_fps"]
+        n = DP_S2G_FRAMES * spf  # onset + amplitude at 16 kHz
+        sb["c"] = np.stack([np.abs(rng.randn(s2g_batch, n)) * 0.3,
+                            (rng.rand(s2g_batch, n) < 2e-3).astype(np.float64)],
+                           axis=-1).astype(np.float32)
+        np.savez(s2g["batches"][0], **sb)
+        parts = [t2m, s2g]
+        # (d)'s inputs: tools/torch_test.py on a tree of eval_clips clips
+        tree = os.path.join(tmp, "data")
+        write_motionx_tree(tree, eval_clips, T, SEED + 21)
+        params = os.path.join(tmp, "params.npz")
+        with skip_init(torch):
+            mem = build_architecture(cfg, device="cpu")
+        mem.model.load_state_dict({k: v.cpu() for k, v in sd.items()}, strict=True)
+        save_params(params, mem.model)
+        del mem
+        metrics = [dict(type="R Precision", batch_size=min(32, eval_clips), top_k=3),
+                   dict(type="Matching Score", batch_size=min(32, eval_clips)),
+                   dict(type="FID", emb_scale=1.0),
+                   dict(type="Diversity", num_samples=eval_clips // 2)]
+        argv = [config, os.path.join(tmp, "eval"), "--device", kind, "--batch-size",
+                str(BATCH), "--checkpoint", params, "--seed", str(SEED),
+                "--dist-backend", "gloo", "--dump-samples", os.path.join(tmp, "dump"),
+                "--cfg-options", f"data.test.data_prefix={tree}",
+                "data.test.ann_file=ann.txt", "data.test.motion_dir=motions",
+                "data.test.text_dir=texts", "data.test.eval_cfg.replication_times=1",
+                f"data.test.eval_cfg.metrics={metrics!r}"]
+
+        # (a, b) the one-process references first, each freed before the next
+        ref = {}
+        for part in parts:
+            ref[part["tag"]] = dp_train_part(torch, part, None, main_dev)
+        print(f"[dp] one process: flagship B={batch} {DP_STEPS} steps, step ms "
+              f"{ref['t2m']['step_ms']} (first = warm-up), losses {ref['t2m']['losses']}, "
+              f"max memory {ref['t2m']['peak_gib']} GiB; S2G ControlNet B={s2g_batch} one "
+              f"step, loss {ref['s2g']['losses']}; card {card}")
+
+        # (a, b, d) two ranks on the one card over gloo, CUDA tensors: the
+        # training parts, then tools/torch_test.py over the two processes
+        t0 = time.perf_counter()
+        ranks = launch(dp_rank, DP_WORLD, args=(kind, parts, argv), backend="gloo",
+                       init_method=f"file://{os.path.join(tmp, 'gloo')}",
+                       timeout_s=DP_TIMEOUT_S, group_timeout_s=DP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        for part in parts:
+            tag, one = part["tag"], ref[part["tag"]]
+            layers = (part["cfg"]["model"].get("num_layers")
+                      or part["cfg"]["model"]["base_model"]["num_layers"]
+                      + part["cfg"]["model"]["copy_blocks_num"])
+            want = dict.fromkeys(one["counts"], 0) | training_counts(len(part["batches"]),
+                                                                    layers)
+            rank0 = torch.load(part["rank0"])
+            for r, res in enumerate(ranks):
+                got = res[tag]
+                local = (batch if tag == "t2m" else s2g_batch) // DP_WORLD
+                timed = got["step_ms"][1:] or got["step_ms"]
+                print(f"[dp] {tag} rank {r}: {len(got['losses'])} steps of {local} rows, step "
+                      f"ms {got['step_ms']} (first = warm-up), "
+                      f"{local / (np.median(timed) / 1e3):.1f} samples/s a rank, max memory "
+                      f"{got['peak_gib']} GiB, gradient all-reduce {got['allreduce_ms']:.1f} ms "
+                      f"for {got['allreduce_mib']:.1f} MiB (gloo, {kind} tensors), launches "
+                      f"{got['counts']}; card {card}")
+                check(got["steps"] == len(part["batches"]) and got["pinned"],
+                      f"{tag} rank {r}: steps {got['steps']}, every gate pinned {got['pinned']}")
+                check(got["counts"] == want, f"{tag} rank {r} launches {got['counts']} != {want}")
+                check(got["rank_diff"] == 0.0, f"{tag} rank {r} parts from rank 0's parameters "
+                      f"by {got['rank_diff']}")
+                for i, (a, b) in enumerate(zip(got["losses"], one["losses"])):
+                    tol = MODEL_REL_TOL * max(1.0, abs(b)) + 1e-5  # printed to 5 decimals
+                    check(abs(a - b) <= tol, f"{tag} step {i} loss {a} against one process {b}")
+                for k, v in one["stats"].items():
+                    diff = float((got["stats"][k] - v).abs().max())
+                    check(diff <= MODEL_REL_TOL * max(1.0, float(v.abs().max())),
+                          f"{tag} rank {r} BatchNorm {k} against one process: {diff}")
+            # the updated parameters: after Adam each element within
+            # DP_PARAM_TOL x lr of the one-process step's but for
+            # DP_PARAM_FRAC of a tensor, those within two lr a step; after SGD
+            # the gradient within GRAD_REL_TOL of max(1, scale), as phase 8
+            lr, start = part["optimizer"]["lr"], torch.load(part["sd"])
+            worst, outliers = 0.0, 0
+            for n, want_p in one["params"].items():
+                diff = (rank0[n] - want_p).abs()
+                if part["optimizer"]["type"] == "SGD":  # the update is lr x gradient
+                    grad = (want_p - start[n].cpu()).abs() / lr
+                    rel = float(diff.max()) / lr / max(1.0, float(grad.max()))
+                    worst = max(worst, rel)
+                    check(rel <= GRAD_REL_TOL, f"{tag} {n}: gradient {rel:.3e} of scale")
+                    continue
+                far = int((diff > DP_PARAM_TOL * lr).sum())
+                worst, outliers = max(worst, float(diff.max()) / lr), outliers + far
+                check(far <= max(1, int(DP_PARAM_FRAC * diff.numel()))
+                      and float(diff.max()) <= 2 * len(part["batches"]) * lr,
+                      f"{tag} {n}: {far} elements past {DP_PARAM_TOL} lr, max "
+                      f"{float(diff.max()) / lr:.3g} lr")
+            moved = sum(not torch.equal(rank0[n], start[n].cpu()) for n in one["params"])
+            held = (f"worst gradient {worst:.3e} of max(1, scale) (tol {GRAD_REL_TOL})"
+                    if part["optimizer"]["type"] == "SGD" else
+                    f"largest difference {worst:.3e} lr, {outliers} elements past "
+                    f"{DP_PARAM_TOL} lr")
+            print(f"[dp] {tag}: 2 ranks vs one process: losses {ranks[0][tag]['losses']} / "
+                  f"{one['losses']}; {len(one['params'])} trainable tensors ({moved} moved), "
+                  f"{held}; {len(one['stats'])} BatchNorm running statistics within "
+                  f"{MODEL_REL_TOL} of scale")
+            out[tag] = {"counts": ranks[0][tag]["counts"],
+                        "step_ms": [res[tag]["step_ms"] for res in ranks],
+                        "allreduce_ms": [res[tag]["allreduce_ms"] for res in ranks],
+                        "one_step_ms": one["step_ms"]}
+        print(f"[dp] two ranks (training, both parts, then the evaluation) took {wall:.1f} s")
+
+        # (d) the evaluation's checks
+        ev = [r["eval"] for r in ranks]
+        per_rank = -(-eval_clips // DP_WORLD)
+        batches = -(-per_rank // BATCH)
+        steps = build_diffusion(cfg["diffusion_test"]).num_timesteps
+        want = sampling_counts(batches, batches * steps, cfg["model"]["num_layers"])
+        metric = {k: v for k, v in ev[0]["out"].items() if k not in ("flags", "protocol")}
+        print(f"[dp] tools/torch_test.py over {DP_WORLD} processes on one card (gloo): "
+              f"{eval_clips} clips, {per_rank} a rank at batch {BATCH}, sampling "
+              f"{[round(e['sample_s'], 3) for e in ev]} s; metrics on rank 0 "
+              f"{json.dumps(metric)}; launches {[e['counts'] for e in ev]}; card {card}")
+        check(ev[1]["out"] is None and all(np.isfinite(v) for v in metric.values()),
+              "metrics on rank 0 alone, finite")
+        for r, e in enumerate(ev):
+            check(e["counts"] == dict.fromkeys(e["counts"], 0) | want,
+                  f"eval rank {r} launches {e['counts']} != {want}")
+            print(f"[dp] rank {r}'s {per_rank} predictions against this process alone over "
+                  f"its slice (seed + {r}), --dispatch-batches 2: bit for bit {e['alone']}")
+            check(e["alone"] and e["alone_texts"],
+                  f"rank {r}'s predictions differ from one process over its slice")
+        check(all(len(e["texts"]) == eval_clips and e["texts"] == e["order"] for e in ev)
+              and np.array_equal(ev[0]["merged"], ev[1]["merged"]),
+              "the merged results are not every clip once, in dataset order, on both ranks")
+        out["eval"] = {"counts": ev[0]["counts"], "sample_s": [e["sample_s"] for e in ev]}
+        del ranks, ev
+
+        # (c) a one-rank NCCL group through the same code path: one step
+        if kind == "cuda":
+            tdist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'nccl1')}",
+                                     world_size=1, rank=0)
+            try:
+                mesh = create_mesh(device=main_dev)
+                with skip_init(torch):
+                    arch = build_architecture(cfg, device=main_dev)
+                arch.model.load_state_dict(sd, strict=True)
+                lines = []
+                reset_launch_counts()
+                state = train_model(arch, [make_train_batch(TRAIN_BATCH, seed=SEED + 220,
+                                                            max_seq_len=T)],
+                                    optimizer_cfg=full_cfg["optimizer"], max_epochs=1,
+                                    seed=SEED, log_interval=1, logger=lines.append, mesh=mesh)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                loss = float(lines[0].split(" loss=")[1].split()[0])
+                print(f"[dp] one-rank NCCL group ({mesh.backend}): one step of "
+                      f"{TRAIN_BATCH}, loss {loss:.5f}, launches {counts}")
+                check(state.step == 1 and np.isfinite(loss)
+                      and counts == dict.fromkeys(counts, 0) | training_counts(
+                          1, cfg["model"]["num_layers"]), "the one-rank NCCL step")
+                del arch, state
+            finally:
+                tdist.destroy_process_group()
+            torch.cuda.empty_cache()
+        if kind == "cuda" and torch.cuda.device_count() >= DP_WORLD:
+            ranks = launch(dp_rank, DP_WORLD, args=(kind, parts[:1]), backend="nccl",
+                           init_method=f"file://{os.path.join(tmp, 'nccl_train')}",
+                           timeout_s=DP_TIMEOUT_S, group_timeout_s=DP_TIMEOUT_S)
+            for r, res in enumerate(ranks):
+                got = res["t2m"]
+                print(f"[dp] NCCL rank {r} on cuda:{r}: step ms {got['step_ms']}, gradient "
+                      f"all-reduce {got['allreduce_ms']:.1f} ms, losses {got['losses']}")
+                check(got["rank_diff"] == 0.0 and got["pinned"], f"NCCL rank {r}")
+            out["nccl_step_ms"] = [res["t2m"]["step_ms"] for res in ranks]
+        else:
+            print(f"[dp] NCCL across cards not run: {torch.cuda.device_count()} card(s) here "
+                  f"({card})")
+
+    print(f"[dp] phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -4394,8 +4891,15 @@ def main():
     bl_train_cfgs = [(os.path.basename(p)[:-3], c["model"], c["data"]["samples_per_gpu"])
                      for p, c in ((p, Config.fromfile(p))
                                   for p in (MD_CONFIG, MCM_CONFIG, FMG_CONFIG, MCM_M2D_CONFIG))]
+    # phase 21's: each rank's K5 at the flagship's 64 rows (its K4
+    # positions and K6 over the global 128 are phase 18's t2m cases), and the
+    # S2G ControlNet's base at its 2 x 8 windows
+    dp_cfgs = [("t2m dp", cfg, full_cfg["data"]["samples_per_gpu"], None,
+                ("fused_linear_attention",)),
+               ("s2g dp", {"model": s2g_cfg["model"]["model"]["base_model"]}, DP_S2G_BATCH,
+                DP_S2G_FRAMES, TRAINING_KERNELS)]
     rows = phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg, k5_cfgs, fmg_cfgs, mcm_cfgs,
-                         retrieval_cfgs, train_cfgs, bl_train_cfgs)
+                         retrieval_cfgs, train_cfgs, bl_train_cfgs, dp_cfgs)
 
     t0 = time.perf_counter()
     with skip_init(torch):
@@ -4426,6 +4930,7 @@ def main():
     controlnet = phase_controlnet_train(torch)
     baseline_train = phase_baseline_train(torch)
     bf16_train = phase_bf16_train(torch, full_cfg, sd, f32_step_ms)
+    dp = phase_data_parallel(torch, full_cfg, sd)
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
@@ -4475,6 +4980,9 @@ def main():
                                           for k, v in baseline_train.items()}
         # phase 20: the bf16 train_model steps (TRAIN_STEPS of B = TRAIN_BATCH)
         row["bf16_train_launches"] = bf16_train["counts"][name]
+        # phase 21: rank 0's data-parallel steps (the flagship's DP_STEPS,
+        # the S2G ControlNet's one) and its share of the 2-process evaluation
+        row["dp_launches"] = {k: dp[k]["counts"][name] for k in ("t2m", "s2g", "eval")}
         check(row["launches"] > 0, f"{name} was launched no time on its path")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

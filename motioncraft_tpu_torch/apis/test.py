@@ -10,7 +10,15 @@ in the JAX package: MoE capacity depends on the token count, so the short
 batch would otherwise route differently.  GT mode is not padded.
 ``step_cache`` (diffusion/stepcache.py) is handed to every batch's sampling
 call; its calibration mode, ``collect_errors``, is refused here
-(``MotionDiffusion.sample`` runs it).
+(``MotionDiffusion.sample`` runs it).  ``dispatch_batches`` = K groups K
+batches: each is sampled in turn on the one generator, as at K = 1, and
+the group's predictions are copied to the host together, one wait for
+the device a group (the JAX package's one dispatch a group); the
+predictions are those of K = 1 bit for bit.
+
+``multi_host_test``: each process samples its interleaved slice (a
+``dist=True`` loader) with ``seed + rank``, and ``collect_results`` puts
+the ranks' results back in dataset order on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import numpy as np
 import torch
 
 from ..models.architecture import resolve_device
+from ..utils.dist_utils import collect_results
 
 
 def _numeric(batch: Dict[str, Any]) -> Dict[str, Any]:
@@ -54,10 +63,8 @@ def single_device_test(arch, data_loader: Iterable[Dict[str, Any]], *, seed: int
     if step_cache is not None and step_cache.collect_errors:
         raise ValueError("collect_errors is a calibration mode; use "
                          "MotionDiffusion.sample directly")
-    if dispatch_batches != 1:
-        raise NotImplementedError("dispatch_batches > 1 (batches grouped into one device "
-                                  "dispatch): ROADMAP queue 1: multi-GPU, serving and the "
-                                  "host-side tools")
+    if dispatch_batches < 1:
+        raise ValueError("dispatch_batches must be >= 1")
     device = resolve_device(device)
     if device != arch.device:
         raise ValueError(f"arch lives on {arch.device}, asked to run on {device}")
@@ -65,6 +72,19 @@ def single_device_test(arch, data_loader: Iterable[Dict[str, Any]], *, seed: int
     bs = getattr(data_loader, "batch_size", None)
     gt = arch.inference_type == "gt"
     results: List[Dict[str, Any]] = []
+    group: list = []  # (batch index, batch, prediction on the device, t0)
+    enqueued = 0
+
+    def flush():
+        preds = [p.cpu() for _, _, p, _ in group]  # waits for the device
+        for (i, batch, _, t0), pred in zip(group, preds):
+            res = dict(batch)
+            res["pred_motion"] = pred
+            results.extend(arch.split_results(res))
+            if logger:
+                logger(f"batch {i}: {len(pred)} samples in {time.perf_counter() - t0:.3f} s")
+        group.clear()
+
     for i, batch in enumerate(data_loader):
         t0 = time.perf_counter()
         nbatch = _numeric(batch)
@@ -73,17 +93,32 @@ def single_device_test(arch, data_loader: Iterable[Dict[str, Any]], *, seed: int
         if not gt and n < bs:
             nbatch = {k: _pad_rows(v, bs - n) for k, v in nbatch.items()}
         pred = arch.sample(nbatch, generator=generator, compute_dtype=compute_dtype,
-                           step_cache=step_cache)[:n].cpu()  # waits for the device
-        res = dict(batch)
-        res["pred_motion"] = pred
-        results.extend(arch.split_results(res))
-        if logger:
-            logger(f"batch {i}: {n} samples in {time.perf_counter() - t0:.3f} s")
-        if limit and len(results) >= limit:
+                           step_cache=step_cache)[:n]
+        group.append((i, batch, pred, t0))
+        enqueued += n
+        if len(group) == dispatch_batches:
+            flush()
+        if limit and enqueued >= limit:
             break
+    flush()
     return results[:limit] if limit else results
 
 
-def multi_host_test(*args, **kwargs):
-    raise NotImplementedError("multi_host_test (sampling over several processes): "
-                              "ROADMAP queue 1: multi-GPU, serving and the host-side tools")
+def multi_host_test(arch, data_loader: Iterable[Dict[str, Any]], *,
+                    total_size: Optional[int] = None, seed: int = 0, mesh=None,
+                    **kwargs) -> List[Dict[str, Any]]:
+    """``single_device_test`` (its keyword arguments in ``kwargs``) over this
+    process's interleaved slice of the dataset (``data_loader`` built with
+    ``dist=True``), its noise seeded with ``seed + rank``, then every
+    rank's results in dataset order, each sample once, cut to
+    ``total_size`` (default the whole dataset).  ``mesh``: the data mesh
+    (default: over the joined process group, on ``arch``'s device)."""
+    if mesh is None:
+        from ..parallel.mesh import create_mesh
+
+        mesh = create_mesh(device=arch.device)
+    rank = 0 if mesh is None else mesh.rank
+    if total_size is None:
+        total_size = len(data_loader.dataset)
+    local = single_device_test(arch, data_loader, seed=seed + rank, **kwargs)
+    return collect_results(local, total_size, mesh)

@@ -7,8 +7,19 @@ and one optimizer update (``parallel/train_state.py``), and the loop runs
 epochs with the checkpoint / eval hooks and the loss-aware timestep sampler's
 feedback.  ``resume_dir`` resumes from the last ``utils/checkpoint.py``
 checkpoint written there.  ``fp16`` trains in bf16 against the f32
-master parameters (``make_train_step``).  Multi-device training
-(``mesh``) is not ported.
+master parameters (``make_train_step``).
+
+Data parallelism (``mesh``, a ``parallel.mesh.DataMesh``): one process a
+rank, each with its rows of the global batch (``parallel/mesh.py`` says
+which), computes what one process computes on the global batch, as the
+JAX package's sharded step does: the per-row draws, the MoE's routing,
+the BatchNorm statistics and the loss's reductions are global (the step
+attaches the mesh to the modules that compute over the batch), and after the
+microbatch loop the trainable gradients' mean over the ranks
+(``utils/dist_utils.py:allreduce_grads``) goes into the clip and the
+update, so every rank takes the same step.  No DDP wrapper: the explicit
+all-reduce leaves ``cast_parameters``' swap, remat's recompute and the
+frozen prefixes as one process has them.
 """
 
 from __future__ import annotations
@@ -24,6 +35,8 @@ import numpy as np
 import torch
 
 from ..parallel import TrainState, build_lr_schedule
+from ..parallel.mesh import attach_mesh, broadcast_module, gather_rows
+from ..utils.dist_utils import allreduce_grads, mean_across_hosts
 
 
 def set_random_seed(seed: int, device="cpu") -> torch.Generator:
@@ -108,6 +121,13 @@ def cast_parameters(module: torch.nn.Module, dtype: torch.dtype):
             m._parameters[name] = p
 
 
+def _resolved(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def half_dtype(fp16: dict) -> torch.dtype:
     """The compute dtype that an ``fp16`` option names: bfloat16 (its
     default).  float16 needs an f16 instantiation of K6 (queued)."""
@@ -121,7 +141,7 @@ def half_dtype(fp16: dict) -> torch.dtype:
 
 
 def make_train_step(arch, state: TrainState, fp16: Optional[dict] = None,
-                    grad_accum: int = 1) -> Callable:
+                    grad_accum: int = 1, mesh=None) -> Callable:
     """``step(batch, generator=None, **loss_kw) -> logs``: the loss, its
     gradient and one optimizer update.  ``grad_accum`` > 1 splits the batch
     (and any per-sample ``loss_kw`` override) into that many microbatches
@@ -129,6 +149,12 @@ def make_train_step(arch, state: TrainState, fp16: Optional[dict] = None,
     scan does.  The logs hold the scalars (means over microbatches) and, for
     the loss-aware sampler, ``_timesteps`` and ``_loss_batch`` in input
     order.
+
+    On a data mesh (``mesh``, which this attaches to ``arch``'s modules)
+    the batch and the ``loss_kw`` overrides are this rank's rows in the
+    mesh's layout, the gradients are averaged over the ranks before the update,
+    the scalars are means over the ranks and the two vectors come back
+    gathered, in the global batch's order.
 
     ``fp16`` (the JAX package's option, mmcv's Fp16OptimizerHook): the
     forward and backward run on bf16 copies of every floating parameter
@@ -148,6 +174,7 @@ def make_train_step(arch, state: TrainState, fp16: Optional[dict] = None,
         loss_scale = 1.0 if isinstance(ls, str) else float(ls)
     cast = ((lambda: cast_parameters(arch.model, half)) if half is not None
             else contextlib.nullcontext)
+    attach_mesh(arch, mesh)
 
     def train_step(batch: Dict[str, Any], generator=None, **loss_kw):
         B = batch["motion"].shape[0]
@@ -169,13 +196,15 @@ def make_train_step(arch, state: TrainState, fp16: Optional[dict] = None,
                     scalars[k] = scalars.get(k, 0.0) + v.detach().float() / grad_accum
             timesteps.append(logs["timesteps"])
             loss_batch.append(logs["recon_loss_batch"].detach())
+        allreduce_grads(state.params, mesh)
         if loss_scale != 1.0:
             for p in state.params:
                 if p.grad is not None:
                     p.grad.div_(loss_scale)
         state.apply_gradients()
-        scalars["_timesteps"] = torch.cat(timesteps)
-        scalars["_loss_batch"] = torch.cat(loss_batch)
+        scalars = mean_across_hosts(scalars, mesh)
+        scalars["_timesteps"] = gather_rows(mesh, torch.cat(timesteps), grad_accum)
+        scalars["_loss_batch"] = gather_rows(mesh, torch.cat(loss_batch), grad_accum)
         return scalars
 
     return train_step
@@ -219,20 +248,29 @@ def train_model(arch, dataloader: Iterable[Dict[str, Any]], *,
     ``variables_transform``) edits the denoiser's weights in place before
     the optimizer is made: ControlNet training grafts a pretrained base
     into it there.  ``frozen_prefixes`` are matched against the
-    '/'-joined parameter names (``parallel/train_state.py:freeze``)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh: multi-device training")
+    '/'-joined parameter names (``parallel/train_state.py:freeze``).
+
+    ``mesh`` (a ``parallel.mesh.DataMesh``): data-parallel training, this
+    process one rank; ``dataloader`` yields this rank's rows
+    (``data/loader.py:RankRows``, or a ``dist=True`` loader), ``arch`` lives
+    on the mesh's device, every rank starts from rank 0's weights
+    (broadcast after ``model_transform``) and the same seed, and the
+    caller's ``checkpoint_fn`` / ``eval_fn`` run on every rank (the CLI
+    writes on rank 0 alone)."""
     optimizer_cfg = optimizer_cfg or {"type": "Adam"}
     generator = set_random_seed(seed, arch.device)
     if model_transform is not None:
         with torch.no_grad():
             model_transform(arch.model)
+    if mesh is not None and _resolved(mesh.device) != _resolved(arch.device):
+        raise ValueError(f"arch lives on {arch.device}, its rank on {mesh.device}")
+    broadcast_module(arch.model, mesh)
     schedule = build_lr_schedule(optimizer_cfg.get("lr", 2e-4), lr_config,
                                  steps_per_epoch or 1)
     state = TrainState(arch.model, optimizer_cfg, schedule, grad_clip, frozen_prefixes)
     sampler = getattr(arch, "sampler", None)
     state.generator, state.sampler = generator, sampler
-    step_fn = make_train_step(arch, state, fp16=fp16, grad_accum=grad_accum)
+    step_fn = make_train_step(arch, state, fp16=fp16, grad_accum=grad_accum, mesh=mesh)
     log = logger or (lambda msg: print(msg, flush=True))
     start_epoch = 0
     if resume_dir is not None:

@@ -7,4 +7,5 @@ from .datasets import (BaseMotionDataset, ConcatDataset,  # noqa: F401
                        FinedanceMotionDataset, RepeatDataset, SpeechMotionDataset,
                        TextMixMotionDataset, TextMotionDataset, beat2_pose_to_smplx322,
                        build_mixed_dataset, finedance_split, finedance_to_smplx322)
-from .loader import DataLoader, RoundUpSampler, build_dataloader, collate  # noqa: F401
+from .loader import (DataLoader, RankRows, RoundUpSampler, build_dataloader,  # noqa: F401
+                     collate)

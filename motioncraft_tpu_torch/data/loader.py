@@ -1,10 +1,13 @@
-"""Batching (a copy of motioncraft_tpu/data/loader.py, one process).
+"""Batching (a copy of motioncraft_tpu/data/loader.py).
 
 A numpy batcher: shuffled (seeded) index stream, round-up semantics,
 stacked numpy batches with host-side CLIP tokenization (the port's
 models/tokenizer.py), and thread prefetch.  Batches stay numpy on the host;
-the test and train loops copy them to the device.  Several processes
-(``dist=True``) are not ported yet.
+the test and train loops copy them to the device.  Over several processes
+``build_dataloader(dist=True)`` gives each rank its interleaved slice of
+the dataset (``--multihost``, multi-process evaluation), and ``RankRows``
+gives each rank its rows of the one-process loader's global batches
+(``tools/torch_train.py --devices N``).
 """
 
 from __future__ import annotations
@@ -161,12 +164,47 @@ def build_dataloader(dataset, samples_per_gpu: int, workers_per_gpu: int = 0,
                      round_up: bool = True, seed: Optional[int] = None,
                      num_replicas: Optional[int] = None, rank: Optional[int] = None,
                      **kwargs) -> DataLoader:
-    """The JAX package's builder signature, one process: ``workers_per_gpu``
-    maps to loader prefetch threads."""
+    """The JAX package's builder: ``dist=True`` gives this process (rank r
+    of the joined process group, unless ``num_replicas`` / ``rank`` say)
+    the interleaved 1/W slice of the dataset at ``samples_per_gpu`` a
+    batch (DistributedSampler semantics); ``workers_per_gpu`` maps to
+    loader prefetch threads."""
     if dist:
-        raise NotImplementedError("dist=True: multi-process loading (ROADMAP queue 1: "
-                                  "multi-GPU, serving and the host-side tools)")
-    return DataLoader(dataset, samples_per_gpu * num_gpus, shuffle=shuffle,
+        import torch.distributed as tdist
+
+        if num_replicas is None or rank is None:
+            if not tdist.is_initialized():
+                raise RuntimeError("dist=True needs the process group (parallel/mesh.py:"
+                                   "init_distributed) or num_replicas and rank")
+            num_replicas = tdist.get_world_size() if num_replicas is None else num_replicas
+            rank = tdist.get_rank() if rank is None else rank
+        batch_size = samples_per_gpu
+    else:
+        num_replicas, rank = num_replicas or 1, rank or 0
+        batch_size = samples_per_gpu * num_gpus
+    return DataLoader(dataset, batch_size, shuffle=shuffle,
                       drop_last=shuffle, round_up=round_up,
-                      num_replicas=num_replicas or 1, seed=seed or 0, rank=rank or 0,
+                      num_replicas=num_replicas, seed=seed or 0, rank=rank,
                       num_workers=workers_per_gpu)
+
+
+class RankRows:
+    """This rank's rows (``parallel/mesh.py:shard_batch``, in the mesh's
+    microbatch layout) of each global batch of ``loader``, the one-process
+    loader every rank builds alike.  Every rank reads the whole global
+    batch and keeps its rows: the samples' random crops and captions come
+    from the global numpy generator, which then moves as one process's
+    does, so W ranks train on what one process at the global batch would."""
+
+    def __init__(self, loader, mesh, grad_accum: int = 1):
+        self.loader, self.mesh, self.grad_accum = loader, mesh, grad_accum
+        self.sampler = getattr(loader, "sampler", None)  # set_epoch reaches the loader's
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        from ..parallel.mesh import shard_batch
+
+        for batch in self.loader:
+            yield shard_batch(batch, self.mesh, self.grad_accum)

@@ -41,7 +41,9 @@ from ..diffusion import (Outpainting, RepaintConfig, build_diffusion,
                          p_sample_loop, training_losses)
 from ..diffusion.sampling import Randn
 from ..diffusion.stepcache import StepCacheConfig
+from ..parallel.mesh import draw_rows
 from ..registry import ARCHITECTURES, build_loss, build_submodule
+from ..utils.dist_utils import all_reduce_sum
 from .body_layout import SMPLX_FACE_DIMS, SMPLX_HAND_DIMS
 
 
@@ -69,6 +71,8 @@ def exact_f32() -> None:
 class MotionDiffusion(nn.Module):
     """Text-to-motion: ``loss`` trains the denoiser, ``sample`` turns noise
     into motion."""
+
+    mesh = None  # the data mesh of training (parallel/mesh.py:attach_mesh)
 
     def __init__(self, model: Optional[dict] = None,
                  loss_recon: Optional[dict] = None,
@@ -139,11 +143,14 @@ class MotionDiffusion(nn.Module):
         motion = self._tensor(batch["motion"], torch.float32)
         motion_mask = self._tensor(batch["motion_mask"], torch.float32)
         B = motion.shape[0]
-        t = (self.sampler.sample(B, generator, self.device)[0] if t is None
-             else self._tensor(t, torch.long))
-        noise = (torch.randn(motion.shape, generator=generator, device=self.device)
+        mesh, dev = self.mesh, self.device
+        t = (draw_rows(mesh, lambda s: self.sampler.sample(s[0], generator, dev)[0], (B,))
+             if t is None else self._tensor(t, torch.long))
+        noise = (draw_rows(mesh, lambda s: torch.randn(s, generator=generator, device=dev),
+                           motion.shape)
                  if noise is None else self._tensor(noise, torch.float32))
-        cond_type = (torch.randint(0, 100, (B, 1, 1), generator=generator, device=self.device)
+        cond_type = (draw_rows(mesh, lambda s: torch.randint(0, 100, s, generator=generator,
+                                                             device=dev), (B, 1, 1))
                      if cond_type is None else self._tensor(cond_type))
         # the frozen CLIP runs under no_grad inside; the text layers train
         enc = self.model.encode_text(self._tensor(batch["text_ids"], torch.long),
@@ -180,15 +187,26 @@ class MotionDiffusion(nn.Module):
             recon = recon * scale
         recon = recon.mean(dim=-1) * motion_mask
         recon_batch = recon.sum(dim=1) / motion_mask.sum(dim=1).clamp(min=1e-8)
-        recon_frame = recon.sum() / motion_mask.sum().clamp(min=1e-8)
-        logs = {"recon_loss": recon_frame if self.loss_reduction == "frame"
-                else recon_batch.mean()}
+        # the batch's reductions over the global batch on a data mesh (the
+        # MoEs' aux losses are global already)
+        if mesh is None:
+            recon_frame = recon.sum() / motion_mask.sum().clamp(min=1e-8)
+            recon_mean, t_mean = recon_batch.mean(), t.float().mean()
+        else:
+            recon_frame = (all_reduce_sum(recon.sum(), mesh)
+                           / all_reduce_sum(motion_mask.sum(), mesh).clamp(min=1e-8))
+            recon_mean = all_reduce_sum(recon_batch.sum(), mesh) / (B * mesh.world)
+            with torch.no_grad():
+                t_mean = all_reduce_sum(t.float().sum(), mesh) / (B * mesh.world)
+            if kl_losses:  # SAMI's template KL is a sum over the rows
+                kl_losses = [all_reduce_sum(sum(kl_losses), mesh)]
+        logs = {"recon_loss": recon_frame if self.loss_reduction == "frame" else recon_mean}
         for key, terms in (("moe_route_loss", aux_losses), ("template_kl_loss", kl_losses)):
             if terms:
                 logs[key] = sum(terms) * self.model.aux_loss_weights().get(key, 1.0)
         total = sum(v for k, v in logs.items() if "loss" in k)
         logs["loss"] = total
-        return total, {**logs, "t_mean": t.float().mean(), "recon_loss_batch": recon_batch,
+        return total, {**logs, "t_mean": t_mean, "recon_loss_batch": recon_batch,
                        "timesteps": t}
 
     @torch.no_grad()

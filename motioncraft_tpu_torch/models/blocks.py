@@ -51,6 +51,8 @@ from torch import nn
 
 from ..ops.quant import dequant, qdot, qeinsum, quantize_weight
 from ..ops.sffn import head_ffn
+from ..parallel.mesh import draw_rows
+from ..utils.dist_utils import all_reduce_sum
 
 
 def promote_dtype(*tensors):
@@ -86,6 +88,19 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x):
         x, w, b = promote_dtype(x, self.weight, self.bias)
         return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
+
+
+def dropout(x, p: float, training: bool, generator=None, mesh=None):
+    """flax's ``nn.Dropout``: in training, each element kept with
+    probability 1 - p (a Bernoulli draw from ``generator``, default torch's
+    generator of ``x``'s device) and scaled by 1 / (1 - p), else 0; ``x``
+    itself otherwise.  On a data mesh the mask is drawn at the global
+    batch's shape and the rank keeps its rows (parallel/mesh.py:draw_rows)."""
+    if not training or p == 0.0:
+        return x
+    keep = draw_rows(mesh, lambda shape: x.new_empty(shape).bernoulli_(
+        1.0 - p, generator=generator), x.shape)
+    return x * keep / (1.0 - p)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -151,6 +166,8 @@ class ZeroDense(nn.Module):
 class StylizationBlock(nn.Module):
     """AdaLN conditioning: time-emb -> (scale, shift); zero-init output."""
 
+    mesh = None  # the data mesh of training (parallel/mesh.py:attach_mesh)
+
     def __init__(self, latent_dim: int, time_embed_dim: int, dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
@@ -162,12 +179,15 @@ class StylizationBlock(nn.Module):
         emb_out = self.emb_layers(F.silu(emb))[:, None, :]
         scale, shift = emb_out.chunk(2, dim=-1)
         h = self.norm(h) * (1 + scale) + shift
-        return self.out_layers(F.dropout(F.silu(h), self.dropout, self.training))
+        return self.out_layers(dropout(F.silu(h), self.dropout, self.training,
+                                       mesh=self.mesh))
 
 
 class FFN(nn.Module):
     """The baselines' FFN: Linear -> exact GELU -> zero-init Linear, added to
     its input through a StylizationBlock."""
+
+    mesh = None
 
     def __init__(self, latent_dim: int, ffn_dim: int, dropout: float = 0.0,
                  time_embed_dim: int = 2048):
@@ -178,7 +198,7 @@ class FFN(nn.Module):
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
     def forward(self, x, emb):
-        y = F.dropout(F.gelu(self.linear1(x)), self.dropout, self.training)
+        y = dropout(F.gelu(self.linear1(x)), self.dropout, self.training, mesh=self.mesh)
         return x + self.proj_out(self.linear2(y), emb)
 
 
@@ -186,6 +206,8 @@ class SFFN(nn.Module):
     """Per-body-part (per-head) FFN over the concatenated head layout, with
     the stacked [H, d, f] weights of the flax module; the FFN pair runs as
     kernel K2 (ops/sffn.py) on the card."""
+
+    mesh = None
 
     def __init__(self, latent_dim: int, ffn_dim: int, num_heads: int,
                  dropout: float = 0.0, time_embed_dim: int = 2048):
@@ -206,7 +228,7 @@ class SFFN(nn.Module):
             xh, w1, b1, w2, b2 = promote_dtype(x.reshape(B, T, self.num_heads, -1),
                                                self.w1, self.b1, self.w2, self.b2)
             y = torch.einsum("bthd,hdf->bthf", xh, w1) + b1
-            y = F.dropout(F.gelu(y), self.dropout, self.training)
+            y = dropout(F.gelu(y), self.dropout, self.training, mesh=self.mesh)
             y = (torch.einsum("bthf,hfd->bthd", y, w2) + b2).reshape(B, T, D)
         else:
             y = head_ffn(x.reshape(B * T, D), self.w1, self.b1, self.w2,
@@ -230,7 +252,13 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     the running statistics; in training the batch's, its variance the
     biased E[x^2] - E[x]^2 clipped at 0, and the running statistics moved
     by 1 - momentum towards them, the variance the biased one too (torch's
-    own update takes the unbiased variance)."""
+    own update takes the unbiased variance).  On a data mesh the batch is
+    the global one: the sums and sums of squares are all-reduced
+    (differentiably) over the ranks, which hold as many rows each, as the
+    JAX package's sharded step takes its statistics; every rank moves its
+    running statistics alike."""
+
+    mesh = None
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.01)
@@ -238,8 +266,15 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2))
-        var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp(min=0)
+        if self.mesh is None:
+            mean = x.mean(dim=(0, 2))
+            var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp(min=0)
+        else:
+            sums = all_reduce_sum(torch.stack([x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2))]),
+                                  self.mesh)
+            count = x.shape[0] * x.shape[2] * self.mesh.world
+            mean = sums[0] / count
+            var = (sums[1] / count - mean * mean).clamp(min=0)
         with torch.no_grad():
             self.running_mean.lerp_(mean.detach(), self.momentum)
             self.running_var.lerp_(var.detach(), self.momentum)

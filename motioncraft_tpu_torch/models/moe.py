@@ -23,6 +23,18 @@ expert weights in K6's bf16 instantiation, the motion MoEs' f32 slots meet
 the weights widened to f32 (exact) in the f32 K6, and the combine runs in
 that dtype, the gates cast to it, as the JAX package's einsums promote.
 
+On a data mesh (parallel/mesh.py, attached by ``make_train_step(mesh=)``) the
+training routing runs over the global batch, as the JAX package's
+sharded step computes it: the gate noise is drawn at the global token
+count and each rank keeps its rows; the per-token top-1 score and top-k
+experts [N, 1 + K] are all-gathered, so that every rank sorts the global
+list in batch-prioritized order and runs K4's positions over it as one
+process would, the capacity that of the global token count, and keeps
+its tokens' positions; the aux loss takes the importance and load sums
+over the ranks (a differentiable all-reduce, the variance after the
+sum).  K6 then runs on this rank's slot buffer: its kept tokens at their
+global positions, the other ranks' slots empty.
+
 Capacity is Tutel's ``K * int(1.5 * ceil(N / E))``; a choice ranked at or
 past it is dropped (gate 0).  Under bf16 inference the gate still computes
 its logits in f32 (its projector promoted to f32), the expert FFN runs in
@@ -51,6 +63,8 @@ from ..ops.expert_ffn import fused_expert_ffn
 from ..ops.moe_ffn import BLOCK, grouped_ffn
 from ..ops.moe_positions import moe_positions_counts, moe_route
 from ..ops.quant import dequant, expert_ffn_q
+from ..parallel.mesh import draw_rows
+from ..utils.dist_utils import all_gather_rows, all_reduce_sum
 from .blocks import Linear, promote_dtype
 
 
@@ -67,16 +81,17 @@ def _normal_cdf(x, sigma):
 
 
 def load_importance_loss(scores_wo_noise, topk_noisy_scores, num_experts: int,
-                         gate_noise: float):
+                         gate_noise: float, mesh=None):
     """Tutel's is_gshard_loss=False aux loss: mean of the squared
     coefficients of variation of the (soft) importance and the
-    (noise-smoothed) load of the experts."""
-    imp = scores_wo_noise.sum(dim=0)
+    (noise-smoothed) load of the experts; on a data mesh the importance
+    and the load are summed over the ranks' tokens first."""
+    imp = all_reduce_sum(scores_wo_noise.sum(dim=0), mesh)
     l_imp = imp.var(correction=0) / (imp.mean() ** 2 + 1e-10)
     if gate_noise > 0:
         threshold = topk_noisy_scores[:, -1:]
         prob = _normal_cdf(scores_wo_noise - threshold, gate_noise / num_experts)
-        load = prob.sum(dim=0)
+        load = all_reduce_sum(prob.sum(dim=0), mesh)
         l_load = load.var(correction=0) / (load.mean() ** 2 + 1e-10)
         return (l_imp + l_load) / 2.0
     return l_imp
@@ -108,6 +123,8 @@ class CosineTopGate(nn.Module):
 
 class MoELayer(nn.Module):
     """Top-k expert FFN layer over flat tokens [N, D] -> [N, D]."""
+
+    mesh = None  # the data mesh training routes over (parallel/mesh.py:attach_mesh)
 
     def __init__(self, num_experts: int, topk: int, model_dim: int, hidden_dim: int,
                  gate_type: str = "cosine_top", gate_noise: float = 1.0,
@@ -193,29 +210,41 @@ class MoELayer(nn.Module):
     def _forward_slots(self, x, generator, noise, aux_losses):
         N, D = x.shape
         E, K = self.num_experts, self.topk
+        mesh = self.mesh
         logits = self.gate(x)                                      # f32 [N, E]
         noisy = logits
         if self.gate_noise > 0:
             if noise is None:
-                noise = draw_gate_noise(logits, generator)
+                noise = draw_rows(mesh, lambda shape: draw_gate_noise(
+                    logits.new_empty(shape), generator), logits.shape)
             noisy = logits + self.gate_noise * noise / E
         scores = noisy.softmax(dim=1)
         topk_idx = torch.sort(noisy, dim=1, descending=True, stable=True).indices[:, :K]
         topk_scores = scores.gather(1, topk_idx)                   # [N, K]
         gates = topk_scores / (topk_scores.sum(dim=1, keepdim=True) + 1e-9)
 
-        # slot ranks in batch-prioritized order: tokens by descending top-1
-        # score, ties (padded frames give identical tokens) in token order
-        capacity = self.capacity(N)
+        # slot ranks in batch-prioritized order over the global token list:
+        # tokens by descending top-1 score, ties (padded frames give
+        # identical tokens) in token order
+        top1, route_idx, first = topk_scores[:, 0].detach(), topk_idx, 0
+        if mesh is not None:
+            # expert indices < E are exact in f32
+            packed = all_gather_rows(torch.cat([top1[:, None], topk_idx.to(top1.dtype)], 1)
+                                     .detach(), mesh)
+            top1, route_idx = packed[:, 0], packed[:, 1:].long()
+            first = mesh.rank * N
+        NG = route_idx.shape[0]
+        capacity = self.capacity(NG)
         order = None
-        idx_for_rank = topk_idx
+        idx_for_rank = route_idx
         if self.batch_prioritized:
-            order = torch.sort(-topk_scores[:, 0].detach(), stable=True).indices
-            idx_for_rank = topk_idx[order]
+            order = torch.sort(-top1, stable=True).indices
+            idx_for_rank = route_idx[order]
         pos_flat, _ = moe_positions_counts(idx_for_rank.t().reshape(-1).to(torch.int32), E)
-        positions = pos_flat.reshape(K, N).t().long()              # [N, K]
+        positions = pos_flat.reshape(K, NG).t().long()             # [NG, K]
         if order is not None:
             positions = torch.empty_like(positions).index_copy_(0, order, positions)
+        positions = positions[first:first + N]
         valid = positions < capacity
         gates = gates * valid.to(gates.dtype)
 
@@ -241,7 +270,7 @@ class MoELayer(nn.Module):
         y = torch.einsum("nk,nkd->nd", gates.to(picked.dtype), picked)
         if aux_losses is not None:
             aux_losses.append(load_importance_loss(logits.softmax(dim=1), topk_scores, E,
-                                                   self.gate_noise))
+                                                   self.gate_noise, mesh))
         return y
 
 

@@ -22,21 +22,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import LayerNorm, Linear
+from .blocks import LayerNorm, Linear, dropout
 
 
 def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
-
-
-def dropout(x, p: float, training: bool, generator=None):
-    """flax's ``nn.Dropout``: in training, each element kept with
-    probability 1 - p (a Bernoulli draw from ``generator``) and scaled by
-    1 / (1 - p), else 0; ``x`` itself otherwise."""
-    if not training or p == 0.0:
-        return x
-    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
-    return x * keep / (1.0 - p)
 
 
 class ClipAttention(nn.Module):
@@ -117,6 +107,8 @@ class ClipTextModel(nn.Module):
 class PostLNEncoderLayer(nn.Module):
     """torch nn.TransformerEncoderLayer semantics (post-LN, full attention)."""
 
+    mesh = None  # the data mesh of training (parallel/mesh.py:attach_mesh)
+
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  dropout: float = 0.0, activation: str = "gelu"):
         super().__init__()
@@ -133,10 +125,10 @@ class PostLNEncoderLayer(nn.Module):
     def forward(self, x, key_mask=None, generator=None):
         """In training, the three dropouts draw their masks from
         ``generator``."""
-        p, train, g = self.dropout, self.training, generator
-        x = self.norm1(x + dropout(self.self_attn(x, key_mask=key_mask), p, train, g))
-        h = self.linear2(dropout(self.act(self.linear1(x)), p, train, g))
-        return self.norm2(x + dropout(h, p, train, g))
+        p, train, g, mesh = self.dropout, self.training, generator, self.mesh
+        x = self.norm1(x + dropout(self.self_attn(x, key_mask=key_mask), p, train, g, mesh))
+        h = self.linear2(dropout(self.act(self.linear1(x)), p, train, g, mesh))
+        return self.norm2(x + dropout(h, p, train, g, mesh))
 
 
 class TextEncoder(nn.Module):

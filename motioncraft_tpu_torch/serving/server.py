@@ -52,7 +52,7 @@ from ..apis.factory import make_text_batch
 from ..apis.windowed import denormalize, windowed_sample, windowed_sample_batch
 from ..diffusion import RepaintConfig, generator_randn
 
-MULTI_GPU = "ROADMAP queue 1: multi-GPU, serving and the host-side tools"
+MULTI_GPU = "ROADMAP queue 1: multi-GPU: the model across cards"
 
 
 @dataclass

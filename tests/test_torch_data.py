@@ -105,5 +105,6 @@ def test_collate_and_cut_options():
                       "motion_metas": {"text": "jumps"}}])
     assert batch["motion"].shape == (2, 3, 2) and batch["motion_length"].shape == (2, 1)
     assert batch["text_ids"].shape == (2, 77) and batch["motion_length"].dtype == np.int32
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # several processes need the process group, or the replicas named
+    with pytest.raises(RuntimeError, match="needs the process group"):
         build_dataloader([], 2, dist=True)

@@ -149,12 +149,15 @@ def test_ddim_mode_bf16(workdir, monkeypatch):
                                   ["--step-cache-table", "t.json"],
                                   ["--dispatch-batches", "2"], ["--no_repaint"]])
 def test_options_not_ported_are_refused(argv):
-    """Grouped dispatch is refused; int8 and the step cache are ported now and
-    parse (tests/test_torch_quant.py runs them), and the RePaint knobs give
-    the RepaintConfig that tools/test.py builds from them."""
+    """Grouped dispatch, int8 and the step cache are ported now and parse
+    (tests/test_torch_quant.py runs int8 and the cache,
+    tests/test_torch_dist_eval.py grouped dispatch), a group below one batch
+    is refused, and the RePaint knobs give the RepaintConfig that
+    tools/test.py builds from them."""
     if argv[0] == "--dispatch-batches":
-        with pytest.raises(SystemExit, match="ROADMAP queue 1: "):
-            torch_test.parse_args([CONFIG, "out"] + argv)
+        assert torch_test.parse_args([CONFIG, "out"] + argv).dispatch_batches == 2
+        with pytest.raises(SystemExit, match="--dispatch-batches must be >= 1"):
+            torch_test.parse_args([CONFIG, "out", "--dispatch-batches", "0"])
         return
     if argv[0] == "--no_repaint":
         from motioncraft_tpu.diffusion.sampling import RepaintConfig as JaxRepaintConfig

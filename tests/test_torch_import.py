@@ -24,7 +24,8 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "tools" / "torch_make_calib_ckpt.py",
                                         ROOT / "tools" / "torch_measure_approx_drift.py",
                                         ROOT / "tools" / "torch_soak_report.py",
-                                        ROOT / "tools" / "torch_quality_run.py"]
+                                        ROOT / "tools" / "torch_quality_run.py",
+                                        ROOT / "tests" / "torch_dist_ranks.py"]
 FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|motioncraft_tpu)(\.|\s|$)",
                        re.MULTILINE)
 
@@ -80,11 +81,14 @@ spec = importlib.util.spec_from_file_location("torch_soak_report", "tools/torch_
 soak_report = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(soak_report)
 soak_report.parse_log("", 32)
+spec = importlib.util.spec_from_file_location("torch_dist_ranks", "tests/torch_dist_ranks.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for name in ("data", "data.datasets", "eval", "utils.checkpoint", "utils.torch_convert",
              "apis.eval_hook", "models.controlnet", "apis.windowed", "data.beat2",
              "data.native", "eval.gesture_metrics", "ops.fk", "ops.rotation",
              "ops.smplx_lbs", "serving", "serving.server", "diffusion.stepcache",
-             "ops.quant", "models.baselines", "models.diffusion_transformer"):
+             "ops.quant", "models.baselines", "models.diffusion_transformer",
+             "parallel.mesh", "utils.dist_utils"):
     assert "motioncraft_tpu_torch." + name in names, name
 print(len(names))
 """

@@ -62,7 +62,7 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--dispatch-batches", type=int, default=1,
-                   help="1 only: tools/torch_test.py refuses grouped dispatch")
+                   help="K loader batches a wait for the card (the same predictions)")
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--replications", type=int, default=None,
                    help="eval_cfg.replication_times (default: the config's, 20 = protocol)")
@@ -72,9 +72,8 @@ def parse_args(argv=None):
                    help="the commit measured, where the tree is no git checkout")
     p.add_argument("--note", default=None)
     args = p.parse_args(argv)
-    if args.dispatch_batches != 1:
-        raise SystemExit("--dispatch-batches > 1: grouped dispatch is not ported "
-                         "(ROADMAP queue 1: multi-GPU, serving and the host-side tools)")
+    if args.dispatch_batches < 1:
+        raise SystemExit("--dispatch-batches must be >= 1")
     return args
 
 
@@ -97,6 +96,8 @@ def test_argv(args, workdir, extra):
             "--dump-samples", os.path.join(workdir, "samples.npz")] + extra
     if args.batch_size:
         argv += ["--batch-size", str(args.batch_size)]
+    if args.dispatch_batches > 1:
+        argv += ["--dispatch-batches", str(args.dispatch_batches)]
     if args.limit:
         argv += ["--limit", str(args.limit)]
     if args.replications:

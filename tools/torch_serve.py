@@ -21,8 +21,8 @@ Usage:
   curl -s localhost:8080/generate_long -d '{"text": "a long walk", "total_frames": 400}'
   curl -s localhost:8080/stats
 
-Not ported, and refused: --data-parallel (ROADMAP queue 1: multi-GPU,
-serving and the host-side tools).
+Not ported, and refused: --data-parallel (ROADMAP queue 1: multi-GPU: the
+model across cards).
 """
 
 import argparse
@@ -71,7 +71,7 @@ def parse_args(argv=None):
     args = lowprec_from_args(p.parse_args(argv))
     if args.data_parallel:
         raise SystemExit("--data-parallel: serving over several cards is not ported "
-                         "(ROADMAP queue 1: multi-GPU, serving and the host-side tools)")
+                         "(ROADMAP queue 1: multi-GPU: the model across cards)")
     return args
 
 

@@ -31,15 +31,24 @@ model.model.text_hoist=False; this tool computes the same at the default.
 every N-th DDIM step and ``--step-cache-table PATH`` on a calibrated table
 (e.g. artifacts/step_cache_flagship.json): approximate modes, stamped into
 metrics.json.  The RePaint knobs set ``arch.repaint_cfg`` as tools/test.py
-does (a T2M sample does not outpaint, so they leave it unchanged).  Not
-ported yet, and refused rather than ignored: --dispatch-batches > 1 (it names
-its ROADMAP queue 1 item).  ReMoDiffuse (remodiffuse/remodiffuse_t2m.py)
+does (a T2M sample does not outpaint, so they leave it unchanged).
+``--dispatch-batches K`` groups K batches into one wait for the card (the
+same predictions).  ReMoDiffuse (remodiffuse/remodiffuse_t2m.py)
 samples only with a retrieval, which neither this tool nor tools/test.py
 builds: it exits saying so (GT mode runs).
 
   python tools/torch_test.py CONFIG out --checkpoint params.npz --bf16 --int8
   python tools/torch_test.py CONFIG out --step-cache-table \
       artifacts/step_cache_flagship.json
+
+Several processes (tools/test.py's multi-host evaluation): one process a
+rank, joined through torchrun's environment (``torchrun --nproc-per-node N
+tools/torch_test.py ...``) or ``--coordinator host:port --num-processes N
+--process-id R``, one card a rank over NCCL, or gloo with
+``--dist-backend gloo`` (several ranks on one card, or ``--device cpu``).
+Each rank samples its interleaved slice of the test set (rounded up, seed
++ rank), the results are gathered in dataset order, and rank 0 evaluates
+and writes metrics.json and the dump.
 """
 
 import argparse
@@ -83,8 +92,14 @@ def parse_args(argv=None):
                    help="bf16 denoiser compute (weights cast, compute_dtype bf16; the "
                         "metric math stays f32)")
     add_lowprec_args(p, table=True)
-    # tools/test.py's option that the port does not run yet
-    p.add_argument("--dispatch-batches", type=int, default=1, metavar="K")
+    p.add_argument("--dispatch-batches", type=int, default=1, metavar="K",
+                   help="copy the predictions of K batches to the host at once")
+    # several processes (else torchrun's environment)
+    p.add_argument("--coordinator", default=None, help="host:port of process 0")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="default: nccl on the card, gloo on the CPU")
     # the RePaint knobs (repaint_cfg)
     p.add_argument("--no_repaint", action="store_true")
     p.add_argument("--no_resample", action="store_true")
@@ -94,9 +109,10 @@ def parse_args(argv=None):
     p.add_argument("--jump_n_sample", type=int, default=2)
     p.add_argument("--jump_length", type=int, default=3)
     args = lowprec_from_args(p.parse_args(argv))
-    if args.dispatch_batches != 1:
-        raise SystemExit("--dispatch-batches > 1: grouped dispatch is not ported "
-                         "(ROADMAP queue 1: multi-GPU, serving and the host-side tools)")
+    if args.dispatch_batches < 1:
+        raise SystemExit("--dispatch-batches must be >= 1")
+    if args.dist_backend == "nccl" and args.device == "cpu":
+        raise SystemExit("--dist-backend nccl moves CUDA tensors: gloo on the CPU")
     return args
 
 
@@ -130,18 +146,41 @@ def run(args, logger=print) -> dict:
     with the model, the dataset, the results and the wall seconds of
     sampling and of evaluation."""
     import torch
+    import torch.distributed
 
     from motioncraft_tpu_torch.config import Config, cfg_options_from_args
-    from motioncraft_tpu_torch.data import build_dataloader
-    from motioncraft_tpu_torch.models.tokenizer import find_bpe_asset
-    from motioncraft_tpu_torch.registry import build_architecture, build_dataset
-    from motioncraft_tpu_torch.utils.checkpoint import load_eval_variables
+    from motioncraft_tpu_torch.parallel.mesh import create_mesh, init_distributed, local_device
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
     cfg = Config.fromfile(args.config)
     cfg.merge_from_dict(cfg_options_from_args(args.cfg_options))
     refuse_retrieval(cfg)
+    ours = not torch.distributed.is_initialized()  # the group this run joins, it leaves
+    rank = init_distributed(args.coordinator, args.num_processes, args.process_id,
+                            backend=args.dist_backend or ("nccl" if args.device == "cuda"
+                                                          else "gloo"))
+    joined = torch.distributed.is_initialized()
+    device = local_device(rank) if joined and args.device == "cuda" else args.device
+    mesh = create_mesh(device=device)
+    try:
+        return _run(args, cfg, device, mesh if mesh is not None and mesh.world > 1 else None,
+                    logger)
+    finally:
+        if joined and ours:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, cfg, device, mesh, logger) -> dict:
+    import torch
+
+    from motioncraft_tpu_torch.config import Config
+    from motioncraft_tpu_torch.data import build_dataloader
+    from motioncraft_tpu_torch.models.tokenizer import find_bpe_asset
+    from motioncraft_tpu_torch.registry import build_architecture, build_dataset
+    from motioncraft_tpu_torch.utils.checkpoint import load_eval_variables
+
+    dist = mesh is not None
     os.makedirs(args.work_dir, exist_ok=True)
     # the protocol's replication shuffles, each sample's caption and crop,
     # and the Diversity evaluator draw from the global numpy generator, as in
@@ -149,16 +188,18 @@ def run(args, logger=print) -> dict:
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
-    arch = build_architecture(cfg.model, device=args.device)
+    arch = build_architecture(cfg.model, device=device)
     arch.repaint_cfg = repaint_cfg(args)
     test_cfg = Config.fromdict(cfg.data["test"])
     ev_cfg = test_cfg.get("eval_cfg", {}).get("evaluator_model")
     if isinstance(ev_cfg, dict):
-        ev_cfg["device"] = args.device
+        ev_cfg["device"] = device
     dataset = build_dataset(test_cfg)
     bs = args.batch_size or cfg.data["samples_per_gpu"]
-    loader = build_dataloader(dataset, samples_per_gpu=bs, shuffle=False, round_up=False,
-                              workers_per_gpu=cfg.data.get("workers_per_gpu", 0))
+    # several processes: each its interleaved slice, rounded up so that the
+    # ranks sample as many batches; merged back in dataset order below
+    loader = build_dataloader(dataset, samples_per_gpu=bs, shuffle=False, round_up=dist,
+                              dist=dist, workers_per_gpu=cfg.data.get("workers_per_gpu", 0))
     loader.drop_last = False
     if arch.inference_type != "gt":
         # tools/test.py reads one batch to initialise its model; reading it
@@ -169,13 +210,20 @@ def run(args, logger=print) -> dict:
     compute_dtype = apply_lowprec_(arch, args, logger)
     step_cache = step_cache_from_args(args, logger)
 
-    from motioncraft_tpu_torch.apis.test import single_device_test
+    from motioncraft_tpu_torch.apis.test import multi_host_test, single_device_test
     t0 = time.perf_counter()
-    results = single_device_test(arch, loader, seed=args.seed, limit=args.limit,
-                                 device=args.device, logger=lambda m: logger("  " + m),
-                                 compute_dtype=compute_dtype, step_cache=step_cache)
+    kw = dict(seed=args.seed, limit=args.limit, device=device,
+              logger=lambda m: logger("  " + m), compute_dtype=compute_dtype,
+              step_cache=step_cache, dispatch_batches=args.dispatch_batches)
+    if dist:
+        results = multi_host_test(arch, loader, mesh=mesh, **kw)
+    else:
+        results = single_device_test(arch, loader, **kw)
     sample_s = time.perf_counter() - t0
     logger(f"sampled {len(results)} results in {sample_s:.1f}s")
+    if dist and mesh.rank != 0:
+        return {"out": None, "arch": arch, "dataset": dataset, "results": results,
+                "sample_s": sample_s, "eval_s": 0.0}
     if args.dump_samples:
         n = min(len(results), args.dump_samples_limit)
         os.makedirs(os.path.dirname(os.path.abspath(args.dump_samples)), exist_ok=True)

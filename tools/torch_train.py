@@ -46,10 +46,28 @@ compute dtype bfloat16) trains in bf16 against the f32 master parameters,
 each also through ``--cfg-options`` (``fp16.loss_scale=8.0
 model.model.remat=True optimizer.type=Adafactor``), as tools/train.py
 passes them.
-Refused rather than ignored: several devices, tensor and pipeline
-parallelism and several hosts (ROADMAP queue 1), fp16 in float16 (an f16
-K6, queued there); ReMoDiffuse and MoMatMoGen, which the JAX package's
-loss cannot train (it passes them no retrieval; ROADMAP queue 3).
+Data parallelism, as tools/train.py's options mean it: ``--devices N``
+trains on N cards of this host, one process a rank (spawned here, NCCL;
+``--device cpu`` runs N gloo processes on the CPU), the config's
+``samples_per_gpu`` the global batch, each rank reading its rows of the
+one-process loader's batches; ``--multihost`` makes this process one rank
+of ``--num-processes`` (``--coordinator host:port``, ``--process-id``, or
+torchrun's environment), one card each, loading its interleaved slice at
+``samples_per_gpu``.  Either way each step computes what one process
+computes on the global batch (apis/train.py), rank 0 writes train.log,
+the checkpoints and params.npz while the others wait, and ``--resume``
+loads the same checkpoint on every rank.
+
+  python tools/torch_train.py configs/stmogen/t2m_motionx_0_125b.py --devices 8
+  python tools/torch_train.py CONFIG --multihost --coordinator host0:29500 \
+      --num-processes 16 --process-id $RANK
+  python tools/torch_train.py configs/tests/tiny_t2m.py --device cpu --devices 2
+
+Refused rather than ignored: tensor and pipeline parallelism (ROADMAP
+queue 1: multi-GPU: the model across cards), fp16 in float16 (an f16 K6,
+ROADMAP queue 1: the rest of training); ReMoDiffuse and MoMatMoGen, which
+the JAX package's loss cannot train (it passes them no retrieval; ROADMAP
+queue 3).
 """
 
 import argparse
@@ -59,7 +77,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-MULTI = "ROADMAP queue 1: multi-GPU, serving and the host-side tools"
+MODEL_ACROSS_CARDS = "ROADMAP queue 1: multi-GPU: the model across cards"
 CONTROLNETS = ("ControlT2MHalf", "ControlT2MHalfMCM")
 RETRIEVAL_MODELS = ("ReMoDiffuseTransformer", "MoMatMoGenTransformer")
 
@@ -81,17 +99,28 @@ def parse_args(argv=None):
     p.add_argument("--cfg-options", nargs="*", default=None)
     p.add_argument("--base-checkpoint", default=None,
                    help="pretrained base params (.npz) for ControlNet training")
+    p.add_argument("--devices", type=int, default=None,
+                   help="data-parallel ranks on this host, one card each; the config's "
+                        "samples_per_gpu is the global batch")
+    p.add_argument("--multihost", action="store_true",
+                   help="this process is one rank of --num-processes (one card each), "
+                        "its loader the interleaved slice at samples_per_gpu")
+    p.add_argument("--coordinator", default=None, help="host:port of process 0")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="default: nccl on the card, gloo on the CPU")
     # tools/train.py's options that the port does not run yet
-    p.add_argument("--devices", type=int, default=None)
     p.add_argument("--tensor-parallel", type=int, default=1)
     p.add_argument("--pipeline-parallel", type=int, default=1)
-    p.add_argument("--multihost", action="store_true")
-    p.add_argument("--coordinator", default=None)
     args = p.parse_args(argv)
-    if ((args.devices or 1) > 1 or args.tensor_parallel > 1 or args.pipeline_parallel > 1
-            or args.multihost or args.coordinator):
-        raise SystemExit("--devices > 1, --tensor-parallel, --pipeline-parallel, "
-                         f"--multihost and --coordinator: one card only ({MULTI})")
+    if args.tensor_parallel > 1 or args.pipeline_parallel > 1:
+        raise SystemExit(f"--tensor-parallel and --pipeline-parallel: {MODEL_ACROSS_CARDS}")
+    if args.multihost and (args.devices or 1) > 1:
+        raise SystemExit("--multihost runs one rank a process, one card each: start one "
+                         "process a card (--devices counts this host's ranks without it)")
+    if args.dist_backend == "nccl" and args.device == "cpu":
+        raise SystemExit("--dist-backend nccl moves CUDA tensors: gloo on the CPU")
     return args
 
 
@@ -164,40 +193,103 @@ def file_logger(path: str) -> logging.Logger:
     return logger
 
 
+def silent_logger(rank: int) -> logging.Logger:
+    """The logger of a rank other than 0: rank 0 writes train.log."""
+    logger = logging.getLogger(f"motioncraft_torch.train.rank{rank}")
+    logger.propagate = False
+    return logger
+
+
 def close_logger(logger: logging.Logger) -> None:
     for handler in list(logger.handlers):
         handler.close()
         logger.removeHandler(handler)
 
 
-def run(args):
-    """Train as ``args`` say; returns the final ``TrainState``."""
-    import torch
+def backend(args) -> str:
+    return args.dist_backend or ("nccl" if args.device == "cuda" else "gloo")
 
-    from motioncraft_tpu_torch.apis import train_model
+
+def load_config(args):
+    """The config file with ``--cfg-options`` merged in, checked."""
     from motioncraft_tpu_torch.config import Config, cfg_options_from_args
-    from motioncraft_tpu_torch.data import build_dataloader
-    from motioncraft_tpu_torch.registry import build_architecture, build_dataset
-    from motioncraft_tpu_torch.utils.checkpoint import save_checkpoint, save_params
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
     cfg = Config.fromfile(args.config)
     cfg.merge_from_dict(cfg_options_from_args(args.cfg_options))
     check_config(cfg)
+    return cfg
+
+
+def run(args):
+    """Train as ``args`` say; returns the final ``TrainState`` (with
+    ``--devices N`` > 1, rank 0's update count: the ranks ran in their own
+    processes)."""
+    import torch
+
+    from motioncraft_tpu_torch.parallel.mesh import (create_mesh, init_distributed, launch,
+                                                     local_device)
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
+    load_config(args)  # refused before any rank starts
+    if args.multihost:
+        rank = init_distributed(args.coordinator, args.num_processes, args.process_id,
+                                backend=backend(args))
+        device = local_device(rank) if args.device == "cuda" else "cpu"
+        return train(args, create_mesh(device=device))
+    n = args.devices or 1
+    if n == 1:
+        return train(args, None)
+    if args.device == "cuda" and n > torch.cuda.device_count():
+        raise SystemExit(f"--devices {n}: this host has {torch.cuda.device_count()} "
+                         "CUDA device(s), one a rank")
+    return launch(_rank, n, args=(args,), backend=backend(args))[0]
+
+
+def _rank(rank: int, args) -> int:
+    """One rank of ``--devices N``: its card (or the CPU), the mesh of the
+    N spawned ranks, the training; returns the update count."""
+    from motioncraft_tpu_torch.parallel.mesh import create_mesh, local_device
+
+    device = local_device(rank) if args.device == "cuda" else "cpu"
+    return int(train(args, create_mesh(args.devices, device=device)).step)
+
+
+def train(args, mesh):
+    """Train as ``args`` say on this process: one process, or one rank of
+    ``mesh``."""
+    import torch
+
+    from motioncraft_tpu_torch.apis import train_model
+    from motioncraft_tpu_torch.config import Config
+    from motioncraft_tpu_torch.data import RankRows, build_dataloader
+    from motioncraft_tpu_torch.registry import build_architecture, build_dataset
+    from motioncraft_tpu_torch.utils.checkpoint import save_checkpoint, save_params
+
+    cfg = load_config(args)
     work_dir = args.work_dir or os.path.join(
         "outputs", os.path.splitext(os.path.basename(args.config))[0])
-    os.makedirs(work_dir, exist_ok=True)
-    logger = file_logger(os.path.join(work_dir, "train.log"))
+    lead = mesh is None or mesh.rank == 0
+    if lead:
+        os.makedirs(work_dir, exist_ok=True)
+    logger = (file_logger(os.path.join(work_dir, "train.log")) if lead
+              else silent_logger(mesh.rank))
+    device = args.device if mesh is None else mesh.device
+    optimizer_config = cfg.get("optimizer_config", {}) or {}
+    grad_accum = args.grad_accum or optimizer_config.get("cumulative_iters", 1)
     try:
         logger.info(f"config: {args.config}\nwork_dir: {work_dir}")
         torch.manual_seed(args.seed)  # the model's initial weights
-        arch = build_architecture(cfg.model, device=args.device)
+        arch = build_architecture(cfg.model, device=device)
         dataset = build_dataset(cfg.data["train"])  # a mixed set too
         loader = build_dataloader(dataset, samples_per_gpu=cfg.data["samples_per_gpu"],
                                   shuffle=True, seed=args.seed,
+                                  dist=args.multihost and mesh is not None,
                                   workers_per_gpu=cfg.data.get("workers_per_gpu", 2))
-        logger.info(f"device: {args.device}; dataset: {len(dataset)} samples, "
+        if mesh is not None and not args.multihost:
+            loader = RankRows(loader, mesh, grad_accum)
+        ranks = "" if mesh is None else f"; mesh: {mesh.shape} over {mesh.backend}"
+        logger.info(f"device: {args.device}{ranks}; dataset: {len(dataset)} samples, "
                     f"{len(loader)} steps/epoch")
 
         ckpt_dir = os.path.join(work_dir, "ckpt")
@@ -205,6 +297,17 @@ def run(args):
         interval = ckpt_cfg.get("interval", 1)
         max_keep = ckpt_cfg.get("max_keep_ckpts")
 
+        def on_lead(fn):
+            """``fn`` on rank 0 alone (the ranks' states are equal); the
+            others wait for it."""
+            def wrapped(state, epoch):
+                if lead:
+                    fn(state, epoch)
+                if mesh is not None:
+                    mesh.barrier()
+            return wrapped
+
+        @on_lead
         def checkpoint_fn(state, epoch):
             if (epoch + 1) % interval:
                 return
@@ -219,19 +322,18 @@ def run(args):
             test_cfg = Config.fromdict(cfg.data["test"])
             ev_cfg = test_cfg.get("eval_cfg", {}).get("evaluator_model")
             if isinstance(ev_cfg, dict):
-                ev_cfg["device"] = args.device
+                ev_cfg["device"] = device
             ev = dict(cfg["evaluation"])
-            eval_fn = EvalHook(build_dataset(test_cfg), arch,
-                               batch_size=ev.get("batch_size", 32),
-                               interval=ev.get("interval", 1), limit=ev.get("limit"),
-                               save_best=ev.get("save_best"), work_dir=work_dir,
-                               logger=logger.info)
+            eval_fn = on_lead(EvalHook(build_dataset(test_cfg), arch,
+                                       batch_size=ev.get("batch_size", 32),
+                                       interval=ev.get("interval", 1), limit=ev.get("limit"),
+                                       save_best=ev.get("save_best"), work_dir=work_dir,
+                                       logger=logger.info))
 
         transform = None
         if args.base_checkpoint:
             transform = base_graft(args.base_checkpoint,
                                    cfg.model["model"].get("copy_blocks_num", 2), logger.info)
-        optimizer_config = cfg.get("optimizer_config", {}) or {}
         state = train_model(
             arch, loader,
             optimizer_cfg=dict(cfg.get("optimizer", {"type": "Adam", "lr": 2e-4})),
@@ -243,12 +345,11 @@ def run(args):
             logger=logger.info, checkpoint_fn=checkpoint_fn, eval_fn=eval_fn,
             frozen_prefixes=frozen_prefixes(cfg.model["model"]),
             resume_dir=ckpt_dir if args.resume else None, model_transform=transform,
-            fp16=cfg.get("fp16"),
-            grad_accum=args.grad_accum or optimizer_config.get("cumulative_iters", 1))
+            fp16=cfg.get("fp16"), grad_accum=grad_accum, mesh=mesh)
         logger.info(f"training done at step {int(state.step)}")
         if args.device == "cuda":
             logger.info(f"max memory allocated "
-                        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+                        f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB")
         return state
     finally:
         close_logger(logger)
