@@ -2,9 +2,10 @@
 """Drive the PyTorch port's flagship text-to-motion sampling, training and
 evaluation, its music-to-dance and speech-to-gesture long-form
 evaluations, its baselines, ControlNet training, baseline training,
-bf16 / remat / optax-default-optimizer training and data-parallel training
-and evaluation (2 processes) on one NVIDIA GPU, and hold each of its CUDA
-kernels against its plain PyTorch version.
+bf16 / remat / optax-default-optimizer training, data-parallel training
+and evaluation (2 processes), and the model across ranks (the expert- and
+tensor-parallel flagship, mesh serving; 2 processes) on one NVIDIA GPU,
+and hold each of its CUDA kernels against its plain PyTorch version.
 
 Run from the root of the repository, on a machine with one card and the CUDA
 toolkit:
@@ -60,7 +61,12 @@ Phases; any failure exits non-zero:
      ranks (K5 over a rank's 64 rows of the flagship, whose K4 positions
      and K6 slots are those of the global 128; the S2G ControlNet's base at
      2 x 8 windows of 64 frames: K4's positions over the 16, K5 over a
-     rank's 8, K6 on the slots of the 16): max abs error against its
+     rank's 8, K6 on the slots of the 16), and phase 22's (K6 on the local
+     experts [8, C, D] and on hidden slices at F / 2 in training at 32; in
+     sampling K6 on the local experts at the eval capacity of a dispatch
+     of 2 requests, K1 at F / 2 and K2 at f / 2 [4 x 196, 1536] x [12,
+     128, 256], b2 zeros; K4's route over a 2-rank serving dispatch of 4),
+     each with the launches of its phase-22 run: max abs error against its
      tolerance (1e-2 x max |plain| for bf16; K4 exact in its
      integers, its route's gates within 1e-6; on every path a route case
      leaning to one expert must drop choices); the kernel's device time from
@@ -95,7 +101,7 @@ Phases; any failure exits non-zero:
      against the CPU, B = 2, gate noise 0, the CPU's gate logits pinned to
      the card's as in phase 6
   9. the T2M protocol evaluation through tools/torch_test.py on the same
-     flagship config: a synthetic Motion-X tree of 160 clips (196 x 322,
+     flagship config: a synthetic Motion-X tree of 96 clips (196 x 322,
      written here in tools/make_tiny_data.py's layout), phase 3's weights
      saved with save_params and loaded back by --checkpoint, a full-width
      SMPL-X evaluator (DistilBERT 6 x 768, ActorAgnostic 4 x 256) saved as
@@ -122,13 +128,14 @@ Phases; any failure exits non-zero:
      (c on, 2 x 120) and one whole outpainted window at R = 2 (two
      recordings in lockstep, the condition encoded once for the batch, as
      windowed_sample_batch encodes a chunk's), card against CPU with the
-     gate logits pinned as in phase 6 and the same draws
+     gate logits pinned as in phase 6 and the same draws, the window on
+     PARITY_RESPACE's DDIM-10 schedule
  11. the S2G long-form evaluation through tools/torch_s2g_test.py on
      configs/stmogen/s2g_beats2_0125b.py (the same ControlNet over the
      flagship base, its condition raw onset + amplitude at 16 kHz through
      the WavEncoder, out_dim 1536): seeded fabricated weights with sane
      BatchNorm statistics saved and loaded back by --checkpoint, a
-     synthetic BEAT2 tree of 4 test recordings of 244 frames (4 windows of
+     synthetic BEAT2 tree of 4 test recordings of 184 frames (3 windows of
      64 overlapping by 4) with onsets that fire, TextGrid words and a
      mean-velocity file, and an SMPL-X npz at the real sizes written here;
      sampled at R = 1 and at --recording-batch 4: per-window wall ms,
@@ -139,8 +146,8 @@ Phases; any failure exits non-zero:
      encoder's device time on one window against its f32 bound; the
      samplers at R = 1 agree and wait for the device only for their result
      (CUDA sync debug mode); the WavEncoder, one ControlNet CFG forward and
-     one whole outpainted window card against CPU with the gate logits
-     pinned
+     one whole outpainted window (PARITY_RESPACE's schedule) card against
+     CPU with the gate logits pinned
  12. serving through MotionGenServer on the same flagship with phase 3's
      weights: one server in f32 and one in bf16 (the weights cast, the
      denoiser in bf16 through K1-K3's bf16 instantiations), each with batch
@@ -176,7 +183,7 @@ Phases; any failure exits non-zero:
  14. the trained-weights quality harness over a learnable tree of 256
      clips (tools/make_tiny_data.py --protocol-learnable, written here) with
      configs/tests/protocol_learn.py's flagship: the evaluator trainer
-     (tools/torch_train_protocol_evaluator.py, 1500 steps, held-out top-1
+     (tools/torch_train_protocol_evaluator.py, 1000 steps, held-out top-1
      >= 0.5); tools/torch_train.py at --grad-accum 2 for 2 epochs, then
      --resume for a third (the resume line, finite losses, params.npz
      loading strictly and equal to the trained weights, K4's positions, K5
@@ -233,11 +240,11 @@ Phases; any failure exits non-zero:
      finite predictions and metrics, K5 20 a denoiser call and nothing
      else; one denoiser call profiled (device kernels, device ms, idle
      share); card vs CPU on one denoiser call, one outpainted window on the
-     same draws and (S2G) the WavEncoder on one window; R = 2 against
+     same draws (PARITY_RESPACE's schedule) and (S2G) the WavEncoder on one window; R = 2 against
      R = 1 on the same draws (each recording's rows of the lockstep draws).
      Then configs/remodiffuse/remodiffuse_t2m.py: a fabricated retrieval
-     bank of 23,384 entries (the size of HumanML3D's train split, which
-     the config's t2m_text_train.npz indexes), the picks of 16 requests
+     bank of 4,096 entries (HumanML3D's train split, which the config's
+     t2m_text_train.npz indexes, holds 23,384), the picks of 16 requests
      (RetrievalDatabase) timed on the host,
      encode_retrieval once, one DDIM-50 four-way CFG batch of 16 through
      MotionDiffusion.sample(extra_model_kwargs={"re_dict": ...}): finite
@@ -281,7 +288,7 @@ Phases; any failure exits non-zero:
      the base checkpoint's) bit for bit where they started; one training
      step of each card vs CPU at B = 2 of its train set (MDM at dropout 0,
      gate logits pinned as in phase 8).  Per run: the median step ms of
-     steps 2-4, samples/s, max memory, launches a step and one more step's
+     steps 2-3, samples/s, max memory, launches a step and one more step's
      idle share from torch.profiler
  20. the rest of training on the flagship with phase 3's weights: 4
      train_model steps of B = 32 in bf16 (the config's fp16 option: bf16
@@ -318,7 +325,24 @@ Phases; any failure exits non-zero:
      dataset order, on both ranks, metrics on rank 0 alone, K1-K4 launched
      as each rank's batches imply, each rank's predictions bit for bit those
      of one process over its slice (seed + rank) at --dispatch-batches 2
- 22. one JSON line of the kernels' numbers, and last the device line
+ 22. the model across ranks (phase 3's weights), 2 gloo ranks on the one
+     card: the flagship with its experts over an ``expert`` mesh of 2 and
+     then with its FFNs' hidden dims over a ``tensor`` mesh of 2 (the
+     expert leaves at E / 2, the hidden leaves at F / 2 on each rank,
+     checked), MP_STEPS Adam steps at a global batch of MP_BATCH through
+     train_model, each gate's logits pinned to the one-process run's rows:
+     the losses and the gathered whole parameters against one process
+     (DP_PARAM_TOL), K4's positions, K5 and K6 launched as the steps imply,
+     each rank's parameter and optimizer bytes, step ms, and the
+     collectives' calls, bytes and ms (all-to-all, all-reduce,
+     all-gather); each mesh's DDIM-50 batch of MP_SAMPLE_REQUESTS requests
+     through apis/test.py:mesh_sample (expert: K4's route over the
+     gathered logits and K6 on the local experts; tensor: K1 and K2 on
+     hidden slices) against one process's (MODEL_REL_TOL); then a 2-rank
+     data-mesh MotionGenServer answering MP_SERVE_REQUESTS requests in
+     dispatches of 4 against the one-card server on the same dispatches
+     (MODEL_REL_TOL), requests/s of both
+ 23. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -362,31 +386,39 @@ GRAD_REL_TOL = 1e-3
 BATCH, BATCHES, SEED = 16, 2, 0
 TRAIN_BATCH, TRAIN_STEPS = 32, 4  # 1 warm-up + 3 timed
 # one replication (320 before phase 21 came, which put the script over 1000 s
-# on one host); the Diversity metric draws half of them (300 of 320 before)
-EVAL_CLIPS = 160
+# on one host; 160 before phase 22 came); the Diversity metric draws half of
+# them (300 of 320 before)
+EVAL_CLIPS = 96
 GT_FID_TOL = 1e-3
 # phase 10: 4 FineDance test tracks of the cross-genre split, 360 frames
 # trimmed + 300 kept: 3 windows of 120 overlapping by 30 (a window costs
-# the same at any track length; 1290 frames, 14 windows, keep phase 10
-# over two minutes)
+# the same at any track length; 1290 frames, 14 windows, kept phase 10
+# over two minutes; phase 13's one cached track at 2 windows has too few
+# frames for its FID statistics)
 M2D_TRACKS, M2D_FRAMES, M2D_REC_BATCH = ["063", "132", "143", "036"], 300, 4
-# the lockstep window held against the CPU: 2 recordings (its 84 RePaint
+# the lockstep window held against the CPU: 2 recordings (its RePaint
 # steps run at full width on the host's CPU; R = 4 left the script near its
 # 1200 s limit on a slow host, and R = 1's window beside it, which R = 2's
 # path covers, went with phase 18)
 M2D_PARITY_R = 2
-# phase 11: 4 BEAT2 test recordings of 244 frames: 4 windows of 64
-# overlapping by 4 (a window costs the same at any recording length)
-S2G_RECORDINGS, S2G_FRAMES, S2G_REC_BATCH = 4, 244, 4
+# the card-vs-CPU outpainted windows of phases 10, 11 and 17 sample on this
+# respacing, DDIM-10 (12 RePaint steps), in place of their configs' DDIM-50
+# (84): a cut in depth for phase 22's time, since the CPU runs its side of
+# each window at full width, step by step
+PARITY_RESPACE = "2,2,2,2,2"
+# phase 11: 4 BEAT2 test recordings of 184 frames: 3 windows of 64
+# overlapping by 4 (a window costs the same at any recording length; 244
+# frames, 4 windows, before phase 22 came)
+S2G_RECORDINGS, S2G_FRAMES, S2G_REC_BATCH = 4, 184, 4
 # the SMPL-X neutral body model's sizes: vertices, faces, shape and
 # expression directions, pose-corrective directions
 SMPLX_SIZES = dict(vertices=10475, faces=20908, shapedirs=400, posedirs=486)
 # phase 12: one server a dtype over the flagship, its buckets, 4 client
-# threads of 2 requests each (one at a time; 8 before phase 18 came, which
-# put the script over 900 s, 4 before phase 20 came, 3 before phase 21
-# came), 2 long-form requests
+# threads of 1 request each (8 before phase 18 came, which put the script
+# over 900 s, 4 before phase 20 came, 3 before phase 21 came, 2 before phase
+# 22 came), 2 long-form requests
 SERVE_BUCKETS, SERVE_SEQ_BUCKETS = (1, 2, 4, 8), (64, 128, 196)
-SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_LONG, SERVE_LONG_FRAMES = 4, 2, 2, 400
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_LONG, SERVE_LONG_FRAMES = 4, 1, 2, 400
 # the bucket pairs (batch, frames) whose kernel shapes phase 2 checks: the
 # smallest and the largest
 SERVE_CHECKED = ((1, 64), (8, 196))
@@ -416,11 +448,12 @@ W8A8_FIRST_SHARE = 1e-3
 W8A8_DRAW2 = 1000  # the second W8A8 input draw's seed offset
 # phase 14: the quality harness over a learnable tree (tools/make_tiny_data.py
 # --protocol-learnable) of 256 clips, its first 64 the test set; the
-# evaluator's training steps and its held-out top-1 floor (chance 1/32; the
-# test batch's 32 clips hold 20 classes, so 0.625 at most)
+# evaluator's training steps (1500 before phase 22 came) and its held-out
+# top-1 floor (chance 1/32; the test batch's 32 clips hold 20 classes, so
+# 0.625 at most)
 HARNESS_CONFIG = os.path.join(ROOT, "configs", "tests", "protocol_learn.py")
 HARNESS_CLIPS, HARNESS_TEST_CLIPS = 256, 64
-HARNESS_EVAL_STEPS, HARNESS_TOP1 = 1500, 0.5
+HARNESS_EVAL_STEPS, HARNESS_TOP1 = 1000, 0.5
 # the harness config's batch (the drift's requests a batch, the loader's
 # batch in training), the training CLI's --grad-accum and the calibration
 # checkpoint's batch: the shapes whose kernels phase 2 checks for phase 14
@@ -441,7 +474,8 @@ OPT_REL_TOL = 1e-4
 # DP_S2G_BATCH windows of DP_S2G_FRAMES (a cut in depth: phase 18 trains
 # it at 96, beside which the card would not hold the ranks); then
 # tools/torch_test.py over DP_WORLD processes on DP_EVAL_CLIPS synthetic
-# clips (phase 9's kind; a cut from its 160).  The flagship's parameters on
+# clips (phase 9's kind; a cut from its 160; DP_STEPS 4 and 64 clips before
+# phase 22 came).  The flagship's parameters on
 # 2 ranks after its Adam steps against one process's on the same card: each
 # element within DP_PARAM_TOL x lr but for DP_PARAM_FRAC of a tensor (those
 # within two lr a step): the ranks' gradient sums run in another order and
@@ -450,9 +484,22 @@ OPT_REL_TOL = 1e-4
 # tests/test_torch_train.py holds two Adam steps against JAX).  The S2G step
 # takes SGD at the config's lr, so its update is the gradient, held as
 # phase 8 holds one (GRAD_REL_TOL)
-DP_WORLD, DP_STEPS, DP_S2G_BATCH, DP_S2G_FRAMES, DP_EVAL_CLIPS = 2, 4, 16, 64, 64
+DP_WORLD, DP_STEPS, DP_S2G_BATCH, DP_S2G_FRAMES, DP_EVAL_CLIPS = 2, 3, 16, 64, 32
 DP_PARAM_TOL, DP_PARAM_FRAC = 2e-2, 1e-3
 DP_TIMEOUT_S = 600
+# phase 22: the model across ranks, MP_WORLD gloo ranks on the one card: the
+# flagship at a global batch of MP_BATCH, MP_STEPS Adam steps (the first a
+# warm-up) on each mesh of MP_MESHES (the experts over 2 ranks; the FFNs'
+# hidden dims over 2), held against one process with the gate logits
+# pinned as phase 21 pins them (DP_PARAM_TOL); each mesh's DDIM-50 batch of
+# MP_SAMPLE_REQUESTS requests (mesh_sample: K4 and K6 on the local experts;
+# K1 and K2 on hidden slices) against one process's; a 2-rank data-mesh
+# server over the flagship answering MP_SERVE_REQUESTS requests in
+# dispatches of the largest of MP_SERVE_BUCKETS against the one-card
+# server on the same dispatches (MODEL_REL_TOL)
+MP_WORLD, MP_BATCH, MP_STEPS, MP_SAMPLE_REQUESTS = 2, 32, 2, 2
+MP_MESHES = (("ep", ("data", "expert"), (1, 2)), ("tp", ("data", "expert", "tensor"), (1, 1, 2)))
+MP_SERVE_BUCKETS, MP_SERVE_REQUESTS, MP_TIMEOUT_S = (2, 4), 4, 900
 # the bf16 instantiations of K1-K3 (bf16 inference)
 BF16_KERNELS = ("grouped_ffn", "head_ffn", "stma_linear_attention")
 # training's kernels: K4's positions, K5, K6
@@ -478,13 +525,13 @@ FMG_CLIPS, FMG_MM_SAMPLES, FMG_MM_REPEATS = 64, 8, 2
 # phase 17: the MCM ControlNet's M2D and S2G configs through the long-form
 # CLIs (2 recordings of two 196-frame windows each, at R = 1 and R = 2 in
 # lockstep), ReMoDiffuse's DDIM-50 batch of BATCH over a fabricated
-# retrieval bank of REMO_BANK entries (HumanML3D's train split: 23,384
-# motions, each [196, 263] f32, 77 CLIP tokens of 512), and one MoMatMoGen
-# forward
+# retrieval bank of REMO_BANK entries (each motion [196, 263] f32, 77 CLIP
+# tokens of 512; HumanML3D's train split, 23,384, before phase 22 came: its
+# 8.5 GB took 23-27 s to make), and one MoMatMoGen forward
 MCM_M2D_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_m2d_finedance.py")
 MCM_S2G_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_s2g_beats2.py")
 REMO_CONFIG = os.path.join(ROOT, "configs", "remodiffuse", "remodiffuse_t2m.py")
-MCM_RECORDINGS, MCM_REC_BATCH, REMO_BANK = 2, 2, 23384
+MCM_RECORDINGS, MCM_REC_BATCH, REMO_BANK = 2, 2, 4096
 # phase 18: ControlNet training from a T2M base, CN_STEPS optimizer steps a
 # stage.  Stage 1's mixed set (the flagship's shipped train set, its
 # RepeatDataset times cut to 1): MIX_CLIPS Motion-X clips of MIX_CLIP_FRAMES,
@@ -494,18 +541,20 @@ MCM_RECORDINGS, MCM_REC_BATCH, REMO_BANK = 2, 2, 23384
 # recordings of CN_S2G_FRAMES (27 windows each, 324: 3 steps of 96) and
 # CN_M2D_TRACKS FineDance train tracks (one crop a track: one step of 84 an
 # epoch, CN_M2D_EPOCHS epochs); FineDance tracks are 360 + CN_FRAMES
-# frames.  Stage 3: one BEAT2 test recording of CN_TEST_FRAMES (2 windows)
+# frames.  Stage 3: one BEAT2 test recording of CN_TEST_FRAMES (2 windows).
+# Fewer than 3 steps leave the S2G condition encoder unmoved (its output
+# meets zero-initialized layers), which the stage checks
 CN_S2G_CONFIG = os.path.join(ROOT, "configs", "stmogen", "s2g_beats2_0125b_local_unfreeze.py")
 CN_STEPS, CN_FRAMES, CN_TEST_FRAMES = 3, 256, 124
 MIX_CLIPS, MIX_CLIP_FRAMES, MIX_TRACKS, MIX_RECORDINGS, MIX_REC_FRAMES = 360, 196, 8, 2, 244
 CN_S2G_RECORDINGS, CN_S2G_FRAMES, CN_M2D_TRACKS, CN_M2D_EPOCHS = 12, 600, 100, 3
 # phase 19: baseline training through tools/torch_train.py, BL_STEPS
 # optimizer steps a run (one an epoch over a set of one batch, the first a
-# warm-up): the four Motion-X configs on one tree of clips of BL_FRAMES
+# warm-up; 4 before phase 22 came): the four Motion-X configs on one tree of clips of BL_FRAMES
 # frames (as many as the largest batch, MDM's 768), then the MCM ControlNet
 # from stage 1's MCM on its batch of FineDance train tracks
 BL_CONFIGS = (MD_CONFIG, MCM_CONFIG, MDM_CONFIG, FMG_CONFIG)
-BL_STEPS, BL_FRAMES = 4, 196
+BL_STEPS, BL_FRAMES = 3, 196
 # the shipped configs' data paths under <dir>/data
 MIX_MOTIONX = dict(motions="motion_data/smplx_322", texts="texts/semantic_labels",
                    ann="humanml3d_align_train_val.txt", mean="humanml3d_align_mean.npy",
@@ -781,7 +830,7 @@ def retrieval_attention_inputs(torch, model_cfg, dev, B=BATCH):
 
 def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finemogen_cfgs=None,
                  mcm_cfgs=None, retrieval_cfgs=(), train_cfgs=(), baseline_train_cfgs=(),
-                 dp_cfgs=()):
+                 dp_cfgs=(), mp_cfg=None):
     """(path, inputs) for phase 2: the T2M shapes (with training's), those
     of phase 12's buckets and of phase 14's drift and training, the M2D ones
     and the S2G ones; R recordings in lockstep are a CFG-doubled
@@ -806,7 +855,8 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
     (``dp_cfgs``: (tag, model config, global batch, frames, kernels): each
     rank's K5 over its rows, K4's positions over the global token list and
     K6 on a slot buffer of the global capacity; ``kernels`` those not
-    already checked at the same shapes)."""
+    already checked at the same shapes); then phase 22's (``mp_cfg``: the
+    flagship's model config; ``mp_paths``)."""
     t2m = flagship_inputs(torch, cfg, dev)
     layer0 = flagship_inputs(torch, cfg, dev, training=False, layer0=True)
     paths = [("t2m", t2m), ("t2m layer 0", layer0),
@@ -887,7 +937,79 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
             cases |= {k: whole[k] for k in ("moe_positions", "fused_expert_ffn")}
         paths.append((f"{tag} {DP_WORLD} ranks x {Bg // DP_WORLD}",
                       {k: cases[k] for k in kernels}))
+    if mp_cfg is not None:
+        paths += mp_paths(torch, mp_cfg, dev)
     return paths
+
+
+def mp_slice(torch, name, args, experts=1, hidden=1):
+    """A case of K1 / K2 / K6 as a rank of phase 22 runs it: the first
+    1 / ``experts`` of the experts (K6 on this rank's slot buffers: the
+    local experts hold the group's tokens at the global capacity), the
+    first 1 / ``hidden`` of the hidden dim (b2 zeros: it adds after the
+    ranks' partial outputs are summed)."""
+    if name == "grouped_ffn":
+        be, xs, w1, b1, w2 = args
+        f = w1.shape[2] // hidden
+        return FfnArgs((be, xs, w1[..., :f].contiguous(), b1[:, :f].contiguous(),
+                        w2[:, :f].contiguous()), args.kept)
+    first, w1, b1, w2, b2 = args
+    n = w1.shape[0] // experts if name == "fused_expert_ffn" else w1.shape[0]
+    f = w1.shape[2] // hidden
+    if name == "fused_expert_ffn":
+        first = first[:n].contiguous()
+    return (first, w1[:n, :, :f].contiguous(), b1[:n, :f].contiguous(),
+            w2[:n, :f].contiguous(), b2[:n] if hidden == 1 else torch.zeros_like(b2[:n]))
+
+
+def mp_eval_slots(torch, cfg, dev, B2):
+    """K6's cases of an expert-sharded sampling call at B2 CFG rows: the
+    slot buffers [E, C, D] of the motion and the text MoE at the eval
+    capacity of the whole dispatch, filled up to seeded loads."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    m = cfg["model"]
+    ca = m["ca_block_cfg"]
+    E, K, H, L = ca["num_experts"], ca["topk"], ca["num_heads"], ca["latent_dim"]
+    out = []
+    for n_tokens, d in ((B2 * m["max_seq_len"] * H, L),
+                        (B2 * ca["max_text_seq_len"], ca["text_latent_dim"])):
+        cap = max(1, min(K * int(1.5 * ((n_tokens + E - 1) // E)), n_tokens))
+        ids = torch.randint(0, E, (K * n_tokens,), generator=g, device=dev)
+        fill = torch.bincount(ids, minlength=E).clamp(max=cap)
+        r = lambda *shape: torch.randn(*shape, generator=g, device=dev)  # noqa: E731
+        xe = r(E, cap, d) * (torch.arange(cap, device=dev)[None] < fill[:, None])[..., None]
+        out.append((xe, r(E, d, 4 * d) / math.sqrt(d), r(E, 4 * d) * 0.1,
+                    r(E, 4 * d, d) / math.sqrt(4 * d), r(E, d) * 0.1))
+    return out
+
+
+def mp_paths(torch, cfg, dev):
+    """Phase 22's kernel shapes, each path named as ``main`` attributes its
+    launches: K6 on the local experts ([E / 2, C, D]) and on hidden
+    slices (F / 2) in training at MP_BATCH; in sampling, K6 on the local
+    experts at the eval capacity, K1 and K2 on hidden slices; K4's route
+    over a 2-rank serving dispatch (the largest bucket)."""
+    train = flagship_inputs(torch, cfg, dev, B2=MP_BATCH, Bt=MP_BATCH)["fused_expert_ffn"]
+    B2 = 2 * MP_SAMPLE_REQUESTS
+    sample = flagship_inputs(torch, cfg, dev, B2=B2, training=False)
+    serve = flagship_inputs(torch, cfg, dev, B2=2 * MP_SERVE_BUCKETS[-1], training=False)
+    k6 = "fused_expert_ffn"
+    return [
+        (f"ep train B={MP_BATCH}", {k6: [mp_slice(torch, k6, a, experts=2) for a in train]}),
+        (f"tp train B={MP_BATCH}", {k6: [mp_slice(torch, k6, a, hidden=2) for a in train]}),
+        (f"ep sample b={MP_SAMPLE_REQUESTS}",
+         {k6: [mp_slice(torch, k6, a, experts=2) for a in mp_eval_slots(torch, cfg, dev, B2)]}),
+        (f"tp sample b={MP_SAMPLE_REQUESTS}",
+         {"grouped_ffn": [mp_slice(torch, "grouped_ffn", a, hidden=2)
+                          for a in sample["grouped_ffn"]],
+          "head_ffn": [mp_slice(torch, "head_ffn", a, hidden=2) for a in sample["head_ffn"]]}),
+        (f"serve {MP_WORLD} ranks b={MP_SERVE_BUCKETS[-1]}", {"moe_route": serve["moe_route"]}),
+    ]
+
+
+# phase 22's run of each of mp_paths' paths (by the path's first words)
+MP_PATH_RUNS = {"ep train": "ep_train", "tp train": "tp_train", "ep sample": "ep_sample",
+                "tp sample": "tp_sample", f"serve {MP_WORLD} ranks": "serve"}
 
 
 def bf16_inputs(torch, inputs):
@@ -968,12 +1090,12 @@ def kernel_work(name, args):
 
 def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(),
                   finemogen_cfgs=None, mcm_cfgs=None, retrieval_cfgs=(), train_cfgs=(),
-                  baseline_train_cfgs=(), dp_cfgs=()):
+                  baseline_train_cfgs=(), dp_cfgs=(), mp_cfg=None):
     """Phase 2: every kernel against its plain version, with times, at the
     T2M shapes, at the M2D and S2G ones, at the baselines', at FineMoGen's,
     at the MCM ControlNet's, ReMoDiffuse's and MoMatMoGen's, at phase 18's
-    training microbatches, at phase 19's training batches and at phase 21's
-    ranks."""
+    training microbatches, at phase 19's training batches, at phase 21's
+    ranks and at phase 22's."""
     from motioncraft_tpu_torch.ops import KERNELS
     from motioncraft_tpu_torch.ops.stma_attention import max_active_clusters
 
@@ -983,7 +1105,7 @@ def phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(),
     rows = {}
     for path, inputs in kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg, baseline_cfgs,
                                      finemogen_cfgs, mcm_cfgs, retrieval_cfgs, train_cfgs,
-                                     baseline_train_cfgs, dp_cfgs):
+                                     baseline_train_cfgs, dp_cfgs, mp_cfg):
         for name, cases in inputs.items():
             for i, args in enumerate(cases):
                 kernel_case(torch, rows, path, name, i, args, KERNELS[name])
@@ -1715,6 +1837,23 @@ def phase_m2d(torch, full_cfg, dev="cuda", config=M2D_CONFIG, tracks=M2D_TRACKS,
     return runs
 
 
+@contextlib.contextmanager
+def parity_schedule(cfg, *archs):
+    """``archs`` (built from the model config ``cfg``) sampling on
+    PARITY_RESPACE in place of the config's respacing, put back after."""
+    from motioncraft_tpu_torch.diffusion import build_diffusion
+
+    saved = [a.diffusion_test for a in archs]
+    short = dict(cfg["diffusion_test"], respace=PARITY_RESPACE)
+    for a in archs:
+        a.diffusion_test = build_diffusion(short, device=a.device)
+    try:
+        yield
+    finally:
+        for a, d in zip(archs, saved):
+            a.diffusion_test = d
+
+
 def window_parity(torch, cfg, arch, sd, window_batch, window, pre, tag, rec_batches,
                   extras=()):
     """Card vs CPU on a long-form path, the CPU's MoE gates fed the card's
@@ -1724,9 +1863,8 @@ def window_parity(torch, cfg, arch, sd, window_batch, window, pre, tag, rec_batc
     window (window 1 of its recordings, outpainted from a seeded previous
     window) for each R of ``rec_batches`` in lockstep, the condition of R > 1
     encoded once for the batch as windowed_sample_batch encodes a chunk's
-    (``c_enc``).  ``window_batch(R, w)`` is window w of the first R
-    recordings as CPU tensors."""
-    from motioncraft_tpu_torch.diffusion import Outpainting, Replay, harmonize_schedule
+    (``c_enc``), on PARITY_RESPACE's schedule.  ``window_batch(R, w)`` is
+    window w of the first R recordings as CPU tensors."""
     from motioncraft_tpu_torch.models.moe import CosineTopGate
     from motioncraft_tpu_torch.registry import build_architecture
 
@@ -1783,7 +1921,16 @@ def window_parity(torch, cfg, arch, sd, window_batch, window, pre, tag, rec_batc
     compare(f"ControlNet CFG forward, 2 x {window}, c on", forward)
 
     # a window's draws: its noise, then one a step (57 outpainting and 27
-    # re-noising ones at DDIM-50)
+    # re-noising ones at DDIM-50; 9 and 3 at PARITY_RESPACE's DDIM-10)
+    with parity_schedule(cfg, arch, cpu):
+        outpaint_windows(torch, arch, window_batch, window, pre, rec_batches, g, compare)
+
+
+def outpaint_windows(torch, arch, window_batch, window, pre, rec_batches, g, compare):
+    """window_parity's outpainted windows, one for each R of
+    ``rec_batches``, on ``arch``'s schedule."""
+    from motioncraft_tpu_torch.diffusion import Outpainting, Replay, harmonize_schedule
+
     steps = len(harmonize_schedule(arch.diffusion_test.num_timesteps, arch.repaint_cfg))
     mask = (torch.arange(window) < pre).reshape(1, window, 1)
     for R in rec_batches:
@@ -3586,8 +3733,6 @@ def mcm_long_form(torch, kind, config, tmp, dev="cuda", recordings=MCM_RECORDING
     last = torch.randn(1, window, 322, generator=g)
     gt = torch.cat([last[:, -pre:], torch.zeros(1, window - pre, 322)], dim=1)
     mask = (torch.arange(window) < pre).reshape(1, window, 1)
-    n_steps = len(harmonize_schedule(steps, rp))
-    draws = [torch.randn(1, window, 322, generator=g) for _ in range(1 + n_steps)]
 
     def outpaint(a):
         source = Replay(draws, a.device)
@@ -3596,8 +3741,11 @@ def mcm_long_form(torch, kind, config, tmp, dev="cuda", recordings=MCM_RECORDING
         check(source.done(), f"the window took {source.used} of {len(draws)} draws")
         return res
 
-    compare_devices(torch, tag, f"outpainted window, 1 x {window}, {n_steps} RePaint steps",
-                    outpaint, arch, cpu)
+    with parity_schedule(cfg, arch, cpu):
+        n_steps = len(harmonize_schedule(arch.diffusion_test.num_timesteps, rp))
+        draws = [torch.randn(1, window, 322, generator=g) for _ in range(1 + n_steps)]
+        compare_devices(torch, tag, f"outpainted window, 1 x {window}, {n_steps} RePaint "
+                        "steps", outpaint, arch, cpu)
     del cpu, arch
     return out
 
@@ -4836,6 +4984,366 @@ def phase_data_parallel(torch, full_cfg, sd, dev="cuda", config=CONFIG, s2g_conf
     return out
 
 
+def gate_pins(torch, model, mesh, pins):
+    """Forward hooks on every MoE gate of ``model``: without a mesh each
+    call's logits are appended to ``pins`` ({gate: [logits a call]}, on the
+    host); on a mesh each call's logits become this rank's tokens of the
+    pinned call's (parallel/mesh.py:token_rows over the MoE's blocks of
+    rows: one in training, the CFG halves in sampling), the gradient through
+    its own gate, as phase 21 pins them.  Returns the hooks and the calls
+    made, by gate."""
+    from motioncraft_tpu_torch.models.moe import CosineTopGate, MoELayer
+    from motioncraft_tpu_torch.parallel.mesh import token_rows
+
+    class Pin(torch.autograd.Function):
+        """The given value, the identity's gradient."""
+
+        @staticmethod
+        def forward(ctx, out, value):
+            return value.clone()
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad, None
+
+    blocks, calls, handles = {}, {}, []
+    for name, m in model.named_modules():
+        if isinstance(m, MoELayer):
+            def pre(mod, args, kwargs, name=name):
+                blocks[name] = kwargs.get("blocks", 1)
+            handles.append(m.register_forward_pre_hook(pre, with_kwargs=True))
+        elif isinstance(m, CosineTopGate):
+            def hook(mod, inp, out, name=name, layer=name.rsplit(".", 1)[0]):
+                i = calls.get(name, 0)
+                calls[name] = i + 1
+                if mesh is None:
+                    pins.setdefault(name, []).append(out.detach().cpu())
+                    return None
+                rows = token_rows(mesh, out.shape[0], blocks.get(layer, 1), out.device)
+                return Pin.apply(out, pins[name][i].to(out.device)[rows])
+            handles.append(m.register_forward_hook(hook))
+    return handles, calls
+
+
+def mp_requests(T):
+    """Phase 22's serving traffic: (text, length) of MP_SERVE_REQUESTS
+    requests of up to T frames, in dispatches of the largest bucket."""
+    return [(f"a person performs motion {i} with both arms", max(1, T * (40 + 19 * i) // 196))
+            for i in range(MP_SERVE_REQUESTS)]
+
+
+def mp_serve(torch, cfg, sd, mesh, dev, pins):
+    """Phase 22's server over ``mesh`` (every rank; rank 0 submits the
+    traffic a dispatch at a time, the others follow) or one process: the
+    outputs, requests/s and launches on rank 0."""
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.serving import MotionGenServer
+
+    with skip_init(torch):
+        arch = build_architecture(cfg, device=dev)
+    arch.model.load_state_dict(sd, strict=True)
+    arch.eval()
+    handles, calls = gate_pins(torch, arch.model, mesh, pins)
+    srv = MotionGenServer(arch, max_seq_len=cfg["model"]["max_seq_len"],
+                          input_feats=cfg["model"]["input_feats"],
+                          batch_buckets=MP_SERVE_BUCKETS, max_wait_ms=200.0, seed=SEED + 22,
+                          mesh=mesh)
+    reset_launch_counts()
+    out = None
+    try:
+        if mesh is not None and not mesh.lead:
+            srv.follow()
+        else:
+            reqs, big = mp_requests(cfg["model"]["max_seq_len"]), MP_SERVE_BUCKETS[-1]
+            t0 = time.perf_counter()
+            outs = []
+            for i in range(0, len(reqs), big):  # each group fills the largest bucket
+                group = reqs[i:i + big]
+                outs += srv.generate([t for t, _ in group], [n for _, n in group],
+                                     timeout=MP_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            srv.stop()
+            out = {"outs": outs, "rps": len(reqs) / wall, "wall_s": wall,
+                   "stats": srv.stats()}
+    finally:
+        srv.stop()
+        for h in handles:
+            h.remove()
+    counts = launch_counts()
+    if out is not None:
+        out["counts"], out["calls"] = counts, sum(calls.values())
+    del arch, srv
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mp_sample(torch, cfg, sd, mesh, dev, pins, batch):
+    """One DDIM-50 CFG batch over ``mesh`` (``apis/test.py:mesh_sample``;
+    the model cut to this rank's shards) or in one process, gate logits
+    pinned / recorded: the output and the launches."""
+    from motioncraft_tpu_torch.apis import mesh_sample
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.parallel.tp import shard_module_
+    from motioncraft_tpu_torch.registry import build_architecture
+
+    with skip_init(torch):
+        arch = build_architecture(cfg, device=dev)
+    arch.model.load_state_dict(sd, strict=True)
+    shard_module_(arch.model, mesh)
+    arch.eval()
+    handles, _ = gate_pins(torch, arch.model, mesh, pins)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with torch.inference_mode():
+            got = mesh_sample(arch, batch, mesh,
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 22))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    finally:
+        for h in handles:
+            h.remove()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    del arch
+    return got.float().cpu(), counts, wall
+
+
+def mp_shard_report(torch, state, mesh):
+    """A rank's parameter and optimizer bytes and the local shapes of the
+    first layer's expert and SFFN leaves."""
+    model = state.model
+    pbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    obytes = sum(v.numel() * v.element_size() for st in state.optimizer.state.values()
+                 for v in st.values() if torch.is_tensor(v))
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()
+              if k in ("block_0.ca_block.motion_moe.model.expert_w1",
+                       "block_0.ca_block.text_moe.model.expert_w1", "block_0.ffn.w1",
+                       "text_enc.clip.resblock_0.mlp_fc.weight",
+                       "text_enc.clip.token_embedding.weight")}
+    return {"param_bytes": pbytes, "opt_bytes": obytes, "shapes": shapes}
+
+
+def mp_train(torch, job, sd, mesh, dev):
+    """One mesh of phase 22: its training steps through train_model on this
+    rank's rows (the model cut to its shards there), gate logits pinned to
+    the one-process run's rows, then its sampling batch; returns losses,
+    step ms, launches, the collectives' calls, bytes and ms, the bytes and
+    shapes this rank holds, and (rank 0) the whole parameters' distance to
+    one process's and the sample's."""
+    import numpy as np
+    from motioncraft_tpu_torch.apis import train_model
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.parallel.mesh import shard_batch
+    from motioncraft_tpu_torch.parallel.tp import full_state_dict
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.dist_utils import traffic
+
+    cfg = job["cfg"]
+    with skip_init(torch):
+        arch = build_architecture(cfg, device=dev)
+    arch.model.load_state_dict(sd, strict=True)
+    batches = [shard_batch(dict(np.load(f)), mesh) for f in job["batches"]]
+    handles, calls = gate_pins(torch, arch.model, mesh, torch.load(job["pins"]))
+    lines = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    traffic(reset=True, timing=True)
+    state = train_model(arch, batches, optimizer_cfg=job["optimizer"],
+                        lr_config=job["lr_config"], max_epochs=1, steps_per_epoch=len(batches),
+                        seed=SEED, log_interval=1, logger=lines.append,
+                        frozen_prefixes=("text_enc/clip",), mesh=mesh)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    counts, coll = launch_counts(), traffic(reset=True)
+    for h in handles:
+        h.remove()
+    out = {"losses": [float(m.split(" loss=")[1].split()[0]) for m in lines if " loss=" in m],
+           "step_ms": [float(m.split("step_ms=")[1]) for m in lines if "step_ms=" in m],
+           "counts": counts, "traffic": coll, "steps": state.step,
+           "pinned": bool(calls) and all(n > 0 for n in calls.values()),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
+           else None, **mp_shard_report(torch, state, mesh)}
+    whole = full_state_dict(arch.model, state.sharding)
+    if mesh.lead:
+        want = torch.load(job["ref_params"])
+        lr = job["optimizer"]["lr"]
+        worst, far = 0.0, 0
+        for n, w in want.items():
+            diff = (whole[n] - w).abs()
+            worst = max(worst, float(diff.max()) / lr)
+            far += int(((diff > DP_PARAM_TOL * lr).sum() > max(1, int(DP_PARAM_FRAC * diff.numel())))
+                       or float(diff.max()) > 2 * len(batches) * lr)
+        out["param_worst_lr"], out["param_far_tensors"] = worst, far
+        out["moved"] = sum(not torch.equal(whole[n], sd[n].cpu()) for n in want)
+    del arch, state, whole
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    got, scounts, wall = mp_sample(torch, cfg, sd, mesh, dev, torch.load(job["sample_pins"]),
+                                   job["sample_batch"])
+    want = torch.load(job["sample_ref"])
+    out["sample_err"] = float((got - want).abs().max())
+    out["sample_scale"] = float(want.abs().max())
+    out["sample_counts"], out["sample_s"] = scounts, wall
+    out["sample_traffic"] = traffic(reset=True, timing=False)
+    return out
+
+
+def mp_rank(rank, kind, job):
+    """A rank of phase 22: its device, each mesh of MP_MESHES in turn, then
+    the data-mesh server."""
+    import torch
+    from motioncraft_tpu_torch.parallel.mesh import create_mesh
+
+    dev = dp_device(torch, kind, rank)
+    if dev.type == "cpu":
+        cpu_launch_counting()
+    sd = torch.load(job["sd"], map_location=dev)
+    out = {tag: mp_train(torch, job, sd, create_mesh(device=dev, axes=axes, shape=shape), dev)
+           for tag, axes, shape in MP_MESHES}
+    out["serve"] = mp_serve(torch, job["cfg"], sd, create_mesh(device=dev), dev,
+                            torch.load(job["serve_pins"]))
+    return out
+
+
+def phase_model_parallel(torch, full_cfg, sd, dev="cuda"):
+    """Phase 22: the model across ranks (see the module docstring).  ``dev``
+    "cpu" rehearses it on the CPU with gloo and counting stand-ins in every
+    process."""
+    import tempfile
+
+    import numpy as np
+    from motioncraft_tpu_torch.apis import make_text_batch, make_train_batch
+    from motioncraft_tpu_torch.parallel.mesh import launch
+    from motioncraft_tpu_torch.utils.card import card_line
+
+    t_phase = time.perf_counter()
+    kind = torch.device(dev).type
+    main_dev = dp_device(torch, kind, 0)
+    if kind == "cpu":
+        cpu_launch_counting()
+    card = card_line() if kind == "cuda" else "CPU rehearsal"
+    cfg = full_cfg["model"]
+    T = cfg["model"]["max_seq_len"]
+    ca = cfg["model"]["ca_block_cfg"]
+    E, F, f = ca["num_experts"], 4 * ca["latent_dim"], cfg["model"]["ffn_cfg"]["ffn_dim"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        job = dict(cfg=cfg, sd=os.path.join(tmp, "sd.pt"), pins=os.path.join(tmp, "pins.pt"),
+                   ref_params=os.path.join(tmp, "ref.pt"), optimizer=full_cfg["optimizer"],
+                   lr_config=full_cfg["lr_config"], sample_pins=os.path.join(tmp, "spins.pt"),
+                   sample_ref=os.path.join(tmp, "sref.pt"),
+                   serve_pins=os.path.join(tmp, "vpins.pt"), batches=[])
+        torch.save({k: v.cpu() for k, v in sd.items()}, job["sd"])
+        for i in range(MP_STEPS):
+            path = os.path.join(tmp, f"b{i}.npz")
+            np.savez(path, **make_train_batch(MP_BATCH, seed=SEED + 220 + i, max_seq_len=T))
+            job["batches"].append(path)
+        lengths = np.asarray([[T], [T // 2 + 11]][:MP_SAMPLE_REQUESTS], np.int32)
+        job["sample_batch"] = make_text_batch(
+            ["a person walks forward and waves", "someone jumps twice"][:MP_SAMPLE_REQUESTS],
+            T, cfg["model"]["input_feats"], lengths=lengths)
+
+        # the one-process references on the card: the training steps (their
+        # gate logits recorded), the sampling batch, the server
+        part = dict(tag="t2m", cfg=cfg, sd=job["sd"], frozen=("text_enc/clip",),
+                    optimizer=job["optimizer"], lr_config=job["lr_config"], pins=job["pins"],
+                    batches=job["batches"])
+        ref = dp_train_part(torch, part, None, main_dev)
+        torch.save(ref["params"], job["ref_params"])
+        spins = {}
+        got, one_counts, one_s = mp_sample(torch, cfg, sd, None, main_dev, spins,
+                                           job["sample_batch"])
+        torch.save(got, job["sample_ref"])
+        torch.save(spins, job["sample_pins"])
+        vpins = {}
+        one_serve = mp_serve(torch, cfg, sd, None, main_dev, vpins)
+        torch.save(vpins, job["serve_pins"])
+        print(f"[mp] one process: flagship B={MP_BATCH} {MP_STEPS} steps, step ms "
+              f"{ref['step_ms']} (first = warm-up), losses {ref['losses']}; DDIM-50 batch of "
+              f"{MP_SAMPLE_REQUESTS} in {one_s:.2f} s; server {MP_SERVE_REQUESTS} requests in "
+              f"{one_serve['wall_s']:.2f} s ({one_serve['rps']:.3f} requests/s); card {card}")
+
+        t0 = time.perf_counter()
+        ranks = launch(mp_rank, MP_WORLD, args=(kind, job), backend="gloo",
+                       init_method=f"file://{os.path.join(tmp, 'gloo')}",
+                       timeout_s=MP_TIMEOUT_S, group_timeout_s=MP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        lr = job["optimizer"]["lr"]
+        for tag, axes, shape in MP_MESHES:
+            mesh_shape = dict(zip(axes, shape))
+            X, Tt = mesh_shape.get("expert", 1), mesh_shape.get("tensor", 1)
+            local_rows = MP_BATCH // (mesh_shape.get("data", 1) * X)
+            want_train = training_counts(MP_STEPS, cfg["model"]["num_layers"])
+            for r, res in enumerate(ranks):
+                got = res[tag]
+                timed = got["step_ms"][1:] or got["step_ms"]
+                tr = got["traffic"]
+                coll = ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 2**20:.1f} MiB "
+                                 f"{v['ms']:.1f} ms" for k, v in sorted(tr.items()))
+                print(f"[mp] {tag} {mesh_shape} rank {r}: {len(got['losses'])} steps of "
+                      f"{local_rows} rows, step ms {got['step_ms']} (first = warm-up), "
+                      f"{local_rows / (np.median(timed) / 1e3):.1f} samples/s a rank, max "
+                      f"memory {got['peak_gib']} GiB; parameters {got['param_bytes'] / 2**20:.1f}"
+                      f" MiB, optimizer {got['opt_bytes'] / 2**20:.1f} MiB, shapes "
+                      f"{got['shapes']}; collectives over {MP_STEPS} steps: {coll}; launches "
+                      f"{got['counts']}; card {card}")
+                shapes = got["shapes"]
+                check(shapes["block_0.ca_block.motion_moe.model.expert_w1"]
+                      == (E // X, ca["latent_dim"], F // Tt)
+                      and shapes["block_0.ffn.w1"] == (ca["num_heads"], ca["latent_dim"], f // Tt),
+                      f"{tag} rank {r}: expert / SFFN leaves {shapes}")
+                check(got["steps"] == MP_STEPS and got["pinned"],
+                      f"{tag} rank {r}: steps {got['steps']}, gates pinned {got['pinned']}")
+                check(got["counts"] == dict.fromkeys(got["counts"], 0) | want_train,
+                      f"{tag} rank {r} launches {got['counts']} != {want_train}")
+                for i, (a, b) in enumerate(zip(got["losses"], ref["losses"])):
+                    tol = MODEL_REL_TOL * max(1.0, abs(b)) + 1e-5  # printed to 5 decimals
+                    check(abs(a - b) <= tol, f"{tag} step {i} loss {a} against one process {b}")
+                check(got["sample_err"] <= MODEL_REL_TOL * max(1.0, got["sample_scale"]),
+                      f"{tag} rank {r}: sample against one process {got['sample_err']}")
+                samp = ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 2**20:.1f} MiB "
+                                 f"{v['ms']:.1f} ms" for k, v in sorted(got["sample_traffic"]
+                                                                      .items()))
+                print(f"[mp] {tag} rank {r}: DDIM-50 batch of {MP_SAMPLE_REQUESTS} over the "
+                      f"mesh in {got['sample_s']:.2f} s, max abs diff {got['sample_err']:.3e} "
+                      f"against one process (tol {MODEL_REL_TOL} x max(1, "
+                      f"{got['sample_scale']:.4g})); collectives {samp}; launches "
+                      f"{got['sample_counts']}")
+            r0 = ranks[0][tag]
+            print(f"[mp] {tag}: 2 ranks vs one process: losses {r0['losses']} / "
+                  f"{ref['losses']}; whole parameters after {MP_STEPS} Adam steps: largest "
+                  f"difference {r0['param_worst_lr']:.3e} lr, {r0['param_far_tensors']} tensors "
+                  f"past {DP_PARAM_TOL} lr beyond {DP_PARAM_FRAC} of their elements, "
+                  f"{r0['moved']} of {len(ref['params'])} moved")
+            check(r0["param_far_tensors"] == 0, f"{tag}: parameters against one process")
+            out[f"{tag}_train"] = {"counts": r0["counts"], "step_ms": [
+                res[tag]["step_ms"] for res in ranks], "traffic": [res[tag]["traffic"]
+                                                                   for res in ranks]}
+            out[f"{tag}_sample"] = {"counts": r0["sample_counts"]}
+        srv = ranks[0]["serve"]
+        worst = max(float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+                    for a, b in zip(srv["outs"], one_serve["outs"]))
+        print(f"[mp] server over {MP_WORLD} ranks (data mesh, gloo): {MP_SERVE_REQUESTS} "
+              f"requests in {srv['wall_s']:.2f} s, {srv['rps']:.3f} requests/s (one card "
+              f"{one_serve['rps']:.3f}); {srv['stats']['dispatches']} dispatches; largest "
+              f"difference to the one-card server {worst:.3e} of max(1, scale); launches "
+              f"{srv['counts']}; card {card}")
+        check(ranks[1]["serve"] is None and len(srv["outs"]) == MP_SERVE_REQUESTS
+              and all(np.isfinite(o).all() for o in srv["outs"]), "the mesh server's answers")
+        check(worst <= MODEL_REL_TOL, f"the mesh server against the one-card server: {worst}")
+        out["serve"] = {"counts": srv["counts"], "rps": srv["rps"],
+                        "one_rps": one_serve["rps"]}
+        print(f"[mp] two ranks (both meshes' training and sampling, then the server) took "
+              f"{wall:.1f} s")
+    print(f"[mp] phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -4899,7 +5407,7 @@ def main():
                ("s2g dp", {"model": s2g_cfg["model"]["model"]["base_model"]}, DP_S2G_BATCH,
                 DP_S2G_FRAMES, TRAINING_KERNELS)]
     rows = phase_kernels(torch, cfg, m2d_cfg, dev, s2g_cfg, k5_cfgs, fmg_cfgs, mcm_cfgs,
-                         retrieval_cfgs, train_cfgs, bl_train_cfgs, dp_cfgs)
+                         retrieval_cfgs, train_cfgs, bl_train_cfgs, dp_cfgs, mp_cfg=cfg)
 
     t0 = time.perf_counter()
     with skip_init(torch):
@@ -4931,6 +5439,7 @@ def main():
     baseline_train = phase_baseline_train(torch)
     bf16_train = phase_bf16_train(torch, full_cfg, sd, f32_step_ms)
     dp = phase_data_parallel(torch, full_cfg, sd)
+    mp = phase_model_parallel(torch, full_cfg, sd)
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
@@ -4983,6 +5492,16 @@ def main():
         # phase 21: rank 0's data-parallel steps (the flagship's DP_STEPS,
         # the S2G ControlNet's one) and its share of the 2-process evaluation
         row["dp_launches"] = {k: dp[k]["counts"][name] for k in ("t2m", "s2g", "eval")}
+        # phase 22: rank 0's steps and sampling batch on each mesh, its
+        # share of the mesh server's dispatches; each of phase 2's cases at
+        # phase 22's shapes carries the launches of the run it stands for
+        row["mp_launches"] = {k: v["counts"][name] for k, v in mp.items()}
+        for case in row["cases"]:
+            run = next((v for k, v in MP_PATH_RUNS.items() if case["path"].startswith(k)), None)
+            if run is not None:
+                case["launches"] = mp[run]["counts"][name]
+                check(case["launches"] > 0, f"{name} at {case['path']} was launched no time "
+                      "in phase 22")
         check(row["launches"] > 0, f"{name} was launched no time on its path")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

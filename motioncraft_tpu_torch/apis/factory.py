@@ -11,6 +11,7 @@ of motioncraft_tpu/apis/factory.py, plus a seeded synthetic training batch).
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import numpy as np
@@ -76,6 +77,21 @@ def tiny_t2m_cfg(expert_axis: Optional[str] = None, max_seq_len: int = 16) -> di
                             text_latent_dim=16, ff_size=16, time_embed_dim=32,
                             clip_width=32, clip_layers=1, respace="4",
                             expert_axis=expert_axis)
+
+
+def build_flagship(cfg: Optional[dict] = None, device=None,
+                   expert_axis: Optional[str] = None):
+    """The MotionDiffusion of ``cfg`` (default the flagship's) on
+    ``device`` (default the card).  ``expert_axis`` (set into a copy of
+    ``cfg``'s ``ca_block_cfg``) shards its MoEs' experts over that mesh
+    axis and routes inference through the slot path, as the JAX
+    package's ``flagship_t2m_cfg(expert_axis=)`` does."""
+    from ..registry import build_architecture
+
+    cfg = copy.deepcopy(cfg or flagship_t2m_cfg())
+    if expert_axis is not None:
+        cfg["model"]["ca_block_cfg"]["expert_axis"] = expert_axis
+    return build_architecture(cfg, device=device)
 
 
 def flagship_m2d_cfg(window: int = 120, **kw) -> dict:

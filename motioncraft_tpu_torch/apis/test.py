@@ -122,3 +122,26 @@ def multi_host_test(arch, data_loader: Iterable[Dict[str, Any]], *,
         total_size = len(data_loader.dataset)
     local = single_device_test(arch, data_loader, seed=seed + rank, **kwargs)
     return collect_results(local, total_size, mesh)
+
+
+def mesh_sample(arch, batch: Dict[str, Any], mesh, *, generator=None, randn=None,
+                **kwargs) -> torch.Tensor:
+    """``arch.sample`` of the global ``batch`` over ``mesh`` (every rank
+    calls it with the same batch and generator state): each row-rank
+    samples its block of rows (parallel/mesh.py), the random draws taken
+    at the global shape (``draw_rows``), the MoEs routed over the global
+    batch and, on an expert or tensor axis, the sharded layers computing
+    over their groups; returns the whole batch's output in the global
+    order, on every rank.  It computes what one process computes on the
+    whole batch.  Without a mesh: ``arch.sample``."""
+    from ..diffusion import generator_randn
+    from ..parallel.mesh import draw_rows, gather_rows, local_batch_size, sampling, shard_batch
+
+    if mesh is None:
+        return arch.sample(batch, generator=generator, randn=randn, **kwargs)
+    rows = local_batch_size(len(batch["motion"]), mesh)
+    base = randn or generator_randn(generator, arch.device)
+    with sampling(arch, mesh, rows):
+        out = arch.sample(shard_batch(batch, mesh),
+                          randn=lambda shape: draw_rows(mesh, base, shape), **kwargs)
+    return gather_rows(mesh, out)

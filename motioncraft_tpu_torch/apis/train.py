@@ -20,6 +20,16 @@ microbatch loop the trainable gradients' mean over the ranks
 update, so every rank takes the same step.  No DDP wrapper: the explicit
 all-reduce leaves ``cast_parameters``' swap, remat's recompute and the
 frozen prefixes as one process has them.
+
+On a mesh with an ``expert`` or ``tensor`` axis (the model across cards)
+every rank starts from rank 0's whole weights and keeps its shards
+(``parallel/tp.py:shard_module_``): the experts split over ``expert``,
+the FFNs' hidden dims over ``tensor``.  The step still computes the
+one-process step on the global batch: the MoE exchanges its slot buffers
+over the expert group and the FFNs sum their partial products over the
+tensor group (models/moe.py, models/blocks.py), each gradient is reduced
+over the ranks that hold the same shard, and the clip and the optimizers
+take whole-leaf statistics (parallel/train_state.py, parallel/optim.py).
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import torch
 
 from ..parallel import TrainState, build_lr_schedule
 from ..parallel.mesh import attach_mesh, broadcast_module, gather_rows
+from ..parallel.tp import shard_module_
 from ..utils.dist_utils import allreduce_grads, mean_across_hosts
 
 
@@ -196,7 +207,9 @@ def make_train_step(arch, state: TrainState, fp16: Optional[dict] = None,
                     scalars[k] = scalars.get(k, 0.0) + v.detach().float() / grad_accum
             timesteps.append(logs["timesteps"])
             loss_batch.append(logs["recon_loss_batch"].detach())
-        allreduce_grads(state.params, mesh)
+        sharding = getattr(state, "sharding", None)
+        allreduce_grads(state.params, mesh, None if sharding is None else
+                        {p: sharding.axes_of(p) for p in state.params})
         if loss_scale != 1.0:
             for p in state.params:
                 if p.grad is not None:
@@ -254,9 +267,10 @@ def train_model(arch, dataloader: Iterable[Dict[str, Any]], *,
     process one rank; ``dataloader`` yields this rank's rows
     (``data/loader.py:RankRows``, or a ``dist=True`` loader), ``arch`` lives
     on the mesh's device, every rank starts from rank 0's weights
-    (broadcast after ``model_transform``) and the same seed, and the
-    caller's ``checkpoint_fn`` / ``eval_fn`` run on every rank (the CLI
-    writes on rank 0 alone)."""
+    (broadcast after ``model_transform``, then cut to this rank's shards
+    on an expert or tensor axis) and the same seed, and the caller's
+    ``checkpoint_fn`` / ``eval_fn`` run on every rank (the CLI writes on
+    rank 0 alone)."""
     optimizer_cfg = optimizer_cfg or {"type": "Adam"}
     generator = set_random_seed(seed, arch.device)
     if model_transform is not None:
@@ -265,9 +279,11 @@ def train_model(arch, dataloader: Iterable[Dict[str, Any]], *,
     if mesh is not None and _resolved(mesh.device) != _resolved(arch.device):
         raise ValueError(f"arch lives on {arch.device}, its rank on {mesh.device}")
     broadcast_module(arch.model, mesh)
+    sharding = shard_module_(arch.model, mesh)
     schedule = build_lr_schedule(optimizer_cfg.get("lr", 2e-4), lr_config,
                                  steps_per_epoch or 1)
-    state = TrainState(arch.model, optimizer_cfg, schedule, grad_clip, frozen_prefixes)
+    state = TrainState(arch.model, optimizer_cfg, schedule, grad_clip, frozen_prefixes,
+                       sharding=sharding)
     sampler = getattr(arch, "sampler", None)
     state.generator, state.sampler = generator, sampler
     step_fn = make_train_step(arch, state, fp16=fp16, grad_accum=grad_accum, mesh=mesh)

@@ -51,8 +51,9 @@ from torch import nn
 
 from ..ops.quant import dequant, qdot, qeinsum, quantize_weight
 from ..ops.sffn import head_ffn
-from ..parallel.mesh import draw_rows
-from ..utils.dist_utils import all_reduce_sum
+from ..parallel.mesh import PIPELINE, draw_rows
+from ..parallel.tp import split_axis
+from ..utils.dist_utils import all_reduce_sum, tp_copy, tp_reduce
 
 
 def promote_dtype(*tensors):
@@ -90,17 +91,49 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
 
 
-def dropout(x, p: float, training: bool, generator=None, mesh=None):
+def dropout(x, p: float, training: bool, generator=None, mesh=None, split=None):
     """flax's ``nn.Dropout``: in training, each element kept with
     probability 1 - p (a Bernoulli draw from ``generator``, default torch's
     generator of ``x``'s device) and scaled by 1 / (1 - p), else 0; ``x``
     itself otherwise.  On a data mesh the mask is drawn at the global
-    batch's shape and the rank keeps its rows (parallel/mesh.py:draw_rows)."""
+    batch's shape and the rank keeps its rows (parallel/mesh.py:draw_rows);
+    where ``x``'s last dim is this rank's slice of a dim split over the
+    tensor group ``split`` (a column-parallel product's output), the mask
+    is drawn at the whole width and the rank keeps its columns."""
     if not training or p == 0.0:
         return x
-    keep = draw_rows(mesh, lambda shape: x.new_empty(shape).bernoulli_(
-        1.0 - p, generator=generator), x.shape)
+    shape = x.shape
+    if split is not None and split.size > 1:
+        shape = shape[:-1] + (shape[-1] * split.size,)
+    keep = draw_rows(mesh, lambda s: x.new_empty(s).bernoulli_(
+        1.0 - p, generator=generator), shape)
+    if shape != x.shape:
+        keep = keep.narrow(-1, split.rank * x.shape[-1], x.shape[-1])
     return x * keep / (1.0 - p)
+
+
+def tensor_comm(module: nn.Module, owner: nn.Module, leaf: str, dim: int):
+    """The tensor group that splits dim ``dim`` of ``owner``'s parameter
+    ``leaf`` (parallel/tp.py:shard_module_) over ``module``'s mesh, or
+    None where it is whole."""
+    axis = split_axis(owner, leaf, dim)
+    if axis is None:
+        return None
+    if module.mesh is None:
+        raise RuntimeError(f"a sharded {type(module).__name__} computes over its mesh: "
+                           "attach_mesh")
+    return module.mesh.comm(axis)
+
+
+def row_parallel(linear: nn.Linear, y, comm):
+    """``linear(y)`` of a row-parallel Linear (its weight's input dim split
+    over ``comm``): this rank's partial product, summed over the group,
+    then the bias, once (Megatron's g)."""
+    if comm is None:
+        return linear(y)
+    y, w, b = promote_dtype(y, linear.weight, linear.bias)
+    out = tp_reduce(F.linear(y, w), comm)
+    return out if b is None else out + b
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -198,8 +231,10 @@ class FFN(nn.Module):
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
     def forward(self, x, emb):
-        y = dropout(F.gelu(self.linear1(x)), self.dropout, self.training, mesh=self.mesh)
-        return x + self.proj_out(self.linear2(y), emb)
+        comm = tensor_comm(self, self.linear1, "weight", 0)
+        y = dropout(F.gelu(self.linear1(tp_copy(x, comm))), self.dropout, self.training,
+                    mesh=self.mesh, split=comm)
+        return x + self.proj_out(row_parallel(self.linear2.linear, y, comm), emb)
 
 
 class SFFN(nn.Module):
@@ -221,18 +256,33 @@ class SFFN(nn.Module):
         self.proj_out = StylizationBlock(H * d, time_embed_dim, dropout)
 
     def forward(self, x, emb):
+        """With the hidden dim split over the tensor group (parallel/tp.py)
+        each rank runs its slice of the FFN pair, column- then
+        row-parallel, the partial outputs summed before b2 is added (K2
+        takes zeros for b2 there)."""
         B, T, D = x.shape
+        comm = tensor_comm(self, self, "w1", 2)
         if self.w1.dtype == torch.int8:
+            if comm is not None:
+                raise NotImplementedError(f"int8 SFFN weights split over a mesh: {PIPELINE}")
             y = self._forward_int8(x).reshape(B, T, D)
         elif self.training:
-            xh, w1, b1, w2, b2 = promote_dtype(x.reshape(B, T, self.num_heads, -1),
+            xh, w1, b1, w2, b2 = promote_dtype(tp_copy(x, comm).reshape(B, T, self.num_heads, -1),
                                                self.w1, self.b1, self.w2, self.b2)
             y = torch.einsum("bthd,hdf->bthf", xh, w1) + b1
-            y = dropout(F.gelu(y), self.dropout, self.training, mesh=self.mesh)
-            y = (torch.einsum("bthf,hfd->bthd", y, w2) + b2).reshape(B, T, D)
-        else:
+            y = dropout(F.gelu(y), self.dropout, self.training, mesh=self.mesh, split=comm)
+            if comm is None:
+                y = torch.einsum("bthf,hfd->bthd", y, w2) + b2
+            else:
+                y = tp_reduce(torch.einsum("bthf,hfd->bthd", y, w2), comm) + b2
+            y = y.reshape(B, T, D)
+        elif comm is None:
             y = head_ffn(x.reshape(B * T, D), self.w1, self.b1, self.w2,
                          self.b2).reshape(B, T, D)
+        else:
+            y = head_ffn(x.reshape(B * T, D), self.w1, self.b1, self.w2,
+                         torch.zeros_like(self.b2))
+            y = (tp_reduce(y, comm) + self.b2.to(y.dtype).reshape(1, D)).reshape(B, T, D)
         return x + self.proj_out(y, emb)
 
     def _forward_int8(self, x):

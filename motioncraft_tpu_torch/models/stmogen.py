@@ -153,7 +153,9 @@ class STMoGenTransformer(DiffusionTransformerBase):
         super().__init__(input_feats, max_seq_len, latent_dim, time_embed_dim,
                          num_layers, text_encoder, use_pos_embedding, remat)
         if pipeline_axis is not None:
-            raise NotImplementedError("pipeline_axis (pipeline parallelism)")
+            from ..parallel.mesh import PIPELINE
+
+            raise NotImplementedError(f"pipeline_axis (pipeline parallelism): {PIPELINE}")
         if ca_block_cfg is None or ffn_cfg is None or isinstance(ffn_cfg, (list, tuple)):
             raise NotImplementedError("STMoGenTransformer needs one ca_block_cfg and "
                                       "one ffn_cfg for every layer")

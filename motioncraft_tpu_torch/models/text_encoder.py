@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import LayerNorm, Linear, dropout
+from ..utils.dist_utils import tp_copy, tp_reduce
+from .blocks import LayerNorm, Linear, dropout, row_parallel, tensor_comm
 
 
 def quick_gelu(x):
@@ -52,6 +53,8 @@ class ClipAttention(nn.Module):
 
 
 class ClipBlock(nn.Module):
+    mesh = None  # the mesh it computes over (parallel/mesh.py:attach_mesh)
+
     def __init__(self, width: int, heads: int):
         super().__init__()
         self.attn = ClipAttention(width, heads)
@@ -61,8 +64,12 @@ class ClipBlock(nn.Module):
         self.mlp_proj = Linear(4 * width, width)
 
     def forward(self, x, mask=None):
+        """``mlp_fc`` column- and ``mlp_proj`` row-parallel where the tensor
+        group splits them (parallel/tp.py)."""
         x = x + self.attn(self.ln_1(x), mask)
-        return x + self.mlp_proj(quick_gelu(self.mlp_fc(self.ln_2(x))))
+        comm = tensor_comm(self, self.mlp_fc, "weight", 0)
+        h = quick_gelu(self.mlp_fc(tp_copy(self.ln_2(x), comm)))
+        return x + row_parallel(self.mlp_proj, h, comm)
 
 
 def eot_rows(x, text_ids):
@@ -77,6 +84,8 @@ class ClipTextModel(nn.Module):
     or with ``return_pooled`` CLIP's ``encode_text``: the end-of-text row
     times ``text_projection`` [width, embed_dim] (a model that pools passes
     ``embed_dim``, which makes that parameter)."""
+
+    mesh = None  # the mesh it computes over (parallel/mesh.py:attach_mesh)
 
     def __init__(self, vocab_size: int = 49408, context_length: int = 77,
                  width: int = 512, layers: int = 12, heads: int = 8,
@@ -93,7 +102,7 @@ class ClipTextModel(nn.Module):
 
     def forward(self, text_ids, return_pooled: bool = False):
         T = text_ids.shape[1]
-        x = self.token_embedding(text_ids) + self.positional_embedding[None, :T]
+        x = self.embed(text_ids) + self.positional_embedding[None, :T]
         causal = torch.full((T, T), float("-inf"), dtype=x.dtype,
                             device=x.device).triu(1)[None, None]
         for i in range(self.layers):
@@ -102,6 +111,21 @@ class ClipTextModel(nn.Module):
         if return_pooled:
             return eot_rows(x, text_ids) @ self.text_projection
         return x
+
+
+    def embed(self, text_ids):
+        """The token embedding; with its rows split over the tensor group
+        (parallel/tp.py) each rank looks up the ids of its rows, zeros for
+        the others, and the group sums."""
+        comm = tensor_comm(self, self.token_embedding, "weight", 0)
+        if comm is None:
+            return self.token_embedding(text_ids)
+        weight = self.token_embedding.weight
+        rows = weight.shape[0]
+        local = text_ids - comm.rank * rows
+        mine = (local >= 0) & (local < rows)
+        x = F.embedding(local.clamp(0, rows - 1), weight) * mine[..., None].to(weight.dtype)
+        return tp_reduce(x, comm)
 
 
 class PostLNEncoderLayer(nn.Module):
@@ -127,7 +151,9 @@ class PostLNEncoderLayer(nn.Module):
         ``generator``."""
         p, train, g, mesh = self.dropout, self.training, generator, self.mesh
         x = self.norm1(x + dropout(self.self_attn(x, key_mask=key_mask), p, train, g, mesh))
-        h = self.linear2(dropout(self.act(self.linear1(x)), p, train, g, mesh))
+        comm = tensor_comm(self, self.linear1, "weight", 0)
+        h = dropout(self.act(self.linear1(tp_copy(x, comm))), p, train, g, mesh, split=comm)
+        h = row_parallel(self.linear2, h, comm)
         return self.norm2(x + dropout(h, p, train, g, mesh))
 
 

@@ -1,32 +1,43 @@
-"""The data mesh: data-parallel processes on torch.distributed (PyTorch port
-of motioncraft_tpu/parallel/mesh.py, its ``data`` axis).
+"""The device mesh: data-, expert- and tensor-parallel processes on
+torch.distributed (PyTorch port of motioncraft_tpu/parallel/mesh.py).
 
-The JAX package shards the batch over a ``data`` mesh axis and lets XLA
+The JAX package shards the batch over a ``data`` mesh axis, the experts
+over ``expert`` and the FFNs' hidden dims over ``tensor``, and lets XLA
 insert the collectives; its step computes what one device computes on the
-global batch.  The port runs one process a rank, one card each
-(NCCL by default; gloo where the caller names it, as the CPU tests and
-several ranks on one card do), and a ``DataMesh`` says which rank this is,
-where it computes and over which process group.  The model-sharding axes
-(``expert``, ``tensor``, ``pipe``) are the next slice.
+global batch.  The port runs one process a rank, one card each (NCCL by
+default; gloo where the caller names it, as the CPU tests and several
+ranks on one card do), and a ``DataMesh`` says which rank this is, where it
+computes, its coordinates on the axes and the process group of every set
+of axes.  A rank's coordinates follow ``np.asarray(devices).reshape(shape)``
+(row-major over ``(data, expert, tensor)``), as the JAX package lays its
+devices out.  A ``pipe`` axis above 1 raises (PIPELINE).
 
-Where the rows of the global batch live (one module knows it): with
-``grad_accum`` = G microbatches of m = B / G rows, rank r of W holds the
-rows ``i * m + r * m / W + j`` (0 <= j < m / W) as its microbatch i, so
-that every rank holds its share of every microbatch and microbatch i is
+Which rows a rank holds (one module knows it): the rows are split over
+the data x expert ranks (Tutel's layout; ``world`` of them, this rank the
+``rank``-th, ``group`` their process group) and replicated over
+``tensor``, whose ranks compute the same rows on their slices of the
+weights.  The JAX package keeps the batch on ``data`` alone and replicates
+it over ``expert``; both compute the global batch (ROADMAP queue 3).  With
+``grad_accum`` = G microbatches of m = B / G rows, row-rank r of W holds
+the rows ``i * m + r * m / W + j`` (0 <= j < m / W) as its microbatch i,
+so that every rank holds its share of every microbatch and microbatch i is
 global rows ``i * m .. (i + 1) * m``, the JAX package's ``[G, B / G]``
 reshape.  At G = 1 that is ``P('data')``'s contiguous block.  Per-row
 random draws (``draw_rows``) are taken at the global microbatch's shape
 and the rank keeps its block, so a W-rank step draws what one process at
 the global batch draws; ``gather_rows`` puts the ranks' per-row vectors
-back in the global order.
+back in the global order.  A token list that a module makes of k blocks of
+this rank's rows (the CFG-doubled sampling batch: text half, then
+unconditional half) is in the global order block-major (``token_rows``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import socket
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -34,27 +45,84 @@ import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
-NEXT_SLICE = "ROADMAP queue 1: multi-GPU: the model across cards"
+EXPERT_AXIS = "expert"
+TENSOR_AXIS = "tensor"
+PIPE_AXIS = "pipe"
+MESH_AXES = (DATA_AXIS, EXPERT_AXIS, TENSOR_AXIS)
+ROW_AXES = (DATA_AXIS, EXPERT_AXIS)  # the axes the batch rows are split over
+PIPELINE = "ROADMAP queue 1: multi-GPU: pipeline parallelism"
 # a collective's limit: a rank may wait at a barrier while rank 0 writes a
 # checkpoint or runs the evaluation hook
 DEFAULT_TIMEOUT_S = 1800.0
 
 
 @dataclass
+class Comm:
+    """A process group over some of the mesh's axes: ``size`` ranks, this
+    one the ``rank``-th (in global rank order); ``group`` None is the
+    default group, and a ``size`` of 1 runs no collective."""
+
+    group: Any
+    size: int
+    rank: int
+
+
+@dataclass
 class DataMesh:
-    """``world`` data-parallel ranks; this process is ``rank`` and computes
-    on ``device``; collectives run over ``group`` (None: the default
-    process group) with ``backend``."""
+    """The mesh: ``world`` ranks hold the batch rows (data x expert), this
+    process is row-rank ``rank`` and computes on ``device``; row
+    collectives run over ``group`` (None: the default process group) with
+    ``backend``.  ``axes`` (default ``{"data": world}``) the size of each
+    axis of ``MESH_AXES``, ``coords`` this rank's coordinate on each, and
+    ``comm(*axes)`` the process group that varies those axes with the
+    others fixed."""
 
     world: int
     rank: int
     device: torch.device
     backend: str
     group: Any = None
+    axes: Optional[Dict[str, int]] = None
+    coords: Optional[Dict[str, int]] = None
+    comms: Dict[tuple, Comm] = field(default_factory=dict)
+    # the rows this rank holds in the current sampling call (``sampling``);
+    # None in training, where a module's token list is one block of them
+    sample_rows: Optional[int] = None
+    global_rank: Optional[int] = None  # in the process group (default: rank)
+
+    def __post_init__(self):
+        if self.axes is None:
+            self.axes = {DATA_AXIS: self.world}
+            self.coords = {DATA_AXIS: self.rank}
+        if self.global_rank is None:
+            self.global_rank = self.rank
+
+    @property
+    def lead(self) -> bool:
+        """Rank 0 of the process group: it writes and dispatches."""
+        return self.global_rank == 0
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {DATA_AXIS: self.world}
+        return dict(self.axes)
+
+    def size(self, axis: str) -> int:
+        return self.axes.get(axis, 1)
+
+    @property
+    def model_sharded(self) -> bool:
+        """True where the mesh shards weights (an expert or tensor axis)."""
+        return self.size(EXPERT_AXIS) > 1 or self.size(TENSOR_AXIS) > 1
+
+    def comm(self, *axes: str) -> Comm:
+        """The process group over ``axes`` (those of size 1 dropped) that
+        holds this rank."""
+        key = tuple(a for a in MESH_AXES if a in axes and self.size(a) > 1)
+        if not key:
+            return Comm(None, 1, 0)
+        if key not in self.comms:  # every axis of the mesh: the default group
+            return Comm(None, int(np.prod([self.size(a) for a in key])), self.global_rank)
+        return self.comms[key]
 
     @property
     def host_device(self) -> torch.device:
@@ -63,7 +131,7 @@ class DataMesh:
         return self.device if self.backend == "nccl" else torch.device("cpu")
 
     def barrier(self) -> None:
-        dist.barrier(group=self.group)
+        dist.barrier()
 
 
 def _init_method(address: str) -> str:
@@ -113,31 +181,93 @@ def local_device(rank: int) -> torch.device:
     return torch.device("cuda", local)
 
 
+def mesh_shape(n: int, axes: Sequence[str]) -> tuple:
+    """The JAX package's default factorization of ``n`` devices over
+    ``axes``: up to 2 on each axis after the first, the rest on the first."""
+    sizes, rem = [], n
+    for _ in axes[1:]:
+        s = 2 if rem % 2 == 0 and rem >= 2 else 1
+        sizes.append(s)
+        rem //= s
+    return (rem,) + tuple(sizes)
+
+
+def _comms(axes: Dict[str, int], coords_of) -> Dict[tuple, Comm]:
+    """One process group per (set of axes, fixed other coordinates), made
+    by every rank in one order (``dist.new_group`` is collective); this
+    rank's group of each set."""
+    import itertools
+
+    live = [a for a in MESH_AXES if axes[a] > 1]
+    world, me = dist.get_world_size(), dist.get_rank()
+    out = {}
+    for k in range(1, len(live)):
+        for key in itertools.combinations(live, k):
+            groups: Dict[tuple, list] = {}
+            for g in range(world):
+                c = coords_of(g)
+                groups.setdefault(tuple(c[a] for a in live if a not in key), []).append(g)
+            for ranks in groups.values():
+                pg = dist.new_group(ranks)
+                if me in ranks:
+                    out[key] = Comm(pg, len(ranks), ranks.index(me))
+    return out
+
+
 def create_mesh(n_devices: Optional[int] = None, axes: Sequence[str] = (DATA_AXIS,),
                 shape: Optional[Sequence[int]] = None, device=None) -> Optional[DataMesh]:
-    """The data mesh over the joined process group, one device a rank
-    (``device``, default this rank's card).  Without a process group and at
-    one device: None, the one-process path.  An ``expert`` or ``tensor``
-    axis of size above 1 raises: the model across cards is not ported."""
-    shape = tuple(shape) if shape is not None else (n_devices or 0,) + (1,) * (len(axes) - 1)
-    for axis, size in zip(axes, shape):
-        if axis != DATA_AXIS and size > 1:
-            raise NotImplementedError(f"a {axis!r} mesh axis of {size}: {NEXT_SLICE}")
+    """The mesh over the joined process group, one device a rank
+    (``device``, default this rank's card), over ``axes`` of
+    ``MESH_AXES`` (default ``data`` alone) and ``shape`` (default the JAX
+    package's factorization, ``mesh_shape``).  Without a process group and
+    at one device: None, the one-process path.  A ``pipe`` axis above 1
+    raises (PIPELINE)."""
+    axes = tuple(axes)
+    unknown = [a for a in axes if a not in MESH_AXES + (PIPE_AXIS,)]
+    if unknown or len(set(axes)) != len(axes):
+        raise ValueError(f"mesh axes {axes}: each one of {MESH_AXES + (PIPE_AXIS,)}")
+    if shape is not None and len(shape) != len(axes):
+        raise ValueError(f"mesh shape {tuple(shape)} for axes {axes}")
+    if shape is not None and PIPE_AXIS in axes and shape[axes.index(PIPE_AXIS)] > 1:
+        raise NotImplementedError(f"a {PIPE_AXIS!r} mesh axis of "
+                                  f"{shape[axes.index(PIPE_AXIS)]}: {PIPELINE}")
     if not dist.is_initialized():
-        if (n_devices or 1) > 1:
-            raise RuntimeError(f"a data mesh of {n_devices} needs the process group: "
+        n = n_devices or (int(np.prod(shape)) if shape is not None else 1)
+        if n > 1:
+            raise RuntimeError(f"a mesh of {n} devices needs the process group: "
                                "init_distributed first (one process a rank)")
         return None
     world, rank = dist.get_world_size(), dist.get_rank()
     if n_devices not in (None, world):
         raise ValueError(f"{n_devices} devices over {world} processes: one device a rank")
+    shape = tuple(shape) if shape is not None else mesh_shape(world, axes)
+    if PIPE_AXIS in axes and shape[axes.index(PIPE_AXIS)] > 1:
+        raise NotImplementedError(f"a {PIPE_AXIS!r} mesh axis of "
+                                  f"{shape[axes.index(PIPE_AXIS)]}: {PIPELINE}")
+    if int(np.prod(shape)) != world:
+        raise ValueError(f"a mesh of shape {shape} over {world} processes")
+    sizes = {a: int(shape[axes.index(a)]) if a in axes else 1 for a in MESH_AXES}
+    grid = np.arange(world).reshape([sizes[a] for a in MESH_AXES])
+
+    def coords_of(g):
+        return dict(zip(MESH_AXES, (int(i) for i in np.argwhere(grid == g)[0])))
+
     device = torch.device(device) if device is not None else local_device(rank)
     backend = dist.get_backend()
     if backend == "nccl":
         if device.type != "cuda":
             raise ValueError(f"NCCL moves CUDA tensors: a rank on {device} needs gloo")
         torch.cuda.set_device(device)
-    return DataMesh(world, rank, device, backend)
+    coords = coords_of(rank)
+    comms = _comms(sizes, coords_of)
+    rows_world = sizes[DATA_AXIS] * sizes[EXPERT_AXIS]
+    rows_rank = coords[DATA_AXIS] * sizes[EXPERT_AXIS] + coords[EXPERT_AXIS]
+    key = tuple(a for a in ROW_AXES if sizes[a] > 1)
+    rows_group = comms[key].group if key in comms else None
+    shown = {a: sizes[a] for a in axes if a in MESH_AXES}
+    return DataMesh(rows_world, rows_rank, device, backend, rows_group,
+                    axes=shown, coords={a: coords[a] for a in shown}, comms=comms,
+                    global_rank=rank)
 
 
 def local_batch_size(global_batch: int, mesh: Optional[DataMesh]) -> int:
@@ -195,7 +325,7 @@ def draw_rows(mesh: Optional[DataMesh], draw: Callable[[tuple], torch.Tensor],
 
 def gather_rows(mesh: Optional[DataMesh], x: torch.Tensor, grad_accum: int = 1) -> torch.Tensor:
     """The ranks' per-row vectors [B / W, ...] in the global order [B, ...]."""
-    if mesh is None:
+    if mesh is None or mesh.world == 1:
         return x
     from ..utils.dist_utils import all_gather_rows
 
@@ -215,13 +345,68 @@ def attach_mesh(module: torch.nn.Module, mesh: Optional[DataMesh]) -> None:
             m.mesh = mesh
 
 
+def token_blocks(mesh: Optional[DataMesh], batch: int) -> int:
+    """How many blocks of this rank's rows a module's batch of ``batch``
+    rows is made of: the CFG-doubled sampling batch is 2, a training
+    microbatch 1."""
+    if mesh is None or not mesh.sample_rows:
+        return 1
+    if batch % mesh.sample_rows:
+        raise ValueError(f"a batch of {batch} rows in blocks of {mesh.sample_rows}")
+    return batch // mesh.sample_rows
+
+
+def token_rows(mesh: Optional[DataMesh], n: int, blocks: int = 1, device=None) -> torch.Tensor:
+    """The global positions [n] of this rank's ``n`` tokens (``blocks``
+    blocks of its rows' tokens) in the global token list, which holds each
+    block's tokens of every row-rank in rank order, block after block."""
+    if mesh is None or mesh.world == 1:
+        return torch.arange(n, device=device)
+    per = n // blocks
+    return (torch.arange(blocks, device=device)[:, None] * (mesh.world * per)
+            + mesh.rank * per + torch.arange(per, device=device)[None, :]).reshape(-1)
+
+
+def gather_tokens(mesh: Optional[DataMesh], x: torch.Tensor, blocks: int = 1) -> torch.Tensor:
+    """The row-ranks' tokens ``x`` [n, ...] as the global token list
+    [W * n, ...] (``token_rows``' order); differentiable."""
+    if mesh is None or mesh.world == 1:
+        return x
+    from ..utils.dist_utils import all_gather_rows
+
+    full = all_gather_rows(x.contiguous(), mesh)                     # rank-major
+    if blocks == 1:
+        return full
+    rest = tuple(x.shape[1:])
+    return (full.reshape((mesh.world, blocks, x.shape[0] // blocks) + rest)
+            .transpose(0, 1).reshape((-1,) + rest))
+
+
+@contextlib.contextmanager
+def sampling(module: torch.nn.Module, mesh: Optional[DataMesh], rows: int):
+    """Within the block the modules of ``module`` compute over ``mesh``
+    (``attach_mesh``), this rank holding ``rows`` rows of a sampling call's
+    global batch; the modules' previous meshes are put back on exit."""
+    before = [(m, m.mesh) for m in module.modules() if hasattr(type(m), "mesh")]
+    attach_mesh(module, mesh)
+    if mesh is not None:
+        mesh.sample_rows = rows
+    try:
+        yield
+    finally:
+        if mesh is not None:
+            mesh.sample_rows = None
+        for m, prev in before:
+            m.mesh = prev
+
+
 def broadcast_module(module: torch.nn.Module, mesh: Optional[DataMesh]) -> None:
     """Every rank takes rank 0's parameters and buffers."""
     if mesh is None:
         return
     with torch.no_grad():
         for t in list(module.parameters()) + list(module.buffers()):
-            dist.broadcast(t.data, src=0, group=mesh.group)
+            dist.broadcast(t.data, src=0)
 
 
 def free_port() -> int:

@@ -19,6 +19,13 @@ it from the schedule, as optax evaluates a schedule at its own count).
   with both moments bias-corrected, times -lr.
 - LAMB (``scale_by_adam``: eps 1e-6, eps_root 0; weight decay 0; the trust
   ratio ||p|| / ||u||, 1 where either norm is 0): times -lr.
+
+On a sharded model (``sharding``, parallel/tp.py:Sharding, which the
+train state sets) a parameter is this rank's shard, and the per-leaf
+statistics are the whole leaf's, as GSPMD computes them for the JAX
+package: Adafactor factors the whole shape's dims and takes its row and
+column means and both RMS over all shards, LAMB its two norms; each local
+sum is all-reduced over the ranks that hold the leaf's other shards.
 """
 
 from __future__ import annotations
@@ -27,8 +34,56 @@ import numpy as np
 import torch
 
 
-def _rms(x: torch.Tensor) -> torch.Tensor:
-    return x.square().mean().sqrt()
+def _leaf_sum(x: torch.Tensor, dims, spec=(), mesh=None, keepdim: bool = False):
+    """``x.sum(dims)`` (every dim when ``dims`` is None) of the whole leaf
+    that ``x`` is a shard of (``spec``: the axis splitting each dim): the
+    local sum, all-reduced over the axes that split the summed dims."""
+    dims = tuple(range(x.dim())) if dims is None else tuple(dims)
+    y = x.sum(dim=dims, keepdim=keepdim) if dims else x
+    axes = tuple(spec[d] for d in dims if spec and spec[d])
+    if axes and mesh is not None:
+        comm = mesh.comm(*axes)
+        if comm.size > 1:
+            from ..utils.dist_utils import _all_reduce
+            y = _all_reduce(y.contiguous().clone(), comm.group)
+    return y
+
+
+def _leaf_numel(shape, dims=None) -> int:
+    dims = range(len(shape)) if dims is None else dims
+    return int(np.prod([shape[d] for d in dims]))
+
+
+def _leaf_mean(x: torch.Tensor, dim: int, spec=(), mesh=None, n: int = 0,
+               keepdim: bool = False) -> torch.Tensor:
+    """``x.mean(dim)`` of the whole leaf (``n``: the whole dim's size)."""
+    if not spec:
+        return x.mean(dim=dim, keepdim=keepdim)
+    return _leaf_sum(x, (dim,), spec, mesh, keepdim) / n
+
+
+def _norm(x: torch.Tensor, spec=(), mesh=None) -> torch.Tensor:
+    if not spec:
+        return torch.linalg.vector_norm(x)
+    return _leaf_sum(x.square(), None, spec, mesh).sqrt()
+
+
+def _rms(x: torch.Tensor, spec=(), mesh=None, gshape=None) -> torch.Tensor:
+    if not spec:
+        return x.square().mean().sqrt()
+    return (_leaf_sum(x.square(), None, spec, mesh) / _leaf_numel(gshape)).sqrt()
+
+
+def _shard(optimizer, p):
+    """(spec, mesh, whole shape) of parameter ``p`` under the optimizer's
+    ``sharding`` (replicated without one)."""
+    sharding = getattr(optimizer, "sharding", None)
+    spec = sharding.spec(p) if sharding is not None else ()
+    if not spec:
+        return (), None, tuple(p.shape)
+    from .tp import global_shape
+
+    return spec, sharding.mesh, global_shape(p.shape, spec, sharding.mesh)
 
 
 def factored_dims(shape, min_dim_size_to_factor: int = 128):
@@ -61,7 +116,8 @@ class Adafactor(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 g, state = p.grad, self.state[p]
-                dims = factored_dims(p.shape, group["min_dim_size_to_factor"])
+                spec, mesh, gshape = _shard(self, p)
+                dims = factored_dims(gshape, group["min_dim_size_to_factor"])
                 if not state:
                     state["count"] = 0
                     if dims is None:
@@ -78,13 +134,19 @@ class Adafactor(torch.optim.Optimizer):
                     update = g * v.rsqrt()
                 else:
                     d1, d0 = dims
-                    v_row = state["v_row"].mul_(decay).add_(g_sq.mean(dim=d0), alpha=1.0 - decay)
-                    v_col = state["v_col"].mul_(decay).add_(g_sq.mean(dim=d1), alpha=1.0 - decay)
+                    row_mean = _leaf_mean(g_sq, d0, spec, mesh, gshape[d0])
+                    col_mean = _leaf_mean(g_sq, d1, spec, mesh, gshape[d1])
+                    v_row = state["v_row"].mul_(decay).add_(row_mean, alpha=1.0 - decay)
+                    v_col = state["v_col"].mul_(decay).add_(col_mean, alpha=1.0 - decay)
                     reduced_d1 = d1 - 1 if d1 > d0 else d1
-                    row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
+                    row_spec = tuple(a for i, a in enumerate(spec) if i != d0) if spec else ()
+                    v_row_mean = _leaf_mean(v_row, reduced_d1, row_spec, mesh, gshape[d1],
+                                            keepdim=True)
+                    row_factor = (v_row / v_row_mean).rsqrt()
                     update = g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
-                update = update / torch.clamp(_rms(update) / group["clipping_threshold"], min=1.0)
-                scale = torch.clamp(_rms(p), min=group["min_scale"])
+                update = update / torch.clamp(_rms(update, spec, mesh, gshape)
+                                              / group["clipping_threshold"], min=1.0)
+                scale = torch.clamp(_rms(p, spec, mesh, gshape), min=group["min_scale"])
                 p.sub_(update * group["lr"] * scale)
                 state["count"] += 1
 
@@ -144,7 +206,8 @@ class Lamb(torch.optim.Optimizer):
                 nu_hat = nu / (1 - np.float32(b2) ** t)
                 update = mu_hat / ((nu_hat + group["eps_root"]).sqrt() + group["eps"])
                 update = update + group["weight_decay"] * p
-                p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(update)
+                spec, mesh, _ = _shard(self, p)
+                p_norm, u_norm = _norm(p, spec, mesh), _norm(update, spec, mesh)
                 ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
                                     p_norm / u_norm)
                 p.sub_(update * ratio * group["lr"])

@@ -14,6 +14,11 @@ leaf's raw gradient through as its update, and ``apply_gradients`` adds it
 (ROADMAP queue 3: "frozen means frozen").  The learning rate
 follows a schedule of the optimizer's update count, evaluated before each
 update as optax's ``count`` is.
+
+On a sharded model (``sharding``, parallel/tp.py) each rank's parameters
+and optimizer moments are its shards; the clip's global norm counts each
+leaf once (its shards' squares summed over the ranks that hold them) and
+the optimizers take the whole leaf's statistics (parallel/optim.py).
 """
 
 from __future__ import annotations
@@ -98,10 +103,11 @@ class TrainState:
     def __init__(self, model: nn.Module, optimizer_cfg: dict,
                  lr_schedule: Optional[Callable[[int], float]] = None,
                  grad_clip: Optional[dict] = None,
-                 frozen_prefixes: Sequence[str] = ("text_enc/clip",)):
+                 frozen_prefixes: Sequence[str] = ("text_enc/clip",), sharding=None):
         self.model = model
         self.params = [p for _, p in freeze(model, frozen_prefixes)]
         self.optimizer = build_optimizer(optimizer_cfg, self.params)
+        self.sharding = self.optimizer.sharding = sharding
         base_lr = self.optimizer.param_groups[0]["lr"]
         self.lr_schedule = lr_schedule or (lambda count: base_lr)
         self.max_norm = grad_clip.get("max_norm", 1.0) if grad_clip else None
@@ -109,11 +115,16 @@ class TrainState:
 
     def apply_gradients(self) -> None:
         """One update from the parameters' ``.grad``, then clear them."""
-        grads = [p.grad for p in self.params if p.grad is not None]
+        live = [p for p in self.params if p.grad is not None]
+        grads = [p.grad for p in live]
         if self.max_norm is not None and grads:
             # optax.clip_by_global_norm: scale by max_norm / norm when norm >= max_norm
-            norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(g) for g in grads]))
+            if self.sharding is None:
+                norm = torch.linalg.vector_norm(torch.stack(
+                    [torch.linalg.vector_norm(g) for g in grads]))
+            else:
+                norm = self.sharding.sum_sq(
+                    [(p.grad, self.sharding.spec(p)) for p in live]).sqrt()
             factor = torch.where(norm < self.max_norm, torch.ones_like(norm),
                                  self.max_norm / norm)
             for g in grads:

@@ -33,7 +33,22 @@ the evaluation protocol's window count, ``(n - pre) // (window - pre)``, and
 returns fewer frames when they do not fill a whole window (388 of 400 at
 196-frame windows overlapping by 4).
 
-Serving over several cards (``mesh``) is not ported and raises.
+Serving over several cards (``mesh``, parallel/mesh.py; the JAX
+package's multi-chip serving): one process a rank, the model on every rank
+(replicated; a model sharded over an expert or tensor axis samples too).
+Rank 0 runs the dispatcher (and, in tools/torch_serve.py, the HTTP front)
+and broadcasts each sampling call's batch and generator state; every rank
+samples its block of the bucket's rows (``apis/test.py:mesh_sample``: the
+draws at the global shape, the MoEs routed over the whole dispatch) and
+rank 0 gathers the rows, so a dispatch gives what the one-card server
+gives.  The other ranks run ``follow`` until rank 0 stops.  A follower
+waits in a broadcast, a collective that fails once the process group's
+timeout passes, so from ``start`` on rank 0 broadcasts a keep-alive when
+it has broadcast nothing for ``keepalive_s``: an idle server lives on.  A batch bucket
+that the mesh's row-ranks do not divide raises ``ValueError``, as the JAX
+package's does.  Long-form dispatches run on rank 0 alone, whole, as the
+JAX package runs its windowed sampler outside the mesh (a sharded model
+raises there).
 """
 
 from __future__ import annotations
@@ -49,10 +64,9 @@ import numpy as np
 import torch
 
 from ..apis.factory import make_text_batch
+from ..apis.test import mesh_sample
 from ..apis.windowed import denormalize, windowed_sample, windowed_sample_batch
 from ..diffusion import RepaintConfig, generator_randn
-
-MULTI_GPU = "ROADMAP queue 1: multi-GPU: the model across cards"
 
 
 @dataclass
@@ -114,7 +128,12 @@ class MotionGenServer:
         ``max_seq_len``; RePaint over ``pre_frames`` with the blend).
     step_cache: a ``StepCacheConfig`` for every sampling call (layer-residual
         reuse, diffusion/stepcache.py), or None (exact).
-    mesh: not ported (raises).
+    mesh: a ``parallel.mesh.DataMesh`` to serve over (module docstring);
+        every rank builds the server, rank 0 serves and the others
+        ``follow``.
+    keepalive_s: on a mesh, the longest rank 0 stays silent once started;
+        well inside the process group's timeout (parallel/mesh.py
+        ``DEFAULT_TIMEOUT_S``).
     """
 
     def __init__(self, arch, *, max_seq_len: int = 196, input_feats: int = 322,
@@ -124,10 +143,8 @@ class MotionGenServer:
                  compute_dtype: Optional[torch.dtype] = None,
                  mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None,
                  mesh=None, window: Optional[int] = None, pre_frames: int = 4,
-                 repaint: Optional[RepaintConfig] = None, step_cache=None):
-        if mesh is not None:
-            raise NotImplementedError(f"mesh serving (batch rows over several cards): "
-                                      f"{MULTI_GPU}")
+                 repaint: Optional[RepaintConfig] = None, step_cache=None,
+                 keepalive_s: float = 60.0):
         if list(batch_buckets) != sorted(set(int(b) for b in batch_buckets)):
             raise ValueError("batch_buckets must be ascending and unique")
         self._arch = arch
@@ -149,6 +166,20 @@ class MotionGenServer:
         self._repaint = repaint
         self._compute_dtype = compute_dtype
         self._step_cache = step_cache
+        self._mesh = mesh
+        if mesh is not None:
+            bad = [b for b in self._buckets if b % mesh.world]
+            if bad:
+                raise ValueError(f"batch_buckets {bad} not divisible by the mesh's "
+                                 f"data-parallel size {mesh.world}")
+        self._followers_stopped = False
+        # rank 0's broadcasts: one at a time (a sampling call's collectives
+        # included), the keep-alive thread's too
+        self._comm_lock = threading.Lock()
+        self._keepalive_s = float(keepalive_s)
+        self._last_send = time.monotonic()
+        self._quiet = threading.Event()
+        self._keepalive: Optional[threading.Thread] = None
 
         self._q: "queue.Queue" = queue.Queue()
         self._lock = threading.Lock()
@@ -167,13 +198,33 @@ class MotionGenServer:
             if self._thread is None or not self._thread.is_alive():
                 self._thread = threading.Thread(target=self._loop, daemon=True)
                 self._thread.start()
+            if self._mesh is not None and self._mesh.lead and self._keepalive is None:
+                self._keepalive = threading.Thread(target=self._keep_alive, daemon=True)
+                self._keepalive.start()
         return self
+
+    def _keep_alive(self):
+        """Rank 0's keep-alive: an ``idle`` broadcast whenever nothing was
+        broadcast for ``keepalive_s``, so that no follower's wait outlasts
+        the process group's timeout."""
+        while not self._quiet.wait(self._keepalive_s / 4):
+            with self._comm_lock:
+                if (not self._followers_stopped
+                        and time.monotonic() - self._last_send >= self._keepalive_s):
+                    self._send(("idle",))
 
     def stop(self, timeout: float = 30.0):
         t = self._thread
         if t is not None and t.is_alive():
             self._q.put(_STOP)
             t.join(timeout)
+        self._quiet.set()
+        if self._keepalive is not None:
+            self._keepalive.join(timeout)
+        if self._mesh is not None and self._mesh.lead and not self._followers_stopped:
+            with self._comm_lock:
+                self._followers_stopped = True
+                self._send(("stop",))
         # a request enqueued while the dispatcher was exiting would never
         # resolve: fail it instead of stranding its caller
         while True:
@@ -307,9 +358,47 @@ class MotionGenServer:
                     return
 
     def _sample(self, batch, generator):
-        return self._arch.sample(batch, generator=generator,
-                                 compute_dtype=self._compute_dtype,
-                                 step_cache=self._step_cache)
+        if self._mesh is None:
+            return self._arch.sample(batch, generator=generator,
+                                     compute_dtype=self._compute_dtype,
+                                     step_cache=self._step_cache)
+        with self._comm_lock:
+            self._send(("sample", batch, generator.get_state()))
+            return self._mesh_sample(batch, generator)
+
+    def _mesh_sample(self, batch, generator):
+        return mesh_sample(self._arch, batch, self._mesh, generator=generator,
+                           compute_dtype=self._compute_dtype, step_cache=self._step_cache)
+
+    def _send(self, message):
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([message], src=0, device=self._mesh.host_device)
+        self._last_send = time.monotonic()
+
+    def _receive(self):
+        import torch.distributed as dist
+
+        box = [None]
+        dist.broadcast_object_list(box, src=0, device=self._mesh.host_device)
+        return box[0]
+
+    def follow(self):
+        """A mesh server's rank other than 0: sample this rank's rows of
+        every call that rank 0 broadcasts, until rank 0 stops."""
+        if self._mesh is None:
+            raise ValueError("follow() serves a rank of a mesh server")
+        with torch.inference_mode():
+            while True:
+                message = self._receive()
+                if message[0] == "stop":
+                    return
+                if message[0] == "idle":
+                    continue
+                _, batch, state = message
+                generator = torch.Generator(device=self._arch.device)
+                generator.set_state(state)
+                self._mesh_sample(batch, generator)
 
     def _dispatch(self, group):
         """Split a group by (long?, sequence bucket, condition signature),
@@ -380,6 +469,9 @@ class MotionGenServer:
         outpainting its overlap from the previous one.  Shorter requests
         ride padded windows whose outputs are dropped."""
         try:
+            if self._mesh is not None and self._mesh.model_sharded:
+                raise NotImplementedError("long-form requests of a model sharded over an "
+                                          "expert or tensor axis: they run on rank 0 alone")
             bucket = next((b for b in self._buckets if b >= len(group)), len(group))
             pad = bucket - len(group)
             reqs = group + [group[-1]] * pad

@@ -17,7 +17,12 @@
   the uninterrupted one would.  A file is written under a temporary name
   and renamed into place, so a run killed while it writes leaves no
   partial ``epoch_N.pth``; ``max_to_keep`` prunes the oldest (the JAX
-  package's orbax manager does both).
+  package's orbax manager does both).  ``save_state_params`` writes a
+  training state's model as ``save_params`` does.
+- Under ``torch.distributed`` every rank calls the savers: a sharded state's
+  (``state.sharding``, the model across cards) shards are gathered whole,
+  and global rank 0 alone writes (``writes``) the file that one process
+  would write.  Every rank reads the whole file and keeps its shards.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .convert import from_jax_params, from_jax_variables, to_jax_variables
 
@@ -77,8 +83,10 @@ def align_block_layout(model_cfg: dict, tree):
     params = tree.get("params", tree) if isinstance(tree, dict) else tree
     if sub.get("pipeline_axis") is not None or (isinstance(params, dict)
                                                 and "stacked_blocks" in params):
-        raise NotImplementedError("pipeline_axis (pipeline parallelism): stacked "
-                                  "decoder blocks")
+        from ..parallel.mesh import PIPELINE
+
+        raise NotImplementedError(f"pipeline_axis (pipeline parallelism): stacked "
+                                  f"decoder blocks: {PIPELINE}")
     return tree
 
 
@@ -144,6 +152,29 @@ def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None
 
 
 # ------------------------------------------------------------ training state
+def writes() -> bool:
+    """True on the process that writes files: the only one, or global
+    rank 0 of a process group (its ranks hold equal or gathered states)."""
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+def _whole_model(state) -> Dict[str, torch.Tensor]:
+    """The model's state_dict, a sharded one's shards gathered (every rank
+    calls it)."""
+    from ..parallel.tp import full_state_dict
+
+    sharding = getattr(state, "sharding", None)
+    return (state.model.state_dict() if sharding is None
+            else full_state_dict(state.model, sharding))
+
+
+def save_state_params(path: str, state) -> None:
+    """``save_params`` of a training state's whole model, by the writer."""
+    sd = _whole_model(state)
+    if writes():
+        save_params(path, to_jax_variables(sd))
+
+
 def save_checkpoint(ckpt_dir: str, state, epoch: int,
                     max_to_keep: Optional[int] = None) -> str:
     """Write ``state`` (a ``parallel.TrainState`` that ``train_model`` gave
@@ -151,13 +182,21 @@ def save_checkpoint(ckpt_dir: str, state, epoch: int,
     ``ckpt_dir/epoch_{epoch}.pth``: into a temporary file of ``ckpt_dir``
     first, renamed into place once whole.  With ``max_to_keep``, only that
     many of the newest epochs' files stay.  Returns the path."""
+    from ..parallel.tp import full_optimizer_state
+
     sampler = getattr(state, "sampler", None)
     generator = getattr(state, "generator", None)
+    model = _whole_model(state)
+    optimizer = full_optimizer_state(state.optimizer, state.params,
+                                     getattr(state, "sharding", None))
+    path = os.path.join(ckpt_dir, f"epoch_{epoch}.pth")
+    if not writes():
+        return path
     payload = {
         "epoch": int(epoch),
         "step": int(state.step),
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "model": model,
+        "optimizer": optimizer,
         "generator": None if generator is None else generator.get_state(),
         "generator_device": None if generator is None else str(generator.device),
         "torch_rng": torch.get_rng_state(),
@@ -166,7 +205,6 @@ def save_checkpoint(ckpt_dir: str, state, epoch: int,
         "sampler": None if sampler is None else sampler_state(sampler),
     }
     os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(ckpt_dir, f"epoch_{epoch}.pth")
     fd, tmp = tempfile.mkstemp(prefix=f".epoch_{epoch}.", suffix=".tmp", dir=ckpt_dir)
     try:
         with os.fdopen(fd, "wb") as f:
@@ -206,9 +244,12 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 def load_checkpoint(path: str, state) -> int:
     """Restore what ``save_checkpoint`` wrote into ``state`` (and its
     generator and sampler); returns the epoch it was saved after."""
+    from ..parallel.tp import load_local_optimizer_state, load_local_state_dict
+
     payload = torch.load(path, map_location="cpu", weights_only=False)
-    state.model.load_state_dict(payload["model"], strict=True)
-    state.optimizer.load_state_dict(payload["optimizer"])
+    sharding = getattr(state, "sharding", None)
+    load_local_state_dict(state.model, payload["model"], sharding)
+    load_local_optimizer_state(state.optimizer, state.params, payload["optimizer"], sharding)
     state.step = payload["step"]
     generator = getattr(state, "generator", None)
     if generator is not None and payload["generator"] is not None:

@@ -97,6 +97,25 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def flax_leaf(name: str, ndim: int):
+    """The flax path of the state_dict entry ``name`` (a tensor of ``ndim``
+    dims; the ``params`` collection's name for it) and, for each flax dim,
+    the tensor's dim: a 2- or 3-d ``weight`` is a kernel with its axes
+    reversed, a 1-d one a norm's scale, an embedding's its ``embedding``."""
+    *parents, key = [f"layers_{p}" if p.isdigit() else p for p in name.split(".")]
+    dims = tuple(range(ndim))
+    if key == "weight":
+        if parents and parents[-1] in EMBEDDINGS:
+            key = "embedding"
+        elif ndim in (2, 3):
+            key, dims = "kernel", tuple(reversed(dims))
+        elif ndim == 1:
+            key = "scale"
+        else:
+            raise ValueError(f"{name}: a {ndim}-d weight has no flax counterpart")
+    return parents + [key], dims
+
+
 def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """The port's state_dict -> flax ``{"params": ..., "batch_stats": ...}``
     (``batch_stats`` only where the model has BatchNorm buffers) of numpy
@@ -105,25 +124,17 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
     trees: dict = {"params": {}, "batch_stats": {}, "quant": {}}
     back = {v: k for k, v in STATS.items()}
     for name, value in state_dict.items():
-        path = [f"layers_{p}" if p.isdigit() else p for p in name.split(".")]
-        *parents, key = path
+        a = _array(value.detach().cpu().numpy())
+        (*parents, key), dims = flax_leaf(name, a.ndim)
         if key == "num_batches_tracked":
             continue
-        a = _array(value.detach().cpu().numpy())
         col = "params"
         if key in back:
             col, key = "batch_stats", back[key]
         elif key.endswith(SCALES):
             col = "quant"
-        elif key == "weight":
-            if parents and parents[-1] in EMBEDDINGS:
-                key = "embedding"
-            elif a.ndim in (2, 3):
-                key, a = "kernel", np.transpose(a)
-            elif a.ndim == 1:
-                key = "scale"
-            else:
-                raise ValueError(f"{name}: a {a.ndim}-d weight has no flax counterpart")
+        elif dims != tuple(range(a.ndim)):
+            a = np.transpose(a, dims)
         node = trees[col]
         for p in parents:
             node = node.setdefault(p, {})

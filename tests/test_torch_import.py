@@ -82,13 +82,16 @@ soak_report = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(soak_report)
 soak_report.parse_log("", 32)
 spec = importlib.util.spec_from_file_location("torch_dist_ranks", "tests/torch_dist_ranks.py")
+sys.modules["torch_dist_ranks"] = dist_ranks = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(dist_ranks)
+spec = importlib.util.spec_from_file_location("torch_model_ranks", "tests/torch_model_ranks.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for name in ("data", "data.datasets", "eval", "utils.checkpoint", "utils.torch_convert",
              "apis.eval_hook", "models.controlnet", "apis.windowed", "data.beat2",
              "data.native", "eval.gesture_metrics", "ops.fk", "ops.rotation",
              "ops.smplx_lbs", "serving", "serving.server", "diffusion.stepcache",
              "ops.quant", "models.baselines", "models.diffusion_transformer",
-             "parallel.mesh", "utils.dist_utils"):
+             "parallel.mesh", "utils.dist_utils", "parallel.tp", "parallel.optim"):
     assert "motioncraft_tpu_torch." + name in names, name
 print(len(names))
 """

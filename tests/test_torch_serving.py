@@ -139,8 +139,11 @@ def test_denormalize_applied(arch):
 def test_length_validation_and_error_fanout(arch):
     with pytest.raises(ValueError, match="together"):
         _server(arch, std=np.ones((D,), np.float32))  # no mean
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: multi-GPU"):
-        _server(arch, mesh=object())
+    # a mesh of 2 row-ranks cannot split the bucket of 1
+    # (tests/test_torch_mesh_serving.py serves over one)
+    from motioncraft_tpu_torch.parallel.mesh import DataMesh
+    with pytest.raises(ValueError, match="not divisible"):
+        _server(arch, mesh=DataMesh(2, 0, torch.device("cpu"), "gloo"))
     srv = _server(arch)
     with pytest.raises(ValueError, match="lengths"):
         srv.generate(["a", "b", "c"], [8, 16])  # count mismatch
@@ -358,12 +361,14 @@ def test_http_generate_long(arch):
 
 def test_torch_serve_options():
     """tools/torch_serve.py builds a warmed-up server from a config on the
-    CPU and refuses what the port does not run; --int8 is ported now
-    (W8A8 when bare, as tools/serve.py's)."""
+    CPU and refuses what it cannot mean; --int8 is ported (W8A8 when bare,
+    as tools/serve.py's) and --data-parallel too
+    (tests/test_torch_mesh_serving.py)."""
     tool = _tool()
     assert tool.parse_args(["configs/tests/tiny_t2m.py", "--int8"]).int8 == "w8a8"
-    with pytest.raises(SystemExit, match="ROADMAP queue 1: multi-GPU"):
-        tool.parse_args(["configs/tests/tiny_t2m.py", "--data-parallel"])
+    assert tool.parse_args(["configs/tests/tiny_t2m.py", "--data-parallel"]).data_parallel
+    with pytest.raises(SystemExit, match="--devices counts the ranks of --data-parallel"):
+        tool.parse_args(["configs/tests/tiny_t2m.py", "--devices", "2"])
     args = tool.parse_args([os.path.join(REPO, "configs", "tests", "tiny_t2m.py"),
                             "--device", "cpu", "--bf16", "--buckets", "1", "2",
                             "--seq-buckets", "8", "16", "--warmup"])

@@ -373,14 +373,14 @@ def test_train_model_loss_falls():
 
 
 def test_train_model_cut_options_raise():
-    """A mesh with an expert axis (the model across cards) and float16
-    raise; fp16={} trains in bf16 (the JAX package's default compute dtype)
+    """A mesh with a pipe axis (pipeline parallelism) and float16 raise;
+    fp16={} trains in bf16 (the JAX package's default compute dtype)
     against f32 masters; an optimizer neither package builds raises."""
     from motioncraft_tpu_torch.parallel.mesh import create_mesh
 
     arch = build_torch(tiny_t2m_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="the model across cards"):
-        create_mesh(2, axes=("data", "expert"), shape=(1, 2))
+    with pytest.raises(NotImplementedError, match="multi-GPU: pipeline parallelism"):
+        create_mesh(2, axes=("data", "pipe"), shape=(1, 2))
     with pytest.raises(NotImplementedError):
         train_model(arch, [make_train_batch(2, max_seq_len=16)], fp16={"dtype": "float16"})
     before = {k: v.clone() for k, v in arch.model.state_dict().items()}

@@ -241,8 +241,8 @@ def lmdb_speech_set(tmp_path):
 
 @pytest.mark.parametrize("argv, item", [
     (["--devices", "2", "--device", "cuda"], "this host has 1 CUDA device"),
-    (["--tensor-parallel", "2"], "ROADMAP queue 1: multi-GPU: the model across cards"),
-    (["--pipeline-parallel", "2"], "ROADMAP queue 1: multi-GPU: the model across cards"),
+    (["--tensor-parallel", "2", "--multihost"], "--tensor-parallel with --multihost"),
+    (["--pipeline-parallel", "2"], "ROADMAP queue 1: multi-GPU: pipeline parallelism"),
     (["--multihost", "--devices", "2"], "one rank a process"),
     (["--multihost", "--num-processes", "2"], "need a coordinator address"),
     ([os.path.join(REPO, "configs", "remodiffuse", "remodiffuse_t2m.py")],
@@ -253,11 +253,12 @@ def lmdb_speech_set(tmp_path):
     ids=["devices", "tensor-parallel", "pipeline-parallel", "multihost", "coordinator",
          "remodiffuse", "lmdb-cache", "fp16"])
 def test_options_not_ported_are_refused(argv, item, tmp_path, monkeypatch):
-    """What the port does not run is refused: tensor and pipeline
-    parallelism, ReMoDiffuse training, an LMDB cache, float16; and of the
-    data-parallel options, more ranks than the host has cards (here one,
-    pretended), --multihost with several ranks a process, and a
-    multi-process run without its coordinator."""
+    """What the port does not run is refused: pipeline parallelism, tensor
+    parallelism across hosts (as tools/train.py refuses it; it runs within
+    a host: tests/test_torch_tp_cli.py), ReMoDiffuse training, an LMDB
+    cache, float16; and of the data-parallel options, more ranks than the
+    host has cards (here one, pretended), --multihost with several ranks a
+    process, and a multi-process run without its coordinator."""
     if "cuda" in argv:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)

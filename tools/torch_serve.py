@@ -21,8 +21,17 @@ Usage:
   curl -s localhost:8080/generate_long -d '{"text": "a long walk", "total_frames": 400}'
   curl -s localhost:8080/stats
 
-Not ported, and refused: --data-parallel (ROADMAP queue 1: multi-GPU: the
-model across cards).
+``--data-parallel`` serves over several cards, one process a rank
+(serving/server.py): this process is one rank of torchrun's environment
+(``WORLD_SIZE`` > 1; NCCL), else it spawns one rank per visible card
+(``--devices N`` on the CPU: N gloo ranks); rank 0 runs the HTTP front and
+the dispatcher, every rank samples its rows of each dispatch, and the
+batch buckets must be multiples of the rank count.
+
+  python tools/torch_serve.py CONFIG --checkpoint params.npz --data-parallel --buckets 2 4 8
+  torchrun --nproc-per-node 4 tools/torch_serve.py CONFIG --data-parallel --buckets 4 8
+  python tools/torch_serve.py configs/tests/tiny_t2m.py --device cpu --data-parallel \
+      --devices 2 --buckets 2 4 --port 8080
 """
 
 import argparse
@@ -66,18 +75,22 @@ def parse_args(argv=None):
                    help="sample every bucket once before accepting traffic")
     p.add_argument("--cfg-options", nargs="*", default=None)
     add_lowprec_args(p)
-    # tools/serve.py's options that the port does not run yet
-    p.add_argument("--data-parallel", action="store_true")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="shard each dispatch's batch rows over one process a card "
+                        "(batch buckets must tile them)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="with --data-parallel: the ranks to spawn (default: one a "
+                        "visible card; N gloo ranks with --device cpu)")
     args = lowprec_from_args(p.parse_args(argv))
-    if args.data_parallel:
-        raise SystemExit("--data-parallel: serving over several cards is not ported "
-                         "(ROADMAP queue 1: multi-GPU: the model across cards)")
+    if args.devices is not None and not args.data_parallel:
+        raise SystemExit("--devices counts the ranks of --data-parallel")
     return args
 
 
-def build_server(args, logger=print):
+def build_server(args, logger=print, mesh=None):
     """The configured, not yet started MotionGenServer (warmed up with
-    ``--warmup``)."""
+    ``--warmup``), over ``mesh`` when given (every rank builds it; rank 0
+    warms it up while the others follow)."""
     import torch
 
     from motioncraft_tpu_torch.config import Config, cfg_options_from_args
@@ -88,6 +101,7 @@ def build_server(args, logger=print):
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
+    device = args.device if mesh is None else mesh.device
     cfg = Config.fromfile(args.config)
     cfg.merge_from_dict(cfg_options_from_args(args.cfg_options))
     model_cfg = cfg.model["model"]
@@ -95,7 +109,7 @@ def build_server(args, logger=print):
     max_seq_len = base_cfg.get("max_seq_len", 196)
     input_feats = base_cfg.get("input_feats", 322)
 
-    arch = build_architecture(cfg.model, device=args.device)
+    arch = build_architecture(cfg.model, device=device)
     if args.checkpoint or args.torch_checkpoint:
         load_eval_variables(cfg.model, arch.model, checkpoint=args.checkpoint,
                             torch_checkpoint=args.torch_checkpoint)
@@ -114,8 +128,8 @@ def build_server(args, logger=print):
                           seq_buckets=args.seq_buckets, max_wait_ms=args.max_wait_ms,
                           seed=args.seed, compute_dtype=compute_dtype, mean=mean, std=std,
                           window=args.window, pre_frames=args.pre_frames,
-                          step_cache=step_cache_from_args(args, logger))
-    if args.warmup:
+                          step_cache=step_cache_from_args(args, logger), mesh=mesh)
+    if args.warmup and (mesh is None or mesh.lead):
         logger(f"warmup: sampling batch buckets {sorted(set(args.buckets))}")
         srv.warmup()
     return srv
@@ -170,16 +184,22 @@ def make_handler(srv):
     return Handler
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    srv = build_server(args).start()
+def serve(args, mesh=None):
+    """Build the server over ``mesh`` and serve: rank 0 (or one process)
+    over HTTP until interrupted, the other ranks following it."""
+    srv = build_server(args, mesh=mesh)
+    if mesh is not None and not mesh.lead:
+        srv.follow()
+        return
+    srv.start()
     from http.server import ThreadingHTTPServer
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(srv))
+    ranks = "" if mesh is None else f", {mesh.world} ranks over {mesh.backend}"
     print(f"serving on http://{args.host}:{httpd.server_address[1]} "
           f"(buckets {args.buckets}, wait {args.max_wait_ms} ms, "
           f"{'bf16' if args.bf16 else 'f32'}{f', int8 {args.int8}' if args.int8 else ''}"
           f"{f', step cache {args.step_cache}' if args.step_cache > 1 else ''} on "
-          f"{args.device})", flush=True)
+          f"{args.device}{ranks})", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
@@ -187,6 +207,36 @@ def main(argv=None):
     finally:
         httpd.server_close()
         srv.stop()
+
+
+def _rank(rank, args):
+    """One spawned rank of ``--data-parallel``."""
+    from motioncraft_tpu_torch.parallel.mesh import create_mesh, local_device
+
+    serve(args, create_mesh(device=local_device(rank) if args.device == "cuda" else "cpu"))
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if not args.data_parallel:
+        return serve(args)
+    import torch
+
+    from motioncraft_tpu_torch.parallel.mesh import (create_mesh, init_distributed, launch,
+                                                     local_device)
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
+    backend = "nccl" if args.device == "cuda" else "gloo"
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # torchrun: this process is a rank
+        rank = init_distributed(backend=backend)
+        return serve(args, create_mesh(
+            device=local_device(rank) if args.device == "cuda" else "cpu"))
+    n = args.devices or (torch.cuda.device_count() if args.device == "cuda" else 0)
+    if n < 2:
+        raise SystemExit(f"--data-parallel over {n} rank(s): give --devices N (N >= 2) "
+                         "on the CPU, or run where several cards are visible")
+    launch(_rank, n, args=(args,), backend=backend)
 
 
 if __name__ == "__main__":

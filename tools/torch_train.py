@@ -63,8 +63,24 @@ loads the same checkpoint on every rank.
       --num-processes 16 --process-id $RANK
   python tools/torch_train.py configs/tests/tiny_t2m.py --device cpu --devices 2
 
-Refused rather than ignored: tensor and pipeline parallelism (ROADMAP
-queue 1: multi-GPU: the model across cards), fp16 in float16 (an f16 K6,
+Tensor parallelism, as tools/train.py's ``--tensor-parallel T`` means it:
+the N ranks (``--devices N``, default one a visible card) form the mesh
+``(data N / (T * ep), expert ep, tensor T)`` with ``ep`` 2 where N / T is
+even, else 1; each rank keeps its shards of the experts (over ``expert``)
+and of the FFNs' hidden dims (over ``tensor``), the rows of a batch split
+over data x expert (parallel/mesh.py, parallel/tp.py).  Checkpoints and
+params.npz are written whole (the shards gathered on rank 0), and
+``--resume`` reads the whole file on every rank; the evaluation hook runs
+on rank 0 over a whole copy of the weights.
+
+  python tools/torch_train.py configs/stmogen/t2m_motionx_0_125b.py --devices 8 \
+      --tensor-parallel 2
+  python tools/torch_train.py configs/tests/tiny_t2m.py --device cpu --devices 2 \
+      --tensor-parallel 2
+
+Refused rather than ignored: pipeline parallelism (ROADMAP queue 1:
+multi-GPU: pipeline parallelism), ``--tensor-parallel`` with
+``--multihost``, fp16 in float16 (an f16 K6,
 ROADMAP queue 1: the rest of training); ReMoDiffuse and MoMatMoGen, which
 the JAX package's loss cannot train (it passes them no retrieval; ROADMAP
 queue 3).
@@ -74,10 +90,11 @@ import argparse
 import logging
 import os
 import sys
+import types
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-MODEL_ACROSS_CARDS = "ROADMAP queue 1: multi-GPU: the model across cards"
+PIPELINE = "ROADMAP queue 1: multi-GPU: pipeline parallelism"
 CONTROLNETS = ("ControlT2MHalf", "ControlT2MHalfMCM")
 RETRIEVAL_MODELS = ("ReMoDiffuseTransformer", "MoMatMoGenTransformer")
 
@@ -110,12 +127,17 @@ def parse_args(argv=None):
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
                    help="default: nccl on the card, gloo on the CPU")
-    # tools/train.py's options that the port does not run yet
-    p.add_argument("--tensor-parallel", type=int, default=1)
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="shard the FFNs' hidden dims over T ranks (and the experts over "
+                        "2 where the rest is even), as tools/train.py's option")
+    # tools/train.py's option that the port does not run yet
     p.add_argument("--pipeline-parallel", type=int, default=1)
     args = p.parse_args(argv)
-    if args.tensor_parallel > 1 or args.pipeline_parallel > 1:
-        raise SystemExit(f"--tensor-parallel and --pipeline-parallel: {MODEL_ACROSS_CARDS}")
+    if args.pipeline_parallel > 1:
+        raise SystemExit(f"--pipeline-parallel: {PIPELINE}")
+    if args.tensor_parallel > 1 and args.multihost:
+        raise SystemExit("--tensor-parallel with --multihost is not supported yet (tensor "
+                         "collectives stay within a host; shard tp within it)")
     if args.multihost and (args.devices or 1) > 1:
         raise SystemExit("--multihost runs one rank a process, one card each: start one "
                          "process a card (--devices counts this host's ranks without it)")
@@ -180,6 +202,27 @@ def base_graft(path: str, copy_blocks_num: int, log=print):
     return transform
 
 
+def keeping_rng(fn):
+    """``fn`` with numpy's and torch's global generators put back after it:
+    on a mesh rank 0 alone runs the evaluation hook, whose data pipeline
+    draws from them, and every rank's loader must go on drawing the same
+    crops."""
+    def wrapped(*args, **kwargs):
+        import numpy as np
+        import torch
+
+        saved = (np.random.get_state(), torch.get_rng_state(),
+                 torch.cuda.get_rng_state_all() if torch.cuda.is_available() else None)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            np.random.set_state(saved[0])
+            torch.set_rng_state(saved[1])
+            if saved[2] is not None:
+                torch.cuda.set_rng_state_all(saved[2])
+    return wrapped
+
+
 def file_logger(path: str) -> logging.Logger:
     """A logger to stdout and, appended, to ``path``, in the JAX package's
     line format (motioncraft_tpu/utils/logger.py)."""
@@ -237,22 +280,36 @@ def run(args):
                                 backend=backend(args))
         device = local_device(rank) if args.device == "cuda" else "cpu"
         return train(args, create_mesh(device=device))
-    n = args.devices or 1
+    tp = args.tensor_parallel
+    n = args.devices or (torch.cuda.device_count() if tp > 1 and args.device == "cuda"
+                         else 1)
+    if tp > 1 and n % tp:
+        raise SystemExit(f"--tensor-parallel {tp} does not divide {n} devices")
     if n == 1:
         return train(args, None)
     if args.device == "cuda" and n > torch.cuda.device_count():
         raise SystemExit(f"--devices {n}: this host has {torch.cuda.device_count()} "
                          "CUDA device(s), one a rank")
-    return launch(_rank, n, args=(args,), backend=backend(args))[0]
+    return launch(_rank, n, args=(args, n), backend=backend(args))[0]
 
 
-def _rank(rank: int, args) -> int:
+def mesh_axes(n: int, tp: int):
+    """(axes, shape) of ``n`` ranks at ``--tensor-parallel tp``:
+    tools/train.py's mesh, data alone without tensor parallelism."""
+    if tp <= 1:
+        return ("data",), (n,)
+    ep = 2 if (n // tp) % 2 == 0 and n // tp >= 2 else 1
+    return ("data", "expert", "tensor"), (n // (tp * ep), ep, tp)
+
+
+def _rank(rank: int, args, n: int) -> int:
     """One rank of ``--devices N``: its card (or the CPU), the mesh of the
     N spawned ranks, the training; returns the update count."""
     from motioncraft_tpu_torch.parallel.mesh import create_mesh, local_device
 
     device = local_device(rank) if args.device == "cuda" else "cpu"
-    return int(train(args, create_mesh(args.devices, device=device)).step)
+    axes, shape = mesh_axes(n, args.tensor_parallel)
+    return int(train(args, create_mesh(n, axes=axes, shape=shape, device=device)).step)
 
 
 def train(args, mesh):
@@ -264,16 +321,17 @@ def train(args, mesh):
     from motioncraft_tpu_torch.config import Config
     from motioncraft_tpu_torch.data import RankRows, build_dataloader
     from motioncraft_tpu_torch.registry import build_architecture, build_dataset
-    from motioncraft_tpu_torch.utils.checkpoint import save_checkpoint, save_params
+    from motioncraft_tpu_torch.utils.checkpoint import save_checkpoint, save_state_params
 
     cfg = load_config(args)
     work_dir = args.work_dir or os.path.join(
         "outputs", os.path.splitext(os.path.basename(args.config))[0])
-    lead = mesh is None or mesh.rank == 0
+    sharded = mesh is not None and mesh.model_sharded
+    lead = mesh is None or mesh.lead
     if lead:
         os.makedirs(work_dir, exist_ok=True)
     logger = (file_logger(os.path.join(work_dir, "train.log")) if lead
-              else silent_logger(mesh.rank))
+              else silent_logger(mesh.global_rank))
     device = args.device if mesh is None else mesh.device
     optimizer_config = cfg.get("optimizer_config", {}) or {}
     grad_accum = args.grad_accum or optimizer_config.get("cumulative_iters", 1)
@@ -307,13 +365,22 @@ def train(args, mesh):
                     mesh.barrier()
             return wrapped
 
-        @on_lead
+        def whole(state):
+            """The model's whole state_dict, its shards gathered (every
+            rank calls it on a sharded mesh)."""
+            from motioncraft_tpu_torch.parallel.tp import full_state_dict
+
+            return full_state_dict(state.model, state.sharding)
+
         def checkpoint_fn(state, epoch):
             if (epoch + 1) % interval:
                 return
+            # every rank: a sharded state is gathered, rank 0 writes
             save_checkpoint(ckpt_dir, state, epoch, max_to_keep=max_keep)
-            save_params(os.path.join(work_dir, "params.npz"), state.model)
+            save_state_params(os.path.join(work_dir, "params.npz"), state)
             logger.info(f"saved checkpoint at epoch {epoch}")
+            if mesh is not None:
+                mesh.barrier()
 
         eval_fn = None
         if cfg.get("evaluation") and cfg.data.get("test"):
@@ -324,11 +391,30 @@ def train(args, mesh):
             if isinstance(ev_cfg, dict):
                 ev_cfg["device"] = device
             ev = dict(cfg["evaluation"])
-            eval_fn = on_lead(EvalHook(build_dataset(test_cfg), arch,
-                                       batch_size=ev.get("batch_size", 32),
-                                       interval=ev.get("interval", 1), limit=ev.get("limit"),
-                                       save_best=ev.get("save_best"), work_dir=work_dir,
-                                       logger=logger.info))
+            test_set = build_dataset(test_cfg)
+            # on a sharded mesh rank 0 evaluates a whole copy of the weights
+            eval_arch = (build_architecture(cfg.model, device=device) if sharded and lead
+                         else arch)
+            hook = EvalHook(test_set, eval_arch,
+                            batch_size=ev.get("batch_size", 32),
+                            interval=ev.get("interval", 1), limit=ev.get("limit"),
+                            save_best=ev.get("save_best"), work_dir=work_dir,
+                            logger=logger.info)
+            eval_fn = on_lead(hook if mesh is None else keeping_rng(hook))
+            if sharded:
+                @keeping_rng
+                def whole_hook(sd, epoch):
+                    eval_arch.model.load_state_dict(sd, strict=True)
+                    eval_arch.eval()
+                    hook(types.SimpleNamespace(model=eval_arch.model), epoch)
+
+                def eval_fn(state, epoch):
+                    if (epoch + 1) % hook.interval:
+                        return
+                    sd = whole(state)
+                    if lead:
+                        whole_hook(sd, epoch)
+                    mesh.barrier()
 
         transform = None
         if args.base_checkpoint:
