@@ -3,9 +3,10 @@
 evaluation, its music-to-dance and speech-to-gesture long-form
 evaluations, its baselines, ControlNet training, baseline training,
 bf16 / remat / optax-default-optimizer training, data-parallel training
-and evaluation (2 processes), and the model across ranks (the expert- and
-tensor-parallel flagship, mesh serving; 2 processes) on one NVIDIA GPU,
-and hold each of its CUDA kernels against its plain PyTorch version.
+and evaluation (2 processes), the model across ranks (the expert- and
+tensor-parallel flagship, mesh serving; 2 processes) and pipeline
+parallelism (2 stages) on one NVIDIA GPU, and hold each of its CUDA
+kernels against its plain PyTorch version.
 
 Run from the root of the repository, on a machine with one card and the CUDA
 toolkit:
@@ -66,7 +67,10 @@ Phases; any failure exits non-zero:
      sampling K6 on the local experts at the eval capacity of a dispatch
      of 2 requests, K1 at F / 2 and K2 at f / 2 [4 x 196, 1536] x [12,
      128, 256], b2 zeros; K4's route over a 2-rank serving dispatch of 4),
-     each with the launches of its phase-22 run: max abs error against its
+     each with the launches of its phase-22 run, and phase 23's (a pipeline
+     stage's K4 positions, K5 and K6 at a training microbatch of
+     MP_BATCH / PP_MICROBATCHES = 16 rows, K1-K4 at a sampling microbatch
+     of 2 CFG rows), each with the launches of its phase-23 run: max abs error against its
      tolerance (1e-2 x max |plain| for bf16; K4 exact in its
      integers, its route's gates within 1e-6; on every path a route case
      leaning to one expert must drop choices); the kernel's device time from
@@ -179,7 +183,8 @@ Phases; any failure exits non-zero:
      JSON line); one M2D track of three windows at --step-cache 2 through
      tools/torch_m2d_test.py (windows 1 and 2 are the harmonized loop: its
      first step after each re-noising jump computes), launches checked; a W8A8
-     MotionGenServer on phase 12's traffic, latency p50/p95
+     MotionGenServer, warmed up on the batch buckets its traffic can fill
+     (LOWPREC_SERVE_WARM), on phase 12's traffic, latency p50/p95
  14. the trained-weights quality harness over a learnable tree of 256
      clips (tools/make_tiny_data.py --protocol-learnable, written here) with
      configs/tests/protocol_learn.py's flagship: the evaluator trainer
@@ -342,7 +347,23 @@ Phases; any failure exits non-zero:
      data-mesh MotionGenServer answering MP_SERVE_REQUESTS requests in
      dispatches of 4 against the one-card server on the same dispatches
      (MODEL_REL_TOL), requests/s of both
- 23. one JSON line of the kernels' numbers, and last the device line
+ 23. pipeline parallelism, in phase 22's launch of 2 gloo ranks: the
+     flagship (its config, gate noise 1.0) with pipeline_axis on a pipe
+     mesh of 2 (data 1 x pipe 2, layers 0-1 on rank 0, 2-3 on rank 1),
+     MP_STEPS Adam steps at a global batch of MP_BATCH in PP_MICROBATCHES
+     microbatches through train_model, against one process running the same
+     pipelined config (the layers per microbatch in sequence) on the card:
+     the losses (MODEL_REL_TOL) and the gathered whole parameters
+     (DP_PARAM_TOL), each rank's layers its stage's and no others, its
+     block parameter and Adam bytes half one process's, K4's positions, K5
+     and K6 launched on each rank as its stage's microbatches imply, step
+     ms and the messages' calls, bytes and ms; the ranks' params.npz (blocks
+     stacked, written by rank 0) equals the gathered weights and loads into
+     the plain flagship on one card, and a DDIM-50 batch of
+     MP_SAMPLE_REQUESTS requests sampled over the pipe mesh (K1-K4 on each
+     stage) equals the pipelined config's per-microbatch sampling in one
+     process from that file (MODEL_REL_TOL)
+ 24. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -442,6 +463,10 @@ LOWPREC_CLIPS = BATCH  # one batch (two before phase 18)
 # the W8A8 server's requests a client (phase 12's 4 before phase 19 came,
 # which put the script over 1000 s on one host; 2 before phase 20 came)
 LOWPREC_SERVE_PER_CLIENT = 1
+# the batch buckets the W8A8 server warms up: those its traffic can fill
+# (SERVE_CLIENTS short requests, the long ones in pairs); every bucket of
+# SERVE_BUCKETS before phase 23 came
+LOWPREC_SERVE_WARM = (1, 2, 4)
 INT8_PEAK = 1979e12   # H100 SXM dense int8 tensor cores, OP/s
 W8A8_SENS = 1.5
 W8A8_FIRST_SHARE = 1e-3
@@ -500,6 +525,10 @@ DP_TIMEOUT_S = 600
 MP_WORLD, MP_BATCH, MP_STEPS, MP_SAMPLE_REQUESTS = 2, 32, 2, 2
 MP_MESHES = (("ep", ("data", "expert"), (1, 2)), ("tp", ("data", "expert", "tensor"), (1, 1, 2)))
 MP_SERVE_BUCKETS, MP_SERVE_REQUESTS, MP_TIMEOUT_S = (2, 4), 4, 900
+# phase 23: pipeline parallelism in phase 22's launch (the docstring's
+# phase 23): the flagship pipelined over a pipe mesh of MP_WORLD stages,
+# each step's global batch of MP_BATCH in PP_MICROBATCHES microbatches
+PP_MICROBATCHES = 2
 # the bf16 instantiations of K1-K3 (bf16 inference)
 BF16_KERNELS = ("grouped_ffn", "head_ffn", "stma_linear_attention")
 # training's kernels: K4's positions, K5, K6
@@ -988,11 +1017,18 @@ def mp_paths(torch, cfg, dev):
     launches: K6 on the local experts ([E / 2, C, D]) and on hidden
     slices (F / 2) in training at MP_BATCH; in sampling, K6 on the local
     experts at the eval capacity, K1 and K2 on hidden slices; K4's route
-    over a 2-rank serving dispatch (the largest bucket)."""
+    over a 2-rank serving dispatch (the largest bucket); and phase 23's:
+    a pipeline stage's training microbatch (K4's positions, K5, K6) and
+    sampling microbatch (K1-K4)."""
     train = flagship_inputs(torch, cfg, dev, B2=MP_BATCH, Bt=MP_BATCH)["fused_expert_ffn"]
     B2 = 2 * MP_SAMPLE_REQUESTS
     sample = flagship_inputs(torch, cfg, dev, B2=B2, training=False)
     serve = flagship_inputs(torch, cfg, dev, B2=2 * MP_SERVE_BUCKETS[-1], training=False)
+    # phase 23: a stage's training microbatch; a sampling microbatch of the
+    # CFG-doubled batch (no layer-0 half: the pipelined stack has no dedup)
+    mb = MP_BATCH // PP_MICROBATCHES
+    pp_train = flagship_inputs(torch, cfg, dev, B2=mb, Bt=mb)
+    pp_sample = flagship_inputs(torch, cfg, dev, B2=B2 // PP_MICROBATCHES, training=False)
     k6 = "fused_expert_ffn"
     return [
         (f"ep train B={MP_BATCH}", {k6: [mp_slice(torch, k6, a, experts=2) for a in train]}),
@@ -1004,12 +1040,17 @@ def mp_paths(torch, cfg, dev):
                           for a in sample["grouped_ffn"]],
           "head_ffn": [mp_slice(torch, "head_ffn", a, hidden=2) for a in sample["head_ffn"]]}),
         (f"serve {MP_WORLD} ranks b={MP_SERVE_BUCKETS[-1]}", {"moe_route": serve["moe_route"]}),
+        (f"pp train microbatch B={mb}", {k: pp_train[k] for k in TRAINING_KERNELS}),
+        (f"pp sample microbatch of {B2 // PP_MICROBATCHES} CFG rows",
+         {k: pp_sample[k] for k in ("grouped_ffn", "head_ffn", "stma_linear_attention",
+                                    "moe_route")}),
     ]
 
 
 # phase 22's run of each of mp_paths' paths (by the path's first words)
 MP_PATH_RUNS = {"ep train": "ep_train", "tp train": "tp_train", "ep sample": "ep_sample",
-                "tp sample": "tp_sample", f"serve {MP_WORLD} ranks": "serve"}
+                "tp sample": "tp_sample", f"serve {MP_WORLD} ranks": "serve",
+                "pp train": "pp_train", "pp sample": "pp_sample"}
 
 
 def bf16_inputs(torch, inputs):
@@ -2883,8 +2924,9 @@ def lowprec_m2d(torch, m2d_cfg, dev, config=M2D_CONFIG):
 
 def lowprec_serve(torch, cfg, sd, dev):
     """A MotionGenServer holding a W8A8 (f32 activations) flagship: warmed
-    up on every bucket pair, then phase 12's traffic: finite results, K1 and
-    K2 launch no time, K3/K4 what the dispatches imply; latency p50/p95."""
+    up on the bucket pairs its traffic can reach (LOWPREC_SERVE_WARM), then
+    phase 12's traffic: finite results, K1 and K2 launch no time, K3/K4
+    what the dispatches imply; latency p50/p95."""
     import numpy as np
     from motioncraft_tpu_torch.apis import int8_quantize_
     from motioncraft_tpu_torch.apis.windowed import num_windows
@@ -2907,7 +2949,7 @@ def lowprec_serve(torch, cfg, sd, dev):
     srv = MotionGenServer(arch, max_seq_len=T, input_feats=D, batch_buckets=SERVE_BUCKETS,
                           seq_buckets=SERVE_SEQ_BUCKETS, max_wait_ms=20.0, seed=SEED)
     t0 = time.perf_counter()
-    srv.warmup()
+    srv.warmup(LOWPREC_SERVE_WARM)
     warm = time.perf_counter() - t0
     reset_launch_counts()
     with srv:
@@ -5193,9 +5235,155 @@ def mp_train(torch, job, sd, mesh, dev):
     return out
 
 
+def pp_config(cfg):
+    """Phase 23's model config: the flagship's with pipeline_axis."""
+    import copy
+
+    cfg = copy.deepcopy(cfg)
+    cfg["model"]["pipeline_axis"] = "pipe"
+    cfg["model"]["pipeline_microbatches"] = PP_MICROBATCHES
+    return cfg
+
+
+def pp_counts(steps, layers, denoiser_calls=0):
+    """A stage's launches: training's over ``steps`` steps of
+    PP_MICROBATCHES microbatches through its ``layers`` layers
+    (training_counts), or sampling's over ``denoiser_calls`` calls, each
+    microbatch of each layer routing its text and its motion MoE (no text
+    hoist) and running one SFFN and one global attention."""
+    if not denoiser_calls:
+        return training_counts(steps * PP_MICROBATCHES, layers)
+    n = layers * PP_MICROBATCHES * denoiser_calls
+    return {"moe_route": 2 * n, "grouped_ffn": 2 * n, "head_ffn": n,
+            "stma_linear_attention": n}
+
+
+def pp_bytes(torch, state):
+    """The bytes of a training state's parameters and optimizer moments,
+    the decoder layers' ("block") apart from the rest, and the layers it
+    holds."""
+    from motioncraft_tpu_torch.parallel.pp import is_stage_key
+
+    names = {p: n for n, p in state.model.named_parameters()}
+
+    def split(named):
+        out = {"block": 0, "rest": 0}
+        for n, t in named:
+            out["block" if is_stage_key(n) else "rest"] += t.numel() * t.element_size()
+        return out
+
+    return {"param_bytes": split(state.model.named_parameters()),
+            "opt_bytes": split((names[p], v) for p, st in state.optimizer.state.items()
+                               for v in st.values() if torch.is_tensor(v) and v.dim()),
+            "layers": list(state.model.layer_ids)}
+
+
+def pp_train(torch, job, sd, mesh, dev):
+    """Phase 23 on this rank of the pipe mesh, or (``mesh`` None) the
+    pipelined config in one process: MP_STEPS Adam steps through
+    train_model, the gate noise drawn (no pins: a microbatch's forward is
+    the same computation on a stage as in one process); one process saves
+    its trainable parameters to ``job["pp_ref"]``; on the mesh, the ranks'
+    params.npz (rank 0 writes it and holds it and the gathered parameters
+    against the reference) and a DDIM-50 batch over the pipe mesh.
+    Returns losses, step ms, launches, the messages' calls, bytes and ms,
+    the bytes and layers this rank holds."""
+    import numpy as np
+    from motioncraft_tpu_torch.apis import mesh_sample, train_model
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.parallel.mesh import shard_batch
+    from motioncraft_tpu_torch.parallel.tp import full_state_dict
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.checkpoint import load_params, save_state_params
+    from motioncraft_tpu_torch.utils.convert import from_jax_params
+    from motioncraft_tpu_torch.utils.dist_utils import traffic
+
+    with skip_init(torch):
+        arch = build_architecture(job["pp_cfg"], device=dev)
+    arch.model.load_state_dict(sd, strict=True)
+    batches = [shard_batch(dict(np.load(f)), mesh) for f in job["batches"]]
+    lines = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    traffic(reset=True, timing=True)
+    state = train_model(arch, batches, optimizer_cfg=job["optimizer"],
+                        lr_config=job["lr_config"], max_epochs=1, steps_per_epoch=len(batches),
+                        seed=SEED, log_interval=1, logger=lines.append,
+                        frozen_prefixes=("text_enc/clip",), mesh=mesh)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    counts, coll = launch_counts(), traffic(reset=True, timing=False)
+    out = {"losses": [float(m.split(" loss=")[1].split()[0]) for m in lines if " loss=" in m],
+           "step_ms": [float(m.split("step_ms=")[1]) for m in lines if "step_ms=" in m],
+           "counts": counts, "traffic": coll, "steps": state.step,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
+           else None, **pp_bytes(torch, state)}
+    frozen = {n for n, p in arch.model.named_parameters() if not p.requires_grad}
+    whole = full_state_dict(arch.model, state.sharding)  # whole on global rank 0
+    if mesh is None:
+        torch.save({n: v for n, v in whole.items() if n not in frozen}, job["pp_ref"])
+    else:
+        save_state_params(job["pp_npz"], state)  # every rank; rank 0 writes
+        if mesh.lead:
+            loaded = from_jax_params(load_params(job["pp_npz"])["params"])
+            out["npz_exact"] = (set(loaded) == set(whole)
+                                and all(torch.equal(loaded[k], whole[k]) for k in whole))
+            want, lr = torch.load(job["pp_ref"]), job["optimizer"]["lr"]
+            worst, far = 0.0, 0
+            for n, w in want.items():
+                diff = (whole[n] - w).abs()
+                worst = max(worst, float(diff.max()) / lr)
+                far += int(((diff > DP_PARAM_TOL * lr).sum()
+                            > max(1, int(DP_PARAM_FRAC * diff.numel())))
+                           or float(diff.max()) > 2 * len(batches) * lr)
+            out["param_worst_lr"], out["param_far_tensors"] = worst, far
+            out["moved"] = sum(not torch.equal(whole[n], sd[n].cpu()) for n in want)
+            out["compared"] = len(want)
+        arch.eval()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            got = mesh_sample(arch, job["sample_batch"], mesh,
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 23))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out["sample_s"] = time.perf_counter() - t0
+        out["sample"], out["sample_counts"] = got.float().cpu(), launch_counts()
+        out["sample_traffic"] = traffic(reset=True)
+    del arch, state, whole
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def pp_from_npz(torch, job, model_cfg, dev):
+    """A DDIM-50 batch of phase 23's requests in one process from the
+    ranks' params.npz, loaded (load_eval_variables: the blocks unstacked)
+    into ``model_cfg``'s model: the output and the launches."""
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.checkpoint import load_eval_variables
+
+    with skip_init(torch):
+        arch = build_architecture(model_cfg, device=dev)
+    load_eval_variables(model_cfg, arch.model, checkpoint=job["pp_npz"])
+    arch.eval()
+    reset_launch_counts()
+    with torch.inference_mode():
+        got = arch.sample(job["sample_batch"],
+                          generator=torch.Generator(device=dev).manual_seed(SEED + 23))
+    out = got.float().cpu(), launch_counts()
+    del arch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def mp_rank(rank, kind, job):
-    """A rank of phase 22: its device, each mesh of MP_MESHES in turn, then
-    the data-mesh server."""
+    """A rank of phase 22: its device, each mesh of MP_MESHES in turn, the
+    data-mesh server, then phase 23's pipe mesh."""
     import torch
     from motioncraft_tpu_torch.parallel.mesh import create_mesh
 
@@ -5207,6 +5395,8 @@ def mp_rank(rank, kind, job):
            for tag, axes, shape in MP_MESHES}
     out["serve"] = mp_serve(torch, job["cfg"], sd, create_mesh(device=dev), dev,
                             torch.load(job["serve_pins"]))
+    out["pp"] = pp_train(torch, job, sd, create_mesh(device=dev, axes=("data", "pipe"),
+                                                     shape=(1, MP_WORLD)), dev)
     return out
 
 
@@ -5237,7 +5427,9 @@ def phase_model_parallel(torch, full_cfg, sd, dev="cuda"):
                    ref_params=os.path.join(tmp, "ref.pt"), optimizer=full_cfg["optimizer"],
                    lr_config=full_cfg["lr_config"], sample_pins=os.path.join(tmp, "spins.pt"),
                    sample_ref=os.path.join(tmp, "sref.pt"),
-                   serve_pins=os.path.join(tmp, "vpins.pt"), batches=[])
+                   serve_pins=os.path.join(tmp, "vpins.pt"), batches=[],
+                   pp_cfg=pp_config(cfg), pp_ref=os.path.join(tmp, "pp_ref.pt"),
+                   pp_npz=os.path.join(tmp, "pp", "params.npz"))
         torch.save({k: v.cpu() for k, v in sd.items()}, job["sd"])
         for i in range(MP_STEPS):
             path = os.path.join(tmp, f"b{i}.npz")
@@ -5263,6 +5455,7 @@ def phase_model_parallel(torch, full_cfg, sd, dev="cuda"):
         vpins = {}
         one_serve = mp_serve(torch, cfg, sd, None, main_dev, vpins)
         torch.save(vpins, job["serve_pins"])
+        one_pp = pp_train(torch, job, sd, None, main_dev)
         print(f"[mp] one process: flagship B={MP_BATCH} {MP_STEPS} steps, step ms "
               f"{ref['step_ms']} (first = warm-up), losses {ref['losses']}; DDIM-50 batch of "
               f"{MP_SAMPLE_REQUESTS} in {one_s:.2f} s; server {MP_SERVE_REQUESTS} requests in "
@@ -5338,10 +5531,77 @@ def phase_model_parallel(torch, full_cfg, sd, dev="cuda"):
         check(worst <= MODEL_REL_TOL, f"the mesh server against the one-card server: {worst}")
         out["serve"] = {"counts": srv["counts"], "rps": srv["rps"],
                         "one_rps": one_serve["rps"]}
-        print(f"[mp] two ranks (both meshes' training and sampling, then the server) took "
-              f"{wall:.1f} s")
-    print(f"[mp] phase 22 took {time.perf_counter() - t_phase:.1f} s")
+        print(f"[mp] two ranks (both meshes' training and sampling, the server, then phase "
+              f"23's pipe mesh) took {wall:.1f} s")
+        out |= phase_pipeline(torch, cfg, job, ranks, one_pp, main_dev, card)
+    print(f"[mp] phases 22-23 took {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def phase_pipeline(torch, cfg, job, ranks, one, dev, card):
+    """Phase 23's checks of the ranks' results (``ranks``: each rank's of
+    mp_rank, their ["pp"]) against one process's (``one``), and the
+    per-microbatch sampling in one process from the ranks' params.npz;
+    returns rank 0's launches of the training and of the sampling."""
+    t0 = time.perf_counter()
+    L, S = cfg["model"]["num_layers"], MP_WORLD
+    mb = MP_BATCH // PP_MICROBATCHES
+    calls = sum(int(n) for n in str(cfg["diffusion_test"]["respace"]).split(","))
+    want_train = pp_counts(MP_STEPS, L // S)
+    want_sample = pp_counts(0, L // S, denoiser_calls=calls)
+    print(f"[pp] one process, pipelined config ({PP_MICROBATCHES} microbatches of {mb}): "
+          f"{MP_STEPS} Adam steps of {MP_BATCH}, step ms {one['step_ms']} (first = warm-up), "
+          f"losses {one['losses']}, max memory {one['peak_gib']} GiB; parameters "
+          f"{one['param_bytes']} B, Adam moments {one['opt_bytes']} B; card {card}")
+    for r, res in enumerate(ranks):
+        got = res["pp"]
+        coll = ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 2**20:.1f} MiB {v['ms']:.1f} ms"
+                         for k, v in sorted(got["traffic"].items()))
+        print(f"[pp] pipe rank {r} (layers {got['layers']}): {len(got['losses'])} steps, step ms "
+              f"{got['step_ms']} (first = warm-up), max memory {got['peak_gib']} GiB; parameters "
+              f"{got['param_bytes']} B, Adam moments {got['opt_bytes']} B; messages and "
+              f"collectives over {MP_STEPS} steps: {coll}; launches {got['counts']}; card {card}")
+        check(got["layers"] == list(range(r * L // S, (r + 1) * L // S)),
+              f"pipe rank {r} holds layers {got['layers']}")
+        check(got["steps"] == MP_STEPS, f"pipe rank {r}: steps {got['steps']}")
+        for kind in ("param_bytes", "opt_bytes"):
+            check(got[kind]["block"] * S == one[kind]["block"] > 0
+                  and got[kind]["rest"] == one[kind]["rest"],
+                  f"pipe rank {r}: {kind} {got[kind]} against one process's {one[kind]}")
+        check(got["counts"] == dict.fromkeys(got["counts"], 0) | want_train,
+              f"pipe rank {r} training launches {got['counts']} != {want_train}")
+        check(got["sample_counts"] == dict.fromkeys(got["sample_counts"], 0) | want_sample,
+              f"pipe rank {r} sampling launches {got['sample_counts']} != {want_sample}")
+        for i, (a, b) in enumerate(zip(got["losses"], one["losses"])):
+            tol = MODEL_REL_TOL * max(1.0, abs(b)) + 1e-5  # printed to 5 decimals
+            check(abs(a - b) <= tol, f"pipe rank {r} step {i} loss {a} against one process {b}")
+    r0 = ranks[0]["pp"]
+    print(f"[pp] 2 stages vs one process: losses {r0['losses']} / {one['losses']}; whole "
+          f"parameters after {MP_STEPS} Adam steps: largest difference "
+          f"{r0['param_worst_lr']:.3e} lr, {r0['param_far_tensors']} tensors past "
+          f"{DP_PARAM_TOL} lr beyond {DP_PARAM_FRAC} of their elements, {r0['moved']} of "
+          f"{r0['compared']} moved; params.npz equals the gathered weights: {r0['npz_exact']}")
+    check(r0["param_far_tensors"] == 0, "pipe: parameters against one process")
+    check(r0["npz_exact"], "pipe: params.npz against the gathered weights")
+    # the ranks' params.npz in one process: the pipelined config per
+    # microbatch, and the plain flagship (the blocks unstacked)
+    ref, ref_counts = pp_from_npz(torch, job, job["pp_cfg"], dev)
+    plain, _ = pp_from_npz(torch, job, cfg, dev)
+    scale = float(ref.abs().max())
+    worst = max(float((res["pp"]["sample"] - ref).abs().max()) for res in ranks)
+    print(f"[pp] DDIM-50 batch of {MP_SAMPLE_REQUESTS} over the pipe mesh in "
+          f"{r0['sample_s']:.2f} s against one process's per-microbatch sampling from "
+          f"params.npz: max abs diff {worst:.3e} (tol {MODEL_REL_TOL} x max(1, {scale:.4g})); "
+          f"the plain flagship from params.npz (routing the whole doubled batch) "
+          f"{float((plain - ref).abs().max()):.3e} from it; launches {r0['sample_counts']} "
+          f"(one process {ref_counts}); messages "
+          + ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 2**20:.1f} MiB"
+                      for k, v in sorted(r0["sample_traffic"].items())))
+    check(worst <= MODEL_REL_TOL * max(1.0, scale), "pipe: sample against one process")
+    check(bool(torch.isfinite(plain).all()) and tuple(plain.shape) == tuple(ref.shape),
+          "pipe: the plain flagship's batch from params.npz")
+    print(f"[pp] phase 23's checks took {time.perf_counter() - t0:.1f} s")
+    return {"pp_train": {"counts": r0["counts"]}, "pp_sample": {"counts": r0["sample_counts"]}}
 
 
 def main():
@@ -5493,15 +5753,17 @@ def main():
         # the S2G ControlNet's one) and its share of the 2-process evaluation
         row["dp_launches"] = {k: dp[k]["counts"][name] for k in ("t2m", "s2g", "eval")}
         # phase 22: rank 0's steps and sampling batch on each mesh, its
-        # share of the mesh server's dispatches; each of phase 2's cases at
-        # phase 22's shapes carries the launches of the run it stands for
+        # share of the mesh server's dispatches, and phase 23's steps and
+        # sampling batch on the first pipeline stage; each of phase 2's
+        # cases at phase 22's and 23's shapes carries the launches of the
+        # run it stands for
         row["mp_launches"] = {k: v["counts"][name] for k, v in mp.items()}
         for case in row["cases"]:
             run = next((v for k, v in MP_PATH_RUNS.items() if case["path"].startswith(k)), None)
             if run is not None:
                 case["launches"] = mp[run]["counts"][name]
                 check(case["launches"] > 0, f"{name} at {case['path']} was launched no time "
-                      "in phase 22")
+                      "in phases 22-23")
         check(row["launches"] > 0, f"{name} was launched no time on its path")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

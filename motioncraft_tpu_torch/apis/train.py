@@ -30,6 +30,12 @@ over the expert group and the FFNs sum their partial products over the
 tensor group (models/moe.py, models/blocks.py), each gradient is reduced
 over the ranks that hold the same shard, and the clip and the optimizers
 take whole-leaf statistics (parallel/train_state.py, parallel/optim.py).
+
+On a mesh with a ``pipe`` axis (a model with ``pipeline_axis``) every rank
+keeps the layers of its pipeline stage (the same cut); the stack runs as a
+GPipe pipeline over the stages (parallel/pp.py), each (data shard,
+microbatch) routing on its own, and the stages' replicated leaves'
+gradients, each stage's share, are summed over ``pipe``.
 """
 
 from __future__ import annotations
@@ -268,7 +274,8 @@ def train_model(arch, dataloader: Iterable[Dict[str, Any]], *,
     (``data/loader.py:RankRows``, or a ``dist=True`` loader), ``arch`` lives
     on the mesh's device, every rank starts from rank 0's weights
     (broadcast after ``model_transform``, then cut to this rank's shards
-    on an expert or tensor axis) and the same seed, and the caller's
+    on an expert or tensor axis, or to its stage's layers on a pipe axis)
+    and the same seed, and the caller's
     ``checkpoint_fn`` / ``eval_fn`` run on every rank (the CLI writes on
     rank 0 alone)."""
     optimizer_cfg = optimizer_cfg or {"type": "Adam"}

@@ -51,7 +51,7 @@ from torch import nn
 
 from ..ops.quant import dequant, qdot, qeinsum, quantize_weight
 from ..ops.sffn import head_ffn
-from ..parallel.mesh import PIPELINE, draw_rows
+from ..parallel.mesh import ACROSS_CARDS, draw_rows
 from ..parallel.tp import split_axis
 from ..utils.dist_utils import all_reduce_sum, tp_copy, tp_reduce
 
@@ -264,7 +264,7 @@ class SFFN(nn.Module):
         comm = tensor_comm(self, self, "w1", 2)
         if self.w1.dtype == torch.int8:
             if comm is not None:
-                raise NotImplementedError(f"int8 SFFN weights split over a mesh: {PIPELINE}")
+                raise NotImplementedError(f"int8 SFFN weights split over a mesh: {ACROSS_CARDS}")
             y = self._forward_int8(x).reshape(B, T, D)
         elif self.training:
             xh, w1, b1, w2, b2 = promote_dtype(tp_copy(x, comm).reshape(B, T, self.num_heads, -1),

@@ -89,7 +89,7 @@ from ..ops.expert_ffn import fused_expert_ffn
 from ..ops.moe_ffn import BLOCK, grouped_ffn
 from ..ops.moe_positions import moe_positions_counts, moe_route
 from ..ops.quant import dequant, expert_ffn_q
-from ..parallel.mesh import PIPELINE, draw_rows, gather_tokens, token_blocks, token_rows
+from ..parallel.mesh import ACROSS_CARDS, draw_rows, gather_tokens, token_blocks, token_rows
 from ..parallel.tp import split_axis
 from ..utils.dist_utils import (all_gather_rows, all_reduce_sum, all_to_all, tp_copy,
                                 tp_reduce)
@@ -209,7 +209,7 @@ class MoELayer(nn.Module):
         ep, tp = self._comms()
         if w1.dtype == torch.int8:
             if ep is not None or tp is not None:
-                raise NotImplementedError(f"int8 experts split over a mesh: {PIPELINE}")
+                raise NotImplementedError(f"int8 experts split over a mesh: {ACROSS_CARDS}")
             if not hasattr(self, "expert_w1_wscale"):
                 return self._forward_slots_int8(x, route, own)
             w1 = dequant(w1, self.expert_w1_wscale, x.dtype)

@@ -31,6 +31,19 @@ motioncraft_tpu/models/stmogen.py).
     MoE computed in every layer, the MoE aux losses and SAMI's template KL
     terms collected; with ``remat`` each layer is rematerialized in the
     backward pass (``DiffusionTransformerBase.call_layer``).
+  - ``pipeline_axis`` (the JAX package's field; parallel/pp.py): both
+    forwards run the stack as a GPipe pipeline of ``pipeline_microbatches``
+    microbatches over the attached mesh's ``pipe`` axis, each stage holding
+    its own layers (``pipeline_stage_``; they keep their global names
+    ``block_{i}``), each microbatch routing its MoEs on its own; with no
+    pipe axis (one process), the layers run per microbatch in sequence.
+    The step cache, dropout in training and per-layer ``ffn_cfg`` lists
+    are refused in the JAX package's words, and the text hoist and the
+    layer-0 CFG dedup are off, as there.  ``remat`` is not read (the JAX
+    package's stacked layers are not rematerialized).  The gate noise of (layer, microbatch) draws
+    from the step's generator folded by the global layer id and the
+    microbatch's first global row (``pp.fold_generator``), so that S stages
+    draw what one process draws.
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import PIPE_AXIS
 from ..registry import ATTENTIONS, SUBMODULES
 from . import body_layout
 from .blocks import SFFN, Linear
@@ -138,6 +152,8 @@ class STMoGenTransformer(DiffusionTransformerBase):
     """MotionCraft main model: body-part PoseEncoder/Decoder + STMA/SFFN
     stack."""
 
+    mesh = None  # the pipe mesh of a pipelined stack (parallel/mesh.py:attach_mesh)
+
     def __init__(self, input_feats: int = 263, max_seq_len: int = 240,
                  latent_dim: int = 512, time_embed_dim: int = 2048, num_layers: int = 8,
                  ca_block_cfg: Optional[dict] = None, ffn_cfg: Optional[dict] = None,
@@ -147,18 +163,21 @@ class STMoGenTransformer(DiffusionTransformerBase):
                  scale_func_cfg: Optional[dict] = None,
                  moe_route_loss_weight: float = 1.0,
                  template_kl_loss_weight: float = 0.0001,
-                 pipeline_axis: Optional[str] = None,
+                 pipeline_axis: Optional[str] = None, pipeline_microbatches: int = 2,
                  cfg_layer0_dedup: bool = True, text_hoist: bool = True,
                  remat: bool = False):
         super().__init__(input_feats, max_seq_len, latent_dim, time_embed_dim,
                          num_layers, text_encoder, use_pos_embedding, remat)
-        if pipeline_axis is not None:
-            from ..parallel.mesh import PIPELINE
-
-            raise NotImplementedError(f"pipeline_axis (pipeline parallelism): {PIPELINE}")
+        if pipeline_axis is not None and isinstance(ffn_cfg, (list, tuple)):
+            raise ValueError("pipeline_axis requires homogeneous layers "
+                             "(per-layer ffn_cfg lists cannot be stacked)")
+        self.pipeline_axis = pipeline_axis
+        self.pipeline_microbatches = int(pipeline_microbatches)
+        self.layer_ids = list(range(num_layers))  # the layers this module holds
         if ca_block_cfg is None or ffn_cfg is None or isinstance(ffn_cfg, (list, tuple)):
             raise NotImplementedError("STMoGenTransformer needs one ca_block_cfg and "
                                       "one ffn_cfg for every layer")
+        self.ca_block_cfg, self.ffn_cfg = dict(ca_block_cfg), dict(ffn_cfg)
         self.moe_route_loss_weight = moe_route_loss_weight
         self.cfg_layer0_dedup, self.text_hoist = cfg_layer0_dedup, text_hoist
         self.template_kl_loss_weight = template_kl_loss_weight
@@ -177,10 +196,122 @@ class STMoGenTransformer(DiffusionTransformerBase):
         return {"moe_route_loss": self.moe_route_loss_weight,
                 "template_kl_loss": self.template_kl_loss_weight}
 
+    @property
+    def blocks(self):
+        return [getattr(self, f"block_{i}") for i in self.layer_ids]
+
+    # ------------------------------------------------- pipeline parallelism
+    def pipeline_stage_(self, stage: int, stages: int) -> None:
+        """Keep the layers of pipeline stage ``stage`` of ``stages`` and drop
+        the others (their parameters go with them)."""
+        from ..parallel.pp import stage_layers
+
+        keep = stage_layers(self.num_layers, stages, stage)
+        for i in self.layer_ids:
+            if i not in keep:
+                delattr(self, f"block_{i}")
+        self.layer_ids = list(keep)
+
+    def _pipe_mesh(self):
+        mesh = self.mesh
+        return mesh if mesh is not None and mesh.size(PIPE_AXIS) > 1 else None
+
+    def _decode(self, h, train: bool):
+        """The output decoder; in training on a stage other than the last,
+        on its weights detached: the last stage alone computes the loss's
+        share of their gradient (and of the stack output's)."""
+        pipe = self._pipe_mesh()
+        if not train or pipe is None or pipe.coords[PIPE_AXIS] == pipe.size(PIPE_AXIS) - 1:
+            return self.out(h)
+        detached = {n: p.detach() for n, p in self.out.named_parameters()}
+        return torch.func.functional_call(self.out, detached, (h,))
+
+    def _pipeline(self, h, xf, emb, src_mask, cond_type, motion_length, num_intervals,
+                  train: bool, generator=None, aux_losses=None, kl_losses=None):
+        """The stack as a GPipe pipeline (parallel/pp.py:gpipe) of this
+        module's layers, each (data shard, microbatch) routing on its own;
+        in training the aux losses are the mean over microbatches of the
+        per-microbatch layer sums, summed over the stages and averaged
+        over ``data`` (the MoE's appended to ``aux_losses``, SAMI's KL to
+        ``kl_losses`` with the loss's data sum in mind)."""
+        from ..parallel.mesh import sampling
+        from ..parallel.pp import fold_generator, gpipe
+        from ..utils.dist_utils import all_reduce_sum
+
+        mesh = self.mesh
+        if train and (self.ca_block_cfg.get("dropout", 0.0) or self.ffn_cfg.get("dropout", 0.0)):
+            raise ValueError("pipeline_axis training path does not thread "
+                             "dropout rngs; set dropout=0")
+        M = self.pipeline_microbatches
+        mb = h.shape[0] // M
+        first = 0 if mesh is None else mesh.rank * h.shape[0]
+        noisy = (train and generator is not None
+                 and self.ca_block_cfg.get("gate_noise", 0) > 0)
+        layers = list(zip(self.layer_ids, self.blocks))
+
+        def stage_fn(x, c, k):
+            xf_, emb_, mask_, cond_, ml_ = c
+            aux, kl = [], []
+            for i, layer in layers:
+                g = fold_generator(generator, i, first + k * mb) if noisy else None
+                x = layer(x, xf_, emb_, mask_, cond_, ml_, num_intervals, generator=g,
+                          aux_losses=aux if train else None,
+                          kl_losses=kl if train else None)
+            terms = {}
+            if aux:
+                terms["aux_loss"] = sum(aux)
+            if kl:
+                terms["kl_loss"] = sum(kl)
+            return x, terms
+
+        params = [p for layer in self.blocks for p in layer.parameters() if p.requires_grad]
+        # the layers route each microbatch on its own: no mesh in them
+        with sampling(nn.ModuleList(self.blocks), None, 0):
+            out, aux = gpipe(stage_fn, params, h, (xf, emb, src_mask, cond_type, motion_length),
+                             n_microbatch=M, mesh=mesh)
+        W = 1 if mesh is None else mesh.world
+        if "aux_loss" in aux and aux_losses is not None:
+            aux_losses.append(all_reduce_sum(aux["aux_loss"], mesh) / W)
+        if "kl_loss" in aux and kl_losses is not None:
+            kl_losses.append(aux["kl_loss"] / W)  # MotionDiffusion.loss sums it over data
+        return out
+
+    def _pipeline_test(self, h, src_mask, emb, xf_out, motion_length, num_intervals):
+        """The CFG-doubled batch through the pipeline as the JAX package
+        lays it out: on a data mesh the global doubled batch (every rank's
+        text rows, then their unconditional rows) split over ``data``, each
+        rank's share in microbatches, and the output's rows of this rank's
+        two halves gathered back."""
+        from ..utils.dist_utils import all_gather_rows
+
+        mesh = self.mesh
+        W = 1 if mesh is None else mesh.world
+        local = (h, xf_out, emb, src_mask, motion_length)
+        if W > 1:
+            local = tuple(None if t is None else all_gather_rows(t.contiguous(), mesh)
+                          for t in local)
+        h2, xf2, emb2, mask2, all_cond = self.cfg_batch(*local[:4])
+        ml2 = None if local[4] is None else torch.cat([local[4], local[4]])
+        b = h.shape[0]
+        if W > 1:
+            share = slice(2 * b * mesh.rank, 2 * b * (mesh.rank + 1))
+            h2, xf2, emb2, mask2, all_cond, ml2 = (
+                None if t is None else t[share] for t in (h2, xf2, emb2, mask2, all_cond, ml2))
+        y = self._pipeline(h2, xf2, emb2, mask2, all_cond, ml2, num_intervals, False)
+        if W == 1:
+            return y
+        y = all_gather_rows(y.contiguous(), mesh)
+        r = mesh.rank
+        return torch.cat([y[r * b:(r + 1) * b], y[(W + r) * b:(W + r + 1) * b]])
+
     def forward_train(self, h, src_mask, emb, xf_out, cond_type, motion_length=None,
                       num_intervals: int = 1, generator=None, aux_losses=None,
                       kl_losses=None):
         B, T = h.shape[:2]
+        if self.pipeline_axis is not None:
+            h = self._pipeline(h, xf_out, emb, src_mask, cond_type, motion_length,
+                               num_intervals, True, generator, aux_losses, kl_losses)
+            return self._decode(h, True).reshape(B, T, -1)
         for block in self.blocks:
             h = self.call_layer(block, h, xf_out, emb, src_mask, cond_type, motion_length,
                                 num_intervals, generator=generator, aux_losses=aux_losses,
@@ -193,7 +324,8 @@ class STMoGenTransformer(DiffusionTransformerBase):
         token count, so an undoubled batch would route differently.  None
         when ``text_hoist`` is off or the ca_block has no text branch
         (SAMI): every layer then computes its own."""
-        if not self.text_hoist or not hasattr(self.block_0.ca_block, "text_branch"):
+        if (not self.text_hoist or self.pipeline_axis is not None
+                or not hasattr(self.blocks[0].ca_block, "text_branch")):
             return None
         xf2 = torch.cat([xf_out, xf_out], dim=0)
         return tuple(block.text_branch(xf2) for block in self.blocks)
@@ -227,6 +359,11 @@ class STMoGenTransformer(DiffusionTransformerBase):
     def forward_test(self, h, src_mask, emb, xf_out, motion_length=None,
                      timesteps=None, text_feats=None, step_cache=None, cache_flags=None,
                      num_intervals: int = 1, **kwargs):
+        if self.pipeline_axis is not None:
+            if step_cache is not None:
+                raise ValueError("step caching is not supported with pipeline_axis")
+            h2 = self._pipeline_test(h, src_mask, emb, xf_out, motion_length, num_intervals)
+            return self.cfg_mix(h2, timesteps)
         h2, xf2, emb2, mask2, all_cond = self.cfg_batch(h, xf_out, emb, src_mask)
         ml2 = None if motion_length is None else torch.cat([motion_length, motion_length])
         residuals = []

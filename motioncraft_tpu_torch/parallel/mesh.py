@@ -1,5 +1,5 @@
-"""The device mesh: data-, expert- and tensor-parallel processes on
-torch.distributed (PyTorch port of motioncraft_tpu/parallel/mesh.py).
+"""The device mesh: data-, expert-, tensor- and pipeline-parallel processes
+on torch.distributed (PyTorch port of motioncraft_tpu/parallel/mesh.py).
 
 The JAX package shards the batch over a ``data`` mesh axis, the experts
 over ``expert`` and the FFNs' hidden dims over ``tensor``, and lets XLA
@@ -10,14 +10,18 @@ ranks on one card do), and a ``DataMesh`` says which rank this is, where it
 computes, its coordinates on the axes and the process group of every set
 of axes.  A rank's coordinates follow ``np.asarray(devices).reshape(shape)``
 (row-major over ``(data, expert, tensor)``), as the JAX package lays its
-devices out.  A ``pipe`` axis above 1 raises (PIPELINE).
+devices out; ``pipe`` comes last, so a ``("data", "pipe")`` mesh is
+row-major over (data, pipe) as tools/train.py's is.  A ``pipe`` axis
+(parallel/pp.py: one process a pipeline stage) composes with ``data``
+alone, as tools/train.py's ``--pipeline-parallel`` does.
 
 Which rows a rank holds (one module knows it): the rows are split over
 the data x expert ranks (Tutel's layout; ``world`` of them, this rank the
 ``rank``-th, ``group`` their process group) and replicated over
-``tensor``, whose ranks compute the same rows on their slices of the
-weights.  The JAX package keeps the batch on ``data`` alone and replicates
-it over ``expert``; both compute the global batch (ROADMAP queue 3).  With
+``tensor`` and ``pipe``, whose ranks compute the same rows on their
+slices of the weights or their stages of the layers.  The JAX package
+keeps the batch on ``data`` alone and replicates it over ``expert``; both
+compute the global batch (ROADMAP queue 3).  With
 ``grad_accum`` = G microbatches of m = B / G rows, row-rank r of W holds
 the rows ``i * m + r * m / W + j`` (0 <= j < m / W) as its microbatch i,
 so that every rank holds its share of every microbatch and microbatch i is
@@ -48,9 +52,9 @@ DATA_AXIS = "data"
 EXPERT_AXIS = "expert"
 TENSOR_AXIS = "tensor"
 PIPE_AXIS = "pipe"
-MESH_AXES = (DATA_AXIS, EXPERT_AXIS, TENSOR_AXIS)
+MESH_AXES = (DATA_AXIS, EXPERT_AXIS, TENSOR_AXIS, PIPE_AXIS)
 ROW_AXES = (DATA_AXIS, EXPERT_AXIS)  # the axes the batch rows are split over
-PIPELINE = "ROADMAP queue 1: multi-GPU: pipeline parallelism"
+ACROSS_CARDS = "ROADMAP queue 1: multi-GPU: sequence parallelism and int8 across cards"
 # a collective's limit: a rank may wait at a barrier while rank 0 writes a
 # checkpoint or runs the evaluation hook
 DEFAULT_TIMEOUT_S = 1800.0
@@ -59,12 +63,14 @@ DEFAULT_TIMEOUT_S = 1800.0
 @dataclass
 class Comm:
     """A process group over some of the mesh's axes: ``size`` ranks, this
-    one the ``rank``-th (in global rank order); ``group`` None is the
-    default group, and a ``size`` of 1 runs no collective."""
+    one the ``rank``-th (in global rank order), ``ranks`` their global
+    ranks; ``group`` None is the default group, and a ``size`` of 1 runs no
+    collective."""
 
     group: Any
     size: int
     rank: int
+    ranks: tuple = ()
 
 
 @dataclass
@@ -111,17 +117,19 @@ class DataMesh:
 
     @property
     def model_sharded(self) -> bool:
-        """True where the mesh shards weights (an expert or tensor axis)."""
-        return self.size(EXPERT_AXIS) > 1 or self.size(TENSOR_AXIS) > 1
+        """True where the mesh shards weights (an expert, tensor or pipe
+        axis)."""
+        return any(self.size(a) > 1 for a in (EXPERT_AXIS, TENSOR_AXIS, PIPE_AXIS))
 
     def comm(self, *axes: str) -> Comm:
         """The process group over ``axes`` (those of size 1 dropped) that
         holds this rank."""
         key = tuple(a for a in MESH_AXES if a in axes and self.size(a) > 1)
         if not key:
-            return Comm(None, 1, 0)
+            return Comm(None, 1, 0, (self.global_rank,))
         if key not in self.comms:  # every axis of the mesh: the default group
-            return Comm(None, int(np.prod([self.size(a) for a in key])), self.global_rank)
+            n = int(np.prod([self.size(a) for a in key]))
+            return Comm(None, n, self.global_rank, tuple(range(n)))
         return self.comms[key]
 
     @property
@@ -210,8 +218,15 @@ def _comms(axes: Dict[str, int], coords_of) -> Dict[tuple, Comm]:
             for ranks in groups.values():
                 pg = dist.new_group(ranks)
                 if me in ranks:
-                    out[key] = Comm(pg, len(ranks), ranks.index(me))
+                    out[key] = Comm(pg, len(ranks), ranks.index(me), tuple(ranks))
     return out
+
+
+def _pipe_with_data_alone(sizes: Dict[str, int]) -> None:
+    """A pipe axis composes with data alone (tools/train.py's refusal)."""
+    if sizes.get(PIPE_AXIS, 1) > 1 and (sizes.get(EXPERT_AXIS, 1) > 1
+                                        or sizes.get(TENSOR_AXIS, 1) > 1):
+        raise ValueError("--pipeline-parallel composes only with the data axis for now")
 
 
 def create_mesh(n_devices: Optional[int] = None, axes: Sequence[str] = (DATA_AXIS,),
@@ -221,16 +236,15 @@ def create_mesh(n_devices: Optional[int] = None, axes: Sequence[str] = (DATA_AXI
     ``MESH_AXES`` (default ``data`` alone) and ``shape`` (default the JAX
     package's factorization, ``mesh_shape``).  Without a process group and
     at one device: None, the one-process path.  A ``pipe`` axis above 1
-    raises (PIPELINE)."""
+    composes with ``data`` alone (tools/train.py's refusal)."""
     axes = tuple(axes)
     unknown = [a for a in axes if a not in MESH_AXES + (PIPE_AXIS,)]
     if unknown or len(set(axes)) != len(axes):
         raise ValueError(f"mesh axes {axes}: each one of {MESH_AXES + (PIPE_AXIS,)}")
     if shape is not None and len(shape) != len(axes):
         raise ValueError(f"mesh shape {tuple(shape)} for axes {axes}")
-    if shape is not None and PIPE_AXIS in axes and shape[axes.index(PIPE_AXIS)] > 1:
-        raise NotImplementedError(f"a {PIPE_AXIS!r} mesh axis of "
-                                  f"{shape[axes.index(PIPE_AXIS)]}: {PIPELINE}")
+    if shape is not None:
+        _pipe_with_data_alone(dict(zip(axes, shape)))
     if not dist.is_initialized():
         n = n_devices or (int(np.prod(shape)) if shape is not None else 1)
         if n > 1:
@@ -241,12 +255,10 @@ def create_mesh(n_devices: Optional[int] = None, axes: Sequence[str] = (DATA_AXI
     if n_devices not in (None, world):
         raise ValueError(f"{n_devices} devices over {world} processes: one device a rank")
     shape = tuple(shape) if shape is not None else mesh_shape(world, axes)
-    if PIPE_AXIS in axes and shape[axes.index(PIPE_AXIS)] > 1:
-        raise NotImplementedError(f"a {PIPE_AXIS!r} mesh axis of "
-                                  f"{shape[axes.index(PIPE_AXIS)]}: {PIPELINE}")
     if int(np.prod(shape)) != world:
         raise ValueError(f"a mesh of shape {shape} over {world} processes")
     sizes = {a: int(shape[axes.index(a)]) if a in axes else 1 for a in MESH_AXES}
+    _pipe_with_data_alone(sizes)
     grid = np.arange(world).reshape([sizes[a] for a in MESH_AXES])
 
     def coords_of(g):

@@ -25,6 +25,14 @@ modules run them (Megatron's f / g, ``utils/dist_utils.py``) wherever
 ``Sharding`` records which dims of which parameter are split over which
 axis, for the gradient reduction, the clip, the optimizers' per-leaf
 statistics and the checkpoint's gather.
+
+A ``pipe`` axis (parallel/pp.py) is a shard of another kind: a stage holds
+whole leaves of its own layers (the JAX package's stacked leaves, their
+layer axis split over ``pipe``, as ``leaf_spec`` says) and none of the
+others'.  Their gradients are reduced over ``data`` alone, the clip's norm
+sums each stage's layers once and the replicated leaves once, their
+optimizer statistics are whole on their stage, and the checkpoint gathers
+the stages' layers on global rank 0 in the one-process layout.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..utils.convert import flax_leaf
-from .mesh import EXPERT_AXIS, TENSOR_AXIS
+from .mesh import EXPERT_AXIS, PIPE_AXIS, TENSOR_AXIS
 
 _EP = "__expert__"
 _TP = "__tensor__"
@@ -96,13 +104,22 @@ def _resolve(raw: Optional[tuple], shape: Tuple[int, ...], axes: Dict[str, int],
 
 def leaf_spec(names: Sequence[str], shape: Sequence[int], axes: Dict[str, int], *,
               expert_axis: Optional[str] = EXPERT_AXIS,
-              tensor_axis: Optional[str] = TENSOR_AXIS) -> Spec:
+              tensor_axis: Optional[str] = TENSOR_AXIS,
+              pipe_axis: Optional[str] = PIPE_AXIS) -> Spec:
     """The flax-layout spec of a leaf at flax path ``names`` of flax
     ``shape`` on a mesh of ``axes`` sizes: one axis name or None a dim,
-    ``()`` for a replicated leaf (the JAX package's ``leaf_spec``; a
-    pipeline's stacked blocks are not ported)."""
-    shape = tuple(int(n) for n in shape)
-    return _resolve(_tp_rule(list(names), shape), shape, axes, expert_axis, tensor_axis)
+    ``()`` for a replicated leaf (the JAX package's ``leaf_spec``).  A
+    pipeline's stacked leaf (under ``stacked_blocks``) splits its layer
+    axis over ``pipe`` where that divides it, the rules above applying to
+    the rest of its shape."""
+    names, shape = list(names), tuple(int(n) for n in shape)
+    if pipe_axis is not None and "stacked_blocks" in names and shape:
+        inner = _resolve(_tp_rule(names, shape[1:]), shape[1:], axes, expert_axis,
+                         tensor_axis)
+        lead = (pipe_axis if axes.get(pipe_axis, 1) > 1 and shape[0] % axes[pipe_axis] == 0
+                else None)
+        return (lead, *(inner or (None,) * (len(shape) - 1)))
+    return _resolve(_tp_rule(names, shape), shape, axes, expert_axis, tensor_axis)
 
 
 def torch_spec(name: str, shape: Sequence[int], axes: Dict[str, int]) -> Spec:
@@ -154,18 +171,28 @@ def global_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
 
 class Sharding:
     """The sharded parameters of a model on ``mesh``: ``specs`` {name:
-    torch spec}; ``by_param`` the same keyed by the parameter."""
+    torch spec}; ``by_param`` the same keyed by the parameter; on a pipe
+    axis ``num_layers`` (the whole stack's) and ``staged``, the parameters
+    of this stage's layers."""
 
-    def __init__(self, model: nn.Module, mesh, specs: Dict[str, Spec]):
-        self.mesh, self.specs = mesh, dict(specs)
+    def __init__(self, model: nn.Module, mesh, specs: Dict[str, Spec],
+                 num_layers: Optional[int] = None):
+        from .pp import is_stage_key
+
+        self.mesh, self.specs, self.num_layers = mesh, dict(specs), num_layers
         params = dict(model.named_parameters())
+        self.names = {p: n for n, p in params.items()}
         self.by_param = {params[n]: s for n, s in self.specs.items()}
+        self.staged = ({p for n, p in params.items() if is_stage_key(n)}
+                       if num_layers is not None else set())
 
     def spec(self, p) -> Spec:
         return self.by_param.get(p, ())
 
     def axes_of(self, p) -> Tuple[str, ...]:
-        return tuple(a for a in self.spec(p) if a)
+        """Every axis a parameter is split over: its dims' and, for a
+        stage's layer, ``pipe``."""
+        return tuple(a for a in self.spec(p) if a) + ((PIPE_AXIS,) if p in self.staged else ())
 
     def gather(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
         """The whole tensor of this rank's shard ``t`` (every rank calls
@@ -181,14 +208,13 @@ class Sharding:
             t = torch.cat(parts, dim=dim).to(t.device)
         return t
 
-    def sum_sq(self, tensors_specs) -> torch.Tensor:
-        """The sum of squares of whole leaves from their shards: each
-        leaf's local sum all-reduced over its shards' ranks (every rank
-        calls it in one order)."""
+    def sum_sq(self, tensors_axes) -> torch.Tensor:
+        """The sum of squares of whole leaves from their shards (each given
+        with ``axes_of`` its parameter): each leaf's local sum all-reduced
+        over its shards' ranks (every rank calls it in one order)."""
         total, groups = None, {}
-        for t, spec in tensors_specs:
+        for t, axes in tensors_axes:
             sq = t.float().square().sum()
-            axes = tuple(a for a in spec if a)
             groups[axes] = groups.get(axes, 0) + sq
         for axes in sorted(groups):
             v = groups[axes]
@@ -205,9 +231,16 @@ def shard_module_(model: nn.Module, mesh) -> Optional[Sharding]:
     says (every rank holds the whole model first, as after
     ``broadcast_module``) and tell each owning module which of its leaves
     are split (``module.shard_specs``: {leaf: torch spec}).  Returns the
-    ``Sharding``, or None where the mesh shards nothing."""
+    ``Sharding``, or None where the mesh shards nothing.  On a ``pipe``
+    axis the model keeps its stage's layers (``pipeline_stage_``)."""
     if mesh is None or not mesh.model_sharded:
         return None
+    if mesh.size(PIPE_AXIS) > 1:
+        if getattr(model, "pipeline_axis", None) is None:
+            raise ValueError(f"a {PIPE_AXIS!r} mesh axis needs a model with pipeline_axis "
+                             "(STMoGenTransformer)")
+        model.pipeline_stage_(mesh.coords[PIPE_AXIS], mesh.size(PIPE_AXIS))
+        return Sharding(model, mesh, {}, num_layers=model.num_layers)
     plan = shard_plan(model, mesh.axes)
     with torch.no_grad():
         for name, spec in plan.items():
@@ -227,23 +260,41 @@ def split_axis(module: nn.Module, leaf: str, dim: int) -> Optional[str]:
     return spec[dim] if spec else None
 
 
+def _staged(sharding: Optional[Sharding]) -> bool:
+    return sharding is not None and sharding.num_layers is not None
+
+
 def full_state_dict(model: nn.Module, sharding: Optional[Sharding]) -> Dict[str, torch.Tensor]:
     """``model.state_dict()`` with every shard gathered whole (every rank
-    calls it), detached copies on the CPU."""
+    calls it), detached copies on the CPU; on a pipe axis the whole on
+    stage 0 of each pipe group (global rank 0 among them) in the one-process
+    model's order, the other stages holding their own layers."""
+    from .pp import gather_stages, is_stage_key, one_process_names
+
     sd = model.state_dict()
     out = {}
     for k, v in sd.items():
         spec = sharding.specs.get(k, ()) if sharding is not None else ()
         out[k] = (sharding.gather(v, spec) if spec else v).detach().cpu().clone()
+    if _staged(sharding):
+        layers = gather_stages({k: v for k, v in out.items() if is_stage_key(k)},
+                               sharding.mesh)
+        if layers is not None:
+            out.update(layers)
+            out = {k: out[k] for k in one_process_names(list(sd), sharding.num_layers)}
     return out
 
 
 def load_local_state_dict(model: nn.Module, full: Dict[str, torch.Tensor],
                           sharding: Optional[Sharding]) -> None:
-    """Load a whole state_dict, each rank keeping its shards."""
+    """Load a whole state_dict, each rank keeping its shards (on a pipe
+    axis, its stage's layers)."""
     if sharding is not None:
         full = {k: (local_slice(v, sharding.specs[k], sharding.mesh)
                     if k in sharding.specs else v) for k, v in full.items()}
+    if _staged(sharding):
+        own = set(model.state_dict())
+        full = {k: v for k, v in full.items() if k in own}
     model.load_state_dict(full, strict=True)
 
 
@@ -272,7 +323,8 @@ def moment_spec(p, key: str, value: torch.Tensor, spec: Spec, mesh, whole: bool 
 
 def full_optimizer_state(optimizer, params, sharding: Optional[Sharding]) -> dict:
     """``optimizer.state_dict()`` with every sharded moment gathered whole
-    (every rank calls it), on the CPU."""
+    (every rank calls it), on the CPU; on a pipe axis the whole on stage 0
+    of each pipe group, indexed as the one-process model's parameters."""
     sd = optimizer.state_dict()
     if sharding is None:
         return sd
@@ -283,12 +335,39 @@ def full_optimizer_state(optimizer, params, sharding: Optional[Sharding]) -> dic
         state[idx] = {k: (sharding.gather(v, s).cpu()
                           if (s := moment_spec(p, k, v, spec, sharding.mesh))
                           else v) for k, v in st.items()}
-    return {"state": state, "param_groups": sd["param_groups"]}
+    if not _staged(sharding):
+        return {"state": state, "param_groups": sd["param_groups"]}
+    from .pp import gather_stages, is_stage_key, one_process_names
+
+    names = [sharding.names[p] for p in params]
+    by_name = {names[i]: {k: v.cpu() if torch.is_tensor(v) else v for k, v in st.items()}
+               for i, st in state.items()}
+    layers = gather_stages({n: v for n, v in by_name.items() if is_stage_key(n)},
+                           sharding.mesh)
+    if layers is None:
+        return {"state": state, "param_groups": sd["param_groups"]}
+    by_name.update(layers)
+    order = one_process_names(names, sharding.num_layers)
+    return {"state": {i: by_name[n] for i, n in enumerate(order) if n in by_name},
+            "param_groups": [dict(g, params=list(range(len(order))))
+                             for g in sd["param_groups"]]}
 
 
 def load_local_optimizer_state(optimizer, params, full: dict,
                                sharding: Optional[Sharding]) -> None:
-    """Load a whole optimizer state_dict, each rank keeping its shards."""
+    """Load a whole optimizer state_dict, each rank keeping its shards (on
+    a pipe axis, its stage's layers')."""
+    if _staged(sharding):
+        from .pp import one_process_names
+
+        names = [sharding.names[p] for p in params]
+        index = {n: i for i, n in enumerate(one_process_names(names, sharding.num_layers))}
+        state = {int(k): v for k, v in full["state"].items()}
+        optimizer.load_state_dict({
+            "state": {i: state[index[n]] for i, n in enumerate(names) if index[n] in state},
+            "param_groups": [dict(g, params=list(range(len(names))))
+                             for g in full["param_groups"]]})
+        return
     if sharding is not None:
         state = {}
         for idx, st in full["state"].items():

@@ -16,9 +16,10 @@ follows a schedule of the optimizer's update count, evaluated before each
 update as optax's ``count`` is.
 
 On a sharded model (``sharding``, parallel/tp.py) each rank's parameters
-and optimizer moments are its shards; the clip's global norm counts each
-leaf once (its shards' squares summed over the ranks that hold them) and
-the optimizers take the whole leaf's statistics (parallel/optim.py).
+and optimizer moments are its shards (on a pipe axis, its stage's layers);
+the clip's global norm counts each leaf once (its shards' squares summed
+over the ranks that hold them) and the optimizers take the whole leaf's
+statistics (parallel/optim.py).
 """
 
 from __future__ import annotations
@@ -124,7 +125,7 @@ class TrainState:
                     [torch.linalg.vector_norm(g) for g in grads]))
             else:
                 norm = self.sharding.sum_sq(
-                    [(p.grad, self.sharding.spec(p)) for p in live]).sqrt()
+                    [(p.grad, self.sharding.axes_of(p)) for p in live]).sqrt()
             factor = torch.where(norm < self.max_norm, torch.ones_like(norm),
                                  self.max_norm / norm)
             for g in grads:

@@ -3,10 +3,13 @@
 
 - ``save_params`` / ``load_params``: the JAX package's flat ``.npz``
   layout, one array per '/'-joined flax path (``params/block_0/...``, and
-  ``batch_stats/...`` for a model with BatchNorm, the speech encoder).  A
+  ``batch_stats/...`` for a model with BatchNorm, the speech encoder; a
+  model with ``pipeline_axis`` writes its blocks stacked under
+  ``params/stacked_blocks/...``, as the JAX package stores them).  A
   snapshot written by the JAX package evaluates in the port, and one the
   port writes (``to_jax_variables`` of its state_dict) evaluates in the JAX
-  package.
+  package; ``align_block_layout`` converts either block layout to a
+  config's.
 - ``load_eval_variables``: the weights an evaluation runs with, from a
   reference ``.pth`` (STMoGen, a merged base+control ControlT2MHalf, MCM,
   MotionDiffuse or MDM) or a ``.npz`` snapshot.
@@ -20,9 +23,10 @@
   package's orbax manager does both).  ``save_state_params`` writes a
   training state's model as ``save_params`` does.
 - Under ``torch.distributed`` every rank calls the savers: a sharded state's
-  (``state.sharding``, the model across cards) shards are gathered whole,
-  and global rank 0 alone writes (``writes``) the file that one process
-  would write.  Every rank reads the whole file and keeps its shards.
+  (``state.sharding``, the model across cards) shards are gathered whole
+  (a pipeline's stages' layers on global rank 0), and global rank 0 alone
+  writes (``writes``) the file that one process would write.  Every rank
+  reads the whole file and keeps its shards.
 """
 
 from __future__ import annotations
@@ -41,12 +45,24 @@ import torch.distributed as dist
 from .convert import from_jax_params, from_jax_variables, to_jax_variables
 
 
+def jax_layout(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> dict:
+    """``to_jax_variables(sd)`` (the whole state_dict of ``model``) in the
+    layout the JAX package stores ``model``'s config in: with
+    ``pipeline_axis``, the blocks stacked under ``stacked_blocks``."""
+    variables = to_jax_variables(sd)
+    if getattr(model, "pipeline_axis", None) is not None:
+        from ..parallel.pp import stack_block_params
+
+        variables["params"] = stack_block_params(variables["params"], model.num_layers)
+    return variables
+
+
 def save_params(path: str, variables: Any) -> None:
     """Flat-file snapshot: a nested dict of arrays, or an ``nn.Module`` (then
-    ``to_jax_variables`` of its state_dict: ``params`` and, with BatchNorm,
+    ``jax_layout`` of its state_dict: ``params`` and, with BatchNorm,
     ``batch_stats``), as one ``.npz``."""
     if isinstance(variables, torch.nn.Module):
-        variables = to_jax_variables(variables.state_dict())
+        variables = jax_layout(variables, variables.state_dict())
     flat = {}
 
     def walk(prefix, node):
@@ -75,19 +91,29 @@ def load_params(path: str) -> dict:
 
 
 def align_block_layout(model_cfg: dict, tree):
-    """The per-layer ``block_{i}`` storage of a model without pipeline
-    parallelism.  A snapshot of a pipelined model (its blocks stacked under
-    ``stacked_blocks``) and a model with ``pipeline_axis`` raise: pipeline
-    parallelism is not ported."""
-    sub = model_cfg.get("model", {}) if isinstance(model_cfg, dict) else {}
-    params = tree.get("params", tree) if isinstance(tree, dict) else tree
-    if sub.get("pipeline_axis") is not None or (isinstance(params, dict)
-                                                and "stacked_blocks" in params):
-        from ..parallel.mesh import PIPELINE
+    """A snapshot's block storage in the layout of ``model_cfg``'s model
+    (the JAX package's function): a ``pipeline_axis`` model's blocks
+    stacked ``[num_layers, ...]`` under ``stacked_blocks``, a plain
+    model's per-layer ``block_{i}`` subtrees; a tree in the other layout is
+    converted, so that a pipeline-trained snapshot evaluates in the plain
+    model and the other way round.  The port's modules store per-layer
+    blocks either way (``from_jax_params`` unstacks)."""
+    from ..parallel.pp import stack_block_params, unstack_block_params
 
-        raise NotImplementedError(f"pipeline_axis (pipeline parallelism): stacked "
-                                  f"decoder blocks: {PIPELINE}")
-    return tree
+    sub = model_cfg.get("model", {}) if isinstance(model_cfg, dict) else {}
+    want_stacked = sub.get("pipeline_axis") is not None
+    params = tree.get("params", tree) if isinstance(tree, dict) else tree
+    if not isinstance(params, dict):
+        return tree
+    if want_stacked and "block_0" in params and "stacked_blocks" not in params:
+        new = stack_block_params(dict(params), sub["num_layers"])
+    elif not want_stacked and "stacked_blocks" in params:
+        new = unstack_block_params(dict(params))
+    else:
+        return tree
+    if isinstance(tree, dict) and "params" in tree:
+        return {**tree, "params": new}
+    return new
 
 
 def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None,
@@ -172,7 +198,7 @@ def save_state_params(path: str, state) -> None:
     """``save_params`` of a training state's whole model, by the writer."""
     sd = _whole_model(state)
     if writes():
-        save_params(path, to_jax_variables(sd))
+        save_params(path, jax_layout(state.model, sd))
 
 
 def save_checkpoint(ckpt_dir: str, state, epoch: int,

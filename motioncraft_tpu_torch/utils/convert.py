@@ -67,7 +67,13 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 
 def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax ``params`` (nested dict of numpy arrays) -> the port's state_dict."""
+    """Flax ``params`` (nested dict of numpy arrays) -> the port's state_dict;
+    a pipelined model's blocks stacked under ``stacked_blocks`` come out per
+    layer (``block_{i}``), as the port stores them."""
+    if "stacked_blocks" in params:
+        from ..parallel.pp import unstack_block_params
+
+        params = unstack_block_params(dict(params))
     out: Dict[str, torch.Tensor] = {}
 
     def visit(path, key, a):

@@ -14,7 +14,9 @@ motioncraft_tpu/utils/dist_utils.py) over a ``parallel.mesh.DataMesh``.
   of slot buffers, its own adjoint.
 - ``allreduce_grads``: each trainable gradient's sum over the ranks that
   hold the same shard of its parameter (``parallel/tp.py``), over the
-  normalizer that makes it the one-process gradient.
+  normalizer that makes it the one-process gradient.  The pipe ranks of a
+  replicated leaf each hold their stage's share of its gradient, so their
+  sum is the gradient; a stage's layers are summed over ``data`` alone.
 - ``collect_results``: the per-rank result lists back in dataset order
   (pickle, all-gather the lengths, pad, all-gather the bytes, unpickle,
   zip-merge), the reference's ``collect_results_gpu``.
@@ -192,15 +194,16 @@ def allreduce_grads(params: Iterable[torch.nn.Parameter], mesh, shards=None) -> 
     if mesh is None:
         return
     params = list(params)
-    if not params or mesh.world * mesh.size("tensor") == 1:
+    if not params or mesh.world * mesh.size("tensor") * mesh.size("pipe") == 1:
         return
     shards = shards or {}
+    # position i holds a stage's layer on every pipe rank (stages hold equal layers)
     has = torch.tensor([float(p.grad is not None) for p in params], device=mesh.device)
     _all_reduce(has, None, dist.ReduceOp.MAX)
     buckets: Dict[tuple, list] = {}
     for p, h in zip(params, has.tolist()):
         if h:
-            axes = tuple(a for a in ("data", "expert", "tensor")
+            axes = tuple(a for a in ("data", "expert", "tensor", "pipe")
                          if a not in shards.get(p, ()))
             buckets.setdefault(axes, []).append(p)
     for axes, live in buckets.items():

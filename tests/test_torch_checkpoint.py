@@ -248,9 +248,23 @@ def test_npz_snapshots_cross_between_the_packages(tiny, tmp_path):
 
 
 def test_pipelined_snapshots_are_refused(tiny):
+    """A snapshot that misses a layer is refused where a pipelined config
+    stacks its blocks (align_block_layout); a stacked one unstacks for the
+    plain config, and the stacked layout stays for the pipelined one."""
     cfg, _, _, _ = tiny
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        checkpoint.align_block_layout(cfg, {"params": {"stacked_blocks": {}}})
+    piped = {"model": dict(cfg["model"], pipeline_axis="pipe")}
+    layers = cfg["model"]["num_layers"]
+    blocks = {f"block_{i}": {"w": np.full((2,), i, np.float32)} for i in range(layers)}
+    with pytest.raises(KeyError, match=f"block_{layers}"):
+        checkpoint.align_block_layout(
+            {"model": dict(piped["model"], num_layers=layers + 1)}, {"params": blocks})
+    stacked = checkpoint.align_block_layout(piped, {"params": dict(blocks)})["params"]
+    assert list(stacked) == ["stacked_blocks"]
+    assert stacked["stacked_blocks"]["w"].shape == (layers, 2)
+    assert checkpoint.align_block_layout(piped, {"params": stacked})["params"] is stacked
+    plain = checkpoint.align_block_layout(cfg, {"params": stacked})["params"]
+    assert sorted(plain) == sorted(blocks)
+    assert all(np.array_equal(plain[k]["w"], blocks[k]["w"]) for k in blocks)
     with pytest.raises(NotImplementedError, match="the rest of the baseline zoo"):
         checkpoint.load_eval_variables({"model": {"type": "MotionVAE"}}, None,
                                        torch_checkpoint="x.pth")

@@ -242,7 +242,8 @@ def lmdb_speech_set(tmp_path):
 @pytest.mark.parametrize("argv, item", [
     (["--devices", "2", "--device", "cuda"], "this host has 1 CUDA device"),
     (["--tensor-parallel", "2", "--multihost"], "--tensor-parallel with --multihost"),
-    (["--pipeline-parallel", "2"], "ROADMAP queue 1: multi-GPU: pipeline parallelism"),
+    (["--pipeline-parallel", "2", "--tensor-parallel", "2"],
+     "--pipeline-parallel composes only with the data axis"),
     (["--multihost", "--devices", "2"], "one rank a process"),
     (["--multihost", "--num-processes", "2"], "need a coordinator address"),
     ([os.path.join(REPO, "configs", "remodiffuse", "remodiffuse_t2m.py")],
@@ -253,9 +254,10 @@ def lmdb_speech_set(tmp_path):
     ids=["devices", "tensor-parallel", "pipeline-parallel", "multihost", "coordinator",
          "remodiffuse", "lmdb-cache", "fp16"])
 def test_options_not_ported_are_refused(argv, item, tmp_path, monkeypatch):
-    """What the port does not run is refused: pipeline parallelism, tensor
-    parallelism across hosts (as tools/train.py refuses it; it runs within
-    a host: tests/test_torch_tp_cli.py), ReMoDiffuse training, an LMDB
+    """What the port does not run is refused: pipeline parallelism with
+    tensor parallelism and tensor parallelism across hosts (as
+    tools/train.py refuses them; each runs alone within a host:
+    tests/test_torch_pipeline_cli.py, tests/test_torch_tp_cli.py), ReMoDiffuse training, an LMDB
     cache, float16; and of the data-parallel options, more ranks than the
     host has cards (here one, pretended), --multihost with several ranks a
     process, and a multi-process run without its coordinator."""

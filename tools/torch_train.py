@@ -78,12 +78,29 @@ on rank 0 over a whole copy of the weights.
   python tools/torch_train.py configs/tests/tiny_t2m.py --device cpu --devices 2 \
       --tensor-parallel 2
 
-Refused rather than ignored: pipeline parallelism (ROADMAP queue 1:
-multi-GPU: pipeline parallelism), ``--tensor-parallel`` with
-``--multihost``, fp16 in float16 (an f16 K6,
-ROADMAP queue 1: the rest of training); ReMoDiffuse and MoMatMoGen, which
-the JAX package's loss cannot train (it passes them no retrieval; ROADMAP
-queue 3).
+Pipeline parallelism, as tools/train.py's ``--pipeline-parallel P``
+means it: the N ranks form the mesh ``(data N / P, pipe P)`` and the
+config's model gets ``pipeline_axis='pipe'`` and ``pipeline_microbatches``
+(``--pipeline-microbatches``, default 2); each rank holds the layers of
+its stage, the decoder stack runs as a GPipe pipeline over them, each
+(data shard, microbatch) routing its MoEs on its own (parallel/pp.py).
+params.npz holds the blocks stacked under ``stacked_blocks`` (the JAX
+package's layout for that config; tools/test.py and tools/torch_test.py
+read either layout), and the evaluation hook samples rank 0's whole copy
+of the weights with the pipelined config's per-microbatch routing.  As in
+tools/train.py it composes with the data axis alone and trains
+STMoGenTransformer stacks alone.
+
+  python tools/torch_train.py configs/stmogen/t2m_motionx_0_125b.py --devices 8 \
+      --pipeline-parallel 2
+  python tools/torch_train.py configs/tests/tiny_t2m.py --device cpu --devices 2 \
+      --pipeline-parallel 2
+
+Refused rather than ignored: ``--tensor-parallel`` or ``--multihost`` with
+``--pipeline-parallel``, and ``--tensor-parallel`` with ``--multihost``, in
+tools/train.py's words; fp16 in float16 (an f16 K6, ROADMAP queue 1: the
+rest of training); ReMoDiffuse and MoMatMoGen, which the JAX package's loss
+cannot train (it passes them no retrieval; ROADMAP queue 3).
 """
 
 import argparse
@@ -94,7 +111,6 @@ import types
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-PIPELINE = "ROADMAP queue 1: multi-GPU: pipeline parallelism"
 CONTROLNETS = ("ControlT2MHalf", "ControlT2MHalfMCM")
 RETRIEVAL_MODELS = ("ReMoDiffuseTransformer", "MoMatMoGenTransformer")
 
@@ -130,11 +146,13 @@ def parse_args(argv=None):
     p.add_argument("--tensor-parallel", type=int, default=1,
                    help="shard the FFNs' hidden dims over T ranks (and the experts over "
                         "2 where the rest is even), as tools/train.py's option")
-    # tools/train.py's option that the port does not run yet
-    p.add_argument("--pipeline-parallel", type=int, default=1)
+    p.add_argument("--pipeline-parallel", type=int, default=1,
+                   help="GPipe the decoder stack over a 'pipe' mesh axis of this size, as "
+                        "tools/train.py's option; sets model.pipeline_axis")
+    p.add_argument("--pipeline-microbatches", type=int, default=2)
     args = p.parse_args(argv)
-    if args.pipeline_parallel > 1:
-        raise SystemExit(f"--pipeline-parallel: {PIPELINE}")
+    if args.pipeline_parallel > 1 and (args.multihost or args.tensor_parallel > 1):
+        raise SystemExit("--pipeline-parallel composes only with the data axis for now")
     if args.tensor_parallel > 1 and args.multihost:
         raise SystemExit("--tensor-parallel with --multihost is not supported yet (tensor "
                          "collectives stay within a host; shard tp within it)")
@@ -260,6 +278,12 @@ def load_config(args):
     cfg = Config.fromfile(args.config)
     cfg.merge_from_dict(cfg_options_from_args(args.cfg_options))
     check_config(cfg)
+    if args.pipeline_parallel > 1:
+        if cfg.model["model"].get("type") != "STMoGenTransformer":
+            raise SystemExit("--pipeline-parallel is implemented for "
+                             "STMoGenTransformer decoder stacks")
+        cfg.model["model"]["pipeline_axis"] = "pipe"
+        cfg.model["model"]["pipeline_microbatches"] = args.pipeline_microbatches
     return cfg
 
 
@@ -280,11 +304,13 @@ def run(args):
                                 backend=backend(args))
         device = local_device(rank) if args.device == "cuda" else "cpu"
         return train(args, create_mesh(device=device))
-    tp = args.tensor_parallel
-    n = args.devices or (torch.cuda.device_count() if tp > 1 and args.device == "cuda"
+    tp, pp = args.tensor_parallel, args.pipeline_parallel
+    n = args.devices or (torch.cuda.device_count() if max(tp, pp) > 1 and args.device == "cuda"
                          else 1)
     if tp > 1 and n % tp:
         raise SystemExit(f"--tensor-parallel {tp} does not divide {n} devices")
+    if pp > 1 and n % pp:
+        raise SystemExit(f"--pipeline-parallel {pp} does not divide {n} devices")
     if n == 1:
         return train(args, None)
     if args.device == "cuda" and n > torch.cuda.device_count():
@@ -293,9 +319,12 @@ def run(args):
     return launch(_rank, n, args=(args, n), backend=backend(args))[0]
 
 
-def mesh_axes(n: int, tp: int):
-    """(axes, shape) of ``n`` ranks at ``--tensor-parallel tp``:
-    tools/train.py's mesh, data alone without tensor parallelism."""
+def mesh_axes(n: int, tp: int, pp: int = 1):
+    """(axes, shape) of ``n`` ranks at ``--tensor-parallel tp`` or
+    ``--pipeline-parallel pp``: tools/train.py's mesh, data alone without
+    either."""
+    if pp > 1:
+        return ("data", "pipe"), (n // pp, pp)
     if tp <= 1:
         return ("data",), (n,)
     ep = 2 if (n // tp) % 2 == 0 and n // tp >= 2 else 1
@@ -308,7 +337,7 @@ def _rank(rank: int, args, n: int) -> int:
     from motioncraft_tpu_torch.parallel.mesh import create_mesh, local_device
 
     device = local_device(rank) if args.device == "cuda" else "cpu"
-    axes, shape = mesh_axes(n, args.tensor_parallel)
+    axes, shape = mesh_axes(n, args.tensor_parallel, args.pipeline_parallel)
     return int(train(args, create_mesh(n, axes=axes, shape=shape, device=device)).step)
 
 
