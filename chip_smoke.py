@@ -4,9 +4,9 @@ evaluation, its music-to-dance and speech-to-gesture long-form
 evaluations, its baselines, ControlNet training, baseline training,
 bf16 / remat / optax-default-optimizer training, data-parallel training
 and evaluation (2 processes), the model across ranks (the expert- and
-tensor-parallel flagship, mesh serving; 2 processes) and pipeline
-parallelism (2 stages) on one NVIDIA GPU, and hold each of its CUDA
-kernels against its plain PyTorch version.
+tensor-parallel flagship, mesh serving; 2 processes), pipeline
+parallelism (2 stages) and the baselines in bf16 and int8 on one NVIDIA
+GPU, and hold each of its CUDA kernels against its plain PyTorch version.
 
 Run from the root of the repository, on a machine with one card and the CUDA
 toolkit:
@@ -70,7 +70,14 @@ Phases; any failure exits non-zero:
      each with the launches of its phase-22 run, and phase 23's (a pipeline
      stage's K4 positions, K5 and K6 at a training microbatch of
      MP_BATCH / PP_MICROBATCHES = 16 rows, K1-K4 at a sampling microbatch
-     of 2 CFG rows), each with the launches of its phase-23 run: max abs error against its
+     of 2 CFG rows), each with the launches of its phase-23 run, and K5's
+     bf16 instantiation at phase 24's shapes (MotionDiffuse's and MCM's
+     self- and cross-attention at B = 16 on bf16 operands, MCM's channel
+     attention padded to 64; the MCM ControlNet's first channel
+     self-attention at R = 1 and 2), beside phase 24's mixed-dtype calls
+     through the f32 instantiation (the MCM ControlNet's cross-attention:
+     f32 queries, bf16 text keys and values; ReMoDiffuse's
+     semantics-modulated attention: bf16 queries, f32 keys and values): max abs error against its
      tolerance (1e-2 x max |plain| for bf16; K4 exact in its
      integers, its route's gates within 1e-6; on every path a route case
      leaning to one expert must drop choices); the kernel's device time from
@@ -105,7 +112,7 @@ Phases; any failure exits non-zero:
      against the CPU, B = 2, gate noise 0, the CPU's gate logits pinned to
      the card's as in phase 6
   9. the T2M protocol evaluation through tools/torch_test.py on the same
-     flagship config: a synthetic Motion-X tree of 96 clips (196 x 322,
+     flagship config: a synthetic Motion-X tree of 64 clips (196 x 322,
      written here in tools/make_tiny_data.py's layout), phase 3's weights
      saved with save_params and loaded back by --checkpoint, a full-width
      SMPL-X evaluator (DistilBERT 6 x 768, ActorAgnostic 4 x 256) saved as
@@ -113,7 +120,7 @@ Phases; any failure exits non-zero:
      evaluator on the card, R-Precision / Matching / FID / Diversity (on
      half the clips).  The loaded model's forward equals the in-memory one's
      bit for bit, every metric is finite, K1-K4's launches are what 50 steps
-     x 4 layers x 10 batches imply, GT mode on the same tree gives FID <= 1e-3, and the
+     x 4 layers x the batches imply, GT mode on the same tree gives FID <= 1e-3, and the
      evaluator's embeddings on the card agree with the CPU's; wall seconds of
      sampling and of evaluation, samples per second
  10. the M2D long-form evaluation through tools/torch_m2d_test.py on
@@ -139,7 +146,7 @@ Phases; any failure exits non-zero:
      flagship base, its condition raw onset + amplitude at 16 kHz through
      the WavEncoder, out_dim 1536): seeded fabricated weights with sane
      BatchNorm statistics saved and loaded back by --checkpoint, a
-     synthetic BEAT2 tree of 4 test recordings of 184 frames (3 windows of
+     synthetic BEAT2 tree of 4 test recordings of 124 frames (2 windows of
      64 overlapping by 4) with onsets that fire, TextGrid words and a
      mean-velocity file, and an SMPL-X npz at the real sizes written here;
      sampled at R = 1 and at --recording-batch 4: per-window wall ms,
@@ -204,8 +211,9 @@ Phases; any failure exits non-zero:
      configs/mcm/mcm_t2m_smplx.py and configs/mdm/mdm_t2m_smplx.py at full
      width; K5 under torch.no_grad keeps no autograd graph; for each, one
      batch of 16 requests (T = 196, lengths 40-196) through
-     single_device_test with its DDPM over all 1000 steps: finite
-     [16, 196, 322] outputs, K5's launches 1000 x 8 layers x 2 for
+     single_device_test with its DDPM respaced to 250 steps
+     (BASELINE_DDPM_RESPACE): finite [16, 196, 322] outputs, K5's launches
+     250 x 8 layers x 2 for
      MotionDiffuse and MCM and 0 for MDM (nothing else launched), the
      batch's wall ms; one denoiser call profiled (device kernels launched,
      device ms, idle share); one forward_test card vs CPU at B = 2; the
@@ -215,7 +223,7 @@ Phases; any failure exits non-zero:
      launch check; then tools/torch_test.py on MotionDiffuse over a
      synthetic Motion-X tree of 16 clips at batch 16 (one replication, a
      full-width SMPL-X evaluator, R-Precision and Matching over the 16,
-     Diversity on 8): finite metrics, K5's launches what 1000 steps x 16
+     Diversity on 8): finite metrics, K5's launches what 250 steps x 16
      imply, wall seconds of
      sampling and of evaluation
  16. FineMoGen (SAMI) on the card, with seeded fabricated weights:
@@ -363,7 +371,22 @@ Phases; any failure exits non-zero:
      MP_SAMPLE_REQUESTS requests sampled over the pipe mesh (K1-K4 on each
      stage) equals the pipelined config's per-microbatch sampling in one
      process from that file (MODEL_REL_TOL)
- 24. one JSON line of the kernels' numbers, and last the device line
+ 24. the baselines in low precision, with seeded fabricated weights:
+     motiondiffuse_t2m_smplx, mcm_t2m_smplx, mdm_t2m_smplx,
+     finemogen_t2m_smplx and remodiffuse_t2m (on retrieved rows at phase
+     17's bank's shapes) each in bf16, W8 and W8A8, one denoiser call
+     (one request) card vs CPU, the gate logits pinned as in phase 6: bf16 within
+     MODEL_BF16_TOL x scale (FineMoGen's rows before its CFG mix), W8
+     within MODEL_REL_TOL, W8A8 within W8A8_SENS times the card's own
+     one-ulp sensitivity read in this run (phase 13's rule; at least
+     MODEL_REL_TOL x scale, MDM's quantized products being its time MLP's
+     alone); then a bf16
+     DDIM-50 batch of 16 of configs/mcm/mcm_t2m.py (every K5 call through
+     K5's bf16 instantiation: 50 x 16 launches, nothing else) and of
+     finemogen_t2m_smplx uncached and with --step-cache 2's flags (K1 bf16,
+     K2 bf16 and K4's route as the flags imply), wall ms
+     beside phases 15's and 16's f32 batches
+ 25. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -371,6 +394,7 @@ The script imports nothing of JAX and nothing of motioncraft_tpu.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -407,9 +431,9 @@ GRAD_REL_TOL = 1e-3
 BATCH, BATCHES, SEED = 16, 2, 0
 TRAIN_BATCH, TRAIN_STEPS = 32, 4  # 1 warm-up + 3 timed
 # one replication (320 before phase 21 came, which put the script over 1000 s
-# on one host; 160 before phase 22 came); the Diversity metric draws half of
-# them (300 of 320 before)
-EVAL_CLIPS = 96
+# on one host; 160 before phase 22 came, 96 before phase 24 came); the
+# Diversity metric draws half of them (300 of 320 before)
+EVAL_CLIPS = 64
 GT_FID_TOL = 1e-3
 # phase 10: 4 FineDance test tracks of the cross-genre split, 360 frames
 # trimmed + 300 kept: 3 windows of 120 overlapping by 30 (a window costs
@@ -427,10 +451,11 @@ M2D_PARITY_R = 2
 # (84): a cut in depth for phase 22's time, since the CPU runs its side of
 # each window at full width, step by step
 PARITY_RESPACE = "2,2,2,2,2"
-# phase 11: 4 BEAT2 test recordings of 184 frames: 3 windows of 64
+# phase 11: 4 BEAT2 test recordings of 124 frames: 2 windows of 64
 # overlapping by 4 (a window costs the same at any recording length; 244
-# frames, 4 windows, before phase 22 came)
-S2G_RECORDINGS, S2G_FRAMES, S2G_REC_BATCH = 4, 184, 4
+# frames, 4 windows, before phase 22 came, 184, 3 windows, before phase 24
+# came)
+S2G_RECORDINGS, S2G_FRAMES, S2G_REC_BATCH = 4, 124, 4
 # the SMPL-X neutral body model's sizes: vertices, faces, shape and
 # expression directions, pose-corrective directions
 SMPLX_SIZES = dict(vertices=10475, faces=20908, shapedirs=400, posedirs=486)
@@ -465,19 +490,19 @@ LOWPREC_CLIPS = BATCH  # one batch (two before phase 18)
 LOWPREC_SERVE_PER_CLIENT = 1
 # the batch buckets the W8A8 server warms up: those its traffic can fill
 # (SERVE_CLIENTS short requests, the long ones in pairs); every bucket of
-# SERVE_BUCKETS before phase 23 came
-LOWPREC_SERVE_WARM = (1, 2, 4)
+# SERVE_BUCKETS before phase 23 came, 1, 2, 4 before phase 24 came
+LOWPREC_SERVE_WARM = (1, 2)
 INT8_PEAK = 1979e12   # H100 SXM dense int8 tensor cores, OP/s
 W8A8_SENS = 1.5
 W8A8_FIRST_SHARE = 1e-3
-W8A8_DRAW2 = 1000  # the second W8A8 input draw's seed offset
 # phase 14: the quality harness over a learnable tree (tools/make_tiny_data.py
-# --protocol-learnable) of 256 clips, its first 64 the test set; the
+# --protocol-learnable) of 256 clips, its first 32 the test set (64 before
+# phase 24 came: one batch of the drift's, not two); the
 # evaluator's training steps (1500 before phase 22 came) and its held-out
 # top-1 floor (chance 1/32; the test batch's 32 clips hold 20 classes, so
 # 0.625 at most)
 HARNESS_CONFIG = os.path.join(ROOT, "configs", "tests", "protocol_learn.py")
-HARNESS_CLIPS, HARNESS_TEST_CLIPS = 256, 64
+HARNESS_CLIPS, HARNESS_TEST_CLIPS = 256, 32
 HARNESS_EVAL_STEPS, HARNESS_TOP1 = 1000, 0.5
 # the harness config's batch (the drift's requests a batch, the loader's
 # batch in training), the training CLI's --grad-accum and the calibration
@@ -500,7 +525,7 @@ OPT_REL_TOL = 1e-4
 # it at 96, beside which the card would not hold the ranks); then
 # tools/torch_test.py over DP_WORLD processes on DP_EVAL_CLIPS synthetic
 # clips (phase 9's kind; a cut from its 160; DP_STEPS 4 and 64 clips before
-# phase 22 came).  The flagship's parameters on
+# phase 22 came, DP_STEPS 3 before phase 24 came).  The flagship's parameters on
 # 2 ranks after its Adam steps against one process's on the same card: each
 # element within DP_PARAM_TOL x lr but for DP_PARAM_FRAC of a tensor (those
 # within two lr a step): the ranks' gradient sums run in another order and
@@ -509,7 +534,7 @@ OPT_REL_TOL = 1e-4
 # tests/test_torch_train.py holds two Adam steps against JAX).  The S2G step
 # takes SGD at the config's lr, so its update is the gradient, held as
 # phase 8 holds one (GRAD_REL_TOL)
-DP_WORLD, DP_STEPS, DP_S2G_BATCH, DP_S2G_FRAMES, DP_EVAL_CLIPS = 2, 3, 16, 64, 32
+DP_WORLD, DP_STEPS, DP_S2G_BATCH, DP_S2G_FRAMES, DP_EVAL_CLIPS = 2, 2, 16, 64, 32
 DP_PARAM_TOL, DP_PARAM_FRAC = 2e-2, 1e-3
 DP_TIMEOUT_S = 600
 # phase 22: the model across ranks, MP_WORLD gloo ranks on the one card: the
@@ -534,14 +559,27 @@ BF16_KERNELS = ("grouped_ffn", "head_ffn", "stma_linear_attention")
 # training's kernels: K4's positions, K5, K6
 TRAINING_KERNELS = ("moe_positions", "fused_linear_attention", "fused_expert_ffn")
 # phase 15: the baselines at full width on seeded fabricated weights, each
-# sampling one batch of BATCH requests with its config's DDPM (1000 steps);
-# mcm_t2m.py's DDIM-50; the protocol run's clips (one replication at
-# BATCH, Diversity on half of them) on MotionDiffuse
+# sampling one batch of BATCH requests with its config's DDPM respaced to
+# BASELINE_DDPM_RESPACE steps (all 1000 before phase 24 came, which put the
+# script past 1200 s on a slow host; the same sampler and denoiser, a
+# quarter of the calls); mcm_t2m.py's DDIM-50; the protocol run's clips
+# (one replication at BATCH, Diversity on half of them) on MotionDiffuse
 MD_CONFIG = os.path.join(ROOT, "configs", "motiondiffuse", "motiondiffuse_t2m_smplx.py")
 MCM_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_t2m_smplx.py")
 MDM_CONFIG = os.path.join(ROOT, "configs", "mdm", "mdm_t2m_smplx.py")
 MCM_DDIM_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_t2m.py")
+BASELINE_DDPM_RESPACE = "250"
 BASELINE_CONFIGS = (MD_CONFIG, MCM_CONFIG, MDM_CONFIG)
+# phase 24: the baselines in low precision: each of LP_CONFIGS (ReMoDiffuse
+# on retrieved rows at phase 17's bank's shapes) card vs CPU in each of
+# LP_MODES, then bf16 DDIM-50 batches of MCM and FineMoGen
+LP_CONFIGS = (MD_CONFIG, MCM_CONFIG, MDM_CONFIG,
+              os.path.join(ROOT, "configs", "finemogen", "finemogen_t2m_smplx.py"),
+              os.path.join(ROOT, "configs", "remodiffuse", "remodiffuse_t2m.py"))
+LP_MODES = ("bf16", "w8", "w8a8")
+# phase 24's card-vs-CPU call: one request (the CPU's full-width forwards
+# are most of the phase's time)
+LP_BATCH = 1
 # the protocol run: one batch (two before phase 18, 4 in PR 12)
 BASELINE_CLIPS, BASELINE_FRAMES = BATCH, 196
 # phase 16: FineMoGen at full width (Motion-X 322-d, 12 heads) and its
@@ -599,7 +637,8 @@ PALLAS = {
     "fused_linear_attention": "motioncraft_tpu/ops/pallas_attention.py:111",
     "fused_expert_ffn": "motioncraft_tpu/ops/pallas_ffn.py:86",
 }
-PALLAS.update({f"{k}_bf16": PALLAS[k] for k in (*BF16_KERNELS, "fused_expert_ffn")})
+PALLAS.update({f"{k}_bf16": PALLAS[k]
+               for k in (*BF16_KERNELS, "fused_expert_ffn", "fused_linear_attention")})
 SOURCES = {
     "moe_route": "motioncraft_tpu_torch/csrc/moe_positions.cu",
     "moe_positions": "motioncraft_tpu_torch/csrc/moe_positions.cu",
@@ -609,7 +648,8 @@ SOURCES = {
     "fused_linear_attention": "motioncraft_tpu_torch/csrc/linear_attention.cu",
     "fused_expert_ffn": "motioncraft_tpu_torch/csrc/expert_ffn.cu",
 }
-SOURCES.update({f"{k}_bf16": SOURCES[k] for k in (*BF16_KERNELS, "fused_expert_ffn")})
+SOURCES.update({f"{k}_bf16": SOURCES[k]
+                for k in (*BF16_KERNELS, "fused_expert_ffn", "fused_linear_attention")})
 
 
 class PhaseError(RuntimeError):
@@ -891,7 +931,8 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
     paths = [("t2m", t2m), ("t2m layer 0", layer0),
              ("t2m bf16", bf16_inputs(torch, t2m)), ("t2m layer 0 bf16", bf16_inputs(torch, layer0)),
              # phase 20's bf16 training: K6's bf16 instantiation on the text slots
-             (f"t2m train bf16 B={TRAIN_BATCH}", bf16_slots(torch, t2m["fused_expert_ffn"][1:]))]
+             (f"t2m train bf16 B={TRAIN_BATCH}",
+              bf16_cases(torch, "fused_expert_ffn", t2m["fused_expert_ffn"][1:]))]
     # phase 12's smallest and largest buckets (b requests, T frames: 2b
     # CFG rows), in f32 and in bf16, each with layer 0's half
     for b, T in SERVE_CHECKED:
@@ -925,8 +966,11 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
                       (f"{tag} R={R} layer 0", flagship_inputs(
                           torch, base, dev, B2=2 * R, T=win, training=False, layer0=True))]
     for model_cfg in baseline_cfgs:
-        paths.append((f"{model_cfg['model']['type']} B={BATCH}",
-                      baseline_attention_inputs(torch, model_cfg, dev)))
+        cases = baseline_attention_inputs(torch, model_cfg, dev)
+        tag = f"{model_cfg['model']['type']} B={BATCH}"
+        # and in bf16 (phase 24): its three operands bf16, K5's bf16 instantiation
+        paths += [(tag, cases), (f"{tag} bf16", bf16_cases(
+            torch, "fused_linear_attention", cases["fused_linear_attention"]))]
     for tag, fmg_cfg in (finemogen_cfgs or {}).items():
         fmg = flagship_inputs(torch, fmg_cfg, dev, training=False)
         paths.append((f"{tag} B={BATCH}",
@@ -934,16 +978,33 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
     for tag, mcm_cfg in (mcm_cfgs or {}).items():
         base = {"model": mcm_cfg["model"]["base_model"]}
         for R in (1, MCM_REC_BATCH):
-            paths.append((f"{tag} R={R}", baseline_attention_inputs(torch, base, dev, B=R)))
+            cases = baseline_attention_inputs(torch, base, dev, B=R)
+            sa, ca = cases["fused_linear_attention"]
+            # in bf16 its f32 time embedding makes the stream f32 after the
+            # first self-attention: that one is all bf16, every
+            # cross-attention meets f32 queries beside bf16 text keys and
+            # values (K5's f32 instantiation on the widened operands)
+            mixed = (ca[0], ca[1].to(torch.bfloat16), ca[2].to(torch.bfloat16))
+            paths += [(f"{tag} R={R}", cases),
+                      (f"{tag} R={R} bf16", {**bf16_cases(torch, "fused_linear_attention", [sa]),
+                                             "fused_linear_attention": [mixed]})]
     for model_cfg in retrieval_cfgs:
-        paths.append((f"{model_cfg['model']['type']} B={BATCH}",
-                      retrieval_attention_inputs(torch, model_cfg, dev)))
+        cases = retrieval_attention_inputs(torch, model_cfg, dev)
+        tag = f"{model_cfg['model']['type']} B={BATCH}"
+        paths.append((tag, cases))
+        if model_cfg["model"]["type"] == "ReMoDiffuseTransformer":
+            # in bf16 its semantics-modulated attention joins the f32
+            # retrieval's keys and values (encoded from the bank's f32 rows)
+            # with bf16 queries: K5's f32 instantiation on the widened query
+            q, k, v = cases["fused_linear_attention"][1]
+            paths.append((f"{tag} bf16",
+                          {"fused_linear_attention": [(q.to(torch.bfloat16), k, v)]}))
     for tag, model_cfg, Bt in train_cfgs:
         train = flagship_inputs(torch, model_cfg, dev, B2=Bt, Bt=Bt)
         paths.append((f"{tag} train B={Bt}", {k: train[k] for k in TRAINING_KERNELS}))
         if tag == "t2m":  # and K6's bf16 text slots at that batch (phase 20 at B = 128)
             paths.append((f"{tag} train bf16 B={Bt}",
-                          bf16_slots(torch, train["fused_expert_ffn"][1:])))
+                          bf16_cases(torch, "fused_expert_ffn", train["fused_expert_ffn"][1:])))
     for tag, model_cfg, Bt in baseline_train_cfgs:
         m = model_cfg["model"]
         if m["type"] == "FineMoGenTransformer":
@@ -952,7 +1013,7 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
             # 18's flagship cases at the same B
             train = flagship_inputs(torch, model_cfg, dev, B2=Bt, Bt=Bt)
             cases = {"fused_expert_ffn": train["fused_expert_ffn"][:1],
-                     **bf16_slots(torch, train["fused_expert_ffn"][:1])}
+                     **bf16_cases(torch, "fused_expert_ffn", train["fused_expert_ffn"][:1])}
         else:
             cases = baseline_attention_inputs(torch, {"model": m.get("base_model", m)}, dev,
                                               B=Bt)
@@ -1067,12 +1128,12 @@ def bf16_inputs(torch, inputs):
     return out
 
 
-def bf16_slots(torch, cases):
-    """K6's bf16 instantiation on the slot-buffer cases ``cases`` (K6's
-    five operands, all rounded to bf16, as the bf16 training step hands its
-    text MoEs' slots and bf16 weights to it)."""
-    return {"fused_expert_ffn_bf16": [tuple(a.to(torch.bfloat16) for a in args)
-                                      for args in cases]}
+def bf16_cases(torch, name, cases):
+    """The bf16 instantiation of kernel ``name`` on ``cases``, every operand
+    rounded to bf16: K6's slots as the bf16 training step hands its text
+    MoEs' slots and bf16 weights to it, K5's operands as a bf16-cast
+    baseline hands them to it."""
+    return {f"{name}_bf16": [tuple(a.to(torch.bfloat16) for a in args) for args in cases]}
 
 
 def kernel_work(name, args):
@@ -1109,10 +1170,12 @@ def kernel_work(name, args):
         nbytes = 2 * nb(x) + nb(w1) + nb(b1) + nb(w2) + nb(b2)
         return 4 * n * hd * f, nbytes
     if name == "fused_linear_attention":
+        # the output in bf16 for three bf16 operands, else in f32
         q, k, v = args
         B, T, H, d = q.shape
         N = k.shape[1]
-        return 2 * B * H * (N + T) * d * d, 4 * (2 * q.numel() + k.numel() + v.numel())
+        out = 2 if all(t.element_size() == 2 for t in args) else 4
+        return 2 * B * H * (N + T) * d * d, nb(q) + nb(k) + nb(v) + out * q.numel()
     if name == "fused_expert_ffn":
         xe, w1, b1, w2, b2 = args
         E, C, d = xe.shape
@@ -1160,7 +1223,7 @@ def pad_bytes(name, args):
     written.  0 for every other case.  They are the wrapper's cost, not the
     function's work, so the bound leaves them out; the measured times
     include them."""
-    if name != "fused_linear_attention":
+    if name.removesuffix("_bf16") != "fused_linear_attention":
         return 0
     from motioncraft_tpu_torch.ops.linear_attention import padded_width
 
@@ -1168,7 +1231,7 @@ def pad_bytes(name, args):
     d = q.shape[-1]
     w = padded_width(d)
     padded = (q.numel() + k.numel() + v.numel()) * w // d
-    return 0 if w == d else 4 * (2 * padded + q.numel() * (w - d) // d)
+    return 0 if w == d else q.element_size() * (2 * padded + q.numel() * (w - d) // d)
 
 
 def kernel_case(torch, rows, path, name, i, args, fns):
@@ -1194,8 +1257,12 @@ def kernel_case(torch, rows, path, name, i, args, fns):
         err = float((got.float() - want.float()).abs().max())
         scale = float(want.abs().max())
         rel = KERNEL_BF16_TOL if name.endswith("_bf16") else KERNEL_REL_TOL
-        check(got.dtype == want.dtype == args[1 if name.startswith("grouped") else 0].dtype,
-              f"{name}: output dtype {got.dtype}")
+        # K5 on operands of both dtypes computes in f32, as the JAX package's
+        # dispatch promotes
+        expect = (functools.reduce(torch.promote_types, [a.dtype for a in args])
+                  if name.startswith("fused_linear") else
+                  args[1 if name.startswith("grouped") else 0].dtype)
+        check(got.dtype == want.dtype == expect, f"{name}: output dtype {got.dtype}")
         ok, tol = err <= rel * scale, f"{rel} x {scale:.4g}"
     shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
     kept = (f"; {args.kept} of {shapes[1][0]} rows carry a choice"
@@ -2699,7 +2766,8 @@ def lowprec_cli(torch, full_cfg, sd, dev, clips, config=CONFIG):
 
 
 def lowprec_parity(torch, cfg, sd, dev):
-    """Two W8A8 forward_tests (f32, B = 2, two input draws) and one W8 on the
+    """One W8A8 forward_test (f32, B = 2; two input draws before phase 24
+    came) and one W8 on the
     card against the CPU, every gate fed the card's logits (as phase 6); both devices
     quantize to the same int8 bytes and scales.  W8 holds within
     MODEL_REL_TOL x scale.  W8A8 holds to readings of the same run (see
@@ -2776,8 +2844,8 @@ def lowprec_parity(torch, cfg, sd, dev):
                 "worst": max((int(t.max()) for t in diffs), default=0)}
 
     out = {}
-    # W8A8 on two input draws, W8 on the first
-    for mode, draw in (("w8a8", 0), ("w8a8", W8A8_DRAW2), ("w8", 0)):
+    # W8A8 and W8 on one input draw
+    for mode, draw in (("w8a8", 0), ("w8", 0)):
         batch = requests(2, SEED + draw + 600, cfg["model"]["max_seq_len"])
         x = torch.randn(batch["motion"].shape,
                         generator=torch.Generator().manual_seed(SEED + draw + 17))
@@ -3293,6 +3361,7 @@ def phase_baselines(torch, dev="cuda", configs=BASELINE_CONFIGS, ddim_config=MCM
         for path in configs:
             tag = os.path.basename(path)[:-3]
             cfg = Config.fromfile(path).model
+            cfg["diffusion_test"]["respace"] = BASELINE_DDPM_RESPACE
             t0 = time.perf_counter()
             with skip_init(torch):
                 arch = build_architecture(cfg, device=dev)
@@ -3376,6 +3445,7 @@ def phase_baselines(torch, dev="cuda", configs=BASELINE_CONFIGS, ddim_config=MCM
         opts = [f"data.test.data_prefix={tree}", "data.test.ann_file=ann.txt",
                 "data.test.motion_dir=motions", "data.test.text_dir=texts",
                 "data.test.eval_cfg.replication_times=1",
+                f"model.diffusion_test.respace={BASELINE_DDPM_RESPACE!r}",
                 f"data.test.eval_cfg.metrics={metrics!r}",
                 "data.test.eval_cfg.evaluator_model.init_cfg="
                 + repr(dict(type="Pretrained", checkpoint=evaluator))]
@@ -5604,6 +5674,255 @@ def phase_pipeline(torch, cfg, job, ranks, one, dev, card):
     return {"pp_train": {"counts": r0["counts"]}, "pp_sample": {"counts": r0["sample_counts"]}}
 
 
+# ---------------------------------------------------------------- phase 24
+def lp_model(torch, arch, mode):
+    """``arch`` cast to bf16 (``bf16``) or with int8 weights (``w8``,
+    ``w8a8``) in place; returns its compute dtype."""
+    from motioncraft_tpu_torch.apis import bf16_cast_, int8_quantize_
+
+    if mode == "bf16":
+        bf16_cast_(arch)
+        return torch.bfloat16
+    int8_quantize_(arch, weight_only=mode == "w8")
+    return torch.float32
+
+
+def lp_forward(torch, arch, batch, x, ts, dtype, extra, logits, rows=None, nudge=False):
+    """One test forward of a baseline in ``dtype`` on its device (the text
+    condition cast as sampling casts it); with no ``logits`` yet its MoE
+    gates' logits are recorded into the list, else each gate returns the
+    recorded ones (the CPU fed the card's, as phase 6); ``rows`` collects
+    the output module's rows before a CFG mix; ``nudge`` moves the input
+    and every activation before its int8 quantization one ulp up."""
+    from motioncraft_tpu_torch.models.moe import CosineTopGate
+    from motioncraft_tpu_torch.ops import quant
+
+    record, calls = not logits, []
+
+    def gate(mod, args, o):
+        if record:
+            logits.append(o.cpu())
+            return None
+        calls.append(None)
+        return logits[len(calls) - 1].to(o.device)
+
+    handles = [m.register_forward_hook(gate) for m in arch.modules()
+               if isinstance(m, CosineTopGate)]
+    if rows is not None:
+        handles.append(arch.model.out.register_forward_hook(
+            lambda m, a, o: rows.append(o.float().cpu())))
+    inf = float("inf")
+    real = quant.quantize_rows
+    if nudge:
+        x = torch.nextafter(x, torch.full_like(x, inf))
+        quant.quantize_rows = lambda t: real(torch.nextafter(t, torch.full_like(t, inf)))
+    try:
+        with torch.no_grad():
+            kw = baseline_condition(torch, arch, batch)
+            kw["xf_out"] = kw["xf_out"].to(dtype)
+            if "xf_proj" in kw:
+                kw["xf_proj"] = kw["xf_proj"].to(dtype)
+            if getattr(arch.model, "precompute_text_feats", None) is not None:
+                kw["text_feats"] = arch.model.precompute_text_feats(kw["xf_out"])
+            return arch.model(x.to(arch.device, dtype), ts.to(arch.device),
+                              **kw, **extra).float().cpu()
+    finally:
+        quant.quantize_rows = real
+        for h in handles:
+            h.remove()
+        check(record or len(calls) == len(logits), "[lowprec-baselines] gate calls differ")
+
+
+def lp_retrieval(torch, arch, cfg, B):
+    """ReMoDiffuse's ``re_dict`` for B requests on ``arch``'s device: B x R
+    retrieved rows at the bank's shapes (phase 17's: motions [T, feats]
+    with lengths 40..T, 77 CLIP token features), seeded, encoded by the
+    model as sampling encodes them (from f32 rows)."""
+    m = cfg["model"]
+    rc = m["retrieval_cfg"]
+    n, T = B * rc["num_retrieval"], rc["max_seq_len"]
+    g = torch.Generator().manual_seed(SEED + 24)
+    motions = torch.randn(n, T, m["input_feats"], generator=g)
+    lengths = torch.randint(40, T + 1, (n,), generator=g)
+    mask = (torch.arange(T)[None] < lengths[:, None]).float()
+    clip = torch.randn(n, 77, rc["latent_dim"], generator=g)
+    with torch.no_grad():
+        return {"re_dict": arch.model.encode_retrieval(
+            motions.to(arch.device), mask.to(arch.device), clip.to(arch.device),
+            rc["num_retrieval"])}
+
+
+def lp_parity(torch, path, dev):
+    """Phase 24's checks of one baseline config: one denoiser call
+    (LP_BATCH requests of T frames) card vs CPU on the same fabricated weights in bf16, W8 and
+    W8A8.  bf16 within MODEL_BF16_TOL x scale (a CFG-guided family's rows
+    before the mix: the mix multiplies the rows' bf16 roundings by the
+    guidance); W8 within MODEL_REL_TOL; W8A8 within W8A8_SENS times the
+    card's own output moved by a one-ulp change of its input and of every
+    activation before its quantization (max and mean abs difference, read
+    in this run, as phase 13 holds the flagship's), and never below
+    MODEL_REL_TOL x scale.  Returns each mode's readings."""
+    import copy
+
+    from motioncraft_tpu_torch.config import Config
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
+
+    tag = os.path.basename(path)[:-3]
+    cfg = Config.fromfile(path).model
+    archs = {}
+    for d in (dev, "cpu"):
+        with skip_init(torch):
+            archs[d] = build_architecture(cfg, device=d)
+    sd = fabricate_state_dict(archs["cpu"].model, seed=SEED + 24)
+    for a in archs.values():
+        a.model.load_state_dict(sd, strict=True)
+    m = cfg["model"]
+    T, feats = m.get("max_seq_len", 196), m["input_feats"]
+    batch = requests(LP_BATCH, SEED + 240, T, feats)
+    g = torch.Generator().manual_seed(SEED + 241)
+    x = torch.randn(batch["motion"].shape, generator=g)
+    ts = torch.full((LP_BATCH,), 499, dtype=torch.long)
+    guided = hasattr(archs["cpu"].model, "cfg_mix")
+    out = {}
+    for mode in LP_MODES:
+        card, cpu = (copy.deepcopy(archs[d]) for d in (dev, "cpu"))
+        dtype = lp_model(torch, card, mode)
+        lp_model(torch, cpu, mode)
+        extra = ({} if m["type"] != "ReMoDiffuseTransformer" else
+                 {d: lp_retrieval(torch, a, cfg, LP_BATCH)
+                  for d, a in ((dev, card), ("cpu", cpu))})
+        logits, rows = [], {dev: [], "cpu": []}
+        got = lp_forward(torch, card, batch, x, ts, dtype, extra.get(dev, {}), logits,
+                         rows[dev] if guided else None)
+        want = lp_forward(torch, cpu, batch, x, ts, dtype, extra.get("cpu", {}), logits,
+                          rows["cpu"] if guided else None)
+        check(torch.isfinite(got).all() and got.shape == want.shape,
+              f"[lowprec-baselines] {tag} {mode}: output {tuple(got.shape)}")
+        scale = max(1.0, float(want.abs().max()))
+        diff = float((got - want).abs().max())
+        r = {"max": diff, "mean": float((got - want).abs().mean()), "scale": scale}
+        if mode == "bf16":
+            a, b = (rows[dev][0], rows["cpu"][0]) if guided else (got, want)
+            r["rows_max"] = float((a - b).abs().max())
+            r["rows_scale"] = max(1.0, float(b.abs().max()))
+            ok, lim = (r["rows_max"] <= MODEL_BF16_TOL * r["rows_scale"],
+                       f"{MODEL_BF16_TOL} x {r['rows_scale']:.4g}"
+                       + (" on the rows before the CFG mix" if guided else ""))
+        elif mode == "w8":
+            ok, lim = diff <= MODEL_REL_TOL * scale, f"{MODEL_REL_TOL} x {scale:.4g}"
+        else:
+            nudged = lp_forward(torch, card, batch, x, ts, dtype, extra.get(dev, {}), logits,
+                                nudge=True)
+            sens = {"max": float((nudged - got).abs().max()),
+                    "mean": float((nudged - got).abs().mean())}
+            r["sensitivity"] = sens
+            # never below the f32 bound: MDM's quantized products are its
+            # time MLP's alone, whose one-ulp reading is far below the f32
+            # sums' order on the rest of its trunk
+            limits = {k: max(W8A8_SENS * sens[k], MODEL_REL_TOL * scale) for k in sens}
+            ok = all(r[k] <= limits[k] for k in sens)
+            lim = (f"{W8A8_SENS} x the one-ulp readings, at least {MODEL_REL_TOL} x scale: "
+                   f"max {limits['max']:.4e}, mean {limits['mean']:.4e}")
+        print(f"[lowprec-baselines] {tag} {mode} forward_test B={LP_BATCH}: card vs CPU max abs diff "
+              f"{diff:.4e}, mean {r['mean']:.4e} (scale {scale:.4g}); limit {lim}"
+              + (f"; rows before the mix {r['rows_max']:.4e}" if "rows_max" in r and guided
+                 else "") + (f"; {len(logits)} gate calls pinned" if logits else ""))
+        check(ok, f"[lowprec-baselines] {tag} {mode}: card vs CPU {r} beyond {lim}")
+        out[mode] = r
+        del card, cpu
+    return out
+
+
+def lp_batch(torch, arch, dtype, step_cache=None, tag=""):
+    """One DDIM batch of BATCH requests of ``arch`` through single_device_test
+    in ``dtype`` (optionally cached): (wall ms, launch counts, predictions)."""
+    import numpy as np
+    from motioncraft_tpu_torch.apis import single_device_test
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    batch = requests(BATCH, SEED + 242, arch.model.max_seq_len, arch.model.input_feats)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = single_device_test(arch, [batch], seed=SEED, device=arch.device,
+                             compute_dtype=dtype, step_cache=step_cache)
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    pred = np.stack([r["pred_motion"] for r in res])
+    check(pred.shape[0] == BATCH and np.isfinite(pred).all(),
+          f"[lowprec-baselines] {tag}: output {pred.shape}, finite {np.isfinite(pred).all()}")
+    return wall, counts, pred
+
+
+def phase_lowprec_baselines(torch, dev="cuda", configs=LP_CONFIGS, mcm_config=MCM_DDIM_CONFIG,
+                            fmg_config=FMG_CONFIG, f32_ms=None):
+    """Phase 24: the baselines in low precision.  Each of ``configs`` in
+    bf16, W8 and W8A8, one denoiser call card vs CPU (``lp_parity``); then
+    two bf16 DDIM-50 batches of BATCH: MCM (``mcm_config``: every K5 call
+    all bf16, K5's bf16 instantiation and nothing else of K5), and
+    FineMoGen uncached against the step cache at reuse_every=2 (K1, K2 and
+    K4's route as the flags imply), their wall ms beside the f32 batches of
+    phases 15 and 16 (``f32_ms``).  Returns the readings and the MCM
+    batch's launches (``counts``)."""
+    from motioncraft_tpu_torch.config import Config
+    from motioncraft_tpu_torch.diffusion import StepCacheConfig
+    from motioncraft_tpu_torch.diffusion.stepcache import pattern_flags
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
+
+    t_phase = time.perf_counter()
+    out = {"parity": {os.path.basename(p)[:-3]: lp_parity(torch, p, dev) for p in configs}}
+    f32_ms = f32_ms or {}
+
+    def build(path):
+        with skip_init(torch):
+            arch = build_architecture(Config.fromfile(path).model, device=dev)
+        arch.model.load_state_dict(fabricate_state_dict(arch.model, seed=SEED), strict=True)
+        lp_model(torch, arch, "bf16")
+        return arch
+
+    arch = build(mcm_config)
+    steps = arch.diffusion_test.num_timesteps
+    wall, counts, _ = lp_batch(torch, arch, torch.bfloat16, tag="mcm bf16")
+    per_call = k5_per_call(arch.model)
+    want = dict.fromkeys(counts, 0) | {"fused_linear_attention_bf16": steps * per_call}
+    print(f"[lowprec-baselines] {os.path.basename(mcm_config)} bf16 DDIM-{steps} batch of "
+          f"{BATCH}: {wall:.1f} ms (f32, phase 15: {f32_ms.get('mcm', float('nan')):.1f} ms); "
+          f"K5 bf16 launches {counts['fused_linear_attention_bf16']} ({per_call} a denoiser "
+          f"call), f32 K5 {counts['fused_linear_attention']}")
+    check(counts == want, f"[lowprec-baselines] MCM bf16 launches {counts} != {want}")
+    out["mcm"] = {"wall_ms": wall, "counts": counts, "f32_wall_ms": f32_ms.get("mcm")}
+    del arch
+
+    arch = build(fmg_config)
+    steps, layers = arch.diffusion_test.num_timesteps, arch.model.num_layers
+    cache = StepCacheConfig(reuse_every=2)
+    flags = pattern_flags(steps, layers, cache)
+    runs = {}
+    for label, sc in (("uncached", None), ("step cache 2", cache)):
+        wall, counts, pred = lp_batch(torch, arch, torch.bfloat16, sc, f"finemogen {label}")
+        computed = int((~flags).sum()) if sc is not None else steps * layers
+        want = dict.fromkeys(counts, 0) | {"grouped_ffn_bf16": 2 * computed,
+                                           "moe_route": 2 * computed,
+                                           "head_ffn_bf16": computed}
+        check(counts == want, f"[lowprec-baselines] FineMoGen {label} launches {counts} != "
+              f"{want}")
+        runs[label] = {"wall_ms": wall, "counts": counts, "pred": pred}
+        print(f"[lowprec-baselines] {os.path.basename(fmg_config)} bf16 DDIM-{steps} CFG "
+              f"batch of {BATCH}, {label}: {wall:.1f} ms; {computed} of {steps * layers} "
+              f"(step, layer) pairs computed")
+    drift = float(abs(runs["step cache 2"]["pred"] - runs["uncached"]["pred"]).max())
+    print(f"[lowprec-baselines] FineMoGen bf16: step cache 2 against uncached max abs "
+          f"{drift:.4e}; f32 uncached (phase 16) {f32_ms.get('finemogen', float('nan')):.1f} ms")
+    out["finemogen"] = {k: {"wall_ms": v["wall_ms"], "counts": v["counts"]}
+                        for k, v in runs.items()} | {"f32_wall_ms": f32_ms.get("finemogen"),
+                                                      "cache_drift": drift}
+    del arch
+    out["counts"] = out["mcm"]["counts"]
+    print(f"[lowprec-baselines] phase 24 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -5700,6 +6019,9 @@ def main():
     bf16_train = phase_bf16_train(torch, full_cfg, sd, f32_step_ms)
     dp = phase_data_parallel(torch, full_cfg, sd)
     mp = phase_model_parallel(torch, full_cfg, sd)
+    lowprec_bl = phase_lowprec_baselines(torch, f32_ms={
+        "mcm": baselines["mcm_t2m ddim50"]["wall_ms"],
+        "finemogen": finemogen["batch"]["wall_ms"]})
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
@@ -5708,7 +6030,7 @@ def main():
         # phases 9, 10 and 11 (R = 1, then R = 4) and the two servers of
         # phase 12 (f32, then bf16)
         row["launches"] = (counts[name] or train_counts[name] or serve["bf16"]["counts"][name]
-                           or bf16_train["counts"][name])
+                           or bf16_train["counts"][name] or lowprec_bl["counts"][name])
         row["eval_launches"] = eval_counts[name]
         row["m2d_launches"] = [m2d[R]["counts"][name] for R in sorted(m2d)]
         row["s2g_launches"] = [s2g[R]["counts"][name] for R in (1, S2G_REC_BATCH)]
@@ -5758,6 +6080,12 @@ def main():
         # cases at phase 22's and 23's shapes carries the launches of the
         # run it stands for
         row["mp_launches"] = {k: v["counts"][name] for k, v in mp.items()}
+        # phase 24: the bf16 DDIM-50 batches of MCM and of FineMoGen
+        # (uncached, step cache 2)
+        row["lowprec_baseline_launches"] = {
+            "mcm": lowprec_bl["mcm"]["counts"][name],
+            **{f"finemogen {k}": v["counts"][name]
+               for k, v in lowprec_bl["finemogen"].items() if isinstance(v, dict)}}
         for case in row["cases"]:
             run = next((v for k, v in MP_PATH_RUNS.items() if case["path"].startswith(k)), None)
             if run is not None:

@@ -118,14 +118,6 @@ PROMOTED_MODULES = ("time_embed", "cosine_projector", "condition_pre_encoder",
                     "control_cond_input")
 
 
-def _refuse_exact_f32_only(model, what):
-    """A model whose ``exact_f32_only`` is set (the baselines) says why it
-    takes no bf16 or int8; raise that rather than cast."""
-    why = getattr(model, "exact_f32_only", None)
-    if why:
-        raise ValueError(f"{what} on {type(model).__name__}: {why}")
-
-
 def bf16_cast_(arch):
     """Round every floating parameter and buffer of ``arch``'s model to bf16,
     in place (the JAX package's ``bf16_cast_variables`` casts every floating
@@ -135,7 +127,6 @@ def bf16_cast_(arch):
     ``compute_dtype=torch.bfloat16``: the noise, the schedule and the DDIM
     update stay f32."""
     if arch.model is not None:
-        _refuse_exact_f32_only(arch.model, "bf16_cast_")
         arch.model.to(torch.bfloat16)
         for name, module in arch.model.named_modules():
             if name.rpartition(".")[2] in PROMOTED_MODULES:
@@ -153,7 +144,6 @@ def int8_quantize_(arch, weight_only: bool = False, **kwargs):
     Inference only."""
     from ..ops.quant import quantize_
     if arch.model is not None:
-        _refuse_exact_f32_only(arch.model, "int8_quantize_")
         quantize_(arch.model, weight_only=weight_only, **kwargs)
     return arch
 

@@ -527,6 +527,16 @@ __device__ __forceinline__ void ffn_tile_bf16(
 //
 // A_r = E^T V and q A run in 3xTF32 on mma.sync: the fragments need far
 // fewer shared-memory loads per multiply-add than a SIMT micro-tile.
+//
+// RB (K5's bf16 instantiation) rounds where the Pallas kernel rounds on a
+// bf16 value: the merged A to bf16 (after the cluster's reduce-scatter, not
+// per CTA) and the query softmax to bf16, so that q A multiplies two
+// bf16-exact operands; a bf16 value is exact in TF32 (its 8 significant bits
+// fit TF32's 11), so that product runs as one TF32 pass with f32
+// accumulation, exactly what mma.sync's bf16 form would compute.  The key
+// softmax stays the unrounded online one in f32: rounding it as Pallas does
+// needs the sequence's max and sum before the first product, a second read
+// of the keys.
 constexpr int LA_THREADS = 256;
 constexpr int LA_RS = 32;  // key/value rows staged per step
 
@@ -573,6 +583,10 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<unsigned*>(p) = pack_bf16(a, b);
 }
+// v rounded to nearest-even bf16, as an f32
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 // key(n, c) / value(n, c) return channels c..c+3 (c % 4 == 0) of row n < N
 // as a float4: the callers apply their masks and join their sequences there.
@@ -580,8 +594,9 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 // (multiples of 4, 16-byte aligned f32 rows or 8-byte aligned bf16 rows);
 // TQ and TO are float or bf16.  D in {16, 32, 64, 128}.  Both products,
 // A_r = E^T V over the chunk and q A over the CTA's query rows, run in
-// 3xTF32 on mma.sync like K1's tile, from f32 in shared memory.
-template <int D, class Key, class Value, class TQ, class TO>
+// 3xTF32 on mma.sync like K1's tile, from f32 in shared memory (q A in one
+// TF32 pass on bf16-rounded operands with RB, above).
+template <int D, bool RB = false, class Key, class Value, class TQ, class TO>
 __device__ __forceinline__ void linear_attention_cell(
     int N, const Key& key, const Value& value, int T,
     const TQ* __restrict__ q, long ldq, TO* __restrict__ out, long ldo,
@@ -745,6 +760,8 @@ __device__ __forceinline__ void linear_attention_cell(
         s.x = fmaf(w, a.x, s.x), s.y = fmaf(w, a.y, s.y);
         s.z = fmaf(w, a.z, s.z), s.w = fmaf(w, a.w, s.w);
       }
+      if constexpr (RB) s = make_float4(round_bf16(s.x), round_bf16(s.y),
+                                        round_bf16(s.z), round_bf16(s.w));
       *reinterpret_cast<float4*>(ar + c * LDR + l) = s;
     }
   }
@@ -804,7 +821,7 @@ __device__ __forceinline__ void linear_attention_cell(
       for (int o = 1; o < TPR; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       const float inv = 1.f / s;
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) row[c * TPR] = e[c] * inv;
+      for (int c = 0; c < CPT; ++c) row[c * TPR] = RB ? round_bf16(e[c] * inv) : e[c] * inv;
     }
     __syncthreads();
     const int r0 = 16 * (warp % 4), n0 = (warp / 4) * (D / 2);
@@ -831,7 +848,12 @@ __device__ __forceinline__ void linear_attention_cell(
               b0[n] = split_tf32(rb[8 * (nb + n)]);
               b1[n] = split_tf32(rb[4 * LDA + 8 * (nb + n)]);
             }
-            mma_3xtf32(op, nb, ahi, alo, b0, b1);
+            if constexpr (RB) {  // bf16-exact operands: hi is the value, lo 0
+#pragma unroll
+              for (int n = 0; n < NQB; ++n) mma_tf32(op[nb + n], ahi, b0[n].hi, b1[n].hi);
+            } else {
+              mma_3xtf32(op, nb, ahi, alo, b0, b1);
+            }
           }
         }
 #pragma unroll

@@ -260,7 +260,7 @@ class STMA(nn.Module):
             y_t = fused_linear_attention(motion_feat[..., 3 * L:], key, value)
         else:
             y_t = stma_linear_attention(motion_feat, text_feat.reshape(B, -1, 2 * L),
-                                        src_mask.reshape(B, T, 1), text_cond)
+                                        src_mask.reshape(B, T, 1).float(), text_cond)
         return x + self.proj_out(body_feat + y_t.reshape(B, T, D), emb)
 
 

@@ -37,10 +37,18 @@ MoMatMoGen (PyTorch port of motioncraft_tpu/models/baselines.py).
     their KL terms.
 
 The training of ReMoDiffuse and MoMatMoGen raises: the JAX package's loss
-applies them without a retrieval (``RETRIEVAL_TRAINING``).  bf16, int8 and
-the step cache are not ported to the baselines: each family's
-``exact_f32_only`` says so, and ``bf16_cast_``, ``int8_quantize_`` and the
-CLIs refuse them on it.
+applies them without a retrieval (``RETRIEVAL_TRAINING``).
+
+Every family samples in bf16 (``bf16_cast_`` and ``compute_dtype``) and
+with int8 weights (``int8_quantize_``), as the JAX package's CLIs run them.
+The dtypes follow flax's promotion: the stack computes in bf16 (the frame
+mask cast to it, apis/factory.py:PROMOTED_MODULES in f32), so the Efficient
+and semantics-modulated attentions hand K5 three bf16 operands and take its
+bf16 instantiation.  MDM's trunk runs in f32 on the rounded weights: its
+conditioning token comes from the f32 time MLP and the f32 position table,
+and the concatenation promotes, as in the JAX package.  FineMoGen takes the
+step cache through STMoGen's cached stack; the other families have none and
+``sample`` refuses it, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -58,9 +66,6 @@ from .diffusion_transformer import DiffusionTransformerBase, ffn_from_cfg
 from .stmogen import STMoGenTransformer
 from .text_encoder import ClipTextModel, PostLNEncoderLayer
 
-EXACT_F32_ONLY = ("bf16, int8 and the step cache are not ported to the baselines "
-                  "(ROADMAP queue 2: K5's bf16 instantiation, with bf16, int8 and the "
-                  "step cache on the baselines)")
 RETRIEVAL_TRAINING = ("the JAX package's MotionDiffusion.loss applies the model without a "
                       "re_dict, so its training of ReMoDiffuse and MoMatMoGen stops with a "
                       "TypeError (ROADMAP queue 3: ReMoDiffuse / MoMatMoGen training)")
@@ -69,8 +74,6 @@ RETRIEVAL_TRAINING = ("the JAX package's MotionDiffusion.loss applies the model 
 @SUBMODULES.register_module()
 class MotionDiffuseTransformer(DiffusionTransformerBase):
     """The plain sa / ca / FFN decoder stack."""
-
-    exact_f32_only = EXACT_F32_ONLY
 
     def __init__(self, input_feats: int = 263, max_seq_len: int = 240,
                  latent_dim: int = 512, time_embed_dim: int = 2048, num_layers: int = 8,
@@ -141,7 +144,6 @@ class MDMTransformer(nn.Module):
     # the sinusoidal table's rows: the timesteps index it (TimestepEmbedder)
     # and its first T + 1 rows are the positions of a T-frame clip
     TABLE_ROWS = 1000
-    exact_f32_only = EXACT_F32_ONLY
 
     def __init__(self, input_feats: int = 263, latent_dim: int = 256, ff_size: int = 1024,
                  num_layers: int = 8, num_heads: int = 4, dropout: float = 0.1,
@@ -165,6 +167,16 @@ class MDMTransformer(nn.Module):
                                   heads=max(1, clip_dim // 64), embed_dim=clip_dim)
         self.register_buffer("table", torch.from_numpy(
             sinusoidal_table(self.TABLE_ROWS, latent_dim)), persistent=False)
+
+    def _apply(self, fn, recurse=True):
+        """Moves and casts the module; the position table is a constant that
+        the JAX package computes in f32 at every call, so a cast to bf16
+        leaves it f32 (recomputed rather than widened back)."""
+        super()._apply(fn, recurse)
+        if self.table.dtype != torch.float32:
+            self.table = torch.from_numpy(sinusoidal_table(self.TABLE_ROWS, self.latent_dim)
+                                          ).to(self.table.device)
+        return self
 
     def stack_dtype(self) -> torch.dtype:
         return self.poseEmbedding.weight.dtype
@@ -215,10 +227,9 @@ class MDMTransformer(nn.Module):
 @SUBMODULES.register_module()
 class FineMoGenTransformer(STMoGenTransformer):
     """FineMoGen: the STMoGen skeleton with SAMI attention (the configs set
-    ``ca_block_cfg.type='SAMI'``).  Its step cache is not ported either."""
-
-    exact_f32_only = EXACT_F32_ONLY
-    supports_step_cache = False
+    ``ca_block_cfg.type='SAMI'``), its step cache included: each layer's
+    residual over the CFG-doubled batch, SAMI computing both halves in
+    layer 0 as the JAX package's does."""
 
 
 class RetrievalDatabase:
@@ -336,8 +347,6 @@ def coin_table() -> np.ndarray:
 class ReMoDiffuseTransformer(DiffusionTransformerBase):
     """Retrieval-augmented denoiser with four-way classifier-free guidance
     over (text and retrieval, text, retrieval, neither)."""
-
-    exact_f32_only = EXACT_F32_ONLY
 
     def __init__(self, input_feats: int = 263, max_seq_len: int = 240,
                  latent_dim: int = 512, time_embed_dim: int = 2048, num_layers: int = 8,

@@ -39,8 +39,11 @@ MCMDecoderLayers at ``cond_type=None`` (the cross-attention unmasked), the
 copied blocks MCMDecoderLayers too, the pooled text projection ``xf_proj``
 added to the time embedding, and the base's zero-init output.  It has no
 text MoE to hoist (``precompute_text_feats`` is None), no layer-0 dedup and
-no step cache, and, as the MCM base, runs in exact f32 only
-(``exact_f32_only``).  Its attentions are K5 (ops/linear_attention.py).
+no step cache.  Its attentions are K5 (ops/linear_attention.py); under
+bf16 it keeps the f32 time embedding, as the JAX package's does, so the
+stream is f32 after the first stylized residual and the later K5 calls
+meet f32 queries beside bf16 text keys (K5's f32 instantiation on the
+widened operands).
 
 The training forward (``mode="train"``, either block type) is one pass at
 the batch's ``cond_type``: the condition zeroed where the text is off
@@ -211,12 +214,6 @@ class ControlT2MHalf(nn.Module):
         """The STMoGen block type only, as in the JAX package."""
         return self.block_type == "stmogen"
 
-    @property
-    def exact_f32_only(self) -> Optional[str]:
-        """The base's reason to run in exact f32 only (the MCM base's), or
-        None."""
-        return getattr(self.base_model, "exact_f32_only", None)
-
     def make_step_cache(self, B: int, T: int, dtype=torch.float32) -> dict:
         """The zero dict cache of the CFG-doubled test forward (module
         docstring), on the model's device."""
@@ -248,7 +245,11 @@ class ControlT2MHalf(nn.Module):
         base = self.base_model
         src_mask = motion_mask[..., None] if motion_mask.dim() == 2 else motion_mask
         h, emb = base._embed(motion, timesteps)
-        emb = emb.to(h.dtype)
+        if self.block_type == "stmogen":
+            emb = emb.to(h.dtype)
+        # the MCM type keeps the time MLP's f32 embedding, as the JAX
+        # package's ControlNet does: under bf16 its stylized residuals then
+        # promote the stream to f32 after the first attention
         if c_enc is not None:
             c = c_enc.to(h.dtype)
         elif c is not None:

@@ -25,8 +25,9 @@ those without remat.
 The stack runs in the dtype of the joint embedding's output (bf16 for a
 bf16-cast model on bf16 motion): the timestep embedding is f32, its MLP
 runs in f32 as flax promotes it (bf16_cast_ keeps its tensors f32), and the
-embedding is then cast to the stack's dtype.  The 0/1 frame mask stays f32:
-at inference only K3 reads it, and K3 takes it in f32.
+embedding and the 0/1 frame mask are then cast to the stack's dtype, as the
+JAX package's ``__call__`` casts them, so that a masked key stays bf16 (K3
+takes the mask widened back to f32, exact for 0 and 1).
 """
 
 from __future__ import annotations
@@ -183,7 +184,7 @@ class DiffusionTransformerBase(nn.Module):
         test forward of the families that read it."""
         src_mask = motion_mask[..., None] if motion_mask.dim() == 2 else motion_mask
         h, emb = self._embed(motion, timesteps)
-        emb = emb.to(h.dtype)
+        emb, src_mask = emb.to(h.dtype), src_mask.to(h.dtype)
         if self.use_text_proj and xf_proj is not None:
             emb = emb + xf_proj.to(h.dtype)
         if mode == "train":

@@ -3,14 +3,15 @@ version and a launch counter (``<wrapper>.launches``).
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches its kernel (built from ``csrc/`` at first use) or raises.  K1, K2,
-K3 and K6 have a bf16 instantiation each, with its own wrapper and count
+K3, K5 and K6 have a bf16 instantiation each, with its own wrapper and count
 (``*_bf16``); the f32 wrapper hands bf16 operands on to it.  ``int_mm``,
 the W8A8 int8 product (``torch._int_mm`` on the card, not a kernel of the
 port), counts its launches beside them.
 """
 
 from .expert_ffn import expert_ffn_plain, fused_expert_ffn, fused_expert_ffn_bf16
-from .linear_attention import fused_linear_attention, fused_linear_attention_plain
+from .linear_attention import (fused_linear_attention, fused_linear_attention_bf16,
+                               fused_linear_attention_plain, fused_linear_attention_plain_bf16)
 from .moe_ffn import grouped_ffn, grouped_ffn_bf16, grouped_ffn_plain
 from .moe_positions import (moe_positions_counts, moe_positions_counts_plain, moe_route,
                             moe_route_plain)
@@ -33,6 +34,8 @@ KERNELS = {
     "head_ffn_bf16": (head_ffn_bf16, head_ffn_plain),
     "stma_linear_attention_bf16": (stma_linear_attention_bf16, stma_linear_attention_plain),
     "fused_expert_ffn_bf16": (fused_expert_ffn_bf16, expert_ffn_plain),
+    "fused_linear_attention_bf16": (fused_linear_attention_bf16,
+                                    fused_linear_attention_plain_bf16),
 }
 
 # name -> every wrapper with a launch count

@@ -16,6 +16,20 @@ bound is 0.055 ms, by bytes (both products in 3xTF32 on the tensor cores);
 the cluster fills the card with 1536 CTAs and reads each key once.  The
 gradient recomputes the plain version (ops/recompute.py), as the Pallas
 kernel's custom VJP does.
+
+The operands' dtypes pick the instantiation, as the JAX package's dispatch
+(``_reference``, which promotes) gives the output's dtype, and that dtype
+decides whether the layers after the call run in bf16 or f32:
+
+  - all three bf16 (bf16 inference of the baselines): the bf16 kernel,
+    counted apart as ``fused_linear_attention_bf16``, bf16 out.  It loads
+    and stores bf16 (half the f32 kernel's bytes and bound) and rounds the
+    merged ``A`` and the query softmax to bf16 as the Pallas kernel does on
+    a bf16 value; its plain version (``fused_linear_attention_plain_bf16``)
+    is the Pallas body's order of operations;
+  - any operand f32, the others bf16: the bf16 ones widened to f32 (exact)
+    into the f32 kernel, f32 out, as ``_reference`` promotes;
+  - anything else (float16, float64, operands on two devices): raise.
 """
 
 from __future__ import annotations
@@ -29,7 +43,7 @@ from .recompute import with_recomputed_grad
 
 NEG_INF = -1000000.0
 WIDTHS = (16, 32, 64, 128)  # the head widths the kernel is instantiated for
-_fn = None
+_fns = {}  # C symbol -> its ctypes function
 
 
 def linear_attention_core(query, key, value):
@@ -49,8 +63,27 @@ def masked_linear_attention(q_logits, k_logits, value, key_mask=None):
 
 
 def fused_linear_attention_plain(q_logits, k_logits, value):
-    """Plain version of K5 (the Pallas kernel's jnp ``_reference``)."""
-    return masked_linear_attention(q_logits, k_logits, value)
+    """Plain version of K5 (the Pallas kernel's jnp ``_reference``) in f32:
+    bf16 operands beside an f32 one widened, as the wrapper's f32 path
+    takes them (on f32 operands the casts do nothing)."""
+    return masked_linear_attention(q_logits.float(), k_logits.float(), value.float())
+
+
+def fused_linear_attention_plain_bf16(q_logits, k_logits, value):
+    """Plain version of K5 on bf16 operands, in the Pallas body's order
+    (pallas_attention.py ``_kernel``): the key softmax over the sequence in
+    f32, rounded to bf16; ``A = K^T V`` accumulated in f32, rounded to bf16;
+    the query softmax over the channels in f32, rounded to bf16; ``Q A``
+    accumulated in f32, stored in bf16."""
+    bf = torch.bfloat16
+    k = k_logits.float()
+    k_exp = torch.exp(k - k.amax(dim=1, keepdim=True))
+    k_soft = (k_exp / (k_exp.sum(dim=1, keepdim=True) + 1e-30)).to(bf)
+    att = torch.einsum("bnhd,bnhl->bhdl", k_soft.float(), value.float()).to(bf)
+    q = q_logits.float()
+    q_exp = torch.exp(q - q.amax(dim=-1, keepdim=True))
+    q_soft = (q_exp / (q_exp.sum(dim=-1, keepdim=True) + 1e-30)).to(bf)
+    return torch.einsum("bthd,bhdl->bthl", q_soft.float(), att.float()).to(bf)
 
 
 def _aligned(t):
@@ -62,22 +95,33 @@ def _aligned(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _launch(q_logits, k_logits, value):
+def _launch(symbol, q_logits, k_logits, value):
     B, T, H, d = q_logits.shape
     N = k_logits.shape[1]
-    out = torch.empty((B, T, H, d), dtype=torch.float32, device=q_logits.device)
-    global _fn
-    if _fn is None:
+    out = torch.empty((B, T, H, d), dtype=q_logits.dtype, device=q_logits.device)
+    fn = _fns.get(symbol)
+    if fn is None:
         v, i = ctypes.c_void_p, ctypes.c_int
-        _fn = _build.function("linear_attention", "mc_linear_attention",
-                              [v, v, v, v, i, i, i, i, i, v, v])
+        fn = _fns[symbol] = _build.function("linear_attention", symbol,
+                                            [v, v, v, v, i, i, i, i, i, v, v])
     strides = (ctypes.c_longlong * 9)(*(s for t in (q_logits, k_logits, value)
                                         for s in (t.stride(0), t.stride(1), t.stride(2))))
-    rc = _fn(q_logits.data_ptr(), k_logits.data_ptr(), value.data_ptr(), out.data_ptr(),
-             B, T, N, H, d, ctypes.cast(strides, ctypes.c_void_p),
-             _build.stream_ptr(q_logits.device))
+    rc = fn(q_logits.data_ptr(), k_logits.data_ptr(), value.data_ptr(), out.data_ptr(),
+            B, T, N, H, d, ctypes.cast(strides, ctypes.c_void_p),
+            _build.stream_ptr(q_logits.device))
     _build.check("linear_attention", rc)
+    return out
+
+
+def _launch_f32(q_logits, k_logits, value):
+    out = _launch("mc_linear_attention", q_logits, k_logits, value)
     fused_linear_attention.launches += 1
+    return out
+
+
+def _launch_bf16(q_logits, k_logits, value):
+    out = _launch("mc_linear_attention_bf16", q_logits, k_logits, value)
+    fused_linear_attention_bf16.launches += 1
     return out
 
 
@@ -102,6 +146,34 @@ def pad_heads(q_logits, k_logits, value, width: int):
             torch.nn.functional.pad(k_logits, pad), torch.nn.functional.pad(value, pad))
 
 
+def _check(name, q_logits, k_logits, value, dtype):
+    """The wrapper's checks on a CUDA call: device, dtype, shapes, grid."""
+    B, T, H, d = q_logits.shape
+    N = k_logits.shape[1]
+    tensors = (q_logits, k_logits, value)
+    if any(t.dtype != dtype or t.device != q_logits.device for t in tensors):
+        raise ValueError(f"{name}: operands must be {dtype} on one device")
+    if k_logits.shape != (B, N, H, d) or value.shape != (B, N, H, d):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if 4 * B > 2 ** 31 - 1 or H > 65535:  # grid (4 B, H): a cluster of 4 per cell
+        raise ValueError(f"{name}: grid too large")
+
+
+def _run(name, launch, plain, q_logits, k_logits, value, dtype):
+    """Checks, the empty case, the padded head width, then the kernel
+    (differentiable through ``plain``'s gradient)."""
+    _check(name, q_logits, k_logits, value, dtype)
+    B, T, H, d = q_logits.shape
+    width = padded_width(d)
+    if B == 0 or T == 0 or H == 0:
+        return q_logits.new_empty((B, T, H, d))
+    tensors = (q_logits, k_logits, value)
+    if width != d:
+        return _run(name, launch, plain, *pad_heads(*tensors, width), dtype)[..., :d]
+    q, k, v = (_aligned(t) for t in tensors)
+    return with_recomputed_grad(launch, plain, q, k, v)
+
+
 def fused_linear_attention(q_logits: torch.Tensor, k_logits: torch.Tensor,
                            value: torch.Tensor) -> torch.Tensor:
     """q_logits [B,T,H,d], k_logits [B,N,H,d] (additively masked), value
@@ -110,27 +182,39 @@ def fused_linear_attention(q_logits: torch.Tensor, k_logits: torch.Tensor,
     stride on d), differentiable through the plain version's gradient.  A
     d the kernel is not instantiated for (MCM's channel attention, 196 / 4
     = 49) runs padded to the next width (``pad_heads``), the output cut
-    back to d."""
+    back to d.  Three bf16 operands go to ``fused_linear_attention_bf16``
+    (bf16 out); bf16 ones beside an f32 one are widened to f32 (f32 out);
+    other dtypes raise."""
+    dtypes = {q_logits.dtype, k_logits.dtype, value.dtype}
+    if dtypes == {torch.bfloat16}:
+        return fused_linear_attention_bf16(q_logits, k_logits, value)
+    if not dtypes <= {torch.float32, torch.bfloat16}:
+        raise ValueError(f"fused_linear_attention: operands must be float32 or bfloat16, "
+                         f"got {sorted(str(t) for t in dtypes)}")
+    q_logits, k_logits, value = (t.float() for t in (q_logits, k_logits, value))
     if q_logits.device.type == "cpu":
         return fused_linear_attention_plain(q_logits, k_logits, value)
     if q_logits.device.type != "cuda":
         raise ValueError(f"fused_linear_attention: unsupported device {q_logits.device}")
-    B, T, H, d = q_logits.shape
-    N = k_logits.shape[1]
-    tensors = (q_logits, k_logits, value)
-    if any(t.dtype != torch.float32 or t.device != q_logits.device for t in tensors):
-        raise ValueError("fused_linear_attention: operands must be float32 on one device")
-    if k_logits.shape != (B, N, H, d) or value.shape != (B, N, H, d):
-        raise ValueError("fused_linear_attention: inconsistent shapes")
-    width = padded_width(d)
-    if 4 * B > 2 ** 31 - 1 or H > 65535:  # grid (4 B, H): a cluster of 4 per cell
-        raise ValueError("fused_linear_attention: grid too large")
-    if B == 0 or T == 0 or H == 0:
-        return q_logits.new_empty((B, T, H, d))
-    if width != d:
-        return fused_linear_attention(*pad_heads(*tensors, width))[..., :d]
-    q, k, v = (_aligned(t) for t in tensors)
-    return with_recomputed_grad(_launch, fused_linear_attention_plain, q, k, v)
+    return _run("fused_linear_attention", _launch_f32, fused_linear_attention_plain,
+                q_logits, k_logits, value, torch.float32)
+
+
+def fused_linear_attention_bf16(q_logits: torch.Tensor, k_logits: torch.Tensor,
+                                value: torch.Tensor) -> torch.Tensor:
+    """``fused_linear_attention`` on three bf16 operands, bf16 out.  A CPU
+    tensor takes the plain bf16 version; a CUDA tensor launches the bf16
+    kernel.  The padded head width pads the query logits at NEG_INF, which
+    is -999424 in bf16: their channel softmax is still exactly 0 there."""
+    if q_logits.device.type == "cpu":
+        return fused_linear_attention_plain_bf16(q_logits, k_logits, value)
+    if q_logits.device.type != "cuda":
+        raise ValueError(f"fused_linear_attention_bf16: unsupported device "
+                         f"{q_logits.device}")
+    return _run("fused_linear_attention_bf16", _launch_bf16,
+                fused_linear_attention_plain_bf16, q_logits, k_logits, value,
+                torch.bfloat16)
 
 
 fused_linear_attention.launches = 0
+fused_linear_attention_bf16.launches = 0

@@ -17,7 +17,9 @@ The int8 products are ``dot_general`` / ``einsum`` in the JAX package,
 outside any Pallas kernel.  Here they go through ``int_mm``: on the card
 ``torch._int_mm`` (int8 x int8 -> int32, which takes more than 16 rows and
 k, n multiples of 8: the operands are padded with zeros, exact because each
-row is quantized by itself and a zero column adds nothing), on the CPU the
+row is quantized by itself and a zero column adds nothing; the weight in
+column-major order, the one layout its cuBLASLt call takes at every shape),
+on the CPU the
 plain int32 product.  Both give the
 same int32 accumulators exactly.  A per-head or per-expert product (PyTorch
 has no batched int8 product on the card) is a loop over the heads or the
@@ -101,8 +103,9 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     tensor takes the plain int32 product; a CUDA tensor ``torch._int_mm``,
     which takes more than 16 rows and k and n multiples of 8: the operands
     are padded with zeros up to those (exact: a zero row or column adds
-    nothing) and the result cut back.  Each of ``int_mm.hooks`` is called
-    with (a, b) first, on every device."""
+    nothing), ``b`` taken in column-major order, and the result cut back.
+    Each of ``int_mm.hooks`` is called with (a, b) first, on every
+    device."""
     for hook in int_mm.hooks:
         hook(a, b)
     if a.device.type == "cpu":
@@ -119,6 +122,11 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         a = F.pad(a, (0, pk, 0, pm))
     if pk or pn:
         b = F.pad(b, (0, pn, 0, pk))
+    if b.stride(0) != 1:
+        # cuBLASLt takes an int8 B in column-major order at every shape; it
+        # refuses some row-major ones (k of 32-96 below n: FineMoGen's
+        # 64-wide experts); the stacked W8A8 weights are stored that way
+        b = b.t().contiguous().t()
     int_mm.launches += 1
     out = torch._int_mm(a, b)
     return out[:m, :n] if pm or pn else out
@@ -173,8 +181,12 @@ def flax_path(name: str) -> str:
 
 
 def _set_int8(module: nn.Module, leaf: str, weight_only: bool) -> None:
-    """A stacked weight -> an int8 buffer of the same name beside its scale."""
+    """A stacked weight -> an int8 buffer of the same name beside its scale;
+    under W8A8 each group's [K, N] in column-major order, which ``int_mm``
+    hands the card's int8 product as it is."""
     wq, scale = quantize_weight(getattr(module, leaf).detach(), 1)
+    if not weight_only:
+        wq = wq.transpose(1, 2).contiguous().transpose(1, 2)
     del module._parameters[leaf]
     module.register_buffer(leaf, wq)
     module.register_buffer(leaf + ("_wscale" if weight_only else "_scale"), scale)

@@ -171,7 +171,9 @@ class MotionGenServer:
             bad = [b for b in self._buckets if b % mesh.world]
             if bad:
                 raise ValueError(f"batch_buckets {bad} not divisible by the mesh's "
-                                 f"data-parallel size {mesh.world}")
+                                 f"data-parallel size {mesh.world}: each rank samples "
+                                 "an equal block of a bucket's rows, so a bucket must be "
+                                 "a multiple of the row-ranks")
         self._followers_stopped = False
         # rank 0's broadcasts: one at a time (a sampling call's collectives
         # included), the keep-alive thread's too

@@ -7,7 +7,8 @@ text encoders that pool (CLIP's ``text_projection``, ``use_text_proj``),
 each whole ``forward_test``, each whole ``MotionDiffusion.sample`` under
 ``inference_type='ddpm'`` on the JAX run's draws replayed, and the
 reference checkpoint converters on fabricated state dicts (MDM in both its
-namings, with the official checkpoint's post-processing).  Tolerance: 1e-4
+namings, with the official checkpoint's post-processing), and the bf16 and
+int8 casts of each family.  Tolerance: 1e-4
 x max(1, max |JAX|), as test_torch_sample.py holds the flagship; the sums
 differ in order and erf comes from different libraries."""
 
@@ -180,18 +181,35 @@ def test_baselines_refuse_the_step_cache_and_training(pair):
 
 
 def test_baselines_refuse_bf16_and_int8(pair):
-    """Each family says it runs in exact f32 only; the casts refuse it and
-    leave the weights as they were."""
-    from motioncraft_tpu_torch.apis import bf16_cast_, int8_quantize_
+    """The casts run on every family (a copy of the fixture's model):
+    ``bf16_cast_`` rounds every tensor as ``bf16_cast_variables`` casts
+    every leaf, bit for bit, keeping the time MLP's in f32; ``int8_quantize_``
+    at ``min_elems=1`` quantizes the leaves ``int8_quantize_variables``
+    quantizes (MDM: its time MLP alone).  Their forwards and samples are
+    held against the JAX package's in tests/test_torch_baselines_{bf16,int8}.py."""
+    import copy
 
-    family, _, _, arch_t, _ = pair
-    before = {k: v.clone() for k, v in arch_t.model.state_dict().items()}
-    for cast in (bf16_cast_, int8_quantize_):
-        with pytest.raises(ValueError, match="K5's bf16 instantiation"):
-            cast(arch_t)
-    after = arch_t.model.state_dict()
-    assert before.keys() == after.keys()
-    assert all(torch.equal(before[k], after[k]) for k in before)
+    from motioncraft_tpu.apis.factory import bf16_cast_variables, int8_quantize_variables
+    from motioncraft_tpu_torch.apis import PROMOTED_MODULES, bf16_cast_, int8_quantize_
+    from motioncraft_tpu_torch.ops.quant import count_quantized
+
+    family, _, variables, arch_t, _ = pair
+    arch = copy.deepcopy(arch_t)
+    bf16_cast_(arch)
+    want = from_jax_params(jax.tree_util.tree_map(
+        lambda a: np.asarray(a.astype(jnp.float32)), bf16_cast_variables(variables)["params"]))
+    got = arch.model.state_dict()
+    assert set(got) == set(want)
+    for k, v in got.items():
+        promoted = bool(set(k.split(".")) & set(PROMOTED_MODULES))
+        assert v.dtype == (torch.float32 if promoted else torch.bfloat16), k
+        np.testing.assert_array_equal(v.float().numpy(), want[k].numpy(), err_msg=k)
+    arch = copy.deepcopy(arch_t)
+    int8_quantize_(arch, min_elems=1)
+    quantized = int8_quantize_variables(variables, min_elems=1)["params"]
+    n = sum(a.dtype == jnp.int8 for a in jax.tree_util.tree_leaves(quantized))
+    assert count_quantized(arch.model)[0] == n == {"motiondiffuse": 32, "mcm": 24,
+                                                   "mdm": 2}[family]
 
 
 # ------------------------------------------------------------- modules

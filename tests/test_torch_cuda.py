@@ -16,12 +16,13 @@ chunks).  K5 and K6 are also held backward: their gradient recomputes the
 plain version, so it must equal plain autograd's to the same tolerance.  The end-to-end case runs a narrow model (widths the kernels
 take) on the card and on the CPU with the same weights and noise.
 
-The bf16 instantiations of K1-K3 and K6 (``*_bf16``) agree with their
+The bf16 instantiations of K1-K3, K5 and K6 (``*_bf16``) agree with their
 plain versions to 1e-2 x max |plain|: both round the hidden (K1, K2, K6)
 and the output to bf16, whose ulp is 3.9e-3 relative, and a sum that lands
-near a rounding boundary may round the other way.  K6's bf16 gradient
-recomputes the plain version in bf16, so it equals plain autograd's to that
-tolerance too.
+near a rounding boundary may round the other way; K5's also rounds A and
+the query softmax, its plain version the key softmax too.  K5's and K6's
+bf16 gradients recompute the plain version in bf16, so they equal plain
+autograd's to that tolerance too.
 """
 
 import numpy as np
@@ -229,6 +230,15 @@ BF16_CASES = [
     ("fused_expert_ffn_bf16", (3, 37, 256, 1024)),
     ("fused_expert_ffn_bf16", (4, 130, 128, 512)),
     ("fused_expert_ffn_bf16", (2, 130, 64, 96)),
+    # K5: d = 16, 32, 64, 128; MCM's channel self-attention (512 channel
+    # tokens of 196 frames over 4 heads: d = 49, run padded to 64) and its
+    # text cross-attention at B = 16; a masked first chunk
+    ("fused_linear_attention_bf16", (4, 50, 77, 3, 16)),
+    ("fused_linear_attention_bf16", (2, 33, 40, 5, 32)),
+    ("fused_linear_attention_bf16", (2, 300, 700, 2, 64)),
+    ("fused_linear_attention_bf16", (3, 20, 40, 2, 128, "masked_chunk")),
+    ("fused_linear_attention_bf16", (16, 512, 512, 4, 49)),
+    ("fused_linear_attention_bf16", (16, 196, 77, 4, 128)),
 ]
 
 
@@ -258,8 +268,8 @@ def test_kernel_matches_plain(cuda, name, variant):
 @pytest.mark.parametrize("name,variant", BF16_CASES, ids=lambda v: str(v))
 def test_bf16_kernel_matches_plain(cuda, name, variant):
     """Each bf16 instantiation, reached through its f32 wrapper as the
-    models call it, against the plain version on the same bf16 operands."""
-    wrapper, plain = KERNELS[name[:-5]]
+    models call it, against its plain version on the same bf16 operands."""
+    wrapper, plain = KERNELS[name[:-5]][0], KERNELS[name][1]
     args = [a.to(cuda) if torch.is_tensor(a) else a
             for a in _case(name, variant, torch.Generator().manual_seed(0))]
     reset_launch_counts()
@@ -273,7 +283,8 @@ def test_bf16_kernel_matches_plain(cuda, name, variant):
 
 
 @pytest.mark.parametrize("name,variant",
-                         GRAD_CASES + [c for c in BF16_CASES if c[0] == "fused_expert_ffn_bf16"],
+                         GRAD_CASES + [c for c in BF16_CASES if c[0] in (
+                             "fused_expert_ffn_bf16", "fused_linear_attention_bf16")],
                          ids=lambda v: str(v))
 def test_kernel_gradient_matches_plain(cuda, name, variant):
     wrapper, plain = KERNELS[name]
@@ -336,11 +347,14 @@ def _narrow(cfg):
 
 
 @pytest.mark.parametrize("m,k,n,col", [(1, 1536, 2048, True), (2, 20, 12, False),
-                                       (17, 128, 512, False), (40, 322, 128, True)])
+                                       (17, 128, 512, False), (40, 322, 128, True),
+                                       (1764, 64, 256, False), (1764, 64, 256, True)])
 def test_int_mm_is_the_int32_product(cuda, m, k, n, col):
     """int_mm on the card (torch._int_mm, padded to its shape rules) equals
     the plain int32 product exactly, counts one launch, and its hooks see
-    the caller's shapes; ``col``: a column-major mat2, as nn.Linear's."""
+    the caller's shapes; ``col``: a column-major mat2, as nn.Linear's.  The
+    [1764, 64] x [64, 256] case is FineMoGen's W8A8 motion expert, whose
+    row-major mat2 cuBLASLt refuses."""
     g = torch.Generator().manual_seed(m)
     a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
     b = torch.randint(-127, 128, (n, k) if col else (k, n), generator=g, dtype=torch.int8)

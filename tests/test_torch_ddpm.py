@@ -3,7 +3,8 @@
 model both sides compute alike, on the JAX run's own draws replayed, for
 each mean and variance type, with and without a pre-sequence and with the
 x0 processing; and tools/torch_test.py on a tiny DDPM config on the CPU,
-with the low-precision options refused on a baseline.  Tolerance: 1e-5 x
+with bf16 and int8 on that baseline (metrics.json as the JAX package's
+tools/test.py writes it) and the step cache refused.  Tolerance: 1e-5 x
 max(1, max |JAX|), as the DDIM loop of test_torch_sample.py is held."""
 
 import importlib.util
@@ -164,11 +165,64 @@ def test_torch_test_cli_runs_a_ddpm_config(ddpm_workdir, monkeypatch):
                                   snap["params/joint_embed/kernel"].T)
 
 
+LOWPREC = (("--bf16",), ("--int8",), ("--int8-mode", "w8"))
+
+
+@pytest.fixture(scope="module")
+def jax_lowprec_runs(ddpm_workdir):
+    """The JAX package's tools/test.py on the tiny DDPM config and snapshot
+    with each low-precision option, the three processes at once: {argv:
+    (return code, metrics.json or the output's tail)}."""
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu", HOME=str(ddpm_workdir))
+    procs = {}
+    for i, argv in enumerate(LOWPREC):
+        procs[argv] = subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "tools", "test.py"),
+             str(ddpm_workdir / "tiny_ddpm.py"), f"jax_lp{i}", "--batch-size", "4",
+             "--checkpoint", str(ddpm_workdir / "params.npz"), *argv],
+            env=env, cwd=str(ddpm_workdir), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    out = {}
+    for i, (argv, proc) in enumerate(procs.items()):
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode:
+            out[argv] = (proc.returncode, log[-3000:])
+        else:
+            with open(ddpm_workdir / f"jax_lp{i}" / "metrics.json") as f:
+                out[argv] = (0, json.load(f))
+    return out
+
+
 @pytest.mark.parametrize("argv", [["--bf16"], ["--int8"], ["--int8-mode", "w8"],
                                   ["--step-cache", "2"]])
-def test_lowprec_options_are_refused_on_a_baseline(ddpm_workdir, monkeypatch, argv):
+def test_lowprec_options_are_refused_on_a_baseline(ddpm_workdir, monkeypatch, argv,
+                                                   request):
+    """bf16 and int8 run on a baseline (K5's bf16 instantiation on the
+    card): finite metrics whose keys and flags are those the JAX package's
+    tools/test.py writes with the same option (the draws differ, so the
+    values do).  The step cache stays refused by the sampler, with the JAX
+    package's words: DDPM has none."""
     torch_test = _load("torch_test", os.path.join(REPO, "tools", "torch_test.py"))
     monkeypatch.chdir(ddpm_workdir)
-    with pytest.raises(SystemExit, match="K5's bf16 instantiation"):
-        torch_test.main([str(ddpm_workdir / "tiny_ddpm.py"), "out_lp", "--device", "cpu",
-                         *argv])
+    if argv[0] == "--step-cache":
+        with pytest.raises(ValueError, match="step caching requires inference_type='ddim'"):
+            torch_test.main([str(ddpm_workdir / "tiny_ddpm.py"), "out_lp", "--device",
+                             "cpu", "--batch-size", "4", *argv])
+        return
+    run = torch_test.main([str(ddpm_workdir / "tiny_ddpm.py"), "out_lp", "--device", "cpu",
+                           "--batch-size", "4", "--checkpoint",
+                           str(ddpm_workdir / "params.npz"), *argv])
+    arch, out = run["arch"], run["out"]
+    rc, want = request.getfixturevalue("jax_lowprec_runs")[tuple(argv)]
+    assert rc == 0, want
+    assert sorted(out) == sorted(want) and out["flags"] == want["flags"]
+    assert out["protocol"] == want["protocol"]
+    metric = {k: v for k, v in out.items() if k not in ("flags", "protocol")}
+    assert len(metric) == 8 and all(np.isfinite(v) for v in metric.values())
+    pred = np.stack([np.asarray(r["pred_motion"]) for r in run["results"]])
+    assert pred.dtype == np.float32 and np.isfinite(pred).all()
+    if argv == ["--bf16"]:
+        assert arch.model.joint_embed.weight.dtype == torch.bfloat16

@@ -8,8 +8,8 @@ package samples FineMoGen only with ``text_hoist=False``: its hoist calls
 SAMI without motion and raises, which a test here pins; the port's default
 computes what JAX computes with the hoist off.  Also the reference
 checkpoint converter (bit for bit the JAX one's on a fabricated state
-dict) and what this slice leaves out (bf16, int8, the step cache), each
-refused with its ROADMAP item; SAMI in training and the training loss
+dict), the CLIs' bf16, int8 and step-cache options on it; SAMI in
+training and the training loss
 against JAX at gate noise 0 (tests/test_torch_baseline_train.py holds the
 gradients).
 
@@ -217,23 +217,76 @@ def test_convert_finemogen_matches_jax_and_loads(tmp_path):
 
 @pytest.mark.parametrize("argv", [["--bf16"], ["--int8"], ["--int8-mode", "w8"],
                                   ["--step-cache", "2"]])
-def test_lowprec_options_are_refused(pair, argv):
-    """FineMoGen runs in exact f32 only: each option exits naming the ROADMAP
-    item (K5's bf16 instantiation, with bf16, int8 and the step cache on
-    the baselines) and leaves the weights as they were."""
+def test_lowprec_options_are_refused(pair, argv, monkeypatch):
+    """Each option of the CLIs runs on FineMoGen (a copy of the fixture's
+    model): --bf16 casts it and samples in bf16, --int8 / --int8-mode w8
+    quantize the leaves the JAX package quantizes (at a size floor of 1
+    element here), --step-cache gives the step cache, which FineMoGen takes
+    as the JAX package's does.  tests/test_torch_baselines_{bf16,int8}.py
+    hold these against the JAX package's numbers."""
+    import copy
+
+    from motioncraft_tpu.apis.factory import int8_quantize_variables
+    from motioncraft_tpu_torch.ops import quant
+
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from tools.torch_lowprec import apply_lowprec_, step_cache_from_args
     from tools.torch_test import parse_args
 
-    _, _, arch_t, _ = pair
-    before = {k: v.clone() for k, v in arch_t.model.state_dict().items()}
+    _, variables, arch_t, _ = pair
+    arch = copy.deepcopy(arch_t)
+    monkeypatch.setattr(quant, "MIN_ELEMS", 1)
     args = parse_args(["config.py", "out", *argv])
-    with pytest.raises(SystemExit, match="K5's bf16 instantiation"):
-        apply_lowprec_(arch_t, args)
-    assert all(torch.equal(v, before[k]) for k, v in arch_t.model.state_dict().items())
-    if argv[0] == "--step-cache":
-        with pytest.raises(ValueError, match="does not support step caching"):
-            arch_t.sample(_batch(), step_cache=step_cache_from_args(args))
+    dtype = apply_lowprec_(arch, args, logger=lambda m: None)
+    assert dtype == (torch.bfloat16 if argv == ["--bf16"] else None)
+    n = quant.count_quantized(arch.model)[0]
+    if argv[0].startswith("--int8"):
+        want = int8_quantize_variables(variables, min_elems=1)["params"]
+        assert n == sum(a.dtype == jnp.int8 for a in jax.tree_util.tree_leaves(want)) > 0
+    else:
+        assert n == 0
+    cache = step_cache_from_args(args, logger=lambda m: None)
+    assert (cache is not None) == (argv[0] == "--step-cache")
+    got = arch.sample(_batch(), compute_dtype=dtype, step_cache=cache,
+                      generator=torch.Generator().manual_seed(0))
+    assert got.dtype == torch.float32 and np.isfinite(got.numpy()).all()
+
+
+def test_step_cache_table_clis_on_finemogen(tmp_path, monkeypatch):
+    """tools/torch_calibrate_step_cache.py calibrates a table on FineMoGen
+    (which takes the step cache, as in the JAX package) and
+    tools/torch_test.py samples with it in bf16, on the tiny config over a
+    synthetic Motion-X tree."""
+    import importlib.util
+    import json
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(name, os.path.join(repo, "tools",
+                                                                         name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    load("make_tiny_data").make_motionx(str(tmp_path / "data_tiny"), np.random.RandomState(0))
+    config = tmp_path / "tiny_finemogen.py"
+    config.write_text(f"_base_ = [{os.path.join(repo, 'configs', 'tests', 'tiny_t2m.py')!r}]\n"
+                      f"model = dict(_delete_=True, **{finemogen_cfg()!r})\n")
+    monkeypatch.chdir(tmp_path)
+    table = str(tmp_path / "table.npz")
+    run = load("torch_calibrate_step_cache").main(
+        [str(config), table, "--device", "cpu", "--batches", "1", "--batch-size", "2",
+         "--threshold", "1.0", "--tail", "1", "--perturb", "0.05"])
+    flags = run["flags"]
+    assert flags.shape == (STEPS, 2) and not flags[0].any() and not flags[-1].any()
+    out = load("torch_test").main([str(config), "out", "--device", "cpu", "--batch-size", "4",
+                                   "--bf16", "--step-cache-table", table])["out"]
+    assert out["flags"]["step_cache_table"] == table
+    with open(tmp_path / "out" / "metrics.json") as f:
+        assert json.load(f) == out
+    metric = {k: v for k, v in out.items() if k not in ("flags", "protocol")}
+    assert all(np.isfinite(v) for v in metric.values())
 
 
 def test_training_is_refused(pair):

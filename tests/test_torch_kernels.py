@@ -42,10 +42,13 @@ from motioncraft_tpu.ops.pallas_stma_attention import (
     stma_linear_attention as jax_stma, stma_linear_attention_reference)
 from motioncraft_tpu_torch.ops import (COUNTED, KERNELS, expert_ffn_plain, fused_expert_ffn,
                                        fused_expert_ffn_bf16, fused_linear_attention,
+                                       fused_linear_attention_bf16,
                                        fused_linear_attention_plain,
+                                       fused_linear_attention_plain_bf16,
                                        grouped_ffn, head_ffn, int_mm, launch_counts,
                                        moe_positions_counts, moe_route, reset_launch_counts,
                                        stma_linear_attention)
+from motioncraft_tpu_torch.ops.linear_attention import pad_heads
 from motioncraft_tpu_torch.ops.moe_ffn import BLOCK
 from motioncraft_tpu_torch.ops.recompute import with_recomputed_grad
 from torch_port_util import grad_mode_on  # noqa: F401
@@ -245,6 +248,85 @@ def test_k5_linear_attention(B, T, N, H, d):
         close(g.numpy(), w)
 
 
+def bf16_pair(a):
+    """numpy f32 -> (JAX bf16 array, torch bf16 tensor) of the same values."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    return j, torch.tensor(np.asarray(j.astype(jnp.float32))).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,T,N,H,d", [(3, 21, 30, 3, 16), (2, 9, 86, 2, 64),
+                                       (2, 13, 20, 2, 128), (2, 17, 32, 4, 49)])
+def test_k5_bf16_linear_attention(B, T, N, H, d):
+    """bf16 operands: Pallas (interpret), the JAX package's default dispatch
+    (``_reference``, bf16 softmaxes and einsums) and the port's plain bf16
+    version (the CPU path of the wrapper), each bf16 out, within 1e-2 x
+    max |reference|: each rounds its softmaxes, A and the output to bf16
+    (3.9e-3 relative) at its own places.  d = 49 is MCM's channel
+    attention, which the card runs padded to 64: the padded plain version
+    is the unpadded function (the query logits' bf16 NEG_INF, -999424,
+    still weighs exactly 0)."""
+    pairs = [bf16_pair(a) for a in linear_attention_case(B, T, N, H, d, seed=d)]
+    jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
+    pallas = pallas_attention.fused_linear_attention(*jargs, True)
+    ref = pallas_attention._reference(*jargs)
+    got = fused_linear_attention(*targs)
+    assert pallas.dtype == ref.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    assert torch.equal(got, fused_linear_attention_bf16(*targs))
+    want = np.asarray(ref, np.float32)
+    scale = BF16_REL * float(np.abs(want).max())
+    np.testing.assert_allclose(np.asarray(pallas, np.float32), want, rtol=0, atol=scale)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=scale)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(pallas, np.float32), rtol=0,
+                               atol=scale)
+    padded = fused_linear_attention_plain_bf16(*pad_heads(*targs, 64 if d == 49 else d))
+    assert float(padded[..., d:].float().abs().sum()) == 0.0
+    np.testing.assert_allclose(padded[..., :d].float().numpy(), got.float().numpy(), rtol=0,
+                               atol=1e-6 * float(got.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtypes", [("bf16", "f32", "bf16"), ("f32", "bf16", "bf16"),
+                                    ("f32", "f32", "bf16")])
+def test_k5_mixed_dtypes_widen_to_f32(dtypes):
+    """Operands of both dtypes: the bf16 ones widened to f32 (exact) and the
+    f32 function, f32 out, as the JAX package's ``_reference`` promotes.
+    ``_reference`` takes a bf16 operand's softmax in bf16 before it
+    promotes, so the two differ by that rounding: 1e-2 x max |reference|."""
+    args = linear_attention_case(2, 9, 12, 2, 16, seed=4)
+    jargs, targs = [], []
+    for a, kind in zip(args, dtypes):
+        j, tb = bf16_pair(a)
+        jargs.append(j if kind == "bf16" else jnp.asarray(a))
+        targs.append(tb if kind == "bf16" else torch.from_numpy(a))
+    ref = pallas_attention._reference(*jargs)
+    got = fused_linear_attention(*targs)
+    assert ref.dtype == jnp.float32 and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=BF16_REL * float(np.abs(np.asarray(ref)).max()))
+    assert torch.equal(got, fused_linear_attention_plain(*(x.float() for x in targs)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_k5_other_dtypes_raise(dtype):
+    args = [torch.from_numpy(a).to(dtype) for a in linear_attention_case(1, 3, 4, 1, 16)]
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_linear_attention(*args)
+
+
+def test_k5_bf16_backward_by_recompute():
+    """The bf16 wrapper's gradient: the plain bf16 version's, recomputed on
+    the saved bf16 operands, equal to its native autograd."""
+    leaves = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True)
+              for a in linear_attention_case(2, 7, 11, 3, 16, seed=8)]
+    plain = fused_linear_attention_plain_bf16
+    w = torch.from_numpy(np.random.RandomState(3).randn(2, 7, 3, 16).astype(np.float32))
+    got = torch.autograd.grad((with_recomputed_grad(plain, plain, *leaves).float() * w).sum(),
+                              leaves)
+    want = torch.autograd.grad((plain(*leaves).float() * w).sum(), leaves)
+    for g, v in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g, v, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("E,C,D,F", [(3, 37, 128, 512), (2, 70, 256, 1024)])
 def test_k6_expert_ffn(E, C, D, F):
     args = expert_ffn_case(E, C, D, F)
@@ -305,6 +387,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     fused_expert_ffn(*(torch.from_numpy(a) for a in expert_ffn_case(1, 3, 32, 32)))
     fused_expert_ffn_bf16(*(torch.from_numpy(a).to(torch.bfloat16)
                             for a in expert_ffn_case(1, 3, 32, 32)))
+    fused_linear_attention(*(torch.from_numpy(a).to(torch.bfloat16)
+                             for a in linear_attention_case(1, 3, 4, 1, 16)))
     int_mm(torch.ones(3, 5, dtype=torch.int8), torch.ones(5, 7, dtype=torch.int8))
     assert launch_counts() == {name: 0 for name in COUNTED}
 

@@ -112,6 +112,36 @@ def test_mesh_server_refuses_a_bucket_the_ranks_do_not_divide():
         MotionGenServer(arch, max_seq_len=T).follow()
 
 
+@pytest.mark.parametrize("n,jax_shape", [(2, (1, 2)), (4, (2, 2)), (8, (4, 2))])
+def test_default_meshes_differ_from_jax_on_purpose(n, jax_shape):
+    """The JAX package's default ``create_mesh()`` puts 2 on ``expert``
+    whenever the device count is even, and its data-parallel server and
+    trainer replicate each row over it; the port splits the rows over every
+    rank (tools/torch_train.py:mesh_axes), which does no duplicate work, so
+    its server takes buckets that are multiples of the row-ranks and says
+    so (ROADMAP queue 3, departures)."""
+    import importlib.util
+
+    import jax
+
+    from motioncraft_tpu.parallel.mesh import create_mesh
+
+    assert len(jax.devices()) >= n
+    mesh = create_mesh(n)
+    assert mesh.axis_names == ("data", "expert") and mesh.devices.shape == jax_shape
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_cli", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tools", "torch_train.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.mesh_axes(n, 1) == (("data",), (n,))
+    arch = build_architecture(tiny_t2m_cfg(max_seq_len=T), device="cpu")
+    port_mesh = DataMesh(world=n, rank=0, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="a bucket must be a multiple of the row-ranks"):
+        MotionGenServer(arch, max_seq_len=T, batch_buckets=(1, 2, 4, 8), mesh=port_mesh)
+    MotionGenServer(arch, max_seq_len=T, batch_buckets=(n, 2 * n), mesh=port_mesh)
+
+
 def _post(port, body, timeout=120):
     req = urllib.request.Request(f"http://127.0.0.1:{port}/generate",
                                  data=json.dumps(body).encode(), method="POST")

@@ -20,7 +20,7 @@ as ``init_all`` never calls it):
 - ``convert_remodiffuse`` against the JAX converter on fabricated reference
   state dicts (both families), exactly, and the ``.pth`` through
   ``load_eval_variables``;
-- exact f32 only, no training (the JAX package's loss passes no
+- int8 on it, no step cache and no training (the JAX package's loss passes no
   retrieval: pinned), and tools/torch_test.py's refusal.
 
 Tolerance: 1e-5 x max(1, max |JAX|) (sums in another order).
@@ -328,13 +328,20 @@ def test_converter_matches_jax_and_loads(family, tmp_path, request):
 
 
 def test_exact_f32_only_and_no_training(remo):
+    """int8 runs on ReMoDiffuse (a copy of the fixture's model;
+    tests/test_torch_baselines_int8.py holds it against the JAX package's);
+    the step cache and training stay refused, as in the JAX package."""
+    import copy
+
     from motioncraft_tpu_torch.apis import int8_quantize_
     from motioncraft_tpu_torch.diffusion import StepCacheConfig
+    from motioncraft_tpu_torch.ops.quant import count_quantized
 
     _, _, arch_t = remo
     batch = _batch()
-    with pytest.raises(ValueError, match="K5's bf16 instantiation"):
-        int8_quantize_(arch_t)
+    arch = copy.deepcopy(arch_t)
+    int8_quantize_(arch, min_elems=1)
+    assert count_quantized(arch.model)[0] > 0
     with pytest.raises(ValueError, match="step caching"):
         arch_t.sample(batch, step_cache=StepCacheConfig(reuse_every=2))
     arch_t.train()
@@ -369,3 +376,19 @@ def test_torch_test_cli_refuses_remodiffuse(monkeypatch):
     with pytest.raises(SystemExit, match="retrieval"):
         tool.main(["configs/remodiffuse/remodiffuse_t2m.py", "out", "--device", "cpu"])
     sys.modules.pop("torch_test", None)
+
+
+def test_torch_serve_refuses_remodiffuse(monkeypatch):
+    """The JAX package's server samples without a retrieval, which
+    ReMoDiffuse's every call needs: the port's server says so and exits
+    before it builds anything."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve", os.path.join(REPO, "tools", "torch_serve.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    monkeypatch.chdir(REPO)
+    with pytest.raises(SystemExit, match="nor does tools/serve.py"):
+        tool.build_server(tool.parse_args(["configs/remodiffuse/remodiffuse_t2m.py",
+                                           "--device", "cpu"]))

@@ -6,8 +6,7 @@ tool offers it, ``--step-cache-table PATH``.
 
   add_lowprec_args(parser, table=True)
   args = lowprec_from_args(parser.parse_args(argv))
-  compute_dtype = apply_lowprec_(arch, args)      # after loading the weights;
-                                                  # refused on an exact-f32 model
+  compute_dtype = apply_lowprec_(arch, args)      # after loading the weights
   sample(..., compute_dtype=compute_dtype, step_cache=step_cache_from_args(args))
 """
 
@@ -57,19 +56,6 @@ def lowprec_from_args(args: argparse.Namespace) -> argparse.Namespace:
     return args
 
 
-def refuse_exact_f32_only(arch, args):
-    """--bf16, --int8 and the step cache on a model that runs in exact f32
-    only raise ``SystemExit`` with the model's own reason
-    (``exact_f32_only``: the baselines) rather than fall back."""
-    why = getattr(arch.model, "exact_f32_only", None)
-    asked = [name for name, on in (("--bf16", args.bf16), ("--int8", args.int8),
-                                   ("--step-cache", args.step_cache),
-                                   ("--step-cache-table",
-                                    getattr(args, "step_cache_table", None))) if on]
-    if asked and why:
-        raise SystemExit(f"{' '.join(asked)} on {type(arch.model).__name__}: {why}")
-
-
 def apply_lowprec_(arch, args, logger=print):
     """``--bf16``'s cast, then ``--int8``'s quantization, of the loaded
     ``arch`` in place; returns the compute dtype (None: f32).  An
@@ -81,7 +67,6 @@ def apply_lowprec_(arch, args, logger=print):
 
     if arch.model is None:
         return None
-    refuse_exact_f32_only(arch, args)
     compute_dtype = None
     if args.bf16:
         bf16_cast_(arch)

@@ -10,6 +10,9 @@ quantized after the cast; ``--step-cache N`` reuses each layer's residual on
 all but every N-th DDIM step.  Weights come from ``--checkpoint`` (a
 save_params ``.npz`` of either package) or ``--torch-checkpoint`` (a
 released ``.pth``); without either they are fabricated from ``--seed``.
+A baseline config serves as tools/serve.py serves it (its own sampler, bf16
+and int8 included); ReMoDiffuse and MoMatMoGen, which sample only with a
+retrieval that neither server builds, exit saying so.
 
 Usage:
   python tools/torch_serve.py configs/stmogen/t2m_motionx_0_125b.py \\
@@ -45,6 +48,7 @@ import numpy as np  # noqa: E402
 
 from tools.torch_lowprec import (add_lowprec_args, apply_lowprec_,  # noqa: E402
                                  lowprec_from_args, step_cache_from_args)
+from tools.torch_test import refuse_retrieval  # noqa: E402
 
 
 def parse_args(argv=None):
@@ -104,6 +108,7 @@ def build_server(args, logger=print, mesh=None):
     device = args.device if mesh is None else mesh.device
     cfg = Config.fromfile(args.config)
     cfg.merge_from_dict(cfg_options_from_args(args.cfg_options))
+    refuse_retrieval(cfg, jax_tool="tools/serve.py")
     model_cfg = cfg.model["model"]
     base_cfg = model_cfg.get("base_model", model_cfg)
     max_seq_len = base_cfg.get("max_seq_len", 196)

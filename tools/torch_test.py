@@ -13,7 +13,9 @@ Usage:
   python tools/torch_test.py configs/tests/tiny_t2m.py out --device cpu \\
       --cfg-options model.inference_type=gt          # FID must be ~0
   python tools/torch_test.py configs/finemogen/finemogen_t2m.py out \\
-      --torch-checkpoint finemogen_t2m.pth     # FineMoGen (SAMI), exact f32 only
+      --torch-checkpoint finemogen_t2m.pth     # FineMoGen (SAMI)
+  python tools/torch_test.py configs/motiondiffuse/motiondiffuse_t2m_smplx.py out \
+      --checkpoint params.npz --bf16 --int8-mode w8   # any baseline, DDPM included
 
 The HumanML3D and KIT-ML configs (stmogen/t2m_humanml3d.py, the
 MotionDiffuse, MDM, MCM and FineMoGen ones) evaluate through the BiGRU
@@ -30,7 +32,10 @@ model.model.text_hoist=False; this tool computes the same at the default.
 (ops/quant.py), ``--step-cache N`` reuses each layer's residual on all but
 every N-th DDIM step and ``--step-cache-table PATH`` on a calibrated table
 (e.g. artifacts/step_cache_flagship.json): approximate modes, stamped into
-metrics.json.  The RePaint knobs set ``arch.repaint_cfg`` as tools/test.py
+metrics.json.  Every baseline config takes ``--bf16`` and ``--int8`` (their
+attentions run K5's bf16 instantiation); of them only FineMoGen takes the
+step cache; on the others (and under DDPM) the sampler refuses it with the
+JAX package's words.  The RePaint knobs set ``arch.repaint_cfg`` as tools/test.py
 does (a T2M sample does not outpaint, so they leave it unchanged).
 ``--dispatch-batches K`` groups K batches into one wait for the card (the
 same predictions).  ReMoDiffuse (remodiffuse/remodiffuse_t2m.py)
@@ -127,16 +132,16 @@ def repaint_cfg(args):
                          jump_length=args.jump_length, jump_n_sample=args.jump_n_sample)
 
 
-def refuse_retrieval(cfg) -> None:
+def refuse_retrieval(cfg, jax_tool: str = "tools/test.py") -> None:
     """Exit on a retrieval-augmented denoiser that would sample: its every
     call needs the ``re_dict`` of a retrieval bank, and this tool, like
-    tools/test.py, builds none."""
+    ``jax_tool`` (the JAX package's counterpart), builds none."""
     kind = cfg.model.get("model", {}).get("type")
     if kind in ("ReMoDiffuseTransformer", "MoMatMoGenTransformer") and \
             cfg.model.get("inference_type") != "gt":
         raise SystemExit(
             f"{kind} samples with a retrieval, which this tool does not build (nor does "
-            "tools/test.py): make one with models.baselines.RetrievalDatabase and "
+            f"{jax_tool}): make one with models.baselines.RetrievalDatabase and "
             "model.encode_retrieval, and pass it to MotionDiffusion.sample("
             "extra_model_kwargs={'re_dict': ...})")
 

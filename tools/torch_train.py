@@ -321,8 +321,10 @@ def run(args):
 
 def mesh_axes(n: int, tp: int, pp: int = 1):
     """(axes, shape) of ``n`` ranks at ``--tensor-parallel tp`` or
-    ``--pipeline-parallel pp``: tools/train.py's mesh, data alone without
-    either."""
+    ``--pipeline-parallel pp``; without either, data alone: every rank
+    takes its own rows.  tools/train.py's ``create_mesh(N)`` puts 2 on
+    ``expert`` whenever N is even and computes each row on both of them
+    (the one-process step either way; ROADMAP queue 3, departures)."""
     if pp > 1:
         return ("data", "pipe"), (n // pp, pp)
     if tp <= 1:
