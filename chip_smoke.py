@@ -26,7 +26,8 @@ Phases; any failure exits non-zero:
      T2M shapes (K1 motion, text and layer 0), and K1-K4 in f32 and K1-K3
      in bf16 at phase 12's smallest and largest buckets (2 x 64 and 16 x
      196, with layer 0's half of each) and at phase 14's drift batch (64 x
-     196, with its layer 0's half), K4's positions, K5 and K6 at phase 14's
+     196, with its layer 0's half), K1-K4 at phase 25's flagship visualizer
+     call (8 x 196, with its layer 0's half), K4's positions, K5 and K6 at phase 14's
      training batches (16: --grad-accum 2 of 32; 8: the calibration
      checkpoint's), and K5 at phase 15's inference shapes (B = 16:
      MotionDiffuse's self-attention over 196 frames masked past varied
@@ -34,7 +35,8 @@ Phases; any failure exits non-zero:
      channel self-attention, 512 tokens over 4 heads of 49, which the
      wrapper pads to 64, and its cross-attention, 4 heads of 128; the pad's
      bytes and device time stand beside that case as pad_bytes and pad_ms,
-     and its bound is the function's own bytes at d = 49), and K1, K2 and
+     and its bound is the function's own bytes at d = 49; MCM also at
+     phase 25's one prompt, B = 1), and K1, K2 and
      K4's route at phase 16's FineMoGen shapes (B = 16, 64-wide heads, for
      finemogen_t2m_smplx's 12 heads and finemogen_t2m's 8: K1 on the
      motion MoE at D = 64, F = 256 and on the text MoE at D = 256, K2 at
@@ -112,7 +114,7 @@ Phases; any failure exits non-zero:
      against the CPU, B = 2, gate noise 0, the CPU's gate logits pinned to
      the card's as in phase 6
   9. the T2M protocol evaluation through tools/torch_test.py on the same
-     flagship config: a synthetic Motion-X tree of 64 clips (196 x 322,
+     flagship config: a synthetic Motion-X tree of EVAL_CLIPS (32) clips (196 x 322,
      written here in tools/make_tiny_data.py's layout), phase 3's weights
      saved with save_params and loaded back by --checkpoint, a full-width
      SMPL-X evaluator (DistilBERT 6 x 768, ActorAgnostic 4 x 256) saved as
@@ -135,7 +137,8 @@ Phases; any failure exits non-zero:
      count the code implies; metrics.json carries tools/m2d_test.py's keys;
      windowed_sample_batch at R = 1 equals windowed_sample bit for bit on
      the card with the same draws, and neither waits for the device inside
-     its window loop (CUDA sync debug mode); one ControlNet CFG forward
+     its window loop (CUDA sync debug mode; both on PARITY_RESPACE's
+     schedule); one ControlNet CFG forward
      (c on, 2 x 120) and one whole outpainted window at R = 2 (two
      recordings in lockstep, the condition encoded once for the batch, as
      windowed_sample_batch encodes a chunk's), card against CPU with the
@@ -156,14 +159,16 @@ Phases; any failure exits non-zero:
      tools/s2g_test.py's keys with LBS joints and face vertices; the
      encoder's device time on one window against its f32 bound; the
      samplers at R = 1 agree and wait for the device only for their result
-     (CUDA sync debug mode); the WavEncoder, one ControlNet CFG forward and
+     (CUDA sync debug mode, PARITY_RESPACE's schedule); the WavEncoder, one
+     ControlNet CFG forward and
      one whole outpainted window (PARITY_RESPACE's schedule) card against
      CPU with the gate logits pinned
  12. serving through MotionGenServer on the same flagship with phase 3's
      weights: one server in f32 and one in bf16 (the weights cast, the
      denoiser in bf16 through K1-K3's bf16 instantiations), each with batch
      buckets 1, 2, 4, 8 and sequence buckets 64, 128, 196, warmed up on
-     every bucket pair; 4 client threads send 2 seeded requests each (one
+     the batch buckets its traffic fills (SERVE_WARM) at every sequence
+     bucket; 4 client threads send 2 seeded requests each (one
      at a time, lengths 40-196) beside 2 long-form requests of 400 frames:
      every result finite and of its length, dispatches and occupancy
      consistent with stats(), K1-K4's launches what the dispatches imply
@@ -190,7 +195,7 @@ Phases; any failure exits non-zero:
      JSON line); one M2D track of three windows at --step-cache 2 through
      tools/torch_m2d_test.py (windows 1 and 2 are the harmonized loop: its
      first step after each re-noising jump computes), launches checked; a W8A8
-     MotionGenServer, warmed up on the batch buckets its traffic can fill
+     MotionGenServer, warmed up on the batch bucket its traffic fills first
      (LOWPREC_SERVE_WARM), on phase 12's traffic, latency p50/p95
  14. the trained-weights quality harness over a learnable tree of 256
      clips (tools/make_tiny_data.py --protocol-learnable, written here) with
@@ -211,9 +216,9 @@ Phases; any failure exits non-zero:
      configs/mcm/mcm_t2m_smplx.py and configs/mdm/mdm_t2m_smplx.py at full
      width; K5 under torch.no_grad keeps no autograd graph; for each, one
      batch of 16 requests (T = 196, lengths 40-196) through
-     single_device_test with its DDPM respaced to 250 steps
+     single_device_test with its DDPM respaced to 100 steps
      (BASELINE_DDPM_RESPACE): finite [16, 196, 322] outputs, K5's launches
-     250 x 8 layers x 2 for
+     100 x 8 layers x 2 for
      MotionDiffuse and MCM and 0 for MDM (nothing else launched), the
      batch's wall ms; one denoiser call profiled (device kernels launched,
      device ms, idle share); one forward_test card vs CPU at B = 2; the
@@ -223,7 +228,7 @@ Phases; any failure exits non-zero:
      launch check; then tools/torch_test.py on MotionDiffuse over a
      synthetic Motion-X tree of 16 clips at batch 16 (one replication, a
      full-width SMPL-X evaluator, R-Precision and Matching over the 16,
-     Diversity on 8): finite metrics, K5's launches what 250 steps x 16
+     Diversity on 8): finite metrics, K5's launches what 100 steps x 16
      imply, wall seconds of
      sampling and of evaluation
  16. FineMoGen (SAMI) on the card, with seeded fabricated weights:
@@ -253,8 +258,9 @@ Phases; any failure exits non-zero:
      finite predictions and metrics, K5 20 a denoiser call and nothing
      else; one denoiser call profiled (device kernels, device ms, idle
      share); card vs CPU on one denoiser call, one outpainted window on the
-     same draws (PARITY_RESPACE's schedule) and (S2G) the WavEncoder on one window; R = 2 against
-     R = 1 on the same draws (each recording's rows of the lockstep draws).
+     same draws (PARITY_RESPACE's schedule) and (S2G) the WavEncoder on one
+     window; R = 2 against R = 1 on the same draws (each recording's rows of
+     the lockstep draws; PARITY_RESPACE's schedule).
      Then configs/remodiffuse/remodiffuse_t2m.py: a fabricated retrieval
      bank of 4,096 entries (HumanML3D's train split, which the config's
      t2m_text_train.npz indexes, holds 23,384), the picks of 16 requests
@@ -348,7 +354,7 @@ Phases; any failure exits non-zero:
      (DP_PARAM_TOL), K4's positions, K5 and K6 launched as the steps imply,
      each rank's parameter and optimizer bytes, step ms, and the
      collectives' calls, bytes and ms (all-to-all, all-reduce,
-     all-gather); each mesh's DDIM-50 batch of MP_SAMPLE_REQUESTS requests
+     all-gather); each mesh's batch of MP_SAMPLE_REQUESTS requests (DDIM-10)
      through apis/test.py:mesh_sample (expert: K4's route over the
      gathered logits and K6 on the local experts; tensor: K1 and K2 on
      hidden slices) against one process's (MODEL_REL_TOL); then a 2-rank
@@ -386,7 +392,19 @@ Phases; any failure exits non-zero:
      finemogen_t2m_smplx uncached and with --step-cache 2's flags (K1 bf16,
      K2 bf16 and K4's route as the flags imply), wall ms
      beside phases 15's and 16's f32 batches
- 25. one JSON line of the kernels' numbers, and last the device line
+ 25. the visualizers, each CLI through its main(argv) on seeded fabricated
+     weights saved as a params.npz (VIS_*): tools/torch_visualize.py on the
+     flagship, 4 prompts of VIS_LENGTHS frames in one DDIM-50 CFG call
+     (npz layouts, --web players; K1-K4 as sampling_counts; two of the
+     prompts at VIS_PARITY_RESPACE card vs CPU, the same noise, the gate
+     logits pinned as in phase 6, within MODEL_REL_TOL), on
+     configs/mcm/mcm_t2m.py (one prompt, the 263-d branch, K5's launches);
+     tools/torch_m2d_visualize.py on one synthetic FineDance track
+     (VIS_M2D_FRAMES a window, --web) and tools/torch_s2g_visualize.py on
+     one synthetic BEAT2 recording of VIS_S2G_FRAMES (2 windows, --web;
+     res_ and gt_ npz files), each run's wall s, denoiser calls, launches
+     and idle share (torch.profiler)
+ 26. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -431,9 +449,9 @@ GRAD_REL_TOL = 1e-3
 BATCH, BATCHES, SEED = 16, 2, 0
 TRAIN_BATCH, TRAIN_STEPS = 32, 4  # 1 warm-up + 3 timed
 # one replication (320 before phase 21 came, which put the script over 1000 s
-# on one host; 160 before phase 22 came, 96 before phase 24 came); the
-# Diversity metric draws half of them (300 of 320 before)
-EVAL_CLIPS = 64
+# on one host; 160 before phase 22 came, 96 before phase 24 came, 64 before
+# phase 25 came); the Diversity metric draws half of them (300 of 320 before)
+EVAL_CLIPS = 32
 GT_FID_TOL = 1e-3
 # phase 10: 4 FineDance test tracks of the cross-genre split, 360 frames
 # trimmed + 300 kept: 3 windows of 120 overlapping by 30 (a window costs
@@ -449,7 +467,10 @@ M2D_PARITY_R = 2
 # the card-vs-CPU outpainted windows of phases 10, 11 and 17 sample on this
 # respacing, DDIM-10 (12 RePaint steps), in place of their configs' DDIM-50
 # (84): a cut in depth for phase 22's time, since the CPU runs its side of
-# each window at full width, step by step
+# each window at full width, step by step; so do (since phase 25 came, for
+# its time) the samplers that phases 10 and 11 hold against each other in
+# CUDA sync debug mode and phase 17's lockstep-vs-alone windows, which
+# compare the card with itself
 PARITY_RESPACE = "2,2,2,2,2"
 # phase 11: 4 BEAT2 test recordings of 124 frames: 2 windows of 64
 # overlapping by 4 (a window costs the same at any recording length; 244
@@ -465,6 +486,9 @@ SMPLX_SIZES = dict(vertices=10475, faces=20908, shapedirs=400, posedirs=486)
 # 22 came), 2 long-form requests
 SERVE_BUCKETS, SERVE_SEQ_BUCKETS = (1, 2, 4, 8), (64, 128, 196)
 SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_LONG, SERVE_LONG_FRAMES = 4, 1, 2, 400
+# the batch buckets each server warms up: those its traffic fills (every
+# bucket of SERVE_BUCKETS before phase 25 came; 12 pairs took 8.7 s a server)
+SERVE_WARM = (1, 2)
 # the bucket pairs (batch, frames) whose kernel shapes phase 2 checks: the
 # smallest and the largest
 SERVE_CHECKED = ((1, 64), (8, 196))
@@ -488,10 +512,11 @@ LOWPREC_CLIPS = BATCH  # one batch (two before phase 18)
 # the W8A8 server's requests a client (phase 12's 4 before phase 19 came,
 # which put the script over 1000 s on one host; 2 before phase 20 came)
 LOWPREC_SERVE_PER_CLIENT = 1
-# the batch buckets the W8A8 server warms up: those its traffic can fill
-# (SERVE_CLIENTS short requests, the long ones in pairs); every bucket of
-# SERVE_BUCKETS before phase 23 came, 1, 2, 4 before phase 24 came
-LOWPREC_SERVE_WARM = (1, 2)
+# the batch buckets the W8A8 server warms up: the one its traffic fills
+# first (every bucket of SERVE_BUCKETS before phase 23 came, 1, 2, 4 before
+# phase 24 came, 1, 2, those its traffic can fill, before phase 25 came: a
+# warm-up is a W8A8 DDIM-50 call a frame bucket, 2.5 s each)
+LOWPREC_SERVE_WARM = (1,)
 INT8_PEAK = 1979e12   # H100 SXM dense int8 tensor cores, OP/s
 W8A8_SENS = 1.5
 W8A8_FIRST_SHARE = 1e-3
@@ -548,6 +573,11 @@ DP_TIMEOUT_S = 600
 # dispatches of the largest of MP_SERVE_BUCKETS against the one-card
 # server on the same dispatches (MODEL_REL_TOL)
 MP_WORLD, MP_BATCH, MP_STEPS, MP_SAMPLE_REQUESTS = 2, 32, 2, 2
+# each mesh's sampling batch (and the one process's it is held against) on
+# PARITY_RESPACE's DDIM-10 in place of the config's DDIM-50: a cut in depth
+# for the script's time (two meshes' 50 steps, each step's collectives
+# through gloo on the host, took 12.6 s a rank)
+MP_SAMPLE_RESPACE = PARITY_RESPACE
 MP_MESHES = (("ep", ("data", "expert"), (1, 2)), ("tp", ("data", "expert", "tensor"), (1, 1, 2)))
 MP_SERVE_BUCKETS, MP_SERVE_REQUESTS, MP_TIMEOUT_S = (2, 4), 4, 900
 # phase 23: pipeline parallelism in phase 22's launch (the docstring's
@@ -561,14 +591,15 @@ TRAINING_KERNELS = ("moe_positions", "fused_linear_attention", "fused_expert_ffn
 # phase 15: the baselines at full width on seeded fabricated weights, each
 # sampling one batch of BATCH requests with its config's DDPM respaced to
 # BASELINE_DDPM_RESPACE steps (all 1000 before phase 24 came, which put the
-# script past 1200 s on a slow host; the same sampler and denoiser, a
-# quarter of the calls); mcm_t2m.py's DDIM-50; the protocol run's clips
-# (one replication at BATCH, Diversity on half of them) on MotionDiffuse
+# script past 1200 s on a slow host, 250 before phase 25 came; the same
+# sampler and denoiser, a tenth of the calls); mcm_t2m.py's DDIM-50; the
+# protocol run's clips (one replication at BATCH, Diversity on half of
+# them) on MotionDiffuse
 MD_CONFIG = os.path.join(ROOT, "configs", "motiondiffuse", "motiondiffuse_t2m_smplx.py")
 MCM_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_t2m_smplx.py")
 MDM_CONFIG = os.path.join(ROOT, "configs", "mdm", "mdm_t2m_smplx.py")
 MCM_DDIM_CONFIG = os.path.join(ROOT, "configs", "mcm", "mcm_t2m.py")
-BASELINE_DDPM_RESPACE = "250"
+BASELINE_DDPM_RESPACE = "100"
 BASELINE_CONFIGS = (MD_CONFIG, MCM_CONFIG, MDM_CONFIG)
 # phase 24: the baselines in low precision: each of LP_CONFIGS (ReMoDiffuse
 # on retrieved rows at phase 17's bank's shapes) card vs CPU in each of
@@ -622,6 +653,17 @@ CN_S2G_RECORDINGS, CN_S2G_FRAMES, CN_M2D_TRACKS, CN_M2D_EPOCHS = 12, 600, 100, 3
 # from stage 1's MCM on its batch of FineDance train tracks
 BL_CONFIGS = (MD_CONFIG, MCM_CONFIG, MDM_CONFIG, FMG_CONFIG)
 BL_STEPS, BL_FRAMES = 3, 196
+# phase 25: the visualizers on seeded fabricated weights: the flagship's
+# prompts (one DDIM-50 CFG call of 4: 8 rows), MCM's one prompt, one
+# FineDance track's window, one BEAT2 recording of two 64-frame windows
+VIS_TEXTS = ("a person walks forward then turns around", "a person waves with the right hand",
+             "a person jumps", "a person dances in a circle")
+VIS_LENGTHS = (196, 120, 60, 196)
+# the prompts of the card-vs-CPU check and its respacing, DDIM-5 (the CPU's
+# side of all four at PARITY_RESPACE's DDIM-10 took 20.4 s of a 118 s phase,
+# of two 7.3-9.2 s)
+VIS_PARITY, VIS_PARITY_RESPACE = (0, 2), "1,1,1,1,1"
+VIS_M2D_FRAMES, VIS_S2G_FRAMES = 120, 124
 # the shipped configs' data paths under <dir>/data
 MIX_MOTIONX = dict(motions="motion_data/smplx_322", texts="texts/semantic_labels",
                    ann="humanml3d_align_train_val.txt", mean="humanml3d_align_mean.npy",
@@ -681,6 +723,49 @@ def skip_init(torch):
             setattr(torch.nn.init, name, fn)
 
 
+# params.npz snapshots that several phases load through a CLI, by the
+# weights they hold: each written once where main() keeps a directory for
+# them ("dir", which lives as long as the script)
+SNAPSHOTS = {"dir": None}
+
+
+def snapshot(tmp, name, key, write):
+    """The path of a params.npz of the weights ``key`` names (a config and
+    the seed or the state dict they come from), written by ``write(path)``:
+    once for the whole run in SNAPSHOTS["dir"] where main() set one, else as
+    ``name`` in ``tmp``."""
+    if SNAPSHOTS["dir"] is None:
+        path = os.path.join(tmp, name)
+        write(path)
+        return path
+    if key not in SNAPSHOTS:
+        path = os.path.join(SNAPSHOTS["dir"], f"{len(SNAPSHOTS)}_{name}")
+        write(path)
+        SNAPSHOTS[key] = path
+    return SNAPSHOTS[key]
+
+
+def checkpoint_run(torch, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``: a CLI run whose --checkpoint loads the
+    denoiser's whole state dict strictly right after building it
+    (load_eval_variables), so its build_architecture skips the default
+    initialisation (skip_init); every other module the CLI builds (an
+    evaluator) keeps its own."""
+    from motioncraft_tpu_torch import registry
+
+    real = registry.build_architecture
+
+    def build(*a, **k):
+        with skip_init(torch):
+            return real(*a, **k)
+
+    registry.build_architecture = build
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        registry.build_architecture = real
+
+
 def time_ms(torch, fn, reps=20):
     """Mean time of one call over ``reps`` back-to-back calls, between two
     CUDA events: the device's time, or the host's where issuing a call
@@ -697,6 +782,15 @@ def time_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def device_events_ns(torch, prof):
+    """The durations (ns) of the device's events in a finished torch.profiler
+    session, read from its raw kineto events: prof.events() builds a Python
+    object for every event and runtime call, seconds for a CLI run's 10^4
+    launches."""
+    return [e.duration_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
 def device_ms(torch, fn, reps=20, attempts=3):
     """Mean device time of one call over ``reps`` calls: the summed
     durations of the kernels it ran, from torch.profiler, without the gaps
@@ -710,12 +804,11 @@ def device_ms(torch, fn, reps=20, attempts=3):
     fn()
     torch.cuda.synchronize()
     for attempt in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        us = sum(device_events_ns(torch, prof)) / 1e3
         if us > 0:
             return us / 1e3 / reps
         print(f"[profile] session {attempt + 1} of {attempts} saw no device time")
@@ -901,7 +994,8 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
                  mcm_cfgs=None, retrieval_cfgs=(), train_cfgs=(), baseline_train_cfgs=(),
                  dp_cfgs=(), mp_cfg=None):
     """(path, inputs) for phase 2: the T2M shapes (with training's), those
-    of phase 12's buckets and of phase 14's drift and training, the M2D ones
+    of phase 12's buckets, of phase 25's flagship visualizer call (and MCM's
+    one prompt among the baselines'), of phase 14's drift and training, the M2D ones
     and the S2G ones; R recordings in lockstep are a CFG-doubled
     batch of 2R x window frames (120 for M2D, 64 for S2G: the base blocks
     past layer 0 and the control blocks), and layer 0's motion MoE routes
@@ -942,6 +1036,12 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
         paths += [(tag, full), (f"{tag} layer 0", half),
                   (f"{tag} bf16", bf16_inputs(torch, full)),
                   (f"{tag} layer 0 bf16", bf16_inputs(torch, half))]
+    # phase 25: the flagship visualizer's one call of VIS_TEXTS (2x CFG rows
+    # at T = 196), with layer 0's half
+    b = len(VIS_TEXTS)
+    paths += [(f"vis b={b}", flagship_inputs(torch, cfg, dev, B2=2 * b, training=False)),
+              (f"vis b={b} layer 0", flagship_inputs(torch, cfg, dev, B2=2 * b, training=False,
+                                                     layer0=True))]
     # phase 14: the drift's batches (HARNESS_BATCH requests: 2x CFG rows)
     # in f32 and in bf16, each with layer 0's half; the training CLI's
     # microbatches and the calibration checkpoint's batches (K4's
@@ -971,6 +1071,10 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
         # and in bf16 (phase 24): its three operands bf16, K5's bf16 instantiation
         paths += [(tag, cases), (f"{tag} bf16", bf16_cases(
             torch, "fused_linear_attention", cases["fused_linear_attention"]))]
+        if model_cfg["model"]["type"] == "MCMTransformer":
+            # phase 25's one prompt (mcm_t2m.py has the smplx config's shapes)
+            paths.append(("MCMTransformer B=1",
+                          baseline_attention_inputs(torch, model_cfg, dev, B=1)))
     for tag, fmg_cfg in (finemogen_cfgs or {}).items():
         fmg = flagship_inputs(torch, fmg_cfg, dev, training=False)
         paths.append((f"{tag} B={BATCH}",
@@ -1692,8 +1796,8 @@ def phase_eval(torch, full_cfg, sd, dev="cuda", config=CONFIG, clips=EVAL_CLIPS)
         with skip_init(torch):
             mem = build_architecture(cfg, device=dev)
         mem.model.load_state_dict(sd, strict=True)
-        params = os.path.join(tmp, "params.npz")
-        save_params(params, mem.model)
+        params = snapshot(tmp, "params.npz", ("t2m", id(sd)),
+                          lambda path: save_params(path, mem.model))
         # a full-width evaluator, seeded, as the native .npz snapshot
         ev = T2MContrastiveModel_SMPLX(**ev_cfg, seed=SEED, device="cpu")
         evaluator = os.path.join(tmp, "evaluator.npz")
@@ -1715,7 +1819,7 @@ def phase_eval(torch, full_cfg, sd, dev="cuda", config=CONFIG, clips=EVAL_CLIPS)
         argv = [config, os.path.join(tmp, "ddim"), "--device", dev, "--batch-size", str(BATCH),
                 "--checkpoint", params, "--seed", str(SEED), "--cfg-options", *opts]
         reset_launch_counts()
-        run = torch_test.main(argv)
+        run = checkpoint_run(torch, torch_test.main, argv)
         counts = launch_counts()
         out, loaded = run["out"], run["arch"]
         n = len(run["results"])
@@ -1872,8 +1976,8 @@ def phase_m2d(torch, full_cfg, dev="cuda", config=M2D_CONFIG, tracks=M2D_TRACKS,
         t0 = time.perf_counter()
         tree = os.path.join(tmp, "data")
         write_finedance_tree(tree, tracks, frames, SEED)
-        params = os.path.join(tmp, "params.npz")
-        save_params(params, model)
+        params = snapshot(tmp, "params.npz", (config, SEED),
+                          lambda path: save_params(path, model))
         print(f"[m2d] {len(tracks)} tracks of 360 + {frames} frames and the weights "
               f"({os.path.getsize(params) / 2**20:.0f} MiB) written in "
               f"{time.perf_counter() - t0:.1f} s; {wins} windows a track, "
@@ -1884,7 +1988,7 @@ def phase_m2d(torch, full_cfg, dev="cuda", config=M2D_CONFIG, tracks=M2D_TRACKS,
                     "--work-dir", os.path.join(tmp, f"R{R}"), "--recording-batch", str(R),
                     "--cfg-options", f"data.test.data_prefix={tree}"]
             reset_launch_counts()
-            run = tool.main(argv)
+            run = checkpoint_run(torch, tool.main, argv)
             counts = launch_counts()
             out = run["out"]
             groups = -(-len(tracks) // R)
@@ -1920,16 +2024,17 @@ def phase_m2d(torch, full_cfg, dev="cuda", config=M2D_CONFIG, tracks=M2D_TRACKS,
     mwb = tool.make_window_batch_fn(music, infos[0]["text"][0], window)
     kw = dict(window=window, pre_frames=pre, repaint=rp)
     outs = {}
-    for label, fn in (("single", lambda r: windowed_sample(arch, mwb, total_frames=short,
-                                                           randn=r, **kw)),
-                      ("batch", lambda r: windowed_sample_batch(
-                          arch, [mwb], [short], randn=r, precompute_condition=False,
-                          **kw)[0])):
-        randn = generator_randn(torch.Generator(device=dev).manual_seed(SEED + 11), dev)
-        outs[label], syncs = count_syncs(torch, lambda: fn(randn))
-        print(f"[m2d] {label} sampler, {num_windows(short, window, pre)} windows: "
-              f"{len(syncs)} waits for the device {syncs}")
-        check(len(syncs) <= 1, f"the {label} window loop waits for the device: {syncs}")
+    with parity_schedule(cfg, arch):  # the check's length does not matter
+        for label, fn in (("single", lambda r: windowed_sample(arch, mwb, total_frames=short,
+                                                               randn=r, **kw)),
+                          ("batch", lambda r: windowed_sample_batch(
+                              arch, [mwb], [short], randn=r, precompute_condition=False,
+                              **kw)[0])):
+            randn = generator_randn(torch.Generator(device=dev).manual_seed(SEED + 11), dev)
+            outs[label], syncs = count_syncs(torch, lambda: fn(randn))
+            print(f"[m2d] {label} sampler, {num_windows(short, window, pre)} windows at "
+                  f"respace {PARITY_RESPACE}: {len(syncs)} waits for the device {syncs}")
+            check(len(syncs) <= 1, f"the {label} window loop waits for the device: {syncs}")
     check(np.array_equal(outs["single"], outs["batch"]),
           "windowed_sample_batch (R = 1) differs from windowed_sample")
     print("[m2d] windowed_sample_batch at R = 1 equals windowed_sample bit for bit")
@@ -2084,7 +2189,8 @@ def write_smplx_npz(path, seed):
              f=rng.randint(0, V, (SMPLX_SIZES["faces"], 3)).astype(np.int64))
 
 
-def write_beat2_tree(root, n, frames, seed, train=0, train_frames=0, data_dir=None):
+def write_beat2_tree(root, n, frames, seed, train=0, train_frames=0, data_dir=None,
+                     smplx=True):
     """A synthetic BEAT2 tree in the layout data/beat2.py reads (under
     ``data_dir``, default root/beat2), n test recordings of speaker 2 of
     ``frames`` frames and ``train`` train recordings of ``train_frames``:
@@ -2092,8 +2198,9 @@ def write_beat2_tree(root, n, frames, seed, train=0, train_frames=0, data_dir=No
     100], trans, betas [300]), wave16k/<name>.wav (16 kHz speech-like noise
     with a syllable burst every 0.2-0.4 s, so that onsets fire),
     textgrid/<name>.TextGrid (a word every 0.4 s),
-    weights/mean_vel_smplxflame_30.npy, the split csv, mean/std stats and an
-    SMPL-X npz; returns the path of its st_mogen_emage-schema yaml."""
+    weights/mean_vel_smplxflame_30.npy, the split csv, mean/std stats and
+    (with ``smplx``) an SMPL-X npz; returns the path of its
+    st_mogen_emage-schema yaml."""
     import numpy as np
     from scipy.io import wavfile
 
@@ -2139,15 +2246,16 @@ def write_beat2_tree(root, n, frames, seed, train=0, train_frames=0, data_dir=No
             rng.uniform(0.3, 0.8, 55).astype(np.float32))
     np.save(os.path.join(root, "mean.npy"), np.zeros(322, np.float32))
     np.save(os.path.join(root, "std.npy"), np.ones(322, np.float32))
-    smplx = os.path.join(root, "SMPLX_NEUTRAL_2020.npz")
-    write_smplx_npz(smplx, seed)
+    smplx_path = os.path.join(root, "SMPLX_NEUTRAL_2020.npz")
+    if smplx:
+        write_smplx_npz(smplx_path, seed)
     path = os.path.join(root, "beat2.yaml")
     with open(path, "w") as f:
         f.write(f"data_path: {d}/\npose_length: 64\nstride: 20\npre_frames: 4\n"
                 "pose_fps: 30\naudio_sr: 16000\naudio_rep: onset+amplitude\n"
                 "pose_rep: smplxflame_30\ntraining_speakers: [2]\n"
-                f"smplx_model_path: {smplx}\nmean_pose_path: {root}/mean.npy\n"
-                f"std_pose_path: {root}/std.npy\n")
+                + (f"smplx_model_path: {smplx_path}\n" if smplx else "")
+                + f"mean_pose_path: {root}/mean.npy\nstd_pose_path: {root}/std.npy\n")
     return path
 
 
@@ -2228,8 +2336,8 @@ def phase_s2g(torch, full_cfg, dev="cuda", config=S2G_CONFIG, recordings=S2G_REC
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         yaml_path = write_beat2_tree(tmp, recordings, frames, SEED)
-        params = os.path.join(tmp, "params.npz")
-        save_params(params, model)
+        params = snapshot(tmp, "params.npz", (config, SEED),
+                          lambda path: save_params(path, model))
         print(f"[s2g] {recordings} recordings of {frames} frames, an SMPL-X npz "
               f"({SMPLX_SIZES['vertices']} vertices) and the weights "
               f"({os.path.getsize(params) / 2**20:.0f} MiB) written in "
@@ -2244,7 +2352,7 @@ def phase_s2g(torch, full_cfg, dev="cuda", config=S2G_CONFIG, recordings=S2G_REC
             enc_calls[0] = 0
             WavEncoder.forward = counted_forward
             try:
-                run = tool.main(argv)
+                run = checkpoint_run(torch, tool.main, argv)
             finally:
                 WavEncoder.forward = encoder_forward
             counts = launch_counts()
@@ -2310,18 +2418,19 @@ def phase_s2g(torch, full_cfg, dev="cuda", config=S2G_CONFIG, recordings=S2G_REC
     mwb = tool.make_window_batch_fn(recs[0], window, spf, fps)
     kw = dict(window=window, pre_frames=pre, repaint=rp)
     outs = {}
-    for label, fn in (("single", lambda r: windowed_sample(arch, mwb, total_frames=short,
-                                                           randn=r, **kw)),
-                      ("batch", lambda r: windowed_sample_batch(
-                          arch, [mwb], [short], randn=r, precompute_condition=False,
-                          **kw)[0]),
-                      ("batch encoded", lambda r: windowed_sample_batch(
-                          arch, [mwb], [short], randn=r, **kw)[0])):
-        randn = generator_randn(torch.Generator(device=dev).manual_seed(SEED + 11), dev)
-        outs[label], syncs = count_syncs(torch, lambda: fn(randn))
-        print(f"[s2g] {label} sampler, {num_windows(short, window, pre)} windows: "
-              f"{len(syncs)} waits for the device {syncs}")
-        check(len(syncs) <= 1, f"the {label} window loop waits for the device: {syncs}")
+    with parity_schedule(cfg, arch):  # the check's length does not matter
+        for label, fn in (("single", lambda r: windowed_sample(arch, mwb, total_frames=short,
+                                                               randn=r, **kw)),
+                          ("batch", lambda r: windowed_sample_batch(
+                              arch, [mwb], [short], randn=r, precompute_condition=False,
+                              **kw)[0]),
+                          ("batch encoded", lambda r: windowed_sample_batch(
+                              arch, [mwb], [short], randn=r, **kw)[0])):
+            randn = generator_randn(torch.Generator(device=dev).manual_seed(SEED + 11), dev)
+            outs[label], syncs = count_syncs(torch, lambda: fn(randn))
+            print(f"[s2g] {label} sampler, {num_windows(short, window, pre)} windows at "
+                  f"respace {PARITY_RESPACE}: {len(syncs)} waits for the device {syncs}")
+            check(len(syncs) <= 1, f"the {label} window loop waits for the device: {syncs}")
     check(np.array_equal(outs["single"], outs["batch"]),
           "windowed_sample_batch (R = 1) differs from windowed_sample")
     scale = max(1.0, float(np.abs(outs["single"]).max()))
@@ -2385,7 +2494,7 @@ def serve_traffic(torch, srv, T, seed, per_client=SERVE_PER_CLIENT):
 def phase_serve(torch, cfg, sd, dev="cuda"):
     """Phase 12: MotionGenServer over the flagship on the card, one server in
     f32 and one in bf16 (the weights cast, the denoiser in bf16 through
-    K1-K3's bf16 instantiations), each warmed up on every bucket, then the
+    K1-K3's bf16 instantiations), each warmed up on SERVE_WARM, then the
     same seeded traffic; results, stats and launches checked; one bf16
     forward card vs CPU (gate logits pinned) and bf16 vs f32 on the card."""
     import numpy as np
@@ -2418,7 +2527,7 @@ def phase_serve(torch, cfg, sd, dev="cuda"):
                               seq_buckets=SERVE_SEQ_BUCKETS, max_wait_ms=20.0, seed=SEED,
                               compute_dtype=torch.bfloat16 if dtype == "bf16" else None)
         t0 = time.perf_counter()
-        srv.warmup()
+        srv.warmup(SERVE_WARM)
         warm = time.perf_counter() - t0
         # one sampling batch of 16 (phase 4's first), warm, in this dtype
         batch16 = requests(BATCH, SEED, T)
@@ -2450,7 +2559,7 @@ def phase_serve(torch, cfg, sd, dev="cuda"):
         want = dict.fromkeys(counts, 0) | sampling_counts(
             short + n_long * wins, short * steps + n_long * long_calls, layers,
             "_bf16" if dtype == "bf16" else "")
-        print(f"[serve] {dtype}: warm-up of {len(SERVE_BUCKETS) * len(SERVE_SEQ_BUCKETS)} "
+        print(f"[serve] {dtype}: warm-up of {len(SERVE_WARM) * len(SERVE_SEQ_BUCKETS)} "
               f"bucket pairs {warm:.1f} s; one sampling batch of {BATCH} {batch16_ms:.1f} ms "
               f"wall; {n_req} requests ({SERVE_LONG} long of "
               f"{SERVE_LONG_FRAMES} frames, {wins} windows) in {wall:.3f} s: "
@@ -2695,8 +2804,8 @@ def lowprec_cli(torch, full_cfg, sd, dev, clips, config=CONFIG):
             mem = build_architecture(cfg, device="cpu")
         mem.model.load_state_dict(sd, strict=True)
         f32_bytes = model_bytes(mem.model)
-        params = os.path.join(tmp, "params.npz")
-        save_params(params, mem.model)
+        params = snapshot(tmp, "params.npz", ("t2m", id(sd)),
+                          lambda path: save_params(path, mem.model))
         del mem
         # the Diversity metric draws fewer samples than the clips
         small = os.path.join(tmp, "config.py")
@@ -2722,7 +2831,7 @@ def lowprec_cli(torch, full_cfg, sd, dev, clips, config=CONFIG):
             reset_launch_counts()
             quant.int_mm.hooks.append(record)
             try:
-                run = torch_test.main(argv)
+                run = checkpoint_run(torch, torch_test.main, argv)
             finally:
                 quant.int_mm.hooks.remove(record)
             counts = launch_counts()
@@ -2956,11 +3065,14 @@ def lowprec_m2d(torch, m2d_cfg, dev, config=M2D_CONFIG):
     with tempfile.TemporaryDirectory() as tmp:
         with skip_init(torch):
             arch = build_architecture(cfg, device="cpu")
-        arch.model.load_state_dict(fabricate_state_dict(arch.model, seed=SEED), strict=True)
         layers, copy = arch.model.num_layers, arch.model.copy_blocks_num
         steps = arch.diffusion_test.num_timesteps
-        params = os.path.join(tmp, "params.npz")
-        save_params(params, arch.model)
+
+        def write(path):  # phase 10's weights
+            arch.model.load_state_dict(fabricate_state_dict(arch.model, seed=SEED), strict=True)
+            save_params(path, arch.model)
+
+        params = snapshot(tmp, "params.npz", (config, SEED), write)
         del arch
         tree = os.path.join(tmp, "data")
         write_finedance_tree(tree, M2D_TRACKS[:1], frames, SEED + 3)
@@ -2968,7 +3080,7 @@ def lowprec_m2d(torch, m2d_cfg, dev, config=M2D_CONFIG):
                 "--work-dir", os.path.join(tmp, "out"), "--step-cache", "2",
                 "--cfg-options", f"data.test.data_prefix={tree}"]
         reset_launch_counts()
-        run = tool.main(argv)
+        run = checkpoint_run(torch, tool.main, argv)
         counts = launch_counts()
     sc = StepCacheConfig(reuse_every=2)
     schedule = harmonize_schedule(steps, RepaintConfig(overlap_len=pre))
@@ -3169,7 +3281,8 @@ def phase_harness(torch, full_cfg, dev="cuda", config=HARNESS_CONFIG, clips=HARN
             print(f"[harness] training {label}: launches {counts[label]}")
             check(counts[label] == want,
                   f"[harness] training {label} launches {counts[label]} != expected {want}")
-        loaded = build_architecture(full_cfg["model"], device=dev)
+        with skip_init(torch):
+            loaded = build_architecture(full_cfg["model"], device=dev)
         load_eval_variables(full_cfg["model"], loaded.model,
                             checkpoint=os.path.join(work, "params.npz"))
         trained = state.model.state_dict()
@@ -3203,7 +3316,8 @@ def phase_harness(torch, full_cfg, dev="cuda", config=HARNESS_CONFIG, clips=HARN
                 os.path.join(tmp, "drift.json"), "--workroot", os.path.join(tmp, "drift"),
                 "--device", str(dev), "--replications", "1", "--limit", str(test_clips)]
         t0 = time.perf_counter()
-        drift = drift_tool.run(drift_tool.parse_args(argv), logger=lambda m: None)
+        drift = checkpoint_run(torch, drift_tool.run, drift_tool.parse_args(argv),
+                               logger=lambda m: None)
         wall["drift"] = time.perf_counter() - t0
         modes = drift["out"]["modes"]
         check(list(modes) == list(drift_tool.MODE_NAMES), f"[harness] modes {list(modes)}")
@@ -3241,7 +3355,8 @@ def phase_harness(torch, full_cfg, dev="cuda", config=HARNESS_CONFIG, clips=HARN
             out["drift"][name] = got
         reset_launch_counts()
         t0 = time.perf_counter()
-        again = drift_tool.run(drift_tool.parse_args(argv), logger=lambda m: None)
+        again = checkpoint_run(torch, drift_tool.run, drift_tool.parse_args(argv),
+                               logger=lambda m: None)
         wall["drift reused"] = time.perf_counter() - t0
         relaunched = {k: v for k, v in launch_counts().items() if v}
         reused = [k for k, r in again["records"].items() if r["reused"]]
@@ -3279,12 +3394,12 @@ def profile_call(torch, fn, reps=5):
     from torch.profiler import ProfilerActivity, profile
 
     wall = time_ms(torch, fn, reps)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
+    events = device_events_ns(torch, prof)
+    busy = sum(events) / 1e6
     return len(events) / reps, busy / reps, wall
 
 
@@ -3408,7 +3523,8 @@ def phase_baselines(torch, dev="cuda", configs=BASELINE_CONFIGS, ddim_config=MCM
             # saved and loaded back through --checkpoint's loader
             params = os.path.join(tmp, tag + ".npz")
             save_params(params, arch.model)
-            loaded = build_architecture(cfg, device=dev)
+            with skip_init(torch):
+                loaded = build_architecture(cfg, device=dev)
             load_eval_variables(cfg, loaded.model, checkpoint=params)
             a, b = (baseline_forward(torch, m, batch, x, ts) for m in (loaded, arch))
             print(f"[baseline] {tag}: loaded vs in-memory forward B={BATCH}: bit for bit "
@@ -3454,7 +3570,7 @@ def phase_baselines(torch, dev="cuda", configs=BASELINE_CONFIGS, ddim_config=MCM
                 os.path.join(tmp, os.path.basename(protocol_config)[:-3] + ".npz"),
                 "--seed", str(SEED), "--cfg-options", *opts]
         reset_launch_counts()
-        run = torch_test.main(argv)
+        run = checkpoint_run(torch, torch_test.main, argv)
         counts = launch_counts()
         n = len(run["results"])
         metric = {k: v for k, v in run["out"].items() if k not in ("flags", "protocol")}
@@ -3598,7 +3714,7 @@ def phase_finemogen(torch, dev="cuda", config=FMG_CONFIG, protocol_config=FMG_HM
         argv = [config_file, os.path.join(tmp, "ddim"), "--device", dev, "--batch-size",
                 str(BATCH), "--checkpoint", params, "--seed", str(SEED)]
         reset_launch_counts()
-        run = torch_test.main(argv)
+        run = checkpoint_run(torch, torch_test.main, argv)
         counts = launch_counts()
         n = len(run["results"])
         metric = {k: v for k, v in run["out"].items() if k not in ("flags", "protocol")}
@@ -3739,7 +3855,7 @@ def mcm_long_form(torch, kind, config, tmp, dev="cuda", recordings=MCM_RECORDING
         argv = [config, "--device", dev, "--checkpoint", params, "--seed", str(SEED),
                 "--work-dir", os.path.join(root, f"R{R}"), "--recording-batch", str(R), *extra]
         reset_launch_counts()
-        run = tool.main(argv)
+        run = checkpoint_run(torch, tool.main, argv)
         counts = launch_counts()
         groups = -(-recordings // R)
         want = dict.fromkeys(counts, 0) | {"fused_linear_attention": groups * calls * per_call}
@@ -3785,18 +3901,20 @@ def mcm_long_form(torch, kind, config, tmp, dev="cuda", recordings=MCM_RECORDING
         return lock_draws[-1].clone()
 
     kw = dict(window=window, pre_frames=pre, repaint=rp)
-    lock = windowed_sample_batch(arch, make_mwbs(R), [frames] * R, randn=keep, **kw)
-    for r, mwb in enumerate(make_mwbs(R)):
-        rows = Replay([a[r:r + 1] for a in lock_draws], dev)
-        alone = windowed_sample(arch, mwb, total_frames=frames, randn=rows, **kw)
-        check(rows.done(), f"{tag}: recording {r} alone took {rows.used} of "
-              f"{len(lock_draws)} draws")
-        scale = max(1.0, float(np.abs(alone).max()))
-        diff = float(np.abs(lock[r] - alone).max())
-        print(f"[{tag}-parity] recording {r} of {R} in lockstep vs alone, {frames} frames, "
-              f"same draws: max abs diff {diff:.3e} (tol {MODEL_REL_TOL} x {scale:.4g})")
-        check(lock[r].shape == alone.shape and diff <= MODEL_REL_TOL * scale,
-              f"{tag} recording {r}: lockstep vs alone {diff} > tol")
+    with parity_schedule(cfg, arch):  # the check's length does not matter
+        lock = windowed_sample_batch(arch, make_mwbs(R), [frames] * R, randn=keep, **kw)
+        for r, mwb in enumerate(make_mwbs(R)):
+            rows = Replay([a[r:r + 1] for a in lock_draws], dev)
+            alone = windowed_sample(arch, mwb, total_frames=frames, randn=rows, **kw)
+            check(rows.done(), f"{tag}: recording {r} alone took {rows.used} of "
+                  f"{len(lock_draws)} draws")
+            scale = max(1.0, float(np.abs(alone).max()))
+            diff = float(np.abs(lock[r] - alone).max())
+            print(f"[{tag}-parity] recording {r} of {R} in lockstep vs alone, {frames} frames "
+                  f"at respace {PARITY_RESPACE}, same draws: max abs diff {diff:.3e} (tol "
+                  f"{MODEL_REL_TOL} x {scale:.4g})")
+            check(lock[r].shape == alone.shape and diff <= MODEL_REL_TOL * scale,
+                  f"{tag} recording {r}: lockstep vs alone {diff} > tol")
 
     # one denoiser call at R = 1, the condition encoded as sampling does
     batch = {k: v.to(dev) for k, v in window_batch(1, 0).items()}
@@ -4161,15 +4279,14 @@ def train_stage(torch, tag, argv, cwd, per_step, on_start=None, steps=CN_STEPS,
     arch.train()
     try:
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
             step(batch, state.generator)
             torch.cuda.synchronize()
             step_wall = (time.perf_counter() - t1) * 1e3
     finally:
         arch.eval()
-    busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    busy = sum(device_events_ns(torch, prof)) / 1e6
     med = float(np.median(steps_ms[1:]))
     per_step = {k: counts[k] // steps for k in TRAINING_KERNELS}
     print(f"[{label}] {tag}: {steps} steps of B={batch_size} in {wall:.1f} s (the CLI "
@@ -4337,9 +4454,10 @@ def phase_controlnet_train(torch, dev="cuda", t2m_config=CONFIG, s2g_config=CN_S
         # stage 3: sample the trained S2G ControlNet
         tool = load_tool("torch_s2g_test")
         reset_launch_counts()
-        run = tool.main([s2g_config, "--device", str(dev), "--checkpoint",
-                         os.path.join(out["s2g"]["work"], "params.npz"), "--seed", str(SEED),
-                         "--beats2-args", yaml_path, "--work-dir", os.path.join(tmp, "s2g_test")])
+        run = checkpoint_run(torch, tool.main, [
+            s2g_config, "--device", str(dev), "--checkpoint",
+            os.path.join(out["s2g"]["work"], "params.npz"), "--seed", str(SEED),
+            "--beats2-args", yaml_path, "--work-dir", os.path.join(tmp, "s2g_test")])
         counts = launch_counts()
         metric = {k: v for k, v in run["out"].items() if k not in ("flags", "protocol")}
         print(f"[cn-train] stage 3 tools/torch_s2g_test.py on the trained S2G ControlNet: "
@@ -4787,19 +4905,18 @@ def dp_train_part(torch, part, mesh, dev):
         if mesh.rank == 0:
             torch.save({n: p.detach().cpu() for n, p in params}, part["rank0"])
         # the gradient all-reduce alone: one flat buffer of every trainable
-        # gradient, as a step sends it
+        # gradient, as a step sends it (once: the steps warmed the group up;
+        # three calls after a fourth took 3-9 s a rank over gloo)
         for _, p in params:
             p.grad = torch.zeros_like(p)
         grads = [p for _, p in params]
-        allreduce_grads(grads, mesh)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        for _ in range(3):
-            allreduce_grads(grads, mesh)
+        allreduce_grads(grads, mesh)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        out["allreduce_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
         out["allreduce_mib"] = sum(p.numel() for p in grads) * 4 / 2**20
     del arch, state, params
     if dev.type == "cuda":
@@ -4831,6 +4948,7 @@ def dp_eval(argv, mesh, dev):
     slice of the same dataset (seed + rank, two batches a dispatch), whose
     predictions must be its part of the merged ones bit for bit."""
     import numpy as np
+    import torch
     from motioncraft_tpu_torch.apis import single_device_test
     from motioncraft_tpu_torch.data import build_dataloader
     from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -4838,7 +4956,7 @@ def dp_eval(argv, mesh, dev):
     torch_test = load_tool("torch_test")
     args = torch_test.parse_args(argv)
     reset_launch_counts()
-    run = torch_test.run(args, logger=lambda m: None)
+    run = checkpoint_run(torch, torch_test.run, args, logger=lambda m: None)
     counts = launch_counts()
     merged = (np.load(args.dump_samples + ".npz")["pred_motion"] if run["out"] else
               np.stack([r["pred_motion"] for r in run["results"]]))
@@ -4926,12 +5044,14 @@ def phase_data_parallel(torch, full_cfg, sd, dev="cuda", config=CONFIG, s2g_conf
         # (d)'s inputs: tools/torch_test.py on a tree of eval_clips clips
         tree = os.path.join(tmp, "data")
         write_motionx_tree(tree, eval_clips, T, SEED + 21)
-        params = os.path.join(tmp, "params.npz")
-        with skip_init(torch):
-            mem = build_architecture(cfg, device="cpu")
-        mem.model.load_state_dict({k: v.cpu() for k, v in sd.items()}, strict=True)
-        save_params(params, mem.model)
-        del mem
+
+        def write(path):
+            with skip_init(torch):
+                mem = build_architecture(cfg, device="cpu")
+            mem.model.load_state_dict({k: v.cpu() for k, v in sd.items()}, strict=True)
+            save_params(path, mem.model)
+
+        params = snapshot(tmp, "params.npz", ("t2m", id(sd)), write)
         metrics = [dict(type="R Precision", batch_size=min(32, eval_clips), top_k=3),
                    dict(type="Matching Score", batch_size=min(32, eval_clips)),
                    dict(type="FID", emb_scale=1.0),
@@ -5192,14 +5312,16 @@ def mp_serve(torch, cfg, sd, mesh, dev, pins):
 
 
 def mp_sample(torch, cfg, sd, mesh, dev, pins, batch):
-    """One DDIM-50 CFG batch over ``mesh`` (``apis/test.py:mesh_sample``;
-    the model cut to this rank's shards) or in one process, gate logits
-    pinned / recorded: the output and the launches."""
+    """One CFG batch on MP_SAMPLE_RESPACE's schedule over ``mesh``
+    (``apis/test.py:mesh_sample``; the model cut to this rank's shards) or
+    in one process, gate logits pinned / recorded: the output and the
+    launches."""
     from motioncraft_tpu_torch.apis import mesh_sample
     from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
     from motioncraft_tpu_torch.parallel.tp import shard_module_
     from motioncraft_tpu_torch.registry import build_architecture
 
+    cfg = dict(cfg, diffusion_test=dict(cfg["diffusion_test"], respace=MP_SAMPLE_RESPACE))
     with skip_init(torch):
         arch = build_architecture(cfg, device=dev)
     arch.model.load_state_dict(sd, strict=True)
@@ -5454,12 +5576,14 @@ def pp_from_npz(torch, job, model_cfg, dev):
 def mp_rank(rank, kind, job):
     """A rank of phase 22: its device, each mesh of MP_MESHES in turn, the
     data-mesh server, then phase 23's pipe mesh."""
+    import numpy as np
     import torch
     from motioncraft_tpu_torch.parallel.mesh import create_mesh
 
     dev = dp_device(torch, kind, rank)
     if dev.type == "cpu":
         cpu_launch_counting()
+    job = dict(job, sample_batch=dict(np.load(job["sample_npz"])))
     sd = torch.load(job["sd"], map_location=dev)
     out = {tag: mp_train(torch, job, sd, create_mesh(device=dev, axes=axes, shape=shape), dev)
            for tag, axes, shape in MP_MESHES}
@@ -5527,12 +5651,19 @@ def phase_model_parallel(torch, full_cfg, sd, dev="cuda"):
         torch.save(vpins, job["serve_pins"])
         one_pp = pp_train(torch, job, sd, None, main_dev)
         print(f"[mp] one process: flagship B={MP_BATCH} {MP_STEPS} steps, step ms "
-              f"{ref['step_ms']} (first = warm-up), losses {ref['losses']}; DDIM-50 batch of "
-              f"{MP_SAMPLE_REQUESTS} in {one_s:.2f} s; server {MP_SERVE_REQUESTS} requests in "
+              f"{ref['step_ms']} (first = warm-up), losses {ref['losses']}; batch of "
+              f"{MP_SAMPLE_REQUESTS} at respace {MP_SAMPLE_RESPACE} in {one_s:.2f} s; server "
+              f"{MP_SERVE_REQUESTS} requests in "
               f"{one_serve['wall_s']:.2f} s ({one_serve['rps']:.3f} requests/s); card {card}")
 
+        # the sampling batch goes to the ranks as a file: spawn pipes the
+        # arguments to a rank only as it unpickles them, after its imports,
+        # and a large one holds back the start of the next rank
+        job["sample_npz"] = os.path.join(tmp, "sample_batch.npz")
+        np.savez(job["sample_npz"], **job["sample_batch"])
         t0 = time.perf_counter()
-        ranks = launch(mp_rank, MP_WORLD, args=(kind, job), backend="gloo",
+        ranks = launch(mp_rank, MP_WORLD, args=(kind, {k: v for k, v in job.items()
+                                                       if k != "sample_batch"}), backend="gloo",
                        init_method=f"file://{os.path.join(tmp, 'gloo')}",
                        timeout_s=MP_TIMEOUT_S, group_timeout_s=MP_TIMEOUT_S)
         wall = time.perf_counter() - t0
@@ -5572,8 +5703,9 @@ def phase_model_parallel(torch, full_cfg, sd, dev="cuda"):
                 samp = ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 2**20:.1f} MiB "
                                  f"{v['ms']:.1f} ms" for k, v in sorted(got["sample_traffic"]
                                                                       .items()))
-                print(f"[mp] {tag} rank {r}: DDIM-50 batch of {MP_SAMPLE_REQUESTS} over the "
-                      f"mesh in {got['sample_s']:.2f} s, max abs diff {got['sample_err']:.3e} "
+                print(f"[mp] {tag} rank {r}: batch of {MP_SAMPLE_REQUESTS} at respace "
+                      f"{MP_SAMPLE_RESPACE} over the mesh in {got['sample_s']:.2f} s, max abs "
+                      f"diff {got['sample_err']:.3e} "
                       f"against one process (tol {MODEL_REL_TOL} x max(1, "
                       f"{got['sample_scale']:.4g})); collectives {samp}; launches "
                       f"{got['sample_counts']}")
@@ -5923,6 +6055,288 @@ def phase_lowprec_baselines(torch, dev="cuda", configs=LP_CONFIGS, mcm_config=MC
     return out
 
 
+# ---------------------------------------------------------------- phase 25
+def profiled_run(torch, fn, dev):
+    """(fn's result, wall s, the device's busy s under torch.profiler's CUDA
+    activity, None off the card) of one call; the wall ends before the
+    profiler stops (its trace's processing is not the call's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if torch.device(dev).type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0, None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(device_events_ns(torch, prof)) / 1e9
+    return out, wall, busy
+
+
+def check_smplx_npz(path, T, tag):
+    """A visualizer's SMPL-X npz: poses [T, 165] with the two lower-face
+    joints (69:75) zero, expressions [T, 100], trans [T, 3], betas [300],
+    all finite."""
+    import numpy as np
+
+    d = np.load(path, allow_pickle=True)
+    shapes = {k: d[k].shape for k in ("poses", "expressions", "trans", "betas")}
+    check(shapes == {"poses": (T, 165), "expressions": (T, 100), "trans": (T, 3),
+                     "betas": (300,)}, f"[vis] {tag} {os.path.basename(path)}: {shapes}")
+    check(all(np.isfinite(d[k]).all() for k in shapes), f"[vis] {tag}: non-finite values")
+    check(not np.abs(d["poses"][:, 69:75]).any(), f"[vis] {tag}: poses 69:75 not zero")
+
+
+def check_player(path, T, tag):
+    """A web player: its embedded joints [T, 55, 3], finite, with the SMPL-X
+    parents."""
+    import numpy as np
+    from motioncraft_tpu_torch.ops.fk import SMPLX_PARENTS
+
+    with open(path) as f:
+        html = f.read()
+    m = re.search(r'<script id="motion-data" type="application/json">(.*?)</script>', html, re.S)
+    check(m is not None and "<canvas" in html, f"[vis] {tag} {path}: no player")
+    data = json.loads(m.group(1))
+    joints = np.asarray(data["joints"], np.float64)
+    check(joints.shape == (T, 55, 3) and np.isfinite(joints).all()
+          and data["parents"] == SMPLX_PARENTS.tolist(),
+          f"[vis] {tag} {os.path.basename(path)}: joints {joints.shape}")
+
+
+def vis_run(torch, tag, tool, argv, dev, calls, want):
+    """One visualizer run through ``tool.main(argv)`` with its launch counts
+    (``want``: the counts it must launch, every other kernel none), wall s,
+    the sampling's wall s and the idle share of the whole run."""
+    from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with skip_init(torch):  # --checkpoint loads the whole state dict, strictly
+        res, wall, busy = profiled_run(
+            torch, lambda: tool.main(argv, logger=lambda s: print(f"[vis] {tag}: {s}")), dev)
+    counts = launch_counts()
+    profiler_s = time.perf_counter() - t0 - wall
+    want = dict.fromkeys(counts, 0) | want
+    idle = None if busy is None else 1 - busy / wall
+    print(f"[vis] {tag}: {wall:.2f} s wall (sampling {res['sample_s']:.3f} s), {calls} "
+          f"denoiser calls, device busy {busy if busy is None else round(busy, 3)} s, idle "
+          f"share {idle if idle is None else round(idle, 3)} (the profiler's trace "
+          f"{profiler_s:.1f} s more); launches {({k: v for k, v in counts.items() if v})}")
+    check(counts == want, f"[vis] {tag} launch counts {counts} != {want}")
+    return res, {"wall_s": wall, "sample_s": res["sample_s"], "denoiser_calls": calls,
+                 "busy_s": busy, "idle": idle, "counts": counts}
+
+
+def fabricated_npz(torch, tmp, name, config, seed, sd=None):
+    """Seeded fabricated weights of ``config``'s model (or the flagship's
+    state dict ``sd``), made on the host and saved as a save_params
+    snapshot (``snapshot``: ``name`` in ``tmp``, or the one an earlier
+    phase wrote of the same weights): (its path, the denoiser's number of
+    layers a denoiser call runs, its K5 launches a call, its DDIM steps)."""
+    from motioncraft_tpu_torch.config import Config
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.checkpoint import save_params
+    from motioncraft_tpu_torch.utils.convert import fabricate_state_dict, to_jax_variables
+
+    with skip_init(torch):
+        arch = build_architecture(Config.fromfile(config).model, device="cpu")
+    model = arch.model
+    path = snapshot(tmp, name, ("t2m", id(sd)) if sd is not None else (config, seed),
+                    lambda p: save_params(p, to_jax_variables(
+                        sd if sd is not None else fabricate_state_dict(model, seed=seed))))
+    layers = model.num_layers + getattr(model, "copy_blocks_num", 0)
+    return path, layers, k5_per_call(model), arch.diffusion_test.num_timesteps
+
+
+def write_stats(path_mean, path_std, feats, seed):
+    """Seeded de-normalisation stats (mean, std in [0.5, 1.5)) of ``feats``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.dirname(path_mean), exist_ok=True)
+    np.save(path_mean, (rng.randn(feats) * 0.1).astype(np.float32))
+    np.save(path_std, rng.uniform(0.5, 1.5, feats).astype(np.float32))
+
+
+def vis_parity(torch, tool, argv, dev, tag):
+    """The flagship visualizer card vs CPU on the prompts VIS_PARITY picks,
+    at VIS_PARITY_RESPACE's depth (``argv`` without --text and its lengths): the
+    same initial noise, the CPU's MoE gates fed the card's gate logits (as
+    phase 6), within MODEL_REL_TOL x max(1, max |CPU|) on the de-normalised
+    motion."""
+    from torch.nn.modules.module import register_module_forward_hook
+
+    from motioncraft_tpu_torch.diffusion import Replay
+    from motioncraft_tpu_torch.models.moe import CosineTopGate
+
+    argv = argv + ["--text", *(VIS_TEXTS[i] for i in VIS_PARITY), "--motion_length",
+                   *(str(VIS_LENGTHS[i]) for i in VIS_PARITY), "--cfg-options",
+                   f"model.diffusion_test.respace='{VIS_PARITY_RESPACE}'"]
+    noise = torch.randn((len(VIS_PARITY), max(VIS_LENGTHS), 322),
+                        generator=torch.Generator().manual_seed(SEED + 25))
+    logits, replayed, out = [], [], {}
+
+    def record(mod, inp, o):
+        if isinstance(mod, CosineTopGate):
+            logits.append(o.cpu())
+
+    def replay(mod, inp, o):
+        if isinstance(mod, CosineTopGate):
+            replayed.append(None)
+            return logits[len(replayed) - 1].to(o.device)
+
+    t0, secs = time.perf_counter(), {}
+    for d, hook in ((dev, record), ("cpu", replay)):
+        handle = register_module_forward_hook(hook)
+        try:
+            source = Replay([noise], d)
+            t1 = time.perf_counter()
+            with skip_init(torch):
+                out[d] = tool.main(argv + ["--device", str(d).split(":")[0], "--out",
+                                           f"parity_{str(d).split(':')[0]}"], randn=source,
+                                   logger=lambda s: None)["pred"]
+            secs[str(d).split(":")[0]] = time.perf_counter() - t1
+            check(source.done(), f"[vis] {tag} parity: {source.used} draws used")
+        finally:
+            handle.remove()
+    check(len(replayed) == len(logits) > 0, "[vis] gate calls differ between devices")
+    got, want = out[dev], out["cpu"]
+    scale = max(1.0, float(abs(want).max()))
+    diff = float(abs(got - want).max())
+    print(f"[vis] {tag} card vs CPU, {len(VIS_PARITY)} prompts at respace {VIS_PARITY_RESPACE}: "
+          f"max abs diff {diff:.3e} (tol {MODEL_REL_TOL} x {scale:.4g}; {len(logits)} gate "
+          f"calls pinned) in {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
+    check(diff <= MODEL_REL_TOL * scale, f"[vis] {tag} card vs CPU: {diff} > tol")
+    return diff
+
+
+def phase_visualize(torch, sd=None, dev="cuda", t2m_config=CONFIG, mcm_config=MCM_DDIM_CONFIG,
+                    m2d_config=M2D_CONFIG, s2g_config=S2G_CONFIG, parity=True):
+    """Phase 25: the visualizers on the card, each CLI through its
+    main(argv) on seeded fabricated weights saved as a params.npz (the
+    flagship's: phase 3's state dict ``sd`` where given), run from
+    a scratch directory holding the configs' de-normalisation stats:
+    tools/torch_visualize.py on the flagship (VIS_TEXTS at VIS_LENGTHS,
+    --web; then, with ``parity``, card vs CPU) and on MCM (one prompt),
+    tools/torch_m2d_visualize.py on one synthetic FineDance track (--web),
+    tools/torch_s2g_visualize.py on one synthetic BEAT2 recording of two
+    windows (--web).  Returns each run's readings."""
+    import tempfile
+
+    import numpy as np
+    from motioncraft_tpu_torch.apis.windowed import num_windows
+    from motioncraft_tpu_torch.config import Config
+    from motioncraft_tpu_torch.diffusion import RepaintConfig, harmonize_schedule
+
+    t_phase = time.perf_counter()
+    vis, m2d_vis, s2g_vis = (load_tool(n) for n in ("torch_visualize", "torch_m2d_visualize",
+                                                     "torch_s2g_visualize"))
+    cwd, out = os.getcwd(), {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            # (a) the flagship: 4 prompts, one DDIM-50 CFG call of 4
+            t0 = time.perf_counter()
+            cfg = Config.fromfile(t2m_config)
+            norm = cfg.data["test"]["pipeline"][0]
+            write_stats(norm["mean_path"], norm["std_path"], 322, SEED + 25)
+            params, layers, _, steps = fabricated_npz(torch, tmp, "t2m.npz", t2m_config, SEED, sd)
+            print(f"[vis] flagship weights ({os.path.getsize(params) / 2**20:.0f} MiB) and "
+                  f"stats written in {time.perf_counter() - t0:.1f} s")
+            argv = [t2m_config, "--checkpoint", params, "--seed", str(SEED)]
+            res, out["t2m"] = vis_run(
+                torch, "flagship", vis,
+                argv + ["--text", *VIS_TEXTS, "--motion_length", *map(str, VIS_LENGTHS),
+                        "--device", str(dev), "--out", "t2m", "--web"],
+                dev, steps, sampling_counts(1, steps, layers))
+            for i, T in enumerate(VIS_LENGTHS):
+                check_smplx_npz(os.path.join("t2m", f"sample_{i}.npz"), T, "flagship")
+                check_player(os.path.join("t2m", f"sample_{i}.html"), T, "flagship")
+            check(np.isfinite(res["pred"]).all(), "[vis] flagship: non-finite motion")
+            del res
+            if parity:
+                out["t2m"]["parity_max_abs"] = vis_parity(torch, vis, argv, dev, "flagship")
+
+            # (b) MCM: the 263-d branch, K5
+            t0 = time.perf_counter()
+            cfg = Config.fromfile(mcm_config)
+            norm = cfg.data["test"]["pipeline"][0]
+            write_stats(norm["mean_path"], norm["std_path"], 263, SEED + 26)
+            params, _, k5, steps = fabricated_npz(torch, tmp, "mcm.npz", mcm_config, SEED + 26)
+            print(f"[vis] MCM weights and stats written in {time.perf_counter() - t0:.1f} s")
+            res, out["mcm"] = vis_run(
+                torch, "mcm", vis, [mcm_config, "--checkpoint", params, "--text", VIS_TEXTS[0],
+                                    "--motion_length", str(VIS_LENGTHS[1]), "--device",
+                                    str(dev), "--out", "mcm"],
+                dev, steps, {"fused_linear_attention": steps * k5})
+            m = np.load(os.path.join("mcm", "sample_0.npz"))["motion"]
+            check(m.shape == (VIS_LENGTHS[1], 263) and np.isfinite(m).all(),
+                  f"[vis] mcm: motion {m.shape}")
+            del res
+
+            # (c) M2D: one FineDance track, one window
+            t0 = time.perf_counter()
+            cfg = Config.fromfile(m2d_config)
+            tree = os.path.join(tmp, "data")
+            write_finedance_tree(tree, ["063"], VIS_M2D_FRAMES, SEED + 27)
+            # phase 10's weights
+            params, layers, _, steps = fabricated_npz(torch, tmp, "m2d.npz", m2d_config, SEED)
+            print(f"[vis] M2D track and weights written in {time.perf_counter() - t0:.1f} s")
+            want = {"moe_route": layers * (steps + 1), "grouped_ffn": layers * (steps + 1),
+                    "head_ffn": layers * steps, "stma_linear_attention": layers * steps}
+            res, out["m2d"] = vis_run(
+                torch, "m2d", m2d_vis,
+                [m2d_config, "--checkpoint", params, "--track", "063", "--motion_length",
+                 str(VIS_M2D_FRAMES), "--device", str(dev), "--out", "m2d", "--web",
+                 "--seed", str(SEED), "--cfg-options", f"data.test.data_prefix={tree}"],
+                dev, steps, want)
+            name = f"res_063_{VIS_M2D_FRAMES}_0"
+            check_smplx_npz(os.path.join("m2d", name + ".npz"), VIS_M2D_FRAMES, "m2d")
+            check_player(os.path.join("m2d", name + ".html"), VIS_M2D_FRAMES, "m2d")
+            del res
+
+            # (d) S2G: one BEAT2 recording of two windows
+            t0 = time.perf_counter()
+            cfg = Config.fromfile(s2g_config)
+            root = os.path.join(tmp, "beat2_root")
+            yaml_path = write_beat2_tree(root, 1, VIS_S2G_FRAMES, SEED + 28, smplx=False)
+            write_stats(os.path.join(root, "mean.npy"), os.path.join(root, "std.npy"), 322,
+                        SEED + 28)
+            # phase 11's weights
+            params, layers, _, steps = fabricated_npz(torch, tmp, "s2g.npz", s2g_config, SEED)
+            print(f"[vis] BEAT2 recording and weights written in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            window, pre = cfg.windowed["window"], cfg.windowed["pre_frames"]
+            wins = num_windows(VIS_S2G_FRAMES, window, pre)
+            calls = steps + (wins - 1) * sum(
+                d for _, d in harmonize_schedule(steps, RepaintConfig(overlap_len=pre)))
+            want = {"moe_route": layers * (calls + wins), "grouped_ffn": layers * (calls + wins),
+                    "head_ffn": layers * calls, "stma_linear_attention": layers * calls}
+            res, out["s2g"] = vis_run(
+                torch, "s2g", s2g_vis,
+                [s2g_config, "--checkpoint", params, "--beats2-args", yaml_path, "--device",
+                 str(dev), "--out", "s2g", "--web", "--seed", str(SEED)],
+                dev, calls, want)
+            rec = res["recordings"][0]["name"]
+            for kind in ("res", "gt"):
+                check_smplx_npz(os.path.join("s2g", f"{kind}_{rec}.npz"), VIS_S2G_FRAMES,
+                                f"s2g {kind}")
+            check_player(os.path.join("s2g", f"res_{rec}.html"), VIS_S2G_FRAMES, "s2g")
+            betas = np.load(os.path.join("s2g", f"gt_{rec}.npz"))["betas"]
+            check(np.array_equal(betas, np.asarray(res["recordings"][0]["betas"], np.float32)),
+                  "[vis] s2g: the recording's betas were not exported")
+            del res
+        finally:
+            os.chdir(cwd)
+    print(f"[vis] phase 25 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -5955,6 +6369,13 @@ def main():
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     seconds = _build.build()
     print(f"[build] kernels built in {seconds:.1f} s into {_build.BUILD_DIR}")
+    # the params.npz snapshots that phases share (removed at exit)
+    import atexit
+    import shutil
+    import tempfile
+
+    SNAPSHOTS["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, SNAPSHOTS["dir"], True)
 
     full_cfg = Config.fromfile(CONFIG)
     m2d_cfg = Config.fromfile(M2D_CONFIG)
@@ -6022,6 +6443,7 @@ def main():
     lowprec_bl = phase_lowprec_baselines(torch, f32_ms={
         "mcm": baselines["mcm_t2m ddim50"]["wall_ms"],
         "finemogen": finemogen["batch"]["wall_ms"]})
+    vis = phase_visualize(torch, sd)
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
@@ -6086,6 +6508,9 @@ def main():
             "mcm": lowprec_bl["mcm"]["counts"][name],
             **{f"finemogen {k}": v["counts"][name]
                for k, v in lowprec_bl["finemogen"].items() if isinstance(v, dict)}}
+        # phase 25: the visualizers (the flagship's DDIM-50 call of 4
+        # prompts, MCM's one prompt, the M2D window, the S2G recording)
+        row["vis_launches"] = {k: v["counts"][name] for k, v in vis.items()}
         for case in row["cases"]:
             run = next((v for k, v in MP_PATH_RUNS.items() if case["path"].startswith(k)), None)
             if run is not None:

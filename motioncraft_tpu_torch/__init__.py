@@ -18,6 +18,9 @@ Layer map:
   evaluation       -> motioncraft_tpu_torch.eval (evaluator model, metrics)
   checkpoints      -> motioncraft_tpu_torch.utils (convert, torch_convert,
                       checkpoint)
+  host-side tools  -> motioncraft_tpu_torch.utils (export, web_player,
+                      render, fast_render), .ops.humanml3d, .data (bvh,
+                      mocap, prep); the visualizer CLIs tools/torch_*visualize.py
 
 Slices ported so far, for STMoGen (``configs/stmogen/t2m_motionx_0_125b.py``):
 text-to-motion DDIM sampling with classifier-free guidance, training on one

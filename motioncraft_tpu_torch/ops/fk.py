@@ -16,6 +16,7 @@ protocol's.
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -72,11 +73,12 @@ def default_rest_joints() -> np.ndarray:
     return J
 
 
-def load_rest_joints() -> np.ndarray:
-    """The rest joints [55, 3]: ``$MOTIONCRAFT_SMPLX_J`` or
-    ``data/smplx_neu_J_1.npy`` of the checkout, else the approximate ones."""
+def load_rest_joints(path: Optional[str] = None) -> np.ndarray:
+    """The rest joints [55, 3]: the file at ``path``, else
+    ``$MOTIONCRAFT_SMPLX_J``, else ``data/smplx_neu_J_1.npy`` of the
+    checkout, else the approximate ones."""
     here = os.path.dirname(os.path.abspath(__file__))
-    for cand in (os.environ.get("MOTIONCRAFT_SMPLX_J"),
+    for cand in (path, os.environ.get("MOTIONCRAFT_SMPLX_J"),
                  os.path.join(here, "..", "..", "data", "smplx_neu_J_1.npy")):
         if cand and os.path.isfile(cand):
             return np.load(cand).astype(np.float32).reshape(NUM_JOINTS, 3)
@@ -97,11 +99,13 @@ def rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor,
 
 
 class SMPLXSkeleton:
-    """FK over the rest skeleton, on ``device`` (the card unless told)."""
+    """FK over the rest skeleton (``load_rest_joints(rest_joints_path)``), on
+    ``device`` (the card unless told)."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, rest_joints_path: Optional[str] = None, device="cuda"):
         self.device = torch.device(device)
-        self.rest_joints = torch.as_tensor(load_rest_joints(), device=self.device)
+        self.rest_joints = torch.as_tensor(load_rest_joints(rest_joints_path),
+                                           device=self.device)
         self.parents = SMPLX_PARENTS
 
     def forward(self, rotations, root_positions) -> torch.Tensor:
@@ -118,3 +122,42 @@ class SMPLXSkeleton:
         return rigid_transform(rot_mats, rest, self.parents) + root[:, None, :]
 
     __call__ = forward
+
+
+# the SMPL body's first 22 joints (pelvis to wrists) share the SMPL-X tree
+SMPL_PARENTS = SMPLX_PARENTS[:22]
+
+
+class SMPLSkeleton:
+    """FK of the 22-joint SMPL body over axis-angle pose [N, 72] (the body's
+    first 66 values; the hands, joints 22-23, are left out), on ``device``
+    (the card unless told)."""
+
+    def __init__(self, rest_joints_path: Optional[str] = None, device="cuda"):
+        self.device = torch.device(device)
+        self.rest_joints = torch.as_tensor(load_rest_joints(rest_joints_path)[:22],
+                                           device=self.device)
+        self.parents = SMPL_PARENTS
+
+    def forward(self, rotations, root_positions) -> torch.Tensor:
+        rotations = torch.as_tensor(rotations, dtype=torch.float32, device=self.device)
+        root = torch.as_tensor(root_positions, dtype=torch.float32, device=self.device)
+        N = rotations.shape[0]
+        mats = axis_angle_to_matrix(rotations[:, :66].reshape(N, 22, 3))
+        return rigid_transform(mats, self.rest_joints.expand(N, 22, 3),
+                               self.parents) + root[:, None, :]
+
+    __call__ = forward
+
+
+def mean_max_velocity(joint_sequences, pose_fps: int = 30) -> float:
+    """The mean over sequences of each one's largest joint speed (the
+    normalizer of BeatAlign's motion beats); 1.0 when no sequence has two
+    frames."""
+    maxes = []
+    for joints in joint_sequences:
+        joints = joints.cpu().numpy() if torch.is_tensor(joints) else np.asarray(joints)
+        vel = np.linalg.norm(np.diff(joints, axis=0) * pose_fps, axis=-1)
+        if vel.size:
+            maxes.append(vel.max())
+    return float(np.mean(maxes)) if maxes else 1.0

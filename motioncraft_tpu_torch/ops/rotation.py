@@ -1,10 +1,13 @@
-"""Axis-angle <-> rotation matrix on tensors (PyTorch port of the part of
-motioncraft_tpu/ops/rotation.py that the gesture metrics use).
+"""Rotation representations on tensors (PyTorch port of
+motioncraft_tpu/ops/rotation.py): axis-angle <-> matrix <-> quaternion
+(w, x, y, z) <-> 6d, and slerp, with the JAX package's formulas.
 
   - ``axis_angle_to_matrix``: the Rodrigues formula, the angle taken as
     |aa + 1e-8| as the JAX package takes it
-  - ``matrix_to_axis_angle``: through the quaternion, picked branchlessly
-    from the four diagonal-dominance candidates (Shepperd), sign w >= 0
+  - ``matrix_to_quaternion``: picked branchlessly from the four
+    diagonal-dominance candidates (Shepperd), sign w >= 0
+  - 6d: the first two rows of the matrix (pytorch3d's convention, Zhou et
+    al.), back by Gram-Schmidt
 """
 
 from __future__ import annotations
@@ -25,6 +28,17 @@ def axis_angle_to_matrix(aa: torch.Tensor) -> torch.Tensor:
     sin = torch.sin(angle)[..., None]
     eye = torch.eye(3, dtype=aa.dtype, device=aa.device).expand(K.shape)
     return eye + sin * K + (1 - cos) * (K @ K)
+
+
+def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """[..., 4] (w, x, y, z) -> [..., 3, 3]."""
+    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-12)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)
 
 
 def matrix_to_quaternion(R: torch.Tensor) -> torch.Tensor:
@@ -58,3 +72,55 @@ def quaternion_to_axis_angle(q: torch.Tensor) -> torch.Tensor:
 def matrix_to_axis_angle(R: torch.Tensor) -> torch.Tensor:
     """[..., 3, 3] -> [..., 3]."""
     return quaternion_to_axis_angle(matrix_to_quaternion(R))
+
+
+def axis_angle_to_quaternion(aa: torch.Tensor) -> torch.Tensor:
+    angle = torch.linalg.norm(aa + 1e-12, dim=-1, keepdim=True)
+    half = angle / 2
+    return torch.cat([torch.cos(half), aa / angle * torch.sin(half)], dim=-1)
+
+
+def matrix_to_rotation_6d(R: torch.Tensor) -> torch.Tensor:
+    """The first two ROWS of R, flattened: [..., 6]."""
+    return R[..., :2, :].reshape(R.shape[:-2] + (6,))
+
+
+def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
+    """Gram-Schmidt on the two rows (row vectors)."""
+    a1, a2 = d6[..., :3], d6[..., 3:]
+    b1 = a1 / (torch.linalg.norm(a1, dim=-1, keepdim=True) + 1e-12)
+    a2 = a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1
+    b2 = a2 / (torch.linalg.norm(a2, dim=-1, keepdim=True) + 1e-12)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-2)
+
+
+def quat_to_6v(q):
+    return matrix_to_rotation_6d(quaternion_to_matrix(q))
+
+
+def quat_from_6v(d6):
+    return matrix_to_quaternion(rotation_6d_to_matrix(d6))
+
+
+def ax_to_6v(aa):
+    return matrix_to_rotation_6d(axis_angle_to_matrix(aa))
+
+
+def ax_from_6v(d6):
+    return matrix_to_axis_angle(rotation_6d_to_matrix(d6))
+
+
+def quat_slerp(x, y, a):
+    """Spherical linear interpolation from x to y by a, through the shorter
+    arc; linear where the two are within 0.01 of parallel."""
+    dot = torch.sum(x * y, dim=-1)
+    y = torch.where(dot[..., None] < 0, -y, y)
+    dot = torch.abs(dot)
+    a = torch.zeros_like(x[..., 0]) + a
+    linear = (1.0 - dot) < 0.01
+    omega = torch.arccos(torch.clamp(dot, -1.0, 1.0))
+    sinom = torch.where(linear, torch.ones_like(omega), torch.sin(omega))
+    amt0 = torch.where(linear, 1.0 - a, torch.sin((1.0 - a) * omega) / sinom)
+    amt1 = torch.where(linear, a, torch.sin(a * omega) / sinom)
+    return amt0[..., None] * x + amt1[..., None] * y

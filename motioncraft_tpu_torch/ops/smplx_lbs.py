@@ -90,6 +90,7 @@ class SMPLXModel:
         if "hands_meanr" in data:
             pose_mean[120:165] = np.asarray(data["hands_meanr"], np.float64).ravel()
         self.pose_mean = pose_mean
+        self.faces = np.asarray(data["f"]).astype(np.int32) if "f" in data else None
         self._bufs = None
 
     @classmethod

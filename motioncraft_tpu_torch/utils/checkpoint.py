@@ -78,15 +78,59 @@ def save_params(path: str, variables: Any) -> None:
     np.savez(path, **flat)
 
 
+def _stored_npy(f, info: zipfile.ZipInfo) -> Optional[np.ndarray]:
+    """The array of an uncompressed ``.npy`` member of the zip file ``f``,
+    read straight into it; None where np.load must read it (another
+    header version, an object array, a short read)."""
+    f.seek(info.header_offset)
+    local = f.read(30)
+    if len(local) < 30 or local[:4] != b"PK\x03\x04":
+        return None
+    f.seek(info.header_offset + 30 + int.from_bytes(local[26:28], "little")
+           + int.from_bytes(local[28:30], "little"))
+    version = np.lib.format.read_magic(f)
+    if version == (1, 0):
+        shape, fortran, dtype = np.lib.format.read_array_header_1_0(f)
+    elif version == (2, 0):
+        shape, fortran, dtype = np.lib.format.read_array_header_2_0(f)
+    else:
+        return None
+    if dtype.hasobject:
+        return None
+    a = np.empty(shape, dtype, order="F" if fortran else "C")
+    flat = a.reshape(-1, order="A").view(np.uint8)
+    return a if f.readinto(memoryview(flat)) == flat.size else None
+
+
+def _npz_arrays(path: str) -> Dict[str, np.ndarray]:
+    """``np.load(path)``'s arrays by name: each uncompressed member read
+    straight into its array, without the zip CRC pass and the bytes buffer
+    of np.load (about twice as fast for a snapshot of a GiB); a compressed
+    member through np.load's reader."""
+    out = {}
+    with open(path, "rb") as f, zipfile.ZipFile(f) as zf:
+        for info in zf.infolist():
+            if not info.filename.endswith(".npy"):
+                out[info.filename] = zf.read(info)  # as np.load's NpzFile gives it
+                continue
+            a = None
+            if info.compress_type == zipfile.ZIP_STORED and not info.flag_bits & 0x1:
+                a = _stored_npy(f, info)
+            if a is None:
+                with zf.open(info) as member:
+                    a = np.lib.format.read_array(member, allow_pickle=False)
+            out[info.filename[:-4]] = a
+    return out
+
+
 def load_params(path: str) -> dict:
-    data = np.load(path, allow_pickle=False)
     tree: dict = {}
-    for key in data.files:
+    for key, value in _npz_arrays(path).items():
         node = tree
         parts = key.split("/")
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = data[key]
+        node[parts[-1]] = value
     return tree
 
 

@@ -63,6 +63,10 @@ def _walk(tree: Mapping, visit, path=()):
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
+    """``a`` as a contiguous tensor; a transposed kernel is copied by torch,
+    whose strided copy runs on every core (numpy's on one)."""
+    if a.ndim > 1 and not a.flags.c_contiguous and min(a.strides) >= 0:
+        return torch.from_numpy(a).contiguous()
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
@@ -130,21 +134,22 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
     trees: dict = {"params": {}, "batch_stats": {}, "quant": {}}
     back = {v: k for k, v in STATS.items()}
     for name, value in state_dict.items():
-        a = _array(value.detach().cpu().numpy())
-        (*parents, key), dims = flax_leaf(name, a.ndim)
+        t = value.detach().cpu()
+        (*parents, key), dims = flax_leaf(name, t.ndim)
         if key == "num_batches_tracked":
             continue
+        t = t if t.dtype == torch.int8 else t.float()  # _array's dtypes
         col = "params"
         if key in back:
             col, key = "batch_stats", back[key]
         elif key.endswith(SCALES):
             col = "quant"
-        elif dims != tuple(range(a.ndim)):
-            a = np.transpose(a, dims)
+        elif dims != tuple(range(t.ndim)):
+            t = t.permute(dims)  # copied below by torch, on every core
         node = trees[col]
         for p in parents:
             node = node.setdefault(p, {})
-        node[key] = np.ascontiguousarray(a)
+        node[key] = t.contiguous().numpy().reshape(t.shape or (1,))  # as np.ascontiguousarray
     return {k: v for k, v in trees.items() if v or k == "params"}
 
 

@@ -25,6 +25,10 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "tools" / "torch_measure_approx_drift.py",
                                         ROOT / "tools" / "torch_soak_report.py",
                                         ROOT / "tools" / "torch_quality_run.py",
+                                        ROOT / "tools" / "torch_visualize.py",
+                                        ROOT / "tools" / "torch_m2d_visualize.py",
+                                        ROOT / "tools" / "torch_s2g_visualize.py",
+                                        ROOT / "tools" / "profile_chip_smoke.py",
                                         ROOT / "tests" / "torch_dist_ranks.py"]
 FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|motioncraft_tpu)(\.|\s|$)",
                        re.MULTILINE)
@@ -72,7 +76,10 @@ for name, argv in (("torch_train", ["configs/tests/tiny_t2m.py", "--device", "cp
                    ("torch_train_protocol_evaluator", ["--device", "cpu"]),
                    ("torch_make_calib_ckpt", ["configs/tests/tiny_t2m.py", "out.npz"]),
                    ("torch_measure_approx_drift", ["--modes", "int8"]),
-                   ("torch_quality_run", [])):
+                   ("torch_quality_run", []),
+                   ("torch_visualize", ["configs/tests/tiny_t2m.py", "--text", "a", "--web"]),
+                   ("torch_m2d_visualize", ["configs/tests/tiny_m2d.py", "--track", "063"]),
+                   ("torch_s2g_visualize", ["configs/tests/tiny_s2g.py", "--limit", "1"])):
     spec = importlib.util.spec_from_file_location(name, f"tools/{name}.py")
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
@@ -91,7 +98,9 @@ for name in ("data", "data.datasets", "eval", "utils.checkpoint", "utils.torch_c
              "data.native", "eval.gesture_metrics", "ops.fk", "ops.rotation",
              "ops.smplx_lbs", "serving", "serving.server", "diffusion.stepcache",
              "ops.quant", "models.baselines", "models.diffusion_transformer",
-             "parallel.mesh", "utils.dist_utils", "parallel.tp", "parallel.optim"):
+             "parallel.mesh", "utils.dist_utils", "parallel.tp", "parallel.optim",
+             "utils.export", "utils.web_player", "utils.render", "utils.fast_render",
+             "ops.humanml3d", "data.bvh", "data.mocap", "data.prep"):
     assert "motioncraft_tpu_torch." + name in names, name
 print(len(names))
 """

@@ -19,7 +19,6 @@ import json
 import os
 import re
 import shutil
-import time
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +39,7 @@ from motioncraft_tpu_torch.data.datasets import beat2_pose_to_smplx322
 from motioncraft_tpu_torch.eval import gesture_metrics as gm
 from motioncraft_tpu_torch.ops import fk, rotation, smplx_lbs
 from test_smplx_lbs import fabricate_model
-from torch_port_util import assert_close_scaled, bf16_cast_dtypes, t
+from torch_port_util import assert_close_scaled, bf16_cast_dtypes, own_jax_native_build, t
 
 REL = 1e-5
 METRIC_REL = 1e-6
@@ -48,6 +47,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE_YAML = os.path.join(REPO, "configs", "tests", "fixture_beat2.yaml")
 YAMLS = ["configs/beat2/st_mogen_emage.yaml", "configs/tests/fixture_beat2.yaml",
          "configs/tests/tiny_beat2.yaml"]
+
+
+@pytest.fixture
+def jax_native_build(monkeypatch, tmp_path_factory):
+    """The JAX package's onset extractor from a build of this process's own
+    (torch_port_util.own_jax_native_build)."""
+    own_jax_native_build(monkeypatch, tmp_path_factory.getbasetemp() / "native")
 
 
 @pytest.fixture
@@ -73,15 +79,9 @@ def test_yaml_reader_types_and_refusals():
             beat2.parse_flat_yaml(bad)
 
 
-def test_native_onsets_match_the_jax_package(in_repo):
+def test_native_onsets_match_the_jax_package(in_repo, jax_native_build):
     """The same source, built by each package: the same onsets, bit for
     bit, on each fixture recording and on seeded noise with bursts."""
-    if not jax_native.available():
-        # another test process may have been writing the library (make into
-        # native/) when this one tried to load it: try once more
-        time.sleep(5)
-        jax_native._tried = False
-    assert jax_native.available(), "the JAX package's native extractor did not build"
     wavs = [beat2.read_wav(os.path.join("tests/fixtures/mini/beat2/wave16k", n))[1]
             for n in sorted(os.listdir("tests/fixtures/mini/beat2/wave16k"))]
     rng = np.random.RandomState(0)
@@ -94,7 +94,7 @@ def test_native_onsets_match_the_jax_package(in_repo):
     assert beat2.onset_amplitude(burst).sum(0)[1] > 5
 
 
-def test_load_recordings_matches_the_jax_package(in_repo):
+def test_load_recordings_matches_the_jax_package(in_repo, jax_native_build):
     args = beat2.load_beat2_args(FIXTURE_YAML)
     got = beat2.load_recordings(args, "test")
     want = jax_beat2.load_recordings(jax_beat2.load_beat2_args(FIXTURE_YAML), "test")

@@ -41,6 +41,7 @@ from motioncraft_tpu.registry import DATASETS as JAX_DATASETS
 from motioncraft_tpu_torch.data import beat2, build_mixed_dataset, collate
 from motioncraft_tpu_torch.data.pipelines import ContrlCrop
 from motioncraft_tpu_torch.registry import build_dataset
+from torch_port_util import own_jax_native_build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE_YAML = os.path.join(REPO, "configs", "tests", "fixture_beat2.yaml")
@@ -67,6 +68,14 @@ def load_make_tiny_data():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+@pytest.fixture
+def jax_native_build(monkeypatch, tmp_path_factory):
+    """The JAX package's onset extractor from a build of this process's own
+    (torch_port_util.own_jax_native_build): the BEAT2 windows hold onsets,
+    which the port always takes from its native build."""
+    own_jax_native_build(monkeypatch, tmp_path_factory.getbasetemp() / "native")
 
 
 @pytest.fixture(scope="module")
@@ -108,7 +117,7 @@ def fixture_args(monkeypatch, **kw):
 
 
 # ------------------------------------------------------------------- BEAT2
-def test_beat2_windows_and_cache(monkeypatch, tmp_path):
+def test_beat2_windows_and_cache(monkeypatch, tmp_path, jax_native_build):
     ja, pa = fixture_args(monkeypatch)
     want = jax_beat2.Beat2WindowDataset(ja, "train")
     got = beat2.Beat2WindowDataset(pa, "train")
@@ -160,7 +169,7 @@ def speech_cfg(yaml_path, stats, crop=12):
                                meta_keys=["text"])])
 
 
-def test_speech_motion_dataset(monkeypatch):
+def test_speech_motion_dataset(monkeypatch, jax_native_build):
     monkeypatch.chdir(REPO)
     cfg = speech_cfg(FIXTURE_YAML, os.path.join(REPO, "tests", "fixtures", "mini", "stats"))
     want, got = JAX_DATASETS.build(copy.deepcopy(cfg)), build_dataset(copy.deepcopy(cfg))
@@ -246,7 +255,7 @@ def mixed_cfg(root):
                 speech=dict(type="RepeatDataset", dataset=speech, times=1))
 
 
-def test_build_mixed_dataset(tree):
+def test_build_mixed_dataset(tree, jax_native_build):
     want = jax_build_mixed(copy.deepcopy(mixed_cfg(tree)))
     got = build_mixed_dataset(copy.deepcopy(mixed_cfg(tree)))
     assert type(build_dataset(copy.deepcopy(mixed_cfg(tree)))) is type(got)

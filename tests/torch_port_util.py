@@ -3,6 +3,7 @@ package: seeded flax parameter trees made with numpy, and numpy <-> torch."""
 
 import math
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -19,6 +20,36 @@ from motioncraft_tpu_torch.diffusion import Replay  # noqa: F401
 _WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
 if _WORKERS > 1:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def own_jax_native_build(monkeypatch, build_dir):
+    """Point the JAX package's native onset extractor
+    (motioncraft_tpu/data/native.py) at a build of its own in ``build_dir``
+    (one a test process: ``tmp_path_factory.getbasetemp()``), compiled once
+    there with native/Makefile's flags, and assert that it loads.
+
+    The JAX package builds its library into native/ by ``make`` in each
+    process and tries to load it once: a process that loads it while
+    another one is still writing it keeps no extractor for the rest of its
+    life and falls back to another onset detector, whose onsets are not the
+    port's."""
+    from motioncraft_tpu.data import native as jax_native
+
+    os.makedirs(build_dir, exist_ok=True)
+    lib = os.path.join(str(build_dir), "libaudio_features.so")
+    if not os.path.isfile(lib):
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        subprocess.run(["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-Wall", "-o", tmp,
+                        os.path.join(REPO, "native", "audio_features.cpp")],
+                       check=True, capture_output=True, timeout=300)
+        os.replace(tmp, lib)
+    monkeypatch.setattr(jax_native, "_LIB_PATH", lib)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_tried", False)
+    assert jax_native.available(), f"the JAX package's native extractor did not load from {lib}"
 
 
 def seeded_params(tree, seed=0):
