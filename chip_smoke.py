@@ -60,7 +60,10 @@ Phases; any failure exits non-zero:
      slots at its 128, D = 64, F = 256: its K4 positions and text slots
      are phase 18's flagship cases at 128), and K6's bf16 instantiation
      (phase 20's bf16 training) on the flagship's text slots at B = 32 and
-     128 and on FineMoGen's D = 64 motion slots at 128, and phase 21's
+     128 and on FineMoGen's D = 64 motion slots at 128, and K6's f16
+     instantiation (phase 20's float16 training) on the flagship's text
+     slots at B = 32 and 128 (tolerance one f16 ulp of the largest output,
+     2^-10 x max |plain|), and phase 21's
      ranks (K5 over a rank's 64 rows of the flagship, whose K4 positions
      and K6 slots are those of the global 128; the S2G ControlNet's base at
      2 x 8 windows of 64 frames: K4's positions over the 16, K5 over a
@@ -162,7 +165,13 @@ Phases; any failure exits non-zero:
      (CUDA sync debug mode, PARITY_RESPACE's schedule); the WavEncoder, one
      ControlNet CFG forward and
      one whole outpainted window (PARITY_RESPACE's schedule) card against
-     CPU with the gate logits pinned
+     CPU with the gate logits pinned; then the same ControlNet with the
+     wav2vec pre-encoder (condition_pre_encode_type='wav2vec', the
+     base-960h Wav2Vec2 at its full width: 7 convolutions of 512, 12 layers
+     of 768) on seeded fabricated weights: the conditioner's device time on
+     one window; the conditioner, one ControlNet CFG forward and one
+     outpainted window card against CPU as above; one window sampled on the
+     card (the config's DDIM-50), its wall ms
  12. serving through MotionGenServer on the same flagship with phase 3's
      weights: one server in f32 and one in bf16 (the weights cast, the
      denoiser in bf16 through K1-K3's bf16 instantiations), each with batch
@@ -323,7 +332,15 @@ Phases; any failure exits non-zero:
      one update of each of Adafactor, AdaBelief and LAMB (optax's defaults)
      on the flagship's trainable parameters from the same seeded gradients,
      card vs CPU within OPT_REL_TOL of each tensor's update (plus two f32
-     ulps of its largest parameter)
+     ulps of its largest parameter); then float16 (F16_TRAIN: dtype
+     float16, a static loss scale of 8, as the JAX package's option): 4
+     train_model steps of B = 32 with the text path and its MoEs in f16
+     through K6's f16 instantiation, the motion path in f32: finite losses,
+     f32 masters, CLIP unchanged, launches exactly K4's positions 8, K5 4,
+     K6 4 and K6 f16 4 a step, every K5 call's operand dtypes recorded (K5
+     has no f16 instantiation and refuses f16), the step ms; one float16
+     step card vs CPU (B = 2, gates pinned, the loss scale applied, within
+     MODEL_F16_TOL)
  21. data parallelism on torch.distributed (phase 3's weights): the
      flagship through train_model at its config's global batch of 128,
      DP_STEPS steps (the first a warm-up), first in one process, then on 2
@@ -427,7 +444,7 @@ M2D_CONFIG = os.path.join(ROOT, "configs", "stmogen", "m2d_finedance_0125b.py")
 S2G_CONFIG = os.path.join(ROOT, "configs", "stmogen", "s2g_beats2_0125b.py")
 F32_PEAK = 67e12      # H100 SXM CUDA-core f32, FLOP/s
 TF32_PEAK = 495e12    # H100 SXM dense TF32 tensor cores, FLOP/s; 3xTF32 takes 3 passes
-BF16_PEAK = 989e12    # H100 SXM dense bf16 tensor cores, FLOP/s
+BF16_PEAK = 989e12    # H100 SXM dense bf16 (and fp16) tensor cores, FLOP/s
 HBM_PEAK = 3.35e12    # H100 SXM device memory, bytes/s
 KERNEL_REL_TOL = 1e-4   # kernel vs plain: max abs err <= tol * max |plain|
 PLAIN_ONE_CALL_MS = 20.0
@@ -435,6 +452,7 @@ PLAIN_ONE_CALL_MS = 20.0
 # K2's hidden) to bf16, one ulp 3.9e-3 relative; a sum near a rounding
 # boundary may round the other way
 KERNEL_BF16_TOL = 1e-2
+KERNEL_F16_TOL = 2.0 ** -10  # one f16 ulp of the largest output
 # bf16 forward card vs CPU: the two round bf16 in other places (cuBLAS
 # against the CPU's products, the kernels' sums against the plain ones')
 MODEL_BF16_TOL = 5e-2
@@ -540,6 +558,13 @@ HARNESS_BATCH, HARNESS_GRAD_ACCUM, HARNESS_CALIB_BATCH = 32, 2, 8
 # elements sum in another order on the card (and each device rounds the
 # updated parameter to its f32 ulp: the check adds two of those)
 BF16_TRAIN = dict(dtype="bfloat16")
+# float16 training (phase 20): the JAX package's fp16 option in float16
+# with a static loss scale (no skipped step, no dynamic scaler); its
+# card-vs-CPU step within MODEL_F16_TOL: f16's ulp is 2^-11 relative (8x
+# finer than bf16's, held at MODEL_BF16_TOL), but the card rounds in other
+# places (K6 rounds its hidden once, cuBLAS sums in another order)
+F16_TRAIN = dict(dtype="float16", loss_scale=8.0)
+MODEL_F16_TOL = 2e-2
 REMAT_BATCH = 128
 OPT_REL_TOL = 1e-4
 # phase 21: data parallelism, DP_WORLD ranks on the one card over gloo
@@ -681,6 +706,7 @@ PALLAS = {
 }
 PALLAS.update({f"{k}_bf16": PALLAS[k]
                for k in (*BF16_KERNELS, "fused_expert_ffn", "fused_linear_attention")})
+PALLAS["fused_expert_ffn_f16"] = PALLAS["fused_expert_ffn"]
 SOURCES = {
     "moe_route": "motioncraft_tpu_torch/csrc/moe_positions.cu",
     "moe_positions": "motioncraft_tpu_torch/csrc/moe_positions.cu",
@@ -692,6 +718,7 @@ SOURCES = {
 }
 SOURCES.update({f"{k}_bf16": SOURCES[k]
                 for k in (*BF16_KERNELS, "fused_expert_ffn", "fused_linear_attention")})
+SOURCES["fused_expert_ffn_f16"] = SOURCES["fused_expert_ffn"]
 
 
 class PhaseError(RuntimeError):
@@ -1024,9 +1051,12 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
     layer0 = flagship_inputs(torch, cfg, dev, training=False, layer0=True)
     paths = [("t2m", t2m), ("t2m layer 0", layer0),
              ("t2m bf16", bf16_inputs(torch, t2m)), ("t2m layer 0 bf16", bf16_inputs(torch, layer0)),
-             # phase 20's bf16 training: K6's bf16 instantiation on the text slots
+             # phase 20's bf16 and float16 training: K6's bf16 and f16
+             # instantiations on the text slots
              (f"t2m train bf16 B={TRAIN_BATCH}",
-              bf16_cases(torch, "fused_expert_ffn", t2m["fused_expert_ffn"][1:]))]
+              half_cases(torch, "fused_expert_ffn", t2m["fused_expert_ffn"][1:])),
+             (f"t2m train f16 B={TRAIN_BATCH}",
+              half_cases(torch, "fused_expert_ffn", t2m["fused_expert_ffn"][1:], "float16"))]
     # phase 12's smallest and largest buckets (b requests, T frames: 2b
     # CFG rows), in f32 and in bf16, each with layer 0's half
     for b, T in SERVE_CHECKED:
@@ -1069,7 +1099,7 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
         cases = baseline_attention_inputs(torch, model_cfg, dev)
         tag = f"{model_cfg['model']['type']} B={BATCH}"
         # and in bf16 (phase 24): its three operands bf16, K5's bf16 instantiation
-        paths += [(tag, cases), (f"{tag} bf16", bf16_cases(
+        paths += [(tag, cases), (f"{tag} bf16", half_cases(
             torch, "fused_linear_attention", cases["fused_linear_attention"]))]
         if model_cfg["model"]["type"] == "MCMTransformer":
             # phase 25's one prompt (mcm_t2m.py has the smplx config's shapes)
@@ -1090,7 +1120,7 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
             # values (K5's f32 instantiation on the widened operands)
             mixed = (ca[0], ca[1].to(torch.bfloat16), ca[2].to(torch.bfloat16))
             paths += [(f"{tag} R={R}", cases),
-                      (f"{tag} R={R} bf16", {**bf16_cases(torch, "fused_linear_attention", [sa]),
+                      (f"{tag} R={R} bf16", {**half_cases(torch, "fused_linear_attention", [sa]),
                                              "fused_linear_attention": [mixed]})]
     for model_cfg in retrieval_cfgs:
         cases = retrieval_attention_inputs(torch, model_cfg, dev)
@@ -1106,9 +1136,12 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
     for tag, model_cfg, Bt in train_cfgs:
         train = flagship_inputs(torch, model_cfg, dev, B2=Bt, Bt=Bt)
         paths.append((f"{tag} train B={Bt}", {k: train[k] for k in TRAINING_KERNELS}))
-        if tag == "t2m":  # and K6's bf16 text slots at that batch (phase 20 at B = 128)
-            paths.append((f"{tag} train bf16 B={Bt}",
-                          bf16_cases(torch, "fused_expert_ffn", train["fused_expert_ffn"][1:])))
+        if tag == "t2m":  # and K6's bf16 and f16 text slots at that batch (phase 20 at 128)
+            paths += [(f"{tag} train bf16 B={Bt}",
+                       half_cases(torch, "fused_expert_ffn", train["fused_expert_ffn"][1:])),
+                      (f"{tag} train f16 B={Bt}",
+                       half_cases(torch, "fused_expert_ffn", train["fused_expert_ffn"][1:],
+                                  "float16"))]
     for tag, model_cfg, Bt in baseline_train_cfgs:
         m = model_cfg["model"]
         if m["type"] == "FineMoGenTransformer":
@@ -1117,7 +1150,7 @@ def kernel_paths(torch, cfg, m2d_cfg, dev, s2g_cfg=None, baseline_cfgs=(), finem
             # 18's flagship cases at the same B
             train = flagship_inputs(torch, model_cfg, dev, B2=Bt, Bt=Bt)
             cases = {"fused_expert_ffn": train["fused_expert_ffn"][:1],
-                     **bf16_cases(torch, "fused_expert_ffn", train["fused_expert_ffn"][:1])}
+                     **half_cases(torch, "fused_expert_ffn", train["fused_expert_ffn"][:1])}
         else:
             cases = baseline_attention_inputs(torch, {"model": m.get("base_model", m)}, dev,
                                               B=Bt)
@@ -1232,18 +1265,20 @@ def bf16_inputs(torch, inputs):
     return out
 
 
-def bf16_cases(torch, name, cases):
-    """The bf16 instantiation of kernel ``name`` on ``cases``, every operand
-    rounded to bf16: K6's slots as the bf16 training step hands its text
-    MoEs' slots and bf16 weights to it, K5's operands as a bf16-cast
-    baseline hands them to it."""
-    return {f"{name}_bf16": [tuple(a.to(torch.bfloat16) for a in args) for args in cases]}
+def half_cases(torch, name, cases, dtype="bfloat16"):
+    """The bf16 (or float16) instantiation of kernel ``name`` on ``cases``,
+    every operand rounded to that dtype: K6's slots as the bf16 or float16
+    training step hands its text MoEs' slots and half weights to it, K5's
+    operands as a bf16-cast baseline hands them to it."""
+    suffix = {"bfloat16": "_bf16", "float16": "_f16"}[dtype]
+    return {f"{name}{suffix}": [tuple(a.to(getattr(torch, dtype)) for a in args)
+                                for args in cases]}
 
 
 def kernel_work(name, args):
     """(flops, bytes) of one call: the operations the function needs, each
     input read once, each output written once (in its own dtype)."""
-    name = name.removesuffix("_bf16")
+    name = name.removesuffix("_bf16").removesuffix("_f16")
 
     def nb(t):
         return t.numel() * t.element_size()
@@ -1360,7 +1395,8 @@ def kernel_case(torch, rows, path, name, i, args, fns):
     else:
         err = float((got.float() - want.float()).abs().max())
         scale = float(want.abs().max())
-        rel = KERNEL_BF16_TOL if name.endswith("_bf16") else KERNEL_REL_TOL
+        rel = (KERNEL_BF16_TOL if name.endswith("_bf16") else
+               KERNEL_F16_TOL if name.endswith("_f16") else KERNEL_REL_TOL)
         # K5 on operands of both dtypes computes in f32, as the JAX package's
         # dispatch promotes
         expect = (functools.reduce(torch.promote_types, [a.dtype for a in args])
@@ -1383,9 +1419,9 @@ def kernel_case(torch, rows, path, name, i, args, fns):
     flops, nbytes = kernel_work(name, args)
     if name in ("moe_positions", "moe_route"):  # on the CUDA cores only
         bound_ms, bound_by = f32_ms, f32_by = bound(flops, nbytes, F32_PEAK)
-    elif name.endswith("_bf16"):  # bf16 products at the dense bf16 tensor-core rate
+    elif name.endswith(("_bf16", "_f16")):  # 16-bit products at the dense rate (the same)
         bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
-        f32_ms = f32_by = None  # no f32 work: the bf16 bound is the only one
+        f32_ms = f32_by = None  # no f32 work: the 16-bit bound is the only one
     else:  # f32 products: 3xTF32 on the tensor cores is the fastest exact way
         bound_ms, bound_by = bound(3 * flops, nbytes, TF32_PEAK)
         f32_ms, f32_by = bound(flops, nbytes, F32_PEAK)
@@ -1608,7 +1644,7 @@ def training_counts(forwards, layers):
 
 
 def phase_train_parity(torch, cfg, sd, batch=None, frozen=("text_enc/clip",),
-                       tag="train-parity", card="cuda", fp16=False):
+                       tag="train-parity", card="cuda", fp16=None):
     """Phase 8: one training loss and its gradients, card vs CPU, B = 2,
     gate noise 0 on both; the CPU's gates take the card's gate logits (as
     values; the gradient flows through its own gate), so a near-tie cannot
@@ -1617,12 +1653,14 @@ def phase_train_parity(torch, cfg, sd, batch=None, frozen=("text_enc/clip",),
     the gradients of the trainable parameters are compared; phase 19 a
     baseline's (a model without MoE gates: nothing to pin).  Every scalar
     loss term is compared.  ``card``: the device held against the CPU (the
-    CPU itself in a rehearsal).  With ``fp16`` (phase 20) both run the bf16
-    step (bf16 copies of the parameters, ``apis/train.py:cast_parameters``)
-    and are held to MODEL_BF16_TOL: the two round bf16 in other places."""
+    CPU itself in a rehearsal).  With ``fp16`` (phase 20: BF16_TRAIN or
+    F16_TRAIN) both run that half step (half copies of the parameters,
+    ``apis/train.py:cast_parameters``; the loss times its ``loss_scale``,
+    the gradients divided by it) and are held to MODEL_BF16_TOL or
+    MODEL_F16_TOL: the two round in other places."""
     import copy
     from motioncraft_tpu_torch.apis import make_train_batch
-    from motioncraft_tpu_torch.apis.train import cast_parameters
+    from motioncraft_tpu_torch.apis.train import cast_parameters, half_dtype
     from motioncraft_tpu_torch.models.moe import CosineTopGate
     from motioncraft_tpu_torch.parallel import freeze
     from motioncraft_tpu_torch.registry import build_architecture
@@ -1666,24 +1704,28 @@ def phase_train_parity(torch, cfg, sd, batch=None, frozen=("text_enc/clip",),
         handles = [m.register_forward_hook(hook) for m in a.modules()
                    if isinstance(m, CosineTopGate)]
         a.train()
-        with cast_parameters(a.model, torch.bfloat16) if fp16 else contextlib.nullcontext():
+        scale = float(fp16.get("loss_scale", 1.0)) if fp16 else 1.0
+        with (cast_parameters(a.model, half_dtype(fp16)) if fp16
+              else contextlib.nullcontext()):
             total, logs = a.loss(batch, **draws)
-            total.backward()
+            (total * scale).backward()
         a.eval()
         for h in handles:
             h.remove()
         gated = any(isinstance(m, CosineTopGate) for m in a.modules())
         results[label] = ({k: float(v.detach()) for k, v in logs.items()
                            if "loss" in k and v.ndim == 0},
-                          {n: p.grad.cpu() for n, p in a.model.named_parameters()
+                          {n: p.grad.cpu() / scale for n, p in a.model.named_parameters()
                            if p.grad is not None})
         del a
     check(len(replayed) == len(card_logits) and (len(replayed) > 0) == gated,
           "gate calls differ between devices")
     (lc, gc), (lp, gp) = results["cuda"], results["cpu"]
     check(set(lc) == set(lp), f"loss terms {sorted(lc)} on the card, {sorted(lp)} on the CPU")
-    loss_tol, grad_tol = (MODEL_BF16_TOL, MODEL_BF16_TOL) if fp16 else (MODEL_REL_TOL,
-                                                                        GRAD_REL_TOL)
+    loss_tol = grad_tol = (MODEL_F16_TOL if fp16 and half_dtype(fp16) == torch.float16 else
+                           MODEL_BF16_TOL)
+    if not fp16:
+        loss_tol, grad_tol = MODEL_REL_TOL, GRAD_REL_TOL
     for k in lc:
         diff, scale = abs(lc[k] - lp[k]), max(1.0, abs(lp[k]))
         print(f"[{tag}] {k}: card {lc[k]:.7f} CPU {lp[k]:.7f} diff {diff:.3e} "
@@ -2447,8 +2489,64 @@ def phase_s2g(torch, full_cfg, dev="cuda", config=S2G_CONFIG, recordings=S2G_REC
                   extras=[(f"WavEncoder, one window of {window * spf} samples", encode)])
     runs["encoder"] = {"flops": flops, "ms": enc_ms, "call_ms": enc_call_ms,
                        "bound_ms": bound_ms}
+    del arch, model, enc
+    runs["wav2vec"] = s2g_wav2vec(torch, cfg, window_batch, window, pre, dev)
     print(f"[s2g] phase 11 took {time.perf_counter() - t_phase:.1f} s")
     return runs
+
+
+def s2g_wav2vec(torch, cfg, window_batch, window, pre, dev="cuda"):
+    """Phase 11's wav2vec ControlNet: ``cfg`` (the S2G model config) with
+    ``condition_pre_encode_type='wav2vec'`` (the base-960h Wav2Vec2 at its
+    full width) on seeded fabricated weights: the conditioner's device time
+    on one window; the conditioner, a ControlNet CFG forward and one
+    outpainted window card vs CPU (window_parity); then one window sampled
+    on the card at the config's schedule (wall ms)."""
+    import copy
+
+    from motioncraft_tpu_torch.diffusion import RepaintConfig
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
+
+    t0 = time.perf_counter()
+    w_cfg = copy.deepcopy(cfg)
+    w_cfg["model"]["condition_encode_cfg"]["condition_pre_encode_type"] = "wav2vec"
+    with skip_init(torch):
+        arch = build_architecture(w_cfg, device=dev)
+    sd = fabricate_state_dict(arch.model, seed=SEED + 13)
+    arch.model.load_state_dict(sd, strict=True)
+    arch.repaint_cfg = RepaintConfig(overlap_len=pre)
+    cond = arch.model.condition_pre_encoder
+    n_w2v = sum(p.numel() for p in cond.parameters())
+    c1 = window_batch(1, 0)["c"].to(dev)
+    with torch.no_grad():
+        cond_ms = device_ms(torch, lambda: cond(c1, window), reps=5)
+
+    def encode(a):
+        return a.model.condition_pre_encoder(window_batch(1, 0)["c"].to(a.device), window)
+
+    window_parity(torch, w_cfg, arch, sd, window_batch, window, pre, "s2g-wav2vec", (1,),
+                  extras=[(f"Wav2Vec2 conditioner, one window of {c1.shape[1]} samples",
+                           encode)])
+    # one window at the config's schedule, warm after the parity's card runs
+    batch = {k: v.to(dev) for k, v in window_batch(1, 0).items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        out = arch.sample(batch, generator=g)
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t1) * 1e3
+    check(out.shape == (1, window, 322) and torch.isfinite(out).all(),
+          f"the wav2vec window: {tuple(out.shape)}")
+    print(f"[s2g-wav2vec] Wav2Vec2 conditioner ({n_w2v / 1e6:.1f} M parameters) on one "
+          f"window {tuple(c1.shape)}: {cond_ms:.3f} ms on the device; one window sampled on "
+          f"the card ({arch.diffusion_test.num_timesteps} steps): {window_ms:.1f} ms wall")
+    del arch
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t0
+    print(f"[s2g-wav2vec] the wav2vec ControlNet took {took:.1f} s")
+    return {"conditioner_ms": cond_ms, "window_ms": window_ms, "s": took}
 
 
 def serve_traffic(torch, srv, T, seed, per_client=SERVE_PER_CLIENT):
@@ -4635,82 +4733,127 @@ def phase_baseline_train(torch, dev="cuda", configs=BL_CONFIGS, m2d_config=MCM_M
     return out
 
 
-def bf16_training_counts(steps, layers):
-    """K4's positions, K5, the f32 K6 and the bf16 K6 over ``steps`` bf16
-    training steps of the flagship: per layer the text MoE's slots (bf16
-    features, bf16 weights) through the bf16 K6, the motion MoE's (f32
-    slots, the weights widened) through the f32 one."""
+def bf16_training_counts(steps, layers, half="bf16"):
+    """K4's positions, K5, the f32 K6 and the 16-bit K6 over ``steps`` bf16
+    (or, ``half="f16"``, float16) training steps of the flagship: per layer
+    the text MoE's slots (16-bit features, 16-bit weights) through the
+    16-bit K6, the motion MoE's (f32 slots, the weights widened) through
+    the f32 one."""
     return {"moe_positions": 2 * layers * steps, "fused_linear_attention": layers * steps,
-            "fused_expert_ffn": layers * steps, "fused_expert_ffn_bf16": layers * steps}
+            "fused_expert_ffn": layers * steps, f"fused_expert_ffn_{half}": layers * steps}
 
 
-def phase_bf16_train(torch, full_cfg, sd, f32_step_ms=None, dev="cuda"):
-    """Phase 20: the rest of training on the flagship with phase 3's
-    weights: TRAIN_STEPS train_model steps of B = TRAIN_BATCH in bf16
-    (``fp16=BF16_TRAIN``) with exact launch counts, beside phase 7's f32
-    step times; one bf16 training step card vs CPU (phase 8's, in bf16);
-    one bf16 step of B = REMAT_BATCH with ``remat`` off and on (SGD at lr 0,
-    so both see the same weights): the same loss, less memory with it on;
-    one update of each of Adafactor, AdaBelief and LAMB on the flagship's
-    trainable parameters from the same seeded gradients, card vs CPU."""
+def half_train(torch, full_cfg, sd, batches, fp16, f32_step_ms=None, dev="cuda"):
+    """Phase 20's half-precision steps: TRAIN_STEPS train_model steps of
+    ``batches`` with ``fp16`` (BF16_TRAIN or F16_TRAIN) from ``sd``: finite
+    losses, f32 masters, every trainable parameter moved (but the face
+    head) and finite, CLIP unchanged, exact launches, every K5 call's
+    operand dtypes recorded (K5 has no f16 instantiation and refuses f16);
+    then one such step card vs CPU (phase 8's, gates pinned)."""
     import numpy as np
-    from motioncraft_tpu_torch.apis import (make_train_batch, make_train_step,
-                                            set_random_seed, train_model)
+    from motioncraft_tpu_torch.apis import train_model
+    from motioncraft_tpu_torch.apis.train import half_dtype
+    from motioncraft_tpu_torch.models import attentions
     from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
-    from motioncraft_tpu_torch.parallel import TrainState
     from motioncraft_tpu_torch.registry import build_architecture
-    from motioncraft_tpu_torch.utils.card import card_line
 
-    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    half = "f16" if half_dtype(fp16) == torch.float16 else "bf16"
+    tag = f"{half}-train"
     cfg = full_cfg["model"]
     with skip_init(torch):
         arch = build_architecture(cfg, device=dev)
     arch.model.load_state_dict(sd, strict=True)
-    T = arch.model.max_seq_len
-    batches = [make_train_batch(TRAIN_BATCH, seed=SEED + i, max_seq_len=T)
-               for i in range(TRAIN_STEPS)]
     before = {k: v.clone() for k, v in arch.model.state_dict().items()}
-    lines = []
+    lines, k5_dtypes = [], {}
 
     def log(msg):
         lines.append(msg)
-        print(f"[bf16-train] {msg}")
+        print(f"[{tag}] {msg}")
+
+    k5 = attentions.fused_linear_attention
+
+    def recorded(*args):
+        key = "/".join(str(a.dtype).removeprefix("torch.") for a in args)
+        k5_dtypes[key] = k5_dtypes.get(key, 0) + 1
+        return k5(*args)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    state = train_model(arch, batches, optimizer_cfg=full_cfg["optimizer"],
-                        lr_config=full_cfg["lr_config"], max_epochs=1,
-                        steps_per_epoch=TRAIN_STEPS, seed=SEED, log_interval=1, logger=log,
-                        fp16=BF16_TRAIN)
+    attentions.fused_linear_attention = recorded
+    try:
+        state = train_model(arch, batches, optimizer_cfg=full_cfg["optimizer"],
+                            lr_config=full_cfg["lr_config"], max_epochs=1,
+                            steps_per_epoch=TRAIN_STEPS, seed=SEED, log_interval=1, logger=log,
+                            fp16=fp16)
+    finally:
+        attentions.fused_linear_attention = k5
     torch.cuda.synchronize()
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [float(m.split(" loss=")[1].split()[0]) for m in lines if " loss=" in m]
     step_ms = [float(m.split("step_ms=")[1]) for m in lines if "step_ms=" in m]
     check(state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS
-          and np.isfinite(losses).all(), f"bf16 losses {losses}")
+          and np.isfinite(losses).all(), f"{half} losses {losses}")
     after = arch.model.state_dict()
     check(all(v.dtype == before[k].dtype for k, v in after.items()),
           "a master parameter changed its dtype")
+    check(all(torch.isfinite(v).all() for v in after.values() if v.is_floating_point()),
+          f"a master parameter is not finite after the {half} steps")
     trainable = {n for n, p in arch.model.named_parameters() if p.requires_grad}
     frozen = [n for n in before if n.startswith("text_enc.clip.")]
     still = sorted(n for n in trainable if torch.equal(after[n], before[n]))
     check(frozen and all(torch.equal(after[n], before[n]) for n in frozen),
           "a frozen CLIP parameter changed")
-    check(all(n.startswith("out.face_out.") for n in still),
+    # the face head takes no loss; a key bias under the softmax over the
+    # keys shifts every logit alike, so its gradient is zero up to rounding,
+    # which bf16's coarse sums leave and f16's do not
+    idle = ("out.face_out.",) + (("attn.key.bias",) if half == "f16" else ())
+    check(all(n.startswith(idle[0]) or n.endswith(idle[1:]) for n in still),
           f"trainable parameters that did not move: {still[:5]}")
-    want = dict.fromkeys(counts, 0) | bf16_training_counts(TRAIN_STEPS, arch.model.num_layers)
-    print(f"[bf16-train] {TRAIN_STEPS} steps of B={TRAIN_BATCH} in bf16: step wall ms "
+    want = dict.fromkeys(counts, 0) | bf16_training_counts(TRAIN_STEPS, arch.model.num_layers,
+                                                           half=half)
+    print(f"[{tag}] {TRAIN_STEPS} steps of B={TRAIN_BATCH} with fp16={fp16}: step wall ms "
           f"{step_ms} (first = warm-up; f32, phase 7: {f32_step_ms}); max memory allocated "
-          f"{peak / 2**30:.3f} GiB; losses {losses}; launches {counts}")
-    check(counts == want, f"bf16 training launch counts {counts} != expected {want}")
-    check(all(counts[k] > 0 for k in bf16_training_counts(1, 1)),
-          "a kernel of the bf16 training path was launched no time")
+          f"{peak / 2**30:.3f} GiB; losses {losses}; launches {counts}; K5 calls by operand "
+          f"dtypes {k5_dtypes}")
+    check(counts == want, f"{half} training launch counts {counts} != expected {want}")
+    check(all(counts[k] > 0 for k in bf16_training_counts(1, 1, half=half)),
+          f"a kernel of the {half} training path was launched no time")
+    check(not any("float16" in k.replace("bfloat16", "") for k in k5_dtypes),
+          f"K5 was handed a float16 operand: {k5_dtypes}")
     del arch, state
+    torch.cuda.empty_cache()
 
-    # one bf16 training step card vs CPU, B = 2, gate logits pinned
-    phase_train_parity(torch, cfg, sd, tag="bf16-train-parity", card=dev, fp16=True)
+    # one such training step card vs CPU, B = 2, gate logits pinned
+    phase_train_parity(torch, cfg, sd, tag=f"{tag}-parity", card=dev, fp16=fp16)
+    print(f"[{tag}] the {half} steps took {time.perf_counter() - t0:.1f} s")
+    return {"counts": counts, "step_ms": step_ms, "peak_gib": peak / 2**30,
+            "k5_dtypes": k5_dtypes}
+
+
+def phase_bf16_train(torch, full_cfg, sd, f32_step_ms=None, dev="cuda"):
+    """Phase 20: the rest of training on the flagship with phase 3's
+    weights: TRAIN_STEPS train_model steps of B = TRAIN_BATCH in bf16
+    (``fp16=BF16_TRAIN``) and one card vs CPU (``half_train``), beside
+    phase 7's f32 step times; one bf16 step of B = REMAT_BATCH with
+    ``remat`` off and on (SGD at lr 0, so both see the same weights): the
+    same loss, less memory with it on; one update of each of Adafactor,
+    AdaBelief and LAMB on the flagship's trainable parameters from the same
+    seeded gradients, card vs CPU; then the same steps in float16
+    (``fp16=F16_TRAIN``)."""
+    from motioncraft_tpu_torch.apis import make_train_batch, make_train_step, set_random_seed
+    from motioncraft_tpu_torch.parallel import TrainState
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.card import card_line
+
+    t_phase = time.perf_counter()
+    cfg = full_cfg["model"]
+    T = cfg["model"]["max_seq_len"]
+    batches = [make_train_batch(TRAIN_BATCH, seed=SEED + i, max_seq_len=T)
+               for i in range(TRAIN_STEPS)]
+    bf16 = half_train(torch, full_cfg, sd, batches, BF16_TRAIN, f32_step_ms, dev)
 
     # remat off and on at B = REMAT_BATCH, one bf16 step each on the same weights
     with skip_init(torch):
@@ -4779,8 +4922,9 @@ def phase_bf16_train(torch, full_cfg, sd, f32_step_ms=None, dev="cuda"):
         opts[typ] = {"worst": worst[0], "card_ms": card_ms}
     del models
     torch.cuda.empty_cache()
+    f16 = half_train(torch, full_cfg, sd, batches, F16_TRAIN, f32_step_ms, dev)
     print(f"[bf16-train] phase 20 took {time.perf_counter() - t_phase:.1f} s")
-    return {"counts": counts, "step_ms": step_ms, "remat": remat, "optimizers": opts}
+    return {**bf16, "remat": remat, "optimizers": opts, "f16": f16}
 
 
 # ---------------------------------------------------------------- phase 21
@@ -6452,7 +6596,8 @@ def main():
         # phases 9, 10 and 11 (R = 1, then R = 4) and the two servers of
         # phase 12 (f32, then bf16)
         row["launches"] = (counts[name] or train_counts[name] or serve["bf16"]["counts"][name]
-                           or bf16_train["counts"][name] or lowprec_bl["counts"][name])
+                           or bf16_train["counts"][name] or bf16_train["f16"]["counts"][name]
+                           or lowprec_bl["counts"][name])
         row["eval_launches"] = eval_counts[name]
         row["m2d_launches"] = [m2d[R]["counts"][name] for R in sorted(m2d)]
         row["s2g_launches"] = [s2g[R]["counts"][name] for R in (1, S2G_REC_BATCH)]
@@ -6491,8 +6636,10 @@ def main():
         # (the MCM ControlNet from stage 1's MCM), each BL_STEPS steps
         row["baseline_train_launches"] = {k: v["counts"][name]
                                           for k, v in baseline_train.items()}
-        # phase 20: the bf16 train_model steps (TRAIN_STEPS of B = TRAIN_BATCH)
+        # phase 20: the bf16 and the float16 train_model steps (TRAIN_STEPS
+        # of B = TRAIN_BATCH each)
         row["bf16_train_launches"] = bf16_train["counts"][name]
+        row["f16_train_launches"] = bf16_train["f16"]["counts"][name]
         # phase 21: rank 0's data-parallel steps (the flagship's DP_STEPS,
         # the S2G ControlNet's one) and its share of the 2-process evaluation
         row["dp_launches"] = {k: dp[k]["counts"][name] for k in ("t2m", "s2g", "eval")}

@@ -145,16 +145,16 @@ def _resolved(device) -> torch.device:
     return device
 
 
+HALF_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
 def half_dtype(fp16: dict) -> torch.dtype:
     """The compute dtype that an ``fp16`` option names: bfloat16 (its
-    default).  float16 needs an f16 instantiation of K6 (queued)."""
+    default) or float16."""
     name = str(fp16.get("dtype", "bfloat16")).removeprefix("torch.")
-    if name == "float16":
-        raise NotImplementedError("fp16 training in float16 (an f16 K6): "
-                                  "ROADMAP queue 1: the rest of training")
-    if name != "bfloat16":
-        raise ValueError(f"fp16 dtype {name!r}: bfloat16")
-    return torch.bfloat16
+    if name not in HALF_DTYPES:
+        raise ValueError(f"fp16 dtype {name!r}: one of {sorted(HALF_DTYPES)}")
+    return HALF_DTYPES[name]
 
 
 def make_train_step(arch, state: TrainState, fp16: Optional[dict] = None,
@@ -174,16 +174,18 @@ def make_train_step(arch, state: TrainState, fp16: Optional[dict] = None,
     gathered, in the global batch's order.
 
     ``fp16`` (the JAX package's option, mmcv's Fp16OptimizerHook): the
-    forward and backward run on bf16 copies of every floating parameter
-    (``fp16["dtype"]``, default and only 'bfloat16'; the frozen CLIP's
-    too); the f32 parameters stay the master copy and take the gradients
-    widened to f32.  Each
-    module computes in the promoted dtype of its input and its weights, as
-    flax does (models/blocks.py:promote_dtype): the text tower and the text
-    MoEs run in bf16, the motion path in f32 on the rounded weights.  The
-    loss is taken in f32 and multiplied by a numeric ``loss_scale``, the
-    gradients divided by it; a string ``loss_scale`` (mmcv's 'dynamic')
-    counts as 1.0, as in the JAX package."""
+    forward and backward run on half copies of every floating parameter
+    (``fp16["dtype"]``: 'bfloat16', the default, or 'float16'; the frozen
+    CLIP's too); the f32 parameters stay the master copy and take the
+    gradients widened to f32.  Each module computes in the promoted dtype
+    of its input and its weights, as flax does
+    (models/blocks.py:promote_dtype): the text tower and the text MoEs run
+    in the half type (K6's bf16 or f16 instantiation), the motion path in
+    f32 on the rounded weights (float16 meeting bfloat16 or f32 promotes to
+    f32 in torch and in JAX alike).  The loss is taken in f32 and multiplied
+    by a numeric ``loss_scale``, the gradients divided by it; a string
+    ``loss_scale`` (mmcv's 'dynamic') counts as 1.0, as in the JAX package:
+    the scale is static, no step is skipped."""
     half, loss_scale = None, 1.0
     if fp16 is not None:
         half = half_dtype(fp16)
@@ -207,7 +209,9 @@ def make_train_step(arch, state: TrainState, fp16: Optional[dict] = None,
             kw = {k: v[part] for k, v in loss_kw.items()}
             with torch.enable_grad(), cast():  # whatever the caller's grad mode
                 loss, logs = arch.loss(micro, generator=generator, **kw)
-                (loss.float() * (loss_scale / grad_accum)).backward()
+                # the half backward sees the whole scale, as each of the JAX
+                # package's microbatches does
+                (loss.float() * loss_scale).backward()
             for k, v in logs.items():
                 if v.ndim == 0:
                     scalars[k] = scalars.get(k, 0.0) + v.detach().float() / grad_accum
@@ -216,10 +220,10 @@ def make_train_step(arch, state: TrainState, fp16: Optional[dict] = None,
         sharding = getattr(state, "sharding", None)
         allreduce_grads(state.params, mesh, None if sharding is None else
                         {p: sharding.axes_of(p) for p in state.params})
-        if loss_scale != 1.0:
+        if loss_scale * grad_accum != 1.0:
             for p in state.params:
                 if p.grad is not None:
-                    p.grad.div_(loss_scale)
+                    p.grad.div_(loss_scale * grad_accum)
         state.apply_gradients()
         scalars = mean_across_hosts(scalars, mesh)
         scalars["_timesteps"] = gather_rows(mesh, torch.cat(timesteps), grad_accum)

@@ -1,8 +1,9 @@
 // Shared pieces of the port's kernels: the C error hook every library
 // exports, exact-erf GELU, the 3xTF32 tensor-core FFN tile that the grouped
 // expert FFN (moe_ffn.cu), the per-head FFN (sffn.cu) and the slot expert
-// FFN (expert_ffn.cu) run, its bf16 counterpart for bf16 inference (K1 and
-// K2), and the split-sequence linear-attention cell of the STMA attention
+// FFN (expert_ffn.cu) run, its 16-bit counterpart (bf16 for bf16 inference
+// of K1 and K2 and for bf16 training's K6, f16 for float16 training's K6),
+// and the split-sequence linear-attention cell of the STMA attention
 // (stma_attention.cu, f32 or bf16 storage) and the generic linear attention
 // (linear_attention.cu) with its thread-block cluster launch.
 //
@@ -16,6 +17,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -304,17 +306,20 @@ __device__ __forceinline__ void ffn_tile_tc(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 operands on the tensor cores (bf16 inference: K1 and K2 run on bf16
-// activations and weights, as the Pallas kernels do under a bf16 cast)
+// 16-bit operands on the tensor cores: bf16 (bf16 inference: K1 and K2 run
+// on bf16 activations and weights, as the Pallas kernels do under a bf16
+// cast; bf16 training's K6) and f16 (float16 training's K6)
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
-// c += a b for one m16n8k16 bf16 tile with f32 accumulation: a holds the A
-// fragment (rows g, g+8; column pairs 2t and 2t+8 of the lane's group
-// g = lane / 4 and t = lane % 4, two bf16 a register, the lower column in
-// the low half), b0/b1 the B fragment (row pairs 2t and 2t+8; column g), c
-// the f32 C fragment (rows g, g+8; columns 2t, 2t+1).  bf16 operands are
-// exact inputs: no split as in 3xTF32.
+// c += a b for one m16n8k16 tile of 16-bit operands T (bf16 or f16) with
+// f32 accumulation: a holds the A fragment (rows g, g+8; column pairs 2t and
+// 2t+8 of the lane's group g = lane / 4 and t = lane % 4, two values a
+// register, the lower column in the low half), b0/b1 the B fragment (row
+// pairs 2t and 2t+8; column g), c the f32 C fragment (rows g, g+8; columns
+// 2t, 2t+1).  16-bit operands are exact inputs: no split as in 3xTF32.  The
+// fragment layouts are the same for both types.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -322,21 +327,28 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+__device__ __forceinline__ void mma_f16(float (&c)[4], const unsigned (&a)[4],
+                                        unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-// Four 8x8 bf16 matrices from shared memory, lane l giving the address of
+// Four 8x8 16-bit matrices from shared memory, lane l giving the address of
 // row l % 8 of matrix l / 8.  Without .trans, lane (g, t) receives row g,
 // columns 2t and 2t+1 of each: with rows r0 + (l & 15) and columns
 // k0 + 8 (l >> 4), the A fragment of a row-major [M][K] tile.  With .trans
 // it receives rows 2t and 2t+1 of column g: with rows k0 + (l & 15) and
 // columns n0 + 8 (l >> 4), the B fragments of two n-tiles (n0, n0 + 8) of a
 // row-major [K][N] tile, r[0..1] and r[2..3].
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -348,15 +360,49 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
 }
+// the same in f16: a value past f16's range (|v| >= 65520) rounds to +-inf,
+// as a cast to float16 does; nothing is clamped
+__device__ __forceinline__ unsigned pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
 
-// The bf16 FFN tile of K1 and K2: TcFfn's structure with bf16 operands.  A
-// CTA of WARPS warps owns BM = 16 WARPS rows; warp w owns rows 16w..16w+15
-// and all D output columns in f32 registers.  w1/w2 stream through shared
-// memory HC hidden columns at a time, double-buffered with cp.async.  Row
-// pitches (in bf16) are 16 bytes past a multiple of 128, so the eight rows
-// an ldmatrix reads fall in distinct banks.
+// What the 16-bit FFN tile needs of its element type: its product, its
+// pair packing and its widening to f32.
+template <class T>
+struct Half16;
+template <>
+struct Half16<bf16> {
+  static __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+    mma_bf16(c, a, b0, b1);
+  }
+  static __device__ __forceinline__ unsigned pack(float lo, float hi) {
+    return pack_bf16(lo, hi);
+  }
+  static __device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+};
+template <>
+struct Half16<f16> {
+  static __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+    mma_f16(c, a, b0, b1);
+  }
+  static __device__ __forceinline__ unsigned pack(float lo, float hi) {
+    return pack_f16(lo, hi);
+  }
+  static __device__ __forceinline__ float widen(f16 v) { return __half2float(v); }
+};
+
+// The 16-bit FFN tile of K1, K2 and K6: TcFfn's structure with bf16 or f16
+// operands.  A CTA of WARPS warps owns BM = 16 WARPS rows; warp w owns rows
+// 16w..16w+15 and all D output columns in f32 registers.  w1/w2 stream
+// through shared memory HC hidden columns at a time, double-buffered with
+// cp.async.  Row pitches (in 16-bit elements) are 16 bytes past a multiple
+// of 128, so the eight rows an ldmatrix reads fall in distinct banks.  The
+// sizes hold for either element type.
 template <int D>
-struct TcFfnBf16 {
+struct TcFfn16 {
   static constexpr int WARPS = D <= 128 ? 8 : 4;  // D = 256: 128 accumulators
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int BM = 16 * WARPS;
@@ -366,41 +412,44 @@ struct TcFfnBf16 {
   static constexpr int SMEM_BYTES = (BM * LDX + 2 * STAGE) * 2;
 };
 
-// out[r, :] = bf16(gelu(x[r, :] @ w1 + b1) @ w2 (+ b2)) for the rows r < rows
-// of one tile, all operands bf16, as the Pallas kernels compute it: both
-// products on mma.sync m16n8k16 with f32 accumulation, b1 and the erf GELU
-// in f32, the hidden rounded to bf16 before the second product (it is then
-// already the second product's A fragment: the C fragment of hidden columns
-// 16s..16s+15 is, lane for lane, the A fragment of k-step s), b2 added in
-// f32 and the output rounded to bf16.  x and out are row-major with row
+// out[r, :] = T(gelu(x[r, :] @ w1 + b1) @ w2 (+ b2)) for the rows r < rows
+// of one tile, all operands of the 16-bit type T (bf16 or f16), as the
+// Pallas kernels compute it: both products on mma.sync m16n8k16 with f32
+// accumulation, b1 and the erf GELU in f32, the hidden rounded to T before
+// the second product (it is then already the second product's A fragment:
+// the C fragment of hidden columns 16s..16s+15 is, lane for lane, the A
+// fragment of k-step s), b2 added in f32 and the output rounded to T (round
+// to nearest: in f16 a hidden or output value past 65504 becomes +-inf, as
+// the Pallas body's astype makes it).  x and out are row-major with row
 // strides ldx and ldo elements; w1 is [D, F], w2 [F, D].  A chunk past F is
 // zero-filled (gelu(0) * 0 = 0).  Rows past `rows` load as zeros from row
 // 0's address and are never stored; a warp whose rows all lie past it skips
 // its products but keeps to every barrier and copy group.  The tensor cores'
-// truncating accumulation costs a few f32 bits, far below the bf16 output's
-// rounding, so no partial sums are kept (TcFfn keeps them for f32).
+// truncating accumulation costs a few f32 bits, far below the 16-bit
+// output's rounding, so no partial sums are kept (TcFfn keeps them for f32).
 //
 // Requires D % 32 == 0, D <= 256, 1 <= rows <= BM, F % 8 == 0,
 // ldx % 8 == ldo % 8 == 0 and 16-byte aligned x, out, w1, w2 (b2 may be
-// null).  smem holds TcFfnBf16<D>::SMEM_BYTES bytes, 16-byte aligned.
-template <int D>
-__device__ __forceinline__ void ffn_tile_bf16(
-    const bf16* __restrict__ x, long ldx, bf16* __restrict__ out, long ldo, int rows,
-    const bf16* __restrict__ w1, const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-    const bf16* __restrict__ b2, int F, bf16* smem) {
-  using C = TcFfnBf16<D>;
+// null).  smem holds TcFfn16<D>::SMEM_BYTES bytes, 16-byte aligned.
+template <int D, class T>
+__device__ __forceinline__ void ffn_tile_16(
+    const T* __restrict__ x, long ldx, T* __restrict__ out, long ldo, int rows,
+    const T* __restrict__ w1, const T* __restrict__ b1, const T* __restrict__ w2,
+    const T* __restrict__ b2, int F, T* smem) {
+  using C = TcFfn16<D>;
+  using H = Half16<T>;
   static_assert(D % 32 == 0 && D <= 256, "D must be a multiple of 32, <= 256");
   constexpr int HC = C::HC, NH = HC / 8, NO = D / 8;
-  bf16* xs = smem;                          // [BM][LDX]
-  bf16* stages = xs + C::BM * C::LDX;       // 2 x ([D][LDW1] w1, [HC][LDW2] w2)
+  T* xs = smem;                          // [BM][LDX]
+  T* stages = xs + C::BM * C::LDX;       // 2 x ([D][LDW1] w1, [HC][LDW2] w2)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int chunks = (F + HC - 1) / HC;
   const bool active = warp * 16 < rows;
 
   auto load_weights = [&](int chunk) {
-    bf16* w1s = stages + (chunk & 1) * C::STAGE;
-    bf16* w2s = w1s + D * C::LDW1;
+    T* w1s = stages + (chunk & 1) * C::STAGE;
+    T* w2s = w1s + D * C::LDW1;
     const int f0 = chunk * HC;
     for (int i = tid; i < D * HC / 8; i += C::THREADS) {
       const int k = i / (HC / 8), j = i % (HC / 8) * 8;
@@ -427,7 +476,7 @@ __device__ __forceinline__ void ffn_tile_bf16(
   for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   // the lane's ldmatrix row and column offsets (see ldmatrix_x4)
   const int lr = lane & 15, lc = (lane >> 4) * 8;
-  const bf16* xa = xs + (warp * 16 + lr) * C::LDX + lc;
+  const T* xa = xs + (warp * 16 + lr) * C::LDX + lc;
 
   for (int chunk = 0; chunk < chunks; ++chunk) {
     if (chunk + 1 < chunks) {
@@ -438,8 +487,8 @@ __device__ __forceinline__ void ffn_tile_bf16(
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* w1s = stages + (chunk & 1) * C::STAGE;
-    const bf16* w2s = w1s + D * C::LDW1;
+    const T* w1s = stages + (chunk & 1) * C::STAGE;
+    const T* w2s = w1s + D * C::LDW1;
 
     if (active) {  // a warp of rows past the edge only keeps to the barriers
       // hidden chunk [16, HC] of the warp's rows: x @ w1[:, f0:f0+HC]
@@ -450,40 +499,40 @@ __device__ __forceinline__ void ffn_tile_bf16(
       for (int k = 0; k < D; k += 16) {
         unsigned a[4];
         ldmatrix_x4(a, xa + k);
-        const bf16* wb = w1s + (k + lr) * C::LDW1 + lc;
+        const T* wb = w1s + (k + lr) * C::LDW1 + lc;
 #pragma unroll
         for (int n = 0; n < NH; n += 2) {
           unsigned b[4];
           ldmatrix_x4_trans(b, wb + 8 * n);
-          mma_bf16(h[n], a, b[0], b[1]);
-          mma_bf16(h[n + 1], a, b[2], b[3]);
+          H::mma(h[n], a, b[0], b[1]);
+          H::mma(h[n + 1], a, b[2], b[3]);
         }
       }
 
       // bias and GELU in f32 on the C fragments (columns f0 + 8n + 2t, + 1),
-      // rounded to bf16 into the A fragments of the second product
+      // rounded to T into the A fragments of the second product
       const int f0 = chunk * HC;
       unsigned ha[NH / 2][4];
 #pragma unroll
       for (int n = 0; n < NH; ++n) {
         const int f = f0 + 8 * n + 2 * t;
-        const float bb0 = f < F ? __bfloat162float(b1[f]) : 0.f;
-        const float bb1 = f + 1 < F ? __bfloat162float(b1[f + 1]) : 0.f;
-        ha[n / 2][(n & 1) * 2] = pack_bf16(gelu_erf(h[n][0] + bb0), gelu_erf(h[n][1] + bb1));
+        const float bb0 = f < F ? H::widen(b1[f]) : 0.f;
+        const float bb1 = f + 1 < F ? H::widen(b1[f + 1]) : 0.f;
+        ha[n / 2][(n & 1) * 2] = H::pack(gelu_erf(h[n][0] + bb0), gelu_erf(h[n][1] + bb1));
         ha[n / 2][(n & 1) * 2 + 1] =
-            pack_bf16(gelu_erf(h[n][2] + bb0), gelu_erf(h[n][3] + bb1));
+            H::pack(gelu_erf(h[n][2] + bb0), gelu_erf(h[n][3] + bb1));
       }
 
-      // out += bf16(hidden chunk) @ w2[f0:f0+HC, :]
+      // out += T(hidden chunk) @ w2[f0:f0+HC, :]
 #pragma unroll
       for (int s = 0; s < NH / 2; ++s) {
-        const bf16* wb = w2s + (16 * s + lr) * C::LDW2 + lc;
+        const T* wb = w2s + (16 * s + lr) * C::LDW2 + lc;
 #pragma unroll
         for (int n = 0; n < NO; n += 2) {
           unsigned b[4];
           ldmatrix_x4_trans(b, wb + 8 * n);
-          mma_bf16(acc[n], ha[s], b[0], b[1]);
-          mma_bf16(acc[n + 1], ha[s], b[2], b[3]);
+          H::mma(acc[n], ha[s], b[0], b[1]);
+          H::mma(acc[n + 1], ha[s], b[2], b[3]);
         }
       }
     }
@@ -491,17 +540,17 @@ __device__ __forceinline__ void ffn_tile_bf16(
   }
 
   const int r_lo = warp * 16 + g;
-  bf16* o = out + r_lo * ldo + 2 * t;
+  T* o = out + r_lo * ldo + 2 * t;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     float lo0 = acc[n][0], lo1 = acc[n][1], hi0 = acc[n][2], hi1 = acc[n][3];
     if (b2) {
-      const float bb0 = __bfloat162float(b2[8 * n + 2 * t]);
-      const float bb1 = __bfloat162float(b2[8 * n + 2 * t + 1]);
+      const float bb0 = H::widen(b2[8 * n + 2 * t]);
+      const float bb1 = H::widen(b2[8 * n + 2 * t + 1]);
       lo0 += bb0, lo1 += bb1, hi0 += bb0, hi1 += bb1;
     }
-    if (r_lo < rows) *reinterpret_cast<unsigned*>(o + 8 * n) = pack_bf16(lo0, lo1);
-    if (r_lo + 8 < rows) *reinterpret_cast<unsigned*>(o + 8 * ldo + 8 * n) = pack_bf16(hi0, hi1);
+    if (r_lo < rows) *reinterpret_cast<unsigned*>(o + 8 * n) = H::pack(lo0, lo1);
+    if (r_lo + 8 < rows) *reinterpret_cast<unsigned*>(o + 8 * ldo + 8 * n) = H::pack(hi0, hi1);
   }
 }
 

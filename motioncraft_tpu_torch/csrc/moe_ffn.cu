@@ -26,7 +26,7 @@
 // before they are staged.
 //
 // bf16 (bf16 inference, the Pallas kernel on bf16 operands): the same grid
-// on common.cuh ffn_tile_bf16, mma.sync m16n8k16 with f32 accumulation, the
+// on common.cuh ffn_tile_16, mma.sync m16n8k16 with f32 accumulation, the
 // hidden rounded to bf16 before the second product and the output stored in
 // bf16.  It moves half the bytes and its bound is the dense bf16 tensor-core
 // rate (989 TFLOP/s), a sixth of the 3xTF32 bound (three passes at 495).
@@ -64,24 +64,24 @@ int launch(const int* be, const float* xs, const float* w1, const float* b1,
 }
 
 template <int D>
-__global__ void __launch_bounds__(mc::TcFfnBf16<D>::THREADS, 1)
+__global__ void __launch_bounds__(mc::TcFfn16<D>::THREADS, 1)
 grouped_ffn_bf16_kernel(const int* __restrict__ block_expert,
                         const mc::bf16* __restrict__ xs, const mc::bf16* __restrict__ w1,
                         const mc::bf16* __restrict__ b1, const mc::bf16* __restrict__ w2,
                         mc::bf16* __restrict__ out, int F) {
-  static_assert(GROUP_ROWS % mc::TcFfnBf16<D>::BM == 0, "a tile spans one block");
+  static_assert(GROUP_ROWS % mc::TcFfn16<D>::BM == 0, "a tile spans one block");
   extern __shared__ __align__(16) unsigned char smem_bytes[];
-  const long row0 = (long)blockIdx.x * mc::TcFfnBf16<D>::BM;
+  const long row0 = (long)blockIdx.x * mc::TcFfn16<D>::BM;
   const int e = block_expert[row0 / GROUP_ROWS];
-  mc::ffn_tile_bf16<D>(xs + row0 * D, D, out + row0 * D, D, mc::TcFfnBf16<D>::BM,
-                       w1 + (long)e * D * F, b1 + (long)e * F, w2 + (long)e * F * D,
-                       nullptr, F, reinterpret_cast<mc::bf16*>(smem_bytes));
+  mc::ffn_tile_16<D, mc::bf16>(xs + row0 * D, D, out + row0 * D, D, mc::TcFfn16<D>::BM,
+                               w1 + (long)e * D * F, b1 + (long)e * F, w2 + (long)e * F * D,
+                               nullptr, F, reinterpret_cast<mc::bf16*>(smem_bytes));
 }
 
 template <int D>
 int launch_bf16(const int* be, const mc::bf16* xs, const mc::bf16* w1, const mc::bf16* b1,
                 const mc::bf16* w2, mc::bf16* out, int m_pad, int F, cudaStream_t stream) {
-  using C = mc::TcFfnBf16<D>;
+  using C = mc::TcFfn16<D>;
   cudaFuncSetAttribute(grouped_ffn_bf16_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
   grouped_ffn_bf16_kernel<D><<<m_pad / C::BM, C::THREADS, C::SMEM_BYTES, stream>>>(

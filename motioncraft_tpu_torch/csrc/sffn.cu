@@ -18,7 +18,7 @@
 // hide.
 //
 // bf16 (bf16 inference, the Pallas kernel on bf16 operands): the same grid
-// on common.cuh ffn_tile_bf16 (mma.sync m16n8k16, f32 accumulation, the
+// on common.cuh ffn_tile_16 (mma.sync m16n8k16, f32 accumulation, the
 // hidden rounded to bf16, b2 added in f32, the output stored in bf16); its
 // bound is the dense bf16 tensor-core rate.
 #include "common.cuh"
@@ -57,27 +57,27 @@ int launch(const float* x, const float* w1, const float* b1, const float* w2,
 }
 
 template <int D>
-__global__ void __launch_bounds__(mc::TcFfnBf16<D>::THREADS, 1)
+__global__ void __launch_bounds__(mc::TcFfn16<D>::THREADS, 1)
 head_ffn_bf16_kernel(const mc::bf16* __restrict__ x, const mc::bf16* __restrict__ w1,
                      const mc::bf16* __restrict__ b1, const mc::bf16* __restrict__ w2,
                      const mc::bf16* __restrict__ b2, mc::bf16* __restrict__ out, int n,
                      int heads, int F) {
   extern __shared__ __align__(16) unsigned char smem_bytes[];
-  constexpr int BM = mc::TcFfnBf16<D>::BM;
+  constexpr int BM = mc::TcFfn16<D>::BM;
   const int h = blockIdx.y;
   const long row0 = (long)blockIdx.x * BM;
   const long ld = (long)heads * D;
   const int rows = n - row0 < BM ? static_cast<int>(n - row0) : BM;
-  mc::ffn_tile_bf16<D>(x + row0 * ld + h * D, ld, out + row0 * ld + h * D, ld, rows,
-                       w1 + (long)h * D * F, b1 + (long)h * F, w2 + (long)h * F * D,
-                       b2 + (long)h * D, F, reinterpret_cast<mc::bf16*>(smem_bytes));
+  mc::ffn_tile_16<D, mc::bf16>(x + row0 * ld + h * D, ld, out + row0 * ld + h * D, ld, rows,
+                               w1 + (long)h * D * F, b1 + (long)h * F, w2 + (long)h * F * D,
+                               b2 + (long)h * D, F, reinterpret_cast<mc::bf16*>(smem_bytes));
 }
 
 template <int D>
 int launch_bf16(const mc::bf16* x, const mc::bf16* w1, const mc::bf16* b1,
                 const mc::bf16* w2, const mc::bf16* b2, mc::bf16* out, int n, int heads,
                 int F, cudaStream_t stream) {
-  using T = mc::TcFfnBf16<D>;
+  using T = mc::TcFfn16<D>;
   cudaFuncSetAttribute(head_ffn_bf16_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
   const dim3 grid((n + T::BM - 1) / T::BM, heads);

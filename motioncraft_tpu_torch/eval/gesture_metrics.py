@@ -2,6 +2,7 @@
 host-side numpy and scipy).
 
   - L1div: mean L1 deviation from the temporal mean pose
+  - SRGR: semantic-relevant gesture recall
   - BeatAlign: audio onsets against motion beats (local minima of joint
     speed) over the upper-body joints, scored by a Gaussian kernel (GAHR)
   - facial L2 (MSE) and LVD (L1 of velocity differences) of the face
@@ -33,6 +34,36 @@ class L1div:
         self.counter += results.shape[0]
         mean = results.mean(axis=0, keepdims=True)
         self.sum += np.abs(results - mean).sum()
+
+    def avg(self):
+        return self.sum / max(self.counter, 1)
+
+    def reset(self):
+        self.counter, self.sum = 0, 0.0
+
+
+class SRGR:
+    """Semantic-relevant gesture recall (EMAGE_2024/utils/metric.py:29-50):
+    the share of joints within ``threshold`` (L1 over xyz) of the target,
+    weighted by each frame's semantic score / 0.165."""
+
+    def __init__(self, threshold: float = 0.1, joints: int = 47):
+        self.threshold = threshold
+        self.joints = joints
+        self.counter = 0
+        self.sum = 0.0
+
+    def run(self, results, targets, semantic):
+        results = np.asarray(results).reshape(-1, self.joints, 3)
+        targets = np.asarray(targets).reshape(-1, self.joints, 3)
+        semantic = np.asarray(semantic).reshape(-1)
+        diff = np.abs(results - targets).sum(axis=2)
+        success = np.where(diff < self.threshold, 1.0, 0.0)
+        success *= semantic[:, None] * (1 / 0.165)
+        rate = success.sum() / (success.shape[0] * success.shape[1])
+        self.counter += success.shape[0]
+        self.sum += rate * success.shape[0]
+        return rate
 
     def avg(self):
         return self.sum / max(self.counter, 1)

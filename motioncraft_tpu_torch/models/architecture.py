@@ -60,11 +60,12 @@ def resolve_device(device=None) -> torch.device:
 
 def exact_f32() -> None:
     """Match the reference's exact f32: no TF32 in matmuls or convolutions;
-    and bf16 products accumulate in f32 throughout, as XLA's do (cuBLAS may
-    otherwise reduce split-K partial sums in bf16)."""
+    and bf16 and f16 products accumulate in f32 throughout, as XLA's do
+    (cuBLAS may otherwise reduce split-K partial sums in bf16 or f16)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 
 @ARCHITECTURES.register_module()

@@ -9,7 +9,9 @@ base).
     around them (``before_proj`` on block 0, ``after_proj`` on each), so that
     at initialisation the branch changes nothing.
   - The condition stream (163-d music features, or raw 16 kHz onset and
-    amplitude through the ``condition_pre_encoder`` WavEncoder) enters
+    amplitude through the ``condition_pre_encoder``: the WavEncoder, or
+    with ``condition_pre_encode_type='wav2vec'`` a Wav2Vec2 tower over the
+    waveform lane interpolated to the window, models/wav2vec.py) enters
     through a zero-initialised input projection (``control_cond_input``),
     is padded or cut to the window, gets the base's sequence embedding over
     its own length, and is injected as ``c_skip`` residuals into base blocks
@@ -60,8 +62,7 @@ trainable (an MCM base has a Linear joint embedding and output, which
 train whole or stay frozen whole); ``init_control_blocks_from_base``
 copies base blocks 0..copy_blocks_num - 1 into the control blocks.
 
-Not ported, and refused: the wav2vec condition pre-encoder and patched
-conditions (``patch_size > 1``).
+Not ported, and refused: patched conditions (``patch_size > 1``).
 """
 
 from __future__ import annotations
@@ -75,8 +76,8 @@ from ..registry import SUBMODULES
 from .baselines import MCMDecoderLayer
 from .blocks import Linear, WavEncoder, ZeroDense
 from .stmogen import STMoGenDecoderLayer
+from .wav2vec import Wav2Vec2Conditioner
 
-S2G_REST = "ROADMAP queue 1: the rest of S2G (wav2vec)"
 ZOO = "ROADMAP queue 1: the rest of the baseline zoo"
 BASE_TYPES = {"stmogen": "STMoGenTransformer", "mcm": "MCMTransformer"}  # block type -> base
 
@@ -136,13 +137,20 @@ class ControlT2MHalf(nn.Module):
             raise NotImplementedError(f"ControlNet with patch_size > 1: PatchEmbed1D ({ZOO})")
         cc = dict(condition_encode_cfg or {})
         cond_width = control_cond_feats
+        self.condition_pre_encode_type = cc.get("condition_pre_encode_type", "wav")
         if cc.get("condition_pre_encode", False):
-            kind = cc.get("condition_pre_encode_type", "wav")
-            if kind != "wav":
-                raise NotImplementedError(f"condition_pre_encode ({kind!r} encoder): {S2G_REST}")
             cond_width = cc.get("condition_latent_dim", 512)
-            self.condition_pre_encoder = WavEncoder(
-                cond_width, audio_in=cc.get("control_cond_feats", control_cond_feats))
+            if self.condition_pre_encode_type == "wav":
+                self.condition_pre_encoder = WavEncoder(
+                    cond_width, audio_in=cc.get("control_cond_feats", control_cond_feats))
+            elif self.condition_pre_encode_type == "wav2vec":
+                # the Wav2Vec2 tower interpolated to the motion frame count
+                # (EMAGE wav2vec.py:72-146 semantics; the reference's
+                # ConditionEncoder reserves the type but raises)
+                self.condition_pre_encoder = Wav2Vec2Conditioner(
+                    cond_width, wav2vec_cfg=cc.get("wav2vec_cfg"))
+            else:
+                raise NotImplementedError(self.condition_pre_encode_type)
         else:
             self.condition_pre_encoder = None
         self.base_model = SUBMODULES.build(base_cfg)
@@ -177,8 +185,9 @@ class ControlT2MHalf(nn.Module):
         return self.base_model.aux_loss_weights()
 
     def encode_condition(self, c, seq_len: int):
-        """The condition [B, Tc, F] (for the WavEncoder, audio samples
-        [B, L, 2]) -> [B, seq_len, latent]: the pre-encoder if any, the
+        """The condition [B, Tc, F] (for the WavEncoder and Wav2Vec2,
+        audio samples [B, L, 2]) -> [B, seq_len, latent]: the pre-encoder
+        if any (Wav2Vec2 interpolates its frames to ``seq_len`` itself), the
         zero-initialised input projection, then padded with zeros or cut to
         ``seq_len``, with the base's sequence embedding added over the
         encoded condition's length.  It depends on no timestep, so sampling
@@ -187,7 +196,8 @@ class ControlT2MHalf(nn.Module):
         f32, holding the bf16-rounded values), as flax promotes an f32
         condition; the caller casts the encoding to the compute dtype."""
         if self.condition_pre_encoder is not None:
-            c = self.condition_pre_encoder(c)
+            c = (self.condition_pre_encoder(c, seq_len)
+                 if self.condition_pre_encode_type == "wav2vec" else self.condition_pre_encoder(c))
         c = self.control_cond_input(c)
         n = min(c.shape[1], seq_len)
         pad = seq_len - c.shape[1]

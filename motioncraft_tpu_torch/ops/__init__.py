@@ -4,12 +4,15 @@ version and a launch counter (``<wrapper>.launches``).
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches its kernel (built from ``csrc/`` at first use) or raises.  K1, K2,
 K3, K5 and K6 have a bf16 instantiation each, with its own wrapper and count
-(``*_bf16``); the f32 wrapper hands bf16 operands on to it.  ``int_mm``,
-the W8A8 int8 product (``torch._int_mm`` on the card, not a kernel of the
-port), counts its launches beside them.
+(``*_bf16``); the f32 wrapper hands bf16 operands on to it.  K6 also has an
+f16 one (``fused_expert_ffn_f16``, float16 training), handed float16
+operands the same way.  ``int_mm``, the W8A8 int8 product
+(``torch._int_mm`` on the card, not a kernel of the port), counts its
+launches beside them.
 """
 
-from .expert_ffn import expert_ffn_plain, fused_expert_ffn, fused_expert_ffn_bf16
+from .expert_ffn import (expert_ffn_plain, fused_expert_ffn, fused_expert_ffn_bf16,
+                         fused_expert_ffn_f16)
 from .linear_attention import (fused_linear_attention, fused_linear_attention_bf16,
                                fused_linear_attention_plain, fused_linear_attention_plain_bf16)
 from .moe_ffn import grouped_ffn, grouped_ffn_bf16, grouped_ffn_plain
@@ -34,6 +37,7 @@ KERNELS = {
     "head_ffn_bf16": (head_ffn_bf16, head_ffn_plain),
     "stma_linear_attention_bf16": (stma_linear_attention_bf16, stma_linear_attention_plain),
     "fused_expert_ffn_bf16": (fused_expert_ffn_bf16, expert_ffn_plain),
+    "fused_expert_ffn_f16": (fused_expert_ffn_f16, expert_ffn_plain),
     "fused_linear_attention_bf16": (fused_linear_attention_bf16,
                                     fused_linear_attention_plain_bf16),
 }

@@ -17,12 +17,20 @@ does materialize the hidden activation.
 
 bf16 operands (bf16 training's text MoEs) launch the kernel's bf16
 instantiation, counted apart as ``fused_expert_ffn_bf16``: K1's bf16 tile
-(common.cuh ffn_tile_bf16) on the same grid, as the Pallas kernel computes
+(common.cuh ffn_tile_16) on the same grid, as the Pallas kernel computes
 on bf16 operands: f32 accumulation, b1 and the GELU in f32, the hidden
 rounded to bf16 before the second product, b2 in f32, the output in bf16.
 Its plain version is the same function on bf16 tensors, which is what the
 reference's einsum pair computes in bf16; its gradient recomputes that in
 bf16, as the custom VJP takes the reference's VJP on the bf16 residuals.
+
+float16 operands (float16 training's text MoEs) launch the f16
+instantiation, counted apart as ``fused_expert_ffn_f16``: the same tile on
+f16 operands (common.cuh ffn_tile_16), the same f32 accumulation, b1, GELU
+and b2, the hidden and the output rounded to nearest f16 (a value past
+65504 becomes +-inf, as the Pallas body's astype makes it).  Its plain
+version and its gradient's recompute are the same function on f16 tensors.
+Any other dtype, or a mix, raises.
 """
 
 from __future__ import annotations
@@ -40,8 +48,13 @@ _fns = {}  # C symbol -> its ctypes function
 
 def expert_ffn_plain(xe, w1, b1, w2, b2):
     """Plain version: the batched product pair over the expert axis, in the
-    operands' dtype."""
-    h = F.gelu(torch.bmm(xe, w1) + b1[:, None, :])
+    operands' dtype.  In float16 a hidden value past f16's range is +inf
+    before the GELU, which keeps it +inf as jax.nn.gelu does (torch's
+    F.gelu makes it NaN)."""
+    pre = torch.bmm(xe, w1) + b1[:, None, :]
+    h = F.gelu(pre)
+    if pre.dtype == torch.float16:
+        h = torch.where(pre == torch.inf, pre, h)
     return torch.bmm(h, w2) + b2[:, None, :]
 
 
@@ -86,6 +99,7 @@ def fused_expert_ffn(xe: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """xe [E, C, D], w1 [E, D, F], b1 [E, F], w2 [E, F, D], b2 [E, D] ->
     [E, C, D].  A CPU tensor takes the plain version; a CUDA tensor launches
     the kernel, its bf16 instantiation (``fused_expert_ffn_bf16``) for bf16
+    operands and its f16 one (``fused_expert_ffn_f16``) for float16
     operands, differentiable through the plain version's gradient."""
     if xe.device.type == "cpu":
         return expert_ffn_plain(xe, w1, b1, w2, b2)
@@ -93,6 +107,8 @@ def fused_expert_ffn(xe: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError(f"fused_expert_ffn: unsupported device {xe.device}")
     if xe.dtype == torch.bfloat16:
         return fused_expert_ffn_bf16(xe, w1, b1, w2, b2)
+    if xe.dtype == torch.float16:
+        return fused_expert_ffn_f16(xe, w1, b1, w2, b2)
     args = _checked("fused_expert_ffn", xe, w1, b1, w2, b2, torch.float32)
     if xe.shape[0] == 0 or xe.shape[1] == 0:
         return torch.empty_like(xe)
@@ -114,7 +130,24 @@ def fused_expert_ffn_bf16(xe: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return with_recomputed_grad(_launch_bf16, expert_ffn_plain, *args)
 
 
+def fused_expert_ffn_f16(xe: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                         w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """``fused_expert_ffn`` on float16 operands (all five), float16 out.  A
+    CPU tensor takes the plain version; a CUDA tensor launches the f16
+    kernel, differentiable through the plain version's gradient in f16."""
+    if xe.device.type == "cpu":
+        return expert_ffn_plain(xe, w1, b1, w2, b2)
+    if xe.device.type != "cuda":
+        raise ValueError(f"fused_expert_ffn_f16: unsupported device {xe.device}")
+    args = _checked("fused_expert_ffn_f16", xe, w1, b1, w2, b2, torch.float16)
+    if xe.shape[0] == 0 or xe.shape[1] == 0:
+        return torch.empty_like(xe)
+    return with_recomputed_grad(_launch_f16, expert_ffn_plain, *args)
+
+
 fused_expert_ffn.launches = 0
 fused_expert_ffn_bf16.launches = 0
+fused_expert_ffn_f16.launches = 0
 _launch_f32 = _launcher("mc_expert_ffn", fused_expert_ffn)
 _launch_bf16 = _launcher("mc_expert_ffn_bf16", fused_expert_ffn_bf16)
+_launch_f16 = _launcher("mc_expert_ffn_f16", fused_expert_ffn_f16)

@@ -29,7 +29,8 @@ decides whether the layers after the call run in bf16 or f32:
     is the Pallas body's order of operations;
   - any operand f32, the others bf16: the bf16 ones widened to f32 (exact)
     into the f32 kernel, f32 out, as ``_reference`` promotes;
-  - anything else (float16, float64, operands on two devices): raise.
+  - anything else (float16: K5 has no f16 instantiation, and no float16
+    training step hands it one; float64; operands on two devices): raise.
 """
 
 from __future__ import annotations
@@ -188,6 +189,9 @@ def fused_linear_attention(q_logits: torch.Tensor, k_logits: torch.Tensor,
     dtypes = {q_logits.dtype, k_logits.dtype, value.dtype}
     if dtypes == {torch.bfloat16}:
         return fused_linear_attention_bf16(q_logits, k_logits, value)
+    if torch.float16 in dtypes:
+        raise ValueError("fused_linear_attention: float16 operands: K5 has no f16 "
+                         "instantiation (ROADMAP queue 2); it takes float32 or bfloat16")
     if not dtypes <= {torch.float32, torch.bfloat16}:
         raise ValueError(f"fused_linear_attention: operands must be float32 or bfloat16, "
                          f"got {sorted(str(t) for t in dtypes)}")

@@ -17,7 +17,8 @@ running_var -> batch_stats mean, var.
 
 The baselines' converters (MCM and its ControlNet, MotionDiffuse, MDM in
 both its namings, FineMoGen, ReMoDiffuse / MoMatMoGen with the retrieval
-encoder) and the HumanML3D / KIT-ML BiGRU evaluator's are here too.  The
+encoder), the HumanML3D / KIT-ML BiGRU evaluator's, the S2G embedding
+model's (VAESKConv) and HuggingFace Wav2Vec2's are here too.  The
 evaluator's modules are torch ones laid out as the reference's, so its
 checkpoint loads by renaming keys.
 """
@@ -194,6 +195,41 @@ def load_smplx_evaluator_ckpt(path: str, motion_module: torch.nn.Module,
     motion, text = convert_smplx_evaluator(load_torch_state_dict(path), num_layers)
     return load_into(motion_module, motion), load_into(text_module, text)
 
+
+
+def convert_vaeskconv(sd: Dict[str, np.ndarray], num_layers: int = 4) -> Tuple[dict, dict]:
+    """EMAGE VAESKConv (``AESKConv_240_100.bin``) -> the flax param trees of
+    the encoder and of fc_mu.  The reference's layout: each encoder layer a
+    Sequential(SkeletonResidual) with ``residual.0`` the masked conv [out,
+    in, k], ``residual.1`` GroupNorm(10), ``shortcut`` the 1x1 masked conv;
+    ``fc_mu`` a Linear.  The neighbourhood masks and pooling matrices are
+    structure, recomputed from the kinematic tree, and skipped (the raw
+    weights are zero outside the mask); the decoder is not needed for the
+    embedding."""
+    def masked_conv(prefix):
+        # MaskedConv1d names its [k, in, out] kernel "weight"
+        c = t_conv1d(sd, prefix)
+        return {"weight": c["kernel"], "bias": c["bias"]}
+
+    enc = {}
+    for i in range(num_layers):
+        p = f"encoder.layers.{i}.0"
+        enc[f"layer_{i}"] = {
+            "conv": masked_conv(f"{p}.residual.0"),
+            "gn": {"scale": sd[f"{p}.residual.1.weight"], "bias": sd[f"{p}.residual.1.bias"]},
+            "shortcut": masked_conv(f"{p}.shortcut"),
+        }
+    return enc, t_linear(sd, "fc_mu")
+
+
+def load_vaeskconv_ckpt(path: str, encoder: torch.nn.Module, fc_mu: torch.nn.Module,
+                        num_layers: int = 4):
+    """Load the EMAGE S2G embedding model's checkpoint (``module.``
+    prefixes dropped) into the port's encoder and fc_mu; returns their two
+    state_dicts."""
+    sd = {k.removeprefix("module."): v for k, v in load_torch_state_dict(path).items()}
+    enc, mu = convert_vaeskconv(sd, num_layers)
+    return load_into(encoder, enc), load_into(fc_mu, mu)
 
 def _renamed(sd, names):
     """The tensors of ``sd`` under each (reference prefix, port prefix) of
@@ -725,3 +761,59 @@ def load_remodiffuse_ckpt(path: str, model: torch.nn.Module, num_layers: int,
     tree = convert_remodiffuse(load_torch_state_dict(path), num_layers, num_motion_layers,
                                retr_text_layers, text_num_layers, clip_layers)
     return load_into(model, tree)
+
+
+
+# --------------------------------------------------------------- wav2vec2
+def _t_weight_norm_conv1d(sd, prefix):
+    """torch ``nn.utils.weight_norm(Conv1d, dim=2)`` (the Wav2Vec2 positional
+    convolution): the folded kernel w = g * v / ||v|| (the norm over the
+    output and input axes, in float64) as a Conv kernel.  Both the legacy
+    ``weight_g`` / ``weight_v`` keys and the parametrize-era
+    ``parametrizations.weight.original0`` / ``original1``."""
+    if _k(prefix, "weight_g") in sd:
+        g, v = sd[_k(prefix, "weight_g")], sd[_k(prefix, "weight_v")]
+    else:
+        g = sd[_k(prefix, "parametrizations.weight.original0")]
+        v = sd[_k(prefix, "parametrizations.weight.original1")]
+    norm = np.sqrt((np.asarray(v, np.float64) ** 2).sum(axis=(0, 1), keepdims=True))
+    w = np.asarray(g) * np.asarray(v) / norm  # [out, in / groups, k]
+    return {"kernel": np.transpose(w, (2, 1, 0)).astype(np.float32),
+            "bias": sd[_k(prefix, "bias")]}
+
+
+def convert_wav2vec2(sd: Dict[str, np.ndarray], num_layers: int = 12,
+                     num_conv_layers: int = 7) -> dict:
+    """A HuggingFace torch Wav2Vec2Model ('group'-norm base layout) -> the
+    flax params of Wav2Vec2Module (models/wav2vec.py).  Reference
+    capability: EMAGE_2024/models/utils/wav2vec.py:72-146."""
+    fe = {"group_norm": t_layernorm(sd, "feature_extractor.conv_layers.0.layer_norm")}
+    for i in range(num_conv_layers):
+        fe[f"conv_{i}"] = t_conv1d(sd, f"feature_extractor.conv_layers.{i}.conv")
+    out = {
+        "feature_extractor": fe,
+        "fp_layer_norm": t_layernorm(sd, "feature_projection.layer_norm"),
+        "fp_projection": t_linear(sd, "feature_projection.projection"),
+        "pos_conv": _t_weight_norm_conv1d(sd, "encoder.pos_conv_embed.conv"),
+        "encoder_layer_norm": t_layernorm(sd, "encoder.layer_norm"),
+    }
+    for i in range(num_layers):
+        p = f"encoder.layers.{i}"
+        out[f"layer_{i}"] = {
+            "attention": {n: t_linear(sd, f"{p}.attention.{n}")
+                          for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "layer_norm": t_layernorm(sd, f"{p}.layer_norm"),
+            "intermediate_dense": t_linear(sd, f"{p}.feed_forward.intermediate_dense"),
+            "output_dense": t_linear(sd, f"{p}.feed_forward.output_dense"),
+            "final_layer_norm": t_layernorm(sd, f"{p}.final_layer_norm"),
+        }
+    return out
+
+
+def load_wav2vec2_params(path: str, module: torch.nn.Module, num_layers: int = 12,
+                         num_conv_layers: int = 7) -> Dict[str, torch.Tensor]:
+    """Load a HuggingFace torch Wav2Vec2Model checkpoint into the port's
+    Wav2Vec2Module (shape-checked, ``strict=True``); returns the state_dict
+    loaded."""
+    tree = convert_wav2vec2(load_torch_state_dict(path), num_layers, num_conv_layers)
+    return load_into(module, tree)

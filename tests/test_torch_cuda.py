@@ -23,6 +23,13 @@ near a rounding boundary may round the other way; K5's also rounds A and
 the query softmax, its plain version the key softmax too.  K5's and K6's
 bf16 gradients recompute the plain version in bf16, so they equal plain
 autograd's to that tolerance too.
+
+K6's f16 instantiation (``fused_expert_ffn_f16``, float16 training) agrees
+with its plain version on f16 operands to one f16 ulp of the largest
+output, 2^-10 x max |plain|; a hidden value past f16's range is +inf in
+both, and so is every output it feeds.  Its gradient recomputes the plain
+version in f16.  The Wav2Vec2 conditioner and VAESKConv (cuDNN convolutions,
+TF32 off) agree with the CPU to 1e-4 of their scale.
 """
 
 import numpy as np
@@ -43,6 +50,7 @@ pytestmark = pytest.mark.cuda
 REL = 1e-5
 GATE_ATOL = 1e-6  # moe_route's gates: a softmax over E terms summed in another order
 REL_BF16 = 1e-2
+REL_F16 = 2.0 ** -10
 
 
 @pytest.fixture
@@ -57,6 +65,8 @@ def _randn(g, *shape, scale=1.0):
 
 
 def _case(name, variant, g):
+    if name.endswith("_f16"):  # K6's f32 case's operands, rounded to f16
+        return [a.to(torch.float16) for a in _case(name[:-4], variant, g)]
     if name.endswith("_bf16"):  # the f32 case's operands, rounded to bf16
         # (K3's 0/1 mask and text flag stay f32, as the models pass them)
         args = _case(name[:-5], variant, g)
@@ -265,32 +275,50 @@ def test_kernel_matches_plain(cuda, name, variant):
         torch.testing.assert_close(got, want, rtol=0, atol=REL * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("name,variant", BF16_CASES, ids=lambda v: str(v))
+# K6's f16 instantiation: the flagship's text slots at B = 32 (float16
+# training's text MoE), a ragged last slot tile, D = 128 and 32
+F16_CASES = [("fused_expert_ffn_f16", (16, 462, 256, 1024)),
+             ("fused_expert_ffn_f16", (3, 37, 256, 1024)),
+             ("fused_expert_ffn_f16", (4, 130, 128, 512)),
+             ("fused_expert_ffn_f16", (2, 40, 32, 128))]
+HALF = {"_bf16": (torch.bfloat16, REL_BF16), "_f16": (torch.float16, REL_F16)}
+
+
+def _half(name):
+    """(the f32 kernel's name, the 16-bit dtype, the tolerance) of a 16-bit
+    instantiation's name."""
+    base, _, suffix = name.rpartition("_")
+    return (base, *HALF[f"_{suffix}"])
+
+
+@pytest.mark.parametrize("name,variant", BF16_CASES + F16_CASES, ids=lambda v: str(v))
 def test_bf16_kernel_matches_plain(cuda, name, variant):
-    """Each bf16 instantiation, reached through its f32 wrapper as the
-    models call it, against its plain version on the same bf16 operands."""
-    wrapper, plain = KERNELS[name[:-5]][0], KERNELS[name][1]
+    """Each 16-bit instantiation (bf16; K6's f16), reached through its f32
+    wrapper as the models call it, against its plain version on the same
+    16-bit operands."""
+    base, dtype, rel = _half(name)
+    wrapper, plain = KERNELS[base][0], KERNELS[name][1]
     args = [a.to(cuda) if torch.is_tensor(a) else a
             for a in _case(name, variant, torch.Generator().manual_seed(0))]
     reset_launch_counts()
     got, want = wrapper(*args), plain(*args)
     torch.cuda.synchronize()
     counts = launch_counts()
-    assert counts[name] == 1 and counts[name[:-5]] == 0
-    assert got.dtype == want.dtype == torch.bfloat16
+    assert counts[name] == 1 and counts[base] == 0
+    assert got.dtype == want.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                               atol=REL_BF16 * float(want.abs().max()))
+                               atol=rel * float(want.float().abs().max()))
 
 
 @pytest.mark.parametrize("name,variant",
                          GRAD_CASES + [c for c in BF16_CASES if c[0] in (
-                             "fused_expert_ffn_bf16", "fused_linear_attention_bf16")],
-                         ids=lambda v: str(v))
+                             "fused_expert_ffn_bf16", "fused_linear_attention_bf16")]
+                         + F16_CASES, ids=lambda v: str(v))
 def test_kernel_gradient_matches_plain(cuda, name, variant):
     wrapper, plain = KERNELS[name]
     g = torch.Generator().manual_seed(1)
     args = [a.to(cuda) for a in _case(name, variant, g)]
-    rel = REL_BF16 if name.endswith("_bf16") else REL
+    rel = _half(name)[2] if name.endswith(("_bf16", "_f16")) else REL
     grads = []
     for fn in (wrapper, plain):
         leaves = [a.clone().requires_grad_(True) for a in args]
@@ -303,6 +331,25 @@ def test_kernel_gradient_matches_plain(cuda, name, variant):
         assert got.dtype == want.dtype
         torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                    atol=rel * float(want.abs().max()))
+
+
+def test_f16_kernel_keeps_an_overflow(cuda):
+    """A hidden unit driven past f16's 65504 (positive: the GELU keeps it)
+    is +inf in the kernel as in the plain version: its slot's outputs are
+    +-inf by the sign of w2's row, at the same places."""
+    from motioncraft_tpu_torch.ops import fused_expert_ffn_f16
+
+    g = torch.Generator().manual_seed(2)
+    xe, w1, b1, w2, b2 = _case("fused_expert_ffn", (2, 40, 32, 128), g)
+    xe[:, 0], w1[:, :, 0], b1[:, 0] = 8.0, 100.0, 70000.0 - 800.0 * 32
+    args = [a.to(torch.float16).to(cuda) for a in (xe, w1, b1, w2, b2)]
+    got, want = fused_expert_ffn_f16(*args).float(), KERNELS["fused_expert_ffn_f16"][1](*args)
+    want = want.float()
+    finite = torch.isfinite(want)
+    assert not torch.isnan(want).any() and not finite[:, 0].any() and finite[:, 1:].all()
+    assert torch.equal(got[~finite], want[~finite])
+    torch.testing.assert_close(got[finite], want[finite], rtol=0,
+                               atol=REL_F16 * float(want[finite].abs().max()))
 
 
 def test_strided_query_is_read_in_place(cuda):
@@ -426,6 +473,44 @@ def test_wav_encoder_alike_on_card_and_cpu(cuda):
         want = enc(wav)
         got = enc.to(cuda)(wav.to(cuda)).cpu()
     assert got.shape == (2, 64, 1536) and torch.isfinite(got).all()
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_wav2vec_conditioner_alike_on_card_and_cpu(cuda):
+    """The Wav2Vec2 conditioner at its full width (base-960h: 7
+    convolutions of 512, 12 layers of 768) on one 64-frame window of 16 kHz
+    audio, interpolated to 64 frames and projected to 1536, seeded
+    fabricated weights: cuDNN's f32 convolutions (TF32 off) and cuBLAS's
+    products against the CPU's."""
+    from motioncraft_tpu_torch.models.architecture import exact_f32
+    from motioncraft_tpu_torch.models.wav2vec import Wav2Vec2Conditioner
+
+    exact_f32()
+    g = torch.Generator().manual_seed(5)
+    wav = torch.randn(2, 64 * 533, 2, generator=g) * 0.3
+    cond = Wav2Vec2Conditioner(1536).eval()
+    cond.load_state_dict(fabricate_state_dict(cond, seed=0), strict=True)
+    with torch.no_grad():
+        want = cond(wav, 64)
+        got = cond.to(cuda)(wav.to(cuda), 64).cpu()
+    assert got.shape == (2, 64, 1536) and torch.isfinite(got).all()
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_vaeskconv_alike_on_card_and_cpu(cuda):
+    """The S2G embedding model (VAESKConv at the reference's settings) on
+    seeded 322-d motions, the same seeded weights on the card and on the
+    CPU: its rot6d conversion, masked convolutions and pooling."""
+    from motioncraft_tpu_torch.eval.s2g_fid import VAESKConv
+
+    g = torch.Generator().manual_seed(6)
+    motion = torch.randn(4, 64, 322, generator=g) * 0.5
+    models = {d: VAESKConv(device=d, seed=3) for d in ("cpu", "cuda")}
+    want = models["cpu"].encode_motion(motion)
+    got = models["cuda"].encode_motion(motion).cpu()
+    assert got.shape == (4, 240) and torch.isfinite(got).all()
     scale = max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= 1e-4 * scale
 

@@ -29,7 +29,10 @@ of the same global batch with JAX's draws (t, noise, cond_type; gate noise
   above: each side rounds its gradients to bf16 once, the ranks their
   halves), K4's positions over the global token list bit for bit, and the
   two ranks' weights equal bit for bit.  On the skewed case the capacity
-  keeps and drops choices of both ranks' tokens.
+  keeps and drops choices of both ranks' tokens.  float16 (``fp16`` with
+  loss scale 8, against one process only; its step against JAX's is
+  tests/test_torch_train_f16.py's) the same way at bf16's limits: the
+  gradients reach the f32 masters widened, and the all-reduce is f32.
 - The tiny S2G ControlNet (configs/tests/tiny_s2g.py, B = 4 with the
   audio condition): loss, updates, and the WavEncoder's BatchNorm running
   statistics against flax's returned ``batch_stats`` of the global batch
@@ -71,10 +74,11 @@ REL, GRAD_REL, GRAD_REL_BF16 = 1e-5, 1e-4, 1e-3
 SAME_REL, SAME_GRAD_REL = 1e-6, 1e-5
 LR, B, T = 1.0, 4, 16
 BF16 = dict(dtype="bfloat16")
+F16 = dict(dtype="float16", loss_scale=8.0)
 # the cases held against JAX; "f32" (a balanced gate, one microbatch) only
 # against one process
 CASES = {"f32": dict(key=11, jax=False), "accum_skewed": dict(key=13, grad_accum=2, skew=True),
-         "bf16": dict(key=14, fp16=BF16)}
+         "bf16": dict(key=14, fp16=BF16), "f16": dict(key=15, fp16=F16, jax=False)}
 JAX_CASES = [n for n, c in CASES.items() if c.get("jax", True)]
 CLIP, S2G_CLIP = ("text_enc/clip",), ("base_model/text_enc/clip",)
 
@@ -154,7 +158,7 @@ def runs(tmp_path_factory):
     cases, want = {}, {}
     for name, c in CASES.items():
         key, ga = jax.random.PRNGKey(c["key"]), c.get("grad_accum", 1)
-        record = {} if c.get("fp16") else None
+        record = {} if c.get("fp16") and name in JAX_CASES else None
         if name in JAX_CASES:
             p1, logs = jax_sharded_step(arch_j, params, batch, key, CLIP, grad_accum=ga,
                                         fp16=c.get("fp16"), skew=c.get("skew", False),
@@ -234,7 +238,8 @@ def test_two_ranks_against_one_process(runs, name):
     assert r0["logs"] == r1["logs"]
     # bf16: each side rounds its gradients to bf16 once, the ranks their
     # halves and one process the whole
-    rel, grad_rel = (REL, GRAD_REL_BF16) if name == "bf16" else (SAME_REL, SAME_GRAD_REL)
+    rel, grad_rel = ((REL, GRAD_REL_BF16) if name in ("bf16", "f16") else
+                     (SAME_REL, SAME_GRAD_REL))
     for key, v in one["logs"].items():
         assert_close_scaled(r0["logs"][key], v, rel, key)
     np.testing.assert_array_equal(r0["timesteps"], one["timesteps"])

@@ -1,4 +1,5 @@
-"""The PyTorch port imports nothing of JAX, flax or the JAX package."""
+"""The PyTorch port imports nothing of JAX, flax or the JAX package, nor
+``transformers`` (which the machine with the card lacks)."""
 
 import pathlib
 import re
@@ -29,13 +30,15 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "tools" / "torch_m2d_visualize.py",
                                         ROOT / "tools" / "torch_s2g_visualize.py",
                                         ROOT / "tools" / "profile_chip_smoke.py",
+                                        ROOT / "tools" / "profile_torch_ffn16.py",
                                         ROOT / "tests" / "torch_dist_ranks.py"]
-FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|motioncraft_tpu)(\.|\s|$)",
-                       re.MULTILINE)
+FORBIDDEN = re.compile(
+    r"^\s*(from|import)\s+(jax|jaxlib|flax|motioncraft_tpu|transformers)(\.|\s|$)",
+    re.MULTILINE)
 
 _BLOCKED = """
 import importlib, importlib.util, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "motioncraft_tpu"):
+for name in ("jax", "jaxlib", "flax", "motioncraft_tpu", "transformers"):
     sys.modules[name] = None  # any import of these raises ImportError
 import motioncraft_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(motioncraft_tpu_torch.__path__,
@@ -100,7 +103,8 @@ for name in ("data", "data.datasets", "eval", "utils.checkpoint", "utils.torch_c
              "ops.quant", "models.baselines", "models.diffusion_transformer",
              "parallel.mesh", "utils.dist_utils", "parallel.tp", "parallel.optim",
              "utils.export", "utils.web_player", "utils.render", "utils.fast_render",
-             "ops.humanml3d", "data.bvh", "data.mocap", "data.prep"):
+             "ops.humanml3d", "data.bvh", "data.mocap", "data.prep", "models.wav2vec",
+             "eval.s2g_fid"):
     assert "motioncraft_tpu_torch." + name in names, name
 print(len(names))
 """

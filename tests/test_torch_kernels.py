@@ -14,6 +14,9 @@ on bf16 operands, ``_ffn_reference`` on them (what the JAX package's CPU
 step computes) and the port's plain version on the same bf16 tensors agree
 to 1e-2 x max |reference|: each rounds the hidden and the output to bf16
 (ulp 3.9e-3 relative), the reference also after each product and bias.
+Its f16 instantiation (float16 training) the same way on float16 operands,
+to one f16 ulp of the largest output, with a case whose hidden overflows
+f16 (the same +-inf everywhere).
 K5 and K6 are also held backward: ``jax.grad`` through their custom VJP
 against torch autograd, to the same tolerance; and the port's
 backward-by-recompute (ops/recompute.py) is driven here with the plain
@@ -41,7 +44,8 @@ from motioncraft_tpu.ops.pallas_sffn import head_ffn_reference
 from motioncraft_tpu.ops.pallas_stma_attention import (
     stma_linear_attention as jax_stma, stma_linear_attention_reference)
 from motioncraft_tpu_torch.ops import (COUNTED, KERNELS, expert_ffn_plain, fused_expert_ffn,
-                                       fused_expert_ffn_bf16, fused_linear_attention,
+                                       fused_expert_ffn_bf16, fused_expert_ffn_f16,
+                                       fused_linear_attention,
                                        fused_linear_attention_bf16,
                                        fused_linear_attention_plain,
                                        fused_linear_attention_plain_bf16,
@@ -56,6 +60,7 @@ from torch_port_util import check_route_invariants, route_logits, tutel_capacity
 
 REL = 1e-5
 BF16_REL = 1e-2  # two bf16 roundings of the hidden and the output, in other places
+F16_REL = 2.0 ** -10  # one f16 ulp of the largest output
 GATE_ATOL = 1e-6  # gates: a softmax over E terms summed in another order
 
 
@@ -342,23 +347,55 @@ def test_k6_expert_ffn(E, C, D, F):
         close(g.numpy(), w)
 
 
-@pytest.mark.parametrize("E,C,D,F", [(3, 37, 128, 512), (2, 70, 256, 1024)])
-def test_k6_bf16_expert_ffn(E, C, D, F):
-    """bf16 operands: Pallas (interpret) == _ffn_reference == the port's
-    plain version, each in bf16; the port's gradient is the plain one's."""
-    jargs = [jnp.asarray(a, jnp.bfloat16) for a in expert_ffn_case(E, C, D, F)]
-    targs = [torch.from_numpy(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
-             for a in jargs]
+def overflowing_ffn_case(E, C, D, F):
+    """expert_ffn_case with slot 0 of every expert driven past f16's range
+    in hidden unit 0 alone (x 8 against w1[:, 0] 100: 800 D >= 25600 at
+    D >= 32, past 65504 at D >= 128 and, with b1, near it below): positive,
+    so the GELU keeps it; its output row is then +-inf by the sign of
+    w2[e, 0, :], the other slots finite."""
+    xe, w1, b1, w2, b2 = expert_ffn_case(E, C, D, F)
+    xe[:, 0] = 8.0
+    w1[:, :, 0] = 100.0
+    b1[:, 0] = 70000.0 - 800.0 * D
+    return xe, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("E,C,D,F,dtype,case", [
+    pytest.param(3, 37, 128, 512, "bfloat16", expert_ffn_case, id="3-37-128-512"),
+    pytest.param(2, 70, 256, 1024, "bfloat16", expert_ffn_case, id="2-70-256-1024"),
+    pytest.param(2, 40, 32, 128, "float16", expert_ffn_case, id="f16-2-40-32-128"),
+    pytest.param(3, 37, 128, 512, "float16", expert_ffn_case, id="f16-3-37-128-512"),
+    pytest.param(2, 40, 32, 128, "float16", overflowing_ffn_case, id="f16-overflow")])
+def test_k6_bf16_expert_ffn(E, C, D, F, dtype, case):
+    """16-bit operands, bf16 (bf16 training) and float16 (float16
+    training): Pallas (interpret) == _ffn_reference == the port's plain
+    version, each in that dtype; the f32 wrapper hands the operands on to
+    the instantiation's wrapper.  bf16 within 1e-2 x max |reference|;
+    float16 within one f16 ulp of the largest output, 2^-10 x max
+    |reference| (each rounds the hidden and the output to f16, the
+    reference also after each product and bias: up to one ulp of the
+    output apart).  A hidden value past f16's 65504 is +inf on every side
+    (the Pallas body's astype, the reference's f16 product; the port's
+    kernel rounds to nearest, no clamp), and so is the output it feeds: the
+    same +-inf positions everywhere, the finite values within the
+    tolerance."""
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    wrapper = fused_expert_ffn_bf16 if dtype == "bfloat16" else fused_expert_ffn_f16
+    jargs = [jnp.asarray(a, jdt) for a in case(E, C, D, F)]
+    targs = [torch.from_numpy(np.asarray(a.astype(jnp.float32))).to(tdt) for a in jargs]
     pallas = pallas_ffn.fused_expert_ffn(*jargs, True)
     ref = pallas_ffn._ffn_reference(*jargs)
-    got = fused_expert_ffn_bf16(*targs)
-    assert pallas.dtype == ref.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    got = wrapper(*targs)
+    assert pallas.dtype == ref.dtype == jdt and got.dtype == tdt
     assert torch.equal(got, fused_expert_ffn(*targs))  # the f32 wrapper hands it on
-    scale = BF16_REL * float(np.abs(np.asarray(ref, np.float32)).max())
-    np.testing.assert_allclose(np.asarray(pallas, np.float32), np.asarray(ref, np.float32),
-                               rtol=0, atol=scale)
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), rtol=0,
-                               atol=scale)
+    want = np.asarray(ref, np.float32)
+    finite = np.isfinite(want)
+    assert not np.isnan(want).any() and finite.any()
+    assert finite.all() == (case is expert_ffn_case)
+    scale = (BF16_REL if dtype == "bfloat16" else F16_REL) * float(np.abs(want[finite]).max())
+    for out in (np.asarray(pallas, np.float32), got.float().numpy()):
+        np.testing.assert_array_equal(out[~finite], want[~finite])
+        np.testing.assert_allclose(out[finite], want[finite], rtol=0, atol=scale)
 
 
 @pytest.mark.parametrize("plain,case", [
@@ -387,6 +424,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     fused_expert_ffn(*(torch.from_numpy(a) for a in expert_ffn_case(1, 3, 32, 32)))
     fused_expert_ffn_bf16(*(torch.from_numpy(a).to(torch.bfloat16)
                             for a in expert_ffn_case(1, 3, 32, 32)))
+    fused_expert_ffn_f16(*(torch.from_numpy(a).to(torch.float16)
+                           for a in expert_ffn_case(1, 3, 32, 32)))
     fused_linear_attention(*(torch.from_numpy(a).to(torch.bfloat16)
                              for a in linear_attention_case(1, 3, 4, 1, 16)))
     int_mm(torch.ones(3, 5, dtype=torch.int8), torch.ones(5, 7, dtype=torch.int8))
@@ -407,8 +446,10 @@ def test_other_devices_raise(name):
             "fused_linear_attention": (meta(1, 2, 2, 16), meta(1, 3, 2, 16),
                                        meta(1, 3, 2, 16)),
             "fused_expert_ffn": (meta(2, 5, 32), meta(2, 32, 64), meta(2, 64),
-                                 meta(2, 64, 32), meta(2, 32))}[name.removesuffix("_bf16")]
-    if name.endswith("_bf16"):  # the bf16 instantiations, on bf16 operands
-        args = tuple(a.to(torch.bfloat16) if a.is_floating_point() else a for a in args)
+                                 meta(2, 64, 32), meta(2, 32))}[
+        name.removesuffix("_bf16").removesuffix("_f16")]
+    half = {"_bf16": torch.bfloat16, "_f16": torch.float16}.get(name[name.rindex("_"):])
+    if half is not None:  # the 16-bit instantiations, on their operands
+        args = tuple(a.to(half) if a.is_floating_point() else a for a in args)
     with pytest.raises(ValueError, match="unsupported device"):
         wrapper(*args)

@@ -11,9 +11,10 @@ learnable tree (tools/make_tiny_data.py --protocol-learnable's layout):
 - the config's fp16 (bf16 compute), model.remat and an optax-default
   optimizer (Adafactor) through --cfg-options: one CLI epoch equals
   train_model called with the same options, its masters f32;
-- each option the port does not train yet is refused (fp16 in float16
-  among them), and so are ReMoDiffuse and MoMatMoGen, which the JAX
-  package's loss cannot train;
+- the config's fp16 in float16: one CLI epoch equals train_model called
+  with the same option;
+- each option the port does not train yet is refused, and so are
+  ReMoDiffuse and MoMatMoGen, which the JAX package's loss cannot train;
 - ControlNet training from a base: the JAX package's tools/train.py trains
   a tiny T2M base (configs/tests/tiny_s2g.py's) and writes params.npz; the
   port's CLI trains configs/tests/tiny_s2g.py on BEAT2 speech windows
@@ -155,6 +156,33 @@ def test_fp16_remat_and_adafactor_through_the_cli(tree, monkeypatch):
     assert losses and np.isfinite(losses).all()
 
 
+
+def test_float16_through_the_cli(tree, monkeypatch):
+    """``fp16`` in float16 through --cfg-options: one CLI epoch equals
+    train_model called with the same option (the same losses and weights),
+    its masters f32 and its losses finite."""
+    monkeypatch.chdir(tree)
+    fp16 = {"dtype": "float16", "loss_scale": 8.0}
+    cli = _train(tree / "f16", "--max-epochs", "1", "--seed", "5", "--cfg-options",
+                 "data.workers_per_gpu=0", f"fp16={fp16!r}")
+    cfg = Config.fromfile(CONFIG)
+    torch.manual_seed(5)
+    arch = build_architecture(cfg.model, device="cpu")
+    loader = build_dataloader(build_dataset(cfg.data["train"]),
+                              samples_per_gpu=cfg.data["samples_per_gpu"], shuffle=True,
+                              seed=5, workers_per_gpu=0)
+    lines = []
+    state = train_model(arch, loader, optimizer_cfg=dict(cfg.optimizer),
+                        lr_config=dict(cfg.lr_config), max_epochs=1,
+                        steps_per_epoch=len(loader), seed=5, fp16=fp16,
+                        log_interval=cfg.log_config["interval"], logger=lines.append)
+    assert state.step == cli.step == 8
+    assert all(v.dtype == torch.float32 for v in cli.model.state_dict().values())
+    _assert_same(arch.model.state_dict(), cli.model.state_dict())
+    losses = [float(ln.split(" loss=")[1].split()[0]) for ln in _loss_lines(tree / "f16")]
+    want = [float(ln.split(" loss=")[1].split()[0]) for ln in lines if " loss=" in ln]
+    assert losses == want and len(losses) == 4 and np.isfinite(losses).all()
+
 def test_params_npz_is_the_flax_tree_and_loads_in_jax(tree, monkeypatch):
     monkeypatch.chdir(tree)
     state = _train(tree / "npz", "--max-epochs", "1", *ONE_THREAD)
@@ -248,17 +276,15 @@ def lmdb_speech_set(tmp_path):
     (["--multihost", "--num-processes", "2"], "need a coordinator address"),
     ([os.path.join(REPO, "configs", "remodiffuse", "remodiffuse_t2m.py")],
      "ROADMAP queue 3: ReMoDiffuse / MoMatMoGen training"),
-    (["--cfg-options", "data.train=LMDB"], "ROADMAP queue 1: the rest of training"),
-    (["--cfg-options", "fp16={'dtype': 'float16', 'loss_scale': 512.0}"],
-     "ROADMAP queue 1: the rest of training")],
+    (["--cfg-options", "data.train=LMDB"], "ROADMAP queue 1: the rest of training")],
     ids=["devices", "tensor-parallel", "pipeline-parallel", "multihost", "coordinator",
-         "remodiffuse", "lmdb-cache", "fp16"])
+         "remodiffuse", "lmdb-cache"])
 def test_options_not_ported_are_refused(argv, item, tmp_path, monkeypatch):
     """What the port does not run is refused: pipeline parallelism with
     tensor parallelism and tensor parallelism across hosts (as
     tools/train.py refuses them; each runs alone within a host:
     tests/test_torch_pipeline_cli.py, tests/test_torch_tp_cli.py), ReMoDiffuse training, an LMDB
-    cache, float16; and of the data-parallel options, more ranks than the
+    cache; and of the data-parallel options, more ranks than the
     host has cards (here one, pretended), --multihost with several ranks a
     process, and a multi-process run without its coordinator."""
     if "cuda" in argv:

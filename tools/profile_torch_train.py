@@ -5,10 +5,10 @@ idle share over the step, the step's wall time and the max memory
 allocated; then whether one step at a larger batch fits the card.
 
     python3 tools/profile_torch_train.py [--batch 32] [--fit 128] [--trace out.json]
-                                         [--fp16] [--remat]
+                                         [--fp16 [bfloat16|float16]] [--remat]
 
-``--fp16`` trains in bf16 against the f32 master parameters (the config's
-``fp16``, ``dict(dtype='bfloat16')``); ``--remat`` rematerializes the
+``--fp16`` trains in bf16 (the bare flag) or float16 against the f32 master
+parameters (the config's ``fp16``, ``dict(dtype=...)``); ``--remat`` rematerializes the
 decoder layers in the backward pass (``model.remat``): the counterparts of
 tools/profile_train.py's flags.
 
@@ -28,8 +28,10 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+# a kernel's label: every substring of its key in the device kernel's name
 OWN = {"expert_ffn_kernel": "K6 fused_expert_ffn",
-       "expert_ffn_bf16_kernel": "K6 fused_expert_ffn_bf16",
+       ("expert_ffn_16_kernel", "bfloat16"): "K6 fused_expert_ffn_bf16",
+       ("expert_ffn_16_kernel", "__half"): "K6 fused_expert_ffn_f16",
        "linear_attention_kernel": "K5 fused_linear_attention",
        "route_kernel<0>": "K4 moe_positions", "route_kernel<16>": "K4 moe_route",
        "route_kernel<64>": "K4 moe_route",
@@ -52,7 +54,9 @@ def main():
     ap.add_argument("--fit", type=int, default=128,
                     help="also run one step at this batch and report whether it fits (0: skip)")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
-    ap.add_argument("--fp16", action="store_true", help="bf16 forward and backward")
+    ap.add_argument("--fp16", nargs="?", const="bfloat16", default=None,
+                    choices=("bfloat16", "float16"),
+                    help="forward and backward in this half type (bare: bfloat16)")
     ap.add_argument("--remat", action="store_true",
                     help="rematerialize the decoder layers (torch.utils.checkpoint)")
     args = ap.parse_args()
@@ -77,7 +81,7 @@ def main():
     arch = build_architecture(cfg["model"], device="cuda")
     arch.model.load_state_dict(fabricate_state_dict(arch.model, seed=0), strict=True)
     state = TrainState(arch.model, cfg["optimizer"])
-    step = make_train_step(arch, state, fp16=dict(dtype="bfloat16") if args.fp16 else None)
+    step = make_train_step(arch, state, fp16=dict(dtype=args.fp16) if args.fp16 else None)
     g = set_random_seed(0, "cuda")
     T = arch.model.max_seq_len
     arch.train()
@@ -112,7 +116,7 @@ def main():
     own = {}
     for name, (us, n) in by_name.items():
         for key, label in OWN.items():
-            if key in name:
+            if all(k in name for k in ((key,) if isinstance(key, str) else key)):
                 own.setdefault(label, [0.0, 0])
                 own[label][0] += us
                 own[label][1] += n

@@ -40,12 +40,13 @@ A resumed epoch draws the batches the uninterrupted run draws when the
 loader has no worker threads (``data.workers_per_gpu=0``): threads take
 the samples' random crops and captions in the order they run.
 The config's ``fp16`` (e.g. ``fp16 = dict(loss_scale=512.)``; the
-compute dtype bfloat16) trains in bf16 against the f32 master parameters,
+compute dtype ``dtype``, bfloat16 by default, or float16) trains in that
+half type against the f32 master parameters,
 ``model.remat`` rematerializes the decoder layers in the backward pass, and
 ``optimizer.type`` may be Adam, AdamW, SGD, Adafactor, AdaBelief or Lamb;
 each also through ``--cfg-options`` (``fp16.loss_scale=8.0
-model.model.remat=True optimizer.type=Adafactor``), as tools/train.py
-passes them.
+model.model.remat=True optimizer.type=Adafactor``, or ``"fp16={'dtype':
+'float16', 'loss_scale': 8.0}"``), as tools/train.py passes them.
 Data parallelism, as tools/train.py's options mean it: ``--devices N``
 trains on N cards of this host, one process a rank (spawned here, NCCL;
 ``--device cpu`` runs N gloo processes on the CPU), the config's
@@ -98,9 +99,9 @@ STMoGenTransformer stacks alone.
 
 Refused rather than ignored: ``--tensor-parallel`` or ``--multihost`` with
 ``--pipeline-parallel``, and ``--tensor-parallel`` with ``--multihost``, in
-tools/train.py's words; fp16 in float16 (an f16 K6, ROADMAP queue 1: the
-rest of training); ReMoDiffuse and MoMatMoGen, which the JAX package's loss
-cannot train (it passes them no retrieval; ROADMAP queue 3).
+tools/train.py's words; an fp16 ``dtype`` other than bfloat16 and
+float16; ReMoDiffuse and MoMatMoGen, which the JAX package's loss cannot
+train (it passes them no retrieval; ROADMAP queue 3).
 """
 
 import argparse
@@ -177,7 +178,7 @@ def check_config(cfg) -> None:
 
         try:
             half_dtype(cfg.fp16)
-        except NotImplementedError as e:
+        except ValueError as e:
             raise SystemExit(f"fp16: {e}")
 
 
