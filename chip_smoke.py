@@ -421,7 +421,25 @@ Phases; any failure exits non-zero:
      one synthetic BEAT2 recording of VIS_S2G_FRAMES (2 windows, --web;
      res_ and gt_ npz files), each run's wall s, denoiser calls, launches
      and idle share (torch.profiler)
- 26. one JSON line of the kernels' numbers, and last the device line
+ 26. the rest of the baseline zoo: three STMoGen variants of the flagship's
+     config at its widths (128 a head, 16 experts top-2, text 256, 4
+     layers, ff 512), seeded fabricated weights, each one CFG DDIM call
+     (ZOO_RESPACE) of ZOO_BATCH requests at T = 196 through
+     MotionDiffusion.sample: V1 motionx with patch_size 2 on the stack and
+     STMA (K3 at T / 2 = 98 patches), the linear top-k gate and a 4-entry
+     ffn_cfg list (F 512, 256, 512, 256); V2 human_ml3d, 8 heads (7 parts +
+     body) with the body graph (the smpl_parts STGCN) and one text head a
+     head (text_latent_dim 32: K5 over 77 + 196 keys in every layer, no
+     K3); V3 human_ml3d with joints (23 heads); a first call records each
+     kernel's arguments at every distinct shape it gives it (K1 and K4's
+     route: the text MoE, layer 0's motion MoE on one CFG half, layers
+     1-3's on both); a second, uninstrumented, has its launches exact (K1
+     and K4's route once a layer for the text MoE, then per step and layer
+     one motion MoE, one SFFN and K3 or K5), a finite sample of the right
+     shape and the call's wall ms; then one launch of each kernel at each
+     recorded shape against its plain version at phase 2's tolerances,
+     with its times
+ 27. one JSON line of the kernels' numbers, and last the device line
 
 The script imports nothing of JAX and nothing of motioncraft_tpu.
 """
@@ -694,6 +712,12 @@ MIX_MOTIONX = dict(motions="motion_data/smplx_322", texts="texts/semantic_labels
                    ann="humanml3d_align_train_val.txt", mean="humanml3d_align_mean.npy",
                    std="humanml3d_align_std.npy")
 BEAT2_DIR = os.path.join("datasets", "beats2", "PantoMatrix", "BEAT2", "beat_english_v2.0.0")
+
+# phase 26: the zoo's STMoGen variants (ZOO_VARIANTS), one DDIM call each of
+# ZOO_BATCH requests at T = 196, respaced to ZOO_RESPACE; every distinct
+# shape of each kernel held against its plain version
+ZOO_BATCH, ZOO_RESPACE = 2, "2,2,2,2,2"
+ZOO_VARIANTS = ("V1", "V2", "V3")
 
 PALLAS = {
     "moe_route": "motioncraft_tpu/ops/pallas_moe.py:54",
@@ -4753,7 +4777,6 @@ def half_train(torch, full_cfg, sd, batches, fp16, f32_step_ms=None, dev="cuda")
     import numpy as np
     from motioncraft_tpu_torch.apis import train_model
     from motioncraft_tpu_torch.apis.train import half_dtype
-    from motioncraft_tpu_torch.models import attentions
     from motioncraft_tpu_torch.ops import launch_counts, reset_launch_counts
     from motioncraft_tpu_torch.registry import build_architecture
 
@@ -4771,24 +4794,21 @@ def half_train(torch, full_cfg, sd, batches, fp16, f32_step_ms=None, dev="cuda")
         lines.append(msg)
         print(f"[{tag}] {msg}")
 
-    k5 = attentions.fused_linear_attention
-
-    def recorded(*args):
-        key = "/".join(str(a.dtype).removeprefix("torch.") for a in args)
-        k5_dtypes[key] = k5_dtypes.get(key, 0) + 1
-        return k5(*args)
+    def recorded(_, k5):
+        def call(*args):
+            key = "/".join(str(a.dtype).removeprefix("torch.") for a in args)
+            k5_dtypes[key] = k5_dtypes.get(key, 0) + 1
+            return k5(*args)
+        return call
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    attentions.fused_linear_attention = recorded
-    try:
+    with kernel_sites(recorded, ("fused_linear_attention",)):
         state = train_model(arch, batches, optimizer_cfg=full_cfg["optimizer"],
                             lr_config=full_cfg["lr_config"], max_epochs=1,
                             steps_per_epoch=TRAIN_STEPS, seed=SEED, log_interval=1, logger=log,
                             fp16=fp16)
-    finally:
-        attentions.fused_linear_attention = k5
     torch.cuda.synchronize()
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -4928,25 +4948,52 @@ def phase_bf16_train(torch, full_cfg, sd, f32_step_ms=None, dev="cuda"):
 
 
 # ---------------------------------------------------------------- phase 21
+def patch_kernel_sites(wrap, names=None):
+    """Point the models' kernel sites (the wrappers that models/moe.py,
+    models/attentions.py and models/blocks.py call, by name; all of them,
+    or those in ``names``) at ``wrap(name, fn)``, ``fn`` the site's current
+    one.  Returns a function that puts them back."""
+    from motioncraft_tpu_torch.models import attentions, blocks, moe
+
+    sites = {"moe_positions_counts": moe, "fused_expert_ffn": moe, "moe_route": moe,
+             "grouped_ffn": moe, "fused_linear_attention": attentions,
+             "stma_linear_attention": attentions, "head_ffn": blocks}
+    old = [(sites[n], n, getattr(sites[n], n)) for n in names or sites]
+    for mod, n, fn in old:
+        setattr(mod, n, wrap(n, fn))
+
+    def restore():
+        for mod, n, fn in old:
+            setattr(mod, n, fn)
+    return restore
+
+
+@contextlib.contextmanager
+def kernel_sites(wrap, names=None):
+    """patch_kernel_sites while the block runs."""
+    restore = patch_kernel_sites(wrap, names)
+    try:
+        yield
+    finally:
+        restore()
+
+
 def cpu_launch_counting():
     """A rehearsal on the CPU: the wrappers count no launches there (they
     run their plain versions), so stand-ins that the models call bump each
-    wrapper's count as its launch would."""
+    wrapper's count as its launch would.  They stay for the process; each
+    wraps the ops module's wrapper, so a second call counts once."""
     from motioncraft_tpu_torch import ops
-    from motioncraft_tpu_torch.models import attentions, blocks, moe
 
-    def counted(wrapper):
+    def counted(name, _):
+        wrapper = getattr(ops, name)
+
         def call(*args, **kwargs):
             wrapper.launches += 1
             return wrapper(*args, **kwargs)
         return call
 
-    for mod, names in ((moe, ("moe_positions_counts", "fused_expert_ffn", "moe_route",
-                              "grouped_ffn")),
-                       (attentions, ("fused_linear_attention", "stma_linear_attention")),
-                       (blocks, ("head_ffn",))):
-        for name in names:
-            setattr(mod, name, counted(getattr(ops, name)))
+    patch_kernel_sites(counted)
 
 
 def dp_device(torch, kind, rank):
@@ -6481,6 +6528,127 @@ def phase_visualize(torch, sd=None, dev="cuda", t2m_config=CONFIG, mcm_config=MC
     return out
 
 
+def zoo_config(cfg, name):
+    """Variant ``name`` of the flagship's model config (``cfg``: the
+    architecture's), at its widths: V1 motionx, patch_size 2 on the stack
+    and STMA, the linear top-k gate, per-layer FFN widths 512 / 256; V2
+    human_ml3d, 8 heads (7 parts + body), the smpl_parts body graph, one
+    text head a head; V3 human_ml3d, 23 joint heads."""
+    import copy
+
+    cfg = copy.deepcopy(cfg)
+    cfg["diffusion_test"]["respace"] = ZOO_RESPACE
+    m = cfg["model"]
+    ca, ffn = m["ca_block_cfg"], m["ffn_cfg"]
+    L = ca["latent_dim"]
+    if name == "V1":
+        m["patch_size"] = ca["patch_size"] = 2
+        ca["gate_type"] = "linear_top"
+        m["ffn_cfg"] = [dict(ffn, ffn_dim=f) for f in (512, 256) * (m["num_layers"] // 2)]
+        return cfg
+    H = 8 if name == "V2" else 23
+    m.update(input_feats=263, latent_dim=L * H)
+    ca["num_heads"] = ffn["num_heads"] = H
+    m["pose_encoder_cfg"].update(dataset_name="human_ml3d", input_dim=263)
+    m["pose_decoder_cfg"].update(dataset_name="human_ml3d", output_dim=263)
+    if name == "V2":
+        m["pose_encoder_cfg"].update(body_graph=True, gnn_cfg=dict(
+            graph_cfg=dict(layout="smpl_parts", mode="spatial"), in_channels=L,
+            base_channels=L, num_stages=2))
+        ca.update(num_text_heads=H, text_latent_dim=ca["text_latent_dim"] // H)
+    else:
+        m["pose_encoder_cfg"]["joints"] = m["pose_decoder_cfg"]["joints"] = True
+    return cfg
+
+
+@contextlib.contextmanager
+def captured_launches(torch):
+    """Record, while it is open, the arguments (cloned) of the first launch
+    at each distinct shape of K1-K5 as the models call them, into {kernel:
+    {shapes: args}}; K1's cases carry how many of their rows carry a choice
+    (the route just before them says)."""
+    seen, route = {}, {}
+
+    def recording(name, fn):
+        def call(*args):
+            out = fn(*args)
+            if name == "moe_route":
+                route["last"] = out
+            key = tuple(tuple(a.shape) if torch.is_tensor(a) else a for a in args)
+            cases = seen.setdefault(name, {})
+            if key not in cases:
+                kept = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+                if name == "grouped_ffn":
+                    r = route["last"]
+                    kept = FfnArgs(kept, int((r.r < r.token_for_rank.numel()).sum()))
+                cases[key] = kept
+            return out
+        return call
+
+    with kernel_sites(recording, ("moe_route", "grouped_ffn", "head_ffn",
+                                  "stma_linear_attention", "fused_linear_attention")):
+        yield seen
+
+
+def phase_zoo(torch, cfg, rows, dev="cuda"):
+    """Phase 26: each variant's DDIM call with exact launches and a finite
+    sample, then its kernels' cases added to the kernels' rows.  Returns
+    {variant: {"counts", "wall_ms"}}."""
+    from motioncraft_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+    from motioncraft_tpu_torch.registry import build_architecture
+    from motioncraft_tpu_torch.utils.convert import fabricate_state_dict
+
+    t_phase = time.perf_counter()
+    out = {}
+    for vi, name in enumerate(ZOO_VARIANTS):
+        vcfg = zoo_config(cfg, name)
+        m = vcfg["model"]
+        t0 = time.perf_counter()
+        with skip_init(torch):
+            arch = build_architecture(vcfg, device=dev)
+        arch.model.load_state_dict(fabricate_state_dict(arch.model, seed=SEED + vi), strict=True)
+        T, D = m["max_seq_len"], m["input_feats"]
+        print(f"[zoo] {name}: built in {time.perf_counter() - t0:.1f} s, "
+              f"{sum(p.numel() for p in arch.parameters()) / 1e6:.1f} M parameters, "
+              f"{m['ca_block_cfg']['num_heads']} heads, patch {m.get('patch_size', 1)}")
+        batch = requests(ZOO_BATCH, SEED + 260 + vi, T, feats=D)
+        # a first call records every kernel's arguments at each distinct
+        # shape; the second, uninstrumented, is the one counted and timed
+        with captured_launches(torch) as seen, torch.no_grad():
+            arch.sample(batch, generator=torch.Generator(device=dev).manual_seed(SEED + vi))
+        g = torch.Generator(device=dev).manual_seed(SEED + vi)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            sample = arch.sample(batch, generator=g)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        steps, layers = arch.diffusion_test.num_timesteps, m["num_layers"]
+        want = dict.fromkeys(counts, 0) | sampling_counts(1, steps, layers)
+        if m["ca_block_cfg"].get("num_text_heads", 1) > 1:  # K5 in place of K3
+            want["fused_linear_attention"] = want.pop("stma_linear_attention")
+            want["stma_linear_attention"] = 0
+        print(f"[zoo] {name}: one DDIM-{steps} call of {ZOO_BATCH} x {T} frames, "
+              f"{wall:.1f} ms wall; launches {counts}")
+        check(counts == want, f"zoo {name} launch counts {counts} != expected {want}")
+        check(tuple(sample.shape) == (ZOO_BATCH, T, D), f"zoo {name} sample {tuple(sample.shape)}")
+        check(bool(torch.isfinite(sample).all()), f"zoo {name}: non-finite sample")
+        print(f"[zoo] {name}: sample finite, max |x| {float(sample.abs().max()):.4g}")
+        out[name] = {"counts": counts, "wall_ms": wall}
+        for kname, cases in seen.items():
+            # in the order the call made them: K1 and K4's route the text
+            # MoE, layer 0's motion MoE (one CFG half), layers 1-3's (both)
+            for j, args in enumerate(cases.values()):
+                # case index 0: kernel_case takes K4's case 1 for a skewed one
+                kernel_case(torch, rows, f"zoo {name} {j}", kname, 0, args, KERNELS[kname])
+        del arch, sample, seen
+        torch.cuda.empty_cache()
+    print(f"[zoo] phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -6588,6 +6756,7 @@ def main():
         "mcm": baselines["mcm_t2m ddim50"]["wall_ms"],
         "finemogen": finemogen["batch"]["wall_ms"]})
     vis = phase_visualize(torch, sd)
+    zoo = phase_zoo(torch, cfg, rows)
 
     for name, row in rows.items():
         # each kernel's count on the path it serves: sampling for K1-K3 and
@@ -6658,6 +6827,8 @@ def main():
         # phase 25: the visualizers (the flagship's DDIM-50 call of 4
         # prompts, MCM's one prompt, the M2D window, the S2G recording)
         row["vis_launches"] = {k: v["counts"][name] for k, v in vis.items()}
+        # phase 26: each zoo variant's DDIM call
+        row["zoo_launches"] = {k: v["counts"][name] for k, v in zoo.items()}
         for case in row["cases"]:
             run = next((v for k, v in MP_PATH_RUNS.items() if case["path"].startswith(k)), None)
             if run is not None:

@@ -1,17 +1,30 @@
-"""Gaussian diffusion schedule tables and the posterior algebra, in PyTorch.
+"""Gaussian diffusion schedule tables and the posterior algebra, in PyTorch
+(port of motioncraft_tpu/diffusion/gaussian.py).
 
-Port of motioncraft_tpu/diffusion/gaussian.py restricted to what DDIM and
-ancestral DDPM sampling (with RePaint's re-noising ``undo`` and the
-outpainting x0 overwrite) and training need.  The tables are derived in float64 on the host (numpy), then cast once
-to float32 tensors on the target device, as the JAX package does.  Timestep
+DDIM and ancestral DDPM sampling (with RePaint's re-noising ``undo`` and
+the outpainting x0 overwrite), the training targets, the learned variances
+(``model_var_type`` ``'learned'`` / ``'learned_range'``: the model output
+carries the log-variance, or its interpolation between the clipped
+posterior and the beta log-variances, after its mean) and the variational
+lower bound (``normal_kl``, ``discretized_gaussian_log_likelihood``,
+``vb_terms_bpd``, ``prior_bpd``, ``calc_bpd_loop``, in bits per dim).
+The tables are derived in float64 on the host (numpy), then cast once to
+float32 tensors on the target device, as the JAX package does.  Timestep
 respacing (SpacedDiffusion) is folded into the tables: ``timestep_map``
 carries respaced -> original indices, and the denoiser always sees
-original-scale timesteps (``model_timesteps``).
+original-scale timesteps (``model_timesteps``; with ``rescale_timesteps``
+scaled to a 1000-step range, as floats).
+
+The learned variance is split off the model output as the JAX package
+splits it: along axis 1 at ``x.shape[1]``.  For motion [B, T, D] that
+axis is time, not the channels (ROADMAP queue 3), so such a model emits
+[B, 2T, D]; the port keeps the JAX package's axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -20,8 +33,7 @@ import torch
 from .schedules import get_named_beta_schedule, space_timesteps
 
 MEAN_TYPES = ("previous_x", "start_x", "epsilon")
-# learned variances and the VLB terms are not ported (ROADMAP queue 1)
-VAR_TYPES = ("fixed_small", "fixed_large")
+VAR_TYPES = ("learned", "fixed_small", "fixed_large", "learned_range")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +53,9 @@ class GaussianDiffusion:
     posterior_mean_coef2: torch.Tensor
     fixed_large_variance: torch.Tensor
     fixed_large_log_variance: torch.Tensor
+    alphas_cumprod_next: torch.Tensor
+    log_one_minus_alphas_cumprod: torch.Tensor
+    log_betas: torch.Tensor
     timestep_map: torch.Tensor  # respaced index -> original timestep (int64)
     # the float32 alphas_cumprod_prev on the host: the samplers read per-step
     # constants from it without a device round trip
@@ -49,6 +64,7 @@ class GaussianDiffusion:
     model_var_type: str = "fixed_large"
     num_timesteps: int = 1000
     original_num_steps: int = 1000
+    rescale_timesteps: bool = False
 
 
 def create_diffusion(
@@ -67,8 +83,6 @@ def create_diffusion(
         raise NotImplementedError(f"model_mean_type {model_mean_type!r}")
     if model_var_type not in VAR_TYPES:
         raise NotImplementedError(f"model_var_type {model_var_type!r}")
-    if rescale_timesteps:
-        raise NotImplementedError("rescale_timesteps")
     if betas is None:
         betas = get_named_beta_schedule(beta_scheduler, diffusion_steps)
     betas = np.asarray(betas, dtype=np.float64)
@@ -119,12 +133,16 @@ def create_diffusion(
             (1.0 - alphas_cumprod_prev) * np.sqrt(alphas) / (1.0 - alphas_cumprod)),
         fixed_large_variance=as_dev(fixed_large_variance),
         fixed_large_log_variance=as_dev(np.log(fixed_large_variance)),
+        alphas_cumprod_next=as_dev(np.append(alphas_cumprod[1:], 0.0)),
+        log_one_minus_alphas_cumprod=as_dev(np.log(1.0 - alphas_cumprod)),
+        log_betas=as_dev(np.log(betas)),
         timestep_map=torch.as_tensor(timestep_map, device=device),
         alphas_cumprod_prev_host=np.asarray(alphas_cumprod_prev, np.float32),
         model_mean_type=model_mean_type,
         model_var_type=model_var_type,
         num_timesteps=len(betas),
         original_num_steps=original_num_steps,
+        rescale_timesteps=rescale_timesteps,
     )
 
 
@@ -148,8 +166,20 @@ def _extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
 
 
 def model_timesteps(d: GaussianDiffusion, t: torch.Tensor) -> torch.Tensor:
-    """Respaced -> original timesteps, as the denoiser sees them."""
-    return d.timestep_map[t]
+    """Respaced -> original timesteps, as the denoiser sees them; with
+    ``rescale_timesteps``, f32 scaled by 1000 / the original step count."""
+    ts = d.timestep_map[t]
+    if d.rescale_timesteps:
+        ts = ts.to(torch.float32) * (1000.0 / d.original_num_steps)
+    return ts
+
+
+def q_mean_variance(d: GaussianDiffusion, x_start, t):
+    """The mean, variance and log-variance of q(x_t | x_0)."""
+    mean = _extract(d.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+    variance = _extract(1.0 - d.alphas_cumprod, t, x_start.ndim)
+    log_variance = _extract(d.log_one_minus_alphas_cumprod, t, x_start.ndim)
+    return mean, variance, log_variance
 
 
 def q_sample(d: GaussianDiffusion, x_start, t, noise):
@@ -202,14 +232,27 @@ def p_mean_variance(d: GaussianDiffusion, model_output: torch.Tensor,
     (RePaint in DDIM; start_x prediction only, as the reference asserts)."""
     if outpainting_mask is not None and d.model_mean_type == "start_x":
         model_output = torch.where(outpainting_mask, outpainting_gt, model_output)
-    if d.model_var_type == "fixed_large":
-        variance = d.fixed_large_variance
-        log_variance = d.fixed_large_log_variance
+    if d.model_var_type in ("learned", "learned_range"):
+        # split along axis 1 at x.shape[1], as the JAX package splits it
+        C = x.shape[1]
+        model_output, var_values = model_output[:, :C], model_output[:, C:]
+        if d.model_var_type == "learned":
+            model_log_variance = var_values
+        else:
+            min_log = _extract(d.posterior_log_variance_clipped, t, x.ndim)
+            max_log = _extract(d.log_betas, t, x.ndim)
+            frac = (var_values + 1) / 2
+            model_log_variance = frac * max_log + (1 - frac) * min_log
+        model_variance = torch.exp(model_log_variance)
     else:
-        variance = d.posterior_variance
-        log_variance = d.posterior_log_variance_clipped
-    model_variance = _extract(variance, t, x.ndim) * torch.ones_like(x)
-    model_log_variance = _extract(log_variance, t, x.ndim) * torch.ones_like(x)
+        if d.model_var_type == "fixed_large":
+            variance = d.fixed_large_variance
+            log_variance = d.fixed_large_log_variance
+        else:
+            variance = d.posterior_variance
+            log_variance = d.posterior_log_variance_clipped
+        model_variance = _extract(variance, t, x.ndim) * torch.ones_like(x)
+        model_log_variance = _extract(log_variance, t, x.ndim) * torch.ones_like(x)
 
     def process_xstart(v):
         if denoised_fn is not None:
@@ -246,3 +289,82 @@ def training_losses(d: GaussianDiffusion,
         target = noise
     mse = ((target - model_output) ** 2).mean(dim=tuple(range(1, x_start.ndim)))
     return {"mse": mse, "target": target, "pred": model_output, "x_t": x_t}
+
+
+def _mean_flat(x):
+    return x.mean(dim=tuple(range(1, x.ndim)))
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL between two Gaussians, in nats (each argument a tensor or a
+    number)."""
+    logvar1, logvar2 = (torch.as_tensor(v, dtype=torch.float32) for v in (logvar1, logvar2))
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + ((mean1 - mean2) ** 2) * torch.exp(-logvar2))
+
+
+def approx_standard_normal_cdf(x):
+    """The tanh approximation of the standard normal CDF."""
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)))
+
+
+def discretized_gaussian_log_likelihood(x, *, means, log_scales):
+    """The log-likelihood of ``x`` (in [-1, 1], 8-bit bins) under a Gaussian
+    discretized to the bins, the edge bins open."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+    log_one_minus_cdf_min = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+    log_cdf_delta = torch.log((cdf_plus - cdf_min).clamp(min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta))
+
+
+def vb_terms_bpd(d: GaussianDiffusion, model_fn: Callable, x_start, x_t, t,
+                 clip_denoised: bool = False) -> Dict[str, torch.Tensor]:
+    """The variational lower bound's term at timesteps ``t`` [B], in bits
+    per dim: the KL of the true posterior from the model's, and at t = 0
+    the decoder's discretized negative log-likelihood."""
+    true_mean, _, true_log_var = q_posterior_mean_variance(d, x_start, x_t, t)
+    out = p_mean_variance(d, model_fn(x_t, model_timesteps(d, t)), x_t, t,
+                          clip_denoised=clip_denoised)
+    kl = _mean_flat(normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"]))
+    decoder_nll = -discretized_gaussian_log_likelihood(
+        x_start, means=out["mean"], log_scales=0.5 * out["log_variance"])
+    decoder_nll = _mean_flat(decoder_nll) / math.log(2.0)
+    return {"output": torch.where(t == 0, decoder_nll, kl / math.log(2.0)),
+            "pred_xstart": out["pred_xstart"]}
+
+
+def prior_bpd(d: GaussianDiffusion, x_start):
+    """The prior's KL term, KL(q(x_T | x_0) || N(0, I)), in bits per dim."""
+    t = torch.full((x_start.shape[0],), d.num_timesteps - 1, dtype=torch.long,
+                   device=x_start.device)
+    qt_mean, _, qt_log_var = q_mean_variance(d, x_start, t)
+    return _mean_flat(normal_kl(qt_mean, qt_log_var, 0.0, 0.0)) / math.log(2.0)
+
+
+def calc_bpd_loop(d: GaussianDiffusion, model_fn: Callable, x_start, randn,
+                  clip_denoised: bool = False) -> Dict[str, torch.Tensor]:
+    """The whole variational lower bound in bits per dim, over every
+    timestep from the last to 0: per timestep the noise (from the draw
+    source ``randn``, in that order), x_t, its VLB term, and the MSEs of
+    the predicted x0 and of the implied noise; ``total_bpd`` [B] is the
+    terms' sum plus the prior's."""
+    B = x_start.shape[0]
+    vb, xstart_mse, mse = [], [], []
+    for step in range(d.num_timesteps - 1, -1, -1):
+        t = torch.full((B,), step, dtype=torch.long, device=x_start.device)
+        noise = randn(x_start.shape).to(x_start.dtype)
+        x_t = q_sample(d, x_start, t, noise)
+        out = vb_terms_bpd(d, model_fn, x_start, x_t, t, clip_denoised)
+        eps = predict_eps_from_xstart(d, x_t, t, out["pred_xstart"])
+        vb.append(out["output"])
+        xstart_mse.append(_mean_flat((out["pred_xstart"] - x_start) ** 2))
+        mse.append(_mean_flat((eps - noise) ** 2))
+    vb, xstart_mse, mse = (torch.stack(v, dim=1) for v in (vb, xstart_mse, mse))  # [B, T]
+    prior = prior_bpd(d, x_start)
+    return {"total_bpd": vb.sum(dim=1) + prior, "prior_bpd": prior,
+            "vb": vb, "xstart_mse": xstart_mse, "mse": mse}

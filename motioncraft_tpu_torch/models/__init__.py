@@ -1,5 +1,6 @@
-from . import attentions  # noqa: F401  (registers STMA, SAMI and the Efficient attentions)
-from . import losses  # noqa: F401  (registers MSELoss)
+from . import attentions  # noqa: F401  (registers STMA, SAMI, the Efficient and Base attentions)
+from . import losses  # noqa: F401  (registers MSELoss, MSELossWithGMOF, GANLoss)
+from . import vae_actor  # noqa: F401  (registers the VAEs, ACTOR and InterCLIP)
 from .architecture import MotionDiffusion  # noqa: F401
 from .baselines import (FineMoGenTransformer, MCMTransformer, MDMTransformer,  # noqa: F401
                         MotionDiffuseTransformer)

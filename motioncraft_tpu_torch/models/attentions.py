@@ -1,6 +1,9 @@
 """STMA, MotionCraft's spatio-temporal MoE attention, and the baselines'
-linear attentions (PyTorch port of the ``STMA`` and ``Efficient{Self,Cross,
-Mixed}Attention`` modules of motioncraft_tpu/models/attentions.py).
+attentions (PyTorch port of motioncraft_tpu/models/attentions.py: STMA,
+SAMI, the semantics-modulated attentions, ``Efficient{Self,Cross,Mixed}
+Attention`` and the quadratic ``Base{Self,Cross,Mixed}Attention``, which the
+JAX package computes with einsums outside any Pallas kernel, as these plain
+ops do).
 
 The Efficient attentions (MotionDiffuse, MCM): LayerNorm, query / key /
 value projections, masked keys and values, kernel K5
@@ -12,12 +15,12 @@ STMA: per-head body-part features -> MoE projections of text (2L lanes:
 key, value) and motion (4L lanes: body value, key, value, query); static
 body graph = learned softmax(H x H) mix of per-part values; dynamic body
 graph = linear self-attention across the H part tokens of each frame; global
-linear attention over the joint text + motion sequence.  At inference that
-attention is kernel K3 (ops/stma_attention.py), on the interleaved layout;
-in training (``train()``) it is the JAX package's training path: the text
-branch computed in the layer, masked keys and values joined along the
-sequence, and the generic linear attention, kernel K5
-(ops/linear_attention.py).  The MoEs' aux losses go to ``aux_losses``.
+linear attention over the joint text + motion sequence.  At inference with
+one text head that attention is kernel K3 (ops/stma_attention.py), on the
+interleaved layout; in training (``train()``), and at inference with one
+text head a head, it is the JAX package's generic path: masked keys and
+values joined along the sequence, and the generic linear attention, kernel
+K5 (ops/linear_attention.py).  The MoEs' aux losses go to ``aux_losses``.
 
 SAMI, FineMoGen's attention: the same text and motion MoEs (text 2L lanes:
 key, value; motion 3L: body value, key, value) and static body graph, a
@@ -53,7 +56,7 @@ from torch import nn
 from ..ops.linear_attention import fused_linear_attention
 from ..ops.stma_attention import NEG_INF, stma_linear_attention
 from ..registry import ATTENTIONS
-from .blocks import LayerNorm, Linear, StylizationBlock, ZeroDense, promote_dtype
+from .blocks import LayerNorm, Linear, StylizationBlock, ZeroDense, dropout, promote_dtype
 from .moe import MOE
 
 
@@ -141,10 +144,10 @@ class EfficientCrossAttention(nn.Module):
 class EfficientMixedAttention(nn.Module):
     """Linear attention of the motion queries over the text and the motion
     tokens joined (text first), each with its own key and value projections
-    and masks, through K5.  Its training with dropout (the key softmax
-    dropped out before the contraction, in the JAX package: inside K5)
-    raises; no config builds this attention (ROADMAP queue 1: the rest of
-    the baseline zoo)."""
+    and masks, through K5.  In training with dropout the key softmax is
+    dropped out before the contraction (from ``generator``), as the JAX
+    package computes it there: the two softmaxes and the contraction in
+    plain ops (its ``linear_attention_core``), no Pallas kernel."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
                  dropout: float = 0.0, time_embed_dim: int = 2048):
@@ -159,7 +162,8 @@ class EfficientMixedAttention(nn.Module):
         self.value_motion = Linear(latent_dim, latent_dim)
         self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
-    def forward(self, x, xf=None, emb=None, src_mask=None, cond_type=None, **kwargs):
+    def forward(self, x, xf=None, emb=None, src_mask=None, cond_type=None, generator=None,
+                **kwargs):
         B, T, D = x.shape
         N, H = xf.shape[1] + T, self.num_heads
         xn, tn = self.norm(x), self.text_norm(xf)
@@ -170,15 +174,132 @@ class EfficientMixedAttention(nn.Module):
                           dim=1).reshape(B, N, H, -1)
         query = self.query(xn).reshape(B, T, H, -1)
         if self.training and self.dropout > 0:
-            raise NotImplementedError("EfficientMixedAttention with dropout in training: "
-                                      "ROADMAP queue 1: the rest of the baseline zoo")
-        y = fused_linear_attention(query, key, value)
+            k_soft = dropout(key.softmax(dim=1), self.dropout, True, generator)
+            att = torch.einsum("bnhd,bnhl->bhdl", k_soft, value)
+            y = torch.einsum("bthd,bhdl->bthl", query.softmax(dim=-1), att)
+        else:
+            y = fused_linear_attention(query, key, value)
         return x + self.proj_out(y.reshape(B, T, D), emb)
+
+
+def _softmax_attention(query, key, value, add_mask):
+    """Softmax attention of query [B, T, H, d] over key / value [B, N, H,
+    d]: logits + ``add_mask`` (broadcast to [B, T, N, H]) softmaxed over
+    the keys."""
+    B, T, H, _ = query.shape
+    attn = torch.einsum("bnhl,bmhl->bnmh", query, key) + add_mask
+    return torch.einsum("bnmh,bmhl->bnhl", attn.softmax(dim=2), value).reshape(B, T, -1)
+
+
+@ATTENTIONS.register_module()
+class BaseSelfAttention(nn.Module):
+    """MotionDiffuse's quadratic (softmax) self-attention: the logits of
+    padded keys at -1e6, their values 0, a stylized residual.  The JAX
+    package computes it with einsums outside any Pallas kernel; so do these
+    plain ops."""
+
+    def __init__(self, latent_dim: int, num_heads: int, dropout: float = 0.0,
+                 time_embed_dim: int = 2048):
+        super().__init__()
+        D = latent_dim
+        self.num_heads = num_heads
+        self.norm = LayerNorm(D)
+        self.query = Linear(D, D)
+        self.key = Linear(D, D)
+        self.value = Linear(D, D)
+        self.proj_out = StylizationBlock(D, time_embed_dim, dropout)
+
+    def forward(self, x, emb=None, src_mask=None, **kwargs):
+        B, T, D = x.shape
+        H = self.num_heads
+        xn = self.norm(x)
+        mask = (1 - src_mask.reshape(B, 1, T, 1)) * NEG_INF
+        y = _softmax_attention(self.query(xn).reshape(B, T, H, -1),
+                               self.key(xn).reshape(B, T, H, -1),
+                               (self.value(xn) * src_mask).reshape(B, T, H, -1), mask)
+        return x + self.proj_out(y, emb)
+
+
+@ATTENTIONS.register_module()
+class BaseCrossAttention(nn.Module):
+    """Quadratic cross-attention of the motion over the text tokens; with
+    ``cond_type`` the text of a row where ``cond_type % 10 == 0`` is masked
+    (logits at -1e6, values 0)."""
+
+    def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
+                 dropout: float = 0.0, time_embed_dim: int = 2048):
+        super().__init__()
+        D = latent_dim
+        self.num_heads = num_heads
+        self.norm = LayerNorm(D)
+        self.text_norm = LayerNorm(text_latent_dim)
+        self.query = Linear(D, D)
+        self.key = Linear(text_latent_dim, D)
+        self.value = Linear(text_latent_dim, D)
+        self.proj_out = StylizationBlock(D, time_embed_dim, dropout)
+
+    def forward(self, x, xf=None, emb=None, cond_type=None, **kwargs):
+        B, T, D = x.shape
+        N, H = xf.shape[1], self.num_heads
+        xn, tn = self.norm(x), self.text_norm(xf)
+        tc = (torch.ones(B, 1, 1, device=x.device) if cond_type is None
+              else _text_cond(cond_type, B))
+        y = _softmax_attention(self.query(xn).reshape(B, T, H, -1),
+                               self.key(tn).reshape(B, N, H, -1),
+                               (self.value(tn) * tc).reshape(B, N, H, -1),
+                               (1 - tc.reshape(B, 1, 1, 1)) * NEG_INF)
+        return x + self.proj_out(y, emb)
+
+
+@ATTENTIONS.register_module()
+class BaseMixedAttention(nn.Module):
+    """Quadratic attention of the motion over the text and the motion tokens
+    joined (text first), masked as EfficientMixedAttention's keys."""
+
+    def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
+                 dropout: float = 0.0, time_embed_dim: int = 2048):
+        super().__init__()
+        D = latent_dim
+        self.num_heads = num_heads
+        self.norm = LayerNorm(D)
+        self.text_norm = LayerNorm(text_latent_dim)
+        self.query = Linear(D, D)
+        self.key_text = Linear(text_latent_dim, D)
+        self.value_text = Linear(text_latent_dim, D)
+        self.key_motion = Linear(D, D)
+        self.value_motion = Linear(D, D)
+        self.proj_out = StylizationBlock(D, time_embed_dim, dropout)
+
+    def forward(self, x, xf=None, emb=None, src_mask=None, cond_type=None, **kwargs):
+        B, T, D = x.shape
+        Nt, H = xf.shape[1], self.num_heads
+        xn, tn = self.norm(x), self.text_norm(xf)
+        tc, sm = _text_cond(cond_type, B), src_mask.reshape(B, T, 1)
+        key = torch.cat([self.key_text(tn), self.key_motion(xn)], dim=1)
+        mask = torch.cat([tc.reshape(B, 1, 1, 1).expand(B, 1, Nt, 1),
+                          src_mask.reshape(B, 1, T, 1)], dim=2)
+        value = torch.cat([self.value_text(tn) * tc, self.value_motion(xn) * sm], dim=1)
+        y = _softmax_attention(self.query(xn).reshape(B, T, H, -1),
+                               key.reshape(B, Nt + T, H, -1),
+                               value.reshape(B, Nt + T, H, -1), (1 - mask) * NEG_INF)
+        return x + self.proj_out(y, emb)
+
+
+def fold_patch_mask(src_mask, patch_size: int):
+    """A frame mask [B, T x p, 1] -> the patch mask [B, T, 1]: a patch is
+    valid only if all its frames are."""
+    B = src_mask.shape[0]
+    return src_mask.reshape(B, -1, patch_size).amin(dim=-1, keepdim=True)
 
 
 @ATTENTIONS.register_module()
 class STMA(nn.Module):
-    """MotionCraft MC-Attn."""
+    """MotionCraft MC-Attn.  With ``patch_size`` p > 1 the stack runs on
+    patches of p frames and the frame mask it is handed folds into a patch
+    mask (``fold_patch_mask``).  ``num_text_heads`` is 1 (the text keys and
+    values shared by every head: K3 at inference) or ``num_heads`` (one
+    text head a body-part head: the joint sequence through K5, as the JAX
+    package takes its generic linear attention there)."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
                  num_text_heads: int, num_experts: int, topk: int,
@@ -189,13 +310,13 @@ class STMA(nn.Module):
                  static_body: bool = True, dynamic_body: bool = False,
                  patch_size: int = 1, expert_axis=None):
         super().__init__()
-        if patch_size != 1:
-            raise NotImplementedError("STMA with patch_size > 1")
-        if num_text_heads != 1:
-            raise NotImplementedError("STMA with more than one text head")
+        if num_text_heads not in (1, num_heads):
+            raise ValueError(f"STMA with {num_text_heads} text heads and {num_heads} heads: "
+                             "one text head or one a head (the JAX package fails on any "
+                             "other count)")
         L, H = latent_dim, num_heads
         self.latent_dim, self.num_heads = L, H
-        self.num_text_heads = num_text_heads
+        self.num_text_heads, self.patch_size = num_text_heads, patch_size
         self.static_body, self.dynamic_body = static_body, dynamic_body
         self.norm = LayerNorm(L)
         self.text_norm = LayerNorm(text_latent_dim)
@@ -249,8 +370,11 @@ class STMA(nn.Module):
             body_feat = torch.cat([body_feat, body_feat], dim=0)
 
         text_cond = ((cond_type % 10) > 0).to(torch.float32).reshape(B, 1, 1)
-        if self.training:
-            tc, mask = text_cond[..., None], src_mask.reshape(B, T, 1, 1)
+        if self.patch_size > 1:
+            src_mask = fold_patch_mask(src_mask, self.patch_size)
+        if self.training or self.num_text_heads > 1:
+            # the text keys of one text head are every head's, or one a head
+            tc, mask = text_cond[..., None].to(x.dtype), src_mask.reshape(B, T, 1, 1)
             TXT = text_feat.shape[1]
             key = torch.cat([
                 (text_feat[..., :L] + (1 - tc) * NEG_INF).expand(B, TXT, H, L),

@@ -297,6 +297,32 @@ class SFFN(nn.Module):
         return qeinsum("bthf,hfd->bthd", y, self.w2, self.w2_scale.squeeze(1)) + self.b2.to(x.dtype)
 
 
+class PatchEmbed1D(nn.Module):
+    """Temporal patchify: [B, T, C] right-padded with zeros to a multiple of
+    ``patch_size`` frames, then a Conv1d of kernel = stride = patch_size
+    (flax's Conv ``proj``, kernel [p, C, D]) -> [B, ceil(T / p), D], with an
+    optional LayerNorm."""
+
+    def __init__(self, in_dim: int, patch_size: int, embed_dim: int, use_norm: bool = False):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = Conv1d(in_dim, embed_dim, patch_size, stride=patch_size)
+        self.norm = LayerNorm(embed_dim) if use_norm else None
+
+    def forward(self, x):
+        pad = (-x.shape[1]) % self.patch_size
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+        y = self.proj(x.transpose(1, 2)).transpose(1, 2)
+        return y if self.norm is None else self.norm(y)
+
+
+def unpatchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """[B, N, p * C] -> [B, N * p, C]: each patch's p frames in order."""
+    B, N, PC = x.shape
+    return x.reshape(B, N * patch_size, PC // patch_size)
+
+
 class FlaxBatchNorm1d(nn.BatchNorm1d):
     """flax's BatchNorm on [B, C, L] (eps 1e-5, momentum 0.99): in eval mode
     the running statistics; in training the batch's, its variance the

@@ -62,7 +62,9 @@ trainable (an MCM base has a Linear joint embedding and output, which
 train whole or stay frozen whole); ``init_control_blocks_from_base``
 copies base blocks 0..copy_blocks_num - 1 into the control blocks.
 
-Not ported, and refused: patched conditions (``patch_size > 1``).
+With ``patch_size`` p > 1 (the base's too) the condition is patched as the
+motion (``condition_patch``, a PatchEmbed1D after the input projection), the
+stack and the step cache run on T / p patches and the output has T frames.
 """
 
 from __future__ import annotations
@@ -74,11 +76,10 @@ from torch import nn
 
 from ..registry import SUBMODULES
 from .baselines import MCMDecoderLayer
-from .blocks import Linear, WavEncoder, ZeroDense
+from .blocks import Linear, PatchEmbed1D, WavEncoder, ZeroDense
 from .stmogen import STMoGenDecoderLayer
 from .wav2vec import Wav2Vec2Conditioner
 
-ZOO = "ROADMAP queue 1: the rest of the baseline zoo"
 BASE_TYPES = {"stmogen": "STMoGenTransformer", "mcm": "MCMTransformer"}  # block type -> base
 
 
@@ -126,15 +127,19 @@ class ControlT2MHalf(nn.Module):
         if BASE_TYPES.get(block_type) != base_type:
             raise NotImplementedError(
                 f"ControlNet of block type {block_type!r} over {base_type}: only "
-                f"{BASE_TYPES} ({ZOO})")
+                f"{BASE_TYPES}, whose copied blocks are their base's own layers")
         self.block_type = block_type
         # training's freezing (controlnet_frozen_prefixes) reads these two
         # from the config; a mode it does not know is refused here
         if unfreeze_mode != "all" and unfreeze_mode not in UNFREEZE_MODE_PARTS:
             raise ValueError(f"unfreeze_mode {unfreeze_mode!r}: 'all' or one of "
                              f"{sorted(UNFREEZE_MODE_PARTS)}")
-        if patch_size > 1:
-            raise NotImplementedError(f"ControlNet with patch_size > 1: PatchEmbed1D ({ZOO})")
+        if patch_size != base_cfg.get("patch_size", 1):
+            raise ValueError(f"ControlNet of patch_size {patch_size} over a base of patch_size "
+                             f"{base_cfg.get('patch_size', 1)}: the condition is patched "
+                             "as the motion only where both agree (the JAX package's "
+                             "output shape breaks on any other pair)")
+        self.patch_size = patch_size
         cc = dict(condition_encode_cfg or {})
         cond_width = control_cond_feats
         self.condition_pre_encode_type = cc.get("condition_pre_encode_type", "wav")
@@ -161,13 +166,17 @@ class ControlT2MHalf(nn.Module):
                              "block injects into the NEXT base block")
         self.copy_blocks_num = copy_blocks_num
         self.condition_cfg_enabled = cc.get("condition_cfg", True)
+        ffn_cfg = base_cfg["ffn_cfg"]
         for i in range(copy_blocks_num):
             self.add_module(f"controlnet_{i}", ControlT2MBlock(
-                base_cfg["ca_block_cfg"], base_cfg["ffn_cfg"], i, base.latent_dim,
-                block_type, base_cfg.get("sa_block_cfg")))
+                base_cfg["ca_block_cfg"],
+                ffn_cfg[i] if isinstance(ffn_cfg, (list, tuple)) else ffn_cfg, i,
+                base.latent_dim, block_type, base_cfg.get("sa_block_cfg")))
         # after a pre-encoder the projection reads its features (flax infers
         # the width)
         self.control_cond_input = ZeroDense(cond_width, base.latent_dim)
+        self.condition_patch = (PatchEmbed1D(base.latent_dim, patch_size, base.latent_dim)
+                                if patch_size > 1 else None)
 
     @property
     def num_layers(self):
@@ -186,9 +195,11 @@ class ControlT2MHalf(nn.Module):
 
     def encode_condition(self, c, seq_len: int):
         """The condition [B, Tc, F] (for the WavEncoder and Wav2Vec2,
-        audio samples [B, L, 2]) -> [B, seq_len, latent]: the pre-encoder
+        audio samples [B, L, 2]) -> [B, seq_len, latent] (``seq_len``: the
+        stack's tokens, patches of ``patch_size`` frames): the pre-encoder
         if any (Wav2Vec2 interpolates its frames to ``seq_len`` itself), the
-        zero-initialised input projection, then padded with zeros or cut to
+        zero-initialised input projection, with ``patch_size`` > 1 the
+        ``condition_patch`` PatchEmbed1D, then padded with zeros or cut to
         ``seq_len``, with the base's sequence embedding added over the
         encoded condition's length.  It depends on no timestep, so sampling
         encodes it once per call (or per chunk of windows).  It runs in f32
@@ -199,6 +210,8 @@ class ControlT2MHalf(nn.Module):
             c = (self.condition_pre_encoder(c, seq_len)
                  if self.condition_pre_encode_type == "wav2vec" else self.condition_pre_encoder(c))
         c = self.control_cond_input(c)
+        if self.condition_patch is not None:
+            c = self.condition_patch(c)
         n = min(c.shape[1], seq_len)
         pad = seq_len - c.shape[1]
         if pad > 0:
@@ -229,9 +242,10 @@ class ControlT2MHalf(nn.Module):
         docstring), on the model's device."""
         base = self.base_model
         dev = next(self.parameters()).device
-        return {"h": torch.zeros((base.num_layers, 2 * B, T, base.latent_dim), dtype=dtype,
+        Tp = T // self.patch_size
+        return {"h": torch.zeros((base.num_layers, 2 * B, Tp, base.latent_dim), dtype=dtype,
                                  device=dev),
-                "c": torch.zeros((self.copy_blocks_num, 2 * B, T, base.latent_dim), dtype=dtype,
+                "c": torch.zeros((self.copy_blocks_num, 2 * B, Tp, base.latent_dim), dtype=dtype,
                                  device=dev)}
 
     def forward(self, motion, timesteps, motion_mask=None, motion_length=None, xf_out=None,
@@ -329,7 +343,7 @@ class ControlT2MHalf(nn.Module):
                 c, c_skip = self.controlnet[i - 1](h, c, **kw)
                 h = h + c_skip
             h = base.call_layer(block, h, **kw)  # rematerialized with the base's remat
-        return base.out(h).reshape(B, T, -1)
+        return base.out(h).reshape(B, T * self.patch_size, -1)
 
     def _forward_mcm(self, h, emb, xf_out, src_mask, c):
         """MCM's test forward: block 0, the control blocks injecting into
@@ -343,7 +357,7 @@ class ControlT2MHalf(nn.Module):
                 c, c_skip = self.controlnet[i - 1](h, c, **kw)
                 h = h + c_skip
             h = block(h, **kw)
-        return base.out(h).reshape(B, T, -1)
+        return base.out(h).reshape(B, T * self.patch_size, -1)
 
 
 def init_control_blocks_from_base(state_dict: dict, copy_blocks_num: int) -> dict:

@@ -158,7 +158,7 @@ class DiffusionTransformerBase(nn.Module):
         return self.text_enc(text_ids, generator=generator)
 
     def _embed(self, motion, timesteps):
-        T = motion.shape[1]
+        T = motion.shape[1] // getattr(self, "patch_size", 1)  # the stack's tokens
         emb = self.time_embed(timestep_embedding(timesteps, self.latent_dim))
         h = self.joint_embed(motion)
         if self.use_pos_embedding:

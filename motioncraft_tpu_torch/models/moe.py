@@ -149,8 +149,25 @@ class CosineTopGate(nn.Module):
         return (proj @ sim.float()) * logit_scale.float()
 
 
+class LinearTopGate(nn.Module):
+    """Tutel's LinearTopKGate: a bias-free Linear (``wg``) to the E logits,
+    computed in f32 whatever the dtype of ``x``, as flax promotes it."""
+
+    def __init__(self, model_dim: int, num_experts: int):
+        super().__init__()
+        self.wg = Linear(model_dim, num_experts, bias=False)
+
+    def forward(self, x):
+        return self.wg(x.float())
+
+
+GATES = {"cosine_top": CosineTopGate, "linear_top": LinearTopGate}
+
+
 class MoELayer(nn.Module):
-    """Top-k expert FFN layer over flat tokens [N, D] -> [N, D]."""
+    """Top-k expert FFN layer over flat tokens [N, D] -> [N, D]; the gate
+    (``gate_type``: the cosine or the linear top-k gate) gives the f32
+    logits that every mode routes."""
 
     mesh = None  # the mesh it computes over (parallel/mesh.py:attach_mesh)
 
@@ -159,8 +176,8 @@ class MoELayer(nn.Module):
                  capacity_factor: float = 1.5, batch_prioritized: bool = True,
                  expert_axis=None):
         super().__init__()
-        if gate_type != "cosine_top":
-            raise NotImplementedError(f"gate_type {gate_type!r}")
+        if gate_type not in GATES:
+            raise ValueError(f"gate_type {gate_type!r}: one of {sorted(GATES)}")
         E, D, Fh = num_experts, model_dim, hidden_dim
         self.num_experts, self.topk = E, topk
         self.capacity_factor = capacity_factor
@@ -169,7 +186,7 @@ class MoELayer(nn.Module):
         # with an expert axis inference takes the slot path, as the JAX
         # package's does (K4's route, then K6 over the slot buffers)
         self.expert_axis = expert_axis
-        self.gate = CosineTopGate(D, E)
+        self.gate = GATES[gate_type](D, E)
         self.expert_w1 = nn.Parameter(torch.randn(E, D, Fh) / math.sqrt(D))
         self.expert_b1 = nn.Parameter(torch.zeros(E, Fh))
         self.expert_w2 = nn.Parameter(torch.randn(E, Fh, D) / math.sqrt(Fh))

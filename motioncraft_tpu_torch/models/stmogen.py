@@ -4,7 +4,15 @@ motioncraft_tpu/models/stmogen.py).
   - PoseEncoder / PoseDecoder: per-body-part linear projections through
     static index tables; the decoder scatters the part heads back through an
     inverse permutation and averages them with the whole-body head, which is
-    added as it is.
+    added as it is.  The variants of the JAX package: ``patch_size`` p > 1
+    (each part a PatchEmbed1D over p frames, the heads emitting p frames a
+    token, the stack and its step cache on T / p patches, STMA folding the
+    frame mask), ``joints`` (a head per joint) and ``body_graph`` (the STGCN
+    of models/gnns.py over the part tokens).
+  - ``ffn_cfg`` is one dict or a list of each layer's (refused with a
+    pipeline axis, as in the JAX package); STMA takes one text head or one
+    a head (K5 over the joint sequence then), its MoEs the cosine or the
+    linear top-k gate.
   - The decoder stack is STMoGenDecoderLayer (a ca_block, STMA or
     FineMoGen's SAMI, + SFFN); every layer gets the CFG-doubled motion
     lengths and ``num_intervals``, which STMA ignores and SAMI reads.
@@ -56,67 +64,108 @@ from torch import nn
 from ..parallel.mesh import PIPE_AXIS
 from ..registry import ATTENTIONS, SUBMODULES
 from . import body_layout
-from .blocks import SFFN, Linear
+from .blocks import SFFN, Linear, PatchEmbed1D, unpatchify
 from .diffusion_transformer import DiffusionTransformerBase
 
 
 class PoseEncoder(nn.Module):
-    """Per-body-part linear embedding plus the whole-body embedding."""
+    """Per-body-part embeddings plus the whole-body embedding, joined along
+    the channels: [B, T, D] -> [B, T', (parts + 1) x latent_dim].  A part
+    is a Linear of its frames' features, or with ``patch_size`` p > 1 a
+    PatchEmbed1D (T' = ceil(T / p)); with ``joints`` each joint of
+    ``body_layout.joint_slices`` is a Linear (``joint_{i}``: the JAX
+    package's joint mode reads no patch size) and the body one of
+    ``joints_body_slice``.  With ``body_graph`` the spatio-temporal GCN
+    ``gnn`` (models/gnns.py, its BatchNorms keeping running statistics)
+    runs over the [B, T', parts + 1, latent_dim] part tokens, on its
+    running statistics even in training (``train``)."""
 
     def __init__(self, dataset_name: str = "human_ml3d", latent_dim: int = 64,
                  input_dim: int = 263, patch_size: int = 1, joints: bool = False,
-                 body_graph: bool = False):
+                 body_graph: bool = False, gnn_cfg: Optional[dict] = None):
         super().__init__()
-        if patch_size != 1 or joints or body_graph:
-            raise NotImplementedError("PoseEncoder with patch_size > 1, joints or body_graph")
-        parts = body_layout.part_slices(dataset_name)
-        body = body_layout.body_slice(dataset_name)
-        if len(set(body)) != input_dim:
-            raise ValueError(f"{dataset_name} body layout does not cover {input_dim} dims")
-        self.names = list(parts)
-        for name, sl in parts.items():
+        self.latent_dim = latent_dim
+        if joints:
+            parts = {f"joint_{i}": sl for i, sl in
+                     enumerate(body_layout.joint_slices(dataset_name))}
+            body = body_layout.joints_body_slice(dataset_name)
+            patch = 1
+        else:
+            parts = {f"{name}_embed": sl
+                     for name, sl in body_layout.part_slices(dataset_name).items()}
+            body = body_layout.body_slice(dataset_name)
+            if len(set(body)) != input_dim:
+                raise ValueError(f"{dataset_name} body layout does not cover {input_dim} dims")
+            patch = patch_size
+        self.names = list(parts) + ["body_embed"]
+        for name, sl in list(parts.items()) + [("body_embed", body)]:
             self.register_buffer(f"{name}_index", torch.as_tensor(sl), persistent=False)
-            self.add_module(f"{name}_embed", Linear(len(sl), latent_dim))
-        self.register_buffer("body_index", torch.as_tensor(body), persistent=False)
-        self.body_embed = Linear(len(body), latent_dim)
+            self.add_module(name, Linear(len(sl), latent_dim) if patch == 1
+                            else PatchEmbed1D(len(sl), patch, latent_dim))
+        self.gnn = None
+        if body_graph:
+            from .gnns import STGCN
+
+            self.gnn = STGCN(**(gnn_cfg or {}))
+            if self.gnn.num_node != len(self.names):
+                raise ValueError(
+                    f"body_graph: the {self.gnn.num_node}-node graph does not fit "
+                    f"{len(self.names)} part tokens (the JAX package fails on it too)")
+
+    def train(self, mode: bool = True):
+        """The body graph stays in eval mode (its running statistics, no
+        dropout) in a model that trains: the JAX package's denoiser calls its
+        PoseEncoder without the train flag, so flax's BatchNorms there never
+        take the batch's statistics."""
+        super().train(mode)
+        if self.gnn is not None:
+            self.gnn.eval()
+        return self
 
     def forward(self, motion):
-        feats = [getattr(self, f"{n}_embed")(motion[..., getattr(self, f"{n}_index")])
-                 for n in self.names]
-        feats.append(self.body_embed(motion[..., self.body_index]))
-        return torch.cat(feats, dim=-1)
+        feat = torch.cat([getattr(self, n)(motion[..., getattr(self, f"{n}_index")])
+                          for n in self.names], dim=-1)
+        if self.gnn is not None:
+            B, T, D = feat.shape
+            feat = self.gnn(feat.reshape(B, T, len(self.names), self.latent_dim)).reshape(B, T, D)
+        return feat
 
 
 class PoseDecoder(nn.Module):
     """Per-part linear heads scattered back through an inverse permutation,
-    averaged with the whole-body head."""
+    averaged with the whole-body head, which is added as it is; with
+    ``patch_size`` p > 1 each head emits p frames a token (unpatchified:
+    [B, T', ...] -> [B, T' x p, ...]); with ``joints`` a head per joint
+    (``joint_{i}``)."""
 
     def __init__(self, dataset_name: str = "human_ml3d", latent_dim: int = 64,
                  output_dim: int = 263, patch_size: int = 1, joints: bool = False,
                  zero_init: bool = True):
         super().__init__()
-        if patch_size != 1 or joints:
-            raise NotImplementedError("PoseDecoder with patch_size > 1 or joints")
-        parts = body_layout.part_slices(dataset_name)
-        self.names = list(parts)
-        self.latent_dim = latent_dim
-        flat = sum(parts.values(), [])
+        if joints:
+            slices = body_layout.joint_slices(dataset_name)
+            self.names = [f"joint_{i}" for i in range(len(slices))]
+        else:
+            parts = body_layout.part_slices(dataset_name)
+            slices = list(parts.values())
+            self.names = [f"{n}_out" for n in parts]
+        self.latent_dim, self.patch_size = latent_dim, patch_size
         self.register_buffer("inv", torch.as_tensor(
-            body_layout.inverse_permutation(flat, output_dim), dtype=torch.long),
+            body_layout.inverse_permutation(sum(slices, []), output_dim), dtype=torch.long),
             persistent=False)
-        for name, sl in parts.items():
-            self.add_module(f"{name}_out", Linear(latent_dim, len(sl)))
-        self.body_out = Linear(latent_dim, output_dim)
+        for name, sl in zip(self.names, slices):
+            self.add_module(name, Linear(latent_dim, patch_size * len(sl)))
+        self.body_out = Linear(latent_dim, patch_size * output_dim)
         if zero_init:
             for p in self.parameters():
                 nn.init.zeros_(p)
 
     def forward(self, motion):
-        D = self.latent_dim
-        outs = [getattr(self, f"{n}_out")(motion[:, :, i * D:(i + 1) * D])
+        D, p = self.latent_dim, self.patch_size
+        outs = [unpatchify(getattr(self, n)(motion[:, :, i * D:(i + 1) * D]), p)
                 for i, n in enumerate(self.names)]
         scattered = torch.cat(outs, dim=-1)[..., self.inv]
-        body = self.body_out(motion[:, :, len(self.names) * D:])
+        body = unpatchify(self.body_out(motion[:, :, len(self.names) * D:]), p)
         return (scattered + body) / 2.0
 
 
@@ -174,10 +223,20 @@ class STMoGenTransformer(DiffusionTransformerBase):
         self.pipeline_axis = pipeline_axis
         self.pipeline_microbatches = int(pipeline_microbatches)
         self.layer_ids = list(range(num_layers))  # the layers this module holds
-        if ca_block_cfg is None or ffn_cfg is None or isinstance(ffn_cfg, (list, tuple)):
-            raise NotImplementedError("STMoGenTransformer needs one ca_block_cfg and "
-                                      "one ffn_cfg for every layer")
-        self.ca_block_cfg, self.ffn_cfg = dict(ca_block_cfg), dict(ffn_cfg)
+        if ca_block_cfg is None or ffn_cfg is None:
+            raise NotImplementedError("STMoGenTransformer needs a ca_block_cfg and an ffn_cfg")
+        per_layer = isinstance(ffn_cfg, (list, tuple))
+        if per_layer and len(ffn_cfg) != num_layers:
+            raise ValueError(f"{len(ffn_cfg)} ffn_cfg entries for {num_layers} layers")
+        if patch_size != ca_block_cfg.get("patch_size", 1):
+            raise ValueError(f"STMoGenTransformer with patch_size {patch_size} over a ca_block "
+                             f"of patch_size {ca_block_cfg.get('patch_size', 1)}: the stack "
+                             "runs on patches only where both agree (the JAX package fails "
+                             "on any other pair)")
+        self.patch_size = patch_size
+        self.ca_block_cfg = dict(ca_block_cfg)
+        # one dict for every layer, or the list of each layer's
+        self.ffn_cfg = [dict(c) for c in ffn_cfg] if per_layer else dict(ffn_cfg)
         self.moe_route_loss_weight = moe_route_loss_weight
         self.cfg_layer0_dedup, self.text_hoist = cfg_layer0_dedup, text_hoist
         self.template_kl_loss_weight = template_kl_loss_weight
@@ -185,7 +244,11 @@ class STMoGenTransformer(DiffusionTransformerBase):
         self.joint_embed = PoseEncoder(**(pose_encoder_cfg or {}), patch_size=patch_size)
         self.out = PoseDecoder(**(pose_decoder_cfg or {}), patch_size=patch_size)
         for i in range(num_layers):
-            self.add_module(f"block_{i}", STMoGenDecoderLayer(ca_block_cfg, ffn_cfg))
+            self.add_module(f"block_{i}", STMoGenDecoderLayer(ca_block_cfg, self.layer_ffn_cfg(i)))
+
+    def layer_ffn_cfg(self, i: int) -> dict:
+        """Layer i's ffn_cfg: its entry of a per-layer list, or the one."""
+        return self.ffn_cfg[i] if isinstance(self.ffn_cfg, list) else self.ffn_cfg
 
     def scale_func(self, timestep: torch.Tensor):
         """Timestep-dependent CFG weights (text, unconditional)."""
@@ -239,7 +302,8 @@ class STMoGenTransformer(DiffusionTransformerBase):
         from ..utils.dist_utils import all_reduce_sum
 
         mesh = self.mesh
-        if train and (self.ca_block_cfg.get("dropout", 0.0) or self.ffn_cfg.get("dropout", 0.0)):
+        if train and (self.ca_block_cfg.get("dropout", 0.0)
+                      or self.layer_ffn_cfg(0).get("dropout", 0.0)):
             raise ValueError("pipeline_axis training path does not thread "
                              "dropout rngs; set dropout=0")
         M = self.pipeline_microbatches
@@ -308,15 +372,16 @@ class STMoGenTransformer(DiffusionTransformerBase):
                       num_intervals: int = 1, generator=None, aux_losses=None,
                       kl_losses=None):
         B, T = h.shape[:2]
+        T_out = T * self.patch_size
         if self.pipeline_axis is not None:
             h = self._pipeline(h, xf_out, emb, src_mask, cond_type, motion_length,
                                num_intervals, True, generator, aux_losses, kl_losses)
-            return self._decode(h, True).reshape(B, T, -1)
+            return self._decode(h, True).reshape(B, T_out, -1)
         for block in self.blocks:
             h = self.call_layer(block, h, xf_out, emb, src_mask, cond_type, motion_length,
                                 num_intervals, generator=generator, aux_losses=aux_losses,
                                 kl_losses=kl_losses)
-        return self.out(h).reshape(B, T, -1)
+        return self.out(h).reshape(B, T_out, -1)
 
     def precompute_text_feats(self, xf_out):
         """Per-layer text features [2B, 77, 1, 2L], computed once per sampling
@@ -342,7 +407,7 @@ class STMoGenTransformer(DiffusionTransformerBase):
         """Decode the doubled batch and mix its halves by scale_func, in f32
         (a bf16 stack's output meets f32 weights there, as in flax)."""
         B2, T = h2.shape[:2]
-        out = self.out(h2).reshape(B2, T, -1).float()
+        out = self.out(h2).reshape(B2, T * self.patch_size, -1).float()
         text_coef, none_coef = self.scale_func(timesteps[0])
         return out[:B2 // 2] * text_coef + out[B2 // 2:] * none_coef
 
@@ -350,11 +415,12 @@ class STMoGenTransformer(DiffusionTransformerBase):
     supports_step_cache = True
 
     def make_step_cache(self, B: int, T: int, dtype=torch.float32) -> torch.Tensor:
-        """The zero per-layer residual cache of the CFG-doubled test forward,
-        [num_layers, 2B, T, latent_dim] on the model's device: step 0 of any
-        schedule computes every layer (the reuse tables enforce it)."""
-        return torch.zeros((self.num_layers, 2 * B, T, self.latent_dim), dtype=dtype,
-                           device=next(self.parameters()).device)
+        """The zero per-layer residual cache of the CFG-doubled test forward
+        of ``T`` frames, [num_layers, 2B, T / patch_size, latent_dim] on the
+        model's device: step 0 of any schedule computes every layer (the
+        reuse tables enforce it)."""
+        return torch.zeros((self.num_layers, 2 * B, T // self.patch_size, self.latent_dim),
+                           dtype=dtype, device=next(self.parameters()).device)
 
     def forward_test(self, h, src_mask, emb, xf_out, motion_length=None,
                      timesteps=None, text_feats=None, step_cache=None, cache_flags=None,

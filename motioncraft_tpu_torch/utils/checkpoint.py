@@ -160,6 +160,16 @@ def align_block_layout(model_cfg: dict, tree):
     return new
 
 
+def ffn_heads(model_cfg: dict) -> int:
+    """The head count of a denoiser config's ffn_cfg (of its first entry
+    where it is a per-layer list: the reference's is the same in every
+    layer)."""
+    ffn = model_cfg.get("ffn_cfg", {})
+    if isinstance(ffn, (list, tuple)):
+        ffn = ffn[0] if ffn else {}
+    return ffn.get("num_heads", 1)
+
+
 def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None,
                         torch_checkpoint=None) -> Optional[Dict[str, torch.Tensor]]:
     """Load evaluation weights into ``model`` (the denoiser): a reference
@@ -175,9 +185,8 @@ def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None
         bm = sub["base_model"]
         te = bm.get("text_encoder", {})
         return load_controlnet_ckpt(torch_checkpoint, model, bm["num_layers"],
-                                    bm.get("ffn_cfg", {}).get("num_heads", 1),
-                                    sub.get("copy_blocks_num", 2), te.get("num_layers", 2),
-                                    te.get("clip_layers", 12),
+                                    ffn_heads(bm), sub.get("copy_blocks_num", 2),
+                                    te.get("num_layers", 2), te.get("clip_layers", 12),
                                     block_type="mcm" if "MCM" in sub["type"] else "stmogen")
     if torch_checkpoint:
         from . import torch_convert as tc
@@ -194,8 +203,8 @@ def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None
                                     sub.get("clip_layers", 12))
         if sub["type"] == "FineMoGenTransformer":
             return tc.load_finemogen_ckpt(torch_checkpoint, model, sub["num_layers"],
-                                          sub.get("ffn_cfg", {}).get("num_heads", 1),
-                                          te.get("num_layers", 2), te.get("clip_layers", 12))
+                                          ffn_heads(sub), te.get("num_layers", 2),
+                                          te.get("clip_layers", 12))
         if sub["type"] in ("ReMoDiffuseTransformer", "MoMatMoGenTransformer"):
             rc = sub.get("retrieval_cfg", {})
             return tc.load_remodiffuse_ckpt(torch_checkpoint, model, sub["num_layers"],
@@ -204,11 +213,11 @@ def load_eval_variables(model_cfg: dict, model: torch.nn.Module, checkpoint=None
                                             te.get("clip_layers", 12))
         if sub["type"] != "STMoGenTransformer":
             raise NotImplementedError(
-                f"reference checkpoints of {sub['type']}: the other families' converters "
-                "(ROADMAP queue 1: the rest of the baseline zoo)")
-        ffn = sub.get("ffn_cfg", {})
+                f"reference checkpoints of {sub['type']}: no converter reads them (the JAX "
+                "package hands any other family to its STMoGen converter, whose tree no "
+                "VAE, ACTOR or InterCLIP model has)")
         return tc.load_stmogen_ckpt(torch_checkpoint, model, sub["num_layers"],
-                                    ffn.get("num_heads", 1), te.get("num_layers", 2),
+                                    ffn_heads(sub), te.get("num_layers", 2),
                                     te.get("clip_layers", 12))
     if checkpoint:
         tree = align_block_layout(model_cfg, load_params(checkpoint))

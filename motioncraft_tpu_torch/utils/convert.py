@@ -6,6 +6,8 @@ The port's modules carry the flax module and parameter names, so flax
 
   - ``Dense.kernel`` [in, out]      -> ``Linear.weight`` [out, in]
   - ``Conv.kernel`` [k, in, out]    -> ``Conv1d.weight`` [out, in, k]
+    (a 2-d Conv's [kh, kw, in, out] -> ``Conv2d.weight`` [out, in, kw, kh]:
+    the body graph's temporal convs, models/gnns.py)
   - ``LayerNorm.scale`` / ``BatchNorm.scale`` -> ``weight``
   - ``Embed.embedding`` (token_embedding, and the evaluator's
     word_embeddings / position_embeddings) -> ``Embedding.weight``
@@ -25,7 +27,7 @@ input, ``hr hz hn`` on the hidden, the hidden r / z biases folded into
 n); ``bigru_from_jax_params`` maps such a tree.
 
 ``to_jax_variables`` is the exact inverse (``num_batches_tracked``, which
-flax does not keep, left out): a 3-d ``weight`` is a Conv1d's, a 2-d one a
+flax does not keep, left out): a 3- or 4-d ``weight`` is a conv's, a 2-d one a
 Linear's (or, under one of the embedding names, an Embedding's), a 1-d one
 a norm's scale.  ``from_jax_params`` / ``to_jax_params`` carry ``params``
 alone.  A ``_scale`` / ``_wscale`` entry of a quantized model goes back to the
@@ -81,7 +83,7 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
 
     def visit(path, key, a):
-        if key == "kernel":  # Dense [in, out] or Conv [k, in, out]: reverse the axes
+        if key == "kernel":  # Dense [in, out] or Conv [..., in, out]: reverse the axes
             key, a = "weight", np.transpose(a)
         elif key == "scale" or (key == "embedding" and path and path[-1] in EMBEDDINGS):
             key = "weight"
@@ -117,7 +119,7 @@ def flax_leaf(name: str, ndim: int):
     if key == "weight":
         if parents and parents[-1] in EMBEDDINGS:
             key = "embedding"
-        elif ndim in (2, 3):
+        elif ndim in (2, 3, 4):
             key, dims = "kernel", tuple(reversed(dims))
         elif ndim == 1:
             key = "scale"
@@ -187,7 +189,7 @@ def fabricate_state_dict(model: torch.nn.Module, seed: int = 0) -> Dict[str, tor
     """Seeded random weights for every parameter and BatchNorm statistic of
     ``model`` (on the CPU), with magnitudes tamed so a deep stack of random
     layers stays in a sane numeric range: each tensor is N(0, 1) /
-    sqrt(fan-in) (a Conv1d's fan-in is in x k); the gate temperatures are 0
+    sqrt(fan-in) (a conv's fan-in is in x its kernel's size); the gate temperatures are 0
     (logit scale 1) and the MoE position embeddings are scaled up by 8, so
     routing spreads across the experts; SAMI's kernel widths ``sigma`` and
     ``t_sigma`` keep the model's values (100 and 1 as built: a random width
@@ -211,8 +213,8 @@ def fabricate_state_dict(model: torch.nn.Module, seed: int = 0) -> Dict[str, tor
             continue
         if leaf in ("expert_w1", "expert_w2", "w1", "w2"):
             fan_in = shape[-2]
-        elif leaf == "weight" and len(shape) == 3:  # Conv1d [out, in, k]
-            fan_in = shape[1] * shape[2]
+        elif leaf == "weight" and len(shape) in (3, 4):  # a conv's [out, in, k...]
+            fan_in = math.prod(shape[1:])
         else:
             fan_in = shape[-1]
         v = torch.randn(shape, generator=g) / math.sqrt(max(fan_in, 4))

@@ -369,14 +369,16 @@ def t_sffn(sd, prefix, num_heads):
 
 
 def t_pose_io(sd, prefix, suffix):
-    """PoseEncoder/Decoder: one Linear per body part (the port has no
-    PatchEmbed1D, patch_size > 1)."""
+    """PoseEncoder/Decoder: one Linear per body part, or with patch_size > 1
+    a PatchEmbed1D's conv (``{part}_embed.proj``)."""
     parts = {}
     for name in ("head", "stem", "larm", "rarm", "lleg", "rleg", "root",
                  "trans", "face", "lhand", "rhand", "body"):
         key = _k(prefix, f"{name}_{suffix}")
         if f"{key}.weight" in sd:
             parts[f"{name}_{suffix}"] = t_linear(sd, key)
+        elif f"{key}.proj.weight" in sd:  # PatchEmbed1D
+            parts[f"{name}_{suffix}"] = {"proj": t_conv1d(sd, f"{key}.proj")}
     return parts
 
 

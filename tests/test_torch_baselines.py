@@ -296,10 +296,26 @@ def test_efficient_mixed_attention():
 
 
 def test_efficient_mixed_attention_refuses_dropout_in_training():
+    """It no longer refuses: in training with dropout its key softmax is
+    dropped out (from the step's generator) before the contraction, as the
+    JAX package computes it (held against JAX with the JAX run's masks in
+    tests/test_torch_zoo_attentions.py).  One seed (the generator's, and
+    torch's, which its stylized residual's dropout draws from) gives one
+    output, another seed another; in eval it is K5's path."""
     x, xf, emb, mask, cond_type = _inputs()
-    port = port_att.EfficientMixedAttention(32, 16, 4, 0.1, TE).train()
-    with pytest.raises(NotImplementedError, match="the rest of the baseline zoo"):
-        port(t(x), xf=t(xf), emb=t(emb), src_mask=t(mask), cond_type=t(cond_type))
+    port = port_att.EfficientMixedAttention(32, 16, 4, 0.1, TE)
+    apply = _module_pair(jax_att.EfficientMixedAttention(32, 16, 4, 0.1, TE), port, x, xf,
+                         emb, mask, cond_type)
+    kw = dict(xf=t(xf), emb=t(emb), src_mask=t(mask), cond_type=t(cond_type))
+    with torch.no_grad():
+        assert_close_scaled(port.eval()(t(x), **kw).numpy(), apply(x, xf, emb, mask, cond_type),
+                            REL, "EfficientMixedAttention eval")
+        port.train()
+        runs = []
+        for s in (1, 1, 2):
+            torch.manual_seed(s)
+            runs.append(port(t(x), generator=torch.Generator().manual_seed(s), **kw))
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
 
 
 # ---------------------------------------------------------- converters

@@ -265,7 +265,7 @@ def test_pipelined_snapshots_are_refused(tiny):
     plain = checkpoint.align_block_layout(cfg, {"params": stacked})["params"]
     assert sorted(plain) == sorted(blocks)
     assert all(np.array_equal(plain[k]["w"], blocks[k]["w"]) for k in blocks)
-    with pytest.raises(NotImplementedError, match="the rest of the baseline zoo"):
+    with pytest.raises(NotImplementedError, match="no converter reads them"):
         checkpoint.load_eval_variables({"model": {"type": "MotionVAE"}}, None,
                                        torch_checkpoint="x.pth")
 

@@ -212,6 +212,17 @@ CASES = [
     # HumanML3D / KIT-ML configs)
     ("grouped_ffn", (16, 64, 256, [min(i // 19, 15) for i in range(311)])),
     ("head_ffn", (6272, 12, 64, 512)), ("head_ffn", (6272, 8, 64, 512)),
+    # the zoo's STMoGen variants at 2 requests (4 CFG rows of 196 frames):
+    # V1's K3 over 98 patches and its SFFN at F 256; V2's text MoE on one
+    # 32-wide text head a body-part head (2464 tokens x 2, D = 32, F = 128),
+    # K5 over 77 text + 196 motion keys in 8 heads, K2 at 8 heads; V3's 23
+    # joint heads: the motion MoE (N = 18032, and 9016 at layer 0, leaning
+    # to one expert), K2 and K3
+    ("stma_linear_attention", (4, 98, 12, 128, 77)), ("head_ffn", (392, 12, 128, 256)),
+    ("grouped_ffn", (16, 32, 128, [min(i // 2, 15) for i in range(26)])),
+    ("fused_linear_attention", (4, 196, 273, 8, 128)), ("head_ffn", (784, 8, 128, 512)),
+    ("moe_route", (18032, 16, 2, "balanced")), ("moe_route", (9016, 16, 2, "skewed")),
+    ("head_ffn", (784, 23, 128, 512)), ("stma_linear_attention", (4, 196, 23, 128, 77)),
 ]
 GRAD_CASES = [c for c in CASES if c[0] in ("fused_linear_attention", "fused_expert_ffn")]
 BF16_CASES = [

@@ -20,7 +20,6 @@ from motioncraft_tpu.models import blocks as jax_blocks
 from motioncraft_tpu.models import moe as jax_moe
 from motioncraft_tpu.models import text_encoder as jax_text
 from motioncraft_tpu_torch.models import attentions, blocks, moe, text_encoder
-from motioncraft_tpu_torch.diffusion import create_diffusion
 from motioncraft_tpu_torch.models.architecture import MotionDiffusion, resolve_device
 from motioncraft_tpu_torch.models.baselines import ReMoDiffuseTransformer
 from motioncraft_tpu_torch.apis.factory import tiny_t2m_cfg
@@ -216,22 +215,42 @@ def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("build", [
-    lambda: attentions.STMA(**STMA_KW, patch_size=2),
-    # expert_axis builds now (tests/test_torch_model_parallel.py); a linear
-    # top-k gate does not (ROADMAP queue 1: the rest of the baseline zoo)
-    lambda: attentions.STMA(**STMA_KW, gate_type="linear_top"),
-    # the non-merged EfficientSelfAttention, use_text_proj, DDPM and the
-    # generic stack's training are ported (tests/test_torch_baselines.py,
-    # tests/test_torch_baseline_train.py); these three branches are not
-    # (ReMoDiffuse's training: the JAX package's loss passes no retrieval)
-    lambda: attentions.STMA(**dict(STMA_KW, num_text_heads=2)),
-    lambda: create_diffusion(model_var_type="learned_range"),
-    lambda: ReMoDiffuseTransformer(text_encoder=dict(clip_width=32,
-                                                     clip_layers=1)).forward_train(),
-])
-def test_cut_branches_raise(build):
-    with pytest.raises(NotImplementedError):
+def _stmogen(**change):
+    from motioncraft_tpu_torch.models.stmogen import STMoGenTransformer
+
+    model = {k: v for k, v in tiny_t2m_cfg()["model"].items() if k != "type"}
+    return STMoGenTransformer(**dict(model, **change))
+
+
+def _pose_encoder_graph_on_motionx():
+    from motioncraft_tpu_torch.models.stmogen import PoseEncoder
+
+    return PoseEncoder(dataset_name="motionx", latent_dim=8, input_dim=322, body_graph=True,
+                       gnn_cfg=dict(graph_cfg=dict(layout="smpl_parts"), in_channels=8,
+                                    base_channels=8, num_stages=2))
+
+
+@pytest.mark.parametrize("build,error,match", [
+    # what the JAX package cannot run either (the patch sizes, the linear
+    # gate, learned variances and one text head a head are ported:
+    # tests/test_torch_zoo_stmogen.py, tests/test_torch_zoo_diffusion.py):
+    # two text heads over six, a patch size on the stack alone, a pipelined
+    # stack with an ffn_cfg list, the 8-node part graph over motionx's 12
+    # part tokens, and ReMoDiffuse's training (the JAX package's loss
+    # passes no retrieval)
+    (lambda: attentions.STMA(**dict(STMA_KW, num_text_heads=2)), ValueError,
+     "2 text heads and 6 heads"),
+    (lambda: _stmogen(patch_size=2), ValueError, "patch_size 2 over a ca_block of patch_size 1"),
+    (lambda: _stmogen(pipeline_axis="pipe", ffn_cfg=[tiny_t2m_cfg()["model"]["ffn_cfg"]] * 2),
+     ValueError, "per-layer ffn_cfg lists cannot be stacked"),
+    (_pose_encoder_graph_on_motionx, ValueError, "8-node graph does not fit 12 part tokens"),
+    (lambda: ReMoDiffuseTransformer(text_encoder=dict(clip_width=32,
+                                                      clip_layers=1)).forward_train(),
+     NotImplementedError, "training ReMoDiffuseTransformer"),
+], ids=["two_text_heads", "patch_on_stack_alone", "pipeline_ffn_list", "graph_on_motionx",
+        "remodiffuse_train"])
+def test_cut_branches_raise(build, error, match):
+    with pytest.raises(error, match=match):
         build()
 
 
